@@ -7,13 +7,15 @@ needs.  Layout mirrors the JAX package:
 
   config    - run configuration dataclasses (the shared opts.json contract)
   ops       - encoding, samplers, compositing, and the fused trunk kernels'
-              wrappers (fused_mlp: K1, fused_trunk_vjp: K2)
+              wrappers (fused_mlp: K1, fused_trunk_vjp: K2 and K3)
   csrc      - the CUDA C++ sources of those kernels, built with nvcc at
               first use
   brdf      - RPV physics
   models    - the network as an nn.Module
   render    - render_rays (spsbrdf-nerf)
-  parallel  - the render step and panel reduction
+  parallel  - the train step (losses, gates, Adam) and the render step
+  losses    - the loss suite;  metrics - mse / psnr
+  data      - the ray batchers (host and device-resident store)
   cli       - flags and opts.json round-trip
   serve     - load_renderer / Renderer
   utils     - npz checkpoint I/O, device resolution

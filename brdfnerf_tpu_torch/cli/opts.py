@@ -18,6 +18,7 @@ import torch
 from ..config import (ModelConfig, RenderConfig, TrainConfig, RunConfig,
                       derive_nr_spv_type)
 from ..ops.fused_mlp import cuda_kernels_cover
+from ..utils.device import resolve_device
 
 
 def train_parser() -> argparse.ArgumentParser:
@@ -229,7 +230,10 @@ def _backend_default(v, device, mcfg: ModelConfig) -> bool:
     return torch.device(device).type == "cuda" and cuda_kernels_cover(mcfg)
 
 
-def to_run_config(args: argparse.Namespace, device="cpu") -> RunConfig:
+def to_run_config(args: argparse.Namespace, device=None) -> RunConfig:
+    """The RunConfig of parsed flags for a run on `device`, which decides
+    the fused kernels' default (None: CUDA, raising without it)."""
+    device = resolve_device(device)
     mcfg = ModelConfig(
         variant=args.model, layers=args.fc_layers, feat=args.fc_feat,
         siren=bool(args.siren), mapping=bool(args.mapping),

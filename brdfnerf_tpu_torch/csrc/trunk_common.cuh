@@ -156,6 +156,18 @@ __device__ __forceinline__ void load_x_tile(const float* __restrict__ x,
   }
 }
 
+// Copy a 64 x 512 bf16 tile from shared memory (row stride SA) to global
+// rows of stride ld elements: 16 bytes a thread, neighbouring threads on
+// neighbouring addresses.
+__device__ __forceinline__ void store_tile(const bf16* s, bf16* __restrict__ g,
+                                           size_t ld) {
+  for (int i = threadIdx.x; i < T * F / 8; i += NT) {
+    const int r = i / (F / 8), c = (i % (F / 8)) * 8;
+    *reinterpret_cast<uint4*>(g + r * ld + c) =
+        *reinterpret_cast<const uint4*>(s + r * SA + c);
+  }
+}
+
 // The (row, col) of accumulator element e (0..3) of fragment (mt, nf) for
 // this thread, in a product whose warp w owns NF n8-fragments.
 template <int NF>

@@ -1,13 +1,15 @@
 // Kernel K2: the siren trunk forward plus the reverse chain of
 // g = d sigma / d x_enc, for the main pass of a spsbrdf render (sigma, the
-// features for the heads, and the analytic normals).
+// features for the heads, and the analytic normals); in training it also
+// saves what the backward kernel K3 (trunk_bwd.cu) reads.
 //
 // Replaces: brdfnerf_tpu/ops/pallas_trunk_vjp.py::_fwd_kernel (pallas_call
-// at pallas_trunk_vjp.py:409), on the path that saves no zs/us (serving).
+// at pallas_trunk_vjp.py:409), both with and without the zs/us outputs.
 //
 // What bounds it: tensor-core operations.  A point costs the forward's
 // 1.897 M multiply-adds plus about as many for the reverse chain (7.59 MFLOP
-// in all), against 512 bytes of input and about 1.5 KB of output.
+// in all), against 512 bytes of input and about 1.5 KB of output (16 KB
+// more with zs/us).
 //
 // Design: as kernel K1 (trunk_common.cuh): 8 warps per 64-point tile,
 // activations in shared memory as bf16, weights staged from L2, mma.sync
@@ -23,6 +25,13 @@
 // layout.  There is no reduction across blocks: the result is
 // deterministic.
 //
+// With ZS (the training instantiation) the kernel also saves, per point and
+// layer, the pre-activation z_l and the chain state u_l (the value the
+// reverse chain meets at layer l, before the act' multiply) in bf16: each
+// tile of them goes through the weight-stage ring, which is idle between
+// two products, and leaves in 16-byte stores of whole rows.  The serving
+// instantiation (ZS = false) has none of that code.
+//
 // gx leaves at the padded width 128; its padded lanes are exactly 0
 // because the padded columns of w0 and the top of wskip are zero.
 
@@ -30,6 +39,7 @@
 
 using namespace trunk;
 
+template <bool ZS>
 __global__ void __launch_bounds__(NT, 1)
     trunk_fwd_grad_kernel(const float* __restrict__ x, int n_tiles,
                           const bf16* __restrict__ w0,
@@ -42,7 +52,9 @@ __global__ void __launch_bounds__(NT, 1)
                           const float* __restrict__ bsig,
                           float* __restrict__ sigma, void* __restrict__ feats,
                           int feats_bf16, float* __restrict__ gx,
-                          float* __restrict__ scratch, int layers, int skip) {
+                          float* __restrict__ scratch,
+                          bf16* __restrict__ zs, bf16* __restrict__ us,
+                          int layers, int skip) {
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* act = reinterpret_cast<bf16*>(smem + OFF_ACT);
   bf16* xs = reinterpret_cast<bf16*>(smem + OFF_X);
@@ -54,6 +66,10 @@ __global__ void __launch_bounds__(NT, 1)
   // d1s[(l * ACC + j) * NT + tid]
   float* d1s = scratch + (size_t)blockIdx.x * (layers - 1) * ACC * NT;
   const int last = layers - 1;
+  // zs/us rows hold layers x 512 values; a tile of one layer is staged at
+  // row stride SA in the (idle) weight-stage ring
+  const size_t ld = (size_t)layers * F;
+  bf16* zst = stage;
 
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const size_t row0 = (size_t)tile * T;
@@ -75,14 +91,24 @@ __global__ void __launch_bounds__(NT, 1)
             int row, col;
             acc_pos<8>(mt, nf, 2 * hf, row, col);
             float h0, h1, d0, d1;
-            act_eval(acc[mt][nf][2 * hf] + b[col], w0s, h0, d0);
-            act_eval(acc[mt][nf][2 * hf + 1] + b[col + 1], w0s, h1, d1);
+            const float z0 = acc[mt][nf][2 * hf] + b[col];
+            const float z1 = acc[mt][nf][2 * hf + 1] + b[col + 1];
+            act_eval(z0, w0s, h0, d0);
+            act_eval(z1, w0s, h1, d1);
             *reinterpret_cast<__nv_bfloat162*>(act + row * SA + col) =
                 __floats2bfloat162_rn(h0, h1);
+            if (ZS)
+              *reinterpret_cast<__nv_bfloat162*>(zst + row * SA + col) =
+                  __floats2bfloat162_rn(z0, z1);
             const int j = (mt * 8 + nf) * 4 + 2 * hf;
             d1l[j * NT] = d0;
             d1l[(j + 1) * NT] = d1;
           }
+      if (ZS) {
+        __syncthreads();
+        store_tile(zst, zs + row0 * ld + (size_t)i * F, ld);
+        __syncthreads();   // the next product restages the ring
+      }
     }
     forward_layer(acc, last, skip, xs, act, w0, wmid, wskip, stage);
     {
@@ -96,7 +122,12 @@ __global__ void __launch_bounds__(NT, 1)
             int row, col;
             acc_pos<8>(mt, nf, e, row, col);
             acc[mt][nf][e] += b[col];
+            if (ZS) zst[row * SA + col] = __float2bfloat16_rn(acc[mt][nf][e]);
           }
+      if (ZS) {
+        __syncthreads();
+        store_tile(zst, zs + row0 * ld + (size_t)last * F, ld);
+      }
     }
 
     // ------------------------------------- features and the sigma head
@@ -146,10 +177,18 @@ __global__ void __launch_bounds__(NT, 1)
           act_eval(acc[mt][nf][2 * hf], 1.f, h, d0);
           act_eval(acc[mt][nf][2 * hf + 1], 1.f, h, d1);
           const float u = rowv[row];
+          const float u0 = u * wsig[col], u1 = u * wsig[col + 1];
           *reinterpret_cast<__nv_bfloat162*>(act + row * SA + col) =
-              __floats2bfloat162_rn(d0 * (u * wsig[col]),
-                                    d1 * (u * wsig[col + 1]));
+              __floats2bfloat162_rn(d0 * u0, d1 * u1);
+          if (ZS)
+            *reinterpret_cast<__nv_bfloat162*>(zst + row * SA + col) =
+                __floats2bfloat162_rn(u0, u1);
         }
+    if (ZS) {
+      __syncthreads();
+      store_tile(zst, us + row0 * ld + (size_t)last * F, ld);
+      __syncthreads();
+    }
 
     for (int i = last; i >= 1; --i) {
       if (i == skip) {
@@ -193,7 +232,16 @@ __global__ void __launch_bounds__(NT, 1)
             *reinterpret_cast<__nv_bfloat162*>(act + row * SA + col) =
                 __floats2bfloat162_rn(d0 * acc[mt][nf][2 * hf],
                                       d1 * acc[mt][nf][2 * hf + 1]);
+            if (ZS)
+              *reinterpret_cast<__nv_bfloat162*>(zst + row * SA + col) =
+                  __floats2bfloat162_rn(acc[mt][nf][2 * hf],
+                                        acc[mt][nf][2 * hf + 1]);
           }
+      if (ZS) {
+        __syncthreads();
+        store_tile(zst, us + row0 * ld + (size_t)(i - 1) * F, ld);
+        __syncthreads();
+      }
     }
 
     // layer 0: gx += g_0 . w0
@@ -218,25 +266,26 @@ __global__ void __launch_bounds__(NT, 1)
 
 // x (n_rows, 128) f32 with n_rows % 64 == 0; weights as trunk_sigma_launch.
 // Outputs sigma (n_rows,) f32, feats (n_rows, 512) bf16 when feats_bf16
-// else f32, gx (n_rows, 128) f32.  scratch holds
+// else f32, gx (n_rows, 128) f32, and, when zs is not null, zs and us
+// (n_rows, layers * 512) bf16.  scratch holds
 // n_blocks * (layers-1) * 64 * 512 floats.  Returns a cudaError_t.
 extern "C" int trunk_fwd_grad_launch(
     const float* x, int n_rows, int n_blocks, const void* w0, const float* b0,
     const void* wmid, const float* bmid, const void* wskip,
     const float* bskip, const float* wsig, const float* bsig, float* sigma,
-    void* feats, int feats_bf16, float* gx, float* scratch, int layers,
-    int skip, void* stream) {
+    void* feats, int feats_bf16, float* gx, float* scratch, void* zs,
+    void* us, int layers, int skip, void* stream) {
   if (n_rows <= 0 || n_rows % T != 0 || n_blocks <= 0 || layers < 3 ||
-      skip <= 0 || skip >= layers)
+      skip <= 0 || skip >= layers || (zs == nullptr) != (us == nullptr))
     return (int)cudaErrorInvalidValue;
+  auto kernel = zs ? trunk_fwd_grad_kernel<true> : trunk_fwd_grad_kernel<false>;
   cudaError_t e = cudaFuncSetAttribute(
-      trunk_fwd_grad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SMEM_BYTES);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (e != cudaSuccess) return (int)e;
-  trunk_fwd_grad_kernel<<<n_blocks, NT, SMEM_BYTES,
-                          static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<n_blocks, NT, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
       x, n_rows / T, static_cast<const bf16*>(w0), b0,
       static_cast<const bf16*>(wmid), bmid, static_cast<const bf16*>(wskip),
-      bskip, wsig, bsig, sigma, feats, feats_bf16, gx, scratch, layers, skip);
+      bskip, wsig, bsig, sigma, feats, feats_bf16, gx, scratch,
+      static_cast<bf16*>(zs), static_cast<bf16*>(us), layers, skip);
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,6 @@
-"""The differentiated trunk's forward: sigma, feats and g = d sigma / d x
-from one kernel (counterpart of the JAX package's ops/pallas_trunk_vjp.py,
-forward only).
+"""The differentiated trunk: sigma, feats and g = d sigma / d x from one
+kernel, and its hand-derived second-order VJP from another (counterpart of
+the JAX package's ops/pallas_trunk_vjp.py).
 
     sigma(x), feats(x) = h_{L-1}(x),  g(x) = d sigma / d x_enc
 
@@ -10,17 +10,32 @@ g_skip W_top to x_enc), g_x = g_0 W_0 + g_skip W_top.  The positional
 encoding's Jacobian is chained outside the kernel:
 d sigma / d xyz = (g_x * cos(m)) P^T, with m = xyz P + phase.
 
-On a CUDA tensor `_run_fwd` launches kernel K2 (csrc/trunk_fwd_grad.cu);
-on a CPU tensor it runs `_trunk_fwd_grad_plain`, the plain twin of the
-Pallas kernel's arithmetic.  The backward kernel (K3) and the
-`torch.autograd.Function` come with the training slice, so on a CUDA tensor
-the wrapper refuses to run where gradients are requested.
+The backward differentiates S = <c_sigma, sigma> + <c_feats, feats>
++ <c_g, g>.  The g term is the tangent output of a JVP with input tangent
+t = c_g, so a tangent forward (tz_l, th_l) turns the second-order VJP into a
+first-order reverse sweep over the (primal, tangent) pairs:
+
+    a_z  = act'(z) * a_h + act''(z) * tz * b_th     (cotangent on z)
+    b_tz = act'(z) * b_th                           (cotangent on tz)
+    dW  += h_prev^T a_z + th_prev^T b_tz,  db += sum_rows a_z
+    a_h_prev = a_z W
+
+The b_th states are the forward's u states, so the forward saves them (us)
+with the pre-activations (zs) when gradients are wanted, and the backward
+loads both instead of recomputing.
+
+On a CUDA tensor `_run_fwd` launches kernel K2 (csrc/trunk_fwd_grad.cu) and
+`_run_bwd` kernel K3 (csrc/trunk_bwd.cu); on a CPU tensor they run
+`_trunk_fwd_grad_plain` and `_trunk_bwd_plain`, the plain twins of the
+Pallas kernels' arithmetic.  `TrunkCore` is the autograd Function around the
+pair.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from types import SimpleNamespace
+from typing import Dict, List
 
 import torch
 
@@ -35,23 +50,34 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 TRUNK_FWD_GRAD = CudaKernel(
     "trunk_fwd_grad", "trunk_fwd_grad_launch",
-    [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I,
-     _P])
+    [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P,
+     _P, _I, _I, _P])
+TRUNK_BWD = CudaKernel(
+    "trunk_bwd", "trunk_bwd_launch",
+    [_P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+     _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P])
 
 
-def _act_all(z, w0: float, siren: bool, fast: bool):
-    """(h, act'(z)) sharing one range reduction (pallas_trunk_vjp.py:82-103,
-    same expression order)."""
+def _act_all(z, w0: float, siren: bool, fast: bool, want_d2: bool = False):
+    """(h, act'(z)) sharing one range reduction, plus act''(z) when
+    want_d2 (pallas_trunk_vjp.py:82-103, same expression order)."""
     if not siren:
-        return torch.clamp(z, min=0.0), (z > 0.0).to(z.dtype)
+        out = (torch.clamp(z, min=0.0), (z > 0.0).to(z.dtype))
+        return out + (torch.zeros_like(z),) if want_d2 else out
     x = w0 * z
     if not fast:
-        return torch.sin(x), w0 * torch.cos(x)
+        sx = torch.sin(x)
+        out = (sx, w0 * torch.cos(x))
+        return out + (-(w0 * w0) * sx,) if want_d2 else out
     v = x - _TWO_PI * torch.round(x * _INV_2PI)
     v2 = v * v
     h = v * (_C1 + v2 * (_C3 + v2 * (_C5 + v2 * (_C7 + v2 * _C9))))
     p1 = _C1 + v2 * (3 * _C3 + v2 * (5 * _C5 + v2 * (7 * _C7 + v2 * 9 * _C9)))
-    return h, w0 * p1
+    if not want_d2:
+        return h, w0 * p1
+    d2 = (w0 * w0) * v * (6 * _C3 + v2 * (20 * _C5
+                                          + v2 * (42 * _C7 + v2 * 72 * _C9)))
+    return h, w0 * p1, d2
 
 
 def _mm(a, w, od):
@@ -64,15 +90,38 @@ def _mm_t(a, w, od):
     return a.to(od).float() @ w.to(od).float()
 
 
-def _trunk_fwd_grad_plain(packed: Dict, cfg: ModelConfig, x: torch.Tensor):
+def _outer(a, b, od):
+    """a.T @ b: (n, M), (n, N) -> (M, N), operands rounded to od."""
+    return a.to(od).float().t() @ b.to(od).float()
+
+
+def _w0_of(i: int) -> float:
+    return 30.0 if i == 0 else 1.0
+
+
+def _saved_dtype(cfg: ModelConfig) -> torch.dtype:
+    """zs/us (and feats) are stored in the activation-storage dtype: bf16
+    under bfloat16_all, f32 otherwise (pallas_trunk_vjp.py:396-408)."""
+    return (torch.bfloat16 if cfg.compute_dtype == "bfloat16_all"
+            else torch.float32)
+
+
+def _split_skip(packed: Dict):
+    ein_p = packed["w0"].shape[1]
+    return packed["w_skip"][:, :ein_p], packed["w_skip"][:, ein_p:]
+
+
+def _trunk_fwd_grad_plain(packed: Dict, cfg: ModelConfig, x: torch.Tensor,
+                          want_zs: bool = False):
     """Plain twin of K2: the Pallas _forward_chain + _grad_chain, every
     product on operands cast to the compute dtype with f32 accumulation.
-    Returns (sigma (n,), feats (n, F), gx (n, Ein_p))."""
+    Returns (sigma (n,), feats (n, F), gx (n, Ein_p)), plus zs and us
+    (n, L*F) in the saved dtype with want_zs: the pre-activation z_i and
+    the chain state u_i seen at layer i (before the act' multiply)."""
     od = weight_dtype(cfg)
     layers, skip = cfg.layers, cfg.skips[0]
-    ein_p = packed["w0"].shape[1]
-    w_top, w_bot = packed["w_skip"][:, :ein_p], packed["w_skip"][:, ein_p:]
-    d1s = []
+    w_top, w_bot = _split_skip(packed)
+    d1s, zs = [], []
     h = None
     mid = 0
     for i in range(layers):
@@ -83,15 +132,16 @@ def _trunk_fwd_grad_plain(packed: Dict, cfg: ModelConfig, x: torch.Tensor):
         else:
             z = _mm(h, packed["w_mid"][mid], od) + packed["b_mid"][mid]
             mid += 1
-        h, d1 = _act_all(z, 30.0 if i == 0 else 1.0, cfg.siren,
-                         cfg.fast_sin)
+        h, d1 = _act_all(z, _w0_of(i), cfg.siren, cfg.fast_sin)
         d1s.append(d1)
+        zs.append(z)
     zsig = _mm(h, packed["w_sigma"][None, :], od)[:, 0] + packed["b_sigma"]
     sigma = torch.logaddexp(zsig, torch.zeros_like(zsig))
-    feats = h.to(torch.bfloat16 if cfg.compute_dtype == "bfloat16_all"
-                 else torch.float32)
+    feats = h.to(_saved_dtype(cfg))
 
     u = _mm_t(torch.sigmoid(zsig)[:, None], packed["w_sigma"][None, :], od)
+    us = [None] * layers
+    us[layers - 1] = u
     gx = None
     mid = layers - 3
     for i in range(layers - 1, -1, -1):
@@ -103,14 +153,97 @@ def _trunk_fwd_grad_plain(packed: Dict, cfg: ModelConfig, x: torch.Tensor):
             c = _mm_t(g, w_top, od)
             gx = c if gx is None else gx + c
             u = _mm_t(g, w_bot, od)
+            us[i - 1] = u
         else:
             u = _mm_t(g, packed["w_mid"][mid], od)
+            us[i - 1] = u
             mid -= 1
-    return sigma, feats, gx
+    if not want_zs:
+        return sigma, feats, gx
+    sd = _saved_dtype(cfg)
+    return (sigma, feats, gx, torch.cat(zs, 1).to(sd),
+            torch.cat(us, 1).to(sd))
 
 
-def _trunk_fwd_grad_cuda(packed: Dict, cfg: ModelConfig, x: torch.Tensor):
+def _trunk_bwd_plain(packed: Dict, cfg: ModelConfig, x, cs, cf, cg, zs, us):
+    """Plain twin of K3, the Pallas _bwd_kernel (pallas_trunk_vjp.py:240-338)
+    in the same expression order.  x, cg (n, Ein_p) f32, cs (n,) f32, cf
+    (n, F), zs/us (n, L*F).  Returns the packed weight grads in (in, out)
+    layout: (dw0 (Ein_p, F), db0 (F,), dwm (L-2, F, F), dbm (L-2, F),
+    dwst (Ein_p, F), dwsb (F, F), dbs (F,), dwsig (F,), dbsig (1,))."""
+    od = weight_dtype(cfg)
+    layers, skip, feat = cfg.layers, cfg.skips[0], cfg.feat
+    w_top, w_bot = _split_skip(packed)
+    wsig = packed["w_sigma"][None, :]
+    hs, d1s, d2s, bths = [], [], [], []
+    for i in range(layers):
+        z = zs[:, i * feat:(i + 1) * feat].float()
+        h, d1, d2 = _act_all(z, _w0_of(i), cfg.siren, cfg.fast_sin, True)
+        hs.append(h)
+        d1s.append(d1)
+        d2s.append(d2)
+        bths.append(us[:, i * feat:(i + 1) * feat].float())
+    zsig = _mm(hs[-1], wsig, od)[:, 0] + packed["b_sigma"]
+
+    # tangent forward, seeded by t = c_g
+    tzs, ths = [], []
+    th = None
+    mid = 0
+    for i in range(layers):
+        if i == 0:
+            tz = _mm(cg, packed["w0"], od)
+        elif i == skip:
+            tz = _mm(cg, w_top, od) + _mm(th, w_bot, od)
+        else:
+            tz = _mm(th, packed["w_mid"][mid], od)
+            mid += 1
+        th = d1s[i] * tz
+        tzs.append(tz)
+        ths.append(th)
+    tzsig = _mm(th, wsig, od)[:, 0]
+
+    # head cotangents
+    sp1 = torch.sigmoid(zsig)
+    sp2 = sp1 * (1.0 - sp1)
+    a_z = (cs * sp1 + sp2 * tzsig)[:, None]
+    b_tz = sp1[:, None]
+    dwsig = (_outer(hs[-1], a_z, od) + _outer(ths[-1], b_tz, od))[:, 0]
+    dbsig = torch.sum(a_z, 0)
+    a_h = _mm_t(a_z, wsig, od) + cf.float()
+
+    # reverse sweep over the (primal, tangent) pairs
+    dwm: List = [None] * (layers - 2)
+    dbm: List = [None] * (layers - 2)
+    mid = layers - 3
+    for i in range(layers - 1, -1, -1):
+        a_zl = d1s[i] * a_h + d2s[i] * tzs[i] * bths[i]
+        b_tzl = d1s[i] * bths[i]
+        if i == 0:
+            dw0 = _outer(x, a_zl, od) + _outer(cg, b_tzl, od)
+            db0 = torch.sum(a_zl, 0)
+        elif i == skip:
+            dwst = _outer(x, a_zl, od) + _outer(cg, b_tzl, od)
+            dwsb = _outer(hs[i - 1], a_zl, od) + _outer(ths[i - 1], b_tzl, od)
+            dbs = torch.sum(a_zl, 0)
+            a_h = _mm_t(a_zl, w_bot, od)
+        else:
+            dwm[mid] = (_outer(hs[i - 1], a_zl, od)
+                        + _outer(ths[i - 1], b_tzl, od))
+            dbm[mid] = torch.sum(a_zl, 0)
+            a_h = _mm_t(a_zl, packed["w_mid"][mid], od)
+            mid -= 1
+    return (dw0, db0, torch.stack(dwm), torch.stack(dbm), dwst, dwsb, dbs,
+            dwsig, dbsig)
+
+
+def _trunk_fwd_grad_cuda(packed: Dict, cfg: ModelConfig, x: torch.Tensor,
+                         want_zs: bool = False):
     check_kernel_inputs(cfg, packed, x)
+    if want_zs and cfg.compute_dtype != "bfloat16_all":
+        raise ValueError(
+            "K2 saves zs/us in bf16, the bfloat16_all contract; "
+            f"compute_dtype={cfg.compute_dtype!r} saves them in f32, which "
+            "the CUDA kernels do not take")
     n = x.shape[0]
     dev = x.device
     sigma = torch.empty(n, dtype=torch.float32, device=dev)
@@ -118,6 +251,11 @@ def _trunk_fwd_grad_cuda(packed: Dict, cfg: ModelConfig, x: torch.Tensor):
     feats = torch.empty(n, FEAT, device=dev, dtype=torch.bfloat16
                         if feats_bf16 else torch.float32)
     gx = torch.empty(n, LANE, dtype=torch.float32, device=dev)
+    zs = us = None
+    if want_zs:
+        zs = torch.empty(n, cfg.layers * FEAT, dtype=torch.bfloat16,
+                         device=dev)
+        us = torch.empty_like(zs)
     # persistent grid, one block per SM; each block owns act'(z) of
     # layers 0..L-2 for its current tile in this scratch
     n_blocks = min(n // TILE_N,
@@ -130,33 +268,180 @@ def _trunk_fwd_grad_cuda(packed: Dict, cfg: ModelConfig, x: torch.Tensor):
         packed["b_mid"].data_ptr(), packed["w_skip"].data_ptr(),
         packed["b_skip"].data_ptr(), packed["w_sigma"].data_ptr(),
         packed["b_sigma"].data_ptr(), sigma.data_ptr(), feats.data_ptr(),
-        int(feats_bf16), gx.data_ptr(), scratch.data_ptr(), cfg.layers,
+        int(feats_bf16), gx.data_ptr(), scratch.data_ptr(),
+        None if zs is None else zs.data_ptr(),
+        None if us is None else us.data_ptr(), cfg.layers,
         cfg.skips[0], torch.cuda.current_stream(dev).cuda_stream)
+    if want_zs:
+        return sigma, feats, gx, zs, us
     return sigma, feats, gx
 
 
-def _run_fwd(cfg: ModelConfig, packed: Dict, x_enc: torch.Tensor):
+def check_bwd_inputs(cfg: ModelConfig, packed: Dict, x, cs, cf, cg, zs, us):
+    """What K3 takes; anything else raises."""
+    check_kernel_inputs(cfg, packed, x)
+    n, lf = x.shape[0], cfg.layers * FEAT
+    want = {"cs": (cs, (n,), (torch.float32,)),
+            "cf": (cf, (n, FEAT), (torch.bfloat16, torch.float32)),
+            "cg": (cg, (n, LANE), (torch.float32,)),
+            "zs": (zs, (n, lf), (torch.bfloat16,)),
+            "us": (us, (n, lf), (torch.bfloat16,))}
+    for k, (v, shape, dts) in want.items():
+        if not (v.device == x.device and v.is_contiguous()
+                and tuple(v.shape) == shape and v.dtype in dts):
+            raise ValueError(f"{k} must be a contiguous {dts} tensor {shape} "
+                             f"on {x.device}, got {v.dtype} "
+                             f"{tuple(v.shape)} on {v.device}")
+
+
+def _trunk_bwd_cuda(packed: Dict, cfg: ModelConfig, x, cs, cf, cg, zs, us):
+    check_bwd_inputs(cfg, packed, x, cs, cf, cg, zs, us)
+    n, dev = x.shape[0], x.device
+    layers, F = cfg.layers, FEAT
+
+    def f32(*shape):
+        return torch.empty(*shape, dtype=torch.float32, device=dev)
+
+    def bf(*shape):
+        return torch.empty(*shape, dtype=torch.bfloat16, device=dev)
+
+    n_tiles = n // TILE_N
+    n_blocks = min(n_tiles,
+                   torch.cuda.get_device_properties(dev).multi_processor_count)
+    # scratch: the bf16 operands of every layer's weight-gradient product
+    # (x|t, h_prev|th_prev, a_z|b_tz), per-tile column sums of a_z and the
+    # sigma head's partial grads, and each block's tangent pre-activations
+    xt, hth, azbtz = bf(2, n, LANE), bf(layers - 1, 2, n, F), bf(layers, 2, n, F)
+    part, part_bs = f32(n_tiles, layers + 1, F), f32(n_tiles)
+    tzs = f32(n_blocks, layers, TILE_N * F)
+    outs = (f32(LANE, F), f32(F), f32(layers - 2, F, F), f32(layers - 2, F),
+            f32(LANE, F), f32(F, F), f32(F), f32(F), f32(1))
+    TRUNK_BWD(
+        x.data_ptr(), cs.data_ptr(), cf.data_ptr(),
+        int(cf.dtype == torch.bfloat16), cg.data_ptr(), zs.data_ptr(),
+        us.data_ptr(), n, n_blocks, packed["w0"].data_ptr(),
+        packed["w_mid"].data_ptr(), packed["w_skip"].data_ptr(),
+        packed["w_sigma"].data_ptr(), packed["b_sigma"].data_ptr(),
+        xt.data_ptr(), hth.data_ptr(), azbtz.data_ptr(), part.data_ptr(),
+        part_bs.data_ptr(), tzs.data_ptr(), *(o.data_ptr() for o in outs),
+        layers, cfg.skips[0], torch.cuda.current_stream(dev).cuda_stream)
+    return outs
+
+
+def _run_fwd(cfg: ModelConfig, packed: Dict, x_enc: torch.Tensor,
+             want_zs: bool = False):
     """(sigma (n,), feats (n, F), gx (n, Ein_p)) of encoded points; gx keeps
-    the padded lane width, whose extra lanes are exactly 0."""
+    the padded lane width, whose extra lanes are exactly 0.  With want_zs
+    also zs and us, padded to the kernel's row count like the JAX
+    package's."""
     n = x_enc.shape[0]
     x = pad_rows_lanes(x_enc, _round_up(max(n, TILE_N), TILE_N),
                        packed["w0"].shape[1])
     if x.device.type == "cpu":
-        sigma, feats, gx = _trunk_fwd_grad_plain(packed, cfg, x)
+        out = _trunk_fwd_grad_plain(packed, cfg, x, want_zs)
     else:
-        sigma, feats, gx = _trunk_fwd_grad_cuda(packed, cfg, x)
-    return sigma[:n], feats[:n], gx[:n]
+        out = _trunk_fwd_grad_cuda(packed, cfg, x, want_zs)
+    return tuple(v[:n] for v in out[:3]) + tuple(out[3:])
+
+
+def _run_bwd(cfg: ModelConfig, packed: Dict, x_enc, c_sigma, c_feats, c_g,
+             zs, us):
+    """The packed weight grads of S (see the module docstring) from the
+    saved zs/us; rows are padded to zs's row count with zero cotangents,
+    which contribute exactly 0."""
+    n_p = zs.shape[0]
+    ein_p = packed["w0"].shape[1]
+    x = pad_rows_lanes(x_enc, n_p, ein_p)
+    cg = pad_rows_lanes(c_g, n_p, ein_p)
+    n = c_sigma.shape[0]
+    cs = torch.zeros(n_p, dtype=torch.float32, device=x.device)
+    cs[:n] = c_sigma
+    cf = torch.zeros(n_p, c_feats.shape[1], dtype=c_feats.dtype,
+                     device=x.device)
+    cf[:n] = c_feats
+    if x.device.type == "cpu":
+        return _trunk_bwd_plain(packed, cfg, x, cs, cf, cg, zs, us)
+    return _trunk_bwd_cuda(packed, cfg, x, cs, cf, cg, zs, us)
+
+
+def _unpack_grads(cfg: ModelConfig, ein: int, outs) -> List[torch.Tensor]:
+    """Packed (in, out) grads -> the grads of trunk_params(net), in the
+    port's (out, in) Dense layout: [w, b] of every fc_net layer, then the
+    sigma head's w (1, F) and b (1,)."""
+    (dw0, db0, dwm, dbm, dwst, dwsb, dbs, dwsig, dbsig) = outs
+    grads: List[torch.Tensor] = []
+    mid = 0
+    for i in range(cfg.layers):
+        if i == 0:
+            grads += [dw0[:ein].t(), db0]
+        elif i == cfg.skips[0]:
+            grads += [torch.cat([dwst[:ein], dwsb], 0).t(), dbs]
+        else:
+            grads += [dwm[mid].t(), dbm[mid]]
+            mid += 1
+    return grads + [dwsig[None, :], dbsig]
+
+
+def trunk_params(net) -> List[torch.Tensor]:
+    """The parameters the fused trunk reads: [w, b] of every fc_net layer,
+    then the sigma head's [w, b]."""
+    out: List[torch.Tensor] = []
+    for layer in list(net["fc_net"]) + [net["sigma_from_xyz"][0]]:
+        out += [layer.w, layer.b]
+    return out
+
+
+def _pack_params(cfg: ModelConfig, params) -> Dict[str, torch.Tensor]:
+    """pack_trunk_weights from the flat trunk_params list."""
+    layers = [SimpleNamespace(w=params[2 * i], b=params[2 * i + 1])
+              for i in range(len(params) // 2)]
+    view = {"fc_net": layers[:-1], "sigma_from_xyz": layers[-1:]}
+    return pack_trunk_weights(view, cfg, weight_dtype(cfg))
+
+
+class TrunkCore(torch.autograd.Function):
+    """(sigma, feats, d sigma / d x_enc) with the hand-derived second-order
+    VJP: the forward runs K2 saving zs/us, the backward runs K3.  x_enc
+    carries no gradient (ray points are constants); like the JAX package's
+    _trunk_core_bwd, its grad is zeros."""
+
+    @staticmethod
+    def forward(ctx, cfg: ModelConfig, x_enc: torch.Tensor, *params):
+        packed = _pack_params(cfg, params)
+        sigma, feats, gx, zs, us = _run_fwd(cfg, packed, x_enc, want_zs=True)
+        ctx.cfg, ctx.packed, ctx.zs, ctx.us = cfg, packed, zs, us
+        ctx.save_for_backward(x_enc)
+        ctx.ein = params[0].shape[1]
+        ctx.set_materialize_grads(False)
+        return sigma, feats, gx
+
+    @staticmethod
+    def backward(ctx, c_sigma, c_feats, c_g):
+        (x,) = ctx.saved_tensors
+        n, dev = x.shape[0], x.device
+        if c_sigma is None:
+            c_sigma = torch.zeros(n, dtype=torch.float32, device=dev)
+        if c_feats is None:
+            c_feats = torch.zeros(n, ctx.cfg.feat, device=dev,
+                                  dtype=_saved_dtype(ctx.cfg))
+        if c_g is None:
+            c_g = torch.zeros(n, ctx.packed["w0"].shape[1],
+                              dtype=torch.float32, device=dev)
+        outs = _run_bwd(ctx.cfg, ctx.packed, x, c_sigma.float(),
+                        c_feats.contiguous(), c_g.float(), ctx.zs, ctx.us)
+        grads = _unpack_grads(ctx.cfg, ctx.ein, outs)
+        dx = torch.zeros_like(x) if ctx.needs_input_grad[1] else None
+        return (None, dx, *grads)
 
 
 def trunk_core(net, cfg: ModelConfig, x_enc: torch.Tensor):
     """(sigma, feats, d sigma / d x_enc) of the trunk at encoded points.
-    x_enc carries no gradient (ray points are constants)."""
-    if x_enc.is_cuda and torch.is_grad_enabled() and any(
-            p.requires_grad for name in ("fc_net", "sigma_from_xyz")
-            for p in net[name].parameters()):
-        raise RuntimeError(
-            "the fused trunk's backward kernel is not ported yet (ROADMAP.md "
-            "Queue 2, K3): run under torch.no_grad() or with fused_trunk off")
+    x_enc carries no gradient.  Where autograd records and a trunk
+    parameter requires grad, this goes through TrunkCore (K2 saving zs/us,
+    then K3 in the backward); otherwise K2 alone, saving nothing."""
+    params = trunk_params(net)
+    if torch.is_grad_enabled() and any(p.requires_grad for p in params):
+        return TrunkCore.apply(cfg, x_enc.detach(), *params)
     packed = pack_trunk_weights(net, cfg, weight_dtype(cfg))
     return _run_fwd(cfg, packed, x_enc.detach())
 

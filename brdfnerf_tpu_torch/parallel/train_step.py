@@ -1,14 +1,322 @@
-"""The serving pieces of the JAX package's parallel/train_step.py: the
-render step and the per-sample -> per-ray panel reduction."""
+"""The train step and the render step (counterpart of the JAX package's
+parallel/train_step.py, single device).
+
+The JAX package compiles render, losses, schedule gates and the optimizer
+update into one program; here they run eagerly in that order, and the
+trunk's differentiated pass goes through the fused kernels K2/K3
+(ops/fused_trunk_vjp.TrunkCore) when rcfg.fused_trunk is on.  Schedule gates
+are plain booleans computed on the host from the step count, as the JAX
+package computes them in-program (gates_from_step).
+
+Random draws: the JAX package folds the step into a base key; here each
+step draws from a torch.Generator seeded from (seed, step), or takes the
+draws it is handed (a test hands in the JAX package's).
+"""
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import math
+from typing import Callable, Dict, NamedTuple, Optional
 
+import numpy as np
 import torch
 
-from ..config import ModelConfig, RenderConfig
+from ..config import ModelConfig, RenderConfig, TrainConfig
+from ..models.network import init_network, not_ported
 from ..render.render import RenderInputs, render_rays
+from .. import losses as L
+from ..metrics import psnr as psnr_metric
+
+
+class TrainGates(NamedTuple):
+    """The schedule gates of one step (main.py:60-63,202-230)."""
+    cos_irra_on: bool     # train_steps > cos_irra_on
+    ds_on: bool           # train_steps < ds_drop
+    nrrg_on: bool         # train_steps > nrrg_on
+    beta_warmup: bool     # epoch < first_beta_epoch -> loss without beta
+    hs_on: bool           # epoch > 2
+
+
+class GateSchedule(NamedTuple):
+    """Schedule thresholds (fraction * max_steps, precomputed by the
+    trainer) from which each step's gates follow."""
+    t_cos_irra: float
+    t_ds_drop: float
+    t_nrrg: float
+    steps_per_epoch: int
+    first_beta_epoch: int
+
+
+def gates_from_step(step: int, sched: GateSchedule) -> TrainGates:
+    """main.py:60-63,202-230 schedule comparisons."""
+    epoch = step // sched.steps_per_epoch
+    return TrainGates(
+        cos_irra_on=step > sched.t_cos_irra,
+        ds_on=step < sched.t_ds_drop,
+        nrrg_on=step > sched.t_nrrg,
+        beta_warmup=epoch < sched.first_beta_epoch,
+        hs_on=epoch > 2)
+
+
+class TrainState(NamedTuple):
+    """The network (its parameters), the torch optimizer holding Adam's
+    moments, and the number of updates done."""
+    params: torch.nn.Module
+    opt_state: torch.optim.Optimizer
+    step: int
+
+
+def _lr_schedule(tcfg: TrainConfig, steps_per_epoch: int
+                 ) -> Callable[[int], float]:
+    """optax's exponential_decay(staircase) after an optional
+    linear_schedule warmup, joined at the warmup's end (join_schedules):
+    update k uses lr * gamma^floor((k - warm) / spe) past the warmup and
+    lr/10 -> lr linearly within it.  Values are rounded to f32, as optax's
+    are."""
+    spe = max(1, steps_per_epoch)
+    warm = tcfg.lr_warmup_steps
+    if warm == -1:
+        warm = 2 * spe
+    elif warm < 0:          # -2 = explicitly off
+        warm = 0
+
+    def decay(k: int) -> float:
+        return tcfg.lr * tcfg.lr_gamma ** math.floor(k / spe)
+
+    def sched(k: int) -> float:
+        if k < warm:
+            frac = 1.0 - min(max(k, 0), warm) / warm
+            v = (tcfg.lr * 0.1 - tcfg.lr) * frac + tcfg.lr
+        else:
+            v = decay(k - warm)
+        return float(np.float32(v))
+    return sched
+
+
+class Optimizer:
+    """Adam (optax.adam's defaults) with the per-epoch staircase of
+    make_optimizer; `step(opt, net, k)` applies update k, counting updates
+    as optax does."""
+
+    def __init__(self, schedule: Callable[[int], float]):
+        self.schedule = schedule
+
+    def init(self, net: torch.nn.Module) -> torch.optim.Optimizer:
+        params = list(net.parameters())
+        fused = params[0].is_cuda
+        return torch.optim.Adam(params, lr=self.schedule(0),
+                                betas=(0.9, 0.999), eps=1e-8, fused=fused)
+
+    def step(self, opt: torch.optim.Optimizer, k: int) -> None:
+        # a parameter the loss does not reach gets a zero grad, as under
+        # jax.grad: its moments decay and its step count advances with
+        # every other's (torch.optim.Adam would skip it)
+        for group in opt.param_groups:
+            group["lr"] = self.schedule(k)
+            for p in group["params"]:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+        opt.step()
+
+
+def make_optimizer(tcfg: TrainConfig, steps_per_epoch: int):
+    """Adam + per-epoch StepLR gamma (main.py:147-168,
+    train_utils.py:153-155), with the optional linear warmup
+    (tcfg.lr_warmup_steps; -1 = two epochs).  Returns (optimizer,
+    schedule)."""
+    sched = _lr_schedule(tcfg, steps_per_epoch)
+    return Optimizer(sched), sched
+
+
+def create_train_state(mcfg: ModelConfig, tcfg: TrainConfig,
+                       steps_per_epoch: int, seed: int = 0,
+                       flat: Optional[Dict[str, np.ndarray]] = None,
+                       n_importance: int = 0, device=None):
+    """A fresh TrainState and its Optimizer.  The weights come from a
+    torch.Generator seeded with `seed`, or from `flat` (the npz layout,
+    e.g. the JAX package's params through utils.checkpoint._flatten).  On
+    CUDA unless `device` names another."""
+    from ..utils.checkpoint import params_from_flat
+    from ..utils.device import resolve_device
+    if n_importance > 0:
+        raise not_ported("the fine model (n_importance > 0)", 9)
+    if mcfg.beta:
+        raise not_ported("the beta head with the t-embedding", 9)
+    device = resolve_device(device)
+    if flat is not None:
+        net = params_from_flat(flat, mcfg, device=device)
+    else:
+        gen = torch.Generator(device=device).manual_seed(seed)
+        net = init_network(mcfg, gen, device=device)
+    opt, _ = make_optimizer(tcfg, steps_per_epoch)
+    return TrainState(net, opt.init(net), 0), opt
+
+
+def compute_losses(net, mcfg: ModelConfig, rcfg: RenderConfig,
+                   tcfg: TrainConfig, batch: Dict, gates: TrainGates,
+                   draws: Optional[Dict] = None,
+                   generator: Optional[torch.Generator] = None):
+    """Full loss of one batch (training_step semantics, main.py:230-327).
+    Returns (loss, (terms, aux))."""
+    if "kp_rays" in batch:
+        raise not_ported("the sat-nerf keypoint depth pass", 9)
+    inp = RenderInputs(
+        rays=batch["rays"], ts=batch.get("ts"),
+        valid_depth=batch.get("valid_depth"),
+        target_depths=batch.get("depths"),
+        target_std=batch.get("depth_std"),
+        cos_irra_on=gates.cos_irra_on)
+    results = render_rays(net, mcfg, rcfg, inp, train=True, draws=draws,
+                          generator=generator)
+    rgbs = batch["rgbs"]
+    typ = "fine" if "rgb_fine" in results else "coarse"
+    terms: Dict[str, torch.Tensor] = {}
+
+    # color loss (render_rays refuses the beta head, so there is no beta
+    # warmup to switch, main.py:237-238)
+    loss_fn = L.load_loss(mcfg.variant, mcfg.beta, tcfg.sc_lambda,
+                          tcfg.lambda_rgb)
+    loss, d = loss_fn(results, rgbs)
+    terms.update(d)
+
+    # depth supervision (main.py:248-265), dropped after ds_drop
+    if tcfg.ds_lambda > 0 and "depths" in batch:
+        kp_weights = (torch.ones_like(batch["depths"][:, 1])
+                      if tcfg.ds_noweights else batch["depths"][:, 1])
+        dloss, d = L.depth_loss(
+            results, batch["depths"][:, 0], kp_weights,
+            valid_depth=batch.get("valid_depth"),
+            target_std=batch.get("depth_std"),
+            lambda_ds=tcfg.ds_lambda, gnll=tcfg.gnll,
+            usealldepth=tcfg.usealldepth,
+            subset=(mcfg.variant != "sat-nerf"))
+        if gates.ds_on:
+            loss = loss + dloss
+        terms.update(d)
+
+    perc_bad_nr = torch.tensor(-1.0)
+    if mcfg.variant == "spsbrdf-nerf":
+        # normal regularization after nrrg_on (main.py:270-285)
+        for lam, key in ((tcfg.nr_reg_an_lambda, "normal_an"),
+                         (tcfg.nr_reg_lr_lambda, "normal_lr")):
+            if lam > 0 and f"{key}_{typ}" in results:
+                lr, d, perc_bad_nr = L.normal_reg_loss(results, lam, key)
+                if gates.nrrg_on:
+                    loss = loss + lr
+                terms.update(d)
+        # normal supervision by nr_spv_type (main.py:301-327)
+        if abs(tcfg.nr_spv_lambda) > 1e-5:
+            w = results[f"weights_{typ}"]
+            an, lr_ = f"normal_an_{typ}", f"normal_lr_{typ}"
+            ln = None
+            if tcfg.nr_spv_type == 1 and lr_ in results and an in results:
+                ln, d = L.normal_loss(w, results[an], results[lr_],
+                                      tcfg.nr_spv_lambda, keyword="an_lr")
+            elif (tcfg.nr_spv_type == 2 and lr_ in results
+                  and "normals" in batch):
+                ln, d = L.normal_loss(w, batch["normals"], results[lr_],
+                                      tcfg.nr_spv_lambda, keyword="lr")
+            elif (tcfg.nr_spv_type == 3 and an in results
+                  and "normals" in batch):
+                ln, d = L.normal_loss(
+                    w, batch["normals"], results[an], tcfg.nr_spv_lambda,
+                    target_weight=batch.get("valid_normal"),
+                    valid_depth=batch.get("valid_depth"), keyword="an")
+            if ln is not None:
+                loss = loss + ln
+                terms.update(d)
+
+    # hard surface after epoch 2 (main.py:290-299)
+    if tcfg.hs_lambda > 0:
+        hl, d = L.hard_surface_loss(results, tcfg.hs_lambda)
+        if gates.hs_on:
+            loss = loss + hl
+        terms.update(d)
+
+    aux = {
+        "psnr": psnr_metric(results[f"rgb_{typ}"], rgbs),
+        "perc_bad_nr": perc_bad_nr,
+        "depth_std_mean": torch.mean(torch.sqrt(torch.sum(
+            (results[f"z_vals_{typ}"]
+             - results[f"depth_{typ}"][..., None]) ** 2
+            * results[f"weights_{typ}"], -1))),
+    }
+    if f"irradiance_{typ}" in results:
+        aux["irradiance"] = torch.mean(results[f"irradiance_{typ}"])
+    return loss, (terms, aux)
+
+
+def _update(state: TrainState, optimizer: Optimizer, loss_fn):
+    """One optimizer update of state from loss_fn(net)."""
+    net, opt, step = state
+    opt.zero_grad(set_to_none=True)
+    with torch.enable_grad():
+        loss, (_, aux) = loss_fn(net)
+        loss.backward()
+    optimizer.step(opt, step)
+    metrics = {"loss": loss.detach(),
+               **{k: torch.as_tensor(v).detach() for k, v in aux.items()}}
+    return TrainState(net, opt, step + 1), metrics
+
+
+def step_generator(seed: int, step: int, device) -> torch.Generator:
+    """The generator of one step's draws, seeded from (seed, step): the
+    analogue of jax.random.fold_in(base_key, step)."""
+    hi, lo = np.random.SeedSequence([seed, step]).generate_state(2)
+    return torch.Generator(device=device).manual_seed(
+        (int(hi) << 31) ^ int(lo))
+
+
+def _refuse_multi_device(mesh, store_sharded, state_shardings):
+    if mesh is not None or store_sharded or state_shardings is not None:
+        raise not_ported("multi-GPU training (mesh, sharded store, "
+                         "tensor-parallel state)", 11)
+
+
+def make_train_step(mcfg: ModelConfig, rcfg: RenderConfig,
+                    tcfg: TrainConfig, optimizer: Optimizer, mesh=None,
+                    state_shardings=None):
+    """fn(state, batch, gates, draws=None, generator=None) ->
+    (state, metrics): one update on a batch already on the device."""
+    _refuse_multi_device(mesh, False, state_shardings)
+
+    def step_fn(state: TrainState, batch: Dict, gates: TrainGates,
+                draws: Optional[Dict] = None,
+                generator: Optional[torch.Generator] = None):
+        return _update(state, optimizer, lambda net: compute_losses(
+            net, mcfg, rcfg, tcfg, batch, gates, draws, generator))
+    return step_fn
+
+
+def make_fused_train_step(mcfg: ModelConfig, rcfg: RenderConfig,
+                          tcfg: TrainConfig, optimizer: Optimizer,
+                          schedule: GateSchedule, has_kp: bool = False,
+                          mesh=None, store_sharded: bool = False,
+                          state_shardings=None):
+    """The step Trainer.fit dispatches: fn(state, store, idx, seed,
+    draws=None) -> (state, metrics).  The minibatch is gathered from the
+    device-resident store by the (batch,) index tensor on the device, the
+    gates follow from state.step, and the draws from step_generator(seed,
+    state.step) unless given.  Per step the host sends the index vector and
+    nothing else."""
+    _refuse_multi_device(mesh, store_sharded, state_shardings)
+    if has_kp:
+        raise not_ported("the sat-nerf keypoint depth store", 9)
+
+    def step_fn(state: TrainState, store: Dict[str, torch.Tensor],
+                idx: torch.Tensor, seed: int,
+                draws: Optional[Dict] = None):
+        batch = {k: torch.index_select(v, 0, idx) for k, v in store.items()}
+        gates = gates_from_step(state.step, schedule)
+        gen = (None if draws is not None
+               else step_generator(seed, state.step, idx.device))
+        return _update(state, optimizer, lambda net: compute_losses(
+            net, mcfg, rcfg, tcfg, batch, gates, draws, gen))
+    return step_fn
+
+
+def make_scan_train_step(*_args, **_kwargs):
+    raise not_ported("make_scan_train_step (N steps per dispatch)", 7)
 
 
 def make_render_step(mcfg: ModelConfig, rcfg: RenderConfig,

@@ -10,6 +10,7 @@ in the JAX package's draws) or else from `generator`:
 
   draws["z"]       (N, n_samples)  stratified jitter
   draws["guided"]  (N, guided)     inverse-CDF draws of the guided band
+  draws["guided_gt"] (N, guided)   the same for the GT-depth band (train)
   draws["sun"]     (N, n_sun)      stratified jitter of the sun march
 """
 
@@ -53,7 +54,7 @@ def _resample_axis1(a, m: int):
 
 
 def _guided(prev_result, rcfg: RenderConfig, near, far, train: bool,
-            inp: RenderInputs, u=None, generator=None):
+            inp: RenderInputs, u=None, u_gt=None, generator=None):
     """Guided z samples around the probe's depth, detached like the
     reference's .detach() (rendering.py:212,262).  near/far are ray 0's,
     as in the reference (render.py:155)."""
@@ -65,7 +66,7 @@ def _guided(prev_result, rcfg: RenderConfig, near, far, train: bool,
         valid_depth=inp.valid_depth if train else None,
         target_depth=target_depth, target_std=inp.target_std,
         d_range=(0.0001 if rcfg.guided_samples == 2 else rcfg.std_range),
-        perturb=rcfg.perturb, u=u, generator=generator)
+        perturb=rcfg.perturb, u=u, u_gt=u_gt, generator=generator)
     z2 = torch.sort(z2, -1).values
     if rcfg.effective_guided == 1 and rcfg.guided_samples == 2:
         z2 = torch.mean(z2, 1, keepdim=True)    # rendering.py:264-265
@@ -84,7 +85,7 @@ def _render_spsbrdf(net, mcfg, rcfg, inp, rays_o, rays_d, near, far, sun_d,
 
     # guided merge (rendering.py:261-273)
     z2 = _guided(res1, rcfg, near, far, train, inp, u=draws.get("guided"),
-                 generator=generator)
+                 u_gt=draws.get("guided_gt"), generator=generator)
     if rcfg.gsam_only:
         z_unsort = z_final = z2
     else:
@@ -139,7 +140,7 @@ def _render_one(net, mcfg: ModelConfig, rcfg: RenderConfig,
     if mcfg.variant != "spsbrdf-nerf":
         raise not_ported(f"the {mcfg.variant} variant", 9)
     if train and mcfg.sun_v == "learned":
-        raise not_ported("the training-time solar-correction pass", 6)
+        raise not_ported("the training-time solar-correction pass", 9)
     return _render_spsbrdf(net, mcfg, rcfg, inp, rays_o, rays_d, near, far,
                            sun_d, z_vals, train, draws, generator)
 
@@ -155,6 +156,6 @@ def render_rays(net, mcfg: ModelConfig, rcfg: RenderConfig,
     if mcfg.beta:
         raise not_ported("the beta head with the t-embedding", 9)
     if rcfg.noise_std > 0:
-        raise not_ported("density noise (noise_std > 0)", 6)
+        raise not_ported("density noise (noise_std > 0)", 9)
     res = _render_one(net, mcfg, rcfg, inp, train, draws or {}, generator)
     return {f"{k}_coarse": v for k, v in res.items()}

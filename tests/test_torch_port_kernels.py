@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from brdfnerf_tpu.ops.encoding import positional_encoding as jpe
@@ -217,3 +218,269 @@ def test_kernels_match_twins_on_the_card():
         scale = float(p_.float().abs().max())
         assert float(d.max()) <= 5e-2 * scale
         assert float(d.mean()) <= 1e-3 * scale
+
+
+# ---------------------------------------------------------------- training
+# K2 saving zs/us and K3 (the trunk's second-order backward).  Grads in f32
+# hold to tests/test_pallas.py's gradient bounds (atol 2e-4 * scale, rtol
+# 2e-3); in bf16 to close_but_flips with the max bound of K2's outputs and a
+# mean bound of 3e-3: a grad is a sum over every point, so each rounding flip
+# upstream moves all of it, and the sigma head's bias is one number, whose
+# mean is its max.  Measured here (8 layers, relative to the reference's
+# scale): K3's twin against the Pallas kernel on 200 points max 8.2e-4, mean
+# 2.2e-4; TrunkCore against jax.grad on 90 points max 6.6e-4, and 2.3e-3 for
+# the sigma bias.
+
+def _j2t(x, dtype=None):
+    """JAX array (bf16 included) -> CPU torch tensor of `dtype` (default
+    f32), exact: bf16 values pass through f32."""
+    v = torch.from_numpy(np.array(jnp.asarray(x, jnp.float32)))
+    return v if dtype is None else v.to(dtype)
+
+
+def _cotangents(n, feat, seed=5):
+    rng = np.random.RandomState(seed)
+    return (rng.normal(size=n).astype(np.float32),
+            (rng.normal(size=(n, feat)) * 0.1).astype(np.float32),
+            rng.normal(size=(n, 128)).astype(np.float32))
+
+
+def _grad_close(got, ref, dtype, what):
+    if dtype == "float32":
+        scale = max(_scale(ref), 1e-3)
+        close(got, ref, atol=2e-4 * scale, rtol=2e-3, what=what)
+    else:
+        close_but_flips(got, ref, what, mean_rel=3e-3)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("layers,skip", [(4, 2), (8, 4)])
+def test_k2_saves_zs_us_like_pallas(dtype, layers, skip):
+    jcfg, tcfg = model_configs(**dict(SMALL, layers=layers, skips=(skip,),
+                                      compute_dtype=dtype))
+    params, net = networks(jcfg, tcfg)
+    _, enc = _inputs(200)
+    od = jnp.bfloat16 if dtype != "float32" else jnp.float32
+    packed = jk1.pack_trunk_weights(params, jcfg, od)
+    ref = jk2._run_fwd(jcfg, packed, enc, interpret=True, want_zs=True)
+    tpacked = tk1.pack_trunk_weights(net, tcfg, tk1.weight_dtype(tcfg))
+    got = tk2._run_fwd(tcfg, tpacked, t(enc), want_zs=True)
+    want_dt = torch.bfloat16 if dtype == "bfloat16_all" else torch.float32
+    for name, g, r in zip(("zs", "us"), got[3:], ref[3:]):
+        assert g.dtype == want_dt, name
+        assert tuple(g.shape) == (256, layers * 64)      # rows padded to 64
+        g, r = g[:200], r[:200]
+        if dtype == "float32":
+            close(g, r, atol=3e-4 * _scale(r), rtol=3e-5, what=name)
+        else:
+            close_but_flips(g, r, name)
+    # the no-grad path is unchanged by want_zs
+    for g, r in zip(got[:3], tk2._run_fwd(tcfg, tpacked, t(enc))):
+        assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("layers,skip", [(4, 2), (8, 4)])
+def test_k3_twin_matches_pallas(dtype, layers, skip):
+    """_run_bwd's twin against the Pallas _bwd_kernel on the same saved
+    zs/us (the JAX forward's) and the same cotangents."""
+    jcfg, tcfg = model_configs(**dict(SMALL, layers=layers, skips=(skip,),
+                                      compute_dtype=dtype))
+    params, net = networks(jcfg, tcfg)
+    _, enc = _inputs(200)
+    od = jnp.bfloat16 if dtype != "float32" else jnp.float32
+    packed = jk1.pack_trunk_weights(params, jcfg, od)
+    _, _, _, zs, us = jk2._run_fwd(jcfg, packed, enc, interpret=True,
+                                   want_zs=True)
+    cs, cf, cg = _cotangents(200, 64)
+    cf_dt = jnp.bfloat16 if dtype == "bfloat16_all" else jnp.float32
+    ref = jk2._run_bwd(jcfg, packed, enc, jnp.asarray(cs),
+                       jnp.asarray(cf).astype(cf_dt), jnp.asarray(cg), zs, us,
+                       interpret=True)
+    sd = torch.bfloat16 if dtype == "bfloat16_all" else None
+    tpacked = tk1.pack_trunk_weights(net, tcfg, tk1.weight_dtype(tcfg))
+    got = tk2._run_bwd(tcfg, tpacked, t(enc), t(cs),
+                       _j2t(jnp.asarray(cf).astype(cf_dt), sd), t(cg),
+                       _j2t(zs, sd), _j2t(us, sd))
+    names = ("dw0", "db0", "dwm", "dbm", "dwst", "dwsb", "dbs", "dwsig",
+             "dbsig")
+    ref = list(ref)
+    ref[7], ref[8] = ref[7][:, 0], ref[8][:1]
+    for name, g, r in zip(names, got, ref):
+        assert tuple(g.shape) == tuple(r.shape), name
+        _grad_close(g, r, dtype, name)
+
+
+def _trunk_loss(sigma, feats, g, cs, cf, cg):
+    from brdfnerf_tpu_torch.ops.compositing import l2_normalize
+    return (torch.sum(cs * sigma) + torch.sum(cf * feats.float())
+            + torch.sum(cg * -l2_normalize(g)))
+
+
+@pytest.mark.parametrize("dtype,layers,skip",
+                         [("float32", 4, 2), ("float32", 8, 4),
+                          ("bfloat16", 4, 2), ("bfloat16_all", 8, 4)])
+def test_trunk_core_grads_match_jax_grad(dtype, layers, skip):
+    """TrunkCore's gradients of a loss touching sigma, feats and the
+    normalised normal, against jax.grad through the JAX package's
+    fused_trunk_with_grad (its custom VJP, Pallas in interpret mode), for
+    every w and b of the trunk and the sigma head."""
+    from brdfnerf_tpu.ops.compositing import l2_normalize as jl2
+    jcfg, tcfg = model_configs(**dict(SMALL, layers=layers, skips=(skip,),
+                                      compute_dtype=dtype))
+    params, net = networks(jcfg, tcfg)
+    xyz, _ = _inputs(90)
+    rng = np.random.RandomState(4)
+    cs = rng.normal(size=90).astype(np.float32)
+    cf = (rng.normal(size=(90, 64)) * 0.1).astype(np.float32)
+    cg = rng.normal(size=(90, 3)).astype(np.float32)
+
+    def jloss(p):
+        s, f, g = jk2.fused_trunk_with_grad(p, jcfg, jnp.asarray(xyz))
+        return (jnp.sum(cs * s) + jnp.sum(cf * f.astype(jnp.float32))
+                + jnp.sum(cg * -jl2(g)))
+
+    v_ref, g_ref = jax.value_and_grad(jloss)(params)
+    s, f, g = tk2.fused_trunk_with_grad(net, tcfg, t(xyz))
+    v_got = _trunk_loss(s, f, g, t(cs), t(cf), t(cg))
+    pars = tk2.trunk_params(net)
+    grads = torch.autograd.grad(v_got, pars)
+    np.testing.assert_allclose(v_got.item(), float(v_ref), rtol=1e-4,
+                               atol=1e-3)
+    refs = []
+    for layer in list(g_ref["fc_net"]) + [g_ref["sigma_from_xyz"][0]]:
+        refs += [layer["w"].T, layer["b"]]
+    assert len(grads) == len(refs) == 2 * layers + 2
+    for i, (gg, r) in enumerate(zip(grads, refs)):
+        assert tuple(gg.shape) == tuple(r.shape), i
+        _grad_close(gg, r, dtype, f"param {i}")
+
+
+@pytest.mark.parametrize("layers,skip", [(4, 2), (8, 4)])
+def test_trunk_core_grads_match_port_autograd(layers, skip):
+    """TrunkCore against the port's own unfused double-backward autograd
+    (models.network with fused_trunk off), f32."""
+    from brdfnerf_tpu_torch.ops.compositing import l2_normalize
+    jcfg, tcfg = model_configs(**dict(SMALL, layers=layers, skips=(skip,),
+                                      compute_dtype="float32"))
+    _, net = networks(jcfg, tcfg)
+    xyz, _ = _inputs(80)
+    cs, cf, cg3 = (t(v) for v in _cotangents(80, 64, seed=8))
+    cg = cg3[:, :3]
+
+    def grads_of(fused):
+        with torch.enable_grad():
+            if fused:
+                s, f, g = tk2.fused_trunk_with_grad(net, tcfg, t(xyz))
+            else:
+                x = t(xyz).requires_grad_(True)
+                f = tnet._trunk_features(net, tcfg, x)
+                s = tnet._head(net, tcfg, "sigma_from_xyz", f,
+                               final="softplus")[..., 0]
+                (g,) = torch.autograd.grad(s.sum(), x, create_graph=True)
+            loss = (torch.sum(cs * s) + torch.sum(cf * f)
+                    + torch.sum(cg * -l2_normalize(g)))
+            return torch.autograd.grad(loss, tk2.trunk_params(net))
+
+    for i, (gf, gr) in enumerate(zip(grads_of(True), grads_of(False))):
+        scale = max(_scale(gr), 1e-3)
+        close(gf, gr, atol=2e-4 * scale, rtol=2e-3, what=f"param {i}")
+
+
+def test_trunk_core_none_cotangents_are_zeros():
+    """Outputs the loss does not touch reach the backward as None and count
+    as zero cotangents."""
+    _, net = networks(*model_configs(**SMALL))
+    tcfg = net.cfg
+    xyz, _ = _inputs(50)
+    s, f, g = tk2.fused_trunk_with_grad(net, tcfg, t(xyz))
+    got = torch.autograd.grad(s.sum(), tk2.trunk_params(net))
+    s, f, g = tk2.fused_trunk_with_grad(net, tcfg, t(xyz))
+    ref = torch.autograd.grad(s.sum() + 0.0 * f.sum() + 0.0 * g.sum(),
+                              tk2.trunk_params(net))
+    for a_, b_ in zip(got, ref):
+        assert torch.equal(a_, b_)
+
+
+def test_training_on_cpu_tensors_takes_the_twins(monkeypatch):
+    """With gradients on, CPU tensors run K2's and K3's twins and never
+    reach the CUDA launch paths."""
+    def refuse(*_a, **_k):
+        raise AssertionError("the CUDA path ran on a CPU tensor")
+    monkeypatch.setattr(tk2, "_trunk_fwd_grad_cuda", refuse)
+    monkeypatch.setattr(tk2, "_trunk_bwd_cuda", refuse)
+    _, net = networks(*model_configs(**SMALL, compute_dtype="bfloat16_all"))
+    tcfg = net.cfg
+    xyz, _ = _inputs(70)
+    launches = (tk2.TRUNK_FWD_GRAD.launches, tk2.TRUNK_BWD.launches)
+    s, f, g = tk2.fused_trunk_with_grad(net, tcfg, t(xyz))
+    grads = torch.autograd.grad(s.sum() + f.float().sum() + g.sum(),
+                                tk2.trunk_params(net))
+    assert all(torch.isfinite(v).all() for v in grads)
+    assert (tk2.TRUNK_FWD_GRAD.launches, tk2.TRUNK_BWD.launches) == launches
+
+
+def test_backward_kernel_refuses_what_it_cannot_run():
+    """K3's launch path checks its inputs and raises; K2 refuses to save
+    zs/us outside the bfloat16_all contract."""
+    _, net = networks(*model_configs(**SMALL, compute_dtype="bfloat16_all"))
+    tcfg = net.cfg
+    packed = tk1.pack_trunk_weights(net, tcfg, torch.bfloat16)
+    x = torch.zeros(64, 128)
+    zs = torch.zeros(64, 4 * 512, dtype=torch.bfloat16)
+    args = (x, torch.zeros(64), torch.zeros(64, 512, dtype=torch.bfloat16),
+            torch.zeros(64, 128), zs, zs)
+    with pytest.raises(ValueError):       # CPU tensors, width 64
+        tk2._trunk_bwd_cuda(packed, tcfg, *args)
+    f512 = dc.replace(tcfg, feat=512, fast_sin=True)
+    with pytest.raises(ValueError):       # the inputs lie on the CPU
+        tk2.check_bwd_inputs(f512, dict(packed, w0=torch.zeros(
+            512, 128, dtype=torch.bfloat16)), *args)
+    with pytest.raises(ValueError):       # zs in f32
+        tk2.check_bwd_inputs(f512, packed, x, args[1], args[2], args[3],
+                             zs.float(), zs)
+    with pytest.raises(ValueError):
+        tk2._trunk_fwd_grad_cuda(packed, dc.replace(tcfg,
+                                                    compute_dtype="bfloat16"),
+                                 x, want_zs=True)
+
+
+@pytest.mark.cuda
+def test_backward_kernels_match_twins_on_the_card():
+    """K2 with zs/us and K3 against their twins on the card, at the
+    flagship width (8 x 512, skip 4) on 640 points; chip_smoke.py makes the
+    same check at the training step's shapes.  K3's grads are sums over
+    points, held by relative L2 error per tensor (chip_smoke.py states the
+    measured values)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from brdfnerf_tpu_torch.config import ModelConfig
+    cfg = ModelConfig(variant="spsbrdf-nerf", siren=True, mapping=True,
+                      compute_dtype="bfloat16_all")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    net = tnet.init_network(cfg, g, device="cuda")
+    xyz = torch.rand(640, 3, device="cuda", generator=g) * 2 - 1
+    from brdfnerf_tpu_torch.ops.encoding import positional_encoding
+    enc = positional_encoding(xyz, 10, fast=True, pad_to=128)
+    packed = tk1.pack_trunk_weights(net, cfg, torch.bfloat16)
+    out_k = tk2._trunk_fwd_grad_cuda(packed, cfg, enc, want_zs=True)
+    out_p = tk2._trunk_fwd_grad_plain(packed, cfg, enc, want_zs=True)
+    for k_, p_ in zip(out_k, out_p):
+        d = (k_.float() - p_.float()).abs()
+        scale = float(p_.float().abs().max())
+        assert float(d.max()) <= 5e-2 * scale
+        assert float(d.mean()) <= 1e-3 * scale
+    cs = torch.randn(640, device="cuda", generator=g)
+    cf = (torch.randn(640, 512, device="cuda", generator=g) * 0.1).to(
+        torch.bfloat16)
+    cg = torch.zeros(640, 128, device="cuda")
+    cg[:, :60] = torch.randn(640, 60, device="cuda", generator=g)
+    zs, us = out_p[3], out_p[4]
+    got = tk2._trunk_bwd_cuda(packed, cfg, enc, cs, cf, cg, zs, us)
+    again = tk2._trunk_bwd_cuda(packed, cfg, enc, cs, cf, cg, zs, us)
+    ref = tk2._trunk_bwd_plain(packed, cfg, enc, cs, cf, cg, zs, us)
+    torch.cuda.synchronize()
+    for k_, r_, a_ in zip(got, ref, again):
+        assert torch.equal(k_, a_)                    # deterministic
+        rel = float((k_ - r_).norm() / r_.norm().clamp_min(1e-12))
+        assert rel <= 1e-2, rel

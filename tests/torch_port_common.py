@@ -65,16 +65,50 @@ def make_rays(n: int, seed: int = 0, far: float = 2.0):
                            np.full((n, 1), far, np.float32), sun], 1)
 
 
+def make_store(n: int, seed: int = 0):
+    """A ray store in __graft_entry__._make_batch's layout, with the GT
+    depth's std nonzero on part of the rays and valid_depth mixed."""
+    rng = np.random.RandomState(seed)
+    rays = make_rays(n, seed=seed + 1)
+    return {
+        "rays": rays,
+        "rgbs": rng.uniform(0, 1, (n, 3)).astype(np.float32),
+        "ts": np.zeros((n,), np.int32),
+        "depths": np.stack([rng.uniform(0.5, 1.5, n), np.ones(n)],
+                           1).astype(np.float32),
+        "valid_depth": (rng.uniform(0, 1, n) > 0.5).astype(np.int32),
+        "depth_std": np.where(rng.uniform(0, 1, n) > 0.3,
+                              rng.uniform(0.02, 0.1, n), 0.0).astype(
+                                  np.float32),
+        "normals": np.tile(np.asarray([[0.0, 0.0, 1.0]], np.float32),
+                           (n, 1)),
+        "valid_normal": np.ones((n,), np.float32),
+    }
+
+
+def jax_batch(s):
+    """A store or batch of numpy arrays as JAX arrays."""
+    return {k: jnp.asarray(v) for k, v in s.items()}
+
+
+def torch_batch(s):
+    """The same as CPU torch tensors."""
+    return {k: t(v) for k, v in s.items()}
+
+
 def render_draws(key, rcfg, n_rays: int, n_sun: int):
     """The uniform draws the JAX package's render_rays takes from `key`
-    (render.py:256 / :71, sampling.py:191), under the port's names."""
+    (render.py:256 / :71, sampling.py:191-198), under the port's names:
+    the guided band's draws for the predicted depth and, at train time, for
+    the GT depth."""
     k_coarse = jax.random.split(key, 3)[0]
     keys = jax.random.split(k_coarse, 8)
-    k1 = jax.random.split(keys[3])[0]
+    k1, k2 = jax.random.split(keys[3])
+    guided = (n_rays, rcfg.effective_guided)
     return {
         "z": t(jax.random.uniform(keys[0], (n_rays, rcfg.n_samples))),
-        "guided": t(jax.random.uniform(k1, (n_rays,
-                                            rcfg.effective_guided))),
+        "guided": t(jax.random.uniform(k1, guided)),
+        "guided_gt": t(jax.random.uniform(k2, guided)),
         "sun": t(jax.random.uniform(keys[5], (n_rays, n_sun))),
     }
 
