@@ -7,7 +7,8 @@ needs.  Layout mirrors the JAX package:
 
   config    - run configuration dataclasses (the shared opts.json contract)
   ops       - encoding, samplers, compositing, and the fused trunk kernels'
-              wrappers (fused_mlp: K1, fused_trunk_vjp: K2 and K3)
+              wrappers (fused_mlp: K1, fused_trunk_vjp: K2 and K3,
+              fused_trunk_heads: K4 and K5)
   csrc      - the CUDA C++ sources of those kernels, built with nvcc at
               first use
   brdf      - RPV physics

@@ -1,5 +1,6 @@
-// Shared machinery of the two trunk kernels (trunk_sigma.cu and
-// trunk_fwd_grad.cu): one thread block of 8 warps takes a tile of 64
+// Shared machinery of the trunk kernels (trunk_sigma.cu, trunk_fwd_grad.cu,
+// trunk_bwd.cu and their fused-heads counterparts trunk_heads_fwd.cu and
+// trunk_heads_bwd.cu): one thread block of 8 warps takes a tile of 64
 // points through the whole 8x512 siren trunk, keeping the tile's current
 // activations in shared memory as bf16 and multiplying on the tensor cores
 // with mma.sync m16n8k16 (bf16 operands, f32 accumulation).
@@ -41,6 +42,8 @@ constexpr int STAGE = F * SWF;   // elements per stage buffer (>= 32 * 520)
 constexpr int NSTAGE = 3;        // stage buffers in the ring
 constexpr int MT = T / 16;       // m16 tiles per warp
 constexpr int ACC = MT * 8 * 4;  // f32 accumulators per thread at N = 512
+constexpr int HID = F / 2;       // the flagship heads' hidden width
+constexpr int HEAD_COLS = 8;     // packed head logits per point
 
 // shared-memory carve-up (bytes)
 constexpr int OFF_ACT = 0;
@@ -301,11 +304,9 @@ __device__ __forceinline__ const float* layer_bias(int i, int skip,
   return bmid + (size_t)(i < skip ? i - 1 : i - 2) * F;
 }
 
-// Sum the per-thread row partials `part[mt][half]` of the sigma head over
-// the tile's 512 columns: across the 4 lanes sharing a row, then across the
-// 8 warps in a fixed order (deterministic).  Returns, for threads < 64, the
-// row sum of row threadIdx.x; red is 8 x 64 floats of shared memory.
-__device__ __forceinline__ float sigma_rows(float (&part)[MT][2], float* red) {
+// Sum the per-thread row partials `part[mt][half]` across the 4 lanes
+// sharing a row, and leave each warp's row sums in red[warp * 64 + row].
+__device__ __forceinline__ void quad_rows(float (&part)[MT][2], float* red) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
@@ -316,6 +317,14 @@ __device__ __forceinline__ float sigma_rows(float (&part)[MT][2], float* red) {
       v += __shfl_xor_sync(0xffffffffu, v, 2);
       if ((lane & 3) == 0) red[warp * T + mt * 16 + (lane >> 2) + hf * 8] = v;
     }
+}
+
+// Sum the per-thread row partials `part[mt][half]` of the sigma head over
+// the tile's 512 columns: across the 4 lanes sharing a row, then across the
+// 8 warps in a fixed order (deterministic).  Returns, for threads < 64, the
+// row sum of row threadIdx.x; red is 8 x 64 floats of shared memory.
+__device__ __forceinline__ float sigma_rows(float (&part)[MT][2], float* red) {
+  quad_rows(part, red);
   __syncthreads();
   float s = 0.f;
   if (threadIdx.x < T)

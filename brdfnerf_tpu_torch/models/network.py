@@ -15,6 +15,7 @@ package, so the render step consumes names.
 from __future__ import annotations
 
 import math
+import os
 from typing import Dict
 
 import torch
@@ -241,11 +242,21 @@ def apply_network_with_normals(net: Network, cfg: ModelConfig, xyz,
 
     fused_trunk: the trunk, sigma head and the sigma gradient come from the
     fused trunk-with-gradient kernel (ops/fused_trunk_vjp.py) when the
-    architecture fits it (kernel_supports); otherwise from autograd."""
+    architecture fits it (kernel_supports); otherwise from autograd.  With
+    BRDFNERF_FUSED_HEADS set (read per call, as the JAX package does) and
+    the flagship head set (heads_kernel_supports), the heads run inside the
+    kernel pair too (ops/fused_trunk_heads.py)."""
     if fused_trunk:
         from ..ops.fused_mlp import kernel_supports
         fused_trunk = kernel_supports(cfg)
     if fused_trunk:
+        if os.environ.get("BRDFNERF_FUSED_HEADS"):
+            from ..ops.fused_trunk_heads import (fused_trunk_heads_with_grad,
+                                                 heads_kernel_supports)
+            if heads_kernel_supports(cfg, net, dirs=dirs,
+                                     apply_brdf=apply_brdf,
+                                     apply_theta=apply_theta, nr_lr=nr_lr):
+                return fused_trunk_heads_with_grad(net, cfg, xyz)
         from ..ops.fused_trunk_vjp import fused_trunk_with_grad
         sigma, feats, grad_x = fused_trunk_with_grad(net, cfg, xyz)
     else:

@@ -1,0 +1,475 @@
+"""The flagship head block inside the differentiated trunk's kernel pair
+(counterpart of the JAX package's ops/pallas_trunk_heads.py).
+
+For the flagship head set (RPV(111) at dim_rpv 1, rgb on the trunk
+features alone, analytic normals, no sun_v / sky / beta heads) the forward
+kernel K4 runs K2's trunk and dsigma/dx chain and then the heads
+
+    xf  = h W_f^T + b_f                    feats_from_xyz, no activation
+    hr  = act(xf W_1r^T + b_1r)            rgb hidden
+    z2r = hr W_2r^T + b_2r                 3 rgb logits
+    hp  = act(xf W_1p^T + b_1p)            merged k | theta | rhoc hidden
+    z2p = hp W_2p^T + b_2p                 block-diagonal, 3 logits
+
+on the tile it holds, and emits logits packed as (n, 8) f32 columns
+[softplus sigma, rgb x3, k, theta, rhoc, 0] with gx; the features never
+reach device memory.  The sigmoid and the RPV rescalings run in torch on
+the packed columns (fused_trunk_heads_with_grad), so their backward hands
+the backward kernel K5 the logits' cotangents in the same layout.  K5
+recomputes the head block from the saved zs, runs its first-order backward
+(the head weights' grads and a_h += a_xf W_f, the seed of the trunk's
+sweep), then K3's second-order sweep.
+
+On a CUDA tensor `_run_fwd_h` launches K4 (csrc/trunk_heads_fwd.cu) and
+`_run_bwd_h` K5 (csrc/trunk_heads_bwd.cu); on a CPU tensor they run
+`_trunk_heads_fwd_plain` and `_trunk_heads_bwd_plain`, the Pallas kernels'
+arithmetic.  Like the Pallas pair, the twins save zs only and the backward
+twin rebuilds the u chain (b_th) in f32; K4 also saves us in bf16 as K2
+does, and K5 loads it as K3 does.
+
+The path is opt-in, as in the JAX package: models.network reads
+BRDFNERF_FUSED_HEADS.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from types import SimpleNamespace
+from typing import Dict, List
+
+import torch
+
+from ..config import ModelConfig
+from .cuda_build import CudaKernel
+from .fused_mlp import (FEAT, LANE, TILE_N, _round_up, check_kernel_inputs,
+                        kernel_supports, pack_trunk_weights, pad_rows_lanes,
+                        weight_dtype)
+from .fused_trunk_vjp import (_act_all, _bwd_primal_tangent, _forward_chain,
+                              _grad_chain, _mm, _mm_t, _outer, _pack_params,
+                              _reverse_sweep, _saved_dtype, _unpack_grads,
+                              encode_with_jacobian, trunk_params)
+
+HEAD_COLS = 8       # packed logits: sigma, rgb x3, k, theta, rhoc, pad
+RPV_NAMES = ("k_from_xyz", "theta_rpv_from_xyz", "rhoc_from_xyz")
+HEAD_NAMES = ("feats_from_xyz", "rgb_from_xyzdir") + RPV_NAMES
+HID = FEAT // 2     # the heads' hidden width the CUDA kernels take
+# per-tile partial sums K5 keeps for the heads beside K3's: db_f, db_1
+# (rgb | rpv), dW_2 for each of 3 logit columns over the 4 * HID hidden
+# units, db_2 (6, padded to 8); the layout of csrc/trunk_heads_bwd.cu
+HEAD_PART = FEAT + 4 * HID + 3 * 4 * HID + 8
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+TRUNK_HEADS_FWD = CudaKernel(
+    "trunk_heads_fwd", "trunk_heads_fwd_launch",
+    [_P, _I, _I] + [_P] * 8 + [_P] * 10 + [_P] * 5 + [_I, _I, _P])
+TRUNK_HEADS_BWD = CudaKernel(
+    "trunk_heads_bwd", "trunk_heads_bwd_launch",
+    [_P] * 5 + [_I, _I] + [_P] * 5 + [_P] * 8 + [_P] * 10 + [_P] * 17
+    + [_I, _I, _P])
+
+
+def heads_kernel_supports(cfg: ModelConfig, net, dirs=None, t_emb=None,
+                          apply_brdf: bool = False, apply_theta: bool = False,
+                          nr_lr: bool = False) -> bool:
+    """True when the head set is exactly the flagship's: RPV(111) at
+    dim_rpv 1, rgb on the features alone (no view dirs), analytic-only
+    normals, no sun_v / sky heads (pallas_trunk_heads.py:73-102)."""
+    if not (kernel_supports(cfg) and apply_brdf and not apply_theta
+            and cfg.rpv and cfg.func_m and cfg.func_f and cfg.func_h == 1
+            and cfg.dim_rpv == 1 and not nr_lr
+            and dirs is None and t_emb is None
+            and "sun_v_net" not in net and "sky_color" not in net):
+        return False
+    feat, hid = cfg.feat, cfg.feat // 2
+    try:
+        return (len(net["feats_from_xyz"]) == 1
+                and tuple(net["feats_from_xyz"][0].w.shape) == (feat, feat)
+                and len(net["rgb_from_xyzdir"]) == 2
+                and tuple(net["rgb_from_xyzdir"][0].w.shape) == (hid, feat)
+                and tuple(net["rgb_from_xyzdir"][1].w.shape) == (3, hid)
+                and all(len(net[n]) == 2
+                        and tuple(net[n][0].w.shape) == (hid, feat)
+                        and tuple(net[n][1].w.shape) == (1, hid)
+                        for n in RPV_NAMES))
+    except (KeyError, IndexError, AttributeError):
+        return False
+
+
+def pack_head_weights(net, cfg: ModelConfig,
+                      dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+    """The flagship head set as padded matrices in (out, in) layout
+    (pallas_trunk_heads.py:105-137, transposed): wf (F, F), w1r (H, F), w2r
+    (LANE, H) with rows 0..2 real, w1p (3H, F) = [k | theta | rhoc], w2p
+    (LANE, 3H) block-diagonal (row i holds head i's second layer in columns
+    [iH, (i+1)H)); weights in `dtype`, biases f32 padded alike."""
+    hid = cfg.feat // 2
+    f32 = torch.float32
+    wf = net["feats_from_xyz"][0]
+    r1, r2 = net["rgb_from_xyzdir"]
+    p1s = [net[n][0] for n in RPV_NAMES]
+    p2s = [net[n][1] for n in RPV_NAMES]
+    dev = wf.w.device
+    w2r = torch.zeros(LANE, hid, dtype=dtype, device=dev)
+    w2r[:3] = r2.w.detach().to(dtype)
+    b2r = torch.zeros(LANE, dtype=f32, device=dev)
+    b2r[:3] = r2.b.detach().float()
+    w2p = torch.zeros(LANE, 3 * hid, dtype=dtype, device=dev)
+    b2p = torch.zeros(LANE, dtype=f32, device=dev)
+    for i, p in enumerate(p2s):
+        w2p[i, i * hid:(i + 1) * hid] = p.w.detach()[0].to(dtype)
+        b2p[i] = p.b.detach()[0].float()
+    return {
+        "wf": wf.w.detach().to(dtype).contiguous(),
+        "bf": wf.b.detach().float().contiguous(),
+        "w1r": r1.w.detach().to(dtype).contiguous(),
+        "b1r": r1.b.detach().float().contiguous(),
+        "w2r": w2r, "b2r": b2r,
+        "w1p": torch.cat([p.w.detach().to(dtype) for p in p1s]).contiguous(),
+        "b1p": torch.cat([p.b.detach().float() for p in p1s]).contiguous(),
+        "w2p": w2p, "b2p": b2p,
+    }
+
+
+def _head_forward(h, hw: Dict, od, cfg: ModelConfig):
+    """xf, (hr, act'), z2r, (hp, act'), z2p from the trunk output h
+    (pallas_trunk_heads.py:140-149)."""
+    xf = _mm(h, hw["wf"], od) + hw["bf"]
+    z1r = _mm(xf, hw["w1r"], od) + hw["b1r"]
+    hr, d1r = _act_all(z1r, 1.0, cfg.siren, cfg.fast_sin)
+    z2r = _mm(hr, hw["w2r"], od) + hw["b2r"]
+    z1p = _mm(xf, hw["w1p"], od) + hw["b1p"]
+    hp, d1p = _act_all(z1p, 1.0, cfg.siren, cfg.fast_sin)
+    z2p = _mm(hp, hw["w2p"], od) + hw["b2p"]
+    return xf, hr, d1r, z2r, hp, d1p, z2p
+
+
+# ------------------------------------------------------------ the twins
+
+def _trunk_heads_fwd_plain(packed: Dict, hw: Dict, cfg: ModelConfig, x,
+                           want_zs: bool = False):
+    """Plain twin of K4, the Pallas _fwd_kernel_h (pallas_trunk_heads.py:
+    154-180): (packed logits (n, 8), gx (n, Ein_p), zs (n, L*F) in the saved
+    dtype with want_zs, else None)."""
+    od = weight_dtype(cfg)
+    h, d1s, zs, zsig = _forward_chain(packed, cfg, x)
+    _, _, _, z2r, _, _, z2p = _head_forward(h, hw, od, cfg)
+    out = torch.cat([torch.logaddexp(zsig, torch.zeros_like(zsig))[:, None],
+                     z2r[:, 0:3], z2p[:, 0:3], torch.zeros_like(zsig)[:, None]],
+                    1)
+    gx, _ = _grad_chain(packed, cfg, zsig, d1s)
+    zs = torch.cat(zs, 1).to(_saved_dtype(cfg)) if want_zs else None
+    return out, gx, zs
+
+
+def _trunk_heads_bwd_plain(packed: Dict, hw: Dict, cfg: ModelConfig, x, cot,
+                           cg, zs):
+    """Plain twin of K5, the Pallas _bwd_kernel_h (pallas_trunk_heads.py:
+    185-302) in the same expression order: the b_th chain is rebuilt from
+    w_sigma, not loaded.  x, cg (n, Ein_p) f32, cot (n, 8) f32, zs (n, L*F).
+    Returns K3's nine trunk grads, then dwf (F, F), dbf, dw1r (F, H), db1r,
+    dw2r (H, LANE), db2r (LANE,), dw1p (F, 3H), db1p, dw2p (3H, LANE), db2p
+    (LANE,), all f32 in (in, out) layout like the Pallas kernel's."""
+    od = weight_dtype(cfg)
+    wsig = packed["w_sigma"][None, :]
+    hs, d1s, d2s, zsig, tzs, ths, tzsig = _bwd_primal_tangent(packed, cfg,
+                                                              cg, zs)
+    sp1 = torch.sigmoid(zsig)
+    sp2 = sp1 * (1.0 - sp1)
+    a_z = (cot[:, 0] * sp1 + sp2 * tzsig)[:, None]
+    b_tz = sp1[:, None]
+
+    # head recompute + first-order backward chain -> the a_h seed
+    xf, hr, d1r, _, hp, d1p, _ = _head_forward(hs[-1], hw, od, cfg)
+    pad = torch.zeros(cot.shape[0], LANE - 3, dtype=torch.float32,
+                      device=cot.device)
+    c_z2r = torch.cat([cot[:, 1:4], pad], 1)
+    c_z2p = torch.cat([cot[:, 4:7], pad], 1)
+    dw2r, db2r = _outer(hr, c_z2r, od), torch.sum(c_z2r, 0)
+    dw2p, db2p = _outer(hp, c_z2p, od), torch.sum(c_z2p, 0)
+    c_z1r = d1r * _mm_t(c_z2r, hw["w2r"], od)
+    c_z1p = d1p * _mm_t(c_z2p, hw["w2p"], od)
+    dw1r, db1r = _outer(xf, c_z1r, od), torch.sum(c_z1r, 0)
+    dw1p, db1p = _outer(xf, c_z1p, od), torch.sum(c_z1p, 0)
+    a_xf = _mm_t(c_z1r, hw["w1r"], od) + _mm_t(c_z1p, hw["w1p"], od)
+    dwf, dbf = _outer(hs[-1], a_xf, od), torch.sum(a_xf, 0)
+    a_h_heads = _mm_t(a_xf, hw["wf"], od)
+
+    dwsig = (_outer(hs[-1], a_z, od) + _outer(ths[-1], b_tz, od))[:, 0]
+    dbsig = torch.sum(a_z, 0)
+    a_h = _mm_t(a_z, wsig, od) + a_h_heads
+    b_th = _mm_t(b_tz, wsig, od)
+    trunk = _reverse_sweep(packed, cfg, x, cg, hs, d1s, d2s, tzs, ths, a_h,
+                           b_th=b_th)
+    return trunk + (dwsig, dbsig, dwf, dbf, dw1r, db1r, dw2r, db2r, dw1p,
+                    db1p, dw2p, db2p)
+
+
+# ------------------------------------------------------------ the kernels
+
+def check_head_weights(cfg: ModelConfig, hw: Dict, x: torch.Tensor):
+    """What K4 and K5 take of the packed heads; anything else raises."""
+    f, h = FEAT, HID
+    shapes = {"wf": (f, f), "bf": (f,), "w1r": (h, f), "b1r": (h,),
+              "w2r": (LANE, h), "b2r": (LANE,), "w1p": (3 * h, f),
+              "b1p": (3 * h,), "w2p": (LANE, 3 * h), "b2p": (LANE,)}
+    for k, shape in shapes.items():
+        v = hw[k]
+        want = torch.float32 if k.startswith("b") else torch.bfloat16
+        if not (v.device == x.device and v.is_contiguous()
+                and tuple(v.shape) == shape and v.dtype == want):
+            raise ValueError(f"packed head {k} must be a contiguous {want} "
+                             f"tensor {shape} on {x.device}, got {v.dtype} "
+                             f"{tuple(v.shape)} on {v.device}")
+
+
+def _trunk_heads_fwd_cuda(packed: Dict, hw: Dict, cfg: ModelConfig, x,
+                          want_zs: bool = False):
+    """K4: (out (n, 8), gx (n, LANE)), with want_zs also zs and us (n, L*F)
+    bf16, the residuals K5 reads."""
+    check_kernel_inputs(cfg, packed, x)
+    check_head_weights(cfg, hw, x)
+    if want_zs and cfg.compute_dtype != "bfloat16_all":
+        raise ValueError(
+            "K4 saves zs/us in bf16, the bfloat16_all contract; "
+            f"compute_dtype={cfg.compute_dtype!r} saves them in f32, which "
+            "the CUDA kernels do not take")
+    n, dev = x.shape[0], x.device
+    out = torch.empty(n, HEAD_COLS, dtype=torch.float32, device=dev)
+    gx = torch.empty(n, LANE, dtype=torch.float32, device=dev)
+    zs = us = None
+    if want_zs:
+        zs = torch.empty(n, cfg.layers * FEAT, dtype=torch.bfloat16,
+                         device=dev)
+        us = torch.empty_like(zs)
+    # persistent grid, one block per SM; each block keeps act'(z) of every
+    # layer of its current tile in this scratch
+    n_blocks = min(n // TILE_N,
+                   torch.cuda.get_device_properties(dev).multi_processor_count)
+    scratch = torch.empty(n_blocks * cfg.layers * TILE_N * FEAT,
+                          dtype=torch.float32, device=dev)
+    TRUNK_HEADS_FWD(
+        x.data_ptr(), n, n_blocks,
+        *(packed[k].data_ptr() for k in ("w0", "b0", "w_mid", "b_mid",
+                                         "w_skip", "b_skip", "w_sigma",
+                                         "b_sigma")),
+        *(hw[k].data_ptr() for k in ("wf", "bf", "w1r", "b1r", "w2r", "b2r",
+                                     "w1p", "b1p", "w2p", "b2p")),
+        out.data_ptr(), gx.data_ptr(), scratch.data_ptr(),
+        None if zs is None else zs.data_ptr(),
+        None if us is None else us.data_ptr(), cfg.layers, cfg.skips[0],
+        torch.cuda.current_stream(dev).cuda_stream)
+    return out, gx, zs, us
+
+
+def check_bwd_h_inputs(cfg: ModelConfig, packed: Dict, hw: Dict, x, cot, cg,
+                       zs, us):
+    """What K5 takes; anything else raises."""
+    check_kernel_inputs(cfg, packed, x)
+    check_head_weights(cfg, hw, x)
+    n, lf = x.shape[0], cfg.layers * FEAT
+    want = {"cot": (cot, (n, HEAD_COLS), torch.float32),
+            "cg": (cg, (n, LANE), torch.float32),
+            "zs": (zs, (n, lf), torch.bfloat16),
+            "us": (us, (n, lf), torch.bfloat16)}
+    for k, (v, shape, dt) in want.items():
+        if v is None or not (v.device == x.device and v.is_contiguous()
+                             and tuple(v.shape) == shape and v.dtype == dt):
+            raise ValueError(f"{k} must be a contiguous {dt} tensor {shape} "
+                             f"on {x.device}, got "
+                             + ("None" if v is None else
+                                f"{v.dtype} {tuple(v.shape)} on {v.device}"))
+
+
+def _trunk_heads_bwd_cuda(packed: Dict, hw: Dict, cfg: ModelConfig, x, cot,
+                          cg, zs, us):
+    """K5: the outputs of _trunk_heads_bwd_plain.  dw2r / dw2p hold their
+    three logit columns and zeros elsewhere."""
+    check_bwd_h_inputs(cfg, packed, hw, x, cot, cg, zs, us)
+    n, dev = x.shape[0], x.device
+    layers, F, H = cfg.layers, FEAT, HID
+
+    def f32(*shape):
+        return torch.empty(*shape, dtype=torch.float32, device=dev)
+
+    def bf(*shape):
+        return torch.empty(*shape, dtype=torch.bfloat16, device=dev)
+
+    def zeros(*shape):
+        return torch.zeros(*shape, dtype=torch.float32, device=dev)
+
+    n_tiles = n // TILE_N
+    n_blocks = min(n_tiles,
+                   torch.cuda.get_device_properties(dev).multi_processor_count)
+    # K3's scratch, then the bf16 operands of the heads' weight-gradient
+    # products: h_{L-1}, xf, a_xf and the first layers' cotangents
+    # [c_z1r | c_z1p]
+    scratch = (bf(2, n, LANE), bf(layers - 1, 2, n, F), bf(layers, 2, n, F),
+               f32(n_tiles, (layers + 1) * F + HEAD_PART), f32(n_tiles),
+               f32(n_blocks, layers, TILE_N * F), bf(n, F), bf(n, F),
+               bf(n, F), bf(n, 4 * H))
+    trunk = (f32(LANE, F), f32(F), f32(layers - 2, F, F), f32(layers - 2, F),
+             f32(LANE, F), f32(F, F), f32(F), f32(F), f32(1))
+    dw1, db1 = f32(F, 4 * H), f32(4 * H)
+    heads = (f32(F, F), f32(F), dw1, db1, zeros(H, LANE), zeros(LANE),
+             zeros(3 * H, LANE), zeros(LANE))
+    TRUNK_HEADS_BWD(
+        x.data_ptr(), cot.data_ptr(), cg.data_ptr(), zs.data_ptr(),
+        us.data_ptr(), n, n_blocks,
+        *(packed[k].data_ptr() for k in ("w0", "w_mid", "w_skip", "w_sigma",
+                                         "b_sigma")),
+        *(hw[k].data_ptr() for k in ("wf", "bf", "w1r", "b1r", "w2r", "w1p",
+                                     "b1p", "w2p")),
+        *(v.data_ptr() for v in scratch), *(v.data_ptr() for v in trunk),
+        *(v.data_ptr() for v in heads), layers, cfg.skips[0],
+        torch.cuda.current_stream(dev).cuda_stream)
+    dwf, dbf, _, _, dw2r, db2r, dw2p, db2p = heads
+    return trunk + (dwf, dbf, dw1[:, :H], db1[:H], dw2r, db2r, dw1[:, H:],
+                    db1[H:], dw2p, db2p)
+
+
+# --------------------------------------------------------------- plumbing
+
+def _run_fwd_h(cfg: ModelConfig, packed: Dict, hw: Dict, x_enc,
+               want_zs: bool = False):
+    """(packed logits (n, 8), gx (n, Ein_p)) of encoded points; with
+    want_zs also zs and us, padded to the kernel's row count.  us is the
+    kernel's saved u chain, None from the twin (whose backward rebuilds
+    it, as the Pallas pair does)."""
+    n = x_enc.shape[0]
+    x = pad_rows_lanes(x_enc, _round_up(max(n, TILE_N), TILE_N),
+                       packed["w0"].shape[1])
+    if x.device.type == "cpu":
+        out, gx, zs = _trunk_heads_fwd_plain(packed, hw, cfg, x, want_zs)
+        us = None
+    else:
+        out, gx, zs, us = _trunk_heads_fwd_cuda(packed, hw, cfg, x, want_zs)
+    if want_zs:
+        return out[:n], gx[:n], zs, us
+    return out[:n], gx[:n]
+
+
+def _run_bwd_h(cfg: ModelConfig, packed: Dict, hw: Dict, x_enc, c_out, c_g,
+               zs, us=None):
+    """The trunk's and the heads' packed weight grads from the saved zs
+    (and, on the card, us); rows are padded to zs's row count with zero
+    cotangents, which contribute exactly 0."""
+    n_p = zs.shape[0]
+    ein_p = packed["w0"].shape[1]
+    x = pad_rows_lanes(x_enc, n_p, ein_p)
+    cot = pad_rows_lanes(c_out, n_p, HEAD_COLS)
+    cg = pad_rows_lanes(c_g, n_p, ein_p)
+    if x.device.type == "cpu":
+        return _trunk_heads_bwd_plain(packed, hw, cfg, x, cot, cg, zs)
+    return _trunk_heads_bwd_cuda(packed, hw, cfg, x, cot, cg, zs, us)
+
+
+def _unpack_head_grads(cfg: ModelConfig, outs) -> List[torch.Tensor]:
+    """Packed (in, out) head grads -> the grads of head_params(net) in the
+    port's (out, in) layout; the padded columns and blocks of w2r / w2p
+    address no parameter and are sliced away (pallas_trunk_heads.py:
+    448-462)."""
+    (dwf, dbf, dw1r, db1r, dw2r, db2r, dw1p, db1p, dw2p, db2p) = outs
+    hid = cfg.feat // 2
+    grads = [dwf.t(), dbf, dw1r.t(), db1r, dw2r[:, :3].t(), db2r[:3]]
+    for i in range(len(RPV_NAMES)):
+        s = slice(i * hid, (i + 1) * hid)
+        grads += [dw1p[:, s].t(), db1p[s], dw2p[s, i:i + 1].t(),
+                  db2p[i:i + 1]]
+    return grads
+
+
+def head_params(net) -> List[torch.Tensor]:
+    """The parameters of the fused head block: [w, b] of every layer of
+    feats_from_xyz, rgb_from_xyzdir and the three RPV heads, in order."""
+    out: List[torch.Tensor] = []
+    for name in HEAD_NAMES:
+        for layer in net[name]:
+            out += [layer.w, layer.b]
+    return out
+
+
+def _head_view(params) -> Dict[str, list]:
+    """head_params' flat list back into named layers."""
+    layers = [SimpleNamespace(w=params[2 * i], b=params[2 * i + 1])
+              for i in range(len(params) // 2)]
+    view = {"feats_from_xyz": layers[:1], "rgb_from_xyzdir": layers[1:3]}
+    for i, name in enumerate(RPV_NAMES):
+        view[name] = layers[3 + 2 * i:5 + 2 * i]
+    return view
+
+
+class TrunkHeadsCore(torch.autograd.Function):
+    """(packed logits, d sigma / d x_enc) with the hand-derived VJP: the
+    forward runs K4 saving zs (and us on the card), the backward K5.  x_enc
+    carries no gradient; like the JAX package's _trunk_heads_bwd, its grad
+    is zeros."""
+
+    @staticmethod
+    def forward(ctx, cfg: ModelConfig, x_enc: torch.Tensor, *params):
+        n_trunk = 2 * (cfg.layers + 1)
+        packed = _pack_params(cfg, params[:n_trunk])
+        hw = pack_head_weights(_head_view(params[n_trunk:]), cfg,
+                               weight_dtype(cfg))
+        out, gx, zs, us = _run_fwd_h(cfg, packed, hw, x_enc, want_zs=True)
+        ctx.cfg, ctx.packed, ctx.hw, ctx.zs, ctx.us = cfg, packed, hw, zs, us
+        ctx.save_for_backward(x_enc)
+        ctx.ein = params[0].shape[1]
+        ctx.set_materialize_grads(False)
+        return out, gx
+
+    @staticmethod
+    def backward(ctx, c_out, c_g):
+        (x,) = ctx.saved_tensors
+        n, dev = x.shape[0], x.device
+        if c_out is None:
+            c_out = torch.zeros(n, HEAD_COLS, dtype=torch.float32,
+                                device=dev)
+        if c_g is None:
+            c_g = torch.zeros(n, ctx.packed["w0"].shape[1],
+                              dtype=torch.float32, device=dev)
+        outs = _run_bwd_h(ctx.cfg, ctx.packed, ctx.hw, x, c_out.float(),
+                          c_g.float(), ctx.zs, ctx.us)
+        grads = (_unpack_grads(ctx.cfg, ctx.ein, outs[:9])
+                 + _unpack_head_grads(ctx.cfg, outs[9:]))
+        dx = torch.zeros_like(x) if ctx.needs_input_grad[1] else None
+        return (None, dx, *grads)
+
+
+def trunk_heads_core(net, cfg: ModelConfig, x_enc: torch.Tensor):
+    """(packed logits (n, 8), d sigma / d x_enc) of the trunk and the
+    flagship heads at encoded points.  Columns of the logits: [softplus
+    sigma, rgb x3, k, theta, rhoc, 0].  Where autograd records and a
+    parameter requires grad this goes through TrunkHeadsCore (K4 saving
+    zs, then K5 in the backward); otherwise K4 alone, saving nothing."""
+    params = trunk_params(net) + head_params(net)
+    if torch.is_grad_enabled() and any(p.requires_grad for p in params):
+        return TrunkHeadsCore.apply(cfg, x_enc.detach(), *params)
+    od = weight_dtype(cfg)
+    return _run_fwd_h(cfg, pack_trunk_weights(net, cfg, od),
+                      pack_head_weights(net, cfg, od), x_enc.detach())
+
+
+def fused_trunk_heads_with_grad(net, cfg: ModelConfig,
+                                xyz: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Drop-in for the trunk and the flagship heads of
+    apply_network_with_normals: the named outputs {sigma, rgb, rpv_k,
+    rpv_theta, rpv_rhoc, normal_an}, the sigmoid and the RPV rescalings
+    ([0, 2], [-1, 1], [0, 1]) applied here to the packed logits
+    (pallas_trunk_heads.py:505-546)."""
+    from .compositing import l2_normalize
+    enc, chain = encode_with_jacobian(cfg, xyz)
+    out_p, gx_enc = trunk_heads_core(net, cfg, enc)
+    gx = chain(gx_enc)
+
+    def tile3(v):
+        return v.repeat(1, 3)
+
+    return {
+        "sigma": out_p[:, 0],
+        "rgb": torch.sigmoid(out_p[:, 1:4]),
+        "rpv_k": tile3((torch.sigmoid(out_p[:, 4:5]) - 0.5) * 2.0 + 1.0),
+        "rpv_theta": tile3((torch.sigmoid(out_p[:, 5:6]) - 0.5) * 2.0),
+        "rpv_rhoc": tile3(torch.sigmoid(out_p[:, 6:7])),
+        "normal_an": -l2_normalize(gx.float()),
+    }

@@ -111,13 +111,9 @@ def _split_skip(packed: Dict):
     return packed["w_skip"][:, :ein_p], packed["w_skip"][:, ein_p:]
 
 
-def _trunk_fwd_grad_plain(packed: Dict, cfg: ModelConfig, x: torch.Tensor,
-                          want_zs: bool = False):
-    """Plain twin of K2: the Pallas _forward_chain + _grad_chain, every
-    product on operands cast to the compute dtype with f32 accumulation.
-    Returns (sigma (n,), feats (n, F), gx (n, Ein_p)), plus zs and us
-    (n, L*F) in the saved dtype with want_zs: the pre-activation z_i and
-    the chain state u_i seen at layer i (before the act' multiply)."""
+def _forward_chain(packed: Dict, cfg: ModelConfig, x: torch.Tensor):
+    """The Pallas _forward_chain: (h_{L-1} (n, F) f32, act'(z_l) and z_l of
+    every layer, zsig (n,))."""
     od = weight_dtype(cfg)
     layers, skip = cfg.layers, cfg.skips[0]
     w_top, w_bot = _split_skip(packed)
@@ -136,9 +132,15 @@ def _trunk_fwd_grad_plain(packed: Dict, cfg: ModelConfig, x: torch.Tensor,
         d1s.append(d1)
         zs.append(z)
     zsig = _mm(h, packed["w_sigma"][None, :], od)[:, 0] + packed["b_sigma"]
-    sigma = torch.logaddexp(zsig, torch.zeros_like(zsig))
-    feats = h.to(_saved_dtype(cfg))
+    return h, d1s, zs, zsig
 
+
+def _grad_chain(packed: Dict, cfg: ModelConfig, zsig, d1s):
+    """The Pallas _grad_chain with collect: (gx (n, Ein_p), the chain state
+    u_l seen at every layer l, before the act' multiply)."""
+    od = weight_dtype(cfg)
+    layers, skip = cfg.layers, cfg.skips[0]
+    w_top, w_bot = _split_skip(packed)
     u = _mm_t(torch.sigmoid(zsig)[:, None], packed["w_sigma"][None, :], od)
     us = [None] * layers
     us[layers - 1] = u
@@ -158,6 +160,20 @@ def _trunk_fwd_grad_plain(packed: Dict, cfg: ModelConfig, x: torch.Tensor,
             u = _mm_t(g, packed["w_mid"][mid], od)
             us[i - 1] = u
             mid -= 1
+    return gx, us
+
+
+def _trunk_fwd_grad_plain(packed: Dict, cfg: ModelConfig, x: torch.Tensor,
+                          want_zs: bool = False):
+    """Plain twin of K2: the Pallas _forward_chain + _grad_chain, every
+    product on operands cast to the compute dtype with f32 accumulation.
+    Returns (sigma (n,), feats (n, F), gx (n, Ein_p)), plus zs and us
+    (n, L*F) in the saved dtype with want_zs: the pre-activation z_i and
+    the chain state u_i seen at layer i (before the act' multiply)."""
+    h, d1s, zs, zsig = _forward_chain(packed, cfg, x)
+    sigma = torch.logaddexp(zsig, torch.zeros_like(zsig))
+    feats = h.to(_saved_dtype(cfg))
+    gx, us = _grad_chain(packed, cfg, zsig, d1s)
     if not want_zs:
         return sigma, feats, gx
     sd = _saved_dtype(cfg)
@@ -172,17 +188,39 @@ def _trunk_bwd_plain(packed: Dict, cfg: ModelConfig, x, cs, cf, cg, zs, us):
     layout: (dw0 (Ein_p, F), db0 (F,), dwm (L-2, F, F), dbm (L-2, F),
     dwst (Ein_p, F), dwsb (F, F), dbs (F,), dwsig (F,), dbsig (1,))."""
     od = weight_dtype(cfg)
+    feat = cfg.feat
+    wsig = packed["w_sigma"][None, :]
+    hs, d1s, d2s, zsig, tzs, ths, tzsig = _bwd_primal_tangent(packed, cfg,
+                                                              cg, zs)
+    bths = [us[:, i * feat:(i + 1) * feat].float() for i in range(cfg.layers)]
+
+    # head cotangents
+    sp1 = torch.sigmoid(zsig)
+    sp2 = sp1 * (1.0 - sp1)
+    a_z = (cs * sp1 + sp2 * tzsig)[:, None]
+    b_tz = sp1[:, None]
+    dwsig = (_outer(hs[-1], a_z, od) + _outer(ths[-1], b_tz, od))[:, 0]
+    dbsig = torch.sum(a_z, 0)
+    a_h = _mm_t(a_z, wsig, od) + cf.float()
+    return _reverse_sweep(packed, cfg, x, cg, hs, d1s, d2s, tzs, ths, a_h,
+                          bths=bths) + (dwsig, dbsig)
+
+
+def _bwd_primal_tangent(packed: Dict, cfg: ModelConfig, cg, zs):
+    """The backward kernels' prologue: h, act', act'' of every layer from
+    the saved zs, zsig, and the tangent forward seeded by t = c_g (tz_l,
+    th_l, tzsig)."""
+    od = weight_dtype(cfg)
     layers, skip, feat = cfg.layers, cfg.skips[0], cfg.feat
     w_top, w_bot = _split_skip(packed)
     wsig = packed["w_sigma"][None, :]
-    hs, d1s, d2s, bths = [], [], [], []
+    hs, d1s, d2s = [], [], []
     for i in range(layers):
         z = zs[:, i * feat:(i + 1) * feat].float()
         h, d1, d2 = _act_all(z, _w0_of(i), cfg.siren, cfg.fast_sin, True)
         hs.append(h)
         d1s.append(d1)
         d2s.append(d2)
-        bths.append(us[:, i * feat:(i + 1) * feat].float())
     zsig = _mm(hs[-1], wsig, od)[:, 0] + packed["b_sigma"]
 
     # tangent forward, seeded by t = c_g
@@ -201,23 +239,27 @@ def _trunk_bwd_plain(packed: Dict, cfg: ModelConfig, x, cs, cf, cg, zs, us):
         tzs.append(tz)
         ths.append(th)
     tzsig = _mm(th, wsig, od)[:, 0]
+    return hs, d1s, d2s, zsig, tzs, ths, tzsig
 
-    # head cotangents
-    sp1 = torch.sigmoid(zsig)
-    sp2 = sp1 * (1.0 - sp1)
-    a_z = (cs * sp1 + sp2 * tzsig)[:, None]
-    b_tz = sp1[:, None]
-    dwsig = (_outer(hs[-1], a_z, od) + _outer(ths[-1], b_tz, od))[:, 0]
-    dbsig = torch.sum(a_z, 0)
-    a_h = _mm_t(a_z, wsig, od) + cf.float()
 
-    # reverse sweep over the (primal, tangent) pairs
+def _reverse_sweep(packed: Dict, cfg: ModelConfig, x, cg, hs, d1s, d2s, tzs,
+                   ths, a_h, bths=None, b_th=None):
+    """The reverse sweep over the (primal, tangent) pairs, from the last
+    layer's a_h.  The b_th states are `bths` where given (K3 loads them as
+    us); otherwise they are rebuilt from the seed `b_th` as the chain runs,
+    as the Pallas _bwd_kernel_h does.  Returns (dw0, db0, dwm, dbm, dwst,
+    dwsb, dbs) in (in, out) layout."""
+    od = weight_dtype(cfg)
+    layers, skip = cfg.layers, cfg.skips[0]
+    w_top, w_bot = _split_skip(packed)
     dwm: List = [None] * (layers - 2)
     dbm: List = [None] * (layers - 2)
     mid = layers - 3
     for i in range(layers - 1, -1, -1):
-        a_zl = d1s[i] * a_h + d2s[i] * tzs[i] * bths[i]
-        b_tzl = d1s[i] * bths[i]
+        if bths is not None:
+            b_th = bths[i]
+        a_zl = d1s[i] * a_h + d2s[i] * tzs[i] * b_th
+        b_tzl = d1s[i] * b_th
         if i == 0:
             dw0 = _outer(x, a_zl, od) + _outer(cg, b_tzl, od)
             db0 = torch.sum(a_zl, 0)
@@ -226,14 +268,17 @@ def _trunk_bwd_plain(packed: Dict, cfg: ModelConfig, x, cs, cf, cg, zs, us):
             dwsb = _outer(hs[i - 1], a_zl, od) + _outer(ths[i - 1], b_tzl, od)
             dbs = torch.sum(a_zl, 0)
             a_h = _mm_t(a_zl, w_bot, od)
+            if bths is None:
+                b_th = _mm_t(b_tzl, w_bot, od)
         else:
             dwm[mid] = (_outer(hs[i - 1], a_zl, od)
                         + _outer(ths[i - 1], b_tzl, od))
             dbm[mid] = torch.sum(a_zl, 0)
             a_h = _mm_t(a_zl, packed["w_mid"][mid], od)
+            if bths is None:
+                b_th = _mm_t(b_tzl, packed["w_mid"][mid], od)
             mid -= 1
-    return (dw0, db0, torch.stack(dwm), torch.stack(dbm), dwst, dwsb, dbs,
-            dwsig, dbsig)
+    return (dw0, db0, torch.stack(dwm), torch.stack(dbm), dwst, dwsb, dbs)
 
 
 def _trunk_fwd_grad_cuda(packed: Dict, cfg: ModelConfig, x: torch.Tensor,
@@ -451,20 +496,28 @@ def fused_trunk_with_grad(net, cfg: ModelConfig, xyz: torch.Tensor):
     (sigma, feats, d sigma / d xyz), the encoding's Jacobian chained here at
     the kernel's padded width (the padded lanes of the encoding are
     sin(0) = 0 and their P columns are zero)."""
+    enc, chain = encode_with_jacobian(cfg, xyz)
+    sigma, feats, gx_enc = trunk_core(net, cfg, enc)
+    return sigma, feats, chain(gx_enc)
+
+
+def encode_with_jacobian(cfg: ModelConfig, xyz: torch.Tensor):
+    """(the kernels' input at the padded lane width, the function taking
+    d/d x_enc to d/d xyz through the encoding's Jacobian)."""
     if not cfg.mapping:
-        sigma, feats, gx_enc = trunk_core(net, cfg, xyz)
-        return sigma, feats, gx_enc[:, :xyz.shape[-1]]
+        return xyz, lambda gx_enc: gx_enc[:, :xyz.shape[-1]]
     from .encoding import _phase_arg, _proj_and_phase
     n_freqs, c = cfg.mapping_sizes[0], xyz.shape[-1]
     ein_p = _round_up(2 * n_freqs * c, LANE)
     m = _phase_arg(xyz, n_freqs, pad_to=ein_p)
     enc, cos_m = _act_all(m, 1.0, siren=True, fast=cfg.fast_sin)
-    sigma, feats, gx_enc = trunk_core(net, cfg, enc)
-    # (gx_enc * cos m) @ P^T, exactly: each column of P holds one power of
-    # two, for channel (j mod 2C) mod C of band j // 2C
-    p, _ = _proj_and_phase(n_freqs, c, pad_to=ein_p)
-    scale = torch.as_tensor(p.max(axis=0)[:2 * n_freqs * c],
-                            device=xyz.device)
-    t = (gx_enc * cos_m)[:, :2 * n_freqs * c] * scale
-    gx = t.reshape(-1, 2 * n_freqs, c).sum(1)
-    return sigma, feats, gx
+
+    def chain(gx_enc):
+        # (gx_enc * cos m) @ P^T, exactly: each column of P holds one power
+        # of two, for channel (j mod 2C) mod C of band j // 2C
+        p, _ = _proj_and_phase(n_freqs, c, pad_to=ein_p)
+        scale = torch.as_tensor(p.max(axis=0)[:2 * n_freqs * c],
+                                device=xyz.device)
+        t = (gx_enc * cos_m)[:, :2 * n_freqs * c] * scale
+        return t.reshape(-1, 2 * n_freqs, c).sum(1)
+    return enc, chain

@@ -4,7 +4,9 @@ parallel/train_step.py, single device).
 The JAX package compiles render, losses, schedule gates and the optimizer
 update into one program; here they run eagerly in that order, and the
 trunk's differentiated pass goes through the fused kernels K2/K3
-(ops/fused_trunk_vjp.TrunkCore) when rcfg.fused_trunk is on.  Schedule gates
+(ops/fused_trunk_vjp.TrunkCore) when rcfg.fused_trunk is on, or K4/K5 with
+the flagship heads (ops/fused_trunk_heads.TrunkHeadsCore) when
+BRDFNERF_FUSED_HEADS is set too.  Schedule gates
 are plain booleans computed on the host from the step count, as the JAX
 package computes them in-program (gates_from_step).
 
