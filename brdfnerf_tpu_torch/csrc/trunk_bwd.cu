@@ -9,10 +9,14 @@
 // What bounds it: tensor-core operations.  A point costs the tangent
 // forward's 1.90 M multiply-adds, the a chain's 7 x 512^2 and the two outer
 // products of every layer's weight gradient (3.79 M), about 7.5 M in all,
-// against about 18 KB of input.
+// against about 18 KB of input: 2.0 ms at the training step's 131,072
+// points.  What holds it back on the card is memory traffic: the weights
+// streamed from L2 for every 64-point tile, and ~84 KB a point of zs, us,
+// the f32 tz round trip and the weight-gradient operands through device
+// memory (~11 GB a call).
 //
-// The math and the design (a sweep kernel and a weight-gradient kernel,
-// shared with K5) are in trunk_bwd.cuh.
+// The math and the design (a sweep, a weight-gradient and a reduce kernel,
+// shared with K5, on wgmma and TMA rings) are in trunk_bwd.cuh.
 
 #include "trunk_bwd.cuh"
 
@@ -23,18 +27,21 @@ using namespace trunk;
 // weights as trunk_fwd_grad_launch.  Scratch: xt (2, n, 128) bf16, hth
 // (layers-1, 2, n, 512) bf16, azbtz (layers, 2, n, 512) bf16, part
 // (n/64, layers+1, 512) f32, pbs (n/64,) f32, tzsc (n_blocks, layers,
-// 64 * 512) f32.  Outputs f32 in (in, out) layout: dw0 (128, 512), db0
-// (512,), dwm (layers-2, 512, 512), dbm (layers-2, 512), dwst (128, 512),
-// dwsb (512, 512), dbs (512,), dwsig (512,), dbsig (1,).  Two kernels on
-// the stream; returns a cudaError_t.
+// 64 * 512) f32, wpart (wpart_tiles = (8 layers - 4) x splits, 128 * 256)
+// f32, the weight-gradient blocks' partial tiles (splits from
+// ops/fused_trunk_vjp.wgrad_splits).  Outputs f32 in (in, out) layout: dw0
+// (128, 512), db0 (512,), dwm (layers-2, 512, 512), dbm (layers-2, 512),
+// dwst (128, 512), dwsb (512, 512), dbs (512,), dwsig (512,), dbsig (1,).
+// Three kernels on the stream; returns a cudaError_t.
 extern "C" int trunk_bwd_launch(
     const float* x, const float* cs, const void* cf, int cf_bf16,
     const float* cg, const void* zs, const void* us, int n_rows,
     int n_blocks, const void* w0, const void* wmid, const void* wskip,
     const float* wsig, const float* bsig, void* xt, void* hth, void* azbtz,
-    float* part, float* pbs, float* tzsc, float* dw0, float* db0, float* dwm,
-    float* dbm, float* dwst, float* dwsb, float* dbs, float* dwsig,
-    float* dbsig, int layers, int skip, void* stream) {
+    float* part, float* pbs, float* tzsc, float* wpart, int splits,
+    int wpart_tiles, float* dw0, float* db0, float* dwm, float* dbm,
+    float* dwst, float* dwsb, float* dbs, float* dwsig, float* dbsig,
+    int layers, int skip, void* stream) {
   BwdArgs p = {};
   p.x = x;
   p.cs = cs;
@@ -56,6 +63,9 @@ extern "C" int trunk_bwd_launch(
   p.part = part;
   p.pbs = pbs;
   p.tzsc = tzsc;
+  p.wpart = wpart;
+  p.splits_trunk = splits;
+  p.wpart_tiles = wpart_tiles;
   p.dw0 = dw0;
   p.db0 = db0;
   p.dwm = dwm;

@@ -14,28 +14,55 @@
 //     c_z1 = act'(z1) (c_z2 W_2),   a_xf = c_z1r W_1r + c_z1p W_1p,
 //     dW_2 = h1^T c_z2,  dW_1 = xf^T c_z1,  dW_f = h_{L-1}^T a_xf.
 //
-// Design.  On the TPU the grid runs in order and carries dW in VMEM from one
-// tile to the next.  Here blocks run in parallel and one set of weight grads
-// (8.5 MB of f32 for the trunk, 4.1 MB more for the heads) fits in no block,
-// so the work is two kernels, both deterministic (a fixed summation order,
-// no atomics):
-//   1. sweep: a persistent grid of blocks of 8 warps, one 64-point tile at a
-//      time, as K2 (trunk_common.cuh): the tangent forward and the a chain on
-//      the tensor cores, with the tile's tz_l kept in a per-block f32 scratch.
-//      It writes the bf16 operands of every weight-gradient product (the
-//      Pallas _outer rounds exactly these to bf16, so nothing is lost),
-//      per-tile column sums in f32 (the biases, and for K5 the heads'
-//      3-column second layers), and the sigma head's per-tile grads.
-//   2. wgrad: one block per 128 x 128 tile of every dW (120 tiles at 8 x 512,
-//      48 more for K5's dW_f and dW_1), walking all points in order:
-//      dW = [h; th]^T [a_z; b_tz] with K = 2 x points (K = points for the
-//      heads); both operands are read point-major and transposed by
-//      ldmatrix.trans.  Further blocks sum the per-tile partials over the
-//      tiles, in tile order.
+// What bounds them on the H100.  Their bound is tensor-core operations
+// (K3 15.05 MFLOP a point against ~18 KB of input, 1.995 ms at the
+// training step's 131,072 points), but what holds the sweep back is memory
+// traffic: a 64-point tile streams the trunk's 7.4 MB of weight slices from
+// L2 twice over (64 FLOP a weight byte), and its epilogues move ~5.4 MB a
+// tile through device memory (zs twice, us, the f32 tz round trip, the
+// bf16 operands of the weight gradients), ~11 GB a call, 3.3 ms at
+// 3.35 TB/s.  The weight gradients read ~4.3 GB of bf16 operands (K5
+// ~5 GB), 1.3 ms at that rate.
+//
+// Design (sm90_common.cuh for the building blocks): three kernels, all
+// deterministic (fixed summation orders, no atomics).
+//   1. sweep: a persistent grid, one 64-point tile at a time per block of
+//      three warpgroups.  A producer warp streams, in the order the
+//      consumers need them, every weight slice of the tile's products (TMA;
+//      K-major boxes for the forward products, MN-major boxes for the
+//      reverse a_h = a_z W, so no operand is transposed by the threads) and
+//      every epilogue's data (zs and us in 64 x 64 boxes, the tz scratch in
+//      32 KB bulk copies) through one ring of four 32 KB stages, running
+//      ahead across epilogues and tiles: the epilogues read shared memory,
+//      and their device-memory traffic overlaps the products.  Two consumer
+//      warpgroups each own 256 of the 512 output columns of every product
+//      (wgmma m64n256k16, 128 f32 accumulators a thread, setmaxnreg 232)
+//      and read A from one 64 x 512 activation tile kept K-major with the
+//      128-byte swizzle, which the epilogues write in that layout; th_l,
+//      a_z_l, h_l and b_tz_l leave by TMA stores of the tile.  tz_l goes to
+//      a per-block f32 scratch and comes back through the ring: recomputing
+//      it in the reverse sweep would keep a_h and tz (256 accumulators a
+//      thread) or a 128 KB f32 tile live at once.  The sweep writes the
+//      bf16 operands of every weight-gradient product (the Pallas _outer
+//      rounds exactly these to bf16, so nothing is lost), per-tile column
+//      sums in f32 (the biases, the sigma head's dW, and for K5 the heads'
+//      3-column second layers), and the sigma head's per-tile db.
+//   2. wgrad: dW = [h; th]^T [a_z; b_tz] (K = 2 x points; the heads'
+//      K = points) in 128 x 256 output tiles, each K axis cut into
+//      contiguous slices of whole 64-point chunks (the plan from
+//      ops/fused_trunk_vjp.wgrad_splits: K3 takes 2, one wave of 120
+//      blocks).  A producer warp feeds a four-stage TMA ring with MN-major
+//      boxes of both operands (both lie point-major), two consumer
+//      warpgroups run wgmma, and each block writes its f32 partial tile.
+//   3. reduce: sums each output tile's slice partials in slice order, and
+//      the sweep's per-tile column partials in tile order.
+// A 2-CTA cluster multicasting every weight slice to both was measured
+// slower (PERF.md): each ring slot then waits on both CTAs' warps.
 // Rows beyond the caller's points carry zero cotangents and add exactly 0.
 
 #pragma once
 
+#include "sm90_common.cuh"
 #include "trunk_common.cuh"
 
 namespace trunk {
@@ -80,6 +107,7 @@ struct BwdArgs {
   float* part;
   float* pbs;
   float* tzsc;
+  float* wpart;            // the weight-gradient blocks' partial tiles
   bf16* hl;                // K5: h_{L-1}, xf, a_xf (n, 512), c_z1 (n, 1024)
   bf16* xfb;
   bf16* axf;
@@ -88,6 +116,8 @@ struct BwdArgs {
   float *dw0, *db0, *dwm, *dbm, *dwst, *dwsb, *dbs, *dwsig, *dbsig;
   float *dwf, *dbf, *dw1, *db1, *dw2r, *db2r, *dw2p, *db2p;
   int layers, skip;
+  int splits_trunk, splits_heads;   // K slices per weight-gradient tile
+  int wpart_tiles;                  // partial tiles wpart holds
 };
 
 // h, act' and act'' of the polynomial sine (the JAX package's
@@ -116,16 +146,35 @@ __device__ __forceinline__ void act_eval2(float z, float w0, float& h,
 #endif
 }
 
+// two bf16 of a read-only input (c_feats) through the non-coherent path
 __device__ __forceinline__ float2 ld_bf2(const bf16* p) {
+  return __bfloat1622float2(__ldg(reinterpret_cast<const __nv_bfloat162*>(p)));
+}
+
+// The epilogues' zs, us and tz come through the ring (below).
+// BWD_NO_EPILOGUE_LOADS (measurement only, never built by the package;
+// tools/bwd_variants.py) loads none of them and reads constants instead,
+// so that the time the epilogues spend on their data can be read off.
+#ifdef BWD_NO_EPILOGUE_LOADS
+constexpr bool EPI_DATA = false;
+__device__ __forceinline__ float2 stage_bf2(const unsigned char*) {
+  return make_float2(0.5f, -0.25f);
+}
+__device__ __forceinline__ float stage_f32(const unsigned char*) {
+  return 0.125f;
+}
+#else
+constexpr bool EPI_DATA = true;
+__device__ __forceinline__ float2 stage_bf2(const unsigned char* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
-
-__device__ __forceinline__ void st_bf2(bf16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+__device__ __forceinline__ float stage_f32(const unsigned char* p) {
+  return *reinterpret_cast<const float*>(p);
 }
+#endif
 
-// Sum a column partial over the tile's 64 rows (the lanes sharing a column
-// differ in lane bits 2..4); lanes 0..3 get the sums.
+// Sum a column partial over the 8 row groups of a warp's 16 rows (lanes
+// sharing a column differ in lane bits 2..4); lanes 0..3 get the sums.
 __device__ __forceinline__ float col_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 4);
   v += __shfl_xor_sync(0xffffffffu, v, 8);
@@ -133,638 +182,1079 @@ __device__ __forceinline__ float col_sum(float v) {
   return v;
 }
 
-// shared memory of the K3 sweep: K2's carve-up plus a second row vector
-constexpr int OFF_ROW2 = SMEM_BYTES;
-constexpr int SMEM_SWEEP = OFF_ROW2 + T * 4;
-// of the K5 sweep: the tile of the encoding's tangent grows into a 64 x 256
-// tile of c_z1 (the A operand of a_xf), and the tile's logit cotangents
-constexpr int SC = HID + 8;
-constexpr int OFFH_W = OFF_X + T * SC * 2;
-constexpr int OFFH_RED = OFFH_W + NSTAGE * STAGE * 2;
-constexpr int OFFH_ROW = OFFH_RED + 8 * T * 4;
-constexpr int OFFH_ROW2 = OFFH_ROW + T * 4;
-constexpr int OFFH_COT = OFFH_ROW2 + T * 4;
-constexpr int SMEM_SWEEP_H = OFFH_COT + T * HEAD_COLS * 4;
+// ================================================================== sweep
 
-// ------------------------------------------------------------------ sweep
-//
-// Scratch written (n = rows, F = 512, L = layers):
-//   xt    (2, n, 128)      bf16  x, then t = c_g
-//   hth   (L-1, 2, n, F)   bf16  slot l-1: h_{l-1}, then th_{l-1} (layer l)
-//   azbtz (L, 2, n, F)     bf16  slot l: a_z_l, then b_tz_l
-//   part  (tiles, W)       f32   per tile: column sums of a_z_l (l < L),
-//                                 the sigma head's dW, then (K5) the heads'
-//                                 partials; W = (L+1) F [+ HEAD_PART]
-//   pbs   (tiles,)         f32   per tile: the sigma head's db
-//   tzsc  (blocks, L, 64 x 512) f32: the block's tz_l, per-thread layout
-//   K5: hl, xfb, axf (n, F) and cz1 (n, 4 x 256) bf16
-// The pointers are the kernel's own __restrict__ parameters (and not a
-// BwdArgs, as for the other kernels): with them the compiler may move the
-// loads of zs, us and the tz scratch past the stores of the sweep.
+constexpr int NC = 256;                  // consumer threads (2 warpgroups)
+constexpr int NTB = NC + 128;            // + the producer warpgroup
+constexpr int BAR_C = 1;                 // named barrier of the consumers
+constexpr int KSL = 32;                  // k-slice of a weight stage
+constexpr int RING_STAGE = F * KSL * 2;  // 32 KB: 32 k x 512 n, SW64
+constexpr int RING_N = 4;                // stages
+constexpr int ACT_BLOCK = T * 64 * 2;    // one 64 x 64 SW128 block, 8 KB
+// shared memory: the activation tile (64 x 512, 8 blocks), the tile of
+// t = c_g (64 x 128; K5: 64 x 256, the c_z1 chunk once the tangent forward
+// is done; both double as reduction space), the ring (weight slices and
+// the epilogues' data), then barriers and per-row vectors
+constexpr int SM_ACT = 0;
+constexpr int SM_TS = SM_ACT + 8 * ACT_BLOCK;
 template <bool HEADS>
-__global__ void __launch_bounds__(NT, 1) trunk_bwd_sweep_kernel(
-    const float* __restrict__ x, const float* __restrict__ cs,
-    const void* __restrict__ cf, int cf_bf16, const float* __restrict__ cot,
-    const float* __restrict__ cg, const bf16* __restrict__ zs,
-    const bf16* __restrict__ us, int n, int n_tiles,
-    const bf16* __restrict__ w0, const bf16* __restrict__ wmid,
-    const bf16* __restrict__ wskip, const float* __restrict__ wsig,
-    const float* __restrict__ bsig, const bf16* __restrict__ wf,
-    const float* __restrict__ bf, const bf16* __restrict__ w1r,
-    const float* __restrict__ b1r, const bf16* __restrict__ w2r,
-    const bf16* __restrict__ w1p, const float* __restrict__ b1p,
-    const bf16* __restrict__ w2p, bf16* __restrict__ xt,
-    bf16* __restrict__ hth, bf16* __restrict__ azbtz,
-    float* __restrict__ part, float* __restrict__ pbs,
-    float* __restrict__ tzsc, bf16* __restrict__ hl, bf16* __restrict__ xfb,
-    bf16* __restrict__ axf, bf16* cz1, int layers, int skip) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* act = reinterpret_cast<bf16*>(smem + OFF_ACT);
-  bf16* ts = reinterpret_cast<bf16*>(smem + OFF_X);
-  bf16* chunk = ts;   // K5, once the tangent forward is done
-  bf16* stage = reinterpret_cast<bf16*>(smem + (HEADS ? OFFH_W : OFF_W));
-  float* red = reinterpret_cast<float*>(smem + (HEADS ? OFFH_RED : OFF_RED));
-  float* row_a = reinterpret_cast<float*>(smem + (HEADS ? OFFH_ROW : OFF_ROW));
-  float* row_b =
-      reinterpret_cast<float*>(smem + (HEADS ? OFFH_ROW2 : OFF_ROW2));
-  float* rowc = reinterpret_cast<float*>(smem + OFFH_COT);   // K5 only
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int last = layers - 1;
-  const size_t ld = (size_t)layers * F;
-  const size_t nF = (size_t)n * F;
-  const int row_w = (layers + 1) * F + (HEADS ? HEAD_PART : 0);
-  float* tzb = tzsc + (size_t)blockIdx.x * layers * ACC * NT + tid;
-  // the last layer's h (K3) or th (K5), bf16, staged in the (idle) weight
-  // ring
-  bf16* ring_tile = stage;
-
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const size_t row0 = (size_t)tile * T;
-    load_x_tile(cg + row0 * EP, ts);
-    for (int i = tid; i < T * EP / 4; i += NT) {
-      const float4 a = reinterpret_cast<const float4*>(x + row0 * EP)[i];
-      const float4 b = reinterpret_cast<const float4*>(cg + row0 * EP)[i];
-      __nv_bfloat162* xa =
-          reinterpret_cast<__nv_bfloat162*>(xt + row0 * EP) + 2 * i;
-      __nv_bfloat162* xb = reinterpret_cast<__nv_bfloat162*>(
-                               xt + (size_t)n * EP + row0 * EP) + 2 * i;
-      xa[0] = __floats2bfloat162_rn(a.x, a.y);
-      xa[1] = __floats2bfloat162_rn(a.z, a.w);
-      xb[0] = __floats2bfloat162_rn(b.x, b.y);
-      xb[1] = __floats2bfloat162_rn(b.z, b.w);
-    }
-    if (HEADS)
-      for (int i = tid; i < T * HEAD_COLS; i += NT)
-        rowc[i] = cot[row0 * HEAD_COLS + i];
-    float acc[MT][8][4];
-
-    // ------------------------------------------- tangent forward, t = c_g
-    float pz[MT][2], pt[MT][2];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) pz[mt][0] = pz[mt][1] = pt[mt][0] =
-        pt[mt][1] = 0.f;
-    for (int i = 0; i < layers; ++i) {
-      forward_layer(acc, i, skip, ts, act, w0, wmid, wskip, stage);
-      const float w0s = i == 0 ? 30.f : 1.f;
-      float* tzl = tzb + (size_t)i * ACC * NT;
-      bf16* hd = hth + (size_t)(2 * i) * nF + row0 * F;      // layer i+1
-      bf16* thd = hd + nF;
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int nf = 0; nf < 8; ++nf)
-#pragma unroll
-          for (int hf = 0; hf < 2; ++hf) {
-            int row, col;
-            acc_pos<8>(mt, nf, 2 * hf, row, col);
-            const float2 z = ld_bf2(zs + (row0 + row) * ld + (size_t)i * F +
-                                    col);
-            float h0, h1, d0, d1;
-            act_eval(z.x, w0s, h0, d0);
-            act_eval(z.y, w0s, h1, d1);
-            const float tz0 = acc[mt][nf][2 * hf];
-            const float tz1 = acc[mt][nf][2 * hf + 1];
-            const float th0 = d0 * tz0, th1 = d1 * tz1;
-            const int j = (mt * 8 + nf) * 4 + 2 * hf;
-            tzl[j * NT] = tz0;
-            tzl[(j + 1) * NT] = tz1;
-            if (i < last) {
-              st_bf2(act + row * SA + col, th0, th1);
-              st_bf2(hd + row * F + col, h0, h1);
-              st_bf2(thd + row * F + col, th0, th1);
-            } else {
-              if (HEADS) {
-                // h stays in the tile for the head products
-                st_bf2(act + row * SA + col, h0, h1);
-                st_bf2(ring_tile + row * SA + col, th0, th1);
-                st_bf2(hl + (row0 + row) * F + col, h0, h1);
-              } else {
-                st_bf2(act + row * SA + col, th0, th1);
-                st_bf2(ring_tile + row * SA + col, h0, h1);
-              }
-              pz[mt][hf] += bf16_round(h0) * wsig[col] +
-                            bf16_round(h1) * wsig[col + 1];
-              pt[mt][hf] += bf16_round(th0) * wsig[col] +
-                            bf16_round(th1) * wsig[col + 1];
-            }
-          }
-    }
-
-    // ------------------------------------------------------- sigma head
-    // zsig = h . wsig + b, tzsig = th . wsig; a = cs sp' + sp'' tzsig on
-    // zsig, b = sp' on tzsig
-    const float s_z = sigma_rows(pz, red);
-    __syncthreads();
-    const float s_t = sigma_rows(pt, red);
-    if (tid < T) {
-      const float zsig = s_z + bsig[0];
-      const float sp1 = 1.f / (1.f + expf(-zsig));
-      const float sp2 = sp1 * (1.f - sp1);
-      const float c_s = HEADS ? rowc[tid * HEAD_COLS] : cs[row0 + tid];
-      row_a[tid] = c_s * sp1 + sp2 * s_t;
-      row_b[tid] = sp1;
-    }
-    __syncthreads();
-    float* pt_tile = part + (size_t)tile * row_w;
-    if (tid == 0) {
-      float s = 0.f;
-      for (int r = 0; r < T; ++r) s += row_a[r];
-      pbs[tile] = s;
-    }
-    {
-      const bf16* hsrc = HEADS ? act : ring_tile;
-      const bf16* tsrc = HEADS ? ring_tile : act;
-      for (int c = tid; c < F; c += NT) {
-        float sh = 0.f, st = 0.f;
-        for (int r = 0; r < T; ++r) {
-          sh += __bfloat162float(hsrc[r * SA + c]) * bf16_round(row_a[r]);
-          st += __bfloat162float(tsrc[r * SA + c]) * bf16_round(row_b[r]);
-        }
-        pt_tile[(size_t)layers * F + c] = sh + st;
-      }
-    }
-    __syncthreads();
-
-    if constexpr (HEADS) {
-      float* hp_tile = pt_tile + (size_t)(layers + 1) * F;
-      bf16* xfd = xfb + row0 * F;
-      bf16* czd = cz1 + row0 * 4 * HID;
-      // ---------------------------------------- xf = h W_f^T + b_f
-      zero<8>(acc);
-      gemm<8, false>(acc, act, SA, F, nullptr, 0, 0, wf, F, 0, stage);
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int nf = 0; nf < 8; ++nf)
-#pragma unroll
-          for (int hf = 0; hf < 2; ++hf) {
-            int row, col;
-            acc_pos<8>(mt, nf, 2 * hf, row, col);
-            const float v0 = acc[mt][nf][2 * hf] + bf[col];
-            const float v1 = acc[mt][nf][2 * hf + 1] + bf[col + 1];
-            st_bf2(act + row * SA + col, v0, v1);
-            st_bf2(xfd + row * F + col, v0, v1);
-          }
-
-      // ---- the first head layers in 256-column passes (q = 0: rgb,
-      // 1..3: k, theta, rho_c): c_z1 = act'(z1) (c_z2 W_2) to global, with
-      // its column sums (db_1) and the dW_2 partials h1^T c_z2
-#pragma unroll 1
-      for (int q = 0; q < 4; ++q) {
-        const bf16* w1 = q == 0 ? w1r : w1p;
-        const float* b1 = q == 0 ? b1r : b1p + (q - 1) * HID;
-        const int cb = q == 0 ? 1 : 4;          // first c_z2 column of q
-        float a[MT][4][4];
-        zero<4>(a);
-        gemm<4, false>(a, act, SA, F, nullptr, 0, 0, w1, F,
-                       q == 0 ? 0 : (q - 1) * HID, stage);
-        float csum[4][2], w2s[3][4][2];
-#pragma unroll
-        for (int nf = 0; nf < 4; ++nf)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            csum[nf][e] = 0.f;
-#pragma unroll
-            for (int c = 0; c < 3; ++c) w2s[c][nf][e] = 0.f;
-          }
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-          for (int nf = 0; nf < 4; ++nf)
-#pragma unroll
-            for (int hf = 0; hf < 2; ++hf) {
-              int row, col;
-              acc_pos<4>(mt, nf, 2 * hf, row, col);
-              const int k = q * HID + col;      // hidden unit of 1,024
-              float h[2], d[2];
-              act_eval(a[mt][nf][2 * hf] + b1[col], 1.f, h[0], d[0]);
-              act_eval(a[mt][nf][2 * hf + 1] + b1[col + 1], 1.f, h[1], d[1]);
-              float cc[3];
-#pragma unroll
-              for (int c = 0; c < 3; ++c)
-                cc[c] = bf16_round(rowc[row * HEAD_COLS + cb + c]);
-              float cz[2];
-#pragma unroll
-              for (int e = 0; e < 2; ++e) {
-                float s;
-                if (q == 0)
-                  s = cc[0] * __bfloat162float(w2r[col + e]) +
-                      cc[1] * __bfloat162float(w2r[HID + col + e]) +
-                      cc[2] * __bfloat162float(w2r[2 * HID + col + e]);
-                else   // w2p row q-1, column k - HID of the merged 768
-                  s = cc[q - 1] * __bfloat162float(
-                                      w2p[(q - 1) * 3 * HID + k - HID + e]);
-                cz[e] = d[e] * s;
-                csum[nf][e] += cz[e];
-                const float hb = bf16_round(h[e]);
-#pragma unroll
-                for (int c = 0; c < 3; ++c) w2s[c][nf][e] += hb * cc[c];
-              }
-              st_bf2(czd + (size_t)row * 4 * HID + k, cz[0], cz[1]);
-            }
-#pragma unroll
-        for (int nf = 0; nf < 4; ++nf)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int k = q * HID + warp * 32 + nf * 8 + lane * 2 + e;
-            const float v = col_sum(csum[nf][e]);
-            float w[3];
-#pragma unroll
-            for (int c = 0; c < 3; ++c) w[c] = col_sum(w2s[c][nf][e]);
-            if (lane < 4) {
-              hp_tile[HP_DB1 + k] = v;
-#pragma unroll
-              for (int c = 0; c < 3; ++c)
-                hp_tile[HP_DW2 + c * 4 * HID + k] = w[c];
-            }
-          }
-      }
-      if (tid < 8) {
-        float s = 0.f;
-        if (tid < 6)
-          for (int r = 0; r < T; ++r) s += rowc[r * HEAD_COLS + 1 + tid];
-        hp_tile[HP_DB2 + tid] = s;
-      }
-      __syncthreads();   // c_z1 of the tile is in global memory
-
-      // ------------- a_xf = sum_q c_z1_q W_1q, one 64 x 256 chunk at a time
-      zero<8>(acc);
-#pragma unroll 1
-      for (int q = 0; q < 4; ++q) {
-        for (int s = tid; s < T * HID / 8; s += NT) {
-          const int r = s / (HID / 8), c8 = (s % (HID / 8)) * 8;
-          *reinterpret_cast<uint4*>(chunk + r * SC + c8) =
-              *reinterpret_cast<const uint4*>(czd + (size_t)r * 4 * HID +
-                                              q * HID + c8);
-        }
-        const bf16* w1 =
-            q == 0 ? w1r : w1p + (size_t)(q - 1) * HID * F;
-        gemm<8, true>(acc, chunk, SC, HID, nullptr, 0, 0, w1, F, 0, stage);
-      }
-      {
-        bf16* axd = axf + row0 * F;
-        float csum[8][2];
-#pragma unroll
-        for (int nf = 0; nf < 8; ++nf) csum[nf][0] = csum[nf][1] = 0.f;
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-          for (int nf = 0; nf < 8; ++nf)
-#pragma unroll
-            for (int hf = 0; hf < 2; ++hf) {
-              int row, col;
-              acc_pos<8>(mt, nf, 2 * hf, row, col);
-              const float v0 = acc[mt][nf][2 * hf];
-              const float v1 = acc[mt][nf][2 * hf + 1];
-              csum[nf][0] += v0;
-              csum[nf][1] += v1;
-              st_bf2(act + row * SA + col, v0, v1);
-              st_bf2(axd + row * F + col, v0, v1);
-            }
-#pragma unroll
-        for (int nf = 0; nf < 8; ++nf)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const float v = col_sum(csum[nf][e]);
-            if (lane < 4)
-              hp_tile[HP_DBF + warp * 64 + nf * 8 + lane * 2 + e] = v;
-          }
-      }
-      // ------------------------------------ a_h from the heads: a_xf W_f
-      zero<8>(acc);
-      gemm<8, true>(acc, act, SA, F, nullptr, 0, 0, wf, F, 0, stage);
-    }
-
-    // a_h of the last layer: a . wsig + c_feats (K3), + a_xf W_f (K5)
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int nf = 0; nf < 8; ++nf)
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          int row, col;
-          acc_pos<8>(mt, nf, 2 * hf, row, col);
-          const float a = bf16_round(row_a[row]);
-          float2 f;
-          if (HEADS) {
-            f = make_float2(acc[mt][nf][2 * hf], acc[mt][nf][2 * hf + 1]);
-          } else {
-            const size_t o = (row0 + row) * F + col;
-            if (cf_bf16)
-              f = ld_bf2(static_cast<const bf16*>(cf) + o);
-            else
-              f = *reinterpret_cast<const float2*>(
-                  static_cast<const float*>(cf) + o);
-          }
-          acc[mt][nf][2 * hf] = a * wsig[col] + f.x;
-          acc[mt][nf][2 * hf + 1] = a * wsig[col + 1] + f.y;
-        }
-
-    // ------------------------------------------------------ reverse sweep
-    for (int i = last; i >= 0; --i) {
-      const float w0s = i == 0 ? 30.f : 1.f;
-      const float* tzl = tzb + (size_t)i * ACC * NT;
-      bf16* azd = azbtz + (size_t)(2 * i) * nF + row0 * F;
-      bf16* btd = azd + nF;
-      float csum[8][2];
-#pragma unroll
-      for (int nf = 0; nf < 8; ++nf) csum[nf][0] = csum[nf][1] = 0.f;
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int nf = 0; nf < 8; ++nf)
-#pragma unroll
-          for (int hf = 0; hf < 2; ++hf) {
-            int row, col;
-            acc_pos<8>(mt, nf, 2 * hf, row, col);
-            const size_t o = (row0 + row) * ld + (size_t)i * F + col;
-            const float2 z = ld_bf2(zs + o);
-            const float2 u = ld_bf2(us + o);
-            float h, d10, d20, d11, d21;
-            act_eval2(z.x, w0s, h, d10, d20);
-            act_eval2(z.y, w0s, h, d11, d21);
-            const int j = (mt * 8 + nf) * 4 + 2 * hf;
-            const float az0 = d10 * acc[mt][nf][2 * hf] +
-                              d20 * tzl[j * NT] * u.x;
-            const float az1 = d11 * acc[mt][nf][2 * hf + 1] +
-                              d21 * tzl[(j + 1) * NT] * u.y;
-            csum[nf][0] += az0;
-            csum[nf][1] += az1;
-            st_bf2(act + row * SA + col, az0, az1);
-            st_bf2(azd + row * F + col, az0, az1);
-            st_bf2(btd + row * F + col, d10 * u.x, d11 * u.y);
-          }
-      // column sums over the tile's 64 rows
-#pragma unroll
-      for (int nf = 0; nf < 8; ++nf)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float v = col_sum(csum[nf][e]);
-          if (lane < 4)
-            pt_tile[(size_t)i * F + warp * 64 + nf * 8 + lane * 2 + e] = v;
-        }
-      if (i == 0) break;
-      // a_h_{i-1} = a_z_i . W_i
-      zero<8>(acc);
-      if (i == skip) {
-        gemm<8, true>(acc, act, SA, F, nullptr, 0, 0, wskip, EP + F, EP,
-                      stage);
-      } else {
-        const int mid = i < skip ? i - 1 : i - 2;
-        gemm<8, true>(acc, act, SA, F, nullptr, 0, 0,
-                      wmid + (size_t)mid * F * F, F, 0, stage);
-      }
-    }
-    __syncthreads();   // the next tile reloads ts and restages the ring
-  }
+__host__ __device__ constexpr int sm_ring() {
+  return SM_TS + (HEADS ? 4 : 2) * ACT_BLOCK;
 }
-
-// ------------------------------------------------------------------ wgrad
-
-constexpr int WT = 128;             // output tile edge
-constexpr int KW = 64;              // points per staged chunk
-constexpr int SK = WT + 8;          // chunk row stride (bf16)
-constexpr int CHUNK = 2 * KW * SK;  // elements per stage buffer (A then B)
-constexpr int WSTAGE = 3;
-constexpr int SMEM_WGRAD = WSTAGE * CHUNK * 2;
-
-// Stage chunk c of the K axis: A rows [a0 | a1] (K = 2n, the second half
-// from a1; K = n where a1 is null) and B likewise, each a (KW x 128) window
-// at column offsets ma / nb of row strides lda / ldb.
-__device__ __forceinline__ void stage_wgrad(bf16* sb, const bf16* a0,
-                                            const bf16* a1, int lda, int ma,
-                                            const bf16* b0, const bf16* b1,
-                                            int ldb, int nb, int n, int c) {
-  const int k0 = c * KW;
-  const bool second = k0 >= n;
-  const bf16* a = second ? a1 : a0;
-  const bf16* b = second ? b1 : b0;
-  const size_t r0 = second ? k0 - n : k0;
-#pragma unroll
-  for (int j = 0; j < KW * WT / 8 / NT; ++j) {
-    const int s = threadIdx.x + j * NT;
-    const int r = s / (WT / 8), part = s % (WT / 8);
-    cp_async16(sb + r * SK + part * 8,
-               a + (r0 + r) * lda + ma + part * 8);
-    cp_async16(sb + KW * SK + r * SK + part * 8,
-               b + (r0 + r) * ldb + nb + part * 8);
-  }
-}
-
 template <bool HEADS>
-__global__ void __launch_bounds__(NT, 1)
-    trunk_bwd_wgrad_kernel(const BwdArgs p) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int layers = p.layers, skip = p.skip, n = p.n;
-  const size_t nF = (size_t)n * F;
-  // which output tile: layers in order, the skip layer's top (x, t) part
-  // before its bottom part, 4 column tiles per 128 rows; then (K5) dW_f,
-  // 4 x 4 tiles, and dW_1 = [dW_1r | dW_1p], 4 x 8 tiles
-  int b = blockIdx.x;
-  bool found = false;
-  const bf16 *a0 = nullptr, *a1 = nullptr, *b0 = nullptr, *b1 = nullptr;
-  float* out = nullptr;
-  int lda = F, ldb = F, ldo = F, ncol = 4;
-  for (int i = 0; i < layers && !found; ++i) {
-    const bf16* bh = i == 0 ? nullptr : p.hth + (size_t)(2 * (i - 1)) * nF;
-    b0 = p.azbtz + (size_t)(2 * i) * nF;
-    b1 = b0 + nF;
-    if (i == 0 || i == skip) {
-      if (b < 4) {
-        a0 = p.xt, a1 = p.xt + (size_t)n * EP, lda = EP;
-        out = i == 0 ? p.dw0 : p.dwst;
-        found = true;
-        break;
-      }
-      b -= 4;
-      if (i == 0) continue;
+__host__ __device__ constexpr int sm_bar() {
+  return sm_ring<HEADS>() + RING_N * RING_STAGE;
+}
+template <bool HEADS>
+__host__ __device__ constexpr int sm_rows() {
+  return sm_bar<HEADS>() + 128;
+}
+template <bool HEADS>
+__host__ __device__ constexpr int sweep_smem() {
+  return sm_rows<HEADS>() + 2 * T * 4 + (HEADS ? T * HEAD_COLS * 4 : 0);
+}
+static_assert(sweep_smem<true>() <= 232448, "K5 sweep's shared memory");
+
+// The weight tensors the sweep streams, as TMA maps: K-major boxes (32 k x
+// 256 n rows) for the forward products, MN-major boxes (32 n x 32 k) for
+// the reverse ones; zs and us (boxes of 64 rows x 64 columns, SW128); and
+// the bf16 outputs it stores from the activation or chunk tile (boxes of
+// 64 x 64, SW128).
+struct SweepMaps {
+  CUtensorMap w0k, wmidk, wskipk, wmidm, wskipm, zs, us;
+  CUtensorMap hth, azbtz;
+  CUtensorMap wfk, wfm, w1rk, w1pk, w1rm, w1pm;   // K5
+  CUtensorMap hl, xfb, axf, cz1;                  // K5
+};
+
+struct Ring {
+  uint32_t stage, phase;
+  __device__ __forceinline__ void advance() {
+    if (++stage == RING_N) {
+      stage = 0;
+      phase ^= 1;
     }
-    if (b < 16) {
-      a0 = bh, a1 = bh + nF, lda = F;
-      out = i == skip ? p.dwsb
-                      : p.dwm + (size_t)(i < skip ? i - 1 : i - 2) * F * F;
-      found = true;
-      break;
-    }
-    b -= 16;
   }
-  if (HEADS && !found) {
-    a1 = b1 = nullptr;
-    if (b < 16) {
-      a0 = p.hl, b0 = p.axf, out = p.dwf;
-      found = true;
-    } else if (b < 48) {
-      b -= 16;
-      a0 = p.xfb, b0 = p.cz1, ldb = ldo = 4 * HID, ncol = 8, out = p.dw1;
-      found = true;
+};
+
+// Producer: the nk k-slices of one product's B into the ring.  K-major
+// (mn = false): B[k][n] = W[row0 + n][col0 + k], nw rows of n; MN-major:
+// B[k][n] = W[row0 + k][col0 + n], nw columns of n.
+__device__ __forceinline__ void produce(const CUtensorMap* map, bool mn,
+                                        int nk, int row0, int col0, int nw,
+                                        Ring& r, uint64_t* full,
+                                        uint64_t* empty, unsigned char* ring) {
+  for (int c = 0; c < nk; ++c) {
+    sm90::mbar_wait(&empty[r.stage], r.phase ^ 1);
+    unsigned char* s = ring + r.stage * RING_STAGE;
+    sm90::mbar_expect_tx(&full[r.stage], nw * KSL * 2);
+    if (!mn) {
+      for (int h = 0; h < nw / 256; ++h)
+        sm90::tma_load_2d(s + h * 256 * KSL * 2, map, &full[r.stage],
+                          col0 + c * KSL, row0 + h * 256);
     } else {
-      b -= 48;
+      for (int nb = 0; nb < nw / 32; ++nb)
+        sm90::tma_load_2d(s + nb * 32 * KSL * 2, map, &full[r.stage],
+                          col0 + nb * 32, row0 + c * KSL);
     }
+    r.advance();
   }
+}
 
-  if (!found) {
-    // partial sums over the tiles, in tile order: the bias grads, the
-    // sigma head's dW, (K5) the heads' partials, then the sigma head's db
-    const int j = b * NT + tid;
-    const int trunk_cols = (layers + 1) * F;
-    const int cols = trunk_cols + (HEADS ? HEAD_PART : 0);
-    if (j > cols) return;
-    float s = 0.f;
-    if (j == cols) {
-      for (int t = 0; t < p.n_tiles; ++t) s += p.pbs[t];
-      p.dbsig[0] = s;
-      return;
-    }
-    for (int t = 0; t < p.n_tiles; ++t) s += p.part[(size_t)t * cols + j];
-    if (j < trunk_cols) {
-      const int slot = j / F, c = j % F;
-      if (slot == layers)
-        p.dwsig[c] = s;
-      else if (slot == 0)
-        p.db0[c] = s;
-      else if (slot == skip)
-        p.dbs[c] = s;
+// Producer: the ring stages of an epilogue's data, which it reads in
+// j-groups (j-group g: the 64 columns 64 g.. of each warpgroup's 256, the
+// accumulators 32 g.. of every thread).  Forward epilogue of layer i: z of
+// the tile's 64 rows, two j-groups a stage, both warpgroups' blocks
+// (64 x 64, SW128) side by side.  Reverse epilogue: for every j-group a
+// stage of z and u, then a stage of the block's tz scratch of layer i
+// (tzl: 128 accumulators x 256 threads f32, 32 of them a stage).
+__device__ __forceinline__ void produce_fwd_data(const SweepMaps& maps,
+                                                 int i, int row0, Ring& r,
+                                                 uint64_t* full,
+                                                 uint64_t* empty,
+                                                 unsigned char* ring) {
+  for (int s = 0; s < 2; ++s) {
+    sm90::mbar_wait(&empty[r.stage], r.phase ^ 1);
+    unsigned char* st = ring + r.stage * RING_STAGE;
+    sm90::mbar_expect_tx(&full[r.stage], RING_STAGE);
+    for (int b = 0; b < 4; ++b)       // j-group 2 s + b / 2, warpgroup b % 2
+      sm90::tma_load_2d(st + b * ACT_BLOCK, &maps.zs, &full[r.stage],
+                        i * F + (b & 1) * 256 + 64 * (2 * s + (b >> 1)),
+                        row0);
+    r.advance();
+  }
+}
+
+__device__ __forceinline__ void produce_rev_data(const SweepMaps& maps,
+                                                 const float* tzl, int i,
+                                                 int row0, Ring& r,
+                                                 uint64_t* full,
+                                                 uint64_t* empty,
+                                                 unsigned char* ring) {
+  for (int g = 0; g < 4; ++g) {
+    sm90::mbar_wait(&empty[r.stage], r.phase ^ 1);
+    unsigned char* st = ring + r.stage * RING_STAGE;
+    sm90::mbar_expect_tx(&full[r.stage], RING_STAGE);
+    for (int b = 0; b < 4; ++b)       // z, z, u, u of warpgroups 0, 1
+      sm90::tma_load_2d(st + b * ACT_BLOCK, b < 2 ? &maps.zs : &maps.us,
+                        &full[r.stage], i * F + (b & 1) * 256 + 64 * g,
+                        row0);
+    r.advance();
+    sm90::mbar_wait(&empty[r.stage], r.phase ^ 1);
+    sm90::mbar_expect_tx(&full[r.stage], RING_STAGE);
+    sm90::bulk_load(ring + r.stage * RING_STAGE, tzl + (size_t)g * 32 * NC,
+                    RING_STAGE, &full[r.stage]);
+    r.advance();
+  }
+}
+
+// Consumers: release a ring stage, one arrival per warp.
+__device__ __forceinline__ void release(uint64_t* empty, uint32_t stage) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) sm90::mbar_arrive(&empty[stage]);
+}
+
+// K-major SW128 descriptor of k position kk (a multiple of 16) in a tile
+// of 64-column blocks
+__device__ __forceinline__ uint64_t a_desc(const unsigned char* tile,
+                                           int kk) {
+  return sm90::make_desc(tile + (kk >> 6) * ACT_BLOCK + ((kk & 63) >> 4) * 32,
+                         16, 1024, 1);
+}
+
+// Consumer: acc (+)= A . B over nk slices from the ring, this warpgroup's
+// NW columns.  A: the tile a0 for k < ka0, then a1 (each K-major SW128).
+// accumulate = false overwrites acc.  Returns with every product of both
+// warpgroups issued by this one complete; the caller syncs the consumers
+// before it rewrites A.
+template <int NW, int TB>
+__device__ __forceinline__ void consume(float (&acc)[NW / 2],
+                                        const unsigned char* a0, int ka0,
+                                        const unsigned char* a1, int nk,
+                                        bool accumulate, Ring& r,
+                                        uint64_t* full, uint64_t* empty,
+                                        const unsigned char* ring, int wg,
+                                        bool leader) {
+  uint32_t prev = 0;
+  for (int c = 0; c < nk; ++c) {
+    sm90::mbar_wait(&full[r.stage], r.phase);
+    const unsigned char* s = ring + r.stage * RING_STAGE;
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {
+      const int kk = c * KSL + ks * 16;
+      const uint64_t da = kk < ka0 ? a_desc(a0, kk) : a_desc(a1, kk - ka0);
+      const uint64_t db =
+          TB == 0 ? sm90::make_desc(s + wg * NW * KSL * 2 + ks * 32, 16, 512,
+                                    2)
+                  : sm90::make_desc(s + wg * (NW / 32) * 2048 + ks * 1024,
+                                    2048, 512, 2);
+      const int sc = (accumulate || c > 0 || ks > 0) ? 1 : 0;
+      if constexpr (NW == 256)
+        sm90::wgmma_n256<0, TB>(acc, da, db, sc);
       else
-        p.dbm[(size_t)(slot < skip ? slot - 1 : slot - 2) * F + c] = s;
-      return;
+        sm90::wgmma_n128<0, TB>(acc, da, db, sc);
     }
-    if (HEADS) {
-      const int h = j - trunk_cols;
-      if (h < HP_DB1) {
-        p.dbf[h - HP_DBF] = s;
-      } else if (h < HP_DW2) {
-        p.db1[h - HP_DB1] = s;
-      } else if (h < HP_DB2) {
-        const int c = (h - HP_DW2) / (4 * HID), k = (h - HP_DW2) % (4 * HID);
-        if (k < HID)
-          p.dw2r[(size_t)k * 128 + c] = s;
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<1>();
+    if (c > 0 && leader) sm90::mbar_arrive(&empty[prev]);
+    prev = r.stage;
+    r.advance();
+  }
+  sm90::wgmma_wait<0>();
+  sm90::fence_acc(acc);
+  if (leader) sm90::mbar_arrive(&empty[prev]);
+}
+
+// Write this warpgroup's accumulator columns (NW of them from colbase), as
+// bf16 of v(i) for accumulator i, into a K-major SW128 tile with stmatrix.
+template <int NW, class V>
+__device__ __forceinline__ void store_tile_sw(unsigned char* tile,
+                                              int colbase, V v) {
+  const int t = threadIdx.x & 127, w = t >> 5, l = t & 31;
+  const int mi = l >> 3;
+  const int row = w * 16 + (mi & 1) * 8 + (l & 7);
+#pragma unroll
+  for (int jj = 0; jj < NW / 16; ++jj) {
+    const int j = 2 * jj;
+    const int col = colbase + 8 * (j + (mi >> 1));
+    sm90::stmatrix_x4(tile + sm90::sw128_offset(row, col, ACT_BLOCK),
+                      sm90::pack_bf2(v(4 * j), v(4 * j + 1)),
+                      sm90::pack_bf2(v(4 * j + 2), v(4 * j + 3)),
+                      sm90::pack_bf2(v(4 * j + 4), v(4 * j + 5)),
+                      sm90::pack_bf2(v(4 * j + 6), v(4 * j + 7)));
+  }
+}
+
+// Consumers: hand the tile just written to the async proxy and store its
+// nb 64-column blocks to global rows row0.. of `map` from column col0.
+__device__ __forceinline__ void tile_to_global(const CUtensorMap* map,
+                                               const unsigned char* tile,
+                                               int nb, int col0, int row0,
+                                               bool issuer) {
+  sm90::fence_async_smem();
+  sm90::named_sync(BAR_C, NC);
+  if (issuer) {
+    for (int b = 0; b < nb; ++b)
+      sm90::tma_store_2d(map, tile + b * ACT_BLOCK, col0 + b * 64, row0);
+    sm90::bulk_commit();
+  }
+}
+
+// Consumers: wait until every TMA store has read its tile, then sync.
+__device__ __forceinline__ void tiles_free(bool issuer) {
+  if (issuer) sm90::bulk_wait_read<0>();
+  sm90::named_sync(BAR_C, NC);
+}
+
+// Column sums over the tile's rows: red holds [4 warps][NW] floats per
+// warpgroup, filled by the caller's col_sum lanes; the consumers sum the
+// warps in order and write out[wg * NW + c].
+template <int NW>
+__device__ __forceinline__ void col_finish(const float* red, float* out) {
+  sm90::named_sync(BAR_C, NC);
+  const int wg = threadIdx.x >> 7, t = threadIdx.x & 127;
+  const float* rw = red + wg * 4 * NW;
+  for (int c = t; c < NW; c += 128)
+    out[wg * NW + c] =
+        ((rw[c] + rw[NW + c]) + rw[2 * NW + c]) + rw[3 * NW + c];
+}
+
+template <bool HEADS>
+__global__ void __launch_bounds__(NTB, 1)
+    trunk_bwd_sweep_kernel(const __grid_constant__ SweepMaps maps,
+                           const BwdArgs p) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  unsigned char* act = smem + SM_ACT;
+  unsigned char* ts = smem + SM_TS;
+  unsigned char* ring = smem + sm_ring<HEADS>();
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + sm_bar<HEADS>());
+  uint64_t* empty = full + RING_N;
+  uint64_t* cbar = empty + RING_N;                       // K5 chunk loads
+  // the consumers have stored tz of the last layer, which the producer
+  // loads back right away (no product lies between in K3)
+  uint64_t* tzbar = cbar + 1;
+  float* row_a = reinterpret_cast<float*>(smem + sm_rows<HEADS>());
+  float* row_b = row_a + T;
+  float* rowc = row_b + T;                               // K5 only
+  const int layers = p.layers, skip = p.skip, last = layers - 1;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    for (int s = 0; s < RING_N; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 8);     // one arrival per consumer warp
+    }
+    sm90::mbar_init(cbar, 1);
+    sm90::mbar_init(tzbar, 8);
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= NC) {
+    // ------------------------------------------------------- producer
+    sm90::setmaxnreg_dec<40>();
+    if (tid != NC) return;
+    Ring r = {0, 0};
+    uint32_t tz_phase = 0;
+    const float* tzb = p.tzsc + (size_t)blockIdx.x * layers * 128 * NC;
+    for (int tile = blockIdx.x; tile < p.n_tiles; tile += gridDim.x) {
+      const int row0 = tile * T;
+      for (int i = 0; i < layers; ++i) {
+        if (i == 0)
+          produce(&maps.w0k, false, EP / KSL, 0, 0, F, r, full, empty, ring);
+        else if (i == skip)
+          produce(&maps.wskipk, false, (EP + F) / KSL, 0, 0, F, r, full,
+                  empty, ring);
         else
-          p.dw2p[(size_t)(k - HID) * 128 + c] = s;
-      } else {
-        const int c = h - HP_DB2;
-        if (c < 3)
-          p.db2r[c] = s;
-        else if (c < 6)
-          p.db2p[c - 3] = s;
+          produce(&maps.wmidk, false, F / KSL,
+                  (i < skip ? i - 1 : i - 2) * F, 0, F, r, full, empty,
+                  ring);
+        if (EPI_DATA) produce_fwd_data(maps, i, row0, r, full, empty, ring);
+      }
+      if constexpr (HEADS) {
+        produce(&maps.wfk, false, F / KSL, 0, 0, F, r, full, empty, ring);
+        for (int q = 0; q < 4; ++q)
+          produce(q == 0 ? &maps.w1rk : &maps.w1pk, false, F / KSL,
+                  q == 0 ? 0 : (q - 1) * HID, 0, HID, r, full, empty, ring);
+        for (int q = 3; q >= 0; --q)
+          produce(q == 0 ? &maps.w1rm : &maps.w1pm, true, HID / KSL,
+                  q == 0 ? 0 : (q - 1) * HID, 0, F, r, full, empty, ring);
+        produce(&maps.wfm, true, F / KSL, 0, 0, F, r, full, empty, ring);
+      }
+      for (int i = last; i >= 0; --i) {
+        if (EPI_DATA && i == last) {
+          sm90::mbar_wait(tzbar, tz_phase);
+          tz_phase ^= 1;
+        }
+        if (EPI_DATA)
+          produce_rev_data(maps, tzb + (size_t)i * 128 * NC, i, row0, r,
+                           full, empty, ring);
+        if (i == 0) break;
+        if (i == skip)
+          produce(&maps.wskipm, true, F / KSL, 0, EP, F, r, full, empty,
+                  ring);
+        else
+          produce(&maps.wmidm, true, F / KSL,
+                  (i < skip ? i - 1 : i - 2) * F, 0, F, r, full, empty,
+                  ring);
       }
     }
     return;
   }
 
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* ring = reinterpret_cast<bf16*>(smem);
-  const int mb = (b / ncol) * WT, nb = (b % ncol) * WT;
-  const int wm = warp >> 2, wn = warp & 3;   // warp tile 64 x 32
-  float acc[4][4][4];
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int nf = 0; nf < 4; ++nf)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nf][e] = 0.f;
+  // --------------------------------------------------------- consumers
+  sm90::setmaxnreg_inc<232>();
+  const int wg = tid >> 7, t = tid & 127, w = t >> 5, l = t & 31;
+  const bool leader = l == 0, issuer = tid == 0;
+  const int r0 = w * 16 + (l >> 2);          // rows r0 and r0 + 8
+  const int cb = wg * 256 + 2 * (l & 3);     // column of j = 0, e = 0
+  const int row_w = (layers + 1) * F + (HEADS ? HEAD_PART : 0);
+  const float* __restrict__ wsig = p.wsig;
+  float* tzb = p.tzsc + (size_t)blockIdx.x * layers * 128 * NC + tid;
+  float* red = reinterpret_cast<float*>(ts);   // when ts is free
+  Ring r = {0, 0};
+  uint32_t cphase = 0;
+  float acc[128];
 
-  const int nk = (a1 ? 2 * n : n) / KW;
-  stage_wgrad(ring, a0, a1, lda, mb, b0, b1, ldb, nb, n, 0);
-  cp_async_commit();
-  if (nk > 1)
-    stage_wgrad(ring + CHUNK, a0, a1, lda, mb, b0, b1, ldb, nb, n, 1);
-  cp_async_commit();
-  int buf = 0;
-  for (int c = 0; c < nk; ++c) {
-    cp_async_wait<1>();
-    __syncthreads();
-    if (c + 2 < nk)
-      stage_wgrad(ring + ((buf + 2) % WSTAGE) * CHUNK, a0, a1, lda, mb, b0,
-                  b1, ldb, nb, n, c + 2);
-    cp_async_commit();
-    const bf16* as = ring + buf * CHUNK;
-    const bf16* bs = as + KW * SK;
-    buf = buf + 1 == WSTAGE ? 0 : buf + 1;
+  for (int tile = blockIdx.x; tile < p.n_tiles; tile += gridDim.x) {
+    const int row0 = tile * T;
+    const size_t grow0 = (size_t)row0;
+    float* pt_tile = p.part + (size_t)tile * row_w;
+    tiles_free(issuer);                        // ts and act out of use
+    // t = c_g into ts as bf16; x and t to xt as the bf16 operands of the
+    // layer-0 and skip-top weight gradients
+    for (int i = tid; i < T * EP / 4; i += NC) {
+      const int rr = (i * 4) / EP, c = (i * 4) % EP;
+      const float4 a = reinterpret_cast<const float4*>(p.x + grow0 * EP)[i];
+      const float4 b = reinterpret_cast<const float4*>(p.cg + grow0 * EP)[i];
+      const uint2 bv = make_uint2(sm90::pack_bf2(b.x, b.y),
+                                  sm90::pack_bf2(b.z, b.w));
+      *reinterpret_cast<uint2*>(ts + sm90::sw128_offset(rr, c, ACT_BLOCK)) =
+          bv;
+      reinterpret_cast<uint2*>(p.xt + grow0 * EP)[i] =
+          make_uint2(sm90::pack_bf2(a.x, a.y), sm90::pack_bf2(a.z, a.w));
+      reinterpret_cast<uint2*>(p.xt + (size_t)p.n * EP + grow0 * EP)[i] = bv;
+    }
+    if (HEADS)
+      for (int i = tid; i < T * HEAD_COLS; i += NC)
+        rowc[i] = p.cot[grow0 * HEAD_COLS + i];
+    sm90::fence_async_smem();
+    sm90::named_sync(BAR_C, NC);
+
+    // ------------------------------------------- tangent forward, t = c_g
+    float pz[2] = {0.f, 0.f}, pt[2] = {0.f, 0.f};
+    for (int i = 0; i < layers; ++i) {
+      if (i == 0)
+        consume<256, 0>(acc, ts, EP, ts, EP / KSL, false, r, full, empty,
+                        ring, wg, leader);
+      else if (i == skip)
+        consume<256, 0>(acc, ts, EP, act, (EP + F) / KSL, false, r, full,
+                        empty, ring, wg, leader);
+      else
+        consume<256, 0>(acc, act, F, act, F / KSL, false, r, full, empty,
+                        ring, wg, leader);
+      tiles_free(issuer);                      // both products read act
+      const float w0s = i == 0 ? 30.f : 1.f;
+      float* tzl = tzb + (size_t)i * 128 * NC;
 #pragma unroll
-    for (int ks = 0; ks < KW; ks += 16) {
-      uint32_t af[4][4];
+      for (int j = 0; j < 32; ++j) {
+        // z of rows r0 / r0 + 8 from the ring: two j-groups a stage
+        if (EPI_DATA && j % 16 == 0) sm90::mbar_wait(&full[r.stage], r.phase);
+        const unsigned char* zb4 = ring + r.stage * RING_STAGE +
+                                   ((j >> 3) & 1) * 2 * ACT_BLOCK +
+                                   wg * ACT_BLOCK;
+        const int cz = 8 * (j & 7) + 2 * (l & 3);
+        const float2 za = stage_bf2(zb4 + sm90::sw128_offset(r0, cz, 0));
+        const float2 zb = stage_bf2(zb4 + sm90::sw128_offset(r0 + 8, cz, 0));
+        const float z4[4] = {za.x, za.y, zb.x, zb.y};
+        float h4[4];
 #pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-        ldsm_x4_t(af[mt], as + (ks + (lane & 7) + ((lane >> 4) & 1) * 8) * SK +
-                              wm * 64 + mt * 16 + ((lane >> 3) & 1) * 8);
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        uint32_t bfr[4];
-        ldsm_x4_t(bfr, bs + (ks + (lane & 7) + ((lane >> 3) & 1) * 8) * SK +
-                           wn * 32 + np * 16 + (lane >> 4) * 8);
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt) {
-          mma16816(acc[mt][2 * np], af[mt], bfr[0], bfr[1]);
-          mma16816(acc[mt][2 * np + 1], af[mt], bfr[2], bfr[3]);
+        for (int e = 0; e < 4; ++e) {
+          float d;
+          act_eval(z4[e], w0s, h4[e], d);
+          const float tz = acc[4 * j + e];
+          tzl[(4 * j + e) * NC] = tz;
+          const float th = d * tz;
+          if (i == last) {
+            const float ws = wsig[cb + 8 * j + (e & 1)];
+            pz[e >> 1] += bf16_round(h4[e]) * ws;
+            pt[e >> 1] += bf16_round(th) * ws;
+          }
+          acc[4 * j + e] = th;       // h takes the tile first; acc keeps th
+        }
+        // rows r0 / r0 + 8, columns 8j + 2 (l%4) + {0, 1}
+        const int col = cb + 8 * j;
+        *reinterpret_cast<uint32_t*>(
+            act + sm90::sw128_offset(r0, col, ACT_BLOCK)) =
+            sm90::pack_bf2(h4[0], h4[1]);
+        *reinterpret_cast<uint32_t*>(
+            act + sm90::sw128_offset(r0 + 8, col, ACT_BLOCK)) =
+            sm90::pack_bf2(h4[2], h4[3]);
+        if (EPI_DATA && j % 16 == 15) {
+          // tz_i is read back by TMA (produce_rev_data)
+          if (j == 31) sm90::fence_async_global();
+          release(empty, r.stage);
+          r.advance();
+          if (j == 31 && i == last && l == 0) sm90::mbar_arrive(tzbar);
+        }
+      }
+      if (i < last) {
+        // h_i, then th_i, to hth's slot of layer i + 1
+        tile_to_global(&maps.hth, act, 8, 0, (2 * i) * p.n + row0,
+                       issuer);
+        tiles_free(issuer);
+        store_tile_sw<256>(act, wg * 256, [&](int k) { return acc[k]; });
+        tile_to_global(&maps.hth, act, 8, 0, (2 * i + 1) * p.n + row0,
+                       issuer);
+      } else {
+        // act keeps h_{L-1} (K5: the A operand of xf, and hl); acc th
+        sm90::fence_async_smem();
+        sm90::named_sync(BAR_C, NC);
+        if (HEADS && issuer) {
+          for (int b = 0; b < 8; ++b)
+            sm90::tma_store_2d(&maps.hl, act + b * ACT_BLOCK, b * 64, row0);
+          sm90::bulk_commit();
         }
       }
     }
-  }
-  cp_async_wait<0>();
 
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int nf = 0; nf < 4; ++nf)
+    // ------------------------------------------------------- sigma head
+    // zsig = h . wsig + b, tzsig = th . wsig; a = cs sp' + sp'' tzsig on
+    // zsig, b = sp' on tzsig
+    {
+      float* rz = red;               // [2 warpgroups][64 rows], z then t
+      float* rt = red + 2 * T;
 #pragma unroll
       for (int hf = 0; hf < 2; ++hf) {
-        const int row = mb + wm * 64 + mt * 16 + (lane >> 2) + hf * 8;
-        const int col = nb + wn * 32 + nf * 8 + (lane & 3) * 2;
-        *reinterpret_cast<float2*>(out + (size_t)row * ldo + col) =
-            make_float2(acc[mt][nf][2 * hf], acc[mt][nf][2 * hf + 1]);
+        float vz = pz[hf], vt = pt[hf];
+        vz += __shfl_xor_sync(0xffffffffu, vz, 1);
+        vz += __shfl_xor_sync(0xffffffffu, vz, 2);
+        vt += __shfl_xor_sync(0xffffffffu, vt, 1);
+        vt += __shfl_xor_sync(0xffffffffu, vt, 2);
+        if ((l & 3) == 0) {
+          rz[wg * T + r0 + 8 * hf] = vz;
+          rt[wg * T + r0 + 8 * hf] = vt;
+        }
       }
+      sm90::named_sync(BAR_C, NC);
+      if (tid < T) {
+        const float s_z = rz[tid] + rz[T + tid];
+        const float s_t = rt[tid] + rt[T + tid];
+        const float zsig = s_z + p.bsig[0];
+        const float sp1 = 1.f / (1.f + expf(-zsig));
+        const float sp2 = sp1 * (1.f - sp1);
+        const float c_s = HEADS ? rowc[tid * HEAD_COLS] : p.cs[grow0 + tid];
+        row_a[tid] = c_s * sp1 + sp2 * s_t;
+        row_b[tid] = sp1;
+      }
+      sm90::named_sync(BAR_C, NC);
+      if (tid == 0) {
+        float s = 0.f;
+        for (int rr = 0; rr < T; ++rr) s += row_a[rr];
+        p.pbs[tile] = s;
+      }
+      // the sigma head's dW: sum_rows bf16(h) bf16(a) + bf16(th) bf16(b)
+      const float a0 = bf16_round(row_a[r0]), a1 = bf16_round(row_a[r0 + 8]);
+      const float b0 = bf16_round(row_b[r0]), b1 = bf16_round(row_b[r0 + 8]);
+      float* cred = red + 4 * T;     // [2][4][256]
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        const int col = cb + 8 * j;
+        const __nv_bfloat162 ht = *reinterpret_cast<const __nv_bfloat162*>(
+            act + sm90::sw128_offset(r0, col, ACT_BLOCK));
+        const __nv_bfloat162 hb = *reinterpret_cast<const __nv_bfloat162*>(
+            act + sm90::sw128_offset(r0 + 8, col, ACT_BLOCK));
+        const float2 h0 = __bfloat1622float2(ht), h1 = __bfloat1622float2(hb);
+        float v0 = (h0.x * a0 + h1.x * a1) +
+                   (bf16_round(acc[4 * j]) * b0 +
+                    bf16_round(acc[4 * j + 2]) * b1);
+        float v1 = (h0.y * a0 + h1.y * a1) +
+                   (bf16_round(acc[4 * j + 1]) * b0 +
+                    bf16_round(acc[4 * j + 3]) * b1);
+        v0 = col_sum(v0);
+        v1 = col_sum(v1);
+        if (l < 4) {
+          cred[(wg * 4 + w) * 256 + 8 * j + 2 * l] = v0;
+          cred[(wg * 4 + w) * 256 + 8 * j + 2 * l + 1] = v1;
+        }
+      }
+      col_finish<256>(cred, pt_tile + (size_t)layers * F);
+    }
+
+    if constexpr (HEADS) {
+      float* hp_tile = pt_tile + (size_t)(layers + 1) * F;
+      // ---------------------------------------- xf = h W_f^T + b_f
+      consume<256, 0>(acc, act, F, act, F / KSL, false, r, full, empty, ring,
+                      wg, leader);
+      tiles_free(issuer);            // act (h) read by both, hl stored
+      const float* __restrict__ bfv = p.bf;
+      store_tile_sw<256>(act, wg * 256, [&acc, bfv, cb](int k) {
+        return acc[k] + bfv[cb + 8 * (k >> 2) + (k & 1)];
+      });
+      tile_to_global(&maps.xfb, act, 8, 0, row0, issuer);
+
+      // ---- the first head layers in 256-column passes (q = 0: rgb,
+      // 1..3: k, theta, rho_c): c_z1 = act'(z1) (c_z2 W_2) to global, with
+      // its column sums (db_1) and the dW_2 partials h1^T c_z2
+      float (&a64)[64] = *reinterpret_cast<float(*)[64]>(acc);
+      const int cq = wg * 128 + 2 * (l & 3);   // column of j = 0 in a pass
+#pragma unroll 1
+      for (int q = 0; q < 4; ++q) {
+        consume<128, 0>(a64, act, F, act, F / KSL, false, r, full, empty,
+                        ring, wg, leader);
+        tiles_free(issuer);          // the chunk's last store is read
+        const float* b1 = q == 0 ? p.b1r : p.b1p + (q - 1) * HID;
+        const int c2 = q == 0 ? 1 : 4;           // first c_z2 column of q
+        float cc[2][3];
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+          for (int c = 0; c < 3; ++c)
+            cc[hf][c] = bf16_round(rowc[(r0 + 8 * hf) * HEAD_COLS + c2 + c]);
+        float* qred = red;           // [4 sums][2 wg][4 warps][128]
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          float sum[4][2];
+#pragma unroll
+          for (int e2 = 0; e2 < 2; ++e2) {
+            const int col = cq + 8 * j + e2;       // 0..255 within q
+            float s0 = 0.f, s1 = 0.f;   // c_z2 W_2 for rows r0, r0 + 8
+            if (q == 0) {
+              const float w20 = __bfloat162float(p.w2r[col]);
+              const float w21 = __bfloat162float(p.w2r[HID + col]);
+              const float w22 = __bfloat162float(p.w2r[2 * HID + col]);
+              s0 = cc[0][0] * w20 + cc[0][1] * w21 + cc[0][2] * w22;
+              s1 = cc[1][0] * w20 + cc[1][1] * w21 + cc[1][2] * w22;
+            } else {    // w2p row q-1, column k - HID of the merged 768
+              const float w2 = __bfloat162float(
+                  p.w2p[(q - 1) * 3 * HID + (q - 1) * HID + col]);
+              s0 = cc[0][q - 1] * w2;
+              s1 = cc[1][q - 1] * w2;
+            }
+            float h[2], d[2];
+            act_eval(a64[4 * j + e2] + b1[col], 1.f, h[0], d[0]);
+            act_eval(a64[4 * j + 2 + e2] + b1[col], 1.f, h[1], d[1]);
+            const float cz0 = d[0] * s0, cz1v = d[1] * s1;
+            a64[4 * j + e2] = cz0;
+            a64[4 * j + 2 + e2] = cz1v;
+            sum[0][e2] = cz0 + cz1v;
+            const float hb0 = bf16_round(h[0]), hb1 = bf16_round(h[1]);
+#pragma unroll
+            for (int c = 0; c < 3; ++c)
+              sum[1 + c][e2] = hb0 * cc[0][c] + hb1 * cc[1][c];
+          }
+#pragma unroll
+          for (int s = 0; s < 4; ++s)
+#pragma unroll
+            for (int e2 = 0; e2 < 2; ++e2) {
+              const float v = col_sum(sum[s][e2]);
+              if (l < 4)
+                qred[((s * 2 + wg) * 4 + w) * 128 + 8 * j + 2 * l + e2] = v;
+            }
+        }
+        sm90::named_sync(BAR_C, NC);
+        {
+          const int k = q * HID + wg * 128 + t;  // hidden unit of 1,024
+#pragma unroll
+          for (int s = 0; s < 4; ++s) {
+            const float* rw = qred + (s * 2 + wg) * 4 * 128;
+            const float v =
+                ((rw[t] + rw[128 + t]) + rw[256 + t]) + rw[384 + t];
+            hp_tile[s == 0 ? HP_DB1 + k : HP_DW2 + (s - 1) * 4 * HID + k] =
+                v;
+          }
+        }
+        sm90::named_sync(BAR_C, NC);             // qred read
+        store_tile_sw<128>(ts, wg * 128, [&](int k) { return a64[k]; });
+        tile_to_global(&maps.cz1, ts, 4, q * HID, row0, issuer);
+      }
+      if (tid < 8) {
+        float s = 0.f;
+        if (tid < 6)
+          for (int rr = 0; rr < T; ++rr) s += rowc[rr * HEAD_COLS + 1 + tid];
+        hp_tile[HP_DB2 + tid] = s;
+      }
+
+      // ---- a_xf = sum_q c_z1_q W_1q, q = 3 (in the chunk) down to 0
+      // (reloaded from what the passes stored)
+#pragma unroll 1
+      for (int q = 3; q >= 0; --q) {
+        if (q < 3) {
+          sm90::named_sync(BAR_C, NC);           // the chunk is read
+          if (issuer) {
+            sm90::bulk_wait<0>();                // c_z1 is in memory
+            sm90::mbar_expect_tx(cbar, 4 * ACT_BLOCK);
+            for (int b = 0; b < 4; ++b)
+              sm90::tma_load_2d(ts + b * ACT_BLOCK, &maps.cz1, cbar,
+                                q * HID + b * 64, row0);
+          }
+          sm90::mbar_wait(cbar, cphase);
+          cphase ^= 1;
+        }
+        consume<256, 1>(acc, ts, HID, ts, HID / KSL, q < 3, r, full, empty,
+                        ring, wg, leader);
+      }
+      tiles_free(issuer);            // act (xf) and the chunk are free
+      {
+        float* cred = red;
+#pragma unroll
+        for (int j = 0; j < 32; ++j) {
+          const float v0 = col_sum(acc[4 * j] + acc[4 * j + 2]);
+          const float v1 = col_sum(acc[4 * j + 1] + acc[4 * j + 3]);
+          if (l < 4) {
+            cred[(wg * 4 + w) * 256 + 8 * j + 2 * l] = v0;
+            cred[(wg * 4 + w) * 256 + 8 * j + 2 * l + 1] = v1;
+          }
+        }
+        col_finish<256>(cred, hp_tile + HP_DBF);
+      }
+      store_tile_sw<256>(act, wg * 256, [&](int k) { return acc[k]; });
+      tile_to_global(&maps.axf, act, 8, 0, row0, issuer);
+      // ------------------------------------ a_h from the heads: a_xf W_f
+      consume<256, 1>(acc, act, F, act, F / KSL, false, r, full, empty, ring,
+                      wg, leader);
+    }
+
+    // a_h of the last layer: a . wsig + c_feats (K3), + a_xf W_f (K5)
+    {
+      const float a0 = bf16_round(row_a[r0]), a1 = bf16_round(row_a[r0 + 8]);
+#pragma unroll
+      for (int j = 0; j < 32; ++j)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int col = cb + 8 * j, k = 4 * j + 2 * hf;
+          float2 f;
+          if (HEADS) {
+            f = make_float2(acc[k], acc[k + 1]);
+          } else {
+            const size_t o = (grow0 + r0 + 8 * hf) * F + col;
+            f = p.cf_bf16 ? ld_bf2(static_cast<const bf16*>(p.cf) + o)
+                          : *reinterpret_cast<const float2*>(
+                                static_cast<const float*>(p.cf) + o);
+          }
+          const float a = hf ? a1 : a0;
+          acc[k] = a * wsig[col] + f.x;
+          acc[k + 1] = a * wsig[col + 1] + f.y;
+        }
+    }
+
+    // ------------------------------------------------------ reverse sweep
+    for (int i = last; i >= 0; --i) {
+      const float w0s = i == 0 ? 30.f : 1.f;
+      tiles_free(issuer);            // act read by both products, stored
+      uint32_t zu_stage = 0;
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        // j-group j / 8: a ring stage of z and u, then one of tz
+        if (EPI_DATA && j % 8 == 0) {
+          sm90::mbar_wait(&full[r.stage], r.phase);
+          zu_stage = r.stage;
+          r.advance();
+          sm90::mbar_wait(&full[r.stage], r.phase);
+        }
+        const unsigned char* zu = ring + zu_stage * RING_STAGE;
+        const unsigned char* tzs = ring + r.stage * RING_STAGE;
+        const int cz = 8 * (j & 7) + 2 * (l & 3);
+        const int o0 = sm90::sw128_offset(r0, cz, 0);
+        const int o1 = sm90::sw128_offset(r0 + 8, cz, 0);
+        const float2 za = stage_bf2(zu + wg * ACT_BLOCK + o0);
+        const float2 zb = stage_bf2(zu + wg * ACT_BLOCK + o1);
+        const float2 ua = stage_bf2(zu + (2 + wg) * ACT_BLOCK + o0);
+        const float2 ub = stage_bf2(zu + (2 + wg) * ACT_BLOCK + o1);
+        const float z4[4] = {za.x, za.y, zb.x, zb.y};
+        const float u4[4] = {ua.x, ua.y, ub.x, ub.y};
+        float bt[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float h, d1, d2;
+          act_eval2(z4[e], w0s, h, d1, d2);
+          const float tz =
+              stage_f32(tzs + ((4 * (j & 7) + e) * NC + tid) * 4);
+          acc[4 * j + e] = d1 * acc[4 * j + e] + d2 * tz * u4[e];
+          bt[e] = d1 * u4[e];
+        }
+        const int col = cb + 8 * j;
+        *reinterpret_cast<uint32_t*>(
+            act + sm90::sw128_offset(r0, col, ACT_BLOCK)) =
+            sm90::pack_bf2(bt[0], bt[1]);
+        *reinterpret_cast<uint32_t*>(
+            act + sm90::sw128_offset(r0 + 8, col, ACT_BLOCK)) =
+            sm90::pack_bf2(bt[2], bt[3]);
+        if (EPI_DATA && j % 8 == 7) {
+          release(empty, zu_stage);
+          release(empty, r.stage);
+          r.advance();
+        }
+      }
+      tile_to_global(&maps.azbtz, act, 8, 0, (2 * i + 1) * p.n + row0,
+                     issuer);
+      // column sums of a_z over the tile's 64 rows
+      {
+        float* cred = red;
+#pragma unroll
+        for (int j = 0; j < 32; ++j) {
+          const float v0 = col_sum(acc[4 * j] + acc[4 * j + 2]);
+          const float v1 = col_sum(acc[4 * j + 1] + acc[4 * j + 3]);
+          if (l < 4) {
+            cred[(wg * 4 + w) * 256 + 8 * j + 2 * l] = v0;
+            cred[(wg * 4 + w) * 256 + 8 * j + 2 * l + 1] = v1;
+          }
+        }
+        col_finish<256>(cred, pt_tile + (size_t)i * F);
+      }
+      tiles_free(issuer);            // b_tz stored, red read
+      store_tile_sw<256>(act, wg * 256, [&](int k) { return acc[k]; });
+      tile_to_global(&maps.azbtz, act, 8, 0, (2 * i) * p.n + row0,
+                     issuer);
+      if (i == 0) break;
+      // a_h_{i-1} = a_z_i . W_i
+      consume<256, 1>(acc, act, F, act, F / KSL, false, r, full, empty, ring,
+                      wg, leader);
+    }
+  }
+  if (issuer) sm90::bulk_wait<0>();
 }
 
-// Launch the sweep and the weight-gradient kernel of K3 (HEADS = false) or
-// K5 on `stream`; returns a cudaError_t.
+// ============================================================ wgrad, reduce
+
+constexpr int WM = 128, WN = 256, WK = 64;   // output tile, points a chunk
+constexpr int WRING_N = 4;
+constexpr int WSTAGE_BYTES = (WM + WN) * WK * 2;       // 48 KB
+constexpr int WGRAD_SMEM = WRING_N * WSTAGE_BYTES + 128;
+constexpr int WTILE = WM * WN;                         // floats a partial
+constexpr int MAX_GROUPS = 16;
+
+// The bf16 operands of the weight gradients, point-major, as TMA maps with
+// boxes of 64 features x 64 points (SW128): xt, hth, azbtz; K5 hl, xfb,
+// axf, cz1.
+struct WgradMaps {
+  CUtensorMap m[7];
+};
+
+// One weight-gradient product out = A^T B over K = chunks x 64 points: A
+// from rows a_row.. of map a_map, B from rows b_row.. of b_map, in
+// m_tiles x n_tiles output tiles of 128 x 256, each K axis cut into
+// `splits` slices.  Its blocks are first_block.. in the order (slice,
+// tile), so that the tiles of one slice run side by side.
+struct WgradGroup {
+  int a_map, b_map, a_row, b_row;
+  int m_tiles, n_tiles, chunks, splits, first_block;
+  float* out;
+  int ldo;
+};
+
+struct WgradPlan {
+  WgradGroup g[MAX_GROUPS];
+  int n_groups, n_blocks, n_tile_elems;   // n_tile_elems: partial float4s
+};
+
+template <bool HEADS>
+__global__ void __launch_bounds__(NTB, 1)
+    trunk_bwd_wgrad_kernel(const __grid_constant__ WgradMaps maps,
+                           const __grid_constant__ WgradPlan plan,
+                           float* __restrict__ wpart) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + WRING_N * WSTAGE_BYTES);
+  uint64_t* empty = full + WRING_N;
+  const int tid = threadIdx.x;
+  int gi = 0;
+  while (gi + 1 < plan.n_groups &&
+         (int)blockIdx.x >= plan.g[gi + 1].first_block)
+    ++gi;
+  const WgradGroup& g = plan.g[gi];
+  const int local = blockIdx.x - g.first_block;
+  const int tiles = g.m_tiles * g.n_tiles;
+  const int slice = local / tiles, tl = local % tiles;
+  const int m0 = (tl / g.n_tiles) * WM, n0 = (tl % g.n_tiles) * WN;
+  const int c0 = (int)((long long)slice * g.chunks / g.splits);
+  const int c1 = (int)((long long)(slice + 1) * g.chunks / g.splits);
+
+  if (tid == 0) {
+    for (int s = 0; s < WRING_N; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 2);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= NC) {
+    sm90::setmaxnreg_dec<40>();
+    if (tid != NC) return;
+    Ring r = {0, 0};
+    const CUtensorMap* ma = &maps.m[g.a_map];
+    const CUtensorMap* mb = &maps.m[g.b_map];
+    for (int c = c0; c < c1; ++c) {
+      sm90::mbar_wait(&empty[r.stage], r.phase ^ 1);
+      unsigned char* s = smem + r.stage * WSTAGE_BYTES;
+      uint64_t* f = &full[r.stage];
+      sm90::mbar_expect_tx(f, WSTAGE_BYTES);
+      for (int b = 0; b < WM / 64; ++b)
+        sm90::tma_load_2d(s + b * ACT_BLOCK, ma, f, m0 + b * 64,
+                          g.a_row + c * WK);
+      for (int b = 0; b < WN / 64; ++b)
+        sm90::tma_load_2d(s + (WM / 64 + b) * ACT_BLOCK, mb, f, n0 + b * 64,
+                          g.b_row + c * WK);
+      r.advance();
+    }
+    return;
+  }
+
+  sm90::setmaxnreg_inc<232>();
+  const int wg = tid >> 7;
+  const bool leader = (tid & 127) == 0;
+  float acc[128];
+  Ring r = {0, 0};
+  uint32_t prev = 0;
+  for (int c = c0; c < c1; ++c) {
+    sm90::mbar_wait(&full[r.stage], r.phase);
+    const unsigned char* s = smem + r.stage * WSTAGE_BYTES;
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < WK / 16; ++ks) {
+      // both MN-major SW128: 16 k-rows of 128 bytes a step; B's 64-wide n
+      // blocks one box (8 KB) apart
+      const uint64_t da =
+          sm90::make_desc(s + wg * ACT_BLOCK + ks * 2048, ACT_BLOCK, 1024, 1);
+      const uint64_t db = sm90::make_desc(
+          s + (WM / 64) * ACT_BLOCK + ks * 2048, ACT_BLOCK, 1024, 1);
+      sm90::wgmma_n256<1, 1>(acc, da, db, (c > c0 || ks > 0) ? 1 : 0);
+    }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<1>();
+    if (c > c0 && leader) sm90::mbar_arrive(&empty[prev]);
+    prev = r.stage;
+    r.advance();
+  }
+  sm90::wgmma_wait<0>();
+  sm90::fence_acc(acc);
+  // the partial tile in the accumulator layout, float4 i of thread tid at
+  // (i * 256 + tid): each warp writes 512 contiguous bytes
+  float4* dst = reinterpret_cast<float4*>(wpart + (size_t)blockIdx.x * WTILE) +
+                tid;
+#pragma unroll
+  for (int i = 0; i < 32; ++i)
+    dst[i * NC] = make_float4(acc[4 * i], acc[4 * i + 1], acc[4 * i + 2],
+                              acc[4 * i + 3]);
+}
+
+// Blocks [0, n_tile_elems / 256): one float4 of one output tile a thread,
+// summed over the tile's slices in order; then blocks of 32 columns of the
+// sweep's per-tile partials, summed over the tiles in order (8 warps take
+// every 8th tile, then one warp adds the 8 in order).
+template <bool HEADS>
+__global__ void __launch_bounds__(256)
+    trunk_bwd_reduce_kernel(const __grid_constant__ WgradPlan plan,
+                            const BwdArgs p) {
+  const int tid = threadIdx.x;
+  const int nb_tiles = plan.n_tile_elems / 256;
+  if ((int)blockIdx.x < nb_tiles) {
+    int q = blockIdx.x * 256 + tid;
+    int gi = 0;
+    for (; gi < plan.n_groups; ++gi) {
+      const int e = plan.g[gi].m_tiles * plan.g[gi].n_tiles * (WTILE / 4);
+      if (q < e) break;
+      q -= e;
+    }
+    const WgradGroup& g = plan.g[gi];
+    const int tiles = g.m_tiles * g.n_tiles;
+    const int tl = q / (WTILE / 4), e4 = q % (WTILE / 4);
+    const float4* src = reinterpret_cast<const float4*>(p.wpart) + e4;
+    float4 s = src[(size_t)(g.first_block + tl) * (WTILE / 4)];
+    for (int sl = 1; sl < g.splits; ++sl) {
+      const float4 v =
+          src[(size_t)(g.first_block + sl * tiles + tl) * (WTILE / 4)];
+      s.x += v.x;
+      s.y += v.y;
+      s.z += v.z;
+      s.w += v.w;
+    }
+    // float4 i of consumer thread c: accumulators 4i..4i+3 of warpgroup
+    // c / 128 (rows 64 (c/128) + ...), see sm90_common.cuh
+    const int i = e4 / NC, c = e4 % NC;
+    const int cw = c & 127, ww = cw >> 5, ll = cw & 31;
+    const int row =
+        (tl / g.n_tiles) * WM + (c >> 7) * 64 + ww * 16 + (ll >> 2);
+    const int col = (tl % g.n_tiles) * WN + 8 * i + 2 * (ll & 3);
+    *reinterpret_cast<float2*>(g.out + (size_t)row * g.ldo + col) =
+        make_float2(s.x, s.y);
+    *reinterpret_cast<float2*>(g.out + (size_t)(row + 8) * g.ldo + col) =
+        make_float2(s.z, s.w);
+    return;
+  }
+
+  // the bias grads, the sigma head's dW, (K5) the heads' partials, then the
+  // sigma head's db
+  __shared__ float red[8][32];
+  const int layers = p.layers, skip = p.skip;
+  const int trunk_cols = (layers + 1) * F;
+  const int cols = trunk_cols + (HEADS ? HEAD_PART : 0);
+  const int w = tid >> 5, lane = tid & 31;
+  const int j = (blockIdx.x - nb_tiles) * 32 + lane;
+  float s = 0.f;
+  if (j < cols)
+    for (int t = w; t < p.n_tiles; t += 8) s += p.part[(size_t)t * cols + j];
+  else if (j == cols)
+    for (int t = w; t < p.n_tiles; t += 8) s += p.pbs[t];
+  red[w][lane] = s;
+  __syncthreads();
+  if (w != 0 || j > cols) return;
+  s = red[0][lane];
+  for (int k = 1; k < 8; ++k) s += red[k][lane];
+  if (j == cols) {
+    p.dbsig[0] = s;
+    return;
+  }
+  if (j < trunk_cols) {
+    const int slot = j / F, c = j % F;
+    if (slot == layers)
+      p.dwsig[c] = s;
+    else if (slot == 0)
+      p.db0[c] = s;
+    else if (slot == skip)
+      p.dbs[c] = s;
+    else
+      p.dbm[(size_t)(slot < skip ? slot - 1 : slot - 2) * F + c] = s;
+    return;
+  }
+  if (HEADS) {
+    const int h = j - trunk_cols;
+    if (h < HP_DB1) {
+      p.dbf[h - HP_DBF] = s;
+    } else if (h < HP_DW2) {
+      p.db1[h - HP_DB1] = s;
+    } else if (h < HP_DB2) {
+      const int c = (h - HP_DW2) / (4 * HID), k = (h - HP_DW2) % (4 * HID);
+      if (k < HID)
+        p.dw2r[(size_t)k * 128 + c] = s;
+      else
+        p.dw2p[(size_t)(k - HID) * 128 + c] = s;
+    } else {
+      const int c = h - HP_DB2;
+      if (c < 3)
+        p.db2r[c] = s;
+      else if (c < 6)
+        p.db2p[c - 3] = s;
+    }
+  }
+}
+
+// ------------------------------------------------------------------- host
+
+// The sweep's tensor maps; false where the driver refuses one.
+template <bool HEADS>
+bool sweep_maps(const BwdArgs& p, SweepMaps* m) {
+  using sm90host::map_2d;
+  const uint64_t mids = (uint64_t)(p.layers - 2) * F;
+  const uint64_t n = p.n;
+  bool ok = map_2d(&m->w0k, p.w0, F, EP, EP, 256, KSL, 64) &&
+            map_2d(&m->wmidk, p.wmid, mids, F, F, 256, KSL, 64) &&
+            map_2d(&m->wskipk, p.wskip, F, EP + F, EP + F, 256, KSL, 64) &&
+            map_2d(&m->wmidm, p.wmid, mids, F, F, KSL, 32, 64) &&
+            map_2d(&m->wskipm, p.wskip, F, EP + F, EP + F, KSL, 32, 64) &&
+            map_2d(&m->zs, p.zs, n, p.layers * F, p.layers * F, T, 64, 128) &&
+            map_2d(&m->us, p.us, n, p.layers * F, p.layers * F, T, 64, 128) &&
+            map_2d(&m->hth, p.hth, (uint64_t)(p.layers - 1) * 2 * n, F, F,
+                   T, 64, 128) &&
+            map_2d(&m->azbtz, p.azbtz, (uint64_t)p.layers * 2 * n, F, F, T,
+                   64, 128);
+  if (HEADS)
+    ok = ok && map_2d(&m->wfk, p.wf, F, F, F, 256, KSL, 64) &&
+         map_2d(&m->wfm, p.wf, F, F, F, KSL, 32, 64) &&
+         map_2d(&m->w1rk, p.w1r, HID, F, F, 256, KSL, 64) &&
+         map_2d(&m->w1pk, p.w1p, 3 * HID, F, F, 256, KSL, 64) &&
+         map_2d(&m->w1rm, p.w1r, HID, F, F, KSL, 32, 64) &&
+         map_2d(&m->w1pm, p.w1p, 3 * HID, F, F, KSL, 32, 64) &&
+         map_2d(&m->hl, p.hl, n, F, F, T, 64, 128) &&
+         map_2d(&m->xfb, p.xfb, n, F, F, T, 64, 128) &&
+         map_2d(&m->axf, p.axf, n, F, F, T, 64, 128) &&
+         map_2d(&m->cz1, p.cz1, n, 4 * HID, 4 * HID, T, 64, 128);
+  return ok;
+}
+
+// The weight-gradient products in block order: layer 0 (x | t), layers
+// 1.. (h | th; the skip layer's bottom part), the skip layer's top part;
+// then (K5) dW_f and [dW_1r | dW_1p].  Map indices as in WgradMaps.
+template <bool HEADS>
+bool wgrad_plan(const BwdArgs& p, WgradMaps* maps, WgradPlan* plan) {
+  using sm90host::map_2d;
+  const uint64_t n = p.n;
+  const int L = p.layers;
+  bool ok = map_2d(&maps->m[0], p.xt, 2 * n, EP, EP, 64, 64, 128) &&
+            map_2d(&maps->m[1], p.hth, (uint64_t)(L - 1) * 2 * n, F, F, 64,
+                   64, 128) &&
+            map_2d(&maps->m[2], p.azbtz, (uint64_t)L * 2 * n, F, F, 64, 64,
+                   128);
+  if (HEADS)
+    ok = ok && map_2d(&maps->m[3], p.hl, n, F, F, 64, 64, 128) &&
+         map_2d(&maps->m[4], p.xfb, n, F, F, 64, 64, 128) &&
+         map_2d(&maps->m[5], p.axf, n, F, F, 64, 64, 128) &&
+         map_2d(&maps->m[6], p.cz1, n, 4 * HID, 4 * HID, 64, 64, 128);
+  if (!ok) return false;
+  const int ct = 2 * p.n / WK, ch = p.n / WK;
+  int k = 0, blocks = 0, elems = 0;
+  auto add = [&](int am, int ar, int bm, int br, int mt, int nt, int chunks,
+                 int splits, float* out, int ldo) {
+    WgradGroup& g = plan->g[k++];
+    g = {am, bm, ar, br, mt, nt, chunks, splits, blocks, out, ldo};
+    blocks += mt * nt * splits;
+    elems += mt * nt * (WTILE / 4);
+  };
+  const int st = p.splits_trunk, sh = p.splits_heads;
+  add(0, 0, 2, 0, EP / WM, F / WN, ct, st, p.dw0, F);
+  for (int i = 1; i < L; ++i)
+    add(1, (i - 1) * 2 * p.n, 2, i * 2 * p.n, F / WM, F / WN, ct, st,
+        i == p.skip ? p.dwsb
+                    : p.dwm + (size_t)(i < p.skip ? i - 1 : i - 2) * F * F,
+        F);
+  add(0, 0, 2, p.skip * 2 * p.n, EP / WM, F / WN, ct, st, p.dwst, F);
+  if (HEADS) {
+    add(3, 0, 5, 0, F / WM, F / WN, ch, sh, p.dwf, F);
+    add(4, 0, 6, 0, F / WM, 4 * HID / WN, ch, sh, p.dw1, 4 * HID);
+  }
+  plan->n_groups = k;
+  plan->n_blocks = blocks;
+  plan->n_tile_elems = elems;
+  return k <= MAX_GROUPS;
+}
+
+// Launch the sweep, the weight-gradient and the reduce kernels of K3
+// (HEADS = false) or K5 on `stream`; returns a cudaError_t.
 template <bool HEADS>
 int launch_bwd(const BwdArgs& p, int n_blocks, void* stream) {
   if (p.n <= 0 || p.n % T != 0 || n_blocks <= 0 || p.layers < 3 ||
-      p.skip <= 0 || p.skip >= p.layers)
+      p.layers + 3 > MAX_GROUPS || p.skip <= 0 || p.skip >= p.layers ||
+      p.splits_trunk < 1 || p.splits_trunk > 2 * p.n / WK ||
+      (HEADS && (p.splits_heads < 1 || p.splits_heads > p.n / WK)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int smem_sweep = HEADS ? SMEM_SWEEP_H : SMEM_SWEEP;
+  SweepMaps smaps;
+  WgradMaps wmaps;
+  WgradPlan plan;
+  if (!sweep_maps<HEADS>(p, &smaps) || !wgrad_plan<HEADS>(p, &wmaps, &plan) ||
+      plan.n_blocks != p.wpart_tiles)
+    return (int)cudaErrorInvalidValue;
+  const int smem_sweep = sweep_smem<HEADS>();
   cudaError_t e = cudaFuncSetAttribute(
       trunk_bwd_sweep_kernel<HEADS>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem_sweep);
   if (e != cudaSuccess) return (int)e;
   e = cudaFuncSetAttribute(trunk_bwd_wgrad_kernel<HEADS>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           SMEM_WGRAD);
+                           WGRAD_SMEM);
   if (e != cudaSuccess) return (int)e;
-  trunk_bwd_sweep_kernel<HEADS><<<n_blocks, NT, smem_sweep, st>>>(
-      p.x, p.cs, p.cf, p.cf_bf16, p.cot, p.cg, p.zs, p.us, p.n, p.n_tiles,
-      p.w0, p.wmid, p.wskip, p.wsig, p.bsig, p.wf, p.bf, p.w1r, p.b1r, p.w2r,
-      p.w1p, p.b1p, p.w2p, p.xt, p.hth, p.azbtz, p.part, p.pbs, p.tzsc, p.hl,
-      p.xfb, p.axf, p.cz1, p.layers, p.skip);
+  trunk_bwd_sweep_kernel<HEADS><<<n_blocks, NTB, smem_sweep, st>>>(smaps, p);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  // 4 tiles for layer 0, 4 + 16 for the skip layer, 16 for each other one
-  // (+ 48 for K5's heads); then the partial sums, one column each
-  const int n_wt = 8 + 16 * (p.layers - 1) + (HEADS ? 48 : 0);
+  trunk_bwd_wgrad_kernel<HEADS><<<plan.n_blocks, NTB, WGRAD_SMEM, st>>>(
+      wmaps, plan, p.wpart);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
   const int cols = (p.layers + 1) * F + (HEADS ? HEAD_PART : 0);
-  const int n_red = (cols + 1 + NT - 1) / NT;
-  trunk_bwd_wgrad_kernel<HEADS><<<n_wt + n_red, NT, SMEM_WGRAD, st>>>(p);
+  trunk_bwd_reduce_kernel<HEADS>
+      <<<plan.n_tile_elems / 256 + (cols + 1 + 31) / 32, 256, 0, st>>>(plan,
+                                                                       p);
   return (int)cudaGetLastError();
 }
 

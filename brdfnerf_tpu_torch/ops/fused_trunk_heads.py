@@ -47,7 +47,8 @@ from .fused_mlp import (FEAT, LANE, TILE_N, _round_up, check_kernel_inputs,
 from .fused_trunk_vjp import (_act_all, _bwd_primal_tangent, _forward_chain,
                               _grad_chain, _mm, _mm_t, _outer, _pack_params,
                               _reverse_sweep, _saved_dtype, _unpack_grads,
-                              encode_with_jacobian, trunk_params)
+                              encode_with_jacobian, trunk_params,
+                              wgrad_scratch)
 
 HEAD_COLS = 8       # packed logits: sigma, rgb x3, k, theta, rhoc, pad
 RPV_NAMES = ("k_from_xyz", "theta_rpv_from_xyz", "rhoc_from_xyz")
@@ -65,8 +66,8 @@ TRUNK_HEADS_FWD = CudaKernel(
     [_P, _I, _I] + [_P] * 8 + [_P] * 10 + [_P] * 5 + [_I, _I, _P])
 TRUNK_HEADS_BWD = CudaKernel(
     "trunk_heads_bwd", "trunk_heads_bwd_launch",
-    [_P] * 5 + [_I, _I] + [_P] * 5 + [_P] * 8 + [_P] * 10 + [_P] * 17
-    + [_I, _I, _P])
+    [_P] * 5 + [_I, _I] + [_P] * 5 + [_P] * 8 + [_P] * 7 + [_I, _I, _I]
+    + [_P] * 4 + [_P] * 17 + [_I, _I, _P])
 
 
 def heads_kernel_supports(cfg: ModelConfig, net, dirs=None, t_emb=None,
@@ -282,9 +283,10 @@ def check_bwd_h_inputs(cfg: ModelConfig, packed: Dict, hw: Dict, x, cot, cg,
 
 
 def _trunk_heads_bwd_cuda(packed: Dict, hw: Dict, cfg: ModelConfig, x, cot,
-                          cg, zs, us):
+                          cg, zs, us, scratch_out=None):
     """K5: the outputs of _trunk_heads_bwd_plain.  dw2r / dw2p hold their
-    three logit columns and zeros elsewhere."""
+    three logit columns and zeros elsewhere.  A dict passed as scratch_out
+    receives the kernel's scratch (for checks of its intermediates)."""
     check_bwd_h_inputs(cfg, packed, hw, x, cot, cg, zs, us)
     n, dev = x.shape[0], x.device
     layers, F, H = cfg.layers, FEAT, HID
@@ -304,10 +306,11 @@ def _trunk_heads_bwd_cuda(packed: Dict, hw: Dict, cfg: ModelConfig, x, cot,
     # K3's scratch, then the bf16 operands of the heads' weight-gradient
     # products: h_{L-1}, xf, a_xf and the first layers' cotangents
     # [c_z1r | c_z1p]
+    splits_t, splits_h, wpart = wgrad_scratch(n, layers, True, dev)
     scratch = (bf(2, n, LANE), bf(layers - 1, 2, n, F), bf(layers, 2, n, F),
                f32(n_tiles, (layers + 1) * F + HEAD_PART), f32(n_tiles),
-               f32(n_blocks, layers, TILE_N * F), bf(n, F), bf(n, F),
-               bf(n, F), bf(n, 4 * H))
+               f32(n_blocks, layers, TILE_N * F), wpart)
+    head_ops = (bf(n, F), bf(n, F), bf(n, F), bf(n, 4 * H))
     trunk = (f32(LANE, F), f32(F), f32(layers - 2, F, F), f32(layers - 2, F),
              f32(LANE, F), f32(F, F), f32(F), f32(F), f32(1))
     dw1, db1 = f32(F, 4 * H), f32(4 * H)
@@ -320,9 +323,13 @@ def _trunk_heads_bwd_cuda(packed: Dict, hw: Dict, cfg: ModelConfig, x, cot,
                                          "b_sigma")),
         *(hw[k].data_ptr() for k in ("wf", "bf", "w1r", "b1r", "w2r", "w1p",
                                      "b1p", "w2p")),
-        *(v.data_ptr() for v in scratch), *(v.data_ptr() for v in trunk),
+        *(v.data_ptr() for v in scratch), splits_t, splits_h, wpart.shape[0],
+        *(v.data_ptr() for v in head_ops), *(v.data_ptr() for v in trunk),
         *(v.data_ptr() for v in heads), layers, cfg.skips[0],
         torch.cuda.current_stream(dev).cuda_stream)
+    if scratch_out is not None:
+        scratch_out.update(zip(("xt", "hth", "azbtz", "part", "pbs"), scratch))
+        scratch_out.update(zip(("hl", "xfb", "axf", "cz1"), head_ops))
     dwf, dbf, _, _, dw2r, db2r, dw2p, db2p = heads
     return trunk + (dwf, dbf, dw1[:, :H], db1[:H], dw2r, db2r, dw1[:, H:],
                     db1[H:], dw2p, db2p)

@@ -34,6 +34,7 @@ pair.
 from __future__ import annotations
 
 import ctypes
+import functools
 from types import SimpleNamespace
 from typing import Dict, List
 
@@ -54,8 +55,54 @@ TRUNK_FWD_GRAD = CudaKernel(
      _P, _I, _I, _P])
 TRUNK_BWD = CudaKernel(
     "trunk_bwd", "trunk_bwd_launch",
-    [_P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-     _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P])
+    [_P, _P, _P, _I, _P, _P, _P, _I, _I] + [_P] * 12 + [_I, _I]
+    + [_P] * 9 + [_I, _I, _P])
+
+# The weight-gradient kernel of K3 and K5 (csrc/trunk_bwd.cuh): output
+# tiles of WGRAD_M x WGRAD_N, the K axis (points) in chunks of WGRAD_CHUNK,
+# cut into contiguous slices of whole chunks, one block per (slice, tile).
+WGRAD_M, WGRAD_N, WGRAD_CHUNK = 128, 256, 64
+# a block's fixed cost in chunks' worth of time, fitted to the split counts
+# timed on the H100 (tools/bwd_variants.py, PERF.md): with it the model
+# picks the fastest of those measured, 2 slices (one wave of 120 blocks)
+# for K3 and (9, 5) for K5 at the training step's 131,072 points
+WGRAD_TAIL = 48
+
+
+def wgrad_tiles(layers: int, heads: bool = False):
+    """(trunk tiles, head tiles) of the weight-gradient products: dW_0 and
+    the skip layer's top part (LANE x F each), the other layers' F x F
+    (the skip layer's bottom part among them); with the heads dW_f (F x F)
+    and [dW_1r | dW_1p] (F x 4 HID)."""
+    per = lambda m, n: (m // WGRAD_M) * (n // WGRAD_N)
+    trunk = 2 * per(LANE, FEAT) + (layers - 1) * per(FEAT, FEAT)
+    return trunk, (per(FEAT, FEAT) + per(FEAT, 2 * FEAT) if heads else 0)
+
+
+def wgrad_slices(chunks: int, splits: int):
+    """The [c0, c1) chunk range of every slice, as the kernel cuts it."""
+    return [(s * chunks // splits, (s + 1) * chunks // splits)
+            for s in range(splits)]
+
+
+@functools.lru_cache(maxsize=None)
+def wgrad_splits(n_rows: int, layers: int, heads: bool = False,
+                 sms: int = 132):
+    """(splits of the trunk's K = 2 n, splits of the heads' K = n; 0
+    without heads) that minimise the weight-gradient kernel's time in a
+    model of whole waves: ceil(blocks / sms) waves, each as long as the
+    longest slice plus WGRAD_TAIL.  Ties go to fewer blocks."""
+    ct, ch = 2 * n_rows // WGRAD_CHUNK, n_rows // WGRAD_CHUNK
+    tt, th = wgrad_tiles(layers, heads)
+    best = None
+    for st in range(1, min(ct, 64) + 1):
+        for sh in range(1, min(ch, 64) + 1) if heads else (0,):
+            blocks = tt * st + th * sh
+            longest = max(-(-ct // st), -(-ch // sh) if sh else 0)
+            key = (-(-blocks // sms) * (longest + WGRAD_TAIL), blocks)
+            if best is None or key < best[0]:
+                best = (key, st, sh)
+    return best[1], best[2]
 
 
 def _act_all(z, w0: float, siren: bool, fast: bool, want_d2: bool = False):
@@ -339,7 +386,21 @@ def check_bwd_inputs(cfg: ModelConfig, packed: Dict, x, cs, cf, cg, zs, us):
                              f"{tuple(v.shape)} on {v.device}")
 
 
-def _trunk_bwd_cuda(packed: Dict, cfg: ModelConfig, x, cs, cf, cg, zs, us):
+def wgrad_scratch(n: int, layers: int, heads: bool, dev):
+    """(splits of the trunk, of the heads, the partial tiles' scratch) of
+    the weight-gradient kernel for n rows on `dev`."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    st, sh = wgrad_splits(n, layers, heads, sms)
+    tt, th = wgrad_tiles(layers, heads)
+    wpart = torch.empty(tt * st + th * sh, WGRAD_M * WGRAD_N,
+                        dtype=torch.float32, device=dev)
+    return st, sh, wpart
+
+
+def _trunk_bwd_cuda(packed: Dict, cfg: ModelConfig, x, cs, cf, cg, zs, us,
+                    scratch_out=None):
+    """K3: the outputs of _trunk_bwd_plain.  A dict passed as scratch_out
+    receives the kernel's scratch (for checks of its intermediates)."""
     check_bwd_inputs(cfg, packed, x, cs, cf, cg, zs, us)
     n, dev = x.shape[0], x.device
     layers, F = cfg.layers, FEAT
@@ -355,10 +416,12 @@ def _trunk_bwd_cuda(packed: Dict, cfg: ModelConfig, x, cs, cf, cg, zs, us):
                    torch.cuda.get_device_properties(dev).multi_processor_count)
     # scratch: the bf16 operands of every layer's weight-gradient product
     # (x|t, h_prev|th_prev, a_z|b_tz), per-tile column sums of a_z and the
-    # sigma head's partial grads, and each block's tangent pre-activations
+    # sigma head's partial grads, each block's tangent pre-activations, and
+    # the weight-gradient blocks' partial tiles
     xt, hth, azbtz = bf(2, n, LANE), bf(layers - 1, 2, n, F), bf(layers, 2, n, F)
     part, part_bs = f32(n_tiles, layers + 1, F), f32(n_tiles)
     tzs = f32(n_blocks, layers, TILE_N * F)
+    splits, _, wpart = wgrad_scratch(n, layers, False, dev)
     outs = (f32(LANE, F), f32(F), f32(layers - 2, F, F), f32(layers - 2, F),
             f32(LANE, F), f32(F, F), f32(F), f32(F), f32(1))
     TRUNK_BWD(
@@ -368,8 +431,12 @@ def _trunk_bwd_cuda(packed: Dict, cfg: ModelConfig, x, cs, cf, cg, zs, us):
         packed["w_mid"].data_ptr(), packed["w_skip"].data_ptr(),
         packed["w_sigma"].data_ptr(), packed["b_sigma"].data_ptr(),
         xt.data_ptr(), hth.data_ptr(), azbtz.data_ptr(), part.data_ptr(),
-        part_bs.data_ptr(), tzs.data_ptr(), *(o.data_ptr() for o in outs),
-        layers, cfg.skips[0], torch.cuda.current_stream(dev).cuda_stream)
+        part_bs.data_ptr(), tzs.data_ptr(), wpart.data_ptr(), splits,
+        wpart.shape[0], *(o.data_ptr() for o in outs), layers, cfg.skips[0],
+        torch.cuda.current_stream(dev).cuda_stream)
+    if scratch_out is not None:
+        scratch_out.update(xt=xt, hth=hth, azbtz=azbtz, part=part,
+                           pbs=part_bs)
     return outs
 
 

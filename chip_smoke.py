@@ -11,9 +11,12 @@ Phases (any failure exits non-zero; nothing is caught):
   3. kernels  - K1 (trunk + sigma) at 327,680 points and K2 (trunk + sigma
                 gradient) at 655,360 points, the serving shapes; K2 saving
                 zs/us and K3 (the trunk's second-order backward) at 131,072
-                points, the training step's; bfloat16_all with the
-                polynomial sine, each against its twin; times of kernel,
-                twin and a chain of torch.matmul calls for the same products
+                points, the training step's, and again at 192 points (3
+                tiles: no multiple of a split or a wave); bfloat16_all with
+                the polynomial sine, each against its twin; times of kernel,
+                twin and a chain of torch.matmul calls for the same
+                products, and of K3's and K5's kernel functions (sweep,
+                weight gradients, reduce)
   4. serving  - a run directory from the port's train_parser / dump_opts and
                 a seeded init_network / save_checkpoint, then
                 load_renderer(device="cuda") answers 3 requests of 16,384
@@ -27,17 +30,18 @@ Phases (any failure exits non-zero; nothing is caught):
                 launch counts per step and a falling loss; one step profiled
   7. step check - one step's parameter gradients on 128 rays through the
                 kernels on the card against the same step through the twins,
-                on the card and on the CPU
+                on the card and on the CPU, at the weights of step 3
 With BRDFNERF_FUSED_HEADS set in-process (the flagship head block inside
 the kernel pair, ops/fused_trunk_heads.py):
   3b. kernels - K4 (trunk + heads) at the serving shape without zs and at
                 the training shape with zs/us, K5 (its backward) at the
-                training shape, twice, each against its twin
+                training shape and at 192 points, twice, each against its
+                twin
   5b. serving, fused heads - the same 3 requests; launches K1 2, K4 1 per
                 chunk, and a 1,024-ray render against the CPU twins
   6b. training, fused heads - the same stage-2 step; launches K1 2, K4 1,
                 K5 1 per step, a falling loss; one step profiled
-  7b. step check, fused heads - one step's gradients, every parameter, on
+  7b. step check, fused heads - one step's gradients, every parameter, at
                 phase 7's weights
 Then one JSON line of every ported kernel, the card's line, and the last
 line {"ok": true, "device": {...}}.
@@ -130,11 +134,35 @@ GROUPS = (("K1 trunk_sigma", ("trunk_sigma_kernel",)),
                                         "trunk_bwd_sweep_kernelilb1e")),
           ("K5 trunk_heads_bwd wgrad", ("trunk_bwd_wgrad_kernel<true>",
                                         "trunk_bwd_wgrad_kernelilb1e")),
+          ("K5 trunk_heads_bwd reduce", ("trunk_bwd_reduce_kernel<true>",
+                                         "trunk_bwd_reduce_kernelilb1e")),
           ("K3 trunk_bwd sweep", ("trunk_bwd_sweep_kernel",)),
           ("K3 trunk_bwd wgrad", ("trunk_bwd_wgrad_kernel",)),
+          ("K3 trunk_bwd reduce", ("trunk_bwd_reduce_kernel",)),
           ("optimizer (Adam)", ("adam",)),
           ("matmul (cuBLAS)", ("gemm", "xmma", "cutlass", "sm90_")),
           ("elementwise", ("elementwise",)))
+
+
+def kernel_parts(fn):
+    """Device ms per call of each kernel function fn launches (the
+    backward's sweep, wgrad and reduce), from torch.profiler over 3 calls
+    after one."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+    parts = {}
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            for part in ("sweep", "wgrad", "reduce"):
+                if f"trunk_bwd_{part}_kernel" in ev.key:
+                    parts[f"{part}_ms"] = (parts.get(f"{part}_ms", 0.0)
+                                           + ev.self_device_time_total / 3e3)
+    return parts
 
 
 def profile_device(fn, label):
@@ -339,6 +367,8 @@ def heads_kernels(rows, mcfg, net, packed, wbytes, macs, k3_flops, k3_bytes,
         "plain_ms": timed(lambda: k4._trunk_heads_bwd_plain(
             packed, hw, mcfg, enc, cot, cg, zs), 1),
         "library_ms": timed(chain_k5, 5)}
+    rows["K5"].update(kernel_parts(lambda: k4._trunk_heads_bwd_cuda(
+        packed, hw, mcfg, enc, cot, cg, zs, us)))
     # K3's reads and writes, with the logit cotangents in place of c_feats,
     # plus the head weights and their grads
     rows["K5"]["bound_ms"], rows["K5"]["bound_by"] = bound_ms(
@@ -347,6 +377,47 @@ def heads_kernels(rows, mcfg, net, packed, wbytes, macs, k3_flops, k3_bytes,
         peaks)
     print(f"  K5 largest relative L2 against its twin {k5_rel:.3e}",
           flush=True)
+
+
+def backward_small(n, mcfg, net, packed, points, gen):
+    """K3 and K5 at n points against their twins on the card, each twice
+    with bit-identical grads, with the bounds of the training shape."""
+    from brdfnerf_tpu_torch.ops import fused_trunk_heads as k4
+    from brdfnerf_tpu_torch.ops import fused_trunk_vjp as k2
+    lane, ein = k2.LANE, mcfg.xyz_in_dim
+    hw = k4.pack_head_weights(net, mcfg, torch.bfloat16)
+    enc = points(n)
+    _, _, _, zs, us = k2._trunk_fwd_grad_cuda(packed, mcfg, enc, want_zs=True)
+    cs = torch.randn(n, device="cuda", generator=gen)
+    cf = (torch.randn(n, mcfg.feat, device="cuda", generator=gen)
+          * 0.1).to(torch.bfloat16)
+    cg = torch.zeros(n, lane, device="cuda")
+    cg[:, :ein] = torch.randn(n, ein, device="cuda", generator=gen)
+    cot = torch.randn(n, k4.HEAD_COLS, device="cuda", generator=gen)
+    cot[:, 7] = 0.0
+    cases = (
+        ("K3", 1e-2, K5_NAMES[:9],
+         lambda: k2._trunk_bwd_cuda(packed, mcfg, enc, cs, cf, cg, zs, us),
+         lambda: k2._trunk_bwd_plain(packed, mcfg, enc, cs, cf, cg, zs, us)),
+        ("K5", 2e-2, K5_NAMES,
+         lambda: k4._trunk_heads_bwd_cuda(packed, hw, mcfg, enc, cot, cg,
+                                          zs, us),
+         lambda: k4._trunk_heads_bwd_plain(packed, hw, mcfg, enc, cot, cg,
+                                           zs)))
+    for label, bound, names, kernel, twin in cases:
+        got, again, ref = kernel(), kernel(), twin()
+        torch.cuda.synchronize()
+        worst = 0.0
+        for name, g_, r_, a_ in zip(names, got, ref, again):
+            assert torch.equal(g_, a_), f"{label} {name} at {n} points"
+            if name in ("dw2r", "dw2p"):
+                g_, r_ = g_[:, :3], r_[:, :3]
+            assert torch.isfinite(g_).all(), (label, name, n)
+            rel = rel_l2(g_, r_)
+            worst = max(worst, rel)
+            assert rel <= bound, (label, name, n, rel)
+        print(f"  {label} at {n} points: two launches bit-identical, largest "
+              f"relative L2 against its twin {worst:.3e}", flush=True)
 
 
 def make_store(n_rays: int, rng: np.random.RandomState):
@@ -405,6 +476,7 @@ def main():
     from brdfnerf_tpu_torch.ops.encoding import positional_encoding
     from brdfnerf_tpu_torch.parallel import train_step as ts
     from brdfnerf_tpu_torch.serve import load_renderer
+    from brdfnerf_tpu_torch.tools.bwd_check import ptxas_summary
     from brdfnerf_tpu_torch.utils.checkpoint import save_checkpoint
 
     phase("build")
@@ -420,6 +492,16 @@ def main():
                 or "spill" in ln]
         print(f"  {name}: {rec['seconds']:.1f} s; " + " | ".join(regs[:12]),
               flush=True)
+    # the backward kernels' functions: registers (the count at launch; the
+    # consumer warps raise theirs with setmaxnreg), spills, static shared
+    # memory (the dynamic share is set at launch, csrc/trunk_bwd.cuh)
+    for name in ("trunk_bwd", "trunk_heads_bwd"):
+        for fn in ptxas_summary(cuda_build.build_log.get(name, {}).get(
+                "log", "")):
+            print(f"  {name} {fn['name'][:56]}: {fn['registers']} "
+                  f"registers, spills {fn['spill_stores']} B stored / "
+                  f"{fn['spill_loads']} B loaded, static smem {fn['smem']} B",
+                  flush=True)
 
     # ------------------------------------------------ the flagship run
     tmp = tempfile.TemporaryDirectory()
@@ -663,13 +745,19 @@ def main():
         "library_ms": timed(chain_k3, 5)}
     rows["K3"]["bound_ms"], rows["K3"]["bound_by"] = bound_ms(
         k3_flops, k3_bytes, peaks)
+    rows["K3"].update(kernel_parts(lambda: k2._trunk_bwd_cuda(
+        packed, mcfg, enc, cs, cf, cg, zs, us)))
     heads_kernels(rows, mcfg, net, packed, wbytes, macs, k3_flops, k3_bytes,
                   points, chain_k2, chain_k3, peaks, gen)
     del enc, encb, cgb, hth, azb, xtb, zs, us, cs, cf, cg
+    backward_small(192, mcfg, net, packed, points, gen)
     for r in rows.values():
         print(f"  {r['name']}: {r['ms']:.3f} ms (bound {r['bound_ms']:.3f} "
               f"by {r['bound_by']}, twin {r['plain_ms']:.1f}, matmul chain "
-              f"{r['library_ms']:.3f})", flush=True)
+              f"{r['library_ms']:.3f})" + "".join(
+                  f", {k[:-3]} {r[k]:.3f}" for k in ("sweep_ms", "wgrad_ms",
+                                                    "reduce_ms") if k in r),
+              flush=True)
     print(f"  K3 largest relative L2 against its twin {k3_rel:.3e}; K2 "
           f"at {n3} points without zs/us {k2_nozs_ms:.3f} ms", flush=True)
 
@@ -795,7 +883,8 @@ def main():
     def train(label, want):
         """WARM_STEPS + TIMED_STEPS flagship steps from a fresh seeded
         state, launch counts checked per step and a falling loss; one step
-        profiled.  Returns the state and the launch counts."""
+        profiled.  Returns the weights after the warm-up and the launch
+        counts."""
         batcher = DeviceRayBatcher(
             make_store(STORE_BATCHES * BATCH, np.random.RandomState(0)),
             BATCH, seed=0, device="cuda")
@@ -812,6 +901,7 @@ def main():
 
         for _ in range(WARM_STEPS):
             state, m = one_step(state)
+        warm = copy.deepcopy(state.params)
         torch.cuda.synchronize()
         reset_counts()
         torch.cuda.reset_peak_memory_stats()
@@ -844,11 +934,16 @@ def main():
         assert last < first, (first, last)
         state, _ = one_step(state)
         profile_device(lambda: one_step(state), label)
-        return state, launches
+        return warm, launches
 
     # one step's parameter gradients on CHECK_RAYS rays at flagship width:
     # the kernels on the card against the twins on the CPU, same weights,
-    # batch, gates and draws
+    # batch, gates and draws: the weights and the gates of step WARM_STEPS
+    # of the training run.  Later weights follow every kernel's f32
+    # summation order over more steps, and at most points past the warm-up
+    # K1's bf16 activations (its twin keeps f32) move the guided samples
+    # enough to change the gradients by more than the bound
+    # (tools/step_check_points.py, PERF.md)
     s = make_store(CHECK_RAYS, np.random.RandomState(1))
     gates = ts.gates_from_step(WARM_STEPS, sched)
     rng = torch.Generator().manual_seed(11)
@@ -917,38 +1012,38 @@ def main():
 
     phase("training")
     # per step: the probe and the sun march (K1), the main pass with zs/us
-    # (K2) and its backward (K3: one call, a sweep and a weight-gradient
-    # kernel)
-    state, launches = train("train step", {"K1": 2, "K2": 1, "K3": 1,
-                                           "K4": 0, "K5": 0})
+    # (K2) and its backward (K3: one call, a sweep, a weight-gradient
+    # and a reduce kernel)
+    warm, launches = train("train step", {"K1": 2, "K2": 1, "K3": 1,
+                                          "K4": 0, "K5": 0})
     rows["K2zs"]["launches"] = launches["K2"]
     rows["K3"]["launches"] = launches["K3"]
     rows["K1"]["launches_train"] = launches["K1"]
 
     phase("step check")
-    worst = step_check(state.params,
+    worst = step_check(warm,
                        (k2, "_trunk_fwd_grad_cuda", k2._trunk_fwd_grad_plain),
                        (k2, "_trunk_bwd_cuda", k2._trunk_bwd_plain),
                        {"K1": 2, "K2": 1, "K3": 1, "K4": 0, "K5": 0})
     # K3 in the step, on the cotangents the step gives it: as K3 alone
-    # above (measured on the card 3.6e-3 there)
+    # above (measured on the card 3.5e-3 here, 3.6e-3 there)
     assert worst["backward kernel vs its twin"] <= 1e-2, worst
     # K2's outputs differ from its twin's by 4e-4 (sigma) .. 4e-3 (gx) in
     # relative L2; the loss's cotangents pass them through -normalize(gx)
     # and the compositing weights, and the trunk's grads are sums over 16,384
     # points with cancellation, so the whole step moves by more (measured
-    # on the card: 3.1e-2 with K2 and K3 swapped, 4.6e-2 against the CPU,
+    # on the card: 4.8e-2 with K2 and K3 swapped, 7.8e-2 against the CPU,
     # where K1's twin keeps f32 activations and moves the guided samples)
     assert worst["both kernels vs their twins"] <= 0.1, worst
     assert worst["all kernels vs twins on the CPU"] <= 0.1, worst
     # the same twins on the card and on the CPU differ in the device's
-    # arithmetic alone (measured 2.2e-2)
+    # arithmetic alone (measured 8.7e-3)
     assert worst["every twin, on the card vs on the CPU"] <= 0.1, worst
 
     phase("training, fused heads")
     os.environ[FUSED_HEADS] = "1"
     # per step: K1 twice, K4 saving zs/us for the main pass and K5 for its
-    # backward (one call, a sweep and a weight-gradient kernel)
+    # backward (one call, a sweep, a weight-gradient and a reduce kernel)
     _, launches = train("train step, fused heads",
                         {"K1": 2, "K2": 0, "K3": 0, "K4": 1, "K5": 1})
     rows["K4zs"]["launches"] = launches["K4"]
@@ -964,19 +1059,17 @@ def main():
         return k4._trunk_heads_bwd_plain(packed, hw, cfg_, x, cot, cg, zs)
 
     # the weights of the switch-off check, so that the two checks differ in
-    # the path alone (on the weights the fused run trains, the rho_c head's
-    # gradient is orders of magnitude smaller than the k head's, and the
-    # samples K1 moves change it by more than the bound against the CPU)
-    worst = step_check(state.params, (k4, "_trunk_heads_fwd_cuda", k4_twin),
+    # the path alone
+    worst = step_check(warm, (k4, "_trunk_heads_fwd_cuda", k4_twin),
                        (k4, "_trunk_heads_bwd_cuda", k5_twin),
                        {"K1": 2, "K2": 0, "K3": 0, "K4": 1, "K5": 1})
-    # K5 in the step: as K5 alone above (7.3e-3 there)
+    # K5 in the step: as K5 alone above (7.0e-3 here, 7.3e-3 there)
     assert worst["backward kernel vs its twin"] <= 2e-2, worst
     # as the switch-off step: K4's trunk and chain are K2's
     assert worst["both kernels vs their twins"] <= 0.1, worst
     assert worst["all kernels vs twins on the CPU"] <= 0.1, worst
     assert worst["every twin, on the card vs on the CPU"] <= 0.1, worst
-    del os.environ[FUSED_HEADS], state
+    del os.environ[FUSED_HEADS], warm
 
     tmp.cleanup()
     # every row's "launches" counts its own path's run (K1's and K2's:
@@ -985,7 +1078,8 @@ def main():
     # every path
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "launches_train")
+            "library_ms", "launches_train", "sweep_ms", "wgrad_ms",
+            "reduce_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in rows.values()]}))
     print(smi)

@@ -413,11 +413,13 @@ def test_kernel_paths_refuse_what_they_cannot_run():
 # ------------------------------------------------------------ on the card
 
 @pytest.mark.cuda
-def test_heads_kernels_match_twins_on_the_card():
+@pytest.mark.parametrize("n", [64, 192, 640])
+def test_heads_kernels_match_twins_on_the_card(n):
     """K4 (with and without zs/us) and K5 against their twins on the card
-    at the flagship width (8 x 512, skip 4) on 640 points, K5 twice with
-    bit-identical grads; chip_smoke.py makes the same checks at the main
-    paths' shapes, where the bounds are explained."""
+    at the flagship width (8 x 512, skip 4) on 1, 3 and 10 tiles of 64
+    points (no multiple of a split or a wave), K5 twice with bit-identical
+    grads; chip_smoke.py makes the same checks at the main paths' shapes,
+    where the bounds are explained."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from brdfnerf_tpu_torch.config import ModelConfig
@@ -426,7 +428,7 @@ def test_heads_kernels_match_twins_on_the_card():
                       compute_dtype="bfloat16_all", **FLAGSHIP_HEADS)
     g = torch.Generator(device="cuda").manual_seed(0)
     net = tnet.init_network(cfg, g, device="cuda")
-    xyz = torch.rand(640, 3, device="cuda", generator=g) * 2 - 1
+    xyz = torch.rand(n, 3, device="cuda", generator=g) * 2 - 1
     enc = positional_encoding(xyz, 10, fast=True, pad_to=128)
     packed = tk1.pack_trunk_weights(net, cfg, torch.bfloat16)
     hw = th.pack_head_weights(net, cfg, torch.bfloat16)
@@ -442,10 +444,10 @@ def test_heads_kernels_match_twins_on_the_card():
         scale = float(p_.float().abs().max())
         assert float(d.max()) <= 5e-2 * scale
         assert float(d.mean()) <= 1e-3 * scale
-    cot = torch.randn(640, 8, device="cuda", generator=g)
+    cot = torch.randn(n, 8, device="cuda", generator=g)
     cot[:, 7] = 0.0
-    cg = torch.zeros(640, 128, device="cuda")
-    cg[:, :60] = torch.randn(640, 60, device="cuda", generator=g)
+    cg = torch.zeros(n, 128, device="cuda")
+    cg[:, :60] = torch.randn(n, 60, device="cuda", generator=g)
     got = th._trunk_heads_bwd_cuda(packed, hw, cfg, enc, cot, cg, zs, us)
     again = th._trunk_heads_bwd_cuda(packed, hw, cfg, enc, cot, cg, zs, us)
     ref = th._trunk_heads_bwd_plain(packed, hw, cfg, enc, cot, cg, zs)

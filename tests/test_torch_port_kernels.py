@@ -445,13 +445,71 @@ def test_backward_kernel_refuses_what_it_cannot_run():
                                  x, want_zs=True)
 
 
+# ------------------------------------------ the weight-gradient split plan
+
+@pytest.mark.parametrize("chunks,splits", [(1, 1), (2, 2), (20, 2), (20, 3),
+                                           (4096, 11), (4096, 64),
+                                           (2048, 5), (7, 7)])
+def test_wgrad_slices_cover_every_chunk_once_in_order(chunks, splits):
+    """The K slices of the weight-gradient kernel: contiguous, non-empty,
+    in order, each chunk in exactly one, lengths within one of each
+    other."""
+    sl = tk2.wgrad_slices(chunks, splits)
+    assert len(sl) == splits
+    assert sl[0][0] == 0 and sl[-1][1] == chunks
+    assert all(a[1] == b[0] for a, b in zip(sl, sl[1:]))
+    lengths = [c1 - c0 for c0, c1 in sl]
+    assert min(lengths) >= 1 and max(lengths) - min(lengths) <= 1
+    covered = [c for c0, c1 in sl for c in range(c0, c1)]
+    assert covered == list(range(chunks))
+
+
+@pytest.mark.parametrize("layers", [4, 8])
+def test_wgrad_tiles_cover_the_weight_grads(layers):
+    """One 128 x 256 tile per block of every weight gradient the kernel
+    writes: K3's dW_0, dW_mid, dW_skip (top and bottom), K5's dW_f and
+    [dW_1r | dW_1p]."""
+    f, lane, hid = tk2.FEAT, tk2.LANE, tk2.FEAT // 2
+    shapes = ([(lane, f)] + [(f, f)] * (layers - 2) + [(lane, f), (f, f)])
+    per = [(m // tk2.WGRAD_M) * (n // tk2.WGRAD_N) for m, n in shapes]
+    heads = [(f, f), (f, 4 * hid)]
+    per_h = [(m // tk2.WGRAD_M) * (n // tk2.WGRAD_N) for m, n in heads]
+    assert tk2.wgrad_tiles(layers) == (sum(per), 0)
+    assert tk2.wgrad_tiles(layers, True) == (sum(per), sum(per_h))
+
+
+@pytest.mark.parametrize("n", [64, 192, 640, 65536, 131072])
+@pytest.mark.parametrize("heads", [False, True])
+def test_wgrad_splits_plan(n, heads):
+    """Every slice holds at least one chunk of 64 points, no other plan of
+    the model is faster, and at the training step's 131,072 points the
+    plan is the one measured fastest on the H100's 132 SMs (PERF.md)."""
+    st, sh = tk2.wgrad_splits(n, 8, heads, 132)
+    ct, ch = 2 * n // tk2.WGRAD_CHUNK, n // tk2.WGRAD_CHUNK
+    assert 1 <= st <= ct
+    assert (1 <= sh <= ch) if heads else sh == 0
+    tt, th = tk2.wgrad_tiles(8, heads)
+    blocks = tt * st + th * sh
+    if n == 131072:
+        assert (st, sh) == ((9, 5) if heads else (2, 0)), (st, sh)
+    # no other plan of the model is faster
+    longest = max(-(-ct // st), -(-ch // sh) if sh else 0)
+    cost = -(-blocks // 132) * (longest + tk2.WGRAD_TAIL)
+    for s in range(1, min(ct, 64) + 1):
+        if not heads:
+            alt = -(-(tt * s) // 132) * (-(-ct // s) + tk2.WGRAD_TAIL)
+            assert cost <= alt
+
+
 @pytest.mark.cuda
-def test_backward_kernels_match_twins_on_the_card():
+@pytest.mark.parametrize("n", [64, 192, 640])
+def test_backward_kernels_match_twins_on_the_card(n):
     """K2 with zs/us and K3 against their twins on the card, at the
-    flagship width (8 x 512, skip 4) on 640 points; chip_smoke.py makes the
-    same check at the training step's shapes.  K3's grads are sums over
-    points, held by relative L2 error per tensor (chip_smoke.py states the
-    measured values)."""
+    flagship width (8 x 512, skip 4) on 1, 3 and 10 tiles of 64 points (no
+    multiple of a split or a wave), K3 twice with bit-identical grads;
+    chip_smoke.py makes the same check at the training step's shapes.
+    K3's grads are sums over points, held by relative L2 error per tensor
+    (chip_smoke.py states the measured values)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from brdfnerf_tpu_torch.config import ModelConfig
@@ -459,7 +517,7 @@ def test_backward_kernels_match_twins_on_the_card():
                       compute_dtype="bfloat16_all")
     g = torch.Generator(device="cuda").manual_seed(0)
     net = tnet.init_network(cfg, g, device="cuda")
-    xyz = torch.rand(640, 3, device="cuda", generator=g) * 2 - 1
+    xyz = torch.rand(n, 3, device="cuda", generator=g) * 2 - 1
     from brdfnerf_tpu_torch.ops.encoding import positional_encoding
     enc = positional_encoding(xyz, 10, fast=True, pad_to=128)
     packed = tk1.pack_trunk_weights(net, cfg, torch.bfloat16)
@@ -470,11 +528,11 @@ def test_backward_kernels_match_twins_on_the_card():
         scale = float(p_.float().abs().max())
         assert float(d.max()) <= 5e-2 * scale
         assert float(d.mean()) <= 1e-3 * scale
-    cs = torch.randn(640, device="cuda", generator=g)
-    cf = (torch.randn(640, 512, device="cuda", generator=g) * 0.1).to(
+    cs = torch.randn(n, device="cuda", generator=g)
+    cf = (torch.randn(n, 512, device="cuda", generator=g) * 0.1).to(
         torch.bfloat16)
-    cg = torch.zeros(640, 128, device="cuda")
-    cg[:, :60] = torch.randn(640, 60, device="cuda", generator=g)
+    cg = torch.zeros(n, 128, device="cuda")
+    cg[:, :60] = torch.randn(n, 60, device="cuda", generator=g)
     zs, us = out_p[3], out_p[4]
     got = tk2._trunk_bwd_cuda(packed, cfg, enc, cs, cf, cg, zs, us)
     again = tk2._trunk_bwd_cuda(packed, cfg, enc, cs, cf, cg, zs, us)
