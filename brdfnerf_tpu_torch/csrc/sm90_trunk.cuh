@@ -1,0 +1,176 @@
+// The warp-specialised machinery shared by the trunk kernels built on
+// sm90_common.cuh: the forward of K2/K4 (trunk_fwd_grad.cuh) and the sweep of
+// K3/K5 (trunk_bwd.cuh).  A block is three warpgroups: two consumer
+// warpgroups, each owning 256 of the 512 output columns of every trunk
+// product (wgmma, f32 accumulators), and a producer warpgroup of which one
+// thread issues every TMA load into one ring of RING_N stages, in the order
+// the consumers take them.  A product's A operand is a 64-row activation tile
+// kept K-major with the 128-byte swizzle (64-column blocks of ACT_BLOCK
+// bytes); its B operand is the weight slices in the ring: K-major boxes
+// (32 k x 256 n, 64-byte swizzle) for z = h W^T, MN-major boxes (32 n x 32 k)
+// for u = g W, so that no thread transposes an operand.  Tiles written by the
+// epilogues leave by TMA stores.
+
+#pragma once
+
+#include "sm90_common.cuh"
+#include "trunk_common.cuh"
+
+namespace trunk {
+
+constexpr int NC = 256;                  // consumer threads (2 warpgroups)
+constexpr int NTB = NC + 128;            // + the producer warpgroup
+constexpr int BAR_C = 1;                 // named barrier of the consumers
+constexpr int KSL = 32;                  // k-slice of a weight stage
+constexpr int RING_STAGE = F * KSL * 2;  // 32 KB: 32 k x 512 n, SW64
+constexpr int RING_N = 4;                // stages
+constexpr int ACT_BLOCK = T * 64 * 2;    // one 64 x 64 SW128 block, 8 KB
+
+struct Ring {
+  uint32_t stage, phase;
+  __device__ __forceinline__ void advance() {
+    if (++stage == RING_N) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+};
+
+// Producer: the nk k-slices of one product's B into the ring.  K-major
+// (mn = false): B[k][n] = W[row0 + n][col0 + k], nw rows of n; MN-major:
+// B[k][n] = W[row0 + k][col0 + n], nw columns of n.
+__device__ __forceinline__ void produce(const CUtensorMap* map, bool mn,
+                                        int nk, int row0, int col0, int nw,
+                                        Ring& r, uint64_t* full,
+                                        uint64_t* empty, unsigned char* ring) {
+  for (int c = 0; c < nk; ++c) {
+    sm90::mbar_wait(&empty[r.stage], r.phase ^ 1);
+    unsigned char* s = ring + r.stage * RING_STAGE;
+    sm90::mbar_expect_tx(&full[r.stage], nw * KSL * 2);
+    if (!mn) {
+      for (int h = 0; h < nw / 256; ++h)
+        sm90::tma_load_2d(s + h * 256 * KSL * 2, map, &full[r.stage],
+                          col0 + c * KSL, row0 + h * 256);
+    } else {
+      for (int nb = 0; nb < nw / 32; ++nb)
+        sm90::tma_load_2d(s + nb * 32 * KSL * 2, map, &full[r.stage],
+                          col0 + nb * 32, row0 + c * KSL);
+    }
+    r.advance();
+  }
+}
+
+// Producer: one ring stage of contiguous global memory from src (16-byte
+// aligned), one bulk copy.
+__device__ __forceinline__ void produce_copy(const void* src, Ring& r,
+                                             uint64_t* full, uint64_t* empty,
+                                             unsigned char* ring) {
+  sm90::mbar_wait(&empty[r.stage], r.phase ^ 1);
+  sm90::mbar_expect_tx(&full[r.stage], RING_STAGE);
+  sm90::bulk_load(ring + r.stage * RING_STAGE, src, RING_STAGE,
+                  &full[r.stage]);
+  r.advance();
+}
+
+// Consumers: release a ring stage, one arrival per warp.
+__device__ __forceinline__ void release(uint64_t* empty, uint32_t stage) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) sm90::mbar_arrive(&empty[stage]);
+}
+
+// K-major SW128 descriptor of k position kk (a multiple of 16) in a tile
+// of 64-column blocks
+__device__ __forceinline__ uint64_t a_desc(const unsigned char* tile,
+                                           int kk) {
+  return sm90::make_desc(tile + (kk >> 6) * ACT_BLOCK + ((kk & 63) >> 4) * 32,
+                         16, 1024, 1);
+}
+
+// Consumer: acc (+)= A . B over nk slices from the ring, this warpgroup's
+// NW columns.  A: the tile a0 for k < ka0, then a1 (each K-major SW128).
+// accumulate = false overwrites acc.  Returns with every product of both
+// warpgroups issued by this one complete; the caller syncs the consumers
+// before it rewrites A.
+template <int NW, int TB>
+__device__ __forceinline__ void consume(float (&acc)[NW / 2],
+                                        const unsigned char* a0, int ka0,
+                                        const unsigned char* a1, int nk,
+                                        bool accumulate, Ring& r,
+                                        uint64_t* full, uint64_t* empty,
+                                        const unsigned char* ring, int wg,
+                                        bool leader) {
+  uint32_t prev = 0;
+  for (int c = 0; c < nk; ++c) {
+    sm90::mbar_wait(&full[r.stage], r.phase);
+    const unsigned char* s = ring + r.stage * RING_STAGE;
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {
+      const int kk = c * KSL + ks * 16;
+      const uint64_t da = kk < ka0 ? a_desc(a0, kk) : a_desc(a1, kk - ka0);
+      const uint64_t db =
+          TB == 0 ? sm90::make_desc(s + wg * NW * KSL * 2 + ks * 32, 16, 512,
+                                    2)
+                  : sm90::make_desc(s + wg * (NW / 32) * 2048 + ks * 1024,
+                                    2048, 512, 2);
+      const int sc = (accumulate || c > 0 || ks > 0) ? 1 : 0;
+      if constexpr (NW == 256)
+        sm90::wgmma_n256<0, TB>(acc, da, db, sc);
+      else if constexpr (NW == 128)
+        sm90::wgmma_n128<0, TB>(acc, da, db, sc);
+      else
+        sm90::wgmma_n64<0, TB>(acc, da, db, sc);
+    }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<1>();
+    if (c > 0 && leader) sm90::mbar_arrive(&empty[prev]);
+    prev = r.stage;
+    r.advance();
+  }
+  sm90::wgmma_wait<0>();
+  sm90::fence_acc(acc);
+  if (leader) sm90::mbar_arrive(&empty[prev]);
+}
+
+// Write this warpgroup's accumulator columns (NW of them from colbase), as
+// bf16 of v(i) for accumulator i, into a K-major SW128 tile with stmatrix.
+template <int NW, class V>
+__device__ __forceinline__ void store_tile_sw(unsigned char* tile,
+                                              int colbase, V v) {
+  const int t = threadIdx.x & 127, w = t >> 5, l = t & 31;
+  const int mi = l >> 3;
+  const int row = w * 16 + (mi & 1) * 8 + (l & 7);
+#pragma unroll
+  for (int jj = 0; jj < NW / 16; ++jj) {
+    const int j = 2 * jj;
+    const int col = colbase + 8 * (j + (mi >> 1));
+    sm90::stmatrix_x4(tile + sm90::sw128_offset(row, col, ACT_BLOCK),
+                      sm90::pack_bf2(v(4 * j), v(4 * j + 1)),
+                      sm90::pack_bf2(v(4 * j + 2), v(4 * j + 3)),
+                      sm90::pack_bf2(v(4 * j + 4), v(4 * j + 5)),
+                      sm90::pack_bf2(v(4 * j + 6), v(4 * j + 7)));
+  }
+}
+
+// Consumers: hand the tile just written to the async proxy and store its
+// nb 64-column blocks to global rows row0.. of `map` from column col0.
+__device__ __forceinline__ void tile_to_global(const CUtensorMap* map,
+                                               const unsigned char* tile,
+                                               int nb, int col0, int row0,
+                                               bool issuer) {
+  sm90::fence_async_smem();
+  sm90::named_sync(BAR_C, NC);
+  if (issuer) {
+    for (int b = 0; b < nb; ++b)
+      sm90::tma_store_2d(map, tile + b * ACT_BLOCK, col0 + b * 64, row0);
+    sm90::bulk_commit();
+  }
+}
+
+// Consumers: wait until every TMA store has read its tile, then sync.
+__device__ __forceinline__ void tiles_free(bool issuer) {
+  if (issuer) sm90::bulk_wait_read<0>();
+  sm90::named_sync(BAR_C, NC);
+}
+
+}  // namespace trunk

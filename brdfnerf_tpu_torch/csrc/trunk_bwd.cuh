@@ -24,8 +24,9 @@
 // 3.35 TB/s.  The weight gradients read ~4.3 GB of bf16 operands (K5
 // ~5 GB), 1.3 ms at that rate.
 //
-// Design (sm90_common.cuh for the building blocks): three kernels, all
-// deterministic (fixed summation orders, no atomics).
+// Design (sm90_common.cuh for the building blocks, sm90_trunk.cuh for the
+// warp roles, the ring and the products, shared with K2/K4): three
+// kernels, all deterministic (fixed summation orders, no atomics).
 //   1. sweep: a persistent grid, one 64-point tile at a time per block of
 //      three warpgroups.  A producer warp streams, in the order the
 //      consumers need them, every weight slice of the tile's products (TMA;
@@ -62,8 +63,7 @@
 
 #pragma once
 
-#include "sm90_common.cuh"
-#include "trunk_common.cuh"
+#include "sm90_trunk.cuh"
 
 namespace trunk {
 
@@ -184,13 +184,7 @@ __device__ __forceinline__ float col_sum(float v) {
 
 // ================================================================== sweep
 
-constexpr int NC = 256;                  // consumer threads (2 warpgroups)
-constexpr int NTB = NC + 128;            // + the producer warpgroup
-constexpr int BAR_C = 1;                 // named barrier of the consumers
-constexpr int KSL = 32;                  // k-slice of a weight stage
-constexpr int RING_STAGE = F * KSL * 2;  // 32 KB: 32 k x 512 n, SW64
-constexpr int RING_N = 4;                // stages
-constexpr int ACT_BLOCK = T * 64 * 2;    // one 64 x 64 SW128 block, 8 KB
+// (the block's warp roles, the ring and the products: sm90_trunk.cuh)
 // shared memory: the activation tile (64 x 512, 8 blocks), the tile of
 // t = c_g (64 x 128; K5: 64 x 256, the c_z1 chunk once the tangent forward
 // is done; both double as reduction space), the ring (weight slices and
@@ -226,40 +220,6 @@ struct SweepMaps {
   CUtensorMap wfk, wfm, w1rk, w1pk, w1rm, w1pm;   // K5
   CUtensorMap hl, xfb, axf, cz1;                  // K5
 };
-
-struct Ring {
-  uint32_t stage, phase;
-  __device__ __forceinline__ void advance() {
-    if (++stage == RING_N) {
-      stage = 0;
-      phase ^= 1;
-    }
-  }
-};
-
-// Producer: the nk k-slices of one product's B into the ring.  K-major
-// (mn = false): B[k][n] = W[row0 + n][col0 + k], nw rows of n; MN-major:
-// B[k][n] = W[row0 + k][col0 + n], nw columns of n.
-__device__ __forceinline__ void produce(const CUtensorMap* map, bool mn,
-                                        int nk, int row0, int col0, int nw,
-                                        Ring& r, uint64_t* full,
-                                        uint64_t* empty, unsigned char* ring) {
-  for (int c = 0; c < nk; ++c) {
-    sm90::mbar_wait(&empty[r.stage], r.phase ^ 1);
-    unsigned char* s = ring + r.stage * RING_STAGE;
-    sm90::mbar_expect_tx(&full[r.stage], nw * KSL * 2);
-    if (!mn) {
-      for (int h = 0; h < nw / 256; ++h)
-        sm90::tma_load_2d(s + h * 256 * KSL * 2, map, &full[r.stage],
-                          col0 + c * KSL, row0 + h * 256);
-    } else {
-      for (int nb = 0; nb < nw / 32; ++nb)
-        sm90::tma_load_2d(s + nb * 32 * KSL * 2, map, &full[r.stage],
-                          col0 + nb * 32, row0 + c * KSL);
-    }
-    r.advance();
-  }
-}
 
 // Producer: the ring stages of an epilogue's data, which it reads in
 // j-groups (j-group g: the 64 columns 64 g.. of each warpgroup's 256, the
@@ -306,105 +266,6 @@ __device__ __forceinline__ void produce_rev_data(const SweepMaps& maps,
                     RING_STAGE, &full[r.stage]);
     r.advance();
   }
-}
-
-// Consumers: release a ring stage, one arrival per warp.
-__device__ __forceinline__ void release(uint64_t* empty, uint32_t stage) {
-  __syncwarp();
-  if ((threadIdx.x & 31) == 0) sm90::mbar_arrive(&empty[stage]);
-}
-
-// K-major SW128 descriptor of k position kk (a multiple of 16) in a tile
-// of 64-column blocks
-__device__ __forceinline__ uint64_t a_desc(const unsigned char* tile,
-                                           int kk) {
-  return sm90::make_desc(tile + (kk >> 6) * ACT_BLOCK + ((kk & 63) >> 4) * 32,
-                         16, 1024, 1);
-}
-
-// Consumer: acc (+)= A . B over nk slices from the ring, this warpgroup's
-// NW columns.  A: the tile a0 for k < ka0, then a1 (each K-major SW128).
-// accumulate = false overwrites acc.  Returns with every product of both
-// warpgroups issued by this one complete; the caller syncs the consumers
-// before it rewrites A.
-template <int NW, int TB>
-__device__ __forceinline__ void consume(float (&acc)[NW / 2],
-                                        const unsigned char* a0, int ka0,
-                                        const unsigned char* a1, int nk,
-                                        bool accumulate, Ring& r,
-                                        uint64_t* full, uint64_t* empty,
-                                        const unsigned char* ring, int wg,
-                                        bool leader) {
-  uint32_t prev = 0;
-  for (int c = 0; c < nk; ++c) {
-    sm90::mbar_wait(&full[r.stage], r.phase);
-    const unsigned char* s = ring + r.stage * RING_STAGE;
-    sm90::wgmma_fence();
-#pragma unroll
-    for (int ks = 0; ks < 2; ++ks) {
-      const int kk = c * KSL + ks * 16;
-      const uint64_t da = kk < ka0 ? a_desc(a0, kk) : a_desc(a1, kk - ka0);
-      const uint64_t db =
-          TB == 0 ? sm90::make_desc(s + wg * NW * KSL * 2 + ks * 32, 16, 512,
-                                    2)
-                  : sm90::make_desc(s + wg * (NW / 32) * 2048 + ks * 1024,
-                                    2048, 512, 2);
-      const int sc = (accumulate || c > 0 || ks > 0) ? 1 : 0;
-      if constexpr (NW == 256)
-        sm90::wgmma_n256<0, TB>(acc, da, db, sc);
-      else
-        sm90::wgmma_n128<0, TB>(acc, da, db, sc);
-    }
-    sm90::wgmma_commit();
-    sm90::wgmma_wait<1>();
-    if (c > 0 && leader) sm90::mbar_arrive(&empty[prev]);
-    prev = r.stage;
-    r.advance();
-  }
-  sm90::wgmma_wait<0>();
-  sm90::fence_acc(acc);
-  if (leader) sm90::mbar_arrive(&empty[prev]);
-}
-
-// Write this warpgroup's accumulator columns (NW of them from colbase), as
-// bf16 of v(i) for accumulator i, into a K-major SW128 tile with stmatrix.
-template <int NW, class V>
-__device__ __forceinline__ void store_tile_sw(unsigned char* tile,
-                                              int colbase, V v) {
-  const int t = threadIdx.x & 127, w = t >> 5, l = t & 31;
-  const int mi = l >> 3;
-  const int row = w * 16 + (mi & 1) * 8 + (l & 7);
-#pragma unroll
-  for (int jj = 0; jj < NW / 16; ++jj) {
-    const int j = 2 * jj;
-    const int col = colbase + 8 * (j + (mi >> 1));
-    sm90::stmatrix_x4(tile + sm90::sw128_offset(row, col, ACT_BLOCK),
-                      sm90::pack_bf2(v(4 * j), v(4 * j + 1)),
-                      sm90::pack_bf2(v(4 * j + 2), v(4 * j + 3)),
-                      sm90::pack_bf2(v(4 * j + 4), v(4 * j + 5)),
-                      sm90::pack_bf2(v(4 * j + 6), v(4 * j + 7)));
-  }
-}
-
-// Consumers: hand the tile just written to the async proxy and store its
-// nb 64-column blocks to global rows row0.. of `map` from column col0.
-__device__ __forceinline__ void tile_to_global(const CUtensorMap* map,
-                                               const unsigned char* tile,
-                                               int nb, int col0, int row0,
-                                               bool issuer) {
-  sm90::fence_async_smem();
-  sm90::named_sync(BAR_C, NC);
-  if (issuer) {
-    for (int b = 0; b < nb; ++b)
-      sm90::tma_store_2d(map, tile + b * ACT_BLOCK, col0 + b * 64, row0);
-    sm90::bulk_commit();
-  }
-}
-
-// Consumers: wait until every TMA store has read its tile, then sync.
-__device__ __forceinline__ void tiles_free(bool issuer) {
-  if (issuer) sm90::bulk_wait_read<0>();
-  sm90::named_sync(BAR_C, NC);
 }
 
 // Column sums over the tile's rows: red holds [4 warps][NW] floats per

@@ -1,9 +1,9 @@
-// Shared machinery of the trunk kernels (trunk_sigma.cu, trunk_fwd_grad.cu,
-// trunk_bwd.cu and their fused-heads counterparts trunk_heads_fwd.cu and
-// trunk_heads_bwd.cu): one thread block of 8 warps takes a tile of 64
-// points through the whole 8x512 siren trunk, keeping the tile's current
-// activations in shared memory as bf16 and multiplying on the tensor cores
-// with mma.sync m16n8k16 (bf16 operands, f32 accumulation).
+// The trunk kernels' shared constants and activation (every csrc/trunk_*
+// source), and the machinery of K1 (trunk_sigma.cu): one thread block of 8
+// warps takes a tile of 64 points through the whole 8x512 siren trunk,
+// keeping the tile's current activations in shared memory as bf16 and
+// multiplying on the tensor cores with mma.sync m16n8k16 (bf16 operands,
+// f32 accumulation).  K2-K5 run on sm90_trunk.cuh instead.
 //
 // Layout of one layer product Z[64 x N] = A[64 x K] . B[K x N]:
 //   * A (activations) lives in shared memory, row-major, bf16;
@@ -156,18 +156,6 @@ __device__ __forceinline__ void load_x_tile(const float* __restrict__ x,
     __nv_bfloat162* d = reinterpret_cast<__nv_bfloat162*>(xs + r * SX + c);
     d[0] = __floats2bfloat162_rn(v.x, v.y);
     d[1] = __floats2bfloat162_rn(v.z, v.w);
-  }
-}
-
-// Copy a 64 x 512 bf16 tile from shared memory (row stride SA) to global
-// rows of stride ld elements: 16 bytes a thread, neighbouring threads on
-// neighbouring addresses.
-__device__ __forceinline__ void store_tile(const bf16* s, bf16* __restrict__ g,
-                                           size_t ld) {
-  for (int i = threadIdx.x; i < T * F / 8; i += NT) {
-    const int r = i / (F / 8), c = (i % (F / 8)) * 8;
-    *reinterpret_cast<uint4*>(g + r * ld + c) =
-        *reinterpret_cast<const uint4*>(s + r * SA + c);
   }
 }
 

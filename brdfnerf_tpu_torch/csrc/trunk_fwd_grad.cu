@@ -11,7 +11,9 @@
 // in all), against 512 bytes of input and about 1.5 KB of output (16 KB
 // more with zs/us).
 //
-// The kernel body, shared with K4, and its design are in trunk_fwd_grad.cuh.
+// The kernel body, shared with K4, and its design (a warp-specialised
+// persistent kernel on wgmma, fed through a TMA ring by a producer warp,
+// sm90_trunk.cuh) are in trunk_fwd_grad.cuh.
 
 #include "trunk_fwd_grad.cuh"
 
@@ -50,3 +52,6 @@ extern "C" int trunk_fwd_grad_launch(
   p.skip = skip;
   return launch_fwd<false>(p, n_rows, n_blocks, stream);
 }
+
+// The dynamic shared memory a block of the kernel takes (for the tools).
+extern "C" int trunk_fwd_grad_smem() { return fwd_smem<false>(); }

@@ -3,41 +3,116 @@
 // features) and K4 (trunk_heads_fwd.cu: the same trunk and chain, then the
 // flagship head block on the tile's features, returning packed logits).
 //
-// Design (trunk_common.cuh): 8 warps per 64-point tile, activations in
-// shared memory as bf16, weights staged from L2, mma.sync with f32
-// accumulators; both operands of every product are bf16, as in the Pallas
-// kernels' _mm.  The reverse chain needs act'(z_l) of every layer; 8 layers
-// of a 64 x 512 tile do not fit in shared memory, so the forward writes
-// act'(z_l) (f32) to a global scratch buffer owned by the block and the
-// reverse chain reads it back.  K2 keeps the last layer's pre-activations
-// in registers across the sigma head and recomputes act'(z_{L-1}) from
-// them; K4 needs those registers for the head products, so it writes
-// act'(z_{L-1}) to one more scratch slot.  The grid is persistent (one
-// block per SM), which bounds the scratch to L x 128 KB per SM.  Each
-// thread reads back exactly the elements it wrote, in a coalesced
-// per-thread layout.  There is no reduction across blocks: the result is
-// deterministic.
+// Math (ops/fused_trunk_vjp.py): z_l = h_{l-1} W_l^T + b_l, h_l = act(z_l);
+// zsig = h_{L-1} . w_sigma + b, sigma = softplus(zsig); the chain is seeded
+// with u_{L-1} = softplus'(zsig) w_sigma and runs g_l = act'(z_l) u_l,
+// u_{l-1} = g_l W_l (the skip layer also sends g W_top to gx), gx += g_0 W_0.
+// Rounding points are the Pallas kernels': every product on bf16 operands
+// with f32 sums, act'(z) kept in f32 (pallas_trunk_vjp.py:185-186).
+//
+// What bounds it on the H100: tensor-core operations (K2 7.59 MFLOP a point
+// against ~1.5 KB of traffic; 5.0 ms at the serving chunk's 655,360 points).
+// What holds it back is the same as in K3's sweep: per 64-point tile it
+// streams the trunk's 3.9 MB of bf16 weights from L2 twice (forward and
+// reverse), and it moves act'(z) of 7 layers (14.3 KB a point) through a
+// per-block f32 scratch in device memory, because 8 layers of a 64 x 512
+// tile do not fit on chip.
+//
+// Design (sm90_trunk.cuh, as K3's sweep, trunk_bwd.cuh): a persistent grid,
+// one 64-point tile at a time per block of three warpgroups.  A producer
+// warp streams through one ring of four 32 KB stages, in the order the
+// consumers take them, the tile's x (f32, one bulk copy) and every weight
+// slice of the tile's products (K-major boxes for z = h W^T, MN-major boxes
+// for u = g W), running ahead across epilogues and tiles.  Two consumer
+// warpgroups each own 256 of the 512 output columns of every trunk product
+// (wgmma m64n256k16, 128 f32 accumulators a thread; the gx products, 128
+// columns, m64n64 each) and read A from one 64 x 512 activation tile kept
+// K-major with the 128-byte swizzle; the x tile sits beside it as bf16 for
+// layer 0 and the skip layer's [x | h].  The epilogues write h and g into
+// the tile.  act'(z) goes to the scratch as float4s in the accumulator
+// layout (a warp writes 512 contiguous bytes) and comes back to the thread
+// that wrote it, straight into registers, in batches issued one ahead of
+// their use, the first while the product before the epilogue runs: the
+// ring then carries weights only, and no barrier is needed (a thread reads
+// its own writes).  zs, us and the bf16 feats leave by TMA stores of the
+// tile before the epilogue overwrites it; gx leaves from the accumulators
+// at the padded width 128 (its padded lanes are exactly 0: the padded
+// columns of w0 and of wskip's top are zero).
+//
+// K2 keeps the last layer's pre-activations in registers across the sigma
+// head and recomputes act'(z_{L-1}) from them; K4 needs the registers for
+// the head products (xf = h W_f^T + b_f as one more n256 product per
+// warpgroup, then the four 256-column first head layers as n128 products,
+// each followed by its activation and, for the 3-column second layers, row
+// reductions), so it puts act'(z_{L-1}) in one more scratch slot.  The
+// trunk and the chain are one body for both, so K4 gives K2's sigma and gx
+// bit for bit.  Row sums (sigma, the logits) add the two warpgroups'
+// halves in a fixed order: there is no reduction across blocks, and the
+// result is deterministic.
 //
 // With ZS (the training instantiations) the kernel also saves, per point and
-// layer, the pre-activation z_l and the chain state u_l (the value the
-// reverse chain meets at layer l, before the act' multiply) in bf16: each
-// tile of them goes through the weight-stage ring, which is idle between
-// two products, and leaves in 16-byte stores of whole rows.  The serving
-// instantiations (ZS = false) have none of that code.
-//
-// gx leaves at the padded width 128; its padded lanes are exactly 0
-// because the padded columns of w0 and the top of wskip are zero.
+// layer, z_l and the chain state u_l (before the act' multiply) in bf16,
+// the residuals K3/K5 read.  The serving instantiations have none of that.
 
 #pragma once
 
-#include "trunk_common.cuh"
+#include "sm90_trunk.cuh"
 
 namespace trunk {
 
-// K4's shared memory: K2's carve-up, then the row partials of the 7 head
-// columns (sigma, rgb x3, k, theta, rhoc) of each warp
-constexpr int OFF_HRED = SMEM_BYTES;
-constexpr int SMEM_HEADS = OFF_HRED + 7 * 8 * T * 4;
+// The act'(z) scratch: each consumer thread writes its accumulators' act'
+// and reads them back itself, once, so both go streaming (evict-first):
+// ~1 MB a tile and block that L2 need not keep.  Measurement builds (never
+// built by the package; tools/fwd_variants.py): FWD_NO_SCRATCH writes
+// nothing and reads a constant, FWD_NO_SCRATCH_HINTS uses plain loads and
+// stores.
+__device__ __forceinline__ void scratch_st(float4* p, float4 v) {
+#if defined(FWD_NO_SCRATCH)
+#elif defined(FWD_NO_SCRATCH_HINTS)
+  *p = v;
+#else
+  __stcs(p, v);
+#endif
+}
+
+__device__ __forceinline__ float4 scratch_ld(const float4* p) {
+#if defined(FWD_NO_SCRATCH)
+  return make_float4(0.5f, 0.5f, 0.5f, 0.5f);
+#elif defined(FWD_NO_SCRATCH_HINTS)
+  return *p;
+#else
+  return __ldcs(p);
+#endif
+}
+
+// Producer: one product's weight slices (sm90_trunk.cuh produce).
+// Measurement builds (never built by the package; tools/fwd_variants.py):
+// FWD_NO_WEIGHT_LOADS loads no slice, FWD_HALF_WEIGHT_LOADS every other one
+// (the weight stream a point would pay in a 128-point block); a stage left
+// unloaded completes empty and the products multiply whatever the ring
+// holds, so that the time the weight stream from L2 costs can be read off.
+__device__ __forceinline__ void produce_w(const CUtensorMap* map, bool mn,
+                                          int nk, int row0, int col0, int nw,
+                                          Ring& r, uint64_t* full,
+                                          uint64_t* empty,
+                                          unsigned char* ring) {
+#if defined(FWD_NO_WEIGHT_LOADS) || defined(FWD_HALF_WEIGHT_LOADS)
+  for (int c = 0; c < nk; ++c) {
+#ifdef FWD_HALF_WEIGHT_LOADS
+    if (c % 2 == 0) {
+      produce(map, mn, 1, mn ? row0 + c * KSL : row0,
+              mn ? col0 : col0 + c * KSL, nw, r, full, empty, ring);
+      continue;
+    }
+#endif
+    sm90::mbar_wait(&empty[r.stage], r.phase ^ 1);
+    sm90::mbar_arrive(&full[r.stage]);
+    r.advance();
+  }
+#else
+  produce(map, mn, nk, row0, col0, nw, r, full, empty, ring);
+#endif
+}
 
 struct FwdArgs {
   const float* x;
@@ -76,368 +151,484 @@ struct FwdArgs {
   int layers, skip;
 };
 
+// The tensor maps: the weights as K-major boxes (256 n rows x 32 k) and
+// MN-major boxes (32 k rows x 32 n), SW64; zs, us and the bf16 feats as
+// boxes of 64 rows x 64 columns, SW128, stored from the activation tile.
+struct FwdMaps {
+  CUtensorMap w0k, wmidk, wskipk, w0m, wmidm, wskipm;
+  CUtensorMap zs, us, feats;
+  CUtensorMap wfk, w1rk, w1pk;   // K4
+};
+
+// shared memory: the activation tile (64 x 512, 8 SW128 blocks), the x tile
+// (64 x 128 bf16, 2 blocks), the ring, barriers, then per-row vectors: the
+// sigma head's warpgroup halves, softplus'(zsig), and K4's 6 logits'
+// warpgroup halves
+constexpr int FS_ACT = 0;
+constexpr int FS_X = FS_ACT + 8 * ACT_BLOCK;
+constexpr int FS_RING = FS_X + 2 * ACT_BLOCK;
+constexpr int FS_BAR = FS_RING + RING_N * RING_STAGE;
+constexpr int FS_ROWS = FS_BAR + 128;
+template <bool HEADS>
+__host__ __device__ constexpr int fwd_smem() {
+  return FS_ROWS + 3 * T * 4 + (HEADS ? 6 * 2 * T * 4 : 0);
+}
+static_assert(fwd_smem<true>() <= 232448, "K4's shared memory");
+
+// Write v4 (accumulators 4j..4j+3: rows r0, r0 + 8, columns col, col + 1)
+// as bf16 into the activation tile.
+__device__ __forceinline__ void put4(unsigned char* act, int r0, int col,
+                                     const float (&v4)[4]) {
+  *reinterpret_cast<uint32_t*>(act + sm90::sw128_offset(r0, col, ACT_BLOCK)) =
+      sm90::pack_bf2(v4[0], v4[1]);
+  *reinterpret_cast<uint32_t*>(
+      act + sm90::sw128_offset(r0 + 8, col, ACT_BLOCK)) =
+      sm90::pack_bf2(v4[2], v4[3]);
+}
+
+// Sum a row partial over the 4 lanes that share the row.
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  v += __shfl_xor_sync(0xffffffffu, v, 2);
+  return v;
+}
+
+// The act'(z) of one layer that a consumer thread reads back from its
+// scratch slot dl: accumulators 4j..4j+3 in d[j], loaded in batches of SB
+// float4, each batch issued one batch ahead of its use (the first before
+// the product that precedes the epilogue), so that device memory's latency
+// hides behind the product and the epilogue.
+constexpr int SB = 8;
+
+__device__ __forceinline__ void scratch_batch(float4 (&d)[SB],
+                                              const float4* dl, int b) {
+#pragma unroll
+  for (int jj = 0; jj < SB; ++jj) d[jj] = scratch_ld(dl + (SB * b + jj) * NC);
+}
+
+// g = act'(z) u into the activation tile for the 128 accumulators of u in
+// acc, act'(z) from the thread's scratch slot dl, whose first batch is in
+// dn; acc keeps u.
+__device__ __forceinline__ void g_from_scratch(const float (&acc)[128],
+                                               float4 (&dn)[SB],
+                                               const float4* dl,
+                                               unsigned char* act, int r0,
+                                               int cb) {
+#pragma unroll
+  for (int b = 0; b < 32 / SB; ++b) {
+    float4 d[SB];
+#pragma unroll
+    for (int jj = 0; jj < SB; ++jj) d[jj] = dn[jj];
+    if (b < 32 / SB - 1) scratch_batch(dn, dl, b + 1);
+#pragma unroll
+    for (int jj = 0; jj < SB; ++jj) {
+      const int j = SB * b + jj;
+      const float g4[4] = {d[jj].x * acc[4 * j], d[jj].y * acc[4 * j + 1],
+                           d[jj].z * acc[4 * j + 2], d[jj].w * acc[4 * j + 3]};
+      put4(act, r0, cb + 8 * j, g4);
+    }
+  }
+}
+
+// gx columns of this warpgroup (64 of 128) from the n64 accumulators: set
+// (add = false) or add to what the tile's skip layer wrote.
+__device__ __forceinline__ void gx_out(const float (&c)[32], float* gx,
+                                       size_t row0, int r0, int wg, int l,
+                                       bool add) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      float2* o = reinterpret_cast<float2*>(
+          gx + (row0 + r0 + 8 * hf) * EP + wg * 64 + 8 * j + 2 * (l & 3));
+      float2 v = make_float2(c[4 * j + 2 * hf], c[4 * j + 2 * hf + 1]);
+      if (add) {
+        const float2 w = *o;
+        v = make_float2(w.x + v.x, w.y + v.y);
+      }
+      *o = v;
+    }
+}
+
 template <bool ZS, bool HEADS>
-__global__ void __launch_bounds__(NT, 1)
-    trunk_fwd_grad_kernel(const FwdArgs p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* act = reinterpret_cast<bf16*>(smem + OFF_ACT);
-  bf16* xs = reinterpret_cast<bf16*>(smem + OFF_X);
-  bf16* stage = reinterpret_cast<bf16*>(smem + OFF_W);
-  float* red = reinterpret_cast<float*>(smem + OFF_RED);
-  float* rowv = reinterpret_cast<float*>(smem + OFF_ROW);
+__global__ void __launch_bounds__(NTB, 1)
+    trunk_fwd_grad_kernel(const __grid_constant__ FwdMaps maps,
+                          const FwdArgs p) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  unsigned char* act = smem + FS_ACT;
+  unsigned char* xs = smem + FS_X;
+  unsigned char* ring = smem + FS_RING;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + FS_BAR);
+  uint64_t* empty = full + RING_N;
+  float* rz = reinterpret_cast<float*>(smem + FS_ROWS);   // [2 wg][64 rows]
+  float* rowv = rz + 2 * T;                               // softplus'(zsig)
+  float* hred = rowv + T;                     // K4: [6 logits][2 wg][64]
+  const int layers = p.layers, skip = p.skip, last = layers - 1;
   const int tid = threadIdx.x;
-  const int layers = p.layers, skip = p.skip;
-  const float* __restrict__ wsig = p.wsig;
-  // act'(z) of layers 0..L-2 (K4: 0..L-1): element j of thread tid of
-  // layer l at d1s[(l * ACC + j) * NT + tid]
+  // act'(z) of layers 0..L-2 (K4: 0..L-1): accumulators 4j..4j+3 of
+  // consumer thread c of layer s as the float4 (s * 32 + j) * NC + c of
+  // slot_base, so that a warp writes 512 contiguous bytes
   const int slots = HEADS ? layers : layers - 1;
-  float* d1s = p.scratch + (size_t)blockIdx.x * slots * ACC * NT;
-  const int last = layers - 1;
-  // zs/us rows hold layers x 512 values; a tile of one layer is staged at
-  // row stride SA in the (idle) weight-stage ring
-  const size_t ld = (size_t)layers * F;
-  bf16* zst = stage;
+  float* slot_base = p.scratch + (size_t)blockIdx.x * slots * 128 * NC;
+
+  if (tid == 0) {
+    for (int s = 0; s < RING_N; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 8);     // one arrival per consumer warp
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= NC) {
+    // ------------------------------------------------------- producer
+    sm90::setmaxnreg_dec<40>();
+    if (tid != NC) return;
+    Ring r = {0, 0};
+    for (int tile = blockIdx.x; tile < p.n_tiles; tile += gridDim.x) {
+      const int row0 = tile * T;
+      produce_copy(p.x + (size_t)row0 * EP, r, full, empty, ring);
+      for (int i = 0; i < layers; ++i) {
+        if (i == 0)
+          produce_w(&maps.w0k, false, EP / KSL, 0, 0, F, r, full, empty,
+                    ring);
+        else if (i == skip)
+          produce_w(&maps.wskipk, false, (EP + F) / KSL, 0, 0, F, r, full,
+                  empty, ring);
+        else
+          produce_w(&maps.wmidk, false, F / KSL,
+                  (i < skip ? i - 1 : i - 2) * F, 0, F, r, full, empty,
+                  ring);
+      }
+      if constexpr (HEADS) {
+        produce_w(&maps.wfk, false, F / KSL, 0, 0, F, r, full, empty, ring);
+        for (int q = 0; q < 4; ++q)
+          produce_w(q == 0 ? &maps.w1rk : &maps.w1pk, false, F / KSL,
+                  q == 0 ? 0 : (q - 1) * HID, 0, HID, r, full, empty, ring);
+      }
+      for (int i = last; i >= 1; --i) {
+        if (i == skip) {
+          produce_w(&maps.wskipm, true, F / KSL, 0, 0, EP, r, full, empty,
+                  ring);
+          produce_w(&maps.wskipm, true, F / KSL, 0, EP, F, r, full, empty,
+                  ring);
+        } else {
+          produce_w(&maps.wmidm, true, F / KSL,
+                  (i < skip ? i - 1 : i - 2) * F, 0, F, r, full, empty,
+                  ring);
+        }
+      }
+      produce_w(&maps.w0m, true, F / KSL, 0, 0, EP, r, full, empty, ring);
+    }
+    return;
+  }
+
+  // --------------------------------------------------------- consumers
+  sm90::setmaxnreg_inc<232>();
+  const int wg = tid >> 7, t = tid & 127, w = t >> 5, l = t & 31;
+  const bool leader = l == 0, issuer = tid == 0;
+  const int r0 = w * 16 + (l >> 2);          // rows r0 and r0 + 8
+  const int cb = wg * 256 + 2 * (l & 3);     // column of j = 0, e = 0
+  const float* __restrict__ wsig = p.wsig;
+  float4* dsc = reinterpret_cast<float4*>(slot_base) + tid;
+  Ring r = {0, 0};
+  float acc[128];
 
   for (int tile = blockIdx.x; tile < p.n_tiles; tile += gridDim.x) {
-    const size_t row0 = (size_t)tile * T;
-    load_x_tile(p.x + row0 * EP, xs);
-    float acc[MT][8][4];
-
-    // ---------------------------------------------------------- forward
-    for (int i = 0; i < last; ++i) {
-      forward_layer(acc, i, skip, xs, act, p.w0, p.wmid, p.wskip, stage);
-      const float* b = layer_bias(i, skip, p.b0, p.bmid, p.bskip);
-      const float w0s = i == 0 ? 30.f : 1.f;
-      float* d1l = d1s + (size_t)i * ACC * NT + tid;
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int nf = 0; nf < 8; ++nf)
-#pragma unroll
-          for (int hf = 0; hf < 2; ++hf) {
-            int row, col;
-            acc_pos<8>(mt, nf, 2 * hf, row, col);
-            float h0, h1, d0, d1;
-            const float z0 = acc[mt][nf][2 * hf] + b[col];
-            const float z1 = acc[mt][nf][2 * hf + 1] + b[col + 1];
-            act_eval(z0, w0s, h0, d0);
-            act_eval(z1, w0s, h1, d1);
-            *reinterpret_cast<__nv_bfloat162*>(act + row * SA + col) =
-                __floats2bfloat162_rn(h0, h1);
-            if (ZS)
-              *reinterpret_cast<__nv_bfloat162*>(zst + row * SA + col) =
-                  __floats2bfloat162_rn(z0, z1);
-            const int j = (mt * 8 + nf) * 4 + 2 * hf;
-            d1l[j * NT] = d0;
-            d1l[(j + 1) * NT] = d1;
-          }
-      if (ZS) {
-        __syncthreads();
-        store_tile(zst, p.zs + row0 * ld + (size_t)i * F, ld);
-        __syncthreads();   // the next product restages the ring
-      }
-    }
-    forward_layer(acc, last, skip, xs, act, p.w0, p.wmid, p.wskip, stage);
+    const int row0 = tile * T;
+    const size_t grow0 = (size_t)row0;
+    // x (f32, from the ring) into the x tile as bf16
+    sm90::mbar_wait(&full[r.stage], r.phase);
     {
-      const float* b = layer_bias(last, skip, p.b0, p.bmid, p.bskip);
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int nf = 0; nf < 8; ++nf)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            int row, col;
-            acc_pos<8>(mt, nf, e, row, col);
-            acc[mt][nf][e] += b[col];
-            if (ZS) zst[row * SA + col] = __float2bfloat16_rn(acc[mt][nf][e]);
-          }
-      if (ZS) {
-        __syncthreads();
-        store_tile(zst, p.zs + row0 * ld + (size_t)last * F, ld);
+      const float4* x4 =
+          reinterpret_cast<const float4*>(ring + r.stage * RING_STAGE);
+      for (int i = tid; i < T * EP / 4; i += NC) {
+        const int rr = (i * 4) / EP, c = (i * 4) % EP;
+        const float4 v = x4[i];
+        *reinterpret_cast<uint2*>(xs + sm90::sw128_offset(rr, c, ACT_BLOCK)) =
+            make_uint2(sm90::pack_bf2(v.x, v.y), sm90::pack_bf2(v.z, v.w));
       }
     }
+    release(empty, r.stage);
+    r.advance();
+    sm90::fence_async_smem();
+    tiles_free(issuer);                        // xs written, act's stores read
 
-    if constexpr (!HEADS) {
-      // ----------------------------------- features and the sigma head
-      float part[MT][2];
+    // ----------------------------------------------------------- forward
+    for (int i = 0; i < layers; ++i) {
+      if (i == 0)
+        consume<256, 0>(acc, xs, EP, xs, EP / KSL, false, r, full, empty,
+                        ring, wg, leader);
+      else if (i == skip)
+        consume<256, 0>(acc, xs, EP, act, (EP + F) / KSL, false, r, full,
+                        empty, ring, wg, leader);
+      else
+        consume<256, 0>(acc, act, F, act, F / KSL, false, r, full, empty,
+                        ring, wg, leader);
+      tiles_free(issuer);                      // both products read act
+      const float* __restrict__ b = layer_bias(i, skip, p.b0, p.bmid,
+                                               p.bskip);
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt) part[mt][0] = part[mt][1] = 0.f;
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int nf = 0; nf < 8; ++nf)
-#pragma unroll
-          for (int hf = 0; hf < 2; ++hf) {
-            int row, col;
-            acc_pos<8>(mt, nf, 2 * hf, row, col);
-            float h0, h1, d;
-            act_eval(acc[mt][nf][2 * hf], 1.f, h0, d);
-            act_eval(acc[mt][nf][2 * hf + 1], 1.f, h1, d);
-            const size_t o = (row0 + row) * F + col;
-            if (p.feats_bf16)
-              *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(p.feats) +
-                                                 o) =
-                  __floats2bfloat162_rn(h0, h1);
-            else
-              *reinterpret_cast<float2*>(static_cast<float*>(p.feats) + o) =
-                  make_float2(h0, h1);
-            part[mt][hf] += bf16_round(h0) * wsig[col] +
-                            bf16_round(h1) * wsig[col + 1];
-          }
-      const float s = sigma_rows(part, red);
-      if (tid < T) {
-        const float z = s + p.bsig[0];
-        p.sigma[row0 + tid] = softplus(z);
-        rowv[tid] = bf16_round(1.f / (1.f + expf(-z)));   // softplus'(z)
+      for (int j = 0; j < 32; ++j) {
+        const float2 bb = *reinterpret_cast<const float2*>(b + cb + 8 * j);
+        acc[4 * j] += bb.x;
+        acc[4 * j + 1] += bb.y;
+        acc[4 * j + 2] += bb.x;
+        acc[4 * j + 3] += bb.y;
       }
-      __syncthreads();
-
-      // -------------- reverse chain, seeded g_{L-1} = act' * sig' * wsig
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int nf = 0; nf < 8; ++nf)
-#pragma unroll
-          for (int hf = 0; hf < 2; ++hf) {
-            int row, col;
-            acc_pos<8>(mt, nf, 2 * hf, row, col);
-            float h, d0, d1;
-            act_eval(acc[mt][nf][2 * hf], 1.f, h, d0);
-            act_eval(acc[mt][nf][2 * hf + 1], 1.f, h, d1);
-            const float u = rowv[row];
-            const float u0 = u * wsig[col], u1 = u * wsig[col + 1];
-            *reinterpret_cast<__nv_bfloat162*>(act + row * SA + col) =
-                __floats2bfloat162_rn(d0 * u0, d1 * u1);
-            if (ZS)
-              *reinterpret_cast<__nv_bfloat162*>(zst + row * SA + col) =
-                  __floats2bfloat162_rn(u0, u1);
-          }
-    } else {
-      // ------------------------------- the last layer and the sigma head
-      float* hred = reinterpret_cast<float*>(smem + OFF_HRED);
-      float* d1l = d1s + (size_t)last * ACC * NT + tid;
-      {
-        float part[MT][2];
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) part[mt][0] = part[mt][1] = 0.f;
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-          for (int nf = 0; nf < 8; ++nf)
-#pragma unroll
-            for (int hf = 0; hf < 2; ++hf) {
-              int row, col;
-              acc_pos<8>(mt, nf, 2 * hf, row, col);
-              float h0, h1, d0, d1;
-              act_eval(acc[mt][nf][2 * hf], 1.f, h0, d0);
-              act_eval(acc[mt][nf][2 * hf + 1], 1.f, h1, d1);
-              *reinterpret_cast<__nv_bfloat162*>(act + row * SA + col) =
-                  __floats2bfloat162_rn(h0, h1);
-              const int j = (mt * 8 + nf) * 4 + 2 * hf;
-              d1l[j * NT] = d0;
-              d1l[(j + 1) * NT] = d1;
-              part[mt][hf] += bf16_round(h0) * wsig[col] +
-                              bf16_round(h1) * wsig[col + 1];
-            }
-        quad_rows(part, hred);
+      if (ZS) {
+        store_tile_sw<256>(act, wg * 256, [&](int k) { return acc[k]; });
+        tile_to_global(&maps.zs, act, 8, i * F, row0, issuer);
+        tiles_free(issuer);
       }
-      __syncthreads();   // h is published; the zs store is done with the ring
+      if (i == last) break;
+      const float w0s = i == 0 ? 30.f : 1.f;
+      float4* dl = dsc + (size_t)i * 32 * NC;
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        float h4[4], d4[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          act_eval(acc[4 * j + e], w0s, h4[e], d4[e]);
+        scratch_st(dl + j * NC, make_float4(d4[0], d4[1], d4[2], d4[3]));
+        put4(act, r0, cb + 8 * j, h4);
+      }
+      sm90::fence_async_smem();
+      sm90::named_sync(BAR_C, NC);             // h is the next product's A
+    }
 
-      // ------------------------------------------ xf = h W_f^T + b_f
-      zero<8>(acc);
-      gemm<8, false>(acc, act, SA, F, nullptr, 0, 0, p.wf, F, 0, stage);
+    // ------------------------ the last layer's h and the sigma head; acc
+    // holds z_{L-1}
+    {
+      float pz[2] = {0.f, 0.f};
+      float4* dl = dsc + (size_t)last * 32 * NC;
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
+      for (int j = 0; j < 32; ++j) {
+        float h4[4], d4[4];
 #pragma unroll
-        for (int nf = 0; nf < 8; ++nf)
+        for (int e = 0; e < 4; ++e) {
+          act_eval(acc[4 * j + e], 1.f, h4[e], d4[e]);
+          pz[e >> 1] += bf16_round(h4[e]) * wsig[cb + 8 * j + (e & 1)];
+        }
+        if (HEADS)
+          scratch_st(dl + j * NC, make_float4(d4[0], d4[1], d4[2], d4[3]));
+        if (!HEADS && !p.feats_bf16) {
 #pragma unroll
-          for (int hf = 0; hf < 2; ++hf) {
-            int row, col;
-            acc_pos<8>(mt, nf, 2 * hf, row, col);
-            *reinterpret_cast<__nv_bfloat162*>(act + row * SA + col) =
-                __floats2bfloat162_rn(acc[mt][nf][2 * hf] + p.bf[col],
-                                      acc[mt][nf][2 * hf + 1] + p.bf[col + 1]);
-          }
+          for (int hf = 0; hf < 2; ++hf)
+            *reinterpret_cast<float2*>(
+                static_cast<float*>(p.feats) +
+                (grow0 + r0 + 8 * hf) * F + cb + 8 * j) =
+                make_float2(h4[2 * hf], h4[2 * hf + 1]);
+        } else {
+          put4(act, r0, cb + 8 * j, h4);
+        }
+      }
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const float v = quad_sum(pz[hf]);
+        if ((l & 3) == 0) rz[wg * T + r0 + 8 * hf] = v;
+      }
+    }
+    if (!HEADS && p.feats_bf16)
+      tile_to_global(&maps.feats, act, 8, 0, row0, issuer);
+    else
+      sm90::fence_async_smem();
+    sm90::named_sync(BAR_C, NC);               // rz, and h in act
+    float sp = 0.f;                            // softplus(zsig), tid < 64
+    if (tid < T) {
+      const float z = (rz[tid] + rz[T + tid]) + p.bsig[0];
+      sp = softplus(z);
+      if (!HEADS) p.sigma[grow0 + tid] = sp;
+      rowv[tid] = bf16_round(1.f / (1.f + expf(-z)));   // softplus'(zsig)
+    }
+
+    if constexpr (HEADS) {
+      // ---------------------------------------------- xf = h W_f^T + b_f
+      consume<256, 0>(acc, act, F, act, F / KSL, false, r, full, empty, ring,
+                      wg, leader);
+      tiles_free(issuer);
+      const float* __restrict__ bfv = p.bf;
+      store_tile_sw<256>(act, wg * 256, [&](int k) {
+        return acc[k] + bfv[cb + 8 * (k >> 2) + (k & 1)];
+      });
+      sm90::fence_async_smem();
+      sm90::named_sync(BAR_C, NC);
 
       // ------ the rgb head (q = 0) and the three RPV heads (q = 1..3):
       // hidden = act(xf W_1^T + b_1) in 256-column passes; each logit is a
       // row reduction of bf16(hidden) against its second-layer row
+      float (&a64)[64] = *reinterpret_cast<float(*)[64]>(acc);
+      const int cq = wg * 128 + 2 * (l & 3);   // column of j = 0 in a pass
 #pragma unroll 1
       for (int q = 0; q < 4; ++q) {
-        const bf16* w1 = q == 0 ? p.w1r : p.w1p;
-        const float* b1 = q == 0 ? p.b1r : p.b1p + (q - 1) * HID;
-        float a[MT][4][4];
-        zero<4>(a);
-        gemm<4, false>(a, act, SA, F, nullptr, 0, 0, w1, F,
-                       q == 0 ? 0 : (q - 1) * HID, stage);
-        float pr[3][MT][2];
+        consume<128, 0>(a64, act, F, act, F / KSL, false, r, full, empty,
+                        ring, wg, leader);
+        const float* __restrict__ b1 = q == 0 ? p.b1r : p.b1p + (q - 1) * HID;
+        float pr[3][2] = {{0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = cq + 8 * j + (e & 1);
+            float h, d;
+            act_eval(a64[4 * j + e] + b1[col], 1.f, h, d);
+            const float hb = bf16_round(h);
+            if (q == 0) {
+#pragma unroll
+              for (int c = 0; c < 3; ++c)
+                pr[c][e >> 1] += hb * __bfloat162float(p.w2r[c * HID + col]);
+            } else {
+              pr[0][e >> 1] += hb * __bfloat162float(
+                                        p.w2p[(q - 1) * 3 * HID +
+                                              (q - 1) * HID + col]);
+            }
+          }
 #pragma unroll
         for (int c = 0; c < 3; ++c)
 #pragma unroll
-          for (int mt = 0; mt < MT; ++mt) pr[c][mt][0] = pr[c][mt][1] = 0.f;
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-          for (int nf = 0; nf < 4; ++nf)
-#pragma unroll
-            for (int hf = 0; hf < 2; ++hf) {
-              int row, col;
-              acc_pos<4>(mt, nf, 2 * hf, row, col);
-              float h0, h1, d;
-              act_eval(a[mt][nf][2 * hf] + b1[col], 1.f, h0, d);
-              act_eval(a[mt][nf][2 * hf + 1] + b1[col + 1], 1.f, h1, d);
-              const float hb0 = bf16_round(h0), hb1 = bf16_round(h1);
-              if (q == 0) {
-#pragma unroll
-                for (int c = 0; c < 3; ++c)
-                  pr[c][mt][hf] +=
-                      hb0 * __bfloat162float(p.w2r[c * HID + col]) +
-                      hb1 * __bfloat162float(p.w2r[c * HID + col + 1]);
-              } else {
-                const bf16* w2 = p.w2p + (q - 1) * 3 * HID + (q - 1) * HID;
-                pr[0][mt][hf] += hb0 * __bfloat162float(w2[col]) +
-                                 hb1 * __bfloat162float(w2[col + 1]);
-              }
-            }
-        if (q == 0) {
-#pragma unroll
-          for (int c = 0; c < 3; ++c) quad_rows(pr[c], hred + (1 + c) * 8 * T);
-        } else {
-          quad_rows(pr[0], hred + (3 + q) * 8 * T);
-        }
-      }
-      __syncthreads();
-      if (tid < T) {
-        float s[7];
-#pragma unroll
-        for (int c = 0; c < 7; ++c) {
-          s[c] = 0.f;
-          for (int w = 0; w < 8; ++w) s[c] += hred[(c * 8 + w) * T + tid];
-        }
-        const float z = s[0] + p.bsig[0];
-        float4* o = reinterpret_cast<float4*>(p.out + (row0 + tid) * HEAD_COLS);
-        o[0] = make_float4(softplus(z), s[1] + p.b2r[0], s[2] + p.b2r[1],
-                           s[3] + p.b2r[2]);
-        o[1] = make_float4(s[4] + p.b2p[0], s[5] + p.b2p[1], s[6] + p.b2p[2],
-                           0.f);
-        rowv[tid] = bf16_round(1.f / (1.f + expf(-z)));   // softplus'(z)
-      }
-      __syncthreads();
-
-      // -------------- reverse chain, seeded g_{L-1} = act' * sig' * wsig
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int nf = 0; nf < 8; ++nf)
-#pragma unroll
           for (int hf = 0; hf < 2; ++hf) {
-            int row, col;
-            acc_pos<8>(mt, nf, 2 * hf, row, col);
-            const int j = (mt * 8 + nf) * 4 + 2 * hf;
-            const float d0 = d1l[j * NT], d1 = d1l[(j + 1) * NT];
-            const float u = rowv[row];
-            const float u0 = u * wsig[col], u1 = u * wsig[col + 1];
-            *reinterpret_cast<__nv_bfloat162*>(act + row * SA + col) =
-                __floats2bfloat162_rn(d0 * u0, d1 * u1);
-            if (ZS)
-              *reinterpret_cast<__nv_bfloat162*>(zst + row * SA + col) =
-                  __floats2bfloat162_rn(u0, u1);
+            if (q > 0 && c > 0) continue;
+            const float v = quad_sum(pr[c][hf]);
+            if ((l & 3) == 0)
+              hred[((q == 0 ? c : 2 + q) * 2 + wg) * T + r0 + 8 * hf] = v;
           }
+      }
+      // act'(z_{L-1}) for the chain's seed below
+      float4 dn[SB];
+      const float4* dl = dsc + (size_t)last * 32 * NC;
+      scratch_batch(dn, dl, 0);
+      tiles_free(issuer);                      // hred; act (xf) read
+      if (tid < T) {
+        float s[6];
+#pragma unroll
+        for (int c = 0; c < 6; ++c)
+          s[c] = hred[(c * 2) * T + tid] + hred[(c * 2 + 1) * T + tid];
+        float4* o = reinterpret_cast<float4*>(p.out + (grow0 + tid) *
+                                                          HEAD_COLS);
+        o[0] = make_float4(sp, s[0] + p.b2r[0], s[1] + p.b2r[1],
+                           s[2] + p.b2r[2]);
+        o[1] = make_float4(s[3] + p.b2p[0], s[4] + p.b2p[1], s[5] + p.b2p[2],
+                           0.f);
+      }
+      // ------ the chain's seed: g_{L-1} = act'(z_{L-1}) u, with act' from
+      // the scratch
+#pragma unroll
+      for (int k = 0; k < 128; ++k)
+        acc[k] = rowv[r0 + 8 * ((k >> 1) & 1)] *
+                 wsig[cb + 8 * (k >> 2) + (k & 1)];
+      if (ZS) {
+        store_tile_sw<256>(act, wg * 256, [&](int k) { return acc[k]; });
+        tile_to_global(&maps.us, act, 8, last * F, row0, issuer);
+        tiles_free(issuer);
+      }
+      g_from_scratch(acc, dn, dl, act, r0, cb);
+    } else {
+      // ------ the chain's seed: g_{L-1} = act'(z_{L-1}) u, act' recomputed
+      // from z_{L-1} in acc
+      tiles_free(issuer);                      // rowv; the feats stores read
+      auto u_of = [&](int k) {
+        return rowv[r0 + 8 * ((k >> 1) & 1)] *
+               wsig[cb + 8 * (k >> 2) + (k & 1)];
+      };
+      if (ZS) {
+        store_tile_sw<256>(act, wg * 256, u_of);
+        tile_to_global(&maps.us, act, 8, last * F, row0, issuer);
+        tiles_free(issuer);
+      }
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        float g4[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float h, d;
+          act_eval(acc[4 * j + e], 1.f, h, d);
+          g4[e] = d * u_of(4 * j + e);
+        }
+        put4(act, r0, cb + 8 * j, g4);
+      }
     }
-    if (ZS) {
-      __syncthreads();
-      store_tile(zst, p.us + row0 * ld + (size_t)last * F, ld);
-      __syncthreads();
-    }
+    sm90::fence_async_smem();
+    sm90::named_sync(BAR_C, NC);               // g is the next product's A
 
+    // -------------------------------------------------- the reverse chain
     for (int i = last; i >= 1; --i) {
+      // act'(z_{i-1}) for this step's epilogue: its first batch is in
+      // flight while the product runs
+      float4 dn[SB];
+      const float4* dl = dsc + (size_t)(i - 1) * 32 * NC;
+      scratch_batch(dn, dl, 0);
       if (i == skip) {
         // the encoding's share through the skip input: gx = g . Wskip_top
-        float c[MT][2][4];
-        zero<2>(c);
-        gemm<2, true>(c, act, SA, F, nullptr, 0, 0, p.wskip, EP + F, 0,
-                      stage);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-          for (int nf = 0; nf < 2; ++nf)
-#pragma unroll
-            for (int hf = 0; hf < 2; ++hf) {
-              int row, col;
-              acc_pos<2>(mt, nf, 2 * hf, row, col);
-              *reinterpret_cast<float2*>(p.gx + (row0 + row) * EP + col) =
-                  make_float2(c[mt][nf][2 * hf], c[mt][nf][2 * hf + 1]);
-            }
-        zero<8>(acc);
-        gemm<8, true>(acc, act, SA, F, nullptr, 0, 0, p.wskip, EP + F, EP,
-                      stage);
-      } else {
-        const int mid = i < skip ? i - 1 : i - 2;
-        zero<8>(acc);
-        gemm<8, true>(acc, act, SA, F, nullptr, 0, 0,
-                      p.wmid + (size_t)mid * F * F, F, 0, stage);
+        // (in acc's first 32 registers, which the next product overwrites)
+        float (&c)[32] = *reinterpret_cast<float(*)[32]>(acc);
+        consume<64, 1>(c, act, F, act, F / KSL, false, r, full, empty, ring,
+                       wg, leader);
+        gx_out(c, p.gx, grow0, r0, wg, l, false);
+      }
+      consume<256, 1>(acc, act, F, act, F / KSL, false, r, full, empty, ring,
+                      wg, leader);
+      tiles_free(issuer);                      // act (g) read by both
+      if (ZS) {
+        store_tile_sw<256>(act, wg * 256, [&](int k) { return acc[k]; });
+        tile_to_global(&maps.us, act, 8, (i - 1) * F, row0, issuer);
+        tiles_free(issuer);
       }
       // g_{i-1} = act'(z_{i-1}) * u_{i-1}
-      const float* d1l = d1s + (size_t)(i - 1) * ACC * NT + tid;
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int nf = 0; nf < 8; ++nf)
-#pragma unroll
-          for (int hf = 0; hf < 2; ++hf) {
-            int row, col;
-            acc_pos<8>(mt, nf, 2 * hf, row, col);
-            const int j = (mt * 8 + nf) * 4 + 2 * hf;
-            const float d0 = d1l[j * NT];
-            const float d1 = d1l[(j + 1) * NT];
-            *reinterpret_cast<__nv_bfloat162*>(act + row * SA + col) =
-                __floats2bfloat162_rn(d0 * acc[mt][nf][2 * hf],
-                                      d1 * acc[mt][nf][2 * hf + 1]);
-            if (ZS)
-              *reinterpret_cast<__nv_bfloat162*>(zst + row * SA + col) =
-                  __floats2bfloat162_rn(acc[mt][nf][2 * hf],
-                                        acc[mt][nf][2 * hf + 1]);
-          }
-      if (ZS) {
-        __syncthreads();
-        store_tile(zst, p.us + row0 * ld + (size_t)(i - 1) * F, ld);
-        __syncthreads();
-      }
+      g_from_scratch(acc, dn, dl, act, r0, cb);
+      sm90::fence_async_smem();
+      sm90::named_sync(BAR_C, NC);
     }
-
     // layer 0: gx += g_0 . w0
-    float c[MT][2][4];
-    zero<2>(c);
-    gemm<2, true>(c, act, SA, F, nullptr, 0, 0, p.w0, EP, 0, stage);
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int nf = 0; nf < 2; ++nf)
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          int row, col;
-          acc_pos<2>(mt, nf, 2 * hf, row, col);
-          float2* o = reinterpret_cast<float2*>(p.gx + (row0 + row) * EP + col);
-          const float2 v = *o;
-          *o = make_float2(v.x + c[mt][nf][2 * hf],
-                           v.y + c[mt][nf][2 * hf + 1]);
-        }
+    {
+      float (&c)[32] = *reinterpret_cast<float(*)[32]>(acc);
+      consume<64, 1>(c, act, F, act, F / KSL, false, r, full, empty, ring,
+                     wg, leader);
+      gx_out(c, p.gx, grow0, r0, wg, l, true);
+    }
   }
+  if (issuer) sm90::bulk_wait<0>();
+}
+
+// The kernel's tensor maps; false where the driver refuses one.
+template <bool HEADS>
+bool fwd_maps(const FwdArgs& p, FwdMaps* m) {
+  using sm90host::map_2d;
+  const uint64_t mids = (uint64_t)(p.layers - 2) * F;
+  const uint64_t n = (uint64_t)p.n_tiles * T, lf = (uint64_t)p.layers * F;
+  bool ok = map_2d(&m->w0k, p.w0, F, EP, EP, 256, KSL, 64) &&
+            map_2d(&m->wmidk, p.wmid, mids, F, F, 256, KSL, 64) &&
+            map_2d(&m->wskipk, p.wskip, F, EP + F, EP + F, 256, KSL, 64) &&
+            map_2d(&m->w0m, p.w0, F, EP, EP, KSL, 32, 64) &&
+            map_2d(&m->wmidm, p.wmid, mids, F, F, KSL, 32, 64) &&
+            map_2d(&m->wskipm, p.wskip, F, EP + F, EP + F, KSL, 32, 64);
+  if (p.zs)
+    ok = ok && map_2d(&m->zs, p.zs, n, lf, lf, T, 64, 128) &&
+         map_2d(&m->us, p.us, n, lf, lf, T, 64, 128);
+  if (!HEADS && p.feats_bf16)
+    ok = ok && map_2d(&m->feats, p.feats, n, F, F, T, 64, 128);
+  if (HEADS)
+    ok = ok && map_2d(&m->wfk, p.wf, F, F, F, 256, KSL, 64) &&
+         map_2d(&m->w1rk, p.w1r, HID, F, F, 256, KSL, 64) &&
+         map_2d(&m->w1pk, p.w1p, 3 * HID, F, F, 256, KSL, 64);
+  return ok;
 }
 
 // Launch K2 (HEADS = false) or K4 on `stream`; returns a cudaError_t.
 template <bool HEADS>
 int launch_fwd(const FwdArgs& p, int n_rows, int n_blocks, void* stream) {
   if (n_rows <= 0 || n_rows % T != 0 || n_blocks <= 0 || p.layers < 3 ||
-      p.skip <= 0 || p.skip >= p.layers || (p.zs == nullptr) != (p.us == nullptr))
+      p.skip <= 0 || p.skip >= p.layers ||
+      (p.zs == nullptr) != (p.us == nullptr))
     return (int)cudaErrorInvalidValue;
+  FwdMaps maps;
+  if (!fwd_maps<HEADS>(p, &maps)) return (int)cudaErrorInvalidValue;
   auto kernel = p.zs ? trunk_fwd_grad_kernel<true, HEADS>
                      : trunk_fwd_grad_kernel<false, HEADS>;
-  const int smem = HEADS ? SMEM_HEADS : SMEM_BYTES;
+  const int smem = fwd_smem<HEADS>();
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<n_blocks, NT, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  kernel<<<n_blocks, NTB, smem, static_cast<cudaStream_t>(stream)>>>(maps, p);
   return (int)cudaGetLastError();
 }
 

@@ -13,17 +13,18 @@
 // plus 787,968 multiply-adds for the heads (9.16 MFLOP in all), against
 // 512 bytes of input and 544 bytes of output (16 KB more with zs/us).
 //
-// Design (trunk_fwd_grad.cuh, trunk_common.cuh): K2's tile loop.  After the
-// last trunk layer h replaces the layer's input in the activation tile and
-// act'(z_{L-1}) goes to the block's scratch, so that the registers of the
-// pre-activations are free for the head products; xf then replaces h in the
-// same tile.  The first head layers run as four 256-column products (rgb,
-// then k, theta and rho_c from the merged W_1p), each followed by its
-// activation; the second layers have 3 output columns in all, so each logit
-// is a row reduction of bf16(hidden) against its weight row (as the sigma
-// head is), and no hidden activation reaches shared memory.  Rounding
-// points are the Pallas kernel's: bf16 operands (h, xf, the hidden
-// activations) with f32 sums.  Deterministic: fixed summation orders.
+// Design (trunk_fwd_grad.cuh, on sm90_trunk.cuh): K2's warp-specialised
+// tile loop.  After the last trunk layer h replaces the layer's input in the
+// activation tile and act'(z_{L-1}) goes to the block's scratch, so that the
+// registers of the pre-activations are free for the head products; xf then
+// replaces h in the same tile.  The first head layers run as four
+// 256-column products (rgb, then k, theta and rho_c from the merged W_1p),
+// each warpgroup taking 128 columns, each followed by its activation; the
+// second layers have 3 output columns in all, so each logit is a row
+// reduction of bf16(hidden) against its weight row (as the sigma head is),
+// and no hidden activation reaches shared memory.  Rounding points are the
+// Pallas kernel's: bf16 operands (h, xf, the hidden activations) with f32
+// sums.  Deterministic: fixed summation orders.
 
 #include "trunk_fwd_grad.cuh"
 
@@ -73,3 +74,6 @@ extern "C" int trunk_heads_fwd_launch(
   p.skip = skip;
   return launch_fwd<true>(p, n_rows, n_blocks, stream);
 }
+
+// The dynamic shared memory a block of the kernel takes (for the tools).
+extern "C" int trunk_heads_fwd_smem() { return fwd_smem<true>(); }

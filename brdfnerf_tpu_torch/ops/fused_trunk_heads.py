@@ -47,8 +47,8 @@ from .fused_mlp import (FEAT, LANE, TILE_N, _round_up, check_kernel_inputs,
 from .fused_trunk_vjp import (_act_all, _bwd_primal_tangent, _forward_chain,
                               _grad_chain, _mm, _mm_t, _outer, _pack_params,
                               _reverse_sweep, _saved_dtype, _unpack_grads,
-                              encode_with_jacobian, trunk_params,
-                              wgrad_scratch)
+                              encode_with_jacobian, fwd_scratch,
+                              trunk_params, wgrad_scratch)
 
 HEAD_COLS = 8       # packed logits: sigma, rgb x3, k, theta, rhoc, pad
 RPV_NAMES = ("k_from_xyz", "theta_rpv_from_xyz", "rhoc_from_xyz")
@@ -243,12 +243,7 @@ def _trunk_heads_fwd_cuda(packed: Dict, hw: Dict, cfg: ModelConfig, x,
         zs = torch.empty(n, cfg.layers * FEAT, dtype=torch.bfloat16,
                          device=dev)
         us = torch.empty_like(zs)
-    # persistent grid, one block per SM; each block keeps act'(z) of every
-    # layer of its current tile in this scratch
-    n_blocks = min(n // TILE_N,
-                   torch.cuda.get_device_properties(dev).multi_processor_count)
-    scratch = torch.empty(n_blocks * cfg.layers * TILE_N * FEAT,
-                          dtype=torch.float32, device=dev)
+    n_blocks, scratch = fwd_scratch(n, cfg.layers, True, dev)
     TRUNK_HEADS_FWD(
         x.data_ptr(), n, n_blocks,
         *(packed[k].data_ptr() for k in ("w0", "b0", "w_mid", "b_mid",

@@ -348,12 +348,7 @@ def _trunk_fwd_grad_cuda(packed: Dict, cfg: ModelConfig, x: torch.Tensor,
         zs = torch.empty(n, cfg.layers * FEAT, dtype=torch.bfloat16,
                          device=dev)
         us = torch.empty_like(zs)
-    # persistent grid, one block per SM; each block owns act'(z) of
-    # layers 0..L-2 for its current tile in this scratch
-    n_blocks = min(n // TILE_N,
-                   torch.cuda.get_device_properties(dev).multi_processor_count)
-    scratch = torch.empty(n_blocks * (cfg.layers - 1) * TILE_N * FEAT,
-                          dtype=torch.float32, device=dev)
+    n_blocks, scratch = fwd_scratch(n, cfg.layers, False, dev)
     TRUNK_FWD_GRAD(
         x.data_ptr(), n, n_blocks, packed["w0"].data_ptr(),
         packed["b0"].data_ptr(), packed["w_mid"].data_ptr(),
@@ -367,6 +362,26 @@ def _trunk_fwd_grad_cuda(packed: Dict, cfg: ModelConfig, x: torch.Tensor,
     if want_zs:
         return sigma, feats, gx, zs, us
     return sigma, feats, gx
+
+
+def fwd_plan(n_rows: int, layers: int, heads: bool, sms: int = 132):
+    """(blocks, f32 scratch elements) of the forward kernel K2 (heads=False)
+    or K4 at n_rows points: a persistent grid of one block per SM, at most
+    one per 64-point tile; each block keeps act'(z) of every layer its
+    reverse chain reads (K2 layers 0..L-2, K4 0..L-1) for its current tile,
+    TILE_N x FEAT f32 a layer, in the accumulator layout
+    (csrc/trunk_fwd_grad.cuh)."""
+    n_blocks = min(n_rows // TILE_N, sms)
+    slots = layers if heads else layers - 1
+    return n_blocks, n_blocks * slots * TILE_N * FEAT
+
+
+def fwd_scratch(n_rows: int, layers: int, heads: bool, dev):
+    """(blocks, scratch tensor) of fwd_plan on `dev`."""
+    n_blocks, elems = fwd_plan(
+        n_rows, layers, heads,
+        torch.cuda.get_device_properties(dev).multi_processor_count)
+    return n_blocks, torch.empty(elems, dtype=torch.float32, device=dev)
 
 
 def check_bwd_inputs(cfg: ModelConfig, packed: Dict, x, cs, cf, cg, zs, us):

@@ -7,16 +7,19 @@ the port's own entry points and check what comes out.
 
 Phases (any failure exits non-zero; nothing is caught):
   1. device   - require CUDA; print the card's name and power limit
-  2. build    - nvcc for sm_90a, one process per kernel source, in parallel
+  2. build    - nvcc for sm_90a, one process per kernel source, in
+                parallel; registers, spills and shared memory of the
+                forward and backward kernels (ptxas -v)
   3. kernels  - K1 (trunk + sigma) at 327,680 points and K2 (trunk + sigma
                 gradient) at 655,360 points, the serving shapes; K2 saving
                 zs/us and K3 (the trunk's second-order backward) at 131,072
-                points, the training step's, and again at 192 points (3
-                tiles: no multiple of a split or a wave); bfloat16_all with
-                the polynomial sine, each against its twin; times of kernel,
-                twin and a chain of torch.matmul calls for the same
-                products, and of K3's and K5's kernel functions (sweep,
-                weight gradients, reduce)
+                points, the training step's, and K2, K4 and K3, K5 again at
+                192 points (3 tiles: no multiple of a split or a wave);
+                bfloat16_all with the polynomial sine, each against its
+                twin, every instantiation of K2 and K4 launched twice with
+                bit-identical outputs; times of kernel, twin and a chain of
+                torch.matmul calls for the same products, and of K3's and
+                K5's kernel functions (sweep, weight gradients, reduce)
   4. serving  - a run directory from the port's train_parser / dump_opts and
                 a seeded init_network / save_checkpoint, then
                 load_renderer(device="cuda") answers 3 requests of 16,384
@@ -104,6 +107,16 @@ def diff(name, got, ref):
     return out
 
 
+def same_twice(label, first, second):
+    """Two launches of a kernel on the same inputs give the same bits (a
+    fixed summation order, no atomics)."""
+    torch.cuda.synchronize()
+    for i, (a_, b_) in enumerate(zip(first, second)):
+        assert torch.equal(a_, b_), f"{label}: output {i} differs between " \
+                                    "launches"
+    print(f"  {label}: two launches bit-identical", flush=True)
+
+
 def rel_l2(got, ref):
     ref = ref.float()
     return ((got.float() - ref).norm() / ref.norm().clamp_min(1e-30)).item()
@@ -139,9 +152,20 @@ GROUPS = (("K1 trunk_sigma", ("trunk_sigma_kernel",)),
           ("K3 trunk_bwd sweep", ("trunk_bwd_sweep_kernel",)),
           ("K3 trunk_bwd wgrad", ("trunk_bwd_wgrad_kernel",)),
           ("K3 trunk_bwd reduce", ("trunk_bwd_reduce_kernel",)),
+          ("layout check (tools/sm90_check.py)", ("sm90_check_kernel",)),
           ("optimizer (Adam)", ("adam",)),
           ("matmul (cuBLAS)", ("gemm", "xmma", "cutlass", "sm90_")),
           ("elementwise", ("elementwise",)))
+
+
+def kernel_group(name):
+    """The GROUPS label of a kernel name as the profiler gives it, or
+    "other"."""
+    low = name.lower()
+    for g, keys in GROUPS:
+        if any(k in low for k in keys):
+            return g
+    return "other"
 
 
 def kernel_parts(fn):
@@ -185,13 +209,7 @@ def profile_device(fn, label):
     groups = {g: 0.0 for g, _ in GROUPS}
     groups["other"] = 0.0
     for name, ms in by_name.items():
-        low = name.lower()
-        for g, keys in GROUPS:
-            if any(k in low for k in keys):
-                groups[g] += ms
-                break
-        else:
-            groups["other"] += ms
+        groups[kernel_group(name)] += ms
     device_ms = sum(by_name.values())
     print(f"  profiled {label}: wall {wall_ms:.2f} ms, device "
           + (f"{device_ms:.2f} ms (busy {device_ms / wall_ms:.1%})"
@@ -253,6 +271,8 @@ def heads_kernels(rows, mcfg, net, packed, wbytes, macs, k3_flops, k3_bytes,
     n2 = CHUNK * 2 * N_SAMPLES
     enc = points(n2)
     out_k, gx_k, _, _ = k4._trunk_heads_fwd_cuda(packed, hw, mcfg, enc)
+    same_twice("K4", (out_k, gx_k),
+               k4._trunk_heads_fwd_cuda(packed, hw, mcfg, enc)[:2])
     out_p, gx_p, _ = k4._trunk_heads_fwd_plain(packed, hw, mcfg, enc)
     sig2, _, gx2 = k2._trunk_fwd_grad_cuda(packed, mcfg, enc)
     torch.cuda.synchronize()
@@ -265,7 +285,7 @@ def heads_kernels(rows, mcfg, net, packed, wbytes, macs, k3_flops, k3_bytes,
     # K4 runs K2's trunk and chain with the same arithmetic
     same = torch.equal(gx_k, gx2) and torch.equal(out_k[:, 0], sig2)
     print(f"  K4 sigma and gx bit-identical to K2's: {same}", flush=True)
-    assert rel_l2(gx_k, gx2) <= 1e-2 and rel_l2(out_k[:, 0], sig2) <= 1e-2
+    assert same, "K4's sigma or gx differ from K2's"
     del out_k, gx_k, out_p, gx_p, sig2, gx2
     encb = enc.to(torch.bfloat16)
     hb = torch.randn(n2, feat, device="cuda", generator=gen).to(
@@ -290,6 +310,8 @@ def heads_kernels(rows, mcfg, net, packed, wbytes, macs, k3_flops, k3_bytes,
     enc = points(n3)
     out_k, gx_k, zs, us = k4._trunk_heads_fwd_cuda(packed, hw, mcfg, enc,
                                                    want_zs=True)
+    same_twice("K4 saving zs/us", (out_k, gx_k, zs, us),
+               k4._trunk_heads_fwd_cuda(packed, hw, mcfg, enc, want_zs=True))
     out_s, gx_s, _, _ = k4._trunk_heads_fwd_cuda(packed, hw, mcfg, enc)
     out_p, gx_p, zs_p = k4._trunk_heads_fwd_plain(packed, hw, mcfg, enc,
                                                   want_zs=True)
@@ -377,6 +399,44 @@ def heads_kernels(rows, mcfg, net, packed, wbytes, macs, k3_flops, k3_bytes,
         peaks)
     print(f"  K5 largest relative L2 against its twin {k5_rel:.3e}",
           flush=True)
+
+
+def forward_small(n, mcfg, net, packed, points):
+    """K2 and K4, serving and saving zs/us, at n points against their
+    twins on the card at the main paths' bounds; n = 192 is 3 tiles, so
+    most blocks of the persistent grid get none and the last wave is
+    ragged."""
+    from brdfnerf_tpu_torch.ops import fused_trunk_heads as k4
+    from brdfnerf_tpu_torch.ops import fused_trunk_vjp as k2
+    hw = k4.pack_head_weights(net, mcfg, torch.bfloat16)
+    enc = points(n)
+    z2 = k2._trunk_fwd_grad_cuda(packed, mcfg, enc, want_zs=True)
+    s2 = k2._trunk_fwd_grad_cuda(packed, mcfg, enc)
+    z4 = k4._trunk_heads_fwd_cuda(packed, hw, mcfg, enc, want_zs=True)
+    s4 = k4._trunk_heads_fwd_cuda(packed, hw, mcfg, enc)
+    p2 = k2._trunk_fwd_grad_plain(packed, mcfg, enc, want_zs=True)
+    p4 = k4._trunk_heads_fwd_plain(packed, hw, mcfg, enc, want_zs=True)
+    torch.cuda.synchronize()
+    cases = (list(zip(("K2 sigma", "K2 feats", "K2 gx", "K2 zs", "K2 us"),
+                      z2, p2))
+             + [("K4 out", z4[0], p4[0]), ("K4 gx", z4[1], p4[1]),
+                ("K4 zs", z4[2], p4[2]), ("K4 us", z4[3], p2[4])])
+    worst = 0.0
+    for label, got, ref in cases:
+        e = diff(f"{label} at {n} points", got, ref)
+        assert torch.isfinite(got.float()).all(), label
+        assert e["max"] <= 5e-2 * e["scale"], label
+        assert e["mean"] <= 1e-3 * e["scale"], label
+        if label.endswith(("zs", "us")):
+            assert e["rel"] <= 1e-2, label
+        worst = max(worst, e["rel"])
+    for a_, b_ in zip(z2[:3], s2):
+        assert torch.equal(a_, b_), "K2 with zs/us changes its outputs"
+    for a_, b_ in zip(z4[:2], s4[:2]):
+        assert torch.equal(a_, b_), "K4 with zs/us changes its outputs"
+    assert torch.equal(s4[1], s2[2]) and torch.equal(s4[0][:, 0], s2[0])
+    print(f"  K2 and K4 at {n} points: largest relative L2 against the "
+          f"twins {worst:.3e}", flush=True)
 
 
 def backward_small(n, mcfg, net, packed, points, gen):
@@ -492,10 +552,12 @@ def main():
                 or "spill" in ln]
         print(f"  {name}: {rec['seconds']:.1f} s; " + " | ".join(regs[:12]),
               flush=True)
-    # the backward kernels' functions: registers (the count at launch; the
-    # consumer warps raise theirs with setmaxnreg), spills, static shared
-    # memory (the dynamic share is set at launch, csrc/trunk_bwd.cuh)
-    for name in ("trunk_bwd", "trunk_heads_bwd"):
+    # the forward and backward kernels' functions: registers (the count at
+    # launch; the consumer warps raise theirs with setmaxnreg), spills,
+    # static shared memory (the dynamic share is set at launch,
+    # csrc/trunk_fwd_grad.cuh, csrc/trunk_bwd.cuh)
+    for name in ("trunk_fwd_grad", "trunk_heads_fwd", "trunk_bwd",
+                 "trunk_heads_bwd"):
         for fn in ptxas_summary(cuda_build.build_log.get(name, {}).get(
                 "log", "")):
             print(f"  {name} {fn['name'][:56]}: {fn['registers']} "
@@ -601,6 +663,7 @@ def main():
     n2 = CHUNK * 2 * N_SAMPLES
     enc = points(n2)
     out_k = k2._trunk_fwd_grad_cuda(packed, mcfg, enc)
+    same_twice("K2", out_k, k2._trunk_fwd_grad_cuda(packed, mcfg, enc))
     out_p = k2._trunk_fwd_grad_plain(packed, mcfg, enc)
     torch.cuda.synchronize()
     errs = []
@@ -639,6 +702,8 @@ def main():
     n3 = BATCH * 2 * N_SAMPLES
     enc = points(n3)
     out_k = k2._trunk_fwd_grad_cuda(packed, mcfg, enc, want_zs=True)
+    same_twice("K2 saving zs/us", out_k,
+               k2._trunk_fwd_grad_cuda(packed, mcfg, enc, want_zs=True))
     out_p = k2._trunk_fwd_grad_plain(packed, mcfg, enc, want_zs=True)
     plain_k = k2._trunk_fwd_grad_cuda(packed, mcfg, enc)
     torch.cuda.synchronize()
@@ -751,6 +816,7 @@ def main():
                   points, chain_k2, chain_k3, peaks, gen)
     del enc, encb, cgb, hth, azb, xtb, zs, us, cs, cf, cg
     backward_small(192, mcfg, net, packed, points, gen)
+    forward_small(192, mcfg, net, packed, points)
     for r in rows.values():
         print(f"  {r['name']}: {r['ms']:.3f} ms (bound {r['bound_ms']:.3f} "
               f"by {r['bound_by']}, twin {r['plain_ms']:.1f}, matmul chain "

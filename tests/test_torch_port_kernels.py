@@ -542,3 +542,97 @@ def test_backward_kernels_match_twins_on_the_card(n):
         assert torch.equal(k_, a_)                    # deterministic
         rel = float((k_ - r_).norm() / r_.norm().clamp_min(1e-12))
         assert rel <= 1e-2, rel
+
+
+# ------------------------------------- the forward kernels' plan, profile
+
+def test_fwd_plan_scratch_covers_what_the_kernel_addresses():
+    """K2's and K4's grid and act'(z) scratch: one block per SM, at most one
+    per 64-point tile; each block holds a 64 x 512 f32 slot for every layer
+    its reverse chain reads (K2 layers 0..L-2, K4 0..L-1)."""
+    tile = tk2.TILE_N * tk2.FEAT
+    cases = [(64, 8, False, 132, 1, 7), (192, 8, True, 132, 3, 8),
+             (8384, 4, False, 132, 131, 3), (655360, 8, False, 132, 132, 7),
+             (131072, 8, True, 132, 132, 8), (131072, 8, False, 114, 114, 7)]
+    for n, layers, heads, sms, blocks, slots in cases:
+        got = tk2.fwd_plan(n, layers, heads, sms)
+        assert got == (blocks, blocks * slots * tile), (n, layers, heads)
+
+
+def _chip_smoke():
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke_groups", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _csrc_kernels():
+    """Every instantiation of every __global__ function in csrc/*.cu*, as
+    (its profiler name, demangled, its mangled name lowered, its bool
+    template arguments)."""
+    import itertools
+    import os
+    import re
+    csrc = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "brdfnerf_tpu_torch", "csrc")
+    pat = re.compile(r"(template\s*<([^>]*)>\s*)?__global__\s+void\s+"
+                     r"(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(")
+    out = []
+    for f in sorted(os.listdir(csrc)):
+        if not f.endswith((".cu", ".cuh")):
+            continue
+        with open(os.path.join(csrc, f)) as fh:
+            for m in pat.finditer(fh.read()):
+                n_bool = m.group(2).count("bool") if m.group(1) else 0
+                name = m.group(3)
+                for args in itertools.product((False, True), repeat=n_bool):
+                    targs = ", ".join(str(a).lower() for a in args)
+                    demangled = (f"void trunk::{name}"
+                                 + (f"<{targs}>" if args else "") + "(...)")
+                    mangled = (f"_zn5trunk{len(name)}{name}"
+                               + ("i" + "".join(f"lb{int(a)}e" for a in args)
+                                  + "e" if args else "") + "ev")
+                    out.append((demangled, mangled, args))
+    return out
+
+
+_KERNELS = _csrc_kernels()
+
+
+@pytest.mark.parametrize("demangled,mangled,args", _KERNELS,
+                         ids=[k[0] for k in _KERNELS])
+def test_profile_groups_place_every_kernel(demangled, mangled, args):
+    """chip_smoke.py's profile sums device time by kernel group
+    (chip_smoke.GROUPS); every kernel function of csrc/ must land in a
+    group of its own kernel, by the profiler's demangled name and by the
+    mangled one, never in "other" -- and an instantiation with HEADS (the
+    last bool) in K4's or K5's group, without in K2's or K3's."""
+    cs = _chip_smoke()
+    for name in (demangled, mangled):
+        group = cs.kernel_group(name)
+        assert group != "other", name
+        if "trunk_" in name:
+            k = group.split()[0]
+            assert k in ("K1", "K2", "K3", "K4", "K5"), (name, group)
+            if args:
+                assert k in (("K4", "K5") if args[-1] else ("K2", "K3")), \
+                    (name, group)
+
+
+def test_profile_groups_find_the_kernels():
+    """The source scan above sees every kernel of the port: K1's, the
+    forward template's four instantiations, the backward's three kernels
+    with and without HEADS, and the layout check's."""
+    names = {k[0].split("(")[0] for k in _KERNELS}
+    assert {"void trunk::trunk_sigma_kernel",
+            "void trunk::trunk_fwd_grad_kernel<false, false>",
+            "void trunk::trunk_fwd_grad_kernel<true, true>",
+            "void trunk::trunk_bwd_sweep_kernel<true>",
+            "void trunk::trunk_bwd_wgrad_kernel<false>",
+            "void trunk::trunk_bwd_reduce_kernel<true>",
+            "void trunk::sm90_check_kernel"} <= names, names
+    assert len(names) == 1 + 4 + 6 + 1
