@@ -1,6 +1,6 @@
 // The warp-specialised machinery shared by the trunk kernels built on
-// sm90_common.cuh: the forward of K2/K4 (trunk_fwd_grad.cuh) and the sweep of
-// K3/K5 (trunk_bwd.cuh).  A block is three warpgroups: two consumer
+// sm90_common.cuh: K1 (trunk_sigma.cu), the forward of K2/K4
+// (trunk_fwd_grad.cuh) and the sweep of K3/K5 (trunk_bwd.cuh).  A block is three warpgroups: two consumer
 // warpgroups, each owning 256 of the 512 output columns of every trunk
 // product (wgmma, f32 accumulators), and a producer warpgroup of which one
 // thread issues every TMA load into one ring of RING_N stages, in the order
@@ -23,25 +23,29 @@ constexpr int NTB = NC + 128;            // + the producer warpgroup
 constexpr int BAR_C = 1;                 // named barrier of the consumers
 constexpr int KSL = 32;                  // k-slice of a weight stage
 constexpr int RING_STAGE = F * KSL * 2;  // 32 KB: 32 k x 512 n, SW64
-constexpr int RING_N = 4;                // stages
+constexpr int RING_N = 4;                // stages (K1: K1_RING_N)
 constexpr int ACT_BLOCK = T * 64 * 2;    // one 64 x 64 SW128 block, 8 KB
 
-struct Ring {
+// A position in a ring of NS stages: the stage and its phase parity.
+template <int NS>
+struct RingN {
   uint32_t stage, phase;
   __device__ __forceinline__ void advance() {
-    if (++stage == RING_N) {
+    if (++stage == NS) {
       stage = 0;
       phase ^= 1;
     }
   }
 };
+typedef RingN<RING_N> Ring;
 
 // Producer: the nk k-slices of one product's B into the ring.  K-major
 // (mn = false): B[k][n] = W[row0 + n][col0 + k], nw rows of n; MN-major:
 // B[k][n] = W[row0 + k][col0 + n], nw columns of n.
+template <class R>
 __device__ __forceinline__ void produce(const CUtensorMap* map, bool mn,
                                         int nk, int row0, int col0, int nw,
-                                        Ring& r, uint64_t* full,
+                                        R& r, uint64_t* full,
                                         uint64_t* empty, unsigned char* ring) {
   for (int c = 0; c < nk; ++c) {
     sm90::mbar_wait(&empty[r.stage], r.phase ^ 1);
@@ -62,7 +66,8 @@ __device__ __forceinline__ void produce(const CUtensorMap* map, bool mn,
 
 // Producer: one ring stage of contiguous global memory from src (16-byte
 // aligned), one bulk copy.
-__device__ __forceinline__ void produce_copy(const void* src, Ring& r,
+template <class R>
+__device__ __forceinline__ void produce_copy(const void* src, R& r,
                                              uint64_t* full, uint64_t* empty,
                                              unsigned char* ring) {
   sm90::mbar_wait(&empty[r.stage], r.phase ^ 1);
@@ -88,14 +93,16 @@ __device__ __forceinline__ uint64_t a_desc(const unsigned char* tile,
 
 // Consumer: acc (+)= A . B over nk slices from the ring, this warpgroup's
 // NW columns.  A: the tile a0 for k < ka0, then a1 (each K-major SW128).
-// accumulate = false overwrites acc.  Returns with every product of both
-// warpgroups issued by this one complete; the caller syncs the consumers
-// before it rewrites A.
-template <int NW, int TB>
+// accumulate = false overwrites acc.  LO > 0 (K1) adds a second product
+// on the same B for every k16 step, with A read LO bytes past the first:
+// the low bf16 halves of a split f32 operand.  Returns with every product
+// of both warpgroups issued by this one complete; the caller syncs the
+// consumers before it rewrites A.
+template <int NW, int TB, int LO = 0, class R>
 __device__ __forceinline__ void consume(float (&acc)[NW / 2],
                                         const unsigned char* a0, int ka0,
                                         const unsigned char* a1, int nk,
-                                        bool accumulate, Ring& r,
+                                        bool accumulate, R& r,
                                         uint64_t* full, uint64_t* empty,
                                         const unsigned char* ring, int wg,
                                         bool leader) {
@@ -114,9 +121,12 @@ __device__ __forceinline__ void consume(float (&acc)[NW / 2],
                   : sm90::make_desc(s + wg * (NW / 32) * 2048 + ks * 1024,
                                     2048, 512, 2);
       const int sc = (accumulate || c > 0 || ks > 0) ? 1 : 0;
-      if constexpr (NW == 256)
+      if constexpr (NW == 256) {
         sm90::wgmma_n256<0, TB>(acc, da, db, sc);
-      else if constexpr (NW == 128)
+        // (the descriptor's start address is bits 0-13, in 16-byte units)
+        if constexpr (LO > 0)
+          sm90::wgmma_n256<0, TB>(acc, da + (uint64_t)(LO >> 4), db, 1);
+      } else if constexpr (NW == 128)
         sm90::wgmma_n128<0, TB>(acc, da, db, sc);
       else
         sm90::wgmma_n64<0, TB>(acc, da, db, sc);

@@ -8,7 +8,9 @@
 //     a_z = act'(z) a_h + act''(z) tz b_th,  b_tz = act'(z) b_th,
 //     dW_l = h_{l-1}^T a_z + th_{l-1}^T b_tz,  db_l = sum_rows a_z,
 //     a_h <- a_z W_l,
-// with z_l and b_th_l = u_l loaded from what the forward saved (zs, us).
+// with z_l loaded from what the forward saved (zs) and b_th_l: K3 loads
+// u_l, which K2 saved (us, bf16); K5 rebuilds the chain from zs in f32, as
+// the Pallas _bwd_kernel_h does (trunk_heads_bwd.cu).
 // K3 seeds the last layer's a_h with c_feats; K5 with a_xf W_f, from the
 // heads' backward (ops/fused_trunk_heads.py):
 //     c_z1 = act'(z1) (c_z2 W_2),   a_xf = c_z1r W_1r + c_z1p W_1p,
@@ -84,7 +86,8 @@ struct BwdArgs {
   const float* cot;        // K5: the packed logits' cotangents (n, 8)
   const float* cg;
   const bf16* zs;
-  const bf16* us;
+  const bf16* us;          // K3: u_l as K2 saved them
+  const float* uc;         // K5: the rebuilt b_th chain (trunk_heads_bwd.cu)
   int n, n_tiles;
   const bf16* w0;
   const bf16* wmid;
@@ -226,8 +229,12 @@ struct SweepMaps {
 // accumulators 32 g.. of every thread).  Forward epilogue of layer i: z of
 // the tile's 64 rows, two j-groups a stage, both warpgroups' blocks
 // (64 x 64, SW128) side by side.  Reverse epilogue: for every j-group a
-// stage of z and u, then a stage of the block's tz scratch of layer i
-// (tzl: 128 accumulators x 256 threads f32, 32 of them a stage).
+// stage of z and u (K5: z alone), then a stage of the block's tz scratch
+// of layer i (tzl: 128 accumulators x 256 threads f32, 32 of them a
+// stage), then (K5) a stage of the rebuilt b_th of layer i (ucl, in tz's
+// layout).  K5's z stage fills only half of its 32 KB (two 64 x 64 bf16
+// blocks): rebuilding b_th inside the sweep would drop the chain kernel,
+// its f32 scratch and this extra stage (not done).
 __device__ __forceinline__ void produce_fwd_data(const SweepMaps& maps,
                                                  int i, int row0, Ring& r,
                                                  uint64_t* full,
@@ -245,8 +252,10 @@ __device__ __forceinline__ void produce_fwd_data(const SweepMaps& maps,
   }
 }
 
+template <bool HEADS>
 __device__ __forceinline__ void produce_rev_data(const SweepMaps& maps,
-                                                 const float* tzl, int i,
+                                                 const float* tzl,
+                                                 const float* ucl, int i,
                                                  int row0, Ring& r,
                                                  uint64_t* full,
                                                  uint64_t* empty,
@@ -254,17 +263,20 @@ __device__ __forceinline__ void produce_rev_data(const SweepMaps& maps,
   for (int g = 0; g < 4; ++g) {
     sm90::mbar_wait(&empty[r.stage], r.phase ^ 1);
     unsigned char* st = ring + r.stage * RING_STAGE;
-    sm90::mbar_expect_tx(&full[r.stage], RING_STAGE);
-    for (int b = 0; b < 4; ++b)       // z, z, u, u of warpgroups 0, 1
+    sm90::mbar_expect_tx(&full[r.stage], (HEADS ? 2 : 4) * ACT_BLOCK);
+    for (int b = 0; b < (HEADS ? 2 : 4); ++b)   // z, z, u, u of wg 0, 1
       sm90::tma_load_2d(st + b * ACT_BLOCK, b < 2 ? &maps.zs : &maps.us,
                         &full[r.stage], i * F + (b & 1) * 256 + 64 * g,
                         row0);
     r.advance();
-    sm90::mbar_wait(&empty[r.stage], r.phase ^ 1);
-    sm90::mbar_expect_tx(&full[r.stage], RING_STAGE);
-    sm90::bulk_load(ring + r.stage * RING_STAGE, tzl + (size_t)g * 32 * NC,
-                    RING_STAGE, &full[r.stage]);
-    r.advance();
+    for (int s = 0; s < (HEADS ? 2 : 1); ++s) {
+      sm90::mbar_wait(&empty[r.stage], r.phase ^ 1);
+      sm90::mbar_expect_tx(&full[r.stage], RING_STAGE);
+      sm90::bulk_load(ring + r.stage * RING_STAGE,
+                      (s ? ucl : tzl) + (size_t)g * 32 * NC, RING_STAGE,
+                      &full[r.stage]);
+      r.advance();
+    }
   }
 }
 
@@ -349,8 +361,11 @@ __global__ void __launch_bounds__(NTB, 1)
           tz_phase ^= 1;
         }
         if (EPI_DATA)
-          produce_rev_data(maps, tzb + (size_t)i * 128 * NC, i, row0, r,
-                           full, empty, ring);
+          produce_rev_data<HEADS>(
+              maps, tzb + (size_t)i * 128 * NC,
+              HEADS ? p.uc + ((size_t)tile * layers + i) * 128 * NC
+                    : nullptr,
+              i, row0, r, full, empty, ring);
         if (i == 0) break;
         if (i == skip)
           produce(&maps.wskipm, true, F / KSL, 0, EP, F, r, full, empty,
@@ -704,27 +719,44 @@ __global__ void __launch_bounds__(NTB, 1)
     for (int i = last; i >= 0; --i) {
       const float w0s = i == 0 ? 30.f : 1.f;
       tiles_free(issuer);            // act read by both products, stored
-      uint32_t zu_stage = 0;
+      uint32_t zu_stage = 0, tz_stage = 0;
 #pragma unroll
       for (int j = 0; j < 32; ++j) {
-        // j-group j / 8: a ring stage of z and u, then one of tz
+        // j-group j / 8: a ring stage of z and u (K5: z), then one of tz
+        // (K5: then one of the rebuilt b_th)
         if (EPI_DATA && j % 8 == 0) {
           sm90::mbar_wait(&full[r.stage], r.phase);
           zu_stage = r.stage;
           r.advance();
           sm90::mbar_wait(&full[r.stage], r.phase);
+          tz_stage = r.stage;
+          if (HEADS) {
+            r.advance();
+            sm90::mbar_wait(&full[r.stage], r.phase);
+          }
         }
         const unsigned char* zu = ring + zu_stage * RING_STAGE;
-        const unsigned char* tzs = ring + r.stage * RING_STAGE;
+        const unsigned char* tzs = ring + tz_stage * RING_STAGE;
         const int cz = 8 * (j & 7) + 2 * (l & 3);
         const int o0 = sm90::sw128_offset(r0, cz, 0);
         const int o1 = sm90::sw128_offset(r0 + 8, cz, 0);
         const float2 za = stage_bf2(zu + wg * ACT_BLOCK + o0);
         const float2 zb = stage_bf2(zu + wg * ACT_BLOCK + o1);
-        const float2 ua = stage_bf2(zu + (2 + wg) * ACT_BLOCK + o0);
-        const float2 ub = stage_bf2(zu + (2 + wg) * ACT_BLOCK + o1);
         const float z4[4] = {za.x, za.y, zb.x, zb.y};
-        const float u4[4] = {ua.x, ua.y, ub.x, ub.y};
+        float u4[4];
+        if (HEADS) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            u4[e] = stage_f32(ring + r.stage * RING_STAGE +
+                              ((4 * (j & 7) + e) * NC + tid) * 4);
+        } else {
+          const float2 ua = stage_bf2(zu + (2 + wg) * ACT_BLOCK + o0);
+          const float2 ub = stage_bf2(zu + (2 + wg) * ACT_BLOCK + o1);
+          u4[0] = ua.x;
+          u4[1] = ua.y;
+          u4[2] = ub.x;
+          u4[3] = ub.y;
+        }
         float bt[4];
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
@@ -744,6 +776,7 @@ __global__ void __launch_bounds__(NTB, 1)
             sm90::pack_bf2(bt[2], bt[3]);
         if (EPI_DATA && j % 8 == 7) {
           release(empty, zu_stage);
+          if (HEADS) release(empty, tz_stage);
           release(empty, r.stage);
           r.advance();
         }
@@ -1015,7 +1048,9 @@ bool sweep_maps(const BwdArgs& p, SweepMaps* m) {
             map_2d(&m->wmidm, p.wmid, mids, F, F, KSL, 32, 64) &&
             map_2d(&m->wskipm, p.wskip, F, EP + F, EP + F, KSL, 32, 64) &&
             map_2d(&m->zs, p.zs, n, p.layers * F, p.layers * F, T, 64, 128) &&
-            map_2d(&m->us, p.us, n, p.layers * F, p.layers * F, T, 64, 128) &&
+            (HEADS ||
+             map_2d(&m->us, p.us, n, p.layers * F, p.layers * F, T, 64,
+                    128)) &&
             map_2d(&m->hth, p.hth, (uint64_t)(p.layers - 1) * 2 * n, F, F,
                    T, 64, 128) &&
             map_2d(&m->azbtz, p.azbtz, (uint64_t)p.layers * 2 * n, F, F, T,

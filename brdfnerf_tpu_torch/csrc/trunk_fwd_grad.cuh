@@ -51,8 +51,10 @@
 // result is deterministic.
 //
 // With ZS (the training instantiations) the kernel also saves, per point and
-// layer, z_l and the chain state u_l (before the act' multiply) in bf16,
-// the residuals K3/K5 read.  The serving instantiations have none of that.
+// layer, z_l in bf16, and K2 the chain state u_l (before the act' multiply)
+// in bf16: the residuals K3 reads.  K5 rebuilds the u chain from zs, as the
+// Pallas _bwd_kernel_h does, so K4 saves zs alone.  The serving
+// instantiations have none of that.
 
 #pragma once
 
@@ -516,7 +518,7 @@ __global__ void __launch_bounds__(NTB, 1)
       for (int k = 0; k < 128; ++k)
         acc[k] = rowv[r0 + 8 * ((k >> 1) & 1)] *
                  wsig[cb + 8 * (k >> 2) + (k & 1)];
-      if (ZS) {
+      if (ZS && !HEADS) {
         store_tile_sw<256>(act, wg * 256, [&](int k) { return acc[k]; });
         tile_to_global(&maps.us, act, 8, last * F, row0, issuer);
         tiles_free(issuer);
@@ -530,7 +532,7 @@ __global__ void __launch_bounds__(NTB, 1)
         return rowv[r0 + 8 * ((k >> 1) & 1)] *
                wsig[cb + 8 * (k >> 2) + (k & 1)];
       };
-      if (ZS) {
+      if (ZS && !HEADS) {
         store_tile_sw<256>(act, wg * 256, u_of);
         tile_to_global(&maps.us, act, 8, last * F, row0, issuer);
         tiles_free(issuer);
@@ -568,7 +570,7 @@ __global__ void __launch_bounds__(NTB, 1)
       consume<256, 1>(acc, act, F, act, F / KSL, false, r, full, empty, ring,
                       wg, leader);
       tiles_free(issuer);                      // act (g) read by both
-      if (ZS) {
+      if (ZS && !HEADS) {
         store_tile_sw<256>(act, wg * 256, [&](int k) { return acc[k]; });
         tile_to_global(&maps.us, act, 8, (i - 1) * F, row0, issuer);
         tiles_free(issuer);
@@ -603,7 +605,7 @@ bool fwd_maps(const FwdArgs& p, FwdMaps* m) {
             map_2d(&m->wskipm, p.wskip, F, EP + F, EP + F, KSL, 32, 64);
   if (p.zs)
     ok = ok && map_2d(&m->zs, p.zs, n, lf, lf, T, 64, 128) &&
-         map_2d(&m->us, p.us, n, lf, lf, T, 64, 128);
+         (HEADS || map_2d(&m->us, p.us, n, lf, lf, T, 64, 128));
   if (!HEADS && p.feats_bf16)
     ok = ok && map_2d(&m->feats, p.feats, n, F, F, T, 64, 128);
   if (HEADS)
@@ -618,7 +620,7 @@ template <bool HEADS>
 int launch_fwd(const FwdArgs& p, int n_rows, int n_blocks, void* stream) {
   if (n_rows <= 0 || n_rows % T != 0 || n_blocks <= 0 || p.layers < 3 ||
       p.skip <= 0 || p.skip >= p.layers ||
-      (p.zs == nullptr) != (p.us == nullptr))
+      (HEADS ? p.us != nullptr : (p.zs == nullptr) != (p.us == nullptr)))
     return (int)cudaErrorInvalidValue;
   FwdMaps maps;
   if (!fwd_maps<HEADS>(p, &maps)) return (int)cudaErrorInvalidValue;

@@ -9,10 +9,11 @@
 //
 // What bounds it: tensor-core operations.  A point costs K3's 15,051,776 FLOP
 // plus 4,727,808 for the heads (their recompute from zs, the a_xf and a_h
-// products, and the outer products of dW_f and dW_1), 19.8 MFLOP in all,
-// against about 18 KB of input: 2.6 ms at 131,072 points.  What holds it
-// back on the card is K3's memory traffic (trunk_bwd.cuh) plus ~14 KB a
-// point of the heads' operands through device memory.
+// products, and the outer products of dW_f and dW_1) and 3,670,016 for the
+// rebuilt b_th chain, 23.4 MFLOP in all, against about 10 KB of input:
+// 3.1 ms at 131,072 points.  What holds it back on the card is K3's memory
+// traffic (trunk_bwd.cuh) plus ~14 KB a point of the heads' operands and
+// 16 KB of the f32 b_th chain through device memory.
 //
 // Design (trunk_bwd.cuh): K3's sweep, weight-gradient and reduce kernels.
 // Between the sigma head and the reverse sweep, the sweep recomputes the
@@ -29,28 +30,209 @@
 // [c_z1r | c_z1p] with K = points, in their own number of slices.  No
 // atomics: the result is deterministic.
 //
-// The b_th chain: the Pallas kernel rebuilds it in f32 from w_sigma; K5, like
-// K3, loads the bf16 u states K4 saved (us).  That is the same function with
-// one more bf16 rounding of b_th, so K5 differs from its twin by somewhat
-// more than K3 does from its own.
+// The b_th chain: the Pallas kernel rebuilds it in f32 from w_sigma and the
+// saved zs, and so does K5, in a fourth kernel launched before the sweep:
+// b_th_{L-1} = bf16(sigmoid(zsig)) w_sigma with zsig from h_{L-1} =
+// act(z_{L-1}), then b_th_{l-1} = bf16(act'(z_l) b_th_l) W_l, the reverse
+// products of K2's chain on the same ring and wgmma path (a persistent grid
+// of 64-point tiles; z of each layer through the ring in 64 x 64 boxes).
+// It writes b_th of every layer in f32, in the layout of the sweep's tz
+// scratch (uc: element j, e of consumer thread c of layer l of tile t at
+// ((t L + l) 128 + 4 j + e) 256 + c), and the sweep reads it through its
+// ring where K3 reads K2's bf16 us.  The forward's u chain is no substitute:
+// it runs on f32 z where this one runs on the bf16 zs (the Pallas
+// _bwd_kernel_h's arithmetic), and at the flagship size the two differ by
+// ~7e-3 relative (tools/uchain_gap.py).
 
 #include "trunk_bwd.cuh"
 
+namespace trunk {
+
+// shared memory of the chain kernel: the activation tile (b_tz, the A
+// operand of b_th = b_tz W), the ring, barriers, per-row vectors
+constexpr int UC_RING = 8 * ACT_BLOCK;
+constexpr int UC_BAR = UC_RING + RING_N * RING_STAGE;
+constexpr int UC_ROWS = UC_BAR + 128;
+constexpr int UC_SMEM = UC_ROWS + 3 * T * 4;
+
+__global__ void __launch_bounds__(NTB, 1)
+    trunk_heads_uchain_kernel(const __grid_constant__ SweepMaps maps,
+                              const BwdArgs p, float* __restrict__ uc) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  unsigned char* act = smem;
+  unsigned char* ring = smem + UC_RING;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + UC_BAR);
+  uint64_t* empty = full + RING_N;
+  float* rz = reinterpret_cast<float*>(smem + UC_ROWS);   // [2 wg][64]
+  float* rowv = rz + 2 * T;                  // bf16(sigmoid(zsig))
+  const int layers = p.layers, skip = p.skip, last = layers - 1;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    for (int s = 0; s < RING_N; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 8);     // one arrival per consumer warp
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= NC) {
+    // ------------------------------------------------------- producer
+    sm90::setmaxnreg_dec<40>();
+    if (tid != NC) return;
+    Ring r = {0, 0};
+    for (int tile = blockIdx.x; tile < p.n_tiles; tile += gridDim.x) {
+      const int row0 = tile * T;
+      produce_fwd_data(maps, last, row0, r, full, empty, ring);
+      for (int i = last; i >= 1; --i) {
+        if (i == skip)
+          produce(&maps.wskipm, true, F / KSL, 0, EP, F, r, full, empty,
+                  ring);
+        else
+          produce(&maps.wmidm, true, F / KSL,
+                  (i < skip ? i - 1 : i - 2) * F, 0, F, r, full, empty,
+                  ring);
+        if (i > 1) produce_fwd_data(maps, i - 1, row0, r, full, empty, ring);
+      }
+    }
+    return;
+  }
+
+  // --------------------------------------------------------- consumers
+  sm90::setmaxnreg_inc<232>();
+  const int wg = tid >> 7, t = tid & 127, w = t >> 5, l = t & 31;
+  const bool leader = l == 0;
+  const int r0 = w * 16 + (l >> 2);          // rows r0 and r0 + 8
+  const int cb = wg * 256 + 2 * (l & 3);     // column of j = 0, e = 0
+  const float* __restrict__ wsig = p.wsig;
+  Ring r = {0, 0};
+  float acc[128];
+
+  // z of accumulators 4j..4j+3 (rows r0 and r0 + 8) from the ring stage
+  // that holds them: two j-groups a stage, both warpgroups' 64 x 64 blocks
+  // side by side (produce_fwd_data)
+  auto z_of = [&](int j) {
+    const unsigned char* zb4 = ring + r.stage * RING_STAGE +
+                               ((j >> 3) & 1) * 2 * ACT_BLOCK + wg * ACT_BLOCK;
+    const int cz = 8 * (j & 7) + 2 * (l & 3);
+    const float2 za = stage_bf2(zb4 + sm90::sw128_offset(r0, cz, 0));
+    const float2 zb = stage_bf2(zb4 + sm90::sw128_offset(r0 + 8, cz, 0));
+    return make_float4(za.x, za.y, zb.x, zb.y);
+  };
+  // accumulators 4j..4j+3 into the tile as bf16
+  auto put4 = [&](int j) {
+    const int col = cb + 8 * j;
+    *reinterpret_cast<uint32_t*>(act + sm90::sw128_offset(r0, col, ACT_BLOCK)) =
+        sm90::pack_bf2(acc[4 * j], acc[4 * j + 1]);
+    *reinterpret_cast<uint32_t*>(
+        act + sm90::sw128_offset(r0 + 8, col, ACT_BLOCK)) =
+        sm90::pack_bf2(acc[4 * j + 2], acc[4 * j + 3]);
+  };
+
+  for (int tile = blockIdx.x; tile < p.n_tiles; tile += gridDim.x) {
+    float* out = uc + (size_t)tile * layers * 128 * NC + tid;
+    // ------- zsig from h_{L-1} = act(z_{L-1}), as the sweep computes it;
+    // act'(z_{L-1}) into acc
+    float pz[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      if (j % 16 == 0) sm90::mbar_wait(&full[r.stage], r.phase);
+      const float4 z4 = z_of(j);
+      const float zz[4] = {z4.x, z4.y, z4.z, z4.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float h;
+        act_eval(zz[e], 1.f, h, acc[4 * j + e]);
+        pz[e >> 1] += bf16_round(h) * wsig[cb + 8 * j + (e & 1)];
+      }
+      if (j % 16 == 15) {
+        release(empty, r.stage);
+        r.advance();
+      }
+    }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      float v = pz[hf];
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      if ((l & 3) == 0) rz[wg * T + r0 + 8 * hf] = v;
+    }
+    sm90::named_sync(BAR_C, NC);     // rz; the last product read act
+    if (tid < T) {
+      const float zsig = (rz[tid] + rz[T + tid]) + p.bsig[0];
+      rowv[tid] = bf16_round(1.f / (1.f + expf(-zsig)));
+    }
+    sm90::named_sync(BAR_C, NC);
+    // ------- b_th_{L-1} = bf16(sigmoid(zsig)) w_sigma; b_tz = act' b_th
+    {
+      float* o = out + (size_t)last * 128 * NC;
+      const float s0 = rowv[r0], s1 = rowv[r0 + 8];
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        const float2 ws = *reinterpret_cast<const float2*>(wsig + cb + 8 * j);
+        const float bt[4] = {s0 * ws.x, s0 * ws.y, s1 * ws.x, s1 * ws.y};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          __stcs(o + (4 * j + e) * NC, bt[e]);
+          acc[4 * j + e] *= bt[e];
+        }
+        put4(j);
+      }
+    }
+    sm90::fence_async_smem();
+    sm90::named_sync(BAR_C, NC);     // b_tz is the next product's A
+    // --------------------- b_th_{i-1} = b_tz_i W_i, i = L-1 down to 1
+    for (int i = last; i >= 1; --i) {
+      consume<256, 1>(acc, act, F, act, F / KSL, false, r, full, empty, ring,
+                      wg, leader);
+      float* o = out + (size_t)(i - 1) * 128 * NC;
+#pragma unroll
+      for (int k = 0; k < 128; ++k) __stcs(o + k * NC, acc[k]);
+      if (i == 1) break;
+      sm90::named_sync(BAR_C, NC);   // both products read act
+      // b_tz_{i-1} = act'(z_{i-1}) b_th_{i-1}, z from the ring
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        if (j % 16 == 0) sm90::mbar_wait(&full[r.stage], r.phase);
+        const float4 z4 = z_of(j);
+        const float zz[4] = {z4.x, z4.y, z4.z, z4.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float h, d;
+          act_eval(zz[e], 1.f, h, d);
+          acc[4 * j + e] *= d;
+        }
+        put4(j);
+        if (j % 16 == 15) {
+          release(empty, r.stage);
+          r.advance();
+        }
+      }
+      sm90::fence_async_smem();
+      sm90::named_sync(BAR_C, NC);
+    }
+  }
+}
+
+}  // namespace trunk
+
 using namespace trunk;
 
-// x, cg (n_rows, 128) f32, cot (n_rows, 8) f32, zs/us (n_rows, layers * 512)
+// x, cg (n_rows, 128) f32, cot (n_rows, 8) f32, zs (n_rows, layers * 512)
 // bf16, with n_rows % 64 == 0; trunk weights as trunk_bwd_launch, heads as
-// trunk_heads_fwd_launch.  Scratch: K3's (part (n/64, (layers+1) * 512 +
+// trunk_heads_fwd_launch.  Scratch: uc (n_rows * layers * 512 f32, the
+// rebuilt b_th chain), K3's (part (n/64, (layers+1) * 512 +
 // HEAD_PART) f32, wpart_tiles = (8 layers - 4) x splits_trunk + 24 x
 // splits_heads partial tiles in wpart), then hl, xfb, axf (n, 512) and cz1
 // (n, 1024) bf16.  Outputs f32 in (in, out) layout: K3's, then dwf (512,
 // 512), dbf (512,), dw1 (512, 1024) = [dW_1r | dW_1p], db1 (1024,), dw2r
 // (256, 128), db2r (128,), dw2p (768, 128), db2p (128,), whose columns >= 3
-// the kernels leave as they find them.  Three kernels on the stream;
-// returns a cudaError_t.
+// the kernels leave as they find them.  Four kernels on the stream (the
+// b_th chain, then K3's three); returns a cudaError_t.
 extern "C" int trunk_heads_bwd_launch(
     const float* x, const float* cot, const float* cg, const void* zs,
-    const void* us, int n_rows, int n_blocks, const void* w0,
+    float* uc, int n_rows, int n_blocks, const void* w0,
     const void* wmid, const void* wskip, const float* wsig,
     const float* bsig, const void* wf, const float* bf, const void* w1r,
     const float* b1r, const void* w2r, const void* w1p, const float* b1p,
@@ -66,7 +248,7 @@ extern "C" int trunk_heads_bwd_launch(
   p.cot = cot;
   p.cg = cg;
   p.zs = static_cast<const bf16*>(zs);
-  p.us = static_cast<const bf16*>(us);
+  p.uc = uc;
   p.n = n_rows;
   p.n_tiles = n_rows / T;
   p.w0 = static_cast<const bf16*>(w0);
@@ -115,5 +297,19 @@ extern "C" int trunk_heads_bwd_launch(
   p.db2p = db2p;
   p.layers = layers;
   p.skip = skip;
+  if (n_rows <= 0 || n_rows % T != 0 || n_blocks <= 0 || layers < 3 ||
+      skip <= 0 || skip >= layers)
+    return (int)cudaErrorInvalidValue;
+  SweepMaps maps;
+  if (!sweep_maps<true>(p, &maps)) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      trunk_heads_uchain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      UC_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  trunk_heads_uchain_kernel<<<n_blocks, NTB, UC_SMEM,
+                              static_cast<cudaStream_t>(stream)>>>(maps, p,
+                                                                   uc);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
   return launch_bwd<true>(p, n_blocks, stream);
 }

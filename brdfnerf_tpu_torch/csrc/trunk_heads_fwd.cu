@@ -2,16 +2,16 @@
 // plus the flagship head block on each tile's features: xf = h W_f^T + b_f,
 // the rgb head and the three RPV(111) heads, which leave as packed logits
 // [softplus sigma, rgb x3, k, theta, rhoc, 0] (n, 8) f32 beside gx.  The
-// features never reach device memory.  In training it also saves zs and us
-// for the backward kernel K5 (trunk_heads_bwd.cu), exactly as K2 does; the
-// Pallas kernel saves zs only and its backward rebuilds the u chain.
+// features never reach device memory.  In training it also saves zs for the
+// backward kernel K5 (trunk_heads_bwd.cu), exactly as K2 does, and, like the
+// Pallas kernel, nothing else: K5 rebuilds the u chain from zs.
 //
 // Replaces: brdfnerf_tpu/ops/pallas_trunk_heads.py::_fwd_kernel_h
 // (pallas_call at pallas_trunk_heads.py:364), with and without zs.
 //
 // What bounds it: tensor-core operations.  A point costs K2's 7,586,816 FLOP
 // plus 787,968 multiply-adds for the heads (9.16 MFLOP in all), against
-// 512 bytes of input and 544 bytes of output (16 KB more with zs/us).
+// 512 bytes of input and 544 bytes of output (8 KB more with zs).
 //
 // Design (trunk_fwd_grad.cuh, on sm90_trunk.cuh): K2's warp-specialised
 // tile loop.  After the last trunk layer h replaces the layer's input in the
@@ -33,8 +33,8 @@ using namespace trunk;
 // x (n_rows, 128) f32 with n_rows % 64 == 0; trunk weights as
 // trunk_fwd_grad_launch; heads as ops/fused_trunk_heads.pack_head_weights
 // at width 512 (bf16 weights, f32 biases).  Outputs out (n_rows, 8) f32, gx
-// (n_rows, 128) f32, and, when zs is not null, zs and us (n_rows,
-// layers * 512) bf16.  scratch holds n_blocks * layers * 64 * 512 floats.
+// (n_rows, 128) f32, and, when zs is not null, zs (n_rows, layers * 512)
+// bf16.  scratch holds n_blocks * layers * 64 * 512 floats.
 // Returns a cudaError_t.
 extern "C" int trunk_heads_fwd_launch(
     const float* x, int n_rows, int n_blocks, const void* w0, const float* b0,
@@ -43,7 +43,7 @@ extern "C" int trunk_heads_fwd_launch(
     const float* bf, const void* w1r, const float* b1r, const void* w2r,
     const float* b2r, const void* w1p, const float* b1p, const void* w2p,
     const float* b2p, float* out, float* gx, float* scratch, void* zs,
-    void* us, int layers, int skip, void* stream) {
+    int layers, int skip, void* stream) {
   FwdArgs p = {};
   p.x = x;
   p.n_tiles = n_rows / T;
@@ -69,7 +69,6 @@ extern "C" int trunk_heads_fwd_launch(
   p.gx = gx;
   p.scratch = scratch;
   p.zs = static_cast<bf16*>(zs);
-  p.us = static_cast<bf16*>(us);
   p.layers = layers;
   p.skip = skip;
   return launch_fwd<true>(p, n_rows, n_blocks, stream);

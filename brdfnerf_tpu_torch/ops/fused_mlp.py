@@ -8,6 +8,11 @@ detached values.  On a CUDA tensor `fused_trunk_sigma` launches kernel K1
 plain PyTorch twin that repeats the Pallas kernel's arithmetic.  There is no
 fallback from one to the other.
 
+The Pallas kernel multiplies f32 activations by bf16 weights in f32.  K1
+keeps that on bf16 tensor cores by splitting each f32 operand into two
+bf16 terms (`split_bf16`) and summing both products in f32;
+`_trunk_sigma_split` is that arithmetic in plain PyTorch, for the tests.
+
 The skip layer's concat([enc, h]) @ W is split as enc @ W_top + h @ W_bot;
 the packed `w_skip` holds [W_top (lane-padded) | W_bot] in (out, in) layout,
 so the kernel runs it as one product over [enc | h].
@@ -135,6 +140,45 @@ def _trunk_sigma_plain(packed: Dict, cfg: ModelConfig, x: torch.Tensor,
             z = h @ packed["w_mid"][mid].float().t() + packed["b_mid"][mid]
             mid += 1
         h = act(z, False)
+    sigma = _softplus(h @ packed["w_sigma"] + packed["b_sigma"])
+    return sigma, (h if want_feats else None)
+
+
+def split_bf16(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) bf16 with hi = bf16(a), lo = bf16(a - hi), both rounded to
+    nearest even: hi + lo holds a normal f32 value a to 2^-16 relative,
+    as long as a - hi is normal too (|a| >= 2^-110) and a is within bf16's
+    finite range.  K1's operand split (csrc/trunk_sigma.cu)."""
+    hi = a.to(torch.bfloat16)
+    return hi, (a - hi.float()).to(torch.bfloat16)
+
+
+def _trunk_sigma_split(packed: Dict, cfg: ModelConfig, x: torch.Tensor,
+                       want_feats: bool):
+    """K1's arithmetic in plain PyTorch, for the tests: every product as
+    hi . W + lo . W on the split_bf16 terms of its f32 operand (the
+    activations and the encoded input), f32 sums, then bias, activation and
+    the sigma head in f32 as in _trunk_sigma_plain.  Siren trunks with the
+    polynomial sine only, the kernel's activation."""
+    from .fast_math import fast_sin
+
+    def mm(a, w):
+        hi, lo = split_bf16(a)
+        wf = w.float().t()
+        return hi.float() @ wf + lo.float() @ wf
+
+    ein_p = packed["w0"].shape[1]
+    skip = cfg.skips[0]
+    h = fast_sin(30.0 * (mm(x, packed["w0"]) + packed["b0"]))
+    mid = 0
+    for i in range(1, cfg.layers):
+        if i == skip:
+            ws = packed["w_skip"]
+            z = mm(h, ws[:, ein_p:]) + mm(x, ws[:, :ein_p]) + packed["b_skip"]
+        else:
+            z = mm(h, packed["w_mid"][mid]) + packed["b_mid"][mid]
+            mid += 1
+        h = fast_sin(z)
     sigma = _softplus(h @ packed["w_sigma"] + packed["b_sigma"])
     return sigma, (h if want_feats else None)
 

@@ -23,9 +23,10 @@ sweep), then K3's second-order sweep.
 On a CUDA tensor `_run_fwd_h` launches K4 (csrc/trunk_heads_fwd.cu) and
 `_run_bwd_h` K5 (csrc/trunk_heads_bwd.cu); on a CPU tensor they run
 `_trunk_heads_fwd_plain` and `_trunk_heads_bwd_plain`, the Pallas kernels'
-arithmetic.  Like the Pallas pair, the twins save zs only and the backward
-twin rebuilds the u chain (b_th) in f32; K4 also saves us in bf16 as K2
-does, and K5 loads it as K3 does.
+arithmetic.  Like the Pallas pair, the forward saves zs only and the
+backward rebuilds the u chain (b_th) from zs in f32 (`uchain_plain`; K5 in
+a kernel of its own before K3's sweep, `uchain_from_kernel` reads its
+layout).
 
 The path is opt-in, as in the JAX package: models.network reads
 BRDFNERF_FUSED_HEADS.
@@ -46,7 +47,8 @@ from .fused_mlp import (FEAT, LANE, TILE_N, _round_up, check_kernel_inputs,
                         weight_dtype)
 from .fused_trunk_vjp import (_act_all, _bwd_primal_tangent, _forward_chain,
                               _grad_chain, _mm, _mm_t, _outer, _pack_params,
-                              _reverse_sweep, _saved_dtype, _unpack_grads,
+                              _reverse_sweep, _saved_dtype, _split_skip,
+                              _unpack_grads,
                               encode_with_jacobian, fwd_scratch,
                               trunk_params, wgrad_scratch)
 
@@ -63,7 +65,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 TRUNK_HEADS_FWD = CudaKernel(
     "trunk_heads_fwd", "trunk_heads_fwd_launch",
-    [_P, _I, _I] + [_P] * 8 + [_P] * 10 + [_P] * 5 + [_I, _I, _P])
+    [_P, _I, _I] + [_P] * 8 + [_P] * 10 + [_P] * 4 + [_I, _I, _P])
 TRUNK_HEADS_BWD = CudaKernel(
     "trunk_heads_bwd", "trunk_heads_bwd_launch",
     [_P] * 5 + [_I, _I] + [_P] * 5 + [_P] * 8 + [_P] * 7 + [_I, _I, _I]
@@ -163,12 +165,56 @@ def _trunk_heads_fwd_plain(packed: Dict, hw: Dict, cfg: ModelConfig, x,
     return out, gx, zs
 
 
+def uchain_plain(packed: Dict, cfg: ModelConfig, zs) -> torch.Tensor:
+    """The b_th chain the Pallas _bwd_kernel_h rebuilds (pallas_trunk_heads.
+    py:252-291), in its expression order, from the saved zs (n, L*F):
+    b_th_{L-1} = bf16(sigmoid(zsig)) w_sigma with zsig = bf16(h_{L-1}) .
+    w_sigma + b, then b_th_{l-1} = bf16(act'(z_l) b_th_l) W_l.  Returns
+    (n, L*F) f32, layer l in columns [l F, (l+1) F)."""
+    od = weight_dtype(cfg)
+    layers, skip, feat = cfg.layers, cfg.skips[0], cfg.feat
+    _, w_bot = _split_skip(packed)
+    wsig = packed["w_sigma"][None, :]
+    d1s, h = [], None
+    for i in range(layers):
+        z = zs[:, i * feat:(i + 1) * feat].float()
+        h, d1 = _act_all(z, 30.0 if i == 0 else 1.0, cfg.siren, cfg.fast_sin)
+        d1s.append(d1)
+    zsig = _mm(h, wsig, od)[:, 0] + packed["b_sigma"]
+    b_th = _mm_t(torch.sigmoid(zsig)[:, None], wsig, od)
+    out: List = [None] * layers
+    mid = layers - 3
+    for i in range(layers - 1, -1, -1):
+        out[i] = b_th
+        if i == 0:
+            break
+        b_tz = d1s[i] * b_th
+        if i == skip:
+            b_th = _mm_t(b_tz, w_bot, od)
+        else:
+            b_th = _mm_t(b_tz, packed["w_mid"][mid], od)
+            mid -= 1
+    return torch.cat(out, 1)
+
+
+def uchain_from_kernel(uc: torch.Tensor, n: int, layers: int) -> torch.Tensor:
+    """K5's rebuilt b_th chain (csrc/trunk_heads_bwd.cu: element j, e of
+    consumer thread c of layer l of tile t at ((t L + l) 128 + 4 j + e) 256
+    + c, as the wgmma accumulators hold it) as (n, L*F), uchain_plain's
+    layout.  Thread c = 128 wg + 32 w + 4 q + p holds rows 16 w + q + 8 hf
+    and columns 256 wg + 8 j + 2 p + e1 (e = 2 hf + e1)."""
+    v = uc[:n * layers * FEAT].view(n // TILE_N, layers, 32, 2, 2, 2, 4, 8,
+                                    4)
+    # (tile, l, j, hf, e1, wg, w, q, p) -> (tile, w, hf, q, l, wg, j, p, e1)
+    return v.permute(0, 6, 3, 7, 1, 5, 2, 8, 4).reshape(n, layers * FEAT)
+
+
 def _trunk_heads_bwd_plain(packed: Dict, hw: Dict, cfg: ModelConfig, x, cot,
                            cg, zs):
     """Plain twin of K5, the Pallas _bwd_kernel_h (pallas_trunk_heads.py:
     185-302) in the same expression order: the b_th chain is rebuilt from
-    w_sigma, not loaded.  x, cg (n, Ein_p) f32, cot (n, 8) f32, zs (n, L*F).
-    Returns K3's nine trunk grads, then dwf (F, F), dbf, dw1r (F, H), db1r,
+    zs (uchain_plain), not loaded.  x, cg (n, Ein_p) f32, cot (n, 8) f32,
+    zs (n, L*F).  Returns K3's nine trunk grads, then dwf (F, F), dbf, dw1r (F, H), db1r,
     dw2r (H, LANE), db2r (LANE,), dw1p (F, 3H), db1p, dw2p (3H, LANE), db2p
     (LANE,), all f32 in (in, out) layout like the Pallas kernel's."""
     od = weight_dtype(cfg)
@@ -199,9 +245,9 @@ def _trunk_heads_bwd_plain(packed: Dict, hw: Dict, cfg: ModelConfig, x, cot,
     dwsig = (_outer(hs[-1], a_z, od) + _outer(ths[-1], b_tz, od))[:, 0]
     dbsig = torch.sum(a_z, 0)
     a_h = _mm_t(a_z, wsig, od) + a_h_heads
-    b_th = _mm_t(b_tz, wsig, od)
+    bths = uchain_plain(packed, cfg, zs).split(cfg.feat, 1)
     trunk = _reverse_sweep(packed, cfg, x, cg, hs, d1s, d2s, tzs, ths, a_h,
-                           b_th=b_th)
+                           bths=bths)
     return trunk + (dwsig, dbsig, dwf, dbf, dw1r, db1r, dw2r, db2r, dw1p,
                     db1p, dw2p, db2p)
 
@@ -226,23 +272,20 @@ def check_head_weights(cfg: ModelConfig, hw: Dict, x: torch.Tensor):
 
 def _trunk_heads_fwd_cuda(packed: Dict, hw: Dict, cfg: ModelConfig, x,
                           want_zs: bool = False):
-    """K4: (out (n, 8), gx (n, LANE)), with want_zs also zs and us (n, L*F)
-    bf16, the residuals K5 reads."""
+    """K4: (out (n, 8), gx (n, LANE), zs): with want_zs, zs (n, L*F) bf16,
+    the residual K5 reads, else None."""
     check_kernel_inputs(cfg, packed, x)
     check_head_weights(cfg, hw, x)
     if want_zs and cfg.compute_dtype != "bfloat16_all":
         raise ValueError(
-            "K4 saves zs/us in bf16, the bfloat16_all contract; "
-            f"compute_dtype={cfg.compute_dtype!r} saves them in f32, which "
+            "K4 saves zs in bf16, the bfloat16_all contract; "
+            f"compute_dtype={cfg.compute_dtype!r} saves it in f32, which "
             "the CUDA kernels do not take")
     n, dev = x.shape[0], x.device
     out = torch.empty(n, HEAD_COLS, dtype=torch.float32, device=dev)
     gx = torch.empty(n, LANE, dtype=torch.float32, device=dev)
-    zs = us = None
-    if want_zs:
-        zs = torch.empty(n, cfg.layers * FEAT, dtype=torch.bfloat16,
-                         device=dev)
-        us = torch.empty_like(zs)
+    zs = (torch.empty(n, cfg.layers * FEAT, dtype=torch.bfloat16,
+                      device=dev) if want_zs else None)
     n_blocks, scratch = fwd_scratch(n, cfg.layers, True, dev)
     TRUNK_HEADS_FWD(
         x.data_ptr(), n, n_blocks,
@@ -252,22 +295,21 @@ def _trunk_heads_fwd_cuda(packed: Dict, hw: Dict, cfg: ModelConfig, x,
         *(hw[k].data_ptr() for k in ("wf", "bf", "w1r", "b1r", "w2r", "b2r",
                                      "w1p", "b1p", "w2p", "b2p")),
         out.data_ptr(), gx.data_ptr(), scratch.data_ptr(),
-        None if zs is None else zs.data_ptr(),
-        None if us is None else us.data_ptr(), cfg.layers, cfg.skips[0],
+        None if zs is None else zs.data_ptr(), cfg.layers, cfg.skips[0],
         torch.cuda.current_stream(dev).cuda_stream)
-    return out, gx, zs, us
+    return out, gx, zs
 
 
 def check_bwd_h_inputs(cfg: ModelConfig, packed: Dict, hw: Dict, x, cot, cg,
-                       zs, us):
-    """What K5 takes; anything else raises."""
+                       zs):
+    """What K5 takes; anything else raises.  It takes no u chain: it
+    rebuilds it from zs."""
     check_kernel_inputs(cfg, packed, x)
     check_head_weights(cfg, hw, x)
     n, lf = x.shape[0], cfg.layers * FEAT
     want = {"cot": (cot, (n, HEAD_COLS), torch.float32),
             "cg": (cg, (n, LANE), torch.float32),
-            "zs": (zs, (n, lf), torch.bfloat16),
-            "us": (us, (n, lf), torch.bfloat16)}
+            "zs": (zs, (n, lf), torch.bfloat16)}
     for k, (v, shape, dt) in want.items():
         if v is None or not (v.device == x.device and v.is_contiguous()
                              and tuple(v.shape) == shape and v.dtype == dt):
@@ -278,11 +320,13 @@ def check_bwd_h_inputs(cfg: ModelConfig, packed: Dict, hw: Dict, x, cot, cg,
 
 
 def _trunk_heads_bwd_cuda(packed: Dict, hw: Dict, cfg: ModelConfig, x, cot,
-                          cg, zs, us, scratch_out=None):
+                          cg, zs, scratch_out=None):
     """K5: the outputs of _trunk_heads_bwd_plain.  dw2r / dw2p hold their
     three logit columns and zeros elsewhere.  A dict passed as scratch_out
-    receives the kernel's scratch (for checks of its intermediates)."""
-    check_bwd_h_inputs(cfg, packed, hw, x, cot, cg, zs, us)
+    receives the kernel's scratch (for checks of its intermediates; "uc",
+    the rebuilt b_th chain, reads as uchain_plain through
+    uchain_from_kernel)."""
+    check_bwd_h_inputs(cfg, packed, hw, x, cot, cg, zs)
     n, dev = x.shape[0], x.device
     layers, F, H = cfg.layers, FEAT, HID
 
@@ -298,9 +342,10 @@ def _trunk_heads_bwd_cuda(packed: Dict, hw: Dict, cfg: ModelConfig, x, cot,
     n_tiles = n // TILE_N
     n_blocks = min(n_tiles,
                    torch.cuda.get_device_properties(dev).multi_processor_count)
-    # K3's scratch, then the bf16 operands of the heads' weight-gradient
-    # products: h_{L-1}, xf, a_xf and the first layers' cotangents
-    # [c_z1r | c_z1p]
+    # the rebuilt b_th chain, K3's scratch, then the bf16 operands of the
+    # heads' weight-gradient products: h_{L-1}, xf, a_xf and the first
+    # layers' cotangents [c_z1r | c_z1p]
+    uc = f32(n * layers * F)
     splits_t, splits_h, wpart = wgrad_scratch(n, layers, True, dev)
     scratch = (bf(2, n, LANE), bf(layers - 1, 2, n, F), bf(layers, 2, n, F),
                f32(n_tiles, (layers + 1) * F + HEAD_PART), f32(n_tiles),
@@ -313,7 +358,7 @@ def _trunk_heads_bwd_cuda(packed: Dict, hw: Dict, cfg: ModelConfig, x, cot,
              zeros(3 * H, LANE), zeros(LANE))
     TRUNK_HEADS_BWD(
         x.data_ptr(), cot.data_ptr(), cg.data_ptr(), zs.data_ptr(),
-        us.data_ptr(), n, n_blocks,
+        uc.data_ptr(), n, n_blocks,
         *(packed[k].data_ptr() for k in ("w0", "w_mid", "w_skip", "w_sigma",
                                          "b_sigma")),
         *(hw[k].data_ptr() for k in ("wf", "bf", "w1r", "b1r", "w2r", "w1p",
@@ -325,6 +370,7 @@ def _trunk_heads_bwd_cuda(packed: Dict, hw: Dict, cfg: ModelConfig, x, cot,
     if scratch_out is not None:
         scratch_out.update(zip(("xt", "hth", "azbtz", "part", "pbs"), scratch))
         scratch_out.update(zip(("hl", "xfb", "axf", "cz1"), head_ops))
+        scratch_out["uc"] = uc
     dwf, dbf, _, _, dw2r, db2r, dw2p, db2p = heads
     return trunk + (dwf, dbf, dw1[:, :H], db1[:H], dw2r, db2r, dw1[:, H:],
                     db1[H:], dw2p, db2p)
@@ -335,27 +381,25 @@ def _trunk_heads_bwd_cuda(packed: Dict, hw: Dict, cfg: ModelConfig, x, cot,
 def _run_fwd_h(cfg: ModelConfig, packed: Dict, hw: Dict, x_enc,
                want_zs: bool = False):
     """(packed logits (n, 8), gx (n, Ein_p)) of encoded points; with
-    want_zs also zs and us, padded to the kernel's row count.  us is the
-    kernel's saved u chain, None from the twin (whose backward rebuilds
-    it, as the Pallas pair does)."""
+    want_zs also zs, padded to the kernel's row count (the backward
+    rebuilds the u chain from it, as the Pallas pair does)."""
     n = x_enc.shape[0]
     x = pad_rows_lanes(x_enc, _round_up(max(n, TILE_N), TILE_N),
                        packed["w0"].shape[1])
     if x.device.type == "cpu":
         out, gx, zs = _trunk_heads_fwd_plain(packed, hw, cfg, x, want_zs)
-        us = None
     else:
-        out, gx, zs, us = _trunk_heads_fwd_cuda(packed, hw, cfg, x, want_zs)
+        out, gx, zs = _trunk_heads_fwd_cuda(packed, hw, cfg, x, want_zs)
     if want_zs:
-        return out[:n], gx[:n], zs, us
+        return out[:n], gx[:n], zs
     return out[:n], gx[:n]
 
 
 def _run_bwd_h(cfg: ModelConfig, packed: Dict, hw: Dict, x_enc, c_out, c_g,
-               zs, us=None):
-    """The trunk's and the heads' packed weight grads from the saved zs
-    (and, on the card, us); rows are padded to zs's row count with zero
-    cotangents, which contribute exactly 0."""
+               zs):
+    """The trunk's and the heads' packed weight grads from the saved zs;
+    rows are padded to zs's row count with zero cotangents, which
+    contribute exactly 0."""
     n_p = zs.shape[0]
     ein_p = packed["w0"].shape[1]
     x = pad_rows_lanes(x_enc, n_p, ein_p)
@@ -363,7 +407,7 @@ def _run_bwd_h(cfg: ModelConfig, packed: Dict, hw: Dict, x_enc, c_out, c_g,
     cg = pad_rows_lanes(c_g, n_p, ein_p)
     if x.device.type == "cpu":
         return _trunk_heads_bwd_plain(packed, hw, cfg, x, cot, cg, zs)
-    return _trunk_heads_bwd_cuda(packed, hw, cfg, x, cot, cg, zs, us)
+    return _trunk_heads_bwd_cuda(packed, hw, cfg, x, cot, cg, zs)
 
 
 def _unpack_head_grads(cfg: ModelConfig, outs) -> List[torch.Tensor]:
@@ -403,7 +447,7 @@ def _head_view(params) -> Dict[str, list]:
 
 class TrunkHeadsCore(torch.autograd.Function):
     """(packed logits, d sigma / d x_enc) with the hand-derived VJP: the
-    forward runs K4 saving zs (and us on the card), the backward K5.  x_enc
+    forward runs K4 saving zs, the backward K5.  x_enc
     carries no gradient; like the JAX package's _trunk_heads_bwd, its grad
     is zeros."""
 
@@ -413,8 +457,8 @@ class TrunkHeadsCore(torch.autograd.Function):
         packed = _pack_params(cfg, params[:n_trunk])
         hw = pack_head_weights(_head_view(params[n_trunk:]), cfg,
                                weight_dtype(cfg))
-        out, gx, zs, us = _run_fwd_h(cfg, packed, hw, x_enc, want_zs=True)
-        ctx.cfg, ctx.packed, ctx.hw, ctx.zs, ctx.us = cfg, packed, hw, zs, us
+        out, gx, zs = _run_fwd_h(cfg, packed, hw, x_enc, want_zs=True)
+        ctx.cfg, ctx.packed, ctx.hw, ctx.zs = cfg, packed, hw, zs
         ctx.save_for_backward(x_enc)
         ctx.ein = params[0].shape[1]
         ctx.set_materialize_grads(False)
@@ -431,7 +475,7 @@ class TrunkHeadsCore(torch.autograd.Function):
             c_g = torch.zeros(n, ctx.packed["w0"].shape[1],
                               dtype=torch.float32, device=dev)
         outs = _run_bwd_h(ctx.cfg, ctx.packed, ctx.hw, x, c_out.float(),
-                          c_g.float(), ctx.zs, ctx.us)
+                          c_g.float(), ctx.zs)
         grads = (_unpack_grads(ctx.cfg, ctx.ein, outs[:9])
                  + _unpack_head_grads(ctx.cfg, outs[9:]))
         dx = torch.zeros_like(x) if ctx.needs_input_grad[1] else None

@@ -187,9 +187,8 @@ def child(n: int) -> int:
         ok &= _hold(f"K2 {name}", g_, r_, 1e-2 if name in ("zs", "us")
                     else None)
     for name, g_, r_ in (("out", z4[0], p4[0]), ("gx", z4[1], p4[1]),
-                         ("zs", z4[2], p4[2]), ("us", z4[3], p2[4])):
-        ok &= _hold(f"K4 {name}", g_, r_, 1e-2 if name in ("zs", "us")
-                    else None)
+                         ("zs", z4[2], p4[2])):
+        ok &= _hold(f"K4 {name}", g_, r_, 1e-2 if name == "zs" else None)
     checks = {
         "K2 twice bit-identical": all(torch.equal(a, b)
                                       for a, b in zip(z2, z2b)),
@@ -197,12 +196,11 @@ def child(n: int) -> int:
                                       for a, b in zip(z4, z4b)),
         "K2 saving zs/us gives the serving outputs": all(
             torch.equal(a, b) for a, b in zip(z2[:3], s2)),
-        "K4 saving zs/us gives the serving outputs": all(
+        "K4 saving zs gives the serving outputs": all(
             torch.equal(a, b) for a, b in zip(z4[:2], s4[:2])),
         "K4 sigma and gx bit-identical to K2's": (
             torch.equal(s4[0][:, 0], s2[0]) and torch.equal(s4[1], s2[2])),
-        "K4 zs/us bit-identical to K2's": (torch.equal(z4[2], z2[3])
-                                          and torch.equal(z4[3], z2[4])),
+        "K4 zs bit-identical to K2's": torch.equal(z4[2], z2[3]),
         "gx padded lanes 0": (s2[2][:, 60:].abs().max().item() == 0.0
                               and s4[1][:, 60:].abs().max().item() == 0.0),
         "K4 padded column 0": s4[0][:, 7].abs().max().item() == 0.0,

@@ -5,21 +5,27 @@ the port's own entry points and check what comes out.
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero; nothing is caught):
+Phases (any failure exits non-zero; nothing is caught; a step-check
+comparison that misses its bound is reported at the end of the run, after
+every phase has run, and the run exits 1):
   1. device   - require CUDA; print the card's name and power limit
   2. build    - nvcc for sm_90a, one process per kernel source, in
                 parallel; registers, spills and shared memory of the
                 forward and backward kernels (ptxas -v)
-  3. kernels  - K1 (trunk + sigma) at 327,680 points and K2 (trunk + sigma
-                gradient) at 655,360 points, the serving shapes; K2 saving
-                zs/us and K3 (the trunk's second-order backward) at 131,072
-                points, the training step's, and K2, K4 and K3, K5 again at
-                192 points (3 tiles: no multiple of a split or a wave);
-                bfloat16_all with the polynomial sine, each against its
-                twin, every instantiation of K2 and K4 launched twice with
-                bit-identical outputs; times of kernel, twin and a chain of
-                torch.matmul calls for the same products, and of K3's and
-                K5's kernel functions (sweep, weight gradients, reduce)
+  3. kernels  - K1 (trunk + sigma, split f32 products) at 327,680 and
+                65,536 points (the serving and training passes) and K2
+                (trunk + sigma gradient) at 655,360 points, the serving
+                shape; K2 saving zs/us and K3 (the trunk's second-order
+                backward) at 131,072 points, the training step's, and K2,
+                K4, K1 (with and without feats) and K3, K5 (on 5 draws)
+                again at 192 points (3 tiles: no multiple of a split or a
+                wave); bfloat16_all with the polynomial sine, each against
+                its twin, every instantiation of K1, K2 and K4 launched
+                twice with bit-identical outputs; times of kernel, twin and
+                a chain of torch.matmul calls for the same products (K1:
+                hi and lo chains summed, its fidelity, and one bf16 chain),
+                and of K3's and K5's kernel functions (K5's b_th chain,
+                sweep, weight gradients, reduce)
   4. serving  - a run directory from the port's train_parser / dump_opts and
                 a seeded init_network / save_checkpoint, then
                 load_renderer(device="cuda") answers 3 requests of 16,384
@@ -33,19 +39,25 @@ Phases (any failure exits non-zero; nothing is caught):
                 launch counts per step and a falling loss; one step profiled
   7. step check - one step's parameter gradients on 128 rays through the
                 kernels on the card against the same step through the twins,
-                on the card and on the CPU, at the weights of step 3
+                on the card and on the CPU, at the weights after each of the
+                last 8 timed steps (the last: after all of them); at every
+                point the backward kernel held to its twin on all 128 rays,
+                and every comparison held to its bound on the rays whose
+                gradient the bf16 contract determines (ill_conditioned_rays,
+                read from the twins on the CPU, at least half of them)
 With BRDFNERF_FUSED_HEADS set in-process (the flagship head block inside
 the kernel pair, ops/fused_trunk_heads.py):
   3b. kernels - K4 (trunk + heads) at the serving shape without zs and at
-                the training shape with zs/us, K5 (its backward) at the
-                training shape and at 192 points, twice, each against its
-                twin
+                the training shape with zs, K5 (its backward, rebuilding the
+                u chain from zs) at the training shape, twice, each against
+                its twin, and K5's rebuilt chain against the twin's
   5b. serving, fused heads - the same 3 requests; launches K1 2, K4 1 per
                 chunk, and a 1,024-ray render against the CPU twins
   6b. training, fused heads - the same stage-2 step; launches K1 2, K4 1,
                 K5 1 per step, a falling loss; one step profiled
   7b. step check, fused heads - one step's gradients, every parameter, at
-                phase 7's weights
+                the weights after this run's last 8 timed steps, held as
+                in 7
 Then one JSON line of every ported kernel, the card's line, and the last
 line {"ok": true, "device": {...}}.
 """
@@ -73,6 +85,7 @@ STORE_BATCHES = 16      # the ray store holds 16 batches
 WARM_STEPS = 3          # from step 3 on every gate of bench.py holds
 TIMED_STEPS = 32        # two passes over the store
 CHECK_RAYS = 128        # rays of the whole-step kernels-vs-twins check
+CHECK_POINTS = 8        # ... at the weights after each of the last 8 steps
 FUSED_HEADS = "BRDFNERF_FUSED_HEADS"   # read per call by models.network
 
 
@@ -143,6 +156,7 @@ GROUPS = (("K1 trunk_sigma", ("trunk_sigma_kernel",)),
                                   "trunk_fwd_grad_kernelilb1elb1e",
                                   "trunk_fwd_grad_kernelilb0elb1e")),
           ("K2 trunk_fwd_grad", ("trunk_fwd_grad_kernel",)),
+          ("K5 trunk_heads_bwd b_th chain", ("trunk_heads_uchain_kernel",)),
           ("K5 trunk_heads_bwd sweep", ("trunk_bwd_sweep_kernel<true>",
                                         "trunk_bwd_sweep_kernelilb1e")),
           ("K5 trunk_heads_bwd wgrad", ("trunk_bwd_wgrad_kernel<true>",
@@ -170,8 +184,8 @@ def kernel_group(name):
 
 def kernel_parts(fn):
     """Device ms per call of each kernel function fn launches (the
-    backward's sweep, wgrad and reduce), from torch.profiler over 3 calls
-    after one."""
+    backward's b_th chain, sweep, wgrad and reduce), from torch.profiler
+    over 3 calls after one."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -182,8 +196,11 @@ def kernel_parts(fn):
     parts = {}
     for ev in prof.key_averages():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
-            for part in ("sweep", "wgrad", "reduce"):
-                if f"trunk_bwd_{part}_kernel" in ev.key:
+            for part, key in (("uchain", "trunk_heads_uchain_kernel"),
+                              ("sweep", "trunk_bwd_sweep_kernel"),
+                              ("wgrad", "trunk_bwd_wgrad_kernel"),
+                              ("reduce", "trunk_bwd_reduce_kernel")):
+                if key in ev.key:
                     parts[f"{part}_ms"] = (parts.get(f"{part}_ms", 0.0)
                                            + ev.self_device_time_total / 3e3)
     return parts
@@ -224,6 +241,32 @@ def profile_device(fn, label):
         print(f"    {ms:9.3f} ms  {name[:100]}", flush=True)
 
 
+def k1_check(label, k1, packed, mcfg, enc, feats):
+    """K1 against its twin on the card, launched twice with bit-identical
+    outputs; returns the largest |d| of sigma."""
+    got = k1._trunk_sigma_cuda(packed, mcfg, enc, feats)
+    n_out = 2 if feats else 1
+    same_twice(label, got[:n_out],
+               k1._trunk_sigma_cuda(packed, mcfg, enc, feats)[:n_out])
+    ref = k1._trunk_sigma_plain(packed, mcfg, enc, feats)
+    torch.cuda.synchronize()
+    # K1 splits each f32 operand into bf16 hi and lo terms (2^-16 relative)
+    # and sums both products in f32, the twin's f32 arithmetic to within
+    # summation order: measured on the card sigma max 7.2e-6 and mean
+    # 1.2e-6 of its scale at 192 .. 327,680 points, feats max 5.1e-5 and
+    # mean 5.0e-6 (tools/sigma_variants.py --check).  The sigma bounds are
+    # 400 times tighter than those of the bf16-activation design (2e-2,
+    # 2e-3 of the scale), whose kernel measured 3.9e-3 and 5.5e-4 here
+    errs = []
+    for i, (mx, mn) in enumerate(((5e-5, 5e-6), (2e-4, 2e-5))[:n_out]):
+        e = diff(f"{label} {('sigma', 'feats')[i]}", got[i], ref[i])
+        assert torch.isfinite(got[i]).all(), label
+        assert e["max"] <= mx * e["scale"], (label, i, e)
+        assert e["mean"] <= mn * e["scale"], (label, i, e)
+        errs.append(e["max"])
+    return errs[0]
+
+
 K5_NAMES = ("dw0", "db0", "dwm", "dbm", "dwst", "dwsb", "dbs", "dwsig",
             "dbsig", "dwf", "dbf", "dw1r", "db1r", "dw2r", "db2r", "dw1p",
             "db1p", "dw2p", "db2p")
@@ -232,9 +275,10 @@ K5_NAMES = ("dw0", "db0", "dwm", "dbm", "dwst", "dwsb", "dbs", "dwsig",
 def heads_kernels(rows, mcfg, net, packed, wbytes, macs, k3_flops, k3_bytes,
                   points, chain_k2, chain_k3, peaks, gen):
     """Phase 3b: K4 at the serving shape without zs and at the training
-    shape with zs/us, K5 at the training shape, twice; each against its
-    twin on the card, timed beside its twin and a torch.matmul chain of the
-    same products (the trunk's chain of K2 / K3, plus the heads')."""
+    shape with zs, K5 at the training shape, twice; each against its twin
+    on the card, timed beside its twin and a torch.matmul chain of the
+    same products (the trunk's chain of K2 / K3, plus the heads'; K5's
+    also the rebuild of the u chain)."""
     from brdfnerf_tpu_torch.ops import fused_mlp as k1
     from brdfnerf_tpu_torch.ops import fused_trunk_heads as k4
     from brdfnerf_tpu_torch.ops import fused_trunk_vjp as k2
@@ -252,6 +296,7 @@ def heads_kernels(rows, mcfg, net, packed, wbytes, macs, k3_flops, k3_bytes,
                         + hid * 3 + 3 * hid)
     wfb, w1b = hw["wf"], torch.cat([hw["w1r"], hw["w1p"]])
     w2r, w2p = hw["w2r"][:3], hw["w2p"][:3]
+    mids = list(packed["w_mid"])
 
     def chain_heads(hb):
         xf = hb @ wfb.t()
@@ -270,7 +315,7 @@ def heads_kernels(rows, mcfg, net, packed, wbytes, macs, k3_flops, k3_bytes,
     # K4: the main pass of a serving chunk, CHUNK * 2 * N_SAMPLES points
     n2 = CHUNK * 2 * N_SAMPLES
     enc = points(n2)
-    out_k, gx_k, _, _ = k4._trunk_heads_fwd_cuda(packed, hw, mcfg, enc)
+    out_k, gx_k, _ = k4._trunk_heads_fwd_cuda(packed, hw, mcfg, enc)
     same_twice("K4", (out_k, gx_k),
                k4._trunk_heads_fwd_cuda(packed, hw, mcfg, enc)[:2])
     out_p, gx_p, _ = k4._trunk_heads_fwd_plain(packed, hw, mcfg, enc)
@@ -305,27 +350,26 @@ def heads_kernels(rows, mcfg, net, packed, wbytes, macs, k3_flops, k3_bytes,
         peaks)
     del enc, encb, hb
 
-    # K4 saving zs/us and K5, at the train step's main pass
+    # K4 saving zs and K5, at the train step's main pass
     n3 = BATCH * 2 * N_SAMPLES
     enc = points(n3)
-    out_k, gx_k, zs, us = k4._trunk_heads_fwd_cuda(packed, hw, mcfg, enc,
-                                                   want_zs=True)
-    same_twice("K4 saving zs/us", (out_k, gx_k, zs, us),
+    out_k, gx_k, zs = k4._trunk_heads_fwd_cuda(packed, hw, mcfg, enc,
+                                               want_zs=True)
+    same_twice("K4 saving zs", (out_k, gx_k, zs),
                k4._trunk_heads_fwd_cuda(packed, hw, mcfg, enc, want_zs=True))
-    out_s, gx_s, _, _ = k4._trunk_heads_fwd_cuda(packed, hw, mcfg, enc)
+    out_s, gx_s, _ = k4._trunk_heads_fwd_cuda(packed, hw, mcfg, enc)
     out_p, gx_p, zs_p = k4._trunk_heads_fwd_plain(packed, hw, mcfg, enc,
                                                   want_zs=True)
-    us_p = k2._trunk_fwd_grad_plain(packed, mcfg, enc, want_zs=True)[4]
     torch.cuda.synchronize()
     # as K2 saving zs/us
-    errs = [check(f"K4+zs/us {name}", got, ref, l2=1e-2)
+    errs = [check(f"K4+zs {name}", got, ref, l2=1e-2)
             for name, got, ref in (("out", out_k, out_p), ("gx", gx_k, gx_p),
-                                   ("zs", zs, zs_p), ("us", us, us_p))]
+                                   ("zs", zs, zs_p))]
     assert torch.equal(out_k, out_s) and torch.equal(gx_k, gx_s), \
-        "K4 with zs/us changes its outputs"
-    del out_k, gx_k, out_s, gx_s, out_p, gx_p, zs_p, us_p
+        "K4 with zs changes its outputs"
+    del out_k, gx_k, out_s, gx_s, out_p, gx_p, zs_p
     rows["K4zs"] = {
-        "name": "trunk_heads_fwd (saving zs/us)", "route": "cuda",
+        "name": "trunk_heads_fwd (saving zs)", "route": "cuda",
         "source": "brdfnerf_tpu_torch/csrc/trunk_heads_fwd.cu",
         "replaces": "brdfnerf_tpu/ops/pallas_trunk_heads.py:154",
         "max_abs_err": max(errs),
@@ -335,7 +379,7 @@ def heads_kernels(rows, mcfg, net, packed, wbytes, macs, k3_flops, k3_bytes,
             packed, hw, mcfg, enc, want_zs=True), 1)}
     rows["K4zs"]["bound_ms"], rows["K4zs"]["bound_by"] = bound_ms(
         k4_pt * n3, n3 * (lane * 4 + 8 * 4 + lane * 4
-                          + 2 * mcfg.layers * feat * 2) + wbytes + hbytes,
+                          + mcfg.layers * feat * 2) + wbytes + hbytes,
         peaks)
     encb = enc.to(torch.bfloat16)
     hb = torch.randn(n3, feat, device="cuda", generator=gen).to(
@@ -347,10 +391,21 @@ def heads_kernels(rows, mcfg, net, packed, wbytes, macs, k3_flops, k3_bytes,
     cot[:, 7] = 0.0
     cg = torch.zeros(n3, lane, device="cuda")
     cg[:, :ein] = torch.randn(n3, ein, device="cuda", generator=gen)
-    got = k4._trunk_heads_bwd_cuda(packed, hw, mcfg, enc, cot, cg, zs, us)
-    again = k4._trunk_heads_bwd_cuda(packed, hw, mcfg, enc, cot, cg, zs, us)
+    scratch = {}
+    got = k4._trunk_heads_bwd_cuda(packed, hw, mcfg, enc, cot, cg, zs,
+                                   scratch_out=scratch)
+    again = k4._trunk_heads_bwd_cuda(packed, hw, mcfg, enc, cot, cg, zs)
     ref = k4._trunk_heads_bwd_plain(packed, hw, mcfg, enc, cot, cg, zs)
     torch.cuda.synchronize()
+    # the b_th chain K5 rebuilds from zs before its sweep, against the
+    # twin's, at K2's us bounds: the same bf16 operands, f32 sums in
+    # another order, whose flipped roundings of b_tz cascade down the
+    # chain as in K2's (measured on the card 8.1e-4 relative L2, K2's us
+    # 3.2e-3)
+    check("K5 rebuilt b_th chain",
+          k4.uchain_from_kernel(scratch["uc"], n3, mcfg.layers),
+          k4.uchain_plain(packed, mcfg, zs), l2=1e-2)
+    del scratch
     k5_err, k5_rel = 0.0, 0.0
     for name, g_, r_, a_ in zip(K5_NAMES, got, ref, again):
         # deterministic: a fixed summation order, no atomics
@@ -360,16 +415,27 @@ def heads_kernels(rows, mcfg, net, packed, wbytes, macs, k3_flops, k3_bytes,
         e = diff(f"K5 {name}", g_, r_)
         k5_err, k5_rel = max(k5_err, e["max"]), max(k5_rel, e["rel"])
         assert torch.isfinite(g_).all(), name
-        # K3's bound of 1e-2 (its measured 1.6e-3 .. 3.6e-3) doubled: K5
-        # loads the bf16 u states K4 saved where its twin, as the Pallas
-        # kernel, rebuilds them in f32
-        assert e["rel"] <= 2e-2, f"K5 {name} relative L2 {e['rel']:.3e}"
+        # K3's bound (its measured 1.6e-3 .. 3.6e-3): K5 rebuilds the u
+        # chain from zs in f32 as its twin and the Pallas kernel do, so the
+        # two differ in summation order alone, as K3 and its twin do
+        assert e["rel"] <= 1e-2, f"K5 {name} relative L2 {e['rel']:.3e}"
     del got, again, ref
     czb = torch.randn(n3, 4 * hid, device="cuda", generator=gen).to(
         torch.bfloat16)
 
+    ubt = torch.randn(n3, feat, device="cuda", generator=gen).to(
+        torch.bfloat16)
+
     def chain_k5():
         chain_k3()
+        u = ubt                                     # the b_th chain
+        m = len(mids) - 1
+        for i in range(mcfg.layers - 1, 0, -1):
+            if i == mcfg.skips[0]:
+                u = u @ packed["w_skip"][:, lane:]
+            else:
+                u = u @ mids[m]
+                m -= 1
         xf = hb @ wfb.t()
         xf @ w1b.t()
         axf = czb @ w1b
@@ -385,27 +451,30 @@ def heads_kernels(rows, mcfg, net, packed, wbytes, macs, k3_flops, k3_bytes,
         "replaces": "brdfnerf_tpu/ops/pallas_trunk_heads.py:185",
         "max_abs_err": k5_err,
         "ms": timed(lambda: k4._trunk_heads_bwd_cuda(
-            packed, hw, mcfg, enc, cot, cg, zs, us), 5),
+            packed, hw, mcfg, enc, cot, cg, zs), 5),
         "plain_ms": timed(lambda: k4._trunk_heads_bwd_plain(
             packed, hw, mcfg, enc, cot, cg, zs), 1),
         "library_ms": timed(chain_k5, 5)}
     rows["K5"].update(kernel_parts(lambda: k4._trunk_heads_bwd_cuda(
-        packed, hw, mcfg, enc, cot, cg, zs, us)))
-    # K3's reads and writes, with the logit cotangents in place of c_feats,
-    # plus the head weights and their grads
+        packed, hw, mcfg, enc, cot, cg, zs)))
+    # K3's reads and writes, with the logit cotangents in place of c_feats
+    # and no us, plus the head weights and their grads; K3's products plus
+    # the heads' and the rebuilt u chain's (L - 1 products of F x F)
     rows["K5"]["bound_ms"], rows["K5"]["bound_by"] = bound_ms(
-        k3_flops + k5_head_pt * n3,
-        k3_bytes - n3 * feat * 2 + n3 * 8 * 4 + hbytes + 4 * head_grads,
-        peaks)
+        k3_flops + (k5_head_pt + 2.0 * (mcfg.layers - 1) * feat * feat) * n3,
+        k3_bytes - n3 * (feat * 2 + mcfg.layers * feat * 2) + n3 * 8 * 4
+        + hbytes + 4 * head_grads, peaks)
     print(f"  K5 largest relative L2 against its twin {k5_rel:.3e}",
           flush=True)
 
 
 def forward_small(n, mcfg, net, packed, points):
-    """K2 and K4, serving and saving zs/us, at n points against their
-    twins on the card at the main paths' bounds; n = 192 is 3 tiles, so
-    most blocks of the persistent grid get none and the last wave is
-    ragged."""
+    """K2 and K4, serving and saving zs/us (K4: zs), and K1 with and
+    without feats, at n points against their twins on the card at the main
+    paths' bounds, each K1 launch twice with bit-identical outputs; n = 192
+    is 3 tiles, so most blocks of the persistent grid get none and the last
+    wave is ragged."""
+    from brdfnerf_tpu_torch.ops import fused_mlp as k1
     from brdfnerf_tpu_torch.ops import fused_trunk_heads as k4
     from brdfnerf_tpu_torch.ops import fused_trunk_vjp as k2
     hw = k4.pack_head_weights(net, mcfg, torch.bfloat16)
@@ -420,7 +489,7 @@ def forward_small(n, mcfg, net, packed, points):
     cases = (list(zip(("K2 sigma", "K2 feats", "K2 gx", "K2 zs", "K2 us"),
                       z2, p2))
              + [("K4 out", z4[0], p4[0]), ("K4 gx", z4[1], p4[1]),
-                ("K4 zs", z4[2], p4[2]), ("K4 us", z4[3], p2[4])])
+                ("K4 zs", z4[2], p4[2])])
     worst = 0.0
     for label, got, ref in cases:
         e = diff(f"{label} at {n} points", got, ref)
@@ -437,11 +506,15 @@ def forward_small(n, mcfg, net, packed, points):
     assert torch.equal(s4[1], s2[2]) and torch.equal(s4[0][:, 0], s2[0])
     print(f"  K2 and K4 at {n} points: largest relative L2 against the "
           f"twins {worst:.3e}", flush=True)
+    for feats in (False, True):
+        k1_check(f"K1 at {n} points, feats {feats}", k1, packed, mcfg, enc,
+                 feats)
 
 
-def backward_small(n, mcfg, net, packed, points, gen):
+def backward_small(n, mcfg, net, packed, points, gen, k5_draws=5):
     """K3 and K5 at n points against their twins on the card, each twice
-    with bit-identical grads, with the bounds of the training shape."""
+    with bit-identical grads, at K3's bound of the training shape; K5 on
+    k5_draws draws of cotangents (the first with K3's points)."""
     from brdfnerf_tpu_torch.ops import fused_trunk_heads as k4
     from brdfnerf_tpu_torch.ops import fused_trunk_vjp as k2
     lane, ein = k2.LANE, mcfg.xyz_in_dim
@@ -451,20 +524,32 @@ def backward_small(n, mcfg, net, packed, points, gen):
     cs = torch.randn(n, device="cuda", generator=gen)
     cf = (torch.randn(n, mcfg.feat, device="cuda", generator=gen)
           * 0.1).to(torch.bfloat16)
-    cg = torch.zeros(n, lane, device="cuda")
-    cg[:, :ein] = torch.randn(n, ein, device="cuda", generator=gen)
-    cot = torch.randn(n, k4.HEAD_COLS, device="cuda", generator=gen)
-    cot[:, 7] = 0.0
-    cases = (
-        ("K3", 1e-2, K5_NAMES[:9],
-         lambda: k2._trunk_bwd_cuda(packed, mcfg, enc, cs, cf, cg, zs, us),
-         lambda: k2._trunk_bwd_plain(packed, mcfg, enc, cs, cf, cg, zs, us)),
-        ("K5", 2e-2, K5_NAMES,
-         lambda: k4._trunk_heads_bwd_cuda(packed, hw, mcfg, enc, cot, cg,
-                                          zs, us),
-         lambda: k4._trunk_heads_bwd_plain(packed, hw, mcfg, enc, cot, cg,
-                                           zs)))
-    for label, bound, names, kernel, twin in cases:
+
+    def c_g():
+        cg_ = torch.zeros(n, lane, device="cuda")
+        cg_[:, :ein] = torch.randn(n, ein, device="cuda", generator=gen)
+        return cg_
+
+    def c_out():
+        cot_ = torch.randn(n, k4.HEAD_COLS, device="cuda", generator=gen)
+        cot_[:, 7] = 0.0
+        return cot_
+
+    cg = c_g()
+    cases = [("K3", K5_NAMES[:9],
+              lambda: k2._trunk_bwd_cuda(packed, mcfg, enc, cs, cf, cg, zs,
+                                         us),
+              lambda: k2._trunk_bwd_plain(packed, mcfg, enc, cs, cf, cg, zs,
+                                          us))]
+    for d in range(k5_draws):
+        cot, cg_d = c_out(), (cg if d == 0 else c_g())
+        cases.append((
+            f"K5 (draw {d})", K5_NAMES,
+            lambda cot=cot, cg_d=cg_d: k4._trunk_heads_bwd_cuda(
+                packed, hw, mcfg, enc, cot, cg_d, zs),
+            lambda cot=cot, cg_d=cg_d: k4._trunk_heads_bwd_plain(
+                packed, hw, mcfg, enc, cot, cg_d, zs)))
+    for label, names, kernel, twin in cases:
         got, again, ref = kernel(), kernel(), twin()
         torch.cuda.synchronize()
         worst = 0.0
@@ -475,7 +560,7 @@ def backward_small(n, mcfg, net, packed, points, gen):
             assert torch.isfinite(g_).all(), (label, name, n)
             rel = rel_l2(g_, r_)
             worst = max(worst, rel)
-            assert rel <= bound, (label, name, n, rel)
+            assert rel <= 1e-2, (label, name, n, rel)
         print(f"  {label} at {n} points: two launches bit-identical, largest "
               f"relative L2 against its twin {worst:.3e}", flush=True)
 
@@ -507,6 +592,49 @@ def make_store(n_rays: int, rng: np.random.RandomState):
                            (n_rays, 1)),
         "valid_normal": np.ones((n_rays,), np.float32),
     }
+
+
+# the bf16 contract's error in one sample's analytic normal: bf16's
+# relative precision (K2's gx lies 1.6e-3 .. 4.1e-3 in relative L2 from its
+# twin's at the trained weights)
+NORMAL_ERR = 2.0 ** -8
+
+
+def ill_conditioned(weights, normals, ci, cv, bound):
+    """The rays whose step gradient the bf16 contract leaves undetermined at
+    `bound`.  weights (n_rays, n_samples) and normals (n_rays, n_samples,
+    3) are the compositing weights and the samples' analytic normals; ci,
+    cv (n_rays,) the cosines of the summed normal
+    normalize(sum_s w_s n_s) with the sun and the view, before RPV clamps
+    them to 1e-5.  The BRDF sees a ray's normal only through RPV's Minnaert
+    factor M1 = (ci cv (ci + cv) + 1e-5)^(k - 1) of the clamped cosines.
+    An error of NORMAL_ERR in each sample's normal moves the summed normal,
+    and so each cosine, by up to err = NORMAL_ERR * sum_s w_s /
+    |sum_s w_s n_s| (the normalisation amplifies it where the samples'
+    normals cancel).  Where both cosines lie above -err (neither held at
+    the clamp), d ln M1 / dc ~ 1 / c moves by err / c relative, so the
+    ray's gradient is undetermined at `bound` where either cosine lies
+    below err / bound; where one cosine is held at the clamp, M1 hardly
+    depends on the normal.  Returns a bool tensor (n_rays,)."""
+    summed = torch.sum(weights[..., None] * normals, -2)
+    err = NORMAL_ERR * weights.sum(-1) / summed.norm(dim=-1).clamp_min(1e-30)
+    return (ci > -err) & (cv > -err) & (torch.minimum(ci, cv) < err / bound)
+
+
+def ill_conditioned_rays(net, mcfg, rcfg, batch, draws, gates, bound):
+    """ill_conditioned on the rays of a training batch, read from `net`'s
+    render with `draws` (the twins on the CPU: nothing of the kernels)."""
+    from brdfnerf_tpu_torch.render.render import RenderInputs, render_rays
+    inp = RenderInputs(rays=batch["rays"], ts=batch["ts"],
+                       valid_depth=batch["valid_depth"],
+                       target_depths=batch["depths"],
+                       target_std=batch["depth_std"],
+                       cos_irra_on=gates.cos_irra_on)
+    with torch.no_grad():
+        res = render_rays(net, mcfg, rcfg, inp, train=True, draws=draws)
+    return ill_conditioned(res["weights_coarse"], res["normal_an_coarse"],
+                           res["nr_sun_coarse"].flatten(),
+                           res["nr_vw_coarse"].flatten(), bound)
 
 
 def main():
@@ -632,32 +760,33 @@ def main():
         return positional_encoding(xyz, mcfg.mapping_sizes[0], fast=True,
                                    pad_to=k1.LANE)
 
-    # K1: two sigma-only passes per chunk, CHUNK * N_SAMPLES points each
+    # K1: two sigma-only passes per chunk, CHUNK * N_SAMPLES points each,
+    # and per train step, BATCH * N_SAMPLES points each
     n1 = CHUNK * N_SAMPLES
     enc = points(n1)
-    s_k, _ = k1._trunk_sigma_cuda(packed, mcfg, enc, False)
-    s_p, _ = k1._trunk_sigma_plain(packed, mcfg, enc, False)
-    torch.cuda.synchronize()
-    e = diff("K1 sigma", s_k, s_p)
-    # the kernel rounds activations to bf16 before each product, the twin
-    # (the Pallas kernel's arithmetic) keeps them f32: at this width that
-    # moves sigma by ~1e-3 on average, ~5e-3 at most on 4,096 points
-    assert torch.isfinite(s_k).all()
-    assert e["max"] <= 2e-2 * e["scale"] and e["mean"] <= 2e-3 * e["scale"]
-    encb = enc.to(torch.bfloat16)
+    err = k1_check("K1", k1, packed, mcfg, enc, False)
+    err = max(err, k1_check(f"K1 at {BATCH * N_SAMPLES} points", k1, packed,
+                            mcfg, points(BATCH * N_SAMPLES), False))
+    encb, encl = k1.split_bf16(enc)
     rows["K1"] = {
         "name": "trunk_sigma", "route": "cuda",
         "source": "brdfnerf_tpu_torch/csrc/trunk_sigma.cu",
         "replaces": "brdfnerf_tpu/ops/pallas_mlp.py:114",
-        "max_abs_err": e["max"],
+        "max_abs_err": err,
         "ms": timed(lambda: k1._trunk_sigma_cuda(packed, mcfg, enc, False),
                     10),
         "plain_ms": timed(lambda: k1._trunk_sigma_plain(packed, mcfg, enc,
                                                         False), 2),
-        "library_ms": timed(lambda: chain_fwd(encb), 10)}
+        # K1's fidelity: the hi and the lo chain, summed
+        "library_ms": timed(lambda: chain_fwd(encb)[0] + chain_fwd(encl)[0],
+                            10),
+        "library_bf16_ms": timed(lambda: chain_fwd(encb), 10)}
     rows["K1"]["bound_ms"], rows["K1"]["bound_by"] = bound_ms(
         2.0 * macs * n1, n1 * (k1.LANE * 4 + 4) + wbytes, peaks)
-    del enc, encb, s_k, s_p
+    # the split issues every product twice
+    rows["K1"]["bound_split_ms"], _ = bound_ms(
+        4.0 * macs * n1, n1 * (k1.LANE * 4 + 4) + wbytes, peaks)
+    del enc, encb, encl
 
     # K2: the main pass, CHUNK * 2 * N_SAMPLES points
     n2 = CHUNK * 2 * N_SAMPLES
@@ -821,8 +950,9 @@ def main():
         print(f"  {r['name']}: {r['ms']:.3f} ms (bound {r['bound_ms']:.3f} "
               f"by {r['bound_by']}, twin {r['plain_ms']:.1f}, matmul chain "
               f"{r['library_ms']:.3f})" + "".join(
-                  f", {k[:-3]} {r[k]:.3f}" for k in ("sweep_ms", "wgrad_ms",
-                                                    "reduce_ms") if k in r),
+                  f", {k[:-3]} {r[k]:.3f}" for k in (
+                      "bound_split_ms", "library_bf16_ms", "uchain_ms",
+                      "sweep_ms", "wgrad_ms", "reduce_ms") if k in r),
               flush=True)
     print(f"  K3 largest relative L2 against its twin {k3_rel:.3e}; K2 "
           f"at {n3} points without zs/us {k2_nozs_ms:.3f} ms", flush=True)
@@ -906,9 +1036,9 @@ def main():
             check[k] = (float(d.mean()), float(np.quantile(d, 0.99)))
             print(f"  kernels vs twins {k}: mean {check[k][0]:.3e} "
                   f"p99 {check[k][1]:.3e}", flush=True)
-        # K1 keeps f32 activations in its twin and bf16 in the kernel, so
-        # the probe's depth and with it the guided samples move a little;
-        # the siren trunk amplifies a moved sample on isolated rays
+        # the kernels' summation order moves the probe's depth and with it
+        # the guided samples a little; the siren trunk amplifies a moved
+        # sample on isolated rays
         assert (check["depth_coarse"][0] < 1e-2
                 and check["rgb_coarse"][0] < 1e-2)
         assert check["rgb_coarse"][1] < 0.1
@@ -949,8 +1079,8 @@ def main():
     def train(label, want):
         """WARM_STEPS + TIMED_STEPS flagship steps from a fresh seeded
         state, launch counts checked per step and a falling loss; one step
-        profiled.  Returns the weights after the warm-up and the launch
-        counts."""
+        profiled.  Returns the weights after each of the last CHECK_POINTS
+        timed steps (the last: after all of them) and the launch counts."""
         batcher = DeviceRayBatcher(
             make_store(STORE_BATCHES * BATCH, np.random.RandomState(0)),
             BATCH, seed=0, device="cuda")
@@ -967,17 +1097,18 @@ def main():
 
         for _ in range(WARM_STEPS):
             state, m = one_step(state)
-        warm = copy.deepcopy(state.params)
         torch.cuda.synchronize()
         reset_counts()
         torch.cuda.reset_peak_memory_stats()
-        step_ms, losses = [], []
-        for _ in range(TIMED_STEPS):
+        step_ms, losses, trained = [], [], []
+        for i in range(TIMED_STEPS):
             t0 = time.perf_counter()
             state, m = one_step(state)
             torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - t0) * 1e3)
             losses.append(float(m["loss"]))
+            if i >= TIMED_STEPS - CHECK_POINTS:
+                trained.append(copy.deepcopy(state.params))
         launches = counts()
         peak_mem = torch.cuda.max_memory_allocated()
         print(f"  launches {launches} over {TIMED_STEPS} steps", flush=True)
@@ -1000,18 +1131,36 @@ def main():
         assert last < first, (first, last)
         state, _ = one_step(state)
         profile_device(lambda: one_step(state), label)
-        return warm, launches
+        return trained, launches
 
     # one step's parameter gradients on CHECK_RAYS rays at flagship width:
-    # the kernels on the card against the twins on the CPU, same weights,
-    # batch, gates and draws: the weights and the gates of step WARM_STEPS
-    # of the training run.  Later weights follow every kernel's f32
-    # summation order over more steps, and at most points past the warm-up
-    # K1's bf16 activations (its twin keeps f32) move the guided samples
-    # enough to change the gradients by more than the bound
-    # (tools/step_check_points.py, PERF.md)
+    # the kernels on the card against the twins, same weights, batch, gates
+    # and draws: the gates after the timed steps, and the weights after each
+    # of the last CHECK_POINTS timed steps (the last: after all of them).
+    # The step's gradient is ill-conditioned on some rays: where a ray's
+    # summed normal meets the sun or the view near grazing incidence, RPV's
+    # Minnaert factor's derivatives grow like 1 / cos, and the normal's
+    # turn under the bf16 contract (K2's gx against its twin, amplified
+    # where the samples' normals cancel) changes that ray's gradient by
+    # O(1).  Measured on the card at the weights after step 35 of the
+    # switch-off run: one ray of 128 (cos i 1.2e-3, its samples' normals
+    # summing to 0.06) carried 99.98% of the sigma cotangent's gap, and the
+    # twins alone, card against CPU, reached 0.41 and 0.645 at other
+    # weights (tools/step_check_points.py, PERF.md).  So at each point the
+    # whole batch is run and printed, its backward comparison held to its
+    # bound; then every comparison is held to its bound on the rays that
+    # ill_conditioned_rays, reading the twins on the CPU, leaves (at least
+    # half of them).  A miss is reported at the end of the run, which then
+    # exits 1.
+    bounds = {"backward kernel vs its twin": 1e-2,
+              "both kernels vs their twins": 0.1,
+              "all kernels vs twins on the CPU": 0.1,
+              "every twin, on the card vs on the CPU": 0.1}
+    # the comparison that holds on every ray: the same forward values
+    whole_batch = ("backward kernel vs its twin",)
+    step_failures = []
     s = make_store(CHECK_RAYS, np.random.RandomState(1))
-    gates = ts.gates_from_step(WARM_STEPS, sched)
+    gates = ts.gates_from_step(WARM_STEPS + TIMED_STEPS, sched)
     rng = torch.Generator().manual_seed(11)
     n_sun = rcfg.sun_march_count(rcfg.n_samples + rcfg.effective_guided)
     draws = {"z": torch.rand(CHECK_RAYS, rcfg.n_samples, generator=rng),
@@ -1021,130 +1170,148 @@ def main():
                                      generator=rng),
              "sun": torch.rand(CHECK_RAYS, n_sun, generator=rng)}
 
-    def grads_on(net_, dev):
-        batch = {k: torch.as_tensor(v, device=dev) for k, v in s.items()}
+    def grads_on(net_, dev, rays):
+        batch = {k: torch.as_tensor(v[rays], device=dev)
+                 for k, v in s.items()}
+        rows_ = torch.as_tensor(rays)
         net_.zero_grad(set_to_none=True)
         loss, _ = ts.compute_losses(
             net_, mcfg, rcfg, tcfg, batch, gates,
-            draws={k: v.to(dev) for k, v in draws.items()})
+            draws={k: v[rows_].to(dev) for k, v in draws.items()})
         loss.backward()
         return loss.item(), {k: p.grad.detach().cpu()
                              for k, p in net_.named_parameters()}
 
-    def step_check(net_, fwd, bwd, want):
-        """The step with every kernel; with the backward kernel, then both
-        kernels of the differentiated trunk, swapped for their twins on the
-        card (K1 still the kernel: it separates what each changes from what
-        K1 changes upstream); with K1's twin too; and on the CPU.  `fwd`
-        and `bwd` are (module, kernel name, twin) of the pair."""
-        net_cpu = copy.deepcopy(net_).cpu()
-        reset_counts()
-        loss_k, g_k = grads_on(net_, "cuda")
-        assert counts() == want, counts()
-        k1_twin = (k1, "_trunk_sigma_cuda", k1._trunk_sigma_plain)
-        saved = [(m, name, getattr(m, name))
-                 for m, name, _ in (fwd, bwd, k1_twin)]
-        setattr(*bwd)
-        loss_b, g_b = grads_on(net_, "cuda")
-        setattr(*fwd)
-        loss_fb, g_fb = grads_on(net_, "cuda")
-        setattr(*k1_twin)
-        loss_t, g_t = grads_on(net_, "cuda")
-        for m, name, fn in saved:
-            setattr(m, name, fn)
-        loss_p, g_p = grads_on(net_cpu, "cpu")
-        print(f"  loss: kernels {loss_k:.6f}; backward's twin on the card "
-              f"{loss_b:.6f}; both twins on the card {loss_fb:.6f}; every "
-              f"twin on the card {loss_t:.6f}; twins on the CPU "
-              f"{loss_p:.6f}", flush=True)
-        print("  gradient norms: " + ", ".join(
-            f"{k} {v.norm().item():.3e}" for k, v in g_k.items()), flush=True)
-        worst = {}
-        for label, got, ref in (
-                ("backward kernel vs its twin", g_k, g_b),
-                ("both kernels vs their twins", g_k, g_fb),
-                ("all kernels vs twins on the CPU", g_k, g_p),
-                ("every twin, on the card vs on the CPU", g_t, g_p)):
-            rels = {k: rel_l2(got[k], ref[k]) for k in ref}
-            worst[label] = max(rels.values())
-            print(f"  gradient relative L2, {label}: largest "
-                  f"{worst[label]:.2e}; " + ", ".join(
-                      f"{k} {v:.2e}" for k, v in rels.items()), flush=True)
-        assert all(torch.isfinite(v).all() for v in g_k.values())
-        # the backward kernel moves no forward value
-        assert abs(loss_b - loss_k) <= 1e-6 * abs(loss_k), (loss_b, loss_k)
-        assert abs(loss_k - loss_p) <= 1e-3 * abs(loss_p), (loss_k, loss_p)
-        return worst
+    def step_check(path, nets, fwd, bwd, want):
+        """At each weights of `nets`, on the whole batch and then on its
+        well-conditioned rays: the step with every kernel; with the
+        backward kernel, then both kernels of the differentiated trunk,
+        swapped for their twins on the card (K1 still the kernel: it
+        separates what each changes from what K1 changes upstream); with
+        K1's twin too; and on the CPU.  `fwd` and `bwd` are (module, kernel
+        name, twin) of the pair.  Each comparison's largest relative L2 is
+        held to its bound at every point (on the whole batch, those of
+        whole_batch); misses go to step_failures."""
+        for pt, net_ in enumerate(nets):
+            net_cpu = copy.deepcopy(net_).cpu()
+            step = WARM_STEPS + TIMED_STEPS - len(nets) + 1 + pt
+            last = pt == len(nets) - 1
+            bad = ill_conditioned_rays(
+                net_cpu, mcfg, rcfg, {k: torch.as_tensor(v)
+                                      for k, v in s.items()},
+                draws, gates, max(bounds.values()))
+            kept = np.flatnonzero(~bad.numpy())
+            print(f"  weights after step {step}: {int(bad.sum())} of "
+                  f"{CHECK_RAYS} rays ill-conditioned "
+                  f"{np.flatnonzero(bad.numpy()).tolist()}", flush=True)
+            if not len(kept) >= CHECK_RAYS // 2:
+                step_failures.append(
+                    f"{path}, weights after step {step}: {len(kept)} "
+                    f"well-conditioned rays < {CHECK_RAYS // 2}")
+            for rays, held in ((np.arange(CHECK_RAYS), whole_batch),
+                               (kept, tuple(bounds))):
+                reset_counts()
+                loss_k, g_k = grads_on(net_, "cuda", rays)
+                assert counts() == want, counts()
+                k1_twin = (k1, "_trunk_sigma_cuda", k1._trunk_sigma_plain)
+                saved = [(m, name, getattr(m, name))
+                         for m, name, _ in (fwd, bwd, k1_twin)]
+                setattr(*bwd)
+                loss_b, g_b = grads_on(net_, "cuda", rays)
+                setattr(*fwd)
+                loss_fb, g_fb = grads_on(net_, "cuda", rays)
+                setattr(*k1_twin)
+                loss_t, g_t = grads_on(net_, "cuda", rays)
+                for m, name, fn in saved:
+                    setattr(m, name, fn)
+                loss_p, g_p = grads_on(net_cpu, "cpu", rays)
+                print(f"   {len(rays)} rays: loss: kernels {loss_k:.6f}; "
+                      f"backward's twin on the card {loss_b:.6f}; both "
+                      f"twins on the card {loss_fb:.6f}; every twin on the "
+                      f"card {loss_t:.6f}; twins on the CPU {loss_p:.6f}",
+                      flush=True)
+                if last and len(held) > 1:
+                    print("    gradient norms: " + ", ".join(
+                        f"{k} {v.norm().item():.3e}"
+                        for k, v in g_k.items()), flush=True)
+                for label, got, ref in zip(bounds, (g_k, g_k, g_k, g_t),
+                                           (g_b, g_fb, g_p, g_p)):
+                    rels = {k: rel_l2(got[k], ref[k]) for k in ref}
+                    worst = max(rels.values())
+                    top = sorted(rels.items(), key=lambda kv: -kv[1])
+                    print(f"    gradient relative L2, {label}: largest "
+                          f"{worst:.2e} (bound {bounds[label]:g}"
+                          f"{'' if label in held else ', not held'}); "
+                          + ", ".join(f"{k} {v:.2e}" for k, v in (
+                              rels.items() if last and len(held) > 1
+                              else top[:2])), flush=True)
+                    if label in held and not worst <= bounds[label]:
+                        step_failures.append(
+                            f"{path}, weights after step {step}, "
+                            f"{len(rays)} rays: {label} {worst:.3e} > "
+                            f"{bounds[label]:g} ({top[0][0]})")
+                assert all(torch.isfinite(v).all() for v in g_k.values())
+                # the backward kernel moves no forward value
+                assert abs(loss_b - loss_k) <= 1e-6 * abs(loss_k), (loss_b,
+                                                                    loss_k)
+                assert abs(loss_k - loss_p) <= 1e-3 * abs(loss_p), (loss_k,
+                                                                    loss_p)
 
     phase("training")
     # per step: the probe and the sun march (K1), the main pass with zs/us
     # (K2) and its backward (K3: one call, a sweep, a weight-gradient
     # and a reduce kernel)
-    warm, launches = train("train step", {"K1": 2, "K2": 1, "K3": 1,
-                                          "K4": 0, "K5": 0})
+    trained, launches = train("train step", {"K1": 2, "K2": 1, "K3": 1,
+                                             "K4": 0, "K5": 0})
     rows["K2zs"]["launches"] = launches["K2"]
     rows["K3"]["launches"] = launches["K3"]
     rows["K1"]["launches_train"] = launches["K1"]
 
     phase("step check")
-    worst = step_check(warm,
-                       (k2, "_trunk_fwd_grad_cuda", k2._trunk_fwd_grad_plain),
-                       (k2, "_trunk_bwd_cuda", k2._trunk_bwd_plain),
-                       {"K1": 2, "K2": 1, "K3": 1, "K4": 0, "K5": 0})
     # K3 in the step, on the cotangents the step gives it: as K3 alone
-    # above (measured on the card 3.5e-3 here, 3.6e-3 there)
-    assert worst["backward kernel vs its twin"] <= 1e-2, worst
-    # K2's outputs differ from its twin's by 4e-4 (sigma) .. 4e-3 (gx) in
-    # relative L2; the loss's cotangents pass them through -normalize(gx)
-    # and the compositing weights, and the trunk's grads are sums over 16,384
-    # points with cancellation, so the whole step moves by more (measured
-    # on the card: 4.8e-2 with K2 and K3 swapped, 7.8e-2 against the CPU,
-    # where K1's twin keeps f32 activations and moves the guided samples)
-    assert worst["both kernels vs their twins"] <= 0.1, worst
-    assert worst["all kernels vs twins on the CPU"] <= 0.1, worst
-    # the same twins on the card and on the CPU differ in the device's
-    # arithmetic alone (measured 8.7e-3)
-    assert worst["every twin, on the card vs on the CPU"] <= 0.1, worst
+    # above, 1e-2.  K2's outputs differ from its twin's by 4e-4 (sigma) ..
+    # 4e-3 (gx) in relative L2, the bf16 contract's cascade of rounding
+    # flips (any two summation orders give as much), and the loss passes
+    # them through -normalize(gx), the compositing weights and RPV, so the
+    # whole step is held at 0.1
+    step_check("switch off", trained,
+               (k2, "_trunk_fwd_grad_cuda", k2._trunk_fwd_grad_plain),
+               (k2, "_trunk_bwd_cuda", k2._trunk_bwd_plain),
+               {"K1": 2, "K2": 1, "K3": 1, "K4": 0, "K5": 0})
 
     phase("training, fused heads")
     os.environ[FUSED_HEADS] = "1"
-    # per step: K1 twice, K4 saving zs/us for the main pass and K5 for its
-    # backward (one call, a sweep, a weight-gradient and a reduce kernel)
-    _, launches = train("train step, fused heads",
-                        {"K1": 2, "K2": 0, "K3": 0, "K4": 1, "K5": 1})
+    # per step: K1 twice, K4 saving zs for the main pass and K5 for its
+    # backward (one call: the b_th chain, a sweep, a weight-gradient and a
+    # reduce kernel)
+    trained, launches = train("train step, fused heads",
+                              {"K1": 2, "K2": 0, "K3": 0, "K4": 1, "K5": 1})
     rows["K4zs"]["launches"] = launches["K4"]
     rows["K5"]["launches"] = launches["K5"]
 
     phase("step check, fused heads")
-
-    def k4_twin(packed, hw, cfg_, x, want_zs=False):
-        return k4._trunk_heads_fwd_plain(packed, hw, cfg_, x, want_zs) + (
-            None,)
-
-    def k5_twin(packed, hw, cfg_, x, cot, cg, zs, us):
-        return k4._trunk_heads_bwd_plain(packed, hw, cfg_, x, cot, cg, zs)
-
-    # the weights of the switch-off check, so that the two checks differ in
-    # the path alone
-    worst = step_check(warm, (k4, "_trunk_heads_fwd_cuda", k4_twin),
-                       (k4, "_trunk_heads_bwd_cuda", k5_twin),
-                       {"K1": 2, "K2": 0, "K3": 0, "K4": 1, "K5": 1})
-    # K5 in the step: as K5 alone above (7.0e-3 here, 7.3e-3 there)
-    assert worst["backward kernel vs its twin"] <= 2e-2, worst
-    # as the switch-off step: K4's trunk and chain are K2's
-    assert worst["both kernels vs their twins"] <= 0.1, worst
-    assert worst["all kernels vs twins on the CPU"] <= 0.1, worst
-    assert worst["every twin, on the card vs on the CPU"] <= 0.1, worst
-    del os.environ[FUSED_HEADS], warm
+    # this run's own weights after its last timed steps; K5 in the step at
+    # K3's bound, K4's trunk and chain are K2's
+    step_check("fused heads", trained,
+               (k4, "_trunk_heads_fwd_cuda", k4._trunk_heads_fwd_plain),
+               (k4, "_trunk_heads_bwd_cuda", k4._trunk_heads_bwd_plain),
+               {"K1": 2, "K2": 0, "K3": 0, "K4": 1, "K5": 1})
+    del os.environ[FUSED_HEADS], trained
 
     tmp.cleanup()
+    if step_failures:
+        print("step check: " + str(len(step_failures)) + " comparisons "
+              "missed their bounds:\n  " + "\n  ".join(step_failures),
+              file=sys.stderr, flush=True)
+        return 1
     # every row's "launches" counts its own path's run (K1's and K2's:
     # serving; K2 saving zs/us and K3: training; K4's: serving with the
     # fused heads; K4 saving zs/us and K5: training with them); K1 runs on
     # every path
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "launches_train", "sweep_ms", "wgrad_ms",
+            "library_ms", "launches_train", "bound_split_ms",
+            "library_bf16_ms", "uchain_ms", "sweep_ms", "wgrad_ms",
             "reduce_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in rows.values()]}))

@@ -84,9 +84,10 @@ def test_k4_twin_matches_pallas(dtype, layers, skip):
     jp, jhw, tp, thw = _packs(params, net, jcfg, tcfg)
     out_r, gx_r, zs_r = jh._run_fwd_h(jcfg, jp, jhw, enc, interpret=True,
                                       want_zs=True)
-    out, gx, zs, us = th._run_fwd_h(tcfg, tp, thw, t(enc), want_zs=True)
+    res = th._run_fwd_h(tcfg, tp, thw, t(enc), want_zs=True)
+    assert len(res) == 3                # zs alone: the backward rebuilds us
+    out, gx, zs = res
     assert tuple(out.shape) == (200, 8) and tuple(gx.shape) == (200, 128)
-    assert us is None                   # the twin rebuilds the u chain
     assert float(out[:, 7].abs().max()) == 0.0
     assert float(gx[:, 60:].abs().max()) == 0.0
     assert zs.dtype == (torch.bfloat16 if dtype == "bfloat16_all"
@@ -132,6 +133,108 @@ def test_k5_twin_matches_pallas(dtype, layers, skip):
     for name, g, r in zip(K5_NAMES, got, ref):
         assert tuple(g.shape) == tuple(r.shape), name
         _grad_close(g, r, dtype, name)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("layers,skip", SIZES)
+def test_uchain_is_the_chain_the_pallas_backward_rebuilds(dtype, layers,
+                                                          skip):
+    """uchain_plain (the b_th chain K5 rebuilds from zs before its sweep)
+    against the same chain written out with the JAX package's own
+    operations in _bwd_kernel_h's order, on the JAX forward's zs (the
+    module's tolerances); and the twin's reverse sweep on those states
+    against the sweep that rebuilds them as it runs (the Pallas kernel's
+    form), to 1e-6 of the scale."""
+    from brdfnerf_tpu.ops import pallas_trunk_vjp as jv
+    jcfg, tcfg = _configs(dtype, layers, skip)
+    params, net = networks(jcfg, tcfg)
+    _, enc = _inputs(256)          # 4 whole tiles: zs unpadded
+    jp, jhw, tp, thw = _packs(params, net, jcfg, tcfg)
+    _, _, zs = jh._run_fwd_h(jcfg, jp, jhw, enc, interpret=True,
+                             want_zs=True)
+    od = jnp.bfloat16 if dtype != "float32" else jnp.float32
+    feat = jcfg.feat
+    zf = jnp.asarray(zs, jnp.float32)
+    d1s, h = [], None
+    for i in range(layers):
+        h, d1, _ = jv._act_all(zf[:, i * feat:(i + 1) * feat],
+                               30.0 if i == 0 else 1.0, True, True, False)
+        d1s.append(d1)
+    zsig = jv._mm(h, jp["w_sigma"], od) + jp["b_sigma"]
+    lane0 = (jnp.arange(zsig.shape[1]) == 0).astype(jnp.float32)
+    b_th = jv._mm_t(jax.nn.sigmoid(zsig) * lane0, jp["w_sigma"], od)
+    ref = [None] * layers
+    mid = layers - 3
+    for i in range(layers - 1, -1, -1):
+        ref[i] = b_th
+        if i == 0:
+            break
+        b_tz = d1s[i] * b_th
+        if i == skip:
+            b_th = jv._mm_t(b_tz, jp["w_skip_bot"], od)
+        else:
+            b_th = jv._mm_t(b_tz, jp["w_mid"][mid], od)
+            mid -= 1
+    ref = jnp.concatenate(ref, axis=1)
+    sd = torch.bfloat16 if dtype == "bfloat16_all" else None
+    zs_t = _j2t(zs, sd)
+    got = th.uchain_plain(tp, tcfg, zs_t)
+    assert tuple(got.shape) == (256, layers * feat)
+    if dtype == "float32":
+        close(got, ref, atol=1e-6 * _scale(ref), rtol=1e-5, what="b_th chain")
+    else:       # the bf16 roundings of b_tz flip now and then, as in K2
+        close_but_flips(got, ref, "b_th chain")
+    # the sweep on the rebuilt states is the sweep that rebuilds them
+    cot, cg = _logit_cotangents(256)
+    x, cg_t = tk1.pad_rows_lanes(t(enc), 256, 128), t(cg)
+    hs, d1t, d2t, zsig_t, tzs, ths, _ = tk2._bwd_primal_tangent(tp, tcfg,
+                                                                cg_t, zs_t)
+    a_h = t(cot)[:, 1:2] * tp["w_sigma"][None, :]
+    seed = tk2._mm_t(torch.sigmoid(zsig_t)[:, None], tp["w_sigma"][None, :],
+                     tk1.weight_dtype(tcfg))
+    inline = tk2._reverse_sweep(tp, tcfg, x, cg_t, hs, d1t, d2t, tzs, ths,
+                                a_h, b_th=seed)
+    given = tk2._reverse_sweep(tp, tcfg, x, cg_t, hs, d1t, d2t, tzs, ths,
+                               a_h, bths=got.split(feat, 1))
+    for g_, r_ in zip(given, inline):
+        assert float((g_ - r_).abs().max()) <= 1e-6 * _scale(r_)
+
+
+def test_uchain_from_kernel_reads_the_accumulator_layout():
+    """K5's rebuilt chain lies in its sweep's tz layout (element j, e of
+    consumer thread c of layer l of tile t at ((t L + l) 128 + 4 j + e) 256
+    + c; thread c holds rows 16 w + q + 8 (e // 2), columns 256 wg + 8 j +
+    2 p + e % 2 for c = 128 wg + 32 w + 4 q + p); uchain_from_kernel reads
+    it back into (n, L * 512), every element once."""
+    n, layers, f = 128, 2, tk1.FEAT
+    want = torch.arange(n * layers * f, dtype=torch.float32).view(
+        n, layers * f)
+    tt, ll, jj, ee, cc = torch.meshgrid(
+        torch.arange(n // 64), torch.arange(layers), torch.arange(32),
+        torch.arange(4), torch.arange(256), indexing="ij")
+    wg, w, q, p = cc // 128, (cc // 32) % 4, (cc // 4) % 8, cc % 4
+    rows = tt * 64 + 16 * w + q + 8 * (ee // 2)
+    cols = ll * f + 256 * wg + 8 * jj + 2 * p + ee % 2
+    uc = want[rows.reshape(-1), cols.reshape(-1)]
+    assert torch.equal(th.uchain_from_kernel(uc, n, layers), want)
+
+
+def test_heads_backward_takes_no_u_chain():
+    """The heads' backward takes zs alone, as the Pallas pair does: K5's
+    checks and launch path have no u-chain input, and refuse zs that is not
+    the bfloat16_all contract's bf16."""
+    import inspect
+    for fn in (th.check_bwd_h_inputs, th._trunk_heads_bwd_cuda,
+               th._run_bwd_h):
+        assert "us" not in inspect.signature(fn).parameters, fn
+    _, net = networks(*_configs("bfloat16_all"))
+    tcfg = net.cfg
+    packed = tk1.pack_trunk_weights(net, tcfg, torch.bfloat16)
+    hw = th.pack_head_weights(net, tcfg, torch.bfloat16)
+    x, cot, cg = torch.zeros(64, 128), torch.zeros(64, 8), torch.zeros(64, 128)
+    with pytest.raises(ValueError):
+        th.check_bwd_h_inputs(tcfg, packed, hw, x, cot, cg,
+                              torch.zeros(64, 4 * 64))
 
 
 # ------------------------------------------------------- the network path
@@ -401,7 +504,7 @@ def test_kernel_paths_refuse_what_they_cannot_run():
     zs = torch.zeros(64, 4 * 512, dtype=torch.bfloat16)
     cot, cg = torch.zeros(64, 8), torch.zeros(64, 128)
     with pytest.raises(ValueError):
-        th._trunk_heads_bwd_cuda(packed, hw, tcfg, x, cot, cg, zs, zs)
+        th._trunk_heads_bwd_cuda(packed, hw, tcfg, x, cot, cg, zs)
     f512 = dc.replace(tcfg, feat=512)
     with pytest.raises(ValueError):       # heads of width 64
         th.check_head_weights(f512, hw, x)
@@ -415,11 +518,13 @@ def test_kernel_paths_refuse_what_they_cannot_run():
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [64, 192, 640])
 def test_heads_kernels_match_twins_on_the_card(n):
-    """K4 (with and without zs/us) and K5 against their twins on the card
-    at the flagship width (8 x 512, skip 4) on 1, 3 and 10 tiles of 64
-    points (no multiple of a split or a wave), K5 twice with bit-identical
-    grads; chip_smoke.py makes the same checks at the main paths' shapes,
-    where the bounds are explained."""
+    """K4 (with and without zs) and K5 against their twins on the card at
+    the flagship width (8 x 512, skip 4) on 1, 3 and 10 tiles of 64 points
+    (no multiple of a split or a wave), K5 on 5 draws of cotangents, each
+    twice with bit-identical grads, at K3's bound of 1e-2 relative L2, and
+    its rebuilt b_th chain against uchain_plain; chip_smoke.py makes the
+    same checks at the main paths' shapes, where the bounds are
+    explained."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from brdfnerf_tpu_torch.config import ModelConfig
@@ -432,9 +537,9 @@ def test_heads_kernels_match_twins_on_the_card(n):
     enc = positional_encoding(xyz, 10, fast=True, pad_to=128)
     packed = tk1.pack_trunk_weights(net, cfg, torch.bfloat16)
     hw = th.pack_head_weights(net, cfg, torch.bfloat16)
-    out_k, gx_k, zs, us = th._trunk_heads_fwd_cuda(packed, hw, cfg, enc,
-                                                   want_zs=True)
-    out_s, gx_s, _, _ = th._trunk_heads_fwd_cuda(packed, hw, cfg, enc)
+    out_k, gx_k, zs = th._trunk_heads_fwd_cuda(packed, hw, cfg, enc,
+                                               want_zs=True)
+    out_s, gx_s, _ = th._trunk_heads_fwd_cuda(packed, hw, cfg, enc)
     out_p, gx_p, zs_p = th._trunk_heads_fwd_plain(packed, hw, cfg, enc,
                                                   want_zs=True)
     torch.cuda.synchronize()
@@ -444,17 +549,23 @@ def test_heads_kernels_match_twins_on_the_card(n):
         scale = float(p_.float().abs().max())
         assert float(d.max()) <= 5e-2 * scale
         assert float(d.mean()) <= 1e-3 * scale
-    cot = torch.randn(n, 8, device="cuda", generator=g)
-    cot[:, 7] = 0.0
-    cg = torch.zeros(n, 128, device="cuda")
-    cg[:, :60] = torch.randn(n, 60, device="cuda", generator=g)
-    got = th._trunk_heads_bwd_cuda(packed, hw, cfg, enc, cot, cg, zs, us)
-    again = th._trunk_heads_bwd_cuda(packed, hw, cfg, enc, cot, cg, zs, us)
-    ref = th._trunk_heads_bwd_plain(packed, hw, cfg, enc, cot, cg, zs)
-    torch.cuda.synchronize()
-    for name, k_, r_, a_ in zip(K5_NAMES, got, ref, again):
-        assert torch.equal(k_, a_), name              # deterministic
-        if name in ("dw2r", "dw2p"):
-            k_, r_ = k_[:, :3], r_[:, :3]
-        rel = float((k_ - r_).norm() / r_.norm().clamp_min(1e-12))
-        assert rel <= 2e-2, (name, rel)
+    for draw in range(5):
+        cot = torch.randn(n, 8, device="cuda", generator=g)
+        cot[:, 7] = 0.0
+        cg = torch.zeros(n, 128, device="cuda")
+        cg[:, :60] = torch.randn(n, 60, device="cuda", generator=g)
+        scratch = {}
+        got = th._trunk_heads_bwd_cuda(packed, hw, cfg, enc, cot, cg, zs,
+                                       scratch_out=scratch)
+        again = th._trunk_heads_bwd_cuda(packed, hw, cfg, enc, cot, cg, zs)
+        ref = th._trunk_heads_bwd_plain(packed, hw, cfg, enc, cot, cg, zs)
+        uc = th.uchain_from_kernel(scratch["uc"], n, cfg.layers)
+        uc_p = th.uchain_plain(packed, cfg, zs)
+        torch.cuda.synchronize()
+        assert float((uc - uc_p).norm() / uc_p.norm()) <= 1e-2   # as K2's us
+        for name, k_, r_, a_ in zip(K5_NAMES, got, ref, again):
+            assert torch.equal(k_, a_), name              # deterministic
+            if name in ("dw2r", "dw2p"):
+                k_, r_ = k_[:, :3], r_[:, :3]
+            rel = float((k_ - r_).norm() / r_.norm().clamp_min(1e-12))
+            assert rel <= 1e-2, (draw, name, rel)

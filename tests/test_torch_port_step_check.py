@@ -1,0 +1,110 @@
+"""The rays on which chip_smoke.py's whole-step check holds the kernels to
+their twins: chip_smoke.ill_conditioned on hand-made rays, and
+chip_smoke.ill_conditioned_rays reading, from a small flagship-head
+network's render, the cosines that RPV clamps (CPU, the port alone)."""
+
+import importlib.util
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from brdfnerf_tpu_torch import config as tconfig
+from brdfnerf_tpu_torch.models.network import init_network
+from brdfnerf_tpu_torch.parallel.train_step import TrainGates
+from brdfnerf_tpu_torch.render import render as trender
+
+from torch_port_common import FLAGSHIP_HEADS, SMALL, make_store
+
+
+def _chip_smoke():
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke_rays", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _two_samples(ratio):
+    """Two samples of weight 0.5 whose unit normals sum to length
+    `ratio` (1: they agree; small: they cancel)."""
+    b = float(np.sqrt(1.0 - ratio * ratio))
+    normals = torch.tensor([[[ratio, b, 0.0], [ratio, -b, 0.0]]])
+    return torch.full((1, 2), 0.5), normals
+
+
+# (the samples' summed normal's length, cos i, cos v, ill-conditioned);
+# err = 2^-8 / length, the band err / 0.1 above -err
+CASES = [
+    (1.0, 0.5, 0.6, False),       # well inside both cosines
+    (1.0, 0.02, 0.5, True),       # cos i under err / 0.1 = 0.039
+    (1.0, 0.05, 0.5, False),      # cos i above it
+    (1.0, 0.3, 0.03, True),       # cos v under it
+    (1.0, -0.3, 0.01, False),     # cos i held at the clamp: M1 ~ flat
+    (1.0, -0.0226, 0.27, False),  # held: -0.0226 < -err = -0.0039
+    (0.06, -0.0226, 0.27, True),  # cancelling normals: err = 0.065
+    (1.0, 0.002, -0.002, True),   # both within err of the clamp
+]
+
+
+@pytest.mark.parametrize("ratio,ci,cv,want", CASES)
+def test_ill_conditioned_criterion(ratio, ci, cv, want):
+    cs = _chip_smoke()
+    w, n = _two_samples(ratio)
+    got = cs.ill_conditioned(w, n, torch.tensor([ci]), torch.tensor([cv]),
+                             0.1)
+    assert got.dtype == torch.bool and got.shape == (1,)
+    assert bool(got[0]) is want
+
+
+def test_ill_conditioned_rays_reads_the_cosines_rpv_clamps():
+    """On a small flagship-head network's training render, the mask is the
+    criterion on the render's weights, normals and nr_sun / nr_vw, and
+    those are the cosines of the summed normal that RPV clamps (its ci /
+    cv where they lie inside the clamp)."""
+    cs = _chip_smoke()
+    mcfg = tconfig.ModelConfig(**SMALL, **FLAGSHIP_HEADS,
+                               compute_dtype="float32")
+    rcfg = tconfig.RenderConfig(n_samples=8, guided_samples=8,
+                                apply_brdf=True, use_pallas=True,
+                                fused_trunk=True)
+    net = init_network(mcfg, torch.Generator().manual_seed(0), device="cpu")
+    n_rays = 32
+    s = {k: torch.as_tensor(v) for k, v in make_store(n_rays, 4).items()}
+    rng = torch.Generator().manual_seed(5)
+    guided = (n_rays, rcfg.effective_guided)
+    draws = {"z": torch.rand(n_rays, rcfg.n_samples, generator=rng),
+             "guided": torch.rand(guided, generator=rng),
+             "guided_gt": torch.rand(guided, generator=rng),
+             "sun": torch.rand(n_rays, rcfg.sun_march_count(
+                 rcfg.n_samples + rcfg.effective_guided), generator=rng)}
+    gates = TrainGates(cos_irra_on=False, ds_on=True, nrrg_on=True,
+                       beta_warmup=False, hs_on=True)
+    got = cs.ill_conditioned_rays(net, mcfg, rcfg, s, draws, gates, 0.1)
+    assert got.dtype == torch.bool and got.shape == (n_rays,)
+
+    res = trender.render_rays(
+        net, mcfg, rcfg, trender.RenderInputs(
+            rays=s["rays"], ts=s["ts"], valid_depth=s["valid_depth"],
+            target_depths=s["depths"], target_std=s["depth_std"],
+            cos_irra_on=False), train=True, draws=draws)
+    w, n = res["weights_coarse"], res["normal_an_coarse"]
+    ci = res["nr_sun_coarse"].flatten()
+    cv = res["nr_vw_coarse"].flatten()
+    assert torch.equal(got, cs.ill_conditioned(w, n, ci, cv, 0.1))
+    summed = torch.sum(w[..., None] * n, -2)
+    unit = summed / summed.norm(dim=-1, keepdim=True)
+    sun_d = s["rays"][:, 8:11]
+    view = -s["rays"][:, 3:6]
+    torch.testing.assert_close(ci, torch.sum(unit * sun_d, -1),
+                               atol=1e-5, rtol=0)
+    torch.testing.assert_close(cv, torch.sum(unit * view, -1),
+                               atol=1e-5, rtol=0)
+    torch.testing.assert_close(
+        res["rpv_ci_coarse"].flatten(), ci.clamp(1e-5, 1 - 1e-6),
+        atol=0, rtol=0)
+    torch.testing.assert_close(
+        res["rpv_cv_coarse"].flatten(), cv.clamp(1e-5, 1 - 1e-6),
+        atol=0, rtol=0)
