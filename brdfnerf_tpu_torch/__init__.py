@@ -14,12 +14,16 @@ needs.  Layout mirrors the JAX package:
   brdf      - RPV physics
   models    - the network as an nn.Module
   render    - render_rays (spsbrdf-nerf)
-  parallel  - the train step (losses, gates, Adam) and the render step
-  losses    - the loss suite;  metrics - mse / psnr
-  data      - the ray batchers (host and device-resident store)
-  cli       - flags and opts.json round-trip
-  serve     - load_renderer / Renderer
-  utils     - npz checkpoint I/O, device resolution
+  parallel  - the train step (losses, gates, Adam; N steps a call) and the
+              render step
+  losses    - the loss suite;  metrics - mse / psnr / ssim, masked scores
+  data      - the ray batchers, the satellite dataset, the synthetic AOI
+  geo       - RPC camera model (host), geodesy, DSM and its registration
+  train     - Trainer: the training loop, checkpoints, resume, validation
+  cli       - flags and opts.json round-trip; the train CLI (cli.train)
+  serve     - load_renderer / Renderer, the chunked render loop
+  analysis  - the training store's BRDF observability warning
+  utils     - npz checkpoint and optimizer-state I/O, GeoTIFF, devices
 
 Entry points run on CUDA unless the caller passes device="cpu".
 """

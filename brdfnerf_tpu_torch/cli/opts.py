@@ -45,8 +45,10 @@ def train_parser() -> argparse.ArgumentParser:
     p.add_argument("--save_ckpt_every_n_epochs", type=int, default=1)
     p.add_argument("--eval_every_n_epochs", type=int, default=1)
     p.add_argument("--scan_chunk", type=int, default=None,
-                   help="parsed for run-script compatibility with the "
-                        "JAX package (its lax.scan step chunking)")
+                   help="dispatch N fused train steps per call (the "
+                        "same trajectory; chunks clamp at epoch/phase "
+                        "boundaries). 1 = one step per call; unset falls "
+                        "back to $BRDFNERF_SCAN_CHUNK, then 1")
     p.add_argument("--fc_feat", type=int, default=512)
     p.add_argument("--fc_layers", type=int, default=8)
     p.add_argument("--n_samples", type=int, default=64)
@@ -305,3 +307,20 @@ def load_opts(run_dir: str) -> argparse.Namespace:
     # the key.
     d.setdefault("sun_march_samples", -1)
     return argparse.Namespace(**d)
+
+
+def sat_config_from_opts(args: argparse.Namespace):
+    """SatelliteConfig from a run's (re)loaded opts: one place for the
+    dataset-affecting fields, so training, serving and evaluation build the
+    dataset the run trained on (the JAX package's sat_config_from_opts)."""
+    from ..data.satellite import SatelliteConfig
+    return SatelliteConfig(
+        root_dir=args.root_dir, img_dir=args.img_dir,
+        depth_subdir=args.inputdds, aoi_id=args.aoi_id, cs=args.cs,
+        img_downscale=args.img_downscale, scale=args.scale,
+        corrscale=args.corrscale, stdscale=args.stdscale,
+        margin=args.margin, mod_alt_bound=args.mod_alt_bound,
+        infile_postfix=args.infile_postfix,
+        cache_dir=args.cache_dir,
+        std_quirk=bool(getattr(args, "std_quirk", 1)),
+        load_depth=(args.model in ("sps-nerf", "spsbrdf-nerf")))

@@ -1,0 +1,115 @@
+"""Training CLI: python -m brdfnerf_tpu_torch.cli.train --model spsbrdf-nerf
+--exp_name ... --root_dir ... (the JAX package's cli/train.py, with its
+flags; reference main.py:694-736 semantics).
+
+Dumps opts.json into logs_dir/exp_name (the layout the JAX package's eval
+CLI reloads), trains with the Trainer loop on the card, writes
+epoch={n}.npz checkpoints and their .opt.npz optimizer states.  Prints one
+line saying which fused CUDA kernels the run uses, and why none where the
+kernels do not cover the model.
+"""
+
+from __future__ import annotations
+
+import dataclasses as dc
+import os
+import sys
+import time
+
+from . import opts as opts_mod
+from ..models.network import not_ported
+
+
+def kernels_line(cfg, device) -> str:
+    """Which fused kernels the run's steps launch, or why none."""
+    from ..ops.fused_mlp import FEAT, LANE, cuda_kernels_cover
+    m, r = cfg.model, cfg.render
+    if device.type != "cuda":
+        return ("[kernels] none: the run is on the CPU, where the kernels' "
+                "plain PyTorch twins run in their place")
+    if not cuda_kernels_cover(m):
+        why = [w for w, bad in (
+            (f"compute_dtype={m.compute_dtype!r}",
+             m.compute_dtype not in ("bfloat16", "bfloat16_all")),
+            ("a ReLU trunk (siren=0)", not m.siren),
+            ("the exact sine (fast_sin=0)", not m.fast_sin),
+            (f"width {m.feat} (not {FEAT})", m.feat != FEAT),
+            (f"an encoding of {m.xyz_in_dim} lanes (over {LANE})",
+             m.xyz_in_dim > LANE),
+            (f"skips {m.skips} with {m.layers} layers", len(m.skips) != 1
+             or not 0 < m.skips[0] < m.layers or m.layers < 3)) if bad]
+        return ("[kernels] none: the CUDA kernels do not cover this model ("
+                + ", ".join(why) + "), so every step takes the unfused "
+                "torch path (ROADMAP.md Queue 2 item 3)")
+    used = []
+    if r.use_pallas:
+        used.append("K1 (the sigma-only passes)")
+    if r.fused_trunk and m.normal in ("analystic", "analystic_learned"):
+        used.append("K2 + K3 (the differentiated trunk and its backward)")
+        if os.environ.get("BRDFNERF_FUSED_HEADS"):
+            used.append("K4 + K5 in their place where the flagship head "
+                        "set runs (BRDFNERF_FUSED_HEADS)")
+    if not used:
+        return ("[kernels] none: --use_pallas 0 and no fused trunk "
+                "(--fused_trunk 0, or no analytic normals)")
+    return "[kernels] fused CUDA kernels: " + "; ".join(used)
+
+
+def main(argv=None, device=None):
+    """Train on CUDA unless `device` names another (the tests pass
+    device='cpu')."""
+    from ..utils.device import resolve_device
+    args = opts_mod.postprocess(opts_mod.train_parser().parse_args(argv))
+    # fail fast, before dataset ingestion
+    if (args.n_devices > 1 or args.tp > 1 or args.sharded_store
+            or args.scale_global_batch):
+        raise not_ported("multi-GPU training (--n_devices, --tp, "
+                         "--sharded_store, --scale_global_batch)", 11)
+    if args.print_debuginfo:
+        raise not_ported("--print_debuginfo (the NaN-guard layer, "
+                         "utils/guards)", 7)
+    if args.data == "blender":
+        raise not_ported("the blender dataset (data/blender.py)", 7)
+    device = resolve_device(device)
+    run_dir = os.path.join(args.logs_dir, args.exp_name)
+    opts_mod.dump_opts(args, run_dir)
+    cfg = opts_mod.to_run_config(args, device=device)
+    print(kernels_line(cfg, device), flush=True)
+
+    from ..data.satellite import SatelliteDataset
+    from ..train import Trainer, TrainerPaths
+
+    sat_cfg = dc.replace(
+        opts_mod.sat_config_from_opts(args),
+        mod_alt_bound=bool(args.mod_alt_bound),
+        sparse_depth=(args.model == "sat-nerf" and args.ds_lambda > 0))
+    t0 = time.perf_counter()
+    train_ds = SatelliteDataset(sat_cfg, split="train")
+    val_ds = SatelliteDataset(sat_cfg, split="val")
+    print(f"[data] {train_ds.store['rays'].shape[0]} training rays from "
+          f"{len(train_ds.train_files)} images, {len(val_ds)} validation "
+          f"images; ingested in {time.perf_counter() - t0:.3f} s",
+          flush=True)
+
+    ckpts_dir = os.path.join(args.ckpts_dir, args.exp_name)
+    paths = TrainerPaths(logs_dir=run_dir, ckpts_dir=ckpts_dir,
+                         gt_dir=args.gt_dir, aoi_id=args.aoi_id)
+    # --eval 1: load in_ckpts fully, freeze all parameters (the
+    # reference's load mode (c), main.py:91-96 + opt.py:320)
+    freeze = ["all"] if args.eval_mode else None
+    trainer = Trainer(cfg, train_ds.store, paths, val_dataset=val_ds,
+                      seed=args.seed, use_tb=args.tensorboard,
+                      in_ckpts=args.in_ckpts, resume_from=args.ckpt_path,
+                      freeze=freeze, test_sun_v=bool(args.test_sun_v), device=device)
+    trainer.eval_chunk = args.chunk
+    try:
+        trainer.fit(eval_every_n_epochs=args.eval_every_n_epochs,
+                    save_ckpt_every_n_epochs=args.save_ckpt_every_n_epochs,
+                    scan_chunk=args.scan_chunk)
+    finally:
+        trainer.log.close()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -10,6 +10,9 @@ BRDFNERF_FUSED_HEADS is set too.  Schedule gates
 are plain booleans computed on the host from the step count, as the JAX
 package computes them in-program (gates_from_step).
 
+make_scan_train_step runs N fused steps per call as a plain loop on the
+device (the JAX package's lax.scan of the same steps).
+
 Random draws: the JAX package folds the step into a base key; here each
 step draws from a torch.Generator seeded from (seed, step), or takes the
 draws it is handed (a test hands in the JAX package's).
@@ -18,7 +21,7 @@ draws it is handed (a test hands in the JAX package's).
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, NamedTuple, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -73,8 +76,9 @@ def _lr_schedule(tcfg: TrainConfig, steps_per_epoch: int
     """optax's exponential_decay(staircase) after an optional
     linear_schedule warmup, joined at the warmup's end (join_schedules):
     update k uses lr * gamma^floor((k - warm) / spe) past the warmup and
-    lr/10 -> lr linearly within it.  Values are rounded to f32, as optax's
-    are."""
+    lr/10 -> lr linearly within it.  Values are float32, as optax's are;
+    the staircase's power is the float64 one rounded, which can differ from
+    XLA's float32 pow in the last place."""
     spe = max(1, steps_per_epoch)
     warm = tcfg.lr_warmup_steps
     if warm == -1:
@@ -87,8 +91,11 @@ def _lr_schedule(tcfg: TrainConfig, steps_per_epoch: int
 
     def sched(k: int) -> float:
         if k < warm:
-            frac = 1.0 - min(max(k, 0), warm) / warm
-            v = (tcfg.lr * 0.1 - tcfg.lr) * frac + tcfg.lr
+            # linear_schedule's own float32 arithmetic, so the ramp is
+            # optax's bit for bit
+            f32 = np.float32
+            frac = f32(1.0) - f32(min(max(k, 0), warm)) / f32(warm)
+            v = f32(tcfg.lr * 0.1 - tcfg.lr) * frac + f32(tcfg.lr)
         else:
             v = decay(k - warm)
         return float(np.float32(v))
@@ -97,19 +104,31 @@ def _lr_schedule(tcfg: TrainConfig, steps_per_epoch: int
 
 class Optimizer:
     """Adam (optax.adam's defaults) with the per-epoch staircase of
-    make_optimizer; `step(opt, net, k)` applies update k, counting updates
-    as optax does."""
+    make_optimizer; `step(opt, k)` applies update k, counting updates as
+    optax does.  Parameters whose npz key starts with a `frozen` prefix
+    ('all': every one) are left out, as the JAX Trainer's
+    optax.multi_transform with set_to_zero leaves them unchanged; with
+    nothing left to train, `init` gives None and a step changes nothing."""
 
-    def __init__(self, schedule: Callable[[int], float]):
+    def __init__(self, schedule: Callable[[int], float],
+                 frozen: Optional[Sequence[str]] = None):
         self.schedule = schedule
+        self.frozen = list(frozen or ())
 
-    def init(self, net: torch.nn.Module) -> torch.optim.Optimizer:
-        params = list(net.parameters())
-        fused = params[0].is_cuda
+    def init(self, net: torch.nn.Module) -> Optional[torch.optim.Optimizer]:
+        from ..utils.checkpoint import freeze_mask, _param_key, NET_KEY
+        mask = freeze_mask(net, self.frozen)
+        params = [p for n, p in net.named_parameters()
+                  if mask[_param_key(n, NET_KEY)]]
+        if not params:
+            return None
         return torch.optim.Adam(params, lr=self.schedule(0),
-                                betas=(0.9, 0.999), eps=1e-8, fused=fused)
+                                betas=(0.9, 0.999), eps=1e-8,
+                                fused=params[0].is_cuda)
 
-    def step(self, opt: torch.optim.Optimizer, k: int) -> None:
+    def step(self, opt: Optional[torch.optim.Optimizer], k: int) -> None:
+        if opt is None:
+            return
         # a parameter the loss does not reach gets a zero grad, as under
         # jax.grad: its moments decay and its step count advances with
         # every other's (torch.optim.Adam would skip it)
@@ -121,23 +140,26 @@ class Optimizer:
         opt.step()
 
 
-def make_optimizer(tcfg: TrainConfig, steps_per_epoch: int):
+def make_optimizer(tcfg: TrainConfig, steps_per_epoch: int,
+                   frozen: Optional[Sequence[str]] = None):
     """Adam + per-epoch StepLR gamma (main.py:147-168,
     train_utils.py:153-155), with the optional linear warmup
-    (tcfg.lr_warmup_steps; -1 = two epochs).  Returns (optimizer,
-    schedule)."""
+    (tcfg.lr_warmup_steps; -1 = two epochs), over the parameters outside
+    `frozen`.  Returns (optimizer, schedule)."""
     sched = _lr_schedule(tcfg, steps_per_epoch)
-    return Optimizer(sched), sched
+    return Optimizer(sched, frozen), sched
 
 
 def create_train_state(mcfg: ModelConfig, tcfg: TrainConfig,
                        steps_per_epoch: int, seed: int = 0,
                        flat: Optional[Dict[str, np.ndarray]] = None,
-                       n_importance: int = 0, device=None):
+                       n_importance: int = 0, device=None,
+                       frozen: Optional[Sequence[str]] = None):
     """A fresh TrainState and its Optimizer.  The weights come from a
     torch.Generator seeded with `seed`, or from `flat` (the npz layout,
     e.g. the JAX package's params through utils.checkpoint._flatten).  On
-    CUDA unless `device` names another."""
+    CUDA unless `device` names another.  `frozen`: key prefixes the
+    optimizer leaves out (Optimizer)."""
     from ..utils.checkpoint import params_from_flat
     from ..utils.device import resolve_device
     if n_importance > 0:
@@ -150,7 +172,7 @@ def create_train_state(mcfg: ModelConfig, tcfg: TrainConfig,
     else:
         gen = torch.Generator(device=device).manual_seed(seed)
         net = init_network(mcfg, gen, device=device)
-    opt, _ = make_optimizer(tcfg, steps_per_epoch)
+    opt, _ = make_optimizer(tcfg, steps_per_epoch, frozen)
     return TrainState(net, opt.init(net), 0), opt
 
 
@@ -249,12 +271,15 @@ def compute_losses(net, mcfg: ModelConfig, rcfg: RenderConfig,
 
 
 def _update(state: TrainState, optimizer: Optimizer, loss_fn):
-    """One optimizer update of state from loss_fn(net)."""
+    """One optimizer update of state from loss_fn(net); with every
+    parameter frozen (no torch optimizer) the loss is computed and nothing
+    changes but the step count."""
     net, opt, step = state
-    opt.zero_grad(set_to_none=True)
+    net.zero_grad(set_to_none=True)
     with torch.enable_grad():
         loss, (_, aux) = loss_fn(net)
-        loss.backward()
+        if opt is not None:
+            loss.backward()
     optimizer.step(opt, step)
     metrics = {"loss": loss.detach(),
                **{k: torch.as_tensor(v).detach() for k, v in aux.items()}}
@@ -317,8 +342,30 @@ def make_fused_train_step(mcfg: ModelConfig, rcfg: RenderConfig,
     return step_fn
 
 
-def make_scan_train_step(*_args, **_kwargs):
-    raise not_ported("make_scan_train_step (N steps per dispatch)", 7)
+def make_scan_train_step(mcfg: ModelConfig, rcfg: RenderConfig,
+                         tcfg: TrainConfig, optimizer: Optimizer,
+                         schedule: GateSchedule, has_kp: bool = False,
+                         mesh=None, store_sharded: bool = False,
+                         state_shardings=None):
+    """N fused steps per call: fn(state, store, idx_mat, seed, draws=None)
+    -> (state, metrics of the last step).  idx_mat is (N, batch) on the
+    device, one host upload for the N steps; step i takes row i, its gates
+    and draws follow from its own step count, so the trajectory is that of
+    N calls of make_fused_train_step.  draws: None, or a list of N draw
+    dicts."""
+    step = make_fused_train_step(mcfg, rcfg, tcfg, optimizer, schedule,
+                                 has_kp, mesh, store_sharded,
+                                 state_shardings)
+
+    def scan_fn(state: TrainState, store: Dict[str, torch.Tensor],
+                idx_mat: torch.Tensor, seed: int,
+                draws: Optional[List[Dict]] = None):
+        metrics = None
+        for i in range(idx_mat.shape[0]):
+            state, metrics = step(state, store, idx_mat[i], seed,
+                                  None if draws is None else draws[i])
+        return state, metrics
+    return scan_fn
 
 
 def make_render_step(mcfg: ModelConfig, rcfg: RenderConfig,

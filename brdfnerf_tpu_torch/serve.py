@@ -3,14 +3,14 @@
     from brdfnerf_tpu_torch.serve import load_renderer
     r = load_renderer(run_dir, epoch_number=40)        # on CUDA
     out = r.render_image({"rays": rays})               # rays (N, 11)
+    out = r.render_image(0)                            # image 0 of the val split
     # out["rgb_coarse"], out["depth_coarse"], the per-ray panel maps, ...
 
 `load_renderer` reads the run's opts.json and its epoch={n}.npz (the JAX
 package's contract, so a run trained by either package serves here).
 `render_image` renders in fixed-size chunks (opts `--chunk`, 5120 by
-default), padding the last chunk by repeating its final ray, and with the
-same random draws for every chunk, as the JAX package's render loop uses
-one key for every chunk (train.py:586).
+default) through `render_in_chunks`, the chunk loop that the Trainer's
+validation renders through too.
 """
 
 from __future__ import annotations
@@ -42,12 +42,63 @@ PANEL_ACCUM = {
 }
 
 
+def final_render_config(cfg: RunConfig, test_sun_v: bool = False):
+    """The RenderConfig of the final static phase, which serving and
+    validation render with (eval.py:383-384 semantics: apply_brdf when
+    brdf_on < 1, apply_theta when brdf_on < 0.5)."""
+    return dc.replace(
+        cfg.render,
+        apply_brdf=cfg.train.brdf_on < 1.0 and cfg.render.apply_brdf,
+        apply_theta=cfg.train.brdf_on < 0.5 and cfg.render.apply_theta,
+        force_sun_march=cfg.render.force_sun_march or test_sun_v)
+
+
+def render_in_chunks(net: Network, cfg: RunConfig, rcfg, rays,
+                     chunk: int, device: torch.device, seed: int = 0,
+                     draws: Optional[Dict[str, torch.Tensor]] = None
+                     ) -> Dict[str, np.ndarray]:
+    """Render every ray of `rays` (N, 8|11) in chunks of `chunk`, padding
+    the last by repeating its final ray: the per-ray rgb / depth plus the
+    reduced panel maps, as numpy arrays.  Every chunk takes the same
+    draws: `draws` (one chunk's, see render/render.py), else those of a
+    generator seeded with `seed` anew for each chunk, as the JAX package
+    renders every chunk with one key (train.py:586)."""
+    from .parallel.train_step import make_render_step, reduce_panels
+    from .render.render import RenderInputs
+    step = make_render_step(cfg.model, rcfg)
+    rays = np.asarray(rays, np.float32)
+    n = rays.shape[0]
+    cos_irra_on = torch.tensor(cfg.train.cos_irra_on < 1.0, device=device)
+    outs: Dict[str, List[np.ndarray]] = {}
+    for i in range(0, n, chunk):
+        part = rays[i:i + chunk]
+        keep = part.shape[0]
+        if keep < chunk:
+            part = np.concatenate(
+                [part, np.tile(part[-1:], (chunk - keep, 1))], 0)
+        inp = RenderInputs(rays=torch.from_numpy(part).to(device),
+                           cos_irra_on=cos_irra_on)
+        gen = None
+        if draws is None:
+            gen = torch.Generator(device=device)
+            gen.manual_seed(seed)
+        res = step(net, inp, draws=draws, generator=gen)
+        for k in PER_RAY_KEYS:
+            if k in res:
+                outs.setdefault(k, []).append(
+                    res[k][:keep].float().cpu().numpy())
+        for k, acc in reduce_panels(res, PANEL_ACCUM).items():
+            outs.setdefault(k, []).append(acc[:keep].float().cpu().numpy())
+    return {k: np.concatenate(v, 0) for k, v in outs.items()}
+
+
 @dc.dataclass
 class Renderer:
     """A trained run loaded for rendering.  `cfg` is the RunConfig in use
     (serving overrides applied), `net` the restored network on `device`.
-    There is no dataset (building the run's dataset is not ported yet), so
-    render_image takes a sample dict."""
+    render_image takes a sample dict, or an index into the run's val split
+    (training image 0 and the test images), whose dataset is built from
+    opts.json at the first such call."""
     args: object
     cfg: RunConfig
     net: Network
@@ -55,62 +106,46 @@ class Renderer:
     chunk: int = 5120
     seed: int = 0
     test_sun_v: bool = False
+    _dataset: object = dc.field(default=None, repr=False)
+
+    @property
+    def dataset(self):
+        """The val split's SatelliteDataset (sat_config_from_opts)."""
+        if self._dataset is None:
+            from .cli.opts import sat_config_from_opts
+            from .data.satellite import SatelliteDataset
+            if self.args.data == "blender":
+                raise not_ported("the blender dataset (data/blender.py)", 7)
+            self._dataset = SatelliteDataset(
+                sat_config_from_opts(self.args), split="val")
+        return self._dataset
+
+    def __len__(self) -> int:
+        return len(self.dataset)
+
+    def get_image(self, idx: int) -> Dict:
+        return self.dataset.get_image(idx)
 
     def render_config(self):
         """The final static phase (eval.py:383-384 semantics)."""
-        c = self.cfg
-        return dc.replace(
-            c.render,
-            apply_brdf=c.train.brdf_on < 1.0 and c.render.apply_brdf,
-            apply_theta=c.train.brdf_on < 0.5 and c.render.apply_theta,
-            force_sun_march=c.render.force_sun_march or self.test_sun_v)
+        return final_render_config(self.cfg, self.test_sun_v)
 
     def render_image(self, sample, t: int = 0,
                      draws: Optional[Dict[str, torch.Tensor]] = None
                      ) -> Dict[str, np.ndarray]:
-        """Render every ray of `sample["rays"]` (N, 8|11): per-ray rgb /
-        depth plus the weighted-sum panel maps, as numpy arrays.
+        """Render every ray of `sample["rays"]` (N, 8|11), or of image
+        `sample` of the val split: per-ray rgb / depth plus the weighted-sum
+        panel maps, as numpy arrays (render_in_chunks).
 
         t: transient-embedding index (the port has no t-embedding yet, so
-        only 0).  draws: the uniform draws of ONE chunk (see
-        render/render.py), reused for every chunk; by default they come
-        from a generator seeded with `seed` anew for each chunk."""
-        from .parallel.train_step import make_render_step, reduce_panels
-        from .render.render import RenderInputs
+        only 0)."""
         if isinstance(sample, (int, np.integer)):
-            raise not_ported("building the run's dataset "
-                             "(render_image by image index)", 8)
+            sample = self.get_image(int(sample))
         if t != 0:
             raise not_ported("the t-embedding", 9)
-        rcfg = self.render_config()
-        step = make_render_step(self.cfg.model, rcfg)
-        rays = np.asarray(sample["rays"], np.float32)
-        n, chunk = rays.shape[0], self.chunk
-        cos_irra_on = torch.tensor(self.cfg.train.cos_irra_on < 1.0,
-                                   device=self.device)
-        outs: Dict[str, List[np.ndarray]] = {}
-        for i in range(0, n, chunk):
-            part = rays[i:i + chunk]
-            keep = part.shape[0]
-            if keep < chunk:
-                part = np.concatenate(
-                    [part, np.tile(part[-1:], (chunk - keep, 1))], 0)
-            inp = RenderInputs(
-                rays=torch.from_numpy(part).to(self.device),
-                cos_irra_on=cos_irra_on)
-            gen = None
-            if draws is None:
-                gen = torch.Generator(device=self.device)
-                gen.manual_seed(self.seed)
-            res = step(self.net, inp, draws=draws, generator=gen)
-            for k in PER_RAY_KEYS:
-                if k in res:
-                    outs.setdefault(k, []).append(
-                        res[k][:keep].float().cpu().numpy())
-            for k, acc in reduce_panels(res, PANEL_ACCUM).items():
-                outs.setdefault(k, []).append(
-                    acc[:keep].float().cpu().numpy())
-        return {k: np.concatenate(v, 0) for k, v in outs.items()}
+        return render_in_chunks(self.net, self.cfg, self.render_config(),
+                                sample["rays"], self.chunk, self.device,
+                                self.seed, draws)
 
 
 def load_renderer(run_dir: str, epoch_number: int,

@@ -58,6 +58,22 @@ the kernel pair, ops/fused_trunk_heads.py):
   7b. step check, fused heads - one step's gradients, every parameter, at
                 the weights after this run's last 8 timed steps, held as
                 in 7
+With the switch unset again:
+  8. workflow - the two-stage workflow through the port's train CLI
+                (cli/train.main) at the flagship's width on the port's
+                synthetic AOI (build_aoi, 256 px: 2 train + 1 test image,
+                128 steps an epoch at batch 1,024): stage 1 (256 steps),
+                stage 2 handed off from stage 1's last epoch=N.npz (256
+                steps, the flagship heads), a resume of stage 2 for 2 steps,
+                and 16 stage-2 steps with --scan_chunk 8 against 16 with
+                --scan_chunk 1; launches per step held (K1 in stage 1; K1,
+                K2 and K3 in stage 2; validation's apart), losses falling,
+                checkpoints at the cadence (stage 2's with the RPV heads),
+                finite validation psnr / ssim / DSM MAE for every validation
+                epoch, the resume's step, Adam count and learning rate, the
+                scan's per-step losses; the AOI build, ingestion and
+                validation times, fit's rays/s and the device's busy share
+                over the loop printed
 Then one JSON line of every ported kernel, the card's line, and the last
 line {"ok": true, "device": {...}}.
 """
@@ -637,6 +653,262 @@ def ill_conditioned_rays(net, mcfg, rcfg, batch, draws, gates, bound):
                            res["nr_vw_coarse"].flatten(), bound)
 
 
+# the two-stage workflow through the port's train CLI (phase 8)
+AOI_SIZE = 256          # 65,536 rays an image; 2 train + 1 test image
+WF_STEPS = 256          # two epochs of 128 steps at batch 1,024
+WF_SCAN_STEPS = 16
+WF_CHUNKS = 2 * -(-AOI_SIZE * AOI_SIZE // CHUNK)   # a validation's chunks
+
+
+def workflow(root, reset_counts, counts, bare_rays_s):
+    """Stage 1, then stage 2 handed off from stage 1's last checkpoint,
+    through brdfnerf_tpu_torch.cli.train.main on the card at the flagship's
+    width, on the port's synthetic AOI; then a resume of stage 2 for 2
+    steps, and 16 stage-2 steps with --scan_chunk 8 against 16 with
+    --scan_chunk 1.  Checked: launches per step (validation's apart),
+    falling losses, checkpoints at the cadence (stage 2's carrying the RPV
+    heads), finite validation psnr / ssim / DSM MAE for every validation
+    epoch, the resume's step count and learning rate, and the scan's
+    per-step losses.  Reported: the AOI build, ingestion and validation
+    times, fit's rays/s against phase 6's bare step, and the device's busy
+    share over fit's loop."""
+    from torch.profiler import ProfilerActivity, profile
+    from brdfnerf_tpu_torch.cli import train as cli_train
+    from brdfnerf_tpu_torch.data.satellite import (SatelliteConfig,
+                                                   SatelliteDataset)
+    from brdfnerf_tpu_torch.data.synth_aoi import build_aoi
+    from brdfnerf_tpu_torch.parallel import train_step as ts
+    from brdfnerf_tpu_torch.train import Trainer
+
+    t0 = time.perf_counter()
+    aoi = build_aoi(os.path.join(root, "aoi"), size=AOI_SIZE)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sat = SatelliteConfig(root_dir=aoi["root"], aoi_id=aoi["aoi_id"],
+                          mod_alt_bound=True)
+    n_rays = SatelliteDataset(sat, "train").store["rays"].shape[0]
+    val_ds = SatelliteDataset(sat, "val")
+    for i in range(len(val_ds)):
+        val_ds.get_image(i)
+    ingest_s = time.perf_counter() - t0
+    print(f"  AOI {AOI_SIZE} px built in {build_s:.3f} s; {n_rays} training "
+          f"rays and {len(val_ds)} validation images ingested in "
+          f"{ingest_s:.3f} s", flush=True)
+    assert n_rays == 2 * AOI_SIZE * AOI_SIZE
+
+    # hooks, read after each run: every step's loss (a device tensor, no
+    # sync) and learning rate, the launches and seconds of validation, and
+    # fit's wall time without its epoch ends
+    rec = {"loss": [], "lr": [], "val": {}, "val_s": [], "fit_s": 0.0,
+           "epoch_end_s": 0.0, "profile": False, "busy": None}
+    saved = (ts.compute_losses, ts.Optimizer.step, Trainer.validate,
+             Trainer.fit, Trainer._on_epoch_end)
+
+    def compute_losses(*a, **k):
+        out = saved[0](*a, **k)
+        rec["loss"].append(out[0].detach())
+        return out
+
+    def opt_step(self, opt, k):
+        rec["lr"].append((k, self.schedule(k)))
+        return saved[1](self, opt, k)
+
+    def validate(self, epoch):
+        before = counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = saved[2](self, epoch)
+        torch.cuda.synchronize()
+        rec["val_s"].append(time.perf_counter() - t0)
+        for k, v in counts().items():
+            rec["val"][k] = rec["val"].get(k, 0) + v - before[k]
+        return out
+
+    def fit(self, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if rec["profile"]:
+            rec["prof"] = profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA])
+            rec["prof"].start()
+            rec["t_prof"] = t0
+        out = saved[3](self, *a, **k)
+        torch.cuda.synchronize()
+        rec["fit_s"] = time.perf_counter() - t0
+        return out
+
+    def on_epoch_end(self, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if rec.get("prof") is not None and k.get("final"):
+            # the loop's window ends where the final epoch end begins
+            wall = t0 - rec["t_prof"]
+            rec["prof"].stop()
+            dev = sum(ev.self_device_time_total
+                      for ev in rec["prof"].key_averages()
+                      if ev.device_type == torch.autograd.DeviceType.CUDA)
+            rec["busy"] = (dev / 1e6, wall)
+            rec["prof"] = None
+        out = saved[4](self, *a, **k)
+        torch.cuda.synchronize()
+        rec["epoch_end_s"] += time.perf_counter() - t0
+        return out
+
+    (ts.compute_losses, ts.Optimizer.step, Trainer.validate, Trainer.fit,
+     Trainer._on_epoch_end) = (compute_losses, opt_step, validate, fit,
+                               on_epoch_end)
+    logs, ckpts = os.path.join(root, "logs"), os.path.join(root, "ckpts")
+    base = ["--root_dir", aoi["root"], "--gt_dir", aoi["gt_dir"],
+            "--aoi_id", aoi["aoi_id"], "--logs_dir", logs,
+            "--ckpts_dir", ckpts, "--model", "spsbrdf-nerf", "--mapping",
+            "--fc_feat", "512", "--fc_layers", "8", "--n_samples",
+            str(N_SAMPLES), "--guided_samples", str(N_SAMPLES),
+            "--batch_size", str(BATCH), "--lr", "5e-4", "--ds_lambda", "10",
+            "--compute_dtype", "bfloat16_all", "--chunk", str(CHUNK)]
+    heads = ["--normal", "analystic", "--sun_v", "analystic", "--funcM",
+             "1", "--funcF", "1", "--funcH", "1", "--brdf_on", "0",
+             "--nr_reg_an_lambda", "0.1", "--hs_lambda", "0.5"]
+    zero = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0}
+
+    def run(label, argv, steps, want_train, want_val, profiled=False):
+        """One CLI run: the launches of its steps (validation's apart)
+        against want_train, validation's against want_val per
+        validation; returns the steps' losses and learning rates."""
+        for k in ("loss", "lr", "val_s"):
+            rec[k] = []
+        rec["val"], rec["epoch_end_s"], rec["profile"] = {}, 0.0, profiled
+        reset_counts()
+        t0 = time.perf_counter()
+        assert cli_train.main(argv) == 0
+        wall = time.perf_counter() - t0
+        launches = counts()
+        n_val = len(rec["val_s"])
+        train = {k: v - rec["val"].get(k, 0) for k, v in launches.items()}
+        want_v = {k: v * n_val for k, v in want_val.items()}
+        print(f"  {label}: {steps} steps, {n_val} validations; launches in "
+              f"the steps {train}, in validation {rec['val']}", flush=True)
+        assert train == dict(zero, **want_train), train
+        assert rec["val"] == dict(zero, **want_v), rec["val"]
+        losses = [float(v) for v in rec["loss"]]
+        assert len(losses) == steps and all(np.isfinite(losses)), losses
+        loop_s = rec["fit_s"] - rec["epoch_end_s"]
+        print(f"  {label}: command {wall:.3f} s; fit {rec['fit_s']:.3f} s, "
+              f"of which epoch ends (validation, checkpoints) "
+              f"{rec['epoch_end_s']:.3f} s; the loop {steps * BATCH / loop_s:.1f}"
+              f" rays/s (phase 6's bare step: {bare_rays_s:.1f} rays/s, "
+              f"mean); validation seconds "
+              f"{[round(v, 3) for v in rec['val_s']]}", flush=True)
+        return losses, list(rec["lr"])
+
+    def scalars(exp):
+        with open(os.path.join(logs, exp, "scalars.jsonl")) as f:
+            return [json.loads(ln) for ln in f]
+
+    def check_outputs(exp, epochs, keys):
+        """Checkpoints and optimizer states at every epoch, `keys` among
+        the last one's parameters, and finite validation scalars for every
+        validation epoch."""
+        for e in range(epochs):
+            for suffix in (".npz", ".opt.npz"):
+                assert os.path.exists(os.path.join(
+                    ckpts, exp, f"epoch={e}{suffix}")), (exp, e, suffix)
+        with np.load(os.path.join(ckpts, exp,
+                                  f"epoch={epochs - 1}.npz")) as z:
+            assert all(any(f.startswith(f"coarse/{k}/") for f in z.files)
+                       for k in keys), (exp, z.files)
+        val = [r for r in scalars(exp) if any(k.startswith("val/")
+                                              for k in r)]
+        assert len(val) == epochs, (exp, len(val))
+        for r in val:
+            for m in ("psnr", "ssim", "mae"):
+                v = [x for k, x in r.items() if k.startswith(f"val/{m}_")]
+                assert v and all(np.isfinite(v)), (exp, m, r)
+        print(f"  {exp}: checkpoints at epochs 0..{epochs - 1}; validation "
+              + "; ".join(f"step {r['step']}: psnr {r['val/psnr_1']:.3f} "
+                          f"ssim {r['val/ssim_1']:.4f} MAE "
+                          f"{r['val/mae_1']:.3f} m" for r in val),
+              flush=True)
+
+    def falls(label, losses):
+        first, last = np.mean(losses[:16]), np.mean(losses[-16:])
+        print(f"  {label}: loss mean of the first 16 steps {first:.5f}, of "
+              f"the last 16 {last:.5f}", flush=True)
+        assert last < first, (label, first, last)
+
+    # expected launches, from the code: stage 1 (no analytic normals, no
+    # sun visibility) runs K1 once a step for the depth probe and the trunk
+    # through cuBLAS; stage 2 runs K1 for the probe and, from its first
+    # BRDF step (step > brdf_on * max_steps = 0), once more for the sun
+    # march, and K2 (saving zs/us) and K3 once a step.  A validation renders
+    # 2 images of WF_CHUNKS / 2 chunks and one cross-section row: per
+    # render K1 once (stage 1), or K1 twice and K2 once (stage 2)
+    epochs = WF_STEPS * BATCH // n_rays
+    s1 = "stage1"
+    losses, _ = run(s1, base + ["--exp_name", s1, "--max_train_steps",
+                                str(WF_STEPS)], WF_STEPS,
+                    {"K1": WF_STEPS}, {"K1": WF_CHUNKS + 1})
+    falls(s1, losses)
+    check_outputs(s1, epochs, ("fc_net", "sigma_from_xyz", "rgb_from_xyzdir"))
+    handoff = os.path.join(ckpts, s1, f"epoch={epochs - 1}.npz")
+    s2 = "stage2"
+    stage2 = base + heads + ["--in_ckpts", handoff]
+    want2 = {"K1": 2 * WF_STEPS - 1, "K2": WF_STEPS, "K3": WF_STEPS}
+    val2 = {"K1": 2 * (WF_CHUNKS + 1), "K2": WF_CHUNKS + 1}
+    losses, _ = run(s2, stage2 + ["--exp_name", s2, "--max_train_steps",
+                                  str(WF_STEPS)], WF_STEPS, want2, val2)
+    # step 0 is the Lambertian phase, step 1 on add the BRDF and normal
+    # terms
+    falls(s2, losses[1:])
+    check_outputs(s2, epochs, ("k_from_xyz", "theta_rpv_from_xyz",
+                               "rhoc_from_xyz"))
+
+    # resume stage 2 from its last checkpoint for 2 more steps: the step
+    # count, Adam's count and the learning rate carry on
+    last2 = os.path.join(ckpts, s2, f"epoch={epochs - 1}.npz")
+    res = "stage2_resume"
+    _, lrs = run(res, base + heads + ["--exp_name", res, "--ckpt_path",
+                                      last2, "--max_train_steps",
+                                      str(WF_STEPS + 2)], 2,
+                 {"K1": 4, "K2": 2, "K3": 2}, val2)
+    spe = n_rays // BATCH
+    want_lr = [(k, float(np.float32(5e-4 * 0.9 ** (k // spe))))
+               for k in (WF_STEPS, WF_STEPS + 1)]
+    print(f"  {res}: updates (index, lr) {lrs}; expected {want_lr}",
+          flush=True)
+    assert lrs == want_lr, (lrs, want_lr)
+    rows = [r for r in scalars(res) if "train/loss" in r]
+    assert [r["step"] for r in rows] == [WF_STEPS + 1], rows
+    out = os.path.join(ckpts, res, f"epoch={(WF_STEPS + 1) // spe}")
+    with np.load(out + ".npz") as z, np.load(out + ".opt.npz") as o:
+        print(f"  {res}: checkpoint step {int(z['__step__'])}, Adam's "
+              f"count {int(o['leaf_0000'])}", flush=True)
+        assert int(z["__step__"]) == int(o["leaf_0000"]) == WF_STEPS + 2
+
+    # --scan_chunk 8 against --scan_chunk 1: the same 16 steps (one step of
+    # the Lambertian phase, then chunks of 8 and 7); the loop of the latter
+    # profiled for the device's busy share.  Bound: every step's loss to
+    # 1e-6 relative (the step is expected to be deterministic: bit-equal)
+    scan = {}
+    for n in (8, 1):
+        exp = f"scan{n}"
+        scan[n], _ = run(exp, stage2 + [
+            "--exp_name", exp, "--max_train_steps", str(WF_SCAN_STEPS),
+            "--scan_chunk", str(n)], WF_SCAN_STEPS,
+            {"K1": 2 * WF_SCAN_STEPS - 1, "K2": WF_SCAN_STEPS,
+             "K3": WF_SCAN_STEPS}, val2, profiled=(n == 1))
+    rel = max(abs(a - b) / abs(b) for a, b in zip(scan[8], scan[1]))
+    print(f"  scan_chunk 8 vs 1: per-step losses largest relative "
+          f"difference {rel:.3e}; bit-identical {scan[8] == scan[1]}",
+          flush=True)
+    assert rel <= 1e-6, (scan[8], scan[1])
+    dev_s, wall_s = rec["busy"]
+    print(f"  scan1's loop ({WF_SCAN_STEPS} steps, profiled): device busy "
+          f"{dev_s:.3f} of {wall_s:.3f} s ({dev_s / wall_s:.1%})",
+          flush=True)
+    (ts.compute_losses, ts.Optimizer.step, Trainer.validate, Trainer.fit,
+     Trainer._on_epoch_end) = saved
+
+
 def main():
     phase("device")
     if not torch.cuda.is_available():
@@ -1076,6 +1348,8 @@ def main():
         cos_irra_on=False, ds_on=True, nrrg_on=True, beta_warmup=False,
         hs_on=True)
 
+    bare_rays_s = {}
+
     def train(label, want):
         """WARM_STEPS + TIMED_STEPS flagship steps from a fresh seeded
         state, launch counts checked per step and a falling loss; one step
@@ -1115,6 +1389,7 @@ def main():
         assert launches == {k: v * TIMED_STEPS for k, v in want.items()}, \
             launches
         assert state.step == WARM_STEPS + TIMED_STEPS
+        bare_rays_s[label] = BATCH * len(step_ms) / sum(step_ms) * 1e3
         print(f"  ms/step fastest {min(step_ms):.3f}, mean "
               f"{sum(step_ms) / len(step_ms):.3f}; train rays/s "
               f"{BATCH / min(step_ms) * 1e3:.1f} (fastest step), "
@@ -1297,6 +1572,10 @@ def main():
                (k4, "_trunk_heads_bwd_cuda", k4._trunk_heads_bwd_plain),
                {"K1": 2, "K2": 0, "K3": 0, "K4": 1, "K5": 1})
     del os.environ[FUSED_HEADS], trained
+
+    phase("workflow")
+    workflow(os.path.join(tmp.name, "workflow"), reset_counts, counts,
+             bare_rays_s["train step"])
 
     tmp.cleanup()
     if step_failures:

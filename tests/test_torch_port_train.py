@@ -372,8 +372,9 @@ def test_training_entry_points_never_fall_back(monkeypatch):
                dict(state_shardings=object()), dict(has_kp=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tts.make_fused_train_step(tm, tr, tt, opt, sched, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tts.make_scan_train_step(tm, tr, tt, opt, sched)
+    for kw in (dict(mesh=object()), dict(has_kp=True)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tts.make_scan_train_step(tm, tr, tt, opt, sched, **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tts.create_train_state(dc.replace(tm, beta=True), tt, 1,
                                device="cpu")
