@@ -14,16 +14,19 @@ needs.  Layout mirrors the JAX package:
   brdf      - RPV physics
   models    - the network as an nn.Module
   render    - render_rays (spsbrdf-nerf)
-  parallel  - the train step (losses, gates, Adam; N steps a call) and the
-              render step
+  parallel  - the train step (losses, gates, Adam; N steps a call), the
+              render step and the block render of whole images
   losses    - the loss suite;  metrics - mse / psnr / ssim, masked scores
   data      - the ray batchers, the satellite dataset, the synthetic AOI
   geo       - RPC camera model (host), geodesy, DSM and its registration
   train     - Trainer: the training loop, checkpoints, resume, validation
-  cli       - flags and opts.json round-trip; the train CLI (cli.train)
-  serve     - load_renderer / Renderer, the chunked render loop
-  analysis  - the training store's BRDF observability warning
-  utils     - npz checkpoint and optimizer-state I/O, GeoTIFF, devices
+  cli       - flags and opts.json round-trip; the train, eval, create_dsm,
+              brf_probe, depth_qa and convert_ckpt CLIs
+  serve     - load_renderer / Renderer, the image render (block render or
+              chunk loop)
+  analysis  - BRF probes; the training store's BRDF observability warning
+  utils     - npz checkpoint and optimizer-state I/O, reference .ckpt
+              import / export, GeoTIFF, devices
 
 Entry points run on CUDA unless the caller passes device="cpu".
 """

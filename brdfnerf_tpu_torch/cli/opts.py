@@ -208,6 +208,44 @@ def train_parser() -> argparse.ArgumentParser:
     return p
 
 
+def eval_parser() -> argparse.ArgumentParser:
+    """The JAX package's eval flags and defaults (reference Test_parser,
+    opt.py:10-29)."""
+    p = argparse.ArgumentParser(description="brdfnerf_tpu_torch evaluation")
+    p.add_argument("--run_id", type=str, default=None)
+    p.add_argument("--logs_dir", type=str, required=True)
+    p.add_argument("--output_dir", type=str, default=None)
+    p.add_argument("--epoch_number", type=int, required=True)
+    p.add_argument("--split", type=str, default="val",
+                   help="'val' = train img 0 + test imgs; 'train' = render "
+                        "every training image (eval.py:238-249)")
+    p.add_argument("--infile_postfix", type=str, default="")
+    p.add_argument("--checkpoints_dir", type=str, default=None)
+    p.add_argument("--find_best_t", type=int, default=0,
+                   help="search the t-embedding vocab per val image and "
+                        "score with the best-PSNR index instead of the "
+                        "predefined t=0 (eval.py:184-199,215); the "
+                        "t-embedding is not ported yet")
+    p.add_argument("--compute_dtype", type=str, default=None,
+                   choices=["float32", "bfloat16", "bfloat16_all", "int8"],
+                   help="override the run's training compute_dtype for "
+                        "this evaluation ('int8' is not ported yet)")
+    p.add_argument("--normal_at_surface", type=int, default=None,
+                   help="override the run's normal_at_surface for this "
+                        "evaluation (1/0; 1 is not ported yet)")
+    p.add_argument("--sun_march_samples", type=int, default=None,
+                   help="override the run's sun-visibility march sample "
+                        "count for this evaluation (0 = reference intent "
+                        "N_samples; -1 = merged final count, what "
+                        "pre-knob runs trained with and what their "
+                        "reloaded opts.json defaults to; positive = "
+                        "explicit count)")
+    p.add_argument("--n_devices", type=int, default=0,
+                   help="multi-GPU serving over N devices (not ported "
+                        "yet); 0 = single device")
+    return p
+
+
 def postprocess(args: argparse.Namespace) -> argparse.Namespace:
     args.nr_spv_type = derive_nr_spv_type(args.normal, args.nr_spv_type)
     if args.sun_v != "learned":

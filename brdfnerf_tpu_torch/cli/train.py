@@ -20,8 +20,10 @@ from . import opts as opts_mod
 from ..models.network import not_ported
 
 
-def kernels_line(cfg, device) -> str:
-    """Which fused kernels the run's steps launch, or why none."""
+def kernels_line(cfg, device, train: bool = True) -> str:
+    """Which fused kernels the run launches, or why none: its train steps,
+    or with train=False its renders (the serving instantiations, no
+    backward)."""
     from ..ops.fused_mlp import FEAT, LANE, cuda_kernels_cover
     m, r = cfg.model, cfg.render
     if device.type != "cuda":
@@ -39,16 +41,21 @@ def kernels_line(cfg, device) -> str:
             (f"skips {m.skips} with {m.layers} layers", len(m.skips) != 1
              or not 0 < m.skips[0] < m.layers or m.layers < 3)) if bad]
         return ("[kernels] none: the CUDA kernels do not cover this model ("
-                + ", ".join(why) + "), so every step takes the unfused "
+                + ", ".join(why) + "), so the run takes the unfused "
                 "torch path (ROADMAP.md Queue 2 item 3)")
     used = []
     if r.use_pallas:
         used.append("K1 (the sigma-only passes)")
     if r.fused_trunk and m.normal in ("analystic", "analystic_learned"):
-        used.append("K2 + K3 (the differentiated trunk and its backward)")
+        if train:
+            used.append("K2 + K3 (the differentiated trunk and its "
+                        "backward)")
+        else:
+            used.append("K2 (the trunk with its sigma gradient)")
         if os.environ.get("BRDFNERF_FUSED_HEADS"):
-            used.append("K4 + K5 in their place where the flagship head "
-                        "set runs (BRDFNERF_FUSED_HEADS)")
+            used.append(("K4 + K5 in their place" if train
+                         else "K4 in its place") + " where the flagship "
+                        "head set runs (BRDFNERF_FUSED_HEADS)")
     if not used:
         return ("[kernels] none: --use_pallas 0 and no fused trunk "
                 "(--fused_trunk 0, or no analytic normals)")

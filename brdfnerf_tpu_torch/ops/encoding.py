@@ -39,14 +39,24 @@ def _proj_and_phase(n_freqs: int, in_ch: int, pad_to: int = 0):
     return p, phase
 
 
+@lru_cache(maxsize=None)
+def _phase_tensors(n_freqs: int, in_ch: int, pad_to: int, dtype: torch.dtype,
+                   device: torch.device):
+    """(chan, scale, phase) of _proj_and_phase on `device`, made once: a
+    host-to-device copy would wait for the device's queue at every call.
+    Shared: read only."""
+    p, phase = _proj_and_phase(n_freqs, in_ch, pad_to)
+    return (torch.as_tensor(p.argmax(axis=0), device=device),
+            torch.as_tensor(p.max(axis=0), device=device, dtype=dtype),
+            torch.as_tensor(phase, device=device, dtype=dtype))
+
+
 def _phase_arg(x: torch.Tensor, n_freqs: int, pad_to: int = 0) -> torch.Tensor:
     """m = x @ P + phase, computed exactly: each column of P holds one
     power of two (or nothing, on pad columns)."""
-    p, phase = _proj_and_phase(n_freqs, x.shape[-1], pad_to)
-    chan = torch.as_tensor(p.argmax(axis=0), device=x.device)
-    scale = torch.as_tensor(p.max(axis=0), device=x.device, dtype=x.dtype)
-    return (x[..., chan] * scale
-            + torch.as_tensor(phase, device=x.device, dtype=x.dtype))
+    chan, scale, phase = _phase_tensors(n_freqs, x.shape[-1], pad_to,
+                                        x.dtype, x.device)
+    return x[..., chan] * scale + phase
 
 
 def positional_encoding(x: torch.Tensor, n_freqs: int, fast: bool = False,

@@ -588,7 +588,7 @@ def encode_with_jacobian(cfg: ModelConfig, xyz: torch.Tensor):
     d/d x_enc to d/d xyz through the encoding's Jacobian)."""
     if not cfg.mapping:
         return xyz, lambda gx_enc: gx_enc[:, :xyz.shape[-1]]
-    from .encoding import _phase_arg, _proj_and_phase
+    from .encoding import _phase_arg, _phase_tensors
     n_freqs, c = cfg.mapping_sizes[0], xyz.shape[-1]
     ein_p = _round_up(2 * n_freqs * c, LANE)
     m = _phase_arg(xyz, n_freqs, pad_to=ein_p)
@@ -596,10 +596,10 @@ def encode_with_jacobian(cfg: ModelConfig, xyz: torch.Tensor):
 
     def chain(gx_enc):
         # (gx_enc * cos m) @ P^T, exactly: each column of P holds one power
-        # of two, for channel (j mod 2C) mod C of band j // 2C
-        p, _ = _proj_and_phase(n_freqs, c, pad_to=ein_p)
-        scale = torch.as_tensor(p.max(axis=0)[:2 * n_freqs * c],
-                                device=xyz.device)
+        # of two, for channel (j mod 2C) mod C of band j // 2C; P's column
+        # maxima already on the device (_phase_tensors)
+        scale = _phase_tensors(n_freqs, c, ein_p, torch.float32,
+                               xyz.device)[1][:2 * n_freqs * c]
         t = (gx_enc * cos_m)[:, :2 * n_freqs * c] * scale
         return t.reshape(-1, 2 * n_freqs, c).sum(1)
     return enc, chain

@@ -44,13 +44,23 @@ def _linspace_np(start: float, stop: float, num: int) -> np.ndarray:
     return np.concatenate([out, np.asarray([stop], f)])
 
 
+@lru_cache(maxsize=None)
+def _linspace_on(start: float, stop: float, num: int, dtype: torch.dtype,
+                 device: torch.device) -> torch.Tensor:
+    return torch.tensor(_linspace_np(start, stop, num), dtype=dtype,
+                        device=device)
+
+
 def linspace(start: float, stop: float, num: int,
              like: torch.Tensor) -> torch.Tensor:
     """jnp.linspace's f32 values (see _linspace_np) on like's device.
     `torch.linspace` steps from both ends and differs in the last ulp,
-    which the siren trunk amplifies.  A copy: the cached array is shared."""
-    return torch.tensor(_linspace_np(float(start), float(stop), num),
-                        dtype=like.dtype, device=like.device)
+    which the siren trunk amplifies.  Uploaded once per (values, dtype,
+    device): a host-to-device copy of pageable memory waits for the
+    device's queue, so uploading anew would stall every render chunk and
+    train step.  A copy on the device: the cached tensor is shared."""
+    return _linspace_on(float(start), float(stop), num, like.dtype,
+                        like.device).clone()
 
 
 def _uniform(u, shape, like, generator):

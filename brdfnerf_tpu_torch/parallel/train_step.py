@@ -21,6 +21,7 @@ draws it is handed (a test hands in the JAX package's).
 from __future__ import annotations
 
 import math
+import os
 from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -379,6 +380,65 @@ def make_render_step(mcfg: ModelConfig, rcfg: RenderConfig,
             return render_rays(net, mcfg, rcfg, inp, train=train,
                                draws=draws, generator=generator)
     return fn
+
+
+def render_blocks(net, mcfg: ModelConfig, rcfg: RenderConfig,
+                  rays: np.ndarray, chunk: int, device, cos_irra_on: bool,
+                  per_ray_keys: Sequence[str], panel_accum,
+                  seed: int = 0, draws: Optional[Dict] = None,
+                  block: Optional[int] = None) -> Dict[str, np.ndarray]:
+    """Block render of a full image (the JAX package's
+    make_scan_render_step with Trainer._render_image_scan): the rays go to
+    the device once, padded to whole chunks by repeating the last ray; the
+    chunks render back to back in blocks of `block` chunks
+    (BRDFNERF_RENDER_SCAN_BLOCK, default 32), the per-ray keys and the
+    reduce_panels maps accumulating in one float32 device buffer, which
+    crosses to the host in one copy a block.  Every chunk takes the same
+    draws: `draws` (one chunk's), else render.chunk_draws(seed), which are
+    those a generator seeded with `seed` gives a chunk.  Returns what the
+    chunk loop (serve.render_in_chunks) returns, bit for bit."""
+    from ..render.render import chunk_draws
+    step = make_render_step(mcfg, rcfg)
+    rays = np.asarray(rays, np.float32)
+    n = rays.shape[0]
+    n_chunks = max(1, -(-n // chunk))
+    if block is None:
+        block = int(os.environ.get("BRDFNERF_RENDER_SCAN_BLOCK", "32"))
+    block = min(max(1, block), n_chunks)
+    total = n_chunks * chunk
+    if total > n:
+        rays = np.concatenate([rays, np.tile(rays[-1:], (total - n, 1))], 0)
+    rays_d = torch.from_numpy(rays).to(device)
+    if draws is None:
+        draws = chunk_draws(mcfg, rcfg, chunk, device, seed)
+    cos = torch.tensor(bool(cos_irra_on), device=device)
+    panel_items = tuple(panel_accum.items())
+    # [(key, first column, columns, trailing shape)] of the block buffer
+    layout = buf = None
+    parts: List[np.ndarray] = []
+    for b0 in range(0, n_chunks, block):
+        rows = min(block, n_chunks - b0) * chunk
+        for c in range(b0, min(b0 + block, n_chunks)):
+            res = step(net, RenderInputs(
+                rays=rays_d[c * chunk:(c + 1) * chunk], cos_irra_on=cos),
+                draws=draws)
+            out = {k: res[k] for k in per_ray_keys if k in res}
+            out.update(reduce_panels(res, panel_items))
+            if layout is None:
+                layout, width = [], 0
+                for k, v in out.items():
+                    w = int(np.prod(v.shape[1:], dtype=np.int64))
+                    layout.append((k, width, w, tuple(v.shape[1:])))
+                    width += w
+                buf = torch.empty(block * chunk, width, dtype=torch.float32,
+                                  device=device)
+            r0 = (c - b0) * chunk
+            for k, off, w, _ in layout:
+                buf[r0:r0 + chunk, off:off + w] = out[k].reshape(chunk, w)
+        parts.append(buf[:rows].to("cpu", copy=True).numpy())
+    host = np.concatenate(parts, 0)[:n]
+    return {k: np.ascontiguousarray(host[:, off:off + w]).reshape(
+        (n,) + shape) for k, off, w, shape in layout}
 
 
 def reduce_panels(res: Dict, panel_accum) -> Dict:

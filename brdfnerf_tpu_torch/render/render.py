@@ -145,6 +145,32 @@ def _render_one(net, mcfg: ModelConfig, rcfg: RenderConfig,
                            sun_d, z_vals, train, draws, generator)
 
 
+def chunk_draws(mcfg: ModelConfig, rcfg: RenderConfig, n_rays: int,
+                device, seed: int = 0) -> Dict[str, torch.Tensor]:
+    """The draws that render_rays(train=False) takes from a generator seeded
+    with `seed` for a batch of n_rays, made ahead in the order and shapes it
+    consumes them (stratified jitter, the guided band, the sun march), so a
+    caller can hand one batch's draws to many batches."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    draws: Dict[str, torch.Tensor] = {}
+
+    def take(name: str, width: int):
+        draws[name] = torch.rand((n_rays, width), generator=gen,
+                                 dtype=torch.float32, device=device)
+
+    if rcfg.perturb > 0:
+        take("z", rcfg.n_samples)
+    if rcfg.guided_samples > 0:
+        if rcfg.perturb != 0.0:
+            take("guided", rcfg.effective_guided)
+        march = mcfg.sun_v == "analystic" and (rcfg.apply_brdf
+                                               or rcfg.force_sun_march)
+        if march and rcfg.perturb > 0:
+            take("sun", rcfg.sun_march_count(rcfg.total_samples))
+    return draws
+
+
 def render_rays(net, mcfg: ModelConfig, rcfg: RenderConfig,
                 inp: RenderInputs, train: bool = False,
                 draws: Optional[Dict[str, torch.Tensor]] = None,

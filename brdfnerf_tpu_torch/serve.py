@@ -6,11 +6,13 @@
     out = r.render_image(0)                            # image 0 of the val split
     # out["rgb_coarse"], out["depth_coarse"], the per-ray panel maps, ...
 
-`load_renderer` reads the run's opts.json and its epoch={n}.npz (the JAX
-package's contract, so a run trained by either package serves here).
-`render_image` renders in fixed-size chunks (opts `--chunk`, 5120 by
-default) through `render_in_chunks`, the chunk loop that the Trainer's
-validation renders through too.
+`load_renderer` reads the run's opts.json and its epoch={n}.npz, or the
+reference's epoch={n}.ckpt (the JAX package's contract, so a run trained by
+either package, or by the reference, serves here).  `render_image` renders
+in fixed-size chunks (opts `--chunk`, 5120 by default) through
+`render_image_rays`, which the Trainer's validation renders through too:
+the block render (parallel/train_step.render_blocks), or with
+BRDFNERF_NO_SCAN_RENDER set, the chunk loop `render_in_chunks`.
 """
 
 from __future__ import annotations
@@ -92,13 +94,31 @@ def render_in_chunks(net: Network, cfg: RunConfig, rcfg, rays,
     return {k: np.concatenate(v, 0) for k, v in outs.items()}
 
 
+def render_image_rays(net: Network, cfg: RunConfig, rcfg, rays,
+                      chunk: int, device: torch.device, seed: int = 0,
+                      draws: Optional[Dict[str, torch.Tensor]] = None
+                      ) -> Dict[str, np.ndarray]:
+    """Every ray of an image, as render_in_chunks returns them: through the
+    block render by default, or, with BRDFNERF_NO_SCAN_RENDER set to
+    anything truthy, through the chunk loop (the JAX package's
+    Trainer.render_image switch)."""
+    if os.environ.get("BRDFNERF_NO_SCAN_RENDER", "") not in ("", "0"):
+        return render_in_chunks(net, cfg, rcfg, rays, chunk, device, seed,
+                                draws)
+    from .parallel.train_step import render_blocks
+    return render_blocks(net, cfg.model, rcfg, rays, chunk, device,
+                         cfg.train.cos_irra_on < 1.0, PER_RAY_KEYS,
+                         PANEL_ACCUM, seed=seed, draws=draws)
+
+
 @dc.dataclass
 class Renderer:
     """A trained run loaded for rendering.  `cfg` is the RunConfig in use
     (serving overrides applied), `net` the restored network on `device`.
-    render_image takes a sample dict, or an index into the run's val split
-    (training image 0 and the test images), whose dataset is built from
-    opts.json at the first such call."""
+    render_image takes a sample dict, or an index into the run's `split`
+    ('val': training image 0 and the test images; 'train': every training
+    image), whose dataset is built from opts.json at the first such
+    call."""
     args: object
     cfg: RunConfig
     net: Network
@@ -106,18 +126,21 @@ class Renderer:
     chunk: int = 5120
     seed: int = 0
     test_sun_v: bool = False
+    split: str = "val"
     _dataset: object = dc.field(default=None, repr=False)
 
     @property
     def dataset(self):
-        """The val split's SatelliteDataset (sat_config_from_opts)."""
+        """The split's SatelliteDataset (sat_config_from_opts): 'val', or
+        'train_render' for split='train' (eval.py:238-249)."""
         if self._dataset is None:
             from .cli.opts import sat_config_from_opts
             from .data.satellite import SatelliteDataset
             if self.args.data == "blender":
                 raise not_ported("the blender dataset (data/blender.py)", 7)
             self._dataset = SatelliteDataset(
-                sat_config_from_opts(self.args), split="val")
+                sat_config_from_opts(self.args),
+                split=("train_render" if self.split == "train" else "val"))
         return self._dataset
 
     def __len__(self) -> int:
@@ -134,8 +157,8 @@ class Renderer:
                      draws: Optional[Dict[str, torch.Tensor]] = None
                      ) -> Dict[str, np.ndarray]:
         """Render every ray of `sample["rays"]` (N, 8|11), or of image
-        `sample` of the val split: per-ray rgb / depth plus the weighted-sum
-        panel maps, as numpy arrays (render_in_chunks).
+        `sample` of the split: per-ray rgb / depth plus the weighted-sum
+        panel maps, as numpy arrays (render_image_rays).
 
         t: transient-embedding index (the port has no t-embedding yet, so
         only 0)."""
@@ -143,23 +166,30 @@ class Renderer:
             sample = self.get_image(int(sample))
         if t != 0:
             raise not_ported("the t-embedding", 9)
-        return render_in_chunks(self.net, self.cfg, self.render_config(),
-                                sample["rays"], self.chunk, self.device,
-                                self.seed, draws)
+        return render_image_rays(self.net, self.cfg, self.render_config(),
+                                 sample["rays"], self.chunk, self.device,
+                                 self.seed, draws)
 
 
 def load_renderer(run_dir: str, epoch_number: int,
                   checkpoints_dir: Optional[str] = None,
+                  split: str = "val",
                   compute_dtype: Optional[str] = None,
                   normal_at_surface: Optional[bool] = None,
                   sun_march_samples: Optional[int] = None,
+                  output_dir: Optional[str] = None,
+                  n_devices: int = 0,
                   device=None) -> Renderer:
-    """Reload a run's opts.json (eval.py:228-229) and restore its
-    epoch={n}.npz into a Renderer on `device` (CUDA unless the caller
-    names another; without CUDA and without a device this raises).
+    """Reload a run's opts.json (eval.py:228-229) and restore its epoch={n}
+    checkpoint (.npz, or the reference's .ckpt) into a Renderer on `device`
+    (CUDA unless the caller names another; without CUDA and without a
+    device this raises).
 
-    Overrides as the eval CLI: compute_dtype, normal_at_surface,
-    sun_march_samples."""
+    split: 'val' = train img 0 + test imgs; 'train' = every training
+    image (eval.py:238-249).  output_dir: where the CLIs write (created;
+    the run directory by default).  Overrides as the eval CLI:
+    compute_dtype, normal_at_surface, sun_march_samples.  n_devices > 1
+    (multi-GPU serving) is not ported yet."""
     from .cli import opts as opts_mod
     from .utils import checkpoint as ckpt
 
@@ -179,8 +209,8 @@ def load_renderer(run_dir: str, epoch_number: int,
     if sun_march_samples is not None:
         cfg = dc.replace(cfg, render=dc.replace(
             cfg.render, sun_march_samples=int(sun_march_samples)))
-    if getattr(args, "n_devices", 0) and int(args.n_devices) > 1:
-        raise not_ported("multi-GPU serving", 11)
+    if n_devices and int(n_devices) > 1:
+        raise not_ported("multi-GPU serving (n_devices > 1)", 11)
 
     ckpts_dir = checkpoints_dir or os.path.join(args.ckpts_dir,
                                                 args.exp_name)
@@ -188,6 +218,8 @@ def load_renderer(run_dir: str, epoch_number: int,
     ckpt.restore_params(net, ckpt.resolve_epoch_ckpt(ckpts_dir,
                                                      epoch_number))
     net.requires_grad_(False)
+    os.makedirs(output_dir or run_dir, exist_ok=True)
     return Renderer(args=args, cfg=cfg, net=net, device=dev,
                     chunk=int(getattr(args, "chunk", 5120) or 5120),
-                    test_sun_v=bool(getattr(args, "test_sun_v", 0)))
+                    test_sun_v=bool(getattr(args, "test_sun_v", 0)),
+                    split=split)

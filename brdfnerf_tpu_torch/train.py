@@ -11,8 +11,8 @@ functions, one per static phase; the other gates follow from the step
 count inside the step.  scan_chunk > 1 runs N steps per call
 (make_scan_train_step) with the same trajectory.
 
-Validation renders full images through serve.render_in_chunks (the chunk
-loop serving uses), then scores PSNR / SSIM and, with a GT directory, the
+Validation renders full images through serve.render_image_rays (the block
+render serving uses), then scores PSNR / SSIM and, with a GT directory, the
 DSM MAE chain.  Not ported yet: the validation panels (utils/viz, ROADMAP.md
 Queue 1 item 7), multi-GPU (mesh, sharded store, scaled global batch; item
 11) and the sat-nerf keypoint store (item 9).
@@ -39,7 +39,7 @@ from .models.network import not_ported
 from .parallel.train_step import (GateSchedule, TrainState,
                                   create_train_state, make_fused_train_step,
                                   make_render_step, make_scan_train_step)
-from .serve import final_render_config, render_in_chunks
+from .serve import final_render_config, render_image_rays
 from .utils import checkpoint as ckpt
 from .utils.device import resolve_device
 
@@ -359,16 +359,16 @@ class Trainer:
     def render_image(self, sample: Dict, chunk: Optional[int] = None,
                      rcfg: Optional[RenderConfig] = None,
                      t: int = 0) -> Dict[str, np.ndarray]:
-        """A full image through serve.render_in_chunks, by default in the
+        """A full image through serve.render_image_rays, by default in the
         final static phase (eval.py:383-384).  t: the transient-embedding
         index (0 only: the t-embedding is not ported yet)."""
         if t != 0:
             raise not_ported("the t-embedding", 9)
         if rcfg is None:
             rcfg = final_render_config(self.cfg, self.test_sun_v)
-        return render_in_chunks(self.state.params, self.cfg, rcfg,
-                                sample["rays"], chunk or self.eval_chunk,
-                                self.device)
+        return render_image_rays(self.state.params, self.cfg, rcfg,
+                                 sample["rays"], chunk or self.eval_chunk,
+                                 self.device)
 
     def _save_cross_section(self, sample: Dict, epoch: int):
         """Mid-row diagnostic dump: z_vals / sigma / alpha / T for every

@@ -129,10 +129,13 @@ def save_checkpoint(path: str, params: Any, step: int = 0,
 
 
 def load_flat(path: str) -> Dict[str, np.ndarray]:
-    """The npz as {key: ndarray}.  Reference Lightning checkpoints are
-    read by the JAX package's converter, which the port has not copied."""
-    if not path.endswith(".npz"):
-        raise ValueError(f"{path}: the port reads npz checkpoints only")
+    """The checkpoint as {key: ndarray}: an npz as it is, a reference
+    (torch/Lightning) .ckpt / .pth / .pt converted on load
+    (utils/torch_import), so --in_ckpts, resume and load_renderer take a
+    checkpoint trained by the reference."""
+    if path.endswith((".ckpt", ".pth", ".pt")):
+        from .torch_import import import_torch_checkpoint
+        return import_torch_checkpoint(path)
     with np.load(path, allow_pickle=False) as z:
         return {k: z[k] for k in z.files}
 
@@ -152,11 +155,15 @@ def restore_params(net: Network, path: str,
 
 
 def resolve_epoch_ckpt(ckpts_dir: str, epoch_number: int) -> str:
-    """Path of epoch={n}.npz."""
+    """Path of epoch={n}: the .npz, else the reference's Lightning .ckpt
+    (converted on load by load_flat)."""
     npz = os.path.join(ckpts_dir, f"epoch={epoch_number}.npz")
-    if not os.path.exists(npz):
-        raise FileNotFoundError(f"{npz} not found")
-    return npz
+    if os.path.exists(npz):
+        return npz
+    torch_path = os.path.join(ckpts_dir, f"epoch={epoch_number}.ckpt")
+    if os.path.exists(torch_path):
+        return torch_path
+    raise FileNotFoundError(f"neither {npz} nor {torch_path} found")
 
 
 def checkpoint_step(path: str) -> int:

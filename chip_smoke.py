@@ -74,6 +74,19 @@ With the switch unset again:
                 scan's per-step losses; the AOI build, ingestion and
                 validation times, fit's rays/s and the device's busy share
                 over the loop printed
+  9. eval     - the evaluation side through the port's CLIs on stage 2's
+                run: cli/eval.main on its last checkpoint (launches K1 2 and
+                K2 1 per chunk, 26 chunks; the files the JAX CLI writes;
+                PSNR / SSIM / MAE against the stage's last validation of the
+                same weights, within 1e-4 dB / 1e-5 / 1e-5 m), the same
+                weights under the flagship's brdf_on 0.5 (RPV without theta)
+                with BRDFNERF_FUSED_HEADS off and on (K1 2 and K4 1 per
+                chunk; 0.5 dB / 0.02 / 0.05 m apart), convert_ckpt npz -> ckpt -> npz (bit-equal; the
+                .ckpt scores the same), one image through the block render
+                against the chunk loop (BRDFNERF_NO_SCAN_RENDER; outputs
+                bit-identical; wall time, rays/s, device-to-host copies and
+                host waits of each), create_dsm (a DSM, a finite MAE) and
+                brf_probe --param_probe (33 finite rows)
 Then one JSON line of every ported kernel, the card's line, and the last
 line {"ok": true, "device": {...}}.
 """
@@ -907,6 +920,249 @@ def workflow(root, reset_counts, counts, bare_rays_s):
           flush=True)
     (ts.compute_losses, ts.Optimizer.step, Trainer.validate, Trainer.fit,
      Trainer._on_epoch_end) = saved
+    return os.path.join(logs, s2), epochs - 1
+
+
+def run_cli(label, fn, argv, smi):
+    """A CLI's main on the card, its standard output kept (and printed
+    indented, after its seconds and the card's name and power limit
+    `smi`); returns (exit code, output, seconds)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = fn(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    text = buf.getvalue()
+    print(f"  {label} ({seconds:.3f} s, {smi}):\n    "
+          + "\n    ".join(text.strip().splitlines()), flush=True)
+    return rc, text, seconds
+
+
+def host_traffic(fn):
+    """One call of fn under torch.profiler: its wall ms, device ms, the
+    device-to-host and host-to-device copies, and the host's waits on the
+    device (cudaStreamSynchronize / cudaDeviceSynchronize calls)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev_ms, d2h, h2d, syncs = 0.0, 0, 0, 0
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            dev_ms += ev.self_device_time_total / 1e3
+            if "DtoH" in ev.key:
+                d2h += ev.count
+            elif "HtoD" in ev.key:
+                h2d += ev.count
+        elif ev.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize"):
+            syncs += ev.count
+    return {"wall_ms": wall_ms, "device_ms": dev_ms, "d2h": d2h, "h2d": h2d,
+            "syncs": syncs}
+
+
+def eval_phase(root, run_dir, epoch, reset_counts, counts, smi, rows):
+    """The evaluation side through the port's CLIs on the card, on the
+    workflow's stage-2 run (the flagship at bfloat16_all, 2 validation
+    images of AOI_SIZE**2 rays): cli/eval.main on the last checkpoint
+    (launches, the files the JAX CLI writes, scores against the stage's
+    last validation of the same weights), the same weights under the
+    flagship's brdf_on 0.5 with BRDFNERF_FUSED_HEADS off and on (the fused
+    heads take RPV without theta), one image through the block render
+    against the chunk loop (bit-identical; wall time, device-to-host
+    copies and host waits of each), create_dsm, brf_probe --param_probe
+    and convert_ckpt npz -> ckpt -> npz (bit-equal, and the converted
+    checkpoint scores the same)."""
+    import glob
+    from brdfnerf_tpu_torch.cli import brf_probe as cli_brf
+    from brdfnerf_tpu_torch.cli import convert_ckpt as cli_conv
+    from brdfnerf_tpu_torch.cli import create_dsm as cli_dsm
+    from brdfnerf_tpu_torch.cli import eval as cli_eval
+    from brdfnerf_tpu_torch.serve import load_renderer
+
+    zero = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0}
+    with open(os.path.join(run_dir, "scalars.jsonl")) as f:
+        val = [json.loads(ln) for ln in f if '"val/psnr_1"' in ln][-1]
+    # the eval CLI's means run over the test image alone (is_val: image 1)
+    last_val = {k: val[f"val/{k}_1"] for k in ("psnr", "ssim", "mae")}
+    scores = {}
+    saved = cli_eval.evaluate
+
+    def evaluate(*a, **k):
+        scores["last"] = saved(*a, **k)
+        return scores["last"]
+
+    def eval_run(label, run, extra, want):
+        reset_counts()
+        rc, _, seconds = run_cli(label, cli_eval.main,
+                                 ["--logs_dir", run, "--epoch_number",
+                                  str(epoch)] + extra, smi)
+        launches = counts()
+        print(f"  {label}: launches {launches} over {WF_CHUNKS} chunks "
+              f"(want {dict(zero, **want)}); {seconds:.3f} s ({smi})",
+              flush=True)
+        assert rc == 0 and launches == dict(zero, **want), launches
+        return dict(scores["last"]), launches
+
+    cli_eval.evaluate = evaluate
+    try:
+        # launches from the code: a chunk runs K1 for the sigma probe and
+        # for the sun march, and K2 (serving instantiation, no zs) for the
+        # main pass, or K4 in its place with the fused heads; 2 images of
+        # WF_CHUNKS / 2 chunks at --chunk CHUNK
+        ev, launches = eval_run("eval", run_dir, [],
+                                {"K1": 2 * WF_CHUNKS, "K2": WF_CHUNKS})
+        rows["K1"]["launches_eval"] = launches["K1"]
+        rows["K2"]["launches_eval"] = launches["K2"]
+        out = os.path.join(run_dir, f"eval_epoch{epoch}")
+        for pattern, n in (("*_rgb.tif", 2), ("*_depth.tif", 2),
+                           ("dsm/*_dsm.tif", 2),
+                           (f"rdsm/*_rdsm_epoch{epoch}.tif", 2),
+                           (f"rdsm_diff/*_rdsm_diff_epoch{epoch}.tif", 2)):
+            found = glob.glob(os.path.join(out, pattern))
+            assert len(found) == n, (pattern, found)
+        # validation and eval render the same image through the same block
+        # render with the same draws and the same weights (f32 round trip
+        # of the checkpoint): equal, or within 1e-4 dB / 1e-5 / 1e-5 m
+        print(f"  eval {ev}; stage 2's last validation {last_val}",
+              flush=True)
+        for k, tol in (("psnr", 1e-4), ("ssim", 1e-5), ("mae", 1e-5)):
+            assert np.isfinite(ev[k]) and abs(ev[k] - last_val[k]) <= tol, (
+                k, ev[k], last_val[k])
+        print(f"  eval equals the last validation bit for bit: "
+              f"{all(ev[k] == last_val[k] for k in last_val)}", flush=True)
+
+        # the fused heads take the flagship head set, RPV without theta
+        # (apply_theta is off at brdf_on 0.5, the flagship's value; stage 2
+        # trains with brdf_on 0, whose eval applies theta: eval.py:383-384,
+        # so the switch would leave K2 in place there).  The same weights
+        # under the flagship's brdf_on, evaluated with the switch off and on
+        from brdfnerf_tpu_torch.cli.opts import dump_opts, load_opts
+        run = load_opts(run_dir)
+        flag = os.path.join(root, "flagship")
+        flag_opts = load_opts(run_dir)
+        flag_opts.brdf_on = 0.5
+        dump_opts(flag_opts, flag)
+        flag_ev, _ = eval_run("eval, brdf_on 0.5", flag, [],
+                              {"K1": 2 * WF_CHUNKS, "K2": WF_CHUNKS})
+        os.environ[FUSED_HEADS] = "1"
+        try:
+            fused, launches = eval_run(
+                "eval, brdf_on 0.5, fused heads", flag,
+                ["--output_dir", os.path.join(root, "eval_fused")],
+                {"K1": 2 * WF_CHUNKS, "K4": WF_CHUNKS})
+        finally:
+            del os.environ[FUSED_HEADS]
+        rows["K4"]["launches_eval"] = launches["K4"]
+        # the cross-path bounds of tests/test_torch_port_cli.py
+        print(f"  eval at brdf_on 0.5: switch off {flag_ev}, fused heads "
+              f"{fused}", flush=True)
+        for k, tol in (("psnr", 0.5), ("ssim", 0.02), ("mae", 0.05)):
+            assert (np.isfinite(fused[k])
+                    and abs(fused[k] - flag_ev[k]) <= tol), (k, fused[k],
+                                                             flag_ev[k])
+
+        # npz -> ckpt -> npz at the flagship's width; the .ckpt, alone in a
+        # checkpoints directory, evaluates to the same scores
+        npz = os.path.join(run.ckpts_dir, run.exp_name, f"epoch={epoch}.npz")
+        conv = os.path.join(root, "converted")
+        os.makedirs(conv, exist_ok=True)
+        ck = os.path.join(conv, f"epoch={epoch}.ckpt")
+        back = os.path.join(root, "back.npz")
+        for argv in (["--input", npz, "--output", ck],
+                     ["--input", ck, "--output", back]):
+            rc, _, _ = run_cli("convert_ckpt", cli_conv.main, argv, smi)
+            assert rc == 0
+        with np.load(npz) as a, np.load(back) as b:
+            assert sorted(a.files) == sorted(b.files), (a.files, b.files)
+            same = all(np.array_equal(a[k], b[k]) for k in a.files)
+        print(f"  npz -> ckpt -> npz: {len(a.files)} arrays, bit-equal "
+              f"{same}", flush=True)
+        assert same
+        conv_ev, _ = eval_run("eval of the converted .ckpt", run_dir,
+                              ["--checkpoints_dir", conv, "--output_dir",
+                               os.path.join(root, "eval_ckpt")],
+                              {"K1": 2 * WF_CHUNKS, "K2": WF_CHUNKS})
+        print(f"  converted checkpoint {conv_ev}", flush=True)
+        assert conv_ev == ev, (conv_ev, ev)
+    finally:
+        cli_eval.evaluate = saved
+
+    # one validation image through the block render and the chunk loop, in
+    # turns (block, loop, loop, block); outputs bit-identical
+    renderer = load_renderer(run_dir, epoch)
+    sample = renderer.get_image(1)
+    n = sample["rays"].shape[0]
+
+    def render(loop):
+        if loop:
+            os.environ["BRDFNERF_NO_SCAN_RENDER"] = "1"
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = renderer.render_image(sample)
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+        finally:
+            os.environ.pop("BRDFNERF_NO_SCAN_RENDER", None)
+
+    outs, secs = {}, {"block": [], "loop": []}
+    for loop in (False, True, True, False):
+        name = "loop" if loop else "block"
+        outs[name], s = render(loop)
+        secs[name].append(s)
+    a, b = outs["block"], outs["loop"]
+    assert sorted(a) == sorted(b), (sorted(a), sorted(b))
+    for k in a:
+        assert a[k].shape == b[k].shape and np.array_equal(a[k], b[k]), k
+    print(f"  block render vs chunk loop: {len(a)} outputs bit-identical on "
+          f"{n} rays ({smi})", flush=True)
+    for name, loop in (("block", False), ("loop", True)):
+        if loop:
+            os.environ["BRDFNERF_NO_SCAN_RENDER"] = "1"
+        try:
+            tr = host_traffic(lambda: renderer.render_image(sample))
+        finally:
+            os.environ.pop("BRDFNERF_NO_SCAN_RENDER", None)
+        best = min(secs[name])
+        print(f"  {name}: wall {[round(s, 4) for s in secs[name]]} s, "
+              f"{n / best:.1f} rays/s (faster run); profiled image: wall "
+              f"{tr['wall_ms']:.2f} ms, device {tr['device_ms']:.2f} ms "
+              f"(busy {tr['device_ms'] / tr['wall_ms']:.1%}), device-to-host "
+              f"copies {tr['d2h']}, host-to-device {tr['h2d']}, host waits "
+              f"(stream/device synchronize) {tr['syncs']} ({smi})",
+              flush=True)
+
+    # create_dsm: the most-nadir view under the most-nadir sun
+    dsm_dir = os.path.join(root, "dsm")
+    rc, text, _ = run_cli("create_dsm", cli_dsm.main,
+                          ["--logs_dir", run_dir, "--epoch_number",
+                           str(epoch), "--output_dir", dsm_dir], smi)
+    mae = [float(ln.split()[2]) for ln in text.splitlines()
+           if ln.startswith("DSM MAE")]
+    assert rc == 0 and glob.glob(os.path.join(dsm_dir, "*_dsm.tif"))
+    assert len(mae) == 1 and np.isfinite(mae[0]), text
+
+    # brf_probe with the parameter readout, on image 1's centre pixel
+    brf_dir = os.path.join(root, "brf")
+    rc, text, _ = run_cli("brf_probe", cli_brf.main,
+                          ["--logs_dir", run_dir, "--epoch_number",
+                           str(epoch), "--param_probe", "--output_dir",
+                           brf_dir], smi)
+    txt = glob.glob(os.path.join(brf_dir, "brf_*.txt"))
+    assert rc == 0 and len(txt) == 1, txt
+    curve = np.loadtxt(txt[0])
+    print(f"  brf_probe: {curve.shape[0]} rows; BRF from "
+          f"{curve[:, 1:].min():.4f} to {curve[:, 1:].max():.4f}",
+          flush=True)
+    assert curve.shape == (33, 4) and np.isfinite(curve).all(), curve.shape
 
 
 def main():
@@ -1574,8 +1830,13 @@ def main():
     del os.environ[FUSED_HEADS], trained
 
     phase("workflow")
-    workflow(os.path.join(tmp.name, "workflow"), reset_counts, counts,
-             bare_rays_s["train step"])
+    run_dir, epoch = workflow(os.path.join(tmp.name, "workflow"),
+                              reset_counts, counts,
+                              bare_rays_s["train step"])
+
+    phase("eval")
+    eval_phase(os.path.join(tmp.name, "eval"), run_dir, epoch, reset_counts,
+               counts, smi, rows)
 
     tmp.cleanup()
     if step_failures:
@@ -1586,10 +1847,12 @@ def main():
     # every row's "launches" counts its own path's run (K1's and K2's:
     # serving; K2 saving zs/us and K3: training; K4's: serving with the
     # fused heads; K4 saving zs/us and K5: training with them); K1 runs on
-    # every path
+    # every path; "launches_eval": the eval CLI's run (K4's with the fused
+    # heads)
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "launches_train", "bound_split_ms",
+            "library_ms", "launches_train", "launches_eval",
+            "bound_split_ms",
             "library_bf16_ms", "uchain_ms", "sweep_ms", "wgrad_ms",
             "reduce_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
