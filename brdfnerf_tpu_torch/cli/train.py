@@ -24,7 +24,8 @@ def kernels_line(cfg, device, train: bool = True) -> str:
     """Which fused kernels the run launches, or why none: its train steps,
     or with train=False its renders (the serving instantiations, no
     backward)."""
-    from ..ops.fused_mlp import FEAT, LANE, cuda_kernels_cover
+    from ..ops.fused_mlp import (CUDA_DTYPES, FEAT, LANE, cuda_kernels_cover,
+                                 split_operands)
     m, r = cfg.model, cfg.render
     if device.type != "cuda":
         return ("[kernels] none: the run is on the CPU, where the kernels' "
@@ -32,7 +33,7 @@ def kernels_line(cfg, device, train: bool = True) -> str:
     if not cuda_kernels_cover(m):
         why = [w for w, bad in (
             (f"compute_dtype={m.compute_dtype!r}",
-             m.compute_dtype not in ("bfloat16", "bfloat16_all")),
+             m.compute_dtype not in CUDA_DTYPES),
             ("a ReLU trunk (siren=0)", not m.siren),
             ("the exact sine (fast_sin=0)", not m.fast_sin),
             (f"width {m.feat} (not {FEAT})", m.feat != FEAT),
@@ -52,14 +53,23 @@ def kernels_line(cfg, device, train: bool = True) -> str:
                         "backward)")
         else:
             used.append("K2 (the trunk with its sigma gradient)")
-        if os.environ.get("BRDFNERF_FUSED_HEADS"):
+        if os.environ.get("BRDFNERF_FUSED_HEADS") and split_operands(m):
+            used.append("BRDFNERF_FUSED_HEADS is set, but K4/K5 at "
+                        "compute_dtype='float32' are not ported (ROADMAP.md "
+                        "Queue 2 item 3), so "
+                        + ("K2 + K3 run" if train else "K2 runs")
+                        + " in their place")
+        elif os.environ.get("BRDFNERF_FUSED_HEADS"):
             used.append(("K4 + K5 in their place" if train
                          else "K4 in its place") + " where the flagship "
                         "head set runs (BRDFNERF_FUSED_HEADS)")
     if not used:
         return ("[kernels] none: --use_pallas 0 and no fused trunk "
                 "(--fused_trunk 0, or no analytic normals)")
-    return "[kernels] fused CUDA kernels: " + "; ".join(used)
+    how = (" (float32: each f32 product as three on its bf16 hi and lo "
+           "terms)" if split_operands(m) else "")
+    return (f"[kernels] fused CUDA kernels at compute_dtype="
+            f"{m.compute_dtype!r}{how}: " + "; ".join(used))
 
 
 def main(argv=None, device=None):

@@ -9,7 +9,9 @@
 // bytes); its B operand is the weight slices in the ring: K-major boxes
 // (32 k x 256 n, 64-byte swizzle) for z = h W^T, MN-major boxes (32 n x 32 k)
 // for u = g W, so that no thread transposes an operand.  Tiles written by the
-// epilogues leave by TMA stores.
+// epilogues leave by TMA stores.  The float32 instantiations (SPLIT) keep
+// a lo tile beside each A tile and stream each weight as a hi and a lo
+// plane: consume_s runs a product of f32 operands as three bf16 products.
 
 #pragma once
 
@@ -83,12 +85,38 @@ __device__ __forceinline__ void release(uint64_t* empty, uint32_t stage) {
   if ((threadIdx.x & 31) == 0) sm90::mbar_arrive(&empty[stage]);
 }
 
+// Producer: a product's B, and with SPLIT (the f32 instantiations, whose
+// weights are packed as a hi and a lo bf16 plane, the lo plane lo_rows rows
+// below the hi one in the same tensor map) the hi slices, then the lo ones.
+template <bool SPLIT, class R>
+__device__ __forceinline__ void produce_s(const CUtensorMap* map, bool mn,
+                                          int nk, int row0, int col0, int nw,
+                                          int lo_rows, R& r, uint64_t* full,
+                                          uint64_t* empty,
+                                          unsigned char* ring) {
+  produce(map, mn, nk, row0, col0, nw, r, full, empty, ring);
+  if constexpr (SPLIT)
+    produce(map, mn, nk, row0 + lo_rows, col0, nw, r, full, empty, ring);
+}
+
 // K-major SW128 descriptor of k position kk (a multiple of 16) in a tile
 // of 64-column blocks
 __device__ __forceinline__ uint64_t a_desc(const unsigned char* tile,
                                            int kk) {
   return sm90::make_desc(tile + (kk >> 6) * ACT_BLOCK + ((kk & 63) >> 4) * 32,
                          16, 1024, 1);
+}
+
+// One wgmma m64nNWk16 with A K-major from shared memory.
+template <int NW, int TB>
+__device__ __forceinline__ void wgmma_nw(float (&acc)[NW / 2], uint64_t da,
+                                         uint64_t db, int sc) {
+  if constexpr (NW == 256)
+    sm90::wgmma_n256<0, TB>(acc, da, db, sc);
+  else if constexpr (NW == 128)
+    sm90::wgmma_n128<0, TB>(acc, da, db, sc);
+  else
+    sm90::wgmma_n64<0, TB>(acc, da, db, sc);
 }
 
 // Consumer: acc (+)= A . B over nk slices from the ring, this warpgroup's
@@ -121,15 +149,10 @@ __device__ __forceinline__ void consume(float (&acc)[NW / 2],
                   : sm90::make_desc(s + wg * (NW / 32) * 2048 + ks * 1024,
                                     2048, 512, 2);
       const int sc = (accumulate || c > 0 || ks > 0) ? 1 : 0;
-      if constexpr (NW == 256) {
-        sm90::wgmma_n256<0, TB>(acc, da, db, sc);
-        // (the descriptor's start address is bits 0-13, in 16-byte units)
-        if constexpr (LO > 0)
-          sm90::wgmma_n256<0, TB>(acc, da + (uint64_t)(LO >> 4), db, 1);
-      } else if constexpr (NW == 128)
-        sm90::wgmma_n128<0, TB>(acc, da, db, sc);
-      else
-        sm90::wgmma_n64<0, TB>(acc, da, db, sc);
+      wgmma_nw<NW, TB>(acc, da, db, sc);
+      // (the descriptor's start address is bits 0-13, in 16-byte units)
+      if constexpr (LO > 0)
+        wgmma_nw<NW, TB>(acc, da + (uint64_t)(LO >> 4), db, 1);
     }
     sm90::wgmma_commit();
     sm90::wgmma_wait<1>();
@@ -140,6 +163,31 @@ __device__ __forceinline__ void consume(float (&acc)[NW / 2],
   sm90::wgmma_wait<0>();
   sm90::fence_acc(acc);
   if (leader) sm90::mbar_arrive(&empty[prev]);
+}
+
+// Consumer: consume(), and with SPLIT the product of f32 operands on bf16
+// tensor cores: A as hi and lo bf16 terms (A_lo LO bytes past A_hi), B as
+// the hi and lo planes (produce_s), three products into one f32
+// accumulator: A_hi . B_hi + A_lo . B_hi over the hi slices, then
+// A_hi . B_lo over the lo slices.  The dropped A_lo . B_lo and the
+// split's residuals are about 2^-17 of each product.
+template <int NW, int TB, bool SPLIT, int LO, class R>
+__device__ __forceinline__ void consume_s(float (&acc)[NW / 2],
+                                          const unsigned char* a0, int ka0,
+                                          const unsigned char* a1, int nk,
+                                          bool accumulate, R& r,
+                                          uint64_t* full, uint64_t* empty,
+                                          const unsigned char* ring, int wg,
+                                          bool leader) {
+  if constexpr (SPLIT) {
+    consume<NW, TB, LO>(acc, a0, ka0, a1, nk, accumulate, r, full, empty,
+                        ring, wg, leader);
+    consume<NW, TB>(acc, a0, ka0, a1, nk, true, r, full, empty, ring, wg,
+                    leader);
+  } else {
+    consume<NW, TB>(acc, a0, ka0, a1, nk, accumulate, r, full, empty, ring,
+                    wg, leader);
+  }
 }
 
 // Write this warpgroup's accumulator columns (NW of them from colbase), as
@@ -160,6 +208,29 @@ __device__ __forceinline__ void store_tile_sw(unsigned char* tile,
                       sm90::pack_bf2(v(4 * j + 4), v(4 * j + 5)),
                       sm90::pack_bf2(v(4 * j + 6), v(4 * j + 7)));
   }
+}
+
+// store_tile_sw of v's bf16 terms: hi = bf16(v) into tile and, with
+// SPLIT, lo = bf16(v - hi) into the tile LO bytes past it.
+template <int NW, bool SPLIT, int LO, class V>
+__device__ __forceinline__ void store_tile_s(unsigned char* tile,
+                                             int colbase, V v) {
+  store_tile_sw<NW>(tile, colbase, v);
+  if constexpr (SPLIT)
+    store_tile_sw<NW>(tile + LO, colbase,
+                      [&](int k) { return v(k) - bf16_round(v(k)); });
+}
+
+// Two values a, b (columns col, col + 1 of row `row`) into a K-major SW128
+// tile as bf16, and with SPLIT their lo terms LO bytes past it.
+template <bool SPLIT, int LO>
+__device__ __forceinline__ void put2_s(unsigned char* tile, int row, int col,
+                                       float a, float b) {
+  const uint32_t o = sm90::sw128_offset(row, col, ACT_BLOCK);
+  *reinterpret_cast<uint32_t*>(tile + o) = sm90::pack_bf2(a, b);
+  if constexpr (SPLIT)
+    *reinterpret_cast<uint32_t*>(tile + LO + o) =
+        sm90::pack_bf2(a - bf16_round(a), b - bf16_round(b));
 }
 
 // Consumers: hand the tile just written to the async proxy and store its

@@ -23,13 +23,17 @@
 using namespace trunk;
 
 // x, cg (n_rows, 128) f32, cs (n_rows,) f32, cf (n_rows, 512) bf16 when
-// cf_bf16 else f32, zs/us (n_rows, layers * 512) bf16, with n_rows % 64 == 0;
-// weights as trunk_fwd_grad_launch.  Scratch: xt (2, n, 128) bf16, hth
-// (layers-1, 2, n, 512) bf16, azbtz (layers, 2, n, 512) bf16, part
+// cf_bf16 else f32, zs/us (n_rows, layers * 512), f32 when zs_f32 else
+// bf16, with n_rows % 64 == 0; weights as trunk_fwd_grad_launch (split:
+// the float32 instantiation, f32 zs/us and the weights as hi and lo
+// planes).  Scratch: xt (P, n, 128) bf16, hth (layers-1, P, n, 512) bf16,
+// azbtz (layers, P, n, 512) bf16 with P = 2 planes, [x | h | a_z] and
+// [t | th | b_tz] (split: P = 4, the hi planes, then the lo ones), part
 // (n/64, layers+1, 512) f32, pbs (n/64,) f32, tzsc (n_blocks, layers,
 // 64 * 512) f32, wpart (wpart_tiles = (8 layers - 4) x splits, 128 * 256)
 // f32, the weight-gradient blocks' partial tiles (splits from
-// ops/fused_trunk_vjp.wgrad_splits).  Outputs f32 in (in, out) layout: dw0
+// ops/fused_trunk_vjp.wgrad_splits, whose K axis is three times as long
+// with split).  Outputs f32 in (in, out) layout: dw0
 // (128, 512), db0 (512,), dwm (layers-2, 512, 512), dbm (layers-2, 512),
 // dwst (128, 512), dwsb (512, 512), dbs (512,), dwsig (512,), dbsig (1,).
 // Three kernels on the stream; returns a cudaError_t.
@@ -41,15 +45,21 @@ extern "C" int trunk_bwd_launch(
     float* part, float* pbs, float* tzsc, float* wpart, int splits,
     int wpart_tiles, float* dw0, float* db0, float* dwm, float* dbm,
     float* dwst, float* dwsb, float* dbs, float* dwsig, float* dbsig,
-    int layers, int skip, void* stream) {
+    int zs_f32, int split, int layers, int skip, void* stream) {
   BwdArgs p = {};
   p.x = x;
   p.cs = cs;
   p.cf = cf;
   p.cf_bf16 = cf_bf16;
   p.cg = cg;
-  p.zs = static_cast<const bf16*>(zs);
-  p.us = static_cast<const bf16*>(us);
+  if (zs_f32) {
+    p.zsf = static_cast<const float*>(zs);
+    p.usf = static_cast<const float*>(us);
+  } else {
+    p.zs = static_cast<const bf16*>(zs);
+    p.us = static_cast<const bf16*>(us);
+  }
+  p.split = split;
   p.n = n_rows;
   p.n_tiles = n_rows / T;
   p.w0 = static_cast<const bf16*>(w0);

@@ -87,6 +87,8 @@ struct BwdArgs {
   const float* cg;
   const bf16* zs;
   const bf16* us;          // K3: u_l as K2 saved them
+  const float* zsf;        // ZF32: zs and (K3) us in f32
+  const float* usf;
   const float* uc;         // K5: the rebuilt b_th chain (trunk_heads_bwd.cu)
   int n, n_tiles;
   const bf16* w0;
@@ -121,6 +123,7 @@ struct BwdArgs {
   int layers, skip;
   int splits_trunk, splits_heads;   // K slices per weight-gradient tile
   int wpart_tiles;                  // partial tiles wpart holds
+  int split;                        // float32: the SPLIT instantiation
 };
 
 // h, act' and act'' of the polynomial sine (the JAX package's
@@ -166,6 +169,9 @@ __device__ __forceinline__ float2 stage_bf2(const unsigned char*) {
 __device__ __forceinline__ float stage_f32(const unsigned char*) {
   return 0.125f;
 }
+__device__ __forceinline__ float2 glob_f2(const float*) {
+  return make_float2(0.5f, -0.25f);
+}
 #else
 constexpr bool EPI_DATA = true;
 __device__ __forceinline__ float2 stage_bf2(const unsigned char* p) {
@@ -173,6 +179,10 @@ __device__ __forceinline__ float2 stage_bf2(const unsigned char* p) {
 }
 __device__ __forceinline__ float stage_f32(const unsigned char* p) {
   return *reinterpret_cast<const float*>(p);
+}
+// ZF32: two f32 of zs or us straight from device memory
+__device__ __forceinline__ float2 glob_f2(const float* p) {
+  return __ldg(reinterpret_cast<const float2*>(p));
 }
 #endif
 
@@ -190,27 +200,40 @@ __device__ __forceinline__ float col_sum(float v) {
 // (the block's warp roles, the ring and the products: sm90_trunk.cuh)
 // shared memory: the activation tile (64 x 512, 8 blocks), the tile of
 // t = c_g (64 x 128; K5: 64 x 256, the c_z1 chunk once the tangent forward
-// is done; both double as reduction space), the ring (weight slices and
-// the epilogues' data), then barriers and per-row vectors
+// is done; both double as reduction space), with SPLIT both again for the
+// lo terms (sm_lo bytes past the hi ones), the ring (weight slices and the
+// epilogues' data: four stages, SPLIT two), then barriers and per-row
+// vectors
 constexpr int SM_ACT = 0;
 constexpr int SM_TS = SM_ACT + 8 * ACT_BLOCK;
-template <bool HEADS>
+template <bool SPLIT>
+__host__ __device__ constexpr int sm_lo() {
+  return SPLIT ? 10 * ACT_BLOCK : 0;
+}
+template <bool SPLIT>
+__host__ __device__ constexpr int sm_ring_n() {
+  return SPLIT ? 2 : RING_N;
+}
+template <bool HEADS, bool SPLIT = false>
 __host__ __device__ constexpr int sm_ring() {
-  return SM_TS + (HEADS ? 4 : 2) * ACT_BLOCK;
+  return SM_TS + (HEADS ? 4 : 2) * ACT_BLOCK + sm_lo<SPLIT>();
 }
-template <bool HEADS>
+template <bool HEADS, bool SPLIT = false>
 __host__ __device__ constexpr int sm_bar() {
-  return sm_ring<HEADS>() + RING_N * RING_STAGE;
+  return sm_ring<HEADS, SPLIT>() + sm_ring_n<SPLIT>() * RING_STAGE;
 }
-template <bool HEADS>
+template <bool HEADS, bool SPLIT = false>
 __host__ __device__ constexpr int sm_rows() {
-  return sm_bar<HEADS>() + 128;
+  return sm_bar<HEADS, SPLIT>() + 128;
 }
-template <bool HEADS>
+template <bool HEADS, bool SPLIT = false>
 __host__ __device__ constexpr int sweep_smem() {
-  return sm_rows<HEADS>() + 2 * T * 4 + (HEADS ? T * HEAD_COLS * 4 : 0);
+  return sm_rows<HEADS, SPLIT>() + 2 * T * 4 +
+         (HEADS ? T * HEAD_COLS * 4 : 0);
 }
 static_assert(sweep_smem<true>() <= 232448, "K5 sweep's shared memory");
+static_assert(sweep_smem<false, true>() <= 232448,
+              "K3 SPLIT sweep's shared memory");
 
 // The weight tensors the sweep streams, as TMA maps: K-major boxes (32 k x
 // 256 n rows) for the forward products, MN-major boxes (32 n x 32 k) for
@@ -235,8 +258,9 @@ struct SweepMaps {
 // layout).  K5's z stage fills only half of its 32 KB (two 64 x 64 bf16
 // blocks): rebuilding b_th inside the sweep would drop the chain kernel,
 // its f32 scratch and this extra stage (not done).
+template <class R>
 __device__ __forceinline__ void produce_fwd_data(const SweepMaps& maps,
-                                                 int i, int row0, Ring& r,
+                                                 int i, int row0, R& r,
                                                  uint64_t* full,
                                                  uint64_t* empty,
                                                  unsigned char* ring) {
@@ -252,11 +276,11 @@ __device__ __forceinline__ void produce_fwd_data(const SweepMaps& maps,
   }
 }
 
-template <bool HEADS>
+template <bool HEADS, class R>
 __device__ __forceinline__ void produce_rev_data(const SweepMaps& maps,
                                                  const float* tzl,
                                                  const float* ucl, int i,
-                                                 int row0, Ring& r,
+                                                 int row0, R& r,
                                                  uint64_t* full,
                                                  uint64_t* empty,
                                                  unsigned char* ring) {
@@ -293,28 +317,48 @@ __device__ __forceinline__ void col_finish(const float* red, float* out) {
         ((rw[c] + rw[NW + c]) + rw[2 * NW + c]) + rw[3 * NW + c];
 }
 
-template <bool HEADS>
+// ZF32: zs and us (K5: zs) in f32 (the mixed bfloat16 and float32
+// contracts), read by the epilogues from device memory, and so are tz (each
+// thread reads back its own writes of the block's scratch, as K2 reads its
+// act'(z)) and K5's rebuilt b_th: the ring carries the weights alone, and
+// no stage of it is read by the threads.  SPLIT (K3 at
+// float32): every product as three on the hi and lo terms of its f32
+// operands (sm90_trunk.cuh consume_s), the operands of the weight
+// gradients written as hi and lo planes, nothing rounded to bf16.
+template <bool HEADS, bool ZF32, bool SPLIT>
 __global__ void __launch_bounds__(NTB, 1)
     trunk_bwd_sweep_kernel(const __grid_constant__ SweepMaps maps,
                            const BwdArgs p) {
+  static_assert(!(HEADS && SPLIT), "K5 takes bf16 operands only");
+  constexpr int NS = sm_ring_n<SPLIT>();
+  constexpr int LO = sm_lo<SPLIT>();
+  // the weight-gradient operands' planes a layer slot: [x | h, t | th]
+  // (SPLIT: hi, then lo)
+  constexpr int PL = SPLIT ? 4 : 2;
+  // z, u, tz (K5: b_th) through the ring; otherwise from device memory
+  constexpr bool ZRING = EPI_DATA && !ZF32;
+  typedef RingN<NS> R;
   extern __shared__ __align__(1024) unsigned char smem[];
   unsigned char* act = smem + SM_ACT;
   unsigned char* ts = smem + SM_TS;
-  unsigned char* ring = smem + sm_ring<HEADS>();
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + sm_bar<HEADS>());
-  uint64_t* empty = full + RING_N;
-  uint64_t* cbar = empty + RING_N;                       // K5 chunk loads
+  unsigned char* ring = smem + sm_ring<HEADS, SPLIT>();
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(smem + sm_bar<HEADS, SPLIT>());
+  uint64_t* empty = full + NS;
+  uint64_t* cbar = empty + NS;                           // K5 chunk loads
   // the consumers have stored tz of the last layer, which the producer
   // loads back right away (no product lies between in K3)
   uint64_t* tzbar = cbar + 1;
-  float* row_a = reinterpret_cast<float*>(smem + sm_rows<HEADS>());
+  float* row_a = reinterpret_cast<float*>(smem + sm_rows<HEADS, SPLIT>());
   float* row_b = row_a + T;
   float* rowc = row_b + T;                               // K5 only
   const int layers = p.layers, skip = p.skip, last = layers - 1;
   const int tid = threadIdx.x;
+  // SPLIT: rows from a weight's hi plane to its lo plane
+  const int lo_f = F, lo_mid = (layers - 2) * F;
 
   if (tid == 0) {
-    for (int s = 0; s < RING_N; ++s) {
+    for (int s = 0; s < NS; ++s) {
       sm90::mbar_init(&full[s], 1);
       sm90::mbar_init(&empty[s], 8);     // one arrival per consumer warp
     }
@@ -328,22 +372,23 @@ __global__ void __launch_bounds__(NTB, 1)
     // ------------------------------------------------------- producer
     sm90::setmaxnreg_dec<40>();
     if (tid != NC) return;
-    Ring r = {0, 0};
+    R r = {0, 0};
     uint32_t tz_phase = 0;
     const float* tzb = p.tzsc + (size_t)blockIdx.x * layers * 128 * NC;
     for (int tile = blockIdx.x; tile < p.n_tiles; tile += gridDim.x) {
       const int row0 = tile * T;
       for (int i = 0; i < layers; ++i) {
         if (i == 0)
-          produce(&maps.w0k, false, EP / KSL, 0, 0, F, r, full, empty, ring);
+          produce_s<SPLIT>(&maps.w0k, false, EP / KSL, 0, 0, F, lo_f, r,
+                           full, empty, ring);
         else if (i == skip)
-          produce(&maps.wskipk, false, (EP + F) / KSL, 0, 0, F, r, full,
-                  empty, ring);
+          produce_s<SPLIT>(&maps.wskipk, false, (EP + F) / KSL, 0, 0, F,
+                           lo_f, r, full, empty, ring);
         else
-          produce(&maps.wmidk, false, F / KSL,
-                  (i < skip ? i - 1 : i - 2) * F, 0, F, r, full, empty,
-                  ring);
-        if (EPI_DATA) produce_fwd_data(maps, i, row0, r, full, empty, ring);
+          produce_s<SPLIT>(&maps.wmidk, false, F / KSL,
+                           (i < skip ? i - 1 : i - 2) * F, 0, F, lo_mid, r,
+                           full, empty, ring);
+        if (ZRING) produce_fwd_data(maps, i, row0, r, full, empty, ring);
       }
       if constexpr (HEADS) {
         produce(&maps.wfk, false, F / KSL, 0, 0, F, r, full, empty, ring);
@@ -356,11 +401,11 @@ __global__ void __launch_bounds__(NTB, 1)
         produce(&maps.wfm, true, F / KSL, 0, 0, F, r, full, empty, ring);
       }
       for (int i = last; i >= 0; --i) {
-        if (EPI_DATA && i == last) {
+        if (ZRING && i == last) {
           sm90::mbar_wait(tzbar, tz_phase);
           tz_phase ^= 1;
         }
-        if (EPI_DATA)
+        if (ZRING)
           produce_rev_data<HEADS>(
               maps, tzb + (size_t)i * 128 * NC,
               HEADS ? p.uc + ((size_t)tile * layers + i) * 128 * NC
@@ -368,12 +413,12 @@ __global__ void __launch_bounds__(NTB, 1)
               i, row0, r, full, empty, ring);
         if (i == 0) break;
         if (i == skip)
-          produce(&maps.wskipm, true, F / KSL, 0, EP, F, r, full, empty,
-                  ring);
+          produce_s<SPLIT>(&maps.wskipm, true, F / KSL, 0, EP, F, lo_f, r,
+                           full, empty, ring);
         else
-          produce(&maps.wmidm, true, F / KSL,
-                  (i < skip ? i - 1 : i - 2) * F, 0, F, r, full, empty,
-                  ring);
+          produce_s<SPLIT>(&maps.wmidm, true, F / KSL,
+                           (i < skip ? i - 1 : i - 2) * F, 0, F, lo_mid, r,
+                           full, empty, ring);
       }
     }
     return;
@@ -389,7 +434,10 @@ __global__ void __launch_bounds__(NTB, 1)
   const float* __restrict__ wsig = p.wsig;
   float* tzb = p.tzsc + (size_t)blockIdx.x * layers * 128 * NC + tid;
   float* red = reinterpret_cast<float*>(ts);   // when ts is free
-  Ring r = {0, 0};
+  const size_t lf = (size_t)layers * F;        // ZF32: zs / us row stride
+  // the bf16 rounding of a product's operand (none with SPLIT)
+  auto rnd = [](float v) { return SPLIT ? v : bf16_round(v); };
+  R r = {0, 0};
   uint32_t cphase = 0;
   float acc[128];
 
@@ -399,18 +447,31 @@ __global__ void __launch_bounds__(NTB, 1)
     float* pt_tile = p.part + (size_t)tile * row_w;
     tiles_free(issuer);                        // ts and act out of use
     // t = c_g into ts as bf16; x and t to xt as the bf16 operands of the
-    // layer-0 and skip-top weight gradients
+    // layer-0 and skip-top weight gradients (SPLIT: their hi terms, and
+    // the lo terms into ts's lo tile and xt's lo plane)
     for (int i = tid; i < T * EP / 4; i += NC) {
       const int rr = (i * 4) / EP, c = (i * 4) % EP;
       const float4 a = reinterpret_cast<const float4*>(p.x + grow0 * EP)[i];
       const float4 b = reinterpret_cast<const float4*>(p.cg + grow0 * EP)[i];
       const uint2 bv = make_uint2(sm90::pack_bf2(b.x, b.y),
                                   sm90::pack_bf2(b.z, b.w));
-      *reinterpret_cast<uint2*>(ts + sm90::sw128_offset(rr, c, ACT_BLOCK)) =
-          bv;
+      const uint32_t o = sm90::sw128_offset(rr, c, ACT_BLOCK);
+      *reinterpret_cast<uint2*>(ts + o) = bv;
       reinterpret_cast<uint2*>(p.xt + grow0 * EP)[i] =
           make_uint2(sm90::pack_bf2(a.x, a.y), sm90::pack_bf2(a.z, a.w));
       reinterpret_cast<uint2*>(p.xt + (size_t)p.n * EP + grow0 * EP)[i] = bv;
+      if constexpr (SPLIT) {
+        const uint2 bl = make_uint2(
+            sm90::pack_bf2(b.x - bf16_round(b.x), b.y - bf16_round(b.y)),
+            sm90::pack_bf2(b.z - bf16_round(b.z), b.w - bf16_round(b.w)));
+        *reinterpret_cast<uint2*>(ts + LO + o) = bl;
+        reinterpret_cast<uint2*>(p.xt + (size_t)(2 * p.n + row0) * EP)[i] =
+            make_uint2(
+                sm90::pack_bf2(a.x - bf16_round(a.x), a.y - bf16_round(a.y)),
+                sm90::pack_bf2(a.z - bf16_round(a.z), a.w - bf16_round(a.w)));
+        reinterpret_cast<uint2*>(p.xt + (size_t)(3 * p.n + row0) * EP)[i] =
+            bl;
+      }
     }
     if (HEADS)
       for (int i = tid; i < T * HEAD_COLS; i += NC)
@@ -422,27 +483,36 @@ __global__ void __launch_bounds__(NTB, 1)
     float pz[2] = {0.f, 0.f}, pt[2] = {0.f, 0.f};
     for (int i = 0; i < layers; ++i) {
       if (i == 0)
-        consume<256, 0>(acc, ts, EP, ts, EP / KSL, false, r, full, empty,
-                        ring, wg, leader);
+        consume_s<256, 0, SPLIT, LO>(acc, ts, EP, ts, EP / KSL, false, r,
+                                     full, empty, ring, wg, leader);
       else if (i == skip)
-        consume<256, 0>(acc, ts, EP, act, (EP + F) / KSL, false, r, full,
-                        empty, ring, wg, leader);
+        consume_s<256, 0, SPLIT, LO>(acc, ts, EP, act, (EP + F) / KSL, false,
+                                     r, full, empty, ring, wg, leader);
       else
-        consume<256, 0>(acc, act, F, act, F / KSL, false, r, full, empty,
-                        ring, wg, leader);
+        consume_s<256, 0, SPLIT, LO>(acc, act, F, act, F / KSL, false, r,
+                                     full, empty, ring, wg, leader);
       tiles_free(issuer);                      // both products read act
       const float w0s = i == 0 ? 30.f : 1.f;
       float* tzl = tzb + (size_t)i * 128 * NC;
 #pragma unroll
       for (int j = 0; j < 32; ++j) {
         // z of rows r0 / r0 + 8 from the ring: two j-groups a stage
-        if (EPI_DATA && j % 16 == 0) sm90::mbar_wait(&full[r.stage], r.phase);
-        const unsigned char* zb4 = ring + r.stage * RING_STAGE +
-                                   ((j >> 3) & 1) * 2 * ACT_BLOCK +
-                                   wg * ACT_BLOCK;
-        const int cz = 8 * (j & 7) + 2 * (l & 3);
-        const float2 za = stage_bf2(zb4 + sm90::sw128_offset(r0, cz, 0));
-        const float2 zb = stage_bf2(zb4 + sm90::sw128_offset(r0 + 8, cz, 0));
+        // (ZF32: from device memory)
+        if (ZRING && j % 16 == 0) sm90::mbar_wait(&full[r.stage], r.phase);
+        float2 za, zb;
+        if constexpr (ZF32) {
+          const float* zp = p.zsf + (grow0 + r0) * lf + (size_t)i * F + cb +
+                            8 * j;
+          za = glob_f2(zp);
+          zb = glob_f2(zp + 8 * lf);
+        } else {
+          const unsigned char* zb4 = ring + r.stage * RING_STAGE +
+                                     ((j >> 3) & 1) * 2 * ACT_BLOCK +
+                                     wg * ACT_BLOCK;
+          const int cz = 8 * (j & 7) + 2 * (l & 3);
+          za = stage_bf2(zb4 + sm90::sw128_offset(r0, cz, 0));
+          zb = stage_bf2(zb4 + sm90::sw128_offset(r0 + 8, cz, 0));
+        }
         const float z4[4] = {za.x, za.y, zb.x, zb.y};
         float h4[4];
 #pragma unroll
@@ -454,20 +524,16 @@ __global__ void __launch_bounds__(NTB, 1)
           const float th = d * tz;
           if (i == last) {
             const float ws = wsig[cb + 8 * j + (e & 1)];
-            pz[e >> 1] += bf16_round(h4[e]) * ws;
-            pt[e >> 1] += bf16_round(th) * ws;
+            pz[e >> 1] += rnd(h4[e]) * ws;
+            pt[e >> 1] += rnd(th) * ws;
           }
           acc[4 * j + e] = th;       // h takes the tile first; acc keeps th
         }
         // rows r0 / r0 + 8, columns 8j + 2 (l%4) + {0, 1}
         const int col = cb + 8 * j;
-        *reinterpret_cast<uint32_t*>(
-            act + sm90::sw128_offset(r0, col, ACT_BLOCK)) =
-            sm90::pack_bf2(h4[0], h4[1]);
-        *reinterpret_cast<uint32_t*>(
-            act + sm90::sw128_offset(r0 + 8, col, ACT_BLOCK)) =
-            sm90::pack_bf2(h4[2], h4[3]);
-        if (EPI_DATA && j % 16 == 15) {
+        put2_s<SPLIT, LO>(act, r0, col, h4[0], h4[1]);
+        put2_s<SPLIT, LO>(act, r0 + 8, col, h4[2], h4[3]);
+        if (ZRING && j % 16 == 15) {
           // tz_i is read back by TMA (produce_rev_data)
           if (j == 31) sm90::fence_async_global();
           release(empty, r.stage);
@@ -476,13 +542,19 @@ __global__ void __launch_bounds__(NTB, 1)
         }
       }
       if (i < last) {
-        // h_i, then th_i, to hth's slot of layer i + 1
-        tile_to_global(&maps.hth, act, 8, 0, (2 * i) * p.n + row0,
-                       issuer);
+        // h_i, then th_i, to hth's slot of layer i + 1 (SPLIT: hi and lo)
+        tile_to_global(&maps.hth, act, 8, 0, (PL * i) * p.n + row0, issuer);
+        if (SPLIT)
+          tile_to_global(&maps.hth, act + LO, 8, 0,
+                         (PL * i + 2) * p.n + row0, issuer);
         tiles_free(issuer);
-        store_tile_sw<256>(act, wg * 256, [&](int k) { return acc[k]; });
-        tile_to_global(&maps.hth, act, 8, 0, (2 * i + 1) * p.n + row0,
+        store_tile_s<256, SPLIT, LO>(act, wg * 256,
+                                     [&](int k) { return acc[k]; });
+        tile_to_global(&maps.hth, act, 8, 0, (PL * i + 1) * p.n + row0,
                        issuer);
+        if (SPLIT)
+          tile_to_global(&maps.hth, act + LO, 8, 0,
+                         (PL * i + 3) * p.n + row0, issuer);
       } else {
         // act keeps h_{L-1} (K5: the A operand of xf, and hl); acc th
         sm90::fence_async_smem();
@@ -524,6 +596,7 @@ __global__ void __launch_bounds__(NTB, 1)
         row_a[tid] = c_s * sp1 + sp2 * s_t;
         row_b[tid] = sp1;
       }
+      // SPLIT reads h as hi + lo and th unrounded below
       sm90::named_sync(BAR_C, NC);
       if (tid == 0) {
         float s = 0.f;
@@ -531,23 +604,29 @@ __global__ void __launch_bounds__(NTB, 1)
         p.pbs[tile] = s;
       }
       // the sigma head's dW: sum_rows bf16(h) bf16(a) + bf16(th) bf16(b)
-      const float a0 = bf16_round(row_a[r0]), a1 = bf16_round(row_a[r0 + 8]);
-      const float b0 = bf16_round(row_b[r0]), b1 = bf16_round(row_b[r0 + 8]);
+      // (SPLIT: h as hi + lo from the tiles, th, a and b in f32)
+      const float a0 = rnd(row_a[r0]), a1 = rnd(row_a[r0 + 8]);
+      const float b0 = rnd(row_b[r0]), b1 = rnd(row_b[r0 + 8]);
       float* cred = red + 4 * T;     // [2][4][256]
+      auto h_at = [&](int row, int col) {
+        const uint32_t o = sm90::sw128_offset(row, col, ACT_BLOCK);
+        float2 h = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(act + o));
+        if constexpr (SPLIT) {
+          const float2 hl = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(act + LO + o));
+          h = make_float2(h.x + hl.x, h.y + hl.y);
+        }
+        return h;
+      };
 #pragma unroll
       for (int j = 0; j < 32; ++j) {
         const int col = cb + 8 * j;
-        const __nv_bfloat162 ht = *reinterpret_cast<const __nv_bfloat162*>(
-            act + sm90::sw128_offset(r0, col, ACT_BLOCK));
-        const __nv_bfloat162 hb = *reinterpret_cast<const __nv_bfloat162*>(
-            act + sm90::sw128_offset(r0 + 8, col, ACT_BLOCK));
-        const float2 h0 = __bfloat1622float2(ht), h1 = __bfloat1622float2(hb);
+        const float2 h0 = h_at(r0, col), h1 = h_at(r0 + 8, col);
         float v0 = (h0.x * a0 + h1.x * a1) +
-                   (bf16_round(acc[4 * j]) * b0 +
-                    bf16_round(acc[4 * j + 2]) * b1);
+                   (rnd(acc[4 * j]) * b0 + rnd(acc[4 * j + 2]) * b1);
         float v1 = (h0.y * a0 + h1.y * a1) +
-                   (bf16_round(acc[4 * j + 1]) * b0 +
-                    bf16_round(acc[4 * j + 3]) * b1);
+                   (rnd(acc[4 * j + 1]) * b0 + rnd(acc[4 * j + 3]) * b1);
         v0 = col_sum(v0);
         v1 = col_sum(v1);
         if (l < 4) {
@@ -694,7 +773,7 @@ __global__ void __launch_bounds__(NTB, 1)
 
     // a_h of the last layer: a . wsig + c_feats (K3), + a_xf W_f (K5)
     {
-      const float a0 = bf16_round(row_a[r0]), a1 = bf16_round(row_a[r0 + 8]);
+      const float a0 = rnd(row_a[r0]), a1 = rnd(row_a[r0 + 8]);
 #pragma unroll
       for (int j = 0; j < 32; ++j)
 #pragma unroll
@@ -720,11 +799,16 @@ __global__ void __launch_bounds__(NTB, 1)
       const float w0s = i == 0 ? 30.f : 1.f;
       tiles_free(issuer);            // act read by both products, stored
       uint32_t zu_stage = 0, tz_stage = 0;
+      // ZF32: this thread's tz of layer i (its own writes) and K5's b_th
+      const float* tzl = tzb + (size_t)i * 128 * NC;
+      const float* ucl =
+          HEADS ? p.uc + ((size_t)tile * layers + i) * 128 * NC + tid
+                : nullptr;
 #pragma unroll
       for (int j = 0; j < 32; ++j) {
         // j-group j / 8: a ring stage of z and u (K5: z), then one of tz
-        // (K5: then one of the rebuilt b_th)
-        if (EPI_DATA && j % 8 == 0) {
+        // (K5: then one of the rebuilt b_th); ZF32: none
+        if (ZRING && j % 8 == 0) {
           sm90::mbar_wait(&full[r.stage], r.phase);
           zu_stage = r.stage;
           r.advance();
@@ -740,18 +824,32 @@ __global__ void __launch_bounds__(NTB, 1)
         const int cz = 8 * (j & 7) + 2 * (l & 3);
         const int o0 = sm90::sw128_offset(r0, cz, 0);
         const int o1 = sm90::sw128_offset(r0 + 8, cz, 0);
-        const float2 za = stage_bf2(zu + wg * ACT_BLOCK + o0);
-        const float2 zb = stage_bf2(zu + wg * ACT_BLOCK + o1);
+        const size_t zo = (grow0 + r0) * lf + (size_t)i * F + cb + 8 * j;
+        float2 za, zb;
+        if constexpr (ZF32) {
+          za = glob_f2(p.zsf + zo);
+          zb = glob_f2(p.zsf + zo + 8 * lf);
+        } else {
+          za = stage_bf2(zu + wg * ACT_BLOCK + o0);
+          zb = stage_bf2(zu + wg * ACT_BLOCK + o1);
+        }
         const float z4[4] = {za.x, za.y, zb.x, zb.y};
         float u4[4];
         if (HEADS) {
 #pragma unroll
           for (int e = 0; e < 4; ++e)
-            u4[e] = stage_f32(ring + r.stage * RING_STAGE +
-                              ((4 * (j & 7) + e) * NC + tid) * 4);
+            u4[e] = ZF32 ? ucl[(4 * j + e) * NC]
+                         : stage_f32(ring + r.stage * RING_STAGE +
+                                     ((4 * (j & 7) + e) * NC + tid) * 4);
         } else {
-          const float2 ua = stage_bf2(zu + (2 + wg) * ACT_BLOCK + o0);
-          const float2 ub = stage_bf2(zu + (2 + wg) * ACT_BLOCK + o1);
+          float2 ua, ub;
+          if constexpr (ZF32) {
+            ua = glob_f2(p.usf + zo);
+            ub = glob_f2(p.usf + zo + 8 * lf);
+          } else {
+            ua = stage_bf2(zu + (2 + wg) * ACT_BLOCK + o0);
+            ub = stage_bf2(zu + (2 + wg) * ACT_BLOCK + o1);
+          }
           u4[0] = ua.x;
           u4[1] = ua.y;
           u4[2] = ub.x;
@@ -763,26 +861,26 @@ __global__ void __launch_bounds__(NTB, 1)
           float h, d1, d2;
           act_eval2(z4[e], w0s, h, d1, d2);
           const float tz =
-              stage_f32(tzs + ((4 * (j & 7) + e) * NC + tid) * 4);
+              ZF32 ? tzl[(4 * j + e) * NC]
+                   : stage_f32(tzs + ((4 * (j & 7) + e) * NC + tid) * 4);
           acc[4 * j + e] = d1 * acc[4 * j + e] + d2 * tz * u4[e];
           bt[e] = d1 * u4[e];
         }
         const int col = cb + 8 * j;
-        *reinterpret_cast<uint32_t*>(
-            act + sm90::sw128_offset(r0, col, ACT_BLOCK)) =
-            sm90::pack_bf2(bt[0], bt[1]);
-        *reinterpret_cast<uint32_t*>(
-            act + sm90::sw128_offset(r0 + 8, col, ACT_BLOCK)) =
-            sm90::pack_bf2(bt[2], bt[3]);
-        if (EPI_DATA && j % 8 == 7) {
+        put2_s<SPLIT, LO>(act, r0, col, bt[0], bt[1]);
+        put2_s<SPLIT, LO>(act, r0 + 8, col, bt[2], bt[3]);
+        if (ZRING && j % 8 == 7) {
           release(empty, zu_stage);
           if (HEADS) release(empty, tz_stage);
           release(empty, r.stage);
           r.advance();
         }
       }
-      tile_to_global(&maps.azbtz, act, 8, 0, (2 * i + 1) * p.n + row0,
+      tile_to_global(&maps.azbtz, act, 8, 0, (PL * i + 1) * p.n + row0,
                      issuer);
+      if (SPLIT)
+        tile_to_global(&maps.azbtz, act + LO, 8, 0,
+                       (PL * i + 3) * p.n + row0, issuer);
       // column sums of a_z over the tile's 64 rows
       {
         float* cred = red;
@@ -798,13 +896,16 @@ __global__ void __launch_bounds__(NTB, 1)
         col_finish<256>(cred, pt_tile + (size_t)i * F);
       }
       tiles_free(issuer);            // b_tz stored, red read
-      store_tile_sw<256>(act, wg * 256, [&](int k) { return acc[k]; });
-      tile_to_global(&maps.azbtz, act, 8, 0, (2 * i) * p.n + row0,
-                     issuer);
+      store_tile_s<256, SPLIT, LO>(act, wg * 256,
+                                   [&](int k) { return acc[k]; });
+      tile_to_global(&maps.azbtz, act, 8, 0, (PL * i) * p.n + row0, issuer);
+      if (SPLIT)
+        tile_to_global(&maps.azbtz, act + LO, 8, 0,
+                       (PL * i + 2) * p.n + row0, issuer);
       if (i == 0) break;
       // a_h_{i-1} = a_z_i . W_i
-      consume<256, 1>(acc, act, F, act, F / KSL, false, r, full, empty, ring,
-                      wg, leader);
+      consume_s<256, 1, SPLIT, LO>(acc, act, F, act, F / KSL, false, r, full,
+                                   empty, ring, wg, leader);
     }
   }
   if (issuer) sm90::bulk_wait<0>();
@@ -830,12 +931,16 @@ struct WgradMaps {
 // from rows a_row.. of map a_map, B from rows b_row.. of b_map, in
 // m_tiles x n_tiles output tiles of 128 x 256, each K axis cut into
 // `splits` slices.  Its blocks are first_block.. in the order (slice,
-// tile), so that the tiles of one slice run side by side.
+// tile), so that the tiles of one slice run side by side.  The split
+// instantiation's operands are hi and lo planes, the lo plane a_lo (b_lo)
+// rows past the hi one: its K axis is three segments of seg_chunks chunks,
+// A_hi^T B_hi, A_lo^T B_hi and A_hi^T B_lo (otherwise one segment).
 struct WgradGroup {
   int a_map, b_map, a_row, b_row;
   int m_tiles, n_tiles, chunks, splits, first_block;
   float* out;
   int ldo;
+  int seg_chunks, a_lo, b_lo;
 };
 
 struct WgradPlan {
@@ -884,12 +989,14 @@ __global__ void __launch_bounds__(NTB, 1)
       unsigned char* s = smem + r.stage * WSTAGE_BYTES;
       uint64_t* f = &full[r.stage];
       sm90::mbar_expect_tx(f, WSTAGE_BYTES);
+      const int seg = c / g.seg_chunks, cc = c - seg * g.seg_chunks;
+      const int a_row = g.a_row + (seg == 1 ? g.a_lo : 0) + cc * WK;
+      const int b_row = g.b_row + (seg == 2 ? g.b_lo : 0) + cc * WK;
       for (int b = 0; b < WM / 64; ++b)
-        sm90::tma_load_2d(s + b * ACT_BLOCK, ma, f, m0 + b * 64,
-                          g.a_row + c * WK);
+        sm90::tma_load_2d(s + b * ACT_BLOCK, ma, f, m0 + b * 64, a_row);
       for (int b = 0; b < WN / 64; ++b)
         sm90::tma_load_2d(s + (WM / 64 + b) * ACT_BLOCK, mb, f, n0 + b * 64,
-                          g.b_row + c * WK);
+                          b_row);
       r.advance();
     }
     return;
@@ -1036,24 +1143,31 @@ __global__ void __launch_bounds__(256)
 
 // ------------------------------------------------------------------- host
 
-// The sweep's tensor maps; false where the driver refuses one.
+// The sweep's tensor maps; false where cuTensorMapEncodeTiled refuses
+// one.  With p.split the weights are (2, ...) hi and lo planes and the
+// operands of the weight gradients 4 planes a layer slot; with f32 zs/us
+// (p.zsf) their maps are not made (the epilogues read them from device
+// memory).
 template <bool HEADS>
 bool sweep_maps(const BwdArgs& p, SweepMaps* m) {
   using sm90host::map_2d;
-  const uint64_t mids = (uint64_t)(p.layers - 2) * F;
+  const uint64_t planes = p.split ? 2 : 1, pl = 2 * planes;
+  const uint64_t mids = (uint64_t)(p.layers - 2) * F * planes;
+  const uint64_t fp = F * planes;
   const uint64_t n = p.n;
-  bool ok = map_2d(&m->w0k, p.w0, F, EP, EP, 256, KSL, 64) &&
+  bool ok = map_2d(&m->w0k, p.w0, fp, EP, EP, 256, KSL, 64) &&
             map_2d(&m->wmidk, p.wmid, mids, F, F, 256, KSL, 64) &&
-            map_2d(&m->wskipk, p.wskip, F, EP + F, EP + F, 256, KSL, 64) &&
+            map_2d(&m->wskipk, p.wskip, fp, EP + F, EP + F, 256, KSL, 64) &&
             map_2d(&m->wmidm, p.wmid, mids, F, F, KSL, 32, 64) &&
-            map_2d(&m->wskipm, p.wskip, F, EP + F, EP + F, KSL, 32, 64) &&
-            map_2d(&m->zs, p.zs, n, p.layers * F, p.layers * F, T, 64, 128) &&
-            (HEADS ||
-             map_2d(&m->us, p.us, n, p.layers * F, p.layers * F, T, 64,
-                    128)) &&
-            map_2d(&m->hth, p.hth, (uint64_t)(p.layers - 1) * 2 * n, F, F,
+            map_2d(&m->wskipm, p.wskip, fp, EP + F, EP + F, KSL, 32, 64) &&
+            (p.zsf != nullptr ||
+             (map_2d(&m->zs, p.zs, n, p.layers * F, p.layers * F, T, 64,
+                     128) &&
+              (HEADS || map_2d(&m->us, p.us, n, p.layers * F, p.layers * F,
+                               T, 64, 128)))) &&
+            map_2d(&m->hth, p.hth, (uint64_t)(p.layers - 1) * pl * n, F, F,
                    T, 64, 128) &&
-            map_2d(&m->azbtz, p.azbtz, (uint64_t)p.layers * 2 * n, F, F, T,
+            map_2d(&m->azbtz, p.azbtz, (uint64_t)p.layers * pl * n, F, F, T,
                    64, 128);
   if (HEADS)
     ok = ok && map_2d(&m->wfk, p.wf, F, F, F, 256, KSL, 64) &&
@@ -1077,10 +1191,11 @@ bool wgrad_plan(const BwdArgs& p, WgradMaps* maps, WgradPlan* plan) {
   using sm90host::map_2d;
   const uint64_t n = p.n;
   const int L = p.layers;
-  bool ok = map_2d(&maps->m[0], p.xt, 2 * n, EP, EP, 64, 64, 128) &&
-            map_2d(&maps->m[1], p.hth, (uint64_t)(L - 1) * 2 * n, F, F, 64,
+  const int pl = p.split ? 4 : 2;      // planes a layer slot
+  bool ok = map_2d(&maps->m[0], p.xt, pl * n, EP, EP, 64, 64, 128) &&
+            map_2d(&maps->m[1], p.hth, (uint64_t)(L - 1) * pl * n, F, F, 64,
                    64, 128) &&
-            map_2d(&maps->m[2], p.azbtz, (uint64_t)L * 2 * n, F, F, 64, 64,
+            map_2d(&maps->m[2], p.azbtz, (uint64_t)L * pl * n, F, F, 64, 64,
                    128);
   if (HEADS)
     ok = ok && map_2d(&maps->m[3], p.hl, n, F, F, 64, 64, 128) &&
@@ -1088,26 +1203,29 @@ bool wgrad_plan(const BwdArgs& p, WgradMaps* maps, WgradPlan* plan) {
          map_2d(&maps->m[5], p.axf, n, F, F, 64, 64, 128) &&
          map_2d(&maps->m[6], p.cz1, n, 4 * HID, 4 * HID, 64, 64, 128);
   if (!ok) return false;
-  const int ct = 2 * p.n / WK, ch = p.n / WK;
+  // the trunk's K: [h; th] of every point (SPLIT: three segments of it)
+  const int seg = 2 * p.n / WK, ct = (p.split ? 3 : 1) * seg;
+  const int ch = p.n / WK, lo = p.split ? 2 * p.n : 0;
   int k = 0, blocks = 0, elems = 0;
   auto add = [&](int am, int ar, int bm, int br, int mt, int nt, int chunks,
-                 int splits, float* out, int ldo) {
+                 int splits, float* out, int ldo, int sc, int l) {
     WgradGroup& g = plan->g[k++];
-    g = {am, bm, ar, br, mt, nt, chunks, splits, blocks, out, ldo};
+    g = {am, bm, ar, br, mt, nt, chunks, splits, blocks, out, ldo, sc, l, l};
     blocks += mt * nt * splits;
     elems += mt * nt * (WTILE / 4);
   };
   const int st = p.splits_trunk, sh = p.splits_heads;
-  add(0, 0, 2, 0, EP / WM, F / WN, ct, st, p.dw0, F);
+  add(0, 0, 2, 0, EP / WM, F / WN, ct, st, p.dw0, F, seg, lo);
   for (int i = 1; i < L; ++i)
-    add(1, (i - 1) * 2 * p.n, 2, i * 2 * p.n, F / WM, F / WN, ct, st,
+    add(1, (i - 1) * pl * p.n, 2, i * pl * p.n, F / WM, F / WN, ct, st,
         i == p.skip ? p.dwsb
                     : p.dwm + (size_t)(i < p.skip ? i - 1 : i - 2) * F * F,
-        F);
-  add(0, 0, 2, p.skip * 2 * p.n, EP / WM, F / WN, ct, st, p.dwst, F);
+        F, seg, lo);
+  add(0, 0, 2, p.skip * pl * p.n, EP / WM, F / WN, ct, st, p.dwst, F, seg,
+      lo);
   if (HEADS) {
-    add(3, 0, 5, 0, F / WM, F / WN, ch, sh, p.dwf, F);
-    add(4, 0, 6, 0, F / WM, 4 * HID / WN, ch, sh, p.dw1, 4 * HID);
+    add(3, 0, 5, 0, F / WM, F / WN, ch, sh, p.dwf, F, ch, 0);
+    add(4, 0, 6, 0, F / WM, 4 * HID / WN, ch, sh, p.dw1, 4 * HID, ch, 0);
   }
   plan->n_groups = k;
   plan->n_blocks = blocks;
@@ -1115,14 +1233,33 @@ bool wgrad_plan(const BwdArgs& p, WgradMaps* maps, WgradPlan* plan) {
   return k <= MAX_GROUPS;
 }
 
+template <bool HEADS, bool ZF32, bool SPLIT>
+int launch_sweep(const SweepMaps& smaps, const BwdArgs& p, int n_blocks,
+                 cudaStream_t st) {
+  auto kernel = trunk_bwd_sweep_kernel<HEADS, ZF32, SPLIT>;
+  const int smem = sweep_smem<HEADS, SPLIT>();
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<n_blocks, NTB, smem, st>>>(smaps, p);
+  return (int)cudaGetLastError();
+}
+
 // Launch the sweep, the weight-gradient and the reduce kernels of K3
-// (HEADS = false) or K5 on `stream`; returns a cudaError_t.
+// (HEADS = false) or K5 on `stream`; returns a cudaError_t.  zs/us are bf16
+// (p.zs, p.us) or f32 (p.zsf, p.usf; K5 reads no us); p.split (K3 alone)
+// takes f32 zs/us.
 template <bool HEADS>
 int launch_bwd(const BwdArgs& p, int n_blocks, void* stream) {
+  const bool zf = p.zsf != nullptr;
+  const int ct = (p.split ? 3 : 1) * 2 * p.n / WK;
   if (p.n <= 0 || p.n % T != 0 || n_blocks <= 0 || p.layers < 3 ||
       p.layers + 3 > MAX_GROUPS || p.skip <= 0 || p.skip >= p.layers ||
-      p.splits_trunk < 1 || p.splits_trunk > 2 * p.n / WK ||
-      (HEADS && (p.splits_heads < 1 || p.splits_heads > p.n / WK)))
+      p.splits_trunk < 1 || p.splits_trunk > ct ||
+      (HEADS && (p.splits_heads < 1 || p.splits_heads > p.n / WK)) ||
+      zf == (p.zs != nullptr) ||
+      (!HEADS && (zf ? p.usf == nullptr : p.us == nullptr)) ||
+      (p.split && (HEADS || !zf)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   SweepMaps smaps;
@@ -1131,17 +1268,23 @@ int launch_bwd(const BwdArgs& p, int n_blocks, void* stream) {
   if (!sweep_maps<HEADS>(p, &smaps) || !wgrad_plan<HEADS>(p, &wmaps, &plan) ||
       plan.n_blocks != p.wpart_tiles)
     return (int)cudaErrorInvalidValue;
-  const int smem_sweep = sweep_smem<HEADS>();
-  cudaError_t e = cudaFuncSetAttribute(
-      trunk_bwd_sweep_kernel<HEADS>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem_sweep);
+  cudaError_t e;
+  if constexpr (HEADS)
+    e = (cudaError_t)(zf ? launch_sweep<true, true, false>(smaps, p,
+                                                           n_blocks, st)
+                         : launch_sweep<true, false, false>(smaps, p,
+                                                            n_blocks, st));
+  else
+    e = (cudaError_t)(p.split ? launch_sweep<false, true, true>(smaps, p,
+                                                                n_blocks, st)
+                      : zf ? launch_sweep<false, true, false>(smaps, p,
+                                                              n_blocks, st)
+                           : launch_sweep<false, false, false>(smaps, p,
+                                                               n_blocks, st));
   if (e != cudaSuccess) return (int)e;
   e = cudaFuncSetAttribute(trunk_bwd_wgrad_kernel<HEADS>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            WGRAD_SMEM);
-  if (e != cudaSuccess) return (int)e;
-  trunk_bwd_sweep_kernel<HEADS><<<n_blocks, NTB, smem_sweep, st>>>(smaps, p);
-  e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   trunk_bwd_wgrad_kernel<HEADS><<<plan.n_blocks, NTB, WGRAD_SMEM, st>>>(
       wmaps, plan, p.wpart);

@@ -19,17 +19,18 @@
 
 using namespace trunk;
 
-// x (n_rows, 128) f32 with n_rows % 64 == 0; weights as trunk_sigma_launch.
-// Outputs sigma (n_rows,) f32, feats (n_rows, 512) bf16 when feats_bf16
-// else f32, gx (n_rows, 128) f32, and, when zs is not null, zs and us
-// (n_rows, layers * 512) bf16.  scratch holds
+// x (n_rows, 128) f32 with n_rows % 64 == 0; weights as trunk_sigma_launch
+// (with split: f32 operands, the weights as hi and lo planes).  Outputs
+// sigma (n_rows,) f32, feats (n_rows, 512) bf16 when feats_bf16 else f32,
+// gx (n_rows, 128) f32, and, when zs is not null, zs and us (n_rows,
+// layers * 512), f32 when zs_f32 else bf16.  scratch holds
 // n_blocks * (layers-1) * 64 * 512 floats.  Returns a cudaError_t.
 extern "C" int trunk_fwd_grad_launch(
     const float* x, int n_rows, int n_blocks, const void* w0, const float* b0,
     const void* wmid, const float* bmid, const void* wskip,
     const float* bskip, const float* wsig, const float* bsig, float* sigma,
     void* feats, int feats_bf16, float* gx, float* scratch, void* zs,
-    void* us, int layers, int skip, void* stream) {
+    void* us, int zs_f32, int split, int layers, int skip, void* stream) {
   FwdArgs p = {};
   p.x = x;
   p.n_tiles = n_rows / T;
@@ -46,8 +47,14 @@ extern "C" int trunk_fwd_grad_launch(
   p.feats_bf16 = feats_bf16;
   p.gx = gx;
   p.scratch = scratch;
-  p.zs = static_cast<bf16*>(zs);
-  p.us = static_cast<bf16*>(us);
+  if (zs_f32) {
+    p.zsf = static_cast<float*>(zs);
+    p.usf = static_cast<float*>(us);
+  } else {
+    p.zs = static_cast<bf16*>(zs);
+    p.us = static_cast<bf16*>(us);
+  }
+  p.split = split;
   p.layers = layers;
   p.skip = skip;
   return launch_fwd<false>(p, n_rows, n_blocks, stream);

@@ -51,10 +51,21 @@
 // result is deterministic.
 //
 // With ZS (the training instantiations) the kernel also saves, per point and
-// layer, z_l in bf16, and K2 the chain state u_l (before the act' multiply)
-// in bf16: the residuals K3 reads.  K5 rebuilds the u chain from zs, as the
-// Pallas _bwd_kernel_h does, so K4 saves zs alone.  The serving
+// layer, z_l, and K2 the chain state u_l (before the act' multiply): the
+// residuals K3 reads, in bf16 under bfloat16_all, and with ZF32 (float32 and
+// the mixed bfloat16, whose activations are f32) in f32, stored from the
+// accumulators as streaming float2 rows (a quad of threads fills a 32-byte
+// sector), with no tile of their own.  K5 rebuilds the u chain from zs, as
+// the Pallas _bwd_kernel_h does, so K4 saves zs alone.  The serving
 // instantiations have none of that.
+//
+// SPLIT (K2 at compute_dtype float32: f32 operands and f32 weights) runs
+// every product as three on bf16 tensor cores (sm90_trunk.cuh consume_s):
+// the activation and x tiles hold hi and lo bf16 terms, the weights come
+// as hi and lo planes through the ring, and nothing rounds to bf16 (the
+// sigma head and softplus' take the f32 values).  Shared memory: the two
+// activation tiles and x tiles take 160 KB, so its ring has two 32 KB
+// stages where the bf16 instantiations have four (fs_ring_n).
 
 #pragma once
 
@@ -93,9 +104,10 @@ __device__ __forceinline__ float4 scratch_ld(const float4* p) {
 // (the weight stream a point would pay in a 128-point block); a stage left
 // unloaded completes empty and the products multiply whatever the ring
 // holds, so that the time the weight stream from L2 costs can be read off.
+template <class R>
 __device__ __forceinline__ void produce_w(const CUtensorMap* map, bool mn,
                                           int nk, int row0, int col0, int nw,
-                                          Ring& r, uint64_t* full,
+                                          R& r, uint64_t* full,
                                           uint64_t* empty,
                                           unsigned char* ring) {
 #if defined(FWD_NO_WEIGHT_LOADS) || defined(FWD_HALF_WEIGHT_LOADS)
@@ -114,6 +126,19 @@ __device__ __forceinline__ void produce_w(const CUtensorMap* map, bool mn,
 #else
   produce(map, mn, nk, row0, col0, nw, r, full, empty, ring);
 #endif
+}
+
+// produce_w of the hi plane, and with SPLIT of the lo plane lo_rows below
+// (sm90_trunk.cuh produce_s).
+template <bool SPLIT, class R>
+__device__ __forceinline__ void produce_ws(const CUtensorMap* map, bool mn,
+                                           int nk, int row0, int col0,
+                                           int nw, int lo_rows, R& r,
+                                           uint64_t* full, uint64_t* empty,
+                                           unsigned char* ring) {
+  produce_w(map, mn, nk, row0, col0, nw, r, full, empty, ring);
+  if constexpr (SPLIT)
+    produce_w(map, mn, nk, row0 + lo_rows, col0, nw, r, full, empty, ring);
 }
 
 struct FwdArgs {
@@ -148,8 +173,11 @@ struct FwdArgs {
   // both
   float* gx;
   float* scratch;
-  bf16* zs;
+  bf16* zs;            // bf16 zs/us (bfloat16_all), stored from the tile
   bf16* us;
+  float* zsf;          // f32 zs/us (float32, mixed bfloat16), from registers
+  float* usf;
+  int split;           // float32: weights as hi and lo planes, SPLIT
   int layers, skip;
 };
 
@@ -163,29 +191,63 @@ struct FwdMaps {
 };
 
 // shared memory: the activation tile (64 x 512, 8 SW128 blocks), the x tile
-// (64 x 128 bf16, 2 blocks), the ring, barriers, then per-row vectors: the
-// sigma head's warpgroup halves, softplus'(zsig), and K4's 6 logits'
+// (64 x 128 bf16, 2 blocks), with SPLIT both again for the lo terms
+// (fs_lo bytes past the hi ones), the ring, barriers, then per-row vectors:
+// the sigma head's warpgroup halves, softplus'(zsig), and K4's 6 logits'
 // warpgroup halves
 constexpr int FS_ACT = 0;
 constexpr int FS_X = FS_ACT + 8 * ACT_BLOCK;
-constexpr int FS_RING = FS_X + 2 * ACT_BLOCK;
-constexpr int FS_BAR = FS_RING + RING_N * RING_STAGE;
-constexpr int FS_ROWS = FS_BAR + 128;
-template <bool HEADS>
+template <bool SPLIT>
+__host__ __device__ constexpr int fs_lo() {
+  return SPLIT ? 10 * ACT_BLOCK : 0;
+}
+// (FWD_RING_2, measurement only, never built by the package: every
+// instantiation gets SPLIT's two stages, so that tools/fwd_variants.py can
+// time what the shallow ring costs the bf16 ones)
+template <bool SPLIT>
+__host__ __device__ constexpr int fs_ring_n() {
+#ifdef FWD_RING_2
+  return 2;
+#else
+  return SPLIT ? 2 : RING_N;
+#endif
+}
+template <bool SPLIT>
+__host__ __device__ constexpr int fs_ring() {
+  return FS_X + 2 * ACT_BLOCK + fs_lo<SPLIT>();
+}
+template <bool SPLIT>
+__host__ __device__ constexpr int fs_rows() {
+  return fs_ring<SPLIT>() + fs_ring_n<SPLIT>() * RING_STAGE + 128;
+}
+template <bool HEADS, bool SPLIT = false>
 __host__ __device__ constexpr int fwd_smem() {
-  return FS_ROWS + 3 * T * 4 + (HEADS ? 6 * 2 * T * 4 : 0);
+  return fs_rows<SPLIT>() + 3 * T * 4 + (HEADS ? 6 * 2 * T * 4 : 0);
 }
 static_assert(fwd_smem<true>() <= 232448, "K4's shared memory");
+static_assert(fwd_smem<false, true>() <= 232448, "K2 SPLIT's shared memory");
+
+// Rows r0 and r0 + 8 of this thread's accumulator columns, v(4j + e), into
+// an f32 matrix at p (row stride ld, from the thread's row and column 0 of
+// its warpgroup's first column cb), as streaming float2 stores.
+template <class V>
+__device__ __forceinline__ void rows_out(float* p, size_t ld, V v) {
+#pragma unroll
+  for (int j = 0; j < 32; ++j)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+      __stcs(reinterpret_cast<float2*>(p + hf * 8 * ld + 8 * j),
+             make_float2(v(4 * j + 2 * hf), v(4 * j + 2 * hf + 1)));
+}
 
 // Write v4 (accumulators 4j..4j+3: rows r0, r0 + 8, columns col, col + 1)
-// as bf16 into the activation tile.
+// as bf16 into the activation tile, and with SPLIT their lo terms into the
+// lo tile LO bytes past it.
+template <bool SPLIT = false, int LO = 0>
 __device__ __forceinline__ void put4(unsigned char* act, int r0, int col,
                                      const float (&v4)[4]) {
-  *reinterpret_cast<uint32_t*>(act + sm90::sw128_offset(r0, col, ACT_BLOCK)) =
-      sm90::pack_bf2(v4[0], v4[1]);
-  *reinterpret_cast<uint32_t*>(
-      act + sm90::sw128_offset(r0 + 8, col, ACT_BLOCK)) =
-      sm90::pack_bf2(v4[2], v4[3]);
+  put2_s<SPLIT, LO>(act, r0, col, v4[0], v4[1]);
+  put2_s<SPLIT, LO>(act, r0 + 8, col, v4[2], v4[3]);
 }
 
 // Sum a row partial over the 4 lanes that share the row.
@@ -208,9 +270,10 @@ __device__ __forceinline__ void scratch_batch(float4 (&d)[SB],
   for (int jj = 0; jj < SB; ++jj) d[jj] = scratch_ld(dl + (SB * b + jj) * NC);
 }
 
-// g = act'(z) u into the activation tile for the 128 accumulators of u in
-// acc, act'(z) from the thread's scratch slot dl, whose first batch is in
-// dn; acc keeps u.
+// g = act'(z) u into the activation tile (with SPLIT its hi and lo terms)
+// for the 128 accumulators of u in acc, act'(z) from the thread's scratch
+// slot dl, whose first batch is in dn; acc keeps u.
+template <bool SPLIT, int LO>
 __device__ __forceinline__ void g_from_scratch(const float (&acc)[128],
                                                float4 (&dn)[SB],
                                                const float4* dl,
@@ -227,7 +290,7 @@ __device__ __forceinline__ void g_from_scratch(const float (&acc)[128],
       const int j = SB * b + jj;
       const float g4[4] = {d[jj].x * acc[4 * j], d[jj].y * acc[4 * j + 1],
                            d[jj].z * acc[4 * j + 2], d[jj].w * acc[4 * j + 3]};
-      put4(act, r0, cb + 8 * j, g4);
+      put4<SPLIT, LO>(act, r0, cb + 8 * j, g4);
     }
   }
 }
@@ -252,21 +315,27 @@ __device__ __forceinline__ void gx_out(const float (&c)[32], float* gx,
     }
 }
 
-template <bool ZS, bool HEADS>
+template <bool ZS, bool HEADS, bool ZF32, bool SPLIT>
 __global__ void __launch_bounds__(NTB, 1)
     trunk_fwd_grad_kernel(const __grid_constant__ FwdMaps maps,
                           const FwdArgs p) {
+  static_assert(!(HEADS && SPLIT), "K4 takes bf16 operands only");
+  constexpr int NS = fs_ring_n<SPLIT>();
+  constexpr int LO = fs_lo<SPLIT>();
+  typedef RingN<NS> R;
   extern __shared__ __align__(1024) unsigned char smem[];
   unsigned char* act = smem + FS_ACT;
   unsigned char* xs = smem + FS_X;
-  unsigned char* ring = smem + FS_RING;
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + FS_BAR);
-  uint64_t* empty = full + RING_N;
-  float* rz = reinterpret_cast<float*>(smem + FS_ROWS);   // [2 wg][64 rows]
+  unsigned char* ring = smem + fs_ring<SPLIT>();
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + NS * RING_STAGE);
+  uint64_t* empty = full + NS;
+  float* rz = reinterpret_cast<float*>(smem + fs_rows<SPLIT>());  // [2][64]
   float* rowv = rz + 2 * T;                               // softplus'(zsig)
   float* hred = rowv + T;                     // K4: [6 logits][2 wg][64]
   const int layers = p.layers, skip = p.skip, last = layers - 1;
   const int tid = threadIdx.x;
+  // SPLIT: rows from a weight's hi plane to its lo plane
+  const int lo_f = F, lo_mid = (layers - 2) * F;
   // act'(z) of layers 0..L-2 (K4: 0..L-1): accumulators 4j..4j+3 of
   // consumer thread c of layer s as the float4 (s * 32 + j) * NC + c of
   // slot_base, so that a warp writes 512 contiguous bytes
@@ -274,7 +343,7 @@ __global__ void __launch_bounds__(NTB, 1)
   float* slot_base = p.scratch + (size_t)blockIdx.x * slots * 128 * NC;
 
   if (tid == 0) {
-    for (int s = 0; s < RING_N; ++s) {
+    for (int s = 0; s < NS; ++s) {
       sm90::mbar_init(&full[s], 1);
       sm90::mbar_init(&empty[s], 8);     // one arrival per consumer warp
     }
@@ -286,21 +355,21 @@ __global__ void __launch_bounds__(NTB, 1)
     // ------------------------------------------------------- producer
     sm90::setmaxnreg_dec<40>();
     if (tid != NC) return;
-    Ring r = {0, 0};
+    R r = {0, 0};
     for (int tile = blockIdx.x; tile < p.n_tiles; tile += gridDim.x) {
       const int row0 = tile * T;
       produce_copy(p.x + (size_t)row0 * EP, r, full, empty, ring);
       for (int i = 0; i < layers; ++i) {
         if (i == 0)
-          produce_w(&maps.w0k, false, EP / KSL, 0, 0, F, r, full, empty,
-                    ring);
+          produce_ws<SPLIT>(&maps.w0k, false, EP / KSL, 0, 0, F, lo_f, r,
+                            full, empty, ring);
         else if (i == skip)
-          produce_w(&maps.wskipk, false, (EP + F) / KSL, 0, 0, F, r, full,
-                  empty, ring);
+          produce_ws<SPLIT>(&maps.wskipk, false, (EP + F) / KSL, 0, 0, F,
+                            lo_f, r, full, empty, ring);
         else
-          produce_w(&maps.wmidk, false, F / KSL,
-                  (i < skip ? i - 1 : i - 2) * F, 0, F, r, full, empty,
-                  ring);
+          produce_ws<SPLIT>(&maps.wmidk, false, F / KSL,
+                            (i < skip ? i - 1 : i - 2) * F, 0, F, lo_mid, r,
+                            full, empty, ring);
       }
       if constexpr (HEADS) {
         produce_w(&maps.wfk, false, F / KSL, 0, 0, F, r, full, empty, ring);
@@ -310,17 +379,18 @@ __global__ void __launch_bounds__(NTB, 1)
       }
       for (int i = last; i >= 1; --i) {
         if (i == skip) {
-          produce_w(&maps.wskipm, true, F / KSL, 0, 0, EP, r, full, empty,
-                  ring);
-          produce_w(&maps.wskipm, true, F / KSL, 0, EP, F, r, full, empty,
-                  ring);
+          produce_ws<SPLIT>(&maps.wskipm, true, F / KSL, 0, 0, EP, lo_f, r,
+                            full, empty, ring);
+          produce_ws<SPLIT>(&maps.wskipm, true, F / KSL, 0, EP, F, lo_f, r,
+                            full, empty, ring);
         } else {
-          produce_w(&maps.wmidm, true, F / KSL,
-                  (i < skip ? i - 1 : i - 2) * F, 0, F, r, full, empty,
-                  ring);
+          produce_ws<SPLIT>(&maps.wmidm, true, F / KSL,
+                            (i < skip ? i - 1 : i - 2) * F, 0, F, lo_mid, r,
+                            full, empty, ring);
         }
       }
-      produce_w(&maps.w0m, true, F / KSL, 0, 0, EP, r, full, empty, ring);
+      produce_ws<SPLIT>(&maps.w0m, true, F / KSL, 0, 0, EP, lo_f, r, full,
+                        empty, ring);
     }
     return;
   }
@@ -333,13 +403,15 @@ __global__ void __launch_bounds__(NTB, 1)
   const int cb = wg * 256 + 2 * (l & 3);     // column of j = 0, e = 0
   const float* __restrict__ wsig = p.wsig;
   float4* dsc = reinterpret_cast<float4*>(slot_base) + tid;
-  Ring r = {0, 0};
+  // ZF32: where this thread's rows of a layer's zs / us begin
+  const size_t lf = (size_t)layers * F;
+  R r = {0, 0};
   float acc[128];
 
   for (int tile = blockIdx.x; tile < p.n_tiles; tile += gridDim.x) {
     const int row0 = tile * T;
     const size_t grow0 = (size_t)row0;
-    // x (f32, from the ring) into the x tile as bf16
+    // x (f32, from the ring) into the x tile as bf16 (SPLIT: hi and lo)
     sm90::mbar_wait(&full[r.stage], r.phase);
     {
       const float4* x4 =
@@ -347,8 +419,13 @@ __global__ void __launch_bounds__(NTB, 1)
       for (int i = tid; i < T * EP / 4; i += NC) {
         const int rr = (i * 4) / EP, c = (i * 4) % EP;
         const float4 v = x4[i];
-        *reinterpret_cast<uint2*>(xs + sm90::sw128_offset(rr, c, ACT_BLOCK)) =
+        const uint32_t o = sm90::sw128_offset(rr, c, ACT_BLOCK);
+        *reinterpret_cast<uint2*>(xs + o) =
             make_uint2(sm90::pack_bf2(v.x, v.y), sm90::pack_bf2(v.z, v.w));
+        if constexpr (SPLIT)
+          *reinterpret_cast<uint2*>(xs + LO + o) = make_uint2(
+              sm90::pack_bf2(v.x - bf16_round(v.x), v.y - bf16_round(v.y)),
+              sm90::pack_bf2(v.z - bf16_round(v.z), v.w - bf16_round(v.w)));
       }
     }
     release(empty, r.stage);
@@ -359,14 +436,14 @@ __global__ void __launch_bounds__(NTB, 1)
     // ----------------------------------------------------------- forward
     for (int i = 0; i < layers; ++i) {
       if (i == 0)
-        consume<256, 0>(acc, xs, EP, xs, EP / KSL, false, r, full, empty,
-                        ring, wg, leader);
+        consume_s<256, 0, SPLIT, LO>(acc, xs, EP, xs, EP / KSL, false, r,
+                                     full, empty, ring, wg, leader);
       else if (i == skip)
-        consume<256, 0>(acc, xs, EP, act, (EP + F) / KSL, false, r, full,
-                        empty, ring, wg, leader);
+        consume_s<256, 0, SPLIT, LO>(acc, xs, EP, act, (EP + F) / KSL, false,
+                                     r, full, empty, ring, wg, leader);
       else
-        consume<256, 0>(acc, act, F, act, F / KSL, false, r, full, empty,
-                        ring, wg, leader);
+        consume_s<256, 0, SPLIT, LO>(acc, act, F, act, F / KSL, false, r,
+                                     full, empty, ring, wg, leader);
       tiles_free(issuer);                      // both products read act
       const float* __restrict__ b = layer_bias(i, skip, p.b0, p.bmid,
                                                p.bskip);
@@ -378,7 +455,10 @@ __global__ void __launch_bounds__(NTB, 1)
         acc[4 * j + 2] += bb.x;
         acc[4 * j + 3] += bb.y;
       }
-      if (ZS) {
+      if constexpr (ZS && ZF32) {
+        rows_out(p.zsf + (grow0 + r0) * lf + (size_t)i * F + cb, lf,
+                 [&](int k) { return acc[k]; });
+      } else if constexpr (ZS) {
         store_tile_sw<256>(act, wg * 256, [&](int k) { return acc[k]; });
         tile_to_global(&maps.zs, act, 8, i * F, row0, issuer);
         tiles_free(issuer);
@@ -393,7 +473,7 @@ __global__ void __launch_bounds__(NTB, 1)
         for (int e = 0; e < 4; ++e)
           act_eval(acc[4 * j + e], w0s, h4[e], d4[e]);
         scratch_st(dl + j * NC, make_float4(d4[0], d4[1], d4[2], d4[3]));
-        put4(act, r0, cb + 8 * j, h4);
+        put4<SPLIT, LO>(act, r0, cb + 8 * j, h4);
       }
       sm90::fence_async_smem();
       sm90::named_sync(BAR_C, NC);             // h is the next product's A
@@ -410,7 +490,8 @@ __global__ void __launch_bounds__(NTB, 1)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           act_eval(acc[4 * j + e], 1.f, h4[e], d4[e]);
-          pz[e >> 1] += bf16_round(h4[e]) * wsig[cb + 8 * j + (e & 1)];
+          pz[e >> 1] += (SPLIT ? h4[e] : bf16_round(h4[e])) *
+                        wsig[cb + 8 * j + (e & 1)];
         }
         if (HEADS)
           scratch_st(dl + j * NC, make_float4(d4[0], d4[1], d4[2], d4[3]));
@@ -441,7 +522,8 @@ __global__ void __launch_bounds__(NTB, 1)
       const float z = (rz[tid] + rz[T + tid]) + p.bsig[0];
       sp = softplus(z);
       if (!HEADS) p.sigma[grow0 + tid] = sp;
-      rowv[tid] = bf16_round(1.f / (1.f + expf(-z)));   // softplus'(zsig)
+      const float sg = 1.f / (1.f + expf(-z));            // softplus'(zsig)
+      rowv[tid] = SPLIT ? sg : bf16_round(sg);
     }
 
     if constexpr (HEADS) {
@@ -518,12 +600,7 @@ __global__ void __launch_bounds__(NTB, 1)
       for (int k = 0; k < 128; ++k)
         acc[k] = rowv[r0 + 8 * ((k >> 1) & 1)] *
                  wsig[cb + 8 * (k >> 2) + (k & 1)];
-      if (ZS && !HEADS) {
-        store_tile_sw<256>(act, wg * 256, [&](int k) { return acc[k]; });
-        tile_to_global(&maps.us, act, 8, last * F, row0, issuer);
-        tiles_free(issuer);
-      }
-      g_from_scratch(acc, dn, dl, act, r0, cb);
+      g_from_scratch<false, 0>(acc, dn, dl, act, r0, cb);
     } else {
       // ------ the chain's seed: g_{L-1} = act'(z_{L-1}) u, act' recomputed
       // from z_{L-1} in acc
@@ -532,7 +609,10 @@ __global__ void __launch_bounds__(NTB, 1)
         return rowv[r0 + 8 * ((k >> 1) & 1)] *
                wsig[cb + 8 * (k >> 2) + (k & 1)];
       };
-      if (ZS && !HEADS) {
+      if constexpr (ZS && ZF32) {
+        rows_out(p.usf + (grow0 + r0) * lf + (size_t)last * F + cb, lf,
+                 u_of);
+      } else if constexpr (ZS) {
         store_tile_sw<256>(act, wg * 256, u_of);
         tile_to_global(&maps.us, act, 8, last * F, row0, issuer);
         tiles_free(issuer);
@@ -546,7 +626,7 @@ __global__ void __launch_bounds__(NTB, 1)
           act_eval(acc[4 * j + e], 1.f, h, d);
           g4[e] = d * u_of(4 * j + e);
         }
-        put4(act, r0, cb + 8 * j, g4);
+        put4<SPLIT, LO>(act, r0, cb + 8 * j, g4);
       }
     }
     sm90::fence_async_smem();
@@ -563,28 +643,31 @@ __global__ void __launch_bounds__(NTB, 1)
         // the encoding's share through the skip input: gx = g . Wskip_top
         // (in acc's first 32 registers, which the next product overwrites)
         float (&c)[32] = *reinterpret_cast<float(*)[32]>(acc);
-        consume<64, 1>(c, act, F, act, F / KSL, false, r, full, empty, ring,
-                       wg, leader);
+        consume_s<64, 1, SPLIT, LO>(c, act, F, act, F / KSL, false, r, full,
+                                    empty, ring, wg, leader);
         gx_out(c, p.gx, grow0, r0, wg, l, false);
       }
-      consume<256, 1>(acc, act, F, act, F / KSL, false, r, full, empty, ring,
-                      wg, leader);
+      consume_s<256, 1, SPLIT, LO>(acc, act, F, act, F / KSL, false, r, full,
+                                   empty, ring, wg, leader);
       tiles_free(issuer);                      // act (g) read by both
-      if (ZS && !HEADS) {
+      if constexpr (ZS && ZF32 && !HEADS) {
+        rows_out(p.usf + (grow0 + r0) * lf + (size_t)(i - 1) * F + cb, lf,
+                 [&](int k) { return acc[k]; });
+      } else if constexpr (ZS && !HEADS) {
         store_tile_sw<256>(act, wg * 256, [&](int k) { return acc[k]; });
         tile_to_global(&maps.us, act, 8, (i - 1) * F, row0, issuer);
         tiles_free(issuer);
       }
       // g_{i-1} = act'(z_{i-1}) * u_{i-1}
-      g_from_scratch(acc, dn, dl, act, r0, cb);
+      g_from_scratch<SPLIT, LO>(acc, dn, dl, act, r0, cb);
       sm90::fence_async_smem();
       sm90::named_sync(BAR_C, NC);
     }
     // layer 0: gx += g_0 . w0
     {
       float (&c)[32] = *reinterpret_cast<float(*)[32]>(acc);
-      consume<64, 1>(c, act, F, act, F / KSL, false, r, full, empty, ring,
-                     wg, leader);
+      consume_s<64, 1, SPLIT, LO>(c, act, F, act, F / KSL, false, r, full,
+                                  empty, ring, wg, leader);
       gx_out(c, p.gx, grow0, r0, wg, l, true);
     }
   }
@@ -595,14 +678,16 @@ __global__ void __launch_bounds__(NTB, 1)
 template <bool HEADS>
 bool fwd_maps(const FwdArgs& p, FwdMaps* m) {
   using sm90host::map_2d;
-  const uint64_t mids = (uint64_t)(p.layers - 2) * F;
+  const uint64_t planes = p.split ? 2 : 1;
+  const uint64_t mids = (uint64_t)(p.layers - 2) * F * planes;
+  const uint64_t fp = F * planes;
   const uint64_t n = (uint64_t)p.n_tiles * T, lf = (uint64_t)p.layers * F;
-  bool ok = map_2d(&m->w0k, p.w0, F, EP, EP, 256, KSL, 64) &&
+  bool ok = map_2d(&m->w0k, p.w0, fp, EP, EP, 256, KSL, 64) &&
             map_2d(&m->wmidk, p.wmid, mids, F, F, 256, KSL, 64) &&
-            map_2d(&m->wskipk, p.wskip, F, EP + F, EP + F, 256, KSL, 64) &&
-            map_2d(&m->w0m, p.w0, F, EP, EP, KSL, 32, 64) &&
+            map_2d(&m->wskipk, p.wskip, fp, EP + F, EP + F, 256, KSL, 64) &&
+            map_2d(&m->w0m, p.w0, fp, EP, EP, KSL, 32, 64) &&
             map_2d(&m->wmidm, p.wmid, mids, F, F, KSL, 32, 64) &&
-            map_2d(&m->wskipm, p.wskip, F, EP + F, EP + F, KSL, 32, 64);
+            map_2d(&m->wskipm, p.wskip, fp, EP + F, EP + F, KSL, 32, 64);
   if (p.zs)
     ok = ok && map_2d(&m->zs, p.zs, n, lf, lf, T, 64, 128) &&
          (HEADS || map_2d(&m->us, p.us, n, lf, lf, T, 64, 128));
@@ -615,23 +700,54 @@ bool fwd_maps(const FwdArgs& p, FwdMaps* m) {
   return ok;
 }
 
-// Launch K2 (HEADS = false) or K4 on `stream`; returns a cudaError_t.
-template <bool HEADS>
-int launch_fwd(const FwdArgs& p, int n_rows, int n_blocks, void* stream) {
-  if (n_rows <= 0 || n_rows % T != 0 || n_blocks <= 0 || p.layers < 3 ||
-      p.skip <= 0 || p.skip >= p.layers ||
-      (HEADS ? p.us != nullptr : (p.zs == nullptr) != (p.us == nullptr)))
-    return (int)cudaErrorInvalidValue;
-  FwdMaps maps;
-  if (!fwd_maps<HEADS>(p, &maps)) return (int)cudaErrorInvalidValue;
-  auto kernel = p.zs ? trunk_fwd_grad_kernel<true, HEADS>
-                     : trunk_fwd_grad_kernel<false, HEADS>;
-  const int smem = fwd_smem<HEADS>();
+template <bool ZS, bool HEADS, bool ZF32, bool SPLIT>
+int launch_fwd_kernel(const FwdArgs& p, const FwdMaps& maps, int n_blocks,
+                      void* stream) {
+  auto kernel = trunk_fwd_grad_kernel<ZS, HEADS, ZF32, SPLIT>;
+  const int smem = fwd_smem<HEADS, SPLIT>();
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   kernel<<<n_blocks, NTB, smem, static_cast<cudaStream_t>(stream)>>>(maps, p);
   return (int)cudaGetLastError();
+}
+
+// Launch K2 (HEADS = false) or K4 on `stream`; returns a cudaError_t.  zs
+// and us are bf16 (p.zs, p.us), f32 (p.zsf, p.usf) or neither; K4 saves no
+// us and takes no split weights, and the split instantiation no bf16 zs/us
+// or feats (its contract stores f32).
+template <bool HEADS>
+int launch_fwd(const FwdArgs& p, int n_rows, int n_blocks, void* stream) {
+  const bool zb = p.zs != nullptr, zf = p.zsf != nullptr;
+  const bool ub = p.us != nullptr, uf = p.usf != nullptr;
+  if (n_rows <= 0 || n_rows % T != 0 || n_blocks <= 0 || p.layers < 3 ||
+      p.skip <= 0 || p.skip >= p.layers || (zb && zf) ||
+      (HEADS ? (ub || uf || p.split) : (zb != ub || zf != uf)) ||
+      (p.split && (zb || p.feats_bf16)))
+    return (int)cudaErrorInvalidValue;
+  FwdMaps maps;
+  if (!fwd_maps<HEADS>(p, &maps)) return (int)cudaErrorInvalidValue;
+  if constexpr (HEADS) {
+    if (zf) return launch_fwd_kernel<true, true, true, false>(p, maps,
+                                                              n_blocks, stream);
+    if (zb) return launch_fwd_kernel<true, true, false, false>(p, maps,
+                                                               n_blocks, stream);
+    return launch_fwd_kernel<false, true, false, false>(p, maps, n_blocks,
+                                                        stream);
+  } else {
+    if (p.split)
+      return zf ? launch_fwd_kernel<true, false, true, true>(p, maps, n_blocks,
+                                                             stream)
+                : launch_fwd_kernel<false, false, false, true>(p, maps,
+                                                               n_blocks,
+                                                               stream);
+    if (zf) return launch_fwd_kernel<true, false, true, false>(p, maps,
+                                                               n_blocks, stream);
+    if (zb) return launch_fwd_kernel<true, false, false, false>(p, maps,
+                                                                n_blocks, stream);
+    return launch_fwd_kernel<false, false, false, false>(p, maps, n_blocks,
+                                                         stream);
+  }
 }
 
 }  // namespace trunk

@@ -39,7 +39,8 @@
 // It writes b_th of every layer in f32, in the layout of the sweep's tz
 // scratch (uc: element j, e of consumer thread c of layer l of tile t at
 // ((t L + l) 128 + 4 j + e) 256 + c), and the sweep reads it through its
-// ring where K3 reads K2's bf16 us.  The forward's u chain is no substitute:
+// ring where K3 reads K2's bf16 us (with f32 zs, ZF32, each thread reads
+// its own elements of it from device memory).  The forward's u chain is no substitute:
 // it runs on f32 z where this one runs on the bf16 zs (the Pallas
 // _bwd_kernel_h's arithmetic), and at the flagship size the two differ by
 // ~7e-3 relative (tools/uchain_gap.py).
@@ -55,6 +56,9 @@ constexpr int UC_BAR = UC_RING + RING_N * RING_STAGE;
 constexpr int UC_ROWS = UC_BAR + 128;
 constexpr int UC_SMEM = UC_ROWS + 3 * T * 4;
 
+// ZF32: zs in f32 (the mixed bfloat16 contract), read from device memory
+// instead of through the ring.
+template <bool ZF32>
 __global__ void __launch_bounds__(NTB, 1)
     trunk_heads_uchain_kernel(const __grid_constant__ SweepMaps maps,
                               const BwdArgs p, float* __restrict__ uc) {
@@ -84,7 +88,7 @@ __global__ void __launch_bounds__(NTB, 1)
     Ring r = {0, 0};
     for (int tile = blockIdx.x; tile < p.n_tiles; tile += gridDim.x) {
       const int row0 = tile * T;
-      produce_fwd_data(maps, last, row0, r, full, empty, ring);
+      if (!ZF32) produce_fwd_data(maps, last, row0, r, full, empty, ring);
       for (int i = last; i >= 1; --i) {
         if (i == skip)
           produce(&maps.wskipm, true, F / KSL, 0, EP, F, r, full, empty,
@@ -93,7 +97,8 @@ __global__ void __launch_bounds__(NTB, 1)
           produce(&maps.wmidm, true, F / KSL,
                   (i < skip ? i - 1 : i - 2) * F, 0, F, r, full, empty,
                   ring);
-        if (i > 1) produce_fwd_data(maps, i - 1, row0, r, full, empty, ring);
+        if (!ZF32 && i > 1)
+          produce_fwd_data(maps, i - 1, row0, r, full, empty, ring);
       }
     }
     return;
@@ -109,15 +114,25 @@ __global__ void __launch_bounds__(NTB, 1)
   Ring r = {0, 0};
   float acc[128];
 
-  // z of accumulators 4j..4j+3 (rows r0 and r0 + 8) from the ring stage
-  // that holds them: two j-groups a stage, both warpgroups' 64 x 64 blocks
-  // side by side (produce_fwd_data)
-  auto z_of = [&](int j) {
-    const unsigned char* zb4 = ring + r.stage * RING_STAGE +
-                               ((j >> 3) & 1) * 2 * ACT_BLOCK + wg * ACT_BLOCK;
-    const int cz = 8 * (j & 7) + 2 * (l & 3);
-    const float2 za = stage_bf2(zb4 + sm90::sw128_offset(r0, cz, 0));
-    const float2 zb = stage_bf2(zb4 + sm90::sw128_offset(r0 + 8, cz, 0));
+  // z of accumulators 4j..4j+3 (rows r0 and r0 + 8) of layer i from the
+  // ring stage that holds them: two j-groups a stage, both warpgroups'
+  // 64 x 64 blocks side by side (produce_fwd_data); ZF32: from zsf
+  const size_t lf = (size_t)layers * F;
+  size_t zrow = 0;                           // ZF32: the tile's rows r0
+  auto z_of = [&](int j, int i) {
+    float2 za, zb;
+    if constexpr (ZF32) {
+      const float* zp = p.zsf + zrow + (size_t)i * F + cb + 8 * j;
+      za = glob_f2(zp);
+      zb = glob_f2(zp + 8 * lf);
+    } else {
+      const unsigned char* zb4 = ring + r.stage * RING_STAGE +
+                                 ((j >> 3) & 1) * 2 * ACT_BLOCK +
+                                 wg * ACT_BLOCK;
+      const int cz = 8 * (j & 7) + 2 * (l & 3);
+      za = stage_bf2(zb4 + sm90::sw128_offset(r0, cz, 0));
+      zb = stage_bf2(zb4 + sm90::sw128_offset(r0 + 8, cz, 0));
+    }
     return make_float4(za.x, za.y, zb.x, zb.y);
   };
   // accumulators 4j..4j+3 into the tile as bf16
@@ -132,13 +147,14 @@ __global__ void __launch_bounds__(NTB, 1)
 
   for (int tile = blockIdx.x; tile < p.n_tiles; tile += gridDim.x) {
     float* out = uc + (size_t)tile * layers * 128 * NC + tid;
+    zrow = ((size_t)tile * T + r0) * lf;
     // ------- zsig from h_{L-1} = act(z_{L-1}), as the sweep computes it;
     // act'(z_{L-1}) into acc
     float pz[2] = {0.f, 0.f};
 #pragma unroll
     for (int j = 0; j < 32; ++j) {
-      if (j % 16 == 0) sm90::mbar_wait(&full[r.stage], r.phase);
-      const float4 z4 = z_of(j);
+      if (!ZF32 && j % 16 == 0) sm90::mbar_wait(&full[r.stage], r.phase);
+      const float4 z4 = z_of(j, last);
       const float zz[4] = {z4.x, z4.y, z4.z, z4.w};
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
@@ -146,7 +162,7 @@ __global__ void __launch_bounds__(NTB, 1)
         act_eval(zz[e], 1.f, h, acc[4 * j + e]);
         pz[e >> 1] += bf16_round(h) * wsig[cb + 8 * j + (e & 1)];
       }
-      if (j % 16 == 15) {
+      if (!ZF32 && j % 16 == 15) {
         release(empty, r.stage);
         r.advance();
       }
@@ -194,8 +210,8 @@ __global__ void __launch_bounds__(NTB, 1)
       // b_tz_{i-1} = act'(z_{i-1}) b_th_{i-1}, z from the ring
 #pragma unroll
       for (int j = 0; j < 32; ++j) {
-        if (j % 16 == 0) sm90::mbar_wait(&full[r.stage], r.phase);
-        const float4 z4 = z_of(j);
+        if (!ZF32 && j % 16 == 0) sm90::mbar_wait(&full[r.stage], r.phase);
+        const float4 z4 = z_of(j, i - 1);
         const float zz[4] = {z4.x, z4.y, z4.z, z4.w};
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
@@ -204,7 +220,7 @@ __global__ void __launch_bounds__(NTB, 1)
           acc[4 * j + e] *= d;
         }
         put4(j);
-        if (j % 16 == 15) {
+        if (!ZF32 && j % 16 == 15) {
           release(empty, r.stage);
           r.advance();
         }
@@ -219,8 +235,9 @@ __global__ void __launch_bounds__(NTB, 1)
 
 using namespace trunk;
 
-// x, cg (n_rows, 128) f32, cot (n_rows, 8) f32, zs (n_rows, layers * 512)
-// bf16, with n_rows % 64 == 0; trunk weights as trunk_bwd_launch, heads as
+// x, cg (n_rows, 128) f32, cot (n_rows, 8) f32, zs (n_rows, layers * 512),
+// f32 when zs_f32 (the mixed bfloat16 contract) else bf16, with
+// n_rows % 64 == 0; trunk weights as trunk_bwd_launch, heads as
 // trunk_heads_fwd_launch.  Scratch: uc (n_rows * layers * 512 f32, the
 // rebuilt b_th chain), K3's (part (n/64, (layers+1) * 512 +
 // HEAD_PART) f32, wpart_tiles = (8 layers - 4) x splits_trunk + 24 x
@@ -242,12 +259,16 @@ extern "C" int trunk_heads_bwd_launch(
     void* cz1, float* dw0, float* db0, float* dwm, float* dbm, float* dwst,
     float* dwsb, float* dbs, float* dwsig, float* dbsig, float* dwf,
     float* dbf, float* dw1, float* db1, float* dw2r, float* db2r,
-    float* dw2p, float* db2p, int layers, int skip, void* stream) {
+    float* dw2p, float* db2p, int zs_f32, int layers, int skip,
+    void* stream) {
   BwdArgs p = {};
   p.x = x;
   p.cot = cot;
   p.cg = cg;
-  p.zs = static_cast<const bf16*>(zs);
+  if (zs_f32)
+    p.zsf = static_cast<const float*>(zs);
+  else
+    p.zs = static_cast<const bf16*>(zs);
   p.uc = uc;
   p.n = n_rows;
   p.n_tiles = n_rows / T;
@@ -302,13 +323,13 @@ extern "C" int trunk_heads_bwd_launch(
     return (int)cudaErrorInvalidValue;
   SweepMaps maps;
   if (!sweep_maps<true>(p, &maps)) return (int)cudaErrorInvalidValue;
+  auto uchain = zs_f32 ? trunk_heads_uchain_kernel<true>
+                       : trunk_heads_uchain_kernel<false>;
   cudaError_t e = cudaFuncSetAttribute(
-      trunk_heads_uchain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      UC_SMEM);
+      uchain, cudaFuncAttributeMaxDynamicSharedMemorySize, UC_SMEM);
   if (e != cudaSuccess) return (int)e;
-  trunk_heads_uchain_kernel<<<n_blocks, NTB, UC_SMEM,
-                              static_cast<cudaStream_t>(stream)>>>(maps, p,
-                                                                   uc);
+  uchain<<<n_blocks, NTB, UC_SMEM, static_cast<cudaStream_t>(stream)>>>(
+      maps, p, uc);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   return launch_bwd<true>(p, n_blocks, stream);

@@ -33,8 +33,8 @@ using namespace trunk;
 // x (n_rows, 128) f32 with n_rows % 64 == 0; trunk weights as
 // trunk_fwd_grad_launch; heads as ops/fused_trunk_heads.pack_head_weights
 // at width 512 (bf16 weights, f32 biases).  Outputs out (n_rows, 8) f32, gx
-// (n_rows, 128) f32, and, when zs is not null, zs (n_rows, layers * 512)
-// bf16.  scratch holds n_blocks * layers * 64 * 512 floats.
+// (n_rows, 128) f32, and, when zs is not null, zs (n_rows, layers * 512),
+// f32 when zs_f32 (the mixed bfloat16 contract) else bf16.  scratch holds n_blocks * layers * 64 * 512 floats.
 // Returns a cudaError_t.
 extern "C" int trunk_heads_fwd_launch(
     const float* x, int n_rows, int n_blocks, const void* w0, const float* b0,
@@ -43,7 +43,7 @@ extern "C" int trunk_heads_fwd_launch(
     const float* bf, const void* w1r, const float* b1r, const void* w2r,
     const float* b2r, const void* w1p, const float* b1p, const void* w2p,
     const float* b2p, float* out, float* gx, float* scratch, void* zs,
-    int layers, int skip, void* stream) {
+    int zs_f32, int layers, int skip, void* stream) {
   FwdArgs p = {};
   p.x = x;
   p.n_tiles = n_rows / T;
@@ -68,7 +68,10 @@ extern "C" int trunk_heads_fwd_launch(
   p.out = out;
   p.gx = gx;
   p.scratch = scratch;
-  p.zs = static_cast<bf16*>(zs);
+  if (zs_f32)
+    p.zsf = static_cast<float*>(zs);
+  else
+    p.zs = static_cast<bf16*>(zs);
   p.layers = layers;
   p.skip = skip;
   return launch_fwd<true>(p, n_rows, n_blocks, stream);

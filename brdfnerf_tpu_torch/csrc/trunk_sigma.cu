@@ -40,6 +40,14 @@
 // the two warpgroups' halves added in a fixed order; feats (optional) are
 // stored f32 from the registers.
 //
+// At compute_dtype float32 the weights are f32 as well (the reference's
+// exact f32 products): the split instantiation (SPLIT) takes them packed as
+// a hi and a lo bf16 plane (ops/fused_mlp.pack_trunk_weights) and runs each
+// product as three, A_hi . B_hi + A_lo . B_hi over the hi slices of the
+// ring, then A_hi . B_lo over the lo slices (sm90_trunk.cuh consume_s): the
+// same tiles and ring, twice the weight stream and 1.5 times the products
+// (3.8 ms of tensor-core time at 327,680 points).
+//
 // TRUNK_SIGMA_HI_ONLY (measurement only, never built by the package) runs
 // A_hi alone, the bf16-activation arithmetic of the design before the
 // split, so that one call can time what the split costs.
@@ -108,6 +116,7 @@ __device__ __forceinline__ void x_to_tiles(unsigned char* act, K1Ring& r,
   sm90::named_sync(BAR_C, NC);
 }
 
+template <bool SPLIT>
 __global__ void __launch_bounds__(NTB, 1)
     trunk_sigma_kernel(const __grid_constant__ SigmaMaps maps,
                        const SigmaArgs p) {
@@ -119,6 +128,8 @@ __global__ void __launch_bounds__(NTB, 1)
   float* rz = reinterpret_cast<float*>(smem + K1_ROWS);   // [2 wg][64 rows]
   const int layers = p.layers, skip = p.skip, last = layers - 1;
   const int tid = threadIdx.x;
+  // SPLIT: rows from a weight's hi plane to its lo plane
+  const int lo_f = F, lo_mid = (layers - 2) * F;
 
   if (tid == 0) {
     for (int s = 0; s < K1_RING_N; ++s) {
@@ -137,19 +148,20 @@ __global__ void __launch_bounds__(NTB, 1)
     for (int tile = blockIdx.x; tile < p.n_tiles; tile += gridDim.x) {
       const float* xt = p.x + (size_t)tile * T * EP;
       produce_copy(xt, r, full, empty, ring);
-      produce(&maps.w0k, false, EP / KSL, 0, 0, F, r, full, empty, ring);
+      produce_s<SPLIT>(&maps.w0k, false, EP / KSL, 0, 0, F, lo_f, r, full,
+                       empty, ring);
       for (int i = 1; i < layers; ++i) {
         if (i == skip) {
           // h . W_bot, then x again for x . W_top
-          produce(&maps.wskipk, false, F / KSL, 0, EP, F, r, full, empty,
-                  ring);
+          produce_s<SPLIT>(&maps.wskipk, false, F / KSL, 0, EP, F, lo_f, r,
+                           full, empty, ring);
           produce_copy(xt, r, full, empty, ring);
-          produce(&maps.wskipk, false, EP / KSL, 0, 0, F, r, full, empty,
-                  ring);
+          produce_s<SPLIT>(&maps.wskipk, false, EP / KSL, 0, 0, F, lo_f, r,
+                           full, empty, ring);
         } else {
-          produce(&maps.wmidk, false, F / KSL,
-                  (i < skip ? i - 1 : i - 2) * F, 0, F, r, full, empty,
-                  ring);
+          produce_s<SPLIT>(&maps.wmidk, false, F / KSL,
+                           (i < skip ? i - 1 : i - 2) * F, 0, F, lo_mid, r,
+                           full, empty, ring);
         }
       }
     }
@@ -169,19 +181,25 @@ __global__ void __launch_bounds__(NTB, 1)
     const size_t grow0 = (size_t)tile * T;
     x_to_tiles(act, r, full, empty, ring);
     for (int i = 0; i < layers; ++i) {
+      // (split_mm: A_hi . B + A_lo . B, and with SPLIT + A_hi . B_lo)
+      auto split_mm = [&](int k, bool accumulate) {
+        if constexpr (SPLIT)
+          consume_s<256, 0, true, K1_LO>(acc, act, k, act, k / KSL,
+                                         accumulate, r, full, empty, ring,
+                                         wg, leader);
+        else
+          consume<256, 0, K1_LO>(acc, act, k, act, k / KSL, accumulate, r,
+                                 full, empty, ring, wg, leader);
+      };
       if (i == 0) {
-        consume<256, 0, K1_LO>(acc, act, EP, act, EP / KSL, false, r, full,
-                               empty, ring, wg, leader);
+        split_mm(EP, false);
       } else if (i == skip) {
-        consume<256, 0, K1_LO>(acc, act, F, act, F / KSL, false, r, full,
-                               empty, ring, wg, leader);
+        split_mm(F, false);
         sm90::named_sync(BAR_C, NC);           // both products read h
         x_to_tiles(act, r, full, empty, ring);
-        consume<256, 0, K1_LO>(acc, act, EP, act, EP / KSL, true, r, full,
-                               empty, ring, wg, leader);
+        split_mm(EP, true);
       } else {
-        consume<256, 0, K1_LO>(acc, act, F, act, F / KSL, false, r, full,
-                               empty, ring, wg, leader);
+        split_mm(F, false);
       }
       sm90::named_sync(BAR_C, NC);             // both products read A
       const float* __restrict__ b = layer_bias(i, skip, p.b0, p.bmid,
@@ -245,7 +263,9 @@ __global__ void __launch_bounds__(NTB, 1)
 using namespace trunk;
 
 // x (n_rows, 128) f32 with n_rows % 64 == 0; w0 (512, 128), wmid
-// (layers-2, 512, 512), wskip (512, 640) bf16 in (out, in) layout; biases
+// (layers-2, 512, 512), wskip (512, 640) bf16 in (out, in) layout, or with
+// split (the float32 instantiation) each as (2, ...): its hi and lo planes;
+// biases
 // f32; wsig (512,) f32; bsig (1,) f32.  Outputs sigma (n_rows,) f32 and,
 // when feats is not null, feats (n_rows, 512) f32.  One block per SM at
 // most (a persistent grid).  Returns a cudaError_t.
@@ -255,30 +275,33 @@ extern "C" int trunk_sigma_launch(const float* x, int n_rows, const void* w0,
                                   const float* bskip, const float* wsig,
                                   const float* bsig, float* sigma,
                                   float* feats, int layers, int skip,
-                                  void* stream) {
+                                  int split, void* stream) {
   if (n_rows <= 0 || n_rows % T != 0 || layers < 3 || skip <= 0 ||
       skip >= layers)
     return (int)cudaErrorInvalidValue;
   SigmaMaps maps;
   using sm90host::map_2d;
+  const uint64_t planes = split ? 2 : 1;
   const uint64_t mids = (uint64_t)(layers - 2) * F;
-  if (!(map_2d(&maps.w0k, w0, F, EP, EP, 256, KSL, 64) &&
-        map_2d(&maps.wmidk, wmid, mids, F, F, 256, KSL, 64) &&
-        map_2d(&maps.wskipk, wskip, F, EP + F, EP + F, 256, KSL, 64)))
+  if (!(map_2d(&maps.w0k, w0, planes * F, EP, EP, 256, KSL, 64) &&
+        map_2d(&maps.wmidk, wmid, planes * mids, F, F, 256, KSL, 64) &&
+        map_2d(&maps.wskipk, wskip, planes * F, EP + F, EP + F, 256, KSL,
+               64)))
     return (int)cudaErrorInvalidValue;
+  auto kernel = split ? trunk_sigma_kernel<true> : trunk_sigma_kernel<false>;
   int dev = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(trunk_sigma_kernel,
+    e = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              K1_SMEM);
   if (e != cudaSuccess) return (int)e;
   const SigmaArgs p = {x,     n_rows / T, b0,    bmid,   bskip, wsig,
                        bsig,  sigma,      feats, layers, skip};
   const int n_tiles = n_rows / T;
-  trunk_sigma_kernel<<<n_tiles < sms ? n_tiles : sms, NTB, K1_SMEM,
-                       static_cast<cudaStream_t>(stream)>>>(maps, p);
+  kernel<<<n_tiles < sms ? n_tiles : sms, NTB, K1_SMEM,
+           static_cast<cudaStream_t>(stream)>>>(maps, p);
   return (int)cudaGetLastError();
 }

@@ -12,6 +12,9 @@ The Pallas kernel multiplies f32 activations by bf16 weights in f32.  K1
 keeps that on bf16 tensor cores by splitting each f32 operand into two
 bf16 terms (`split_bf16`) and summing both products in f32;
 `_trunk_sigma_split` is that arithmetic in plain PyTorch, for the tests.
+At compute_dtype float32 the weights are f32 too: the packed weights then
+carry hi and lo bf16 planes for the CUDA kernels (`split_planes`), and each
+product runs as three (`split3_mm`: A_hi B_hi + A_lo B_hi + A_hi B_lo).
 
 The skip layer's concat([enc, h]) @ W is split as enc @ W_top + h @ W_bot;
 the packed `w_skip` holds [W_top (lane-padded) | W_bot] in (out, in) layout,
@@ -36,7 +39,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 TRUNK_SIGMA = CudaKernel(
     "trunk_sigma", "trunk_sigma_launch",
-    [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P])
+    [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P])
+# the compute dtypes the CUDA kernels take
+CUDA_DTYPES = ("float32", "bfloat16", "bfloat16_all")
+# the trunk weights the kernels stream, and the key of their hi/lo planes
+PLANE_KEYS = {"w0": "w0_planes", "w_mid": "w_mid_planes",
+              "w_skip": "w_skip_planes"}
 
 
 def _round_up(x: int, m: int) -> int:
@@ -53,11 +61,18 @@ def kernel_supports(cfg: ModelConfig) -> bool:
 
 def cuda_kernels_cover(cfg: ModelConfig) -> bool:
     """True where the CUDA kernels take this model: the architecture of
-    kernel_supports, a siren trunk with the polynomial sine, a bf16 compute
-    dtype, width FEAT and an encoding of at most LANE lanes."""
+    kernel_supports, a siren trunk with the polynomial sine, a compute
+    dtype of CUDA_DTYPES, width FEAT and an encoding of at most LANE
+    lanes."""
     return (kernel_supports(cfg) and cfg.siren and cfg.fast_sin
-            and cfg.compute_dtype in ("bfloat16", "bfloat16_all")
+            and cfg.compute_dtype in CUDA_DTYPES
             and cfg.feat == FEAT and cfg.xyz_in_dim <= LANE)
+
+
+def split_operands(cfg: ModelConfig) -> bool:
+    """True where the kernels multiply f32 operands (compute_dtype float32)
+    as three products of their bf16 hi and lo terms."""
+    return cfg.compute_dtype == "float32"
 
 
 def weight_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -65,8 +80,15 @@ def weight_dtype(cfg: ModelConfig) -> torch.dtype:
             else torch.float32)
 
 
+def split_planes(w: torch.Tensor) -> torch.Tensor:
+    """(2, *w.shape) bf16: split_bf16's hi and lo terms of the f32 w, the
+    layout the CUDA kernels take f32 weights in (the same bytes as f32)."""
+    return torch.stack(split_bf16(w.float())).contiguous()
+
+
 def pack_trunk_weights(net, cfg: ModelConfig,
-                       dtype: torch.dtype = torch.float32
+                       dtype: torch.dtype = torch.float32,
+                       planes: Optional[bool] = None
                        ) -> Dict[str, torch.Tensor]:
     """Trunk + sigma head as dense matrices in (out, in) layout:
 
@@ -74,6 +96,11 @@ def pack_trunk_weights(net, cfg: ModelConfig,
       w_mid (L-2, F, F) dtype, b_mid (L-2, F) f32  -- non-skip layers 1..L-1
       w_skip (F, Ein_p + F) dtype = [W_top | W_bot], b_skip (F,) f32
       w_sigma (F,) f32 holding dtype-rounded values, b_sigma (1,) f32
+
+    With `planes` (by default: f32 weights on a CUDA device, which the
+    kernels take as split products) also split_planes of w0, w_mid and
+    w_skip under PLANE_KEYS, split once here for every launch that reads
+    this pack; the plain twins read the f32 matrices.
     """
     assert len(cfg.skips) == 1, "fused kernel supports one skip layer"
     skip = cfg.skips[0]
@@ -106,6 +133,11 @@ def pack_trunk_weights(net, cfg: ModelConfig,
     sig = net["sigma_from_xyz"][0]
     packed["w_sigma"] = sig.w.detach()[0].to(dtype).float().contiguous()
     packed["b_sigma"] = sig.b.detach().float().reshape(1).contiguous()
+    if planes is None:
+        planes = dtype == torch.float32 and dev.type == "cuda"
+    if planes:
+        for k, kp in PLANE_KEYS.items():
+            packed[kp] = split_planes(packed[k])
     return packed
 
 
@@ -153,16 +185,30 @@ def split_bf16(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return hi, (a - hi.float()).to(torch.bfloat16)
 
 
+def split3_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b for f32 a (n, K) and b (K, m) as the split kernels compute it:
+    A_hi B_hi + A_lo B_hi + A_hi B_lo on the split_bf16 terms, each product
+    of bf16 terms exact, sums in f32.  The dropped A_lo B_lo and the terms'
+    residuals leave each product within 2^-16 of its exact value (about
+    2^-17 as a rule)."""
+    ah, al = (t.float() for t in split_bf16(a.float()))
+    bh, bl = (t.float() for t in split_bf16(b.float()))
+    return ah @ bh + al @ bh + ah @ bl
+
+
 def _trunk_sigma_split(packed: Dict, cfg: ModelConfig, x: torch.Tensor,
                        want_feats: bool):
     """K1's arithmetic in plain PyTorch, for the tests: every product as
     hi . W + lo . W on the split_bf16 terms of its f32 operand (the
-    activations and the encoded input), f32 sums, then bias, activation and
-    the sigma head in f32 as in _trunk_sigma_plain.  Siren trunks with the
+    activations and the encoded input), and with f32 weights (float32) the
+    three products of split3_mm, f32 sums, then bias, activation and the
+    sigma head in f32 as in _trunk_sigma_plain.  Siren trunks with the
     polynomial sine only, the kernel's activation."""
     from .fast_math import fast_sin
 
     def mm(a, w):
+        if w.dtype == torch.float32:
+            return split3_mm(a, w.t())
         hi, lo = split_bf16(a)
         wf = w.float().t()
         return hi.float() @ wf + lo.float() @ wf
@@ -184,12 +230,15 @@ def _trunk_sigma_split(packed: Dict, cfg: ModelConfig, x: torch.Tensor,
 
 
 def check_kernel_inputs(cfg: ModelConfig, packed: Dict, x: torch.Tensor):
-    """What the CUDA trunk kernels take; anything else raises."""
+    """What the CUDA trunk kernels take; anything else raises.  The packed
+    trunk weights are bf16 at a bf16 compute dtype; at float32 they are
+    f32 with their split_planes beside them."""
     if not cuda_kernels_cover(cfg):
         raise ValueError(
             f"the CUDA trunk kernels take a siren trunk of width {FEAT} with "
-            f"the polynomial sine, a bf16 compute_dtype and an encoding of "
-            f"at most {LANE} lanes (got feat={cfg.feat}, siren={cfg.siren}, "
+            f"the polynomial sine, a compute_dtype of {CUDA_DTYPES} and an "
+            f"encoding of at most {LANE} lanes (got feat={cfg.feat}, "
+            f"siren={cfg.siren}, "
             f"fast_sin={cfg.fast_sin}, compute_dtype={cfg.compute_dtype!r}, "
             f"encoding {cfg.xyz_in_dim}); this model runs with the fused "
             f"kernels off")
@@ -202,13 +251,29 @@ def check_kernel_inputs(cfg: ModelConfig, packed: Dict, x: torch.Tensor):
         raise ValueError(f"x must be a contiguous f32 CUDA tensor (n, {LANE})"
                          f" with n % {TILE_N} == 0, got {x.dtype} "
                          f"{tuple(x.shape)} on {x.device}")
+    split = split_operands(cfg)
+    for k, kp in PLANE_KEYS.items():
+        if split and (kp not in packed or tuple(packed[kp].shape)
+                      != (2,) + tuple(packed[k].shape)):
+            raise ValueError(f"packed {kp} must hold the hi and lo planes "
+                             f"of {k} (split_planes) at compute_dtype "
+                             f"float32")
     for k, v in packed.items():
+        if k in PLANE_KEYS.values() and not split:
+            continue
         if v.device != x.device or not v.is_contiguous():
             raise ValueError(f"packed {k} must be contiguous on {x.device}")
-        want = (torch.bfloat16 if k in ("w0", "w_mid", "w_skip")
-                else torch.float32)
+        want = (torch.bfloat16 if k in PLANE_KEYS.values()
+                or (k in PLANE_KEYS and not split) else torch.float32)
         if v.dtype != want:
             raise ValueError(f"packed {k} is {v.dtype}, need {want}")
+
+
+def trunk_weight_ptrs(cfg: ModelConfig, packed: Dict):
+    """The data pointers of w0, w_mid and w_skip that the kernels stream:
+    the bf16 weights, or at float32 their hi and lo planes."""
+    keys = (PLANE_KEYS.values() if split_operands(cfg) else PLANE_KEYS)
+    return tuple(packed[k].data_ptr() for k in keys)
 
 
 def _trunk_sigma_cuda(packed: Dict, cfg: ModelConfig, x: torch.Tensor,
@@ -218,13 +283,13 @@ def _trunk_sigma_cuda(packed: Dict, cfg: ModelConfig, x: torch.Tensor,
     sigma = torch.empty(n, dtype=torch.float32, device=x.device)
     feats = (torch.empty(n, FEAT, dtype=torch.float32, device=x.device)
              if want_feats else None)
+    w0, w_mid, w_skip = trunk_weight_ptrs(cfg, packed)
     TRUNK_SIGMA(
-        x.data_ptr(), n, packed["w0"].data_ptr(), packed["b0"].data_ptr(),
-        packed["w_mid"].data_ptr(), packed["b_mid"].data_ptr(),
-        packed["w_skip"].data_ptr(), packed["b_skip"].data_ptr(),
+        x.data_ptr(), n, w0, packed["b0"].data_ptr(), w_mid,
+        packed["b_mid"].data_ptr(), w_skip, packed["b_skip"].data_ptr(),
         packed["w_sigma"].data_ptr(), packed["b_sigma"].data_ptr(),
         sigma.data_ptr(), None if feats is None else feats.data_ptr(),
-        cfg.layers, cfg.skips[0],
+        cfg.layers, cfg.skips[0], int(split_operands(cfg)),
         torch.cuda.current_stream(x.device).cuda_stream)
     return sigma, feats
 

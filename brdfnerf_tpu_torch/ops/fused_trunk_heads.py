@@ -44,12 +44,12 @@ from ..config import ModelConfig
 from .cuda_build import CudaKernel
 from .fused_mlp import (FEAT, LANE, TILE_N, _round_up, check_kernel_inputs,
                         kernel_supports, pack_trunk_weights, pad_rows_lanes,
-                        weight_dtype)
+                        split_operands, weight_dtype)
 from .fused_trunk_vjp import (_act_all, _bwd_primal_tangent, _forward_chain,
                               _grad_chain, _mm, _mm_t, _outer, _pack_params,
                               _reverse_sweep, _saved_dtype, _split_skip,
                               _unpack_grads,
-                              encode_with_jacobian, fwd_scratch,
+                              encode_with_jacobian, fwd_scratch, saved_spec,
                               trunk_params, wgrad_scratch)
 
 HEAD_COLS = 8       # packed logits: sigma, rgb x3, k, theta, rhoc, pad
@@ -65,11 +65,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 TRUNK_HEADS_FWD = CudaKernel(
     "trunk_heads_fwd", "trunk_heads_fwd_launch",
-    [_P, _I, _I] + [_P] * 8 + [_P] * 10 + [_P] * 4 + [_I, _I, _P])
+    [_P, _I, _I] + [_P] * 8 + [_P] * 10 + [_P] * 4 + [_I, _I, _I, _P])
 TRUNK_HEADS_BWD = CudaKernel(
     "trunk_heads_bwd", "trunk_heads_bwd_launch",
     [_P] * 5 + [_I, _I] + [_P] * 5 + [_P] * 8 + [_P] * 7 + [_I, _I, _I]
-    + [_P] * 4 + [_P] * 17 + [_I, _I, _P])
+    + [_P] * 4 + [_P] * 17 + [_I, _I, _I, _P])
 
 
 def heads_kernel_supports(cfg: ModelConfig, net, dirs=None, t_emb=None,
@@ -77,7 +77,13 @@ def heads_kernel_supports(cfg: ModelConfig, net, dirs=None, t_emb=None,
                           nr_lr: bool = False) -> bool:
     """True when the head set is exactly the flagship's: RPV(111) at
     dim_rpv 1, rgb on the features alone (no view dirs), analytic-only
-    normals, no sun_v / sky heads (pallas_trunk_heads.py:73-102)."""
+    normals, no sun_v / sky heads (pallas_trunk_heads.py:73-102).  On a
+    CUDA run at compute_dtype float32 it is False: K4 and K5 take bf16
+    operands only (their f32 instantiations are ROADMAP Queue 2 item 3),
+    so K2 and K3 run in their place."""
+    if (split_operands(cfg) and "fc_net" in net
+            and net["fc_net"][0].w.device.type == "cuda"):
+        return False
     if not (kernel_supports(cfg) and apply_brdf and not apply_theta
             and cfg.rpv and cfg.func_m and cfg.func_f and cfg.func_h == 1
             and cfg.dim_rpv == 1 and not nr_lr
@@ -270,22 +276,30 @@ def check_head_weights(cfg: ModelConfig, hw: Dict, x: torch.Tensor):
                              f"{tuple(v.shape)} on {v.device}")
 
 
+def check_bf16_operands(cfg: ModelConfig):
+    """K4 and K5 multiply bf16 operands; at float32 they raise."""
+    if split_operands(cfg):
+        raise ValueError(
+            "K4 and K5 take bf16 operands (compute_dtype bfloat16 or "
+            "bfloat16_all); at float32 K2 and K3 run in their place "
+            "(heads_kernel_supports)")
+
+
 def _trunk_heads_fwd_cuda(packed: Dict, hw: Dict, cfg: ModelConfig, x,
                           want_zs: bool = False):
-    """K4: (out (n, 8), gx (n, LANE), zs): with want_zs, zs (n, L*F) bf16,
-    the residual K5 reads, else None."""
+    """K4: (out (n, 8), gx (n, LANE), zs): with want_zs, zs as saved_spec
+    (bf16 under bfloat16_all, f32 under bfloat16), the residual K5 reads,
+    else None."""
+    check_bf16_operands(cfg)
     check_kernel_inputs(cfg, packed, x)
     check_head_weights(cfg, hw, x)
-    if want_zs and cfg.compute_dtype != "bfloat16_all":
-        raise ValueError(
-            "K4 saves zs in bf16, the bfloat16_all contract; "
-            f"compute_dtype={cfg.compute_dtype!r} saves it in f32, which "
-            "the CUDA kernels do not take")
     n, dev = x.shape[0], x.device
     out = torch.empty(n, HEAD_COLS, dtype=torch.float32, device=dev)
     gx = torch.empty(n, LANE, dtype=torch.float32, device=dev)
-    zs = (torch.empty(n, cfg.layers * FEAT, dtype=torch.bfloat16,
-                      device=dev) if want_zs else None)
+    zs = None
+    if want_zs:
+        shape, dt = saved_spec(cfg, n)
+        zs = torch.empty(shape, dtype=dt, device=dev)
     n_blocks, scratch = fwd_scratch(n, cfg.layers, True, dev)
     TRUNK_HEADS_FWD(
         x.data_ptr(), n, n_blocks,
@@ -295,21 +309,23 @@ def _trunk_heads_fwd_cuda(packed: Dict, hw: Dict, cfg: ModelConfig, x,
         *(hw[k].data_ptr() for k in ("wf", "bf", "w1r", "b1r", "w2r", "b2r",
                                      "w1p", "b1p", "w2p", "b2p")),
         out.data_ptr(), gx.data_ptr(), scratch.data_ptr(),
-        None if zs is None else zs.data_ptr(), cfg.layers, cfg.skips[0],
-        torch.cuda.current_stream(dev).cuda_stream)
+        None if zs is None else zs.data_ptr(),
+        int(zs is not None and zs.dtype == torch.float32), cfg.layers,
+        cfg.skips[0], torch.cuda.current_stream(dev).cuda_stream)
     return out, gx, zs
 
 
 def check_bwd_h_inputs(cfg: ModelConfig, packed: Dict, hw: Dict, x, cot, cg,
                        zs):
     """What K5 takes; anything else raises.  It takes no u chain: it
-    rebuilds it from zs."""
+    rebuilds it from zs, taken as saved_spec."""
+    check_bf16_operands(cfg)
     check_kernel_inputs(cfg, packed, x)
     check_head_weights(cfg, hw, x)
-    n, lf = x.shape[0], cfg.layers * FEAT
+    n = x.shape[0]
     want = {"cot": (cot, (n, HEAD_COLS), torch.float32),
             "cg": (cg, (n, LANE), torch.float32),
-            "zs": (zs, (n, lf), torch.bfloat16)}
+            "zs": (zs,) + saved_spec(cfg, n)}
     for k, (v, shape, dt) in want.items():
         if v is None or not (v.device == x.device and v.is_contiguous()
                              and tuple(v.shape) == shape and v.dtype == dt):
@@ -365,8 +381,8 @@ def _trunk_heads_bwd_cuda(packed: Dict, hw: Dict, cfg: ModelConfig, x, cot,
                                      "b1p", "w2p")),
         *(v.data_ptr() for v in scratch), splits_t, splits_h, wpart.shape[0],
         *(v.data_ptr() for v in head_ops), *(v.data_ptr() for v in trunk),
-        *(v.data_ptr() for v in heads), layers, cfg.skips[0],
-        torch.cuda.current_stream(dev).cuda_stream)
+        *(v.data_ptr() for v in heads), int(zs.dtype == torch.float32),
+        layers, cfg.skips[0], torch.cuda.current_stream(dev).cuda_stream)
     if scratch_out is not None:
         scratch_out.update(zip(("xt", "hth", "azbtz", "part", "pbs"), scratch))
         scratch_out.update(zip(("hl", "xfb", "axf", "cz1"), head_ops))

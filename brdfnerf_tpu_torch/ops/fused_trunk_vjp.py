@@ -28,7 +28,10 @@ On a CUDA tensor `_run_fwd` launches kernel K2 (csrc/trunk_fwd_grad.cu) and
 `_run_bwd` kernel K3 (csrc/trunk_bwd.cu); on a CPU tensor they run
 `_trunk_fwd_grad_plain` and `_trunk_bwd_plain`, the plain twins of the
 Pallas kernels' arithmetic.  `TrunkCore` is the autograd Function around the
-pair.
+pair.  At compute_dtype float32 the kernels run every product as three on
+the bf16 terms of its f32 operands (fused_mlp.split3_mm);
+`_trunk_fwd_grad_split` and `_trunk_bwd_split` are that arithmetic in plain
+PyTorch, for the tests.
 """
 
 from __future__ import annotations
@@ -45,18 +48,22 @@ from .cuda_build import CudaKernel
 from .fast_math import _C1, _C3, _C5, _C7, _C9, _TWO_PI, _INV_2PI
 from .fused_mlp import (FEAT, LANE, TILE_N, _round_up,
                         check_kernel_inputs, pack_trunk_weights,
-                        pad_rows_lanes, weight_dtype)
+                        pad_rows_lanes, split3_mm, split_operands,
+                        trunk_weight_ptrs, weight_dtype)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 TRUNK_FWD_GRAD = CudaKernel(
     "trunk_fwd_grad", "trunk_fwd_grad_launch",
     [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P,
-     _P, _I, _I, _P])
+     _P, _I, _I, _I, _I, _P])
 TRUNK_BWD = CudaKernel(
     "trunk_bwd", "trunk_bwd_launch",
     [_P, _P, _P, _I, _P, _P, _P, _I, _I] + [_P] * 12 + [_I, _I]
-    + [_P] * 9 + [_I, _I, _P])
+    + [_P] * 9 + [_I, _I, _I, _I, _P])
+# the operand "dtype" of the split kernels' plain emulation: every product
+# as fused_mlp.split3_mm
+SPLIT3 = "split3"
 
 # The weight-gradient kernel of K3 and K5 (csrc/trunk_bwd.cuh): output
 # tiles of WGRAD_M x WGRAD_N, the K axis (points) in chunks of WGRAD_CHUNK,
@@ -67,6 +74,12 @@ WGRAD_M, WGRAD_N, WGRAD_CHUNK = 128, 256, 64
 # picks the fastest of those measured, 2 slices (one wave of 120 blocks)
 # for K3 and (9, 5) for K5 at the training step's 131,072 points
 WGRAD_TAIL = 48
+# the float32 instantiation's cap on the chunks one accumulator sums: the
+# tensor cores' f32 accumulation loses precision with the length of K, and
+# K3's dW_0 at 131,072 points in slices of at most 128 chunks sits within
+# 1e-5 of the f64 sum of its own products, where one slice of the whole K
+# misses it by over 1e-3 (tools/f32_check.py --wgrad; PERF.md §6)
+WGRAD_F32_CHUNKS = 128
 
 
 def wgrad_tiles(layers: int, heads: bool = False):
@@ -87,15 +100,19 @@ def wgrad_slices(chunks: int, splits: int):
 
 @functools.lru_cache(maxsize=None)
 def wgrad_splits(n_rows: int, layers: int, heads: bool = False,
-                 sms: int = 132):
-    """(splits of the trunk's K = 2 n, splits of the heads' K = n; 0
-    without heads) that minimise the weight-gradient kernel's time in a
-    model of whole waves: ceil(blocks / sms) waves, each as long as the
-    longest slice plus WGRAD_TAIL.  Ties go to fewer blocks."""
-    ct, ch = 2 * n_rows // WGRAD_CHUNK, n_rows // WGRAD_CHUNK
+                 sms: int = 132, split: bool = False):
+    """(splits of the trunk's K = 2 n (split: 3 x 2 n, the three products
+    of the hi and lo planes), splits of the heads' K = n; 0 without heads)
+    that minimise the weight-gradient kernel's time in a model of whole
+    waves: ceil(blocks / sms) waves, each as long as the longest slice plus
+    WGRAD_TAIL.  Ties go to fewer blocks.  With split, no slice of the
+    trunk holds more than WGRAD_F32_CHUNKS chunks."""
+    ct = (3 if split else 1) * 2 * n_rows // WGRAD_CHUNK
+    ch = n_rows // WGRAD_CHUNK
     tt, th = wgrad_tiles(layers, heads)
+    least = -(-ct // WGRAD_F32_CHUNKS) if split else 1
     best = None
-    for st in range(1, min(ct, 64) + 1):
+    for st in range(least, min(ct, least + 63) + 1):
         for sh in range(1, min(ch, 64) + 1) if heads else (0,):
             blocks = tt * st + th * sh
             longest = max(-(-ct // st), -(-ch // sh) if sh else 0)
@@ -128,18 +145,31 @@ def _act_all(z, w0: float, siren: bool, fast: bool, want_d2: bool = False):
 
 
 def _mm(a, w, od):
-    """a @ w.T with both operands rounded to od, f32 accumulation."""
+    """a @ w.T with both operands rounded to od, f32 accumulation (od
+    SPLIT3: split3_mm)."""
+    if od == SPLIT3:
+        return split3_mm(a, w.t())
     return a.to(od).float() @ w.to(od).float().t()
 
 
 def _mm_t(a, w, od):
     """a @ w: the reverse products (w in (out, in) layout)."""
+    if od == SPLIT3:
+        return split3_mm(a, w)
     return a.to(od).float() @ w.to(od).float()
 
 
 def _outer(a, b, od):
     """a.T @ b: (n, M), (n, N) -> (M, N), operands rounded to od."""
+    if od == SPLIT3:
+        return split3_mm(a.t(), b)
     return a.to(od).float().t() @ b.to(od).float()
+
+
+def _vec_od(od):
+    """The operand dtype of the sigma head's products (against w_sigma):
+    the split kernels take them in f32 on the CUDA cores."""
+    return torch.float32 if od == SPLIT3 else od
 
 
 def _w0_of(i: int) -> float:
@@ -153,15 +183,22 @@ def _saved_dtype(cfg: ModelConfig) -> torch.dtype:
             else torch.float32)
 
 
+def saved_spec(cfg: ModelConfig, n: int):
+    """(shape, dtype) of the zs / us the CUDA wrappers allocate (K2, K4)
+    and take (K3, K5) for n rows: _saved_dtype's, as the twins save them."""
+    return (n, cfg.layers * FEAT), _saved_dtype(cfg)
+
+
 def _split_skip(packed: Dict):
     ein_p = packed["w0"].shape[1]
     return packed["w_skip"][:, :ein_p], packed["w_skip"][:, ein_p:]
 
 
-def _forward_chain(packed: Dict, cfg: ModelConfig, x: torch.Tensor):
+def _forward_chain(packed: Dict, cfg: ModelConfig, x: torch.Tensor, od=None):
     """The Pallas _forward_chain: (h_{L-1} (n, F) f32, act'(z_l) and z_l of
-    every layer, zsig (n,))."""
-    od = weight_dtype(cfg)
+    every layer, zsig (n,)).  od: the products' operand dtype (default
+    weight_dtype(cfg); SPLIT3 the split kernels')."""
+    od = weight_dtype(cfg) if od is None else od
     layers, skip = cfg.layers, cfg.skips[0]
     w_top, w_bot = _split_skip(packed)
     d1s, zs = [], []
@@ -178,17 +215,19 @@ def _forward_chain(packed: Dict, cfg: ModelConfig, x: torch.Tensor):
         h, d1 = _act_all(z, _w0_of(i), cfg.siren, cfg.fast_sin)
         d1s.append(d1)
         zs.append(z)
-    zsig = _mm(h, packed["w_sigma"][None, :], od)[:, 0] + packed["b_sigma"]
+    zsig = (_mm(h, packed["w_sigma"][None, :], _vec_od(od))[:, 0]
+            + packed["b_sigma"])
     return h, d1s, zs, zsig
 
 
-def _grad_chain(packed: Dict, cfg: ModelConfig, zsig, d1s):
+def _grad_chain(packed: Dict, cfg: ModelConfig, zsig, d1s, od=None):
     """The Pallas _grad_chain with collect: (gx (n, Ein_p), the chain state
     u_l seen at every layer l, before the act' multiply)."""
-    od = weight_dtype(cfg)
+    od = weight_dtype(cfg) if od is None else od
     layers, skip = cfg.layers, cfg.skips[0]
     w_top, w_bot = _split_skip(packed)
-    u = _mm_t(torch.sigmoid(zsig)[:, None], packed["w_sigma"][None, :], od)
+    u = _mm_t(torch.sigmoid(zsig)[:, None], packed["w_sigma"][None, :],
+              _vec_od(od))
     us = [None] * layers
     us[layers - 1] = u
     gx = None
@@ -211,16 +250,16 @@ def _grad_chain(packed: Dict, cfg: ModelConfig, zsig, d1s):
 
 
 def _trunk_fwd_grad_plain(packed: Dict, cfg: ModelConfig, x: torch.Tensor,
-                          want_zs: bool = False):
+                          want_zs: bool = False, od=None):
     """Plain twin of K2: the Pallas _forward_chain + _grad_chain, every
     product on operands cast to the compute dtype with f32 accumulation.
     Returns (sigma (n,), feats (n, F), gx (n, Ein_p)), plus zs and us
     (n, L*F) in the saved dtype with want_zs: the pre-activation z_i and
     the chain state u_i seen at layer i (before the act' multiply)."""
-    h, d1s, zs, zsig = _forward_chain(packed, cfg, x)
+    h, d1s, zs, zsig = _forward_chain(packed, cfg, x, od)
     sigma = torch.logaddexp(zsig, torch.zeros_like(zsig))
     feats = h.to(_saved_dtype(cfg))
-    gx, us = _grad_chain(packed, cfg, zsig, d1s)
+    gx, us = _grad_chain(packed, cfg, zsig, d1s, od)
     if not want_zs:
         return sigma, feats, gx
     sd = _saved_dtype(cfg)
@@ -228,17 +267,26 @@ def _trunk_fwd_grad_plain(packed: Dict, cfg: ModelConfig, x: torch.Tensor,
             torch.cat(us, 1).to(sd))
 
 
-def _trunk_bwd_plain(packed: Dict, cfg: ModelConfig, x, cs, cf, cg, zs, us):
+def _trunk_fwd_grad_split(packed: Dict, cfg: ModelConfig, x: torch.Tensor,
+                          want_zs: bool = False):
+    """K2's float32 arithmetic in plain PyTorch, for the tests: the twin
+    with every trunk product as split3_mm and the sigma head in f32."""
+    return _trunk_fwd_grad_plain(packed, cfg, x, want_zs, od=SPLIT3)
+
+
+def _trunk_bwd_plain(packed: Dict, cfg: ModelConfig, x, cs, cf, cg, zs, us,
+                     od=None):
     """Plain twin of K3, the Pallas _bwd_kernel (pallas_trunk_vjp.py:240-338)
     in the same expression order.  x, cg (n, Ein_p) f32, cs (n,) f32, cf
     (n, F), zs/us (n, L*F).  Returns the packed weight grads in (in, out)
     layout: (dw0 (Ein_p, F), db0 (F,), dwm (L-2, F, F), dbm (L-2, F),
     dwst (Ein_p, F), dwsb (F, F), dbs (F,), dwsig (F,), dbsig (1,))."""
-    od = weight_dtype(cfg)
+    od = weight_dtype(cfg) if od is None else od
+    vo = _vec_od(od)
     feat = cfg.feat
     wsig = packed["w_sigma"][None, :]
     hs, d1s, d2s, zsig, tzs, ths, tzsig = _bwd_primal_tangent(packed, cfg,
-                                                              cg, zs)
+                                                              cg, zs, od)
     bths = [us[:, i * feat:(i + 1) * feat].float() for i in range(cfg.layers)]
 
     # head cotangents
@@ -246,18 +294,24 @@ def _trunk_bwd_plain(packed: Dict, cfg: ModelConfig, x, cs, cf, cg, zs, us):
     sp2 = sp1 * (1.0 - sp1)
     a_z = (cs * sp1 + sp2 * tzsig)[:, None]
     b_tz = sp1[:, None]
-    dwsig = (_outer(hs[-1], a_z, od) + _outer(ths[-1], b_tz, od))[:, 0]
+    dwsig = (_outer(hs[-1], a_z, vo) + _outer(ths[-1], b_tz, vo))[:, 0]
     dbsig = torch.sum(a_z, 0)
-    a_h = _mm_t(a_z, wsig, od) + cf.float()
+    a_h = _mm_t(a_z, wsig, vo) + cf.float()
     return _reverse_sweep(packed, cfg, x, cg, hs, d1s, d2s, tzs, ths, a_h,
-                          bths=bths) + (dwsig, dbsig)
+                          bths=bths, od=od) + (dwsig, dbsig)
 
 
-def _bwd_primal_tangent(packed: Dict, cfg: ModelConfig, cg, zs):
+def _trunk_bwd_split(packed: Dict, cfg: ModelConfig, x, cs, cf, cg, zs, us):
+    """K3's float32 arithmetic in plain PyTorch, for the tests: the twin
+    with every trunk product as split3_mm and the sigma head in f32."""
+    return _trunk_bwd_plain(packed, cfg, x, cs, cf, cg, zs, us, od=SPLIT3)
+
+
+def _bwd_primal_tangent(packed: Dict, cfg: ModelConfig, cg, zs, od=None):
     """The backward kernels' prologue: h, act', act'' of every layer from
     the saved zs, zsig, and the tangent forward seeded by t = c_g (tz_l,
     th_l, tzsig)."""
-    od = weight_dtype(cfg)
+    od = weight_dtype(cfg) if od is None else od
     layers, skip, feat = cfg.layers, cfg.skips[0], cfg.feat
     w_top, w_bot = _split_skip(packed)
     wsig = packed["w_sigma"][None, :]
@@ -268,7 +322,7 @@ def _bwd_primal_tangent(packed: Dict, cfg: ModelConfig, cg, zs):
         hs.append(h)
         d1s.append(d1)
         d2s.append(d2)
-    zsig = _mm(hs[-1], wsig, od)[:, 0] + packed["b_sigma"]
+    zsig = _mm(hs[-1], wsig, _vec_od(od))[:, 0] + packed["b_sigma"]
 
     # tangent forward, seeded by t = c_g
     tzs, ths = [], []
@@ -285,18 +339,18 @@ def _bwd_primal_tangent(packed: Dict, cfg: ModelConfig, cg, zs):
         th = d1s[i] * tz
         tzs.append(tz)
         ths.append(th)
-    tzsig = _mm(th, wsig, od)[:, 0]
+    tzsig = _mm(th, wsig, _vec_od(od))[:, 0]
     return hs, d1s, d2s, zsig, tzs, ths, tzsig
 
 
 def _reverse_sweep(packed: Dict, cfg: ModelConfig, x, cg, hs, d1s, d2s, tzs,
-                   ths, a_h, bths=None, b_th=None):
+                   ths, a_h, bths=None, b_th=None, od=None):
     """The reverse sweep over the (primal, tangent) pairs, from the last
     layer's a_h.  The b_th states are `bths` where given (K3 loads them as
     us); otherwise they are rebuilt from the seed `b_th` as the chain runs,
     as the Pallas _bwd_kernel_h does.  Returns (dw0, db0, dwm, dbm, dwst,
     dwsb, dbs) in (in, out) layout."""
-    od = weight_dtype(cfg)
+    od = weight_dtype(cfg) if od is None else od
     layers, skip = cfg.layers, cfg.skips[0]
     w_top, w_bot = _split_skip(packed)
     dwm: List = [None] * (layers - 2)
@@ -331,34 +385,29 @@ def _reverse_sweep(packed: Dict, cfg: ModelConfig, x, cg, hs, d1s, d2s, tzs,
 def _trunk_fwd_grad_cuda(packed: Dict, cfg: ModelConfig, x: torch.Tensor,
                          want_zs: bool = False):
     check_kernel_inputs(cfg, packed, x)
-    if want_zs and cfg.compute_dtype != "bfloat16_all":
-        raise ValueError(
-            "K2 saves zs/us in bf16, the bfloat16_all contract; "
-            f"compute_dtype={cfg.compute_dtype!r} saves them in f32, which "
-            "the CUDA kernels do not take")
     n = x.shape[0]
     dev = x.device
     sigma = torch.empty(n, dtype=torch.float32, device=dev)
-    feats_bf16 = cfg.compute_dtype == "bfloat16_all"
-    feats = torch.empty(n, FEAT, device=dev, dtype=torch.bfloat16
-                        if feats_bf16 else torch.float32)
+    feats = torch.empty(n, FEAT, device=dev, dtype=_saved_dtype(cfg))
     gx = torch.empty(n, LANE, dtype=torch.float32, device=dev)
     zs = us = None
     if want_zs:
-        zs = torch.empty(n, cfg.layers * FEAT, dtype=torch.bfloat16,
-                         device=dev)
+        shape, dt = saved_spec(cfg, n)
+        zs = torch.empty(shape, dtype=dt, device=dev)
         us = torch.empty_like(zs)
     n_blocks, scratch = fwd_scratch(n, cfg.layers, False, dev)
+    w0, w_mid, w_skip = trunk_weight_ptrs(cfg, packed)
     TRUNK_FWD_GRAD(
-        x.data_ptr(), n, n_blocks, packed["w0"].data_ptr(),
-        packed["b0"].data_ptr(), packed["w_mid"].data_ptr(),
-        packed["b_mid"].data_ptr(), packed["w_skip"].data_ptr(),
-        packed["b_skip"].data_ptr(), packed["w_sigma"].data_ptr(),
-        packed["b_sigma"].data_ptr(), sigma.data_ptr(), feats.data_ptr(),
-        int(feats_bf16), gx.data_ptr(), scratch.data_ptr(),
-        None if zs is None else zs.data_ptr(),
-        None if us is None else us.data_ptr(), cfg.layers,
-        cfg.skips[0], torch.cuda.current_stream(dev).cuda_stream)
+        x.data_ptr(), n, n_blocks, w0, packed["b0"].data_ptr(), w_mid,
+        packed["b_mid"].data_ptr(), w_skip, packed["b_skip"].data_ptr(),
+        packed["w_sigma"].data_ptr(), packed["b_sigma"].data_ptr(),
+        sigma.data_ptr(), feats.data_ptr(),
+        int(feats.dtype == torch.bfloat16), gx.data_ptr(),
+        scratch.data_ptr(), None if zs is None else zs.data_ptr(),
+        None if us is None else us.data_ptr(),
+        int(zs is not None and zs.dtype == torch.float32),
+        int(split_operands(cfg)), cfg.layers, cfg.skips[0],
+        torch.cuda.current_stream(dev).cuda_stream)
     if want_zs:
         return sigma, feats, gx, zs, us
     return sigma, feats, gx
@@ -385,14 +434,15 @@ def fwd_scratch(n_rows: int, layers: int, heads: bool, dev):
 
 
 def check_bwd_inputs(cfg: ModelConfig, packed: Dict, x, cs, cf, cg, zs, us):
-    """What K3 takes; anything else raises."""
+    """What K3 takes; anything else raises.  zs/us as saved_spec."""
     check_kernel_inputs(cfg, packed, x)
-    n, lf = x.shape[0], cfg.layers * FEAT
+    n = x.shape[0]
+    zshape, zdt = saved_spec(cfg, n)
     want = {"cs": (cs, (n,), (torch.float32,)),
             "cf": (cf, (n, FEAT), (torch.bfloat16, torch.float32)),
             "cg": (cg, (n, LANE), (torch.float32,)),
-            "zs": (zs, (n, lf), (torch.bfloat16,)),
-            "us": (us, (n, lf), (torch.bfloat16,))}
+            "zs": (zs, zshape, (zdt,)),
+            "us": (us, zshape, (zdt,))}
     for k, (v, shape, dts) in want.items():
         if not (v.device == x.device and v.is_contiguous()
                 and tuple(v.shape) == shape and v.dtype in dts):
@@ -401,11 +451,12 @@ def check_bwd_inputs(cfg: ModelConfig, packed: Dict, x, cs, cf, cg, zs, us):
                              f"{tuple(v.shape)} on {v.device}")
 
 
-def wgrad_scratch(n: int, layers: int, heads: bool, dev):
+def wgrad_scratch(n: int, layers: int, heads: bool, dev, split=False):
     """(splits of the trunk, of the heads, the partial tiles' scratch) of
-    the weight-gradient kernel for n rows on `dev`."""
+    the weight-gradient kernel for n rows on `dev` (split: the float32
+    instantiation's K axis, three times as long)."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    st, sh = wgrad_splits(n, layers, heads, sms)
+    st, sh = wgrad_splits(n, layers, heads, sms, split)
     tt, th = wgrad_tiles(layers, heads)
     wpart = torch.empty(tt * st + th * sh, WGRAD_M * WGRAD_N,
                         dtype=torch.float32, device=dev)
@@ -429,25 +480,30 @@ def _trunk_bwd_cuda(packed: Dict, cfg: ModelConfig, x, cs, cf, cg, zs, us,
     n_tiles = n // TILE_N
     n_blocks = min(n_tiles,
                    torch.cuda.get_device_properties(dev).multi_processor_count)
+    split = split_operands(cfg)
     # scratch: the bf16 operands of every layer's weight-gradient product
-    # (x|t, h_prev|th_prev, a_z|b_tz), per-tile column sums of a_z and the
-    # sigma head's partial grads, each block's tangent pre-activations, and
-    # the weight-gradient blocks' partial tiles
-    xt, hth, azbtz = bf(2, n, LANE), bf(layers - 1, 2, n, F), bf(layers, 2, n, F)
+    # (x|t, h_prev|th_prev, a_z|b_tz; at float32 those planes' hi terms,
+    # then their lo terms), per-tile column sums of a_z and the sigma
+    # head's partial grads, each block's tangent pre-activations, and the
+    # weight-gradient blocks' partial tiles
+    pl = 4 if split else 2
+    xt, hth, azbtz = (bf(pl, n, LANE), bf(layers - 1, pl, n, F),
+                      bf(layers, pl, n, F))
     part, part_bs = f32(n_tiles, layers + 1, F), f32(n_tiles)
     tzs = f32(n_blocks, layers, TILE_N * F)
-    splits, _, wpart = wgrad_scratch(n, layers, False, dev)
+    splits, _, wpart = wgrad_scratch(n, layers, False, dev, split)
+    w0, w_mid, w_skip = trunk_weight_ptrs(cfg, packed)
     outs = (f32(LANE, F), f32(F), f32(layers - 2, F, F), f32(layers - 2, F),
             f32(LANE, F), f32(F, F), f32(F), f32(F), f32(1))
     TRUNK_BWD(
         x.data_ptr(), cs.data_ptr(), cf.data_ptr(),
         int(cf.dtype == torch.bfloat16), cg.data_ptr(), zs.data_ptr(),
-        us.data_ptr(), n, n_blocks, packed["w0"].data_ptr(),
-        packed["w_mid"].data_ptr(), packed["w_skip"].data_ptr(),
+        us.data_ptr(), n, n_blocks, w0, w_mid, w_skip,
         packed["w_sigma"].data_ptr(), packed["b_sigma"].data_ptr(),
         xt.data_ptr(), hth.data_ptr(), azbtz.data_ptr(), part.data_ptr(),
         part_bs.data_ptr(), tzs.data_ptr(), wpart.data_ptr(), splits,
-        wpart.shape[0], *(o.data_ptr() for o in outs), layers, cfg.skips[0],
+        wpart.shape[0], *(o.data_ptr() for o in outs),
+        int(zs.dtype == torch.float32), int(split), layers, cfg.skips[0],
         torch.cuda.current_stream(dev).cuda_stream)
     if scratch_out is not None:
         scratch_out.update(xt=xt, hth=hth, azbtz=azbtz, part=part,

@@ -37,6 +37,10 @@ card (built, variant, variant, built, ...):
                      weight slice, the weight stream a point pays in a
                      128-point block (below), with everything else as built
   identity_act       -DTRUNK_IDENTITY_ACT: the activation becomes w0 z
+  ring2              -DFWD_RING_2: a ring of two 32 KB stages where the
+                     package has four, the depth the float32 instantiation
+                     (two activation and two x tiles, hi and lo) has room
+                     for
 
 Tile height: the package's block holds one 64-point tile, one wgmma row
 block, which each of the two consumer warpgroups multiplies by its 256 of
@@ -80,7 +84,8 @@ VARIANTS = {"no_scratch": "-DFWD_NO_SCRATCH",
             "identity_act": "-DTRUNK_IDENTITY_ACT",
             "no_weight_loads": "-DFWD_NO_WEIGHT_LOADS",
             "half_weight_loads": "-DFWD_HALF_WEIGHT_LOADS",
-            "no_scratch_hints": "-DFWD_NO_SCRATCH_HINTS"}
+            "no_scratch_hints": "-DFWD_NO_SCRATCH_HINTS",
+            "ring2": "-DFWD_RING_2"}
 LIBS = {"trunk_fwd_grad": (k2, "TRUNK_FWD_GRAD"),
         "trunk_heads_fwd": (k4, "TRUNK_HEADS_FWD")}
 

@@ -58,15 +58,36 @@ the kernel pair, ops/fused_trunk_heads.py):
   7b. step check, fused heads - one step's gradients, every parameter, at
                 the weights after this run's last 8 timed steps, held as
                 in 7
+At compute_dtype float32, the CLIs' default (every product of f32
+operands as three on bf16 tensor cores), and bfloat16 (f32 zs/us):
+  3c. kernels, float32 - K1 at 327,680 and 65,536 points, K2 at 655,360,
+                K2 saving zs/us and K3 at 131,072, each twice bit-identical
+                and held to its exact-f32 twin at 1e-4 relative L2 and ten
+                times closer than the bfloat16_all kernel on the same inputs
+                (tools/f32_check.py); then at 192 points; the bfloat16
+                instantiations (K2 -> K3, K4 -> K5 on f32 zs/us) against
+                their twins at the training shape and at 192 points; times
+                of kernel, twin and the f32 (bf16) torch.matmul chain
+  5c. serving, float32 - the 3 requests: K1 2, K2 1 per chunk; a 1,024-ray
+                render against the CPU twins at a tenth of the bf16 bounds
+  6c. training, float32 - the stage-2 step (launches K1 2, K2 1, K3 1, a
+                falling loss, one step profiled), then the same step with
+                the fused kernels off (the unfused f32 autograd path)
+  7c. step check, float32 - as 7 at a tenth of its bounds, the rays set
+                aside by the f32 contract's normal error
+  6d. training, bfloat16 - 4 steps with the switch off (K2, K3) and on
+                (K4, K5), on f32 zs/us
 With the switch unset again:
   8. workflow - the two-stage workflow through the port's train CLI
                 (cli/train.main) at the flagship's width on the port's
                 synthetic AOI (build_aoi, 256 px: 2 train + 1 test image,
-                128 steps an epoch at batch 1,024): stage 1 (256 steps),
-                stage 2 handed off from stage 1's last epoch=N.npz (256
+                128 steps an epoch at batch 1,024): stage 1 (128 steps),
+                stage 2 handed off from stage 1's last epoch=N.npz (128
                 steps, the flagship heads), a resume of stage 2 for 2 steps,
-                and 16 stage-2 steps with --scan_chunk 8 against 16 with
-                --scan_chunk 1; launches per step held (K1 in stage 1; K1,
+                16 stage-2 steps with --scan_chunk 8 against 16 with
+                --scan_chunk 1, and 16 stage-2 steps with no --compute_dtype
+                (float32: its [kernels] line names K1 and K2 + K3); launches
+                per step held (K1 in stage 1; K1,
                 K2 and K3 in stage 2; validation's apart), losses falling,
                 checkpoints at the cadence (stage 2's with the RPV heads),
                 finite validation psnr / ssim / DSM MAE for every validation
@@ -86,7 +107,9 @@ With the switch unset again:
                 against the chunk loop (BRDFNERF_NO_SCAN_RENDER; outputs
                 bit-identical; wall time, rays/s, device-to-host copies and
                 host waits of each), create_dsm (a DSM, a finite MAE) and
-                brf_probe --param_probe (33 finite rows)
+                brf_probe --param_probe (33 finite rows); the eval CLI on
+                the float32 stage-2 run (K1 2 and K2 1 per chunk, its
+                [kernels] line at float32)
 Then one JSON line of every ported kernel, the card's line, and the last
 line {"ok": true, "device": {...}}.
 """
@@ -115,6 +138,8 @@ WARM_STEPS = 3          # from step 3 on every gate of bench.py holds
 TIMED_STEPS = 32        # two passes over the store
 CHECK_RAYS = 128        # rays of the whole-step kernels-vs-twins check
 CHECK_POINTS = 8        # ... at the weights after each of the last 8 steps
+MIX_STEPS = 4           # timed steps of the mixed bfloat16 runs
+UNFUSED_STEPS = 8       # ... and of the unfused float32 step (~340 ms each)
 FUSED_HEADS = "BRDFNERF_FUSED_HEADS"   # read per call by models.network
 
 
@@ -177,16 +202,18 @@ def bound_ms(flops, nbytes, peaks):
                                        else "bytes")
 
 
-# K2 and K4 are instantiations <ZS, HEADS> of one kernel template, K3's and
-# K5's kernels <HEADS>; names as the profiler gives them, demangled or not
+# K2 and K4 are instantiations <ZS, HEADS, ZF32, SPLIT> of one kernel
+# template, K3's and K5's sweep <HEADS, ZF32, SPLIT>, their weight-gradient
+# and reduce kernels <HEADS>, K1 <SPLIT>, K5's b_th chain <ZF32>; names as
+# the profiler gives them, demangled or not
 GROUPS = (("K1 trunk_sigma", ("trunk_sigma_kernel",)),
-          ("K4 trunk_heads_fwd", ("trunk_fwd_grad_kernel<true, true>",
-                                  "trunk_fwd_grad_kernel<false, true>",
+          ("K4 trunk_heads_fwd", ("trunk_fwd_grad_kernel<true, true,",
+                                  "trunk_fwd_grad_kernel<false, true,",
                                   "trunk_fwd_grad_kernelilb1elb1e",
                                   "trunk_fwd_grad_kernelilb0elb1e")),
           ("K2 trunk_fwd_grad", ("trunk_fwd_grad_kernel",)),
           ("K5 trunk_heads_bwd b_th chain", ("trunk_heads_uchain_kernel",)),
-          ("K5 trunk_heads_bwd sweep", ("trunk_bwd_sweep_kernel<true>",
+          ("K5 trunk_heads_bwd sweep", ("trunk_bwd_sweep_kernel<true,",
                                         "trunk_bwd_sweep_kernelilb1e")),
           ("K5 trunk_heads_bwd wgrad", ("trunk_bwd_wgrad_kernel<true>",
                                         "trunk_bwd_wgrad_kernelilb1e")),
@@ -406,10 +433,12 @@ def heads_kernels(rows, mcfg, net, packed, wbytes, macs, k3_flops, k3_bytes,
                                                      want_zs=True), 5),
         "plain_ms": timed(lambda: k4._trunk_heads_fwd_plain(
             packed, hw, mcfg, enc, want_zs=True), 1)}
+    rows["K4zs"]["_flops"] = k4_pt * n3
+    rows["K4zs"]["_bytes"] = (n3 * (lane * 4 + 8 * 4 + lane * 4
+                                    + mcfg.layers * feat * 2)
+                              + wbytes + hbytes)
     rows["K4zs"]["bound_ms"], rows["K4zs"]["bound_by"] = bound_ms(
-        k4_pt * n3, n3 * (lane * 4 + 8 * 4 + lane * 4
-                          + mcfg.layers * feat * 2) + wbytes + hbytes,
-        peaks)
+        rows["K4zs"]["_flops"], rows["K4zs"]["_bytes"], peaks)
     encb = enc.to(torch.bfloat16)
     hb = torch.randn(n3, feat, device="cuda", generator=gen).to(
         torch.bfloat16)
@@ -489,10 +518,13 @@ def heads_kernels(rows, mcfg, net, packed, wbytes, macs, k3_flops, k3_bytes,
     # K3's reads and writes, with the logit cotangents in place of c_feats
     # and no us, plus the head weights and their grads; K3's products plus
     # the heads' and the rebuilt u chain's (L - 1 products of F x F)
+    rows["K5"]["_flops"] = (k3_flops + (k5_head_pt + 2.0 * (mcfg.layers - 1)
+                                        * feat * feat) * n3)
+    rows["K5"]["_bytes"] = (k3_bytes - n3 * (feat * 2 + mcfg.layers * feat
+                                             * 2) + n3 * 8 * 4 + hbytes
+                            + 4 * head_grads)
     rows["K5"]["bound_ms"], rows["K5"]["bound_by"] = bound_ms(
-        k3_flops + (k5_head_pt + 2.0 * (mcfg.layers - 1) * feat * feat) * n3,
-        k3_bytes - n3 * (feat * 2 + mcfg.layers * feat * 2) + n3 * 8 * 4
-        + hbytes + 4 * head_grads, peaks)
+        rows["K5"]["_flops"], rows["K5"]["_bytes"], peaks)
     print(f"  K5 largest relative L2 against its twin {k5_rel:.3e}",
           flush=True)
 
@@ -594,6 +626,283 @@ def backward_small(n, mcfg, net, packed, points, gen, k5_draws=5):
               f"relative L2 against its twin {worst:.3e}", flush=True)
 
 
+def matmul_chains(packed, mcfg, lane):
+    """The trunk's products as torch.matmul calls in the packed weights'
+    dtype, nothing else (the kernels' yardsticks): chain_fwd(x) -> (h,
+    zsig), chain_k2(x) -> gx (chain_fwd, then the reverse chain), and
+    chain_k3(cg, azb, hth, xtb): the tangent chain, the a chain and each
+    layer's dW as [h; th]^T [a_z; b_tz] over both halves of K (azb, hth:
+    (2 n, F); xtb: [x; cg])."""
+    mids = list(packed["w_mid"])
+    w0, wskip = packed["w0"], packed["w_skip"]
+    wsig = packed["w_sigma"].to(w0.dtype)[:, None]
+
+    def chain_fwd(x):
+        h = x @ w0.t()
+        m = 0
+        for i in range(1, mcfg.layers):
+            if i == mcfg.skips[0]:
+                h = torch.cat([x, h], 1) @ wskip.t()
+            else:
+                h = h @ mids[m].t()
+                m += 1
+        return h, h @ wsig
+
+    def chain_k2(x):
+        g, _ = chain_fwd(x)
+        m = len(mids) - 1
+        gx = None
+        for i in range(mcfg.layers - 1, 0, -1):
+            if i == mcfg.skips[0]:
+                gx = g @ wskip[:, :lane]
+                g = g @ wskip[:, lane:]
+            else:
+                g = g @ mids[m]
+                m -= 1
+        return gx + g @ w0
+
+    def chain_k3(cg, azb, hth, xtb):
+        chain_fwd(cg)                               # the tangent chain
+        a = azb[:cg.shape[0]]
+        m = len(mids) - 1
+        for i in range(mcfg.layers - 1, 0, -1):     # the a chain
+            if i == mcfg.skips[0]:
+                a = a @ wskip[:, lane:]
+            else:
+                a = a @ mids[m]
+                m -= 1
+        for i in range(mcfg.layers):                # the weight grads
+            if i in (0, mcfg.skips[0]):
+                xtb.t() @ azb
+            if i > 0:
+                hth.t() @ azb
+
+    return chain_fwd, chain_k2, chain_k3
+
+
+def f32_kernels(rows, mcfg, net, points, peaks, gen, macs):
+    """Phase 3c: the float32 instantiations (every product as three on the
+    bf16 hi and lo terms of its f32 operands) of K1 at 327,680 and 65,536
+    points, K2 at 655,360, K2 saving zs/us and K3 at 131,072, each launched
+    twice bit-identical and held against its exact-f32 twin on the card
+    (TF32 off) at tools/f32_check.py's bounds, beside the bfloat16_all
+    kernel's output for the same inputs against the same twin; then the
+    same at 192 points, and the mixed bfloat16 instantiations (f32 zs/us:
+    K2 -> K3, K4 -> K5) against their twins at the training shape and at
+    192 points.  Each timed beside its twin and the torch.matmul chain of
+    the same products in f32 (TF32 off: cuBLAS SGEMM), or for the mixed
+    ones in bf16 as the bfloat16_all rows."""
+    from brdfnerf_tpu_torch.ops import fused_mlp as k1
+    from brdfnerf_tpu_torch.ops import fused_trunk_heads as k4
+    from brdfnerf_tpu_torch.ops import fused_trunk_vjp as k2
+    from brdfnerf_tpu_torch.tools import f32_check as fc
+    c32 = dc.replace(mcfg, compute_dtype="float32")
+    cmix = dc.replace(mcfg, compute_dtype="bfloat16")
+    p32 = k1.pack_trunk_weights(net, c32, torch.float32)
+    p16 = k1.pack_trunk_weights(net, mcfg, torch.bfloat16)
+    assert set(k1.PLANE_KEYS.values()) <= set(p32)
+    # the bytes the split kernels read of the weights: the hi and lo planes
+    # (the f32 weights' bytes) and the f32 vectors
+    wbytes = sum(v.numel() * v.element_size() for k, v in p32.items()
+                 if k not in k1.PLANE_KEYS)
+    feat, lane, layers = mcfg.feat, k1.LANE, mcfg.layers
+    chain_fwd, chain_k2, chain_k3 = matmul_chains(p32, mcfg, lane)
+    report = {}
+
+    def row(key, name, source, replaces, err, ms, plain_ms, library_ms,
+            flops, nbytes, label):
+        r = {"name": name, "route": "cuda", "source": source,
+             "replaces": replaces, "max_abs_err": err, "ms": ms,
+             "plain_ms": plain_ms, "library_ms": library_ms}
+        r["bound_ms"], r["bound_by"] = bound_ms(flops, nbytes, peaks)
+        if label in report:
+            r["rel_l2"] = report[label]["rel_l2"]
+            if "bf16_over_f32" in report[label]:
+                # the float32 kernel's error against the same twin, over the
+                # bfloat16_all kernel's: how many times closer it is
+                r["bf16_over_f32"] = report[label]["bf16_over_f32"]
+                r["bound_split_ms"], _ = bound_ms(3 * flops, nbytes, peaks)
+        rows[key] = r
+
+    def max_err(got, ref):
+        return max((g.float() - r.float()).abs().max().item()
+                   for g, r in zip(got, ref))
+
+    # K1: the serving pass (timed) and the training pass
+    src1, rep1 = ("brdfnerf_tpu_torch/csrc/trunk_sigma.cu",
+                  "brdfnerf_tpu/ops/pallas_mlp.py:114")
+    n1 = CHUNK * N_SAMPLES
+    for n in (n1, BATCH * N_SAMPLES):
+        enc = points(n)
+        got = k1._trunk_sigma_cuda(p32, c32, enc, False)
+        same_twice(f"K1 float32 at {n} points", got[:1],
+                   k1._trunk_sigma_cuda(p32, c32, enc, False)[:1])
+        b16 = k1._trunk_sigma_cuda(p16, mcfg, enc, False)
+        ref = k1._trunk_sigma_plain(p32, c32, enc, False)
+        label = f"K1 float32 at {n}"
+        fc.hold_f32(label, ("sigma",), got[:1], b16[:1], ref[:1], report)
+        if n == n1:
+            row("K1f32", "trunk_sigma (float32)", src1, rep1,
+                max_err(got[:1], ref[:1]),
+                timed(lambda: k1._trunk_sigma_cuda(p32, c32, enc, False), 10),
+                timed(lambda: k1._trunk_sigma_plain(p32, c32, enc, False), 2),
+                timed(lambda: chain_fwd(enc), 5), 2.0 * macs * n,
+                n * (lane * 4 + 4) + wbytes, label)
+        del enc, got, b16, ref
+
+    # K2: the serving chunk's main pass
+    src2, rep2 = ("brdfnerf_tpu_torch/csrc/trunk_fwd_grad.cu",
+                  "brdfnerf_tpu/ops/pallas_trunk_vjp.py:205")
+    k2_pt = 2.0 * (2 * macs - feat)
+    n2 = CHUNK * 2 * N_SAMPLES
+    enc = points(n2)
+    got = k2._trunk_fwd_grad_cuda(p32, c32, enc)
+    same_twice("K2 float32", got, k2._trunk_fwd_grad_cuda(p32, c32, enc))
+    b16 = k2._trunk_fwd_grad_cuda(p16, mcfg, enc)
+    ref = k2._trunk_fwd_grad_plain(p32, c32, enc)
+    fc.hold_f32(f"K2 float32 at {n2}", ("sigma", "feats", "gx"), got, b16,
+                ref, report)
+    assert got[2][:, mcfg.xyz_in_dim:].abs().max().item() == 0.0
+    err = max_err(got, ref)
+    del got, b16, ref
+    row("K2f32", "trunk_fwd_grad (float32)", src2, rep2, err,
+        timed(lambda: k2._trunk_fwd_grad_cuda(p32, c32, enc), 5),
+        timed(lambda: k2._trunk_fwd_grad_plain(p32, c32, enc), 1),
+        timed(lambda: chain_k2(enc), 3), k2_pt * n2,
+        n2 * (lane * 4 + 4 + feat * 4 + lane * 4) + wbytes,
+        f"K2 float32 at {n2}")
+    del enc
+
+    # K2 saving zs/us and K3: the training step's main pass
+    n3 = BATCH * 2 * N_SAMPLES
+    enc = points(n3)
+    got = k2._trunk_fwd_grad_cuda(p32, c32, enc, want_zs=True)
+    same_twice("K2 float32 saving zs/us", got,
+               k2._trunk_fwd_grad_cuda(p32, c32, enc, want_zs=True))
+    b16 = k2._trunk_fwd_grad_cuda(p16, mcfg, enc, want_zs=True)
+    ref = k2._trunk_fwd_grad_plain(p32, c32, enc, want_zs=True)
+    label = f"K2 float32 at {n3}, zs/us True"
+    fc.hold_f32(label, ("sigma", "feats", "gx", "zs", "us"), got, b16, ref,
+                report)
+    err = max_err(got, ref)
+    zs, us = got[3], got[4]
+    del got, b16, ref
+    zbytes = 2 * layers * feat * 4          # zs and us, f32, a point
+    row("K2zsf32", "trunk_fwd_grad (float32, saving zs/us)", src2, rep2, err,
+        timed(lambda: k2._trunk_fwd_grad_cuda(p32, c32, enc, want_zs=True),
+              5),
+        timed(lambda: k2._trunk_fwd_grad_plain(p32, c32, enc, want_zs=True),
+              1),
+        timed(lambda: chain_k2(enc), 3), k2_pt * n3,
+        n3 * (lane * 4 + 4 + feat * 4 + lane * 4 + zbytes) + wbytes, label)
+    cs, cf, cg = fc.cotangents(mcfg, n3, gen, torch.float32)
+    got = k2._trunk_bwd_cuda(p32, c32, enc, cs, cf, cg, zs, us)
+    same_twice("K3 float32", got,
+               k2._trunk_bwd_cuda(p32, c32, enc, cs, cf, cg, zs, us))
+    bf = torch.bfloat16
+    b16 = k2._trunk_bwd_cuda(p16, mcfg, enc, cs, cf.to(bf), cg, zs.to(bf),
+                             us.to(bf))
+    ref = k2._trunk_bwd_plain(p32, c32, enc, cs, cf, cg, zs, us)
+    label = f"K3 float32 at {n3}"
+    fc.hold_f32(label, fc.K3_NAMES, got, b16, ref, report)
+    err = max_err(got, ref)
+    del got, b16, ref
+    hth = torch.randn(2 * n3, feat, device="cuda", generator=gen)
+    azb = torch.randn(2 * n3, feat, device="cuda", generator=gen)
+    xtb = torch.cat([enc, cg], 0)
+    k3_flops = 2.0 * (3 * macs + (layers - 1) * feat * feat) * n3
+    grad_elems = (2 * lane * feat + (layers - 1) * feat * feat
+                  + layers * feat + feat + 1)
+    k3_bytes = (n3 * (zbytes + feat * 4 + 2 * lane * 4 + 4) + wbytes
+                + 4 * grad_elems)
+    row("K3f32", "trunk_bwd (float32)", "brdfnerf_tpu_torch/csrc/trunk_bwd.cu",
+        "brdfnerf_tpu/ops/pallas_trunk_vjp.py:240", err,
+        timed(lambda: k2._trunk_bwd_cuda(p32, c32, enc, cs, cf, cg, zs, us),
+              5),
+        timed(lambda: k2._trunk_bwd_plain(p32, c32, enc, cs, cf, cg, zs, us),
+              1),
+        timed(lambda: chain_k3(cg, azb, hth, xtb), 3), k3_flops, k3_bytes,
+        label)
+    rows["K3f32"].update(kernel_parts(lambda: k2._trunk_bwd_cuda(
+        p32, c32, enc, cs, cf, cg, zs, us)))
+    del hth, azb, xtb, zs, us
+
+    # the mixed bfloat16 contract at the training shape: bf16 operands, f32
+    # activations, zs/us saved and read in f32; checked by f32_check at the
+    # bfloat16_all instantiations' bound (relative L2 1e-2), then timed
+    # beside their twins and the bf16 chains of the bfloat16_all rows
+    fc.check_mixed(n3, report=report)
+    hw = k4.pack_head_weights(net, cmix, torch.bfloat16)
+    out = k2._trunk_fwd_grad_cuda(p16, cmix, enc, want_zs=True)
+    zs, us = out[3], out[4]
+    assert zs.dtype == us.dtype == torch.float32
+    del out
+    extra = n3 * (feat * 2 + 2 * layers * feat * 2)   # f32 feats, zs, us
+    base = rows["K2zs"]
+    row("K2zsmix", "trunk_fwd_grad (bfloat16, saving f32 zs/us)", src2,
+        rep2, None,
+        timed(lambda: k2._trunk_fwd_grad_cuda(p16, cmix, enc, want_zs=True),
+              5),
+        timed(lambda: k2._trunk_fwd_grad_plain(p16, cmix, enc, want_zs=True),
+              1), base["library_ms"], base["_flops"],
+        base["_bytes"] + extra, f"K2 bfloat16 saving f32 zs/us at {n3}")
+    base = rows["K3"]
+    row("K3mix", "trunk_bwd (bfloat16, f32 zs/us)",
+        "brdfnerf_tpu_torch/csrc/trunk_bwd.cu",
+        "brdfnerf_tpu/ops/pallas_trunk_vjp.py:240", None,
+        timed(lambda: k2._trunk_bwd_cuda(p16, cmix, enc, cs, cf, cg, zs, us),
+              5),
+        timed(lambda: k2._trunk_bwd_plain(p16, cmix, enc, cs, cf, cg, zs,
+                                          us), 1),
+        base["library_ms"], base["_flops"],
+        base["_bytes"] + n3 * (feat * 2 + 2 * layers * feat * 2),
+        f"K3 bfloat16 on f32 zs/us at {n3}")
+    del zs, us
+    out, gx, zs = k4._trunk_heads_fwd_cuda(p16, hw, cmix, enc, want_zs=True)
+    del out, gx
+    cot = torch.randn(n3, k4.HEAD_COLS, device="cuda", generator=gen)
+    cot[:, 7] = 0.0
+    src4, rep4 = ("brdfnerf_tpu_torch/csrc/trunk_heads_fwd.cu",
+                  "brdfnerf_tpu/ops/pallas_trunk_heads.py:154")
+    base = rows["K4zs"]
+    row("K4zsmix", "trunk_heads_fwd (bfloat16, saving f32 zs)", src4, rep4,
+        None,
+        timed(lambda: k4._trunk_heads_fwd_cuda(p16, hw, cmix, enc,
+                                               want_zs=True), 5),
+        timed(lambda: k4._trunk_heads_fwd_plain(p16, hw, cmix, enc,
+                                                want_zs=True), 1),
+        base["library_ms"], base["_flops"],
+        base["_bytes"] + n3 * layers * feat * 2,
+        f"K4 bfloat16 saving f32 zs at {n3}")
+    base = rows["K5"]
+    row("K5mix", "trunk_heads_bwd (bfloat16, f32 zs)",
+        "brdfnerf_tpu_torch/csrc/trunk_heads_bwd.cu",
+        "brdfnerf_tpu/ops/pallas_trunk_heads.py:185", None,
+        timed(lambda: k4._trunk_heads_bwd_cuda(p16, hw, cmix, enc, cot, cg,
+                                               zs), 5),
+        timed(lambda: k4._trunk_heads_bwd_plain(p16, hw, cmix, enc, cot, cg,
+                                                zs), 1),
+        base["library_ms"], base["_flops"],
+        base["_bytes"] + n3 * layers * feat * 2,
+        f"K5 bfloat16 on f32 zs at {n3}")
+    rows["K5mix"].update(kernel_parts(lambda: k4._trunk_heads_bwd_cuda(
+        p16, hw, cmix, enc, cot, cg, zs)))
+    for key, label in (("K2zsmix", "K2 bfloat16 saving f32 zs/us"),
+                       ("K3mix", "K3 bfloat16 on f32 zs/us"),
+                       ("K4zsmix", "K4 bfloat16 saving f32 zs"),
+                       ("K5mix", "K5 bfloat16 on f32 zs")):
+        rows[key]["max_abs_err"] = report[f"{label} at {n3}"]["max_abs"]
+    del enc, zs, cot, cs, cf, cg
+    # every instantiation again at 192 points (3 tiles: a ragged last wave)
+    fc.check_f32(192, report=report)
+    fc.check_mixed(192, report=report)
+    print("  float32 kernels: largest relative L2 against the exact twins "
+          + ", ".join(f"{k} {v['rel_l2']:.2e} ({v['bf16_over_f32']:.0f}x "
+                      f"closer than bfloat16_all)"
+                      for k, v in report.items() if "bf16_over_f32" in v),
+          flush=True)
+
+
 def make_store(n_rays: int, rng: np.random.RandomState):
     """Synthetic satellite-style rays [o(3) d(3) near far sun(3)] with their
     targets, in the layout of the JAX package's __graft_entry__._make_batch,
@@ -627,9 +936,12 @@ def make_store(n_rays: int, rng: np.random.RandomState):
 # relative precision (K2's gx lies 1.6e-3 .. 4.1e-3 in relative L2 from its
 # twin's at the trained weights)
 NORMAL_ERR = 2.0 ** -8
+# ... and the float32 contract's (the split products'): K2's gx lies ~3e-5
+# in relative L2 from its exact twin's (tools/f32_check.py), 2^-14 = 6.1e-5
+NORMAL_ERR_F32 = 2.0 ** -14
 
 
-def ill_conditioned(weights, normals, ci, cv, bound):
+def ill_conditioned(weights, normals, ci, cv, bound, normal_err=NORMAL_ERR):
     """The rays whose step gradient the bf16 contract leaves undetermined at
     `bound`.  weights (n_rays, n_samples) and normals (n_rays, n_samples,
     3) are the compositing weights and the samples' analytic normals; ci,
@@ -644,13 +956,16 @@ def ill_conditioned(weights, normals, ci, cv, bound):
     the clamp), d ln M1 / dc ~ 1 / c moves by err / c relative, so the
     ray's gradient is undetermined at `bound` where either cosine lies
     below err / bound; where one cosine is held at the clamp, M1 hardly
-    depends on the normal.  Returns a bool tensor (n_rays,)."""
+    depends on the normal.  normal_err is the contract's error in one
+    sample's normal (NORMAL_ERR: bf16's; NORMAL_ERR_F32 at float32).
+    Returns a bool tensor (n_rays,)."""
     summed = torch.sum(weights[..., None] * normals, -2)
-    err = NORMAL_ERR * weights.sum(-1) / summed.norm(dim=-1).clamp_min(1e-30)
+    err = normal_err * weights.sum(-1) / summed.norm(dim=-1).clamp_min(1e-30)
     return (ci > -err) & (cv > -err) & (torch.minimum(ci, cv) < err / bound)
 
 
-def ill_conditioned_rays(net, mcfg, rcfg, batch, draws, gates, bound):
+def ill_conditioned_rays(net, mcfg, rcfg, batch, draws, gates, bound,
+                         normal_err=NORMAL_ERR):
     """ill_conditioned on the rays of a training batch, read from `net`'s
     render with `draws` (the twins on the CPU: nothing of the kernels)."""
     from brdfnerf_tpu_torch.render.render import RenderInputs, render_rays
@@ -663,12 +978,14 @@ def ill_conditioned_rays(net, mcfg, rcfg, batch, draws, gates, bound):
         res = render_rays(net, mcfg, rcfg, inp, train=True, draws=draws)
     return ill_conditioned(res["weights_coarse"], res["normal_an_coarse"],
                            res["nr_sun_coarse"].flatten(),
-                           res["nr_vw_coarse"].flatten(), bound)
+                           res["nr_vw_coarse"].flatten(), bound, normal_err)
 
 
 # the two-stage workflow through the port's train CLI (phase 8)
 AOI_SIZE = 256          # 65,536 rays an image; 2 train + 1 test image
-WF_STEPS = 256          # two epochs of 128 steps at batch 1,024
+# one epoch of 128 steps at batch 1,024 a stage (256 until the float32
+# phases came, whose time this cut pays for in part)
+WF_STEPS = 128
 WF_SCAN_STEPS = 16
 WF_CHUNKS = 2 * -(-AOI_SIZE * AOI_SIZE // CHUNK)   # a validation's chunks
 
@@ -783,17 +1100,27 @@ def workflow(root, reset_counts, counts, bare_rays_s):
              "--nr_reg_an_lambda", "0.1", "--hs_lambda", "0.5"]
     zero = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0}
 
-    def run(label, argv, steps, want_train, want_val, profiled=False):
+    def run(label, argv, steps, want_train, want_val, profiled=False,
+            kernels=()):
         """One CLI run: the launches of its steps (validation's apart)
         against want_train, validation's against want_val per
-        validation; returns the steps' losses and learning rates."""
+        validation, and its [kernels] line naming each of `kernels`;
+        returns the steps' losses and learning rates."""
+        import contextlib
+        import io
         for k in ("loss", "lr", "val_s"):
             rec[k] = []
         rec["val"], rec["epoch_end_s"], rec["profile"] = {}, 0.0, profiled
         reset_counts()
         t0 = time.perf_counter()
-        assert cli_train.main(argv) == 0
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            assert cli_train.main(argv) == 0
         wall = time.perf_counter() - t0
+        sys.stdout.write(out.getvalue())
+        line = [ln for ln in out.getvalue().splitlines()
+                if ln.startswith("[kernels]")]
+        assert len(line) == 1 and all(k in line[0] for k in kernels), line
         launches = counts()
         n_val = len(rec["val_s"])
         train = {k: v - rec["val"].get(k, 0) for k, v in launches.items()}
@@ -918,9 +1245,25 @@ def workflow(root, reset_counts, counts, bare_rays_s):
     print(f"  scan1's loop ({WF_SCAN_STEPS} steps, profiled): device busy "
           f"{dev_s:.3f} of {wall_s:.3f} s ({dev_s / wall_s:.1%})",
           flush=True)
+
+    # stage 2 as a user who changes nothing runs it: no --compute_dtype,
+    # the CLI's default float32, handed off from stage 1; its [kernels]
+    # line names K1 and K2 + K3 (their float32 instantiations), and it
+    # launches them as stage 2 does
+    f32 = "stage2_float32"
+    default = [a for i, a in enumerate(stage2)
+               if "--compute_dtype" not in stage2[max(i - 1, 0):i + 1]]
+    assert "--compute_dtype" not in default
+    losses, _ = run(f32, default + ["--exp_name", f32, "--max_train_steps",
+                                    str(WF_SCAN_STEPS)], WF_SCAN_STEPS,
+                    {"K1": 2 * WF_SCAN_STEPS - 1, "K2": WF_SCAN_STEPS,
+                     "K3": WF_SCAN_STEPS}, val2,
+                    kernels=("compute_dtype='float32'", "K1 (the sigma-only",
+                             "K2 + K3"))
+    print(f"  {f32}: losses {[round(v, 5) for v in losses]}", flush=True)
     (ts.compute_losses, ts.Optimizer.step, Trainer.validate, Trainer.fit,
      Trainer._on_epoch_end) = saved
-    return os.path.join(logs, s2), epochs - 1
+    return os.path.join(logs, s2), epochs - 1, os.path.join(logs, f32)
 
 
 def run_cli(label, fn, argv, smi):
@@ -968,7 +1311,8 @@ def host_traffic(fn):
             "syncs": syncs}
 
 
-def eval_phase(root, run_dir, epoch, reset_counts, counts, smi, rows):
+def eval_phase(root, run_dir, epoch, reset_counts, counts, smi, rows,
+               run_f32):
     """The evaluation side through the port's CLIs on the card, on the
     workflow's stage-2 run (the flagship at bfloat16_all, 2 validation
     images of AOI_SIZE**2 rays): cli/eval.main on the last checkpoint
@@ -979,7 +1323,9 @@ def eval_phase(root, run_dir, epoch, reset_counts, counts, smi, rows):
     against the chunk loop (bit-identical; wall time, device-to-host
     copies and host waits of each), create_dsm, brf_probe --param_probe
     and convert_ckpt npz -> ckpt -> npz (bit-equal, and the converted
-    checkpoint scores the same)."""
+    checkpoint scores the same); then the eval CLI on the workflow's
+    float32 stage-2 run (run_f32, the CLIs' default dtype): K1 and K2 in
+    their float32 instantiations, and its [kernels] line says so."""
     import glob
     from brdfnerf_tpu_torch.cli import brf_probe as cli_brf
     from brdfnerf_tpu_torch.cli import convert_ckpt as cli_conv
@@ -999,16 +1345,18 @@ def eval_phase(root, run_dir, epoch, reset_counts, counts, smi, rows):
         scores["last"] = saved(*a, **k)
         return scores["last"]
 
-    def eval_run(label, run, extra, want):
+    def eval_run(label, run, extra, want, epoch_=epoch, kernels=()):
         reset_counts()
-        rc, _, seconds = run_cli(label, cli_eval.main,
-                                 ["--logs_dir", run, "--epoch_number",
-                                  str(epoch)] + extra, smi)
+        rc, text, seconds = run_cli(label, cli_eval.main,
+                                    ["--logs_dir", run, "--epoch_number",
+                                     str(epoch_)] + extra, smi)
         launches = counts()
         print(f"  {label}: launches {launches} over {WF_CHUNKS} chunks "
               f"(want {dict(zero, **want)}); {seconds:.3f} s ({smi})",
               flush=True)
         assert rc == 0 and launches == dict(zero, **want), launches
+        line = [ln for ln in text.splitlines() if ln.startswith("[kernels]")]
+        assert len(line) == 1 and all(k in line[0] for k in kernels), line
         return dict(scores["last"]), launches
 
     cli_eval.evaluate = evaluate
@@ -1092,6 +1440,18 @@ def eval_phase(root, run_dir, epoch, reset_counts, counts, smi, rows):
                               {"K1": 2 * WF_CHUNKS, "K2": WF_CHUNKS})
         print(f"  converted checkpoint {conv_ev}", flush=True)
         assert conv_ev == ev, (conv_ev, ev)
+
+        # the float32 stage-2 run (its checkpoint of epoch 0), at its own
+        # dtype: K1 twice and K2 once a chunk, float32 instantiations
+        ev32, launches = eval_run(
+            "eval, float32 run", run_f32, [],
+            {"K1": 2 * WF_CHUNKS, "K2": WF_CHUNKS}, epoch_=0,
+            kernels=("compute_dtype='float32'", "K1 (the sigma-only",
+                     "K2 (the trunk"))
+        rows["K1f32"]["launches_eval"] = launches["K1"]
+        rows["K2f32"]["launches_eval"] = launches["K2"]
+        print(f"  eval of the float32 run {ev32}", flush=True)
+        assert all(np.isfinite(v) for v in ev32.values()), ev32
     finally:
         cli_eval.evaluate = saved
 
@@ -1254,34 +1614,7 @@ def main():
     macs = trunk_macs(mcfg, ein)
     feat = mcfg.feat
     rows = {}
-    mids = list(packed["w_mid"])
-    wsig = packed["w_sigma"].to(torch.bfloat16)[:, None]
-
-    def chain_fwd(encb):
-        """The trunk's products as torch.matmul calls (bf16), nothing else."""
-        h = encb @ packed["w0"].t()
-        m = 0
-        for i in range(1, mcfg.layers):
-            if i == mcfg.skips[0]:
-                h = torch.cat([encb, h], 1) @ packed["w_skip"].t()
-            else:
-                h = h @ mids[m].t()
-                m += 1
-        return h, h @ wsig
-
-    def chain_k2(encb):
-        """chain_fwd, then the reverse chain's products."""
-        g, _ = chain_fwd(encb)
-        m = len(mids) - 1
-        gx = None
-        for i in range(mcfg.layers - 1, 0, -1):
-            if i == mcfg.skips[0]:
-                gx = g @ packed["w_skip"][:, :k1.LANE]
-                g = g @ packed["w_skip"][:, k1.LANE:]
-            else:
-                g = g @ mids[m]
-                m -= 1
-        return gx + g @ packed["w0"]
+    chain_fwd, chain_k2, chain_k3_of = matmul_chains(packed, mcfg, k1.LANE)
 
     def points(n):
         xyz = torch.rand(n, 3, device="cuda", generator=gen) * 2 - 1
@@ -1415,9 +1748,12 @@ def main():
         "plain_ms": timed(lambda: k2._trunk_fwd_grad_plain(
             packed, mcfg, enc, want_zs=True), 1)}
     k2_flops3 = 2.0 * (2 * macs - feat) * n3
+    # (the work and traffic, kept for the mixed bfloat16 rows of phase 3c)
+    rows["K2zs"]["_flops"] = k2_flops3
+    rows["K2zs"]["_bytes"] = n3 * (k1.LANE * 4 + 4 + feat * 2 + k1.LANE * 4
+                                   + 2 * mcfg.layers * feat * 2) + wbytes
     rows["K2zs"]["bound_ms"], rows["K2zs"]["bound_by"] = bound_ms(
-        k2_flops3, n3 * (k1.LANE * 4 + 4 + feat * 2 + k1.LANE * 4
-                         + 2 * mcfg.layers * feat * 2) + wbytes, peaks)
+        k2_flops3, rows["K2zs"]["_bytes"], peaks)
     encb = enc.to(torch.bfloat16)
     rows["K2zs"]["library_ms"] = timed(lambda: chain_k2(encb), 5)
 
@@ -1432,20 +1768,7 @@ def main():
     xtb = torch.cat([encb, cgb], 0)
 
     def chain_k3():
-        chain_fwd(cgb)                              # the tangent chain
-        a = azb[:n3]
-        m = len(mids) - 1
-        for i in range(mcfg.layers - 1, 0, -1):     # the a chain
-            if i == mcfg.skips[0]:
-                a = a @ packed["w_skip"][:, k1.LANE:]
-            else:
-                a = a @ mids[m]
-                m -= 1
-        for i in range(mcfg.layers):                # the weight grads
-            if i in (0, mcfg.skips[0]):
-                xtb.t() @ azb
-            if i > 0:
-                hth.t() @ azb
+        chain_k3_of(cgb, azb, hth, xtb)
 
     # work per point: the tangent forward (macs), the a chain (7 F^2), the
     # outer products of every layer's dW over (primal, tangent) (2 macs)
@@ -1467,6 +1790,7 @@ def main():
         "library_ms": timed(chain_k3, 5)}
     rows["K3"]["bound_ms"], rows["K3"]["bound_by"] = bound_ms(
         k3_flops, k3_bytes, peaks)
+    rows["K3"]["_flops"], rows["K3"]["_bytes"] = k3_flops, k3_bytes
     rows["K3"].update(kernel_parts(lambda: k2._trunk_bwd_cuda(
         packed, mcfg, enc, cs, cf, cg, zs, us)))
     heads_kernels(rows, mcfg, net, packed, wbytes, macs, k3_flops, k3_bytes,
@@ -1474,6 +1798,8 @@ def main():
     del enc, encb, cgb, hth, azb, xtb, zs, us, cs, cf, cg
     backward_small(192, mcfg, net, packed, points, gen)
     forward_small(192, mcfg, net, packed, points)
+    phase("kernels, float32")
+    f32_kernels(rows, mcfg, net, points, peaks, gen, macs)
     for r in rows.values():
         print(f"  {r['name']}: {r['ms']:.3f} ms (bound {r['bound_ms']:.3f} "
               f"by {r['bound_by']}, twin {r['plain_ms']:.1f}, matmul chain "
@@ -1510,15 +1836,17 @@ def main():
     def counts():
         return {k: v.launches for k, v in kernels.items()}
 
-    def serve(label, want):
-        """The 3 requests, launch counts checked; returns the outputs."""
+    def serve(label, want, r=None):
+        """The 3 requests through renderer r (the bfloat16_all one by
+        default), launch counts checked; returns the outputs."""
+        r = renderer if r is None else r
         reset_counts()
         torch.cuda.reset_peak_memory_stats()
         seconds, outs = [], []
         for rays in requests:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            outs.append(renderer.render_image({"rays": rays}))
+            outs.append(r.render_image({"rays": rays}))
             torch.cuda.synchronize()
             seconds.append(time.perf_counter() - t0)
         launches = counts()
@@ -1530,11 +1858,13 @@ def main():
               f"{rays_per_s:.1f} rays/s (fastest request); "
               f"{N_REQUESTS * REQ_SIDE * REQ_SIDE / sum(seconds):.1f} rays/s "
               f"(all); peak memory {peak_mem / 2**30:.2f} GiB", flush=True)
-        profile_device(lambda: renderer.render_image({"rays": requests[1]}),
-                       label)
+        profile_device(lambda: r.render_image({"rays": requests[1]}), label)
         return outs, launches
 
-    def check_served(outs):
+    def check_served(outs, r=None, scale=1.0):
+        """Outputs finite and of their shapes, and 1,024 rays against the
+        CPU twins, at the bf16 contract's bounds times `scale`."""
+        r = renderer if r is None else r
         n = REQ_SIDE * REQ_SIDE
         for out in outs:
             assert out["rgb_coarse"].shape == (n, 3)
@@ -1553,9 +1883,9 @@ def main():
         rng = torch.Generator().manual_seed(7)
         draws = {k: torch.rand(len(small), N_SAMPLES, generator=rng)
                  for k in ("z", "guided", "sun")}
-        a = dc.replace(renderer, chunk=len(small)).render_image(
+        a = dc.replace(r, chunk=len(small)).render_image(
             {"rays": small}, draws=draws)
-        cpu = dc.replace(renderer, net=copy.deepcopy(renderer.net).cpu(),
+        cpu = dc.replace(r, net=copy.deepcopy(r.net).cpu(),
                          device=torch.device("cpu"), chunk=len(small))
         b = cpu.render_image({"rays": small}, draws=draws)
         check = {}
@@ -1567,9 +1897,9 @@ def main():
         # the kernels' summation order moves the probe's depth and with it
         # the guided samples a little; the siren trunk amplifies a moved
         # sample on isolated rays
-        assert (check["depth_coarse"][0] < 1e-2
-                and check["rgb_coarse"][0] < 1e-2)
-        assert check["rgb_coarse"][1] < 0.1
+        assert (check["depth_coarse"][0] < 1e-2 * scale
+                and check["rgb_coarse"][0] < 1e-2 * scale)
+        assert check["rgb_coarse"][1] < 0.1 * scale
 
     phase("serving")
     outs, launches = serve("request", {"K1": 2 * chunks, "K2": chunks,
@@ -1593,6 +1923,24 @@ def main():
     del os.environ[FUSED_HEADS]
     del renderer, outs
 
+    # the same requests at float32, the CLIs' default compute dtype: K1 and
+    # K2 in their float32 instantiations (split products)
+    phase("serving, float32")
+    renderer32 = load_renderer(run_dir, 1, compute_dtype="float32",
+                               device="cuda")
+    assert renderer32.cfg.model.compute_dtype == "float32"
+    assert renderer32.cfg.render.use_pallas
+    assert renderer32.cfg.render.fused_trunk
+    outs, launches = serve("request, float32",
+                           {"K1": 2 * chunks, "K2": chunks, "K3": 0,
+                            "K4": 0, "K5": 0}, renderer32)
+    rows["K1f32"]["launches"] = launches["K1"]
+    rows["K2f32"]["launches"] = launches["K2"]
+    # the float32 contract's bounds, a tenth of the bf16 ones, as the step
+    # check's below (its kernels sit ~500 times closer to their twins)
+    check_served(outs, renderer32, scale=0.1)
+    del renderer32, outs
+
     rcfg, tcfg = cfg.render, cfg.train
     # the gates' epoch is one step long, so that from step WARM_STEPS on
     # every gate of the JAX package's bench.py holds (cos_irra off, ds,
@@ -1606,19 +1954,23 @@ def main():
 
     bare_rays_s = {}
 
-    def train(label, want):
-        """WARM_STEPS + TIMED_STEPS flagship steps from a fresh seeded
-        state, launch counts checked per step and a falling loss; one step
-        profiled.  Returns the weights after each of the last CHECK_POINTS
-        timed steps (the last: after all of them) and the launch counts."""
+    def train(label, want, mcfg_=None, rcfg_=None, timed_steps=TIMED_STEPS):
+        """WARM_STEPS + timed_steps flagship steps from a fresh seeded
+        state (at model config mcfg_ and render config rcfg_, the
+        bfloat16_all flagship's by default), launch counts checked per step
+        and, over 10 steps or more, a falling loss; one step profiled.
+        Returns the weights after each of the last CHECK_POINTS timed steps
+        (the last: after all of them) and the launch counts."""
+        mcfg_ = mcfg if mcfg_ is None else mcfg_
+        rcfg_ = rcfg if rcfg_ is None else rcfg_
         batcher = DeviceRayBatcher(
             make_store(STORE_BATCHES * BATCH, np.random.RandomState(0)),
             BATCH, seed=0, device="cuda")
         spe = batcher.steps_per_epoch
         assert spe == STORE_BATCHES
-        state, optimizer = ts.create_train_state(mcfg, tcfg, spe, seed=0,
+        state, optimizer = ts.create_train_state(mcfg_, tcfg, spe, seed=0,
                                                  device="cuda")
-        step = ts.make_fused_train_step(mcfg, rcfg, tcfg, optimizer, sched)
+        step = ts.make_fused_train_step(mcfg_, rcfg_, tcfg, optimizer, sched)
         seed = 0
 
         def one_step(state):
@@ -1631,20 +1983,20 @@ def main():
         reset_counts()
         torch.cuda.reset_peak_memory_stats()
         step_ms, losses, trained = [], [], []
-        for i in range(TIMED_STEPS):
+        for i in range(timed_steps):
             t0 = time.perf_counter()
             state, m = one_step(state)
             torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - t0) * 1e3)
             losses.append(float(m["loss"]))
-            if i >= TIMED_STEPS - CHECK_POINTS:
+            if i >= timed_steps - CHECK_POINTS:
                 trained.append(copy.deepcopy(state.params))
         launches = counts()
         peak_mem = torch.cuda.max_memory_allocated()
-        print(f"  launches {launches} over {TIMED_STEPS} steps", flush=True)
-        assert launches == {k: v * TIMED_STEPS for k, v in want.items()}, \
+        print(f"  launches {launches} over {timed_steps} steps", flush=True)
+        assert launches == {k: v * timed_steps for k, v in want.items()}, \
             launches
-        assert state.step == WARM_STEPS + TIMED_STEPS
+        assert state.step == WARM_STEPS + timed_steps
         bare_rays_s[label] = BATCH * len(step_ms) / sum(step_ms) * 1e3
         print(f"  ms/step fastest {min(step_ms):.3f}, mean "
               f"{sum(step_ms) / len(step_ms):.3f}; train rays/s "
@@ -1656,10 +2008,11 @@ def main():
               f"{({k: round(float(v), 5) for k, v in m.items()})}",
               flush=True)
         assert all(np.isfinite(losses)), losses
-        first, last = np.mean(losses[:5]), np.mean(losses[-5:])
-        print(f"  loss mean of the first five timed steps {first:.5f}, of "
-              f"the last five {last:.5f}", flush=True)
-        assert last < first, (first, last)
+        if timed_steps >= 10:
+            first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+            print(f"  loss mean of the first five timed steps {first:.5f}, "
+                  f"of the last five {last:.5f}", flush=True)
+            assert last < first, (first, last)
         state, _ = one_step(state)
         profile_device(lambda: one_step(state), label)
         return trained, launches
@@ -1701,20 +2054,23 @@ def main():
                                      generator=rng),
              "sun": torch.rand(CHECK_RAYS, n_sun, generator=rng)}
 
-    def grads_on(net_, dev, rays):
+    def grads_on(net_, dev, rays, mcfg_):
         batch = {k: torch.as_tensor(v[rays], device=dev)
                  for k, v in s.items()}
         rows_ = torch.as_tensor(rays)
         net_.zero_grad(set_to_none=True)
         loss, _ = ts.compute_losses(
-            net_, mcfg, rcfg, tcfg, batch, gates,
+            net_, mcfg_, rcfg, tcfg, batch, gates,
             draws={k: v[rows_].to(dev) for k, v in draws.items()})
         loss.backward()
         return loss.item(), {k: p.grad.detach().cpu()
                              for k, p in net_.named_parameters()}
 
-    def step_check(path, nets, fwd, bwd, want):
-        """At each weights of `nets`, on the whole batch and then on its
+    def step_check(path, nets, fwd, bwd, want, mcfg_=None, bounds_=None,
+                   normal_err=NORMAL_ERR):
+        """At mcfg_ (the bfloat16_all flagship's by default) with bounds_
+        (`bounds` by default) and the contract's normal error normal_err:
+        at each weights of `nets`, on the whole batch and then on its
         well-conditioned rays: the step with every kernel; with the
         backward kernel, then both kernels of the differentiated trunk,
         swapped for their twins on the card (K1 still the kernel: it
@@ -1723,14 +2079,16 @@ def main():
         name, twin) of the pair.  Each comparison's largest relative L2 is
         held to its bound at every point (on the whole batch, those of
         whole_batch); misses go to step_failures."""
+        mcfg_ = mcfg if mcfg_ is None else mcfg_
+        bounds_ = bounds if bounds_ is None else bounds_
         for pt, net_ in enumerate(nets):
             net_cpu = copy.deepcopy(net_).cpu()
             step = WARM_STEPS + TIMED_STEPS - len(nets) + 1 + pt
             last = pt == len(nets) - 1
             bad = ill_conditioned_rays(
-                net_cpu, mcfg, rcfg, {k: torch.as_tensor(v)
-                                      for k, v in s.items()},
-                draws, gates, max(bounds.values()))
+                net_cpu, mcfg_, rcfg, {k: torch.as_tensor(v)
+                                       for k, v in s.items()},
+                draws, gates, max(bounds_.values()), normal_err)
             kept = np.flatnonzero(~bad.numpy())
             print(f"  weights after step {step}: {int(bad.sum())} of "
                   f"{CHECK_RAYS} rays ill-conditioned "
@@ -1740,22 +2098,22 @@ def main():
                     f"{path}, weights after step {step}: {len(kept)} "
                     f"well-conditioned rays < {CHECK_RAYS // 2}")
             for rays, held in ((np.arange(CHECK_RAYS), whole_batch),
-                               (kept, tuple(bounds))):
+                               (kept, tuple(bounds_))):
                 reset_counts()
-                loss_k, g_k = grads_on(net_, "cuda", rays)
+                loss_k, g_k = grads_on(net_, "cuda", rays, mcfg_)
                 assert counts() == want, counts()
                 k1_twin = (k1, "_trunk_sigma_cuda", k1._trunk_sigma_plain)
                 saved = [(m, name, getattr(m, name))
                          for m, name, _ in (fwd, bwd, k1_twin)]
                 setattr(*bwd)
-                loss_b, g_b = grads_on(net_, "cuda", rays)
+                loss_b, g_b = grads_on(net_, "cuda", rays, mcfg_)
                 setattr(*fwd)
-                loss_fb, g_fb = grads_on(net_, "cuda", rays)
+                loss_fb, g_fb = grads_on(net_, "cuda", rays, mcfg_)
                 setattr(*k1_twin)
-                loss_t, g_t = grads_on(net_, "cuda", rays)
+                loss_t, g_t = grads_on(net_, "cuda", rays, mcfg_)
                 for m, name, fn in saved:
                     setattr(m, name, fn)
-                loss_p, g_p = grads_on(net_cpu, "cpu", rays)
+                loss_p, g_p = grads_on(net_cpu, "cpu", rays, mcfg_)
                 print(f"   {len(rays)} rays: loss: kernels {loss_k:.6f}; "
                       f"backward's twin on the card {loss_b:.6f}; both "
                       f"twins on the card {loss_fb:.6f}; every twin on the "
@@ -1765,22 +2123,22 @@ def main():
                     print("    gradient norms: " + ", ".join(
                         f"{k} {v.norm().item():.3e}"
                         for k, v in g_k.items()), flush=True)
-                for label, got, ref in zip(bounds, (g_k, g_k, g_k, g_t),
+                for label, got, ref in zip(bounds_, (g_k, g_k, g_k, g_t),
                                            (g_b, g_fb, g_p, g_p)):
                     rels = {k: rel_l2(got[k], ref[k]) for k in ref}
                     worst = max(rels.values())
                     top = sorted(rels.items(), key=lambda kv: -kv[1])
                     print(f"    gradient relative L2, {label}: largest "
-                          f"{worst:.2e} (bound {bounds[label]:g}"
+                          f"{worst:.2e} (bound {bounds_[label]:g}"
                           f"{'' if label in held else ', not held'}); "
                           + ", ".join(f"{k} {v:.2e}" for k, v in (
                               rels.items() if last and len(held) > 1
                               else top[:2])), flush=True)
-                    if label in held and not worst <= bounds[label]:
+                    if label in held and not worst <= bounds_[label]:
                         step_failures.append(
                             f"{path}, weights after step {step}, "
                             f"{len(rays)} rays: {label} {worst:.3e} > "
-                            f"{bounds[label]:g} ({top[0][0]})")
+                            f"{bounds_[label]:g} ({top[0][0]})")
                 assert all(torch.isfinite(v).all() for v in g_k.values())
                 # the backward kernel moves no forward value
                 assert abs(loss_b - loss_k) <= 1e-6 * abs(loss_k), (loss_b,
@@ -1829,14 +2187,68 @@ def main():
                {"K1": 2, "K2": 0, "K3": 0, "K4": 1, "K5": 1})
     del os.environ[FUSED_HEADS], trained
 
+    # the stage-2 step at float32, the train CLI's default: K1, K2 saving
+    # f32 zs/us and K3 in their float32 instantiations; beside it the same
+    # step with the fused kernels off, the unfused f32 autograd path (what
+    # a float32 run took before they were ported)
+    phase("training, float32")
+    c32 = dc.replace(mcfg, compute_dtype="float32")
+    trained, launches = train("train step, float32",
+                              {"K1": 2, "K2": 1, "K3": 1, "K4": 0, "K5": 0},
+                              mcfg_=c32)
+    rows["K2zsf32"]["launches"] = launches["K2"]
+    rows["K3f32"]["launches"] = launches["K3"]
+    rows["K1f32"]["launches_train"] = launches["K1"]
+    phase("training, float32, unfused")
+    train("train step, float32, unfused",
+          {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0}, mcfg_=c32,
+          rcfg_=dc.replace(rcfg, use_pallas=False, fused_trunk=False),
+          timed_steps=UNFUSED_STEPS)
+    print(f"  float32 step, mean rays/s: kernels "
+          f"{bare_rays_s['train step, float32']:.1f}, unfused "
+          f"{bare_rays_s['train step, float32, unfused']:.1f} ({smi})",
+          flush=True)
+
+    phase("step check, float32")
+    # the float32 contract: the kernels' products are within ~2^-17 of
+    # exact f32 products (tools/f32_check.py: every output 5e-6 .. 3e-5 in
+    # relative L2 from its twin, ~500 times closer than the bfloat16_all
+    # kernels), so every bound is ten times tighter than the bf16 one, and
+    # the rays set aside are those whose gradient an error of
+    # NORMAL_ERR_F32 in a sample's normal leaves undetermined
+    bounds32 = {k: v / 10 for k, v in bounds.items()}
+    step_check("float32", trained,
+               (k2, "_trunk_fwd_grad_cuda", k2._trunk_fwd_grad_plain),
+               (k2, "_trunk_bwd_cuda", k2._trunk_bwd_plain),
+               {"K1": 2, "K2": 1, "K3": 1, "K4": 0, "K5": 0}, mcfg_=c32,
+               bounds_=bounds32, normal_err=NORMAL_ERR_F32)
+    del trained
+
+    # the mixed bfloat16 contract (bf16 operands, f32 activations, zs/us
+    # saved in f32), with the switch off and on: K2 -> K3, K4 -> K5
+    phase("training, bfloat16")
+    cmix = dc.replace(mcfg, compute_dtype="bfloat16")
+    _, launches = train("train step, bfloat16",
+                        {"K1": 2, "K2": 1, "K3": 1, "K4": 0, "K5": 0},
+                        mcfg_=cmix, timed_steps=MIX_STEPS)
+    rows["K2zsmix"]["launches"] = launches["K2"]
+    rows["K3mix"]["launches"] = launches["K3"]
+    os.environ[FUSED_HEADS] = "1"
+    _, launches = train("train step, bfloat16, fused heads",
+                        {"K1": 2, "K2": 0, "K3": 0, "K4": 1, "K5": 1},
+                        mcfg_=cmix, timed_steps=MIX_STEPS)
+    del os.environ[FUSED_HEADS]
+    rows["K4zsmix"]["launches"] = launches["K4"]
+    rows["K5mix"]["launches"] = launches["K5"]
+
     phase("workflow")
-    run_dir, epoch = workflow(os.path.join(tmp.name, "workflow"),
-                              reset_counts, counts,
-                              bare_rays_s["train step"])
+    run_dir, epoch, run_f32 = workflow(os.path.join(tmp.name, "workflow"),
+                                       reset_counts, counts,
+                                       bare_rays_s["train step"])
 
     phase("eval")
     eval_phase(os.path.join(tmp.name, "eval"), run_dir, epoch, reset_counts,
-               counts, smi, rows)
+               counts, smi, rows, run_f32)
 
     tmp.cleanup()
     if step_failures:
@@ -1852,7 +2264,7 @@ def main():
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "launches_train", "launches_eval",
-            "bound_split_ms",
+            "bound_split_ms", "rel_l2", "bf16_over_f32",
             "library_bf16_ms", "uchain_ms", "sweep_ms", "wgrad_ms",
             "reduce_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}

@@ -573,7 +573,7 @@ def _chip_smoke():
 def _csrc_kernels():
     """Every instantiation of every __global__ function in csrc/*.cu*, as
     (its profiler name, demangled, its mangled name lowered, its bool
-    template arguments)."""
+    template arguments, the position of its HEADS argument or None)."""
     import itertools
     import os
     import re
@@ -587,7 +587,10 @@ def _csrc_kernels():
             continue
         with open(os.path.join(csrc, f)) as fh:
             for m in pat.finditer(fh.read()):
+                params = ([p.split()[-1] for p in m.group(2).split(",")]
+                          if m.group(1) else [])
                 n_bool = m.group(2).count("bool") if m.group(1) else 0
+                heads = params.index("HEADS") if "HEADS" in params else None
                 name = m.group(3)
                 for args in itertools.product((False, True), repeat=n_bool):
                     targs = ", ".join(str(a).lower() for a in args)
@@ -596,21 +599,22 @@ def _csrc_kernels():
                     mangled = (f"_zn5trunk{len(name)}{name}"
                                + ("i" + "".join(f"lb{int(a)}e" for a in args)
                                   + "e" if args else "") + "ev")
-                    out.append((demangled, mangled, args))
+                    out.append((demangled, mangled, args, heads))
     return out
 
 
 _KERNELS = _csrc_kernels()
 
 
-@pytest.mark.parametrize("demangled,mangled,args", _KERNELS,
+@pytest.mark.parametrize("demangled,mangled,args,heads", _KERNELS,
                          ids=[k[0] for k in _KERNELS])
-def test_profile_groups_place_every_kernel(demangled, mangled, args):
+def test_profile_groups_place_every_kernel(demangled, mangled, args, heads):
     """chip_smoke.py's profile sums device time by kernel group
     (chip_smoke.GROUPS); every kernel function of csrc/ must land in a
     group of its own kernel, by the profiler's demangled name and by the
     mangled one, never in "other" -- and an instantiation with HEADS (the
-    last bool) in K4's or K5's group, without in K2's or K3's."""
+    template argument of that name) in K4's or K5's group, without in K2's
+    or K3's."""
     cs = _chip_smoke()
     for name in (demangled, mangled):
         group = cs.kernel_group(name)
@@ -618,22 +622,26 @@ def test_profile_groups_place_every_kernel(demangled, mangled, args):
         if "trunk_" in name:
             k = group.split()[0]
             assert k in ("K1", "K2", "K3", "K4", "K5"), (name, group)
-            if args:
-                assert k in (("K4", "K5") if args[-1] else ("K2", "K3")), \
+            if heads is not None:
+                assert k in (("K4", "K5") if args[heads] else ("K2", "K3")), \
                     (name, group)
 
 
 def test_profile_groups_find_the_kernels():
-    """The source scan above sees every kernel of the port: K1's, the
-    forward template's four instantiations, the backward's three kernels
-    with and without HEADS, K5's b_th chain, and the layout check's."""
+    """The source scan above sees every kernel of the port: K1's <SPLIT>,
+    the forward template's <ZS, HEADS, ZF32, SPLIT>, the backward's sweep
+    <HEADS, ZF32, SPLIT> and its weight-gradient and reduce kernels
+    <HEADS>, K5's b_th chain <ZF32>, and the layout check's (every
+    combination of the bools, the ones no launch takes included)."""
     names = {k[0].split("(")[0] for k in _KERNELS}
-    assert {"void trunk::trunk_sigma_kernel",
-            "void trunk::trunk_fwd_grad_kernel<false, false>",
-            "void trunk::trunk_fwd_grad_kernel<true, true>",
-            "void trunk::trunk_bwd_sweep_kernel<true>",
+    assert {"void trunk::trunk_sigma_kernel<true>",
+            "void trunk::trunk_fwd_grad_kernel<false, false, false, false>",
+            "void trunk::trunk_fwd_grad_kernel<true, true, true, false>",
+            "void trunk::trunk_fwd_grad_kernel<true, false, true, true>",
+            "void trunk::trunk_bwd_sweep_kernel<true, true, false>",
+            "void trunk::trunk_bwd_sweep_kernel<false, true, true>",
             "void trunk::trunk_bwd_wgrad_kernel<false>",
             "void trunk::trunk_bwd_reduce_kernel<true>",
-            "void trunk::trunk_heads_uchain_kernel",
+            "void trunk::trunk_heads_uchain_kernel<true>",
             "void trunk::sm90_check_kernel"} <= names, names
-    assert len(names) == 1 + 4 + 6 + 1 + 1
+    assert len(names) == 2 + 16 + 8 + 2 + 2 + 2 + 1
