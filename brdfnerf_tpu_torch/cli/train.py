@@ -24,8 +24,8 @@ def kernels_line(cfg, device, train: bool = True) -> str:
     """Which fused kernels the run launches, or why none: its train steps,
     or with train=False its renders (the serving instantiations, no
     backward)."""
-    from ..ops.fused_mlp import (CUDA_DTYPES, FEAT, LANE, cuda_kernels_cover,
-                                 split_operands)
+    from ..ops.fused_mlp import (CUDA_DTYPES, FEAT, LANE, act_of,
+                                 cuda_kernels_cover, split_operands)
     m, r = cfg.model, cfg.render
     if device.type != "cuda":
         return ("[kernels] none: the run is on the CPU, where the kernels' "
@@ -34,8 +34,6 @@ def kernels_line(cfg, device, train: bool = True) -> str:
         why = [w for w, bad in (
             (f"compute_dtype={m.compute_dtype!r}",
              m.compute_dtype not in CUDA_DTYPES),
-            ("a ReLU trunk (siren=0)", not m.siren),
-            ("the exact sine (fast_sin=0)", not m.fast_sin),
             (f"width {m.feat} (not {FEAT})", m.feat != FEAT),
             (f"an encoding of {m.xyz_in_dim} lanes (over {LANE})",
              m.xyz_in_dim > LANE),
@@ -43,7 +41,7 @@ def kernels_line(cfg, device, train: bool = True) -> str:
              or not 0 < m.skips[0] < m.layers or m.layers < 3)) if bad]
         return ("[kernels] none: the CUDA kernels do not cover this model ("
                 + ", ".join(why) + "), so the run takes the unfused "
-                "torch path (ROADMAP.md Queue 2 item 3)")
+                "torch path (ROADMAP.md Queue 2)")
     used = []
     if r.use_pallas:
         used.append("K1 (the sigma-only passes)")
@@ -53,13 +51,7 @@ def kernels_line(cfg, device, train: bool = True) -> str:
                         "backward)")
         else:
             used.append("K2 (the trunk with its sigma gradient)")
-        if os.environ.get("BRDFNERF_FUSED_HEADS") and split_operands(m):
-            used.append("BRDFNERF_FUSED_HEADS is set, but K4/K5 at "
-                        "compute_dtype='float32' are not ported (ROADMAP.md "
-                        "Queue 2 item 3), so "
-                        + ("K2 + K3 run" if train else "K2 runs")
-                        + " in their place")
-        elif os.environ.get("BRDFNERF_FUSED_HEADS"):
+        if os.environ.get("BRDFNERF_FUSED_HEADS"):
             used.append(("K4 + K5 in their place" if train
                          else "K4 in its place") + " where the flagship "
                         "head set runs (BRDFNERF_FUSED_HEADS)")
@@ -68,8 +60,10 @@ def kernels_line(cfg, device, train: bool = True) -> str:
                 "(--fused_trunk 0, or no analytic normals)")
     how = (" (float32: each f32 product as three on its bf16 hi and lo "
            "terms)" if split_operands(m) else "")
+    act = {"poly": "the polynomial sine", "sin": "the exact sine",
+           "relu": "ReLU"}[act_of(m)]
     return (f"[kernels] fused CUDA kernels at compute_dtype="
-            f"{m.compute_dtype!r}{how}: " + "; ".join(used))
+            f"{m.compute_dtype!r}{how}, {act}: " + "; ".join(used))
 
 
 def main(argv=None, device=None):

@@ -34,18 +34,23 @@
 //      consumers need them, every weight slice of the tile's products (TMA;
 //      K-major boxes for the forward products, MN-major boxes for the
 //      reverse a_h = a_z W, so no operand is transposed by the threads) and
-//      every epilogue's data (zs and us in 64 x 64 boxes, the tz scratch in
-//      32 KB bulk copies) through one ring of four 32 KB stages, running
-//      ahead across epilogues and tiles: the epilogues read shared memory,
-//      and their device-memory traffic overlaps the products.  Two consumer
-//      warpgroups each own 256 of the 512 output columns of every product
+//      every epilogue's saved data (zs and us in 64 x 64 boxes, K5's rebuilt
+//      b_th in 32 KB bulk copies) through one ring of four 32 KB stages,
+//      running ahead across epilogues and tiles: the epilogues read shared
+//      memory, and their device-memory traffic overlaps the products.  Two
+//      consumer warpgroups each own 256 of the 512 output columns of every
+//      product
 //      (wgmma m64n256k16, 128 f32 accumulators a thread, setmaxnreg 232)
 //      and read A from one 64 x 512 activation tile kept K-major with the
 //      128-byte swizzle, which the epilogues write in that layout; th_l,
 //      a_z_l, h_l and b_tz_l leave by TMA stores of the tile.  tz_l goes to
-//      a per-block f32 scratch and comes back through the ring: recomputing
-//      it in the reverse sweep would keep a_h and tz (256 accumulators a
-//      thread) or a 128 KB f32 tile live at once.  The sweep writes the
+//      a per-block f32 scratch and each thread reads its own elements back
+//      in the reverse sweep: recomputing it there would keep a_h and tz (256
+//      accumulators a thread) or a 128 KB f32 tile live at once.  (Through
+//      the ring, as a bulk copy of what the consumers had just stored, two
+//      launches at 131,072 points once differed in a stage's last column
+//      group; a thread reading its own writes needs no proxy fence, no
+//      barrier and no ring stage.)  The sweep writes the
 //      bf16 operands of every weight-gradient product (the Pallas _outer
 //      rounds exactly these to bf16, so nothing is lost), per-tile column
 //      sums in f32 (the biases, the sigma head's dW, and for K5 the heads'
@@ -101,10 +106,10 @@ struct BwdArgs {
   const float* bf;
   const bf16* w1r;
   const float* b1r;
-  const bf16* w2r;
+  const void* w2r;         // bf16, or f32 with split
   const bf16* w1p;
   const float* b1p;
-  const bf16* w2p;
+  const void* w2p;
   // scratch
   bf16* xt;
   bf16* hth;
@@ -126,41 +131,19 @@ struct BwdArgs {
   int split;                        // float32: the SPLIT instantiation
 };
 
-// h, act' and act'' of the polynomial sine (the JAX package's
-// pallas_trunk_vjp._act_all with want_d2, same expression order).
-__device__ __forceinline__ void act_eval2(float z, float w0, float& h,
-                                          float& d1, float& d2) {
-  const float x = w0 * z;
-#ifdef TRUNK_IDENTITY_ACT
-  h = x;
-  d1 = w0;
-  d2 = 0.f;
-#else
-  const float v = x - (float)TWO_PI * rintf(x * (float)INV_2PI);
-  const float v2 = v * v;
-  h = v * ((float)C1 +
-           v2 * ((float)C3 +
-                 v2 * ((float)C5 + v2 * ((float)C7 + v2 * (float)C9))));
-  d1 = w0 * ((float)C1 +
-             v2 * ((float)(3 * C3) +
-                   v2 * ((float)(5 * C5) +
-                         v2 * ((float)(7 * C7) + v2 * 9.f * (float)C9))));
-  d2 = (w0 * w0) * v *
-       ((float)(6 * C3) +
-        v2 * ((float)(20 * C5) +
-              v2 * ((float)(42 * C7) + v2 * 72.f * (float)C9)));
-#endif
-}
-
 // two bf16 of a read-only input (c_feats) through the non-coherent path
 __device__ __forceinline__ float2 ld_bf2(const bf16* p) {
   return __bfloat1622float2(__ldg(reinterpret_cast<const __nv_bfloat162*>(p)));
 }
 
-// The epilogues' zs, us and tz come through the ring (below).
+// float4s of tz a consumer thread loads ahead in the reverse epilogue
+constexpr int TZB = 4;
+
+// The epilogues' zs and us (K5: zs and b_th) come through the ring (below).
 // BWD_NO_EPILOGUE_LOADS (measurement only, never built by the package;
 // tools/bwd_variants.py) loads none of them and reads constants instead,
-// so that the time the epilogues spend on their data can be read off.
+// so that the time the epilogues spend on their data can be read off (tz,
+// which each thread reads back from its own scratch, stays).
 #ifdef BWD_NO_EPILOGUE_LOADS
 constexpr bool EPI_DATA = false;
 __device__ __forceinline__ float2 stage_bf2(const unsigned char*) {
@@ -203,7 +186,9 @@ __device__ __forceinline__ float col_sum(float v) {
 // is done; both double as reduction space), with SPLIT both again for the
 // lo terms (sm_lo bytes past the hi ones), the ring (weight slices and the
 // epilogues' data: four stages, SPLIT two), then barriers and per-row
-// vectors
+// vectors.  K5 SPLIT keeps K3's 64 x 128 t tile (a 64 x 256 one with its lo
+// terms is 32 KB over the limit beside the ring): its c_z1 chunks come in
+// halves of 128 columns, hi and lo, and leave from the registers
 constexpr int SM_ACT = 0;
 constexpr int SM_TS = SM_ACT + 8 * ACT_BLOCK;
 template <bool SPLIT>
@@ -216,7 +201,7 @@ __host__ __device__ constexpr int sm_ring_n() {
 }
 template <bool HEADS, bool SPLIT = false>
 __host__ __device__ constexpr int sm_ring() {
-  return SM_TS + (HEADS ? 4 : 2) * ACT_BLOCK + sm_lo<SPLIT>();
+  return SM_TS + (HEADS && !SPLIT ? 4 : 2) * ACT_BLOCK + sm_lo<SPLIT>();
 }
 template <bool HEADS, bool SPLIT = false>
 __host__ __device__ constexpr int sm_bar() {
@@ -232,8 +217,9 @@ __host__ __device__ constexpr int sweep_smem() {
          (HEADS ? T * HEAD_COLS * 4 : 0);
 }
 static_assert(sweep_smem<true>() <= 232448, "K5 sweep's shared memory");
-static_assert(sweep_smem<false, true>() <= 232448,
-              "K3 SPLIT sweep's shared memory");
+static_assert(sweep_smem<true, true>() <= 232448,
+              "K5 SPLIT sweep's shared memory");
+static_assert(4 * 2 * 4 * 128 * 4 <= 2 * ACT_BLOCK, "K5's column sums in t");
 
 // The weight tensors the sweep streams, as TMA maps: K-major boxes (32 k x
 // 256 n rows) for the forward products, MN-major boxes (32 n x 32 k) for
@@ -252,12 +238,11 @@ struct SweepMaps {
 // accumulators 32 g.. of every thread).  Forward epilogue of layer i: z of
 // the tile's 64 rows, two j-groups a stage, both warpgroups' blocks
 // (64 x 64, SW128) side by side.  Reverse epilogue: for every j-group a
-// stage of z and u (K5: z alone), then a stage of the block's tz scratch
-// of layer i (tzl: 128 accumulators x 256 threads f32, 32 of them a
-// stage), then (K5) a stage of the rebuilt b_th of layer i (ucl, in tz's
-// layout).  K5's z stage fills only half of its 32 KB (two 64 x 64 bf16
-// blocks): rebuilding b_th inside the sweep would drop the chain kernel,
-// its f32 scratch and this extra stage (not done).
+// stage of z and u (K5: z alone), then (K5) a stage of the rebuilt b_th of
+// layer i (ucl: 128 accumulators x 256 threads f32, 32 of them a stage).
+// K5's z stage fills only half of its 32 KB (two 64 x 64 bf16 blocks):
+// rebuilding b_th inside the sweep would drop the chain kernel, its f32
+// scratch and this extra stage (not done).
 template <class R>
 __device__ __forceinline__ void produce_fwd_data(const SweepMaps& maps,
                                                  int i, int row0, R& r,
@@ -278,7 +263,6 @@ __device__ __forceinline__ void produce_fwd_data(const SweepMaps& maps,
 
 template <bool HEADS, class R>
 __device__ __forceinline__ void produce_rev_data(const SweepMaps& maps,
-                                                 const float* tzl,
                                                  const float* ucl, int i,
                                                  int row0, R& r,
                                                  uint64_t* full,
@@ -293,12 +277,11 @@ __device__ __forceinline__ void produce_rev_data(const SweepMaps& maps,
                         &full[r.stage], i * F + (b & 1) * 256 + 64 * g,
                         row0);
     r.advance();
-    for (int s = 0; s < (HEADS ? 2 : 1); ++s) {
+    if (HEADS) {
       sm90::mbar_wait(&empty[r.stage], r.phase ^ 1);
       sm90::mbar_expect_tx(&full[r.stage], RING_STAGE);
-      sm90::bulk_load(ring + r.stage * RING_STAGE,
-                      (s ? ucl : tzl) + (size_t)g * 32 * NC, RING_STAGE,
-                      &full[r.stage]);
+      sm90::bulk_load(ring + r.stage * RING_STAGE, ucl + (size_t)g * 32 * NC,
+                      RING_STAGE, &full[r.stage]);
       r.advance();
     }
   }
@@ -317,25 +300,25 @@ __device__ __forceinline__ void col_finish(const float* red, float* out) {
         ((rw[c] + rw[NW + c]) + rw[2 * NW + c]) + rw[3 * NW + c];
 }
 
-// ZF32: zs and us (K5: zs) in f32 (the mixed bfloat16 and float32
-// contracts), read by the epilogues from device memory, and so are tz (each
-// thread reads back its own writes of the block's scratch, as K2 reads its
-// act'(z)) and K5's rebuilt b_th: the ring carries the weights alone, and
-// no stage of it is read by the threads.  SPLIT (K3 at
-// float32): every product as three on the hi and lo terms of its f32
-// operands (sm90_trunk.cuh consume_s), the operands of the weight
-// gradients written as hi and lo planes, nothing rounded to bf16.
+// tz: each thread reads back its own writes of the block's scratch, as K2
+// reads its act'(z).  ZF32: zs and us (K5: zs) in f32 (the mixed bfloat16
+// and float32 contracts), read by the epilogues from device memory, and so
+// is K5's rebuilt b_th: the ring carries the weights alone, and no stage
+// of it is read by the threads.  SPLIT (K3 and K5 at float32): every
+// product as three on the hi and lo terms of its f32 operands
+// (sm90_trunk.cuh consume_s), the operands of the weight gradients written
+// as hi and lo planes, nothing rounded to bf16, the heads' W_2 in f32.
 template <bool HEADS, bool ZF32, bool SPLIT>
 __global__ void __launch_bounds__(NTB, 1)
     trunk_bwd_sweep_kernel(const __grid_constant__ SweepMaps maps,
                            const BwdArgs p) {
-  static_assert(!(HEADS && SPLIT), "K5 takes bf16 operands only");
+  static_assert(!SPLIT || ZF32, "the split sweep reads f32 zs");
   constexpr int NS = sm_ring_n<SPLIT>();
   constexpr int LO = sm_lo<SPLIT>();
   // the weight-gradient operands' planes a layer slot: [x | h, t | th]
   // (SPLIT: hi, then lo)
   constexpr int PL = SPLIT ? 4 : 2;
-  // z, u, tz (K5: b_th) through the ring; otherwise from device memory
+  // z, u (K5: b_th) through the ring; otherwise from device memory
   constexpr bool ZRING = EPI_DATA && !ZF32;
   typedef RingN<NS> R;
   extern __shared__ __align__(1024) unsigned char smem[];
@@ -346,9 +329,6 @@ __global__ void __launch_bounds__(NTB, 1)
       reinterpret_cast<uint64_t*>(smem + sm_bar<HEADS, SPLIT>());
   uint64_t* empty = full + NS;
   uint64_t* cbar = empty + NS;                           // K5 chunk loads
-  // the consumers have stored tz of the last layer, which the producer
-  // loads back right away (no product lies between in K3)
-  uint64_t* tzbar = cbar + 1;
   float* row_a = reinterpret_cast<float*>(smem + sm_rows<HEADS, SPLIT>());
   float* row_b = row_a + T;
   float* rowc = row_b + T;                               // K5 only
@@ -363,7 +343,6 @@ __global__ void __launch_bounds__(NTB, 1)
       sm90::mbar_init(&empty[s], 8);     // one arrival per consumer warp
     }
     sm90::mbar_init(cbar, 1);
-    sm90::mbar_init(tzbar, 8);
     sm90::fence_barrier_init();
   }
   __syncthreads();
@@ -373,8 +352,6 @@ __global__ void __launch_bounds__(NTB, 1)
     sm90::setmaxnreg_dec<40>();
     if (tid != NC) return;
     R r = {0, 0};
-    uint32_t tz_phase = 0;
-    const float* tzb = p.tzsc + (size_t)blockIdx.x * layers * 128 * NC;
     for (int tile = blockIdx.x; tile < p.n_tiles; tile += gridDim.x) {
       const int row0 = tile * T;
       for (int i = 0; i < layers; ++i) {
@@ -391,23 +368,27 @@ __global__ void __launch_bounds__(NTB, 1)
         if (ZRING) produce_fwd_data(maps, i, row0, r, full, empty, ring);
       }
       if constexpr (HEADS) {
-        produce(&maps.wfk, false, F / KSL, 0, 0, F, r, full, empty, ring);
+        produce_s<SPLIT>(&maps.wfk, false, F / KSL, 0, 0, F, F, r, full,
+                         empty, ring);
         for (int q = 0; q < 4; ++q)
-          produce(q == 0 ? &maps.w1rk : &maps.w1pk, false, F / KSL,
-                  q == 0 ? 0 : (q - 1) * HID, 0, HID, r, full, empty, ring);
+          produce_s<SPLIT>(q == 0 ? &maps.w1rk : &maps.w1pk, false, F / KSL,
+                           q == 0 ? 0 : (q - 1) * HID, 0, HID,
+                           q == 0 ? HID : 3 * HID, r, full, empty, ring);
+        // a_xf's products: per q, the chunk's K (SPLIT: in halves)
+        constexpr int KH = SPLIT ? HID / 2 : HID;
         for (int q = 3; q >= 0; --q)
-          produce(q == 0 ? &maps.w1rm : &maps.w1pm, true, HID / KSL,
-                  q == 0 ? 0 : (q - 1) * HID, 0, F, r, full, empty, ring);
-        produce(&maps.wfm, true, F / KSL, 0, 0, F, r, full, empty, ring);
+          for (int hk = 0; hk < HID; hk += KH)
+            produce_s<SPLIT>(q == 0 ? &maps.w1rm : &maps.w1pm, true,
+                             KH / KSL, (q == 0 ? 0 : (q - 1) * HID) + hk, 0,
+                             F, q == 0 ? HID : 3 * HID, r, full, empty,
+                             ring);
+        produce_s<SPLIT>(&maps.wfm, true, F / KSL, 0, 0, F, F, r, full, empty,
+                         ring);
       }
       for (int i = last; i >= 0; --i) {
-        if (ZRING && i == last) {
-          sm90::mbar_wait(tzbar, tz_phase);
-          tz_phase ^= 1;
-        }
         if (ZRING)
           produce_rev_data<HEADS>(
-              maps, tzb + (size_t)i * 128 * NC,
+              maps,
               HEADS ? p.uc + ((size_t)tile * layers + i) * 128 * NC
                     : nullptr,
               i, row0, r, full, empty, ring);
@@ -432,7 +413,13 @@ __global__ void __launch_bounds__(NTB, 1)
   const int cb = wg * 256 + 2 * (l & 3);     // column of j = 0, e = 0
   const int row_w = (layers + 1) * F + (HEADS ? HEAD_PART : 0);
   const float* __restrict__ wsig = p.wsig;
-  float* tzb = p.tzsc + (size_t)blockIdx.x * layers * 128 * NC + tid;
+  // tz of layer l: accumulators 4j..4j+3 of consumer thread c as the
+  // float4 (l * 32 + j) * NC + c of the block's scratch (a warp writes and
+  // reads 512 contiguous bytes), streamed both ways, each thread reading
+  // back its own writes
+  float4* tzb = reinterpret_cast<float4*>(
+                    p.tzsc + (size_t)blockIdx.x * layers * 128 * NC) + tid;
+  float4 tzn[TZB];                             // the next batch of tz
   float* red = reinterpret_cast<float*>(ts);   // when ts is free
   const size_t lf = (size_t)layers * F;        // ZF32: zs / us row stride
   // the bf16 rounding of a product's operand (none with SPLIT)
@@ -493,7 +480,7 @@ __global__ void __launch_bounds__(NTB, 1)
                                      full, empty, ring, wg, leader);
       tiles_free(issuer);                      // both products read act
       const float w0s = i == 0 ? 30.f : 1.f;
-      float* tzl = tzb + (size_t)i * 128 * NC;
+      float4* tzl = tzb + (size_t)i * 32 * NC;
 #pragma unroll
       for (int j = 0; j < 32; ++j) {
         // z of rows r0 / r0 + 8 from the ring: two j-groups a stage
@@ -515,12 +502,13 @@ __global__ void __launch_bounds__(NTB, 1)
         }
         const float z4[4] = {za.x, za.y, zb.x, zb.y};
         float h4[4];
+        __stcs(tzl + j * NC, make_float4(acc[4 * j], acc[4 * j + 1],
+                                         acc[4 * j + 2], acc[4 * j + 3]));
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           float d;
           act_eval(z4[e], w0s, h4[e], d);
           const float tz = acc[4 * j + e];
-          tzl[(4 * j + e) * NC] = tz;
           const float th = d * tz;
           if (i == last) {
             const float ws = wsig[cb + 8 * j + (e & 1)];
@@ -534,11 +522,8 @@ __global__ void __launch_bounds__(NTB, 1)
         put2_s<SPLIT, LO>(act, r0, col, h4[0], h4[1]);
         put2_s<SPLIT, LO>(act, r0 + 8, col, h4[2], h4[3]);
         if (ZRING && j % 16 == 15) {
-          // tz_i is read back by TMA (produce_rev_data)
-          if (j == 31) sm90::fence_async_global();
           release(empty, r.stage);
           r.advance();
-          if (j == 31 && i == last && l == 0) sm90::mbar_arrive(tzbar);
         }
       }
       if (i < last) {
@@ -560,8 +545,10 @@ __global__ void __launch_bounds__(NTB, 1)
         sm90::fence_async_smem();
         sm90::named_sync(BAR_C, NC);
         if (HEADS && issuer) {
-          for (int b = 0; b < 8; ++b)
-            sm90::tma_store_2d(&maps.hl, act + b * ACT_BLOCK, b * 64, row0);
+          for (int pl = 0; pl < (SPLIT ? 2 : 1); ++pl)
+            for (int b = 0; b < 8; ++b)
+              sm90::tma_store_2d(&maps.hl, act + pl * LO + b * ACT_BLOCK,
+                                 b * 64, pl * p.n + row0);
           sm90::bulk_commit();
         }
       }
@@ -640,24 +627,26 @@ __global__ void __launch_bounds__(NTB, 1)
     if constexpr (HEADS) {
       float* hp_tile = pt_tile + (size_t)(layers + 1) * F;
       // ---------------------------------------- xf = h W_f^T + b_f
-      consume<256, 0>(acc, act, F, act, F / KSL, false, r, full, empty, ring,
-                      wg, leader);
+      consume_s<256, 0, SPLIT, LO>(acc, act, F, act, F / KSL, false, r, full,
+                                   empty, ring, wg, leader);
       tiles_free(issuer);            // act (h) read by both, hl stored
       const float* __restrict__ bfv = p.bf;
-      store_tile_sw<256>(act, wg * 256, [&acc, bfv, cb](int k) {
+      store_tile_s<256, SPLIT, LO>(act, wg * 256, [&acc, bfv, cb](int k) {
         return acc[k] + bfv[cb + 8 * (k >> 2) + (k & 1)];
       });
       tile_to_global(&maps.xfb, act, 8, 0, row0, issuer);
+      if (SPLIT) tile_to_global(&maps.xfb, act + LO, 8, 0, p.n + row0, issuer);
 
       // ---- the first head layers in 256-column passes (q = 0: rgb,
       // 1..3: k, theta, rho_c): c_z1 = act'(z1) (c_z2 W_2) to global, with
-      // its column sums (db_1) and the dW_2 partials h1^T c_z2
+      // its column sums (db_1) and the dW_2 partials h1^T c_z2 (SPLIT: c_z1
+      // as hi and lo planes, stored from the registers)
       float (&a64)[64] = *reinterpret_cast<float(*)[64]>(acc);
       const int cq = wg * 128 + 2 * (l & 3);   // column of j = 0 in a pass
 #pragma unroll 1
       for (int q = 0; q < 4; ++q) {
-        consume<128, 0>(a64, act, F, act, F / KSL, false, r, full, empty,
-                        ring, wg, leader);
+        consume_s<128, 0, SPLIT, LO>(a64, act, F, act, F / KSL, false, r,
+                                     full, empty, ring, wg, leader);
         tiles_free(issuer);          // the chunk's last store is read
         const float* b1 = q == 0 ? p.b1r : p.b1p + (q - 1) * HID;
         const int c2 = q == 0 ? 1 : 4;           // first c_z2 column of q
@@ -666,7 +655,7 @@ __global__ void __launch_bounds__(NTB, 1)
         for (int hf = 0; hf < 2; ++hf)
 #pragma unroll
           for (int c = 0; c < 3; ++c)
-            cc[hf][c] = bf16_round(rowc[(r0 + 8 * hf) * HEAD_COLS + c2 + c]);
+            cc[hf][c] = rnd(rowc[(r0 + 8 * hf) * HEAD_COLS + c2 + c]);
         float* qred = red;           // [4 sums][2 wg][4 warps][128]
 #pragma unroll
         for (int j = 0; j < 16; ++j) {
@@ -676,14 +665,14 @@ __global__ void __launch_bounds__(NTB, 1)
             const int col = cq + 8 * j + e2;       // 0..255 within q
             float s0 = 0.f, s1 = 0.f;   // c_z2 W_2 for rows r0, r0 + 8
             if (q == 0) {
-              const float w20 = __bfloat162float(p.w2r[col]);
-              const float w21 = __bfloat162float(p.w2r[HID + col]);
-              const float w22 = __bfloat162float(p.w2r[2 * HID + col]);
+              const float w20 = w2_at<SPLIT>(p.w2r, col);
+              const float w21 = w2_at<SPLIT>(p.w2r, HID + col);
+              const float w22 = w2_at<SPLIT>(p.w2r, 2 * HID + col);
               s0 = cc[0][0] * w20 + cc[0][1] * w21 + cc[0][2] * w22;
               s1 = cc[1][0] * w20 + cc[1][1] * w21 + cc[1][2] * w22;
             } else {    // w2p row q-1, column k - HID of the merged 768
-              const float w2 = __bfloat162float(
-                  p.w2p[(q - 1) * 3 * HID + (q - 1) * HID + col]);
+              const float w2 = w2_at<SPLIT>(
+                  p.w2p, (q - 1) * 3 * HID + (q - 1) * HID + col);
               s0 = cc[0][q - 1] * w2;
               s1 = cc[1][q - 1] * w2;
             }
@@ -694,7 +683,7 @@ __global__ void __launch_bounds__(NTB, 1)
             a64[4 * j + e2] = cz0;
             a64[4 * j + 2 + e2] = cz1v;
             sum[0][e2] = cz0 + cz1v;
-            const float hb0 = bf16_round(h[0]), hb1 = bf16_round(h[1]);
+            const float hb0 = rnd(h[0]), hb1 = rnd(h[1]);
 #pragma unroll
             for (int c = 0; c < 3; ++c)
               sum[1 + c][e2] = hb0 * cc[0][c] + hb1 * cc[1][c];
@@ -721,9 +710,27 @@ __global__ void __launch_bounds__(NTB, 1)
           }
         }
         sm90::named_sync(BAR_C, NC);             // qred read
-        store_tile_sw<128>(ts, wg * 128, [&](int k) { return a64[k]; });
-        tile_to_global(&maps.cz1, ts, 4, q * HID, row0, issuer);
+        if constexpr (SPLIT) {
+          // rows r0 / r0 + 8, columns cq + 8 j + {0, 1} of pass q, hi and
+          // lo planes; the chunk loads below read them by TMA
+#pragma unroll
+          for (int j = 0; j < 16; ++j)
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf) {
+              const float a = a64[4 * j + 2 * hf], b = a64[4 * j + 2 * hf + 1];
+              const size_t o = (grow0 + r0 + 8 * hf) * (4 * HID) + q * HID +
+                               cq + 8 * j;
+              *reinterpret_cast<uint32_t*>(p.cz1 + o) = sm90::pack_bf2(a, b);
+              *reinterpret_cast<uint32_t*>(p.cz1 + (size_t)p.n * 4 * HID +
+                                           o) =
+                  sm90::pack_bf2(a - bf16_round(a), b - bf16_round(b));
+            }
+        } else {
+          store_tile_sw<128>(ts, wg * 128, [&](int k) { return a64[k]; });
+          tile_to_global(&maps.cz1, ts, 4, q * HID, row0, issuer);
+        }
       }
+      if (SPLIT) sm90::fence_async_global();
       if (tid < 8) {
         float s = 0.f;
         if (tid < 6)
@@ -732,23 +739,33 @@ __global__ void __launch_bounds__(NTB, 1)
       }
 
       // ---- a_xf = sum_q c_z1_q W_1q, q = 3 (in the chunk) down to 0
-      // (reloaded from what the passes stored)
+      // (reloaded from what the passes stored; SPLIT: every chunk in two
+      // halves of 128 columns, each with its lo terms)
+      constexpr int KH = SPLIT ? HID / 2 : HID;
 #pragma unroll 1
       for (int q = 3; q >= 0; --q) {
-        if (q < 3) {
-          sm90::named_sync(BAR_C, NC);           // the chunk is read
-          if (issuer) {
-            sm90::bulk_wait<0>();                // c_z1 is in memory
-            sm90::mbar_expect_tx(cbar, 4 * ACT_BLOCK);
-            for (int b = 0; b < 4; ++b)
-              sm90::tma_load_2d(ts + b * ACT_BLOCK, &maps.cz1, cbar,
-                                q * HID + b * 64, row0);
+#pragma unroll 1
+        for (int hk = 0; hk < HID; hk += KH) {
+          if (SPLIT || q < 3) {
+            sm90::named_sync(BAR_C, NC);         // the chunk is read
+            if (issuer) {
+              sm90::bulk_wait<0>();              // c_z1 is in memory
+              sm90::mbar_expect_tx(cbar, 4 * ACT_BLOCK);
+              for (int b = 0; b < 4; ++b)
+                sm90::tma_load_2d(
+                    ts + (SPLIT ? (b >> 1) * LO + (b & 1) * ACT_BLOCK
+                                : b * ACT_BLOCK),
+                    &maps.cz1, cbar,
+                    q * HID + hk + (SPLIT ? (b & 1) : b) * 64,
+                    (SPLIT ? (b >> 1) * p.n : 0) + row0);
+            }
+            sm90::mbar_wait(cbar, cphase);
+            cphase ^= 1;
           }
-          sm90::mbar_wait(cbar, cphase);
-          cphase ^= 1;
+          consume_s<256, 1, SPLIT, LO>(acc, ts, KH, ts, KH / KSL,
+                                       q < 3 || hk > 0, r, full, empty, ring,
+                                       wg, leader);
         }
-        consume<256, 1>(acc, ts, HID, ts, HID / KSL, q < 3, r, full, empty,
-                        ring, wg, leader);
       }
       tiles_free(issuer);            // act (xf) and the chunk are free
       {
@@ -764,13 +781,19 @@ __global__ void __launch_bounds__(NTB, 1)
         }
         col_finish<256>(cred, hp_tile + HP_DBF);
       }
-      store_tile_sw<256>(act, wg * 256, [&](int k) { return acc[k]; });
+      store_tile_s<256, SPLIT, LO>(act, wg * 256,
+                                   [&](int k) { return acc[k]; });
       tile_to_global(&maps.axf, act, 8, 0, row0, issuer);
+      if (SPLIT) tile_to_global(&maps.axf, act + LO, 8, 0, p.n + row0, issuer);
       // ------------------------------------ a_h from the heads: a_xf W_f
-      consume<256, 1>(acc, act, F, act, F / KSL, false, r, full, empty, ring,
-                      wg, leader);
+      consume_s<256, 1, SPLIT, LO>(acc, act, F, act, F / KSL, false, r, full,
+                                   empty, ring, wg, leader);
     }
 
+    // the last layer's first batch of tz, in flight while a_h is formed
+#pragma unroll
+    for (int b = 0; b < TZB; ++b)
+      tzn[b] = __ldcs(tzb + (size_t)last * 32 * NC + b * NC);
     // a_h of the last layer: a . wsig + c_feats (K3), + a_xf W_f (K5)
     {
       const float a0 = rnd(row_a[r0]), a1 = rnd(row_a[r0 + 8]);
@@ -798,29 +821,37 @@ __global__ void __launch_bounds__(NTB, 1)
     for (int i = last; i >= 0; --i) {
       const float w0s = i == 0 ? 30.f : 1.f;
       tiles_free(issuer);            // act read by both products, stored
-      uint32_t zu_stage = 0, tz_stage = 0;
-      // ZF32: this thread's tz of layer i (its own writes) and K5's b_th
-      const float* tzl = tzb + (size_t)i * 128 * NC;
+      uint32_t zu_stage = 0;
+      // this thread's tz of layer i (its own writes), in batches of TZB
+      // float4 loaded one batch ahead (the first during the product before
+      // the epilogue); ZF32: K5's b_th
+      const float4* tzl = tzb + (size_t)i * 32 * NC;
+      float4 tzc[TZB];
       const float* ucl =
           HEADS ? p.uc + ((size_t)tile * layers + i) * 128 * NC + tid
                 : nullptr;
 #pragma unroll
       for (int j = 0; j < 32; ++j) {
-        // j-group j / 8: a ring stage of z and u (K5: z), then one of tz
-        // (K5: then one of the rebuilt b_th); ZF32: none
+        // j-group j / 8: a ring stage of z and u (K5: z, then one of the
+        // rebuilt b_th); ZF32: none
         if (ZRING && j % 8 == 0) {
           sm90::mbar_wait(&full[r.stage], r.phase);
           zu_stage = r.stage;
-          r.advance();
-          sm90::mbar_wait(&full[r.stage], r.phase);
-          tz_stage = r.stage;
           if (HEADS) {
             r.advance();
             sm90::mbar_wait(&full[r.stage], r.phase);
           }
         }
+        if (j % TZB == 0) {
+#pragma unroll
+          for (int b = 0; b < TZB; ++b) {
+            tzc[b] = tzn[b];
+            if (j + TZB < 32) tzn[b] = __ldcs(tzl + (j + TZB + b) * NC);
+          }
+        }
+        const float4 t4 = tzc[j % TZB];
+        const float tzv[4] = {t4.x, t4.y, t4.z, t4.w};
         const unsigned char* zu = ring + zu_stage * RING_STAGE;
-        const unsigned char* tzs = ring + tz_stage * RING_STAGE;
         const int cz = 8 * (j & 7) + 2 * (l & 3);
         const int o0 = sm90::sw128_offset(r0, cz, 0);
         const int o1 = sm90::sw128_offset(r0 + 8, cz, 0);
@@ -860,9 +891,7 @@ __global__ void __launch_bounds__(NTB, 1)
         for (int e = 0; e < 4; ++e) {
           float h, d1, d2;
           act_eval2(z4[e], w0s, h, d1, d2);
-          const float tz =
-              ZF32 ? tzl[(4 * j + e) * NC]
-                   : stage_f32(tzs + ((4 * (j & 7) + e) * NC + tid) * 4);
+          const float tz = tzv[e];
           acc[4 * j + e] = d1 * acc[4 * j + e] + d2 * tz * u4[e];
           bt[e] = d1 * u4[e];
         }
@@ -870,8 +899,7 @@ __global__ void __launch_bounds__(NTB, 1)
         put2_s<SPLIT, LO>(act, r0, col, bt[0], bt[1]);
         put2_s<SPLIT, LO>(act, r0 + 8, col, bt[2], bt[3]);
         if (ZRING && j % 8 == 7) {
-          release(empty, zu_stage);
-          if (HEADS) release(empty, tz_stage);
+          if (HEADS) release(empty, zu_stage);
           release(empty, r.stage);
           r.advance();
         }
@@ -903,6 +931,9 @@ __global__ void __launch_bounds__(NTB, 1)
         tile_to_global(&maps.azbtz, act + LO, 8, 0,
                        (PL * i + 2) * p.n + row0, issuer);
       if (i == 0) break;
+#pragma unroll
+      for (int b = 0; b < TZB; ++b)
+        tzn[b] = __ldcs(tzb + (size_t)(i - 1) * 32 * NC + b * NC);
       // a_h_{i-1} = a_z_i . W_i
       consume_s<256, 1, SPLIT, LO>(acc, act, F, act, F / KSL, false, r, full,
                                    empty, ring, wg, leader);
@@ -1170,16 +1201,16 @@ bool sweep_maps(const BwdArgs& p, SweepMaps* m) {
             map_2d(&m->azbtz, p.azbtz, (uint64_t)p.layers * pl * n, F, F, T,
                    64, 128);
   if (HEADS)
-    ok = ok && map_2d(&m->wfk, p.wf, F, F, F, 256, KSL, 64) &&
-         map_2d(&m->wfm, p.wf, F, F, F, KSL, 32, 64) &&
-         map_2d(&m->w1rk, p.w1r, HID, F, F, 256, KSL, 64) &&
-         map_2d(&m->w1pk, p.w1p, 3 * HID, F, F, 256, KSL, 64) &&
-         map_2d(&m->w1rm, p.w1r, HID, F, F, KSL, 32, 64) &&
-         map_2d(&m->w1pm, p.w1p, 3 * HID, F, F, KSL, 32, 64) &&
-         map_2d(&m->hl, p.hl, n, F, F, T, 64, 128) &&
-         map_2d(&m->xfb, p.xfb, n, F, F, T, 64, 128) &&
-         map_2d(&m->axf, p.axf, n, F, F, T, 64, 128) &&
-         map_2d(&m->cz1, p.cz1, n, 4 * HID, 4 * HID, T, 64, 128);
+    ok = ok && map_2d(&m->wfk, p.wf, fp, F, F, 256, KSL, 64) &&
+         map_2d(&m->wfm, p.wf, fp, F, F, KSL, 32, 64) &&
+         map_2d(&m->w1rk, p.w1r, HID * planes, F, F, 256, KSL, 64) &&
+         map_2d(&m->w1pk, p.w1p, 3 * HID * planes, F, F, 256, KSL, 64) &&
+         map_2d(&m->w1rm, p.w1r, HID * planes, F, F, KSL, 32, 64) &&
+         map_2d(&m->w1pm, p.w1p, 3 * HID * planes, F, F, KSL, 32, 64) &&
+         map_2d(&m->hl, p.hl, n * planes, F, F, T, 64, 128) &&
+         map_2d(&m->xfb, p.xfb, n * planes, F, F, T, 64, 128) &&
+         map_2d(&m->axf, p.axf, n * planes, F, F, T, 64, 128) &&
+         map_2d(&m->cz1, p.cz1, n * planes, 4 * HID, 4 * HID, T, 64, 128);
   return ok;
 }
 
@@ -1197,15 +1228,18 @@ bool wgrad_plan(const BwdArgs& p, WgradMaps* maps, WgradPlan* plan) {
                    64, 128) &&
             map_2d(&maps->m[2], p.azbtz, (uint64_t)L * pl * n, F, F, 64, 64,
                    128);
+  const uint64_t hp = p.split ? 2 : 1;   // the heads' operand planes
   if (HEADS)
-    ok = ok && map_2d(&maps->m[3], p.hl, n, F, F, 64, 64, 128) &&
-         map_2d(&maps->m[4], p.xfb, n, F, F, 64, 64, 128) &&
-         map_2d(&maps->m[5], p.axf, n, F, F, 64, 64, 128) &&
-         map_2d(&maps->m[6], p.cz1, n, 4 * HID, 4 * HID, 64, 64, 128);
+    ok = ok && map_2d(&maps->m[3], p.hl, hp * n, F, F, 64, 64, 128) &&
+         map_2d(&maps->m[4], p.xfb, hp * n, F, F, 64, 64, 128) &&
+         map_2d(&maps->m[5], p.axf, hp * n, F, F, 64, 64, 128) &&
+         map_2d(&maps->m[6], p.cz1, hp * n, 4 * HID, 4 * HID, 64, 64, 128);
   if (!ok) return false;
-  // the trunk's K: [h; th] of every point (SPLIT: three segments of it)
+  // the trunk's K: [h; th] of every point; the heads' K: every point
+  // (SPLIT: three segments of each, the lo planes lo / hlo rows on)
   const int seg = 2 * p.n / WK, ct = (p.split ? 3 : 1) * seg;
-  const int ch = p.n / WK, lo = p.split ? 2 * p.n : 0;
+  const int ch = p.n / WK, cth = (p.split ? 3 : 1) * ch;
+  const int lo = p.split ? 2 * p.n : 0, hlo = p.split ? p.n : 0;
   int k = 0, blocks = 0, elems = 0;
   auto add = [&](int am, int ar, int bm, int br, int mt, int nt, int chunks,
                  int splits, float* out, int ldo, int sc, int l) {
@@ -1224,8 +1258,8 @@ bool wgrad_plan(const BwdArgs& p, WgradMaps* maps, WgradPlan* plan) {
   add(0, 0, 2, p.skip * pl * p.n, EP / WM, F / WN, ct, st, p.dwst, F, seg,
       lo);
   if (HEADS) {
-    add(3, 0, 5, 0, F / WM, F / WN, ch, sh, p.dwf, F, ch, 0);
-    add(4, 0, 6, 0, F / WM, 4 * HID / WN, ch, sh, p.dw1, 4 * HID, ch, 0);
+    add(3, 0, 5, 0, F / WM, F / WN, cth, sh, p.dwf, F, ch, hlo);
+    add(4, 0, 6, 0, F / WM, 4 * HID / WN, cth, sh, p.dw1, 4 * HID, ch, hlo);
   }
   plan->n_groups = k;
   plan->n_blocks = blocks;
@@ -1247,8 +1281,8 @@ int launch_sweep(const SweepMaps& smaps, const BwdArgs& p, int n_blocks,
 
 // Launch the sweep, the weight-gradient and the reduce kernels of K3
 // (HEADS = false) or K5 on `stream`; returns a cudaError_t.  zs/us are bf16
-// (p.zs, p.us) or f32 (p.zsf, p.usf; K5 reads no us); p.split (K3 alone)
-// takes f32 zs/us.
+// (p.zs, p.us) or f32 (p.zsf, p.usf; K5 reads no us); p.split takes f32
+// zs/us.
 template <bool HEADS>
 int launch_bwd(const BwdArgs& p, int n_blocks, void* stream) {
   const bool zf = p.zsf != nullptr;
@@ -1256,10 +1290,11 @@ int launch_bwd(const BwdArgs& p, int n_blocks, void* stream) {
   if (p.n <= 0 || p.n % T != 0 || n_blocks <= 0 || p.layers < 3 ||
       p.layers + 3 > MAX_GROUPS || p.skip <= 0 || p.skip >= p.layers ||
       p.splits_trunk < 1 || p.splits_trunk > ct ||
-      (HEADS && (p.splits_heads < 1 || p.splits_heads > p.n / WK)) ||
+      (HEADS && (p.splits_heads < 1 ||
+                 p.splits_heads > (p.split ? 3 : 1) * p.n / WK)) ||
       zf == (p.zs != nullptr) ||
       (!HEADS && (zf ? p.usf == nullptr : p.us == nullptr)) ||
-      (p.split && (HEADS || !zf)))
+      (p.split && !zf))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   SweepMaps smaps;
@@ -1270,10 +1305,12 @@ int launch_bwd(const BwdArgs& p, int n_blocks, void* stream) {
     return (int)cudaErrorInvalidValue;
   cudaError_t e;
   if constexpr (HEADS)
-    e = (cudaError_t)(zf ? launch_sweep<true, true, false>(smaps, p,
-                                                           n_blocks, st)
-                         : launch_sweep<true, false, false>(smaps, p,
-                                                            n_blocks, st));
+    e = (cudaError_t)(p.split ? launch_sweep<true, true, true>(smaps, p,
+                                                               n_blocks, st)
+                      : zf ? launch_sweep<true, true, false>(smaps, p,
+                                                             n_blocks, st)
+                           : launch_sweep<true, false, false>(smaps, p,
+                                                              n_blocks, st));
   else
     e = (cudaError_t)(p.split ? launch_sweep<false, true, true>(smaps, p,
                                                                 n_blocks, st)

@@ -61,4 +61,4 @@ extern "C" int trunk_fwd_grad_launch(
 }
 
 // The dynamic shared memory a block of the kernel takes (for the tools).
-extern "C" int trunk_fwd_grad_smem() { return fwd_smem<false>(); }
+extern "C" int trunk_fwd_grad_smem() { return fwd_smem(); }

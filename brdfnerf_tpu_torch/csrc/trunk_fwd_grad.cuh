@@ -59,13 +59,16 @@
 // the Pallas _bwd_kernel_h does, so K4 saves zs alone.  The serving
 // instantiations have none of that.
 //
-// SPLIT (K2 at compute_dtype float32: f32 operands and f32 weights) runs
-// every product as three on bf16 tensor cores (sm90_trunk.cuh consume_s):
-// the activation and x tiles hold hi and lo bf16 terms, the weights come
-// as hi and lo planes through the ring, and nothing rounds to bf16 (the
-// sigma head and softplus' take the f32 values).  Shared memory: the two
-// activation tiles and x tiles take 160 KB, so its ring has two 32 KB
-// stages where the bf16 instantiations have four (fs_ring_n).
+// SPLIT (K2 and K4 at compute_dtype float32: f32 operands and f32 weights)
+// runs every product as three on bf16 tensor cores (sm90_trunk.cuh
+// consume_s): the activation and x tiles hold hi and lo bf16 terms, the
+// weights (the heads' W_f, W_1r and W_1p too) come as hi and lo planes
+// through the ring, and nothing rounds to bf16 (the sigma head, softplus'
+// and the heads' 3-column second layers take the f32 values, W_2 in f32).
+// Shared memory: the two activation tiles and x tiles take 160 KB, so its
+// ring has two 32 KB stages where the bf16 instantiations have four
+// (fs_ring_n); K4's per-row logit halves live in the x tile, which no
+// product reads after the skip layer's.
 
 #pragma once
 
@@ -163,11 +166,11 @@ struct FwdArgs {
   const float* bf;
   const bf16* w1r;
   const float* b1r;
-  const bf16* w2r;
+  const void* w2r;      // bf16, or f32 with split
   const float* b2r;
   const bf16* w1p;
   const float* b1p;
-  const bf16* w2p;
+  const void* w2p;
   const float* b2p;
   float* out;
   // both
@@ -193,8 +196,10 @@ struct FwdMaps {
 // shared memory: the activation tile (64 x 512, 8 SW128 blocks), the x tile
 // (64 x 128 bf16, 2 blocks), with SPLIT both again for the lo terms
 // (fs_lo bytes past the hi ones), the ring, barriers, then per-row vectors:
-// the sigma head's warpgroup halves, softplus'(zsig), and K4's 6 logits'
-// warpgroup halves
+// the sigma head's warpgroup halves and softplus'(zsig).  K4's 6 logits'
+// warpgroup halves (6 x 2 x 64 f32) take the x tile's place once the skip
+// layer has read x for the last time: in the head passes (with SPLIT there
+// is no room for them beside the ring: 896 B short)
 constexpr int FS_ACT = 0;
 constexpr int FS_X = FS_ACT + 8 * ACT_BLOCK;
 template <bool SPLIT>
@@ -220,12 +225,12 @@ template <bool SPLIT>
 __host__ __device__ constexpr int fs_rows() {
   return fs_ring<SPLIT>() + fs_ring_n<SPLIT>() * RING_STAGE + 128;
 }
-template <bool HEADS, bool SPLIT = false>
+template <bool SPLIT = false>
 __host__ __device__ constexpr int fwd_smem() {
-  return fs_rows<SPLIT>() + 3 * T * 4 + (HEADS ? 6 * 2 * T * 4 : 0);
+  return fs_rows<SPLIT>() + 3 * T * 4;
 }
-static_assert(fwd_smem<true>() <= 232448, "K4's shared memory");
-static_assert(fwd_smem<false, true>() <= 232448, "K2 SPLIT's shared memory");
+static_assert(6 * 2 * T * 4 <= 2 * ACT_BLOCK, "K4's logit halves in x");
+static_assert(fwd_smem<true>() <= 232448, "SPLIT's shared memory");
 
 // Rows r0 and r0 + 8 of this thread's accumulator columns, v(4j + e), into
 // an f32 matrix at p (row stride ld, from the thread's row and column 0 of
@@ -319,7 +324,6 @@ template <bool ZS, bool HEADS, bool ZF32, bool SPLIT>
 __global__ void __launch_bounds__(NTB, 1)
     trunk_fwd_grad_kernel(const __grid_constant__ FwdMaps maps,
                           const FwdArgs p) {
-  static_assert(!(HEADS && SPLIT), "K4 takes bf16 operands only");
   constexpr int NS = fs_ring_n<SPLIT>();
   constexpr int LO = fs_lo<SPLIT>();
   typedef RingN<NS> R;
@@ -331,7 +335,8 @@ __global__ void __launch_bounds__(NTB, 1)
   uint64_t* empty = full + NS;
   float* rz = reinterpret_cast<float*>(smem + fs_rows<SPLIT>());  // [2][64]
   float* rowv = rz + 2 * T;                               // softplus'(zsig)
-  float* hred = rowv + T;                     // K4: [6 logits][2 wg][64]
+  // K4: [6 logits][2 wg][64], in the x tile (free in the head passes)
+  float* hred = reinterpret_cast<float*>(xs);
   const int layers = p.layers, skip = p.skip, last = layers - 1;
   const int tid = threadIdx.x;
   // SPLIT: rows from a weight's hi plane to its lo plane
@@ -372,10 +377,12 @@ __global__ void __launch_bounds__(NTB, 1)
                             full, empty, ring);
       }
       if constexpr (HEADS) {
-        produce_w(&maps.wfk, false, F / KSL, 0, 0, F, r, full, empty, ring);
+        produce_ws<SPLIT>(&maps.wfk, false, F / KSL, 0, 0, F, F, r, full,
+                          empty, ring);
         for (int q = 0; q < 4; ++q)
-          produce_w(q == 0 ? &maps.w1rk : &maps.w1pk, false, F / KSL,
-                  q == 0 ? 0 : (q - 1) * HID, 0, HID, r, full, empty, ring);
+          produce_ws<SPLIT>(q == 0 ? &maps.w1rk : &maps.w1pk, false, F / KSL,
+                            q == 0 ? 0 : (q - 1) * HID, 0, HID,
+                            q == 0 ? HID : 3 * HID, r, full, empty, ring);
       }
       for (int i = last; i >= 1; --i) {
         if (i == skip) {
@@ -503,7 +510,7 @@ __global__ void __launch_bounds__(NTB, 1)
                 (grow0 + r0 + 8 * hf) * F + cb + 8 * j) =
                 make_float2(h4[2 * hf], h4[2 * hf + 1]);
         } else {
-          put4(act, r0, cb + 8 * j, h4);
+          put4<SPLIT, LO>(act, r0, cb + 8 * j, h4);
         }
       }
 #pragma unroll
@@ -528,11 +535,11 @@ __global__ void __launch_bounds__(NTB, 1)
 
     if constexpr (HEADS) {
       // ---------------------------------------------- xf = h W_f^T + b_f
-      consume<256, 0>(acc, act, F, act, F / KSL, false, r, full, empty, ring,
-                      wg, leader);
+      consume_s<256, 0, SPLIT, LO>(acc, act, F, act, F / KSL, false, r, full,
+                                   empty, ring, wg, leader);
       tiles_free(issuer);
       const float* __restrict__ bfv = p.bf;
-      store_tile_sw<256>(act, wg * 256, [&](int k) {
+      store_tile_s<256, SPLIT, LO>(act, wg * 256, [&](int k) {
         return acc[k] + bfv[cb + 8 * (k >> 2) + (k & 1)];
       });
       sm90::fence_async_smem();
@@ -540,13 +547,14 @@ __global__ void __launch_bounds__(NTB, 1)
 
       // ------ the rgb head (q = 0) and the three RPV heads (q = 1..3):
       // hidden = act(xf W_1^T + b_1) in 256-column passes; each logit is a
-      // row reduction of bf16(hidden) against its second-layer row
+      // row reduction of bf16(hidden) against its second-layer row (SPLIT:
+      // of the f32 hidden against the f32 row)
       float (&a64)[64] = *reinterpret_cast<float(*)[64]>(acc);
       const int cq = wg * 128 + 2 * (l & 3);   // column of j = 0 in a pass
 #pragma unroll 1
       for (int q = 0; q < 4; ++q) {
-        consume<128, 0>(a64, act, F, act, F / KSL, false, r, full, empty,
-                        ring, wg, leader);
+        consume_s<128, 0, SPLIT, LO>(a64, act, F, act, F / KSL, false, r,
+                                     full, empty, ring, wg, leader);
         const float* __restrict__ b1 = q == 0 ? p.b1r : p.b1p + (q - 1) * HID;
         float pr[3][2] = {{0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}};
 #pragma unroll
@@ -556,15 +564,15 @@ __global__ void __launch_bounds__(NTB, 1)
             const int col = cq + 8 * j + (e & 1);
             float h, d;
             act_eval(a64[4 * j + e] + b1[col], 1.f, h, d);
-            const float hb = bf16_round(h);
+            const float hb = SPLIT ? h : bf16_round(h);
             if (q == 0) {
 #pragma unroll
               for (int c = 0; c < 3; ++c)
-                pr[c][e >> 1] += hb * __bfloat162float(p.w2r[c * HID + col]);
+                pr[c][e >> 1] += hb * w2_at<SPLIT>(p.w2r, c * HID + col);
             } else {
-              pr[0][e >> 1] += hb * __bfloat162float(
-                                        p.w2p[(q - 1) * 3 * HID +
-                                              (q - 1) * HID + col]);
+              pr[0][e >> 1] +=
+                  hb * w2_at<SPLIT>(p.w2p, (q - 1) * 3 * HID +
+                                               (q - 1) * HID + col);
             }
           }
 #pragma unroll
@@ -600,7 +608,7 @@ __global__ void __launch_bounds__(NTB, 1)
       for (int k = 0; k < 128; ++k)
         acc[k] = rowv[r0 + 8 * ((k >> 1) & 1)] *
                  wsig[cb + 8 * (k >> 2) + (k & 1)];
-      g_from_scratch<false, 0>(acc, dn, dl, act, r0, cb);
+      g_from_scratch<SPLIT, LO>(acc, dn, dl, act, r0, cb);
     } else {
       // ------ the chain's seed: g_{L-1} = act'(z_{L-1}) u, act' recomputed
       // from z_{L-1} in acc
@@ -694,9 +702,9 @@ bool fwd_maps(const FwdArgs& p, FwdMaps* m) {
   if (!HEADS && p.feats_bf16)
     ok = ok && map_2d(&m->feats, p.feats, n, F, F, T, 64, 128);
   if (HEADS)
-    ok = ok && map_2d(&m->wfk, p.wf, F, F, F, 256, KSL, 64) &&
-         map_2d(&m->w1rk, p.w1r, HID, F, F, 256, KSL, 64) &&
-         map_2d(&m->w1pk, p.w1p, 3 * HID, F, F, 256, KSL, 64);
+    ok = ok && map_2d(&m->wfk, p.wf, fp, F, F, 256, KSL, 64) &&
+         map_2d(&m->w1rk, p.w1r, HID * planes, F, F, 256, KSL, 64) &&
+         map_2d(&m->w1pk, p.w1p, 3 * HID * planes, F, F, 256, KSL, 64);
   return ok;
 }
 
@@ -704,7 +712,7 @@ template <bool ZS, bool HEADS, bool ZF32, bool SPLIT>
 int launch_fwd_kernel(const FwdArgs& p, const FwdMaps& maps, int n_blocks,
                       void* stream) {
   auto kernel = trunk_fwd_grad_kernel<ZS, HEADS, ZF32, SPLIT>;
-  const int smem = fwd_smem<HEADS, SPLIT>();
+  const int smem = fwd_smem<SPLIT>();
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
@@ -714,20 +722,26 @@ int launch_fwd_kernel(const FwdArgs& p, const FwdMaps& maps, int n_blocks,
 
 // Launch K2 (HEADS = false) or K4 on `stream`; returns a cudaError_t.  zs
 // and us are bf16 (p.zs, p.us), f32 (p.zsf, p.usf) or neither; K4 saves no
-// us and takes no split weights, and the split instantiation no bf16 zs/us
-// or feats (its contract stores f32).
+// us, and the split instantiations no bf16 zs/us or feats (their contract
+// stores f32).
 template <bool HEADS>
 int launch_fwd(const FwdArgs& p, int n_rows, int n_blocks, void* stream) {
   const bool zb = p.zs != nullptr, zf = p.zsf != nullptr;
   const bool ub = p.us != nullptr, uf = p.usf != nullptr;
   if (n_rows <= 0 || n_rows % T != 0 || n_blocks <= 0 || p.layers < 3 ||
       p.skip <= 0 || p.skip >= p.layers || (zb && zf) ||
-      (HEADS ? (ub || uf || p.split) : (zb != ub || zf != uf)) ||
+      (HEADS ? (ub || uf) : (zb != ub || zf != uf)) ||
       (p.split && (zb || p.feats_bf16)))
     return (int)cudaErrorInvalidValue;
   FwdMaps maps;
   if (!fwd_maps<HEADS>(p, &maps)) return (int)cudaErrorInvalidValue;
   if constexpr (HEADS) {
+    if (p.split)
+      return zf ? launch_fwd_kernel<true, true, true, true>(p, maps, n_blocks,
+                                                            stream)
+                : launch_fwd_kernel<false, true, false, true>(p, maps,
+                                                              n_blocks,
+                                                              stream);
     if (zf) return launch_fwd_kernel<true, true, true, false>(p, maps,
                                                               n_blocks, stream);
     if (zb) return launch_fwd_kernel<true, true, false, false>(p, maps,

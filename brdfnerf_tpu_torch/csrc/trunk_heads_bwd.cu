@@ -44,36 +44,70 @@
 // it runs on f32 z where this one runs on the bf16 zs (the Pallas
 // _bwd_kernel_h's arithmetic), and at the flagship size the two differ by
 // ~7e-3 relative (tools/uchain_gap.py).
+//
+// At compute_dtype float32 (split) every product of f32 operands runs as
+// three on their bf16 hi and lo terms (sm90_trunk.cuh consume_s): the
+// trunk's and the heads' W_f, W_1r, W_1p as hi and lo planes, W_2 in f32,
+// the heads' weight-gradient operands (h, xf, a_xf, c_z1) as hi and lo
+// planes, nothing rounded to bf16.  The sweep then keeps K3's 64 x 128 t
+// tile and takes the c_z1 chunks in halves (trunk_bwd.cuh); the chain
+// kernel holds b_tz as hi and lo tiles beside a two-stage ring.
 
 #include "trunk_bwd.cuh"
 
 namespace trunk {
 
 // shared memory of the chain kernel: the activation tile (b_tz, the A
-// operand of b_th = b_tz W), the ring, barriers, per-row vectors
-constexpr int UC_RING = 8 * ACT_BLOCK;
-constexpr int UC_BAR = UC_RING + RING_N * RING_STAGE;
-constexpr int UC_ROWS = UC_BAR + 128;
-constexpr int UC_SMEM = UC_ROWS + 3 * T * 4;
+// operand of b_th = b_tz W; SPLIT: its lo tile after it), the ring (SPLIT:
+// two stages), barriers, per-row vectors
+template <bool SPLIT>
+__host__ __device__ constexpr int uc_lo() {
+  return SPLIT ? 8 * ACT_BLOCK : 0;
+}
+template <bool SPLIT>
+__host__ __device__ constexpr int uc_ring_n() {
+  return SPLIT ? 2 : RING_N;
+}
+template <bool SPLIT>
+__host__ __device__ constexpr int uc_ring() {
+  return 8 * ACT_BLOCK + uc_lo<SPLIT>();
+}
+template <bool SPLIT>
+__host__ __device__ constexpr int uc_rows() {
+  return uc_ring<SPLIT>() + uc_ring_n<SPLIT>() * RING_STAGE + 128;
+}
+template <bool SPLIT>
+__host__ __device__ constexpr int uc_smem() {
+  return uc_rows<SPLIT>() + 3 * T * 4;
+}
+static_assert(uc_smem<true>() <= 232448, "the SPLIT chain's shared memory");
 
-// ZF32: zs in f32 (the mixed bfloat16 contract), read from device memory
-// instead of through the ring.
-template <bool ZF32>
+// ZF32: zs in f32 (the mixed bfloat16 and float32 contracts), read from
+// device memory instead of through the ring.  SPLIT (float32): the
+// products of f32 operands as three, sigmoid(zsig) and h unrounded.
+template <bool ZF32, bool SPLIT>
 __global__ void __launch_bounds__(NTB, 1)
     trunk_heads_uchain_kernel(const __grid_constant__ SweepMaps maps,
                               const BwdArgs p, float* __restrict__ uc) {
+  static_assert(!SPLIT || ZF32, "the split chain reads f32 zs");
+  constexpr int NS = uc_ring_n<SPLIT>();
+  constexpr int LO = uc_lo<SPLIT>();
+  typedef RingN<NS> R;
   extern __shared__ __align__(1024) unsigned char smem[];
   unsigned char* act = smem;
-  unsigned char* ring = smem + UC_RING;
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + UC_BAR);
-  uint64_t* empty = full + RING_N;
-  float* rz = reinterpret_cast<float*>(smem + UC_ROWS);   // [2 wg][64]
+  unsigned char* ring = smem + uc_ring<SPLIT>();
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + NS * RING_STAGE);
+  uint64_t* empty = full + NS;
+  float* rz = reinterpret_cast<float*>(smem + uc_rows<SPLIT>());  // [2][64]
   float* rowv = rz + 2 * T;                  // bf16(sigmoid(zsig))
   const int layers = p.layers, skip = p.skip, last = layers - 1;
   const int tid = threadIdx.x;
+  // SPLIT: rows from a weight's hi plane to its lo plane
+  const int lo_f = F, lo_mid = (layers - 2) * F;
+  auto rnd = [](float v) { return SPLIT ? v : bf16_round(v); };
 
   if (tid == 0) {
-    for (int s = 0; s < RING_N; ++s) {
+    for (int s = 0; s < NS; ++s) {
       sm90::mbar_init(&full[s], 1);
       sm90::mbar_init(&empty[s], 8);     // one arrival per consumer warp
     }
@@ -85,18 +119,18 @@ __global__ void __launch_bounds__(NTB, 1)
     // ------------------------------------------------------- producer
     sm90::setmaxnreg_dec<40>();
     if (tid != NC) return;
-    Ring r = {0, 0};
+    R r = {0, 0};
     for (int tile = blockIdx.x; tile < p.n_tiles; tile += gridDim.x) {
       const int row0 = tile * T;
       if (!ZF32) produce_fwd_data(maps, last, row0, r, full, empty, ring);
       for (int i = last; i >= 1; --i) {
         if (i == skip)
-          produce(&maps.wskipm, true, F / KSL, 0, EP, F, r, full, empty,
-                  ring);
+          produce_s<SPLIT>(&maps.wskipm, true, F / KSL, 0, EP, F, lo_f, r,
+                           full, empty, ring);
         else
-          produce(&maps.wmidm, true, F / KSL,
-                  (i < skip ? i - 1 : i - 2) * F, 0, F, r, full, empty,
-                  ring);
+          produce_s<SPLIT>(&maps.wmidm, true, F / KSL,
+                           (i < skip ? i - 1 : i - 2) * F, 0, F, lo_mid, r,
+                           full, empty, ring);
         if (!ZF32 && i > 1)
           produce_fwd_data(maps, i - 1, row0, r, full, empty, ring);
       }
@@ -111,7 +145,7 @@ __global__ void __launch_bounds__(NTB, 1)
   const int r0 = w * 16 + (l >> 2);          // rows r0 and r0 + 8
   const int cb = wg * 256 + 2 * (l & 3);     // column of j = 0, e = 0
   const float* __restrict__ wsig = p.wsig;
-  Ring r = {0, 0};
+  R r = {0, 0};
   float acc[128];
 
   // z of accumulators 4j..4j+3 (rows r0 and r0 + 8) of layer i from the
@@ -135,14 +169,11 @@ __global__ void __launch_bounds__(NTB, 1)
     }
     return make_float4(za.x, za.y, zb.x, zb.y);
   };
-  // accumulators 4j..4j+3 into the tile as bf16
+  // accumulators 4j..4j+3 into the tile as bf16 (SPLIT: hi and lo)
   auto put4 = [&](int j) {
     const int col = cb + 8 * j;
-    *reinterpret_cast<uint32_t*>(act + sm90::sw128_offset(r0, col, ACT_BLOCK)) =
-        sm90::pack_bf2(acc[4 * j], acc[4 * j + 1]);
-    *reinterpret_cast<uint32_t*>(
-        act + sm90::sw128_offset(r0 + 8, col, ACT_BLOCK)) =
-        sm90::pack_bf2(acc[4 * j + 2], acc[4 * j + 3]);
+    put2_s<SPLIT, LO>(act, r0, col, acc[4 * j], acc[4 * j + 1]);
+    put2_s<SPLIT, LO>(act, r0 + 8, col, acc[4 * j + 2], acc[4 * j + 3]);
   };
 
   for (int tile = blockIdx.x; tile < p.n_tiles; tile += gridDim.x) {
@@ -160,7 +191,7 @@ __global__ void __launch_bounds__(NTB, 1)
       for (int e = 0; e < 4; ++e) {
         float h;
         act_eval(zz[e], 1.f, h, acc[4 * j + e]);
-        pz[e >> 1] += bf16_round(h) * wsig[cb + 8 * j + (e & 1)];
+        pz[e >> 1] += rnd(h) * wsig[cb + 8 * j + (e & 1)];
       }
       if (!ZF32 && j % 16 == 15) {
         release(empty, r.stage);
@@ -177,7 +208,7 @@ __global__ void __launch_bounds__(NTB, 1)
     sm90::named_sync(BAR_C, NC);     // rz; the last product read act
     if (tid < T) {
       const float zsig = (rz[tid] + rz[T + tid]) + p.bsig[0];
-      rowv[tid] = bf16_round(1.f / (1.f + expf(-zsig)));
+      rowv[tid] = rnd(1.f / (1.f + expf(-zsig)));
     }
     sm90::named_sync(BAR_C, NC);
     // ------- b_th_{L-1} = bf16(sigmoid(zsig)) w_sigma; b_tz = act' b_th
@@ -200,8 +231,8 @@ __global__ void __launch_bounds__(NTB, 1)
     sm90::named_sync(BAR_C, NC);     // b_tz is the next product's A
     // --------------------- b_th_{i-1} = b_tz_i W_i, i = L-1 down to 1
     for (int i = last; i >= 1; --i) {
-      consume<256, 1>(acc, act, F, act, F / KSL, false, r, full, empty, ring,
-                      wg, leader);
+      consume_s<256, 1, SPLIT, LO>(acc, act, F, act, F / KSL, false, r, full,
+                                   empty, ring, wg, leader);
       float* o = out + (size_t)(i - 1) * 128 * NC;
 #pragma unroll
       for (int k = 0; k < 128; ++k) __stcs(o + k * NC, acc[k]);
@@ -238,12 +269,14 @@ using namespace trunk;
 // x, cg (n_rows, 128) f32, cot (n_rows, 8) f32, zs (n_rows, layers * 512),
 // f32 when zs_f32 (the mixed bfloat16 contract) else bf16, with
 // n_rows % 64 == 0; trunk weights as trunk_bwd_launch, heads as
-// trunk_heads_fwd_launch.  Scratch: uc (n_rows * layers * 512 f32, the
-// rebuilt b_th chain), K3's (part (n/64, (layers+1) * 512 +
-// HEAD_PART) f32, wpart_tiles = (8 layers - 4) x splits_trunk + 24 x
-// splits_heads partial tiles in wpart), then hl, xfb, axf (n, 512) and cz1
-// (n, 1024) bf16.  Outputs f32 in (in, out) layout: K3's, then dwf (512,
-// 512), dbf (512,), dw1 (512, 1024) = [dW_1r | dW_1p], db1 (1024,), dw2r
+// trunk_heads_fwd_launch (split: the float32 instantiation, f32 zs, the
+// weights as hi and lo planes, w2r and w2p f32).  Scratch: uc (n_rows *
+// layers * 512 f32, the rebuilt b_th chain), K3's (part (n/64, (layers+1)
+// * 512 + HEAD_PART) f32, wpart_tiles = (8 layers - 4) x splits_trunk +
+// 24 x splits_heads partial tiles in wpart), then hl, xfb, axf (P, n, 512)
+// and cz1 (P, n, 1024) bf16, P = 1 plane (split: 2, hi then lo).  Outputs
+// f32 in (in, out) layout: K3's, then dwf (512, 512), dbf (512,), dw1
+// (512, 1024) = [dW_1r | dW_1p], db1 (1024,), dw2r
 // (256, 128), db2r (128,), dw2p (768, 128), db2p (128,), whose columns >= 3
 // the kernels leave as they find them.  Four kernels on the stream (the
 // b_th chain, then K3's three); returns a cudaError_t.
@@ -259,7 +292,7 @@ extern "C" int trunk_heads_bwd_launch(
     void* cz1, float* dw0, float* db0, float* dwm, float* dbm, float* dwst,
     float* dwsb, float* dbs, float* dwsig, float* dbsig, float* dwf,
     float* dbf, float* dw1, float* db1, float* dw2r, float* db2r,
-    float* dw2p, float* db2p, int zs_f32, int layers, int skip,
+    float* dw2p, float* db2p, int zs_f32, int split, int layers, int skip,
     void* stream) {
   BwdArgs p = {};
   p.x = x;
@@ -281,10 +314,10 @@ extern "C" int trunk_heads_bwd_launch(
   p.bf = bf;
   p.w1r = static_cast<const bf16*>(w1r);
   p.b1r = b1r;
-  p.w2r = static_cast<const bf16*>(w2r);
+  p.w2r = w2r;
   p.w1p = static_cast<const bf16*>(w1p);
   p.b1p = b1p;
-  p.w2p = static_cast<const bf16*>(w2p);
+  p.w2p = w2p;
   p.xt = static_cast<bf16*>(xt);
   p.hth = static_cast<bf16*>(hth);
   p.azbtz = static_cast<bf16*>(azbtz);
@@ -316,19 +349,22 @@ extern "C" int trunk_heads_bwd_launch(
   p.db2r = db2r;
   p.dw2p = dw2p;
   p.db2p = db2p;
+  p.split = split;
   p.layers = layers;
   p.skip = skip;
   if (n_rows <= 0 || n_rows % T != 0 || n_blocks <= 0 || layers < 3 ||
-      skip <= 0 || skip >= layers)
+      skip <= 0 || skip >= layers || (split && !zs_f32))
     return (int)cudaErrorInvalidValue;
   SweepMaps maps;
   if (!sweep_maps<true>(p, &maps)) return (int)cudaErrorInvalidValue;
-  auto uchain = zs_f32 ? trunk_heads_uchain_kernel<true>
-                       : trunk_heads_uchain_kernel<false>;
+  auto uchain = split    ? trunk_heads_uchain_kernel<true, true>
+                : zs_f32 ? trunk_heads_uchain_kernel<true, false>
+                         : trunk_heads_uchain_kernel<false, false>;
+  const int smem = split ? uc_smem<true>() : uc_smem<false>();
   cudaError_t e = cudaFuncSetAttribute(
-      uchain, cudaFuncAttributeMaxDynamicSharedMemorySize, UC_SMEM);
+      uchain, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  uchain<<<n_blocks, NTB, UC_SMEM, static_cast<cudaStream_t>(stream)>>>(
+  uchain<<<n_blocks, NTB, smem, static_cast<cudaStream_t>(stream)>>>(
       maps, p, uc);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;

@@ -24,7 +24,11 @@
 // reduction of bf16(hidden) against its weight row (as the sigma head is),
 // and no hidden activation reaches shared memory.  Rounding points are the
 // Pallas kernel's: bf16 operands (h, xf, the hidden activations) with f32
-// sums.  Deterministic: fixed summation orders.
+// sums.  At compute_dtype float32 (split) every product of f32 operands
+// runs as three on their bf16 hi and lo terms, the head weights W_f, W_1r
+// and W_1p as hi and lo planes and W_2 in f32, as K2's float32
+// instantiation does (trunk_fwd_grad.cuh).  Deterministic: fixed
+// summation orders.
 
 #include "trunk_fwd_grad.cuh"
 
@@ -32,9 +36,11 @@ using namespace trunk;
 
 // x (n_rows, 128) f32 with n_rows % 64 == 0; trunk weights as
 // trunk_fwd_grad_launch; heads as ops/fused_trunk_heads.pack_head_weights
-// at width 512 (bf16 weights, f32 biases).  Outputs out (n_rows, 8) f32, gx
-// (n_rows, 128) f32, and, when zs is not null, zs (n_rows, layers * 512),
-// f32 when zs_f32 (the mixed bfloat16 contract) else bf16.  scratch holds n_blocks * layers * 64 * 512 floats.
+// at width 512 (bf16 weights, f32 biases; with split, wf, w1r and w1p as
+// (2, ...) hi and lo planes and w2r, w2p f32).  Outputs out (n_rows, 8)
+// f32, gx (n_rows, 128) f32, and, when zs is not null, zs (n_rows, layers
+// * 512), f32 when zs_f32 (the mixed bfloat16 and float32 contracts) else
+// bf16.  scratch holds n_blocks * layers * 64 * 512 floats.
 // Returns a cudaError_t.
 extern "C" int trunk_heads_fwd_launch(
     const float* x, int n_rows, int n_blocks, const void* w0, const float* b0,
@@ -43,7 +49,7 @@ extern "C" int trunk_heads_fwd_launch(
     const float* bf, const void* w1r, const float* b1r, const void* w2r,
     const float* b2r, const void* w1p, const float* b1p, const void* w2p,
     const float* b2p, float* out, float* gx, float* scratch, void* zs,
-    int zs_f32, int layers, int skip, void* stream) {
+    int zs_f32, int split, int layers, int skip, void* stream) {
   FwdArgs p = {};
   p.x = x;
   p.n_tiles = n_rows / T;
@@ -59,11 +65,11 @@ extern "C" int trunk_heads_fwd_launch(
   p.bf = bf;
   p.w1r = static_cast<const bf16*>(w1r);
   p.b1r = b1r;
-  p.w2r = static_cast<const bf16*>(w2r);
+  p.w2r = w2r;
   p.b2r = b2r;
   p.w1p = static_cast<const bf16*>(w1p);
   p.b1p = b1p;
-  p.w2p = static_cast<const bf16*>(w2p);
+  p.w2p = w2p;
   p.b2p = b2p;
   p.out = out;
   p.gx = gx;
@@ -72,10 +78,11 @@ extern "C" int trunk_heads_fwd_launch(
     p.zsf = static_cast<float*>(zs);
   else
     p.zs = static_cast<bf16*>(zs);
+  p.split = split;
   p.layers = layers;
   p.skip = skip;
   return launch_fwd<true>(p, n_rows, n_blocks, stream);
 }
 
 // The dynamic shared memory a block of the kernel takes (for the tools).
-extern "C" int trunk_heads_fwd_smem() { return fwd_smem<true>(); }
+extern "C" int trunk_heads_fwd_smem() { return fwd_smem(); }

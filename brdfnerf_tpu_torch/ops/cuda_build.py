@@ -5,6 +5,11 @@ compiled by nvcc for sm_90a at first use into `brdfnerf_tpu_torch/_build/`
 (listed in .gitignore) under a name keyed by a hash of its sources and
 flags, and loaded with ctypes.  Nothing is built or loaded at import time:
 the CPU host that runs the tests has no nvcc.
+
+The trunk kernels' activation is a compile-time choice (ACTS): a library
+key is the source's name for the polynomial sine, built exactly as before,
+and "<name>:sin" or "<name>:relu" for the same source built with its
+-DTRUNK_ACT flag, so that a run builds the variants it uses and no others.
 """
 
 from __future__ import annotations
@@ -24,6 +29,10 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# the activations the trunk kernels are built for, and their nvcc flags
+# (csrc/trunk_common.cuh TRUNK_ACT)
+ACTS = {"poly": (), "sin": ("-DTRUNK_ACT=1",), "relu": ("-DTRUNK_ACT=2",)}
+
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 # name -> {"seconds": build time, "log": nvcc/ptxas output}; empty for a
@@ -39,59 +48,76 @@ def _nvcc() -> str:
     return path
 
 
-def library_path(name: str) -> str:
-    """Where csrc/<name>.cu builds to: the hash covers the source, every
-    shared header and the flags."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def library_key(name: str, act: str = "poly") -> str:
+    """The key of csrc/<name>.cu built for activation `act` (ACTS)."""
+    if act not in ACTS:
+        raise ValueError(f"activation {act!r} is not one of {tuple(ACTS)}")
+    return name if act == "poly" else f"{name}:{act}"
+
+
+def _source_flags(key: str):
+    """(source name, nvcc flags) of a library key."""
+    name, _, act = key.partition(":")
+    return name, NVCC_FLAGS + ACTS[act or "poly"]
+
+
+def library_path(key: str) -> str:
+    """Where a library key builds to: the hash covers the source, every
+    shared header and the library's own flags (a polynomial library's are
+    NVCC_FLAGS alone)."""
+    name, flags = _source_flags(key)
+    h = hashlib.sha256(" ".join(flags).encode())
     for f in sorted(os.listdir(CSRC)):
         if f == f"{name}.cu" or f.endswith(".cuh"):
             h.update(f.encode())
             with open(os.path.join(CSRC, f), "rb") as fh:
                 h.update(fh.read())
-    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
+    tag = key.replace(":", "-")
+    return os.path.join(BUILD_DIR, f"{tag}-{h.hexdigest()[:16]}.so")
 
 
-def build(names: Iterable[str]) -> None:
-    """Compile the named libraries that are not built yet, one nvcc process
-    per source, all started together."""
+def build(keys: Iterable[str]) -> None:
+    """Compile the libraries (keys as library_key gives them) that are not
+    built yet, one nvcc process per library, all started together."""
     todo: List[tuple] = []
-    for name in names:
-        out = library_path(name)
+    for key in keys:
+        out = library_path(key)
         if os.path.exists(out):
             continue
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-               os.path.join(CSRC, f"{name}.cu")]
+        name, flags = _source_flags(key)
+        cmd = [_nvcc(), *flags, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
-        todo.append((name, out, tmp, proc, time.perf_counter()))
+        todo.append((key, out, tmp, proc, time.perf_counter()))
     failed = []
-    for name, out, tmp, proc, t0 in todo:
+    for key, out, tmp, proc, t0 in todo:
         log, _ = proc.communicate()
-        build_log[name] = {"seconds": time.perf_counter() - t0, "log": log}
+        build_log[key] = {"seconds": time.perf_counter() - t0, "log": log}
         if proc.returncode != 0:
-            failed.append(f"{name}:\n{log}")
+            failed.append(f"{key}:\n{log}")
             continue
         os.replace(tmp, out)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
 
 
-def load(name: str) -> ctypes.CDLL:
+def load(key: str) -> ctypes.CDLL:
     with _lock:
-        if name not in _libs:
-            build([name])
-            _libs[name] = ctypes.CDLL(library_path(name))
-        return _libs[name]
+        if key not in _libs:
+            build([key])
+            _libs[key] = ctypes.CDLL(library_path(key))
+        return _libs[key]
 
 
 class CudaKernel:
     """One C entry point of a csrc/ library, with its launch count.
 
     The entry point launches on the stream it is given and returns
-    cudaGetLastError(); a non-zero code raises.  `launches` counts the
-    launches that succeeded, and nothing else."""
+    cudaGetLastError(); a non-zero code raises.  `act` picks the library
+    built for that activation (ACTS).  `launches` counts the launches that
+    succeeded, of every activation, and nothing else."""
 
     def __init__(self, library: str, symbol: str,
                  argtypes: Sequence[type]):
@@ -99,21 +125,21 @@ class CudaKernel:
         self.symbol = symbol
         self.argtypes = list(argtypes)
         self.launches = 0
-        self._fn = None
+        self._fns: Dict[str, tuple] = {}
 
-    def __call__(self, *args) -> None:
-        if self._fn is None:
-            lib = load(self.library)
+    def __call__(self, *args, act: str = "poly") -> None:
+        if act not in self._fns:
+            lib = load(library_key(self.library, act))
             fn = getattr(lib, self.symbol)
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
             err_str = lib.cuda_error_string
             err_str.argtypes = [ctypes.c_int]
             err_str.restype = ctypes.c_char_p
-            self._err_str = err_str
-            self._fn = fn
-        err = self._fn(*args)
+            self._fns[act] = (fn, err_str)
+        fn, err_str = self._fns[act]
+        err = fn(*args)
         if err != 0:
             raise RuntimeError(f"{self.symbol}: CUDA error {err} "
-                               f"({self._err_str(err).decode()})")
+                               f"({err_str(err).decode()})")
         self.launches += 1

@@ -1,5 +1,6 @@
-"""The whole siren trunk + sigma head as one kernel, forward only
-(counterpart of the JAX package's ops/pallas_mlp.py).
+"""The whole trunk + sigma head as one kernel, forward only (counterpart
+of the JAX package's ops/pallas_mlp.py), for a siren trunk with the
+polynomial or the exact sine, or a ReLU trunk.
 
 It runs the two sigma-only passes of a spsbrdf render, the guided depth
 probe and the analytic sun march, whose results are consumed only as
@@ -15,6 +16,8 @@ bf16 terms (`split_bf16`) and summing both products in f32;
 At compute_dtype float32 the weights are f32 too: the packed weights then
 carry hi and lo bf16 planes for the CUDA kernels (`split_planes`), and each
 product runs as three (`split3_mm`: A_hi B_hi + A_lo B_hi + A_hi B_lo).
+The activation is built into each kernel library (`act_of`,
+ops/cuda_build.ACTS).
 
 The skip layer's concat([enc, h]) @ W is split as enc @ W_top + h @ W_bot;
 the packed `w_skip` holds [W_top (lane-padded) | W_bot] in (out, in) layout,
@@ -61,12 +64,20 @@ def kernel_supports(cfg: ModelConfig) -> bool:
 
 def cuda_kernels_cover(cfg: ModelConfig) -> bool:
     """True where the CUDA kernels take this model: the architecture of
-    kernel_supports, a siren trunk with the polynomial sine, a compute
+    kernel_supports (any of the three activations, act_of), a compute
     dtype of CUDA_DTYPES, width FEAT and an encoding of at most LANE
     lanes."""
-    return (kernel_supports(cfg) and cfg.siren and cfg.fast_sin
-            and cfg.compute_dtype in CUDA_DTYPES
+    return (kernel_supports(cfg) and cfg.compute_dtype in CUDA_DTYPES
             and cfg.feat == FEAT and cfg.xyz_in_dim <= LANE)
+
+
+def act_of(cfg: ModelConfig) -> str:
+    """The trunk's activation as the kernel libraries name it
+    (ops/cuda_build.ACTS): "poly" (siren, the polynomial sine), "sin"
+    (siren, the exact sine) or "relu" (no siren)."""
+    if not cfg.siren:
+        return "relu"
+    return "poly" if cfg.fast_sin else "sin"
 
 
 def split_operands(cfg: ModelConfig) -> bool:
@@ -145,23 +156,26 @@ def _softplus(x):
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
+def _act(cfg: ModelConfig, z: torch.Tensor, first: bool) -> torch.Tensor:
+    """The trunk's activation of z (pallas_mlp.py:128-132): the polynomial
+    or the exact sine of w0 z (w0 = 30 on the first layer), or ReLU."""
+    if cfg.siren:
+        w0 = 30.0 if first else 1.0
+        if cfg.fast_sin:
+            from .fast_math import fast_sin
+            return fast_sin(w0 * z)
+        return torch.sin(w0 * z)
+    return torch.clamp(z, min=0.0)
+
+
 def _trunk_sigma_plain(packed: Dict, cfg: ModelConfig, x: torch.Tensor,
                        want_feats: bool):
     """Plain twin of K1, the Pallas kernel's arithmetic: f32 activations
     times the dtype-rounded weights, f32 products (pallas_mlp.py:134-151:
     jnp.dot promotes the bf16 weights to f32)."""
-    def act(z, first):
-        if cfg.siren:
-            w0 = 30.0 if first else 1.0
-            if cfg.fast_sin:
-                from .fast_math import fast_sin
-                return fast_sin(w0 * z)
-            return torch.sin(w0 * z)
-        return torch.clamp(z, min=0.0)
-
     ein_p = packed["w0"].shape[1]
     skip = cfg.skips[0]
-    h = act(x @ packed["w0"].float().t() + packed["b0"], True)
+    h = _act(cfg, x @ packed["w0"].float().t() + packed["b0"], True)
     mid = 0
     for i in range(1, cfg.layers):
         if i == skip:
@@ -171,7 +185,7 @@ def _trunk_sigma_plain(packed: Dict, cfg: ModelConfig, x: torch.Tensor,
         else:
             z = h @ packed["w_mid"][mid].float().t() + packed["b_mid"][mid]
             mid += 1
-        h = act(z, False)
+        h = _act(cfg, z, False)
     sigma = _softplus(h @ packed["w_sigma"] + packed["b_sigma"])
     return sigma, (h if want_feats else None)
 
@@ -201,11 +215,9 @@ def _trunk_sigma_split(packed: Dict, cfg: ModelConfig, x: torch.Tensor,
     """K1's arithmetic in plain PyTorch, for the tests: every product as
     hi . W + lo . W on the split_bf16 terms of its f32 operand (the
     activations and the encoded input), and with f32 weights (float32) the
-    three products of split3_mm, f32 sums, then bias, activation and the
-    sigma head in f32 as in _trunk_sigma_plain.  Siren trunks with the
-    polynomial sine only, the kernel's activation."""
-    from .fast_math import fast_sin
-
+    three products of split3_mm, f32 sums, then bias, activation (the
+    configuration's, as the kernel library is built for it) and the sigma
+    head in f32 as in _trunk_sigma_plain."""
     def mm(a, w):
         if w.dtype == torch.float32:
             return split3_mm(a, w.t())
@@ -215,7 +227,7 @@ def _trunk_sigma_split(packed: Dict, cfg: ModelConfig, x: torch.Tensor,
 
     ein_p = packed["w0"].shape[1]
     skip = cfg.skips[0]
-    h = fast_sin(30.0 * (mm(x, packed["w0"]) + packed["b0"]))
+    h = _act(cfg, mm(x, packed["w0"]) + packed["b0"], True)
     mid = 0
     for i in range(1, cfg.layers):
         if i == skip:
@@ -224,7 +236,7 @@ def _trunk_sigma_split(packed: Dict, cfg: ModelConfig, x: torch.Tensor,
         else:
             z = mm(h, packed["w_mid"][mid]) + packed["b_mid"][mid]
             mid += 1
-        h = fast_sin(z)
+        h = _act(cfg, z, False)
     sigma = _softplus(h @ packed["w_sigma"] + packed["b_sigma"])
     return sigma, (h if want_feats else None)
 
@@ -235,13 +247,13 @@ def check_kernel_inputs(cfg: ModelConfig, packed: Dict, x: torch.Tensor):
     f32 with their split_planes beside them."""
     if not cuda_kernels_cover(cfg):
         raise ValueError(
-            f"the CUDA trunk kernels take a siren trunk of width {FEAT} with "
-            f"the polynomial sine, a compute_dtype of {CUDA_DTYPES} and an "
+            f"the CUDA trunk kernels take a trunk of width {FEAT} with one "
+            f"skip layer inside it (siren with the polynomial or the exact "
+            f"sine, or ReLU), a compute_dtype of {CUDA_DTYPES} and an "
             f"encoding of at most {LANE} lanes (got feat={cfg.feat}, "
-            f"siren={cfg.siren}, "
-            f"fast_sin={cfg.fast_sin}, compute_dtype={cfg.compute_dtype!r}, "
-            f"encoding {cfg.xyz_in_dim}); this model runs with the fused "
-            f"kernels off")
+            f"layers={cfg.layers}, skips={tuple(cfg.skips)}, "
+            f"compute_dtype={cfg.compute_dtype!r}, encoding "
+            f"{cfg.xyz_in_dim}); this model runs with the fused kernels off")
     if packed["w0"].shape != (FEAT, LANE):
         raise ValueError(f"packed w0 must be ({FEAT}, {LANE}), got "
                          f"{tuple(packed['w0'].shape)}")
@@ -290,7 +302,7 @@ def _trunk_sigma_cuda(packed: Dict, cfg: ModelConfig, x: torch.Tensor,
         packed["w_sigma"].data_ptr(), packed["b_sigma"].data_ptr(),
         sigma.data_ptr(), None if feats is None else feats.data_ptr(),
         cfg.layers, cfg.skips[0], int(split_operands(cfg)),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        torch.cuda.current_stream(x.device).cuda_stream, act=act_of(cfg))
     return sigma, feats
 
 

@@ -26,7 +26,13 @@ On a CUDA tensor `_run_fwd_h` launches K4 (csrc/trunk_heads_fwd.cu) and
 arithmetic.  Like the Pallas pair, the forward saves zs only and the
 backward rebuilds the u chain (b_th) from zs in f32 (`uchain_plain`; K5 in
 a kernel of its own before K3's sweep, `uchain_from_kernel` reads its
-layout).
+layout).  At compute_dtype float32 the kernels run every product of f32
+operands as three on their bf16 hi and lo terms, the head weights W_f,
+W_1r and W_1p packed as hi and lo planes (`HEAD_PLANE_KEYS`) and the 3-row
+second layers read in f32; `_trunk_heads_fwd_split` and
+`_trunk_heads_bwd_split` are that arithmetic in plain PyTorch, for the
+tests.  The activation is the configuration's, as in the trunk
+(fused_mlp.act_of).
 
 The path is opt-in, as in the JAX package: models.network reads
 BRDFNERF_FUSED_HEADS.
@@ -36,21 +42,22 @@ from __future__ import annotations
 
 import ctypes
 from types import SimpleNamespace
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 
 from ..config import ModelConfig
 from .cuda_build import CudaKernel
-from .fused_mlp import (FEAT, LANE, TILE_N, _round_up, check_kernel_inputs,
-                        kernel_supports, pack_trunk_weights, pad_rows_lanes,
-                        split_operands, weight_dtype)
-from .fused_trunk_vjp import (_act_all, _bwd_primal_tangent, _forward_chain,
-                              _grad_chain, _mm, _mm_t, _outer, _pack_params,
-                              _reverse_sweep, _saved_dtype, _split_skip,
-                              _unpack_grads,
-                              encode_with_jacobian, fwd_scratch, saved_spec,
-                              trunk_params, wgrad_scratch)
+from .fused_mlp import (FEAT, LANE, TILE_N, _round_up, act_of,
+                        check_kernel_inputs, kernel_supports,
+                        pack_trunk_weights, pad_rows_lanes, split_operands,
+                        split_planes, trunk_weight_ptrs, weight_dtype)
+from .fused_trunk_vjp import (SPLIT3, _act_all, _bwd_primal_tangent,
+                              _forward_chain, _grad_chain, _mm, _mm_t,
+                              _outer, _pack_params, _reverse_sweep,
+                              _saved_dtype, _split_skip, _unpack_grads,
+                              _vec_od, encode_with_jacobian, fwd_scratch,
+                              saved_spec, trunk_params, wgrad_scratch)
 
 HEAD_COLS = 8       # packed logits: sigma, rgb x3, k, theta, rhoc, pad
 RPV_NAMES = ("k_from_xyz", "theta_rpv_from_xyz", "rhoc_from_xyz")
@@ -60,16 +67,20 @@ HID = FEAT // 2     # the heads' hidden width the CUDA kernels take
 # (rgb | rpv), dW_2 for each of 3 logit columns over the 4 * HID hidden
 # units, db_2 (6, padded to 8); the layout of csrc/trunk_heads_bwd.cu
 HEAD_PART = FEAT + 4 * HID + 3 * 4 * HID + 8
+# the head weights K4 and K5 stream through tensor cores, and the key of
+# their hi/lo planes (at float32, as fused_mlp.PLANE_KEYS for the trunk)
+HEAD_PLANE_KEYS = {"wf": "wf_planes", "w1r": "w1r_planes",
+                   "w1p": "w1p_planes"}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 TRUNK_HEADS_FWD = CudaKernel(
     "trunk_heads_fwd", "trunk_heads_fwd_launch",
-    [_P, _I, _I] + [_P] * 8 + [_P] * 10 + [_P] * 4 + [_I, _I, _I, _P])
+    [_P, _I, _I] + [_P] * 8 + [_P] * 10 + [_P] * 4 + [_I, _I, _I, _I, _P])
 TRUNK_HEADS_BWD = CudaKernel(
     "trunk_heads_bwd", "trunk_heads_bwd_launch",
     [_P] * 5 + [_I, _I] + [_P] * 5 + [_P] * 8 + [_P] * 7 + [_I, _I, _I]
-    + [_P] * 4 + [_P] * 17 + [_I, _I, _I, _P])
+    + [_P] * 4 + [_P] * 17 + [_I, _I, _I, _I, _P])
 
 
 def heads_kernel_supports(cfg: ModelConfig, net, dirs=None, t_emb=None,
@@ -77,13 +88,8 @@ def heads_kernel_supports(cfg: ModelConfig, net, dirs=None, t_emb=None,
                           nr_lr: bool = False) -> bool:
     """True when the head set is exactly the flagship's: RPV(111) at
     dim_rpv 1, rgb on the features alone (no view dirs), analytic-only
-    normals, no sun_v / sky heads (pallas_trunk_heads.py:73-102).  On a
-    CUDA run at compute_dtype float32 it is False: K4 and K5 take bf16
-    operands only (their f32 instantiations are ROADMAP Queue 2 item 3),
-    so K2 and K3 run in their place."""
-    if (split_operands(cfg) and "fc_net" in net
-            and net["fc_net"][0].w.device.type == "cuda"):
-        return False
+    normals, no sun_v / sky heads (pallas_trunk_heads.py:73-102), at
+    every compute dtype the trunk kernels take."""
     if not (kernel_supports(cfg) and apply_brdf and not apply_theta
             and cfg.rpv and cfg.func_m and cfg.func_f and cfg.func_h == 1
             and cfg.dim_rpv == 1 and not nr_lr
@@ -105,13 +111,17 @@ def heads_kernel_supports(cfg: ModelConfig, net, dirs=None, t_emb=None,
         return False
 
 
-def pack_head_weights(net, cfg: ModelConfig,
-                      dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+def pack_head_weights(net, cfg: ModelConfig, dtype: torch.dtype,
+                      planes: Optional[bool] = None
+                      ) -> Dict[str, torch.Tensor]:
     """The flagship head set as padded matrices in (out, in) layout
     (pallas_trunk_heads.py:105-137, transposed): wf (F, F), w1r (H, F), w2r
     (LANE, H) with rows 0..2 real, w1p (3H, F) = [k | theta | rhoc], w2p
     (LANE, 3H) block-diagonal (row i holds head i's second layer in columns
-    [iH, (i+1)H)); weights in `dtype`, biases f32 padded alike."""
+    [iH, (i+1)H)); weights in `dtype`, biases f32 padded alike.  With
+    `planes` (by default: f32 weights on a CUDA device, as
+    fused_mlp.pack_trunk_weights) also the split_planes of wf, w1r and w1p
+    under HEAD_PLANE_KEYS."""
     hid = cfg.feat // 2
     f32 = torch.float32
     wf = net["feats_from_xyz"][0]
@@ -128,7 +138,7 @@ def pack_head_weights(net, cfg: ModelConfig,
     for i, p in enumerate(p2s):
         w2p[i, i * hid:(i + 1) * hid] = p.w.detach()[0].to(dtype)
         b2p[i] = p.b.detach()[0].float()
-    return {
+    hw = {
         "wf": wf.w.detach().to(dtype).contiguous(),
         "bf": wf.b.detach().float().contiguous(),
         "w1r": r1.w.detach().to(dtype).contiguous(),
@@ -138,46 +148,65 @@ def pack_head_weights(net, cfg: ModelConfig,
         "b1p": torch.cat([p.b.detach().float() for p in p1s]).contiguous(),
         "w2p": w2p, "b2p": b2p,
     }
+    if planes is None:
+        planes = dtype == torch.float32 and dev.type == "cuda"
+    if planes:
+        for k, kp in HEAD_PLANE_KEYS.items():
+            hw[kp] = split_planes(hw[k])
+    return hw
 
 
 def _head_forward(h, hw: Dict, od, cfg: ModelConfig):
     """xf, (hr, act'), z2r, (hp, act'), z2p from the trunk output h
-    (pallas_trunk_heads.py:140-149)."""
+    (pallas_trunk_heads.py:140-149); the 3-row second layers' products in
+    _vec_od(od) (the split kernels take them in f32 on the CUDA cores)."""
+    vo = _vec_od(od)
     xf = _mm(h, hw["wf"], od) + hw["bf"]
     z1r = _mm(xf, hw["w1r"], od) + hw["b1r"]
     hr, d1r = _act_all(z1r, 1.0, cfg.siren, cfg.fast_sin)
-    z2r = _mm(hr, hw["w2r"], od) + hw["b2r"]
+    z2r = _mm(hr, hw["w2r"], vo) + hw["b2r"]
     z1p = _mm(xf, hw["w1p"], od) + hw["b1p"]
     hp, d1p = _act_all(z1p, 1.0, cfg.siren, cfg.fast_sin)
-    z2p = _mm(hp, hw["w2p"], od) + hw["b2p"]
+    z2p = _mm(hp, hw["w2p"], vo) + hw["b2p"]
     return xf, hr, d1r, z2r, hp, d1p, z2p
 
 
 # ------------------------------------------------------------ the twins
 
 def _trunk_heads_fwd_plain(packed: Dict, hw: Dict, cfg: ModelConfig, x,
-                           want_zs: bool = False):
+                           want_zs: bool = False, od=None):
     """Plain twin of K4, the Pallas _fwd_kernel_h (pallas_trunk_heads.py:
     154-180): (packed logits (n, 8), gx (n, Ein_p), zs (n, L*F) in the saved
-    dtype with want_zs, else None)."""
-    od = weight_dtype(cfg)
-    h, d1s, zs, zsig = _forward_chain(packed, cfg, x)
+    dtype with want_zs, else None).  od: the products' operand dtype
+    (default weight_dtype(cfg); SPLIT3 the split kernels')."""
+    od = weight_dtype(cfg) if od is None else od
+    h, d1s, zs, zsig = _forward_chain(packed, cfg, x, od)
     _, _, _, z2r, _, _, z2p = _head_forward(h, hw, od, cfg)
     out = torch.cat([torch.logaddexp(zsig, torch.zeros_like(zsig))[:, None],
                      z2r[:, 0:3], z2p[:, 0:3], torch.zeros_like(zsig)[:, None]],
                     1)
-    gx, _ = _grad_chain(packed, cfg, zsig, d1s)
+    gx, _ = _grad_chain(packed, cfg, zsig, d1s, od)
     zs = torch.cat(zs, 1).to(_saved_dtype(cfg)) if want_zs else None
     return out, gx, zs
 
 
-def uchain_plain(packed: Dict, cfg: ModelConfig, zs) -> torch.Tensor:
+def _trunk_heads_fwd_split(packed: Dict, hw: Dict, cfg: ModelConfig, x,
+                           want_zs: bool = False):
+    """K4's float32 arithmetic in plain PyTorch, for the tests: the twin
+    with every trunk and head product of f32 operands as split3_mm, the
+    sigma head and the heads' second layers in f32."""
+    return _trunk_heads_fwd_plain(packed, hw, cfg, x, want_zs, od=SPLIT3)
+
+
+def uchain_plain(packed: Dict, cfg: ModelConfig, zs, od=None) -> torch.Tensor:
     """The b_th chain the Pallas _bwd_kernel_h rebuilds (pallas_trunk_heads.
     py:252-291), in its expression order, from the saved zs (n, L*F):
     b_th_{L-1} = bf16(sigmoid(zsig)) w_sigma with zsig = bf16(h_{L-1}) .
     w_sigma + b, then b_th_{l-1} = bf16(act'(z_l) b_th_l) W_l.  Returns
-    (n, L*F) f32, layer l in columns [l F, (l+1) F)."""
-    od = weight_dtype(cfg)
+    (n, L*F) f32, layer l in columns [l F, (l+1) F).  od as in
+    _trunk_heads_fwd_plain (at float32 nothing is rounded)."""
+    od = weight_dtype(cfg) if od is None else od
+    vo = _vec_od(od)
     layers, skip, feat = cfg.layers, cfg.skips[0], cfg.feat
     _, w_bot = _split_skip(packed)
     wsig = packed["w_sigma"][None, :]
@@ -186,8 +215,8 @@ def uchain_plain(packed: Dict, cfg: ModelConfig, zs) -> torch.Tensor:
         z = zs[:, i * feat:(i + 1) * feat].float()
         h, d1 = _act_all(z, 30.0 if i == 0 else 1.0, cfg.siren, cfg.fast_sin)
         d1s.append(d1)
-    zsig = _mm(h, wsig, od)[:, 0] + packed["b_sigma"]
-    b_th = _mm_t(torch.sigmoid(zsig)[:, None], wsig, od)
+    zsig = _mm(h, wsig, vo)[:, 0] + packed["b_sigma"]
+    b_th = _mm_t(torch.sigmoid(zsig)[:, None], wsig, vo)
     out: List = [None] * layers
     mid = layers - 3
     for i in range(layers - 1, -1, -1):
@@ -216,17 +245,19 @@ def uchain_from_kernel(uc: torch.Tensor, n: int, layers: int) -> torch.Tensor:
 
 
 def _trunk_heads_bwd_plain(packed: Dict, hw: Dict, cfg: ModelConfig, x, cot,
-                           cg, zs):
+                           cg, zs, od=None):
     """Plain twin of K5, the Pallas _bwd_kernel_h (pallas_trunk_heads.py:
     185-302) in the same expression order: the b_th chain is rebuilt from
     zs (uchain_plain), not loaded.  x, cg (n, Ein_p) f32, cot (n, 8) f32,
     zs (n, L*F).  Returns K3's nine trunk grads, then dwf (F, F), dbf, dw1r (F, H), db1r,
     dw2r (H, LANE), db2r (LANE,), dw1p (F, 3H), db1p, dw2p (3H, LANE), db2p
-    (LANE,), all f32 in (in, out) layout like the Pallas kernel's."""
-    od = weight_dtype(cfg)
+    (LANE,), all f32 in (in, out) layout like the Pallas kernel's.  od as
+    in _trunk_heads_fwd_plain."""
+    od = weight_dtype(cfg) if od is None else od
+    vo = _vec_od(od)
     wsig = packed["w_sigma"][None, :]
     hs, d1s, d2s, zsig, tzs, ths, tzsig = _bwd_primal_tangent(packed, cfg,
-                                                              cg, zs)
+                                                              cg, zs, od)
     sp1 = torch.sigmoid(zsig)
     sp2 = sp1 * (1.0 - sp1)
     a_z = (cot[:, 0] * sp1 + sp2 * tzsig)[:, None]
@@ -238,37 +269,58 @@ def _trunk_heads_bwd_plain(packed: Dict, hw: Dict, cfg: ModelConfig, x, cot,
                       device=cot.device)
     c_z2r = torch.cat([cot[:, 1:4], pad], 1)
     c_z2p = torch.cat([cot[:, 4:7], pad], 1)
-    dw2r, db2r = _outer(hr, c_z2r, od), torch.sum(c_z2r, 0)
-    dw2p, db2p = _outer(hp, c_z2p, od), torch.sum(c_z2p, 0)
-    c_z1r = d1r * _mm_t(c_z2r, hw["w2r"], od)
-    c_z1p = d1p * _mm_t(c_z2p, hw["w2p"], od)
+    dw2r, db2r = _outer(hr, c_z2r, vo), torch.sum(c_z2r, 0)
+    dw2p, db2p = _outer(hp, c_z2p, vo), torch.sum(c_z2p, 0)
+    c_z1r = d1r * _mm_t(c_z2r, hw["w2r"], vo)
+    c_z1p = d1p * _mm_t(c_z2p, hw["w2p"], vo)
     dw1r, db1r = _outer(xf, c_z1r, od), torch.sum(c_z1r, 0)
     dw1p, db1p = _outer(xf, c_z1p, od), torch.sum(c_z1p, 0)
     a_xf = _mm_t(c_z1r, hw["w1r"], od) + _mm_t(c_z1p, hw["w1p"], od)
     dwf, dbf = _outer(hs[-1], a_xf, od), torch.sum(a_xf, 0)
     a_h_heads = _mm_t(a_xf, hw["wf"], od)
 
-    dwsig = (_outer(hs[-1], a_z, od) + _outer(ths[-1], b_tz, od))[:, 0]
+    dwsig = (_outer(hs[-1], a_z, vo) + _outer(ths[-1], b_tz, vo))[:, 0]
     dbsig = torch.sum(a_z, 0)
-    a_h = _mm_t(a_z, wsig, od) + a_h_heads
-    bths = uchain_plain(packed, cfg, zs).split(cfg.feat, 1)
+    a_h = _mm_t(a_z, wsig, vo) + a_h_heads
+    bths = uchain_plain(packed, cfg, zs, od).split(cfg.feat, 1)
     trunk = _reverse_sweep(packed, cfg, x, cg, hs, d1s, d2s, tzs, ths, a_h,
-                           bths=bths)
+                           bths=bths, od=od)
     return trunk + (dwsig, dbsig, dwf, dbf, dw1r, db1r, dw2r, db2r, dw1p,
                     db1p, dw2p, db2p)
+
+
+def _trunk_heads_bwd_split(packed: Dict, hw: Dict, cfg: ModelConfig, x, cot,
+                           cg, zs):
+    """K5's float32 arithmetic in plain PyTorch, for the tests: the twin
+    with every trunk and head product of f32 operands as split3_mm, the
+    sigma head and the heads' second layers in f32."""
+    return _trunk_heads_bwd_plain(packed, hw, cfg, x, cot, cg, zs, od=SPLIT3)
 
 
 # ------------------------------------------------------------ the kernels
 
 def check_head_weights(cfg: ModelConfig, hw: Dict, x: torch.Tensor):
-    """What K4 and K5 take of the packed heads; anything else raises."""
+    """What K4 and K5 take of the packed heads, the operands of the
+    configuration's dtype: bf16 weights at a bf16 compute dtype; at float32
+    f32 weights with the split_planes of wf, w1r and w1p beside them
+    (HEAD_PLANE_KEYS).  Anything else raises."""
     f, h = FEAT, HID
     shapes = {"wf": (f, f), "bf": (f,), "w1r": (h, f), "b1r": (h,),
               "w2r": (LANE, h), "b2r": (LANE,), "w1p": (3 * h, f),
               "b1p": (3 * h,), "w2p": (LANE, 3 * h), "b2p": (LANE,)}
+    split = split_operands(cfg)
+    wdt = torch.float32 if split else torch.bfloat16
+    if split:
+        for k, kp in HEAD_PLANE_KEYS.items():
+            shapes[kp] = (2,) + shapes[k]
     for k, shape in shapes.items():
-        v = hw[k]
-        want = torch.float32 if k.startswith("b") else torch.bfloat16
+        v = hw.get(k)
+        want = (torch.float32 if k.startswith("b") else
+                torch.bfloat16 if k in HEAD_PLANE_KEYS.values() else wdt)
+        if v is None:
+            raise ValueError(f"packed head {k} is missing: at compute_dtype "
+                             f"float32 the heads hold the hi and lo planes "
+                             f"of wf, w1r and w1p (split_planes)")
         if not (v.device == x.device and v.is_contiguous()
                 and tuple(v.shape) == shape and v.dtype == want):
             raise ValueError(f"packed head {k} must be a contiguous {want} "
@@ -276,21 +328,21 @@ def check_head_weights(cfg: ModelConfig, hw: Dict, x: torch.Tensor):
                              f"{tuple(v.shape)} on {v.device}")
 
 
-def check_bf16_operands(cfg: ModelConfig):
-    """K4 and K5 multiply bf16 operands; at float32 they raise."""
-    if split_operands(cfg):
-        raise ValueError(
-            "K4 and K5 take bf16 operands (compute_dtype bfloat16 or "
-            "bfloat16_all); at float32 K2 and K3 run in their place "
-            "(heads_kernel_supports)")
+def head_weight_ptrs(cfg: ModelConfig, hw: Dict) -> Dict[str, int]:
+    """{name: data pointer} of the packed heads in the kernels' order (wf,
+    bf, w1r, b1r, w2r, b2r, w1p, b1p, w2p, b2p): at float32 the planes of
+    wf, w1r and w1p in their places."""
+    planes = HEAD_PLANE_KEYS if split_operands(cfg) else {}
+    return {k: hw[planes.get(k, k)].data_ptr()
+            for k in ("wf", "bf", "w1r", "b1r", "w2r", "b2r", "w1p", "b1p",
+                      "w2p", "b2p")}
 
 
 def _trunk_heads_fwd_cuda(packed: Dict, hw: Dict, cfg: ModelConfig, x,
                           want_zs: bool = False):
     """K4: (out (n, 8), gx (n, LANE), zs): with want_zs, zs as saved_spec
-    (bf16 under bfloat16_all, f32 under bfloat16), the residual K5 reads,
-    else None."""
-    check_bf16_operands(cfg)
+    (bf16 under bfloat16_all, f32 under bfloat16 and float32), the residual
+    K5 reads, else None."""
     check_kernel_inputs(cfg, packed, x)
     check_head_weights(cfg, hw, x)
     n, dev = x.shape[0], x.device
@@ -301,17 +353,17 @@ def _trunk_heads_fwd_cuda(packed: Dict, hw: Dict, cfg: ModelConfig, x,
         shape, dt = saved_spec(cfg, n)
         zs = torch.empty(shape, dtype=dt, device=dev)
     n_blocks, scratch = fwd_scratch(n, cfg.layers, True, dev)
+    w0, w_mid, w_skip = trunk_weight_ptrs(cfg, packed)
     TRUNK_HEADS_FWD(
-        x.data_ptr(), n, n_blocks,
-        *(packed[k].data_ptr() for k in ("w0", "b0", "w_mid", "b_mid",
-                                         "w_skip", "b_skip", "w_sigma",
-                                         "b_sigma")),
-        *(hw[k].data_ptr() for k in ("wf", "bf", "w1r", "b1r", "w2r", "b2r",
-                                     "w1p", "b1p", "w2p", "b2p")),
+        x.data_ptr(), n, n_blocks, w0, packed["b0"].data_ptr(), w_mid,
+        packed["b_mid"].data_ptr(), w_skip, packed["b_skip"].data_ptr(),
+        packed["w_sigma"].data_ptr(), packed["b_sigma"].data_ptr(),
+        *head_weight_ptrs(cfg, hw).values(),
         out.data_ptr(), gx.data_ptr(), scratch.data_ptr(),
         None if zs is None else zs.data_ptr(),
-        int(zs is not None and zs.dtype == torch.float32), cfg.layers,
-        cfg.skips[0], torch.cuda.current_stream(dev).cuda_stream)
+        int(zs is not None and zs.dtype == torch.float32),
+        int(split_operands(cfg)), cfg.layers, cfg.skips[0],
+        torch.cuda.current_stream(dev).cuda_stream, act=act_of(cfg))
     return out, gx, zs
 
 
@@ -319,7 +371,6 @@ def check_bwd_h_inputs(cfg: ModelConfig, packed: Dict, hw: Dict, x, cot, cg,
                        zs):
     """What K5 takes; anything else raises.  It takes no u chain: it
     rebuilds it from zs, taken as saved_spec."""
-    check_bf16_operands(cfg)
     check_kernel_inputs(cfg, packed, x)
     check_head_weights(cfg, hw, x)
     n = x.shape[0]
@@ -358,31 +409,36 @@ def _trunk_heads_bwd_cuda(packed: Dict, hw: Dict, cfg: ModelConfig, x, cot,
     n_tiles = n // TILE_N
     n_blocks = min(n_tiles,
                    torch.cuda.get_device_properties(dev).multi_processor_count)
-    # the rebuilt b_th chain, K3's scratch, then the bf16 operands of the
-    # heads' weight-gradient products: h_{L-1}, xf, a_xf and the first
-    # layers' cotangents [c_z1r | c_z1p]
+    split = split_operands(cfg)
+    # the rebuilt b_th chain, K3's scratch (as _trunk_bwd_cuda's), then the
+    # bf16 operands of the heads' weight-gradient products: h_{L-1}, xf,
+    # a_xf and the first layers' cotangents [c_z1r | c_z1p] (at float32
+    # each as its hi and lo planes)
     uc = f32(n * layers * F)
-    splits_t, splits_h, wpart = wgrad_scratch(n, layers, True, dev)
-    scratch = (bf(2, n, LANE), bf(layers - 1, 2, n, F), bf(layers, 2, n, F),
+    splits_t, splits_h, wpart = wgrad_scratch(n, layers, True, dev, split)
+    pl, hp = (4, 2) if split else (2, 1)
+    scratch = (bf(pl, n, LANE), bf(layers - 1, pl, n, F),
+               bf(layers, pl, n, F),
                f32(n_tiles, (layers + 1) * F + HEAD_PART), f32(n_tiles),
                f32(n_blocks, layers, TILE_N * F), wpart)
-    head_ops = (bf(n, F), bf(n, F), bf(n, F), bf(n, 4 * H))
+    head_ops = (bf(hp, n, F), bf(hp, n, F), bf(hp, n, F), bf(hp, n, 4 * H))
     trunk = (f32(LANE, F), f32(F), f32(layers - 2, F, F), f32(layers - 2, F),
              f32(LANE, F), f32(F, F), f32(F), f32(F), f32(1))
     dw1, db1 = f32(F, 4 * H), f32(4 * H)
     heads = (f32(F, F), f32(F), dw1, db1, zeros(H, LANE), zeros(LANE),
              zeros(3 * H, LANE), zeros(LANE))
+    hptr = head_weight_ptrs(cfg, hw)
     TRUNK_HEADS_BWD(
         x.data_ptr(), cot.data_ptr(), cg.data_ptr(), zs.data_ptr(),
-        uc.data_ptr(), n, n_blocks,
-        *(packed[k].data_ptr() for k in ("w0", "w_mid", "w_skip", "w_sigma",
-                                         "b_sigma")),
-        *(hw[k].data_ptr() for k in ("wf", "bf", "w1r", "b1r", "w2r", "w1p",
-                                     "b1p", "w2p")),
+        uc.data_ptr(), n, n_blocks, *trunk_weight_ptrs(cfg, packed),
+        packed["w_sigma"].data_ptr(), packed["b_sigma"].data_ptr(),
+        *(hptr[k] for k in ("wf", "bf", "w1r", "b1r", "w2r", "w1p", "b1p",
+                            "w2p")),
         *(v.data_ptr() for v in scratch), splits_t, splits_h, wpart.shape[0],
         *(v.data_ptr() for v in head_ops), *(v.data_ptr() for v in trunk),
         *(v.data_ptr() for v in heads), int(zs.dtype == torch.float32),
-        layers, cfg.skips[0], torch.cuda.current_stream(dev).cuda_stream)
+        int(split), layers, cfg.skips[0],
+        torch.cuda.current_stream(dev).cuda_stream, act=act_of(cfg))
     if scratch_out is not None:
         scratch_out.update(zip(("xt", "hth", "azbtz", "part", "pbs"), scratch))
         scratch_out.update(zip(("hl", "xfb", "axf", "cz1"), head_ops))

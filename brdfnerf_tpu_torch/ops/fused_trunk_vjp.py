@@ -31,7 +31,9 @@ Pallas kernels' arithmetic.  `TrunkCore` is the autograd Function around the
 pair.  At compute_dtype float32 the kernels run every product as three on
 the bf16 terms of its f32 operands (fused_mlp.split3_mm);
 `_trunk_fwd_grad_split` and `_trunk_bwd_split` are that arithmetic in plain
-PyTorch, for the tests.
+PyTorch, for the tests.  The activation (the polynomial or the exact sine,
+or ReLU) is the configuration's in the twins (`_act_all`) and built into
+the kernel library the wrappers launch (fused_mlp.act_of).
 """
 
 from __future__ import annotations
@@ -46,7 +48,7 @@ import torch
 from ..config import ModelConfig
 from .cuda_build import CudaKernel
 from .fast_math import _C1, _C3, _C5, _C7, _C9, _TWO_PI, _INV_2PI
-from .fused_mlp import (FEAT, LANE, TILE_N, _round_up,
+from .fused_mlp import (FEAT, LANE, TILE_N, _round_up, act_of,
                         check_kernel_inputs, pack_trunk_weights,
                         pad_rows_lanes, split3_mm, split_operands,
                         trunk_weight_ptrs, weight_dtype)
@@ -101,19 +103,23 @@ def wgrad_slices(chunks: int, splits: int):
 @functools.lru_cache(maxsize=None)
 def wgrad_splits(n_rows: int, layers: int, heads: bool = False,
                  sms: int = 132, split: bool = False):
-    """(splits of the trunk's K = 2 n (split: 3 x 2 n, the three products
-    of the hi and lo planes), splits of the heads' K = n; 0 without heads)
-    that minimise the weight-gradient kernel's time in a model of whole
-    waves: ceil(blocks / sms) waves, each as long as the longest slice plus
-    WGRAD_TAIL.  Ties go to fewer blocks.  With split, no slice of the
-    trunk holds more than WGRAD_F32_CHUNKS chunks."""
-    ct = (3 if split else 1) * 2 * n_rows // WGRAD_CHUNK
-    ch = n_rows // WGRAD_CHUNK
+    """(splits of the trunk's K = 2 n, splits of the heads' K = n; 0
+    without heads; with split each K three times as long, the three
+    products of the hi and lo planes) that minimise the weight-gradient
+    kernel's time in a model of whole waves: ceil(blocks / sms) waves, each
+    as long as the longest slice plus WGRAD_TAIL.  Ties go to fewer blocks.
+    With split, no slice of the trunk or the heads holds more than
+    WGRAD_F32_CHUNKS chunks."""
+    k = 3 if split else 1
+    ct = k * 2 * n_rows // WGRAD_CHUNK
+    ch = k * n_rows // WGRAD_CHUNK
     tt, th = wgrad_tiles(layers, heads)
     least = -(-ct // WGRAD_F32_CHUNKS) if split else 1
+    least_h = -(-ch // WGRAD_F32_CHUNKS) if split else 1
     best = None
     for st in range(least, min(ct, least + 63) + 1):
-        for sh in range(1, min(ch, 64) + 1) if heads else (0,):
+        for sh in (range(least_h, min(ch, least_h + 63) + 1) if heads
+                   else (0,)):
             blocks = tt * st + th * sh
             longest = max(-(-ct // st), -(-ch // sh) if sh else 0)
             key = (-(-blocks // sms) * (longest + WGRAD_TAIL), blocks)
@@ -407,7 +413,7 @@ def _trunk_fwd_grad_cuda(packed: Dict, cfg: ModelConfig, x: torch.Tensor,
         None if us is None else us.data_ptr(),
         int(zs is not None and zs.dtype == torch.float32),
         int(split_operands(cfg)), cfg.layers, cfg.skips[0],
-        torch.cuda.current_stream(dev).cuda_stream)
+        torch.cuda.current_stream(dev).cuda_stream, act=act_of(cfg))
     if want_zs:
         return sigma, feats, gx, zs, us
     return sigma, feats, gx
@@ -504,7 +510,7 @@ def _trunk_bwd_cuda(packed: Dict, cfg: ModelConfig, x, cs, cf, cg, zs, us,
         part_bs.data_ptr(), tzs.data_ptr(), wpart.data_ptr(), splits,
         wpart.shape[0], *(o.data_ptr() for o in outs),
         int(zs.dtype == torch.float32), int(split), layers, cfg.skips[0],
-        torch.cuda.current_stream(dev).cuda_stream)
+        torch.cuda.current_stream(dev).cuda_stream, act=act_of(cfg))
     if scratch_out is not None:
         scratch_out.update(xt=xt, hth=hth, azbtz=azbtz, part=part,
                            pbs=part_bs)

@@ -8,11 +8,14 @@ At each size (default 192: 3 tiles, a ragged last wave), on the flagship
 trunk (8 x 512, skip 4) from seed 0:
   * compute_dtype float32 (every product as three on the bf16 hi and lo
     terms of its f32 operands): K1 with and without feats, K2 serving, K2
-    saving zs/us and K3, each launched twice with bit-identical outputs,
-    against its exact-f32 twin on the same inputs (TF32 off), to
-    F32_BOUND relative L2 on every output; beside each, the bfloat16_all
-    kernel's output for the same inputs against the same twin, which the
-    float32 kernel must beat by CLOSER times;
+    saving zs/us, K3, K4 serving, K4 saving zs and K5, each launched twice
+    with bit-identical outputs, against its exact-f32 twin on the same
+    inputs (TF32 off), to F32_BOUND relative L2 on every output; beside
+    each, the bfloat16_all kernel's output for the same inputs against the
+    same twin, which the float32 kernel must beat by CLOSER times (K4/K5:
+    HEADS_CLOSER); K4/K5 also against their split twins (the kernels'
+    own arithmetic in plain PyTorch), and K4's sigma and gx bit for bit
+    K2's;
   * compute_dtype bfloat16 (bf16 operands, f32 activations, zs/us saved
     in f32): K2 saving zs/us -> K3, and K4 saving zs -> K5, against their
     twins at the bfloat16_all instantiations' bounds in chip_smoke.py.
@@ -46,6 +49,13 @@ F32_BOUND = 1e-4
 # ... and the float32 kernel must be at least this many times closer to the
 # exact twin than the bfloat16_all kernel
 CLOSER = 10.0
+# ... K4 and K5 (their float32 instantiations came later, with this bound
+# from the start; K1-K3 measured 370-524 times)
+HEADS_CLOSER = 100.0
+# K5's outputs that no product enters (the logits' bias grads: column sums
+# of the cotangents, the same f32 sums at every dtype), held to F32_BOUND
+# but to no ratio
+SUMS_ONLY = ("db2r", "db2p")
 K3_NAMES = ("dw0", "db0", "dwm", "dbm", "dwst", "dwsb", "dbs", "dwsig",
             "dbsig")
 K5_NAMES = K3_NAMES + ("dwf", "dbf", "dw1r", "db1r", "dw2r", "db2r", "dw1p",
@@ -57,15 +67,17 @@ def rel_l2(got, ref) -> float:
     return ((got.float() - ref).norm() / ref.norm().clamp_min(1e-30)).item()
 
 
-def flagship(compute_dtype: str, seed: int = 0):
+def flagship(compute_dtype: str, seed: int = 0, siren: bool = True,
+             fast_sin: bool = True):
     """(ModelConfig, network) of the flagship spsbrdf-nerf at
-    compute_dtype, its weights from `seed`, on the card."""
+    compute_dtype (and activation: siren, fast_sin), its weights from
+    `seed`, on the card."""
     from ..config import ModelConfig
     from ..models.network import init_network
-    cfg = ModelConfig(variant="spsbrdf-nerf", siren=True, mapping=True,
+    cfg = ModelConfig(variant="spsbrdf-nerf", siren=siren, mapping=True,
                       compute_dtype=compute_dtype, normal="analystic",
                       sun_v="analystic", func_m=True, func_f=True, func_h=1,
-                      dim_rpv=1)
+                      dim_rpv=1, fast_sin=fast_sin)
     g = torch.Generator(device="cuda").manual_seed(seed)
     return cfg, init_network(cfg, g, device="cuda")
 
@@ -100,19 +112,29 @@ def same_twice(label, first, second):
                                     "launches"
 
 
-def hold_f32(label, names, got, bf16, ref, report):
+def hold_f32(label, names, got, bf16, ref, report, closer=CLOSER,
+             split=None):
     """Every output of a float32 kernel within F32_BOUND of its exact
-    twin, and CLOSER times closer than the bfloat16_all kernel's; returns
-    the largest relative L2 and the smallest ratio."""
+    twin (and of its split twin, where given), and `closer` times closer
+    than the bfloat16_all kernel's; returns the largest relative L2 and
+    the smallest ratio."""
     worst, ratio = 0.0, float("inf")
-    for name, g_, b_, r_ in zip(names, got, bf16, ref):
+    split = [None] * len(names) if split is None else split
+    for name, g_, b_, r_, s_ in zip(names, got, bf16, ref, split):
         assert torch.isfinite(g_.float()).all(), (label, name)
         e, eb = rel_l2(g_, r_), rel_l2(b_, r_)
+        es = None if s_ is None else rel_l2(g_, s_)
         print(f"  {label} {name}: relative L2 {e:.3e} (bfloat16_all kernel "
-              f"{eb:.3e}, {eb / max(e, 1e-30):.0f}x)", flush=True)
+              f"{eb:.3e}, {eb / max(e, 1e-30):.0f}x)"
+              + ("" if es is None else f"; against the split twin "
+                 f"{es:.3e}"), flush=True)
         assert e <= F32_BOUND, (label, name, e)
-        assert eb >= CLOSER * e, (label, name, e, eb)
-        worst, ratio = max(worst, e), min(ratio, eb / max(e, 1e-30))
+        assert es is None or es <= F32_BOUND, (label, name, es)
+        worst = max(worst, e)
+        if name in SUMS_ONLY:
+            continue
+        assert eb >= closer * e, (label, name, e, eb)
+        ratio = min(ratio, eb / max(e, 1e-30))
     report[label] = {"rel_l2": worst, "bf16_over_f32": ratio}
     return worst, ratio
 
@@ -158,7 +180,47 @@ def check_f32(n: int, seed: int = 0, report=None):
                              us.to(bf))
     ref = k2._trunk_bwd_plain(p32, cfg, enc, cs, cf, cg, zs, us)
     hold_f32(f"K3 float32 at {n}", K3_NAMES, got, b16, ref, report)
+    check_heads_f32(n, net, cfg16, enc, gen, report)
     return report
+
+
+def check_heads_f32(n, net, cfg16, enc, gen, report):
+    """K4 serving and saving zs, and K5 on the exact twin's zs, at float32
+    against their exact and split twins (see the module docstring)."""
+    cfg = with_dtype(cfg16, "float32")
+    p32 = k1.pack_trunk_weights(net, cfg, torch.float32)
+    p16 = k1.pack_trunk_weights(net, cfg16, torch.bfloat16)
+    hw32 = k4.pack_head_weights(net, cfg, torch.float32)
+    hw16 = k4.pack_head_weights(net, cfg16, torch.bfloat16)
+    assert set(k4.HEAD_PLANE_KEYS.values()) <= set(hw32)
+    k2_out = k2._trunk_fwd_grad_cuda(p32, cfg, enc)
+    for want_zs in (False, True):
+        got = k4._trunk_heads_fwd_cuda(p32, hw32, cfg, enc, want_zs)
+        names = ("out", "gx", "zs")[:2 + want_zs]
+        same_twice("K4 float32", got[:len(names)], k4._trunk_heads_fwd_cuda(
+            p32, hw32, cfg, enc, want_zs)[:len(names)])
+        b16 = k4._trunk_heads_fwd_cuda(p16, hw16, cfg16, enc, want_zs)
+        ref = k4._trunk_heads_fwd_plain(p32, hw32, cfg, enc, want_zs)
+        spl = k4._trunk_heads_fwd_split(p32, hw32, cfg, enc, want_zs)
+        hold_f32(f"K4 float32 at {n}, zs {want_zs}", names, got, b16, ref,
+                 report, HEADS_CLOSER, spl)
+        # K4 runs K2's trunk and chain with the same arithmetic
+        assert torch.equal(got[1], k2_out[2]), "K4 float32 gx is not K2's"
+        assert torch.equal(got[0][:, 0], k2_out[0]), "K4 sigma is not K2's"
+        assert got[0][:, 7].abs().max().item() == 0.0
+    zs = k4._trunk_heads_fwd_plain(p32, hw32, cfg, enc, True)[2]
+    cot = torch.randn(n, k4.HEAD_COLS, device="cuda", generator=gen)
+    cot[:, 7] = 0.0
+    _, _, cg = cotangents(cfg, n, gen, torch.float32)
+    got = k4._trunk_heads_bwd_cuda(p32, hw32, cfg, enc, cot, cg, zs)
+    same_twice("K5 float32", got,
+               k4._trunk_heads_bwd_cuda(p32, hw32, cfg, enc, cot, cg, zs))
+    b16 = k4._trunk_heads_bwd_cuda(p16, hw16, cfg16, enc, cot, cg,
+                                   zs.to(torch.bfloat16))
+    ref = k4._trunk_heads_bwd_plain(p32, hw32, cfg, enc, cot, cg, zs)
+    spl = k4._trunk_heads_bwd_split(p32, hw32, cfg, enc, cot, cg, zs)
+    hold_f32(f"K5 float32 at {n}", K5_NAMES, got, b16, ref, report,
+             HEADS_CLOSER, spl)
 
 
 def dbsig_scale(packed, cfg, cs, cg, zs) -> float:
@@ -168,6 +230,13 @@ def dbsig_scale(packed, cfg, cs, cg, zs) -> float:
     _, _, _, zsig, _, _, tzsig = k2._bwd_primal_tangent(packed, cfg, cg, zs)
     sp1 = torch.sigmoid(zsig)
     return (cs * sp1 + sp1 * (1.0 - sp1) * tzsig).norm().item()
+
+
+def dbsig_error(got, ref, scale: float) -> float:
+    """The sigma head's bias gradient's error as a share of its terms' L2
+    norm (dbsig_scale): the measure held to a bound where its relative
+    error against the sum is not, since the terms may cancel."""
+    return (got.float() - ref.float()).norm().item() / scale
 
 
 def check_mixed(n: int, seed: int = 0, report=None, l2=1e-2):
@@ -195,13 +264,13 @@ def check_mixed(n: int, seed: int = 0, report=None, l2=1e-2):
                 g_, r_ = g_[:, :3], r_[:, :3]
             assert torch.isfinite(g_.float()).all(), (label, name)
             e = (rel_l2(g_, r_) if name != "dbsig" else
-                 (g_.float() - r_.float()).norm().item() / sum_scale)
+                 dbsig_error(g_, r_, sum_scale))
             assert e <= l2, (label, name, e)
             worst = max(worst, e)
             max_abs = max(max_abs,
                           (g_.float() - r_.float()).abs().max().item())
         db = (f"; dbsig {rel_l2(got[8], ref[8]):.3e} of the sum, "
-              f"{(got[8] - ref[8]).norm().item() / sum_scale:.3e} of its "
+              f"{dbsig_error(got[8], ref[8], sum_scale):.3e} of its "
               f"terms' norm" if sum_scale else "")
         print(f"  {label}: two launches bit-identical, largest relative L2 "
               f"against its twin {worst:.3e}{db}", flush=True)

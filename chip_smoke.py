@@ -7,11 +7,14 @@ the port's own entry points and check what comes out.
 
 Phases (any failure exits non-zero; nothing is caught; a step-check
 comparison that misses its bound is reported at the end of the run, after
-every phase has run, and the run exits 1):
+every phase has run, and the run exits 1; each phase prints the seconds
+the one before it took):
   1. device   - require CUDA; print the card's name and power limit
-  2. build    - nvcc for sm_90a, one process per kernel source, in
-                parallel; registers, spills and shared memory of the
-                forward and backward kernels (ptxas -v)
+  2. build    - nvcc for sm_90a, one process per kernel library (five
+                sources, each for the polynomial sine, the exact sine and
+                ReLU), all in parallel; each library's nvcc seconds, and
+                registers, spills and stack frames of every kernel function
+                (ptxas -v)
   3. kernels  - K1 (trunk + sigma, split f32 products) at 327,680 and
                 65,536 points (the serving and training passes) and K2
                 (trunk + sigma gradient) at 655,360 points, the serving
@@ -25,7 +28,8 @@ every phase has run, and the run exits 1):
                 a chain of torch.matmul calls for the same products (K1:
                 hi and lo chains summed, its fidelity, and one bf16 chain),
                 and of K3's and K5's kernel functions (K5's b_th chain,
-                sweep, weight gradients, reduce)
+                sweep, weight gradients, reduce); the sigma head's bias
+                gradient held to 1e-2 of its terms' L2 norm (DBSIG_BOUND)
   4. serving  - a run directory from the port's train_parser / dump_opts and
                 a seeded init_network / save_checkpoint, then
                 load_renderer(device="cuda") answers 3 requests of 16,384
@@ -40,7 +44,7 @@ every phase has run, and the run exits 1):
   7. step check - one step's parameter gradients on 128 rays through the
                 kernels on the card against the same step through the twins,
                 on the card and on the CPU, at the weights after each of the
-                last 8 timed steps (the last: after all of them); at every
+                last 4 timed steps (the last: after all of them); at every
                 point the backward kernel held to its twin on all 128 rays,
                 and every comparison held to its bound on the rays whose
                 gradient the bf16 contract determines (ill_conditioned_rays,
@@ -56,18 +60,26 @@ the kernel pair, ops/fused_trunk_heads.py):
   6b. training, fused heads - the same stage-2 step; launches K1 2, K4 1,
                 K5 1 per step, a falling loss; one step profiled
   7b. step check, fused heads - one step's gradients, every parameter, at
-                the weights after this run's last 8 timed steps, held as
+                the weights after this run's last 4 timed steps, held as
                 in 7
 At compute_dtype float32, the CLIs' default (every product of f32
 operands as three on bf16 tensor cores), and bfloat16 (f32 zs/us):
-  3c. kernels, float32 - K1 at 327,680 and 65,536 points, K2 at 655,360,
-                K2 saving zs/us and K3 at 131,072, each twice bit-identical
-                and held to its exact-f32 twin at 1e-4 relative L2 and ten
-                times closer than the bfloat16_all kernel on the same inputs
-                (tools/f32_check.py); then at 192 points; the bfloat16
-                instantiations (K2 -> K3, K4 -> K5 on f32 zs/us) against
-                their twins at the training shape and at 192 points; times
-                of kernel, twin and the f32 (bf16) torch.matmul chain
+  3c. kernels, float32 - K1 at 327,680 and 65,536 points, K2 and K4 at
+                655,360, K2 saving zs/us, K3, K4 saving zs and K5 at
+                131,072, each twice bit-identical and held to its exact-f32
+                twin at 1e-4 relative L2 and ten (K4/K5: a hundred) times
+                closer than the bfloat16_all kernel on the same inputs
+                (tools/f32_check.py; K4/K5 also to their split twins); then
+                at 192, 640 and 8,448 points; the bfloat16 instantiations
+                (K2 -> K3, K4 -> K5 on f32 zs/us) against their twins at the
+                training shape and at 192 points; times of kernel, twin and
+                the f32 (bf16) torch.matmul chain
+  3d. kernels, activations - every instantiation built for the exact sine
+                and for ReLU at every dtype: tools/act_check.py at 8,448
+                points, then each at the main shapes twice bit-identical,
+                against its twin and timed (act_kernels); every K3/K5
+                sweep, each activation and dtype, twice bit-identical at
+                131,072 points
   5c. serving, float32 - the 3 requests: K1 2, K2 1 per chunk; a 1,024-ray
                 render against the CPU twins at a tenth of the bf16 bounds
   6c. training, float32 - the stage-2 step (launches K1 2, K2 1, K3 1, a
@@ -77,6 +89,15 @@ operands as three on bf16 tensor cores), and bfloat16 (f32 zs/us):
                 aside by the f32 contract's normal error
   6d. training, bfloat16 - 4 steps with the switch off (K2, K3) and on
                 (K4, K5), on f32 zs/us
+  5e/6e/7e. float32 with the switch on - one request (K1 2 / K4 1 per
+                chunk) against the CPU twins at a tenth of the bf16 bounds,
+                the stage-2 step (K1 2 / K4 1 / K5 1 a step, a falling
+                loss) and one step-check point at the float32 bounds
+  6f. serving and training at the exact sine and at ReLU - per
+                activation: one request with the switch off and on at
+                bfloat16_all and at float32, the stage-2 step off and on
+                (bfloat16_all: 10 timed steps and a falling loss; float32
+                and bfloat16: 2), launch counts per chunk and step
 With the switch unset again:
   8. workflow - the two-stage workflow through the port's train CLI
                 (cli/train.main) at the flagship's width on the port's
@@ -86,7 +107,9 @@ With the switch unset again:
                 steps, the flagship heads), a resume of stage 2 for 2 steps,
                 16 stage-2 steps with --scan_chunk 8 against 16 with
                 --scan_chunk 1, and 16 stage-2 steps with no --compute_dtype
-                (float32: its [kernels] line names K1 and K2 + K3); launches
+                (float32: its [kernels] line names K1 and K2 + K3), again
+                with --fast_sin 0 and with --siren 0 (the line names the
+                activation too); launches
                 per step held (K1 in stage 1; K1,
                 K2 and K3 in stage 2; validation's apart), losses falling,
                 checkpoints at the cadence (stage 2's with the RPV heads),
@@ -110,7 +133,8 @@ With the switch unset again:
                 brf_probe --param_probe (33 finite rows); the eval CLI on
                 the float32 stage-2 run (K1 2 and K2 1 per chunk, its
                 [kernels] line at float32)
-Then one JSON line of every ported kernel, the card's line, and the last
+Then one JSON line of every ported kernel instantiation (each launched on
+a main path: the run fails if one was not), the card's line, and the last
 line {"ok": true, "device": {...}}.
 """
 
@@ -135,19 +159,29 @@ N_REQUESTS = 3
 BATCH = 1024            # rays per train step (the flagship's batch)
 STORE_BATCHES = 16      # the ray store holds 16 batches
 WARM_STEPS = 3          # from step 3 on every gate of bench.py holds
-TIMED_STEPS = 32        # two passes over the store
+TIMED_STEPS = 16        # one pass over the store (32 until the activations'
+                        # phases came, whose time this cut pays for in part)
 CHECK_RAYS = 128        # rays of the whole-step kernels-vs-twins check
-CHECK_POINTS = 8        # ... at the weights after each of the last 8 steps
+CHECK_POINTS = 4        # ... at the weights after each of the last 4 steps
 MIX_STEPS = 4           # timed steps of the mixed bfloat16 runs
-UNFUSED_STEPS = 8       # ... and of the unfused float32 step (~340 ms each)
+UNFUSED_STEPS = 4       # ... and of the unfused float32 step (~340 ms each)
+ACT_STEPS = 10          # timed steps at the exact sine and at ReLU
+ACT_SHORT = 2           # ... of their float32 and bfloat16 runs
 FUSED_HEADS = "BRDFNERF_FUSED_HEADS"   # read per call by models.network
 
 
 T0 = time.perf_counter()
+_PHASE = [None, T0]          # the phase running and when it began
 
 
 def phase(name):
-    print(f"== {name} (t+{time.perf_counter() - T0:.1f} s)", flush=True)
+    """Start phase `name`: prints the run's time so far and the seconds
+    the previous phase took."""
+    now = time.perf_counter()
+    prev = ("" if _PHASE[0] is None else
+            f"; {_PHASE[0]} took {now - _PHASE[1]:.1f} s")
+    print(f"== {name} (t+{now - T0:.1f} s{prev})", flush=True)
+    _PHASE[:] = [name, now]
 
 
 def timed(fn, reps):
@@ -187,6 +221,28 @@ def same_twice(label, first, second):
 def rel_l2(got, ref):
     ref = ref.float()
     return ((got.float() - ref).norm() / ref.norm().clamp_min(1e-30)).item()
+
+
+# the sigma head's bias, whose gradient is one sum over the points of terms
+SIGMA_BIAS = "sigma_from_xyz.0.b"
+# the sigma head's bias gradient is one sum over the points of terms of
+# either sign: held to DBSIG_BOUND of its terms' L2 norm
+# (tools/f32_check.dbsig_scale), not of the sum, which is small where the
+# terms cancel and then makes the relative error large for any summation
+# order (the old relative reading is printed beside)
+DBSIG_BOUND = 1e-2
+
+
+def dbsig_held(label, got, ref, scale):
+    """dbsig against its twin, held to DBSIG_BOUND of its terms' norm;
+    returns the error."""
+    from brdfnerf_tpu_torch.tools.f32_check import dbsig_error
+    e = dbsig_error(got, ref, scale)
+    print(f"  {label} dbsig: {e:.3e} of its terms' L2 norm (bound "
+          f"{DBSIG_BOUND:g}); relative to the sum {rel_l2(got, ref):.3e}",
+          flush=True)
+    assert e <= DBSIG_BOUND, (label, e)
+    return e
 
 
 def trunk_macs(cfg, ein):
@@ -338,6 +394,7 @@ def heads_kernels(rows, mcfg, net, packed, wbytes, macs, k3_flops, k3_bytes,
     from brdfnerf_tpu_torch.ops import fused_mlp as k1
     from brdfnerf_tpu_torch.ops import fused_trunk_heads as k4
     from brdfnerf_tpu_torch.ops import fused_trunk_vjp as k2
+    from brdfnerf_tpu_torch.tools import f32_check as fc
     feat, hid, lane, ein = mcfg.feat, mcfg.feat // 2, k1.LANE, mcfg.xyz_in_dim
     hw = k4.pack_head_weights(net, mcfg, torch.bfloat16)
     hbytes = sum(v.numel() * v.element_size() for v in hw.values())
@@ -401,9 +458,10 @@ def heads_kernels(rows, mcfg, net, packed, wbytes, macs, k3_flops, k3_bytes,
         "plain_ms": timed(lambda: k4._trunk_heads_fwd_plain(packed, hw, mcfg,
                                                             enc), 1),
         "library_ms": timed(lambda: (chain_k2(encb), chain_heads(hb)), 5)}
+    rows["K4"]["_flops"] = k4_pt * n2
+    rows["K4"]["_bytes"] = n2 * (lane * 4 + 8 * 4 + lane * 4)
     rows["K4"]["bound_ms"], rows["K4"]["bound_by"] = bound_ms(
-        k4_pt * n2, n2 * (lane * 4 + 8 * 4 + lane * 4) + wbytes + hbytes,
-        peaks)
+        rows["K4"]["_flops"], rows["K4"]["_bytes"] + wbytes + hbytes, peaks)
     del enc, encb, hb
 
     # K4 saving zs and K5, at the train step's main pass
@@ -471,8 +529,13 @@ def heads_kernels(rows, mcfg, net, packed, wbytes, macs, k3_flops, k3_bytes,
         if name in ("dw2r", "dw2p"):        # the 3 logit columns
             g_, r_ = g_[:, :3], r_[:, :3]
         e = diff(f"K5 {name}", g_, r_)
-        k5_err, k5_rel = max(k5_err, e["max"]), max(k5_rel, e["rel"])
+        k5_err = max(k5_err, e["max"])
         assert torch.isfinite(g_).all(), name
+        if name == "dbsig":
+            dbsig_held("K5", g_, r_, fc.dbsig_scale(packed, mcfg, cot[:, 0],
+                                                    cg, zs))
+            continue
+        k5_rel = max(k5_rel, e["rel"])
         # K3's bound (its measured 1.6e-3 .. 3.6e-3): K5 rebuilds the u
         # chain from zs in f32 as its twin and the Pallas kernel do, so the
         # two differ in summation order alone, as K3 and its twin do
@@ -578,6 +641,7 @@ def backward_small(n, mcfg, net, packed, points, gen, k5_draws=5):
     k5_draws draws of cotangents (the first with K3's points)."""
     from brdfnerf_tpu_torch.ops import fused_trunk_heads as k4
     from brdfnerf_tpu_torch.ops import fused_trunk_vjp as k2
+    from brdfnerf_tpu_torch.tools.f32_check import dbsig_scale
     lane, ein = k2.LANE, mcfg.xyz_in_dim
     hw = k4.pack_head_weights(net, mcfg, torch.bfloat16)
     enc = points(n)
@@ -601,7 +665,8 @@ def backward_small(n, mcfg, net, packed, points, gen, k5_draws=5):
               lambda: k2._trunk_bwd_cuda(packed, mcfg, enc, cs, cf, cg, zs,
                                          us),
               lambda: k2._trunk_bwd_plain(packed, mcfg, enc, cs, cf, cg, zs,
-                                          us))]
+                                          us),
+              dbsig_scale(packed, mcfg, cs, cg, zs))]
     for d in range(k5_draws):
         cot, cg_d = c_out(), (cg if d == 0 else c_g())
         cases.append((
@@ -609,8 +674,9 @@ def backward_small(n, mcfg, net, packed, points, gen, k5_draws=5):
             lambda cot=cot, cg_d=cg_d: k4._trunk_heads_bwd_cuda(
                 packed, hw, mcfg, enc, cot, cg_d, zs),
             lambda cot=cot, cg_d=cg_d: k4._trunk_heads_bwd_plain(
-                packed, hw, mcfg, enc, cot, cg_d, zs)))
-    for label, names, kernel, twin in cases:
+                packed, hw, mcfg, enc, cot, cg_d, zs),
+            dbsig_scale(packed, mcfg, cot[:, 0], cg_d, zs)))
+    for label, names, kernel, twin, scale in cases:
         got, again, ref = kernel(), kernel(), twin()
         torch.cuda.synchronize()
         worst = 0.0
@@ -619,6 +685,9 @@ def backward_small(n, mcfg, net, packed, points, gen, k5_draws=5):
             if name in ("dw2r", "dw2p"):
                 g_, r_ = g_[:, :3], r_[:, :3]
             assert torch.isfinite(g_).all(), (label, name, n)
+            if name == "dbsig":
+                dbsig_held(f"{label} at {n} points", g_, r_, scale)
+                continue
             rel = rel_l2(g_, r_)
             worst = max(worst, rel)
             assert rel <= 1e-2, (label, name, n, rel)
@@ -827,6 +896,107 @@ def f32_kernels(rows, mcfg, net, points, peaks, gen, macs):
         p32, c32, enc, cs, cf, cg, zs, us)))
     del hth, azb, xtb, zs, us
 
+    # K4 serving and saving zs, and K5, at float32 (split products; the
+    # head weights W_f, W_1 as hi and lo planes, W_2 in f32): each twice
+    # bit-identical, within fc.F32_BOUND of its exact twin and of its split
+    # twin, fc.HEADS_CLOSER times closer to the exact twin than the
+    # bfloat16_all kernel; timed beside the exact twin and the f32
+    # torch.matmul chain of the same products
+    hw32 = k4.pack_head_weights(net, c32, torch.float32)
+    hw16 = k4.pack_head_weights(net, mcfg, torch.bfloat16)
+    hbytes = sum(v.numel() * v.element_size() for k, v in hw32.items()
+                 if k not in k4.HEAD_PLANE_KEYS)
+    hid = feat // 2
+    wfm, w1m = hw32["wf"], torch.cat([hw32["w1r"], hw32["w1p"]])
+    w2r, w2p = hw32["w2r"][:3], hw32["w2p"][:3]
+
+    def chain_heads(h):
+        z1 = (h @ wfm.t()) @ w1m.t()
+        return z1[:, :hid] @ w2r.t(), z1[:, hid:] @ w2p.t()
+
+    src4, rep4 = ("brdfnerf_tpu_torch/csrc/trunk_heads_fwd.cu",
+                  "brdfnerf_tpu/ops/pallas_trunk_heads.py:154")
+    for key, n, want_zs in (("K4f32", n2, False), ("K4zsf32", n3, True)):
+        enc4 = points(n)
+        got = k4._trunk_heads_fwd_cuda(p32, hw32, c32, enc4, want_zs)
+        k = 2 + want_zs
+        same_twice(f"{key}", got[:k], k4._trunk_heads_fwd_cuda(
+            p32, hw32, c32, enc4, want_zs)[:k])
+        b16 = k4._trunk_heads_fwd_cuda(p16, hw16, mcfg, enc4, want_zs)
+        ref = k4._trunk_heads_fwd_plain(p32, hw32, c32, enc4, want_zs)
+        spl = k4._trunk_heads_fwd_split(p32, hw32, c32, enc4, want_zs)
+        label = f"K4 float32 at {n}, zs {want_zs}"
+        fc.hold_f32(label, ("out", "gx", "zs")[:k], got[:k], b16[:k],
+                    ref[:k], report, fc.HEADS_CLOSER, spl[:k])
+        err = max_err(got[:k], ref[:k])
+        del got, b16, ref, spl
+        h = torch.randn(n, feat, device="cuda", generator=gen)
+        row(key, "trunk_heads_fwd (float32" + (", saving zs)" if want_zs
+                                               else ")"),
+            src4, rep4, err,
+            timed(lambda: k4._trunk_heads_fwd_cuda(p32, hw32, c32, enc4,
+                                                   want_zs), 5),
+            timed(lambda: k4._trunk_heads_fwd_plain(p32, hw32, c32, enc4,
+                                                    want_zs), 1),
+            timed(lambda: (chain_k2(enc4), chain_heads(h)), 3),
+            rows["K4zs" if want_zs else "K4"]["_flops"],
+            n * (lane * 4 + 8 * 4 + lane * 4
+                 + (layers * feat * 4 if want_zs else 0)) + wbytes + hbytes,
+            label)
+        del h
+        if not want_zs:
+            del enc4
+    zs = k4._trunk_heads_fwd_cuda(p32, hw32, c32, enc4, True)[2]
+    cot = torch.randn(n3, k4.HEAD_COLS, device="cuda", generator=gen)
+    cot[:, 7] = 0.0
+    got = k4._trunk_heads_bwd_cuda(p32, hw32, c32, enc4, cot, cg, zs)
+    same_twice("K5 float32", got,
+               k4._trunk_heads_bwd_cuda(p32, hw32, c32, enc4, cot, cg, zs))
+    b16 = k4._trunk_heads_bwd_cuda(p16, hw16, mcfg, enc4, cot, cg,
+                                   zs.to(torch.bfloat16))
+    ref = k4._trunk_heads_bwd_plain(p32, hw32, c32, enc4, cot, cg, zs)
+    spl = k4._trunk_heads_bwd_split(p32, hw32, c32, enc4, cot, cg, zs)
+    label = f"K5 float32 at {n3}"
+    fc.hold_f32(label, fc.K5_NAMES, got, b16, ref, report, fc.HEADS_CLOSER,
+                spl)
+    err = max_err(got, ref)
+    del got, b16, ref, spl
+    hh = torch.randn(n3, feat, device="cuda", generator=gen)
+    cz = torch.randn(n3, 4 * hid, device="cuda", generator=gen)
+    hth = torch.randn(2 * n3, feat, device="cuda", generator=gen)
+    azb = torch.randn(2 * n3, feat, device="cuda", generator=gen)
+    xtb = torch.cat([enc4, cg], 0)
+
+    def chain_k5():
+        chain_k3(cg, azb, hth, xtb)
+        u = hh                                      # the b_th chain
+        m = layers - 3
+        for i in range(layers - 1, 0, -1):
+            if i == mcfg.skips[0]:
+                u = u @ p32["w_skip"][:, lane:]
+            else:
+                u = u @ p32["w_mid"][m]
+                m -= 1
+        chain_heads(hh)
+        axf = cz @ w1m
+        axf @ wfm
+        hh.t() @ axf
+        hh.t() @ cz
+
+    base = rows["K5"]
+    row("K5f32", "trunk_heads_bwd (float32)",
+        "brdfnerf_tpu_torch/csrc/trunk_heads_bwd.cu",
+        "brdfnerf_tpu/ops/pallas_trunk_heads.py:185", err,
+        timed(lambda: k4._trunk_heads_bwd_cuda(p32, hw32, c32, enc4, cot, cg,
+                                               zs), 5),
+        timed(lambda: k4._trunk_heads_bwd_plain(p32, hw32, c32, enc4, cot,
+                                                cg, zs), 1),
+        timed(chain_k5, 3), base["_flops"],
+        base["_bytes"] + n3 * layers * feat * 2 + wbytes + hbytes, label)
+    rows["K5f32"].update(kernel_parts(lambda: k4._trunk_heads_bwd_cuda(
+        p32, hw32, c32, enc4, cot, cg, zs)))
+    del hh, cz, hth, azb, xtb, zs, cot, enc4, hw32, hw16
+
     # the mixed bfloat16 contract at the training shape: bf16 operands, f32
     # activations, zs/us saved and read in f32; checked by f32_check at the
     # bfloat16_all instantiations' bound (relative L2 1e-2), then timed
@@ -893,14 +1063,134 @@ def f32_kernels(rows, mcfg, net, points, peaks, gen, macs):
                        ("K5mix", "K5 bfloat16 on f32 zs")):
         rows[key]["max_abs_err"] = report[f"{label} at {n3}"]["max_abs"]
     del enc, zs, cot, cs, cf, cg
-    # every instantiation again at 192 points (3 tiles: a ragged last wave)
-    fc.check_f32(192, report=report)
+    # every instantiation again at 192, 640 and 8,448 points (3, 10 and 132
+    # tiles: a ragged last wave, a fraction of one, and one tile an SM)
+    for n in (192, 640, 8448):
+        fc.check_f32(n, report=report)
     fc.check_mixed(192, report=report)
     print("  float32 kernels: largest relative L2 against the exact twins "
           + ", ".join(f"{k} {v['rel_l2']:.2e} ({v['bf16_over_f32']:.0f}x "
                       f"closer than bfloat16_all)"
                       for k, v in report.items() if "bf16_over_f32" in v),
           flush=True)
+
+
+# the activations the kernels are also built for (besides the polynomial
+# sine), the size of tools/act_check.py's check of every instantiation, and
+# the poly rows each activation's instantiations are timed beside (same
+# products and traffic: their library chain and bound)
+ACT_CHECK_N = 8448
+ACT_NAMES = {"sin": "exact sine", "relu": "ReLU"}
+ACT_ROWS = {"bfloat16_all": {"K1": "K1", "K2": "K2", "K2zs": "K2zs",
+                             "K3": "K3", "K4": "K4", "K4zs": "K4zs",
+                             "K5": "K5"},
+            "bfloat16": {"K2zs": "K2zsmix", "K3": "K3mix",
+                         "K4zs": "K4zsmix", "K5": "K5mix"},
+            "float32": {"K1": "K1f32", "K2": "K2f32", "K2zs": "K2zsf32",
+                        "K3": "K3f32", "K4": "K4f32", "K4zs": "K4zsf32",
+                        "K5": "K5f32"}}
+
+
+def act_kernels(rows, points, gen, report):
+    """Phase 3d: every instantiation of K1-K5 built for the exact sine and
+    for ReLU.  tools/act_check.py's check at ACT_CHECK_N points (each twice
+    bit-identical, against its twin, every dtype), then each at the main
+    paths' shapes (K1 327,680 points, K2 and K4 655,360, the training
+    instantiations 131,072): twice bit-identical, against its twin at
+    act_check's bounds, timed beside its twin; its library chain and bound
+    are those of the polynomial row of the same products (ACT_ROWS), whose
+    activation the bound does not count."""
+    from brdfnerf_tpu_torch.ops import fused_mlp as k1
+    from brdfnerf_tpu_torch.ops import fused_trunk_heads as k4
+    from brdfnerf_tpu_torch.ops import fused_trunk_vjp as k2
+    from brdfnerf_tpu_torch.tools import act_check
+    from brdfnerf_tpu_torch.tools import f32_check as fc
+    names = ACT_NAMES
+    n1, n2 = CHUNK * N_SAMPLES, CHUNK * 2 * N_SAMPLES
+    n3 = BATCH * 2 * N_SAMPLES
+    for act in act_check.ACT_CONFIGS:
+        act_check.check_act(act, ACT_CHECK_N, report=report)
+        assert not act_check.MISSES, act_check.MISSES
+        for dtype, keys in ACT_ROWS.items():
+            cfg, net = act_check.act_model(act, dtype)
+            wd, sd = k1.weight_dtype(cfg), k2._saved_dtype(cfg)
+            packed = k1.pack_trunk_weights(net, cfg, wd)
+            hw = k4.pack_head_weights(net, cfg, wd)
+            x1, x2, x3 = points(n1), points(n2), points(n3)
+            zs, us = k2._trunk_fwd_grad_cuda(packed, cfg, x3, True)[3:]
+            zs4 = k4._trunk_heads_fwd_cuda(packed, hw, cfg, x3, True)[2]
+            cs, cf, cg = fc.cotangents(cfg, n3, gen, sd)
+            cot = torch.randn(n3, k4.HEAD_COLS, device="cuda", generator=gen)
+            cot[:, 7] = 0.0
+            bf16 = dtype != "float32"
+            bound = act_check.BF16_BOUND if bf16 else fc.F32_BOUND
+            calls = {
+                "K1": (lambda: k1._trunk_sigma_cuda(packed, cfg, x1, False),
+                       lambda: k1._trunk_sigma_plain(packed, cfg, x1, False),
+                       ("sigma",), act_check.K1_BOUND, None),
+                "K2": (lambda: k2._trunk_fwd_grad_cuda(packed, cfg, x2),
+                       lambda: k2._trunk_fwd_grad_plain(packed, cfg, x2),
+                       ("sigma", "feats", "gx"), bound, None),
+                "K2zs": (lambda: k2._trunk_fwd_grad_cuda(packed, cfg, x3,
+                                                         True),
+                         lambda: k2._trunk_fwd_grad_plain(packed, cfg, x3,
+                                                          True),
+                         ("sigma", "feats", "gx", "zs", "us"), bound, None),
+                "K3": (lambda: k2._trunk_bwd_cuda(packed, cfg, x3, cs, cf,
+                                                  cg, zs, us),
+                       lambda: k2._trunk_bwd_plain(packed, cfg, x3, cs, cf,
+                                                   cg, zs, us),
+                       fc.K3_NAMES, bound,
+                       fc.dbsig_scale(packed, cfg, cs, cg, zs)),
+                "K4": (lambda: k4._trunk_heads_fwd_cuda(packed, hw, cfg,
+                                                        x2)[:2],
+                       lambda: k4._trunk_heads_fwd_plain(packed, hw, cfg,
+                                                         x2)[:2],
+                       ("out", "gx"), bound, None),
+                "K4zs": (lambda: k4._trunk_heads_fwd_cuda(packed, hw, cfg,
+                                                          x3, True),
+                         lambda: k4._trunk_heads_fwd_plain(packed, hw, cfg,
+                                                           x3, True),
+                         ("out", "gx", "zs"), bound, None),
+                "K5": (lambda: k4._trunk_heads_bwd_cuda(packed, hw, cfg, x3,
+                                                        cot, cg, zs4),
+                       lambda: k4._trunk_heads_bwd_plain(packed, hw, cfg, x3,
+                                                         cot, cg, zs4),
+                       fc.K5_NAMES, bound,
+                       fc.dbsig_scale(packed, cfg, cot[:, 0], cg, zs4))}
+            for kern, base in keys.items():
+                kernel, twin, outs, bnd, scale = calls[kern]
+                label = f"{kern} {names[act]}, {dtype}"
+                got = kernel()
+                same_twice(label, got[:len(outs)], kernel()[:len(outs)])
+                ref = twin()
+                worst, max_abs = 0.0, 0.0
+                for name, g_, r_ in zip(outs, got, ref):
+                    assert torch.isfinite(g_.float()).all(), (label, name)
+                    e = (fc.dbsig_error(g_, r_, scale)
+                         if name == "dbsig" and bf16 else rel_l2(g_, r_))
+                    # (ReLU: act_check.RELU_KINKED_BOUND where act' flips
+                    # reach, see there)
+                    b_ = act_check.bound_of(act, kern, name, bnd)
+                    assert e <= b_, (label, name, e, b_)
+                    worst = max(worst, e)
+                    max_abs = max(max_abs, (g_.float() - r_.float()).abs()
+                                  .max().item())
+                del got, ref
+                r = {k: v for k, v in rows[base].items()
+                     if not k.startswith("_") and k not in (
+                         "launches", "launches_train", "launches_eval",
+                         "bf16_over_f32", "uchain_ms", "sweep_ms",
+                         "wgrad_ms", "reduce_ms", "library_bf16_ms")}
+                r.update(name=f"{rows[base]['name']} [{names[act]}]",
+                         act=act, max_abs_err=max_abs, rel_l2=worst,
+                         ms=timed(kernel, 5), plain_ms=timed(twin, 1))
+                rows[f"{base} {act}"] = r
+                print(f"  {label}: relative L2 against its twin {worst:.3e} "
+                      f"(bound {bnd:g}); {r['ms']:.3f} ms (polynomial "
+                      f"{rows[base]['ms']:.3f}), twin {r['plain_ms']:.1f}",
+                      flush=True)
+            del x1, x2, x3, zs, us, zs4, cs, cf, cg, cot, calls
 
 
 def make_store(n_rays: int, rng: np.random.RandomState):
@@ -1261,6 +1551,24 @@ def workflow(root, reset_counts, counts, bare_rays_s):
                     kernels=("compute_dtype='float32'", "K1 (the sigma-only",
                              "K2 + K3"))
     print(f"  {f32}: losses {[round(v, 5) for v in losses]}", flush=True)
+
+    # the same at the exact sine (--fast_sin 0) and ReLU (--siren 0), handed
+    # off from stage 1: the [kernels] line names K1 and K2 + K3 (their
+    # float32 instantiations built for the activation), and the run
+    # launches them as stage 2 does
+    for act, flag, name in (("sin", ["--fast_sin", "0"], "the exact sine"),
+                            ("relu", ["--siren", "0"], "ReLU")):
+        exp = f"stage2_float32_{act}"
+        losses, _ = run(exp, default + ["--exp_name", exp,
+                                        "--max_train_steps",
+                                        str(WF_SCAN_STEPS)] + flag,
+                        WF_SCAN_STEPS,
+                        {"K1": 2 * WF_SCAN_STEPS - 1, "K2": WF_SCAN_STEPS,
+                         "K3": WF_SCAN_STEPS}, val2,
+                        kernels=("compute_dtype='float32'",
+                                 "K1 (the sigma-only", "K2 + K3", name))
+        print(f"  {exp}: losses {[round(v, 5) for v in losses]}",
+              flush=True)
     (ts.compute_losses, ts.Optimizer.step, Trainer.validate, Trainer.fit,
      Trainer._on_epoch_end) = saved
     return os.path.join(logs, s2), epochs - 1, os.path.join(logs, f32)
@@ -1552,32 +1860,31 @@ def main():
     from brdfnerf_tpu_torch.ops.encoding import positional_encoding
     from brdfnerf_tpu_torch.parallel import train_step as ts
     from brdfnerf_tpu_torch.serve import load_renderer
+    from brdfnerf_tpu_torch.tools import act_check
+    from brdfnerf_tpu_torch.tools import f32_check as fc
     from brdfnerf_tpu_torch.tools.bwd_check import ptxas_summary
     from brdfnerf_tpu_torch.utils.checkpoint import save_checkpoint
 
     phase("build")
     t0 = time.perf_counter()
-    cuda_build.build(["trunk_sigma", "trunk_fwd_grad", "trunk_bwd",
-                      "trunk_heads_fwd", "trunk_heads_bwd"])
+    # every kernel library, for each activation (the polynomial sine, the
+    # exact sine, ReLU: one -DTRUNK_ACT build each), one nvcc a library,
+    # all started together
+    cuda_build.build(act_check.libraries())
     print(f"  built in {time.perf_counter() - t0:.1f} s", flush=True)
     for name, rec in cuda_build.build_log.items():
-        # per kernel function: its (mangled) name, spills, registers
-        regs = [ln.strip().replace("ptxas info    : ", "")[:60]
-                for ln in rec["log"].splitlines()
-                if "Function properties for" in ln or "registers" in ln
-                or "spill" in ln]
-        print(f"  {name}: {rec['seconds']:.1f} s; " + " | ".join(regs[:12]),
-              flush=True)
-    # the forward and backward kernels' functions: registers (the count at
-    # launch; the consumer warps raise theirs with setmaxnreg), spills,
-    # static shared memory (the dynamic share is set at launch,
-    # csrc/trunk_fwd_grad.cuh, csrc/trunk_bwd.cuh)
-    for name in ("trunk_fwd_grad", "trunk_heads_fwd", "trunk_bwd",
-                 "trunk_heads_bwd"):
-        for fn in ptxas_summary(cuda_build.build_log.get(name, {}).get(
-                "log", "")):
-            print(f"  {name} {fn['name'][:56]}: {fn['registers']} "
-                  f"registers, spills {fn['spill_stores']} B stored / "
+        # nvcc's seconds; per kernel function: registers (the count at
+        # launch; the consumer warps raise theirs with setmaxnreg), spills,
+        # the stack frame (sinf's slow path would show here) and static
+        # shared memory (the dynamic share is set at launch)
+        frames = sorted({ln.split("ptxas info    :")[-1].strip()[:60]
+                         for ln in rec["log"].splitlines()
+                         if "stack frame" in ln})
+        print(f"  {name}: nvcc {rec['seconds']:.1f} s; stack frames and "
+              f"spills {frames}", flush=True)
+        for fn in ptxas_summary(rec["log"]):
+            print(f"    {fn['name'][:60]}: {fn['registers']} registers, "
+                  f"spills {fn['spill_stores']} B stored / "
                   f"{fn['spill_loads']} B loaded, static smem {fn['smem']} B",
                   flush=True)
 
@@ -1727,15 +2034,20 @@ def main():
     for name, g_, r_, a_ in zip(("dw0", "db0", "dwm", "dbm", "dwst", "dwsb",
                                  "dbs", "dwsig", "dbsig"), got, ref, again):
         e = diff(f"K3 {name}", g_, r_)
-        k3_err, k3_rel = max(k3_err, e["max"]), max(k3_rel, e["rel"])
+        k3_err = max(k3_err, e["max"])
+        k3_rel = max(k3_rel, 0.0 if name == "dbsig" else e["rel"])
         assert torch.isfinite(g_).all(), name
         # deterministic: a fixed summation order, no atomics
         assert torch.equal(g_, a_), f"K3 {name} differs between launches"
+        if name == "dbsig":
+            dbsig_held("K3", g_, r_, fc.dbsig_scale(packed, mcfg, cs, cg,
+                                                    zs))
+            continue
         # a grad is a sum over all points; the kernel and the twin round
         # the same operands to bf16, but their f32 sums run in other
         # orders, which flips some of the downstream bf16 roundings, as in
         # K2 (measured on the card: relative L2 1.6e-3 .. 3.6e-3 per
-        # tensor, 3.5e-4 for the sigma head's bias)
+        # tensor)
         assert e["rel"] <= 1e-2, f"K3 {name} relative L2 {e['rel']:.3e}"
     del got, again, ref
     rows["K2zs"] = {
@@ -1800,6 +2112,12 @@ def main():
     forward_small(192, mcfg, net, packed, points)
     phase("kernels, float32")
     f32_kernels(rows, mcfg, net, points, peaks, gen, macs)
+    phase("kernels, activations")
+    act_kernels(rows, points, gen, {})
+    # every sweep instantiation (K3 and K5: each activation at every
+    # dtype) launched twice more at the training step's 131,072 points,
+    # bit-identical
+    act_check.sweeps_twice(BATCH * 2 * N_SAMPLES)
     for r in rows.values():
         print(f"  {r['name']}: {r['ms']:.3f} ms (bound {r['bound_ms']:.3f} "
               f"by {r['bound_by']}, twin {r['plain_ms']:.1f}, matmul chain "
@@ -1836,14 +2154,15 @@ def main():
     def counts():
         return {k: v.launches for k, v in kernels.items()}
 
-    def serve(label, want, r=None):
-        """The 3 requests through renderer r (the bfloat16_all one by
-        default), launch counts checked; returns the outputs."""
+    def serve(label, want, r=None, n_req=N_REQUESTS, profiled=True):
+        """The first n_req requests through renderer r (the bfloat16_all one
+        by default), launch counts checked; one profiled; returns the
+        outputs."""
         r = renderer if r is None else r
         reset_counts()
         torch.cuda.reset_peak_memory_stats()
         seconds, outs = [], []
-        for rays in requests:
+        for rays in requests[:n_req]:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             outs.append(r.render_image({"rays": rays}))
@@ -1851,14 +2170,17 @@ def main():
             seconds.append(time.perf_counter() - t0)
         launches = counts()
         peak_mem = torch.cuda.max_memory_allocated()
-        print(f"  launches {launches} over {chunks} chunks", flush=True)
+        print(f"  launches {launches} over {chunks * n_req // N_REQUESTS} "
+              f"chunks", flush=True)
         assert launches == want, launches
         rays_per_s = REQ_SIDE * REQ_SIDE / min(seconds)
         print(f"  request seconds {[round(s, 4) for s in seconds]}; "
               f"{rays_per_s:.1f} rays/s (fastest request); "
-              f"{N_REQUESTS * REQ_SIDE * REQ_SIDE / sum(seconds):.1f} rays/s "
+              f"{n_req * REQ_SIDE * REQ_SIDE / sum(seconds):.1f} rays/s "
               f"(all); peak memory {peak_mem / 2**30:.2f} GiB", flush=True)
-        profile_device(lambda: r.render_image({"rays": requests[1]}), label)
+        if profiled:
+            profile_device(lambda: r.render_image({"rays": requests[1]}),
+                           label)
         return outs, launches
 
     def check_served(outs, r=None, scale=1.0):
@@ -1954,13 +2276,15 @@ def main():
 
     bare_rays_s = {}
 
-    def train(label, want, mcfg_=None, rcfg_=None, timed_steps=TIMED_STEPS):
+    def train(label, want, mcfg_=None, rcfg_=None, timed_steps=TIMED_STEPS,
+              profiled=True):
         """WARM_STEPS + timed_steps flagship steps from a fresh seeded
         state (at model config mcfg_ and render config rcfg_, the
         bfloat16_all flagship's by default), launch counts checked per step
-        and, over 10 steps or more, a falling loss; one step profiled.
-        Returns the weights after each of the last CHECK_POINTS timed steps
-        (the last: after all of them) and the launch counts."""
+        and, over 10 steps or more, a falling loss; one step profiled (if
+        `profiled`).  Returns the weights after each of the last
+        CHECK_POINTS timed steps (the last: after all of them) and the
+        launch counts."""
         mcfg_ = mcfg if mcfg_ is None else mcfg_
         rcfg_ = rcfg if rcfg_ is None else rcfg_
         batcher = DeviceRayBatcher(
@@ -2013,8 +2337,9 @@ def main():
             print(f"  loss mean of the first five timed steps {first:.5f}, "
                   f"of the last five {last:.5f}", flush=True)
             assert last < first, (first, last)
-        state, _ = one_step(state)
-        profile_device(lambda: one_step(state), label)
+        if profiled:
+            state, _ = one_step(state)
+            profile_device(lambda: one_step(state), label)
         return trained, launches
 
     # one step's parameter gradients on CHECK_RAYS rays at flagship width:
@@ -2054,15 +2379,41 @@ def main():
                                      generator=rng),
              "sun": torch.rand(CHECK_RAYS, n_sun, generator=rng)}
 
-    def grads_on(net_, dev, rays, mcfg_):
+    def grads_on(net_, dev, rays, mcfg_, bias_terms=None):
+        """The step's loss and every parameter's gradient on `rays`; with
+        bias_terms (a list), also the L2 norm of the sigma head's bias
+        gradient's per-point terms in the step's backward call, appended
+        (fused_trunk_vjp._run_bwd / fused_trunk_heads._run_bwd_h wrapped
+        for the call)."""
         batch = {k: torch.as_tensor(v[rays], device=dev)
                  for k, v in s.items()}
         rows_ = torch.as_tensor(rays)
         net_.zero_grad(set_to_none=True)
-        loss, _ = ts.compute_losses(
-            net_, mcfg_, rcfg, tcfg, batch, gates,
-            draws={k: v[rows_].to(dev) for k, v in draws.items()})
-        loss.backward()
+        run_bwd, run_bwd_h = k2._run_bwd, k4._run_bwd_h
+
+        def terms(cfg_, packed_, c_s, c_g, zs_):
+            n_p = zs_.shape[0]
+            cs_p = torch.zeros(n_p, dtype=torch.float32, device=zs_.device)
+            cs_p[:c_s.shape[0]] = c_s
+            cg_p = k1.pad_rows_lanes(c_g, n_p, packed_["w0"].shape[1])
+            bias_terms.append(fc.dbsig_scale(packed_, cfg_, cs_p, cg_p, zs_))
+
+        if bias_terms is not None:
+            def rec_bwd(cfg_, packed_, x_, cs_, cf_, cg_, zs_, us_):
+                terms(cfg_, packed_, cs_, cg_, zs_)
+                return run_bwd(cfg_, packed_, x_, cs_, cf_, cg_, zs_, us_)
+
+            def rec_bwd_h(cfg_, packed_, hw_, x_, cot_, cg_, zs_):
+                terms(cfg_, packed_, cot_[:, 0], cg_, zs_)
+                return run_bwd_h(cfg_, packed_, hw_, x_, cot_, cg_, zs_)
+            k2._run_bwd, k4._run_bwd_h = rec_bwd, rec_bwd_h
+        try:
+            loss, _ = ts.compute_losses(
+                net_, mcfg_, rcfg, tcfg, batch, gates,
+                draws={k: v[rows_].to(dev) for k, v in draws.items()})
+            loss.backward()
+        finally:
+            k2._run_bwd, k4._run_bwd_h = run_bwd, run_bwd_h
         return loss.item(), {k: p.grad.detach().cpu()
                              for k, p in net_.named_parameters()}
 
@@ -2100,8 +2451,16 @@ def main():
             for rays, held in ((np.arange(CHECK_RAYS), whole_batch),
                                (kept, tuple(bounds_))):
                 reset_counts()
-                loss_k, g_k = grads_on(net_, "cuda", rays, mcfg_)
+                bias_terms = []
+                loss_k, g_k = grads_on(net_, "cuda", rays, mcfg_,
+                                       bias_terms)
                 assert counts() == want, counts()
+                # the sigma head's bias gradient is one sum of terms of
+                # either sign, held as the kernel checks hold it (dbsig_held)
+                # to its bound of its terms' L2 norm in the step's backward
+                # call, where its relative error against the sum is
+                # unbounded as the terms cancel (printed beside)
+                bias_scale = float(np.sqrt(sum(v * v for v in bias_terms)))
                 k1_twin = (k1, "_trunk_sigma_cuda", k1._trunk_sigma_plain)
                 saved = [(m, name, getattr(m, name))
                          for m, name, _ in (fwd, bwd, k1_twin)]
@@ -2126,6 +2485,9 @@ def main():
                 for label, got, ref in zip(bounds_, (g_k, g_k, g_k, g_t),
                                            (g_b, g_fb, g_p, g_p)):
                     rels = {k: rel_l2(got[k], ref[k]) for k in ref}
+                    bias_rel = rels[SIGMA_BIAS]
+                    rels[SIGMA_BIAS] = ((got[SIGMA_BIAS] - ref[SIGMA_BIAS])
+                                        .norm().item() / bias_scale)
                     worst = max(rels.values())
                     top = sorted(rels.items(), key=lambda kv: -kv[1])
                     print(f"    gradient relative L2, {label}: largest "
@@ -2133,7 +2495,10 @@ def main():
                           f"{'' if label in held else ', not held'}); "
                           + ", ".join(f"{k} {v:.2e}" for k, v in (
                               rels.items() if last and len(held) > 1
-                              else top[:2])), flush=True)
+                              else top[:2]))
+                          + f"; {SIGMA_BIAS} of its terms' norm "
+                          f"{rels[SIGMA_BIAS]:.2e} (relative to the sum "
+                          f"{bias_rel:.2e})", flush=True)
                     if label in held and not worst <= bounds_[label]:
                         step_failures.append(
                             f"{path}, weights after step {step}, "
@@ -2241,6 +2606,97 @@ def main():
     rows["K4zsmix"]["launches"] = launches["K4"]
     rows["K5mix"]["launches"] = launches["K5"]
 
+    # float32 with the switch on: K1 and K4 in their float32
+    # instantiations serve, K4 saving f32 zs and K5 train; one request,
+    # the stage-2 step and one step-check point at the float32 bounds
+    phase("serving, float32, fused heads")
+    per_req = chunks // N_REQUESTS
+    os.environ[FUSED_HEADS] = "1"
+    renderer32 = load_renderer(run_dir, 1, compute_dtype="float32",
+                               device="cuda")
+    outs, launches = serve("request, float32, fused heads",
+                           {"K1": 2 * per_req, "K2": 0, "K3": 0,
+                            "K4": per_req, "K5": 0}, renderer32, n_req=1)
+    rows["K4f32"]["launches"] = launches["K4"]
+    check_served(outs, renderer32, scale=0.1)
+    del renderer32, outs
+    phase("training, float32, fused heads")
+    trained, launches = train("train step, float32, fused heads",
+                              {"K1": 2, "K2": 0, "K3": 0, "K4": 1, "K5": 1},
+                              mcfg_=c32, timed_steps=ACT_STEPS)
+    rows["K4zsf32"]["launches"] = launches["K4"]
+    rows["K5f32"]["launches"] = launches["K5"]
+    phase("step check, float32, fused heads")
+    step_check("float32, fused heads", trained[-1:],
+               (k4, "_trunk_heads_fwd_cuda", k4._trunk_heads_fwd_plain),
+               (k4, "_trunk_heads_bwd_cuda", k4._trunk_heads_bwd_plain),
+               {"K1": 2, "K2": 0, "K3": 0, "K4": 1, "K5": 1}, mcfg_=c32,
+               bounds_=bounds32, normal_err=NORMAL_ERR_F32)
+    del os.environ[FUSED_HEADS], trained
+
+    # the exact sine (--fast_sin 0) and ReLU (--siren 0): every kernel
+    # built for the activation on a main path.  bfloat16_all: one request
+    # with the switch off (K1, K2) and on (K4), the stage-2 step over
+    # ACT_STEPS timed steps off (K2 saving zs/us, K3) and on (K4 saving zs,
+    # K5) with a falling loss; float32: one request off (K2) and on (K4),
+    # ACT_SHORT steps off and on; bfloat16: ACT_SHORT steps off and on
+    names = ACT_NAMES
+    for act, flag in (("sin", ["--fast_sin", "0"]),
+                      ("relu", ["--siren", "0"])):
+        phase(f"serving and training, {names[act]}")
+        a_args = opts.postprocess(opts.train_parser().parse_args(
+            argv + ["--exp_name", f"smoke_{act}"] + flag))
+        a_dir = os.path.join(tmp.name, f"run_{act}")
+        opts.dump_opts(a_args, a_dir)
+        a_cfg = opts.to_run_config(a_args, device="cuda")
+        assert k1.act_of(a_cfg.model) == act and a_cfg.render.fused_trunk
+        save_checkpoint(os.path.join(tmp.name, "ckpts", f"smoke_{act}",
+                                     "epoch=1.npz"),
+                        {"coarse": init_network(a_cfg.model, gen,
+                                                device="cuda")}, step=0)
+
+        def count(dtype, kern, n):
+            key = ACT_ROWS[dtype][kern] + f" {act}"
+            rows[key]["launches"] = rows[key].get("launches", 0) + n
+
+        for dtype in ("bfloat16_all", "float32"):
+            r_ = load_renderer(a_dir, 1, compute_dtype=dtype, device="cuda")
+            assert k1.act_of(r_.cfg.model) == act
+            for heads in (False, True):
+                if heads:
+                    os.environ[FUSED_HEADS] = "1"
+                _, launches = serve(
+                    f"request, {names[act]}, {dtype}"
+                    + (", fused heads" if heads else ""),
+                    {"K1": 2 * per_req, "K2": 0 if heads else per_req,
+                     "K3": 0, "K4": per_req if heads else 0, "K5": 0}, r_,
+                    n_req=1, profiled=False)
+                os.environ.pop(FUSED_HEADS, None)
+                count(dtype, "K4" if heads else "K2",
+                      launches["K4" if heads else "K2"])
+                if not heads:
+                    count(dtype, "K1", launches["K1"])
+            del r_
+        for dtype, steps in (("bfloat16_all", ACT_STEPS),
+                             ("float32", ACT_SHORT),
+                             ("bfloat16", ACT_SHORT)):
+            a_m = dc.replace(a_cfg.model, compute_dtype=dtype)
+            for heads in (False, True):
+                if heads:
+                    os.environ[FUSED_HEADS] = "1"
+                _, launches = train(
+                    f"train step, {names[act]}, {dtype}"
+                    + (", fused heads" if heads else ""),
+                    {"K1": 2, "K2": 0 if heads else 1,
+                     "K3": 0 if heads else 1, "K4": int(heads),
+                     "K5": int(heads)}, mcfg_=a_m, timed_steps=steps,
+                    profiled=False)
+                os.environ.pop(FUSED_HEADS, None)
+                pair = ("K4zs", "K5") if heads else ("K2zs", "K3")
+                for kern, k in zip(pair, ("K4", "K5") if heads
+                                   else ("K2", "K3")):
+                    count(dtype, kern, launches[k])
+
     phase("workflow")
     run_dir, epoch, run_f32 = workflow(os.path.join(tmp.name, "workflow"),
                                        reset_counts, counts,
@@ -2250,6 +2706,7 @@ def main():
     eval_phase(os.path.join(tmp.name, "eval"), run_dir, epoch, reset_counts,
                counts, smi, rows, run_f32)
 
+    phase("end")
     tmp.cleanup()
     if step_failures:
         print("step check: " + str(len(step_failures)) + " comparisons "
@@ -2261,7 +2718,10 @@ def main():
     # fused heads; K4 saving zs/us and K5: training with them); K1 runs on
     # every path; "launches_eval": the eval CLI's run (K4's with the fused
     # heads)
-    keys = ("name", "route", "source", "replaces", "launches",
+    # every instantiation in the line was launched on a main path
+    idle = [r["name"] for r in rows.values() if not r.get("launches")]
+    assert not idle, f"never launched on a main path: {idle}"
+    keys = ("name", "route", "source", "replaces", "act", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "launches_train", "launches_eval",
             "bound_split_ms", "rel_l2", "bf16_over_f32",

@@ -105,15 +105,14 @@ def test_jax_stage1_hands_off_to_port_stage2_which_jax_evaluates(
     ("bfloat16", False, ["K1 (the sigma-only passes)", "K2 + K3",
                          "compute_dtype='bfloat16'"]),
     ("bfloat16", True, ["K1", "K2 + K3", "K4 + K5 in their place"]),
-    ("float32", True, ["K1", "K4/K5 at compute_dtype='float32' are not "
-                       "ported", "K2 + K3 run in their place",
-                       "ROADMAP.md Queue 2 item 3"])])
+    ("float32", True, ["K1", "K2 + K3", "K4 + K5 in their place",
+                       "compute_dtype='float32'", "bf16 hi and lo"])])
 def test_train_cli_states_its_kernels(monkeypatch, dtype, heads_env, want):
     """The line the train CLI prints for a run on the card, at the
     flagship's width: which fused kernels run, or why none.  Every dtype
     the kernels take (float32 as split products) names K1 and K2 + K3;
-    with BRDFNERF_FUSED_HEADS, K4 + K5 take K2 + K3's place at the bf16
-    dtypes, and at float32 the line says they are not ported."""
+    with BRDFNERF_FUSED_HEADS, K4 + K5 take K2 + K3's place at every
+    dtype (at float32 since their split instantiations)."""
     import torch
     from brdfnerf_tpu_torch.cli import opts
     from brdfnerf_tpu_torch.cli.train import kernels_line

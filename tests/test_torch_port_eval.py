@@ -418,7 +418,8 @@ def test_render_image_takes_the_block_render_unless_switched_off(
 def test_eval_states_its_kernels(monkeypatch):
     """The eval CLI's kernels line at the flagship's width on the card: the
     serving instantiations (K1, K2 or K4; no backward), or why none; at
-    float32 K1 and K2, and with BRDFNERF_FUSED_HEADS K2 in K4's place."""
+    float32 K1 and K2, and with BRDFNERF_FUSED_HEADS K4 in K2's place (at
+    float32 too, since K4's float32 instantiation)."""
     from brdfnerf_tpu_torch.cli import opts
     from brdfnerf_tpu_torch.cli.train import kernels_line
     cuda = torch.device("cuda")
@@ -432,9 +433,8 @@ def test_eval_states_its_kernels(monkeypatch):
             ("float32", False, ["K1 (the sigma-only passes)",
                                 "K2 (the trunk with its sigma",
                                 "compute_dtype='float32'"], ["K3", "K4"]),
-            ("float32", True, ["K1", "K4/K5 at compute_dtype='float32' "
-                               "are not ported", "K2 runs in their place"],
-             ["K3", "K4 in its place"]),
+            ("float32", True, ["K1", "K4 in its place",
+                               "compute_dtype='float32'"], ["K3", "K5"]),
             ("bfloat16", False, ["K1 (the sigma-only passes)",
                                  "K2 (the trunk with its sigma"],
              ["K3", "K4"]),

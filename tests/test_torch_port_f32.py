@@ -19,8 +19,8 @@ planes (fused_mlp.split_planes).  Here, on the CPU:
     the dtype the twins save, _saved_dtype, for every compute dtype the
     kernels cover: the wrappers run with their launches recorded instead
     of made (no card here), so the rule is the one they run;
-  * K4/K5 refuse f32 operands (their float32 instantiations are not
-    ported; K2/K3 run in their place).
+  * K4/K5 take f32 operands too, with their head weights' planes
+    (tests/test_torch_port_heads_f32.py holds their split arithmetic).
 The kernels themselves are held to their twins on the card by the
 `cuda`-marked test below, by tools/f32_check.py and by chip_smoke.py.
 """
@@ -172,10 +172,10 @@ class _Launch:
     """A CudaKernel stand-in that records its arguments."""
 
     def __init__(self):
-        self.args, self.launches = None, 0
+        self.args, self.act, self.launches = None, None, 0
 
-    def __call__(self, *args):
-        self.args, self.launches = args, self.launches + 1
+    def __call__(self, *args, act="poly"):
+        self.args, self.act, self.launches = args, act, self.launches + 1
 
 
 @pytest.fixture
@@ -220,9 +220,10 @@ def _flagship(dtype):
 def test_wrappers_save_what_the_twins_save(recorded, dtype):
     """For every compute dtype the kernels take: K2's wrapper allocates
     zs/us (and feats) in the twin's dtypes and tells the kernel so; K3's
-    takes them and refuses the other dtype; K4/K5 likewise with zs, and
-    refuse float32.  The mixed bfloat16 contract saves f32 zs/us, which
-    the wrappers refused before."""
+    takes them and refuses the other dtype; K4/K5 likewise with zs, at
+    float32 too (split products, the head weights' planes).  The mixed
+    bfloat16 contract saves f32 zs/us, which the wrappers refused
+    before."""
     assert tk1.cuda_kernels_cover(_flagship(dtype)[0])
     cfg, net = _flagship(dtype)
     n = 64
@@ -251,21 +252,17 @@ def test_wrappers_save_what_the_twins_save(recorded, dtype):
     with pytest.raises(ValueError):
         tk2._trunk_bwd_cuda(packed, cfg, x, cs, cf, cg, zs.to(other),
                             us.to(other))
-    hw = tk4.pack_head_weights(net, cfg, torch.bfloat16)
+    hw = tk4.pack_head_weights(net, cfg, tk1.weight_dtype(cfg),
+                               planes=tk1.split_operands(cfg))
     cot = torch.zeros(n, tk4.HEAD_COLS)
-    if dtype == "float32":
-        with pytest.raises(ValueError, match="K2 and K3 run"):
-            tk4._trunk_heads_fwd_cuda(packed, hw, cfg, x, want_zs=True)
-        with pytest.raises(ValueError, match="K2 and K3 run"):
-            tk4._trunk_heads_bwd_cuda(packed, hw, cfg, x, cot, cg, zs)
-        return
     out4 = tk4._trunk_heads_fwd_cuda(packed, hw, cfg, x, want_zs=True)
     zs_twin = tk4._trunk_heads_fwd_plain(packed, hw, cfg, x, want_zs=True)[2]
     assert out4[2].dtype == zs_twin.dtype == sd
-    # zs_f32 before layers, skip, stream
-    assert recorded["TRUNK_HEADS_FWD"].args[-4] == int(sd == torch.float32)
+    # zs_f32 and split before layers, skip, stream
+    flags = (int(sd == torch.float32), int(dtype == "float32"))
+    assert recorded["TRUNK_HEADS_FWD"].args[-5:-3] == flags
     tk4._trunk_heads_bwd_cuda(packed, hw, cfg, x, cot, cg, out4[2])
-    assert recorded["TRUNK_HEADS_BWD"].args[-4] == int(sd == torch.float32)
+    assert recorded["TRUNK_HEADS_BWD"].args[-5:-3] == flags
     with pytest.raises(ValueError):
         tk4._trunk_heads_bwd_cuda(packed, hw, cfg, x, cot, cg,
                                   out4[2].to(other))
@@ -294,15 +291,16 @@ def test_packed_layout_per_dtype(recorded, dtype, planes, ok):
 
 @pytest.mark.parametrize("dtype", tk1.CUDA_DTYPES)
 def test_fused_heads_stand_aside_at_f32_on_the_card(dtype):
-    """heads_kernel_supports: at float32 on a CUDA run K4/K5 are not
-    ported, so the predicate is False there (K2/K3 run); on the CPU it
-    holds for the flagship heads at every dtype, as before."""
+    """heads_kernel_supports: K4/K5 take every dtype the trunk kernels
+    take, float32 included, so the predicate holds for the flagship heads
+    at every dtype, on the card as on the CPU (it read False at float32 on
+    the card while K4/K5 took bf16 operands only); the predicate reads
+    the heads' shapes, not their device."""
     cfg, net = _flagship(dtype)
     assert tk4.heads_kernel_supports(cfg, net, apply_brdf=True)
-    on_card = {"fc_net": [SimpleNamespace(w=SimpleNamespace(
-        device=torch.device("cuda")))]}
-    if dtype == "float32":
-        assert not tk4.heads_kernel_supports(cfg, on_card, apply_brdf=True)
+    on_card = dict(net.items(), fc_net=[SimpleNamespace(w=SimpleNamespace(
+        device=torch.device("cuda")))])
+    assert tk4.heads_kernel_supports(cfg, on_card, apply_brdf=True)
 
 
 @pytest.mark.cuda

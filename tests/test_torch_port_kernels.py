@@ -631,17 +631,19 @@ def test_profile_groups_find_the_kernels():
     """The source scan above sees every kernel of the port: K1's <SPLIT>,
     the forward template's <ZS, HEADS, ZF32, SPLIT>, the backward's sweep
     <HEADS, ZF32, SPLIT> and its weight-gradient and reduce kernels
-    <HEADS>, K5's b_th chain <ZF32>, and the layout check's (every
+    <HEADS>, K5's b_th chain <ZF32, SPLIT>, and the layout check's (every
     combination of the bools, the ones no launch takes included)."""
     names = {k[0].split("(")[0] for k in _KERNELS}
     assert {"void trunk::trunk_sigma_kernel<true>",
             "void trunk::trunk_fwd_grad_kernel<false, false, false, false>",
             "void trunk::trunk_fwd_grad_kernel<true, true, true, false>",
             "void trunk::trunk_fwd_grad_kernel<true, false, true, true>",
+            "void trunk::trunk_fwd_grad_kernel<true, true, true, true>",
             "void trunk::trunk_bwd_sweep_kernel<true, true, false>",
             "void trunk::trunk_bwd_sweep_kernel<false, true, true>",
+            "void trunk::trunk_bwd_sweep_kernel<true, true, true>",
             "void trunk::trunk_bwd_wgrad_kernel<false>",
             "void trunk::trunk_bwd_reduce_kernel<true>",
-            "void trunk::trunk_heads_uchain_kernel<true>",
+            "void trunk::trunk_heads_uchain_kernel<true, true>",
             "void trunk::sm90_check_kernel"} <= names, names
-    assert len(names) == 2 + 16 + 8 + 2 + 2 + 2 + 1
+    assert len(names) == 2 + 16 + 8 + 2 + 2 + 4 + 1

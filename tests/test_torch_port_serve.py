@@ -176,16 +176,19 @@ def test_entry_points_never_fall_back_to_cpu(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("dtype,fast_sin,on_cuda", [
     ("bfloat16_all", "1", True), ("float32", "1", True),
-    ("bfloat16", "1", True), ("float32", "0", False)])
+    ("bfloat16", "1", True), ("float32", "0", True),
+    ("bfloat16_all", "0 --siren 0", True),
+    ("float32", "1 --fc_feat 64", False)])
 def test_kernels_default_on_for_cuda_where_they_cover_the_model(
         dtype, fast_sin, on_cuda):
     """Every compute dtype the kernels take (float32 as split products)
-    turns them on by default on CUDA; the exact sine, which they do not
-    take, leaves them off; the CPU never turns them on."""
+    and every activation (the polynomial and the exact sine, ReLU) turns
+    them on by default on CUDA; a width they do not take (64) leaves them
+    off; the CPU never turns them on."""
     from brdfnerf_tpu_torch.cli import opts
     argv = ["--root_dir", "r", "--exp_name", "e", "--mapping",
             "--normal", "analystic", "--compute_dtype", dtype,
-            "--fast_sin", fast_sin]
+            "--fast_sin", *fast_sin.split()]
     args = opts.postprocess(opts.train_parser().parse_args(argv))
     for device, on in (("cuda", on_cuda), ("cpu", False)):
         r = opts.to_run_config(args, device=device).render

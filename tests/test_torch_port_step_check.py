@@ -108,3 +108,36 @@ def test_ill_conditioned_rays_reads_the_cosines_rpv_clamps():
     torch.testing.assert_close(
         res["rpv_cv_coarse"].flatten(), cv.clamp(1e-5, 1 - 1e-6),
         atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("shift,ok", [(0.0, True), (0.005, True),
+                                      (0.05, False), (-0.05, False)])
+def test_dbsig_bound_fails_a_five_percent_error(shift, ok):
+    """chip_smoke.dbsig_held, the bf16 checks' bound on the sigma head's
+    bias gradient: 1e-2 of its terms' L2 norm (f32_check.dbsig_scale), the
+    twin's own K3 on a small bfloat16_all trunk.  A dbsig moved by 5% of
+    that norm fails it, by 0.5% passes."""
+    from brdfnerf_tpu_torch.ops import fused_mlp as tk1
+    from brdfnerf_tpu_torch.ops import fused_trunk_vjp as tk2
+    from brdfnerf_tpu_torch.tools.f32_check import dbsig_scale
+    cfg = tconfig.ModelConfig(**SMALL, compute_dtype="bfloat16_all")
+    net = init_network(cfg, torch.Generator().manual_seed(0), device="cpu")
+    packed = tk1.pack_trunk_weights(net, cfg, torch.bfloat16)
+    g = torch.Generator().manual_seed(1)
+    x = torch.zeros(128, 128)
+    x[:, :60] = torch.rand(128, 60, generator=g) * 2 - 1
+    _, _, _, zs, us = tk2._trunk_fwd_grad_plain(packed, cfg, x, True)
+    cs = torch.randn(128, generator=g)
+    cf = (torch.randn(128, 64, generator=g) * 0.1).to(torch.bfloat16)
+    cg = torch.zeros(128, 128)
+    cg[:, :60] = torch.randn(128, 60, generator=g)
+    ref = tk2._trunk_bwd_plain(packed, cfg, x, cs, cf, cg, zs, us)[8]
+    scale = dbsig_scale(packed, cfg, cs, cg, zs)
+    assert scale > 0.0
+    got = ref + shift * scale
+    cs_mod = _chip_smoke()
+    if ok:
+        assert cs_mod.dbsig_held("K3", got, ref, scale) <= 1e-2
+    else:
+        with pytest.raises(AssertionError):
+            cs_mod.dbsig_held("K3", got, ref, scale)
