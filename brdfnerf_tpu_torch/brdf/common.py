@@ -5,9 +5,28 @@ nadir gives no 0/0."""
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import NamedTuple
 
 import torch
+
+
+@lru_cache(maxsize=None)
+def _bound(v: float, dtype: torch.dtype, device: torch.device):
+    # filled on the device, once per (value, dtype, device): a bound made
+    # from a Python number each call would copy it from the host
+    return torch.full((), v, dtype=dtype, device=device)
+
+
+def clip(x, lo=None, hi=None):
+    """jnp.clip(x, lo, hi): maximum with lo, then minimum with hi, the
+    bounds as tensors, so an input exactly at a bound gets half the
+    gradient, as under JAX (torch.clamp passes all of it)."""
+    if lo is not None:
+        x = torch.maximum(x, _bound(float(lo), x.dtype, x.device))
+    if hi is not None:
+        x = torch.minimum(x, _bound(float(hi), x.dtype, x.device))
+    return x
 
 
 class BRDFAngles(NamedTuple):
@@ -25,19 +44,19 @@ class BRDFAngles(NamedTuple):
 def calc_angles(pts2l, pts2c, normal, eps: float = 1e-5) -> BRDFAngles:
     """pts2l/pts2c/normal: (N, 3) unit vectors (basic_func.py:5-31)."""
     cos_max = 1.0 - 1e-6
-    ci = torch.clamp(torch.sum(pts2l * normal, -1), eps, cos_max)
+    ci = clip(torch.sum(pts2l * normal, -1), eps, cos_max)
     sza = torch.arccos(ci)
     si = torch.sin(sza)
 
-    cv = torch.clamp(torch.sum(pts2c * normal, -1), eps, cos_max)
+    cv = clip(torch.sum(pts2c * normal, -1), eps, cos_max)
     vza = torch.arccos(cv)
     sv = torch.sin(vza)
 
-    cg = torch.clamp(torch.sum(pts2c * pts2l, -1), -cos_max, cos_max)
+    cg = clip(torch.sum(pts2c * pts2l, -1), -cos_max, cos_max)
     g = torch.arccos(cg)
 
-    denom = torch.clamp(si * sv, min=eps)
-    cp = torch.clamp((cg - ci * cv) / denom, -cos_max, cos_max)
+    denom = clip(si * sv, eps)
+    cp = clip((cg - ci * cv) / denom, -cos_max, cos_max)
     phi = torch.arccos(cp)
     return BRDFAngles(ci, sza, si, cv, vza, sv, cg, g, phi)
 

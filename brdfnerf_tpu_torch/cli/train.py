@@ -30,6 +30,10 @@ def kernels_line(cfg, device, train: bool = True) -> str:
     if device.type != "cuda":
         return ("[kernels] none: the run is on the CPU, where the kernels' "
                 "plain PyTorch twins run in their place")
+    if m.variant != "spsbrdf-nerf":
+        return (f"[kernels] none: the {m.variant} variant runs its trunk in "
+                "plain torch, as the JAX package runs it without a Pallas "
+                "kernel (apply_network)")
     if not cuda_kernels_cover(m):
         why = [w for w, bad in (
             (f"compute_dtype={m.compute_dtype!r}",
@@ -52,9 +56,16 @@ def kernels_line(cfg, device, train: bool = True) -> str:
         else:
             used.append("K2 (the trunk with its sigma gradient)")
         if os.environ.get("BRDFNERF_FUSED_HEADS"):
-            used.append(("K4 + K5 in their place" if train
-                         else "K4 in its place") + " where the flagship "
-                        "head set runs (BRDFNERF_FUSED_HEADS)")
+            if m.roughness or m.uses_hapke:
+                family = "Microfacet" if m.roughness else "Hapke"
+                used.append(f"BRDFNERF_FUSED_HEADS is set, but K4/K5 take "
+                            f"only the RPV(111) heads, so the {family} "
+                            "heads stay on " + ("K2 + K3" if train
+                                                else "K2"))
+            else:
+                used.append(("K4 + K5 in their place" if train
+                             else "K4 in its place") + " where the flagship "
+                            "head set runs (BRDFNERF_FUSED_HEADS)")
     if not used:
         return ("[kernels] none: --use_pallas 0 and no fused trunk "
                 "(--fused_trunk 0, or no analytic normals)")

@@ -18,10 +18,9 @@ has an exactly-affine RPC (denominators == 1) so localization is
 closed-form invertible; image intensity is a smooth function of ground
 lon/lat so multi-view consistency holds.
 
-The port's copy of the JAX package's data/synth_aoi.py: with default
-arguments it writes the same files.  RPV shading runs this package's
-brdf/rpv.py on CPU tensors; Hapke and Microfacet shading wait for those
-BRDFs (ROADMAP.md Queue 1 item 4, with item 9).
+The port's copy of the JAX package's data/synth_aoi.py: it writes the
+same files.  RPV, Hapke and Microfacet shading run this package's brdf/
+modules on CPU tensors.
 """
 
 import json
@@ -30,7 +29,6 @@ import os
 import numpy as np
 
 from ..geo.geodesy import latlon_from_utm, latlon_to_ecef, utm_from_latlon
-from ..models.network import not_ported
 from ..utils.geotiff import write_geotiff, GeoProfile, utm_epsg
 
 LAT0, LON0 = 48.0, 2.0
@@ -144,15 +142,42 @@ HAPKE_HPK_SCL = 1.0   # generator + trained model must agree on the BRF
 MICROFACET_GT = dict(rough=0.45)
 
 
+def _on_cpu(*arrays):
+    import torch
+    return [torch.from_numpy(np.ascontiguousarray(v)) for v in arrays]
+
+
 def microfacet_radiance(albedo, view_up, sun_up, normal, rough):
-    """Ground-truth Microfacet (GGX) radiance; not ported yet."""
-    raise not_ported("Microfacet shading of the synthetic AOI", 4)
+    """Ground-truth Microfacet (GGX) radiance:
+    I = |sun_z| * (albedo + 0.04 * D / (4 l.n v.n)),
+    through this package's brdf.microfacet.microfacet_brdf on CPU
+    tensors."""
+    from ..brdf.microfacet import microfacet_brdf
+
+    def fn(sun, view, nrm, alb):
+        r = np.full((alb.shape[0], 1), rough, np.float32)
+        return microfacet_brdf(*_on_cpu(sun, view, nrm, alb, r))[1].numpy()
+
+    return _shaded_radiance(fn, albedo, view_up, sun_up, normal)
 
 
 def hapke_radiance(albedo, view_up, sun_up, normal, b, c, theta,
                    hpk_scl: float = HAPKE_HPK_SCL):
-    """Ground-truth Hapke radiance; not ported yet."""
-    raise not_ported("Hapke shading of the synthetic AOI", 4)
+    """Ground-truth Hapke radiance:
+    I = |sun_z| * HapkeBRF(view, sun, normal; w=albedo, b, c, theta),
+    through this package's brdf.hapke.hapke_brdf (full BRF, shell 0) on
+    CPU tensors."""
+    from ..brdf.hapke import hapke_brdf
+
+    def fn(sun, view, nrm, alb):
+        ones3 = np.ones_like(alb)
+        sun, view, nrm, alb, bb, cc, th = _on_cpu(
+            sun, view, nrm, alb, b * ones3, c * ones3,
+            np.full(alb.shape[0], theta, np.float32))
+        return hapke_brdf(sun, view, nrm, alb, bb, cc, th, hpk_scl=hpk_scl,
+                          shell_hapke=0)[0].numpy()
+
+    return _shaded_radiance(fn, albedo, view_up, sun_up, normal)
 
 
 def _shaded_radiance(brdf_fn, albedo, view_up, sun_up, normal):
@@ -179,8 +204,7 @@ def rpv_radiance(albedo, view_up, sun_up, normal, k, theta, rhoc):
     from ..brdf.rpv import rpv_brdf
 
     def fn(sun, view, nrm, alb):
-        sun, view, nrm, alb = (torch.from_numpy(np.ascontiguousarray(v))
-                               for v in (sun, view, nrm, alb))
+        sun, view, nrm, alb = _on_cpu(sun, view, nrm, alb)
         ones3 = torch.ones_like(alb)
         return rpv_brdf(sun, view, nrm, alb, k * ones3, theta * ones3,
                         rhoc * ones3)[0].numpy()

@@ -216,6 +216,30 @@ def sigma_fn(net: Network, cfg: ModelConfig, xyz):
     return _head(net, cfg, "sigma_from_xyz", feats, final="softplus")[..., 0]
 
 
+def sigma_and_sun_v(net: Network, cfg: ModelConfig, xyz, sun_d):
+    """Density and the learned sun visibility from one trunk forward: the
+    program of the solar-correction pass along sun rays (the reference's
+    intended inference_sun, rendering.py:281)."""
+    feats = _trunk_features(net, cfg, xyz)
+    sigma = _head(net, cfg, "sigma_from_xyz", feats, final="softplus")[..., 0]
+    f = net["feats_from_xyz"][0]
+    xyz_features = _linear(f.w, f.b, feats, cfg.compute_dtype)
+    return sigma, _sun_v_head(net, cfg, xyz_features, sun_d)
+
+
+def analytic_normals(net: Network, cfg: ModelConfig, xyz):
+    """-normalize(grad_xyz sigma), calc_normals (spsbrdfnerf.py:648-660):
+    the gradient of the summed density (sigma at a point depends on that
+    point alone), with a graph for the loss's second order when grad mode
+    is on."""
+    create = torch.is_grad_enabled()
+    with torch.enable_grad():
+        x = xyz if xyz.requires_grad else xyz.detach().requires_grad_(True)
+        (grad_x,) = torch.autograd.grad(sigma_fn(net, cfg, x).sum(), x,
+                                        create_graph=create)
+    return -l2_normalize(grad_x.float())
+
+
 def apply_network(net: Network, cfg: ModelConfig, xyz, dirs=None,
                   sun_d=None, apply_brdf: bool = False,
                   apply_theta: bool = False,
@@ -304,10 +328,6 @@ def _heads_from_feats(out: Dict, net: Network, cfg: ModelConfig, feats,
                       dirs=None, sun_d=None,
                       apply_brdf: bool = False, apply_theta: bool = False,
                       nr_lr: bool = False) -> Dict[str, torch.Tensor]:
-    if cfg.roughness and apply_brdf:
-        raise not_ported("the Microfacet BRDF", 4)
-    if cfg.uses_hapke:
-        raise not_ported("the Hapke BRDF", 4)
     xyz_features = _linear(net["feats_from_xyz"][0].w,
                            net["feats_from_xyz"][0].b, feats,
                            cfg.compute_dtype)
@@ -336,10 +356,17 @@ def _heads_from_feats(out: Dict, net: Network, cfg: ModelConfig, feats,
         grad_lr = _linear(g.w, g.b, feats, cfg.compute_dtype)
         out["normal_lr"] = -l2_normalize(grad_lr.float())
 
-    if apply_brdf and cfg.rpv:
-        def tile3(v):
-            return v.repeat(*((1,) * (v.ndim - 1)), 3) if v.shape[-1] == 1 \
-                else v
+    if not apply_brdf:
+        return out
+
+    def tile3(v):
+        return v.repeat(*((1,) * (v.ndim - 1)), 3) if v.shape[-1] == 1 \
+            else v
+
+    if cfg.roughness:
+        out["roughness"] = _head(net, cfg, "roughness_from_xyz",
+                                 xyz_features, final="sigmoid")
+    elif cfg.rpv:
         k = th = rc = None
         if merged_rpv:
             k, th, rc = _merged_sigmoid_heads(net, cfg, xyz_features,
@@ -360,4 +387,24 @@ def _heads_from_feats(out: Dict, net: Network, cfg: ModelConfig, feats,
             out["rpv_theta"] = tile3((th - 0.5) * 2.0)          # [-1, 1]
         if rc is not None:
             out["rpv_rhoc"] = tile3(rc)                          # [0, 1]
+    else:
+        hp_names = [n for n, on in (("b_from_xyz", cfg.hapke_b),
+                                    ("c_from_xyz", cfg.hapke_c),
+                                    ("theta_from_xyz",
+                                     apply_theta and cfg.hapke_theta)) if on]
+        if len(hp_names) >= 2 and all(n in net and len(net[n]) == 2
+                                      for n in hp_names):
+            # one merged matmul pair, as the RPV heads
+            vals = dict(zip(hp_names, _merged_sigmoid_heads(
+                net, cfg, xyz_features, tuple(hp_names))))
+        else:
+            vals = {n: _head(net, cfg, n, xyz_features, final="sigmoid")
+                    for n in hp_names}
+        if "b_from_xyz" in vals:
+            out["hpk_b"] = tile3(vals["b_from_xyz"])
+        if "c_from_xyz" in vals:
+            out["hpk_c"] = tile3(vals["c_from_xyz"])
+        if "theta_from_xyz" in vals:
+            out["hpk_theta"] = (vals["theta_from_xyz"]
+                                * (math.pi * 30.0 / 180.0))   # [0, 30 deg]
     return out

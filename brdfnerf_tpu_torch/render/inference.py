@@ -1,6 +1,9 @@
 """Volume-rendering inference over one set of z samples (counterpart of the
-JAX package's render/inference.py): the sigma-only pass and the spsbrdf
-inference.  The other variants' inference functions are not ported yet."""
+JAX package's render/inference.py): nerf's classic inference, the shadow
+inference of s-nerf / sat-nerf / sps-nerf, the sigma-only pass, the
+solar-correction pass along sun rays and the spsbrdf inference with the
+RPV, Hapke and Microfacet BRDFs.  The variants other than spsbrdf run no
+fused kernel, as in the JAX package (apply_network, analytic_normals)."""
 
 from __future__ import annotations
 
@@ -9,9 +12,13 @@ from typing import Dict, Optional
 import torch
 
 from ..config import ModelConfig, RenderConfig
-from ..models.network import (apply_network, apply_network_with_normals,
-                              not_ported)
+from ..models.network import (analytic_normals, apply_network,
+                              apply_network_with_normals, not_ported,
+                              sigma_and_sun_v)
 from ..ops.compositing import composite, l2_normalize
+from ..brdf.common import clip
+from ..brdf.hapke import hapke_brdf
+from ..brdf.microfacet import microfacet_brdf
 from ..brdf.rpv import rpv_brdf
 
 
@@ -25,6 +32,54 @@ def _expand(v, n_samples):
     if v is None:
         return None
     return torch.repeat_interleave(v, n_samples, dim=0)
+
+
+def inference_classic(net, mcfg: ModelConfig, rcfg: RenderConfig, rays_o,
+                      rays_d, z_vals) -> Dict:
+    """Vanilla NeRF (models/nerf.py:72-147): rgb_padding and plain
+    compositing."""
+    n_rays, n_samples = z_vals.shape
+    xyz = _flat_points(rays_o, rays_d, z_vals).reshape(-1, 3)
+    out = apply_network(net, mcfg, xyz, dirs=_expand(rays_d, n_samples))
+    rgbs = out["rgb"].reshape(n_rays, n_samples, 3)
+    # nerf.py:273-274
+    rgbs = rgbs * (1 + 2 * mcfg.rgb_padding) - mcfg.rgb_padding
+    sigmas = out["sigma"].reshape(n_rays, n_samples)
+    alphas, transparency, weights, depth = composite(z_vals, sigmas)
+    result = {"rgb": torch.sum(weights[..., None] * rgbs, -2),
+              "depth": depth, "weights": weights, "z_vals": z_vals,
+              "sigmas": sigmas[..., None], "alphas": alphas,
+              "transparency": transparency}
+    if mcfg.normal in ("analystic", "analystic_learned"):
+        result["normal_an"] = analytic_normals(net, mcfg, xyz).reshape(
+            n_rays, n_samples, 3)
+    return result
+
+
+def inference_shadow(net, mcfg: ModelConfig, rcfg: RenderConfig, rays_o,
+                     rays_d, z_vals, sun_d) -> Dict:
+    """s-nerf / sat-nerf / sps-nerf inference (snerf.py:4-75,
+    satnerf.py:5-100): irradiance = sun_v + (1 - sun_v) * sky (s-nerf
+    eq. 2)."""
+    n_rays, n_samples = z_vals.shape
+    xyz = _flat_points(rays_o, rays_d, z_vals).reshape(-1, 3)
+    out = apply_network(net, mcfg, xyz, sun_d=_expand(sun_d, n_samples))
+    rgbs = out["rgb"].reshape(n_rays, n_samples, 3)
+    sigmas = out["sigma"].reshape(n_rays, n_samples)
+    sun_v = out["sun_v"].reshape(n_rays, n_samples, 1)
+    sky = out["sky"].reshape(n_rays, n_samples, 3)
+    alphas, transparency, weights, depth = composite(z_vals, sigmas)
+    irradiance = sun_v + (1.0 - sun_v) * sky
+    rgb = clip(torch.sum(weights[..., None] * rgbs * irradiance, -2),
+               0.0, 1.0)
+    result = {"rgb": rgb, "depth": depth, "weights": weights,
+              "transparency": transparency, "albedo": rgbs, "sun": sun_v,
+              "sky": sky, "sigmas": sigmas[..., None], "alphas": alphas,
+              "z_vals": z_vals}
+    if mcfg.normal in ("analystic", "analystic_learned"):
+        result["normal_an"] = analytic_normals(net, mcfg, xyz).reshape(
+            n_rays, n_samples, 3)
+    return result
 
 
 def sigma_pass(net, mcfg: ModelConfig, rcfg: RenderConfig, rays_o, rays_d,
@@ -47,6 +102,24 @@ def sigma_pass(net, mcfg: ModelConfig, rcfg: RenderConfig, rays_o, rays_d,
     return {"sigmas": sigmas[..., None], "depth": depth, "alphas": alphas,
             "weights": weights, "transparency": transparency,
             "z_vals": z_vals}
+
+
+def solar_correction_pass(net, mcfg: ModelConfig, rcfg: RenderConfig,
+                          rays_o, sun_d, z_vals) -> Dict:
+    """The solar-correction pass of spsbrdf-nerf with sun_v='learned':
+    march along sun rays from each ray origin (xyz = o + sun_d * z, the
+    s-nerf convention, rendering.py:199-204,219-224), composite sigma for
+    transparency and weights, and query the learned sun visibility at each
+    point: the reference's intended rendering.py:278-284, whose
+    inference_sun is undefined."""
+    n_rays, n_samples = z_vals.shape
+    xyz = _flat_points(rays_o, sun_d, z_vals).reshape(-1, 3)
+    sigma, sun_v = sigma_and_sun_v(net, mcfg, xyz,
+                                   _expand(sun_d, n_samples))
+    _, transparency, weights, _ = composite(
+        z_vals, sigma.reshape(n_rays, n_samples))
+    return {"sun": sun_v.reshape(n_rays, n_samples, 1), "weights": weights,
+            "transparency": transparency}
 
 
 def inference_spsbrdf(net, mcfg: ModelConfig, rcfg: RenderConfig,
@@ -93,8 +166,7 @@ def inference_spsbrdf(net, mcfg: ModelConfig, rcfg: RenderConfig,
     else:
         alphas, transparency, weights, depth = composite(z_vals, sigmas)
 
-    albedo_accu = torch.clamp(torch.sum(weights[..., None] * albedo, -2),
-                              0.0, 1.0)
+    albedo_accu = clip(torch.sum(weights[..., None] * albedo, -2), 0.0, 1.0)
     result: Dict = {"sigmas": sigmas[..., None], "albedo": albedo,
                     "albedo_accu": albedo_accu, "depth": depth,
                     "alphas": alphas, "weights": weights,
@@ -145,30 +217,47 @@ def inference_spsbrdf(net, mcfg: ModelConfig, rcfg: RenderConfig,
                                  irr_cos, irradiance)
 
     albedo_p = albedo * (1 + 2 * mcfg.rgb_padding) - mcfg.rgb_padding
-    result["rgb"] = torch.clamp(
+    result["rgb"] = clip(
         torch.sum(weights[..., None] * albedo_p * irradiance, -2), 0.0, 1.0)
     result["irradiance"] = irradiance
     albedo_s = torch.sum(weights[..., None] * albedo_p, -2)
 
-    if apply_brdf:
+    # a Hapke shell shades stage 1 too (brdf_active, inference.py:268)
+    if apply_brdf or (mcfg.uses_hapke and mcfg.shell_hapke > 0):
         if normal is None:
             raise ValueError(
                 "apply_brdf requires a normal mode ('analystic', 'learned' "
                 "or 'analystic_learned'), got normal='none': the BRDF "
                 "geometry terms need surface normals (spsbrdfnerf.py:234-239)")
-        if mcfg.roughness:
-            raise not_ported("the Microfacet BRDF", 4)
-        if mcfg.rpv:
-            def accum(name):   # per-sample (N,S,3) -> weighted sum (N,3)
-                return torch.sum(
-                    weights[..., None] * out[name].reshape(n_rays, n_samples,
-                                                           3), -2)
-            k = accum("rpv_k") if mcfg.func_m else None
-            th = accum("rpv_theta") if mcfg.func_f else None
+
+        def accum(v):   # per-sample (N,S,C) -> weighted sum (N,C)
+            return torch.sum(weights[..., None] * v, -2)
+
+        brdf = None
+        if mcfg.roughness and apply_brdf:
+            rough = out["roughness"].reshape(n_rays, n_samples, 1)
+            result["roughness"] = rough
+            glossy, brdf, f, g, d, ldn, vdn, h, n_h = microfacet_brdf(
+                sun_d, -rays_d, normal_s, albedo_s, accum(rough),
+                f0=mcfg.fresnel_f0, glossy_scale=mcfg.glossy_scale)
+            result.update(
+                glossy=glossy.reshape(n_rays, 1, 1),
+                brdf=brdf.reshape(n_rays, 1, 3),
+                f=f.reshape(n_rays, 1, 1), g=g.reshape(n_rays, 1, 1),
+                d=d.reshape(n_rays, 1, 1),
+                l_dot_n=ldn.reshape(n_rays, 1, 1),
+                v_dot_n=vdn.reshape(n_rays, 1, 1),
+                halfvec=h.reshape(n_rays, 1, 3),
+                n_h=n_h.reshape(n_rays, 1, 1))
+        elif mcfg.rpv and apply_brdf:
+            def per_ray(name):
+                return accum(out[name].reshape(n_rays, n_samples, 3))
+            k = per_ray("rpv_k") if mcfg.func_m else None
+            th = per_ray("rpv_theta") if mcfg.func_f else None
             if mcfg.func_h == 2:
                 rc = albedo_s                             # spsbrdfnerf.py:306,317
             elif mcfg.func_h:
-                rc = accum("rpv_rhoc")
+                rc = per_ray("rpv_rhoc")
             else:
                 rc = None
             brdf, m1, f, g, h, ci, cv = rpv_brdf(sun_d, -rays_d, normal_s,
@@ -186,12 +275,32 @@ def inference_spsbrdf(net, mcfg: ModelConfig, rcfg: RenderConfig,
             for name in ("rpv_k", "rpv_theta", "rpv_rhoc"):
                 if name in out:
                     result[name] = out[name].reshape(n_rays, n_samples, 3)
-            result["rgb"] = torch.clamp(
-                irradiance[:, -1, :] * brdf.reshape(n_rays, 3), 0.0, 1.0)
         elif mcfg.uses_hapke:
-            raise not_ported("the Hapke BRDF", 4)
-    elif mcfg.uses_hapke and mcfg.shell_hapke > 0:
-        raise not_ported("the Hapke BRDF", 4)
+            b = c = theta = None
+            if apply_brdf and mcfg.hapke_b:
+                result["hpk_b"] = out["hpk_b"].reshape(n_rays, n_samples, 3)
+                b = accum(result["hpk_b"])
+            if apply_brdf and mcfg.hapke_c:
+                result["hpk_c"] = out["hpk_c"].reshape(n_rays, n_samples, 3)
+                c = accum(result["hpk_c"])
+            if rcfg.apply_theta and mcfg.hapke_theta and "hpk_theta" in out:
+                ht = out["hpk_theta"].reshape(n_rays, n_samples, 1)
+                result["hpk_theta"] = ht
+                theta = torch.sum(weights * ht[..., 0], -1)
+            brdf, p, bk, hi, hv, shad, ci, cv = hapke_brdf(
+                sun_d, -rays_d, normal_s, albedo_s, b, c, theta,
+                hpk_scl=mcfg.hpk_scl, shell_hapke=mcfg.shell_hapke)
+            result.update(
+                brdf=brdf.reshape(n_rays, 1, 3),
+                hpk_P=p.reshape(n_rays, 1, 3),
+                hpk_Hi=hi.reshape(n_rays, 1, 3),
+                hpk_Hv=hi.reshape(n_rays, 1, 3),    # (sic) spsbrdfnerf.py:387
+                hpk_ci=ci.reshape(n_rays, 1, 1),
+                hpk_cv=cv.reshape(n_rays, 1, 1),
+                hpk_ShadFunc=shad.reshape(n_rays, 1, 1))
+        if brdf is not None:
+            result["rgb"] = clip(
+                irradiance[:, -1, :] * brdf.reshape(n_rays, 3), 0.0, 1.0)
 
     result["rays_d"] = (-rays_d).reshape(n_rays, 1, 3)
     result["sun_d"] = sun_d.reshape(n_rays, 1, 3)

@@ -1,17 +1,28 @@
 """render_rays: the render orchestrator (counterpart of the JAX package's
-render/render.py), spsbrdf-nerf branch:
+render/render.py).  Pipeline per variant:
 
-  sigma-only pass -> guided samples around its depth -> merge sort
-  -> [analytic sun-visibility march] -> full spsbrdf inference
+  nerf        : stratified -> classic inference
+  s-nerf      : stratified -> shadow inference (+ solar-correction pass)
+  sat-nerf    : stratified -> shadow inference (+ solar-correction pass)
+  sps-nerf    : shadow pass -> guided samples around its depth -> merge
+                sort -> shadow inference (+ solar-correction pass)
+  spsbrdf-nerf: sigma-only pass -> guided samples -> merge sort
+                -> [analytic sun-visibility march] -> spsbrdf inference
+                (+ the learned sun's solar-correction pass)
+
+The solar-correction passes run in training only, with sun_v='learned'
+(their sole consumer is the sc loss).
 
 Random draws: the JAX package splits one PRNG key per render call; here
 each draw is a uniform tensor, taken from `draws` when given (a test hands
-in the JAX package's draws) or else from `generator`:
+in the JAX package's draws) or else from `generator`, in this order:
 
   draws["z"]       (N, n_samples)  stratified jitter
   draws["guided"]  (N, guided)     inverse-CDF draws of the guided band
+                                   (sps-nerf, spsbrdf-nerf)
   draws["guided_gt"] (N, guided)   the same for the GT-depth band (train)
   draws["sun"]     (N, n_sun)      stratified jitter of the sun march
+                                   (spsbrdf-nerf)
 """
 
 from __future__ import annotations
@@ -23,7 +34,8 @@ import torch
 from ..config import ModelConfig, RenderConfig
 from ..models.network import not_ported
 from ..ops.sampling import guided_samples, linspace, stratified_z_vals
-from .inference import inference_spsbrdf, sigma_pass
+from .inference import (inference_classic, inference_shadow,
+                        inference_spsbrdf, sigma_pass, solar_correction_pass)
 
 
 class RenderInputs(NamedTuple):
@@ -76,9 +88,11 @@ def _guided(prev_result, rcfg: RenderConfig, near, far, train: bool,
 def _render_spsbrdf(net, mcfg, rcfg, inp, rays_o, rays_d, near, far, sun_d,
                     z_vals, train: bool, draws: Dict, generator) -> Dict:
     if rcfg.guided_samples <= 0:
-        return inference_spsbrdf(net, mcfg, rcfg, rays_o, rays_d, z_vals,
-                                 sun_d, cos_irra_on=inp.cos_irra_on,
-                                 rows=inp.rows, cols=inp.cols)
+        result = inference_spsbrdf(net, mcfg, rcfg, rays_o, rays_d, z_vals,
+                                   sun_d, cos_irra_on=inp.cos_irra_on,
+                                   rows=inp.rows, cols=inp.cols)
+        return _spsbrdf_sc(result, net, mcfg, rcfg, rays_o, sun_d, z_vals,
+                           train)
 
     # phase 1: sigma only (rendering.py:232)
     res1 = sigma_pass(net, mcfg, rcfg, rays_o, rays_d, z_vals)
@@ -121,6 +135,31 @@ def _render_spsbrdf(net, mcfg, rcfg, inp, rays_o, rays_d, near, far, sun_d,
                                cos_irra_on=inp.cos_irra_on, rows=inp.rows,
                                cols=inp.cols)
     result["z_vals_unsort"] = z_unsort
+    return _spsbrdf_sc(result, net, mcfg, rcfg, rays_o, sun_d, z_final,
+                       train)
+
+
+def _solar_correction(net, mcfg, rcfg, rays_o, sun_d, z_vals) -> Dict:
+    """s-nerf's solar-correction pass: the shadow inference along the sun
+    direction, whose transparency, weights and sun visibility feed the sc
+    loss terms (rendering.py:194-204,218-224; metrics.py:30-37)."""
+    if mcfg.sun_v != "learned":
+        return {}
+    res = inference_shadow(net, mcfg, rcfg, rays_o, sun_d, z_vals, sun_d)
+    return {"weights_sc": res["weights"],
+            "transparency_sc": res["transparency"], "sun_sc": res["sun"]}
+
+
+def _spsbrdf_sc(result: Dict, net, mcfg, rcfg, rays_o, sun_d, z_vals,
+                train: bool) -> Dict:
+    """The spsbrdf solar-correction keys when sun_v is learned, from a
+    sigma + learned-sun_v march along sun rays (solar_correction_pass)."""
+    if mcfg.sun_v != "learned" or not train:
+        return result
+    sc = solar_correction_pass(net, mcfg, rcfg, rays_o, sun_d, z_vals)
+    result["weights_sc"] = sc["weights"]
+    result["transparency_sc"] = sc["transparency"]
+    result["sun_sc"] = sc["sun"]
     return result
 
 
@@ -137,20 +176,38 @@ def _render_one(net, mcfg: ModelConfig, rcfg: RenderConfig,
     z_vals = stratified_z_vals(rcfg.n_samples, near, far, rcfg.use_disp,
                                rcfg.perturb, u=draws.get("z"),
                                generator=generator)
-    if mcfg.variant != "spsbrdf-nerf":
-        raise not_ported(f"the {mcfg.variant} variant", 9)
-    if train and mcfg.sun_v == "learned":
-        raise not_ported("the training-time solar-correction pass", 9)
-    return _render_spsbrdf(net, mcfg, rcfg, inp, rays_o, rays_d, near, far,
-                           sun_d, z_vals, train, draws, generator)
+    variant = mcfg.variant
+    if variant == "nerf":
+        return inference_classic(net, mcfg, rcfg, rays_o, rays_d, z_vals)
+    if variant in ("s-nerf", "sat-nerf", "sps-nerf"):
+        result = inference_shadow(net, mcfg, rcfg, rays_o, rays_d, z_vals,
+                                  sun_d)
+        if variant == "sps-nerf" and rcfg.guided_samples > 0:
+            z2 = _guided(result, rcfg, near, far, train, inp,
+                         u=draws.get("guided"), u_gt=draws.get("guided_gt"),
+                         generator=generator)
+            z_unsort = torch.cat([z_vals, z2], -1)
+            z_vals = torch.sort(z_unsort, -1).values
+            result = inference_shadow(net, mcfg, rcfg, rays_o, rays_d,
+                                      z_vals, sun_d)
+            result["z_vals_unsort"] = z_unsort
+        if train:
+            result.update(_solar_correction(net, mcfg, rcfg, rays_o, sun_d,
+                                            z_vals))
+        return result
+    if variant == "spsbrdf-nerf":
+        return _render_spsbrdf(net, mcfg, rcfg, inp, rays_o, rays_d, near,
+                               far, sun_d, z_vals, train, draws, generator)
+    raise ValueError(f"model {variant} is not valid")
 
 
 def chunk_draws(mcfg: ModelConfig, rcfg: RenderConfig, n_rays: int,
                 device, seed: int = 0) -> Dict[str, torch.Tensor]:
     """The draws that render_rays(train=False) takes from a generator seeded
     with `seed` for a batch of n_rays, made ahead in the order and shapes it
-    consumes them (stratified jitter, the guided band, the sun march), so a
-    caller can hand one batch's draws to many batches."""
+    consumes them (stratified jitter; sps-nerf's and spsbrdf-nerf's guided
+    band; spsbrdf-nerf's sun march), so a caller can hand one batch's
+    draws to many batches."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     draws: Dict[str, torch.Tensor] = {}
@@ -161,11 +218,12 @@ def chunk_draws(mcfg: ModelConfig, rcfg: RenderConfig, n_rays: int,
 
     if rcfg.perturb > 0:
         take("z", rcfg.n_samples)
-    if rcfg.guided_samples > 0:
+    if (rcfg.guided_samples > 0
+            and mcfg.variant in ("sps-nerf", "spsbrdf-nerf")):
         if rcfg.perturb != 0.0:
             take("guided", rcfg.effective_guided)
-        march = mcfg.sun_v == "analystic" and (rcfg.apply_brdf
-                                               or rcfg.force_sun_march)
+        march = (mcfg.variant == "spsbrdf-nerf" and mcfg.sun_v == "analystic"
+                 and (rcfg.apply_brdf or rcfg.force_sun_march))
         if march and rcfg.perturb > 0:
             take("sun", rcfg.sun_march_count(rcfg.total_samples))
     return draws

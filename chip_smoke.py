@@ -133,6 +133,39 @@ With the switch unset again:
                 brf_probe --param_probe (33 finite rows); the eval CLI on
                 the float32 stage-2 run (K1 2 and K2 1 per chunk, its
                 [kernels] line at float32)
+The BRDF families and the variants (before phase 8):
+ 10. family, hapke / family, microfacet - the flagship's configuration with
+                the family's heads in place of RPV(111) (Hapke: --b --c
+                --theta --brdf_on 0; Microfacet: --roughness), at
+                bfloat16_all and at float32: one request (K1 2 / K2 1 a
+                chunk) against the CPU twins at the bounds of 5 (float32:
+                5c), the stage-2 step (K1 2 / K2 1 / K3 1 a step over
+                FAMILY_STEPS timed steps, a falling loss, one step
+                profiled), one step with BRDFNERF_FUSED_HEADS set (K4 and
+                K5 launch 0: they take the RPV(111) heads alone), one
+                step-check point as 7 (7c at float32) on the rays that
+                brdf_ill_conditioned leaves (the family's BRDF read by
+                autograd on the CPU twins); Hapke also 4 stage-1 steps with
+                --shell_hapke 3 (K1 1 / K2 1 / K3 1: no sun march in stage 1)
+ 11. variants - nerf, s-nerf, sat-nerf and sps-nerf (beta off; the
+                learned sun and its solar-correction loss where the variant
+                has them) at 8 x 512 and float32: one request against the
+                CPU twins (256 rays) and VARIANT_STEPS steps on a one-batch
+                store (the loss falls), K1-K5 launching 0 (the JAX package
+                runs these trunks without a Pallas kernel); then spsbrdf-nerf
+                with --sun_v learned (bfloat16_all): a request (K1 1 / K2 1 a
+                chunk) and 4 steps (K1 1 / K2 1 / K3 1: the learned head
+                replaces the sun march; the solar-correction pass is plain
+                torch)
+After phase 9:
+ 12. workflow, hapke / workflow, microfacet - each family's two-stage
+                workflow through the train CLI on its shaded AOI
+                (build_aoi(size=256, bumpy=True, brdf=HAPKE_GT |
+                MICROFACET_GT)), FAMILY_WF_STEPS steps a stage, launches of
+                steps and validation held, the [kernels] lines, falling
+                losses, checkpoints with the family's heads; then the eval
+                CLI on stage 2 (K1 52 / K2 26), its PSNR, SSIM and DSM MAE
+                finite and printed
 Then one JSON line of every ported kernel instantiation (each launched on
 a main path: the run fails if one was not), the card's line, and the last
 line {"ok": true, "device": {...}}.
@@ -167,7 +200,12 @@ MIX_STEPS = 4           # timed steps of the mixed bfloat16 runs
 UNFUSED_STEPS = 4       # ... and of the unfused float32 step (~340 ms each)
 ACT_STEPS = 10          # timed steps at the exact sine and at ReLU
 ACT_SHORT = 2           # ... of their float32 and bfloat16 runs
+FAMILY_STEPS = 10       # timed steps of each BRDF family and dtype
+VARIANT_STEPS = 4       # timed steps of each variant (a one-batch store)
 FUSED_HEADS = "BRDFNERF_FUSED_HEADS"   # read per call by models.network
+# the flagship render's (n, 3) panel maps
+FLAGSHIP_KEYS3 = ("albedo_coarse", "normal_an_coarse", "rpv_k_coarse",
+                  "rpv_theta_coarse", "rpv_rhoc_coarse", "irradiance_coarse")
 
 
 T0 = time.perf_counter()
@@ -1271,6 +1309,113 @@ def ill_conditioned_rays(net, mcfg, rcfg, batch, draws, gates, bound,
                            res["nr_vw_coarse"].flatten(), bound, normal_err)
 
 
+def _ray_brdf(mcfg, rcfg, sun, view, normal, q):
+    """The per-ray BRDF that inference_spsbrdf shades with, of the family
+    mcfg names, on the per-ray inputs q (albedo and the family's heads,
+    weight-summed)."""
+    from brdfnerf_tpu_torch.brdf.hapke import hapke_brdf
+    from brdfnerf_tpu_torch.brdf.microfacet import microfacet_brdf
+    from brdfnerf_tpu_torch.brdf.rpv import rpv_brdf
+    if mcfg.roughness and rcfg.apply_brdf:
+        return microfacet_brdf(sun, view, normal, q["alb"], q["rough"],
+                               f0=mcfg.fresnel_f0)[1]
+    if mcfg.rpv and rcfg.apply_brdf:
+        rhoc = q["alb"] if mcfg.func_h == 2 else q.get("rhoc")
+        return rpv_brdf(sun, view, normal, q["alb"], q.get("k"),
+                        q.get("th"), rhoc)[0]
+    return hapke_brdf(sun, view, normal, q["alb"], q.get("b"), q.get("c"),
+                      q.get("theta"), hpk_scl=mcfg.hpk_scl,
+                      shell_hapke=mcfg.shell_hapke)[0]
+
+
+def brdf_ill_conditioned(res, rgbs, mcfg, rcfg, bound,
+                         normal_err=NORMAL_ERR):
+    """The rays whose step gradient the contract leaves undetermined at
+    `bound`, for any BRDF family, read by autograd from a training
+    render's result `res` (the twins on the CPU: nothing of the kernels)
+    and the rays' target colours.  The BRDF sees a ray's normals only
+    through the summed normal n = normalize(sum_s w_s n_s); an error of
+    normal_err in each sample's normal turns n by up to err = normal_err *
+    sum_s w_s / |sum_s w_s n_s|.  In float64, the gradient of the ray's
+    colour loss with respect to n and to the BRDF's other per-ray inputs
+    (albedo, the family's heads), each a block, is taken at n and at n
+    turned by err along +-two tangent directions; a ray is undetermined
+    where any block moves by more than `bound` of its size (floored at the
+    batch's median size of that block, so that a block the ray hardly
+    feeds does not count).  Where the BRDF divides by a cosine (RPV's
+    Minnaert factor, Hapke's 1 / cos i and H function, Microfacet's
+    1 / (|l.n| |v.n|) and GGX's 1 / cos^4), the gradient moves like
+    err / cos, so grazing rays are set aside; a clamped cosine moves
+    nothing.  Returns a bool tensor (n_rays,)."""
+    from brdfnerf_tpu_torch.brdf.common import clip
+    f64 = torch.float64
+    w = res["weights_coarse"].to(f64)
+    summed = torch.sum(w[..., None] * res["normal_an_coarse"].to(f64), -2)
+    length = summed.norm(dim=-1).clamp_min(1e-30)
+    n = summed / length[:, None]
+    err = normal_err * w.sum(-1) / length
+
+    def wsum(v):
+        return torch.sum(w[..., None] * v.to(f64), -2)
+    pad = mcfg.rgb_padding
+    q = {"alb": wsum(res["albedo_coarse"] * (1 + 2 * pad) - pad)}
+    for name, key in (("k", "rpv_k"), ("th", "rpv_theta"),
+                      ("rhoc", "rpv_rhoc"), ("b", "hpk_b"), ("c", "hpk_c"),
+                      ("rough", "roughness")):
+        if f"{key}_coarse" in res:
+            q[name] = wsum(res[f"{key}_coarse"])
+    if "hpk_theta_coarse" in res:
+        q["theta"] = wsum(res["hpk_theta_coarse"])[:, 0]
+    sun = res["sun_d_coarse"].reshape(-1, 3).to(f64)
+    view = res["rays_d_coarse"].reshape(-1, 3).to(f64)
+    irr = res["irradiance_coarse"][:, -1, :].to(f64)
+    target = torch.as_tensor(rgbs).to(f64)
+
+    def blocks(normal):
+        leaves = [normal.detach().clone().requires_grad_(True)] + [
+            v.detach().clone().requires_grad_(True) for v in q.values()]
+        with torch.enable_grad():
+            rgb = clip(irr * _ray_brdf(mcfg, rcfg, sun, view, leaves[0],
+                                       dict(zip(q, leaves[1:]))), 0.0, 1.0)
+            grads = torch.autograd.grad(((rgb - target) ** 2).sum(), leaves,
+                                        allow_unused=True)
+        return [torch.zeros_like(v) if g is None else g.reshape(len(v), -1)
+                for g, v in zip(grads, leaves)]
+
+    g0 = blocks(n)
+    axis = torch.zeros_like(n)
+    axis[:, 0] = (n[:, 2].abs() >= 0.9).to(f64)
+    axis[:, 2] = (n[:, 2].abs() < 0.9).to(f64)
+    t1 = torch.linalg.cross(n, axis)
+    t1 = t1 / t1.norm(dim=-1, keepdim=True)
+    t2 = torch.linalg.cross(n, t1)
+    moved = torch.zeros_like(err)
+    for t in (t1, -t1, t2, -t2):
+        turned = n + err[:, None] * t
+        g1 = blocks(turned / turned.norm(dim=-1, keepdim=True))
+        for a0, a1 in zip(g0, g1):
+            size = a0.norm(dim=-1)
+            floor = torch.maximum(size, size.median()).clamp_min(1e-300)
+            moved = torch.maximum(moved, (a1 - a0).norm(dim=-1) / floor)
+    return moved > bound
+
+
+def brdf_ill_conditioned_rays(net, mcfg, rcfg, batch, draws, gates, bound,
+                              normal_err=NORMAL_ERR):
+    """brdf_ill_conditioned on the rays of a training batch, read from
+    `net`'s render with `draws` (the twins on the CPU)."""
+    from brdfnerf_tpu_torch.render.render import RenderInputs, render_rays
+    inp = RenderInputs(rays=batch["rays"], ts=batch["ts"],
+                       valid_depth=batch["valid_depth"],
+                       target_depths=batch["depths"],
+                       target_std=batch["depth_std"],
+                       cos_irra_on=gates.cos_irra_on)
+    with torch.no_grad():
+        res = render_rays(net, mcfg, rcfg, inp, train=True, draws=draws)
+    return brdf_ill_conditioned(res, batch["rgbs"], mcfg, rcfg, bound,
+                                normal_err)
+
+
 # the two-stage workflow through the port's train CLI (phase 8)
 AOI_SIZE = 256          # 65,536 rays an image; 2 train + 1 test image
 # one epoch of 128 steps at batch 1,024 a stage (256 until the float32
@@ -1280,7 +1425,8 @@ WF_SCAN_STEPS = 16
 WF_CHUNKS = 2 * -(-AOI_SIZE * AOI_SIZE // CHUNK)   # a validation's chunks
 
 
-def workflow(root, reset_counts, counts, bare_rays_s):
+def workflow(root, reset_counts, counts, bare_rays_s, family=None,
+             smi=""):
     """Stage 1, then stage 2 handed off from stage 1's last checkpoint,
     through brdfnerf_tpu_torch.cli.train.main on the card at the flagship's
     width, on the port's synthetic AOI; then a resume of stage 2 for 2
@@ -1291,7 +1437,13 @@ def workflow(root, reset_counts, counts, bare_rays_s):
     epoch, the resume's step count and learning rate, and the scan's
     per-step losses.  Reported: the AOI build, ingestion and validation
     times, fit's rays/s against phase 6's bare step, and the device's busy
-    share over fit's loop."""
+    share over fit's loop.
+
+    With `family` ("hapke" or "microfacet"), the family's workflow instead:
+    its shaded AOI (build_aoi(bumpy=True, brdf=HAPKE_GT | MICROFACET_GT)),
+    stage 1 and stage 2 (the family's heads) of FAMILY_WF_STEPS each, the
+    launches of their steps and validations held, and the eval CLI on
+    stage 2 (K1 2 / K2 1 a chunk, finite scores); returns its scores."""
     from torch.profiler import ProfilerActivity, profile
     from brdfnerf_tpu_torch.cli import train as cli_train
     from brdfnerf_tpu_torch.data.satellite import (SatelliteConfig,
@@ -1300,8 +1452,12 @@ def workflow(root, reset_counts, counts, bare_rays_s):
     from brdfnerf_tpu_torch.parallel import train_step as ts
     from brdfnerf_tpu_torch.train import Trainer
 
+    from brdfnerf_tpu_torch.data import synth_aoi
     t0 = time.perf_counter()
-    aoi = build_aoi(os.path.join(root, "aoi"), size=AOI_SIZE)
+    gt = {None: None, "hapke": synth_aoi.HAPKE_GT,
+          "microfacet": synth_aoi.MICROFACET_GT}[family]
+    aoi = build_aoi(os.path.join(root, "aoi"), size=AOI_SIZE,
+                    **({} if gt is None else dict(bumpy=True, brdf=dict(gt))))
     build_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     sat = SatelliteConfig(root_dir=aoi["root"], aoi_id=aoi["aoi_id"],
@@ -1465,6 +1621,13 @@ def workflow(root, reset_counts, counts, bare_rays_s):
               f"the last 16 {last:.5f}", flush=True)
         assert last < first, (label, first, last)
 
+    if family is not None:
+        scores = family_runs(family, base, run, check_outputs, falls, logs,
+                             ckpts, reset_counts, counts, smi)
+        (ts.compute_losses, ts.Optimizer.step, Trainer.validate, Trainer.fit,
+         Trainer._on_epoch_end) = saved
+        return scores
+
     # expected launches, from the code: stage 1 (no analytic normals, no
     # sun visibility) runs K1 once a step for the depth probe and the trunk
     # through cuBLAS; stage 2 runs K1 for the probe and, from its first
@@ -1572,6 +1735,72 @@ def workflow(root, reset_counts, counts, bare_rays_s):
     (ts.compute_losses, ts.Optimizer.step, Trainer.validate, Trainer.fit,
      Trainer._on_epoch_end) = saved
     return os.path.join(logs, s2), epochs - 1, os.path.join(logs, f32)
+
+
+# the families' workflow (phase 12): FAMILY_WF_STEPS steps a stage, the
+# family's stage-2 heads (the flagship's with RPV's replaced) and flags
+FAMILY_WF_STEPS = 32
+FAMILY_FLAGS = {"hapke": ["--b", "--c", "--theta", "--hpk_scl", "1"],
+                "microfacet": ["--roughness"]}
+FAMILY_KEYS = {"hapke": ("b_from_xyz", "c_from_xyz", "theta_from_xyz"),
+               "microfacet": ("roughness_from_xyz",)}
+
+
+def family_runs(family, base, run, check_outputs, falls, logs, ckpts,
+                reset_counts, counts, smi):
+    """Stage 1 and stage 2 of `family` through the train CLI on its shaded
+    AOI (workflow's run, check_outputs and falls), then the eval CLI on
+    stage 2's checkpoint; returns the eval's scores."""
+    from brdfnerf_tpu_torch.cli import eval as cli_eval
+    steps = FAMILY_WF_STEPS
+    common = base + (["--hpk_scl", "1"] if family == "hapke" else [])
+    s1, s2 = f"{family}_stage1", f"{family}_stage2"
+    # launches, from the code, as workflow's: stage 1 K1 once a step and
+    # once a validation chunk; stage 2 K1 for the probe and, from step 1
+    # (the first BRDF step), the sun march, K2 and K3 once a step; its
+    # validation K1 twice and K2 once a chunk.  One validation a run (its
+    # steps end inside the first epoch)
+    losses, _ = run(s1, common + ["--exp_name", s1, "--max_train_steps",
+                                  str(steps)], steps, {"K1": steps},
+                    {"K1": WF_CHUNKS + 1})
+    falls(s1, losses)
+    check_outputs(s1, 1, ("fc_net", "sigma_from_xyz", "rgb_from_xyzdir"))
+    heads = (["--normal", "analystic", "--sun_v", "analystic", "--brdf_on",
+              "0", "--nr_reg_an_lambda", "0.1", "--hs_lambda", "0.5"]
+             + FAMILY_FLAGS[family])
+    losses, _ = run(s2, common + heads + [
+        "--exp_name", s2, "--max_train_steps", str(steps), "--in_ckpts",
+        os.path.join(ckpts, s1, "epoch=0.npz")], steps,
+        {"K1": 2 * steps - 1, "K2": steps, "K3": steps},
+        {"K1": 2 * (WF_CHUNKS + 1), "K2": WF_CHUNKS + 1},
+        kernels=("K1 (the sigma-only", "K2 + K3"))
+    falls(s2, losses[1:])
+    check_outputs(s2, 1, FAMILY_KEYS[family])
+    reset_counts()
+    scores = {}
+    saved = cli_eval.evaluate
+
+    def evaluate(*a, **k):
+        scores.update(saved(*a, **k))
+        return scores
+    cli_eval.evaluate = evaluate
+    try:
+        rc, _, seconds = run_cli(f"eval, {family}", cli_eval.main, [
+            "--logs_dir", os.path.join(logs, s2), "--epoch_number", "0"],
+            smi)
+    finally:
+        cli_eval.evaluate = saved
+    launches = counts()
+    want = {"K1": 2 * WF_CHUNKS, "K2": WF_CHUNKS, "K3": 0, "K4": 0,
+            "K5": 0}
+    print(f"  eval, {family}: launches {launches} over {WF_CHUNKS} chunks "
+          f"(want {want}); stage 2 after {steps} steps: PSNR "
+          f"{scores.get('psnr')} dB, SSIM {scores.get('ssim')}, DSM MAE "
+          f"{scores.get('mae')} m; {seconds:.3f} s ({smi})", flush=True)
+    assert rc == 0 and launches == want, launches
+    assert all(np.isfinite(scores[k]) for k in ("psnr", "ssim", "mae")), \
+        scores
+    return scores
 
 
 def run_cli(label, fn, argv, smi):
@@ -2183,25 +2412,28 @@ def main():
                            label)
         return outs, launches
 
-    def check_served(outs, r=None, scale=1.0):
-        """Outputs finite and of their shapes, and 1,024 rays against the
-        CPU twins, at the bf16 contract's bounds times `scale`."""
+    def check_served(outs, r=None, scale=1.0, keys3=FLAGSHIP_KEYS3,
+                     keys1=("sun_coarse",), n_check=1024,
+                     compared=("rgb_coarse", "depth_coarse",
+                               "normal_an_coarse")):
+        """Outputs finite and of their shapes (keys3: (n, 3) maps, keys1:
+        (n, 1) maps), and n_check rays against the CPU twins (the
+        `compared` keys), at the bf16 contract's bounds times `scale`."""
         r = renderer if r is None else r
         n = REQ_SIDE * REQ_SIDE
         for out in outs:
             assert out["rgb_coarse"].shape == (n, 3)
             assert out["depth_coarse"].shape == (n,)
-            for k in ("albedo_coarse", "normal_an_coarse", "rpv_k_coarse",
-                      "rpv_theta_coarse", "rpv_rhoc_coarse",
-                      "irradiance_coarse"):
+            for k in keys3:
                 assert out[k].shape == (n, 3), k
-            assert out["sun_coarse"].shape == (n, 1)
+            for k in keys1:
+                assert out[k].shape == (n, 1), k
             for k, v in out.items():
                 assert np.isfinite(v).all(), k
-        # 1,024 rays through the kernels on the card and through the plain
-        # twins (the Pallas kernels' arithmetic) on the CPU, same weights
-        # and draws
-        small = requests[0][:1024]
+        # n_check rays through the kernels on the card and through the
+        # plain twins (the Pallas kernels' arithmetic) on the CPU, same
+        # weights and draws
+        small = requests[0][:n_check]
         rng = torch.Generator().manual_seed(7)
         draws = {k: torch.rand(len(small), N_SAMPLES, generator=rng)
                  for k in ("z", "guided", "sun")}
@@ -2211,7 +2443,7 @@ def main():
                          device=torch.device("cpu"), chunk=len(small))
         b = cpu.render_image({"rays": small}, draws=draws)
         check = {}
-        for k in ("rgb_coarse", "depth_coarse", "normal_an_coarse"):
+        for k in compared:
             d = np.abs(a[k] - b[k]).reshape(len(small), -1).max(-1)
             check[k] = (float(d.mean()), float(np.quantile(d, 0.99)))
             print(f"  kernels vs twins {k}: mean {check[k][0]:.3e} "
@@ -2277,24 +2509,28 @@ def main():
     bare_rays_s = {}
 
     def train(label, want, mcfg_=None, rcfg_=None, timed_steps=TIMED_STEPS,
-              profiled=True):
+              profiled=True, tcfg_=None, store_batches=STORE_BATCHES):
         """WARM_STEPS + timed_steps flagship steps from a fresh seeded
-        state (at model config mcfg_ and render config rcfg_, the
-        bfloat16_all flagship's by default), launch counts checked per step
-        and, over 10 steps or more, a falling loss; one step profiled (if
-        `profiled`).  Returns the weights after each of the last
-        CHECK_POINTS timed steps (the last: after all of them) and the
-        launch counts."""
+        state (at model config mcfg_, render config rcfg_ and train config
+        tcfg_, the bfloat16_all flagship's by default) on a store of
+        store_batches batches, launch counts checked per step and, over 10
+        steps or more, a falling loss (on a one-batch store, every step on
+        the same rays: the last timed step's loss under the first's); one
+        step profiled (if `profiled`).  Returns the weights after each of
+        the last CHECK_POINTS timed steps (the last: after all of them)
+        and the launch counts."""
         mcfg_ = mcfg if mcfg_ is None else mcfg_
         rcfg_ = rcfg if rcfg_ is None else rcfg_
+        tcfg_ = tcfg if tcfg_ is None else tcfg_
         batcher = DeviceRayBatcher(
-            make_store(STORE_BATCHES * BATCH, np.random.RandomState(0)),
+            make_store(store_batches * BATCH, np.random.RandomState(0)),
             BATCH, seed=0, device="cuda")
         spe = batcher.steps_per_epoch
-        assert spe == STORE_BATCHES
-        state, optimizer = ts.create_train_state(mcfg_, tcfg, spe, seed=0,
+        assert spe == store_batches
+        state, optimizer = ts.create_train_state(mcfg_, tcfg_, spe, seed=0,
                                                  device="cuda")
-        step = ts.make_fused_train_step(mcfg_, rcfg_, tcfg, optimizer, sched)
+        step = ts.make_fused_train_step(mcfg_, rcfg_, tcfg_, optimizer,
+                                        sched)
         seed = 0
 
         def one_step(state):
@@ -2337,6 +2573,8 @@ def main():
             print(f"  loss mean of the first five timed steps {first:.5f}, "
                   f"of the last five {last:.5f}", flush=True)
             assert last < first, (first, last)
+        elif store_batches == 1:
+            assert losses[-1] < losses[0], losses
         if profiled:
             state, _ = one_step(state)
             profile_device(lambda: one_step(state), label)
@@ -2379,7 +2617,7 @@ def main():
                                      generator=rng),
              "sun": torch.rand(CHECK_RAYS, n_sun, generator=rng)}
 
-    def grads_on(net_, dev, rays, mcfg_, bias_terms=None):
+    def grads_on(net_, dev, rays, mcfg_, bias_terms=None, rcfg_=None):
         """The step's loss and every parameter's gradient on `rays`; with
         bias_terms (a list), also the L2 norm of the sigma head's bias
         gradient's per-point terms in the step's backward call, appended
@@ -2409,8 +2647,8 @@ def main():
             k2._run_bwd, k4._run_bwd_h = rec_bwd, rec_bwd_h
         try:
             loss, _ = ts.compute_losses(
-                net_, mcfg_, rcfg, tcfg, batch, gates,
-                draws={k: v[rows_].to(dev) for k, v in draws.items()})
+                net_, mcfg_, rcfg if rcfg_ is None else rcfg_, tcfg, batch,
+                gates, draws={k: v[rows_].to(dev) for k, v in draws.items()})
             loss.backward()
         finally:
             k2._run_bwd, k4._run_bwd_h = run_bwd, run_bwd_h
@@ -2418,9 +2656,11 @@ def main():
                              for k, p in net_.named_parameters()}
 
     def step_check(path, nets, fwd, bwd, want, mcfg_=None, bounds_=None,
-                   normal_err=NORMAL_ERR):
-        """At mcfg_ (the bfloat16_all flagship's by default) with bounds_
-        (`bounds` by default) and the contract's normal error normal_err:
+                   normal_err=NORMAL_ERR, rcfg_=None,
+                   criterion=ill_conditioned_rays):
+        """At mcfg_ and rcfg_ (the bfloat16_all flagship's by default) with
+        bounds_ (`bounds` by default), the contract's normal error
+        normal_err and the set-aside `criterion` (RPV's by default):
         at each weights of `nets`, on the whole batch and then on its
         well-conditioned rays: the step with every kernel; with the
         backward kernel, then both kernels of the differentiated trunk,
@@ -2431,14 +2671,15 @@ def main():
         held to its bound at every point (on the whole batch, those of
         whole_batch); misses go to step_failures."""
         mcfg_ = mcfg if mcfg_ is None else mcfg_
+        rcfg_ = rcfg if rcfg_ is None else rcfg_
         bounds_ = bounds if bounds_ is None else bounds_
         for pt, net_ in enumerate(nets):
             net_cpu = copy.deepcopy(net_).cpu()
             step = WARM_STEPS + TIMED_STEPS - len(nets) + 1 + pt
             last = pt == len(nets) - 1
-            bad = ill_conditioned_rays(
-                net_cpu, mcfg_, rcfg, {k: torch.as_tensor(v)
-                                       for k, v in s.items()},
+            bad = criterion(
+                net_cpu, mcfg_, rcfg_, {k: torch.as_tensor(v)
+                                        for k, v in s.items()},
                 draws, gates, max(bounds_.values()), normal_err)
             kept = np.flatnonzero(~bad.numpy())
             print(f"  weights after step {step}: {int(bad.sum())} of "
@@ -2453,7 +2694,7 @@ def main():
                 reset_counts()
                 bias_terms = []
                 loss_k, g_k = grads_on(net_, "cuda", rays, mcfg_,
-                                       bias_terms)
+                                       bias_terms, rcfg_)
                 assert counts() == want, counts()
                 # the sigma head's bias gradient is one sum of terms of
                 # either sign, held as the kernel checks hold it (dbsig_held)
@@ -2465,14 +2706,18 @@ def main():
                 saved = [(m, name, getattr(m, name))
                          for m, name, _ in (fwd, bwd, k1_twin)]
                 setattr(*bwd)
-                loss_b, g_b = grads_on(net_, "cuda", rays, mcfg_)
+                loss_b, g_b = grads_on(net_, "cuda", rays, mcfg_,
+                                       rcfg_=rcfg_)
                 setattr(*fwd)
-                loss_fb, g_fb = grads_on(net_, "cuda", rays, mcfg_)
+                loss_fb, g_fb = grads_on(net_, "cuda", rays, mcfg_,
+                                         rcfg_=rcfg_)
                 setattr(*k1_twin)
-                loss_t, g_t = grads_on(net_, "cuda", rays, mcfg_)
+                loss_t, g_t = grads_on(net_, "cuda", rays, mcfg_,
+                                       rcfg_=rcfg_)
                 for m, name, fn in saved:
                     setattr(m, name, fn)
-                loss_p, g_p = grads_on(net_cpu, "cpu", rays, mcfg_)
+                loss_p, g_p = grads_on(net_cpu, "cpu", rays, mcfg_,
+                                       rcfg_=rcfg_)
                 print(f"   {len(rays)} rays: loss: kernels {loss_k:.6f}; "
                       f"backward's twin on the card {loss_b:.6f}; both "
                       f"twins on the card {loss_fb:.6f}; every twin on the "
@@ -2697,6 +2942,152 @@ def main():
                                    else ("K2", "K3")):
                     count(dtype, kern, launches[k])
 
+    # the Hapke and Microfacet families on the kernel path: the flagship's
+    # configuration with the family's heads in place of RPV(111), at
+    # bfloat16_all and at float32.  The heads and the per-ray BRDF change;
+    # the trunk runs K1 (probe, sun march), K2 and K3 as the flagship's
+    # does, and K4/K5 take the RPV(111) heads alone, so they launch 0 with
+    # the switch set.  Per family and dtype: one request against the CPU
+    # twins, WARM_STEPS + FAMILY_STEPS timed steps (a falling loss), one
+    # step with the switch set, one step-check point with the family's
+    # set-aside criterion (brdf_ill_conditioned); Hapke also 4 stage-1
+    # steps with --shell_hapke 3 (no sun march in stage 1: K1 once)
+    rpv_at = argv.index("--funcM")
+    assert argv[rpv_at:rpv_at + 10] == ["--funcM", "1", "--funcF", "1",
+                                        "--funcH", "1", "--dim_RPV", "1",
+                                        "--brdf_on", "0.5"]
+    families = {
+        "hapke": (["--b", "--c", "--theta", "--brdf_on", "0"],
+                  ("albedo_coarse", "normal_an_coarse", "hpk_b_coarse",
+                   "hpk_c_coarse", "irradiance_coarse"),
+                  ("sun_coarse", "hpk_theta_coarse")),
+        "microfacet": (["--roughness", "--brdf_on", "0.5"],
+                       ("albedo_coarse", "normal_an_coarse",
+                        "irradiance_coarse"),
+                       ("sun_coarse", "roughness_coarse"))}
+    stage2 = {"K1": 2, "K2": 1, "K3": 1, "K4": 0, "K5": 0}
+    for family, (flags, keys3, keys1) in families.items():
+        phase(f"family, {family}")
+        f_args = opts.postprocess(opts.train_parser().parse_args(
+            argv[:rpv_at] + flags + argv[rpv_at + 10:]
+            + ["--exp_name", f"smoke_{family}"]))
+        f_dir = os.path.join(tmp.name, f"run_{family}")
+        opts.dump_opts(f_args, f_dir)
+        f_cfg = opts.to_run_config(f_args, device="cuda")
+        f_rcfg = f_cfg.render
+        assert f_rcfg.use_pallas and f_rcfg.fused_trunk and f_rcfg.apply_brdf
+        assert not f_cfg.model.rpv
+        assert f_rcfg.apply_theta == (family == "hapke")
+        save_checkpoint(os.path.join(tmp.name, "ckpts", f"smoke_{family}",
+                                     "epoch=1.npz"),
+                        {"coarse": init_network(f_cfg.model, gen,
+                                                device="cuda")}, step=0)
+        for dtype in ("bfloat16_all", "float32"):
+            f32 = dtype == "float32"
+            r_ = load_renderer(f_dir, 1, compute_dtype=dtype, device="cuda")
+            outs, launches = serve(
+                f"request, {family}, {dtype}",
+                {"K1": 2 * per_req, "K2": per_req, "K3": 0, "K4": 0,
+                 "K5": 0}, r_, n_req=1)
+            check_served(outs, r_, scale=0.1 if f32 else 1.0, keys3=keys3,
+                         keys1=keys1)
+            del r_, outs
+            f_m = dc.replace(f_cfg.model, compute_dtype=dtype)
+            trained, launches = train(
+                f"train step, {family}, {dtype}", stage2, mcfg_=f_m,
+                rcfg_=f_rcfg, timed_steps=FAMILY_STEPS)
+            for k, key in zip(("K1", "K2", "K3"),
+                              ("K1f32", "K2zsf32", "K3f32") if f32
+                              else ("K1", "K2zs", "K3")):
+                rows[key]["launches_families"] = (
+                    rows[key].get("launches_families", 0) + launches[k])
+            os.environ[FUSED_HEADS] = "1"
+            train(f"train step, {family}, {dtype}, fused heads set",
+                  stage2, mcfg_=f_m, rcfg_=f_rcfg, timed_steps=1,
+                  profiled=False)
+            del os.environ[FUSED_HEADS]
+            step_check(f"{family}, {dtype}", trained[-1:],
+                       (k2, "_trunk_fwd_grad_cuda", k2._trunk_fwd_grad_plain),
+                       (k2, "_trunk_bwd_cuda", k2._trunk_bwd_plain),
+                       stage2, mcfg_=f_m, rcfg_=f_rcfg,
+                       bounds_=bounds32 if f32 else bounds,
+                       normal_err=NORMAL_ERR_F32 if f32 else NORMAL_ERR,
+                       criterion=brdf_ill_conditioned_rays)
+            del trained
+            if family == "hapke":
+                train(f"stage-1 step, hapke shell 3, {dtype}",
+                      {"K1": 1, "K2": 1, "K3": 1, "K4": 0, "K5": 0},
+                      mcfg_=dc.replace(f_m, shell_hapke=3),
+                      rcfg_=dc.replace(f_rcfg, apply_brdf=False,
+                                       apply_theta=False),
+                      timed_steps=4, profiled=False)
+        print(f"  {family}: mean train rays/s bfloat16_all "
+              f"{bare_rays_s[f'train step, {family}, bfloat16_all']:.1f} "
+              f"(RPV {bare_rays_s['train step']:.1f}), float32 "
+              f"{bare_rays_s[f'train step, {family}, float32']:.1f} (RPV "
+              f"{bare_rays_s['train step, float32']:.1f}) ({smi})",
+              flush=True)
+
+    # the nerf, s-nerf, sat-nerf and sps-nerf variants (beta off) at 8 x 512
+    # and float32 (the CLI's default), and spsbrdf-nerf with the learned
+    # sun: the JAX package runs the variants' trunk in XLA with no Pallas
+    # kernel, so the port's is plain torch and K1-K5 launch 0; spsbrdf with
+    # the learned sun runs K1 for the probe alone (its sun visibility is
+    # the head, no march), K2 and K3, and its solar-correction pass in
+    # plain torch.  Each: one request against the CPU twins (256 rays, at
+    # the float32 bounds) and WARM_STEPS + VARIANT_STEPS steps on a
+    # one-batch store (the loss falls)
+    phase("variants")
+    learned = ["--sc_lambda", "0.05", "--sun_v", "learned"]
+    sun_at = argv.index("--sun_v")
+    variants = {
+        "nerf": (["--model", "nerf", "--siren", "0"], (), ()),
+        "s-nerf": (["--model", "s-nerf"] + learned,
+                   ("albedo_coarse", "sky_coarse"), ("sun_coarse",)),
+        "sat-nerf": (["--model", "sat-nerf"] + learned,
+                     ("albedo_coarse", "sky_coarse"), ("sun_coarse",)),
+        "sps-nerf": (["--model", "sps-nerf", "--ds_lambda", "10"] + learned,
+                     ("albedo_coarse", "sky_coarse"), ("sun_coarse",)),
+    }
+    zero = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0}
+    v_base = argv[:argv.index("--model")] + [
+        "--fc_layers", "8", "--fc_feat", "512", "--mapping", "--n_samples",
+        str(N_SAMPLES), "--guided_samples", str(N_SAMPLES), "--chunk",
+        str(CHUNK), "--lr", "5e-4", "--batch_size", str(BATCH)]
+    for name, (flags, keys3, keys1) in list(variants.items()) + [
+            ("spsbrdf, learned sun", (
+                argv[:sun_at] + argv[sun_at + 2:] + learned, FLAGSHIP_KEYS3,
+                ("sun_coarse",)))]:
+        exp = "smoke_" + name.replace(" ", "").replace(",", "_")
+        v_args = opts.postprocess(opts.train_parser().parse_args(
+            (flags if name.startswith("spsbrdf") else v_base + flags)
+            + ["--exp_name", exp]))
+        v_dir = os.path.join(tmp.name, f"run_{exp}")
+        opts.dump_opts(v_args, v_dir)
+        v_cfg = opts.to_run_config(v_args, device="cuda")
+        sps = name.startswith("spsbrdf")
+        assert v_cfg.model.variant == ("spsbrdf-nerf" if sps else name)
+        assert not v_cfg.model.beta and v_cfg.train.sc_lambda == (
+            0.0 if name == "nerf" else 0.05)
+        save_checkpoint(os.path.join(tmp.name, "ckpts", exp, "epoch=1.npz"),
+                        {"coarse": init_network(v_cfg.model, gen,
+                                                device="cuda")}, step=0)
+        r_ = load_renderer(v_dir, 1, device="cuda")
+        outs, _ = serve(f"request, {name}",
+                        dict(zero, K1=per_req, K2=per_req) if sps else zero,
+                        r_, n_req=1, profiled=False)
+        check_served(outs, r_, scale=0.1, keys3=keys3, keys1=keys1,
+                     n_check=256,
+                     compared=("rgb_coarse", "depth_coarse")
+                     + (("normal_an_coarse",) if sps else ()))
+        del r_, outs
+        trained, _ = train(
+            f"train step, {name}", dict(zero, K1=1, K2=1, K3=1) if sps
+            else zero, mcfg_=v_cfg.model, rcfg_=v_cfg.render,
+            tcfg_=v_cfg.train, timed_steps=VARIANT_STEPS, profiled=False,
+            store_batches=1)
+        del trained
+
     phase("workflow")
     run_dir, epoch, run_f32 = workflow(os.path.join(tmp.name, "workflow"),
                                        reset_counts, counts,
@@ -2705,6 +3096,13 @@ def main():
     phase("eval")
     eval_phase(os.path.join(tmp.name, "eval"), run_dir, epoch, reset_counts,
                counts, smi, rows, run_f32)
+
+    # each family's two-stage workflow on its shaded AOI through the train
+    # CLI, and the eval CLI on its stage 2
+    for family in ("hapke", "microfacet"):
+        phase(f"workflow, {family}")
+        workflow(os.path.join(tmp.name, f"workflow_{family}"), reset_counts,
+                 counts, bare_rays_s["train step"], family=family, smi=smi)
 
     phase("end")
     tmp.cleanup()
@@ -2724,6 +3122,7 @@ def main():
     keys = ("name", "route", "source", "replaces", "act", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "launches_train", "launches_eval",
+            "launches_families",
             "bound_split_ms", "rel_l2", "bf16_over_f32",
             "library_bf16_ms", "uchain_ms", "sweep_ms", "wgrad_ms",
             "reduce_ms")

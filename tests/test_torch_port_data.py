@@ -149,20 +149,23 @@ def test_build_aoi_writes_the_jax_packages_files(tmp_path):
 
 
 def test_build_aoi_rpv_shading_matches_jax(tmp_path, numpy_jax):
-    kw = dict(bumpy=True, brdf=dict(jaoi.RPV_GT))
-    rj = jaoi.build_aoi(str(tmp_path / "j"), **kw)
-    rt = taoi.build_aoi(str(tmp_path / "t"), **kw)
-    for f in _tree_files(rj["root"]):
-        a, b = (os.path.join(r["root"], f) for r in (rj, rt))
-        if f.startswith("img_") and f.endswith(".tif"):
-            ia, ib = jtif.read_geotiff(a)[0], jtif.read_geotiff(b)[0]
-            d = np.abs(ia.astype(int) - ib.astype(int))
-            assert d.max() <= 1, (f, d.max())
-        else:
-            assert filecmp.cmp(a, b, shallow=False), f
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        taoi.build_aoi(str(tmp_path / "h"), bumpy=True,
-                       brdf=dict(jaoi.HAPKE_GT))
+    """The RPV-, Hapke- and Microfacet-shaded AOIs against the JAX
+    package's build_aoi: images within 1 level, other files byte-equal."""
+    for name, gt in (("rpv", jaoi.RPV_GT), ("hapke", jaoi.HAPKE_GT),
+                     ("microfacet", jaoi.MICROFACET_GT)):
+        kw = dict(bumpy=True, brdf=dict(gt))
+        rj = jaoi.build_aoi(str(tmp_path / name / "j"), **kw)
+        rt = taoi.build_aoi(str(tmp_path / name / "t"), **kw)
+        files = _tree_files(rj["root"])
+        assert files == _tree_files(rt["root"]), name
+        for f in files:
+            a, b = (os.path.join(r["root"], f) for r in (rj, rt))
+            if f.startswith("img_") and f.endswith(".tif"):
+                ia, ib = jtif.read_geotiff(a)[0], jtif.read_geotiff(b)[0]
+                d = np.abs(ia.astype(int) - ib.astype(int))
+                assert d.max() <= 1, (name, f, d.max())
+            else:
+                assert filecmp.cmp(a, b, shallow=False), (name, f)
 
 
 # -------------------------------------------------------- the dataset

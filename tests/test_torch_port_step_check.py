@@ -141,3 +141,99 @@ def test_dbsig_bound_fails_a_five_percent_error(shift, ok):
     else:
         with pytest.raises(AssertionError):
             cs_mod.dbsig_held("K3", got, ref, scale)
+
+
+FAMILY_FIELDS = {
+    "rpv": (dict(func_m=True, func_f=True, func_h=1), False),
+    "hapke": (dict(hapke_b=True, hapke_c=True, hapke_theta=True,
+                   hpk_scl=1.0), True),
+    "hapke shell 3, stage 1": (dict(hapke_b=True, hapke_c=True,
+                                    shell_hapke=3), None),
+    "microfacet": (dict(roughness=True), False),
+}
+
+
+def _family_render(heads):
+    """A hand-made training render of two rays with a nadir normal (two
+    samples each with the same unit normal): one whose sun grazes it
+    (cos i = 2e-3), one with the sun 60 degrees and the view 30 degrees
+    from it, on one side (away from Microfacet's specular lobe, whose
+    gradient a turn of the normal by 2^-8 moves by ~20% at the lobe)."""
+    up = [0.0, 0.0, 1.0]
+    sun = torch.tensor([[(1.0 - 4e-6) ** 0.5, 0.0, 2e-3],
+                        [0.866, 0.0, 0.5]])
+    sun = sun / sun.norm(dim=-1, keepdim=True)
+    view = torch.tensor([[0.05, 0.02, 1.0], [0.5, 0.0, 0.866]])
+    view = view / view.norm(dim=-1, keepdim=True)
+    res = {"weights_coarse": torch.full((2, 2), 0.5),
+           "normal_an_coarse": torch.tensor([[up, up], [up, up]]),
+           "albedo_coarse": torch.full((2, 2, 3), 0.5),
+           "sun_d_coarse": sun[:, None], "rays_d_coarse": view[:, None],
+           "irradiance_coarse": torch.abs(sun[:, None, 2:3]).expand(
+               2, 2, 3)}
+    if heads:
+        res.update({"hpk_b_coarse": torch.full((2, 2, 3), 0.4),
+                    "hpk_c_coarse": torch.full((2, 2, 3), 0.6),
+                    "hpk_theta_coarse": torch.full((2, 2, 1), 0.2),
+                    "roughness_coarse": torch.full((2, 2, 1), 0.5),
+                    "rpv_k_coarse": torch.full((2, 2, 3), 0.8),
+                    "rpv_theta_coarse": torch.full((2, 2, 3), -0.2),
+                    "rpv_rhoc_coarse": torch.full((2, 2, 3), 0.5)})
+    return res, torch.full((2, 3), 0.3)
+
+
+@pytest.mark.parametrize("family,normal_err,bound,want", [
+    (f, 2.0 ** -8, 0.1, [True, False]) for f in FAMILY_FIELDS] + [
+    # the float32 contract: RPV's and Microfacet's 1 / cos still set the
+    # grazing ray aside; Hapke's roughness-effective cosines, floored at
+    # 1e-3, leave its gradient determined to 1e-2
+    ("rpv", 2.0 ** -14, 0.01, [True, False]),
+    ("microfacet", 2.0 ** -14, 0.01, [True, False]),
+    ("hapke", 2.0 ** -14, 0.01, [False, False])])
+def test_brdf_criterion_sets_a_grazing_ray_aside(family, normal_err,
+                                                 bound, want):
+    """chip_smoke.brdf_ill_conditioned, the families' set-aside criterion
+    (read by autograd from the BRDF the family shades with): at the bf16
+    contract's normal error and bound the ray whose sun grazes its nadir
+    normal is set aside and the nadir ray seen and lit off the normal is
+    kept, for RPV, Hapke (stage 2, and a shell in stage 1) and
+    Microfacet."""
+    cs = _chip_smoke()
+    fields, theta = FAMILY_FIELDS[family]
+    mcfg = tconfig.ModelConfig(**SMALL, normal="analystic", **fields)
+    rcfg = tconfig.RenderConfig(apply_brdf=theta is not None,
+                                apply_theta=bool(theta))
+    res, rgbs = _family_render(heads=theta is not None)
+    got = cs.brdf_ill_conditioned(res, rgbs, mcfg, rcfg, bound, normal_err)
+    assert got.dtype == torch.bool and got.tolist() == want
+
+
+def test_brdf_criterion_reads_a_family_render():
+    """brdf_ill_conditioned_rays on a small Hapke network's training
+    render (fused twins): a mask over the batch; a turn of no size sets
+    nothing aside."""
+    cs = _chip_smoke()
+    fields, _ = FAMILY_FIELDS["hapke"]
+    mcfg = tconfig.ModelConfig(**SMALL, normal="analystic",
+                               sun_v="analystic", **fields)
+    rcfg = tconfig.RenderConfig(n_samples=8, guided_samples=8,
+                                apply_brdf=True, apply_theta=True,
+                                use_pallas=True, fused_trunk=True)
+    net = init_network(mcfg, torch.Generator().manual_seed(0), device="cpu")
+    n_rays = 32
+    s = {k: torch.as_tensor(v) for k, v in make_store(n_rays, 4).items()}
+    rng = torch.Generator().manual_seed(5)
+    guided = (n_rays, rcfg.effective_guided)
+    draws = {"z": torch.rand(n_rays, rcfg.n_samples, generator=rng),
+             "guided": torch.rand(guided, generator=rng),
+             "guided_gt": torch.rand(guided, generator=rng),
+             "sun": torch.rand(n_rays, rcfg.sun_march_count(16),
+                               generator=rng)}
+    gates = TrainGates(cos_irra_on=False, ds_on=True, nrrg_on=True,
+                       beta_warmup=False, hs_on=True)
+    got = cs.brdf_ill_conditioned_rays(net, mcfg, rcfg, s, draws, gates,
+                                       0.1)
+    assert got.dtype == torch.bool and got.shape == (n_rays,)
+    none = cs.brdf_ill_conditioned_rays(net, mcfg, rcfg, s, draws, gates,
+                                        0.1, normal_err=0.0)
+    assert not none.any()

@@ -116,3 +116,76 @@ def render_draws(key, rcfg, n_rays: int, n_sun: int):
 def close(got, ref, atol, rtol=0.0, what=""):
     np.testing.assert_allclose(a(got), a(ref), atol=atol, rtol=rtol,
                                err_msg=what)
+
+
+def grads_close(net, g_ref, what, atol_frac, rtol, rel_l2=None):
+    """Every parameter's gradient of the port's Network (after backward)
+    against the JAX grads pytree ({'coarse': {...}}): element by element to
+    atol_frac of the tensor's largest magnitude and rtol, and with rel_l2
+    in relative L2 too."""
+    flat = jax_flatten(g_ref)
+    for name, p in net.named_parameters():
+        key = "coarse/" + name.replace(".", "/")
+        ref = flat[key]
+        g = p.grad if p.grad is not None else torch.zeros_like(p)
+        if name.endswith(".w"):
+            g = g.t()
+        if rel_l2 is not None:
+            rel = np.linalg.norm(a(g) - ref) / max(np.linalg.norm(ref),
+                                                   1e-30)
+            assert rel <= rel_l2, (what, key, rel)
+        scale = max(float(np.max(np.abs(ref))), 1e-6)
+        close(g, ref, atol=atol_frac * scale, rtol=rtol,
+              what=f"{what} {key}")
+    assert len(flat) == len(list(net.parameters()))
+
+
+def three_fused_steps_match(jm, tm, jr, tr, jt, tt, n_rays,
+                            metrics=("loss", "psnr", "depth_std_mean")):
+    """make_fused_train_step against the JAX package's, three steps on one
+    store and index sequence, each from the JAX state (parameters and Adam
+    moments) and on the draws of the JAX step's key, held as
+    tests/test_torch_port_train.py holds the flagship's: the metrics to
+    rtol 5e-4, the parameters to 5e-4 of scale and of themselves but for
+    at most 0.1% of a tensor's elements, which may differ by up to 2 * lr
+    (a gradient element near zero takes its sign from the summation order,
+    and Adam turns either sign into a step of about lr)."""
+    from brdfnerf_tpu.data import batcher as jbatch
+    from brdfnerf_tpu.parallel import train_step as jts
+    from brdfnerf_tpu_torch.data import batcher as tbatch
+    from brdfnerf_tpu_torch.parallel import train_step as tts
+    from test_torch_port_train import _carry_jax_state
+    store = make_store(48, seed=11)
+    sched = dict(t_cos_irra=1e18, t_ds_drop=1e18, t_nrrg=-1.0,
+                 steps_per_epoch=1, first_beta_epoch=0)
+    jstate, jopt = jts.create_train_state(jax.random.PRNGKey(0), jm, jt,
+                                          steps_per_epoch=3)
+    jstep = jts.make_fused_train_step(jm, jr, jt, jopt,
+                                      jts.GateSchedule(**sched))
+    state, opt = tts.create_train_state(
+        tm, tt, 3, flat=jax_flatten({"coarse": jstate.params["coarse"]}),
+        device="cpu")
+    step = tts.make_fused_train_step(tm, tr, tt, opt,
+                                     tts.GateSchedule(**sched))
+    jb = jbatch.DeviceRayBatcher(store, n_rays, seed=3)
+    tb = tbatch.DeviceRayBatcher(store, n_rays, seed=3, device="cpu")
+    base_key = jax.random.PRNGKey(1)
+    for i in range(3):
+        idx = tb.next_index_tensor()
+        jidx = jb.next_indices().astype(np.int32)
+        draws = render_draws(jax.random.fold_in(base_key, i), jr, n_rays,
+                             jr.sun_march_count(16))
+        _carry_jax_state(state, jstate)
+        jstate, jm_ = jstep(jstate, jb.store, jnp.asarray(jidx), base_key)
+        state, m = step(state, tb.store, idx, 0, draws=draws)
+        for k in metrics:
+            close(m[k], jm_[k], atol=1e-6, rtol=5e-4, what=f"step {i} {k}")
+        flat = jax_flatten(jstate.params)
+        for pname, p in state.params.named_parameters():
+            ref = flat["coarse/" + pname.replace(".", "/")]
+            got = a(p.t() if pname.endswith(".w") else p)
+            d = np.abs(got - ref)
+            scale = max(float(np.abs(ref).max()), 1e-3)
+            flipped = d > 5e-4 * scale + 5e-4 * np.abs(ref)
+            assert flipped.mean() <= 1e-3, (i, pname, flipped.sum())
+            assert d.max() <= 2 * tt.lr, (i, pname, d.max())
