@@ -24,8 +24,9 @@ def kernels_line(cfg, device, train: bool = True) -> str:
     """Which fused kernels the run launches, or why none: its train steps,
     or with train=False its renders (the serving instantiations, no
     backward)."""
-    from ..ops.fused_mlp import (CUDA_DTYPES, FEAT, LANE, act_of,
+    from ..ops.fused_mlp import (CUDA_DTYPES, CUDA_WIDTHS, LANE, act_of,
                                  cuda_kernels_cover, split_operands)
+    from ..ops.fused_trunk_heads import heads_cuda_cover
     m, r = cfg.model, cfg.render
     if device.type != "cuda":
         return ("[kernels] none: the run is on the CPU, where the kernels' "
@@ -38,7 +39,9 @@ def kernels_line(cfg, device, train: bool = True) -> str:
         why = [w for w, bad in (
             (f"compute_dtype={m.compute_dtype!r}",
              m.compute_dtype not in CUDA_DTYPES),
-            (f"width {m.feat} (not {FEAT})", m.feat != FEAT),
+            (f"width {m.feat} (not one of "
+             + ", ".join(map(str, CUDA_WIDTHS)) + ")",
+             m.feat not in CUDA_WIDTHS),
             (f"an encoding of {m.xyz_in_dim} lanes (over {LANE})",
              m.xyz_in_dim > LANE),
             (f"skips {m.skips} with {m.layers} layers", len(m.skips) != 1
@@ -62,6 +65,12 @@ def kernels_line(cfg, device, train: bool = True) -> str:
                             f"only the RPV(111) heads, so the {family} "
                             "heads stay on " + ("K2 + K3" if train
                                                 else "K2"))
+            elif not heads_cuda_cover(m):
+                used.append(f"BRDFNERF_FUSED_HEADS is set, but K4/K5 take "
+                            f"only the trunk width 512, so at width "
+                            f"{m.feat} the heads run in torch on "
+                            + ("K2 + K3" if train else "K2")
+                            + " (ROADMAP.md Queue 2)")
             else:
                 used.append(("K4 + K5 in their place" if train
                              else "K4 in its place") + " where the flagship "
@@ -73,7 +82,7 @@ def kernels_line(cfg, device, train: bool = True) -> str:
            "terms)" if split_operands(m) else "")
     act = {"poly": "the polynomial sine", "sin": "the exact sine",
            "relu": "ReLU"}[act_of(m)]
-    return (f"[kernels] fused CUDA kernels at compute_dtype="
+    return (f"[kernels] fused CUDA kernels at width {m.feat}, compute_dtype="
             f"{m.compute_dtype!r}{how}, {act}: " + "; ".join(used))
 
 

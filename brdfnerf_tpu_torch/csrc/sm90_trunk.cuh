@@ -1,14 +1,15 @@
 // The warp-specialised machinery shared by the trunk kernels built on
 // sm90_common.cuh: K1 (trunk_sigma.cu), the forward of K2/K4
 // (trunk_fwd_grad.cuh) and the sweep of K3/K5 (trunk_bwd.cuh).  A block is three warpgroups: two consumer
-// warpgroups, each owning 256 of the 512 output columns of every trunk
-// product (wgmma, f32 accumulators), and a producer warpgroup of which one
-// thread issues every TMA load into one ring of RING_N stages, in the order
-// the consumers take them.  A product's A operand is a 64-row activation tile
-// kept K-major with the 128-byte swizzle (64-column blocks of ACT_BLOCK
-// bytes); its B operand is the weight slices in the ring: K-major boxes
-// (32 k x 256 n, 64-byte swizzle) for z = h W^T, MN-major boxes (32 n x 32 k)
-// for u = g W, so that no thread transposes an operand.  Tiles written by the
+// warpgroups, each owning NWG = F / 2 of the F output columns of every
+// trunk product (wgmma, f32 accumulators), and a producer warpgroup of
+// which one thread issues every TMA load into one ring of RING_N stages, in
+// the order the consumers take them.  A product's A operand is a 64-row
+// activation tile kept K-major with the 128-byte swizzle (64-column blocks
+// of ACT_BLOCK bytes); its B operand is the weight slices in the ring:
+// K-major boxes (32 k x BOX_N n, 64-byte swizzle) for z = h W^T, MN-major
+// boxes (32 n x 32 k) for u = g W, so that no thread transposes an
+// operand.  Tiles written by the
 // epilogues leave by TMA stores.  The float32 instantiations (SPLIT) keep
 // a lo tile beside each A tile and stream each weight as a hi and a lo
 // plane: consume_s runs a product of f32 operands as three bf16 products.
@@ -24,7 +25,16 @@ constexpr int NC = 256;                  // consumer threads (2 warpgroups)
 constexpr int NTB = NC + 128;            // + the producer warpgroup
 constexpr int BAR_C = 1;                 // named barrier of the consumers
 constexpr int KSL = 32;                  // k-slice of a weight stage
-constexpr int RING_STAGE = F * KSL * 2;  // 32 KB: 32 k x 512 n, SW64
+// 32 KB: a weight slice of 32 k x 512 n (SW64; at a smaller width the
+// slice fills the stage's first F * KSL * 2 bytes), or a tile's x (64 x 128
+// f32, one bulk copy)
+constexpr int RING_STAGE = 32768;
+static_assert(F * KSL * 2 <= RING_STAGE && T * EP * 4 == RING_STAGE,
+              "a ring stage holds a weight slice or a tile's x");
+constexpr int NWG = F / 2;               // columns of a consumer warpgroup
+constexpr int FA = F / 64;               // blocks of an F-wide tile
+// rows of a K-major weight box: a warpgroup's columns, at most 256 (TMA)
+constexpr int BOX_N = NWG < 256 ? NWG : 256;
 constexpr int RING_N = 4;                // stages (K1: K1_RING_N)
 constexpr int ACT_BLOCK = T * 64 * 2;    // one 64 x 64 SW128 block, 8 KB
 
@@ -54,9 +64,9 @@ __device__ __forceinline__ void produce(const CUtensorMap* map, bool mn,
     unsigned char* s = ring + r.stage * RING_STAGE;
     sm90::mbar_expect_tx(&full[r.stage], nw * KSL * 2);
     if (!mn) {
-      for (int h = 0; h < nw / 256; ++h)
-        sm90::tma_load_2d(s + h * 256 * KSL * 2, map, &full[r.stage],
-                          col0 + c * KSL, row0 + h * 256);
+      for (int h = 0; h < nw / BOX_N; ++h)
+        sm90::tma_load_2d(s + h * BOX_N * KSL * 2, map, &full[r.stage],
+                          col0 + c * KSL, row0 + h * BOX_N);
     } else {
       for (int nb = 0; nb < nw / 32; ++nb)
         sm90::tma_load_2d(s + nb * 32 * KSL * 2, map, &full[r.stage],
@@ -107,18 +117,6 @@ __device__ __forceinline__ uint64_t a_desc(const unsigned char* tile,
                          16, 1024, 1);
 }
 
-// One wgmma m64nNWk16 with A K-major from shared memory.
-template <int NW, int TB>
-__device__ __forceinline__ void wgmma_nw(float (&acc)[NW / 2], uint64_t da,
-                                         uint64_t db, int sc) {
-  if constexpr (NW == 256)
-    sm90::wgmma_n256<0, TB>(acc, da, db, sc);
-  else if constexpr (NW == 128)
-    sm90::wgmma_n128<0, TB>(acc, da, db, sc);
-  else
-    sm90::wgmma_n64<0, TB>(acc, da, db, sc);
-}
-
 // Consumer: acc (+)= A . B over nk slices from the ring, this warpgroup's
 // NW columns.  A: the tile a0 for k < ka0, then a1 (each K-major SW128).
 // accumulate = false overwrites acc.  LO > 0 (K1) adds a second product
@@ -149,10 +147,10 @@ __device__ __forceinline__ void consume(float (&acc)[NW / 2],
                   : sm90::make_desc(s + wg * (NW / 32) * 2048 + ks * 1024,
                                     2048, 512, 2);
       const int sc = (accumulate || c > 0 || ks > 0) ? 1 : 0;
-      wgmma_nw<NW, TB>(acc, da, db, sc);
+      sm90::wgmma_n<NW, 0, TB>(acc, da, db, sc);
       // (the descriptor's start address is bits 0-13, in 16-byte units)
       if constexpr (LO > 0)
-        wgmma_nw<NW, TB>(acc, da + (uint64_t)(LO >> 4), db, 1);
+        sm90::wgmma_n<NW, 0, TB>(acc, da + (uint64_t)(LO >> 4), db, 1);
     }
     sm90::wgmma_commit();
     sm90::wgmma_wait<1>();

@@ -22,20 +22,20 @@
 
 using namespace trunk;
 
-// x, cg (n_rows, 128) f32, cs (n_rows,) f32, cf (n_rows, 512) bf16 when
-// cf_bf16 else f32, zs/us (n_rows, layers * 512), f32 when zs_f32 else
-// bf16, with n_rows % 64 == 0; weights as trunk_fwd_grad_launch (split:
-// the float32 instantiation, f32 zs/us and the weights as hi and lo
-// planes).  Scratch: xt (P, n, 128) bf16, hth (layers-1, P, n, 512) bf16,
-// azbtz (layers, P, n, 512) bf16 with P = 2 planes, [x | h | a_z] and
-// [t | th | b_tz] (split: P = 4, the hi planes, then the lo ones), part
-// (n/64, layers+1, 512) f32, pbs (n/64,) f32, tzsc (n_blocks, layers,
-// 64 * 512) f32, wpart (wpart_tiles = (8 layers - 4) x splits, 128 * 256)
-// f32, the weight-gradient blocks' partial tiles (splits from
-// ops/fused_trunk_vjp.wgrad_splits, whose K axis is three times as long
-// with split).  Outputs f32 in (in, out) layout: dw0
-// (128, 512), db0 (512,), dwm (layers-2, 512, 512), dbm (layers-2, 512),
-// dwst (128, 512), dwsb (512, 512), dbs (512,), dwsig (512,), dbsig (1,).
+// At the library's width F (TRUNK_F): x, cg (n_rows, 128) f32, cs
+// (n_rows,) f32, cf (n_rows, F) bf16 when cf_bf16 else f32, zs/us (n_rows,
+// layers * F), f32 when zs_f32 else bf16, with n_rows % 64 == 0; weights
+// as trunk_fwd_grad_launch (split: the float32 instantiation, f32 zs/us
+// and the weights as hi and lo planes).  Scratch: xt (P, n, 128) bf16, hth
+// (layers-1, P, n, F) bf16, azbtz (layers, P, n, F) bf16 with P = 2
+// planes, [x | h | a_z] and [t | th | b_tz] (split: P = 4, the hi planes,
+// then the lo ones), part (n/64, layers+1, F) f32, pbs (n/64,) f32, tzsc
+// (n_blocks, layers, 64 * F) f32, wpart (wpart_tiles, 128 * min(F, 256))
+// f32, the weight-gradient blocks' partial tiles (ops/fused_trunk_vjp.
+// wgrad_tiles times the splits from wgrad_splits, whose K axis is three
+// times as long with split).  Outputs f32 in (in, out) layout: dw0
+// (128, F), db0 (F,), dwm (layers-2, F, F), dbm (layers-2, F), dwst
+// (128, F), dwsb (F, F), dbs (F,), dwsig (F,), dbsig (1,).
 // Three kernels on the stream; returns a cudaError_t.
 extern "C" int trunk_bwd_launch(
     const float* x, const float* cs, const void* cf, int cf_bf16,

@@ -38,10 +38,9 @@
 //      b_th in 32 KB bulk copies) through one ring of four 32 KB stages,
 //      running ahead across epilogues and tiles: the epilogues read shared
 //      memory, and their device-memory traffic overlaps the products.  Two
-//      consumer warpgroups each own 256 of the 512 output columns of every
-//      product
-//      (wgmma m64n256k16, 128 f32 accumulators a thread, setmaxnreg 232)
-//      and read A from one 64 x 512 activation tile kept K-major with the
+//      consumer warpgroups each own F / 2 of the F output columns of every
+//      product (at width 512: wgmma m64n256k16, 128 f32 accumulators a
+//      thread, setmaxnreg 232) and read A from one 64 x F activation tile kept K-major with the
 //      128-byte swizzle, which the epilogues write in that layout; th_l,
 //      a_z_l, h_l and b_tz_l leave by TMA stores of the tile.  tz_l goes to
 //      a per-block f32 scratch and each thread reads its own elements back
@@ -56,7 +55,7 @@
 //      sums in f32 (the biases, the sigma head's dW, and for K5 the heads'
 //      3-column second layers), and the sigma head's per-tile db.
 //   2. wgrad: dW = [h; th]^T [a_z; b_tz] (K = 2 x points; the heads'
-//      K = points) in 128 x 256 output tiles, each K axis cut into
+//      K = points) in 128 x min(F, 256) output tiles, each K axis cut into
 //      contiguous slices of whole 64-point chunks (the plan from
 //      ops/fused_trunk_vjp.wgrad_splits: K3 takes 2, one wave of 120
 //      blocks).  A producer warp feeds a four-stage TMA ring with MN-major
@@ -181,7 +180,7 @@ __device__ __forceinline__ float col_sum(float v) {
 // ================================================================== sweep
 
 // (the block's warp roles, the ring and the products: sm90_trunk.cuh)
-// shared memory: the activation tile (64 x 512, 8 blocks), the tile of
+// shared memory: the activation tile (64 x F, F / 64 blocks), the tile of
 // t = c_g (64 x 128; K5: 64 x 256, the c_z1 chunk once the tangent forward
 // is done; both double as reduction space), with SPLIT both again for the
 // lo terms (sm_lo bytes past the hi ones), the ring (weight slices and the
@@ -190,10 +189,10 @@ __device__ __forceinline__ float col_sum(float v) {
 // terms is 32 KB over the limit beside the ring): its c_z1 chunks come in
 // halves of 128 columns, hi and lo, and leave from the registers
 constexpr int SM_ACT = 0;
-constexpr int SM_TS = SM_ACT + 8 * ACT_BLOCK;
+constexpr int SM_TS = SM_ACT + FA * ACT_BLOCK;
 template <bool SPLIT>
 __host__ __device__ constexpr int sm_lo() {
-  return SPLIT ? 10 * ACT_BLOCK : 0;
+  return SPLIT ? (FA + 2) * ACT_BLOCK : 0;
 }
 template <bool SPLIT>
 __host__ __device__ constexpr int sm_ring_n() {
@@ -222,7 +221,7 @@ static_assert(sweep_smem<true, true>() <= 232448,
 static_assert(4 * 2 * 4 * 128 * 4 <= 2 * ACT_BLOCK, "K5's column sums in t");
 
 // The weight tensors the sweep streams, as TMA maps: K-major boxes (32 k x
-// 256 n rows) for the forward products, MN-major boxes (32 n x 32 k) for
+// BOX_N n rows) for the forward products, MN-major boxes (32 n x 32 k) for
 // the reverse ones; zs and us (boxes of 64 rows x 64 columns, SW128); and
 // the bf16 outputs it stores from the activation or chunk tile (boxes of
 // 64 x 64, SW128).
@@ -233,11 +232,25 @@ struct SweepMaps {
   CUtensorMap hl, xfb, axf, cz1;                  // K5
 };
 
-// Producer: the ring stages of an epilogue's data, which it reads in
-// j-groups (j-group g: the 64 columns 64 g.. of each warpgroup's 256, the
-// accumulators 32 g.. of every thread).  Forward epilogue of layer i: z of
-// the tile's 64 rows, two j-groups a stage, both warpgroups' blocks
-// (64 x 64, SW128) side by side.  Reverse epilogue: for every j-group a
+// The epilogues read their data in j-groups: JG columns of each
+// warpgroup (JJ consecutive j of its accumulators 4j..4j+3), as 64 x 64
+// boxes (SW128), one per warpgroup (ZB = 2), or at width 64, where a
+// warpgroup owns 32 columns, one box for both (ZB = 1, the warpgroup's
+// columns from zc_of(wg) in it); NJG j-groups a warpgroup, JPS of them in
+// a forward epilogue's stage.  At width 512: 64 columns, 4 j-groups, 2 a
+// stage.
+constexpr int JG = NWG < 64 ? NWG : 64;
+constexpr int JJ = JG / 8;
+constexpr int ZB = NWG < 64 ? 1 : 2;
+constexpr int NJG = NWG / JG;
+constexpr int JPS = NJG < 2 ? NJG : 2;
+// a warpgroup's box in a j-group, and its first column in that box
+__device__ __forceinline__ int zb_of(int wg) { return ZB == 2 ? wg : 0; }
+__device__ __forceinline__ int zc_of(int wg) { return ZB == 2 ? 0 : wg * NWG; }
+
+// Producer: the ring stages of an epilogue's data, in j-groups.  Forward
+// epilogue of layer i: z of the tile's 64 rows, JPS j-groups a stage, both
+// warpgroups' boxes side by side.  Reverse epilogue: for every j-group a
 // stage of z and u (K5: z alone), then (K5) a stage of the rebuilt b_th of
 // layer i (ucl: 128 accumulators x 256 threads f32, 32 of them a stage).
 // K5's z stage fills only half of its 32 KB (two 64 x 64 bf16 blocks):
@@ -249,13 +262,13 @@ __device__ __forceinline__ void produce_fwd_data(const SweepMaps& maps,
                                                  uint64_t* full,
                                                  uint64_t* empty,
                                                  unsigned char* ring) {
-  for (int s = 0; s < 2; ++s) {
+  for (int s = 0; s < NJG / JPS; ++s) {
     sm90::mbar_wait(&empty[r.stage], r.phase ^ 1);
     unsigned char* st = ring + r.stage * RING_STAGE;
-    sm90::mbar_expect_tx(&full[r.stage], RING_STAGE);
-    for (int b = 0; b < 4; ++b)       // j-group 2 s + b / 2, warpgroup b % 2
+    sm90::mbar_expect_tx(&full[r.stage], JPS * ZB * ACT_BLOCK);
+    for (int b = 0; b < JPS * ZB; ++b)   // j-group JPS s + b / ZB, box b % ZB
       sm90::tma_load_2d(st + b * ACT_BLOCK, &maps.zs, &full[r.stage],
-                        i * F + (b & 1) * 256 + 64 * (2 * s + (b >> 1)),
+                        i * F + (b % ZB) * NWG + 64 * (JPS * s + b / ZB),
                         row0);
     r.advance();
   }
@@ -268,13 +281,13 @@ __device__ __forceinline__ void produce_rev_data(const SweepMaps& maps,
                                                  uint64_t* full,
                                                  uint64_t* empty,
                                                  unsigned char* ring) {
-  for (int g = 0; g < 4; ++g) {
+  for (int g = 0; g < NJG; ++g) {
     sm90::mbar_wait(&empty[r.stage], r.phase ^ 1);
     unsigned char* st = ring + r.stage * RING_STAGE;
-    sm90::mbar_expect_tx(&full[r.stage], (HEADS ? 2 : 4) * ACT_BLOCK);
-    for (int b = 0; b < (HEADS ? 2 : 4); ++b)   // z, z, u, u of wg 0, 1
-      sm90::tma_load_2d(st + b * ACT_BLOCK, b < 2 ? &maps.zs : &maps.us,
-                        &full[r.stage], i * F + (b & 1) * 256 + 64 * g,
+    sm90::mbar_expect_tx(&full[r.stage], (HEADS ? 1 : 2) * ZB * ACT_BLOCK);
+    for (int b = 0; b < (HEADS ? 1 : 2) * ZB; ++b)   // z boxes, then u's
+      sm90::tma_load_2d(st + b * ACT_BLOCK, b < ZB ? &maps.zs : &maps.us,
+                        &full[r.stage], i * F + (b % ZB) * NWG + 64 * g,
                         row0);
     r.advance();
     if (HEADS) {
@@ -410,15 +423,16 @@ __global__ void __launch_bounds__(NTB, 1)
   const int wg = tid >> 7, t = tid & 127, w = t >> 5, l = t & 31;
   const bool leader = l == 0, issuer = tid == 0;
   const int r0 = w * 16 + (l >> 2);          // rows r0 and r0 + 8
-  const int cb = wg * 256 + 2 * (l & 3);     // column of j = 0, e = 0
+  const int cb = wg * NWG + 2 * (l & 3);     // column of j = 0, e = 0
   const int row_w = (layers + 1) * F + (HEADS ? HEAD_PART : 0);
   const float* __restrict__ wsig = p.wsig;
   // tz of layer l: accumulators 4j..4j+3 of consumer thread c as the
-  // float4 (l * 32 + j) * NC + c of the block's scratch (a warp writes and
-  // reads 512 contiguous bytes), streamed both ways, each thread reading
-  // back its own writes
+  // float4 (l * NWG / 8 + j) * NC + c of the block's scratch (a warp writes
+  // and reads 512 contiguous bytes), streamed both ways, each thread
+  // reading back its own writes
   float4* tzb = reinterpret_cast<float4*>(
-                    p.tzsc + (size_t)blockIdx.x * layers * 128 * NC) + tid;
+                    p.tzsc + (size_t)blockIdx.x * layers * (NWG / 2) * NC) +
+                tid;
   float4 tzn[TZB];                             // the next batch of tz
   float* red = reinterpret_cast<float*>(ts);   // when ts is free
   const size_t lf = (size_t)layers * F;        // ZF32: zs / us row stride
@@ -426,7 +440,7 @@ __global__ void __launch_bounds__(NTB, 1)
   auto rnd = [](float v) { return SPLIT ? v : bf16_round(v); };
   R r = {0, 0};
   uint32_t cphase = 0;
-  float acc[128];
+  float acc[NWG / 2];
 
   for (int tile = blockIdx.x; tile < p.n_tiles; tile += gridDim.x) {
     const int row0 = tile * T;
@@ -470,22 +484,23 @@ __global__ void __launch_bounds__(NTB, 1)
     float pz[2] = {0.f, 0.f}, pt[2] = {0.f, 0.f};
     for (int i = 0; i < layers; ++i) {
       if (i == 0)
-        consume_s<256, 0, SPLIT, LO>(acc, ts, EP, ts, EP / KSL, false, r,
+        consume_s<NWG, 0, SPLIT, LO>(acc, ts, EP, ts, EP / KSL, false, r,
                                      full, empty, ring, wg, leader);
       else if (i == skip)
-        consume_s<256, 0, SPLIT, LO>(acc, ts, EP, act, (EP + F) / KSL, false,
+        consume_s<NWG, 0, SPLIT, LO>(acc, ts, EP, act, (EP + F) / KSL, false,
                                      r, full, empty, ring, wg, leader);
       else
-        consume_s<256, 0, SPLIT, LO>(acc, act, F, act, F / KSL, false, r,
+        consume_s<NWG, 0, SPLIT, LO>(acc, act, F, act, F / KSL, false, r,
                                      full, empty, ring, wg, leader);
       tiles_free(issuer);                      // both products read act
       const float w0s = i == 0 ? 30.f : 1.f;
-      float4* tzl = tzb + (size_t)i * 32 * NC;
+      float4* tzl = tzb + (size_t)i * (NWG / 8) * NC;
 #pragma unroll
-      for (int j = 0; j < 32; ++j) {
-        // z of rows r0 / r0 + 8 from the ring: two j-groups a stage
+      for (int j = 0; j < NWG / 8; ++j) {
+        // z of rows r0 / r0 + 8 from the ring: JPS j-groups a stage
         // (ZF32: from device memory)
-        if (ZRING && j % 16 == 0) sm90::mbar_wait(&full[r.stage], r.phase);
+        if (ZRING && j % (JPS * JJ) == 0)
+          sm90::mbar_wait(&full[r.stage], r.phase);
         float2 za, zb;
         if constexpr (ZF32) {
           const float* zp = p.zsf + (grow0 + r0) * lf + (size_t)i * F + cb +
@@ -494,9 +509,9 @@ __global__ void __launch_bounds__(NTB, 1)
           zb = glob_f2(zp + 8 * lf);
         } else {
           const unsigned char* zb4 = ring + r.stage * RING_STAGE +
-                                     ((j >> 3) & 1) * 2 * ACT_BLOCK +
-                                     wg * ACT_BLOCK;
-          const int cz = 8 * (j & 7) + 2 * (l & 3);
+                                     ((j / JJ) % JPS) * ZB * ACT_BLOCK +
+                                     zb_of(wg) * ACT_BLOCK;
+          const int cz = zc_of(wg) + 8 * (j % JJ) + 2 * (l & 3);
           za = stage_bf2(zb4 + sm90::sw128_offset(r0, cz, 0));
           zb = stage_bf2(zb4 + sm90::sw128_offset(r0 + 8, cz, 0));
         }
@@ -521,24 +536,24 @@ __global__ void __launch_bounds__(NTB, 1)
         const int col = cb + 8 * j;
         put2_s<SPLIT, LO>(act, r0, col, h4[0], h4[1]);
         put2_s<SPLIT, LO>(act, r0 + 8, col, h4[2], h4[3]);
-        if (ZRING && j % 16 == 15) {
+        if (ZRING && j % (JPS * JJ) == JPS * JJ - 1) {
           release(empty, r.stage);
           r.advance();
         }
       }
       if (i < last) {
         // h_i, then th_i, to hth's slot of layer i + 1 (SPLIT: hi and lo)
-        tile_to_global(&maps.hth, act, 8, 0, (PL * i) * p.n + row0, issuer);
+        tile_to_global(&maps.hth, act, FA, 0, (PL * i) * p.n + row0, issuer);
         if (SPLIT)
-          tile_to_global(&maps.hth, act + LO, 8, 0,
+          tile_to_global(&maps.hth, act + LO, FA, 0,
                          (PL * i + 2) * p.n + row0, issuer);
         tiles_free(issuer);
-        store_tile_s<256, SPLIT, LO>(act, wg * 256,
+        store_tile_s<NWG, SPLIT, LO>(act, wg * NWG,
                                      [&](int k) { return acc[k]; });
-        tile_to_global(&maps.hth, act, 8, 0, (PL * i + 1) * p.n + row0,
+        tile_to_global(&maps.hth, act, FA, 0, (PL * i + 1) * p.n + row0,
                        issuer);
         if (SPLIT)
-          tile_to_global(&maps.hth, act + LO, 8, 0,
+          tile_to_global(&maps.hth, act + LO, FA, 0,
                          (PL * i + 3) * p.n + row0, issuer);
       } else {
         // act keeps h_{L-1} (K5: the A operand of xf, and hl); acc th
@@ -546,7 +561,7 @@ __global__ void __launch_bounds__(NTB, 1)
         sm90::named_sync(BAR_C, NC);
         if (HEADS && issuer) {
           for (int pl = 0; pl < (SPLIT ? 2 : 1); ++pl)
-            for (int b = 0; b < 8; ++b)
+            for (int b = 0; b < FA; ++b)
               sm90::tma_store_2d(&maps.hl, act + pl * LO + b * ACT_BLOCK,
                                  b * 64, pl * p.n + row0);
           sm90::bulk_commit();
@@ -594,7 +609,7 @@ __global__ void __launch_bounds__(NTB, 1)
       // (SPLIT: h as hi + lo from the tiles, th, a and b in f32)
       const float a0 = rnd(row_a[r0]), a1 = rnd(row_a[r0 + 8]);
       const float b0 = rnd(row_b[r0]), b1 = rnd(row_b[r0 + 8]);
-      float* cred = red + 4 * T;     // [2][4][256]
+      float* cred = red + 4 * T;     // [2][4][NWG]
       auto h_at = [&](int row, int col) {
         const uint32_t o = sm90::sw128_offset(row, col, ACT_BLOCK);
         float2 h = __bfloat1622float2(
@@ -607,7 +622,7 @@ __global__ void __launch_bounds__(NTB, 1)
         return h;
       };
 #pragma unroll
-      for (int j = 0; j < 32; ++j) {
+      for (int j = 0; j < NWG / 8; ++j) {
         const int col = cb + 8 * j;
         const float2 h0 = h_at(r0, col), h1 = h_at(r0 + 8, col);
         float v0 = (h0.x * a0 + h1.x * a1) +
@@ -617,25 +632,26 @@ __global__ void __launch_bounds__(NTB, 1)
         v0 = col_sum(v0);
         v1 = col_sum(v1);
         if (l < 4) {
-          cred[(wg * 4 + w) * 256 + 8 * j + 2 * l] = v0;
-          cred[(wg * 4 + w) * 256 + 8 * j + 2 * l + 1] = v1;
+          cred[(wg * 4 + w) * NWG + 8 * j + 2 * l] = v0;
+          cred[(wg * 4 + w) * NWG + 8 * j + 2 * l + 1] = v1;
         }
       }
-      col_finish<256>(cred, pt_tile + (size_t)layers * F);
+      col_finish<NWG>(cred, pt_tile + (size_t)layers * F);
     }
 
     if constexpr (HEADS) {
       float* hp_tile = pt_tile + (size_t)(layers + 1) * F;
       // ---------------------------------------- xf = h W_f^T + b_f
-      consume_s<256, 0, SPLIT, LO>(acc, act, F, act, F / KSL, false, r, full,
+      consume_s<NWG, 0, SPLIT, LO>(acc, act, F, act, F / KSL, false, r, full,
                                    empty, ring, wg, leader);
       tiles_free(issuer);            // act (h) read by both, hl stored
       const float* __restrict__ bfv = p.bf;
-      store_tile_s<256, SPLIT, LO>(act, wg * 256, [&acc, bfv, cb](int k) {
+      store_tile_s<NWG, SPLIT, LO>(act, wg * NWG, [&acc, bfv, cb](int k) {
         return acc[k] + bfv[cb + 8 * (k >> 2) + (k & 1)];
       });
-      tile_to_global(&maps.xfb, act, 8, 0, row0, issuer);
-      if (SPLIT) tile_to_global(&maps.xfb, act + LO, 8, 0, p.n + row0, issuer);
+      tile_to_global(&maps.xfb, act, FA, 0, row0, issuer);
+      if (SPLIT)
+        tile_to_global(&maps.xfb, act + LO, FA, 0, p.n + row0, issuer);
 
       // ---- the first head layers in 256-column passes (q = 0: rgb,
       // 1..3: k, theta, rho_c): c_z1 = act'(z1) (c_z2 W_2) to global, with
@@ -762,7 +778,7 @@ __global__ void __launch_bounds__(NTB, 1)
             sm90::mbar_wait(cbar, cphase);
             cphase ^= 1;
           }
-          consume_s<256, 1, SPLIT, LO>(acc, ts, KH, ts, KH / KSL,
+          consume_s<NWG, 1, SPLIT, LO>(acc, ts, KH, ts, KH / KSL,
                                        q < 3 || hk > 0, r, full, empty, ring,
                                        wg, leader);
         }
@@ -771,34 +787,35 @@ __global__ void __launch_bounds__(NTB, 1)
       {
         float* cred = red;
 #pragma unroll
-        for (int j = 0; j < 32; ++j) {
+        for (int j = 0; j < NWG / 8; ++j) {
           const float v0 = col_sum(acc[4 * j] + acc[4 * j + 2]);
           const float v1 = col_sum(acc[4 * j + 1] + acc[4 * j + 3]);
           if (l < 4) {
-            cred[(wg * 4 + w) * 256 + 8 * j + 2 * l] = v0;
-            cred[(wg * 4 + w) * 256 + 8 * j + 2 * l + 1] = v1;
+            cred[(wg * 4 + w) * NWG + 8 * j + 2 * l] = v0;
+            cred[(wg * 4 + w) * NWG + 8 * j + 2 * l + 1] = v1;
           }
         }
-        col_finish<256>(cred, hp_tile + HP_DBF);
+        col_finish<NWG>(cred, hp_tile + HP_DBF);
       }
-      store_tile_s<256, SPLIT, LO>(act, wg * 256,
+      store_tile_s<NWG, SPLIT, LO>(act, wg * NWG,
                                    [&](int k) { return acc[k]; });
-      tile_to_global(&maps.axf, act, 8, 0, row0, issuer);
-      if (SPLIT) tile_to_global(&maps.axf, act + LO, 8, 0, p.n + row0, issuer);
+      tile_to_global(&maps.axf, act, FA, 0, row0, issuer);
+      if (SPLIT)
+        tile_to_global(&maps.axf, act + LO, FA, 0, p.n + row0, issuer);
       // ------------------------------------ a_h from the heads: a_xf W_f
-      consume_s<256, 1, SPLIT, LO>(acc, act, F, act, F / KSL, false, r, full,
+      consume_s<NWG, 1, SPLIT, LO>(acc, act, F, act, F / KSL, false, r, full,
                                    empty, ring, wg, leader);
     }
 
     // the last layer's first batch of tz, in flight while a_h is formed
 #pragma unroll
     for (int b = 0; b < TZB; ++b)
-      tzn[b] = __ldcs(tzb + (size_t)last * 32 * NC + b * NC);
+      tzn[b] = __ldcs(tzb + (size_t)last * (NWG / 8) * NC + b * NC);
     // a_h of the last layer: a . wsig + c_feats (K3), + a_xf W_f (K5)
     {
       const float a0 = rnd(row_a[r0]), a1 = rnd(row_a[r0 + 8]);
 #pragma unroll
-      for (int j = 0; j < 32; ++j)
+      for (int j = 0; j < NWG / 8; ++j)
 #pragma unroll
         for (int hf = 0; hf < 2; ++hf) {
           const int col = cb + 8 * j, k = 4 * j + 2 * hf;
@@ -825,16 +842,16 @@ __global__ void __launch_bounds__(NTB, 1)
       // this thread's tz of layer i (its own writes), in batches of TZB
       // float4 loaded one batch ahead (the first during the product before
       // the epilogue); ZF32: K5's b_th
-      const float4* tzl = tzb + (size_t)i * 32 * NC;
+      const float4* tzl = tzb + (size_t)i * (NWG / 8) * NC;
       float4 tzc[TZB];
       const float* ucl =
           HEADS ? p.uc + ((size_t)tile * layers + i) * 128 * NC + tid
                 : nullptr;
 #pragma unroll
-      for (int j = 0; j < 32; ++j) {
-        // j-group j / 8: a ring stage of z and u (K5: z, then one of the
+      for (int j = 0; j < NWG / 8; ++j) {
+        // j-group j / JJ: a ring stage of z and u (K5: z, then one of the
         // rebuilt b_th); ZF32: none
-        if (ZRING && j % 8 == 0) {
+        if (ZRING && j % JJ == 0) {
           sm90::mbar_wait(&full[r.stage], r.phase);
           zu_stage = r.stage;
           if (HEADS) {
@@ -846,13 +863,14 @@ __global__ void __launch_bounds__(NTB, 1)
 #pragma unroll
           for (int b = 0; b < TZB; ++b) {
             tzc[b] = tzn[b];
-            if (j + TZB < 32) tzn[b] = __ldcs(tzl + (j + TZB + b) * NC);
+            if (j + TZB < NWG / 8)
+              tzn[b] = __ldcs(tzl + (j + TZB + b) * NC);
           }
         }
         const float4 t4 = tzc[j % TZB];
         const float tzv[4] = {t4.x, t4.y, t4.z, t4.w};
         const unsigned char* zu = ring + zu_stage * RING_STAGE;
-        const int cz = 8 * (j & 7) + 2 * (l & 3);
+        const int cz = zc_of(wg) + 8 * (j % JJ) + 2 * (l & 3);
         const int o0 = sm90::sw128_offset(r0, cz, 0);
         const int o1 = sm90::sw128_offset(r0 + 8, cz, 0);
         const size_t zo = (grow0 + r0) * lf + (size_t)i * F + cb + 8 * j;
@@ -861,8 +879,8 @@ __global__ void __launch_bounds__(NTB, 1)
           za = glob_f2(p.zsf + zo);
           zb = glob_f2(p.zsf + zo + 8 * lf);
         } else {
-          za = stage_bf2(zu + wg * ACT_BLOCK + o0);
-          zb = stage_bf2(zu + wg * ACT_BLOCK + o1);
+          za = stage_bf2(zu + zb_of(wg) * ACT_BLOCK + o0);
+          zb = stage_bf2(zu + zb_of(wg) * ACT_BLOCK + o1);
         }
         const float z4[4] = {za.x, za.y, zb.x, zb.y};
         float u4[4];
@@ -878,8 +896,8 @@ __global__ void __launch_bounds__(NTB, 1)
             ua = glob_f2(p.usf + zo);
             ub = glob_f2(p.usf + zo + 8 * lf);
           } else {
-            ua = stage_bf2(zu + (2 + wg) * ACT_BLOCK + o0);
-            ub = stage_bf2(zu + (2 + wg) * ACT_BLOCK + o1);
+            ua = stage_bf2(zu + (ZB + zb_of(wg)) * ACT_BLOCK + o0);
+            ub = stage_bf2(zu + (ZB + zb_of(wg)) * ACT_BLOCK + o1);
           }
           u4[0] = ua.x;
           u4[1] = ua.y;
@@ -898,44 +916,44 @@ __global__ void __launch_bounds__(NTB, 1)
         const int col = cb + 8 * j;
         put2_s<SPLIT, LO>(act, r0, col, bt[0], bt[1]);
         put2_s<SPLIT, LO>(act, r0 + 8, col, bt[2], bt[3]);
-        if (ZRING && j % 8 == 7) {
+        if (ZRING && j % JJ == JJ - 1) {
           if (HEADS) release(empty, zu_stage);
           release(empty, r.stage);
           r.advance();
         }
       }
-      tile_to_global(&maps.azbtz, act, 8, 0, (PL * i + 1) * p.n + row0,
+      tile_to_global(&maps.azbtz, act, FA, 0, (PL * i + 1) * p.n + row0,
                      issuer);
       if (SPLIT)
-        tile_to_global(&maps.azbtz, act + LO, 8, 0,
+        tile_to_global(&maps.azbtz, act + LO, FA, 0,
                        (PL * i + 3) * p.n + row0, issuer);
       // column sums of a_z over the tile's 64 rows
       {
         float* cred = red;
 #pragma unroll
-        for (int j = 0; j < 32; ++j) {
+        for (int j = 0; j < NWG / 8; ++j) {
           const float v0 = col_sum(acc[4 * j] + acc[4 * j + 2]);
           const float v1 = col_sum(acc[4 * j + 1] + acc[4 * j + 3]);
           if (l < 4) {
-            cred[(wg * 4 + w) * 256 + 8 * j + 2 * l] = v0;
-            cred[(wg * 4 + w) * 256 + 8 * j + 2 * l + 1] = v1;
+            cred[(wg * 4 + w) * NWG + 8 * j + 2 * l] = v0;
+            cred[(wg * 4 + w) * NWG + 8 * j + 2 * l + 1] = v1;
           }
         }
-        col_finish<256>(cred, pt_tile + (size_t)i * F);
+        col_finish<NWG>(cred, pt_tile + (size_t)i * F);
       }
       tiles_free(issuer);            // b_tz stored, red read
-      store_tile_s<256, SPLIT, LO>(act, wg * 256,
+      store_tile_s<NWG, SPLIT, LO>(act, wg * NWG,
                                    [&](int k) { return acc[k]; });
-      tile_to_global(&maps.azbtz, act, 8, 0, (PL * i) * p.n + row0, issuer);
+      tile_to_global(&maps.azbtz, act, FA, 0, (PL * i) * p.n + row0, issuer);
       if (SPLIT)
-        tile_to_global(&maps.azbtz, act + LO, 8, 0,
+        tile_to_global(&maps.azbtz, act + LO, FA, 0,
                        (PL * i + 2) * p.n + row0, issuer);
       if (i == 0) break;
 #pragma unroll
       for (int b = 0; b < TZB; ++b)
-        tzn[b] = __ldcs(tzb + (size_t)(i - 1) * 32 * NC + b * NC);
+        tzn[b] = __ldcs(tzb + (size_t)(i - 1) * (NWG / 8) * NC + b * NC);
       // a_h_{i-1} = a_z_i . W_i
-      consume_s<256, 1, SPLIT, LO>(acc, act, F, act, F / KSL, false, r, full,
+      consume_s<NWG, 1, SPLIT, LO>(acc, act, F, act, F / KSL, false, r, full,
                                    empty, ring, wg, leader);
     }
   }
@@ -944,7 +962,10 @@ __global__ void __launch_bounds__(NTB, 1)
 
 // ============================================================ wgrad, reduce
 
-constexpr int WM = 128, WN = 256, WK = 64;   // output tile, points a chunk
+// output tile WM x WN (WN: the width, at most 256), points a chunk; a
+// group whose M (the width 64) is less than WM masks the tile's second
+// 64 rows: its second warpgroup loads and multiplies nothing
+constexpr int WM = 128, WN = F < 256 ? F : 256, WK = 64;
 constexpr int WRING_N = 4;
 constexpr int WSTAGE_BYTES = (WM + WN) * WK * 2;       // 48 KB
 constexpr int WGRAD_SMEM = WRING_N * WSTAGE_BYTES + 128;
@@ -958,9 +979,9 @@ struct WgradMaps {
   CUtensorMap m[7];
 };
 
-// One weight-gradient product out = A^T B over K = chunks x 64 points: A
-// from rows a_row.. of map a_map, B from rows b_row.. of b_map, in
-// m_tiles x n_tiles output tiles of 128 x 256, each K axis cut into
+// One weight-gradient product out (m rows) = A^T B over K = chunks x 64
+// points: A from rows a_row.. of map a_map, B from rows b_row.. of b_map,
+// in m_tiles x n_tiles output tiles of WM x WN, each K axis cut into
 // `splits` slices.  Its blocks are first_block.. in the order (slice,
 // tile), so that the tiles of one slice run side by side.  The split
 // instantiation's operands are hi and lo planes, the lo plane a_lo (b_lo)
@@ -972,6 +993,7 @@ struct WgradGroup {
   float* out;
   int ldo;
   int seg_chunks, a_lo, b_lo;
+  int m;
 };
 
 struct WgradPlan {
@@ -1009,6 +1031,8 @@ __global__ void __launch_bounds__(NTB, 1)
   }
   __syncthreads();
 
+  // the tile's 64-row halves inside the output (the masked one: none)
+  const int a_blocks = g.m - m0 < WM ? (g.m - m0) / 64 : WM / 64;
   if (tid >= NC) {
     sm90::setmaxnreg_dec<40>();
     if (tid != NC) return;
@@ -1019,11 +1043,11 @@ __global__ void __launch_bounds__(NTB, 1)
       sm90::mbar_wait(&empty[r.stage], r.phase ^ 1);
       unsigned char* s = smem + r.stage * WSTAGE_BYTES;
       uint64_t* f = &full[r.stage];
-      sm90::mbar_expect_tx(f, WSTAGE_BYTES);
+      sm90::mbar_expect_tx(f, (a_blocks * 64 + WN) * WK * 2);
       const int seg = c / g.seg_chunks, cc = c - seg * g.seg_chunks;
       const int a_row = g.a_row + (seg == 1 ? g.a_lo : 0) + cc * WK;
       const int b_row = g.b_row + (seg == 2 ? g.b_lo : 0) + cc * WK;
-      for (int b = 0; b < WM / 64; ++b)
+      for (int b = 0; b < a_blocks; ++b)
         sm90::tma_load_2d(s + b * ACT_BLOCK, ma, f, m0 + b * 64, a_row);
       for (int b = 0; b < WN / 64; ++b)
         sm90::tma_load_2d(s + (WM / 64 + b) * ACT_BLOCK, mb, f, n0 + b * 64,
@@ -1036,8 +1060,17 @@ __global__ void __launch_bounds__(NTB, 1)
   sm90::setmaxnreg_inc<232>();
   const int wg = tid >> 7;
   const bool leader = (tid & 127) == 0;
-  float acc[128];
   Ring r = {0, 0};
+  if (wg >= a_blocks) {
+    // the masked half: release every stage, write nothing
+    for (int c = c0; c < c1; ++c) {
+      sm90::mbar_wait(&full[r.stage], r.phase);
+      if (leader) sm90::mbar_arrive(&empty[r.stage]);
+      r.advance();
+    }
+    return;
+  }
+  float acc[WN / 2];
   uint32_t prev = 0;
   for (int c = c0; c < c1; ++c) {
     sm90::mbar_wait(&full[r.stage], r.phase);
@@ -1051,7 +1084,7 @@ __global__ void __launch_bounds__(NTB, 1)
           sm90::make_desc(s + wg * ACT_BLOCK + ks * 2048, ACT_BLOCK, 1024, 1);
       const uint64_t db = sm90::make_desc(
           s + (WM / 64) * ACT_BLOCK + ks * 2048, ACT_BLOCK, 1024, 1);
-      sm90::wgmma_n256<1, 1>(acc, da, db, (c > c0 || ks > 0) ? 1 : 0);
+      sm90::wgmma_n<WN, 1, 1>(acc, da, db, (c > c0 || ks > 0) ? 1 : 0);
     }
     sm90::wgmma_commit();
     sm90::wgmma_wait<1>();
@@ -1066,7 +1099,7 @@ __global__ void __launch_bounds__(NTB, 1)
   float4* dst = reinterpret_cast<float4*>(wpart + (size_t)blockIdx.x * WTILE) +
                 tid;
 #pragma unroll
-  for (int i = 0; i < 32; ++i)
+  for (int i = 0; i < WN / 8; ++i)
     dst[i * NC] = make_float4(acc[4 * i], acc[4 * i + 1], acc[4 * i + 2],
                               acc[4 * i + 3]);
 }
@@ -1108,6 +1141,7 @@ __global__ void __launch_bounds__(256)
     const int cw = c & 127, ww = cw >> 5, ll = cw & 31;
     const int row =
         (tl / g.n_tiles) * WM + (c >> 7) * 64 + ww * 16 + (ll >> 2);
+    if (row >= g.m) return;          // the masked half of a tile
     const int col = (tl % g.n_tiles) * WN + 8 * i + 2 * (ll & 3);
     *reinterpret_cast<float2*>(g.out + (size_t)row * g.ldo + col) =
         make_float2(s.x, s.y);
@@ -1186,9 +1220,9 @@ bool sweep_maps(const BwdArgs& p, SweepMaps* m) {
   const uint64_t mids = (uint64_t)(p.layers - 2) * F * planes;
   const uint64_t fp = F * planes;
   const uint64_t n = p.n;
-  bool ok = map_2d(&m->w0k, p.w0, fp, EP, EP, 256, KSL, 64) &&
-            map_2d(&m->wmidk, p.wmid, mids, F, F, 256, KSL, 64) &&
-            map_2d(&m->wskipk, p.wskip, fp, EP + F, EP + F, 256, KSL, 64) &&
+  bool ok = map_2d(&m->w0k, p.w0, fp, EP, EP, BOX_N, KSL, 64) &&
+            map_2d(&m->wmidk, p.wmid, mids, F, F, BOX_N, KSL, 64) &&
+            map_2d(&m->wskipk, p.wskip, fp, EP + F, EP + F, BOX_N, KSL, 64) &&
             map_2d(&m->wmidm, p.wmid, mids, F, F, KSL, 32, 64) &&
             map_2d(&m->wskipm, p.wskip, fp, EP + F, EP + F, KSL, 32, 64) &&
             (p.zsf != nullptr ||
@@ -1201,10 +1235,10 @@ bool sweep_maps(const BwdArgs& p, SweepMaps* m) {
             map_2d(&m->azbtz, p.azbtz, (uint64_t)p.layers * pl * n, F, F, T,
                    64, 128);
   if (HEADS)
-    ok = ok && map_2d(&m->wfk, p.wf, fp, F, F, 256, KSL, 64) &&
+    ok = ok && map_2d(&m->wfk, p.wf, fp, F, F, BOX_N, KSL, 64) &&
          map_2d(&m->wfm, p.wf, fp, F, F, KSL, 32, 64) &&
-         map_2d(&m->w1rk, p.w1r, HID * planes, F, F, 256, KSL, 64) &&
-         map_2d(&m->w1pk, p.w1p, 3 * HID * planes, F, F, 256, KSL, 64) &&
+         map_2d(&m->w1rk, p.w1r, HID * planes, F, F, BOX_N, KSL, 64) &&
+         map_2d(&m->w1pk, p.w1p, 3 * HID * planes, F, F, BOX_N, KSL, 64) &&
          map_2d(&m->w1rm, p.w1r, HID * planes, F, F, KSL, 32, 64) &&
          map_2d(&m->w1pm, p.w1p, 3 * HID * planes, F, F, KSL, 32, 64) &&
          map_2d(&m->hl, p.hl, n * planes, F, F, T, 64, 128) &&
@@ -1241,25 +1275,27 @@ bool wgrad_plan(const BwdArgs& p, WgradMaps* maps, WgradPlan* plan) {
   const int ch = p.n / WK, cth = (p.split ? 3 : 1) * ch;
   const int lo = p.split ? 2 * p.n : 0, hlo = p.split ? p.n : 0;
   int k = 0, blocks = 0, elems = 0;
-  auto add = [&](int am, int ar, int bm, int br, int mt, int nt, int chunks,
+  // a product of m x n outputs (m a multiple of 64, n of WN)
+  auto add = [&](int am, int ar, int bm, int br, int m, int n, int chunks,
                  int splits, float* out, int ldo, int sc, int l) {
+    const int mt = (m + WM - 1) / WM, nt = n / WN;
     WgradGroup& g = plan->g[k++];
-    g = {am, bm, ar, br, mt, nt, chunks, splits, blocks, out, ldo, sc, l, l};
+    g = {am, bm, ar, br, mt, nt, chunks, splits, blocks, out, ldo, sc, l, l,
+         m};
     blocks += mt * nt * splits;
     elems += mt * nt * (WTILE / 4);
   };
   const int st = p.splits_trunk, sh = p.splits_heads;
-  add(0, 0, 2, 0, EP / WM, F / WN, ct, st, p.dw0, F, seg, lo);
+  add(0, 0, 2, 0, EP, F, ct, st, p.dw0, F, seg, lo);
   for (int i = 1; i < L; ++i)
-    add(1, (i - 1) * pl * p.n, 2, i * pl * p.n, F / WM, F / WN, ct, st,
+    add(1, (i - 1) * pl * p.n, 2, i * pl * p.n, F, F, ct, st,
         i == p.skip ? p.dwsb
                     : p.dwm + (size_t)(i < p.skip ? i - 1 : i - 2) * F * F,
         F, seg, lo);
-  add(0, 0, 2, p.skip * pl * p.n, EP / WM, F / WN, ct, st, p.dwst, F, seg,
-      lo);
+  add(0, 0, 2, p.skip * pl * p.n, EP, F, ct, st, p.dwst, F, seg, lo);
   if (HEADS) {
-    add(3, 0, 5, 0, F / WM, F / WN, cth, sh, p.dwf, F, ch, hlo);
-    add(4, 0, 6, 0, F / WM, 4 * HID / WN, cth, sh, p.dw1, 4 * HID, ch, hlo);
+    add(3, 0, 5, 0, F, F, cth, sh, p.dwf, F, ch, hlo);
+    add(4, 0, 6, 0, F, 4 * HID, cth, sh, p.dw1, 4 * HID, ch, hlo);
   }
   plan->n_groups = k;
   plan->n_blocks = blocks;

@@ -5,9 +5,9 @@
 // and the products).
 //
 // Weight matrices are stored (out, in) row-major in global memory (the
-// nn.Linear layout).  The weights of the whole trunk are 4.6 MB in bf16, so
-// they stay in the 50 MB L2 while every block streams through them once per
-// tile.
+// nn.Linear layout).  The weights of the whole trunk are 4.6 MB in bf16 at
+// width 512, so they stay in the 50 MB L2 while every block streams through
+// them once per tile.
 
 #pragma once
 
@@ -19,7 +19,16 @@ namespace trunk {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int F = 512;           // trunk width
+// The trunk width, per library (ops/cuda_build.library_key): 512, the
+// flagship's, unless -DTRUNK_F gives 64, 128 or 256.  Each of the two
+// consumer warpgroups owns F / 2 columns of every trunk product (a wgmma N
+// of 32..256), and activation tiles are 64-column blocks.
+#ifndef TRUNK_F
+#define TRUNK_F 512
+#endif
+constexpr int F = TRUNK_F;       // trunk width
+static_assert(F == 64 || F == 128 || F == 256 || F == 512,
+              "TRUNK_F is 64, 128, 256 or 512");
 constexpr int EP = 128;          // encoding width, padded
 constexpr int T = 64;            // points per tile
 constexpr int HID = F / 2;       // the flagship heads' hidden width

@@ -20,11 +20,12 @@
 using namespace trunk;
 
 // x (n_rows, 128) f32 with n_rows % 64 == 0; weights as trunk_sigma_launch
-// (with split: f32 operands, the weights as hi and lo planes).  Outputs
-// sigma (n_rows,) f32, feats (n_rows, 512) bf16 when feats_bf16 else f32,
-// gx (n_rows, 128) f32, and, when zs is not null, zs and us (n_rows,
-// layers * 512), f32 when zs_f32 else bf16.  scratch holds
-// n_blocks * (layers-1) * 64 * 512 floats.  Returns a cudaError_t.
+// (with split: f32 operands, the weights as hi and lo planes), at the
+// library's width F (TRUNK_F).  Outputs sigma (n_rows,) f32, feats
+// (n_rows, F) bf16 when feats_bf16 else f32, gx (n_rows, 128) f32, and,
+// when zs is not null, zs and us (n_rows, layers * F), f32 when zs_f32
+// else bf16.  scratch holds n_blocks * (layers-1) * 64 * F floats.
+// Returns a cudaError_t.
 extern "C" int trunk_fwd_grad_launch(
     const float* x, int n_rows, int n_blocks, const void* w0, const float* b0,
     const void* wmid, const float* bmid, const void* wskip,

@@ -24,10 +24,10 @@
 // consumers take them, the tile's x (f32, one bulk copy) and every weight
 // slice of the tile's products (K-major boxes for z = h W^T, MN-major boxes
 // for u = g W), running ahead across epilogues and tiles.  Two consumer
-// warpgroups each own 256 of the 512 output columns of every trunk product
-// (wgmma m64n256k16, 128 f32 accumulators a thread; the gx products, 128
-// columns, m64n64 each) and read A from one 64 x 512 activation tile kept
-// K-major with the 128-byte swizzle; the x tile sits beside it as bf16 for
+// warpgroups each own F / 2 of the F output columns of every trunk product
+// (at 512: wgmma m64n256k16, 128 f32 accumulators a thread; the gx
+// products, 128 columns, m64n64 each) and read A from one 64 x F activation
+// tile kept K-major with the 128-byte swizzle; the x tile sits beside it as bf16 for
 // layer 0 and the skip layer's [x | h].  The epilogues write h and g into
 // the tile.  act'(z) goes to the scratch as float4s in the accumulator
 // layout (a warp writes 512 contiguous bytes) and comes back to the thread
@@ -184,7 +184,7 @@ struct FwdArgs {
   int layers, skip;
 };
 
-// The tensor maps: the weights as K-major boxes (256 n rows x 32 k) and
+// The tensor maps: the weights as K-major boxes (BOX_N n rows x 32 k) and
 // MN-major boxes (32 k rows x 32 n), SW64; zs, us and the bf16 feats as
 // boxes of 64 rows x 64 columns, SW128, stored from the activation tile.
 struct FwdMaps {
@@ -193,18 +193,18 @@ struct FwdMaps {
   CUtensorMap wfk, w1rk, w1pk;   // K4
 };
 
-// shared memory: the activation tile (64 x 512, 8 SW128 blocks), the x tile
-// (64 x 128 bf16, 2 blocks), with SPLIT both again for the lo terms
+// shared memory: the activation tile (64 x F, F / 64 SW128 blocks), the x
+// tile (64 x 128 bf16, 2 blocks), with SPLIT both again for the lo terms
 // (fs_lo bytes past the hi ones), the ring, barriers, then per-row vectors:
 // the sigma head's warpgroup halves and softplus'(zsig).  K4's 6 logits'
 // warpgroup halves (6 x 2 x 64 f32) take the x tile's place once the skip
 // layer has read x for the last time: in the head passes (with SPLIT there
 // is no room for them beside the ring: 896 B short)
 constexpr int FS_ACT = 0;
-constexpr int FS_X = FS_ACT + 8 * ACT_BLOCK;
+constexpr int FS_X = FS_ACT + FA * ACT_BLOCK;
 template <bool SPLIT>
 __host__ __device__ constexpr int fs_lo() {
-  return SPLIT ? 10 * ACT_BLOCK : 0;
+  return SPLIT ? (FA + 2) * ACT_BLOCK : 0;
 }
 // (FWD_RING_2, measurement only, never built by the package: every
 // instantiation gets SPLIT's two stages, so that tools/fwd_variants.py can
@@ -238,7 +238,7 @@ static_assert(fwd_smem<true>() <= 232448, "SPLIT's shared memory");
 template <class V>
 __device__ __forceinline__ void rows_out(float* p, size_t ld, V v) {
 #pragma unroll
-  for (int j = 0; j < 32; ++j)
+  for (int j = 0; j < NWG / 8; ++j)
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf)
       __stcs(reinterpret_cast<float2*>(p + hf * 8 * ld + 8 * j),
@@ -267,7 +267,7 @@ __device__ __forceinline__ float quad_sum(float v) {
 // float4, each batch issued one batch ahead of its use (the first before
 // the product that precedes the epilogue), so that device memory's latency
 // hides behind the product and the epilogue.
-constexpr int SB = 8;
+constexpr int SB = NWG / 8 < 8 ? NWG / 8 : 8;
 
 __device__ __forceinline__ void scratch_batch(float4 (&d)[SB],
                                               const float4* dl, int b) {
@@ -279,17 +279,17 @@ __device__ __forceinline__ void scratch_batch(float4 (&d)[SB],
 // for the 128 accumulators of u in acc, act'(z) from the thread's scratch
 // slot dl, whose first batch is in dn; acc keeps u.
 template <bool SPLIT, int LO>
-__device__ __forceinline__ void g_from_scratch(const float (&acc)[128],
+__device__ __forceinline__ void g_from_scratch(const float (&acc)[NWG / 2],
                                                float4 (&dn)[SB],
                                                const float4* dl,
                                                unsigned char* act, int r0,
                                                int cb) {
 #pragma unroll
-  for (int b = 0; b < 32 / SB; ++b) {
+  for (int b = 0; b < NWG / 8 / SB; ++b) {
     float4 d[SB];
 #pragma unroll
     for (int jj = 0; jj < SB; ++jj) d[jj] = dn[jj];
-    if (b < 32 / SB - 1) scratch_batch(dn, dl, b + 1);
+    if (b < NWG / 8 / SB - 1) scratch_batch(dn, dl, b + 1);
 #pragma unroll
     for (int jj = 0; jj < SB; ++jj) {
       const int j = SB * b + jj;
@@ -342,10 +342,11 @@ __global__ void __launch_bounds__(NTB, 1)
   // SPLIT: rows from a weight's hi plane to its lo plane
   const int lo_f = F, lo_mid = (layers - 2) * F;
   // act'(z) of layers 0..L-2 (K4: 0..L-1): accumulators 4j..4j+3 of
-  // consumer thread c of layer s as the float4 (s * 32 + j) * NC + c of
-  // slot_base, so that a warp writes 512 contiguous bytes
+  // consumer thread c of layer s as the float4 (s * NWG / 8 + j) * NC + c
+  // of slot_base, so that a warp writes 512 contiguous bytes
   const int slots = HEADS ? layers : layers - 1;
-  float* slot_base = p.scratch + (size_t)blockIdx.x * slots * 128 * NC;
+  float* slot_base =
+      p.scratch + (size_t)blockIdx.x * slots * (NWG / 2) * NC;
 
   if (tid == 0) {
     for (int s = 0; s < NS; ++s) {
@@ -407,13 +408,16 @@ __global__ void __launch_bounds__(NTB, 1)
   const int wg = tid >> 7, t = tid & 127, w = t >> 5, l = t & 31;
   const bool leader = l == 0, issuer = tid == 0;
   const int r0 = w * 16 + (l >> 2);          // rows r0 and r0 + 8
-  const int cb = wg * 256 + 2 * (l & 3);     // column of j = 0, e = 0
+  const int cb = wg * NWG + 2 * (l & 3);     // column of j = 0, e = 0
   const float* __restrict__ wsig = p.wsig;
   float4* dsc = reinterpret_cast<float4*>(slot_base) + tid;
   // ZF32: where this thread's rows of a layer's zs / us begin
   const size_t lf = (size_t)layers * F;
   R r = {0, 0};
-  float acc[128];
+  // the trunk products' accumulators; the gx products' 32 share the first
+  // of them (at width 64 the trunk's 16 are fewer)
+  float accs[NWG / 2 > 32 ? NWG / 2 : 32];
+  float (&acc)[NWG / 2] = *reinterpret_cast<float(*)[NWG / 2]>(accs);
 
   for (int tile = blockIdx.x; tile < p.n_tiles; tile += gridDim.x) {
     const int row0 = tile * T;
@@ -443,19 +447,19 @@ __global__ void __launch_bounds__(NTB, 1)
     // ----------------------------------------------------------- forward
     for (int i = 0; i < layers; ++i) {
       if (i == 0)
-        consume_s<256, 0, SPLIT, LO>(acc, xs, EP, xs, EP / KSL, false, r,
+        consume_s<NWG, 0, SPLIT, LO>(acc, xs, EP, xs, EP / KSL, false, r,
                                      full, empty, ring, wg, leader);
       else if (i == skip)
-        consume_s<256, 0, SPLIT, LO>(acc, xs, EP, act, (EP + F) / KSL, false,
+        consume_s<NWG, 0, SPLIT, LO>(acc, xs, EP, act, (EP + F) / KSL, false,
                                      r, full, empty, ring, wg, leader);
       else
-        consume_s<256, 0, SPLIT, LO>(acc, act, F, act, F / KSL, false, r,
+        consume_s<NWG, 0, SPLIT, LO>(acc, act, F, act, F / KSL, false, r,
                                      full, empty, ring, wg, leader);
       tiles_free(issuer);                      // both products read act
       const float* __restrict__ b = layer_bias(i, skip, p.b0, p.bmid,
                                                p.bskip);
 #pragma unroll
-      for (int j = 0; j < 32; ++j) {
+      for (int j = 0; j < NWG / 8; ++j) {
         const float2 bb = *reinterpret_cast<const float2*>(b + cb + 8 * j);
         acc[4 * j] += bb.x;
         acc[4 * j + 1] += bb.y;
@@ -466,15 +470,15 @@ __global__ void __launch_bounds__(NTB, 1)
         rows_out(p.zsf + (grow0 + r0) * lf + (size_t)i * F + cb, lf,
                  [&](int k) { return acc[k]; });
       } else if constexpr (ZS) {
-        store_tile_sw<256>(act, wg * 256, [&](int k) { return acc[k]; });
-        tile_to_global(&maps.zs, act, 8, i * F, row0, issuer);
+        store_tile_sw<NWG>(act, wg * NWG, [&](int k) { return acc[k]; });
+        tile_to_global(&maps.zs, act, FA, i * F, row0, issuer);
         tiles_free(issuer);
       }
       if (i == last) break;
       const float w0s = i == 0 ? 30.f : 1.f;
-      float4* dl = dsc + (size_t)i * 32 * NC;
+      float4* dl = dsc + (size_t)i * (NWG / 8) * NC;
 #pragma unroll
-      for (int j = 0; j < 32; ++j) {
+      for (int j = 0; j < NWG / 8; ++j) {
         float h4[4], d4[4];
 #pragma unroll
         for (int e = 0; e < 4; ++e)
@@ -490,9 +494,9 @@ __global__ void __launch_bounds__(NTB, 1)
     // holds z_{L-1}
     {
       float pz[2] = {0.f, 0.f};
-      float4* dl = dsc + (size_t)last * 32 * NC;
+      float4* dl = dsc + (size_t)last * (NWG / 8) * NC;
 #pragma unroll
-      for (int j = 0; j < 32; ++j) {
+      for (int j = 0; j < NWG / 8; ++j) {
         float h4[4], d4[4];
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
@@ -520,7 +524,7 @@ __global__ void __launch_bounds__(NTB, 1)
       }
     }
     if (!HEADS && p.feats_bf16)
-      tile_to_global(&maps.feats, act, 8, 0, row0, issuer);
+      tile_to_global(&maps.feats, act, FA, 0, row0, issuer);
     else
       sm90::fence_async_smem();
     sm90::named_sync(BAR_C, NC);               // rz, and h in act
@@ -535,11 +539,11 @@ __global__ void __launch_bounds__(NTB, 1)
 
     if constexpr (HEADS) {
       // ---------------------------------------------- xf = h W_f^T + b_f
-      consume_s<256, 0, SPLIT, LO>(acc, act, F, act, F / KSL, false, r, full,
+      consume_s<NWG, 0, SPLIT, LO>(acc, act, F, act, F / KSL, false, r, full,
                                    empty, ring, wg, leader);
       tiles_free(issuer);
       const float* __restrict__ bfv = p.bf;
-      store_tile_s<256, SPLIT, LO>(act, wg * 256, [&](int k) {
+      store_tile_s<NWG, SPLIT, LO>(act, wg * NWG, [&](int k) {
         return acc[k] + bfv[cb + 8 * (k >> 2) + (k & 1)];
       });
       sm90::fence_async_smem();
@@ -587,7 +591,7 @@ __global__ void __launch_bounds__(NTB, 1)
       }
       // act'(z_{L-1}) for the chain's seed below
       float4 dn[SB];
-      const float4* dl = dsc + (size_t)last * 32 * NC;
+      const float4* dl = dsc + (size_t)last * (NWG / 8) * NC;
       scratch_batch(dn, dl, 0);
       tiles_free(issuer);                      // hred; act (xf) read
       if (tid < T) {
@@ -605,7 +609,7 @@ __global__ void __launch_bounds__(NTB, 1)
       // ------ the chain's seed: g_{L-1} = act'(z_{L-1}) u, with act' from
       // the scratch
 #pragma unroll
-      for (int k = 0; k < 128; ++k)
+      for (int k = 0; k < NWG / 2; ++k)
         acc[k] = rowv[r0 + 8 * ((k >> 1) & 1)] *
                  wsig[cb + 8 * (k >> 2) + (k & 1)];
       g_from_scratch<SPLIT, LO>(acc, dn, dl, act, r0, cb);
@@ -621,12 +625,12 @@ __global__ void __launch_bounds__(NTB, 1)
         rows_out(p.usf + (grow0 + r0) * lf + (size_t)last * F + cb, lf,
                  u_of);
       } else if constexpr (ZS) {
-        store_tile_sw<256>(act, wg * 256, u_of);
-        tile_to_global(&maps.us, act, 8, last * F, row0, issuer);
+        store_tile_sw<NWG>(act, wg * NWG, u_of);
+        tile_to_global(&maps.us, act, FA, last * F, row0, issuer);
         tiles_free(issuer);
       }
 #pragma unroll
-      for (int j = 0; j < 32; ++j) {
+      for (int j = 0; j < NWG / 8; ++j) {
         float g4[4];
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
@@ -645,25 +649,25 @@ __global__ void __launch_bounds__(NTB, 1)
       // act'(z_{i-1}) for this step's epilogue: its first batch is in
       // flight while the product runs
       float4 dn[SB];
-      const float4* dl = dsc + (size_t)(i - 1) * 32 * NC;
+      const float4* dl = dsc + (size_t)(i - 1) * (NWG / 8) * NC;
       scratch_batch(dn, dl, 0);
       if (i == skip) {
         // the encoding's share through the skip input: gx = g . Wskip_top
-        // (in acc's first 32 registers, which the next product overwrites)
-        float (&c)[32] = *reinterpret_cast<float(*)[32]>(acc);
+        // (in the first 32 accumulators, which the next product overwrites)
+        float (&c)[32] = *reinterpret_cast<float(*)[32]>(accs);
         consume_s<64, 1, SPLIT, LO>(c, act, F, act, F / KSL, false, r, full,
                                     empty, ring, wg, leader);
         gx_out(c, p.gx, grow0, r0, wg, l, false);
       }
-      consume_s<256, 1, SPLIT, LO>(acc, act, F, act, F / KSL, false, r, full,
+      consume_s<NWG, 1, SPLIT, LO>(acc, act, F, act, F / KSL, false, r, full,
                                    empty, ring, wg, leader);
       tiles_free(issuer);                      // act (g) read by both
       if constexpr (ZS && ZF32 && !HEADS) {
         rows_out(p.usf + (grow0 + r0) * lf + (size_t)(i - 1) * F + cb, lf,
                  [&](int k) { return acc[k]; });
       } else if constexpr (ZS && !HEADS) {
-        store_tile_sw<256>(act, wg * 256, [&](int k) { return acc[k]; });
-        tile_to_global(&maps.us, act, 8, (i - 1) * F, row0, issuer);
+        store_tile_sw<NWG>(act, wg * NWG, [&](int k) { return acc[k]; });
+        tile_to_global(&maps.us, act, FA, (i - 1) * F, row0, issuer);
         tiles_free(issuer);
       }
       // g_{i-1} = act'(z_{i-1}) * u_{i-1}
@@ -673,7 +677,7 @@ __global__ void __launch_bounds__(NTB, 1)
     }
     // layer 0: gx += g_0 . w0
     {
-      float (&c)[32] = *reinterpret_cast<float(*)[32]>(acc);
+      float (&c)[32] = *reinterpret_cast<float(*)[32]>(accs);
       consume_s<64, 1, SPLIT, LO>(c, act, F, act, F / KSL, false, r, full,
                                   empty, ring, wg, leader);
       gx_out(c, p.gx, grow0, r0, wg, l, true);
@@ -690,9 +694,9 @@ bool fwd_maps(const FwdArgs& p, FwdMaps* m) {
   const uint64_t mids = (uint64_t)(p.layers - 2) * F * planes;
   const uint64_t fp = F * planes;
   const uint64_t n = (uint64_t)p.n_tiles * T, lf = (uint64_t)p.layers * F;
-  bool ok = map_2d(&m->w0k, p.w0, fp, EP, EP, 256, KSL, 64) &&
-            map_2d(&m->wmidk, p.wmid, mids, F, F, 256, KSL, 64) &&
-            map_2d(&m->wskipk, p.wskip, fp, EP + F, EP + F, 256, KSL, 64) &&
+  bool ok = map_2d(&m->w0k, p.w0, fp, EP, EP, BOX_N, KSL, 64) &&
+            map_2d(&m->wmidk, p.wmid, mids, F, F, BOX_N, KSL, 64) &&
+            map_2d(&m->wskipk, p.wskip, fp, EP + F, EP + F, BOX_N, KSL, 64) &&
             map_2d(&m->w0m, p.w0, fp, EP, EP, KSL, 32, 64) &&
             map_2d(&m->wmidm, p.wmid, mids, F, F, KSL, 32, 64) &&
             map_2d(&m->wskipm, p.wskip, fp, EP + F, EP + F, KSL, 32, 64);
@@ -702,9 +706,9 @@ bool fwd_maps(const FwdArgs& p, FwdMaps* m) {
   if (!HEADS && p.feats_bf16)
     ok = ok && map_2d(&m->feats, p.feats, n, F, F, T, 64, 128);
   if (HEADS)
-    ok = ok && map_2d(&m->wfk, p.wf, fp, F, F, 256, KSL, 64) &&
-         map_2d(&m->w1rk, p.w1r, HID * planes, F, F, 256, KSL, 64) &&
-         map_2d(&m->w1pk, p.w1p, 3 * HID * planes, F, F, 256, KSL, 64);
+    ok = ok && map_2d(&m->wfk, p.wf, fp, F, F, BOX_N, KSL, 64) &&
+         map_2d(&m->w1rk, p.w1r, HID * planes, F, F, BOX_N, KSL, 64) &&
+         map_2d(&m->w1pk, p.w1p, 3 * HID * planes, F, F, BOX_N, KSL, 64);
   return ok;
 }
 

@@ -55,6 +55,10 @@
 
 #include "trunk_bwd.cuh"
 
+// K4/K5's head block (HID-shaped products, row reductions and partial-sum
+// layout) is built for the flagship's width alone
+static_assert(trunk::F == 512, "K4/K5 take the trunk width 512 only");
+
 namespace trunk {
 
 // shared memory of the chain kernel: the activation tile (b_tz, the A

@@ -32,6 +32,10 @@
 
 #include "trunk_fwd_grad.cuh"
 
+// K4/K5's head block (HID-shaped products, row reductions and partial-sum
+// layout) is built for the flagship's width alone
+static_assert(trunk::F == 512, "K4/K5 take the trunk width 512 only");
+
 using namespace trunk;
 
 // x (n_rows, 128) f32 with n_rows % 64 == 0; trunk weights as

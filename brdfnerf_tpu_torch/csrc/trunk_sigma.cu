@@ -26,11 +26,11 @@
 // Design (sm90_trunk.cuh, as K2's forward): a persistent grid, one 64-point
 // tile at a time per block of three warpgroups.  A producer warp streams,
 // in the order the consumers take them, the tile's x (f32, one bulk copy)
-// and every weight slice (K-major boxes, 32 k x 512 n) through a ring of
-// three 32 KB stages.  Two consumer warpgroups each own 256 of the 512
-// output columns (wgmma m64n256k16, 128 f32 accumulators a thread,
-// setmaxnreg 232) and read A from two 64 x 512 activation tiles, hi and
-// lo, kept K-major with the 128-byte swizzle; the epilogue applies bias and
+// and every weight slice (K-major boxes, 32 k x F n) through a ring of
+// three 32 KB stages.  Two consumer warpgroups each own F / 2 of the F
+// output columns (at 512: wgmma m64n256k16, 128 f32 accumulators a thread,
+// setmaxnreg 232) and read A from two 64 x max(F, 128) activation tiles, hi
+// and lo, kept K-major with the 128-byte swizzle; the epilogue applies bias and
 // activation in registers and writes both tiles with stmatrix.  x has no
 // tile of its own: at layer 0 the consumers split it into the first 128
 // columns of A; at the skip layer they run the h part first (K = 512), then
@@ -57,9 +57,11 @@
 namespace trunk {
 
 constexpr int K1_RING_N = 3;              // 32 KB stages
-constexpr int K1_HI = 0;                  // A_hi: 8 SW128 blocks, 64 KB
-constexpr int K1_LO_TILE = 8 * ACT_BLOCK;  // A_lo, the same
-constexpr int K1_RING = 16 * ACT_BLOCK;
+// A's 64-column SW128 blocks: h (F columns) or x (EP)
+constexpr int K1_AB = (F > EP ? F : EP) / 64;
+constexpr int K1_HI = 0;                  // A_hi: K1_AB blocks, 64 KB at 512
+constexpr int K1_LO_TILE = K1_AB * ACT_BLOCK;  // A_lo, the same
+constexpr int K1_RING = 2 * K1_AB * ACT_BLOCK;
 constexpr int K1_BAR = K1_RING + K1_RING_N * RING_STAGE;
 constexpr int K1_ROWS = K1_BAR + 128;     // the sigma head's [2 wg][64 rows]
 constexpr int K1_SMEM = K1_ROWS + 2 * T * 4;
@@ -84,7 +86,7 @@ struct SigmaArgs {
   int layers, skip;
 };
 
-// The weights as K-major boxes (256 n rows x 32 k, SW64).
+// The weights as K-major boxes (BOX_N n rows x 32 k, SW64).
 struct SigmaMaps {
   CUtensorMap w0k, wmidk, wskipk;
 };
@@ -173,9 +175,9 @@ __global__ void __launch_bounds__(NTB, 1)
   const int wg = tid >> 7, t = tid & 127, w = t >> 5, l = t & 31;
   const bool leader = l == 0;
   const int r0 = w * 16 + (l >> 2);          // rows r0 and r0 + 8
-  const int cb = wg * 256 + 2 * (l & 3);     // column of j = 0, e = 0
+  const int cb = wg * NWG + 2 * (l & 3);     // column of j = 0, e = 0
   K1Ring r = {0, 0};
-  float acc[128];
+  float acc[NWG / 2];
 
   for (int tile = blockIdx.x; tile < p.n_tiles; tile += gridDim.x) {
     const size_t grow0 = (size_t)tile * T;
@@ -184,11 +186,11 @@ __global__ void __launch_bounds__(NTB, 1)
       // (split_mm: A_hi . B + A_lo . B, and with SPLIT + A_hi . B_lo)
       auto split_mm = [&](int k, bool accumulate) {
         if constexpr (SPLIT)
-          consume_s<256, 0, true, K1_LO>(acc, act, k, act, k / KSL,
+          consume_s<NWG, 0, true, K1_LO>(acc, act, k, act, k / KSL,
                                          accumulate, r, full, empty, ring,
                                          wg, leader);
         else
-          consume<256, 0, K1_LO>(acc, act, k, act, k / KSL, accumulate, r,
+          consume<NWG, 0, K1_LO>(acc, act, k, act, k / KSL, accumulate, r,
                                  full, empty, ring, wg, leader);
       };
       if (i == 0) {
@@ -206,7 +208,7 @@ __global__ void __launch_bounds__(NTB, 1)
                                                p.bskip);
       const float w0s = i == 0 ? 30.f : 1.f;
 #pragma unroll
-      for (int j = 0; j < 32; ++j) {
+      for (int j = 0; j < NWG / 8; ++j) {
         const float2 bb = *reinterpret_cast<const float2*>(b + cb + 8 * j);
         float d;
         act_eval(acc[4 * j] + bb.x, w0s, acc[4 * j], d);
@@ -216,10 +218,10 @@ __global__ void __launch_bounds__(NTB, 1)
       }
       if (i == last) break;
       // h into A as hi and lo terms, the next product's operand
-      store_tile_sw<256>(act + K1_HI, wg * 256,
+      store_tile_sw<NWG>(act + K1_HI, wg * NWG,
                          [&](int k) { return acc[k]; });
       if constexpr (K1_LO > 0)
-        store_tile_sw<256>(act + K1_LO_TILE, wg * 256, [&](int k) {
+        store_tile_sw<NWG>(act + K1_LO_TILE, wg * NWG, [&](int k) {
           return acc[k] - bf16_round(acc[k]);
         });
       sm90::fence_async_smem();
@@ -231,7 +233,7 @@ __global__ void __launch_bounds__(NTB, 1)
     const float* __restrict__ wsig = p.wsig;
     float pz[2] = {0.f, 0.f};
 #pragma unroll
-    for (int j = 0; j < 32; ++j) {
+    for (int j = 0; j < NWG / 8; ++j) {
       const float2 ws = *reinterpret_cast<const float2*>(wsig + cb + 8 * j);
 #pragma unroll
       for (int hf = 0; hf < 2; ++hf) {
@@ -262,12 +264,12 @@ __global__ void __launch_bounds__(NTB, 1)
 
 using namespace trunk;
 
-// x (n_rows, 128) f32 with n_rows % 64 == 0; w0 (512, 128), wmid
-// (layers-2, 512, 512), wskip (512, 640) bf16 in (out, in) layout, or with
-// split (the float32 instantiation) each as (2, ...): its hi and lo planes;
-// biases
-// f32; wsig (512,) f32; bsig (1,) f32.  Outputs sigma (n_rows,) f32 and,
-// when feats is not null, feats (n_rows, 512) f32.  One block per SM at
+// x (n_rows, 128) f32 with n_rows % 64 == 0; w0 (F, 128), wmid
+// (layers-2, F, F), wskip (F, 128 + F) bf16 in (out, in) layout (F the
+// library's TRUNK_F), or with split (the float32 instantiation) each as
+// (2, ...): its hi and lo planes; biases f32; wsig (F,) f32; bsig (1,)
+// f32.  Outputs sigma (n_rows,) f32 and, when feats is not null, feats
+// (n_rows, F) f32.  One block per SM at
 // most (a persistent grid).  Returns a cudaError_t.
 extern "C" int trunk_sigma_launch(const float* x, int n_rows, const void* w0,
                                   const float* b0, const void* wmid,
@@ -283,9 +285,9 @@ extern "C" int trunk_sigma_launch(const float* x, int n_rows, const void* w0,
   using sm90host::map_2d;
   const uint64_t planes = split ? 2 : 1;
   const uint64_t mids = (uint64_t)(layers - 2) * F;
-  if (!(map_2d(&maps.w0k, w0, planes * F, EP, EP, 256, KSL, 64) &&
-        map_2d(&maps.wmidk, wmid, planes * mids, F, F, 256, KSL, 64) &&
-        map_2d(&maps.wskipk, wskip, planes * F, EP + F, EP + F, 256, KSL,
+  if (!(map_2d(&maps.w0k, w0, planes * F, EP, EP, BOX_N, KSL, 64) &&
+        map_2d(&maps.wmidk, wmid, planes * mids, F, F, BOX_N, KSL, 64) &&
+        map_2d(&maps.wskipk, wskip, planes * F, EP + F, EP + F, BOX_N, KSL,
                64)))
     return (int)cudaErrorInvalidValue;
   auto kernel = split ? trunk_sigma_kernel<true> : trunk_sigma_kernel<false>;

@@ -269,17 +269,22 @@ def apply_network_with_normals(net: Network, cfg: ModelConfig, xyz,
     architecture fits it (kernel_supports); otherwise from autograd.  With
     BRDFNERF_FUSED_HEADS set (read per call, as the JAX package does) and
     the flagship head set (heads_kernel_supports), the heads run inside the
-    kernel pair too (ops/fused_trunk_heads.py)."""
+    kernel pair too (ops/fused_trunk_heads.py); on the card only at the
+    width K4/K5 are built for (heads_cuda_cover), elsewhere they run in
+    torch on K2 + K3."""
     if fused_trunk:
         from ..ops.fused_mlp import kernel_supports
         fused_trunk = kernel_supports(cfg)
     if fused_trunk:
         if os.environ.get("BRDFNERF_FUSED_HEADS"):
             from ..ops.fused_trunk_heads import (fused_trunk_heads_with_grad,
+                                                 heads_cuda_cover,
                                                  heads_kernel_supports)
-            if heads_kernel_supports(cfg, net, dirs=dirs,
-                                     apply_brdf=apply_brdf,
-                                     apply_theta=apply_theta, nr_lr=nr_lr):
+            if (heads_kernel_supports(cfg, net, dirs=dirs,
+                                      apply_brdf=apply_brdf,
+                                      apply_theta=apply_theta, nr_lr=nr_lr)
+                    and (xyz.device.type != "cuda"
+                         or heads_cuda_cover(cfg))):
                 return fused_trunk_heads_with_grad(net, cfg, xyz)
         from ..ops.fused_trunk_vjp import fused_trunk_with_grad
         sigma, feats, grad_x = fused_trunk_with_grad(net, cfg, xyz)

@@ -6,10 +6,12 @@ compiled by nvcc for sm_90a at first use into `brdfnerf_tpu_torch/_build/`
 flags, and loaded with ctypes.  Nothing is built or loaded at import time:
 the CPU host that runs the tests has no nvcc.
 
-The trunk kernels' activation is a compile-time choice (ACTS): a library
-key is the source's name for the polynomial sine, built exactly as before,
-and "<name>:sin" or "<name>:relu" for the same source built with its
--DTRUNK_ACT flag, so that a run builds the variants it uses and no others.
+The trunk kernels' activation and width are compile-time choices: a
+library key is the source's name for the polynomial sine at width 512,
+built exactly as before, with ":sin" or ":relu" for the same source built
+with its -DTRUNK_ACT flag (ACTS) and ":f64", ":f128" or ":f256" with its
+-DTRUNK_F flag (WIDTHS), so that a run builds the variants it uses and no
+others (library_key).
 """
 
 from __future__ import annotations
@@ -32,6 +34,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # the activations the trunk kernels are built for, and their nvcc flags
 # (csrc/trunk_common.cuh TRUNK_ACT)
 ACTS = {"poly": (), "sin": ("-DTRUNK_ACT=1",), "relu": ("-DTRUNK_ACT=2",)}
+# the trunk widths they are built for (csrc/trunk_common.cuh TRUNK_F); 512
+# is the default, which needs no flag
+WIDTHS = (64, 128, 256, 512)
+DEFAULT_WIDTH = 512
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -48,17 +54,30 @@ def _nvcc() -> str:
     return path
 
 
-def library_key(name: str, act: str = "poly") -> str:
-    """The key of csrc/<name>.cu built for activation `act` (ACTS)."""
+def library_key(name: str, act: str = "poly",
+                feat: int = DEFAULT_WIDTH) -> str:
+    """The key of csrc/<name>.cu built for activation `act` (ACTS) and
+    trunk width `feat` (WIDTHS): "name", "name:sin", "name:f64",
+    "name:relu:f64", ..."""
     if act not in ACTS:
         raise ValueError(f"activation {act!r} is not one of {tuple(ACTS)}")
-    return name if act == "poly" else f"{name}:{act}"
+    if feat not in WIDTHS:
+        raise ValueError(f"width {feat} is not one of {WIDTHS}")
+    parts = [name] + ([act] if act != "poly" else []) + (
+        [f"f{feat}"] if feat != DEFAULT_WIDTH else [])
+    return ":".join(parts)
 
 
 def _source_flags(key: str):
     """(source name, nvcc flags) of a library key."""
-    name, _, act = key.partition(":")
-    return name, NVCC_FLAGS + ACTS[act or "poly"]
+    name, *rest = key.split(":")
+    act = next((r for r in rest if r in ACTS), "poly")
+    feat = next((int(r[1:]) for r in rest if r not in ACTS), DEFAULT_WIDTH)
+    if feat not in WIDTHS or len(rest) != (act != "poly") + (
+            feat != DEFAULT_WIDTH):
+        raise ValueError(f"not a library key: {key!r}")
+    width = (f"-DTRUNK_F={feat}",) if feat != DEFAULT_WIDTH else ()
+    return name, NVCC_FLAGS + ACTS[act] + width
 
 
 def library_path(key: str) -> str:
@@ -115,9 +134,10 @@ class CudaKernel:
     """One C entry point of a csrc/ library, with its launch count.
 
     The entry point launches on the stream it is given and returns
-    cudaGetLastError(); a non-zero code raises.  `act` picks the library
-    built for that activation (ACTS).  `launches` counts the launches that
-    succeeded, of every activation, and nothing else."""
+    cudaGetLastError(); a non-zero code raises.  `act` and `feat` pick the
+    library built for that activation (ACTS) and trunk width (WIDTHS).
+    `launches` counts the launches that succeeded, of every library, and
+    nothing else."""
 
     def __init__(self, library: str, symbol: str,
                  argtypes: Sequence[type]):
@@ -127,17 +147,19 @@ class CudaKernel:
         self.launches = 0
         self._fns: Dict[str, tuple] = {}
 
-    def __call__(self, *args, act: str = "poly") -> None:
-        if act not in self._fns:
-            lib = load(library_key(self.library, act))
+    def __call__(self, *args, act: str = "poly",
+                 feat: int = DEFAULT_WIDTH) -> None:
+        key = library_key(self.library, act, feat)
+        if key not in self._fns:
+            lib = load(key)
             fn = getattr(lib, self.symbol)
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
             err_str = lib.cuda_error_string
             err_str.argtypes = [ctypes.c_int]
             err_str.restype = ctypes.c_char_p
-            self._fns[act] = (fn, err_str)
-        fn, err_str = self._fns[act]
+            self._fns[key] = (fn, err_str)
+        fn, err_str = self._fns[key]
         err = fn(*args)
         if err != 0:
             raise RuntimeError(f"{self.symbol}: CUDA error {err} "

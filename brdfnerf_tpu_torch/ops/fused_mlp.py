@@ -16,8 +16,8 @@ bf16 terms (`split_bf16`) and summing both products in f32;
 At compute_dtype float32 the weights are f32 too: the packed weights then
 carry hi and lo bf16 planes for the CUDA kernels (`split_planes`), and each
 product runs as three (`split3_mm`: A_hi B_hi + A_lo B_hi + A_hi B_lo).
-The activation is built into each kernel library (`act_of`,
-ops/cuda_build.ACTS).
+The activation and the trunk width are built into each kernel library
+(`act_of`, ops/cuda_build.ACTS; `cfg.feat`, one of CUDA_WIDTHS).
 
 The skip layer's concat([enc, h]) @ W is split as enc @ W_top + h @ W_bot;
 the packed `w_skip` holds [W_top (lane-padded) | W_bot] in (out, in) layout,
@@ -32,11 +32,13 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..config import ModelConfig
-from .cuda_build import CudaKernel
+from .cuda_build import WIDTHS, CudaKernel
 
 TILE_N = 64        # points per CUDA block
 LANE = 128         # encoding width the kernels take
-FEAT = 512         # trunk width the CUDA kernels are built for
+FEAT = 512         # the flagship's trunk width (K4/K5's only one)
+# the trunk widths K1-K3 are built for (ops/cuda_build.library_key)
+CUDA_WIDTHS = WIDTHS
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -63,12 +65,12 @@ def kernel_supports(cfg: ModelConfig) -> bool:
 
 
 def cuda_kernels_cover(cfg: ModelConfig) -> bool:
-    """True where the CUDA kernels take this model: the architecture of
-    kernel_supports (any of the three activations, act_of), a compute
-    dtype of CUDA_DTYPES, width FEAT and an encoding of at most LANE
-    lanes."""
+    """True where the CUDA kernels K1-K3 take this model: the architecture
+    of kernel_supports (any of the three activations, act_of), a compute
+    dtype of CUDA_DTYPES, a width of CUDA_WIDTHS and an encoding of at
+    most LANE lanes."""
     return (kernel_supports(cfg) and cfg.compute_dtype in CUDA_DTYPES
-            and cfg.feat == FEAT and cfg.xyz_in_dim <= LANE)
+            and cfg.feat in CUDA_WIDTHS and cfg.xyz_in_dim <= LANE)
 
 
 def act_of(cfg: ModelConfig) -> str:
@@ -247,15 +249,15 @@ def check_kernel_inputs(cfg: ModelConfig, packed: Dict, x: torch.Tensor):
     f32 with their split_planes beside them."""
     if not cuda_kernels_cover(cfg):
         raise ValueError(
-            f"the CUDA trunk kernels take a trunk of width {FEAT} with one "
-            f"skip layer inside it (siren with the polynomial or the exact "
-            f"sine, or ReLU), a compute_dtype of {CUDA_DTYPES} and an "
-            f"encoding of at most {LANE} lanes (got feat={cfg.feat}, "
+            f"the CUDA trunk kernels take a trunk of width {CUDA_WIDTHS} "
+            f"with one skip layer inside it (siren with the polynomial or "
+            f"the exact sine, or ReLU), a compute_dtype of {CUDA_DTYPES} and "
+            f"an encoding of at most {LANE} lanes (got feat={cfg.feat}, "
             f"layers={cfg.layers}, skips={tuple(cfg.skips)}, "
             f"compute_dtype={cfg.compute_dtype!r}, encoding "
             f"{cfg.xyz_in_dim}); this model runs with the fused kernels off")
-    if packed["w0"].shape != (FEAT, LANE):
-        raise ValueError(f"packed w0 must be ({FEAT}, {LANE}), got "
+    if packed["w0"].shape != (cfg.feat, LANE):
+        raise ValueError(f"packed w0 must be ({cfg.feat}, {LANE}), got "
                          f"{tuple(packed['w0'].shape)}")
     if not (x.is_cuda and x.dtype == torch.float32 and x.is_contiguous()
             and x.dim() == 2 and x.shape[1] == LANE
@@ -293,7 +295,7 @@ def _trunk_sigma_cuda(packed: Dict, cfg: ModelConfig, x: torch.Tensor,
     check_kernel_inputs(cfg, packed, x)
     n = x.shape[0]
     sigma = torch.empty(n, dtype=torch.float32, device=x.device)
-    feats = (torch.empty(n, FEAT, dtype=torch.float32, device=x.device)
+    feats = (torch.empty(n, cfg.feat, dtype=torch.float32, device=x.device)
              if want_feats else None)
     w0, w_mid, w_skip = trunk_weight_ptrs(cfg, packed)
     TRUNK_SIGMA(
@@ -302,7 +304,8 @@ def _trunk_sigma_cuda(packed: Dict, cfg: ModelConfig, x: torch.Tensor,
         packed["w_sigma"].data_ptr(), packed["b_sigma"].data_ptr(),
         sigma.data_ptr(), None if feats is None else feats.data_ptr(),
         cfg.layers, cfg.skips[0], int(split_operands(cfg)),
-        torch.cuda.current_stream(x.device).cuda_stream, act=act_of(cfg))
+        torch.cuda.current_stream(x.device).cuda_stream, act=act_of(cfg),
+        feat=cfg.feat)
     return sigma, feats
 
 

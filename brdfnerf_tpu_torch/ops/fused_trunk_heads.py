@@ -111,6 +111,15 @@ def heads_kernel_supports(cfg: ModelConfig, net, dirs=None, t_emb=None,
         return False
 
 
+def heads_cuda_cover(cfg: ModelConfig) -> bool:
+    """True where K4/K5 are built for the model's trunk width: FEAT
+    alone (csrc/trunk_heads_*.cu; K1-K3 take every width of
+    fused_mlp.CUDA_WIDTHS).  On the card at another width the heads run in
+    torch on K2 + K3 (models.network.apply_network_with_normals); on the
+    CPU the heads' twins take every width."""
+    return cfg.feat == FEAT
+
+
 def pack_head_weights(net, cfg: ModelConfig, dtype: torch.dtype,
                       planes: Optional[bool] = None
                       ) -> Dict[str, torch.Tensor]:
@@ -303,7 +312,12 @@ def check_head_weights(cfg: ModelConfig, hw: Dict, x: torch.Tensor):
     """What K4 and K5 take of the packed heads, the operands of the
     configuration's dtype: bf16 weights at a bf16 compute dtype; at float32
     f32 weights with the split_planes of wf, w1r and w1p beside them
-    (HEAD_PLANE_KEYS).  Anything else raises."""
+    (HEAD_PLANE_KEYS), at the trunk width FEAT (heads_cuda_cover).
+    Anything else raises."""
+    if not heads_cuda_cover(cfg):
+        raise ValueError(f"K4/K5 take the trunk width {FEAT} alone (got "
+                         f"feat={cfg.feat}); at this width the heads run in "
+                         "torch on K2 + K3")
     f, h = FEAT, HID
     shapes = {"wf": (f, f), "bf": (f,), "w1r": (h, f), "b1r": (h,),
               "w2r": (LANE, h), "b2r": (LANE,), "w1p": (3 * h, f),

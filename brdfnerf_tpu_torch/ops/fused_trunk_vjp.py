@@ -68,8 +68,10 @@ TRUNK_BWD = CudaKernel(
 SPLIT3 = "split3"
 
 # The weight-gradient kernel of K3 and K5 (csrc/trunk_bwd.cuh): output
-# tiles of WGRAD_M x WGRAD_N, the K axis (points) in chunks of WGRAD_CHUNK,
-# cut into contiguous slices of whole chunks, one block per (slice, tile).
+# tiles of WGRAD_M x wgrad_n(F) (WGRAD_N at the widths from 256 up), the K
+# axis (points) in chunks of WGRAD_CHUNK, cut into contiguous slices of
+# whole chunks, one block per (slice, tile); an output of fewer than
+# WGRAD_M rows (a width-64 layer's) takes one tile, its second half masked.
 WGRAD_M, WGRAD_N, WGRAD_CHUNK = 128, 256, 64
 # a block's fixed cost in chunks' worth of time, fitted to the split counts
 # timed on the H100 (tools/bwd_variants.py, PERF.md): with it the model
@@ -84,14 +86,20 @@ WGRAD_TAIL = 48
 WGRAD_F32_CHUNKS = 128
 
 
-def wgrad_tiles(layers: int, heads: bool = False):
-    """(trunk tiles, head tiles) of the weight-gradient products: dW_0 and
-    the skip layer's top part (LANE x F each), the other layers' F x F
-    (the skip layer's bottom part among them); with the heads dW_f (F x F)
-    and [dW_1r | dW_1p] (F x 4 HID)."""
-    per = lambda m, n: (m // WGRAD_M) * (n // WGRAD_N)
-    trunk = 2 * per(LANE, FEAT) + (layers - 1) * per(FEAT, FEAT)
-    return trunk, (per(FEAT, FEAT) + per(FEAT, 2 * FEAT) if heads else 0)
+def wgrad_n(feat: int = FEAT) -> int:
+    """The output tiles' columns at trunk width `feat`."""
+    return min(feat, WGRAD_N)
+
+
+def wgrad_tiles(layers: int, heads: bool = False, feat: int = FEAT):
+    """(trunk tiles, head tiles) of the weight-gradient products at trunk
+    width `feat`: dW_0 and the skip layer's top part (LANE x F each), the
+    other layers' F x F (the skip layer's bottom part among them); with the
+    heads dW_f (F x F) and [dW_1r | dW_1p] (F x 4 HID)."""
+    wn = wgrad_n(feat)
+    per = lambda m, n: -(-m // WGRAD_M) * (n // wn)
+    trunk = 2 * per(LANE, feat) + (layers - 1) * per(feat, feat)
+    return trunk, (per(feat, feat) + per(feat, 2 * feat) if heads else 0)
 
 
 def wgrad_slices(chunks: int, splits: int):
@@ -102,18 +110,18 @@ def wgrad_slices(chunks: int, splits: int):
 
 @functools.lru_cache(maxsize=None)
 def wgrad_splits(n_rows: int, layers: int, heads: bool = False,
-                 sms: int = 132, split: bool = False):
+                 sms: int = 132, split: bool = False, feat: int = FEAT):
     """(splits of the trunk's K = 2 n, splits of the heads' K = n; 0
     without heads; with split each K three times as long, the three
     products of the hi and lo planes) that minimise the weight-gradient
     kernel's time in a model of whole waves: ceil(blocks / sms) waves, each
     as long as the longest slice plus WGRAD_TAIL.  Ties go to fewer blocks.
     With split, no slice of the trunk or the heads holds more than
-    WGRAD_F32_CHUNKS chunks."""
+    WGRAD_F32_CHUNKS chunks.  `feat`: the trunk width (wgrad_tiles)."""
     k = 3 if split else 1
     ct = k * 2 * n_rows // WGRAD_CHUNK
     ch = k * n_rows // WGRAD_CHUNK
-    tt, th = wgrad_tiles(layers, heads)
+    tt, th = wgrad_tiles(layers, heads, feat)
     least = -(-ct // WGRAD_F32_CHUNKS) if split else 1
     least_h = -(-ch // WGRAD_F32_CHUNKS) if split else 1
     best = None
@@ -192,7 +200,7 @@ def _saved_dtype(cfg: ModelConfig) -> torch.dtype:
 def saved_spec(cfg: ModelConfig, n: int):
     """(shape, dtype) of the zs / us the CUDA wrappers allocate (K2, K4)
     and take (K3, K5) for n rows: _saved_dtype's, as the twins save them."""
-    return (n, cfg.layers * FEAT), _saved_dtype(cfg)
+    return (n, cfg.layers * cfg.feat), _saved_dtype(cfg)
 
 
 def _split_skip(packed: Dict):
@@ -394,14 +402,14 @@ def _trunk_fwd_grad_cuda(packed: Dict, cfg: ModelConfig, x: torch.Tensor,
     n = x.shape[0]
     dev = x.device
     sigma = torch.empty(n, dtype=torch.float32, device=dev)
-    feats = torch.empty(n, FEAT, device=dev, dtype=_saved_dtype(cfg))
+    feats = torch.empty(n, cfg.feat, device=dev, dtype=_saved_dtype(cfg))
     gx = torch.empty(n, LANE, dtype=torch.float32, device=dev)
     zs = us = None
     if want_zs:
         shape, dt = saved_spec(cfg, n)
         zs = torch.empty(shape, dtype=dt, device=dev)
         us = torch.empty_like(zs)
-    n_blocks, scratch = fwd_scratch(n, cfg.layers, False, dev)
+    n_blocks, scratch = fwd_scratch(n, cfg.layers, False, dev, cfg.feat)
     w0, w_mid, w_skip = trunk_weight_ptrs(cfg, packed)
     TRUNK_FWD_GRAD(
         x.data_ptr(), n, n_blocks, w0, packed["b0"].data_ptr(), w_mid,
@@ -413,29 +421,32 @@ def _trunk_fwd_grad_cuda(packed: Dict, cfg: ModelConfig, x: torch.Tensor,
         None if us is None else us.data_ptr(),
         int(zs is not None and zs.dtype == torch.float32),
         int(split_operands(cfg)), cfg.layers, cfg.skips[0],
-        torch.cuda.current_stream(dev).cuda_stream, act=act_of(cfg))
+        torch.cuda.current_stream(dev).cuda_stream, act=act_of(cfg),
+        feat=cfg.feat)
     if want_zs:
         return sigma, feats, gx, zs, us
     return sigma, feats, gx
 
 
-def fwd_plan(n_rows: int, layers: int, heads: bool, sms: int = 132):
+def fwd_plan(n_rows: int, layers: int, heads: bool, sms: int = 132,
+             feat: int = FEAT):
     """(blocks, f32 scratch elements) of the forward kernel K2 (heads=False)
-    or K4 at n_rows points: a persistent grid of one block per SM, at most
-    one per 64-point tile; each block keeps act'(z) of every layer its
-    reverse chain reads (K2 layers 0..L-2, K4 0..L-1) for its current tile,
-    TILE_N x FEAT f32 a layer, in the accumulator layout
-    (csrc/trunk_fwd_grad.cuh)."""
+    or K4 at n_rows points and trunk width `feat`: a persistent grid of one
+    block per SM, at most one per 64-point tile; each block keeps act'(z)
+    of every layer its reverse chain reads (K2 layers 0..L-2, K4 0..L-1)
+    for its current tile, TILE_N x feat f32 a layer, in the accumulator
+    layout (csrc/trunk_fwd_grad.cuh)."""
     n_blocks = min(n_rows // TILE_N, sms)
     slots = layers if heads else layers - 1
-    return n_blocks, n_blocks * slots * TILE_N * FEAT
+    return n_blocks, n_blocks * slots * TILE_N * feat
 
 
-def fwd_scratch(n_rows: int, layers: int, heads: bool, dev):
+def fwd_scratch(n_rows: int, layers: int, heads: bool, dev,
+                feat: int = FEAT):
     """(blocks, scratch tensor) of fwd_plan on `dev`."""
     n_blocks, elems = fwd_plan(
         n_rows, layers, heads,
-        torch.cuda.get_device_properties(dev).multi_processor_count)
+        torch.cuda.get_device_properties(dev).multi_processor_count, feat)
     return n_blocks, torch.empty(elems, dtype=torch.float32, device=dev)
 
 
@@ -445,7 +456,7 @@ def check_bwd_inputs(cfg: ModelConfig, packed: Dict, x, cs, cf, cg, zs, us):
     n = x.shape[0]
     zshape, zdt = saved_spec(cfg, n)
     want = {"cs": (cs, (n,), (torch.float32,)),
-            "cf": (cf, (n, FEAT), (torch.bfloat16, torch.float32)),
+            "cf": (cf, (n, cfg.feat), (torch.bfloat16, torch.float32)),
             "cg": (cg, (n, LANE), (torch.float32,)),
             "zs": (zs, zshape, (zdt,)),
             "us": (us, zshape, (zdt,))}
@@ -457,14 +468,15 @@ def check_bwd_inputs(cfg: ModelConfig, packed: Dict, x, cs, cf, cg, zs, us):
                              f"{tuple(v.shape)} on {v.device}")
 
 
-def wgrad_scratch(n: int, layers: int, heads: bool, dev, split=False):
+def wgrad_scratch(n: int, layers: int, heads: bool, dev, split=False,
+                  feat: int = FEAT):
     """(splits of the trunk, of the heads, the partial tiles' scratch) of
-    the weight-gradient kernel for n rows on `dev` (split: the float32
-    instantiation's K axis, three times as long)."""
+    the weight-gradient kernel for n rows at trunk width `feat` on `dev`
+    (split: the float32 instantiation's K axis, three times as long)."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    st, sh = wgrad_splits(n, layers, heads, sms, split)
-    tt, th = wgrad_tiles(layers, heads)
-    wpart = torch.empty(tt * st + th * sh, WGRAD_M * WGRAD_N,
+    st, sh = wgrad_splits(n, layers, heads, sms, split, feat)
+    tt, th = wgrad_tiles(layers, heads, feat)
+    wpart = torch.empty(tt * st + th * sh, WGRAD_M * wgrad_n(feat),
                         dtype=torch.float32, device=dev)
     return st, sh, wpart
 
@@ -475,7 +487,7 @@ def _trunk_bwd_cuda(packed: Dict, cfg: ModelConfig, x, cs, cf, cg, zs, us,
     receives the kernel's scratch (for checks of its intermediates)."""
     check_bwd_inputs(cfg, packed, x, cs, cf, cg, zs, us)
     n, dev = x.shape[0], x.device
-    layers, F = cfg.layers, FEAT
+    layers, F = cfg.layers, cfg.feat
 
     def f32(*shape):
         return torch.empty(*shape, dtype=torch.float32, device=dev)
@@ -497,7 +509,7 @@ def _trunk_bwd_cuda(packed: Dict, cfg: ModelConfig, x, cs, cf, cg, zs, us,
                       bf(layers, pl, n, F))
     part, part_bs = f32(n_tiles, layers + 1, F), f32(n_tiles)
     tzs = f32(n_blocks, layers, TILE_N * F)
-    splits, _, wpart = wgrad_scratch(n, layers, False, dev, split)
+    splits, _, wpart = wgrad_scratch(n, layers, False, dev, split, F)
     w0, w_mid, w_skip = trunk_weight_ptrs(cfg, packed)
     outs = (f32(LANE, F), f32(F), f32(layers - 2, F, F), f32(layers - 2, F),
             f32(LANE, F), f32(F, F), f32(F), f32(F), f32(1))
@@ -510,7 +522,8 @@ def _trunk_bwd_cuda(packed: Dict, cfg: ModelConfig, x, cs, cf, cg, zs, us,
         part_bs.data_ptr(), tzs.data_ptr(), wpart.data_ptr(), splits,
         wpart.shape[0], *(o.data_ptr() for o in outs),
         int(zs.dtype == torch.float32), int(split), layers, cfg.skips[0],
-        torch.cuda.current_stream(dev).cuda_stream, act=act_of(cfg))
+        torch.cuda.current_stream(dev).cuda_stream, act=act_of(cfg),
+        feat=F)
     if scratch_out is not None:
         scratch_out.update(xt=xt, hth=hth, azbtz=azbtz, part=part,
                            pbs=part_bs)

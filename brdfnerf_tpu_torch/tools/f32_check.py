@@ -113,18 +113,28 @@ def same_twice(label, first, second):
 
 
 def hold_f32(label, names, got, bf16, ref, report, closer=CLOSER,
-             split=None):
+             split=None, sum_scale=None):
     """Every output of a float32 kernel within F32_BOUND of its exact
     twin (and of its split twin, where given), and `closer` times closer
     than the bfloat16_all kernel's; returns the largest relative L2 and
-    the smallest ratio."""
+    the smallest ratio.  With `sum_scale` (dbsig_scale) the sigma head's
+    bias gradient is measured against its terms' L2 norm (dbsig_error),
+    as the bfloat16 contract measures it, its relative L2 printed beside."""
     worst, ratio = 0.0, float("inf")
     split = [None] * len(names) if split is None else split
     for name, g_, b_, r_, s_ in zip(names, got, bf16, ref, split):
         assert torch.isfinite(g_.float()).all(), (label, name)
         e, eb = rel_l2(g_, r_), rel_l2(b_, r_)
         es = None if s_ is None else rel_l2(g_, s_)
-        print(f"  {label} {name}: relative L2 {e:.3e} (bfloat16_all kernel "
+        terms = name == "dbsig" and sum_scale
+        if terms:
+            print(f"  {label} dbsig: relative to the sum {e:.3e} "
+                  f"(bfloat16_all kernel {eb:.3e})", flush=True)
+            e, eb = (dbsig_error(g_, r_, sum_scale),
+                     dbsig_error(b_, r_, sum_scale))
+        print(f"  {label} {name}: "
+              + ("of its terms' L2 norm" if terms else "relative L2")
+              + f" {e:.3e} (bfloat16_all kernel "
               f"{eb:.3e}, {eb / max(e, 1e-30):.0f}x)"
               + ("" if es is None else f"; against the split twin "
                  f"{es:.3e}"), flush=True)

@@ -1,7 +1,7 @@
 """Time the trunk kernels at the main paths' shapes, and compare two
 checkouts' kernels on one card.
 
-    python3 -m brdfnerf_tpu_torch.tools.kernel_times [--reps N]
+    python3 -m brdfnerf_tpu_torch.tools.kernel_times [--reps N] [--feat F]
     python3 -m brdfnerf_tpu_torch.tools.kernel_times --ab OTHER [--rounds R]
 
 The first form times, on the flagship model (8 x 512 trunk, skip 4, the
@@ -14,7 +14,8 @@ K3, K4 saving zs and K5 at bfloat16 (f32 zs/us).  Each is the mean of
 --reps launches (default 10) after one, by CUDA events, and the last line
 is a JSON object {instantiation: ms}.  It uses nothing newer than those
 wrappers, so that the file copied into an older checkout times that
-checkout's kernels.
+checkout's kernels.  --feat 64, 128 or 256 times K1-K3 at that trunk
+width instead (the same shapes; K4/K5 take 512 alone).
 
 --ab runs the first form from this checkout and from OTHER_ROOT (a copy of
 this file placed in its tools/) in turns, OTHER, this, this, OTHER,
@@ -47,8 +48,9 @@ def _time(fn, reps):
     return e0.elapsed_time(e1) / reps
 
 
-def measure(reps: int = 10):
-    """{instantiation: ms} of this checkout's kernels (module docstring)."""
+def measure(reps: int = 10, feat: int = 512):
+    """{instantiation: ms} of this checkout's kernels at trunk width `feat`
+    (module docstring)."""
     from ..config import ModelConfig
     from ..models.network import init_network
     from ..ops import fused_mlp as k1
@@ -59,7 +61,7 @@ def measure(reps: int = 10):
     cfg16 = ModelConfig(variant="spsbrdf-nerf", siren=True, mapping=True,
                         compute_dtype="bfloat16_all", normal="analystic",
                         sun_v="analystic", func_m=True, func_f=True,
-                        func_h=1, dim_rpv=1)
+                        func_h=1, dim_rpv=1, feat=feat)
     gen = torch.Generator(device="cuda").manual_seed(0)
     net = init_network(cfg16, gen, device="cuda")
 
@@ -76,7 +78,7 @@ def measure(reps: int = 10):
         p = k1.pack_trunk_weights(net, cfg, wd)
         zs, us = k2._trunk_fwd_grad_cuda(p, cfg, x3, True)[3:]
         cs = torch.randn(n3, device="cuda", generator=gen)
-        cf = torch.randn(n3, 512, device="cuda", generator=gen) * 0.1
+        cf = torch.randn(n3, feat, device="cuda", generator=gen) * 0.1
         cf = cf.to(zs.dtype)
         cg = torch.zeros(n3, 128, device="cuda")
         cg[:, :60] = torch.randn(n3, 60, device="cuda", generator=gen)
@@ -91,7 +93,7 @@ def measure(reps: int = 10):
             lambda: k2._trunk_fwd_grad_cuda(p, cfg, x3, True), reps)
         out["K3" + tag] = _time(
             lambda: k2._trunk_bwd_cuda(p, cfg, x3, cs, cf, cg, zs, us), reps)
-        if dtype == "float32":
+        if dtype == "float32" or feat != 512:
             continue
         hw = k4.pack_head_weights(net, cfg, torch.bfloat16)
         zs4 = k4._trunk_heads_fwd_cuda(p, hw, cfg, x3, True)[2]
@@ -152,7 +154,8 @@ def main(argv=None) -> int:
                   if "--rounds" in argv else 1)
         return ab(argv[argv.index("--ab") + 1], rounds)
     reps = int(argv[argv.index("--reps") + 1]) if "--reps" in argv else 10
-    print(json.dumps(measure(reps)))
+    feat = int(argv[argv.index("--feat") + 1]) if "--feat" in argv else 512
+    print(json.dumps(measure(reps, feat)))
     return 0
 
 

@@ -12,7 +12,8 @@ the one before it took):
   1. device   - require CUDA; print the card's name and power limit
   2. build    - nvcc for sm_90a, one process per kernel library (five
                 sources, each for the polynomial sine, the exact sine and
-                ReLU), all in parallel; each library's nvcc seconds, and
+                ReLU; K1-K3 also at the widths 64, 128 and 256, and at 64
+                for the exact sine and ReLU), all in parallel; each library's nvcc seconds, and
                 registers, spills and stack frames of every kernel function
                 (ptxas -v)
   3. kernels  - K1 (trunk + sigma, split f32 products) at 327,680 and
@@ -166,6 +167,25 @@ After phase 9:
                 losses, checkpoints with the family's heads; then the eval
                 CLI on stage 2 (K1 52 / K2 26), its PSNR, SSIM and DSM MAE
                 finite and printed
+The trunk widths (before phase 6):
+ 13. widths - K1-K3 built for the widths 64, 128 and 256
+                (tools/width_check.py: at 192 and 8,448 points, every dtype,
+                8 layers with the skip at 4, and 4 with it at 2 at 64, the
+                exact sine and ReLU at 64; each twice bit-identical and
+                held to its twin at the bounds of the width-512 rows); per
+                width every instantiation held so again at its main
+                shape, where each block runs several tiles, and timed
+                there (a row each in the kernels line), the unfused
+                stage-2 step at bfloat16_all and float32 first, a request
+                (K1 2 / K2 1 a chunk) against the CPU twins, the fused
+                step (K1 2 / K2 1 / K3 1; WIDTH_STEPS timed, a falling
+                loss; bfloat16 WIDTH_SHORT) and a step-check point at
+                bfloat16_all; at 64 a step with BRDFNERF_FUSED_HEADS set
+                (K4/K5 launch 0)
+After phase 12:
+ 14. workflow, width 64 - stage 1 and stage 2 through the train CLI at
+                --fc_feat 64 (the [kernels] line names the width), the eval
+                CLI on stage 2 (K1 52 / K2 26)
 Then one JSON line of every ported kernel instantiation (each launched on
 a main path: the run fails if one was not), the card's line, and the last
 line {"ok": true, "device": {...}}.
@@ -184,7 +204,6 @@ import numpy as np
 import torch
 
 # H100 dense peaks (NVIDIA data sheets): bf16 tensor FLOP/s, HBM bytes/s
-PEAKS = {"sxm": (989e12, 3.35e12), "pcie": (756e12, 2.0e12)}
 N_SAMPLES = 64          # stratified and guided samples per ray
 CHUNK = 5120            # rays per render chunk (opts --chunk default)
 REQ_SIDE = 128          # a request is a 128 x 128 image
@@ -281,19 +300,6 @@ def dbsig_held(label, got, ref, scale):
           flush=True)
     assert e <= DBSIG_BOUND, (label, e)
     return e
-
-
-def trunk_macs(cfg, ein):
-    """Multiply-adds per point of the trunk + sigma head, at the real
-    (unpadded) encoding width."""
-    f, layers = cfg.feat, cfg.layers
-    return ein * f + (layers - 2) * f * f + (ein + f) * f + f
-
-
-def bound_ms(flops, nbytes, peaks):
-    t_ops, t_bytes = flops / peaks[0], nbytes / peaks[1]
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
-                                       else "bytes")
 
 
 # K2 and K4 are instantiations <ZS, HEADS, ZF32, SPLIT> of one kernel
@@ -433,6 +439,7 @@ def heads_kernels(rows, mcfg, net, packed, wbytes, macs, k3_flops, k3_bytes,
     from brdfnerf_tpu_torch.ops import fused_trunk_heads as k4
     from brdfnerf_tpu_torch.ops import fused_trunk_vjp as k2
     from brdfnerf_tpu_torch.tools import f32_check as fc
+    from brdfnerf_tpu_torch.tools.width_check import bound_ms
     feat, hid, lane, ein = mcfg.feat, mcfg.feat // 2, k1.LANE, mcfg.xyz_in_dim
     hw = k4.pack_head_weights(net, mcfg, torch.bfloat16)
     hbytes = sum(v.numel() * v.element_size() for v in hw.values())
@@ -497,7 +504,8 @@ def heads_kernels(rows, mcfg, net, packed, wbytes, macs, k3_flops, k3_bytes,
                                                             enc), 1),
         "library_ms": timed(lambda: (chain_k2(encb), chain_heads(hb)), 5)}
     rows["K4"]["_flops"] = k4_pt * n2
-    rows["K4"]["_bytes"] = n2 * (lane * 4 + 8 * 4 + lane * 4)
+    # x and gx at the encoding's ein lanes (width_check.trunk_work)
+    rows["K4"]["_bytes"] = n2 * (ein * 4 + 8 * 4 + ein * 4)
     rows["K4"]["bound_ms"], rows["K4"]["bound_by"] = bound_ms(
         rows["K4"]["_flops"], rows["K4"]["_bytes"] + wbytes + hbytes, peaks)
     del enc, encb, hb
@@ -530,7 +538,7 @@ def heads_kernels(rows, mcfg, net, packed, wbytes, macs, k3_flops, k3_bytes,
         "plain_ms": timed(lambda: k4._trunk_heads_fwd_plain(
             packed, hw, mcfg, enc, want_zs=True), 1)}
     rows["K4zs"]["_flops"] = k4_pt * n3
-    rows["K4zs"]["_bytes"] = (n3 * (lane * 4 + 8 * 4 + lane * 4
+    rows["K4zs"]["_bytes"] = (n3 * (ein * 4 + 8 * 4 + ein * 4
                                     + mcfg.layers * feat * 2)
                               + wbytes + hbytes)
     rows["K4zs"]["bound_ms"], rows["K4zs"]["bound_by"] = bound_ms(
@@ -733,61 +741,7 @@ def backward_small(n, mcfg, net, packed, points, gen, k5_draws=5):
               f"relative L2 against its twin {worst:.3e}", flush=True)
 
 
-def matmul_chains(packed, mcfg, lane):
-    """The trunk's products as torch.matmul calls in the packed weights'
-    dtype, nothing else (the kernels' yardsticks): chain_fwd(x) -> (h,
-    zsig), chain_k2(x) -> gx (chain_fwd, then the reverse chain), and
-    chain_k3(cg, azb, hth, xtb): the tangent chain, the a chain and each
-    layer's dW as [h; th]^T [a_z; b_tz] over both halves of K (azb, hth:
-    (2 n, F); xtb: [x; cg])."""
-    mids = list(packed["w_mid"])
-    w0, wskip = packed["w0"], packed["w_skip"]
-    wsig = packed["w_sigma"].to(w0.dtype)[:, None]
-
-    def chain_fwd(x):
-        h = x @ w0.t()
-        m = 0
-        for i in range(1, mcfg.layers):
-            if i == mcfg.skips[0]:
-                h = torch.cat([x, h], 1) @ wskip.t()
-            else:
-                h = h @ mids[m].t()
-                m += 1
-        return h, h @ wsig
-
-    def chain_k2(x):
-        g, _ = chain_fwd(x)
-        m = len(mids) - 1
-        gx = None
-        for i in range(mcfg.layers - 1, 0, -1):
-            if i == mcfg.skips[0]:
-                gx = g @ wskip[:, :lane]
-                g = g @ wskip[:, lane:]
-            else:
-                g = g @ mids[m]
-                m -= 1
-        return gx + g @ w0
-
-    def chain_k3(cg, azb, hth, xtb):
-        chain_fwd(cg)                               # the tangent chain
-        a = azb[:cg.shape[0]]
-        m = len(mids) - 1
-        for i in range(mcfg.layers - 1, 0, -1):     # the a chain
-            if i == mcfg.skips[0]:
-                a = a @ wskip[:, lane:]
-            else:
-                a = a @ mids[m]
-                m -= 1
-        for i in range(mcfg.layers):                # the weight grads
-            if i in (0, mcfg.skips[0]):
-                xtb.t() @ azb
-            if i > 0:
-                hth.t() @ azb
-
-    return chain_fwd, chain_k2, chain_k3
-
-
-def f32_kernels(rows, mcfg, net, points, peaks, gen, macs):
+def f32_kernels(rows, mcfg, net, points, peaks, gen):
     """Phase 3c: the float32 instantiations (every product as three on the
     bf16 hi and lo terms of its f32 operands) of K1 at 327,680 and 65,536
     points, K2 at 655,360, K2 saving zs/us and K3 at 131,072, each launched
@@ -803,6 +757,9 @@ def f32_kernels(rows, mcfg, net, points, peaks, gen, macs):
     from brdfnerf_tpu_torch.ops import fused_trunk_heads as k4
     from brdfnerf_tpu_torch.ops import fused_trunk_vjp as k2
     from brdfnerf_tpu_torch.tools import f32_check as fc
+    from brdfnerf_tpu_torch.tools.width_check import (bound_ms,
+                                                      matmul_chains,
+                                                      trunk_work)
     c32 = dc.replace(mcfg, compute_dtype="float32")
     cmix = dc.replace(mcfg, compute_dtype="bfloat16")
     p32 = k1.pack_trunk_weights(net, c32, torch.float32)
@@ -813,6 +770,7 @@ def f32_kernels(rows, mcfg, net, points, peaks, gen, macs):
     wbytes = sum(v.numel() * v.element_size() for k, v in p32.items()
                  if k not in k1.PLANE_KEYS)
     feat, lane, layers = mcfg.feat, k1.LANE, mcfg.layers
+    ein = mcfg.xyz_in_dim
     chain_fwd, chain_k2, chain_k3 = matmul_chains(p32, mcfg, lane)
     report = {}
 
@@ -853,14 +811,13 @@ def f32_kernels(rows, mcfg, net, points, peaks, gen, macs):
                 max_err(got[:1], ref[:1]),
                 timed(lambda: k1._trunk_sigma_cuda(p32, c32, enc, False), 10),
                 timed(lambda: k1._trunk_sigma_plain(p32, c32, enc, False), 2),
-                timed(lambda: chain_fwd(enc), 5), 2.0 * macs * n,
-                n * (lane * 4 + 4) + wbytes, label)
+                timed(lambda: chain_fwd(enc), 5),
+                *trunk_work("K1", c32, n, wbytes), label)
         del enc, got, b16, ref
 
     # K2: the serving chunk's main pass
     src2, rep2 = ("brdfnerf_tpu_torch/csrc/trunk_fwd_grad.cu",
                   "brdfnerf_tpu/ops/pallas_trunk_vjp.py:205")
-    k2_pt = 2.0 * (2 * macs - feat)
     n2 = CHUNK * 2 * N_SAMPLES
     enc = points(n2)
     got = k2._trunk_fwd_grad_cuda(p32, c32, enc)
@@ -875,8 +832,7 @@ def f32_kernels(rows, mcfg, net, points, peaks, gen, macs):
     row("K2f32", "trunk_fwd_grad (float32)", src2, rep2, err,
         timed(lambda: k2._trunk_fwd_grad_cuda(p32, c32, enc), 5),
         timed(lambda: k2._trunk_fwd_grad_plain(p32, c32, enc), 1),
-        timed(lambda: chain_k2(enc), 3), k2_pt * n2,
-        n2 * (lane * 4 + 4 + feat * 4 + lane * 4) + wbytes,
+        timed(lambda: chain_k2(enc), 3), *trunk_work("K2", c32, n2, wbytes),
         f"K2 float32 at {n2}")
     del enc
 
@@ -894,14 +850,13 @@ def f32_kernels(rows, mcfg, net, points, peaks, gen, macs):
     err = max_err(got, ref)
     zs, us = got[3], got[4]
     del got, b16, ref
-    zbytes = 2 * layers * feat * 4          # zs and us, f32, a point
     row("K2zsf32", "trunk_fwd_grad (float32, saving zs/us)", src2, rep2, err,
         timed(lambda: k2._trunk_fwd_grad_cuda(p32, c32, enc, want_zs=True),
               5),
         timed(lambda: k2._trunk_fwd_grad_plain(p32, c32, enc, want_zs=True),
               1),
-        timed(lambda: chain_k2(enc), 3), k2_pt * n3,
-        n3 * (lane * 4 + 4 + feat * 4 + lane * 4 + zbytes) + wbytes, label)
+        timed(lambda: chain_k2(enc), 3), *trunk_work("K2zs", c32, n3, wbytes),
+        label)
     cs, cf, cg = fc.cotangents(mcfg, n3, gen, torch.float32)
     got = k2._trunk_bwd_cuda(p32, c32, enc, cs, cf, cg, zs, us)
     same_twice("K3 float32", got,
@@ -917,19 +872,14 @@ def f32_kernels(rows, mcfg, net, points, peaks, gen, macs):
     hth = torch.randn(2 * n3, feat, device="cuda", generator=gen)
     azb = torch.randn(2 * n3, feat, device="cuda", generator=gen)
     xtb = torch.cat([enc, cg], 0)
-    k3_flops = 2.0 * (3 * macs + (layers - 1) * feat * feat) * n3
-    grad_elems = (2 * lane * feat + (layers - 1) * feat * feat
-                  + layers * feat + feat + 1)
-    k3_bytes = (n3 * (zbytes + feat * 4 + 2 * lane * 4 + 4) + wbytes
-                + 4 * grad_elems)
     row("K3f32", "trunk_bwd (float32)", "brdfnerf_tpu_torch/csrc/trunk_bwd.cu",
         "brdfnerf_tpu/ops/pallas_trunk_vjp.py:240", err,
         timed(lambda: k2._trunk_bwd_cuda(p32, c32, enc, cs, cf, cg, zs, us),
               5),
         timed(lambda: k2._trunk_bwd_plain(p32, c32, enc, cs, cf, cg, zs, us),
               1),
-        timed(lambda: chain_k3(cg, azb, hth, xtb), 3), k3_flops, k3_bytes,
-        label)
+        timed(lambda: chain_k3(cg, azb, hth, xtb), 3),
+        *trunk_work("K3", c32, n3, wbytes), label)
     rows["K3f32"].update(kernel_parts(lambda: k2._trunk_bwd_cuda(
         p32, c32, enc, cs, cf, cg, zs, us)))
     del hth, azb, xtb, zs, us
@@ -978,7 +928,7 @@ def f32_kernels(rows, mcfg, net, points, peaks, gen, macs):
                                                     want_zs), 1),
             timed(lambda: (chain_k2(enc4), chain_heads(h)), 3),
             rows["K4zs" if want_zs else "K4"]["_flops"],
-            n * (lane * 4 + 8 * 4 + lane * 4
+            n * (ein * 4 + 8 * 4 + ein * 4
                  + (layers * feat * 4 if want_zs else 0)) + wbytes + hbytes,
             label)
         del h
@@ -1045,15 +995,16 @@ def f32_kernels(rows, mcfg, net, points, peaks, gen, macs):
     zs, us = out[3], out[4]
     assert zs.dtype == us.dtype == torch.float32
     del out
-    extra = n3 * (feat * 2 + 2 * layers * feat * 2)   # f32 feats, zs, us
+    # the bf16 weights' bytes; f32 feats, zs and us (trunk_work)
+    wb16 = sum(v.numel() * v.element_size() for v in p16.values())
     base = rows["K2zs"]
     row("K2zsmix", "trunk_fwd_grad (bfloat16, saving f32 zs/us)", src2,
         rep2, None,
         timed(lambda: k2._trunk_fwd_grad_cuda(p16, cmix, enc, want_zs=True),
               5),
         timed(lambda: k2._trunk_fwd_grad_plain(p16, cmix, enc, want_zs=True),
-              1), base["library_ms"], base["_flops"],
-        base["_bytes"] + extra, f"K2 bfloat16 saving f32 zs/us at {n3}")
+              1), base["library_ms"], *trunk_work("K2zs", cmix, n3, wb16),
+        f"K2 bfloat16 saving f32 zs/us at {n3}")
     base = rows["K3"]
     row("K3mix", "trunk_bwd (bfloat16, f32 zs/us)",
         "brdfnerf_tpu_torch/csrc/trunk_bwd.cu",
@@ -1062,8 +1013,7 @@ def f32_kernels(rows, mcfg, net, points, peaks, gen, macs):
               5),
         timed(lambda: k2._trunk_bwd_plain(p16, cmix, enc, cs, cf, cg, zs,
                                           us), 1),
-        base["library_ms"], base["_flops"],
-        base["_bytes"] + n3 * (feat * 2 + 2 * layers * feat * 2),
+        base["library_ms"], *trunk_work("K3", cmix, n3, wb16),
         f"K3 bfloat16 on f32 zs/us at {n3}")
     del zs, us
     out, gx, zs = k4._trunk_heads_fwd_cuda(p16, hw, cmix, enc, want_zs=True)
@@ -1229,6 +1179,108 @@ def act_kernels(rows, points, gen, report):
                       f"{rows[base]['ms']:.3f}), twin {r['plain_ms']:.1f}",
                       flush=True)
             del x1, x2, x3, zs, us, zs4, cs, cf, cg, cot, calls
+
+
+# the widths phase: timed steps of each fused run (bfloat16_all and
+# float32; bfloat16's are WIDTH_SHORT) and of each unfused one, measured
+# first
+WIDTH_STEPS = 10
+WIDTH_SHORT = 2
+WIDTH_UNFUSED = 4
+
+
+def widths_phase(rows, argv, tmp, gen, peaks, serve, train, check_served,
+                 step_check, per_req):
+    """Phase `widths`: K1-K3 built for the trunk widths 64, 128 and 256.
+    tools/width_check.py's checks (every dtype, each instantiation twice
+    bit-identical and held to its twin at the 512 rows' bounds; the exact
+    sine and ReLU at 64; 4 layers with the skip at 2 at 64), then per
+    width: each instantiation held so again and timed at its main path's
+    shape (width_check.kernel_rows: a row of the kernels line each), the
+    unfused stage-2 step (--fused_trunk 0
+    --use_pallas 0) at bfloat16_all and float32, one 16,384-ray request
+    (K1 2 / K2 1 a chunk) against the CPU twins at bfloat16_all and
+    float32, the fused stage-2 step (K1 2 / K2 1 / K3 1 a step) over
+    WIDTH_STEPS timed steps at bfloat16_all and float32 (a falling loss)
+    and WIDTH_SHORT at bfloat16, one step-check point at bfloat16_all, and
+    at width 64 one step with BRDFNERF_FUSED_HEADS set (K4/K5 take 512
+    alone: K1 2 / K2 1 / K3 1)."""
+    from brdfnerf_tpu_torch.cli import opts
+    from brdfnerf_tpu_torch.models.network import init_network
+    from brdfnerf_tpu_torch.ops import fused_trunk_vjp as k2
+    from brdfnerf_tpu_torch.serve import load_renderer
+    from brdfnerf_tpu_torch.tools import act_check, width_check
+    from brdfnerf_tpu_torch.utils.checkpoint import save_checkpoint
+    t_phase = time.perf_counter()
+    phase("widths")
+    width_check.check_all()
+    assert not act_check.MISSES, act_check.MISSES
+    print(f"  widths: checks {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    zero = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0}
+    fused = dict(zero, K1=2, K2=1, K3=1)
+    for feat in width_check.WIDTHS:
+        t0 = time.perf_counter()
+        width_check.kernel_rows(rows, feat, peaks)
+        assert not act_check.MISSES, act_check.MISSES
+        exp = f"smoke_f{feat}"
+        w_args = opts.postprocess(opts.train_parser().parse_args(
+            argv + ["--fc_feat", str(feat), "--exp_name", exp]))
+        w_dir = os.path.join(tmp, f"run_{exp}")
+        opts.dump_opts(w_args, w_dir)
+        w_cfg = opts.to_run_config(w_args, device="cuda")
+        assert w_cfg.model.feat == feat
+        assert w_cfg.render.use_pallas and w_cfg.render.fused_trunk
+        save_checkpoint(os.path.join(tmp, "ckpts", exp, "epoch=1.npz"),
+                        {"coarse": init_network(w_cfg.model, gen,
+                                                device="cuda")}, step=0)
+        off = dc.replace(w_cfg.render, use_pallas=False, fused_trunk=False)
+        for dtype in ("bfloat16_all", "float32"):
+            m_ = dc.replace(w_cfg.model, compute_dtype=dtype)
+            label = f"train step, width {feat}, {dtype}"
+            # the unfused step first: what the width ran before its kernels
+            train(label + ", unfused", zero, mcfg_=m_, rcfg_=off,
+                  tcfg_=w_cfg.train, timed_steps=WIDTH_UNFUSED,
+                  profiled=False)
+            r_ = load_renderer(w_dir, 1, compute_dtype=dtype, device="cuda")
+            assert r_.cfg.model.feat == feat and r_.cfg.render.use_pallas
+            outs, launches = serve(f"request, width {feat}, {dtype}",
+                                   dict(zero, K1=2 * per_req, K2=per_req),
+                                   r_, n_req=1, profiled=False)
+            rows[f"K1 {dtype} f{feat}"]["launches"] = launches["K1"]
+            rows[f"K2 {dtype} f{feat}"]["launches"] = launches["K2"]
+            check_served(outs, r_, scale=0.1 if dtype == "float32" else 1.0,
+                         n_check=256)
+            del r_, outs
+            trained, launches = train(label, fused, mcfg_=m_,
+                                      rcfg_=w_cfg.render, tcfg_=w_cfg.train,
+                                      timed_steps=WIDTH_STEPS,
+                                      profiled=False)
+            rows[f"K2zs {dtype} f{feat}"]["launches"] = launches["K2"]
+            rows[f"K3 {dtype} f{feat}"]["launches"] = launches["K3"]
+            if dtype == "bfloat16_all":
+                step_check(f"width {feat}", trained[-1:],
+                           (k2, "_trunk_fwd_grad_cuda",
+                            k2._trunk_fwd_grad_plain),
+                           (k2, "_trunk_bwd_cuda", k2._trunk_bwd_plain),
+                           fused, mcfg_=m_, rcfg_=w_cfg.render)
+            del trained
+        m_ = dc.replace(w_cfg.model, compute_dtype="bfloat16")
+        _, launches = train(f"train step, width {feat}, bfloat16", fused,
+                            mcfg_=m_, rcfg_=w_cfg.render, tcfg_=w_cfg.train,
+                            timed_steps=WIDTH_SHORT, profiled=False)
+        rows[f"K2zs bfloat16 f{feat}"]["launches"] = launches["K2"]
+        rows[f"K3 bfloat16 f{feat}"]["launches"] = launches["K3"]
+        if feat == 64:
+            # K4/K5 take the width 512 alone: with the switch set the step
+            # runs its heads in torch on K2 + K3
+            os.environ[FUSED_HEADS] = "1"
+            train("train step, width 64, fused heads switch", fused,
+                  mcfg_=w_cfg.model, rcfg_=w_cfg.render, tcfg_=w_cfg.train,
+                  timed_steps=WIDTH_SHORT, profiled=False)
+            del os.environ[FUSED_HEADS]
+        print(f"  width {feat}: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"  widths phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 def make_store(n_rays: int, rng: np.random.RandomState):
@@ -1426,7 +1478,7 @@ WF_CHUNKS = 2 * -(-AOI_SIZE * AOI_SIZE // CHUNK)   # a validation's chunks
 
 
 def workflow(root, reset_counts, counts, bare_rays_s, family=None,
-             smi=""):
+             smi="", width=512):
     """Stage 1, then stage 2 handed off from stage 1's last checkpoint,
     through brdfnerf_tpu_torch.cli.train.main on the card at the flagship's
     width, on the port's synthetic AOI; then a resume of stage 2 for 2
@@ -1443,7 +1495,10 @@ def workflow(root, reset_counts, counts, bare_rays_s, family=None,
     its shaded AOI (build_aoi(bumpy=True, brdf=HAPKE_GT | MICROFACET_GT)),
     stage 1 and stage 2 (the family's heads) of FAMILY_WF_STEPS each, the
     launches of their steps and validations held, and the eval CLI on
-    stage 2 (K1 2 / K2 1 a chunk, finite scores); returns its scores."""
+    stage 2 (K1 2 / K2 1 a chunk, finite scores); returns its scores.
+    With `width` (64, 128 or 256), the same two stages and eval at that
+    trunk width with the flagship's RPV(111) heads on the Lambertian AOI:
+    the [kernels] lines name K1 and K2 + K3 at the width."""
     from torch.profiler import ProfilerActivity, profile
     from brdfnerf_tpu_torch.cli import train as cli_train
     from brdfnerf_tpu_torch.data.satellite import (SatelliteConfig,
@@ -1537,7 +1592,7 @@ def workflow(root, reset_counts, counts, bare_rays_s, family=None,
     base = ["--root_dir", aoi["root"], "--gt_dir", aoi["gt_dir"],
             "--aoi_id", aoi["aoi_id"], "--logs_dir", logs,
             "--ckpts_dir", ckpts, "--model", "spsbrdf-nerf", "--mapping",
-            "--fc_feat", "512", "--fc_layers", "8", "--n_samples",
+            "--fc_feat", str(width), "--fc_layers", "8", "--n_samples",
             str(N_SAMPLES), "--guided_samples", str(N_SAMPLES),
             "--batch_size", str(BATCH), "--lr", "5e-4", "--ds_lambda", "10",
             "--compute_dtype", "bfloat16_all", "--chunk", str(CHUNK)]
@@ -1621,9 +1676,9 @@ def workflow(root, reset_counts, counts, bare_rays_s, family=None,
               f"the last 16 {last:.5f}", flush=True)
         assert last < first, (label, first, last)
 
-    if family is not None:
+    if family is not None or width != 512:
         scores = family_runs(family, base, run, check_outputs, falls, logs,
-                             ckpts, reset_counts, counts, smi)
+                             ckpts, reset_counts, counts, smi, width)
         (ts.compute_losses, ts.Optimizer.step, Trainer.validate, Trainer.fit,
          Trainer._on_epoch_end) = saved
         return scores
@@ -1744,17 +1799,23 @@ FAMILY_FLAGS = {"hapke": ["--b", "--c", "--theta", "--hpk_scl", "1"],
                 "microfacet": ["--roughness"]}
 FAMILY_KEYS = {"hapke": ("b_from_xyz", "c_from_xyz", "theta_from_xyz"),
                "microfacet": ("roughness_from_xyz",)}
+# ... and the flagship's RPV(111) heads (the width-64 workflow)
+RPV_FLAGS = ["--funcM", "1", "--funcF", "1", "--funcH", "1"]
+RPV_KEYS = ("k_from_xyz", "theta_rpv_from_xyz", "rhoc_from_xyz")
 
 
 def family_runs(family, base, run, check_outputs, falls, logs, ckpts,
-                reset_counts, counts, smi):
-    """Stage 1 and stage 2 of `family` through the train CLI on its shaded
-    AOI (workflow's run, check_outputs and falls), then the eval CLI on
-    stage 2's checkpoint; returns the eval's scores."""
+                reset_counts, counts, smi, width=512):
+    """Stage 1 and stage 2 of `family` (None: the RPV(111) heads at trunk
+    width `width`) through the train CLI on its AOI (workflow's run,
+    check_outputs and falls), then the eval CLI on stage 2's checkpoint;
+    returns the eval's scores."""
     from brdfnerf_tpu_torch.cli import eval as cli_eval
     steps = FAMILY_WF_STEPS
     common = base + (["--hpk_scl", "1"] if family == "hapke" else [])
-    s1, s2 = f"{family}_stage1", f"{family}_stage2"
+    name = family or f"width {width}"
+    tag = family or f"f{width}"
+    s1, s2 = f"{tag}_stage1", f"{tag}_stage2"
     # launches, from the code, as workflow's: stage 1 K1 once a step and
     # once a validation chunk; stage 2 K1 for the probe and, from step 1
     # (the first BRDF step), the sun march, K2 and K3 once a step; its
@@ -1767,15 +1828,15 @@ def family_runs(family, base, run, check_outputs, falls, logs, ckpts,
     check_outputs(s1, 1, ("fc_net", "sigma_from_xyz", "rgb_from_xyzdir"))
     heads = (["--normal", "analystic", "--sun_v", "analystic", "--brdf_on",
               "0", "--nr_reg_an_lambda", "0.1", "--hs_lambda", "0.5"]
-             + FAMILY_FLAGS[family])
+             + FAMILY_FLAGS.get(family, RPV_FLAGS))
     losses, _ = run(s2, common + heads + [
         "--exp_name", s2, "--max_train_steps", str(steps), "--in_ckpts",
         os.path.join(ckpts, s1, "epoch=0.npz")], steps,
         {"K1": 2 * steps - 1, "K2": steps, "K3": steps},
         {"K1": 2 * (WF_CHUNKS + 1), "K2": WF_CHUNKS + 1},
-        kernels=("K1 (the sigma-only", "K2 + K3"))
+        kernels=("K1 (the sigma-only", "K2 + K3", f"width {width}"))
     falls(s2, losses[1:])
-    check_outputs(s2, 1, FAMILY_KEYS[family])
+    check_outputs(s2, 1, FAMILY_KEYS.get(family, RPV_KEYS))
     reset_counts()
     scores = {}
     saved = cli_eval.evaluate
@@ -1785,7 +1846,7 @@ def family_runs(family, base, run, check_outputs, falls, logs, ckpts,
         return scores
     cli_eval.evaluate = evaluate
     try:
-        rc, _, seconds = run_cli(f"eval, {family}", cli_eval.main, [
+        rc, _, seconds = run_cli(f"eval, {name}", cli_eval.main, [
             "--logs_dir", os.path.join(logs, s2), "--epoch_number", "0"],
             smi)
     finally:
@@ -1793,7 +1854,7 @@ def family_runs(family, base, run, check_outputs, falls, logs, ckpts,
     launches = counts()
     want = {"K1": 2 * WF_CHUNKS, "K2": WF_CHUNKS, "K3": 0, "K4": 0,
             "K5": 0}
-    print(f"  eval, {family}: launches {launches} over {WF_CHUNKS} chunks "
+    print(f"  eval, {name}: launches {launches} over {WF_CHUNKS} chunks "
           f"(want {want}); stage 2 after {steps} steps: PSNR "
           f"{scores.get('psnr')} dB, SSIM {scores.get('ssim')}, DSM MAE "
           f"{scores.get('mae')} m; {seconds:.3f} s ({smi})", flush=True)
@@ -2072,7 +2133,6 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     kind = torch.cuda.get_device_name(0)
-    peaks = PEAKS["pcie" if "pcie" in kind.lower() else "sxm"]
     print(f"  torch {torch.__version__} cuda {torch.version.cuda}; {kind}",
           flush=True)
     # the reference precision: no TF32 anywhere
@@ -2089,9 +2149,14 @@ def main():
     from brdfnerf_tpu_torch.ops.encoding import positional_encoding
     from brdfnerf_tpu_torch.parallel import train_step as ts
     from brdfnerf_tpu_torch.serve import load_renderer
-    from brdfnerf_tpu_torch.tools import act_check
     from brdfnerf_tpu_torch.tools import f32_check as fc
+    from brdfnerf_tpu_torch.tools import act_check
+    from brdfnerf_tpu_torch.tools import width_check
     from brdfnerf_tpu_torch.tools.bwd_check import ptxas_summary
+    from brdfnerf_tpu_torch.tools.width_check import (bound_ms,
+                                                      matmul_chains,
+                                                      trunk_work)
+    peaks = width_check.peaks_of(kind)
     from brdfnerf_tpu_torch.utils.checkpoint import save_checkpoint
 
     phase("build")
@@ -2099,7 +2164,7 @@ def main():
     # every kernel library, for each activation (the polynomial sine, the
     # exact sine, ReLU: one -DTRUNK_ACT build each), one nvcc a library,
     # all started together
-    cuda_build.build(act_check.libraries())
+    cuda_build.build(act_check.libraries() + width_check.libraries())
     print(f"  built in {time.perf_counter() - t0:.1f} s", flush=True)
     for name, rec in cuda_build.build_log.items():
         # nvcc's seconds; per kernel function: registers (the count at
@@ -2147,7 +2212,7 @@ def main():
     packed = k1.pack_trunk_weights(net, mcfg, torch.bfloat16)
     wbytes = sum(v.numel() * v.element_size() for v in packed.values())
     ein = mcfg.xyz_in_dim
-    macs = trunk_macs(mcfg, ein)
+    macs = width_check.trunk_macs(mcfg, ein)
     feat = mcfg.feat
     rows = {}
     chain_fwd, chain_k2, chain_k3_of = matmul_chains(packed, mcfg, k1.LANE)
@@ -2178,11 +2243,11 @@ def main():
         "library_ms": timed(lambda: chain_fwd(encb)[0] + chain_fwd(encl)[0],
                             10),
         "library_bf16_ms": timed(lambda: chain_fwd(encb), 10)}
+    k1_flops, k1_bytes = trunk_work("K1", mcfg, n1, wbytes)
     rows["K1"]["bound_ms"], rows["K1"]["bound_by"] = bound_ms(
-        2.0 * macs * n1, n1 * (k1.LANE * 4 + 4) + wbytes, peaks)
+        k1_flops, k1_bytes, peaks)
     # the split issues every product twice
-    rows["K1"]["bound_split_ms"], _ = bound_ms(
-        4.0 * macs * n1, n1 * (k1.LANE * 4 + 4) + wbytes, peaks)
+    rows["K1"]["bound_split_ms"], _ = bound_ms(2 * k1_flops, k1_bytes, peaks)
     del enc, encb, encl
 
     # K2: the main pass, CHUNK * 2 * N_SAMPLES points
@@ -2208,7 +2273,6 @@ def main():
     assert out_k[2][:, ein:].abs().max().item() == 0.0, "gx padded lanes"
     del out_k, out_p
     encb = enc.to(torch.bfloat16)
-    k2_flops = 2.0 * (2 * macs - feat) * n2
     rows["K2"] = {
         "name": "trunk_fwd_grad", "route": "cuda",
         "source": "brdfnerf_tpu_torch/csrc/trunk_fwd_grad.cu",
@@ -2219,8 +2283,7 @@ def main():
                                                            enc), 1),
         "library_ms": timed(lambda: chain_k2(encb), 5)}
     rows["K2"]["bound_ms"], rows["K2"]["bound_by"] = bound_ms(
-        k2_flops, n2 * (k1.LANE * 4 + 4 + feat * 2 + k1.LANE * 4) + wbytes,
-        peaks)
+        *trunk_work("K2", mcfg, n2, wbytes), peaks)
     del enc, encb
 
     # K2 saving zs/us, and K3, at the train step's main pass: BATCH *
@@ -2288,13 +2351,8 @@ def main():
                                                     want_zs=True), 5),
         "plain_ms": timed(lambda: k2._trunk_fwd_grad_plain(
             packed, mcfg, enc, want_zs=True), 1)}
-    k2_flops3 = 2.0 * (2 * macs - feat) * n3
-    # (the work and traffic, kept for the mixed bfloat16 rows of phase 3c)
-    rows["K2zs"]["_flops"] = k2_flops3
-    rows["K2zs"]["_bytes"] = n3 * (k1.LANE * 4 + 4 + feat * 2 + k1.LANE * 4
-                                   + 2 * mcfg.layers * feat * 2) + wbytes
     rows["K2zs"]["bound_ms"], rows["K2zs"]["bound_by"] = bound_ms(
-        k2_flops3, rows["K2zs"]["_bytes"], peaks)
+        *trunk_work("K2zs", mcfg, n3, wbytes), peaks)
     encb = enc.to(torch.bfloat16)
     rows["K2zs"]["library_ms"] = timed(lambda: chain_k2(encb), 5)
 
@@ -2311,14 +2369,8 @@ def main():
     def chain_k3():
         chain_k3_of(cgb, azb, hth, xtb)
 
-    # work per point: the tangent forward (macs), the a chain (7 F^2), the
-    # outer products of every layer's dW over (primal, tangent) (2 macs)
-    k3_flops = 2.0 * (3 * macs + (mcfg.layers - 1) * feat * feat) * n3
     # reads zs, us, cf, x, cg, cs and the weights; writes the f32 grads
-    grad_elems = (2 * k1.LANE * feat + (mcfg.layers - 1) * feat * feat
-                  + mcfg.layers * feat + feat + 1)
-    k3_bytes = (n3 * (2 * mcfg.layers * feat * 2 + feat * 2
-                      + 2 * k1.LANE * 4 + 4) + wbytes + 4 * grad_elems)
+    k3_flops, k3_bytes = trunk_work("K3", mcfg, n3, wbytes)
     rows["K3"] = {
         "name": "trunk_bwd", "route": "cuda",
         "source": "brdfnerf_tpu_torch/csrc/trunk_bwd.cu",
@@ -2340,7 +2392,7 @@ def main():
     backward_small(192, mcfg, net, packed, points, gen)
     forward_small(192, mcfg, net, packed, points)
     phase("kernels, float32")
-    f32_kernels(rows, mcfg, net, points, peaks, gen, macs)
+    f32_kernels(rows, mcfg, net, points, peaks, gen)
     phase("kernels, activations")
     act_kernels(rows, points, gen, {})
     # every sweep instantiation (K3 and K5: each activation at every
@@ -2756,6 +2808,10 @@ def main():
                 assert abs(loss_k - loss_p) <= 1e-3 * abs(loss_p), (loss_k,
                                                                     loss_p)
 
+    per_req = chunks // N_REQUESTS
+    widths_phase(rows, argv, tmp.name, gen, peaks, serve, train,
+                 check_served, step_check, per_req)
+
     phase("training")
     # per step: the probe and the sun march (K1), the main pass with zs/us
     # (K2) and its backward (K3: one call, a sweep, a weight-gradient
@@ -3103,6 +3159,14 @@ def main():
         phase(f"workflow, {family}")
         workflow(os.path.join(tmp.name, f"workflow_{family}"), reset_counts,
                  counts, bare_rays_s["train step"], family=family, smi=smi)
+    # the two-stage workflow at width 64 (the repo's small runs' width)
+    # through the train and eval CLIs, on K1-K3 built for it
+    phase("workflow, width 64")
+    t_w64 = time.perf_counter()
+    workflow(os.path.join(tmp.name, "workflow_f64"), reset_counts, counts,
+             bare_rays_s["train step"], smi=smi, width=64)
+    print(f"  the width-64 workflow took {time.perf_counter() - t_w64:.1f} s",
+          flush=True)
 
     phase("end")
     tmp.cleanup()
@@ -3119,7 +3183,8 @@ def main():
     # every instantiation in the line was launched on a main path
     idle = [r["name"] for r in rows.values() if not r.get("launches")]
     assert not idle, f"never launched on a main path: {idle}"
-    keys = ("name", "route", "source", "replaces", "act", "launches",
+    keys = ("name", "route", "source", "replaces", "act", "width", "dtype",
+            "points", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "launches_train", "launches_eval",
             "launches_families",

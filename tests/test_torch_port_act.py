@@ -242,7 +242,8 @@ def test_one_fused_stage2_step_matches_jax(act):
 def test_gates_admit_every_activation(act, dtype):
     """cuda_kernels_cover and heads_kernel_supports hold for the flagship
     width at every activation and kernel dtype; act_of names the library;
-    a width the kernels are not built for stays refused."""
+    width 64 is covered too, and a width the kernels are not built for
+    stays refused."""
     from brdfnerf_tpu_torch.config import ModelConfig
     from brdfnerf_tpu_torch.models.network import init_network
     kw = {"poly": dict(siren=True, fast_sin=True)}.get(act) or ACTS[act]
@@ -253,7 +254,8 @@ def test_gates_admit_every_activation(act, dtype):
     net = init_network(cfg, torch.Generator().manual_seed(0), device="cpu")
     assert th.heads_kernel_supports(cfg, net, apply_brdf=True)
     import dataclasses as dc
-    assert not tk1.cuda_kernels_cover(dc.replace(cfg, feat=64))
+    assert tk1.cuda_kernels_cover(dc.replace(cfg, feat=64))
+    assert not tk1.cuda_kernels_cover(dc.replace(cfg, feat=96))
 
 
 @pytest.mark.parametrize("act,flag", [("poly", None), ("sin", "1"),
@@ -283,11 +285,14 @@ def test_library_keys_build_each_activation_apart(act, flag):
     (["--siren", "0", "--compute_dtype", "bfloat16_all"],
      ["K2 + K3", "ReLU", "compute_dtype='bfloat16_all'"]),
     ([], ["K2 + K3", "the polynomial sine"]),
-    (["--fc_feat", "64"], ["none", "width 64", "ROADMAP.md Queue 2"])])
+    (["--fc_feat", "96"], ["none", "width 96", "ROADMAP.md Queue 2"]),
+    (["--fc_feat", "64"], ["K1 (the sigma-only passes)", "K2 + K3",
+                           "width 64"])])
 def test_train_cli_kernels_line_per_activation(monkeypatch, argv, want):
     """The train CLI's [kernels] line on the card: K1-K3 at the exact sine
-    and at ReLU, named with the activation; a width the kernels are not
-    built for still takes the unfused path, and says why."""
+    and at ReLU, named with the activation, and at width 64; a width the
+    kernels are not built for still takes the unfused path, and says
+    why."""
     from brdfnerf_tpu_torch.cli import opts
     from brdfnerf_tpu_torch.cli.train import kernels_line
     monkeypatch.delenv("BRDFNERF_FUSED_HEADS", raising=False)

@@ -172,10 +172,11 @@ class _Launch:
     """A CudaKernel stand-in that records its arguments."""
 
     def __init__(self):
-        self.args, self.act, self.launches = None, None, 0
+        self.args, self.act, self.feat, self.launches = None, None, None, 0
 
-    def __call__(self, *args, act="poly"):
+    def __call__(self, *args, act="poly", feat=512):
         self.args, self.act, self.launches = args, act, self.launches + 1
+        self.feat = feat
 
 
 @pytest.fixture
@@ -239,6 +240,7 @@ def test_wrappers_save_what_the_twins_save(recorded, dtype):
         assert got.dtype == ref.dtype, name
         assert tuple(got.shape) == tuple(ref.shape), name
     args = recorded["TRUNK_FWD_GRAD"].args
+    assert recorded["TRUNK_FWD_GRAD"].feat == cfg.feat == 512
     # feats_bf16, then zs_f32 and split before layers, skip, stream
     assert args[13] == int(sd == torch.bfloat16)
     assert args[-5:-3] == (int(sd == torch.float32),
