@@ -26,7 +26,6 @@ def kernels_line(cfg, device, train: bool = True) -> str:
     backward)."""
     from ..ops.fused_mlp import (CUDA_DTYPES, CUDA_WIDTHS, LANE, act_of,
                                  cuda_kernels_cover, split_operands)
-    from ..ops.fused_trunk_heads import heads_cuda_cover
     m, r = cfg.model, cfg.render
     if device.type != "cuda":
         return ("[kernels] none: the run is on the CPU, where the kernels' "
@@ -65,12 +64,11 @@ def kernels_line(cfg, device, train: bool = True) -> str:
                             f"only the RPV(111) heads, so the {family} "
                             "heads stay on " + ("K2 + K3" if train
                                                 else "K2"))
-            elif not heads_cuda_cover(m):
-                used.append(f"BRDFNERF_FUSED_HEADS is set, but K4/K5 take "
-                            f"only the trunk width 512, so at width "
-                            f"{m.feat} the heads run in torch on "
-                            + ("K2 + K3" if train else "K2")
-                            + " (ROADMAP.md Queue 2)")
+            elif r.apply_theta:
+                used.append("BRDFNERF_FUSED_HEADS is set, but K4/K5 take "
+                            "RPV without theta (--brdf_on 0.5 or more), so "
+                            "the heads stay on "
+                            + ("K2 + K3" if train else "K2"))
             else:
                 used.append(("K4 + K5 in their place" if train
                              else "K4 in its place") + " where the flagship "

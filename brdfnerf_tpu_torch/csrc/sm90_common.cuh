@@ -189,7 +189,8 @@ __device__ __forceinline__ void fence_acc(float (&d)[R]) {
 // d += A . B, m64nNk16 (N = 256: d[128]; N = 128: d[64]), bf16 operands in
 // shared memory given by descriptors, f32 accumulators; scale_d = 0
 // overwrites d.  TA / TB = 1 reads that operand MN-major, 0 K-major.
-// (m64n64k16: d[32]; m64n32k16: d[16].)
+// (m64n64k16: d[32]; m64n32k16: d[16]; m64n16k16: d[8], the head passes
+// of K4/K5 at trunk width 64.)
 template <int TA, int TB>
 __device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da,
                                           uint64_t db, int scale_d) {
@@ -320,19 +321,35 @@ __device__ __forceinline__ void wgmma_n32(float (&d)[16], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
-// d (+)= A . B, m64nNk16 for N = 256, 128, 64 or 32 (d[N / 2])
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n16(float (&d)[8], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7 "
+      "}, %8, %9, p, 1, 1, %11, %12;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// d (+)= A . B, m64nNk16 for N = 256, 128, 64, 32 or 16 (d[N / 2])
 template <int N, int TA, int TB>
 __device__ __forceinline__ void wgmma_n(float (&d)[N / 2], uint64_t da,
                                        uint64_t db, int scale_d) {
-  static_assert(N == 256 || N == 128 || N == 64 || N == 32, "wgmma N");
+  static_assert(N == 256 || N == 128 || N == 64 || N == 32 || N == 16,
+                "wgmma N");
   if constexpr (N == 256)
     wgmma_n256<TA, TB>(d, da, db, scale_d);
   else if constexpr (N == 128)
     wgmma_n128<TA, TB>(d, da, db, scale_d);
   else if constexpr (N == 64)
     wgmma_n64<TA, TB>(d, da, db, scale_d);
-  else
+  else if constexpr (N == 32)
     wgmma_n32<TA, TB>(d, da, db, scale_d);
+  else
+    wgmma_n16<TA, TB>(d, da, db, scale_d);
 }
 
 // ------------------------------------------------- registers and stores

@@ -32,6 +32,9 @@ constexpr int RING_STAGE = 32768;
 static_assert(F * KSL * 2 <= RING_STAGE && T * EP * 4 == RING_STAGE,
               "a ring stage holds a weight slice or a tile's x");
 constexpr int NWG = F / 2;               // columns of a consumer warpgroup
+// columns of a consumer warpgroup in one of K4/K5's head passes (a head's
+// HID = F / 2 hidden units, halved): a wgmma N of 16..128
+constexpr int HWG = HID / 2;
 constexpr int FA = F / 64;               // blocks of an F-wide tile
 // rows of a K-major weight box: a warpgroup's columns, at most 256 (TMA)
 constexpr int BOX_N = NWG < 256 ? NWG : 256;

@@ -73,9 +73,10 @@
 
 namespace trunk {
 
-// per-tile partials of K5's heads, after K3's (layers + 1) x 512: db_f,
-// db_1 (rgb | rpv), dW_2 for the 3 logit columns over the 4 x 256 hidden
-// units of [rgb | k | theta | rho_c], db_2 (6, padded to 8)
+// per-tile partials of K5's heads, after K3's (layers + 1) x F: db_f,
+// db_1 (rgb | rpv), dW_2 for the 3 logit columns over the 4 x HID hidden
+// units of [rgb | k | theta | rho_c], db_2 (6, padded to 8); the layout of
+// ops/fused_trunk_heads.head_part(F)
 constexpr int HP_DBF = 0;
 constexpr int HP_DB1 = HP_DBF + F;
 constexpr int HP_DW2 = HP_DB1 + 4 * HID;
@@ -186,8 +187,9 @@ __device__ __forceinline__ float col_sum(float v) {
 // lo terms (sm_lo bytes past the hi ones), the ring (weight slices and the
 // epilogues' data: four stages, SPLIT two), then barriers and per-row
 // vectors.  K5 SPLIT keeps K3's 64 x 128 t tile (a 64 x 256 one with its lo
-// terms is 32 KB over the limit beside the ring): its c_z1 chunks come in
-// halves of 128 columns, hi and lo, and leave from the registers
+// terms is 32 KB over the limit beside the ring): its c_z1 leaves from the
+// registers and comes back in chunks of at most 128 columns, hi and lo
+// (head_kh, cz1_regs below)
 constexpr int SM_ACT = 0;
 constexpr int SM_TS = SM_ACT + FA * ACT_BLOCK;
 template <bool SPLIT>
@@ -218,7 +220,27 @@ __host__ __device__ constexpr int sweep_smem() {
 static_assert(sweep_smem<true>() <= 232448, "K5 sweep's shared memory");
 static_assert(sweep_smem<true, true>() <= 232448,
               "K5 SPLIT sweep's shared memory");
-static_assert(4 * 2 * 4 * 128 * 4 <= 2 * ACT_BLOCK, "K5's column sums in t");
+static_assert(4 * 2 * 4 * HWG * 4 <= 2 * ACT_BLOCK, "K5's column sums in t");
+
+// K5's a_xf reloads c_z1 one chunk of KH columns at a time, in 64-column
+// TMA boxes, as the A operand of its products: a head's HID columns in
+// the 4-block t tile, with SPLIT (hi and lo tiles of 2 blocks each) in
+// halves where HID is 256.  At width 64 a chunk (32 columns) is narrower
+// than a box: the box brings the next head's columns beside it (zeros past
+// the last), which no product reads.
+template <bool SPLIT>
+__host__ __device__ constexpr int head_kh() {
+  return HID < (SPLIT ? 128 : 256) ? HID : (SPLIT ? 128 : 256);
+}
+// c_z1 leaves by plain stores from the registers (then every chunk is
+// reloaded) with SPLIT, whose t tile has no room for a whole head beside
+// its lo terms, and at width 64, where a head's 32 columns are narrower
+// than a TMA box; otherwise by TMA stores from the t tile (whose last head
+// stays there as the first chunk)
+template <bool SPLIT>
+__host__ __device__ constexpr bool cz1_regs() {
+  return SPLIT || HID < 64;
+}
 
 // The weight tensors the sweep streams, as TMA maps: K-major boxes (32 k x
 // BOX_N n rows) for the forward products, MN-major boxes (32 n x 32 k) for
@@ -247,13 +269,18 @@ constexpr int JPS = NJG < 2 ? NJG : 2;
 // a warpgroup's box in a j-group, and its first column in that box
 __device__ __forceinline__ int zb_of(int wg) { return ZB == 2 ? wg : 0; }
 __device__ __forceinline__ int zc_of(int wg) { return ZB == 2 ? 0 : wg * NWG; }
+// K5: the bytes of a j-group's rebuilt b_th (JG / 2 accumulators of each
+// of the 256 consumer threads, f32), one ring stage
+constexpr int UC_STAGE = JG / 2 * NC * 4;
+static_assert(UC_STAGE <= RING_STAGE, "a j-group's b_th in a stage");
 
 // Producer: the ring stages of an epilogue's data, in j-groups.  Forward
 // epilogue of layer i: z of the tile's 64 rows, JPS j-groups a stage, both
 // warpgroups' boxes side by side.  Reverse epilogue: for every j-group a
 // stage of z and u (K5: z alone), then (K5) a stage of the rebuilt b_th of
-// layer i (ucl: 128 accumulators x 256 threads f32, 32 of them a stage).
-// K5's z stage fills only half of its 32 KB (two 64 x 64 bf16 blocks):
+// layer i (ucl: NWG / 2 accumulators x 256 threads f32, the j-group's JG / 2
+// of them a stage, UC_STAGE bytes: 32 KB, 16 KB at width 64).
+// K5's z stage fills only part of its 32 KB (ZB 64 x 64 bf16 blocks):
 // rebuilding b_th inside the sweep would drop the chain kernel, its f32
 // scratch and this extra stage (not done).
 template <class R>
@@ -292,9 +319,10 @@ __device__ __forceinline__ void produce_rev_data(const SweepMaps& maps,
     r.advance();
     if (HEADS) {
       sm90::mbar_wait(&empty[r.stage], r.phase ^ 1);
-      sm90::mbar_expect_tx(&full[r.stage], RING_STAGE);
-      sm90::bulk_load(ring + r.stage * RING_STAGE, ucl + (size_t)g * 32 * NC,
-                      RING_STAGE, &full[r.stage]);
+      sm90::mbar_expect_tx(&full[r.stage], UC_STAGE);
+      sm90::bulk_load(ring + r.stage * RING_STAGE,
+                      ucl + (size_t)g * (JG / 2) * NC, UC_STAGE,
+                      &full[r.stage]);
       r.advance();
     }
   }
@@ -387,8 +415,8 @@ __global__ void __launch_bounds__(NTB, 1)
           produce_s<SPLIT>(q == 0 ? &maps.w1rk : &maps.w1pk, false, F / KSL,
                            q == 0 ? 0 : (q - 1) * HID, 0, HID,
                            q == 0 ? HID : 3 * HID, r, full, empty, ring);
-        // a_xf's products: per q, the chunk's K (SPLIT: in halves)
-        constexpr int KH = SPLIT ? HID / 2 : HID;
+        // a_xf's products: per q, the chunk's K (head_kh)
+        constexpr int KH = head_kh<SPLIT>();
         for (int q = 3; q >= 0; --q)
           for (int hk = 0; hk < HID; hk += KH)
             produce_s<SPLIT>(q == 0 ? &maps.w1rm : &maps.w1pm, true,
@@ -402,7 +430,7 @@ __global__ void __launch_bounds__(NTB, 1)
         if (ZRING)
           produce_rev_data<HEADS>(
               maps,
-              HEADS ? p.uc + ((size_t)tile * layers + i) * 128 * NC
+              HEADS ? p.uc + ((size_t)tile * layers + i) * (NWG / 2) * NC
                     : nullptr,
               i, row0, r, full, empty, ring);
         if (i == 0) break;
@@ -653,15 +681,17 @@ __global__ void __launch_bounds__(NTB, 1)
       if (SPLIT)
         tile_to_global(&maps.xfb, act + LO, FA, 0, p.n + row0, issuer);
 
-      // ---- the first head layers in 256-column passes (q = 0: rgb,
-      // 1..3: k, theta, rho_c): c_z1 = act'(z1) (c_z2 W_2) to global, with
-      // its column sums (db_1) and the dW_2 partials h1^T c_z2 (SPLIT: c_z1
-      // as hi and lo planes, stored from the registers)
-      float (&a64)[64] = *reinterpret_cast<float(*)[64]>(acc);
-      const int cq = wg * 128 + 2 * (l & 3);   // column of j = 0 in a pass
+      // ---- the first head layers in HID-column passes, HWG columns a
+      // warpgroup (q = 0: rgb, 1..3: k, theta, rho_c): c_z1 = act'(z1)
+      // (c_z2 W_2) to global, with its column sums (db_1) and the dW_2
+      // partials h1^T c_z2 (SPLIT: c_z1 as hi and lo planes; cz1_regs:
+      // stored from the registers)
+      constexpr bool CZR = cz1_regs<SPLIT>();
+      float (&ah)[HWG / 2] = *reinterpret_cast<float(*)[HWG / 2]>(acc);
+      const int cq = wg * HWG + 2 * (l & 3);   // column of j = 0 in a pass
 #pragma unroll 1
       for (int q = 0; q < 4; ++q) {
-        consume_s<128, 0, SPLIT, LO>(a64, act, F, act, F / KSL, false, r,
+        consume_s<HWG, 0, SPLIT, LO>(ah, act, F, act, F / KSL, false, r,
                                      full, empty, ring, wg, leader);
         tiles_free(issuer);          // the chunk's last store is read
         const float* b1 = q == 0 ? p.b1r : p.b1p + (q - 1) * HID;
@@ -672,13 +702,13 @@ __global__ void __launch_bounds__(NTB, 1)
 #pragma unroll
           for (int c = 0; c < 3; ++c)
             cc[hf][c] = rnd(rowc[(r0 + 8 * hf) * HEAD_COLS + c2 + c]);
-        float* qred = red;           // [4 sums][2 wg][4 warps][128]
+        float* qred = red;           // [4 sums][2 wg][4 warps][HWG]
 #pragma unroll
-        for (int j = 0; j < 16; ++j) {
+        for (int j = 0; j < HWG / 8; ++j) {
           float sum[4][2];
 #pragma unroll
           for (int e2 = 0; e2 < 2; ++e2) {
-            const int col = cq + 8 * j + e2;       // 0..255 within q
+            const int col = cq + 8 * j + e2;       // 0..HID-1 within q
             float s0 = 0.f, s1 = 0.f;   // c_z2 W_2 for rows r0, r0 + 8
             if (q == 0) {
               const float w20 = w2_at<SPLIT>(p.w2r, col);
@@ -693,11 +723,11 @@ __global__ void __launch_bounds__(NTB, 1)
               s1 = cc[1][q - 1] * w2;
             }
             float h[2], d[2];
-            act_eval(a64[4 * j + e2] + b1[col], 1.f, h[0], d[0]);
-            act_eval(a64[4 * j + 2 + e2] + b1[col], 1.f, h[1], d[1]);
+            act_eval(ah[4 * j + e2] + b1[col], 1.f, h[0], d[0]);
+            act_eval(ah[4 * j + 2 + e2] + b1[col], 1.f, h[1], d[1]);
             const float cz0 = d[0] * s0, cz1v = d[1] * s1;
-            a64[4 * j + e2] = cz0;
-            a64[4 * j + 2 + e2] = cz1v;
+            ah[4 * j + e2] = cz0;
+            ah[4 * j + 2 + e2] = cz1v;
             sum[0][e2] = cz0 + cz1v;
             const float hb0 = rnd(h[0]), hb1 = rnd(h[1]);
 #pragma unroll
@@ -710,43 +740,44 @@ __global__ void __launch_bounds__(NTB, 1)
             for (int e2 = 0; e2 < 2; ++e2) {
               const float v = col_sum(sum[s][e2]);
               if (l < 4)
-                qred[((s * 2 + wg) * 4 + w) * 128 + 8 * j + 2 * l + e2] = v;
+                qred[((s * 2 + wg) * 4 + w) * HWG + 8 * j + 2 * l + e2] = v;
             }
         }
         sm90::named_sync(BAR_C, NC);
-        {
-          const int k = q * HID + wg * 128 + t;  // hidden unit of 1,024
+        if (t < HWG) {
+          const int k = q * HID + wg * HWG + t;  // hidden unit of 4 HID
 #pragma unroll
           for (int s = 0; s < 4; ++s) {
-            const float* rw = qred + (s * 2 + wg) * 4 * 128;
+            const float* rw = qred + (s * 2 + wg) * 4 * HWG;
             const float v =
-                ((rw[t] + rw[128 + t]) + rw[256 + t]) + rw[384 + t];
+                ((rw[t] + rw[HWG + t]) + rw[2 * HWG + t]) + rw[3 * HWG + t];
             hp_tile[s == 0 ? HP_DB1 + k : HP_DW2 + (s - 1) * 4 * HID + k] =
                 v;
           }
         }
         sm90::named_sync(BAR_C, NC);             // qred read
-        if constexpr (SPLIT) {
-          // rows r0 / r0 + 8, columns cq + 8 j + {0, 1} of pass q, hi and
-          // lo planes; the chunk loads below read them by TMA
+        if constexpr (CZR) {
+          // rows r0 / r0 + 8, columns cq + 8 j + {0, 1} of pass q (SPLIT:
+          // hi and lo planes); the chunk loads below read them by TMA
 #pragma unroll
-          for (int j = 0; j < 16; ++j)
+          for (int j = 0; j < HWG / 8; ++j)
 #pragma unroll
             for (int hf = 0; hf < 2; ++hf) {
-              const float a = a64[4 * j + 2 * hf], b = a64[4 * j + 2 * hf + 1];
+              const float a = ah[4 * j + 2 * hf], b = ah[4 * j + 2 * hf + 1];
               const size_t o = (grow0 + r0 + 8 * hf) * (4 * HID) + q * HID +
                                cq + 8 * j;
               *reinterpret_cast<uint32_t*>(p.cz1 + o) = sm90::pack_bf2(a, b);
-              *reinterpret_cast<uint32_t*>(p.cz1 + (size_t)p.n * 4 * HID +
-                                           o) =
-                  sm90::pack_bf2(a - bf16_round(a), b - bf16_round(b));
+              if constexpr (SPLIT)
+                *reinterpret_cast<uint32_t*>(p.cz1 + (size_t)p.n * 4 * HID +
+                                             o) =
+                    sm90::pack_bf2(a - bf16_round(a), b - bf16_round(b));
             }
         } else {
-          store_tile_sw<128>(ts, wg * 128, [&](int k) { return a64[k]; });
-          tile_to_global(&maps.cz1, ts, 4, q * HID, row0, issuer);
+          store_tile_sw<HWG>(ts, wg * HWG, [&](int k) { return ah[k]; });
+          tile_to_global(&maps.cz1, ts, HID / 64, q * HID, row0, issuer);
         }
       }
-      if (SPLIT) sm90::fence_async_global();
+      if (CZR) sm90::fence_async_global();
       if (tid < 8) {
         float s = 0.f;
         if (tid < 6)
@@ -755,25 +786,25 @@ __global__ void __launch_bounds__(NTB, 1)
       }
 
       // ---- a_xf = sum_q c_z1_q W_1q, q = 3 (in the chunk) down to 0
-      // (reloaded from what the passes stored; SPLIT: every chunk in two
-      // halves of 128 columns, each with its lo terms)
-      constexpr int KH = SPLIT ? HID / 2 : HID;
+      // (reloaded from what the passes stored, KH columns a chunk in NBX
+      // boxes a plane; SPLIT: each chunk with its lo terms)
+      constexpr int KH = head_kh<SPLIT>();
+      constexpr int NBX = (KH + 63) / 64;
+      constexpr int NPL = SPLIT ? 2 : 1;
 #pragma unroll 1
       for (int q = 3; q >= 0; --q) {
 #pragma unroll 1
         for (int hk = 0; hk < HID; hk += KH) {
-          if (SPLIT || q < 3) {
+          if (CZR || q < 3) {
             sm90::named_sync(BAR_C, NC);         // the chunk is read
             if (issuer) {
               sm90::bulk_wait<0>();              // c_z1 is in memory
-              sm90::mbar_expect_tx(cbar, 4 * ACT_BLOCK);
-              for (int b = 0; b < 4; ++b)
+              sm90::mbar_expect_tx(cbar, NPL * NBX * ACT_BLOCK);
+              for (int b = 0; b < NPL * NBX; ++b)   // plane b / NBX
                 sm90::tma_load_2d(
-                    ts + (SPLIT ? (b >> 1) * LO + (b & 1) * ACT_BLOCK
-                                : b * ACT_BLOCK),
-                    &maps.cz1, cbar,
-                    q * HID + hk + (SPLIT ? (b & 1) : b) * 64,
-                    (SPLIT ? (b >> 1) * p.n : 0) + row0);
+                    ts + (b / NBX) * LO + (b % NBX) * ACT_BLOCK, &maps.cz1,
+                    cbar, q * HID + hk + (b % NBX) * 64,
+                    (b / NBX) * p.n + row0);
             }
             sm90::mbar_wait(cbar, cphase);
             cphase ^= 1;
@@ -845,7 +876,7 @@ __global__ void __launch_bounds__(NTB, 1)
       const float4* tzl = tzb + (size_t)i * (NWG / 8) * NC;
       float4 tzc[TZB];
       const float* ucl =
-          HEADS ? p.uc + ((size_t)tile * layers + i) * 128 * NC + tid
+          HEADS ? p.uc + ((size_t)tile * layers + i) * (NWG / 2) * NC + tid
                 : nullptr;
 #pragma unroll
       for (int j = 0; j < NWG / 8; ++j) {
@@ -889,7 +920,7 @@ __global__ void __launch_bounds__(NTB, 1)
           for (int e = 0; e < 4; ++e)
             u4[e] = ZF32 ? ucl[(4 * j + e) * NC]
                          : stage_f32(ring + r.stage * RING_STAGE +
-                                     ((4 * (j & 7) + e) * NC + tid) * 4);
+                                     ((4 * (j % JJ) + e) * NC + tid) * 4);
         } else {
           float2 ua, ub;
           if constexpr (ZF32) {

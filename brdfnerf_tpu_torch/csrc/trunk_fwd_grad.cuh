@@ -41,9 +41,10 @@
 //
 // K2 keeps the last layer's pre-activations in registers across the sigma
 // head and recomputes act'(z_{L-1}) from them; K4 needs the registers for
-// the head products (xf = h W_f^T + b_f as one more n256 product per
-// warpgroup, then the four 256-column first head layers as n128 products,
-// each followed by its activation and, for the 3-column second layers, row
+// the head products (xf = h W_f^T + b_f as one more F / 2-column product
+// per warpgroup, then the four HID-column first head layers, HID = F / 2,
+// as HID / 2-column products, n128 at width 512 and n16 at 64, each
+// followed by its activation and, for the 3-column second layers, row
 // reductions), so it puts act'(z_{L-1}) in one more scratch slot.  The
 // trunk and the chain are one body for both, so K4 gives K2's sigma and gx
 // bit for bit.  Row sums (sigma, the logits) add the two warpgroups'
@@ -276,7 +277,7 @@ __device__ __forceinline__ void scratch_batch(float4 (&d)[SB],
 }
 
 // g = act'(z) u into the activation tile (with SPLIT its hi and lo terms)
-// for the 128 accumulators of u in acc, act'(z) from the thread's scratch
+// for the NWG / 2 accumulators of u in acc, act'(z) from the thread's scratch
 // slot dl, whose first batch is in dn; acc keeps u.
 template <bool SPLIT, int LO>
 __device__ __forceinline__ void g_from_scratch(const float (&acc)[NWG / 2],
@@ -550,24 +551,24 @@ __global__ void __launch_bounds__(NTB, 1)
       sm90::named_sync(BAR_C, NC);
 
       // ------ the rgb head (q = 0) and the three RPV heads (q = 1..3):
-      // hidden = act(xf W_1^T + b_1) in 256-column passes; each logit is a
-      // row reduction of bf16(hidden) against its second-layer row (SPLIT:
-      // of the f32 hidden against the f32 row)
-      float (&a64)[64] = *reinterpret_cast<float(*)[64]>(acc);
-      const int cq = wg * 128 + 2 * (l & 3);   // column of j = 0 in a pass
+      // hidden = act(xf W_1^T + b_1) in HID-column passes, HWG columns a
+      // warpgroup; each logit is a row reduction of bf16(hidden) against
+      // its second-layer row (SPLIT: of the f32 hidden against the f32 row)
+      float (&ah)[HWG / 2] = *reinterpret_cast<float(*)[HWG / 2]>(acc);
+      const int cq = wg * HWG + 2 * (l & 3);   // column of j = 0 in a pass
 #pragma unroll 1
       for (int q = 0; q < 4; ++q) {
-        consume_s<128, 0, SPLIT, LO>(a64, act, F, act, F / KSL, false, r,
+        consume_s<HWG, 0, SPLIT, LO>(ah, act, F, act, F / KSL, false, r,
                                      full, empty, ring, wg, leader);
         const float* __restrict__ b1 = q == 0 ? p.b1r : p.b1p + (q - 1) * HID;
         float pr[3][2] = {{0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}};
 #pragma unroll
-        for (int j = 0; j < 16; ++j)
+        for (int j = 0; j < HWG / 8; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int col = cq + 8 * j + (e & 1);
             float h, d;
-            act_eval(a64[4 * j + e] + b1[col], 1.f, h, d);
+            act_eval(ah[4 * j + e] + b1[col], 1.f, h, d);
             const float hb = SPLIT ? h : bf16_round(h);
             if (q == 0) {
 #pragma unroll

@@ -7,28 +7,31 @@
 // Replaces: brdfnerf_tpu/ops/pallas_trunk_heads.py::_bwd_kernel_h
 // (pallas_call at pallas_trunk_heads.py:416).
 //
-// What bounds it: tensor-core operations.  A point costs K3's 15,051,776 FLOP
-// plus 4,727,808 for the heads (their recompute from zs, the a_xf and a_h
-// products, and the outer products of dW_f and dW_1) and 3,670,016 for the
-// rebuilt b_th chain, 23.4 MFLOP in all, against about 10 KB of input:
-// 3.1 ms at 131,072 points.  What holds it back on the card is K3's memory
+// What bounds it: tensor-core operations.  At width 512 a point costs K3's
+// 15,051,776 FLOP plus 4,727,808 for the heads (their recompute from zs,
+// the a_xf and a_h products, and the outer products of dW_f and dW_1) and
+// 3,670,016 for the rebuilt b_th chain, 23.4 MFLOP in all, against about
+// 10 KB of input: 3.1 ms at 131,072 points (tools/width_check.trunk_work
+// counts every width).  What holds it back on the card is K3's memory
 // traffic (trunk_bwd.cuh) plus ~14 KB a point of the heads' operands and
 // 16 KB of the f32 b_th chain through device memory.
 //
 // Design (trunk_bwd.cuh): K3's sweep, weight-gradient and reduce kernels.
 // Between the sigma head and the reverse sweep, the sweep recomputes the
 // head block from h_{L-1} (xf, then the first head layers in four
-// 256-column passes, all on K3's wgmma path and weight ring), writes
-// c_z1 = act'(z1) (c_z2 W_2) of each pass to global memory by TMA stores
-// from its swizzled tile, with the per-tile column sums of db_1 and dW_2
-// (the second layers have 3 output columns, so their weight grads are
-// column sums too), reloads c_z1 one 64 x 256 chunk at a time by TMA as the
-// A operand of a_xf = sum c_z1 W_1 (the tile of the encoding's tangent,
-// idle by then, grows to hold the chunk), and seeds the trunk's a_h with
-// a_xf W_f in place of K3's c_feats.  The weight-gradient kernel takes 24
-// more 128 x 256 tiles, dW_f = h^T a_xf and [dW_1r | dW_1p] = xf^T
-// [c_z1r | c_z1p] with K = points, in their own number of slices.  No
-// atomics: the result is deterministic.
+// HID-column passes, HID = F / 2, all on K3's wgmma path and weight ring),
+// writes c_z1 = act'(z1) (c_z2 W_2) of each pass to global memory by TMA
+// stores from its swizzled tile (at width 64, whose 32-column heads are
+// narrower than a TMA box, by plain stores), with the per-tile column sums
+// of db_1 and dW_2 (the second layers have 3 output columns, so their
+// weight grads are column sums too), reloads c_z1 one 64 x HID chunk at a
+// time by TMA as the A operand of a_xf = sum c_z1 W_1 (the tile of the
+// encoding's tangent, idle by then, grows to hold the chunk), and seeds
+// the trunk's a_h with a_xf W_f in place of K3's c_feats.  The
+// weight-gradient kernel takes dW_f = h^T a_xf and [dW_1r | dW_1p] = xf^T
+// [c_z1r | c_z1p] with K = points, in 128 x min(F, 256) tiles of their own
+// (24 at width 512, 3 at 64, whose second 64 rows are masked), in their
+// own number of slices.  No atomics: the result is deterministic.
 //
 // The b_th chain: the Pallas kernel rebuilds it in f32 from w_sigma and the
 // saved zs, and so does K5, in a fourth kernel launched before the sweep:
@@ -38,7 +41,7 @@
 // of 64-point tiles; z of each layer through the ring in 64 x 64 boxes).
 // It writes b_th of every layer in f32, in the layout of the sweep's tz
 // scratch (uc: element j, e of consumer thread c of layer l of tile t at
-// ((t L + l) 128 + 4 j + e) 256 + c), and the sweep reads it through its
+// ((t L + l) F / 4 + 4 j + e) 256 + c), and the sweep reads it through its
 // ring where K3 reads K2's bf16 us (with f32 zs, ZF32, each thread reads
 // its own elements of it from device memory).  The forward's u chain is no substitute:
 // it runs on f32 z where this one runs on the bf16 zs (the Pallas
@@ -50,14 +53,11 @@
 // trunk's and the heads' W_f, W_1r, W_1p as hi and lo planes, W_2 in f32,
 // the heads' weight-gradient operands (h, xf, a_xf, c_z1) as hi and lo
 // planes, nothing rounded to bf16.  The sweep then keeps K3's 64 x 128 t
-// tile and takes the c_z1 chunks in halves (trunk_bwd.cuh); the chain
-// kernel holds b_tz as hi and lo tiles beside a two-stage ring.
+// tile and takes the c_z1 chunks 128 columns at most (in halves at width
+// 512: trunk_bwd.cuh head_kh); the chain kernel holds b_tz as hi and lo
+// tiles beside a two-stage ring.
 
 #include "trunk_bwd.cuh"
-
-// K4/K5's head block (HID-shaped products, row reductions and partial-sum
-// layout) is built for the flagship's width alone
-static_assert(trunk::F == 512, "K4/K5 take the trunk width 512 only");
 
 namespace trunk {
 
@@ -66,7 +66,7 @@ namespace trunk {
 // two stages), barriers, per-row vectors
 template <bool SPLIT>
 __host__ __device__ constexpr int uc_lo() {
-  return SPLIT ? 8 * ACT_BLOCK : 0;
+  return SPLIT ? FA * ACT_BLOCK : 0;
 }
 template <bool SPLIT>
 __host__ __device__ constexpr int uc_ring_n() {
@@ -74,7 +74,7 @@ __host__ __device__ constexpr int uc_ring_n() {
 }
 template <bool SPLIT>
 __host__ __device__ constexpr int uc_ring() {
-  return 8 * ACT_BLOCK + uc_lo<SPLIT>();
+  return FA * ACT_BLOCK + uc_lo<SPLIT>();
 }
 template <bool SPLIT>
 __host__ __device__ constexpr int uc_rows() {
@@ -147,14 +147,15 @@ __global__ void __launch_bounds__(NTB, 1)
   const int wg = tid >> 7, t = tid & 127, w = t >> 5, l = t & 31;
   const bool leader = l == 0;
   const int r0 = w * 16 + (l >> 2);          // rows r0 and r0 + 8
-  const int cb = wg * 256 + 2 * (l & 3);     // column of j = 0, e = 0
+  const int cb = wg * NWG + 2 * (l & 3);     // column of j = 0, e = 0
   const float* __restrict__ wsig = p.wsig;
   R r = {0, 0};
-  float acc[128];
+  float acc[NWG / 2];
 
   // z of accumulators 4j..4j+3 (rows r0 and r0 + 8) of layer i from the
-  // ring stage that holds them: two j-groups a stage, both warpgroups'
-  // 64 x 64 blocks side by side (produce_fwd_data); ZF32: from zsf
+  // ring stage that holds them: JPS j-groups a stage, both warpgroups'
+  // 64 x 64 blocks side by side, or at width 64 one block for both
+  // (produce_fwd_data, trunk_bwd.cuh); ZF32: from zsf
   const size_t lf = (size_t)layers * F;
   size_t zrow = 0;                           // ZF32: the tile's rows r0
   auto z_of = [&](int j, int i) {
@@ -165,9 +166,9 @@ __global__ void __launch_bounds__(NTB, 1)
       zb = glob_f2(zp + 8 * lf);
     } else {
       const unsigned char* zb4 = ring + r.stage * RING_STAGE +
-                                 ((j >> 3) & 1) * 2 * ACT_BLOCK +
-                                 wg * ACT_BLOCK;
-      const int cz = 8 * (j & 7) + 2 * (l & 3);
+                                 ((j / JJ) % JPS) * ZB * ACT_BLOCK +
+                                 zb_of(wg) * ACT_BLOCK;
+      const int cz = zc_of(wg) + 8 * (j % JJ) + 2 * (l & 3);
       za = stage_bf2(zb4 + sm90::sw128_offset(r0, cz, 0));
       zb = stage_bf2(zb4 + sm90::sw128_offset(r0 + 8, cz, 0));
     }
@@ -180,15 +181,17 @@ __global__ void __launch_bounds__(NTB, 1)
     put2_s<SPLIT, LO>(act, r0 + 8, col, acc[4 * j + 2], acc[4 * j + 3]);
   };
 
+  // a stage of z holds JPS j-groups of JJ j each
+  constexpr int JS = JPS * JJ;
   for (int tile = blockIdx.x; tile < p.n_tiles; tile += gridDim.x) {
-    float* out = uc + (size_t)tile * layers * 128 * NC + tid;
+    float* out = uc + (size_t)tile * layers * (NWG / 2) * NC + tid;
     zrow = ((size_t)tile * T + r0) * lf;
     // ------- zsig from h_{L-1} = act(z_{L-1}), as the sweep computes it;
     // act'(z_{L-1}) into acc
     float pz[2] = {0.f, 0.f};
 #pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      if (!ZF32 && j % 16 == 0) sm90::mbar_wait(&full[r.stage], r.phase);
+    for (int j = 0; j < NWG / 8; ++j) {
+      if (!ZF32 && j % JS == 0) sm90::mbar_wait(&full[r.stage], r.phase);
       const float4 z4 = z_of(j, last);
       const float zz[4] = {z4.x, z4.y, z4.z, z4.w};
 #pragma unroll
@@ -197,7 +200,7 @@ __global__ void __launch_bounds__(NTB, 1)
         act_eval(zz[e], 1.f, h, acc[4 * j + e]);
         pz[e >> 1] += rnd(h) * wsig[cb + 8 * j + (e & 1)];
       }
-      if (!ZF32 && j % 16 == 15) {
+      if (!ZF32 && j % JS == JS - 1) {
         release(empty, r.stage);
         r.advance();
       }
@@ -217,10 +220,10 @@ __global__ void __launch_bounds__(NTB, 1)
     sm90::named_sync(BAR_C, NC);
     // ------- b_th_{L-1} = bf16(sigmoid(zsig)) w_sigma; b_tz = act' b_th
     {
-      float* o = out + (size_t)last * 128 * NC;
+      float* o = out + (size_t)last * (NWG / 2) * NC;
       const float s0 = rowv[r0], s1 = rowv[r0 + 8];
 #pragma unroll
-      for (int j = 0; j < 32; ++j) {
+      for (int j = 0; j < NWG / 8; ++j) {
         const float2 ws = *reinterpret_cast<const float2*>(wsig + cb + 8 * j);
         const float bt[4] = {s0 * ws.x, s0 * ws.y, s1 * ws.x, s1 * ws.y};
 #pragma unroll
@@ -235,17 +238,17 @@ __global__ void __launch_bounds__(NTB, 1)
     sm90::named_sync(BAR_C, NC);     // b_tz is the next product's A
     // --------------------- b_th_{i-1} = b_tz_i W_i, i = L-1 down to 1
     for (int i = last; i >= 1; --i) {
-      consume_s<256, 1, SPLIT, LO>(acc, act, F, act, F / KSL, false, r, full,
+      consume_s<NWG, 1, SPLIT, LO>(acc, act, F, act, F / KSL, false, r, full,
                                    empty, ring, wg, leader);
-      float* o = out + (size_t)(i - 1) * 128 * NC;
+      float* o = out + (size_t)(i - 1) * (NWG / 2) * NC;
 #pragma unroll
-      for (int k = 0; k < 128; ++k) __stcs(o + k * NC, acc[k]);
+      for (int k = 0; k < NWG / 2; ++k) __stcs(o + k * NC, acc[k]);
       if (i == 1) break;
       sm90::named_sync(BAR_C, NC);   // both products read act
       // b_tz_{i-1} = act'(z_{i-1}) b_th_{i-1}, z from the ring
 #pragma unroll
-      for (int j = 0; j < 32; ++j) {
-        if (!ZF32 && j % 16 == 0) sm90::mbar_wait(&full[r.stage], r.phase);
+      for (int j = 0; j < NWG / 8; ++j) {
+        if (!ZF32 && j % JS == 0) sm90::mbar_wait(&full[r.stage], r.phase);
         const float4 z4 = z_of(j, i - 1);
         const float zz[4] = {z4.x, z4.y, z4.z, z4.w};
 #pragma unroll
@@ -255,7 +258,7 @@ __global__ void __launch_bounds__(NTB, 1)
           acc[4 * j + e] *= d;
         }
         put4(j);
-        if (!ZF32 && j % 16 == 15) {
+        if (!ZF32 && j % JS == JS - 1) {
           release(empty, r.stage);
           r.advance();
         }
@@ -270,19 +273,20 @@ __global__ void __launch_bounds__(NTB, 1)
 
 using namespace trunk;
 
-// x, cg (n_rows, 128) f32, cot (n_rows, 8) f32, zs (n_rows, layers * 512),
+// x, cg (n_rows, 128) f32, cot (n_rows, 8) f32, zs (n_rows, layers * F),
 // f32 when zs_f32 (the mixed bfloat16 contract) else bf16, with
 // n_rows % 64 == 0; trunk weights as trunk_bwd_launch, heads as
 // trunk_heads_fwd_launch (split: the float32 instantiation, f32 zs, the
-// weights as hi and lo planes, w2r and w2p f32).  Scratch: uc (n_rows *
-// layers * 512 f32, the rebuilt b_th chain), K3's (part (n/64, (layers+1)
-// * 512 + HEAD_PART) f32, wpart_tiles = (8 layers - 4) x splits_trunk +
-// 24 x splits_heads partial tiles in wpart), then hl, xfb, axf (P, n, 512)
-// and cz1 (P, n, 1024) bf16, P = 1 plane (split: 2, hi then lo).  Outputs
-// f32 in (in, out) layout: K3's, then dwf (512, 512), dbf (512,), dw1
-// (512, 1024) = [dW_1r | dW_1p], db1 (1024,), dw2r
-// (256, 128), db2r (128,), dw2p (768, 128), db2p (128,), whose columns >= 3
-// the kernels leave as they find them.  Four kernels on the stream (the
+// weights as hi and lo planes, w2r and w2p f32), all at the library's
+// width F, HID = F / 2.  Scratch: uc (n_rows * layers * F f32, the rebuilt
+// b_th chain), K3's (part (n/64, (layers+1) * F + HEAD_PART) f32,
+// wpart_tiles partial tiles in wpart: ops/fused_trunk_vjp.wgrad_tiles
+// with the heads, times splits_trunk and splits_heads), then hl, xfb, axf
+// (P, n, F) and cz1 (P, n, 4 HID) bf16, P = 1 plane (split: 2, hi then
+// lo).  Outputs f32 in (in, out) layout: K3's, then dwf (F, F), dbf (F,),
+// dw1 (F, 4 HID) = [dW_1r | dW_1p], db1 (4 HID,), dw2r (HID, 128), db2r
+// (128,), dw2p (3 HID, 128), db2p (128,), whose columns >= 3 the kernels
+// leave as they find them.  Four kernels on the stream (the
 // b_th chain, then K3's three); returns a cudaError_t.
 extern "C" int trunk_heads_bwd_launch(
     const float* x, const float* cot, const float* cg, const void* zs,

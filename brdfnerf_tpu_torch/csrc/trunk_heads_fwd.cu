@@ -9,20 +9,24 @@
 // Replaces: brdfnerf_tpu/ops/pallas_trunk_heads.py::_fwd_kernel_h
 // (pallas_call at pallas_trunk_heads.py:364), with and without zs.
 //
-// What bounds it: tensor-core operations.  A point costs K2's 7,586,816 FLOP
-// plus 787,968 multiply-adds for the heads (9.16 MFLOP in all), against
-// 512 bytes of input and 544 bytes of output (8 KB more with zs).
+// What bounds it: tensor-core operations.  At width 512 a point costs K2's
+// 7,586,816 FLOP plus 787,968 multiply-adds for the heads (9.16 MFLOP in
+// all), against 512 bytes of input and 544 bytes of output (8 KB more with
+// zs).  The heads add 3 F^2 + 3 F multiply-adds a point at width F (12,480
+// at 64, 49,536 at 128, 197,376 at 256); tools/width_check.trunk_work
+// counts every width's bytes and operations.
 //
 // Design (trunk_fwd_grad.cuh, on sm90_trunk.cuh): K2's warp-specialised
 // tile loop.  After the last trunk layer h replaces the layer's input in the
 // activation tile and act'(z_{L-1}) goes to the block's scratch, so that the
 // registers of the pre-activations are free for the head products; xf then
 // replaces h in the same tile.  The first head layers run as four
-// 256-column products (rgb, then k, theta and rho_c from the merged W_1p),
-// each warpgroup taking 128 columns, each followed by its activation; the
-// second layers have 3 output columns in all, so each logit is a row
-// reduction of bf16(hidden) against its weight row (as the sigma head is),
-// and no hidden activation reaches shared memory.  Rounding points are the
+// HID-column products, HID = F / 2 (rgb, then k, theta and rho_c from the
+// merged W_1p), each warpgroup taking HID / 2 columns (wgmma n128 at width
+// 512, n16 at 64), each followed by its activation; the second layers
+// have 3 output columns in all, so each logit is a row reduction of
+// bf16(hidden) against its weight row (as the sigma head is), and no
+// hidden activation reaches shared memory.  Rounding points are the
 // Pallas kernel's: bf16 operands (h, xf, the hidden activations) with f32
 // sums.  At compute_dtype float32 (split) every product of f32 operands
 // runs as three on their bf16 hi and lo terms, the head weights W_f, W_1r
@@ -32,19 +36,15 @@
 
 #include "trunk_fwd_grad.cuh"
 
-// K4/K5's head block (HID-shaped products, row reductions and partial-sum
-// layout) is built for the flagship's width alone
-static_assert(trunk::F == 512, "K4/K5 take the trunk width 512 only");
-
 using namespace trunk;
 
 // x (n_rows, 128) f32 with n_rows % 64 == 0; trunk weights as
 // trunk_fwd_grad_launch; heads as ops/fused_trunk_heads.pack_head_weights
-// at width 512 (bf16 weights, f32 biases; with split, wf, w1r and w1p as
-// (2, ...) hi and lo planes and w2r, w2p f32).  Outputs out (n_rows, 8)
+// at the library's width F (bf16 weights, f32 biases; with split, wf, w1r
+// and w1p as (2, ...) hi and lo planes and w2r, w2p f32).  Outputs out (n_rows, 8)
 // f32, gx (n_rows, 128) f32, and, when zs is not null, zs (n_rows, layers
-// * 512), f32 when zs_f32 (the mixed bfloat16 and float32 contracts) else
-// bf16.  scratch holds n_blocks * layers * 64 * 512 floats.
+// * F), f32 when zs_f32 (the mixed bfloat16 and float32 contracts) else
+// bf16.  scratch holds n_blocks * layers * 64 * F floats.
 // Returns a cudaError_t.
 extern "C" int trunk_heads_fwd_launch(
     const float* x, int n_rows, int n_blocks, const void* w0, const float* b0,

@@ -269,9 +269,9 @@ def apply_network_with_normals(net: Network, cfg: ModelConfig, xyz,
     architecture fits it (kernel_supports); otherwise from autograd.  With
     BRDFNERF_FUSED_HEADS set (read per call, as the JAX package does) and
     the flagship head set (heads_kernel_supports), the heads run inside the
-    kernel pair too (ops/fused_trunk_heads.py); on the card only at the
-    width K4/K5 are built for (heads_cuda_cover), elsewhere they run in
-    torch on K2 + K3."""
+    kernel pair too (ops/fused_trunk_heads.py): on the card at every width
+    K4/K5 are built for (heads_cuda_cover: the widths of K1-K3), on the
+    CPU in their twins at any width."""
     if fused_trunk:
         from ..ops.fused_mlp import kernel_supports
         fused_trunk = kernel_supports(cfg)

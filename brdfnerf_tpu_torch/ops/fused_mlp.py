@@ -36,7 +36,7 @@ from .cuda_build import WIDTHS, CudaKernel
 
 TILE_N = 64        # points per CUDA block
 LANE = 128         # encoding width the kernels take
-FEAT = 512         # the flagship's trunk width (K4/K5's only one)
+FEAT = 512         # the flagship's trunk width
 # the trunk widths K1-K3 are built for (ops/cuda_build.library_key)
 CUDA_WIDTHS = WIDTHS
 

@@ -48,7 +48,7 @@ import torch
 
 from ..config import ModelConfig
 from .cuda_build import CudaKernel
-from .fused_mlp import (FEAT, LANE, TILE_N, _round_up, act_of,
+from .fused_mlp import (CUDA_WIDTHS, FEAT, LANE, TILE_N, _round_up, act_of,
                         check_kernel_inputs, kernel_supports,
                         pack_trunk_weights, pad_rows_lanes, split_operands,
                         split_planes, trunk_weight_ptrs, weight_dtype)
@@ -62,11 +62,6 @@ from .fused_trunk_vjp import (SPLIT3, _act_all, _bwd_primal_tangent,
 HEAD_COLS = 8       # packed logits: sigma, rgb x3, k, theta, rhoc, pad
 RPV_NAMES = ("k_from_xyz", "theta_rpv_from_xyz", "rhoc_from_xyz")
 HEAD_NAMES = ("feats_from_xyz", "rgb_from_xyzdir") + RPV_NAMES
-HID = FEAT // 2     # the heads' hidden width the CUDA kernels take
-# per-tile partial sums K5 keeps for the heads beside K3's: db_f, db_1
-# (rgb | rpv), dW_2 for each of 3 logit columns over the 4 * HID hidden
-# units, db_2 (6, padded to 8); the layout of csrc/trunk_heads_bwd.cu
-HEAD_PART = FEAT + 4 * HID + 3 * 4 * HID + 8
 # the head weights K4 and K5 stream through tensor cores, and the key of
 # their hi/lo planes (at float32, as fused_mlp.PLANE_KEYS for the trunk)
 HEAD_PLANE_KEYS = {"wf": "wf_planes", "w1r": "w1r_planes",
@@ -112,12 +107,42 @@ def heads_kernel_supports(cfg: ModelConfig, net, dirs=None, t_emb=None,
 
 
 def heads_cuda_cover(cfg: ModelConfig) -> bool:
-    """True where K4/K5 are built for the model's trunk width: FEAT
-    alone (csrc/trunk_heads_*.cu; K1-K3 take every width of
-    fused_mlp.CUDA_WIDTHS).  On the card at another width the heads run in
-    torch on K2 + K3 (models.network.apply_network_with_normals); on the
-    CPU the heads' twins take every width."""
-    return cfg.feat == FEAT
+    """True where K4/K5 are built for the model's trunk width: every
+    width of fused_mlp.CUDA_WIDTHS, as K1-K3 (csrc/trunk_heads_*.cu, one
+    library a width).  At any other width no trunk kernel runs on the card;
+    on the CPU the heads' twins take every width."""
+    return cfg.feat in CUDA_WIDTHS
+
+
+def head_part(feat: int) -> int:
+    """The per-tile partial sums K5 keeps for the heads beside K3's at
+    trunk width `feat` (HID = feat / 2): db_f, db_1 (rgb | rpv), dW_2 for
+    each of 3 logit columns over the 4 HID hidden units, db_2 (6, padded
+    to 8); the layout of csrc/trunk_bwd.cuh HEAD_PART."""
+    hid = feat // 2
+    return feat + 4 * hid + 3 * 4 * hid + 8
+
+
+def head_part_grads(part: torch.Tensor, layers: int, feat: int):
+    """The heads' bias and second-layer grads K5's reduce kernel makes of
+    its per-tile partials `part` (n_tiles, (layers + 1) F + head_part(F))
+    f32, in plain PyTorch: the head columns summed over the tiles and laid
+    out as csrc/trunk_bwd.cuh's reduce kernel writes them, (dbf (F,), db1
+    (4 HID,) = [db_1r | db_1p], dw2r (HID, LANE), db2r (LANE,), dw2p
+    (3 HID, LANE), db2p (LANE,)), the columns past the 3 logits zero."""
+    hid = feat // 2
+    s = part[:, (layers + 1) * feat:].sum(0)
+    dbf, db1 = s[:feat], s[feat:feat + 4 * hid]
+    # dW_2: logit column c of hidden unit k at c * 4 HID + k
+    dw2 = s[feat + 4 * hid:feat + 16 * hid].view(3, 4 * hid).t()
+    db2 = s[feat + 16 * hid:feat + 16 * hid + 6]
+
+    def z(*shape):
+        return torch.zeros(*shape, dtype=s.dtype, device=s.device)
+    dw2r, dw2p, db2r, db2p = z(hid, LANE), z(3 * hid, LANE), z(LANE), z(LANE)
+    dw2r[:, :3], dw2p[:, :3] = dw2[:hid], dw2[hid:]
+    db2r[:3], db2p[:3] = db2[:3], db2[3:]
+    return dbf, db1, dw2r, db2r, dw2p, db2p
 
 
 def pack_head_weights(net, cfg: ModelConfig, dtype: torch.dtype,
@@ -241,16 +266,18 @@ def uchain_plain(packed: Dict, cfg: ModelConfig, zs, od=None) -> torch.Tensor:
     return torch.cat(out, 1)
 
 
-def uchain_from_kernel(uc: torch.Tensor, n: int, layers: int) -> torch.Tensor:
-    """K5's rebuilt b_th chain (csrc/trunk_heads_bwd.cu: element j, e of
-    consumer thread c of layer l of tile t at ((t L + l) 128 + 4 j + e) 256
-    + c, as the wgmma accumulators hold it) as (n, L*F), uchain_plain's
-    layout.  Thread c = 128 wg + 32 w + 4 q + p holds rows 16 w + q + 8 hf
-    and columns 256 wg + 8 j + 2 p + e1 (e = 2 hf + e1)."""
-    v = uc[:n * layers * FEAT].view(n // TILE_N, layers, 32, 2, 2, 2, 4, 8,
-                                    4)
+def uchain_from_kernel(uc: torch.Tensor, n: int, layers: int,
+                       feat: int = FEAT) -> torch.Tensor:
+    """K5's rebuilt b_th chain at trunk width F = `feat` (csrc/
+    trunk_heads_bwd.cu: element j, e of consumer thread c of layer l of
+    tile t at ((t L + l) F / 4 + 4 j + e) 256 + c, as the wgmma
+    accumulators hold it, j < F / 16) as (n, L*F), uchain_plain's layout.
+    Thread c = 128 wg + 32 w + 4 q + p holds rows 16 w + q + 8 hf and
+    columns F / 2 wg + 8 j + 2 p + e1 (e = 2 hf + e1)."""
+    v = uc[:n * layers * feat].view(n // TILE_N, layers, feat // 16, 2, 2,
+                                    2, 4, 8, 4)
     # (tile, l, j, hf, e1, wg, w, q, p) -> (tile, w, hf, q, l, wg, j, p, e1)
-    return v.permute(0, 6, 3, 7, 1, 5, 2, 8, 4).reshape(n, layers * FEAT)
+    return v.permute(0, 6, 3, 7, 1, 5, 2, 8, 4).reshape(n, layers * feat)
 
 
 def _trunk_heads_bwd_plain(packed: Dict, hw: Dict, cfg: ModelConfig, x, cot,
@@ -312,13 +339,14 @@ def check_head_weights(cfg: ModelConfig, hw: Dict, x: torch.Tensor):
     """What K4 and K5 take of the packed heads, the operands of the
     configuration's dtype: bf16 weights at a bf16 compute dtype; at float32
     f32 weights with the split_planes of wf, w1r and w1p beside them
-    (HEAD_PLANE_KEYS), at the trunk width FEAT (heads_cuda_cover).
-    Anything else raises."""
+    (HEAD_PLANE_KEYS), in the shapes of the trunk width cfg.feat, one of
+    the widths they are built for (heads_cuda_cover).  Anything else
+    raises."""
     if not heads_cuda_cover(cfg):
-        raise ValueError(f"K4/K5 take the trunk width {FEAT} alone (got "
-                         f"feat={cfg.feat}); at this width the heads run in "
-                         "torch on K2 + K3")
-    f, h = FEAT, HID
+        raise ValueError(f"K4/K5 take the trunk widths {CUDA_WIDTHS} (got "
+                         f"feat={cfg.feat}); this model runs with the fused "
+                         "kernels off")
+    f, h = cfg.feat, cfg.feat // 2
     shapes = {"wf": (f, f), "bf": (f,), "w1r": (h, f), "b1r": (h,),
               "w2r": (LANE, h), "b2r": (LANE,), "w1p": (3 * h, f),
               "b1p": (3 * h,), "w2p": (LANE, 3 * h), "b2p": (LANE,)}
@@ -366,7 +394,7 @@ def _trunk_heads_fwd_cuda(packed: Dict, hw: Dict, cfg: ModelConfig, x,
     if want_zs:
         shape, dt = saved_spec(cfg, n)
         zs = torch.empty(shape, dtype=dt, device=dev)
-    n_blocks, scratch = fwd_scratch(n, cfg.layers, True, dev)
+    n_blocks, scratch = fwd_scratch(n, cfg.layers, True, dev, cfg.feat)
     w0, w_mid, w_skip = trunk_weight_ptrs(cfg, packed)
     TRUNK_HEADS_FWD(
         x.data_ptr(), n, n_blocks, w0, packed["b0"].data_ptr(), w_mid,
@@ -377,7 +405,8 @@ def _trunk_heads_fwd_cuda(packed: Dict, hw: Dict, cfg: ModelConfig, x,
         None if zs is None else zs.data_ptr(),
         int(zs is not None and zs.dtype == torch.float32),
         int(split_operands(cfg)), cfg.layers, cfg.skips[0],
-        torch.cuda.current_stream(dev).cuda_stream, act=act_of(cfg))
+        torch.cuda.current_stream(dev).cuda_stream, act=act_of(cfg),
+        feat=cfg.feat)
     return out, gx, zs
 
 
@@ -409,7 +438,7 @@ def _trunk_heads_bwd_cuda(packed: Dict, hw: Dict, cfg: ModelConfig, x, cot,
     uchain_from_kernel)."""
     check_bwd_h_inputs(cfg, packed, hw, x, cot, cg, zs)
     n, dev = x.shape[0], x.device
-    layers, F, H = cfg.layers, FEAT, HID
+    layers, F, H = cfg.layers, cfg.feat, cfg.feat // 2
 
     def f32(*shape):
         return torch.empty(*shape, dtype=torch.float32, device=dev)
@@ -429,11 +458,11 @@ def _trunk_heads_bwd_cuda(packed: Dict, hw: Dict, cfg: ModelConfig, x, cot,
     # a_xf and the first layers' cotangents [c_z1r | c_z1p] (at float32
     # each as its hi and lo planes)
     uc = f32(n * layers * F)
-    splits_t, splits_h, wpart = wgrad_scratch(n, layers, True, dev, split)
+    splits_t, splits_h, wpart = wgrad_scratch(n, layers, True, dev, split, F)
     pl, hp = (4, 2) if split else (2, 1)
     scratch = (bf(pl, n, LANE), bf(layers - 1, pl, n, F),
                bf(layers, pl, n, F),
-               f32(n_tiles, (layers + 1) * F + HEAD_PART), f32(n_tiles),
+               f32(n_tiles, (layers + 1) * F + head_part(F)), f32(n_tiles),
                f32(n_blocks, layers, TILE_N * F), wpart)
     head_ops = (bf(hp, n, F), bf(hp, n, F), bf(hp, n, F), bf(hp, n, 4 * H))
     trunk = (f32(LANE, F), f32(F), f32(layers - 2, F, F), f32(layers - 2, F),
@@ -452,7 +481,7 @@ def _trunk_heads_bwd_cuda(packed: Dict, hw: Dict, cfg: ModelConfig, x, cot,
         *(v.data_ptr() for v in head_ops), *(v.data_ptr() for v in trunk),
         *(v.data_ptr() for v in heads), int(zs.dtype == torch.float32),
         int(split), layers, cfg.skips[0],
-        torch.cuda.current_stream(dev).cuda_stream, act=act_of(cfg))
+        torch.cuda.current_stream(dev).cuda_stream, act=act_of(cfg), feat=F)
     if scratch_out is not None:
         scratch_out.update(zip(("xt", "hth", "azbtz", "part", "pbs"), scratch))
         scratch_out.update(zip(("hl", "xfb", "axf", "cz1"), head_ops))

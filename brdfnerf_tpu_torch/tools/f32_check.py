@@ -119,7 +119,9 @@ def hold_f32(label, names, got, bf16, ref, report, closer=CLOSER,
     than the bfloat16_all kernel's; returns the largest relative L2 and
     the smallest ratio.  With `sum_scale` (dbsig_scale) the sigma head's
     bias gradient is measured against its terms' L2 norm (dbsig_error),
-    as the bfloat16 contract measures it, its relative L2 printed beside."""
+    as the bfloat16 contract measures it, its relative L2 printed beside,
+    and its ratio held to K3's CLOSER where `closer` asks more (K5's sigma
+    head is K3's sweep's; on that norm the bf16 error is small too)."""
     worst, ratio = 0.0, float("inf")
     split = [None] * len(names) if split is None else split
     for name, g_, b_, r_, s_ in zip(names, got, bf16, ref, split):
@@ -143,7 +145,8 @@ def hold_f32(label, names, got, bf16, ref, report, closer=CLOSER,
         worst = max(worst, e)
         if name in SUMS_ONLY:
             continue
-        assert eb >= closer * e, (label, name, e, eb)
+        assert eb >= (min(closer, CLOSER) if terms else closer) * e, (
+            label, name, e, eb)
         ratio = min(ratio, eb / max(e, 1e-30))
     report[label] = {"rel_l2": worst, "bf16_over_f32": ratio}
     return worst, ratio

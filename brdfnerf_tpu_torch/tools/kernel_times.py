@@ -14,8 +14,8 @@ K3, K4 saving zs and K5 at bfloat16 (f32 zs/us).  Each is the mean of
 --reps launches (default 10) after one, by CUDA events, and the last line
 is a JSON object {instantiation: ms}.  It uses nothing newer than those
 wrappers, so that the file copied into an older checkout times that
-checkout's kernels.  --feat 64, 128 or 256 times K1-K3 at that trunk
-width instead (the same shapes; K4/K5 take 512 alone).
+checkout's kernels.  --feat 64, 128 or 256 times them at that trunk
+width instead (the same shapes).
 
 --ab runs the first form from this checkout and from OTHER_ROOT (a copy of
 this file placed in its tools/) in turns, OTHER, this, this, OTHER,
@@ -93,7 +93,7 @@ def measure(reps: int = 10, feat: int = 512):
             lambda: k2._trunk_fwd_grad_cuda(p, cfg, x3, True), reps)
         out["K3" + tag] = _time(
             lambda: k2._trunk_bwd_cuda(p, cfg, x3, cs, cf, cg, zs, us), reps)
-        if dtype == "float32" or feat != 512:
+        if dtype == "float32":
             continue
         hw = k4.pack_head_weights(net, cfg, torch.bfloat16)
         zs4 = k4._trunk_heads_fwd_cuda(p, hw, cfg, x3, True)[2]

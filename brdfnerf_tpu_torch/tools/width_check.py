@@ -1,4 +1,4 @@
-"""K1-K3 at the trunk widths 64, 128 and 256 (--fc_feat) on the card, held
+"""K1-K5 at the trunk widths 64, 128 and 256 (--fc_feat) on the card, held
 against their plain twins, and timed at the main paths' shapes.
 
     python3 -m brdfnerf_tpu_torch.tools.width_check [points ...]
@@ -10,23 +10,30 @@ flagship's RPV heads, weights from seed 0), at each size (default 192
 and 8,448: a ragged wave of 3 tiles, and one tile for each of the H100's
 132 SMs), at every compute dtype the kernels take with the polynomial
 sine, and at width 64 also with the exact sine and ReLU: K1 with and
-without feats, K2 serving and saving zs/us, and K3, each launched twice
-with bit-identical outputs and held to its twin by relative L2 over each
-output tensor, at the bounds of the width-512 rows (tools/act_check.py,
-tools/f32_check.py):
+without feats, K2 serving and saving zs/us, K3, K4 serving and saving
+zs, and K5 (on K4's zs), each launched twice with bit-identical outputs
+and held to its twin by relative L2 over each output tensor, at the
+bounds of the width-512 rows (tools/act_check.py, tools/f32_check.py):
   * bfloat16_all and bfloat16: the twin of the same dtype at
     act_check.BF16_BOUND (K1 at K1_BOUND), the sigma head's bias gradient
     at that bound of its terms' L2 norm, ReLU's kinked outputs at
     RELU_KINKED_BOUND;
   * float32: the exact-f32 twin at f32_check.F32_BOUND, and CLOSER times
-    closer than the bfloat16_all kernel on the same inputs.
+    closer than the bfloat16_all kernel on the same inputs (K4/K5:
+    HEADS_CLOSER, and their split twins at F32_BOUND too; at the exact
+    sine and ReLU the 512 rows' act_check bounds, without the ratio);
+  * K4's sigma and gx bit for bit K2's, its padded logit column and gx
+    lanes 0, K5's rebuilt b_th chain within UCHAIN_BOUND of uchain_plain
+    and its reduced head grads within PART_BOUND of the sums of its
+    per-tile partials (fused_trunk_heads.head_part_grads).
 --times does the same for every instantiation at its main path's shape
-(kernel_rows: K1 at 327,680 points, K2 at 655,360, K2 saving zs/us and K3
-at 131,072, where each persistent block runs several tiles), at the
-widths given (default 64, 128 and 256), and times it beside its twin and
-the torch.matmul chain of the same products, with its bound (trunk_work,
-bound_ms).  This is the one command line for the widths' checks and
-times; chip_smoke.py's `widths` phase runs both (check_all, kernel_rows).
+(kernel_rows and heads_rows: K1 at 327,680 points, K2 and K4 at 655,360,
+K2 saving zs/us, K3, K4 saving zs and K5 at 131,072, where each
+persistent block runs several tiles), at the widths given (default 64,
+128 and 256), and times it beside its twin and the torch.matmul chain of
+the same products, with its bound (trunk_work, bound_ms).  This is the
+one command line for the widths' checks and times; chip_smoke.py's
+`widths` phase runs both (check_all, kernel_rows, heads_rows).
 Prints the card's name and power limit first and a JSON summary last;
 exits 1 where a check missed its bound.
 """
@@ -40,11 +47,13 @@ import sys
 import torch
 
 from ..ops import fused_mlp as k1
+from ..ops import fused_trunk_heads as k4
 from ..ops import fused_trunk_vjp as k2
 from .act_check import (ACT_CONFIGS, BF16_BOUND, K1_BOUND, MISSES, _hold,
                         bound_of)
-from .f32_check import (K3_NAMES, cotangents, dbsig_scale, hold_f32,
-                        points, same_twice)
+from .f32_check import (CLOSER, F32_BOUND, HEADS_CLOSER, K3_NAMES,
+                        K5_NAMES, cotangents, dbsig_scale, hold_f32, points,
+                        rel_l2, same_twice)
 from .kernel_times import _time as timed
 
 # (width, layers, skip layer) of the configurations checked
@@ -54,6 +63,11 @@ WIDTHS = (64, 128, 256)
 DTYPES = ("bfloat16_all", "float32", "bfloat16")
 ACTS = {"poly": {"siren": True, "fast_sin": True}, **ACT_CONFIGS}
 SIZES = (192, 8448)
+# K5's rebuilt b_th chain against uchain_plain (K2's us bound: the same
+# bf16 operands, f32 sums in another order)
+UCHAIN_BOUND = 1e-2
+# K5's reduced head grads against the sum of its per-tile partials
+PART_BOUND = 1e-5
 # the H100's dense peaks: (bf16 tensor-core FLOP/s, HBM bytes/s)
 PEAKS = {"sxm": (989e12, 3.35e12), "pcie": (756e12, 2.0e12)}
 
@@ -78,16 +92,30 @@ def trunk_macs(cfg, ein):
     return ein * f + (layers - 2) * f * f + (ein + f) * f + f
 
 
-def trunk_work(kern: str, cfg, n: int, wbytes: int):
-    """(FLOPs, bytes) that K1, K2, K2zs (K2 saving zs/us) or K3 needs at n
-    points of cfg's trunk, at any width: the products at the encoding's
-    real width, each input read once and each output written once.  x, gx
-    and cg count at the encoding's cfg.xyz_in_dim f32 lanes (not the
-    kernels' 128-lane padding, which they neither need nor fill); sigma
-    and K3's c_sigma in f32; feats, zs, us and K3's c_feats at 2 bytes at
-    bfloat16_all, else 4 (f32 saved state); the weights' `wbytes` once;
-    K3's f32 weight gradients at their real shapes."""
+def head_macs(cfg):
+    """Multiply-adds per point of K4's head block at cfg's width F, HID =
+    F / 2: W_f, the first layers (rgb and the merged RPV, 4 HID wide), the
+    second layers (3 columns each): 3 F^2 + 3 F."""
+    f, hid = cfg.feat, cfg.feat // 2
+    return f * f + f * 4 * hid + 3 * hid + 3 * hid
+
+
+def trunk_work(kern: str, cfg, n: int, wbytes: int, hbytes: int = 0):
+    """(FLOPs, bytes) that K1, K2, K2zs (K2 saving zs/us), K3, K4, K4zs
+    (K4 saving zs) or K5 needs at n points of cfg's trunk, at any width:
+    the products at the encoding's real width, each input read once and
+    each output written once.  x, gx and cg count at the encoding's
+    cfg.xyz_in_dim f32 lanes (not the kernels' 128-lane padding, which
+    they neither need nor fill); sigma and K3's c_sigma in f32; feats, zs,
+    us and K3's c_feats at 2 bytes at bfloat16_all, else 4 (f32 saved
+    state); K4's packed logits and K5's logit cotangents 8 f32; the trunk
+    weights' `wbytes` and the heads' `hbytes` once; the f32 weight
+    gradients at their real shapes.  K4 is K2's work plus the heads'
+    (head_macs); K5 is K3's with the logit cotangents in place of c_feats
+    and no us, plus the heads' recompute and backward and the rebuilt u
+    chain (L - 1 products of F x F)."""
     ein, f, layers = cfg.xyz_in_dim, cfg.feat, cfg.layers
+    hid = f // 2
     macs = trunk_macs(cfg, ein)
     xb = ein * 4
     ab = 2 if cfg.compute_dtype == "bfloat16_all" else 4
@@ -98,12 +126,26 @@ def trunk_work(kern: str, cfg, n: int, wbytes: int):
         saved = zbytes if kern == "K2zs" else 0
         return (2.0 * (2 * macs - f) * n,
                 n * (xb + 4 + f * ab + xb + saved) + wbytes)
-    assert kern == "K3", kern
+    if kern in ("K4", "K4zs"):
+        saved = layers * f * ab if kern == "K4zs" else 0
+        return (2.0 * (2 * macs - f + head_macs(cfg)) * n,
+                n * (xb + 8 * 4 + xb + saved) + wbytes + hbytes)
     # the tangent forward (macs), the a chain (L - 1 products of F x F),
     # the outer products of every layer's dW over (primal, tangent)
     grad_elems = (2 * ein * f + (layers - 1) * f * f + layers * f + f + 1)
-    return (2.0 * (3 * macs + (layers - 1) * f * f) * n,
-            n * (zbytes + f * ab + 2 * xb + 4) + wbytes + 4 * grad_elems)
+    k3_flops = 2.0 * (3 * macs + (layers - 1) * f * f) * n
+    if kern == "K3":
+        return (k3_flops, n * (zbytes + f * ab + 2 * xb + 4) + wbytes
+                + 4 * grad_elems)
+    assert kern == "K5", kern
+    # the heads' backward: the recompute of xf and z1, a_xf = c_z1 W_1,
+    # a_xf W_f, the outer products of dW_f and dW_1, dW_2 over all 4 HID
+    # hidden units and 3 columns, and c_z2 W_2
+    heads = 3 * f * f + 3 * f * 4 * hid + 4 * hid * 3 + hid * 3 + 3 * hid
+    head_grads = f * f + f + f * 4 * hid + 4 * hid + 3 * 4 * hid + 6
+    return (k3_flops + 2.0 * (heads + (layers - 1) * f * f) * n,
+            n * (layers * f * ab + 2 * xb + 4 + 8 * 4) + wbytes + hbytes
+            + 4 * (grad_elems + head_grads))
 
 
 def matmul_chains(packed, mcfg, lane):
@@ -179,30 +221,36 @@ def width_model(feat: int, layers: int = 8, skip: int = 4,
 
 
 def held(kern, label, names, got, again, ref, dtype, act, report, b16=None,
-         sum_scale=None):
+         sum_scale=None, split=None):
     """Two launches' outputs `got` and `again` bit-identical, and held to
     the twin's `ref` at the module docstring's bounds for `dtype` (b16:
-    the bfloat16_all kernel's outputs on the same inputs, for float32)."""
+    the bfloat16_all kernel's outputs on the same inputs, for float32;
+    split: K4's or K5's split twin's outputs)."""
     same_twice(f"{kern} {label}", got, again)
-    if dtype == "float32":
+    heads = kern[:2] in ("K4", "K5")
+    if dtype == "float32" and not (heads and act != "poly"):
         hold_f32(f"{kern} {label}", names, got, b16, ref, report,
-                 sum_scale=sum_scale)
+                 HEADS_CLOSER if heads else CLOSER, split, sum_scale)
     else:
-        b = K1_BOUND if kern.startswith("K1") else BF16_BOUND
+        b = (F32_BOUND if dtype == "float32" else
+             K1_BOUND if kern.startswith("K1") else BF16_BOUND)
         _hold(f"{kern} {label}", names, got, ref,
-              {nm: bound_of(act, kern, nm, b) for nm in names}, report,
+              {nm: bound_of(act, kern[:2], nm, b) for nm in names}, report,
               sum_scale)
 
 
 def check_width(feat: int, layers: int, skip: int, act: str, n: int,
                 seed: int = 0, report=None):
-    """K1 (with and without feats), K2 (serving, saving zs/us) and K3 of
-    the configuration at `act` and every dtype of DTYPES on n points, as
-    the module docstring says; returns the report dict."""
+    """K1 (with and without feats), K2 (serving, saving zs/us), K3, K4
+    (serving, saving zs) and K5 of the configuration at `act` and every
+    dtype of DTYPES on n points, as the module docstring says; returns the
+    report dict."""
     report = {} if report is None else report
     cfg16, net = width_model(feat, layers, skip, "bfloat16_all", act, seed)
     assert k1.cuda_kernels_cover(cfg16) and k1.act_of(cfg16) == act
+    assert k4.heads_cuda_cover(cfg16)
     p16 = k1.pack_trunk_weights(net, cfg16, torch.bfloat16)
+    hw16 = k4.pack_head_weights(net, cfg16, torch.bfloat16)
     gen = torch.Generator(device="cuda").manual_seed(seed + 5)
     enc = points(cfg16, n, gen)
     tag = f"width {feat}, {layers} layers, skip {skip}, {act}, {n} points"
@@ -229,6 +277,8 @@ def check_width(feat: int, layers: int, skip: int, act: str, n: int,
                  k2._trunk_fwd_grad_plain(packed, cfg, enc, want_zs), dtype,
                  act, report,
                  k2._trunk_fwd_grad_cuda(p16, cfg16, enc, want_zs))
+            if not want_zs:
+                k2_serving = got
         zs, us = got[3], got[4]
         assert zs.dtype == us.dtype == sd and zs.shape == (n, layers * feat)
         cs, cf, cg = cotangents(cfg, n, gen, sd)
@@ -241,7 +291,67 @@ def check_width(feat: int, layers: int, skip: int, act: str, n: int,
              k2._trunk_bwd_cuda(p16, cfg16, enc, cs, cf.to(bf), cg,
                                 zs.to(bf), us.to(bf)) if f32 else None,
              dbsig_scale(packed, cfg, cs, cg, zs))
+        check_heads(label, net, cfg, packed, p16, hw16, cfg16, enc, cg,
+                    k2_serving, gen, act, report)
     return report
+
+
+def check_heads(label, net, cfg, packed, p16, hw16, cfg16, enc, cg,
+                k2_serving, gen, act, report):
+    """K4 serving and saving zs, and K5 on K4's zs, at cfg's dtype and
+    width on the points `enc`, as the module docstring says (k2_serving:
+    K2's serving outputs on them; p16, hw16, cfg16: the bfloat16_all
+    weights and configuration, for float32's ratio)."""
+    n, f32 = enc.shape[0], cfg.compute_dtype == "float32"
+    hw = k4.pack_head_weights(net, cfg, k1.weight_dtype(cfg))
+    for want_zs in (False, True):
+        k = 2 + want_zs
+
+        def fwd(p=packed, h=hw, c=cfg):
+            return k4._trunk_heads_fwd_cuda(p, h, c, enc, want_zs)[:k]
+        got = fwd()
+        held(f"K4 (zs {want_zs})", label, ("out", "gx", "zs")[:k], got,
+             fwd(), k4._trunk_heads_fwd_plain(packed, hw, cfg, enc,
+                                              want_zs)[:k],
+             cfg.compute_dtype, act, report,
+             fwd(p16, hw16, cfg16) if f32 else None,
+             split=k4._trunk_heads_fwd_split(packed, hw, cfg, enc,
+                                             want_zs)[:k] if f32 else None)
+        # K4 runs K2's trunk and chain with the same arithmetic
+        assert torch.equal(got[0][:, 0], k2_serving[0]), (label, "K4 sigma")
+        assert torch.equal(got[1], k2_serving[2]), (label, "K4 gx")
+        assert got[0][:, 7].abs().max().item() == 0.0, (label, "K4 pad")
+        assert got[1][:, cfg.xyz_in_dim:].abs().max().item() == 0.0
+    zs = got[2]
+    cot = torch.randn(n, k4.HEAD_COLS, device="cuda", generator=gen)
+    cot[:, 7] = 0.0
+    scratch = {}
+    got = k4._trunk_heads_bwd_cuda(packed, hw, cfg, enc, cot, cg, zs,
+                                   scratch_out=scratch)
+    e = rel_l2(k4.uchain_from_kernel(scratch["uc"], n, cfg.layers, cfg.feat),
+               k4.uchain_plain(packed, cfg, zs))
+    print(f"  K5 {label}: rebuilt b_th chain {e:.3e} relative L2 against "
+          f"uchain_plain", flush=True)
+    if not e <= UCHAIN_BOUND:
+        MISSES.append(f"K5 {label} b_th chain: {e:.3e} > {UCHAIN_BOUND:g}")
+    # the reduce kernel's head columns read the sweep's per-tile partials
+    # in their layout (head_part): the same f32 sums in another order
+    want = k4.head_part_grads(scratch["part"], cfg.layers, cfg.feat)
+    have = (got[10], torch.cat([got[12], got[16]]), got[13], got[14],
+            got[17], got[18])
+    e = max(rel_l2(h_, w_) for h_, w_ in zip(have, want))
+    if not e <= PART_BOUND:
+        MISSES.append(f"K5 {label} head partials: {e:.3e} > {PART_BOUND:g}")
+    del scratch
+    held("K5", label, K5_NAMES, got,
+         k4._trunk_heads_bwd_cuda(packed, hw, cfg, enc, cot, cg, zs),
+         k4._trunk_heads_bwd_plain(packed, hw, cfg, enc, cot, cg, zs),
+         cfg.compute_dtype, act, report,
+         k4._trunk_heads_bwd_cuda(p16, hw16, cfg16, enc, cot, cg,
+                                  zs.to(torch.bfloat16)) if f32 else None,
+         dbsig_scale(packed, cfg, cot[:, 0], cg, zs),
+         k4._trunk_heads_bwd_split(packed, hw, cfg, enc, cot, cg, zs)
+         if f32 else None)
 
 
 def check_all(sizes=SIZES, report=None):
@@ -261,69 +371,92 @@ def check_all(sizes=SIZES, report=None):
 N_SERVE_PASS, N_SERVE_MAIN, N_TRAIN_MAIN = 327680, 655360, 131072
 
 
+# the kernels JSON line's name, source and Pallas kernel of each row kind,
+# and the outputs held to the twin
+ROW_KINDS = {
+    "K1": ("trunk_sigma", "trunk_sigma.cu", "pallas_mlp.py:114",
+           ("sigma",)),
+    "K2": ("trunk_fwd_grad", "trunk_fwd_grad.cu", "pallas_trunk_vjp.py:205",
+           ("sigma", "feats", "gx")),
+    "K2zs": ("trunk_fwd_grad (saving zs/us)", "trunk_fwd_grad.cu",
+             "pallas_trunk_vjp.py:205",
+             ("sigma", "feats", "gx", "zs", "us")),
+    "K3": ("trunk_bwd", "trunk_bwd.cu", "pallas_trunk_vjp.py:240", K3_NAMES),
+    "K4": ("trunk_heads_fwd", "trunk_heads_fwd.cu",
+           "pallas_trunk_heads.py:154", ("out", "gx")),
+    "K4zs": ("trunk_heads_fwd (saving zs)", "trunk_heads_fwd.cu",
+             "pallas_trunk_heads.py:154", ("out", "gx", "zs")),
+    "K5": ("trunk_heads_bwd", "trunk_heads_bwd.cu",
+           "pallas_trunk_heads.py:185", K5_NAMES),
+}
+
+
+def timed_row(rows, kern, cfg, n, work, peaks, fn, twin, library, report,
+              b16=None, sum_scale=None):
+    """Row "<kern> <dtype> f<feat>" of the kernels JSON line: fn (the
+    kernel) launched twice bit-identical and held to `twin` at
+    check_width's bounds (`held`; b16, sum_scale as there), timed beside
+    its twin and `library` (the torch.matmul chain of the same products),
+    with the bound of `work` = (FLOPs, bytes) at `peaks` (at float32 also
+    the bound of three products for each) and the largest difference
+    from the twin."""
+    dtype, feat = cfg.compute_dtype, cfg.feat
+    name, source, replaces, outs = ROW_KINDS[kern]
+    key = f"{kern} {dtype} f{feat}"
+    got, again, ref = fn(), fn(), twin()
+    held(kern, f"width {feat}, {dtype}, {n} points (main shape)", outs, got,
+         again, ref, dtype, "poly", report, None if b16 is None else b16(),
+         sum_scale)
+    err = max((g_.float() - r_.float()).abs().max().item()
+              for g_, r_ in zip(got, ref) if g_ is not None)
+    del got, again, ref
+    r = {"name": f"{name} [width {feat}, {dtype}]", "route": "cuda",
+         "source": "brdfnerf_tpu_torch/csrc/" + source,
+         "replaces": "brdfnerf_tpu/ops/" + replaces, "width": feat,
+         "dtype": dtype, "points": n, "max_abs_err": err,
+         "ms": timed(fn, 10), "plain_ms": timed(twin, 1),
+         "library_ms": timed(library, 5)}
+    r["bound_ms"], r["bound_by"] = bound_ms(*work, peaks)
+    if dtype == "float32":
+        r["bound_split_ms"], _ = bound_ms(3 * work[0], work[1], peaks)
+    rows[key] = r
+    print(f"  {key}: {r['ms']:.3f} ms (bound {r['bound_ms']:.3f} by "
+          f"{r['bound_by']}, twin {r['plain_ms']:.1f}, matmul chain "
+          f"{r['library_ms']:.3f}) at {n} points; largest |kernel - "
+          f"twin| {err:.3e}", flush=True)
+
+
+def weight_bytes(w: dict, planes) -> int:
+    """The bytes of the packed weights `w` a kernel reads (at float32 the
+    hi and lo planes, `planes`' keys, in the f32 weights' bytes)."""
+    return sum(v.numel() * v.element_size() for k, v in w.items()
+               if k not in planes)
+
+
 def kernel_rows(rows: dict, feat: int, peaks, seed: int = 0, report=None):
     """Rows of the kernels JSON line for K1-K3 at width `feat` (8 layers,
     skip 4), keyed "<K1|K2|K2zs|K3> <dtype> f<feat>": each instantiation at
     its main shape (K1 at N_SERVE_PASS points, K2 at N_SERVE_MAIN, K2
     saving zs/us and K3 at N_TRAIN_MAIN; at bfloat16 only the last two,
-    whose f32 zs/us set them apart), launched twice bit-identical and held
-    to its twin there at check_width's bounds (`held`), timed beside its
-    twin and the chain of torch.matmul calls of the same products in the
-    weights' dtype (matmul_chains), with its bound from the work and
-    traffic these inputs need (trunk_work, bound_ms at `peaks`) and the
-    largest difference from the twin.  Launches are the main path's,
-    filled in by the caller."""
+    whose f32 zs/us set them apart), as timed_row makes it, beside the
+    chain of torch.matmul calls of the same products in the weights' dtype
+    (matmul_chains), its bound from the work and traffic these inputs need
+    (trunk_work).  Launches are the main path's, filled in by the caller."""
     from ..ops.fused_mlp import LANE
     report = {} if report is None else report
     gen = torch.Generator(device="cuda").manual_seed(seed + 6)
-    src = {"K1": ("brdfnerf_tpu_torch/csrc/trunk_sigma.cu",
-                  "brdfnerf_tpu/ops/pallas_mlp.py:114"),
-           "K2": ("brdfnerf_tpu_torch/csrc/trunk_fwd_grad.cu",
-                  "brdfnerf_tpu/ops/pallas_trunk_vjp.py:205"),
-           "K3": ("brdfnerf_tpu_torch/csrc/trunk_bwd.cu",
-                  "brdfnerf_tpu/ops/pallas_trunk_vjp.py:240")}
-    name = {"K1": "trunk_sigma", "K2": "trunk_fwd_grad",
-            "K2zs": "trunk_fwd_grad (saving zs/us)", "K3": "trunk_bwd"}
-    outs = {"K1": ("sigma",), "K2": ("sigma", "feats", "gx"),
-            "K2zs": ("sigma", "feats", "gx", "zs", "us"), "K3": K3_NAMES}
     cfg16, net = width_model(feat, seed=seed)
     p16 = k1.pack_trunk_weights(net, cfg16, torch.bfloat16)
     bf = torch.bfloat16
     for dtype in DTYPES:
         cfg = dc.replace(cfg16, compute_dtype=dtype)
         packed = k1.pack_trunk_weights(net, cfg, k1.weight_dtype(cfg))
-        # the weights' bytes the kernels read (at float32 the hi and lo
-        # planes: the f32 weights' bytes)
-        wbytes = sum(v.numel() * v.element_size() for k, v in packed.items()
-                     if k not in k1.PLANE_KEYS.values())
+        wbytes = weight_bytes(packed, k1.PLANE_KEYS.values())
         chain_fwd, chain_k2, chain_k3 = matmul_chains(packed, cfg, LANE)
-        split = 3 if dtype == "float32" else 1
 
         def row(kern, fn, twin, library, n, b16=None, sum_scale=None):
-            key = f"{kern} {dtype} f{feat}"
-            got, again, ref = fn(), fn(), twin()
-            held(kern, f"width {feat}, {dtype}, {n} points (main shape)",
-                 outs[kern], got, again, ref, dtype, "poly", report,
-                 None if b16 is None else b16(), sum_scale)
-            err = max((g_.float() - r_.float()).abs().max().item()
-                      for g_, r_ in zip(got, ref) if g_ is not None)
-            del got, again, ref
-            r = {"name": f"{name[kern]} [width {feat}, {dtype}]",
-                 "route": "cuda", "source": src[kern[:2]][0],
-                 "replaces": src[kern[:2]][1], "width": feat,
-                 "dtype": dtype, "points": n, "max_abs_err": err,
-                 "ms": timed(fn, 10), "plain_ms": timed(twin, 1),
-                 "library_ms": timed(library, 5)}
-            flops, nbytes = trunk_work(kern, cfg, n, wbytes)
-            r["bound_ms"], r["bound_by"] = bound_ms(flops, nbytes, peaks)
-            if split > 1:
-                r["bound_split_ms"], _ = bound_ms(split * flops, nbytes,
-                                                  peaks)
-            rows[key] = r
-            print(f"  {key}: {r['ms']:.3f} ms (bound {r['bound_ms']:.3f} by "
-                  f"{r['bound_by']}, twin {r['plain_ms']:.1f}, matmul chain "
-                  f"{r['library_ms']:.3f}) at {n} points; largest |kernel - "
-                  f"twin| {err:.3e}", flush=True)
+            timed_row(rows, kern, cfg, n, trunk_work(kern, cfg, n, wbytes),
+                      peaks, fn, twin, library, report, b16, sum_scale)
 
         # the chains' operands in the weights' dtype
         ob = torch.float32 if dtype == "float32" else torch.bfloat16
@@ -382,6 +515,123 @@ def kernel_rows(rows: dict, feat: int, peaks, seed: int = 0, report=None):
     return rows
 
 
+def heads_chains(packed, hw, mcfg, lane):
+    """The head block's products as torch.matmul calls in the packed
+    weights' dtype, beside matmul_chains' (K4's and K5's yardsticks):
+    chain_heads(hb): xf, the first layers and the 3-column second layers
+    from features hb; chain_k5_heads(hb, czb, ubt): the rebuilt u chain
+    from ubt (L - 1 products of F x F), xf and z1 again, a_xf = c_z1 W_1
+    from czb, a_xf W_f, and the outer products of dW_f and dW_1."""
+    hid = mcfg.feat // 2
+    wf, w1 = hw["wf"], torch.cat([hw["w1r"], hw["w1p"]])
+    w2r, w2p = hw["w2r"][:3], hw["w2p"][:3]
+    mids = list(packed["w_mid"])
+
+    def chain_heads(hb):
+        xf = hb @ wf.t()
+        z1 = xf @ w1.t()
+        return z1[:, :hid] @ w2r.t(), z1[:, hid:] @ w2p.t()
+
+    def chain_k5_heads(hb, czb, ubt):
+        u = ubt                                     # the b_th chain
+        m = len(mids) - 1
+        for i in range(mcfg.layers - 1, 0, -1):
+            if i == mcfg.skips[0]:
+                u = u @ packed["w_skip"][:, lane:]
+            else:
+                u = u @ mids[m]
+                m -= 1
+        xf = hb @ wf.t()
+        xf @ w1.t()
+        axf = czb @ w1
+        axf @ wf
+        hb.t() @ axf
+        xf.t() @ czb
+
+    return chain_heads, chain_k5_heads
+
+
+def heads_rows(rows: dict, feat: int, peaks, seed: int = 0, report=None):
+    """Rows of the kernels JSON line for K4 and K5 at width `feat` (8
+    layers, skip 4), keyed "<K4|K4zs|K5> <dtype> f<feat>", as kernel_rows
+    makes K1-K3's: K4 at N_SERVE_MAIN points, K4 saving zs and K5 (on
+    K4's zs) at N_TRAIN_MAIN, at bfloat16 only the last two; each beside
+    the chain of the trunk's products and the heads' (heads_chains), its
+    bound from trunk_work with the heads' weight bytes."""
+    from ..ops.fused_mlp import LANE
+    report = {} if report is None else report
+    gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+    cfg16, net = width_model(feat, seed=seed)
+    p16 = k1.pack_trunk_weights(net, cfg16, torch.bfloat16)
+    hw16 = k4.pack_head_weights(net, cfg16, torch.bfloat16)
+    hid = feat // 2
+    for dtype in DTYPES:
+        cfg = dc.replace(cfg16, compute_dtype=dtype)
+        wd = k1.weight_dtype(cfg)
+        packed = k1.pack_trunk_weights(net, cfg, wd)
+        hw = k4.pack_head_weights(net, cfg, wd)
+        wbytes = weight_bytes(packed, k1.PLANE_KEYS.values())
+        hbytes = weight_bytes(hw, k4.HEAD_PLANE_KEYS.values())
+        _, chain_k2, chain_k3 = matmul_chains(packed, cfg, LANE)
+        chain_heads, chain_k5_heads = heads_chains(packed, hw, cfg, LANE)
+
+        def row(kern, fn, twin, library, n, b16=None, sum_scale=None):
+            timed_row(rows, kern, cfg, n,
+                      trunk_work(kern, cfg, n, wbytes, hbytes), peaks, fn,
+                      twin, library, report, b16, sum_scale)
+
+        ob = torch.float32 if dtype == "float32" else torch.bfloat16
+        f32 = dtype == "float32"
+        if dtype != "bfloat16":
+            n = N_SERVE_MAIN
+            enc = points(cfg, n, gen)
+            encb = enc.to(ob)
+            hb = torch.randn(n, feat, device="cuda", generator=gen).to(ob)
+            row("K4", lambda: k4._trunk_heads_fwd_cuda(packed, hw, cfg,
+                                                       enc)[:2],
+                lambda: k4._trunk_heads_fwd_plain(packed, hw, cfg, enc)[:2],
+                lambda: (chain_k2(encb), chain_heads(hb)), n,
+                (lambda: k4._trunk_heads_fwd_cuda(p16, hw16, cfg16,
+                                                  enc)[:2])
+                if f32 else None)
+            del enc, encb, hb
+        n = N_TRAIN_MAIN
+        enc = points(cfg, n, gen)
+        encb = enc.to(ob)
+        hb = torch.randn(n, feat, device="cuda", generator=gen).to(ob)
+        row("K4zs", lambda: k4._trunk_heads_fwd_cuda(packed, hw, cfg, enc,
+                                                     True),
+            lambda: k4._trunk_heads_fwd_plain(packed, hw, cfg, enc, True),
+            lambda: (chain_k2(encb), chain_heads(hb)), n,
+            (lambda: k4._trunk_heads_fwd_cuda(p16, hw16, cfg16, enc, True))
+            if f32 else None)
+        zs = k4._trunk_heads_fwd_cuda(packed, hw, cfg, enc, True)[2]
+        _, _, cg = cotangents(cfg, n, gen, k2._saved_dtype(cfg))
+        cot = torch.randn(n, k4.HEAD_COLS, device="cuda", generator=gen)
+        cot[:, 7] = 0.0
+        hth = torch.randn(2 * n, feat, device="cuda", generator=gen).to(ob)
+        azb = torch.randn(2 * n, feat, device="cuda", generator=gen).to(ob)
+        czb = torch.randn(n, 4 * hid, device="cuda", generator=gen).to(ob)
+        ubt = torch.randn(n, feat, device="cuda", generator=gen).to(ob)
+        xtb = torch.cat([enc, cg], 0).to(ob)
+        cgb = cg.to(ob)
+
+        def chain_k5():
+            chain_k3(cgb, azb, hth, xtb)
+            chain_k5_heads(hb, czb, ubt)
+        row("K5", lambda: k4._trunk_heads_bwd_cuda(packed, hw, cfg, enc, cot,
+                                                   cg, zs),
+            lambda: k4._trunk_heads_bwd_plain(packed, hw, cfg, enc, cot, cg,
+                                              zs),
+            chain_k5, n,
+            (lambda: k4._trunk_heads_bwd_cuda(p16, hw16, cfg16, enc, cot,
+                                              cg, zs.to(torch.bfloat16)))
+            if f32 else None,
+            dbsig_scale(packed, cfg, cot[:, 0], cg, zs))
+        del enc, encb, hb, zs, cg, cot, hth, azb, czb, ubt, xtb, cgb
+    return rows
+
+
 def main(argv=None) -> int:
     from .fwd_variants import card
     argv = sys.argv[1:] if argv is None else argv
@@ -402,6 +652,7 @@ def main(argv=None) -> int:
         peaks = peaks_of(torch.cuda.get_device_name(0))
         for feat in nums or WIDTHS:
             kernel_rows(rows, feat, peaks, report=report)
+            heads_rows(rows, feat, peaks, report=report)
     else:
         check_all(nums or SIZES, report)
     print(json.dumps({"card": card(), "checks": report, "rows": rows,
@@ -410,7 +661,7 @@ def main(argv=None) -> int:
 
 
 def libraries():
-    """The library keys of K1-K3 at every width of WIDTHS: the polynomial
+    """The library keys of K1-K5 at every width of WIDTHS: the polynomial
     sine at each, and at width 64 the exact sine and ReLU too
     (ops/cuda_build.library_key)."""
     from ..ops import cuda_build
@@ -418,7 +669,8 @@ def libraries():
             for feat in WIDTHS
             for act in (("poly",) + tuple(ACT_CONFIGS) if feat == 64
                         else ("poly",))
-            for lib in ("trunk_sigma", "trunk_fwd_grad", "trunk_bwd")]
+            for lib in ("trunk_sigma", "trunk_fwd_grad", "trunk_bwd",
+                        "trunk_heads_fwd", "trunk_heads_bwd")]
 
 
 if __name__ == "__main__":

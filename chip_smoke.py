@@ -12,8 +12,9 @@ the one before it took):
   1. device   - require CUDA; print the card's name and power limit
   2. build    - nvcc for sm_90a, one process per kernel library (five
                 sources, each for the polynomial sine, the exact sine and
-                ReLU; K1-K3 also at the widths 64, 128 and 256, and at 64
-                for the exact sine and ReLU), all in parallel; each library's nvcc seconds, and
+                ReLU; each also at the widths 64, 128 and 256, and at 64
+                for the exact sine and ReLU), all in parallel; each
+                library's nvcc seconds, and
                 registers, spills and stack frames of every kernel function
                 (ptxas -v)
   3. kernels  - K1 (trunk + sigma, split f32 products) at 327,680 and
@@ -168,24 +169,30 @@ After phase 9:
                 CLI on stage 2 (K1 52 / K2 26), its PSNR, SSIM and DSM MAE
                 finite and printed
 The trunk widths (before phase 6):
- 13. widths - K1-K3 built for the widths 64, 128 and 256
+ 13. widths - K1-K5 built for the widths 64, 128 and 256
                 (tools/width_check.py: at 192 and 8,448 points, every dtype,
                 8 layers with the skip at 4, and 4 with it at 2 at 64, the
                 exact sine and ReLU at 64; each twice bit-identical and
-                held to its twin at the bounds of the width-512 rows); per
-                width every instantiation held so again at its main
-                shape, where each block runs several tiles, and timed
-                there (a row each in the kernels line), the unfused
-                stage-2 step at bfloat16_all and float32 first, a request
-                (K1 2 / K2 1 a chunk) against the CPU twins, the fused
-                step (K1 2 / K2 1 / K3 1; WIDTH_STEPS timed, a falling
-                loss; bfloat16 WIDTH_SHORT) and a step-check point at
-                bfloat16_all; at 64 a step with BRDFNERF_FUSED_HEADS set
-                (K4/K5 launch 0)
+                held to its twin at the bounds of the width-512 rows, K4's
+                sigma and gx bit for bit K2's, K5's rebuilt b_th chain and
+                head partials); per width every instantiation held so
+                again at its main shape, where each block runs several
+                tiles, and timed there (a row each in the kernels line);
+                then at bfloat16_all and float32 the unfused stage-2 step
+                first and a request (K1 2 / K2 1 a chunk), at those and
+                bfloat16 a request with BRDFNERF_FUSED_HEADS set (K1 2 /
+                K4 1 a chunk), each against the CPU twins, the fused step
+                (K1 2 / K2 1 / K3 1) and the fused-heads step (K1 2 / K4 1
+                / K5 1; WIDTH_STEPS timed, a falling loss; bfloat16
+                WIDTH_SHORT), and at bfloat16_all a step-check point of
+                each
 After phase 12:
  14. workflow, width 64 - stage 1 and stage 2 through the train CLI at
                 --fc_feat 64 (the [kernels] line names the width), the eval
-                CLI on stage 2 (K1 52 / K2 26)
+                CLI on stage 2 (K1 52 / K2 26); stage 2 again with
+                BRDFNERF_FUSED_HEADS set at --brdf_on 0.5 (the line names
+                K4 + K5; K2 / K3 before the BRDF's first step, K4 / K5
+                after), the eval CLI on it (K1 52 / K4 26)
 Then one JSON line of every ported kernel instantiation (each launched on
 a main path: the run fails if one was not), the card's line, and the last
 line {"ok": true, "device": {...}}.
@@ -428,8 +435,8 @@ K5_NAMES = ("dw0", "db0", "dwm", "dbm", "dwst", "dwsb", "dbs", "dwsig",
             "db1p", "dw2p", "db2p")
 
 
-def heads_kernels(rows, mcfg, net, packed, wbytes, macs, k3_flops, k3_bytes,
-                  points, chain_k2, chain_k3, peaks, gen):
+def heads_kernels(rows, mcfg, net, packed, wbytes, points, chain_k2,
+                  chain_k3, peaks, gen):
     """Phase 3b: K4 at the serving shape without zs and at the training
     shape with zs, K5 at the training shape, twice; each against its twin
     on the card, timed beside its twin and a torch.matmul chain of the
@@ -439,27 +446,13 @@ def heads_kernels(rows, mcfg, net, packed, wbytes, macs, k3_flops, k3_bytes,
     from brdfnerf_tpu_torch.ops import fused_trunk_heads as k4
     from brdfnerf_tpu_torch.ops import fused_trunk_vjp as k2
     from brdfnerf_tpu_torch.tools import f32_check as fc
-    from brdfnerf_tpu_torch.tools.width_check import bound_ms
+    from brdfnerf_tpu_torch.tools.width_check import (bound_ms,
+                                                      heads_chains,
+                                                      trunk_work)
     feat, hid, lane, ein = mcfg.feat, mcfg.feat // 2, k1.LANE, mcfg.xyz_in_dim
     hw = k4.pack_head_weights(net, mcfg, torch.bfloat16)
     hbytes = sum(v.numel() * v.element_size() for v in hw.values())
-    # multiply-adds per point of the head block: W_f, the first layers (rgb
-    # and the merged RPV, 4 x 256 wide), the second layers (3 columns each)
-    head_macs = feat * feat + feat * 4 * hid + 3 * hid + 3 * hid
-    k4_pt = 2.0 * (2 * macs - feat) + 2.0 * head_macs
-    # the backward's heads: the recompute of xf and z1, a_xf = c_z1 W_1,
-    # a_xf W_f, the outer products of dW_f and dW_1, dW_2 over all 4 x 256
-    # hidden units and 3 columns, and c_z2 W_2
-    k5_head_pt = 2.0 * (3 * feat * feat + 3 * feat * 4 * hid + 4 * hid * 3
-                        + hid * 3 + 3 * hid)
-    wfb, w1b = hw["wf"], torch.cat([hw["w1r"], hw["w1p"]])
-    w2r, w2p = hw["w2r"][:3], hw["w2p"][:3]
-    mids = list(packed["w_mid"])
-
-    def chain_heads(hb):
-        xf = hb @ wfb.t()
-        z1 = xf @ w1b.t()
-        return z1[:, :hid] @ w2r.t(), z1[:, hid:] @ w2p.t()
+    chain_heads, chain_k5_heads = heads_chains(packed, hw, mcfg, lane)
 
     def check(label, got, ref, max_rel=5e-2, mean_rel=1e-3, l2=None):
         e = diff(label, got, ref)
@@ -503,11 +496,12 @@ def heads_kernels(rows, mcfg, net, packed, wbytes, macs, k3_flops, k3_bytes,
         "plain_ms": timed(lambda: k4._trunk_heads_fwd_plain(packed, hw, mcfg,
                                                             enc), 1),
         "library_ms": timed(lambda: (chain_k2(encb), chain_heads(hb)), 5)}
-    rows["K4"]["_flops"] = k4_pt * n2
-    # x and gx at the encoding's ein lanes (width_check.trunk_work)
-    rows["K4"]["_bytes"] = n2 * (ein * 4 + 8 * 4 + ein * 4)
+    # the trunk's and the heads' products; x and gx at the encoding's ein
+    # lanes, the packed logits, the weights once (width_check.trunk_work)
+    rows["K4"]["_flops"], k4_bytes = trunk_work("K4", mcfg, n2, wbytes,
+                                                hbytes)
     rows["K4"]["bound_ms"], rows["K4"]["bound_by"] = bound_ms(
-        rows["K4"]["_flops"], rows["K4"]["_bytes"] + wbytes + hbytes, peaks)
+        rows["K4"]["_flops"], k4_bytes, peaks)
     del enc, encb, hb
 
     # K4 saving zs and K5, at the train step's main pass
@@ -537,10 +531,8 @@ def heads_kernels(rows, mcfg, net, packed, wbytes, macs, k3_flops, k3_bytes,
                                                      want_zs=True), 5),
         "plain_ms": timed(lambda: k4._trunk_heads_fwd_plain(
             packed, hw, mcfg, enc, want_zs=True), 1)}
-    rows["K4zs"]["_flops"] = k4_pt * n3
-    rows["K4zs"]["_bytes"] = (n3 * (ein * 4 + 8 * 4 + ein * 4
-                                    + mcfg.layers * feat * 2)
-                              + wbytes + hbytes)
+    rows["K4zs"]["_flops"], rows["K4zs"]["_bytes"] = trunk_work(
+        "K4zs", mcfg, n3, wbytes, hbytes)
     rows["K4zs"]["bound_ms"], rows["K4zs"]["bound_by"] = bound_ms(
         rows["K4zs"]["_flops"], rows["K4zs"]["_bytes"], peaks)
     encb = enc.to(torch.bfloat16)
@@ -595,23 +587,8 @@ def heads_kernels(rows, mcfg, net, packed, wbytes, macs, k3_flops, k3_bytes,
 
     def chain_k5():
         chain_k3()
-        u = ubt                                     # the b_th chain
-        m = len(mids) - 1
-        for i in range(mcfg.layers - 1, 0, -1):
-            if i == mcfg.skips[0]:
-                u = u @ packed["w_skip"][:, lane:]
-            else:
-                u = u @ mids[m]
-                m -= 1
-        xf = hb @ wfb.t()
-        xf @ w1b.t()
-        axf = czb @ w1b
-        axf @ wfb
-        hb.t() @ axf
-        xf.t() @ czb
+        chain_k5_heads(hb, czb, ubt)
 
-    head_grads = (feat * feat + feat + feat * 4 * hid + 4 * hid
-                  + 3 * 4 * hid + 6)
     rows["K5"] = {
         "name": "trunk_heads_bwd", "route": "cuda",
         "source": "brdfnerf_tpu_torch/csrc/trunk_heads_bwd.cu",
@@ -627,11 +604,8 @@ def heads_kernels(rows, mcfg, net, packed, wbytes, macs, k3_flops, k3_bytes,
     # K3's reads and writes, with the logit cotangents in place of c_feats
     # and no us, plus the head weights and their grads; K3's products plus
     # the heads' and the rebuilt u chain's (L - 1 products of F x F)
-    rows["K5"]["_flops"] = (k3_flops + (k5_head_pt + 2.0 * (mcfg.layers - 1)
-                                        * feat * feat) * n3)
-    rows["K5"]["_bytes"] = (k3_bytes - n3 * (feat * 2 + mcfg.layers * feat
-                                             * 2) + n3 * 8 * 4 + hbytes
-                            + 4 * head_grads)
+    rows["K5"]["_flops"], rows["K5"]["_bytes"] = trunk_work(
+        "K5", mcfg, n3, wbytes, hbytes)
     rows["K5"]["bound_ms"], rows["K5"]["bound_by"] = bound_ms(
         rows["K5"]["_flops"], rows["K5"]["_bytes"], peaks)
     print(f"  K5 largest relative L2 against its twin {k5_rel:.3e}",
@@ -1191,22 +1165,23 @@ WIDTH_UNFUSED = 4
 
 def widths_phase(rows, argv, tmp, gen, peaks, serve, train, check_served,
                  step_check, per_req):
-    """Phase `widths`: K1-K3 built for the trunk widths 64, 128 and 256.
+    """Phase `widths`: K1-K5 built for the trunk widths 64, 128 and 256.
     tools/width_check.py's checks (every dtype, each instantiation twice
     bit-identical and held to its twin at the 512 rows' bounds; the exact
     sine and ReLU at 64; 4 layers with the skip at 2 at 64), then per
     width: each instantiation held so again and timed at its main path's
-    shape (width_check.kernel_rows: a row of the kernels line each), the
-    unfused stage-2 step (--fused_trunk 0
-    --use_pallas 0) at bfloat16_all and float32, one 16,384-ray request
-    (K1 2 / K2 1 a chunk) against the CPU twins at bfloat16_all and
-    float32, the fused stage-2 step (K1 2 / K2 1 / K3 1 a step) over
-    WIDTH_STEPS timed steps at bfloat16_all and float32 (a falling loss)
-    and WIDTH_SHORT at bfloat16, one step-check point at bfloat16_all, and
-    at width 64 one step with BRDFNERF_FUSED_HEADS set (K4/K5 take 512
-    alone: K1 2 / K2 1 / K3 1)."""
+    shape (width_check.kernel_rows, heads_rows: a row of the kernels line
+    each), and at bfloat16_all, float32 and bfloat16: the unfused stage-2
+    step (--fused_trunk 0 --use_pallas 0; not at bfloat16), one
+    16,384-ray request (K1 2 / K2 1 a chunk; not at bfloat16) and one
+    with BRDFNERF_FUSED_HEADS set (K1 2 / K4 1 a chunk), each against the
+    CPU twins, the fused stage-2 step (K1 2 / K2 1 / K3 1 a step) and the
+    fused-heads one (K1 2 / K4 1 / K5 1), each over WIDTH_STEPS timed
+    steps (a falling loss; WIDTH_SHORT at bfloat16), and at bfloat16_all
+    one step-check point of each."""
     from brdfnerf_tpu_torch.cli import opts
     from brdfnerf_tpu_torch.models.network import init_network
+    from brdfnerf_tpu_torch.ops import fused_trunk_heads as k4
     from brdfnerf_tpu_torch.ops import fused_trunk_vjp as k2
     from brdfnerf_tpu_torch.serve import load_renderer
     from brdfnerf_tpu_torch.tools import act_check, width_check
@@ -1219,10 +1194,14 @@ def widths_phase(rows, argv, tmp, gen, peaks, serve, train, check_served,
           flush=True)
     zero = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0}
     fused = dict(zero, K1=2, K2=1, K3=1)
+    heads = dict(zero, K1=2, K4=1, K5=1)
     for feat in width_check.WIDTHS:
         t0 = time.perf_counter()
         width_check.kernel_rows(rows, feat, peaks)
+        width_check.heads_rows(rows, feat, peaks)
         assert not act_check.MISSES, act_check.MISSES
+        print(f"  width {feat}: main-shape rows "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
         exp = f"smoke_f{feat}"
         w_args = opts.postprocess(opts.train_parser().parse_args(
             argv + ["--fc_feat", str(feat), "--exp_name", exp]))
@@ -1235,27 +1214,31 @@ def widths_phase(rows, argv, tmp, gen, peaks, serve, train, check_served,
                         {"coarse": init_network(w_cfg.model, gen,
                                                 device="cuda")}, step=0)
         off = dc.replace(w_cfg.render, use_pallas=False, fused_trunk=False)
-        for dtype in ("bfloat16_all", "float32"):
+        for dtype in ("bfloat16_all", "float32", "bfloat16"):
             m_ = dc.replace(w_cfg.model, compute_dtype=dtype)
             label = f"train step, width {feat}, {dtype}"
-            # the unfused step first: what the width ran before its kernels
-            train(label + ", unfused", zero, mcfg_=m_, rcfg_=off,
-                  tcfg_=w_cfg.train, timed_steps=WIDTH_UNFUSED,
-                  profiled=False)
+            mixed = dtype == "bfloat16"
+            steps = WIDTH_SHORT if mixed else WIDTH_STEPS
+            scale = 0.1 if dtype == "float32" else 1.0
             r_ = load_renderer(w_dir, 1, compute_dtype=dtype, device="cuda")
             assert r_.cfg.model.feat == feat and r_.cfg.render.use_pallas
-            outs, launches = serve(f"request, width {feat}, {dtype}",
-                                   dict(zero, K1=2 * per_req, K2=per_req),
-                                   r_, n_req=1, profiled=False)
-            rows[f"K1 {dtype} f{feat}"]["launches"] = launches["K1"]
-            rows[f"K2 {dtype} f{feat}"]["launches"] = launches["K2"]
-            check_served(outs, r_, scale=0.1 if dtype == "float32" else 1.0,
-                         n_check=256)
-            del r_, outs
+            if not mixed:
+                # the unfused step first: what the width ran before its
+                # kernels
+                train(label + ", unfused", zero, mcfg_=m_, rcfg_=off,
+                      tcfg_=w_cfg.train, timed_steps=WIDTH_UNFUSED,
+                      profiled=False)
+                outs, launches = serve(f"request, width {feat}, {dtype}",
+                                       dict(zero, K1=2 * per_req,
+                                            K2=per_req),
+                                       r_, n_req=1, profiled=False)
+                rows[f"K1 {dtype} f{feat}"]["launches"] = launches["K1"]
+                rows[f"K2 {dtype} f{feat}"]["launches"] = launches["K2"]
+                check_served(outs, r_, scale=scale, n_check=256)
+                del outs
             trained, launches = train(label, fused, mcfg_=m_,
                                       rcfg_=w_cfg.render, tcfg_=w_cfg.train,
-                                      timed_steps=WIDTH_STEPS,
-                                      profiled=False)
+                                      timed_steps=steps, profiled=False)
             rows[f"K2zs {dtype} f{feat}"]["launches"] = launches["K2"]
             rows[f"K3 {dtype} f{feat}"]["launches"] = launches["K3"]
             if dtype == "bfloat16_all":
@@ -1265,20 +1248,31 @@ def widths_phase(rows, argv, tmp, gen, peaks, serve, train, check_served,
                            (k2, "_trunk_bwd_cuda", k2._trunk_bwd_plain),
                            fused, mcfg_=m_, rcfg_=w_cfg.render)
             del trained
-        m_ = dc.replace(w_cfg.model, compute_dtype="bfloat16")
-        _, launches = train(f"train step, width {feat}, bfloat16", fused,
-                            mcfg_=m_, rcfg_=w_cfg.render, tcfg_=w_cfg.train,
-                            timed_steps=WIDTH_SHORT, profiled=False)
-        rows[f"K2zs bfloat16 f{feat}"]["launches"] = launches["K2"]
-        rows[f"K3 bfloat16 f{feat}"]["launches"] = launches["K3"]
-        if feat == 64:
-            # K4/K5 take the width 512 alone: with the switch set the step
-            # runs its heads in torch on K2 + K3
+            # with the switch: K4 in K2's place in the request, K4 and K5
+            # in K2's and K3's in the step
             os.environ[FUSED_HEADS] = "1"
-            train("train step, width 64, fused heads switch", fused,
-                  mcfg_=w_cfg.model, rcfg_=w_cfg.render, tcfg_=w_cfg.train,
-                  timed_steps=WIDTH_SHORT, profiled=False)
-            del os.environ[FUSED_HEADS]
+            outs, launches = serve(f"request, width {feat}, {dtype}, fused "
+                                   "heads",
+                                   dict(zero, K1=2 * per_req, K4=per_req),
+                                   r_, n_req=1, profiled=False)
+            if not mixed:
+                rows[f"K4 {dtype} f{feat}"]["launches"] = launches["K4"]
+            check_served(outs, r_, scale=scale, n_check=256)
+            del r_, outs
+            trained, launches = train(label + ", fused heads", heads,
+                                      mcfg_=m_, rcfg_=w_cfg.render,
+                                      tcfg_=w_cfg.train, timed_steps=steps,
+                                      profiled=False)
+            rows[f"K4zs {dtype} f{feat}"]["launches"] = launches["K4"]
+            rows[f"K5 {dtype} f{feat}"]["launches"] = launches["K5"]
+            if dtype == "bfloat16_all":
+                step_check(f"width {feat}, fused heads", trained[-1:],
+                           (k4, "_trunk_heads_fwd_cuda",
+                            k4._trunk_heads_fwd_plain),
+                           (k4, "_trunk_heads_bwd_cuda",
+                            k4._trunk_heads_bwd_plain),
+                           heads, mcfg_=m_, rcfg_=w_cfg.render)
+            del os.environ[FUSED_HEADS], trained
         print(f"  width {feat}: {time.perf_counter() - t0:.1f} s", flush=True)
     print(f"  widths phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
@@ -1809,7 +1803,10 @@ def family_runs(family, base, run, check_outputs, falls, logs, ckpts,
     """Stage 1 and stage 2 of `family` (None: the RPV(111) heads at trunk
     width `width`) through the train CLI on its AOI (workflow's run,
     check_outputs and falls), then the eval CLI on stage 2's checkpoint;
-    returns the eval's scores."""
+    returns the eval's scores.  At a width other than 512 (the RPV heads)
+    also stage 2 again with BRDFNERF_FUSED_HEADS set at --brdf_on 0.5
+    (K4/K5 take RPV without theta; the BRDF from step FAMILY_WF_STEPS / 2
+    on) and the eval CLI on it, K4 in K2's place and K5 in K3's."""
     from brdfnerf_tpu_torch.cli import eval as cli_eval
     steps = FAMILY_WF_STEPS
     common = base + (["--hpk_scl", "1"] if family == "hapke" else [])
@@ -1837,30 +1834,63 @@ def family_runs(family, base, run, check_outputs, falls, logs, ckpts,
         kernels=("K1 (the sigma-only", "K2 + K3", f"width {width}"))
     falls(s2, losses[1:])
     check_outputs(s2, 1, FAMILY_KEYS.get(family, RPV_KEYS))
-    reset_counts()
-    scores = {}
-    saved = cli_eval.evaluate
+    zero = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0}
 
-    def evaluate(*a, **k):
-        scores.update(saved(*a, **k))
+    def evaluate_stage(label, stage, want):
+        reset_counts()
+        scores = {}
+        saved = cli_eval.evaluate
+
+        def evaluate(*a, **k):
+            scores.update(saved(*a, **k))
+            return scores
+        cli_eval.evaluate = evaluate
+        try:
+            rc, _, seconds = run_cli(f"eval, {label}", cli_eval.main, [
+                "--logs_dir", os.path.join(logs, stage), "--epoch_number",
+                "0"], smi)
+        finally:
+            cli_eval.evaluate = saved
+        launches = counts()
+        print(f"  eval, {label}: launches {launches} over {WF_CHUNKS} "
+              f"chunks (want {want}); stage 2 after {steps} steps: PSNR "
+              f"{scores.get('psnr')} dB, SSIM {scores.get('ssim')}, DSM "
+              f"MAE {scores.get('mae')} m; {seconds:.3f} s ({smi})",
+              flush=True)
+        assert rc == 0 and launches == want, launches
+        assert all(np.isfinite(scores[k]) for k in ("psnr", "ssim", "mae")),\
+            scores
         return scores
-    cli_eval.evaluate = evaluate
-    try:
-        rc, _, seconds = run_cli(f"eval, {name}", cli_eval.main, [
-            "--logs_dir", os.path.join(logs, s2), "--epoch_number", "0"],
-            smi)
-    finally:
-        cli_eval.evaluate = saved
-    launches = counts()
-    want = {"K1": 2 * WF_CHUNKS, "K2": WF_CHUNKS, "K3": 0, "K4": 0,
-            "K5": 0}
-    print(f"  eval, {name}: launches {launches} over {WF_CHUNKS} chunks "
-          f"(want {want}); stage 2 after {steps} steps: PSNR "
-          f"{scores.get('psnr')} dB, SSIM {scores.get('ssim')}, DSM MAE "
-          f"{scores.get('mae')} m; {seconds:.3f} s ({smi})", flush=True)
-    assert rc == 0 and launches == want, launches
-    assert all(np.isfinite(scores[k]) for k in ("psnr", "ssim", "mae")), \
-        scores
+
+    scores = evaluate_stage(name, s2, dict(zero, K1=2 * WF_CHUNKS,
+                                           K2=WF_CHUNKS))
+    if family is None and width != 512:
+        # with the switch: the BRDF without theta from step steps / 2 on
+        # (--brdf_on 0.5; K4/K5 take no theta), K1 once a step before it
+        # and twice after, K2 / K3 before it, K4 / K5 after; validation
+        # and eval in the final phase, K4 in K2's place
+        s2h = f"{tag}_stage2_heads"
+        brdf_steps = steps - 1 - steps // 2
+        i = heads.index("--brdf_on")
+        heads_half = heads[:i] + ["--brdf_on", "0.5"] + heads[i + 2:]
+        os.environ[FUSED_HEADS] = "1"
+        try:
+            losses, _ = run(s2h, common + heads_half + [
+                "--exp_name", s2h, "--max_train_steps", str(steps),
+                "--in_ckpts", os.path.join(ckpts, s1, "epoch=0.npz")],
+                steps, {"K1": steps + brdf_steps,
+                        "K2": steps - brdf_steps, "K3": steps - brdf_steps,
+                        "K4": brdf_steps, "K5": brdf_steps},
+                {"K1": 2 * (WF_CHUNKS + 1), "K4": WF_CHUNKS + 1},
+                kernels=("K4 + K5 in their place", f"width {width}"))
+            # the BRDF's first step changes the loss's terms: finite here,
+            # and the widths phase holds the fused-heads step's fall
+            assert all(np.isfinite(losses)), losses
+            check_outputs(s2h, 1, RPV_KEYS)
+            evaluate_stage(f"{name}, fused heads", s2h,
+                           dict(zero, K1=2 * WF_CHUNKS, K4=WF_CHUNKS))
+        finally:
+            del os.environ[FUSED_HEADS]
     return scores
 
 
@@ -2212,7 +2242,6 @@ def main():
     packed = k1.pack_trunk_weights(net, mcfg, torch.bfloat16)
     wbytes = sum(v.numel() * v.element_size() for v in packed.values())
     ein = mcfg.xyz_in_dim
-    macs = width_check.trunk_macs(mcfg, ein)
     feat = mcfg.feat
     rows = {}
     chain_fwd, chain_k2, chain_k3_of = matmul_chains(packed, mcfg, k1.LANE)
@@ -2386,8 +2415,8 @@ def main():
     rows["K3"]["_flops"], rows["K3"]["_bytes"] = k3_flops, k3_bytes
     rows["K3"].update(kernel_parts(lambda: k2._trunk_bwd_cuda(
         packed, mcfg, enc, cs, cf, cg, zs, us)))
-    heads_kernels(rows, mcfg, net, packed, wbytes, macs, k3_flops, k3_bytes,
-                  points, chain_k2, chain_k3, peaks, gen)
+    heads_kernels(rows, mcfg, net, packed, wbytes, points, chain_k2,
+                  chain_k3, peaks, gen)
     del enc, encb, cgb, hth, azb, xtb, zs, us, cs, cf, cg
     backward_small(192, mcfg, net, packed, points, gen)
     forward_small(192, mcfg, net, packed, points)

@@ -187,8 +187,8 @@ def test_k5_wrapper_allocates_the_planes(monkeypatch):
     cfg, net = _flagship("float32")
     seen = {}
 
-    def launch(*args, act="poly"):
-        seen["args"], seen["act"] = args, act
+    def launch(*args, act="poly", feat=512):
+        seen["args"], seen["act"], seen["feat"] = args, act, feat
     monkeypatch.setattr(th, "TRUNK_HEADS_BWD", launch)
     monkeypatch.setattr(th, "check_kernel_inputs", lambda *a: None)
     monkeypatch.setattr(th, "check_head_weights", lambda *a: None)
@@ -211,6 +211,7 @@ def test_k5_wrapper_allocates_the_planes(monkeypatch):
     args = seen["args"]
     # zs_f32, split before layers, skip, stream
     assert args[-5:-3] == (1, 1) and seen["act"] == "poly"
+    assert seen["feat"] == 512
     st, sh = tk2.wgrad_splits(n, 8, True, 132, True)
     assert (args[27], args[28]) == (st, sh)
     assert args[7] == packed["w0_planes"].data_ptr()

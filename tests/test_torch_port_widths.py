@@ -16,6 +16,7 @@ scale).  The kernels themselves are held to their twins on the card by
 tools/width_check.py and chip_smoke.py (the cuda-marked tests below).
 """
 
+import dataclasses as dc
 import os
 
 import numpy as np
@@ -211,12 +212,12 @@ def test_stage2_step_matches_jax_at_8x64(tmp_path):
 @pytest.mark.parametrize("feat", [32, 64, 96, 128, 192, 256, 512, 640,
                                   1024])
 def test_cuda_kernels_cover_the_built_widths(feat):
-    """K1-K3 take the widths they are built for (CUDA_WIDTHS) and no
-    other; K4/K5 only 512; kernel_supports (the twins) any width."""
+    """K1-K5 take the widths they are built for (CUDA_WIDTHS) and no
+    other; kernel_supports (the twins) any width."""
     _, cfg = _configs(feat, 8, 4, "bfloat16_all")
     assert tk1.kernel_supports(cfg)
     assert tk1.cuda_kernels_cover(cfg) == (feat in (64, 128, 256, 512))
-    assert th.heads_cuda_cover(cfg) == (feat == 512)
+    assert th.heads_cuda_cover(cfg) == (feat in (64, 128, 256, 512))
 
 
 @pytest.mark.parametrize("feat", [64, 128, 256])
@@ -401,26 +402,31 @@ def test_kernels_line_at_each_width(feat, monkeypatch):
 
 
 def test_fused_heads_gate_at_width_64(monkeypatch):
-    """With BRDFNERF_FUSED_HEADS set at width 64, K4/K5 (built for 512
-    alone) are not taken on the card: the [kernels] line says the heads
-    run in torch on K2 + K3, and K4's and K5's weight checks refuse the
-    width; on the CPU the heads' twins still take it."""
+    """With BRDFNERF_FUSED_HEADS set at width 64, K4/K5 (built for every
+    width of CUDA_WIDTHS) are taken on the card: the [kernels] line names
+    K4 + K5 (K4 when serving), and K4's and K5's weight checks take the
+    width's heads and refuse another width's; on the CPU the heads' twins
+    take it too."""
     cfg, line, serve_line = _kernels_line(
         ["--fc_feat", "64", "--funcM", "1", "--funcF", "1", "--funcH", "1",
          "--dim_RPV", "1"], monkeypatch, heads=True)
     assert "K2 + K3 (the differentiated trunk" in line
-    assert ("K4/K5 take only the trunk width 512, so at width 64 the heads "
-            "run in torch on K2 + K3") in line
-    assert "run in torch on K2 (ROADMAP" in serve_line
-    assert "K4 + K5 in their place" not in line
+    assert "K4 + K5 in their place" in line
+    assert "K4 in its place" in serve_line
+    assert "run in torch" not in line + serve_line
     m = cfg.model
     from brdfnerf_tpu_torch.models.network import init_network
     net = init_network(m, torch.Generator().manual_seed(0), device="cpu")
     assert th.heads_kernel_supports(m, net, apply_brdf=True)
-    assert not th.heads_cuda_cover(m)
+    assert th.heads_cuda_cover(m)
     hw = th.pack_head_weights(net, m, torch.bfloat16)
-    with pytest.raises(ValueError, match="width 512 alone"):
-        th.check_head_weights(m, hw, torch.zeros(64, 128))
+    th.check_head_weights(m, hw, torch.zeros(64, 128))
+    with pytest.raises(ValueError, match="packed head wf"):
+        th.check_head_weights(dc.replace(m, feat=128), hw,
+                              torch.zeros(64, 128))
+    with pytest.raises(ValueError, match="K4/K5 take the trunk widths"):
+        th.check_head_weights(dc.replace(m, feat=96), hw,
+                              torch.zeros(64, 128))
     # the CPU twins of the head block take width 64
     xyz = torch.rand(64, 3) * 2 - 1
     out = th.fused_trunk_heads_with_grad(net, m, xyz)
