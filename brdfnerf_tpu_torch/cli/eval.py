@@ -7,9 +7,9 @@ the epoch checkpoint (.npz, or the reference's .ckpt), renders every image
 of the requested split through the block render on the card, writes
 rgb/depth/DSM GeoTIFFs plus registered DSM diffs (rdsm/, rdsm_diff/), and
 prints mean PSNR / SSIM / DSM MAE.  Prints which fused kernels the render
-launches, or why none.  Not ported yet: the panel PNGs (utils/viz,
-ROADMAP.md Queue 1 item 7) and the t-embedding search (--find_best_t on a
-run with the t-embedding, item 9).
+launches, or why none.  --find_best_t on a run with the t-embedding renders
+each image once per embedding index and keeps the best.  Not ported yet:
+the panel PNGs (utils/viz, ROADMAP.md Queue 1 item 7).
 
 Gate semantics on eval: apply_brdf = (brdf_on < 1), apply_theta likewise,
 cos_irra = (cos_irra_on < 1) (eval.py:383-384).
@@ -25,7 +25,24 @@ from typing import Dict
 import numpy as np
 
 from . import opts as opts_mod
-from ..models.network import not_ported
+
+
+def find_best_t_for_val_image(r, sample, n_vocab: int):
+    """Best-PSNR transient-embedding search (eval.py:184-199): render the
+    image once per vocab index through the Renderer `r`, score the
+    unmasked PSNR, keep the argmax (the first of equals) and its render.
+    Returns (t, psnr, render)."""
+    import torch
+    from ..metrics import psnr
+    gt = torch.from_numpy(np.asarray(sample["rgbs"]).reshape(-1, 3))
+    best_t, best_psnr, best_out = 0, -float("inf"), None
+    for t in range(n_vocab):
+        out = r.render_image(sample, t=t)
+        rgb = torch.from_numpy(out.get("rgb_fine", out["rgb_coarse"]))
+        p = float(psnr(rgb.reshape(-1, 3), gt))
+        if p > best_psnr:
+            best_t, best_psnr, best_out = t, p, out
+    return best_t, best_psnr, best_out
 
 
 def evaluate(run_dir: str, epoch_number: int, split: str = "val",
@@ -36,7 +53,9 @@ def evaluate(run_dir: str, epoch_number: int, split: str = "val",
              n_devices: int = 0, device=None) -> Dict:
     """Score a run's epoch checkpoint on `split` (on CUDA unless `device`
     names another): {psnr, ssim, mae, mae_nr} means over the test images
-    (is_val), or over every image with split='train'."""
+    (is_val), or over every image with split='train'.  With the search,
+    each image's embedding index is printed ('[eval] best t for image
+    i: t')."""
     import torch
     from ..geo import dsm as dsm_mod
     from ..metrics import masked_scores
@@ -55,9 +74,8 @@ def evaluate(run_dir: str, epoch_number: int, split: str = "val",
                       sun_march_samples=sun_march_samples,
                       output_dir=out_dir, n_devices=n_devices, device=device)
     # the best-PSNR embedding search applies to models that carry the
-    # transient t embedding (params['t'] exists exactly when beta is on)
-    if find_best_t and r.cfg.model.beta:
-        raise not_ported("the t-embedding search (--find_best_t)", 9)
+    # transient t embedding (the t table exists exactly when beta is on)
+    search_t = find_best_t and r.cfg.model.beta
     args, ds = r.args, r.dataset
     print(kernels_line(r.cfg, r.device, train=False), flush=True)
     print("[eval] the panel PNGs are not ported yet (utils/viz, ROADMAP.md "
@@ -67,7 +85,13 @@ def evaluate(run_dir: str, epoch_number: int, split: str = "val",
     for idx in range(len(ds)):
         s = ds.get_image(idx)
         t0 = time.perf_counter()
-        out = r.render_image(s)
+        if search_t:
+            t_idx, best_p, out = find_best_t_for_val_image(
+                r, s, int(r.cfg.model.t_embedding_vocab))
+            print(f"[eval] best t for image {idx}: {t_idx} "
+                  f"(psnr {best_p:.2f})")
+        else:
+            out = r.render_image(s)
         render_s = time.perf_counter() - t0
         h, w = s["h"], s["w"]
         # score the fine pass when a fine model exists (reference eval typ)

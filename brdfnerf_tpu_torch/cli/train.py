@@ -48,17 +48,32 @@ def kernels_line(cfg, device, train: bool = True) -> str:
         return ("[kernels] none: the CUDA kernels do not cover this model ("
                 + ", ".join(why) + "), so the run takes the unfused "
                 "torch path (ROADMAP.md Queue 2)")
-    used = []
+    used, notes = [], []
     if r.use_pallas:
         used.append("K1 (the sigma-only passes)")
-    if r.fused_trunk and m.normal in ("analystic", "analystic_learned"):
+    fine = r.n_importance > 0
+    analytic = m.normal in ("analystic", "analystic_learned")
+    if r.fused_trunk and analytic and r.normal_at_surface:
+        notes.append("no K2/K3: --normal_at_surface takes one analytic "
+                     "normal a ray by autograd through the unfused trunk "
+                     "(the JAX package's jax.grad)")
+    elif r.fused_trunk and analytic:
+        k23 = "K2 + K3" if train else "K2"
         if train:
             used.append("K2 + K3 (the differentiated trunk and its "
                         "backward)")
         else:
             used.append("K2 (the trunk with its sigma gradient)")
+        if fine:
+            used.append(f"{k23} twice a {'step' if train else 'chunk'}: "
+                        "on the coarse and on the fine network "
+                        "(--n_importance)")
         if os.environ.get("BRDFNERF_FUSED_HEADS"):
-            if m.roughness or m.uses_hapke:
+            if m.beta:
+                used.append("BRDFNERF_FUSED_HEADS is set, but K4/K5 "
+                            "refuse a t-embedding (--beta), so the heads "
+                            f"stay on {k23}")
+            elif m.roughness or m.uses_hapke:
                 family = "Microfacet" if m.roughness else "Hapke"
                 used.append(f"BRDFNERF_FUSED_HEADS is set, but K4/K5 take "
                             f"only the RPV(111) heads, so the {family} "
@@ -74,14 +89,15 @@ def kernels_line(cfg, device, train: bool = True) -> str:
                              else "K4 in its place") + " where the flagship "
                             "head set runs (BRDFNERF_FUSED_HEADS)")
     if not used:
-        return ("[kernels] none: --use_pallas 0 and no fused trunk "
-                "(--fused_trunk 0, or no analytic normals)")
+        return "[kernels] none: " + ("; ".join(notes) or (
+            "--use_pallas 0 and no fused trunk (--fused_trunk 0, or no "
+            "analytic normals)"))
     how = (" (float32: each f32 product as three on its bf16 hi and lo "
            "terms)" if split_operands(m) else "")
     act = {"poly": "the polynomial sine", "sin": "the exact sine",
            "relu": "ReLU"}[act_of(m)]
     return (f"[kernels] fused CUDA kernels at width {m.feat}, compute_dtype="
-            f"{m.compute_dtype!r}{how}, {act}: " + "; ".join(used))
+            f"{m.compute_dtype!r}{how}, {act}: " + "; ".join(used + notes))
 
 
 def main(argv=None, device=None):
@@ -119,6 +135,9 @@ def main(argv=None, device=None):
           f"{len(train_ds.train_files)} images, {len(val_ds)} validation "
           f"images; ingested in {time.perf_counter() - t0:.3f} s",
           flush=True)
+    if train_ds.depth_store is not None:
+        print(f"[data] {train_ds.depth_store['rays'].shape[0]} keypoint "
+              "rays (sat-nerf's keypoint depth store)", flush=True)
 
     ckpts_dir = os.path.join(args.ckpts_dir, args.exp_name)
     paths = TrainerPaths(logs_dir=run_dir, ckpts_dir=ckpts_dir,
@@ -129,7 +148,8 @@ def main(argv=None, device=None):
     trainer = Trainer(cfg, train_ds.store, paths, val_dataset=val_ds,
                       seed=args.seed, use_tb=args.tensorboard,
                       in_ckpts=args.in_ckpts, resume_from=args.ckpt_path,
-                      freeze=freeze, test_sun_v=bool(args.test_sun_v), device=device)
+                      freeze=freeze, test_sun_v=bool(args.test_sun_v),
+                      depth_store=train_ds.depth_store, device=device)
     trainer.eval_chunk = args.chunk
     try:
         trainer.fit(eval_every_n_epochs=args.eval_every_n_epochs,

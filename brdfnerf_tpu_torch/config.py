@@ -141,7 +141,7 @@ class RenderConfig:
     fused_trunk: bool = False
     # deviates from reference semantics, off by default: evaluate the
     # analytic normal once per ray at the expected surface point instead of
-    # at every sample.  Not ported yet.
+    # at every sample (the main pass then runs no fused trunk kernel).
     normal_at_surface: bool = False
 
     @property

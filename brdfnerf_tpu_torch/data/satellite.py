@@ -32,9 +32,9 @@ identically 0 so GT-guided samples collapse onto the exact MicMac depth.
 `std_quirk=True` (default) reproduces this; False keeps the documented
 stdscale*(1-w)+margin law.
 
-The port's copy of the JAX package's data/satellite.py.  Not copied yet:
-resampling at img_downscale > 1 (cv2 there; ROADMAP.md Queue 1 item 7)
-and the sat-nerf keypoint store (load_sparse_depth, item 9); both raise.
+The port's copy of the JAX package's data/satellite.py, the sat-nerf
+keypoint store (load_sparse_depth) included.  Not copied yet: resampling
+at img_downscale > 1 (cv2 there; ROADMAP.md Queue 1 item 7), which raises.
 Masks are read through this package's own GeoTIFF reader.
 """
 
@@ -512,11 +512,20 @@ class SatelliteDataset:
         self.utm_zone: Optional[Tuple[int, str]] = None
         self.depth_store: Optional[Dict[str, np.ndarray]] = None
         if split == "train":
+            self.store = self._load_images(self.train_files)
             if cfg.sparse_depth:
                 # sat-nerf keypoint mode: a separate store of tie-point rays
-                # (the JAX package's load_sparse_depth)
-                raise not_ported("the sat-nerf keypoint depth store", 9)
-            self.store = self._load_images(self.train_files)
+                # with bundle-adjustment depths and confidence weights; the
+                # trainer draws a sub-batch from it each step, which the
+                # step renders a second time for the depth loss (reference:
+                # datasets/__init__.py:19-26, main.py:177-183,256-262)
+                sparse = load_sparse_depth(
+                    self.train_files, cfg.root_dir, self.scene,
+                    cfg.img_downscale, cfg.cs, cfg.aoi_id,
+                    cfg.mod_alt_bound)
+                self.depth_store = {"rays": sparse["rays"],
+                                    "depths": sparse["depths"],
+                                    "ts": sparse["ts"]}
         elif split == "train_render":
             # eval --split train: render every TRAINING image as a full
             # image (eval.py:238-249 split selection)
@@ -679,3 +688,83 @@ class SatelliteDataset:
         sample["save_cross"] = idx == 0
         sample["idx"] = idx
         return sample
+
+
+# --------------------------------------------- sparse keypoint depth (sat-nerf)
+
+def _keypoint_weights(json_files: List[str], pts3d: np.ndarray,
+                      aoi_id: str = "", mod_alt_bound: bool = False
+                      ) -> np.ndarray:
+    """Per-tie-point confidence from bundle-adjustment reprojection errors:
+    w_p = exp(-(e_p / mean(e))^2), e_p summed over the observing cameras
+    (satellite_depth.py:103-129).  pts3d: ECEF (the BA output
+    convention)."""
+    from ..geo.geodesy import ecef_to_latlon
+    errors = np.zeros((pts3d.shape[0], len(json_files)), np.float64)
+    for t, json_p in enumerate(json_files):
+        d = read_meta_json(json_p, aoi_id, mod_alt_bound)
+        kp = d["keypoints"]
+        idx = np.asarray(kp.get("pts3d_indices", kp.get("pts_indices")),
+                         np.int64)
+        obs = np.asarray(kp["2d_coordinates"], np.float64)
+        rpc = rpc_mod.rpc_from_dict(d["rpc"])
+        lat, lon, alt = ecef_to_latlon(pts3d[idx, 0], pts3d[idx, 1],
+                                       pts3d[idx, 2])
+        col, row = rpc_mod.projection_np(rpc, lon, lat, alt)
+        errors[idx, t] = np.linalg.norm(obs - np.stack([col, row], -1),
+                                        axis=1)
+    e = errors.sum(axis=1)
+    return np.exp(-(e / max(e.mean(), 1e-12)) ** 2)
+
+
+def load_sparse_depth(json_files: List[str], root_dir: str, scene: SceneLoc,
+                      img_downscale: float = 1.0, cs: str = "utm",
+                      aoi_id: str = "", mod_alt_bound: bool = False):
+    """Bundle-adjustment keypoint depth supervision (SatelliteDataset_depth,
+    datasets/satellite_depth.py:46-129): rays at the keypoint pixels, depth
+    |pts3d_norm - o|, weights exp(-(e/ebar)^2) of the reprojection errors.
+    pts3d.npy holds ECEF tie points (the sat-bundleadjust convention),
+    converted to UTM before normalization when cs == 'utm'.  Returns
+    {rays (K, 8), depths (K, 2) [depth, weight], ts (K,) image index,
+    kp_indices (K,) tie-point index}."""
+    pts3d_ecef = np.load(os.path.join(root_dir, "pts3d.npy"))   # (P, 3)
+    if cs == "utm":
+        from ..geo.geodesy import ecef_to_latlon
+        lat, lon, alt = ecef_to_latlon(pts3d_ecef[:, 0], pts3d_ecef[:, 1],
+                                       pts3d_ecef[:, 2])
+        e, n = utm_from_latlon(lat, lon)
+        pts3d = np.stack([e, n, alt], -1)
+    else:
+        pts3d = pts3d_ecef
+    try:
+        kp_w = _keypoint_weights(json_files, pts3d_ecef, aoi_id,
+                                 mod_alt_bound)
+    except (KeyError, ValueError):
+        kp_w = np.ones(pts3d.shape[0])
+    rays_l, depths_l, weights_l, ts_l, idx_l = [], [], [], [], []
+    for t, json_p in enumerate(json_files):
+        d = read_meta_json(json_p, aoi_id, mod_alt_bound)
+        if "keypoints" not in d:
+            raise FileNotFoundError(f"no keypoints in {json_p}")
+        kp = d["keypoints"]
+        pix = np.asarray(kp["2d_coordinates"], np.float64)
+        idx = np.asarray(kp.get("pts3d_indices", kp.get("pts_indices")),
+                         np.int64)
+        rpc = rpc_mod.rescale_rpc(rpc_mod.rpc_from_dict(d["rpc"]),
+                                  1.0 / img_downscale)
+        rays = get_rays_np(pix[:, 0] / img_downscale,
+                           pix[:, 1] / img_downscale, rpc,
+                           float(d["min_alt"]), float(d["max_alt"]), cs)
+        rays = scene.normalize_rays(rays).astype(np.float32)
+        p3 = scene.normalize_points(pts3d[idx]).astype(np.float32)
+        rays_l.append(rays)
+        depths_l.append(np.linalg.norm(p3 - rays[:, 0:3], axis=1))
+        weights_l.append(kp_w[idx].astype(np.float32))
+        idx_l.append(idx)
+        ts_l.append(np.full(rays.shape[0], t, np.int32))
+    depths = np.concatenate(depths_l, 0)
+    weights = np.concatenate(weights_l, 0)
+    return {"rays": np.concatenate(rays_l, 0),
+            "depths": np.stack([depths, weights], 1),
+            "ts": np.concatenate(ts_l, 0),
+            "kp_indices": np.concatenate(idx_l, 0)}

@@ -8,6 +8,14 @@ layers with parameters `w` and `b`, so `named_parameters()` reads
 stored (out, in), nn.Linear's layout; the npz (and the JAX package) store
 (in, out), and utils/checkpoint.py transposes on the way in and out.
 
+`Params` holds the JAX package's {'coarse': net, ['fine': net],
+['t': (vocab, tau)]}: the coarse network, the fine one of n_importance > 0
+and the transient embedding table of the beta head.  Its parameters read
+`coarse.fc_net.0.w`, `fine.fc_net.0.w`, `t`, the npz keys with '.' for '/'.
+The system builds Params alone (model_params, init_params); a bare
+`Network` handed to an entry point stands for the coarse network alone
+(as_params).
+
 The forward functions return a dict of named head outputs, like the JAX
 package, so the render step consumes names.
 """
@@ -16,7 +24,7 @@ from __future__ import annotations
 
 import math
 import os
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn as nn
@@ -94,6 +102,61 @@ class Network(nn.ModuleDict):
             name: nn.ModuleList([Dense(i, o, device) for i, o in dims])
             for name, dims in sizes.items()})
         self.cfg = cfg
+
+
+class Params(nn.Module):
+    """The coarse network, the optional fine network and the optional
+    transient embedding table t (vocab, tau), as the JAX package's params
+    dict (parallel/train_step.create_train_state)."""
+
+    def __init__(self, coarse: Network, fine: Optional[Network] = None,
+                 t: Optional[torch.Tensor] = None):
+        super().__init__()
+        self.coarse = coarse
+        self.fine = fine
+        self.t = None if t is None else nn.Parameter(t)
+
+
+def as_params(params) -> Params:
+    """`params` as a Params: a bare Network stands for the coarse network
+    alone (the entry points take either and convert here, once)."""
+    return params if isinstance(params, Params) else Params(params)
+
+
+def model_params(cfg: ModelConfig, n_importance: int = 0,
+                 device=None) -> Params:
+    """The parameter structure of a run, values unset: a Params of the
+    coarse Network, the fine one where n_importance > 0 and the t table
+    where cfg.beta.  On CUDA unless `device` names another."""
+    from ..utils.device import resolve_device
+    device = resolve_device(device)
+    return Params(
+        Network(cfg, device=device),
+        Network(cfg, device=device) if n_importance > 0 else None,
+        torch.empty(cfg.t_embedding_vocab, cfg.t_embedding_tau,
+                    device=device) if cfg.beta else None)
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                n_importance: int = 0, device=None) -> Params:
+    """model_params drawn from `generator` in the JAX package's order:
+    the coarse network, the fine one, the t table (create_train_state)."""
+    coarse = init_network(cfg, generator, device=device)
+    fine = (init_network(cfg, generator, device=device)
+            if n_importance > 0 else None)
+    return Params(coarse, fine, init_t_embedding(
+        cfg.t_embedding_vocab, cfg.t_embedding_tau, generator,
+        device=device) if cfg.beta else None)
+
+
+def init_t_embedding(vocab: int, dim: int, generator: torch.Generator,
+                     device=None) -> torch.Tensor:
+    """The transient per-image embedding, torch.nn.Embedding's N(0, 1)
+    (main.py:115), drawn from `generator`."""
+    from ..utils.device import resolve_device
+    draw = torch.randn((vocab, dim), generator=generator,
+                       device=generator.device)
+    return draw.to(resolve_device(device))
 
 
 def init_network(cfg: ModelConfig, generator: torch.Generator,
@@ -241,21 +304,23 @@ def analytic_normals(net: Network, cfg: ModelConfig, xyz):
 
 
 def apply_network(net: Network, cfg: ModelConfig, xyz, dirs=None,
-                  sun_d=None, apply_brdf: bool = False,
+                  sun_d=None, t_emb=None, apply_brdf: bool = False,
                   apply_theta: bool = False,
                   nr_lr: bool = False) -> Dict[str, torch.Tensor]:
     """Full forward over flat points xyz (N, 3); returns named heads with
-    the semantics of SpSBRDFNeRF.forward (spsbrdfnerf.py:662-757)."""
+    the semantics of SpSBRDFNeRF.forward (spsbrdfnerf.py:662-757).
+    t_emb (N, tau): the points' transient embeddings, which the beta head
+    takes."""
     out: Dict[str, torch.Tensor] = {}
     feats = _trunk_features(net, cfg, xyz)
     out["sigma"] = _head(net, cfg, "sigma_from_xyz", feats,
                          final="softplus")[..., 0]
-    return _heads_from_feats(out, net, cfg, feats, dirs, sun_d,
+    return _heads_from_feats(out, net, cfg, feats, dirs, sun_d, t_emb,
                              apply_brdf, apply_theta, nr_lr)
 
 
 def apply_network_with_normals(net: Network, cfg: ModelConfig, xyz,
-                               dirs=None, sun_d=None,
+                               dirs=None, sun_d=None, t_emb=None,
                                apply_brdf: bool = False,
                                apply_theta: bool = False,
                                nr_lr: bool = False,
@@ -271,7 +336,8 @@ def apply_network_with_normals(net: Network, cfg: ModelConfig, xyz,
     the flagship head set (heads_kernel_supports), the heads run inside the
     kernel pair too (ops/fused_trunk_heads.py): on the card at every width
     K4/K5 are built for (heads_cuda_cover: the widths of K1-K3), on the
-    CPU in their twins at any width."""
+    CPU in their twins at any width.  K4/K5 take no t-embedding: with
+    t_emb the beta head runs on K2's features."""
     if fused_trunk:
         from ..ops.fused_mlp import kernel_supports
         fused_trunk = kernel_supports(cfg)
@@ -280,7 +346,7 @@ def apply_network_with_normals(net: Network, cfg: ModelConfig, xyz,
             from ..ops.fused_trunk_heads import (fused_trunk_heads_with_grad,
                                                  heads_cuda_cover,
                                                  heads_kernel_supports)
-            if (heads_kernel_supports(cfg, net, dirs=dirs,
+            if (heads_kernel_supports(cfg, net, dirs=dirs, t_emb=t_emb,
                                       apply_brdf=apply_brdf,
                                       apply_theta=apply_theta, nr_lr=nr_lr)
                     and (xyz.device.type != "cuda"
@@ -301,7 +367,7 @@ def apply_network_with_normals(net: Network, cfg: ModelConfig, xyz,
             feats, sigma = feats.detach(), sigma.detach()
     out: Dict[str, torch.Tensor] = {"sigma": sigma}
     out["normal_an"] = -l2_normalize(grad_x.float())
-    return _heads_from_feats(out, net, cfg, feats, dirs, sun_d,
+    return _heads_from_feats(out, net, cfg, feats, dirs, sun_d, t_emb,
                              apply_brdf, apply_theta, nr_lr)
 
 
@@ -330,7 +396,7 @@ def _merged_sigmoid_heads(net: Network, cfg: ModelConfig, x, names):
 
 
 def _heads_from_feats(out: Dict, net: Network, cfg: ModelConfig, feats,
-                      dirs=None, sun_d=None,
+                      dirs=None, sun_d=None, t_emb=None,
                       apply_brdf: bool = False, apply_theta: bool = False,
                       nr_lr: bool = False) -> Dict[str, torch.Tensor]:
     xyz_features = _linear(net["feats_from_xyz"][0].w,
@@ -356,6 +422,12 @@ def _heads_from_feats(out: Dict, net: Network, cfg: ModelConfig, feats,
     if "sky_color" in net and sun_d is not None:
         out["sky"] = _head(net, cfg, "sky_color", sun_d, final="sigmoid",
                            act_relu=True)
+    if cfg.beta and t_emb is not None:
+        # concat promotes bf16 features to t's f32, as jnp.concatenate does
+        dt = torch.promote_types(xyz_features.dtype, t_emb.dtype)
+        beta_in = torch.cat([xyz_features.to(dt), t_emb.to(dt)], -1)
+        out["beta"] = _head(net, cfg, "beta_from_xyz", beta_in,
+                            final="softplus")
     if nr_lr and "grad_from_xyz" in net:
         g = net["grad_from_xyz"][0]
         grad_lr = _linear(g.w, g.b, feats, cfg.compute_dtype)

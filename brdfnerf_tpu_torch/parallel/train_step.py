@@ -15,7 +15,8 @@ device (the JAX package's lax.scan of the same steps).
 
 Random draws: the JAX package folds the step into a base key; here each
 step draws from a torch.Generator seeded from (seed, step), or takes the
-draws it is handed (a test hands in the JAX package's).
+draws it is handed (a test hands in the JAX package's; draws["kp"] are
+those of sat-nerf's keypoint render).
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ import numpy as np
 import torch
 
 from ..config import ModelConfig, RenderConfig, TrainConfig
-from ..models.network import init_network, not_ported
+from ..models.network import Params, init_params, model_params, not_ported
 from ..render.render import RenderInputs, render_rays
 from .. import losses as L
 from ..metrics import psnr as psnr_metric
@@ -65,9 +66,9 @@ def gates_from_step(step: int, sched: GateSchedule) -> TrainGates:
 
 
 class TrainState(NamedTuple):
-    """The network (its parameters), the torch optimizer holding Adam's
-    moments, and the number of updates done."""
-    params: torch.nn.Module
+    """The parameters (a models.network.Params), the torch optimizer
+    holding Adam's moments, and the number of updates done."""
+    params: Params
     opt_state: torch.optim.Optimizer
     step: int
 
@@ -117,10 +118,9 @@ class Optimizer:
         self.frozen = list(frozen or ())
 
     def init(self, net: torch.nn.Module) -> Optional[torch.optim.Optimizer]:
-        from ..utils.checkpoint import freeze_mask, _param_key, NET_KEY
+        from ..utils.checkpoint import freeze_mask, named_flat
         mask = freeze_mask(net, self.frozen)
-        params = [p for n, p in net.named_parameters()
-                  if mask[_param_key(n, NET_KEY)]]
+        params = [p for k, p in named_flat(net).items() if mask[k]]
         if not params:
             return None
         return torch.optim.Adam(params, lr=self.schedule(0),
@@ -156,23 +156,23 @@ def create_train_state(mcfg: ModelConfig, tcfg: TrainConfig,
                        flat: Optional[Dict[str, np.ndarray]] = None,
                        n_importance: int = 0, device=None,
                        frozen: Optional[Sequence[str]] = None):
-    """A fresh TrainState and its Optimizer.  The weights come from a
-    torch.Generator seeded with `seed`, or from `flat` (the npz layout,
-    e.g. the JAX package's params through utils.checkpoint._flatten).  On
-    CUDA unless `device` names another.  `frozen`: key prefixes the
-    optimizer leaves out (Optimizer)."""
-    from ..utils.checkpoint import params_from_flat
+    """A fresh TrainState and its Optimizer.  The parameters are the coarse
+    network, with the fine one where n_importance > 0 and the t table where
+    mcfg.beta (models.network.model_params), drawn from a torch.Generator
+    seeded with `seed` in that order, or taken from `flat` (the npz
+    layout, e.g. the JAX package's params through
+    utils.checkpoint._flatten), which must hold exactly those.  On CUDA
+    unless `device` names another.  `frozen`: key prefixes the optimizer
+    leaves out (Optimizer)."""
+    from ..utils.checkpoint import load_params
     from ..utils.device import resolve_device
-    if n_importance > 0:
-        raise not_ported("the fine model (n_importance > 0)", 9)
-    if mcfg.beta:
-        raise not_ported("the beta head with the t-embedding", 9)
     device = resolve_device(device)
     if flat is not None:
-        net = params_from_flat(flat, mcfg, device=device)
+        net = load_params(model_params(mcfg, n_importance, device=device),
+                          flat)
     else:
         gen = torch.Generator(device=device).manual_seed(seed)
-        net = init_network(mcfg, gen, device=device)
+        net = init_params(mcfg, gen, n_importance, device=device)
     opt, _ = make_optimizer(tcfg, steps_per_epoch, frozen)
     return TrainState(net, opt.init(net), 0), opt
 
@@ -182,9 +182,10 @@ def compute_losses(net, mcfg: ModelConfig, rcfg: RenderConfig,
                    draws: Optional[Dict] = None,
                    generator: Optional[torch.Generator] = None):
     """Full loss of one batch (training_step semantics, main.py:230-327).
-    Returns (loss, (terms, aux))."""
-    if "kp_rays" in batch:
-        raise not_ported("the sat-nerf keypoint depth pass", 9)
+    Returns (loss, (terms, aux)).  With `kp_rays` in the batch (sat-nerf's
+    keypoint store, kp_depths and kp_ts beside), a second render of those
+    rays feeds the keypoint depth loss."""
+    draws = draws or {}
     inp = RenderInputs(
         rays=batch["rays"], ts=batch.get("ts"),
         valid_depth=batch.get("valid_depth"),
@@ -197,11 +198,14 @@ def compute_losses(net, mcfg: ModelConfig, rcfg: RenderConfig,
     typ = "fine" if "rgb_fine" in results else "coarse"
     terms: Dict[str, torch.Tensor] = {}
 
-    # color loss (render_rays refuses the beta head, so there is no beta
-    # warmup to switch, main.py:237-238)
+    # color loss; the beta warmup takes the s-nerf (no-beta) loss
+    # (main.py:237-238)
     loss_fn = L.load_loss(mcfg.variant, mcfg.beta, tcfg.sc_lambda,
                           tcfg.lambda_rgb)
     loss, d = loss_fn(results, rgbs)
+    if (mcfg.beta and mcfg.variant in ("sat-nerf", "sps-nerf")
+            and gates.beta_warmup):
+        loss, _ = L.snerf_loss(results, rgbs, lambda_sc=tcfg.sc_lambda)
     terms.update(d)
 
     # depth supervision (main.py:248-265), dropped after ds_drop
@@ -218,6 +222,23 @@ def compute_losses(net, mcfg: ModelConfig, rcfg: RenderConfig,
         if gates.ds_on:
             loss = loss + dloss
         terms.update(d)
+
+    # sat-nerf's keypoint depth: a second render of the tie-point rays
+    # (main.py:256-262 renders batch['depth'] with mode='test'), the plain
+    # MSE over all of them (DepthLoss subset=False, metrics.py:147: the
+    # keypoint weights apply in subset mode alone)
+    if tcfg.ds_lambda > 0 and "kp_rays" in batch:
+        kp_inp = RenderInputs(rays=batch["kp_rays"], ts=batch.get("kp_ts"),
+                              cos_irra_on=gates.cos_irra_on)
+        kp_res = render_rays(net, mcfg, rcfg, kp_inp, train=False,
+                             draws=draws.get("kp"), generator=generator)
+        dloss, d = L.depth_loss(
+            kp_res, batch["kp_depths"][:, 0], batch["kp_depths"][:, 1],
+            lambda_ds=tcfg.ds_lambda, gnll=tcfg.gnll,
+            usealldepth=tcfg.usealldepth, subset=False)
+        if gates.ds_on:
+            loss = loss + dloss
+        terms.update({f"kp_{k}": v for k, v in d.items()})
 
     perc_bad_nr = torch.tensor(-1.0)
     if mcfg.variant == "spsbrdf-nerf":
@@ -322,19 +343,28 @@ def make_fused_train_step(mcfg: ModelConfig, rcfg: RenderConfig,
                           mesh=None, store_sharded: bool = False,
                           state_shardings=None):
     """The step Trainer.fit dispatches: fn(state, store, idx, seed,
-    draws=None) -> (state, metrics).  The minibatch is gathered from the
-    device-resident store by the (batch,) index tensor on the device, the
-    gates follow from state.step, and the draws from step_generator(seed,
-    state.step) unless given.  Per step the host sends the index vector and
-    nothing else."""
+    kp_store=None, kp_idx=None, draws=None) -> (state, metrics).  The
+    minibatch is gathered from the device-resident store by the (batch,)
+    index tensor on the device (with has_kp, sat-nerf's keypoint sub-batch
+    from kp_store by kp_idx too, both required), the gates follow from
+    state.step, and the draws from step_generator(seed, state.step) unless
+    given.  Per step the host sends the index vectors and nothing else."""
     _refuse_multi_device(mesh, store_sharded, state_shardings)
-    if has_kp:
-        raise not_ported("the sat-nerf keypoint depth store", 9)
 
     def step_fn(state: TrainState, store: Dict[str, torch.Tensor],
-                idx: torch.Tensor, seed: int,
+                idx: torch.Tensor, seed: int, *,
+                kp_store: Optional[Dict[str, torch.Tensor]] = None,
+                kp_idx: Optional[torch.Tensor] = None,
                 draws: Optional[Dict] = None):
+        if has_kp != (kp_store is not None and kp_idx is not None):
+            raise ValueError(f"a step built with has_kp={has_kp} takes "
+                             f"kp_store and kp_idx {'' if has_kp else 'not'}")
         batch = {k: torch.index_select(v, 0, idx) for k, v in store.items()}
+        if has_kp:
+            kb = {k: torch.index_select(v, 0, kp_idx)
+                  for k, v in kp_store.items()}
+            batch.update(kp_rays=kb["rays"], kp_depths=kb["depths"],
+                         kp_ts=kb["ts"])
         gates = gates_from_step(state.step, schedule)
         gen = (None if draws is not None
                else step_generator(seed, state.step, idx.device))
@@ -348,23 +378,28 @@ def make_scan_train_step(mcfg: ModelConfig, rcfg: RenderConfig,
                          schedule: GateSchedule, has_kp: bool = False,
                          mesh=None, store_sharded: bool = False,
                          state_shardings=None):
-    """N fused steps per call: fn(state, store, idx_mat, seed, draws=None)
-    -> (state, metrics of the last step).  idx_mat is (N, batch) on the
-    device, one host upload for the N steps; step i takes row i, its gates
-    and draws follow from its own step count, so the trajectory is that of
-    N calls of make_fused_train_step.  draws: None, or a list of N draw
-    dicts."""
+    """N fused steps per call: fn(state, store, idx_mat, seed,
+    kp_store=None, kp_mat=None, draws=None) -> (state, metrics of the last
+    step).
+    idx_mat is (N, batch) on the device (kp_mat (N, kp_batch)), one host
+    upload for the N steps; step i takes row i, its gates and draws follow
+    from its own step count, so the trajectory is that of N calls of
+    make_fused_train_step.  draws: None, or a list of N draw dicts."""
     step = make_fused_train_step(mcfg, rcfg, tcfg, optimizer, schedule,
                                  has_kp, mesh, store_sharded,
                                  state_shardings)
 
     def scan_fn(state: TrainState, store: Dict[str, torch.Tensor],
-                idx_mat: torch.Tensor, seed: int,
+                idx_mat: torch.Tensor, seed: int, *,
+                kp_store: Optional[Dict[str, torch.Tensor]] = None,
+                kp_mat: Optional[torch.Tensor] = None,
                 draws: Optional[List[Dict]] = None):
         metrics = None
         for i in range(idx_mat.shape[0]):
-            state, metrics = step(state, store, idx_mat[i], seed,
-                                  None if draws is None else draws[i])
+            state, metrics = step(
+                state, store, idx_mat[i], seed, kp_store=kp_store,
+                kp_idx=None if kp_mat is None else kp_mat[i],
+                draws=None if draws is None else draws[i])
         return state, metrics
     return scan_fn
 
@@ -386,7 +421,8 @@ def render_blocks(net, mcfg: ModelConfig, rcfg: RenderConfig,
                   rays: np.ndarray, chunk: int, device, cos_irra_on: bool,
                   per_ray_keys: Sequence[str], panel_accum,
                   seed: int = 0, draws: Optional[Dict] = None,
-                  block: Optional[int] = None) -> Dict[str, np.ndarray]:
+                  block: Optional[int] = None,
+                  t: int = 0) -> Dict[str, np.ndarray]:
     """Block render of a full image (the JAX package's
     make_scan_render_step with Trainer._render_image_scan): the rays go to
     the device once, padded to whole chunks by repeating the last ray; the
@@ -395,8 +431,9 @@ def render_blocks(net, mcfg: ModelConfig, rcfg: RenderConfig,
     reduce_panels maps accumulating in one float32 device buffer, which
     crosses to the host in one copy a block.  Every chunk takes the same
     draws: `draws` (one chunk's), else render.chunk_draws(seed), which are
-    those a generator seeded with `seed` gives a chunk.  Returns what the
-    chunk loop (serve.render_in_chunks) returns, bit for bit."""
+    those a generator seeded with `seed` gives a chunk.  Every ray takes
+    the transient embedding t (of a t table).  Returns what the chunk loop
+    (serve.render_in_chunks) returns, bit for bit."""
     from ..render.render import chunk_draws
     step = make_render_step(mcfg, rcfg)
     rays = np.asarray(rays, np.float32)
@@ -412,6 +449,7 @@ def render_blocks(net, mcfg: ModelConfig, rcfg: RenderConfig,
     if draws is None:
         draws = chunk_draws(mcfg, rcfg, chunk, device, seed)
     cos = torch.tensor(bool(cos_irra_on), device=device)
+    ts = torch.full((chunk,), int(t), dtype=torch.int64, device=device)
     panel_items = tuple(panel_accum.items())
     # [(key, first column, columns, trailing shape)] of the block buffer
     layout = buf = None
@@ -420,7 +458,8 @@ def render_blocks(net, mcfg: ModelConfig, rcfg: RenderConfig,
         rows = min(block, n_chunks - b0) * chunk
         for c in range(b0, min(b0 + block, n_chunks)):
             res = step(net, RenderInputs(
-                rays=rays_d[c * chunk:(c + 1) * chunk], cos_irra_on=cos),
+                rays=rays_d[c * chunk:(c + 1) * chunk], ts=ts,
+                cos_irra_on=cos),
                 draws=draws)
             out = {k: res[k] for k in per_ray_keys if k in res}
             out.update(reduce_panels(res, panel_items))

@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from .config import RunConfig
-from .models.network import Network, not_ported
+from .models.network import model_params, not_ported
 from .utils.device import resolve_device
 
 # per-ray result keys returned verbatim (train.py:676-677)
@@ -55,22 +55,24 @@ def final_render_config(cfg: RunConfig, test_sun_v: bool = False):
         force_sun_march=cfg.render.force_sun_march or test_sun_v)
 
 
-def render_in_chunks(net: Network, cfg: RunConfig, rcfg, rays,
+def render_in_chunks(net, cfg: RunConfig, rcfg, rays,
                      chunk: int, device: torch.device, seed: int = 0,
-                     draws: Optional[Dict[str, torch.Tensor]] = None
-                     ) -> Dict[str, np.ndarray]:
-    """Render every ray of `rays` (N, 8|11) in chunks of `chunk`, padding
-    the last by repeating its final ray: the per-ray rgb / depth plus the
-    reduced panel maps, as numpy arrays.  Every chunk takes the same
-    draws: `draws` (one chunk's, see render/render.py), else those of a
-    generator seeded with `seed` anew for each chunk, as the JAX package
-    renders every chunk with one key (train.py:586)."""
+                     draws: Optional[Dict[str, torch.Tensor]] = None,
+                     t: int = 0) -> Dict[str, np.ndarray]:
+    """Render every ray of `rays` (N, 8|11) in chunks of `chunk` through
+    `net` (a models.network.Params; a bare Network: the coarse one), padding the last by
+    repeating its final ray: the per-ray rgb / depth plus the reduced panel
+    maps, as numpy arrays.  Every chunk takes the same draws: `draws` (one
+    chunk's, see render/render.py), else those of a generator seeded with
+    `seed` anew for each chunk, as the JAX package renders every chunk with
+    one key (train.py:586); every ray the transient embedding t."""
     from .parallel.train_step import make_render_step, reduce_panels
     from .render.render import RenderInputs
     step = make_render_step(cfg.model, rcfg)
     rays = np.asarray(rays, np.float32)
     n = rays.shape[0]
     cos_irra_on = torch.tensor(cfg.train.cos_irra_on < 1.0, device=device)
+    ts = torch.full((chunk,), int(t), dtype=torch.int64, device=device)
     outs: Dict[str, List[np.ndarray]] = {}
     for i in range(0, n, chunk):
         part = rays[i:i + chunk]
@@ -78,7 +80,7 @@ def render_in_chunks(net: Network, cfg: RunConfig, rcfg, rays,
         if keep < chunk:
             part = np.concatenate(
                 [part, np.tile(part[-1:], (chunk - keep, 1))], 0)
-        inp = RenderInputs(rays=torch.from_numpy(part).to(device),
+        inp = RenderInputs(rays=torch.from_numpy(part).to(device), ts=ts,
                            cos_irra_on=cos_irra_on)
         gen = None
         if draws is None:
@@ -94,34 +96,35 @@ def render_in_chunks(net: Network, cfg: RunConfig, rcfg, rays,
     return {k: np.concatenate(v, 0) for k, v in outs.items()}
 
 
-def render_image_rays(net: Network, cfg: RunConfig, rcfg, rays,
+def render_image_rays(net, cfg: RunConfig, rcfg, rays,
                       chunk: int, device: torch.device, seed: int = 0,
-                      draws: Optional[Dict[str, torch.Tensor]] = None
-                      ) -> Dict[str, np.ndarray]:
+                      draws: Optional[Dict[str, torch.Tensor]] = None,
+                      t: int = 0) -> Dict[str, np.ndarray]:
     """Every ray of an image, as render_in_chunks returns them: through the
     block render by default, or, with BRDFNERF_NO_SCAN_RENDER set to
     anything truthy, through the chunk loop (the JAX package's
     Trainer.render_image switch)."""
     if os.environ.get("BRDFNERF_NO_SCAN_RENDER", "") not in ("", "0"):
         return render_in_chunks(net, cfg, rcfg, rays, chunk, device, seed,
-                                draws)
+                                draws, t)
     from .parallel.train_step import render_blocks
     return render_blocks(net, cfg.model, rcfg, rays, chunk, device,
                          cfg.train.cos_irra_on < 1.0, PER_RAY_KEYS,
-                         PANEL_ACCUM, seed=seed, draws=draws)
+                         PANEL_ACCUM, seed=seed, draws=draws, t=t)
 
 
 @dc.dataclass
 class Renderer:
     """A trained run loaded for rendering.  `cfg` is the RunConfig in use
-    (serving overrides applied), `net` the restored network on `device`.
+    (serving overrides applied), `net` the restored parameters on `device`
+    (a models.network.Params).
     render_image takes a sample dict, or an index into the run's `split`
     ('val': training image 0 and the test images; 'train': every training
     image), whose dataset is built from opts.json at the first such
     call."""
     args: object
     cfg: RunConfig
-    net: Network
+    net: torch.nn.Module
     device: torch.device
     chunk: int = 5120
     seed: int = 0
@@ -160,15 +163,13 @@ class Renderer:
         `sample` of the split: per-ray rgb / depth plus the weighted-sum
         panel maps, as numpy arrays (render_image_rays).
 
-        t: transient-embedding index (the port has no t-embedding yet, so
-        only 0)."""
+        t: transient-embedding index every ray takes (0: the reference's
+        predefined_val_ts, main.py:416-417)."""
         if isinstance(sample, (int, np.integer)):
             sample = self.get_image(int(sample))
-        if t != 0:
-            raise not_ported("the t-embedding", 9)
         return render_image_rays(self.net, self.cfg, self.render_config(),
                                  sample["rays"], self.chunk, self.device,
-                                 self.seed, draws)
+                                 self.seed, draws, t)
 
 
 def load_renderer(run_dir: str, epoch_number: int,
@@ -204,8 +205,9 @@ def load_renderer(run_dir: str, epoch_number: int,
             raise not_ported("compute_dtype='int8'", 10)
         args.compute_dtype = compute_dtype
     cfg = opts_mod.to_run_config(args, device=dev)
-    if normal_at_surface:
-        raise not_ported("normal_at_surface", 9)
+    if normal_at_surface is not None:
+        cfg = dc.replace(cfg, render=dc.replace(
+            cfg.render, normal_at_surface=bool(normal_at_surface)))
     if sun_march_samples is not None:
         cfg = dc.replace(cfg, render=dc.replace(
             cfg.render, sun_march_samples=int(sun_march_samples)))
@@ -214,7 +216,9 @@ def load_renderer(run_dir: str, epoch_number: int,
 
     ckpts_dir = checkpoints_dir or os.path.join(args.ckpts_dir,
                                                 args.exp_name)
-    net = Network(cfg.model, device=dev)
+    # the run's parameter structure: the fine network with n_importance >
+    # 0, the t table with beta (the JAX package's Trainer template)
+    net = model_params(cfg.model, cfg.render.n_importance, device=dev)
     ckpt.restore_params(net, ckpt.resolve_epoch_ckpt(ckpts_dir,
                                                      epoch_number))
     net.requires_grad_(False)

@@ -13,9 +13,12 @@ count inside the step.  scan_chunk > 1 runs N steps per call
 
 Validation renders full images through serve.render_image_rays (the block
 render serving uses), then scores PSNR / SSIM and, with a GT directory, the
-DSM MAE chain.  Not ported yet: the validation panels (utils/viz, ROADMAP.md
-Queue 1 item 7), multi-GPU (mesh, sharded store, scaled global batch; item
-11) and the sat-nerf keypoint store (item 9).
+DSM MAE chain.  sat-nerf with depth supervision (ds_lambda > 0) and a
+keypoint store draws a keypoint sub-batch each step from a second
+device-resident store, whose rays the step renders a second time for the
+keypoint depth loss.  Not ported yet: the validation panels (utils/viz,
+ROADMAP.md Queue 1 item 7) and multi-GPU (mesh, sharded store, scaled
+global batch; item 11).
 """
 
 from __future__ import annotations
@@ -100,9 +103,6 @@ class Trainer:
         if mesh is not None or sharded_store or scale_global_batch:
             raise not_ported("multi-GPU training (mesh, sharded store, "
                              "scaled global batch)", 11)
-        if (depth_store is not None and cfg.train.ds_lambda > 0
-                and cfg.model.variant == "sat-nerf"):
-            raise not_ported("the sat-nerf keypoint depth store", 9)
         self.cfg = cfg
         self.paths = paths
         self.val_dataset = val_dataset
@@ -123,6 +123,17 @@ class Trainer:
         self.batcher = DeviceRayBatcher(
             {k: train_store[k] for k in batch_keys}, tcfg.batch_size,
             seed=seed, device=self.device)
+        # sat-nerf's keypoint depth: a second batcher over the tie-point
+        # store (the reference's second loader, main.py:177-183, at the
+        # same batch size, or the store's size if smaller)
+        self.depth_batcher = None
+        if (depth_store is not None and tcfg.ds_lambda > 0
+                and cfg.model.variant == "sat-nerf"):
+            n_kp = depth_store["rays"].shape[0]
+            self.depth_batcher = DeviceRayBatcher(
+                {k: depth_store[k] for k in ("rays", "depths", "ts")},
+                min(tcfg.batch_size, n_kp), seed=seed + 7,
+                device=self.device)
         self.steps_per_epoch = self.batcher.steps_per_epoch
         self.max_steps = tcfg.max_train_steps
 
@@ -172,6 +183,8 @@ class Trainer:
             # restarts its batcher's sequence here)
             for _ in range(step):
                 self.batcher.next_indices()
+                if self.depth_batcher is not None:
+                    self.depth_batcher.next_indices()
             print(f"[resume] step {step} from {resume_from}")
 
         # schedule thresholds (fractions of max_steps, main.py:60-63)
@@ -214,8 +227,10 @@ class Trainer:
             rcfg = dc.replace(self.cfg.render, apply_brdf=phase[0],
                               apply_theta=phase[1], gsam_only=phase[2])
             make = make_scan_train_step if scan else make_fused_train_step
-            self._step_fns[key] = make(self.cfg.model, rcfg, self.cfg.train,
-                                       self.opt, self._gate_schedule())
+            self._step_fns[key] = make(
+                self.cfg.model, rcfg, self.cfg.train, self.opt,
+                self._gate_schedule(),
+                has_kp=self.depth_batcher is not None)
         return self._step_fns[key]
 
     def _next_phase_change(self, step: int) -> int:
@@ -300,16 +315,23 @@ class Trainer:
                     m = ((step + log_every - 1) // log_every) * log_every
                     chunk = min(chunk, m - step + 1)
             store = self.batcher.store
+            kp = self.depth_batcher
             if chunk > 1:
-                idx_mat = np.stack([self.batcher.next_indices()
-                                    for _ in range(chunk)]).astype(np.int32)
+                def mat(b):
+                    m = np.stack([b.next_indices() for _ in range(chunk)])
+                    return torch.from_numpy(m.astype(np.int32)).to(
+                        self.device, non_blocking=True)
+                idx_mat = mat(self.batcher)
+                kp_args = ({} if kp is None
+                           else dict(kp_store=kp.store, kp_mat=mat(kp)))
                 self.state, metrics = self._get_step_fn(phase, scan=True)(
-                    self.state, store, torch.from_numpy(idx_mat).to(
-                        self.device, non_blocking=True), self._draw_seed)
+                    self.state, store, idx_mat, self._draw_seed, **kp_args)
             else:
+                kp_args = ({} if kp is None else dict(
+                    kp_store=kp.store, kp_idx=kp.next_index_tensor()))
                 self.state, metrics = self._get_step_fn(phase)(
                     self.state, store, self.batcher.next_index_tensor(),
-                    self._draw_seed)
+                    self._draw_seed, **kp_args)
             end = step + chunk - 1       # the last step this call ran
             # log when the chunk holds a multiple of log_every (chunk=1:
             # step % log_every == 0); the only host sync of the loop
@@ -350,7 +372,7 @@ class Trainer:
         if (save_every > 0 and epoch % save_every == 0) or final:
             path = self.checkpoint_path(epoch)
             net, opt, step = self.state
-            ckpt.save_checkpoint(path, {ckpt.NET_KEY: net}, step=step)
+            ckpt.save_checkpoint(path, net, step=step)
             ckpt.save_opt_state(path.replace(".npz", ".opt.npz"), net, opt,
                                 count=step)
 
@@ -361,14 +383,14 @@ class Trainer:
                      t: int = 0) -> Dict[str, np.ndarray]:
         """A full image through serve.render_image_rays, by default in the
         final static phase (eval.py:383-384).  t: the transient-embedding
-        index (0 only: the t-embedding is not ported yet)."""
-        if t != 0:
-            raise not_ported("the t-embedding", 9)
+        index every ray takes; the default 0 is the reference's
+        predefined_val_ts (main.py:416-417), eval's --find_best_t searches
+        it (eval.py:184-199)."""
         if rcfg is None:
             rcfg = final_render_config(self.cfg, self.test_sun_v)
         return render_image_rays(self.state.params, self.cfg, rcfg,
                                  sample["rays"], chunk or self.eval_chunk,
-                                 self.device)
+                                 self.device, t=t)
 
     def _save_cross_section(self, sample: Dict, epoch: int):
         """Mid-row diagnostic dump: z_vals / sigma / alpha / T for every
@@ -380,6 +402,8 @@ class Trainer:
         fn = make_render_step(self.cfg.model, self.cfg.render)
         inp = RenderInputs(
             rays=torch.from_numpy(np.ascontiguousarray(rays)).to(self.device),
+            ts=torch.zeros(rays.shape[0], dtype=torch.int64,
+                           device=self.device),
             cos_irra_on=torch.tensor(False, device=self.device))
         gen = torch.Generator(device=self.device).manual_seed(0)
         res = fn(self.state.params, inp, generator=gen)

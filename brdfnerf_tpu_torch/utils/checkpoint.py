@@ -1,12 +1,14 @@
 """Checkpoint I/O in the JAX package's flat npz layout.
 
 A checkpoint is one `.npz` keyed by the parameter path
-(`coarse/fc_net/0/w`, `coarse/fc_net/0/b`, ...) plus `__step__`, so a
+(`coarse/fc_net/0/w`, `coarse/fc_net/0/b`, ..., `fine/...` of a fine
+network, `t` of the transient embedding table) plus `__step__`, so a
 checkpoint written by either package loads in the other.  The npz stores
 each weight as (in, out); `Network` keeps nn.Linear's (out, in), and
-`params_from_flat` / `params_to_flat` transpose, exactly.  Optimizer state
-goes beside it as `.opt.npz` in the JAX package's leaf layout
-(save_opt_state).
+`params_from_flat` / `params_to_flat` transpose, exactly.  Every function
+here takes a models.network.Params; a bare Network stands for the coarse
+network alone (its keys under `coarse/`, models.network.as_params).  Optimizer state goes
+beside it as `.opt.npz` in the JAX package's leaf layout (save_opt_state).
 """
 
 from __future__ import annotations
@@ -19,8 +21,7 @@ import numpy as np
 import torch
 
 from ..config import ModelConfig
-from ..models.network import Network
-from .device import resolve_device
+from ..models.network import Network, Params, as_params, model_params
 
 SEP = "/"
 NET_KEY = "coarse"
@@ -30,9 +31,9 @@ def _flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
     """Nested dicts / lists of arrays (and Networks, under their npz
     layout) -> {path: ndarray}."""
     out: Dict[str, np.ndarray] = {}
-    if isinstance(tree, Network):
-        for k, v in params_to_flat(tree, net_key="").items():
-            out[f"{prefix}{k}"] = v
+    if isinstance(tree, (Network, Params)):
+        for k, p in _module_flat(tree).items():
+            out[f"{prefix}{k}"] = _to_numpy(k, p)
     elif isinstance(tree, dict):
         for k, v in tree.items():
             out.update(_flatten(v, f"{prefix}{k}{SEP}"))
@@ -46,28 +47,53 @@ def _flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
-def _param_key(name: str, net_key: str) -> str:
-    """'fc_net.0.w' -> 'coarse/fc_net/0/w'."""
-    key = name.replace(".", SEP)
-    return f"{net_key}{SEP}{key}" if net_key else key
+def _module_flat(module) -> Dict[str, torch.Tensor]:
+    """{npz key under `module`: parameter}: 'fc_net.0.w' -> 'fc_net/0/w'."""
+    return {n.replace(".", SEP): p for n, p in module.named_parameters()}
 
 
-def params_to_flat(net: Network, net_key: str = NET_KEY
-                   ) -> Dict[str, np.ndarray]:
-    """Network -> {npz key: float32 ndarray}, weights as (in, out)."""
-    flat = {}
-    for name, p in net.named_parameters():
-        v = p.detach().to("cpu", torch.float32)
-        if name.endswith(".w"):
-            v = v.t()
-        flat[_param_key(name, net_key)] = np.ascontiguousarray(v.numpy())
-    return flat
+def named_flat(params) -> Dict[str, torch.Tensor]:
+    """{npz key: parameter} of a Params: 'coarse/...', 'fine/...', 't'."""
+    return _module_flat(as_params(params))
 
 
-def _load_into(net: Network, flat: Dict[str, np.ndarray], net_key: str,
-               include: Optional[Iterable[str]], strict: bool,
-               source: str) -> Network:
-    params = {_param_key(n, net_key): p for n, p in net.named_parameters()}
+def _is_weight(key: str) -> bool:
+    return key.endswith(f"{SEP}w")
+
+
+def _to_numpy(key: str, p: torch.Tensor) -> np.ndarray:
+    v = p.detach().to("cpu", torch.float32)
+    return np.ascontiguousarray((v.t() if _is_weight(key) else v).numpy())
+
+
+def params_to_flat(params) -> Dict[str, np.ndarray]:
+    """Params -> {npz key: float32 ndarray}, weights as (in, out)."""
+    return {k: _to_numpy(k, p) for k, p in named_flat(params).items()}
+
+
+def params_from_flat(flat: Dict[str, np.ndarray], cfg: ModelConfig,
+                     device=None) -> Params:
+    """{npz key: ndarray} (the layout of save_checkpoint) -> the Params on
+    `device` (CUDA unless named) holding exactly those values: with the
+    fine network where `flat` holds one ('fine/...'), with the t table
+    where cfg.beta (models.network.model_params).  Every parameter must be
+    present and nothing else."""
+    fine = any(k.startswith(f"fine{SEP}") for k in flat)
+    return load_params(model_params(cfg, int(fine), device=device), flat)
+
+
+def load_params(net, flat: Dict[str, np.ndarray],
+                include: Optional[Iterable[str]] = None, strict: bool = True,
+                source: str = "the flat params"):
+    """Copy the values of `flat` (the npz layout) into `net` (a Params)
+    in place.  include: key prefixes; only matching entries are restored
+    (the two-stage handoff).  A full strict load must cover every
+    parameter and nothing else; a bare Network takes the coarse keys and
+    skips the others (the other networks' and the t table's)."""
+    if isinstance(net, Network):
+        flat = {k: v for k, v in flat.items()
+                if k.startswith(f"{NET_KEY}{SEP}")}
+    params = named_flat(net)
     include = None if include is None else list(include)
     restored = set()
     for key, val in flat.items():
@@ -82,7 +108,7 @@ def _load_into(net: Network, flat: Dict[str, np.ndarray], net_key: str,
             continue
         p = params[key]
         v = torch.from_numpy(np.array(val, np.float32))
-        if key.endswith(f"{SEP}w"):
+        if _is_weight(key):
             v = v.t()
         if tuple(v.shape) != tuple(p.shape):
             raise ValueError(f"shape mismatch for {key}: "
@@ -103,21 +129,10 @@ def _load_into(net: Network, flat: Dict[str, np.ndarray], net_key: str,
     return net
 
 
-def params_from_flat(flat: Dict[str, np.ndarray], cfg: ModelConfig,
-                     device=None, net_key: str = NET_KEY) -> Network:
-    """{npz key: ndarray} (the layout of save_checkpoint) -> a Network on
-    `device` (CUDA unless named) holding exactly those values.  Every
-    parameter of the config must be present and nothing else under
-    `net_key`."""
-    net = Network(cfg, device=resolve_device(device))
-    return _load_into(net, {k: v for k, v in flat.items()
-                            if k.startswith(f"{net_key}{SEP}")},
-                      net_key, None, True, "the flat params")
-
-
 def save_checkpoint(path: str, params: Any, step: int = 0,
                     extra: Optional[Dict[str, Any]] = None) -> str:
-    """params: {'coarse': Network, ...} (or any nested tree of arrays)."""
+    """params: a Params, or {'coarse': Network, ...} (or any nested tree of
+    arrays)."""
     flat = _flatten(params)
     flat["__step__"] = np.asarray(step)
     if extra:
@@ -140,18 +155,12 @@ def load_flat(path: str) -> Dict[str, np.ndarray]:
         return {k: z[k] for k in z.files}
 
 
-def restore_params(net: Network, path: str,
+def restore_params(net, path: str,
                    include: Optional[Iterable[str]] = None,
-                   strict: bool = True, net_key: str = NET_KEY) -> Network:
-    """Copy the checkpoint's values into `net` in place.
-
-    include: key prefixes (e.g. ['coarse/fc_net']); only matching entries
-    are restored (the two-stage handoff).  A full strict restore must cover
-    every parameter of the model; keys outside `net_key` are not the
-    network's and are skipped."""
-    flat = {k: v for k, v in load_flat(path).items()
-            if k.startswith(f"{net_key}{SEP}")}
-    return _load_into(net, flat, net_key, include, strict, path)
+                   strict: bool = True):
+    """Copy the checkpoint's values into `net` (a Params) in place
+    (load_params; include e.g. ['coarse/fc_net'])."""
+    return load_params(net, load_flat(path), include, strict, path)
 
 
 def resolve_epoch_ckpt(ckpts_dir: str, epoch_number: int) -> str:
@@ -184,15 +193,13 @@ def handoff_include(net_key: str = NET_KEY, hapke_b: bool = False) -> list:
     return [f"{net_key}{SEP}{h}" for h in heads]
 
 
-def freeze_mask(net: Network, frozen_prefixes: Iterable[str],
-                net_key: str = NET_KEY) -> Dict[str, bool]:
-    """{npz key: trainable} of the network's parameters: False where the key
-    starts with a frozen prefix; 'all' freezes everything (the reference's
-    freeze('all'), spsbrdfnerf.py:617-621)."""
+def freeze_mask(net, frozen_prefixes: Iterable[str]) -> Dict[str, bool]:
+    """{npz key: trainable} of the parameters (a Params):
+    False where the key starts with a frozen prefix; 'all' freezes
+    everything (the reference's freeze('all'), spsbrdfnerf.py:617-621)."""
     frozen = ["" if p == "all" else p for p in frozen_prefixes]
-    return {_param_key(n, net_key): not any(
-        _param_key(n, net_key).startswith(p) for p in frozen)
-        for n, _ in net.named_parameters()}
+    return {k: not any(k.startswith(p) for p in frozen)
+            for k in named_flat(net)}
 
 
 def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
@@ -222,23 +229,22 @@ def _jax_order(keys: Iterable[str]) -> list:
         for c in k.split(SEP)))
 
 
-def _trained(net: Network, opt, net_key: str):
+def _trained(net, opt):
     """[(npz key, parameter)] of the parameters `opt` updates, in the JAX
     leaf order."""
     ids = ({id(p) for g in opt.param_groups for p in g["params"]}
            if opt is not None else set())
-    named = {_param_key(n, net_key): p for n, p in net.named_parameters()
+    named = {k: p for k, p in named_flat(net).items()
              if id(p) in ids}
     return [(k, named[k]) for k in _jax_order(named)]
 
 
-def save_opt_state(path: str, net: Network, opt, count: int,
-                   net_key: str = NET_KEY) -> str:
+def save_opt_state(path: str, net, opt, count: int) -> str:
     """Adam's state of `net` under `opt` (None: every parameter frozen) in
     the JAX package's leaf layout.  The update count is Adam's own where
     it holds state, else `count` (a frozen or not yet stepped optimizer)."""
     mu, nu = [], []
-    for key, p in _trained(net, opt, net_key):
+    for key, p in _trained(net, opt):
         st = opt.state.get(p, {})
         if "step" in st:
             count = int(st["step"])
@@ -247,7 +253,7 @@ def save_opt_state(path: str, net: Network, opt, count: int,
             v = (torch.zeros_like(p) if v is None else v).detach()
             v = v.to("cpu", torch.float32)
             out.append(np.ascontiguousarray(
-                (v.t() if key.endswith(f"{SEP}w") else v).numpy()))
+                (v.t() if _is_weight(key) else v).numpy()))
     c = np.asarray(count, np.int32)
     leaves = [c] + mu + nu + [c]
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
@@ -255,13 +261,12 @@ def save_opt_state(path: str, net: Network, opt, count: int,
     return path
 
 
-def restore_opt_state(net: Network, opt, path: str,
-                      net_key: str = NET_KEY) -> int:
+def restore_opt_state(net, opt, path: str) -> int:
     """Load a leaf-layout optimizer state into `opt` (in place) and return
     its update count.  A state of another optimizer configuration (leaf
     count or shapes) raises ValueError and leaves `opt` untouched."""
     flat = load_flat(path)
-    trained = _trained(net, opt, net_key)
+    trained = _trained(net, opt)
     n = len([k for k in flat if k.startswith("leaf_")])
     if n != 2 + 2 * len(trained):
         raise ValueError(
@@ -274,7 +279,7 @@ def restore_opt_state(net: Network, opt, path: str,
         for leaf in (1 + i, 1 + len(trained) + i):
             v = torch.from_numpy(np.array(flat[f"leaf_{leaf:04d}"],
                                           np.float32))
-            if key.endswith(f"{SEP}w"):
+            if _is_weight(key):
                 v = v.t()
             if tuple(v.shape) != tuple(p.shape):
                 raise ValueError(f"opt-state leaf {leaf} shape mismatch: "

@@ -159,6 +159,24 @@ The BRDF families and the variants (before phase 8):
                 chunk) and 4 steps (K1 1 / K2 1 / K3 1: the learned head
                 replaces the sun march; the solar-correction pass is plain
                 torch)
+ 11b. variants, defaults - the variants at their own defaults, 8 x 512 at
+                float32 unless noted, each a request (K1-K5 launches per
+                chunk, against the CPU twins on 256 rays at the float32
+                bounds, the fine keys too) and WARM_STEPS + VARIANT_STEPS
+                steps on a one-batch store (launches per step, the loss
+                falls): spsbrdf-nerf with --n_importance 64 (K1 2 / K2 2 /
+                K3 2 a step, K1 2 / K2 2 a chunk; with BRDFNERF_FUSED_HEADS
+                K1 2 / K4 2 / K5 2; one step-check point at float32, every
+                gradient held, and one at bfloat16_all, the fine network's
+                gradients printed but held only in the backward kernel's
+                comparison), with --beta (K1 2 / K2 1 / K3 1; K4/K5 0 with
+                the switch; a request at t = 3 differs from t = 0 in beta),
+                with --MultiBRDF 1, with --normal_at_surface (K2/K3 0),
+                with --noise_std 1; sat-nerf --beta with the keypoint
+                store of build_aoi(with_keypoints=True) and --ds_lambda 10
+                (no kernel; a finite nonzero kp_ term; a step's host
+                traffic with and without the store) and sps-nerf --beta;
+                the phase's seconds
 After phase 9:
  12. workflow, hapke / workflow, microfacet - each family's two-stage
                 workflow through the train CLI on its shaded AOI
@@ -198,6 +216,7 @@ a main path: the run fails if one was not), the card's line, and the last
 line {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import copy
 import dataclasses as dc
 import json
@@ -313,6 +332,48 @@ def dbsig_held(label, got, ref, scale):
 # template, K3's and K5's sweep <HEADS, ZF32, SPLIT>, their weight-gradient
 # and reduce kernels <HEADS>, K1 <SPLIT>, K5's b_th chain <ZF32>; names as
 # the profiler gives them, demangled or not
+def sigma_bias_scales(bias_terms):
+    """{sigma-bias parameter name: the L2 norm of its gradient's terms} of
+    a step ('coarse.' + SIGMA_BIAS, and 'fine.' + SIGMA_BIAS with a fine
+    network).  bias_terms: (network name, norm) of each backward call of
+    the step."""
+    sq = {}
+    for name, v in bias_terms:
+        sq[name] = sq.get(name, 0.0) + v * v
+    return {f"{name}.{SIGMA_BIAS}": float(np.sqrt(v))
+            for name, v in sq.items()}
+
+
+def pack_owners(params):
+    """{data_ptr of each network's first trunk bias: the network's name in
+    the Params}: the packed weights of a kernel call hold that parameter's
+    own storage (pack_trunk_weights takes the f32 biases as they are), so
+    packed["b0"].data_ptr() names the network of the call."""
+    return {net["fc_net"][0].b.data_ptr(): name
+            for name, net in params.named_children()}
+
+
+@contextlib.contextmanager
+def fixed_fine(fine_z, rays):
+    """Inside, the fine pass takes rows `rays` of the fine samples fine_z
+    (N, n_importance) in place of sample_pdf's, so that every render of a
+    step check runs the fine network on the same points, whatever the
+    coarse weights it rendered (None: nothing replaced)."""
+    from brdfnerf_tpu_torch.render import render as render_mod
+    real = render_mod.sample_pdf
+
+    def fixed(bins, weights, n_samples, **_):
+        assert weights.shape[0] == len(rays), weights.shape
+        assert n_samples == fine_z.shape[1], fine_z.shape
+        return fine_z[torch.as_tensor(rays)].to(weights.device)
+    if fine_z is not None:
+        render_mod.sample_pdf = fixed
+    try:
+        yield
+    finally:
+        render_mod.sample_pdf = real
+
+
 GROUPS = (("K1 trunk_sigma", ("trunk_sigma_kernel",)),
           ("K4 trunk_heads_fwd", ("trunk_fwd_grad_kernel<true, true,",
                                   "trunk_fwd_grad_kernel<false, true,",
@@ -1350,9 +1411,13 @@ def ill_conditioned_rays(net, mcfg, rcfg, batch, draws, gates, bound,
                        cos_irra_on=gates.cos_irra_on)
     with torch.no_grad():
         res = render_rays(net, mcfg, rcfg, inp, train=True, draws=draws)
-    return ill_conditioned(res["weights_coarse"], res["normal_an_coarse"],
-                           res["nr_sun_coarse"].flatten(),
-                           res["nr_vw_coarse"].flatten(), bound, normal_err)
+    # every pass that shades with RPV: the coarse one, and the fine one of a
+    # fine network (--n_importance)
+    return torch.stack([ill_conditioned(
+        res[f"weights_{typ}"], res[f"normal_an_{typ}"],
+        res[f"nr_sun_{typ}"].flatten(), res[f"nr_vw_{typ}"].flatten(), bound,
+        normal_err) for typ in ("coarse", "fine")
+        if f"weights_{typ}" in res]).any(0)
 
 
 def _ray_brdf(mcfg, rcfg, sun, view, normal, q):
@@ -2153,6 +2218,207 @@ def eval_phase(root, run_dir, epoch, reset_counts, counts, smi, rows,
     assert curve.shape == (33, 4) and np.isfinite(curve).all(), curve.shape
 
 
+DEFAULT_IMPORTANCE = 64     # the fine network's samples (--n_importance)
+
+
+def defaults_phase(root, argv, v_base, learned, gen, requests, serve, train,
+                   check_served, step_check, draws, bounds, per_req, rows,
+                   smi):
+    """The `variants, defaults` phase (see main): `requests`, `serve`,
+    `train`, `check_served`, `step_check` and the step check's `draws` and
+    `bounds` are main's."""
+    from brdfnerf_tpu_torch.cli import opts
+    from brdfnerf_tpu_torch.data.batcher import DeviceRayBatcher
+    from brdfnerf_tpu_torch.data.satellite import (SatelliteConfig,
+                                                   SatelliteDataset)
+    from brdfnerf_tpu_torch.data.synth_aoi import build_aoi
+    from brdfnerf_tpu_torch.models.network import init_params
+    from brdfnerf_tpu_torch.ops import fused_trunk_vjp as k2
+    from brdfnerf_tpu_torch.parallel import train_step as ts
+    from brdfnerf_tpu_torch.serve import load_renderer
+    from brdfnerf_tpu_torch.utils.checkpoint import save_checkpoint
+    f32 = ["--compute_dtype", "float32"]
+    fine = ["--n_importance", str(DEFAULT_IMPORTANCE)]
+    sps = argv + f32
+
+    def run(name, flags, base=sps):
+        """The run's config, a run directory and a seeded checkpoint of
+        its parameters (coarse, [fine], [t]); returns (cfg, run_dir)."""
+        exp = "smoke_defaults_" + name.replace(" ", "_")
+        r_args = opts.postprocess(opts.train_parser().parse_args(
+            base + flags + ["--exp_name", exp]))
+        r_dir = os.path.join(root, f"run_{exp}")
+        opts.dump_opts(r_args, r_dir)
+        r_cfg = opts.to_run_config(r_args, device="cuda")
+        params = init_params(r_cfg.model, gen, r_cfg.render.n_importance,
+                             device="cuda")
+        save_checkpoint(os.path.join(root, "ckpts", exp, "epoch=1.npz"),
+                        params, step=0)
+        return r_cfg, r_dir
+
+    def request(name, r_dir, want, compared=("rgb_coarse", "depth_coarse",
+                                             "normal_an_coarse")):
+        r_ = load_renderer(r_dir, 1, device="cuda")
+        outs, launches = serve(f"request, {name}", want, r_, n_req=1,
+                               profiled=False)
+        check_served(outs, r_, scale=0.1, keys3=(), keys1=(), n_check=256,
+                     compared=compared)
+        return r_, outs
+
+    zero = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0}
+    k123 = lambda k2_: dict(zero, K1=2, K2=k2_, K3=k2_)   # noqa: E731
+
+    # spsbrdf-nerf with a fine network: 64 + 64 coarse samples, 64 fine
+    # ones, 192 a ray through K2 (and K3) on the fine network's weights
+    cfg_f, dir_f = run("fine", fine)
+    assert cfg_f.render.n_importance == DEFAULT_IMPORTANCE
+    r_, _ = request("fine", dir_f, dict(zero, K1=2 * per_req, K2=2 * per_req))
+    assert isinstance(r_.net, torch.nn.Module) and r_.net.fine is not None
+    del r_
+    trained32, launches = train(
+        "train step, fine", k123(2), mcfg_=cfg_f.model, rcfg_=cfg_f.render,
+        tcfg_=cfg_f.train, timed_steps=VARIANT_STEPS, store_batches=1)
+    rows["K2zsf32"]["launches_defaults"] = launches["K2"]
+    rows["K3f32"]["launches_defaults"] = launches["K3"]
+    os.environ[FUSED_HEADS] = "1"
+    train("train step, fine, fused heads", dict(zero, K1=2, K4=2, K5=2),
+          mcfg_=cfg_f.model, rcfg_=cfg_f.render, tcfg_=cfg_f.train,
+          timed_steps=VARIANT_STEPS, profiled=False, store_batches=1)
+    del os.environ[FUSED_HEADS]
+    # step checks of K2/K3 in the step on both networks' points, held to
+    # their twins as the flagship's step check, every gradient of both
+    # networks.  The fine network's samples are the coarse weights' inverse
+    # CDF, which a ulp of those weights moves at a step of the CDF, so
+    # every render of a point takes the fine samples of the kernels' step
+    # (step_check: fine_samples, fixed_fine); drawn anew by each side, the
+    # twins alone, card against CPU, lay 0.131 apart in relative L2 on
+    # the fine network's gradients at bfloat16_all (an H100, the weights
+    # after 7 steps).  float32 at bounds ten times tighter
+    draws["pdf"] = torch.rand(CHECK_RAYS, DEFAULT_IMPORTANCE,
+                              generator=torch.Generator().manual_seed(12))
+    pair = ((k2, "_trunk_fwd_grad_cuda", k2._trunk_fwd_grad_plain),
+            (k2, "_trunk_bwd_cuda", k2._trunk_bwd_plain))
+    step_check("fine, float32", trained32[-1:], *pair, k123(2),
+               mcfg_=cfg_f.model, rcfg_=cfg_f.render,
+               bounds_={k: v / 10 for k, v in bounds.items()},
+               normal_err=NORMAL_ERR_F32, timed_steps=VARIANT_STEPS)
+    del trained32
+    bf_f = dc.replace(cfg_f.model, compute_dtype="bfloat16_all")
+    trained, launches = train(
+        "train step, fine, bfloat16_all", k123(2), mcfg_=bf_f,
+        rcfg_=cfg_f.render, tcfg_=cfg_f.train, timed_steps=VARIANT_STEPS,
+        store_batches=1)
+    rows["K2zs"]["launches_defaults"] = launches["K2"]
+    rows["K3"]["launches_defaults"] = launches["K3"]
+    step_check("fine, bfloat16_all", trained[-1:], *pair, k123(2),
+               mcfg_=bf_f, rcfg_=cfg_f.render, timed_steps=VARIANT_STEPS)
+    del trained, draws["pdf"]
+
+    # spsbrdf-nerf with beta: the beta head on K2's features and the t
+    # table; with the switch K4/K5 refuse the t-embedding
+    cfg_b, dir_b = run("beta", ["--beta"])
+    r_, outs = request("beta", dir_b, dict(zero, K1=2 * per_req, K2=per_req))
+    other = r_.render_image({"rays": requests[0]}, t=3)
+    gap = float(np.abs(other["beta_coarse"] - outs[0]["beta_coarse"]).max())
+    print(f"  beta_coarse at t = 3 against t = 0: largest difference "
+          f"{gap:.3e}", flush=True)
+    assert gap > 0 and np.isfinite(other["beta_coarse"]).all()
+    del r_, outs, other
+    train("train step, beta", k123(1), mcfg_=cfg_b.model,
+          rcfg_=cfg_b.render, tcfg_=cfg_b.train, timed_steps=VARIANT_STEPS,
+          profiled=False, store_batches=1)
+    os.environ[FUSED_HEADS] = "1"
+    train("train step, beta, fused heads set", k123(1), mcfg_=cfg_b.model,
+          rcfg_=cfg_b.render, tcfg_=cfg_b.train, timed_steps=1,
+          profiled=False)
+    del os.environ[FUSED_HEADS]
+
+    # multi_brdf (the BRDF per sample), normal_at_surface (one analytic
+    # normal a ray, by autograd through the unfused trunk: no K2/K3) and
+    # density noise
+    for name, flags, step_want, chunk_want in (
+            ("multi_brdf", ["--MultiBRDF", "1"], k123(1),
+             dict(zero, K1=2 * per_req, K2=per_req)),
+            ("normal_at_surface", ["--normal_at_surface"], k123(0),
+             dict(zero, K1=2 * per_req)),
+            ("noise", ["--noise_std", "1"], k123(1),
+             dict(zero, K1=2 * per_req, K2=per_req))):
+        cfg_v, dir_v = run(name, flags)
+        request(name, dir_v, chunk_want)
+        train(f"train step, {name}", step_want, mcfg_=cfg_v.model,
+              rcfg_=cfg_v.render, tcfg_=cfg_v.train,
+              timed_steps=VARIANT_STEPS, profiled=False, store_batches=1)
+
+    # sat-nerf with beta and the keypoint store of a synthetic AOI with
+    # tie points (--ds_lambda 10: the keypoint render and its depth loss),
+    # and sps-nerf with beta: no kernel, as in the JAX package
+    info = build_aoi(os.path.join(root, "aoi_kp"), with_keypoints=True)
+    kp = SatelliteDataset(SatelliteConfig(
+        root_dir=info["root"], aoi_id=info["aoi_id"], sparse_depth=True),
+        split="train").depth_store
+    print(f"  keypoint store: {kp['rays'].shape[0]} tie-point rays",
+          flush=True)
+    for name, model in (("sat-nerf, beta", "sat-nerf"),
+                        ("sps-nerf, beta", "sps-nerf")):
+        cfg_v, dir_v = run(name, ["--model", model, "--beta", "--ds_lambda",
+                                  "10"] + learned, base=v_base)
+        assert cfg_v.model.beta and cfg_v.train.ds_lambda == 10
+        request(name, dir_v, zero, compared=("rgb_coarse", "depth_coarse"))
+        kp_store = kp if model == "sat-nerf" else None
+        trained, _ = train(f"train step, {name}", zero, mcfg_=cfg_v.model,
+                           rcfg_=cfg_v.render, tcfg_=cfg_v.train,
+                           timed_steps=VARIANT_STEPS, profiled=False,
+                           store_batches=1, kp_store=kp_store)
+        if kp_store is None:
+            continue
+        batch = {k: torch.as_tensor(v, device="cuda") for k, v in
+                 make_store(BATCH, np.random.RandomState(0)).items()}
+        batch.update(kp_rays=torch.as_tensor(kp["rays"], device="cuda"),
+                     kp_depths=torch.as_tensor(kp["depths"], device="cuda"),
+                     kp_ts=torch.as_tensor(kp["ts"], device="cuda"))
+        with torch.no_grad():
+            _, (terms, _) = ts.compute_losses(
+                trained[-1], cfg_v.model, cfg_v.render, cfg_v.train, batch,
+                ts.gates_from_step(0, ts.GateSchedule(1e18, 1e18, -1.0, 1,
+                                                      0)),
+                generator=torch.Generator(device="cuda").manual_seed(0))
+        kp_ds = float(terms["kp_coarse_ds"])
+        print(f"  keypoint depth term kp_coarse_ds {kp_ds:.6e} ({smi})",
+              flush=True)
+        assert np.isfinite(kp_ds) and kp_ds > 0
+        del trained
+        # the keypoint sub-batch is gathered on the device from its own
+        # store: a step sends one more index vector and nothing else, and
+        # copies nothing more back
+        traffic = {}
+        for with_kp in (False, True):
+            state, opt = ts.create_train_state(cfg_v.model, cfg_v.train, 1,
+                                               device="cuda")
+            step = ts.make_fused_train_step(
+                cfg_v.model, cfg_v.render, cfg_v.train, opt,
+                ts.GateSchedule(1e18, 1e18, -1.0, 1, 0), has_kp=with_kp)
+            main = DeviceRayBatcher(make_store(BATCH, np.random.RandomState(
+                0)), BATCH, seed=0, device="cuda")
+            kp_b = DeviceRayBatcher(kp, min(BATCH, kp["rays"].shape[0]),
+                                    seed=7, device="cuda")
+            held = [state]
+
+            def one():
+                kp_args = (dict(kp_store=kp_b.store,
+                                kp_idx=kp_b.next_index_tensor())
+                           if with_kp else {})
+                held[0], _ = step(held[0], main.store,
+                                  main.next_index_tensor(), 0, **kp_args)
+            one()
+            traffic[with_kp] = host_traffic(one)
+            del held, state, opt
+        print(f"  a sat-nerf step's host traffic without / with the "
+              f"keypoint store: {traffic[False]} / {traffic[True]}",
+              flush=True)
+        assert (traffic[True]["h2d"] <= traffic[False]["h2d"] + 1
+                and traffic[True]["d2h"] == traffic[False]["d2h"]), traffic
+
+
 def main():
     phase("device")
     if not torch.cuda.is_available():
@@ -2178,6 +2444,8 @@ def main():
     from brdfnerf_tpu_torch.ops import fused_trunk_vjp as k2
     from brdfnerf_tpu_torch.ops.encoding import positional_encoding
     from brdfnerf_tpu_torch.parallel import train_step as ts
+    from brdfnerf_tpu_torch.render import render as render_mod
+    from brdfnerf_tpu_torch.render.render import chunk_draws
     from brdfnerf_tpu_torch.serve import load_renderer
     from brdfnerf_tpu_torch.tools import f32_check as fc
     from brdfnerf_tpu_torch.tools import act_check
@@ -2515,26 +2783,31 @@ def main():
         # plain twins (the Pallas kernels' arithmetic) on the CPU, same
         # weights and draws
         small = requests[0][:n_check]
-        rng = torch.Generator().manual_seed(7)
-        draws = {k: torch.rand(len(small), N_SAMPLES, generator=rng)
-                 for k in ("z", "guided", "sun")}
+        # every draw the render takes (chunk_draws: the stratified, guided
+        # and sun-march uniforms as before; the fine pass's and the density
+        # noise where the run has them)
+        draws = chunk_draws(r.cfg.model, r.render_config(), len(small),
+                            torch.device("cpu"), seed=7)
         a = dc.replace(r, chunk=len(small)).render_image(
             {"rays": small}, draws=draws)
         cpu = dc.replace(r, net=copy.deepcopy(r.net).cpu(),
                          device=torch.device("cpu"), chunk=len(small))
         b = cpu.render_image({"rays": small}, draws=draws)
+        typs = ("coarse", "fine") if "rgb_fine" in a else ("coarse",)
         check = {}
-        for k in compared:
+        for k in compared + tuple(f"{k}_fine" for k in ("rgb", "depth")
+                                  if len(typs) > 1):
             d = np.abs(a[k] - b[k]).reshape(len(small), -1).max(-1)
             check[k] = (float(d.mean()), float(np.quantile(d, 0.99)))
             print(f"  kernels vs twins {k}: mean {check[k][0]:.3e} "
                   f"p99 {check[k][1]:.3e}", flush=True)
         # the kernels' summation order moves the probe's depth and with it
-        # the guided samples a little; the siren trunk amplifies a moved
-        # sample on isolated rays
-        assert (check["depth_coarse"][0] < 1e-2 * scale
-                and check["rgb_coarse"][0] < 1e-2 * scale)
-        assert check["rgb_coarse"][1] < 0.1 * scale
+        # the guided samples a little (the fine pass's samples too); the
+        # siren trunk amplifies a moved sample on isolated rays
+        for typ in typs:
+            assert (check[f"depth_{typ}"][0] < 1e-2 * scale
+                    and check[f"rgb_{typ}"][0] < 1e-2 * scale), typ
+            assert check[f"rgb_{typ}"][1] < 0.1 * scale, typ
 
     phase("serving")
     outs, launches = serve("request", {"K1": 2 * chunks, "K2": chunks,
@@ -2590,16 +2863,20 @@ def main():
     bare_rays_s = {}
 
     def train(label, want, mcfg_=None, rcfg_=None, timed_steps=TIMED_STEPS,
-              profiled=True, tcfg_=None, store_batches=STORE_BATCHES):
+              profiled=True, tcfg_=None, store_batches=STORE_BATCHES,
+              kp_store=None):
         """WARM_STEPS + timed_steps flagship steps from a fresh seeded
         state (at model config mcfg_, render config rcfg_ and train config
         tcfg_, the bfloat16_all flagship's by default) on a store of
         store_batches batches, launch counts checked per step and, over 10
         steps or more, a falling loss (on a one-batch store, every step on
         the same rays: the last timed step's loss under the first's); one
-        step profiled (if `profiled`).  Returns the weights after each of
-        the last CHECK_POINTS timed steps (the last: after all of them)
-        and the launch counts."""
+        step profiled (if `profiled`).  The parameters hold a fine network
+        where rcfg_.n_importance > 0 and the t table where mcfg_.beta;
+        kp_store: sat-nerf's keypoint store (rays, depths, ts), of which
+        each step gathers a sub-batch on the device.  Returns the weights
+        after each of the last CHECK_POINTS timed steps (the last: after
+        all of them) and the launch counts."""
         mcfg_ = mcfg if mcfg_ is None else mcfg_
         rcfg_ = rcfg if rcfg_ is None else rcfg_
         tcfg_ = tcfg if tcfg_ is None else tcfg_
@@ -2608,15 +2885,23 @@ def main():
             BATCH, seed=0, device="cuda")
         spe = batcher.steps_per_epoch
         assert spe == store_batches
-        state, optimizer = ts.create_train_state(mcfg_, tcfg_, spe, seed=0,
-                                                 device="cuda")
+        state, optimizer = ts.create_train_state(
+            mcfg_, tcfg_, spe, seed=0, n_importance=rcfg_.n_importance,
+            device="cuda")
         step = ts.make_fused_train_step(mcfg_, rcfg_, tcfg_, optimizer,
-                                        sched)
+                                        sched, has_kp=kp_store is not None)
         seed = 0
+        kp = None
+        if kp_store is not None:
+            kp = DeviceRayBatcher(
+                kp_store, min(BATCH, kp_store["rays"].shape[0]), seed=7,
+                device="cuda")
 
         def one_step(state):
+            kp_args = (dict(kp_store=kp.store, kp_idx=kp.next_index_tensor())
+                       if kp else {})
             return step(state, batcher.store, batcher.next_index_tensor(),
-                        seed)
+                        seed, **kp_args)
 
         for _ in range(WARM_STEPS):
             state, m = one_step(state)
@@ -2698,24 +2983,50 @@ def main():
                                      generator=rng),
              "sun": torch.rand(CHECK_RAYS, n_sun, generator=rng)}
 
-    def grads_on(net_, dev, rays, mcfg_, bias_terms=None, rcfg_=None):
-        """The step's loss and every parameter's gradient on `rays`; with
-        bias_terms (a list), also the L2 norm of the sigma head's bias
-        gradient's per-point terms in the step's backward call, appended
-        (fused_trunk_vjp._run_bwd / fused_trunk_heads._run_bwd_h wrapped
-        for the call)."""
+    def fine_samples(net_, mcfg_, rcfg_):
+        """The fine pass's samples (CHECK_RAYS, n_importance) of the step
+        through the kernels on the card on the whole batch, as sample_pdf
+        draws them on that step's coarse weights; None without a fine
+        network."""
+        if rcfg_.n_importance == 0:
+            return None
+        real, got = render_mod.sample_pdf, []
+
+        def record(*a, **kw):
+            got.append(real(*a, **kw).detach().cpu())
+            return got[-1].to(a[0].device)
+        render_mod.sample_pdf = record
+        try:
+            grads_on(net_, "cuda", np.arange(CHECK_RAYS), mcfg_,
+                     rcfg_=rcfg_)
+        finally:
+            render_mod.sample_pdf = real
+        (fine_z,) = got
+        return fine_z
+
+    def grads_on(net_, dev, rays, mcfg_, bias_terms=None, rcfg_=None,
+                 fine_z=None):
+        """The step's loss and every parameter's gradient on `rays` (with a
+        fine network, on the fine samples fine_z: fixed_fine); with
+        bias_terms (a list), also (network name, the L2 norm of the sigma
+        head's bias gradient's per-point terms) of each of the step's
+        backward calls, appended (fused_trunk_vjp._run_bwd /
+        fused_trunk_heads._run_bwd_h wrapped for the call)."""
         batch = {k: torch.as_tensor(v[rays], device=dev)
                  for k, v in s.items()}
         rows_ = torch.as_tensor(rays)
         net_.zero_grad(set_to_none=True)
         run_bwd, run_bwd_h = k2._run_bwd, k4._run_bwd_h
+        owner = pack_owners(net_)
 
         def terms(cfg_, packed_, c_s, c_g, zs_):
             n_p = zs_.shape[0]
             cs_p = torch.zeros(n_p, dtype=torch.float32, device=zs_.device)
             cs_p[:c_s.shape[0]] = c_s
             cg_p = k1.pad_rows_lanes(c_g, n_p, packed_["w0"].shape[1])
-            bias_terms.append(fc.dbsig_scale(packed_, cfg_, cs_p, cg_p, zs_))
+            bias_terms.append((owner[packed_["b0"].data_ptr()],
+                               fc.dbsig_scale(packed_, cfg_, cs_p, cg_p,
+                                              zs_)))
 
         if bias_terms is not None:
             def rec_bwd(cfg_, packed_, x_, cs_, cf_, cg_, zs_, us_):
@@ -2727,18 +3038,21 @@ def main():
                 return run_bwd_h(cfg_, packed_, hw_, x_, cot_, cg_, zs_)
             k2._run_bwd, k4._run_bwd_h = rec_bwd, rec_bwd_h
         try:
-            loss, _ = ts.compute_losses(
-                net_, mcfg_, rcfg if rcfg_ is None else rcfg_, tcfg, batch,
-                gates, draws={k: v[rows_].to(dev) for k, v in draws.items()})
+            with fixed_fine(fine_z, rays):
+                loss, _ = ts.compute_losses(
+                    net_, mcfg_, rcfg if rcfg_ is None else rcfg_, tcfg,
+                    batch, gates,
+                    draws={k: v[rows_].to(dev) for k, v in draws.items()})
             loss.backward()
         finally:
             k2._run_bwd, k4._run_bwd_h = run_bwd, run_bwd_h
         return loss.item(), {k: p.grad.detach().cpu()
-                             for k, p in net_.named_parameters()}
+                             for k, p in net_.named_parameters()
+                             if p.grad is not None}
 
     def step_check(path, nets, fwd, bwd, want, mcfg_=None, bounds_=None,
                    normal_err=NORMAL_ERR, rcfg_=None,
-                   criterion=ill_conditioned_rays):
+                   criterion=ill_conditioned_rays, timed_steps=TIMED_STEPS):
         """At mcfg_ and rcfg_ (the bfloat16_all flagship's by default) with
         bounds_ (`bounds` by default), the contract's normal error
         normal_err and the set-aside `criterion` (RPV's by default):
@@ -2750,18 +3064,24 @@ def main():
         K1's twin too; and on the CPU.  `fwd` and `bwd` are (module, kernel
         name, twin) of the pair.  Each comparison's largest relative L2 is
         held to its bound at every point (on the whole batch, those of
-        whole_batch); misses go to step_failures."""
+        whole_batch); misses go to step_failures.  With a fine network,
+        every render at a point (the criterion's too) takes the fine
+        samples of the step through the kernels on the whole batch
+        (fine_samples, fixed_fine).  timed_steps: the training run's, for
+        the printed step."""
         mcfg_ = mcfg if mcfg_ is None else mcfg_
         rcfg_ = rcfg if rcfg_ is None else rcfg_
         bounds_ = bounds if bounds_ is None else bounds_
         for pt, net_ in enumerate(nets):
             net_cpu = copy.deepcopy(net_).cpu()
-            step = WARM_STEPS + TIMED_STEPS - len(nets) + 1 + pt
+            step = WARM_STEPS + timed_steps - len(nets) + 1 + pt
             last = pt == len(nets) - 1
-            bad = criterion(
-                net_cpu, mcfg_, rcfg_, {k: torch.as_tensor(v)
-                                        for k, v in s.items()},
-                draws, gates, max(bounds_.values()), normal_err)
+            fine_z = fine_samples(net_, mcfg_, rcfg_)
+            with fixed_fine(fine_z, np.arange(CHECK_RAYS)):
+                bad = criterion(
+                    net_cpu, mcfg_, rcfg_, {k: torch.as_tensor(v)
+                                            for k, v in s.items()},
+                    draws, gates, max(bounds_.values()), normal_err)
             kept = np.flatnonzero(~bad.numpy())
             print(f"  weights after step {step}: {int(bad.sum())} of "
                   f"{CHECK_RAYS} rays ill-conditioned "
@@ -2775,30 +3095,33 @@ def main():
                 reset_counts()
                 bias_terms = []
                 loss_k, g_k = grads_on(net_, "cuda", rays, mcfg_,
-                                       bias_terms, rcfg_)
+                                       bias_terms, rcfg_, fine_z)
                 assert counts() == want, counts()
                 # the sigma head's bias gradient is one sum of terms of
                 # either sign, held as the kernel checks hold it (dbsig_held)
                 # to its bound of its terms' L2 norm in the step's backward
                 # call, where its relative error against the sum is
-                # unbounded as the terms cancel (printed beside)
-                bias_scale = float(np.sqrt(sum(v * v for v in bias_terms)))
+                # unbounded as the terms cancel (printed beside); with a
+                # fine network, each network's on its own call's terms
+                bias_scales = sigma_bias_scales(bias_terms)
+                assert set(bias_scales) == {k for k in g_k
+                                            if k.endswith(SIGMA_BIAS)}
                 k1_twin = (k1, "_trunk_sigma_cuda", k1._trunk_sigma_plain)
                 saved = [(m, name, getattr(m, name))
                          for m, name, _ in (fwd, bwd, k1_twin)]
                 setattr(*bwd)
                 loss_b, g_b = grads_on(net_, "cuda", rays, mcfg_,
-                                       rcfg_=rcfg_)
+                                       rcfg_=rcfg_, fine_z=fine_z)
                 setattr(*fwd)
                 loss_fb, g_fb = grads_on(net_, "cuda", rays, mcfg_,
-                                         rcfg_=rcfg_)
+                                         rcfg_=rcfg_, fine_z=fine_z)
                 setattr(*k1_twin)
                 loss_t, g_t = grads_on(net_, "cuda", rays, mcfg_,
-                                       rcfg_=rcfg_)
+                                       rcfg_=rcfg_, fine_z=fine_z)
                 for m, name, fn in saved:
                     setattr(m, name, fn)
                 loss_p, g_p = grads_on(net_cpu, "cpu", rays, mcfg_,
-                                       rcfg_=rcfg_)
+                                       rcfg_=rcfg_, fine_z=fine_z)
                 print(f"   {len(rays)} rays: loss: kernels {loss_k:.6f}; "
                       f"backward's twin on the card {loss_b:.6f}; both "
                       f"twins on the card {loss_fb:.6f}; every twin on the "
@@ -2811,25 +3134,26 @@ def main():
                 for label, got, ref in zip(bounds_, (g_k, g_k, g_k, g_t),
                                            (g_b, g_fb, g_p, g_p)):
                     rels = {k: rel_l2(got[k], ref[k]) for k in ref}
-                    bias_rel = rels[SIGMA_BIAS]
-                    rels[SIGMA_BIAS] = ((got[SIGMA_BIAS] - ref[SIGMA_BIAS])
-                                        .norm().item() / bias_scale)
-                    worst = max(rels.values())
+                    bias_rel = {k: rels[k] for k in bias_scales}
+                    for k, scale_ in bias_scales.items():
+                        rels[k] = (got[k] - ref[k]).norm().item() / scale_
                     top = sorted(rels.items(), key=lambda kv: -kv[1])
+                    worst_k, worst = top[0]
                     print(f"    gradient relative L2, {label}: largest "
                           f"{worst:.2e} (bound {bounds_[label]:g}"
                           f"{'' if label in held else ', not held'}); "
                           + ", ".join(f"{k} {v:.2e}" for k, v in (
                               rels.items() if last and len(held) > 1
                               else top[:2]))
-                          + f"; {SIGMA_BIAS} of its terms' norm "
-                          f"{rels[SIGMA_BIAS]:.2e} (relative to the sum "
-                          f"{bias_rel:.2e})", flush=True)
+                          + "".join(
+                              f"; {k} of its terms' norm {rels[k]:.2e} "
+                              f"(relative to the sum {bias_rel[k]:.2e})"
+                              for k in bias_scales), flush=True)
                     if label in held and not worst <= bounds_[label]:
                         step_failures.append(
                             f"{path}, weights after step {step}, "
                             f"{len(rays)} rays: {label} {worst:.3e} > "
-                            f"{bounds_[label]:g} ({top[0][0]})")
+                            f"{bounds_[label]:g} ({worst_k})")
                 assert all(torch.isfinite(v).all() for v in g_k.values())
                 # the backward kernel moves no forward value
                 assert abs(loss_b - loss_k) <= 1e-6 * abs(loss_k), (loss_b,
@@ -3173,6 +3497,24 @@ def main():
             store_batches=1)
         del trained
 
+    # the variants at their own defaults (ROADMAP.md Queue 1 item 9b), at
+    # 8 x 512 and float32 unless noted: spsbrdf-nerf with a fine network
+    # (--n_importance 64: K2/K3 on each network, K4/K5 twice with the
+    # switch; one step-check point at bfloat16_all), with beta (the
+    # t-embedding: K4/K5 refuse it with the switch set), with multi_brdf,
+    # with normal_at_surface (no K2/K3), with density noise; sat-nerf with
+    # beta and the keypoint store (no kernel; a kp_ term), sps-nerf with
+    # beta.  Each: one request against the CPU twins (256 rays, the
+    # float32 bounds) and WARM_STEPS + VARIANT_STEPS steps on a one-batch
+    # store (the loss falls), launches held per chunk and per step
+    phase("variants, defaults")
+    t_defaults = time.perf_counter()
+    defaults_phase(tmp.name, argv, v_base, learned, gen, requests, serve,
+                   train, check_served, step_check, draws, bounds, per_req,
+                   rows, smi)
+    print(f"  the defaults phase took {time.perf_counter() - t_defaults:.1f}"
+          " s", flush=True)
+
     phase("workflow")
     run_dir, epoch, run_f32 = workflow(os.path.join(tmp.name, "workflow"),
                                        reset_counts, counts,
@@ -3216,7 +3558,7 @@ def main():
             "points", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "launches_train", "launches_eval",
-            "launches_families",
+            "launches_families", "launches_defaults",
             "bound_split_ms", "rel_l2", "bf16_over_f32",
             "library_bf16_ms", "uchain_ms", "sweep_ms", "wgrad_ms",
             "reduce_ms")

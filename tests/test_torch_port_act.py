@@ -226,7 +226,7 @@ def test_one_fused_stage2_step_matches_jax(act):
         close(m[k], jm_[k], atol=1e-6, rtol=5e-4, what=k)
     flat = jflatten(jstate.params)
     for name, p in state.params.named_parameters():
-        ref = flat["coarse/" + name.replace(".", "/")]
+        ref = flat[name.replace(".", "/")]
         got = a(p.t() if name.endswith(".w") else p)
         d = np.abs(got - ref)
         scale = max(float(np.abs(ref).max()), 1e-3)

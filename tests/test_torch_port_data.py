@@ -231,8 +231,11 @@ def test_what_is_not_ported_raises(tmp_path):
     _, tc = _configs(info["root"], img_downscale=2.0)
     with pytest.raises(NotImplementedError, match="item 7"):
         tsat.SatelliteDataset(tc, "train")
+    # the sat-nerf keypoint store needs the AOI's tie points (pts3d.npy;
+    # build_aoi writes them with_keypoints): its parity is in
+    # tests/test_torch_port_defaults_cli.py
     _, tc = _configs(info["root"], load_depth=False, sparse_depth=True)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(FileNotFoundError, match="pts3d"):
         tsat.SatelliteDataset(tc, "train")
     with pytest.raises(NotImplementedError, match="item 7"):
         tfactory.load_dataset("spsbrdf-nerf", "blender", info["root"])

@@ -463,7 +463,6 @@ def test_eval_parser_matches_jax():
 
 @pytest.mark.parametrize("kw,match", [
     (dict(compute_dtype="int8"), "item 10"),
-    (dict(normal_at_surface=1), "item 9"),
     (dict(n_devices=2), "item 11")])
 def test_eval_refuses_what_is_not_ported(run, tmp_path, kw, match):
     out = tmp_path / "ev"
@@ -473,23 +472,39 @@ def test_eval_refuses_what_is_not_ported(run, tmp_path, kw, match):
     assert not out.exists()
 
 
-def test_find_best_t_on_a_run_with_the_t_embedding(run, tmp_path):
+def test_find_best_t_on_a_run_with_the_t_embedding(run, tmp_path, capsys):
     """--find_best_t does nothing on a run without the t-embedding (as in
-    the JAX package) and raises item 9 on a run with it."""
+    the JAX package) and searches every embedding index on a run with it
+    (its choice against the JAX package's:
+    tests/test_torch_port_defaults_cli.py), here with --normal_at_surface
+    overriding the run's render."""
     from brdfnerf_tpu_torch.cli import opts
-    from brdfnerf_tpu_torch.models.network import init_network
-    argv = [a if a != "run" else "beta" for a in run["argv"]] + ["--beta"]
+    from brdfnerf_tpu_torch.models.network import init_params
+    argv = [a if a != "run" else "beta" for a in run["argv"]] + [
+        "--beta", "--t_embbeding_vocab", "2"]
     args = opts.postprocess(opts.train_parser().parse_args(argv))
     run_dir = os.path.join(args.logs_dir, args.exp_name)
     opts.dump_opts(args, run_dir)
     cfg = opts.to_run_config(args, device="cpu")
-    net = init_network(cfg.model, torch.Generator().manual_seed(0),
-                       device="cpu")
+    params = init_params(cfg.model, torch.Generator().manual_seed(0),
+                         device="cpu")
     tckpt.save_checkpoint(os.path.join(args.ckpts_dir, args.exp_name,
-                                       "epoch=0.npz"), {"coarse": net})
-    with pytest.raises(NotImplementedError, match="item 9"):
-        teval.main(["--logs_dir", run_dir, "--epoch_number", "0",
-                    "--find_best_t", "1"], device="cpu")
+                                       "epoch=0.npz"),
+                          params)
+    def best_t():
+        return [int(ln.split(":")[1].split()[0])
+                for ln in capsys.readouterr().out.splitlines()
+                if ln.startswith("[eval] best t for image")]
+
+    capsys.readouterr()
+    res = teval.evaluate(run_dir, 0, find_best_t=True, normal_at_surface=1,
+                         device="cpu", output_dir=str(tmp_path / "ev"))
+    found = best_t()
+    assert len(found) == 2 and all(0 <= b < 2 for b in found)
+    assert np.isfinite(res["psnr"])
+    teval.evaluate(run["run_dir"], 0, find_best_t=True, device="cpu",
+                   output_dir=str(tmp_path / "ev2"))
+    assert best_t() == []
 
 
 def test_evaluation_entry_points_need_the_card_or_a_device(run, tmp_path,

@@ -237,3 +237,105 @@ def test_brdf_criterion_reads_a_family_render():
     none = cs.brdf_ill_conditioned_rays(net, mcfg, rcfg, s, draws, gates,
                                         0.1, normal_err=0.0)
     assert not none.any()
+
+
+def test_ill_conditioned_rays_with_a_fine_network():
+    """With a fine network (n_importance > 0), the rays either pass leaves
+    undetermined: the criterion on the coarse pass's weights, normals and
+    cosines or on the fine pass's."""
+    from brdfnerf_tpu_torch.models.network import init_params
+    cs = _chip_smoke()
+    mcfg = tconfig.ModelConfig(**SMALL, **FLAGSHIP_HEADS,
+                               compute_dtype="float32")
+    rcfg = tconfig.RenderConfig(n_samples=8, guided_samples=8,
+                                n_importance=8, apply_brdf=True,
+                                use_pallas=True, fused_trunk=True)
+    params = init_params(mcfg, torch.Generator().manual_seed(0), 8,
+                         device="cpu")
+    n_rays = 32
+    s = {k: torch.as_tensor(v) for k, v in make_store(n_rays, 4).items()}
+    rng = torch.Generator().manual_seed(5)
+    draws = {k: torch.rand(n_rays, 8, generator=rng)
+             for k in ("z", "guided", "guided_gt", "sun", "pdf")}
+    gates = TrainGates(cos_irra_on=False, ds_on=True, nrrg_on=True,
+                       beta_warmup=False, hs_on=True)
+    got = cs.ill_conditioned_rays(params, mcfg, rcfg, s, draws, gates, 0.1)
+    res = trender.render_rays(
+        params, mcfg, rcfg, trender.RenderInputs(
+            rays=s["rays"], ts=s["ts"], valid_depth=s["valid_depth"],
+            target_depths=s["depths"], target_std=s["depth_std"],
+            cos_irra_on=False), train=True, draws=draws)
+    each = [cs.ill_conditioned(
+        res[f"weights_{t}"], res[f"normal_an_{t}"],
+        res[f"nr_sun_{t}"].flatten(), res[f"nr_vw_{t}"].flatten(), 0.1)
+        for t in ("coarse", "fine")]
+    assert torch.equal(got, each[0] | each[1])
+
+
+@pytest.mark.parametrize("terms,want", [
+    ([("coarse", 3.0), ("coarse", 4.0)],
+     {"coarse.sigma_from_xyz.0.b": 5.0}),
+    ([("fine", 3.0), ("coarse", 4.0), ("fine", 4.0)],
+     {"coarse.sigma_from_xyz.0.b": 4.0, "fine.sigma_from_xyz.0.b": 5.0})])
+def test_sigma_bias_scales_per_network(terms, want):
+    """The sigma head's bias gradient's terms' norm, each network's over
+    its own backward calls (named where they are recorded)."""
+    cs = _chip_smoke()
+    got = cs.sigma_bias_scales(terms)
+    assert got == pytest.approx(want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16_all"])
+def test_pack_owners_names_the_network_of_a_pack(dtype):
+    """The step check names each backward call's network by the storage of
+    the packed first trunk bias: the parameter's own, at every dtype."""
+    from brdfnerf_tpu_torch.models.network import init_params
+    from brdfnerf_tpu_torch.ops.fused_trunk_vjp import (_pack_params,
+                                                        trunk_params)
+    cs = _chip_smoke()
+    mcfg = tconfig.ModelConfig(**SMALL, **FLAGSHIP_HEADS,
+                               compute_dtype=dtype)
+    params = init_params(mcfg, torch.Generator().manual_seed(0), 8,
+                         device="cpu")
+    owners = cs.pack_owners(params)
+    for name in ("coarse", "fine"):
+        packed = _pack_params(mcfg, trunk_params(getattr(params, name)))
+        assert owners[packed["b0"].data_ptr()] == name
+
+
+def test_fixed_fine_gives_every_render_the_same_fine_samples():
+    """Inside fixed_fine the fine pass merges the given samples (rows of
+    the batch) with the coarse ones, whatever the network; outside,
+    sample_pdf draws its own."""
+    from brdfnerf_tpu_torch.models.network import init_params
+    cs = _chip_smoke()
+    mcfg = tconfig.ModelConfig(**SMALL, **FLAGSHIP_HEADS,
+                               compute_dtype="float32")
+    rcfg = tconfig.RenderConfig(n_samples=8, guided_samples=8,
+                                n_importance=8, apply_brdf=True)
+    n_rays = 16
+    s = {k: torch.as_tensor(v) for k, v in make_store(n_rays, 4).items()}
+    rng = torch.Generator().manual_seed(5)
+    draws = {k: torch.rand(n_rays, 8, generator=rng)
+             for k in ("z", "guided", "sun", "pdf")}
+    fine_z = torch.sort(torch.rand(n_rays, 8, generator=rng), -1).values
+    rows = np.arange(3, 11)
+
+    def zs(seed):
+        params = init_params(mcfg, torch.Generator().manual_seed(seed), 8,
+                             device="cpu")
+        inp = trender.RenderInputs(rays=s["rays"][rows],
+                                   cos_irra_on=False)
+        with torch.no_grad():
+            res = trender.render_rays(
+                params, mcfg, rcfg, inp, train=True,
+                draws={k: v[rows] for k, v in draws.items()})
+        return res["z_vals_coarse"], res["z_vals_fine"]
+
+    for seed in (0, 1):
+        with cs.fixed_fine(fine_z, rows):
+            z_c, z_f = zs(seed)
+        want = torch.sort(torch.cat([z_c, fine_z[rows]], -1), -1).values
+        assert torch.equal(z_f, want), seed
+        z_c, z_f = zs(seed)
+        assert not torch.isin(fine_z[rows], z_f).any(), seed

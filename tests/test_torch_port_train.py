@@ -196,18 +196,18 @@ def test_gates_off_drop_their_terms():
 
 def _carry_jax_state(state, jstate):
     """Set the port's parameters and Adam moments to the JAX state's, so
-    that both steps start from the same point."""
+    that both steps start from the same point (the coarse network's, and
+    the fine network's and the t table's of a Params)."""
+    from brdfnerf_tpu_torch.utils.checkpoint import named_flat
     adam = jstate.opt_state[0]
     trees = {k: jflatten(v) for k, v in (("p", jstate.params),
                                          ("mu", adam.mu), ("nu", adam.nu))}
     count = int(adam.count)
     with torch.no_grad():
-        for name, p in state.params.named_parameters():
-            key = "coarse/" + name.replace(".", "/")
-
+        for key, p in named_flat(state.params).items():
             def get(tree):
                 v = t(trees[tree][key])
-                return v.t().contiguous() if name.endswith(".w") else v
+                return v.t().contiguous() if key.endswith("/w") else v
             p.copy_(get("p"))
             if count:
                 state.opt_state.state[p] = {
@@ -258,7 +258,7 @@ def test_three_fused_steps_match_jax():
             close(m[k], jm_[k], atol=1e-6, rtol=5e-4, what=f"step {i} {k}")
         flat = jflatten(jstate.params)
         for name, p in state.params.named_parameters():
-            ref = flat["coarse/" + name.replace(".", "/")]
+            ref = flat[name.replace(".", "/")]
             got = a(p.t() if name.endswith(".w") else p)
             d = np.abs(got - ref)
             scale = max(float(np.abs(ref).max()), 1e-3)
@@ -369,18 +369,16 @@ def test_training_entry_points_never_fall_back(monkeypatch):
     _, opt = tts.create_train_state(tm, tt, 1, device="cpu")
     sched = tts.GateSchedule(1e18, 1e18, -1.0, 1, 0)
     for kw in (dict(mesh=object()), dict(store_sharded=True),
-               dict(state_shardings=object()), dict(has_kp=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+               dict(state_shardings=object())):
+        with pytest.raises(NotImplementedError, match="item 11"):
             tts.make_fused_train_step(tm, tr, tt, opt, sched, **kw)
-    for kw in (dict(mesh=object()), dict(has_kp=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tts.make_scan_train_step(tm, tr, tt, opt, sched, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tts.create_train_state(dc.replace(tm, beta=True), tt, 1,
-                               device="cpu")
+    with pytest.raises(NotImplementedError, match="item 11"):
+        tts.make_scan_train_step(tm, tr, tt, opt, sched, mesh=object())
+    # density noise draws from the step's generator, or from the draws it
+    # is handed; never from torch's global generator
     noisy = dc.replace(tr, noise_std=1.0)
     state, _ = tts.create_train_state(tm, tt, 1, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(ValueError, match="noise"):
         tts.compute_losses(state.params, tm, noisy, tt,
                            torch_batch(make_store(8)),
                            tts.TrainGates(**GATES))

@@ -334,7 +334,7 @@ def test_optimizer_state_moves_both_ways(aoi, tmp_path, frozen):
         adam = restored[0]
         mu, nu = jckpt._flatten(adam.mu), jckpt._flatten(adam.nu)
         for name, p in tt.state.params.named_parameters():
-            key = "coarse/" + name.replace(".", "/")
+            key = name.replace(".", "/")
             st = tt.state.opt_state.state[p]
             for tree, m in ((mu, "exp_avg"), (nu, "exp_avg_sq")):
                 v = st[m].t() if name.endswith(".w") else st[m]

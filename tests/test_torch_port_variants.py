@@ -2,8 +2,9 @@
 spsbrdf-nerf with the learned sun's solar-correction pass, against the JAX
 package on the CPU: the render at train and eval time on the JAX
 package's draws, compute_losses (loss, terms and every gradient), three
-fused train steps, a train-CLI run, the `[kernels]` line, and what still
-raises (ROADMAP.md Queue 1 item 9b).
+fused train steps, a train-CLI run, the `[kernels]` line, and that what
+ROADMAP.md Queue 1 item 9b brought (beta, the keypoint pass, the fine
+model, density noise) runs.
 
 None of these variants runs a Pallas kernel in the JAX package
 (apply_network, analytic_normals, sigma_and_sun_v), so their port is plain
@@ -283,33 +284,32 @@ def test_kernels_line_names_each_path(monkeypatch, model, extra,
     assert "K4 + K5" not in line or "--funcM" in extra, line
 
 
-def test_what_item_9b_brings_still_raises(tmp_path):
-    """beta with the t-embedding, the sat-nerf keypoint pass and store, the
-    fine model and density noise still raise, with their item number."""
+def test_what_item_9b_brought_runs():
+    """beta with the t-embedding, the sat-nerf keypoint pass, the fine
+    model and density noise, which raised until ROADMAP.md Queue 1 item 9b
+    was ported, run: a render of each, a state with the t table, a fused
+    step with the keypoint store (their parity with the JAX package:
+    tests/test_torch_port_defaults*.py)."""
     _, tm, _, tr, _, net = setup("sat-nerf")
-    _, tt = train_configs()
-    rays = t(make_store(N_RAYS, seed=1)["rays"])
-    inp = trender.RenderInputs(rays=rays, cos_irra_on=torch.tensor(False))
-    for m, r in ((dc.replace(tm, beta=True), tr),
-                 (tm, dc.replace(tr, n_importance=8)),
-                 (tm, dc.replace(tr, noise_std=1.0))):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            trender.render_rays(net, m, r, inp)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tts.create_train_state(dc.replace(tm, beta=True), tt, 1,
-                               device="cpu")
+    _, tt = train_configs(ds_lambda=1.0)
+    s = make_store(N_RAYS, seed=1)
+    rays = t(s["rays"])
+    inp = trender.RenderInputs(rays=rays, ts=t(s["ts"]),
+                               cos_irra_on=torch.tensor(False))
+    gen = torch.Generator().manual_seed(0)
+    for m, r, key in ((dc.replace(tm, beta=True), tr, "beta_coarse"),
+                      (tm, dc.replace(tr, n_importance=8), "rgb_fine"),
+                      (tm, dc.replace(tr, noise_std=1.0), "rgb_coarse")):
+        state, _ = tts.create_train_state(
+            m, tt, 1, n_importance=r.n_importance, device="cpu")
+        with torch.no_grad():
+            out = trender.render_rays(state.params, m, r, inp, generator=gen)
+        assert torch.isfinite(out[key]).all(), key
     sched = tts.GateSchedule(1e18, 1e18, -1.0, 1, 0)
-    _, opt = tts.create_train_state(tm, tt, 1, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tts.make_fused_train_step(tm, tr, tt, opt, sched, has_kp=True)
-    batch = dict(torch_batch(make_store(N_RAYS)), kp_rays=rays)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tts.compute_losses(net, tm, tr, tt, batch, tts.TrainGates(**GATES))
-    from brdfnerf_tpu_torch.cli.train import main
-    from brdfnerf_tpu_torch.data.synth_aoi import build_aoi
-    info = build_aoi(str(tmp_path / "aoi"), with_keypoints=True)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        main(["--root_dir", info["root"], "--aoi_id", info["aoi_id"],
-              "--logs_dir", str(tmp_path / "l"), "--exp_name", "kp",
-              "--model", "sat-nerf", "--ds_lambda", "1", "--fc_feat", "32",
-              "--fc_layers", "4"], device="cpu")
+    state, opt = tts.create_train_state(tm, tt, 1, device="cpu")
+    step = tts.make_fused_train_step(tm, tr, tt, opt, sched, has_kp=True)
+    store = torch_batch(s)
+    kp = {"rays": rays[:, :8], "depths": t(s["depths"]), "ts": t(s["ts"])}
+    state, m = step(state, store, torch.arange(8), 0, kp_store=kp,
+                    kp_idx=torch.arange(4))
+    assert state.step == 1 and np.isfinite(float(m["loss"]))

@@ -74,7 +74,8 @@ def _weights_through_npz(tmp_path, jcfg, tcfg, seed=0):
     params, _ = networks(jcfg, tcfg, seed)
     path = str(tmp_path / "epoch=1.npz")
     jsave(path, {"coarse": params}, step=0)
-    return params, params_from_flat(load_flat(path), tcfg, device="cpu")
+    return params, params_from_flat(load_flat(path), tcfg,
+                                    device="cpu").coarse
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

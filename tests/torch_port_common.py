@@ -37,7 +37,7 @@ def networks(jcfg, tcfg, seed: int = 0):
     holding the same values (through the flat npz layout)."""
     params = jax_init_network(jax.random.PRNGKey(seed), jcfg)
     flat = jax_flatten({"coarse": params})
-    return params, params_from_flat(flat, tcfg, device="cpu")
+    return params, params_from_flat(flat, tcfg, device="cpu").coarse
 
 
 def t(x):
@@ -141,10 +141,13 @@ def grads_close(net, g_ref, what, atol_frac, rtol, rel_l2=None):
 
 
 def three_fused_steps_match(jm, tm, jr, tr, jt, tt, n_rays,
-                            metrics=("loss", "psnr", "depth_std_mean")):
+                            metrics=("loss", "psnr", "depth_std_mean"),
+                            store=None, draws_of=None):
     """make_fused_train_step against the JAX package's, three steps on one
-    store and index sequence, each from the JAX state (parameters and Adam
-    moments) and on the draws of the JAX step's key, held as
+    store (make_store(48) unless given) and index sequence, each from the
+    JAX state (parameters and Adam moments; the fine network's and the t
+    table's too where jr.n_importance > 0 and jm.beta) and on the draws of
+    the JAX step's key (render_draws, or draws_of(key)), held as
     tests/test_torch_port_train.py holds the flagship's: the metrics to
     rtol 5e-4, the parameters to 5e-4 of scale and of themselves but for
     at most 0.1% of a tensor's elements, which may differ by up to 2 * lr
@@ -154,17 +157,22 @@ def three_fused_steps_match(jm, tm, jr, tr, jt, tt, n_rays,
     from brdfnerf_tpu.parallel import train_step as jts
     from brdfnerf_tpu_torch.data import batcher as tbatch
     from brdfnerf_tpu_torch.parallel import train_step as tts
+    from brdfnerf_tpu_torch.utils.checkpoint import named_flat
     from test_torch_port_train import _carry_jax_state
-    store = make_store(48, seed=11)
+    store = make_store(48, seed=11) if store is None else store
+    if draws_of is None:
+        def draws_of(key):
+            return render_draws(key, jr, n_rays, jr.sun_march_count(16))
     sched = dict(t_cos_irra=1e18, t_ds_drop=1e18, t_nrrg=-1.0,
                  steps_per_epoch=1, first_beta_epoch=0)
     jstate, jopt = jts.create_train_state(jax.random.PRNGKey(0), jm, jt,
-                                          steps_per_epoch=3)
+                                          steps_per_epoch=3,
+                                          n_importance=jr.n_importance)
     jstep = jts.make_fused_train_step(jm, jr, jt, jopt,
                                       jts.GateSchedule(**sched))
     state, opt = tts.create_train_state(
-        tm, tt, 3, flat=jax_flatten({"coarse": jstate.params["coarse"]}),
-        device="cpu")
+        tm, tt, 3, flat=jax_flatten(jstate.params),
+        n_importance=tr.n_importance, device="cpu")
     step = tts.make_fused_train_step(tm, tr, tt, opt,
                                      tts.GateSchedule(**sched))
     jb = jbatch.DeviceRayBatcher(store, n_rays, seed=3)
@@ -173,17 +181,16 @@ def three_fused_steps_match(jm, tm, jr, tr, jt, tt, n_rays,
     for i in range(3):
         idx = tb.next_index_tensor()
         jidx = jb.next_indices().astype(np.int32)
-        draws = render_draws(jax.random.fold_in(base_key, i), jr, n_rays,
-                             jr.sun_march_count(16))
+        draws = draws_of(jax.random.fold_in(base_key, i))
         _carry_jax_state(state, jstate)
         jstate, jm_ = jstep(jstate, jb.store, jnp.asarray(jidx), base_key)
         state, m = step(state, tb.store, idx, 0, draws=draws)
         for k in metrics:
             close(m[k], jm_[k], atol=1e-6, rtol=5e-4, what=f"step {i} {k}")
         flat = jax_flatten(jstate.params)
-        for pname, p in state.params.named_parameters():
-            ref = flat["coarse/" + pname.replace(".", "/")]
-            got = a(p.t() if pname.endswith(".w") else p)
+        for pname, p in named_flat(state.params).items():
+            ref = flat[pname]
+            got = a(p.t() if pname.endswith("/w") else p)
             d = np.abs(got - ref)
             scale = max(float(np.abs(ref).max()), 1e-3)
             flipped = d > 5e-4 * scale + 5e-4 * np.abs(ref)
