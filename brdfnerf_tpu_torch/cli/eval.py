@@ -8,8 +8,8 @@ of the requested split through the block render on the card, writes
 rgb/depth/DSM GeoTIFFs plus registered DSM diffs (rdsm/, rdsm_diff/), and
 prints mean PSNR / SSIM / DSM MAE.  Prints which fused kernels the render
 launches, or why none.  --find_best_t on a run with the t-embedding renders
-each image once per embedding index and keeps the best.  Not ported yet:
-the panel PNGs (utils/viz, ROADMAP.md Queue 1 item 7).
+each image once per embedding index and keeps the best.  Each image's
+panel stack (utils/viz) is written as {src}_panels.png.
 
 Gate semantics on eval: apply_brdf = (brdf_on < 1), apply_theta likewise,
 cos_irra = (cos_irra_on < 1) (eval.py:383-384).
@@ -60,6 +60,7 @@ def evaluate(run_dir: str, epoch_number: int, split: str = "val",
     from ..geo import dsm as dsm_mod
     from ..metrics import masked_scores
     from ..serve import load_renderer
+    from ..utils import viz
     from ..utils.geotiff import GeoProfile, write_geotiff
     from .train import kernels_line
 
@@ -78,8 +79,6 @@ def evaluate(run_dir: str, epoch_number: int, split: str = "val",
     search_t = find_best_t and r.cfg.model.beta
     args, ds = r.args, r.dataset
     print(kernels_line(r.cfg, r.device, train=False), flush=True)
-    print("[eval] the panel PNGs are not ported yet (utils/viz, ROADMAP.md "
-          "Queue 1 item 7)", flush=True)
 
     psnrs, ssims, maes, maes_nr = [], [], [], []
     for idx in range(len(ds)):
@@ -107,6 +106,15 @@ def evaluate(run_dir: str, epoch_number: int, split: str = "val",
         p, sv = sc["psnr"], sc["ssim"]
         p_scl, sv_scl = sc["psnr_scl"], sc["ssim_scl"]
         src = s.get("src_id", str(idx))
+        # the diagnostic panel stack (eval.py:494-497 save_nerf_output
+        # analog): rgb/gt/depth + BRDF parameter / normal / sun maps
+        try:
+            panel = viz.render_summary_panels(
+                out, gt, h, w,
+                visu_scale=float(getattr(args, "visu_scale", 1.0)))
+            viz.save_png(os.path.join(out_dir, f"{src}_panels.png"), panel)
+        except Exception as e:
+            print(f"[eval] panel save failed: {e}")
         write_geotiff(os.path.join(out_dir, f"{src}_rgb.tif"),
                       (np.clip(rgb, 0, 1) * 255).astype(np.uint8)
                       .transpose(2, 0, 1), GeoProfile())

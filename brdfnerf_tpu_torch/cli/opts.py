@@ -224,15 +224,15 @@ def eval_parser() -> argparse.ArgumentParser:
     p.add_argument("--find_best_t", type=int, default=0,
                    help="search the t-embedding vocab per val image and "
                         "score with the best-PSNR index instead of the "
-                        "predefined t=0 (eval.py:184-199,215); the "
-                        "t-embedding is not ported yet")
+                        "predefined t=0 (eval.py:184-199,215); runs "
+                        "with --beta carry the t-embedding")
     p.add_argument("--compute_dtype", type=str, default=None,
                    choices=["float32", "bfloat16", "bfloat16_all", "int8"],
                    help="override the run's training compute_dtype for "
                         "this evaluation ('int8' is not ported yet)")
     p.add_argument("--normal_at_surface", type=int, default=None,
                    help="override the run's normal_at_surface for this "
-                        "evaluation (1/0; 1 is not ported yet)")
+                        "evaluation (1/0)")
     p.add_argument("--sun_march_samples", type=int, default=None,
                    help="override the run's sun-visibility march sample "
                         "count for this evaluation (0 = reference intent "

@@ -110,33 +110,41 @@ def main(argv=None, device=None):
             or args.scale_global_batch):
         raise not_ported("multi-GPU training (--n_devices, --tp, "
                          "--sharded_store, --scale_global_batch)", 11)
-    if args.print_debuginfo:
-        raise not_ported("--print_debuginfo (the NaN-guard layer, "
-                         "utils/guards)", 7)
-    if args.data == "blender":
-        raise not_ported("the blender dataset (data/blender.py)", 7)
     device = resolve_device(device)
     run_dir = os.path.join(args.logs_dir, args.exp_name)
     opts_mod.dump_opts(args, run_dir)
     cfg = opts_mod.to_run_config(args, device=device)
     print(kernels_line(cfg, device), flush=True)
 
-    from ..data.satellite import SatelliteDataset
+    if args.print_debuginfo:
+        from ..utils import guards
+        guards.enable(True)
+
     from ..train import Trainer, TrainerPaths
 
-    sat_cfg = dc.replace(
-        opts_mod.sat_config_from_opts(args),
-        mod_alt_bound=bool(args.mod_alt_bound),
-        sparse_depth=(args.model == "sat-nerf" and args.ds_lambda > 0))
     t0 = time.perf_counter()
-    train_ds = SatelliteDataset(sat_cfg, split="train")
-    val_ds = SatelliteDataset(sat_cfg, split="val")
+    if args.data == "blender":
+        from ..data.blender import BlenderDataset
+        train_ds = BlenderDataset(args.root_dir, split="train",
+                                  img_wh=tuple(args.img_wh))
+        val_ds = BlenderDataset(args.root_dir, split="val",
+                                img_wh=tuple(args.img_wh))
+        n_imgs = int(train_ds.store["ts"].max()) + 1
+    else:
+        from ..data.satellite import SatelliteDataset
+        sat_cfg = dc.replace(
+            opts_mod.sat_config_from_opts(args),
+            mod_alt_bound=bool(args.mod_alt_bound),
+            sparse_depth=(args.model == "sat-nerf" and args.ds_lambda > 0))
+        train_ds = SatelliteDataset(sat_cfg, split="train")
+        val_ds = SatelliteDataset(sat_cfg, split="val")
+        n_imgs = len(train_ds.train_files)
     print(f"[data] {train_ds.store['rays'].shape[0]} training rays from "
-          f"{len(train_ds.train_files)} images, {len(val_ds)} validation "
-          f"images; ingested in {time.perf_counter() - t0:.3f} s",
-          flush=True)
-    if train_ds.depth_store is not None:
-        print(f"[data] {train_ds.depth_store['rays'].shape[0]} keypoint "
+          f"{n_imgs} images, {len(val_ds)} validation images; ingested in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    depth_store = getattr(train_ds, "depth_store", None)
+    if depth_store is not None:
+        print(f"[data] {depth_store['rays'].shape[0]} keypoint "
               "rays (sat-nerf's keypoint depth store)", flush=True)
 
     ckpts_dir = os.path.join(args.ckpts_dir, args.exp_name)
@@ -149,7 +157,10 @@ def main(argv=None, device=None):
                       seed=args.seed, use_tb=args.tensorboard,
                       in_ckpts=args.in_ckpts, resume_from=args.ckpt_path,
                       freeze=freeze, test_sun_v=bool(args.test_sun_v),
-                      depth_store=train_ds.depth_store, device=device)
+                      depth_store=depth_store, visu_scale=args.visu_scale,
+                      save_first_n_visu=args.save_first_n_visu,
+                      save_visu_every_n_epochs=args.save_visu_every_n_epochs,
+                      device=device)
     trainer.eval_chunk = args.chunk
     try:
         trainer.fit(eval_every_n_epochs=args.eval_every_n_epochs,

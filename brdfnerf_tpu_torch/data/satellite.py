@@ -33,9 +33,11 @@ identically 0 so GT-guided samples collapse onto the exact MicMac depth.
 stdscale*(1-w)+margin law.
 
 The port's copy of the JAX package's data/satellite.py, the sat-nerf
-keypoint store (load_sparse_depth) included.  Not copied yet: resampling
-at img_downscale > 1 (cv2 there; ROADMAP.md Queue 1 item 7), which raises.
-Masks are read through this package's own GeoTIFF reader.
+keypoint store (load_sparse_depth) included.  Masks are read through this
+package's own GeoTIFF reader; at img_downscale > 1 images, masks and depth
+fields are resized by utils/resample's look-alikes of the cv2 calls the
+JAX package makes (INTER_LINEAR for images, INTER_NEAREST for the rest),
+with the JAX package's size formulas.
 """
 
 from __future__ import annotations
@@ -51,8 +53,8 @@ import numpy as np
 from ..geo import rpc as rpc_mod
 from ..geo.geodesy import (latlon_to_ecef, utm_from_latlon, sun_direction,
                            scaling_params, utm_zone_from_latlon)
-from ..models.network import not_ported
 from ..utils.geotiff import read_geotiff
+from ..utils.resample import resize_linear, resize_nearest
 
 
 # ----------------------------------------------------------------- metadata
@@ -260,10 +262,6 @@ def scale_image(img: np.ndarray, scale: float = 1.0 / 255.0,
     return np.clip(img, 0.0, 1.0)
 
 
-def _downscale_not_ported():
-    return not_ported("resampling images and depth at img_downscale > 1", 7)
-
-
 def load_rgb(img_path: str, img_downscale: float = 1.0,
              scale: float = 1.0 / 255.0,
              bound: Tuple[float, float] = (0.0, 1.0)) -> np.ndarray:
@@ -274,7 +272,9 @@ def load_rgb(img_path: str, img_downscale: float = 1.0,
         img = np.tile(img, (1, 1, 3))
     img = scale_image(img[..., :3], scale, bound)
     if img_downscale > 1:
-        raise _downscale_not_ported()
+        h = int(img.shape[0] // img_downscale)
+        w = int(img.shape[1] // img_downscale)
+        img = resize_linear(img, w, h)
     return img.reshape(-1, 3)
 
 
@@ -293,14 +293,15 @@ def pixel_value_bound(json_paths: List[str], img_dir: str,
 def load_mask(json_path: str, h: int, w: int) -> np.ndarray:
     """{json}_mask.tif -> flat bool (satellite_rgb_dep.py:263-285);
     all-ones when absent.  The pixels are those PIL gives: one band as
-    (H, W), several as (H, W, bands)."""
+    (H, W), several as (H, W, bands); a mask of another size than (h, w)
+    is resized as cv2's INTER_NEAREST does (utils/resample)."""
     mask_p = json_path[:-5] + "_mask.tif"
     if not os.path.isfile(mask_p):
         return np.ones(h * w, bool)
     arr, _ = read_geotiff(mask_p)
     m = arr[0] if arr.shape[0] == 1 else arr.transpose(1, 2, 0)
     if m.shape[:2] != (h, w):
-        raise _downscale_not_ported()
+        m = resize_nearest(m.astype(np.uint8), w, h)
     return (m.reshape(-1) > 0)
 
 
@@ -352,14 +353,19 @@ def normals_from_grid_points(pts3d: np.ndarray,
 
 # ------------------------------------------------------------ depth loading
 
-def _resize_flat(flat: np.ndarray, h: int, w: int,
-                 downscale: float) -> np.ndarray:
+def _resize_flat(flat: np.ndarray, h: int, w: int, downscale: float,
+                 nearest: bool = True) -> np.ndarray:
     """Downscale an (h*w, C) per-pixel field to the working resolution.
     The reference uses torch interpolate default 'nearest'
-    (satellite_rgb_dep.py:397-399); not ported yet."""
+    (satellite_rgb_dep.py:397-399)."""
     if downscale <= 1:
         return flat
-    raise _downscale_not_ported()
+    nh, nw = int(h / downscale), int(w / downscale)
+    img = flat.reshape(h, w, -1)
+    out = (resize_nearest if nearest else resize_linear)(img, nw, nh)
+    if out.ndim == 2:
+        out = out[..., None]
+    return out.reshape(nh * nw, flat.shape[-1] if flat.ndim > 1 else 1)
 
 
 def load_depth_files(depth_dir: str, img_id: str, cs: str = "utm"):
@@ -491,8 +497,6 @@ class SatelliteDataset:
     """
 
     def __init__(self, cfg: SatelliteConfig, split: str = "train"):
-        if cfg.img_downscale > 1:
-            raise _downscale_not_ported()
         self.cfg = cfg
         self.split = split
         self.img_dir = cfg.img_dir or cfg.root_dir

@@ -420,3 +420,51 @@ def _build_aoi(root: str, n_train: int, n_test: int, depth_subdir: str,
                np.asarray([xoff, yoff_b, size, res]))
     return dict(root=root, gt_dir=gt_dir, aoi_id=aoi_id, names=names,
                 brdf=brdf)
+
+
+def rpc00b_text(d: dict) -> str:
+    """An RPC dict as classic RPC00B sidecar text (.rpc / .rpc_adj)."""
+    lines = [f"LINE_OFF: {d['row_offset']} pixels",
+             f"SAMP_OFF: {d['col_offset']} pixels",
+             f"LAT_OFF: {d['lat_offset']} degrees",
+             f"LONG_OFF: {d['lon_offset']} degrees",
+             f"HEIGHT_OFF: {d['alt_offset']} meters",
+             f"LINE_SCALE: {d['row_scale']} pixels",
+             f"SAMP_SCALE: {d['col_scale']} pixels",
+             f"LAT_SCALE: {d['lat_scale']} degrees",
+             f"LONG_SCALE: {d['lon_scale']} degrees",
+             f"HEIGHT_SCALE: {d['alt_scale']} meters"]
+    for pref, key in (("LINE_NUM_COEFF", "row_num"),
+                      ("LINE_DEN_COEFF", "row_den"),
+                      ("SAMP_NUM_COEFF", "col_num"),
+                      ("SAMP_DEN_COEFF", "col_den")):
+        for j, v in enumerate(d[key]):
+            lines.append(f"{pref}_{j + 1}: {v}")
+    return "\n".join(lines)
+
+
+def write_full_scenes(img_dir: str, size: int = None,
+                      tilts=((0.0, 0.0), (0.1, 0.05), (-0.08, 0.1))):
+    """Full-scene inputs of the dataset generator (cli/generate_dataset):
+    one float32 GeoTIFF per tilt covering three times the AOI's footprint at
+    its ground resolution (size: the AOI's pixels, default the module's
+    32), with an RPC00B sidecar <name>.rpc.  Returns [(tif, rpc dict)]."""
+    size = size or W
+    full = 3 * size
+    os.makedirs(img_dir, exist_ok=True)
+    out = []
+    for i, tilt in enumerate(tilts):
+        d = affine_rpc_dict(*tilt, hw=(size, size))
+        d = dict(d, col_offset=full / 2.0, row_offset=full / 2.0,
+                 col_scale=full / 2.0, row_scale=full / 2.0,
+                 lon_scale=3 * d["lon_scale"], lat_scale=3 * d["lat_scale"])
+        cols, rows = np.meshgrid(np.arange(full), np.arange(full))
+        lon, lat = localize_affine(d, cols, rows, ALT0)
+        tex = ground_texture(lon, lat)
+        p = os.path.join(img_dir, f"full_{i:02d}.tif")
+        write_geotiff(p, (np.stack([tex] * 3) * 4000).astype(np.float32),
+                      GeoProfile(epsg=utm_epsg(ZONE, True)))
+        with open(p[:-4] + ".rpc", "w") as f:
+            f.write(rpc00b_text(d))
+        out.append((p, d))
+    return out

@@ -165,3 +165,52 @@ class CudaKernel:
             raise RuntimeError(f"{self.symbol}: CUDA error {err} "
                                f"({err_str(err).decode()})")
         self.launches += 1
+
+
+# ----------------------------------------------------------- host C code
+
+HOST_CFLAGS = ("-O3", "-shared", "-fPIC", "-std=c99")
+
+
+def _cc() -> str:
+    for name in ("cc", "gcc", "clang"):
+        path = shutil.which(name)
+        if path:
+            return path
+    raise RuntimeError("no C compiler found (cc, gcc or clang): the port's "
+                       "host libraries build with one")
+
+
+def host_library_path(name: str) -> str:
+    """Where csrc/<name>.c builds to, keyed by a hash of the source and
+    HOST_CFLAGS as the kernels are."""
+    h = hashlib.sha256(" ".join(HOST_CFLAGS).encode())
+    with open(os.path.join(CSRC, f"{name}.c"), "rb") as fh:
+        h.update(fh.read())
+    return os.path.join(BUILD_DIR, f"host-{name}-{h.hexdigest()[:16]}.so")
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """csrc/<name>.c, a host library with a plain C interface, compiled
+    with the system C compiler at first use and loaded with ctypes."""
+    key = f"host:{name}"
+    with _lock:
+        if key not in _libs:
+            out = host_library_path(name)
+            if not os.path.exists(out):
+                os.makedirs(BUILD_DIR, exist_ok=True)
+                tmp = f"{out}.{os.getpid()}.tmp"
+                t0 = time.perf_counter()
+                proc = subprocess.run(
+                    [_cc(), *HOST_CFLAGS, "-o", tmp,
+                     os.path.join(CSRC, f"{name}.c")],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)
+                build_log[key] = {"seconds": time.perf_counter() - t0,
+                                  "log": proc.stdout}
+                if proc.returncode != 0:
+                    raise RuntimeError(f"cc failed for {name}.c:\n"
+                                       f"{proc.stdout}")
+                os.replace(tmp, out)
+            _libs[key] = ctypes.CDLL(out)
+        return _libs[key]

@@ -47,7 +47,8 @@ import torch
 
 from ..config import ModelConfig
 from .cuda_build import CudaKernel
-from .fast_math import _C1, _C3, _C5, _C7, _C9, _TWO_PI, _INV_2PI
+from .fast_math import (_C1, _C3, _C5, _C7, _C9, horner, needs_graph,
+                        reduce_range)
 from .fused_mlp import (FEAT, LANE, TILE_N, _round_up, act_of,
                         check_kernel_inputs, pack_trunk_weights,
                         pad_rows_lanes, split3_mm, split_operands,
@@ -147,15 +148,21 @@ def _act_all(z, w0: float, siren: bool, fast: bool, want_d2: bool = False):
         sx = torch.sin(x)
         out = (sx, w0 * torch.cos(x))
         return out + (-(w0 * w0) * sx,) if want_d2 else out
-    v = x - _TWO_PI * torch.round(x * _INV_2PI)
+    # the nested polynomials of the Pallas kernel, h = v (C1 + v2 (C3 + ...)),
+    # act' = w0 (C1 + v2 (3 C3 + ... + v2 * 9 * C9)), act'' = w0^2 v (6 C3
+    # + ... + v2 * 72 * C9), each in its order (fast_math.horner)
+    v = reduce_range(x)
     v2 = v * v
-    h = v * (_C1 + v2 * (_C3 + v2 * (_C5 + v2 * (_C7 + v2 * _C9))))
-    p1 = _C1 + v2 * (3 * _C3 + v2 * (5 * _C5 + v2 * (7 * _C7 + v2 * 9 * _C9)))
+    graph = needs_graph(v2)
+    h = horner(v2, (_C1, _C3, _C5, _C7, _C9))
+    h = v * h if graph else h.mul_(v)
+    p1 = horner(v2, (_C1, 3 * _C3, 5 * _C5, 7 * _C7, _C9), scale=9)
+    p1 = w0 * p1 if graph else p1.mul_(w0)
     if not want_d2:
-        return h, w0 * p1
-    d2 = (w0 * w0) * v * (6 * _C3 + v2 * (20 * _C5
-                                          + v2 * (42 * _C7 + v2 * 72 * _C9)))
-    return h, w0 * p1, d2
+        return h, p1
+    d2 = horner(v2, (6 * _C3, 20 * _C5, 42 * _C7, _C9), scale=72)
+    wv = (w0 * w0) * v
+    return h, p1, (wv * d2 if graph else d2.mul_(wv))
 
 
 def _mm(a, w, od):

@@ -134,13 +134,18 @@ class Renderer:
 
     @property
     def dataset(self):
-        """The split's SatelliteDataset (sat_config_from_opts): 'val', or
-        'train_render' for split='train' (eval.py:238-249)."""
+        """The split's dataset: a SatelliteDataset (sat_config_from_opts),
+        'val' or 'train_render' for split='train' (eval.py:238-249); or for
+        --data blender the BlenderDataset of the 'val' or 'train' frames."""
+        if self._dataset is None and self.args.data == "blender":
+            from .data.blender import BlenderDataset
+            self._dataset = BlenderDataset(
+                self.args.root_dir,
+                split=("train" if self.split == "train" else "val"),
+                img_wh=tuple(self.args.img_wh))
         if self._dataset is None:
             from .cli.opts import sat_config_from_opts
             from .data.satellite import SatelliteDataset
-            if self.args.data == "blender":
-                raise not_ported("the blender dataset (data/blender.py)", 7)
             self._dataset = SatelliteDataset(
                 sat_config_from_opts(self.args),
                 split=("train_render" if self.split == "train" else "val"))

@@ -16,9 +16,11 @@ render serving uses), then scores PSNR / SSIM and, with a GT directory, the
 DSM MAE chain.  sat-nerf with depth supervision (ds_lambda > 0) and a
 keypoint store draws a keypoint sub-batch each step from a second
 device-resident store, whose rays the step renders a second time for the
-keypoint depth loss.  Not ported yet: the validation panels (utils/viz,
-ROADMAP.md Queue 1 item 7) and multi-GPU (mesh, sharded store, scaled
-global batch; item 11).
+keypoint depth loss.  Validation writes each image's panel stack
+(utils/viz) as val_{idx}_epoch{epoch}.png on the JAX package's cadence.  A
+store without a scene (the blender dataset) validates without the DSM
+chain.  Not ported yet: multi-GPU (mesh, sharded store, scaled global
+batch; ROADMAP.md Queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ from .parallel.train_step import (GateSchedule, TrainState,
                                   make_render_step, make_scan_train_step)
 from .serve import final_render_config, render_image_rays
 from .utils import checkpoint as ckpt
+from .utils import viz
 from .utils.device import resolve_device
 
 
@@ -78,6 +81,12 @@ class ScalarLog:
             for k, v in scalars.items():
                 self.tb.add_scalar(k, float(v), step)
 
+    def log_image(self, step: int, tag: str, img_hw3_uint8):
+        """TensorBoard image (main.py:680-685 add_images analog); no-op
+        without a TB writer (the PNG on disk is always written)."""
+        if self.tb is not None:
+            self.tb.add_image(tag, img_hw3_uint8, step, dataformats="HWC")
+
     def close(self):
         self.f.close()
         if self.tb is not None:
@@ -96,6 +105,9 @@ class Trainer:
                  in_ckpts: Optional[str] = None,
                  resume_from: Optional[str] = None,
                  depth_store: Optional[Dict[str, np.ndarray]] = None,
+                 visu_scale: float = 1.0,
+                 save_first_n_visu: int = 0,
+                 save_visu_every_n_epochs: int = 1,
                  test_sun_v: bool = False,
                  sharded_store: bool = False,
                  scale_global_batch: bool = False,
@@ -201,7 +213,11 @@ class Trainer:
         self._draw_seed = seed + 1
         self.eval_chunk = 16384          # --chunk (opt.py:182) analog
         self.test_sun_v = test_sun_v     # --TestSun_v (main.py:391)
-        self._panels_noted = False
+        # visualization cadence (main.py:368-389): panels written for the
+        # first N epochs and every save_visu_every_n_epochs afterwards
+        self.visu_scale = visu_scale
+        self.save_first_n_visu = save_first_n_visu
+        self.save_visu_every_n_epochs = max(1, save_visu_every_n_epochs)
 
     # ---------------------------------------------------------- step fns
 
@@ -454,6 +470,7 @@ class Trainer:
                       f"ssim_scl: {sc['ssim_scl']:.3f}"
                       f" | psnr_dif: {p - sc['psnr_scl']:.5f}"
                       f" ssim_dif: {sv - sc['ssim_scl']:.6f}")
+            rep = None
             if self.paths.gt_dir and getattr(ds, "scene", None) is not None:
                 depth = out.get("depth_fine", out["depth_coarse"])
                 roi = dsm_mod.load_roi(self.paths.gt_dir, self.paths.aoi_id)
@@ -471,10 +488,27 @@ class Trainer:
                     src_id=s.get("src_id", str(idx)), epoch_number=epoch)
                 scal[f"{tag}/mae_{idx}"] = rep.mae
                 scal[f"{tag}/mae_nr_{idx}"] = rep.mae_nr
-            if not self._panels_noted:
-                print("[val] validation panels are not ported yet "
-                      "(utils/viz, ROADMAP.md Queue 1 item 7)", flush=True)
-                self._panels_noted = True
+            save_visu = (epoch <= self.save_first_n_visu
+                         or epoch % self.save_visu_every_n_epochs == 0)
+            if save_visu:
+                try:
+                    # the panel stack (rgb/gt/depth + BRDF/normal/sun maps;
+                    # the DSM diff panels on the fair-MAE train image,
+                    # main.py:426-558,630-636)
+                    fair = rep is not None and not is_val
+                    panel = viz.render_summary_panels(
+                        out, s["rgbs"], h, w,
+                        diff=rep.diff if fair else None,
+                        diff_nr=rep.diff_nr if fair else None,
+                        visu_scale=self.visu_scale)
+                    viz.save_png(os.path.join(
+                        self.paths.logs_dir,
+                        f"val_{idx}_epoch{epoch}.png"), panel)
+                    self.log.log_image(int(self.state.step),
+                                       f"{tag}/panels_{idx}", panel)
+                except Exception as e:
+                    traceback.print_exc()
+                    print(f"[val] panel save failed: {e}", flush=True)
             all_scalars.update(scal)
         self.log.log(int(self.state.step), all_scalars)
         # masked convention only: psnr_all_* (unmasked) and *_scl stay out

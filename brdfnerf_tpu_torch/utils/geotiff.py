@@ -17,9 +17,9 @@ from the TIFF 6.0 / GeoTIFF 1.1 specs:
     into an rpcm-style dict (the reference reads RPCs via
     rpcm.rpc_from_geotiff in generate_dataset.py:152-163)
 
-PIL remains a pixel-data fallback for compressions outside that slice
-(e.g. JPEG-in-TIFF, which PIL decodes; old-style JPEG layouts without
-strip/tile offsets surface PIL's error taxonomy).  BigTIFF (magic 43,
+A compression outside that slice (e.g. JPEG-in-TIFF, which the JAX
+package hands to PIL) raises UnsupportedTiffFeature naming it: the port
+reads no image through PIL.  BigTIFF (magic 43,
 8-byte offsets, 20-byte IFD entries) is read natively through the same
 strip/tile/compression slice; only IFD 0 is consumed (later IFDs in
 GDAL products are reduced overviews).  Writes stay classic TIFF.
@@ -191,10 +191,9 @@ def _packbits_decode(data: bytes, expected: int) -> bytes:
 
 class UnsupportedTiffFeature(ValueError):
     """A structurally valid TIFF uses a feature outside the native decode
-    slice (e.g. JPEG-in-TIFF compression).  read_geotiff catches exactly
-    this to fall back to PIL for the pixel data; any other error from the
-    native path (truncated strip, bad LZW stream, short buffer) is a
-    corrupt file and must surface as-is, not be re-tried through PIL."""
+    slice (e.g. JPEG-in-TIFF compression), where the JAX package falls
+    back to PIL for the pixel data; any other error from the native path
+    (truncated strip, bad LZW stream, short buffer) is a corrupt file."""
 
 
 def _decode_segment(raw: bytes, comp: int, path: str,
@@ -208,7 +207,8 @@ def _decode_segment(raw: bytes, comp: int, path: str,
     if comp == 32773:                       # PackBits
         return _packbits_decode(raw, expected)
     raise UnsupportedTiffFeature(
-        f"{path}: compression {comp} not handled natively")
+        f"{path}: TIFF compression {comp} is not supported (none, LZW, "
+        f"DEFLATE and PackBits are)")
 
 
 def _unpredict(seg: np.ndarray, predictor: int, dt: np.dtype) -> np.ndarray:
@@ -270,9 +270,8 @@ def _assemble_pixels(buf, tags, path, endian, w, h, spp, dt, comp,
 
     if _T_STRIP_OFFSETS not in tags:
         # neither strips nor tiles: e.g. old-style JPEG TIFF carrying the
-        # pixel data behind JPEGInterchangeFormat (tag 513).  Route to the
-        # PIL fallback (and its clear error taxonomy) instead of a bare
-        # KeyError.
+        # pixel data behind JPEGInterchangeFormat (tag 513): a clear error
+        # instead of a bare KeyError.
         raise UnsupportedTiffFeature(
             f"{path}: no StripOffsets/TileOffsets in the first IFD "
             f"(old-style JPEG layout?)")
@@ -363,18 +362,10 @@ def read_geotiff(path: str) -> Tuple[np.ndarray, GeoProfile]:
     predictor = tags.get(_T_PREDICTOR, (1,))[0]
     dt = _np_dtype(bits, fmt, endian)
 
-    try:
-        arr = _assemble_pixels(buf, tags, path, endian, w, h, spp, dt,
-                               comp, planar, predictor)
-        if arr.ndim == 3 and planar != 2:
-            arr = arr.transpose(2, 0, 1)                 # -> (bands, h, w)
-    except UnsupportedTiffFeature:
-        # compression outside the native slice (e.g. JPEG-in-TIFF): PIL
-        # fallback for pixel data only — geo tags were parsed from the IFD
-        from PIL import Image
-        img = Image.open(path)
-        a = np.asarray(img)
-        arr = a[None] if a.ndim == 2 else a.transpose(2, 0, 1)
+    arr = _assemble_pixels(buf, tags, path, endian, w, h, spp, dt,
+                           comp, planar, predictor)
+    if arr.ndim == 3 and planar != 2:
+        arr = arr.transpose(2, 0, 1)                     # -> (bands, h, w)
 
     prof = GeoProfile(width=w, height=h, count=int(arr.shape[0]),
                       dtype=np.dtype(dt.str[1:]).name)

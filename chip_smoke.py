@@ -49,7 +49,7 @@ the one before it took):
                 last 4 timed steps (the last: after all of them); at every
                 point the backward kernel held to its twin on all 128 rays,
                 and every comparison held to its bound on the rays whose
-                gradient the bf16 contract determines (ill_conditioned_rays,
+                gradient the bf16 contract determines (rpv_ill_conditioned,
                 read from the twins on the CPU, at least half of them)
 With BRDFNERF_FUSED_HEADS set in-process (the flagship head block inside
 the kernel pair, ops/fused_trunk_heads.py):
@@ -211,6 +211,24 @@ After phase 12:
                 BRDFNERF_FUSED_HEADS set at --brdf_on 0.5 (the line names
                 K4 + K5; K2 / K3 before the BRDF's first step, K4 / K5
                 after), the eval CLI on it (K1 52 / K4 26)
+After phase 14:
+ 15. blender, host data - the reference's data and output paths without
+                PIL or cv2, no kernel (every count 0): a scene in lego's
+                layout (data/synth_blender.py; BLENDER_SCENE's 20 train, 2
+                val and 2 test frames of 800 x 800 RGBA, cut from lego's
+                100 / 100 / 200), written by utils/png with every filter
+                type; the host C unfilter against its NumPy twin on every
+                frame; the train CLI at --data blender --model nerf (8 x
+                512 ReLU, positional encoding, 64 samples, batch 1,024,
+                --img_wh 400 400; BLENDER_STEPS steps, PSNR up by
+                BLENDER_PSNR_GAIN dB) with its validation panels; 16,384-ray
+                requests, and 1,024 rays of a val image against the CPU
+                twin at the serving bounds of 5; the eval CLI, each panel
+                decoding to its array; then generate_dataset on full scenes
+                of a synthetic AOI (write_full_scenes), footprint masks, the
+                train CLI at --img_downscale 2 (SAT_STEPS steps; the store's
+                size from the JAX formulas) and the eval CLI with panels;
+                ingestion seconds, train and request rays/s printed
 Then one JSON line of every ported kernel instantiation (each launched on
 a main path: the run fails if one was not), the card's line, and the last
 line {"ok": true, "device": {...}}.
@@ -1399,6 +1417,19 @@ def ill_conditioned(weights, normals, ci, cv, bound, normal_err=NORMAL_ERR):
     return (ci > -err) & (cv > -err) & (torch.minimum(ci, cv) < err / bound)
 
 
+def rpv_ill_conditioned(res, rgbs, mcfg, rcfg, bound,
+                        normal_err=NORMAL_ERR):
+    """ill_conditioned on the rays of a training render's result `res`
+    (rgbs, mcfg and rcfg unused: brdf_ill_conditioned's signature), on
+    every pass that shades with RPV: the coarse one, and the fine one of a
+    fine network (--n_importance)."""
+    return torch.stack([ill_conditioned(
+        res[f"weights_{typ}"], res[f"normal_an_{typ}"],
+        res[f"nr_sun_{typ}"].flatten(), res[f"nr_vw_{typ}"].flatten(), bound,
+        normal_err) for typ in ("coarse", "fine")
+        if f"weights_{typ}" in res]).any(0)
+
+
 def ill_conditioned_rays(net, mcfg, rcfg, batch, draws, gates, bound,
                          normal_err=NORMAL_ERR):
     """ill_conditioned on the rays of a training batch, read from `net`'s
@@ -1411,13 +1442,8 @@ def ill_conditioned_rays(net, mcfg, rcfg, batch, draws, gates, bound,
                        cos_irra_on=gates.cos_irra_on)
     with torch.no_grad():
         res = render_rays(net, mcfg, rcfg, inp, train=True, draws=draws)
-    # every pass that shades with RPV: the coarse one, and the fine one of a
-    # fine network (--n_importance)
-    return torch.stack([ill_conditioned(
-        res[f"weights_{typ}"], res[f"normal_an_{typ}"],
-        res[f"nr_sun_{typ}"].flatten(), res[f"nr_vw_{typ}"].flatten(), bound,
-        normal_err) for typ in ("coarse", "fine")
-        if f"weights_{typ}" in res]).any(0)
+    return rpv_ill_conditioned(res, batch["rgbs"], mcfg, rcfg, bound,
+                               normal_err)
 
 
 def _ray_brdf(mcfg, rcfg, sun, view, normal, q):
@@ -2221,6 +2247,246 @@ def eval_phase(root, run_dir, epoch, reset_counts, counts, smi, rows,
 DEFAULT_IMPORTANCE = 64     # the fine network's samples (--n_importance)
 
 
+# the blender path and the host data paths (phase 15): a scene in the
+# lego layout, cut from lego's 100 train / 100 val / 200 test frames to
+# BLENDER_SCENE's, at lego's 800 x 800 RGBA and --img_wh 400 400
+BLENDER_SCENE = {"train": 20, "val": 2, "test": 2}
+BLENDER_FRAME, BLENDER_WH = 800, 400
+# the model the blender run trains (variant, layers, width, skips, siren,
+# positional encoding, samples, batch): vanilla NeRF at the CLI's defaults
+BLENDER_MODEL = ("nerf", 8, 512, (4,), False, True, 64, 1024)
+BLENDER_STEPS = 300
+BLENDER_PSNR_GAIN = 3.0       # dB over the run (tests/test_misc.py's e2e)
+SAT_SIZE = 128                # the generated dataset's AOI, in pixels
+SAT_TILTS = ((0.0, 0.0), (0.1, 0.05), (-0.08, 0.1), (0.06, -0.09),
+             (-0.05, -0.04))  # five full scenes: 3 train + 2 test crops
+SAT_STEPS = 16
+TWIN_PROCS = 4                # the PNG twin's processes
+
+
+def _cli_number(text, pattern):
+    """The float of the last match of `pattern` (one group) in a CLI's
+    output."""
+    import re
+    found = re.findall(pattern, text)
+    assert found, (pattern, text[-2000:])
+    return float(found[-1].replace(",", ""))
+
+
+def blender_train(root, scene, reset_counts, counts, smi):
+    """The train CLI on the blender scene: vanilla NeRF at the CLI's
+    defaults (8 x 512, skip 4, 64 samples, batch 1,024, float32) with ReLU
+    and positional encoding; no kernel; the train PSNR rises by
+    BLENDER_PSNR_GAIN dB; validation writes its panels.  Returns (run_dir,
+    psnrs, ingestion s, train rays/s, the CLI's s)."""
+    from brdfnerf_tpu_torch.cli import opts
+    from brdfnerf_tpu_torch.cli import train as cli_train
+    from brdfnerf_tpu_torch.utils import png
+    none = {k: 0 for k in counts()}
+    logs, ckpts = os.path.join(root, "logs"), os.path.join(root, "ckpts")
+    argv = ["--data", "blender", "--model", "nerf", "--siren", "0",
+            "--mapping", "--root_dir", scene, "--img_wh", str(BLENDER_WH),
+            str(BLENDER_WH),
+            "--exp_name", "blender", "--logs_dir", logs, "--ckpts_dir",
+            ckpts, "--max_train_steps", str(BLENDER_STEPS)]
+    cfg = opts.to_run_config(opts.postprocess(
+        opts.train_parser().parse_args(argv)), device="cuda")
+    m = cfg.model
+    assert (m.variant, m.layers, m.feat, m.skips, m.siren, m.mapping,
+            cfg.render.n_samples, cfg.train.batch_size) == BLENDER_MODEL, cfg
+    reset_counts()
+    rc, text, train_s = run_cli("train CLI, blender", cli_train.main, argv,
+                                smi)
+    assert rc == 0 and counts() == none, counts()
+    psnrs = [float(ln.split(" psnr ")[1].split()[0])
+             for ln in text.splitlines() if ln.startswith("step ")]
+    assert psnrs[-1] >= psnrs[0] + BLENDER_PSNR_GAIN, psnrs
+    ingest_s = _cli_number(text, r"ingested in ([0-9.]+) s")
+    train_rays_s = _cli_number(text, r"psnr [0-9.]+ ([0-9,]+) rays/s")
+    run_dir = os.path.join(logs, "blender")
+    for i in range(BLENDER_SCENE["val"]):
+        panel = png.read_png(os.path.join(run_dir, f"val_{i}_epoch0.png"))
+        assert panel.shape == (3 * BLENDER_WH + 2 * 2, BLENDER_WH, 3), \
+            panel.shape
+    return run_dir, psnrs, ingest_s, train_rays_s, train_s
+
+
+def blender_phase(root, reset_counts, counts, smi):
+    """The reference's data and output paths without PIL or cv2: the
+    blender dataset with vanilla NeRF through the train and eval CLIs, and
+    the satellite workflow at --img_downscale 2 from a dataset that the
+    port's generate_dataset wrote.  No kernel runs on either path (the
+    nerf and sat-nerf variants run their trunks in plain torch, as the JAX
+    package runs them without a Pallas kernel): every count stays 0."""
+    import concurrent.futures as cf
+    import multiprocessing as mp
+    from brdfnerf_tpu_torch import dataset_gen
+    from brdfnerf_tpu_torch.cli import eval as cli_eval
+    from brdfnerf_tpu_torch.cli import generate_dataset as cli_gen
+    from brdfnerf_tpu_torch.cli import train as cli_train
+    from brdfnerf_tpu_torch.data import synth_aoi
+    from brdfnerf_tpu_torch.data.blender import BlenderDataset
+    from brdfnerf_tpu_torch.data.synth_blender import write_scene
+    from brdfnerf_tpu_torch.render.render import chunk_draws
+    from brdfnerf_tpu_torch.serve import load_renderer
+    from brdfnerf_tpu_torch.utils import png, viz
+    none = {k: 0 for k in counts()}
+
+    # the scene, and the host C unfilter against its NumPy twin on every
+    # frame (the twin in TWIN_PROCS processes beside the train CLI: it
+    # walks 1,599 diagonals a frame)
+    t0 = time.perf_counter()
+    scene = os.path.join(root, "scene")
+    paths = write_scene(scene, BLENDER_SCENE, size=BLENDER_FRAME)
+    frames = [p for split in paths.values() for p in split]
+    write_s = time.perf_counter() - t0
+    bufs = []
+    for p in frames:
+        with open(p, "rb") as fh:
+            bufs.append(fh.read())
+    t0 = time.perf_counter()
+    decoded = [png.decode_png(b, p) for b, p in zip(bufs, frames)]
+    decode_s = time.perf_counter() - t0
+    inflated = [png.inflate(b, p) for b, p in zip(bufs, frames)]
+    kinds = {int(k) for _, w_, c_, raw in inflated
+             for k in np.frombuffer(raw, np.uint8)[::w_ * c_ + 1]}
+    assert kinds == set(range(5)), kinds
+    t_twin = time.perf_counter()
+    pool = cf.ProcessPoolExecutor(TWIN_PROCS,
+                                  mp_context=mp.get_context("spawn"))
+    try:
+        twins = pool.map(png.unfilter_plain, [r[3] for r in inflated],
+                         *zip(*[r[:3] for r in inflated]))
+        run_dir, psnrs, ingest_s, train_rays_s, train_s = blender_train(
+            root, scene, reset_counts, counts, smi)
+        twins = list(twins)
+    finally:
+        pool.shutdown()
+    twin_s = time.perf_counter() - t_twin
+    f = BLENDER_FRAME
+    for img, twin, p in zip(decoded, twins, frames):
+        assert img.shape == (f, f, 4), (p, img.shape)
+        assert np.array_equal(img.reshape(f, -1), twin), p
+    print(f"  scene: {len(frames)} frames of {f} x {f} RGBA ({BLENDER_SCENE}"
+          f"; lego: 100 / 100 / 200) written in {write_s:.3f} s; decoded "
+          f"in {decode_s:.3f} s ({decode_s / len(frames) * 1e3:.2f} ms a "
+          f"frame), equal to the NumPy twin's rows (done {twin_s:.3f} s "
+          f"after they were sent, beside the train CLI); filter types "
+          f"{sorted(kinds)}; {smi}", flush=True)
+
+    # serving: 16,384-ray requests of a val image, and 1,024 of its rays
+    # through the card against the CPU twin (the serving check's bounds)
+    r = load_renderer(run_dir, 0)
+    rays = BlenderDataset(scene, "val", img_wh=(BLENDER_WH,) * 2).get_image(
+        0)["rays"]
+    req = rays[:REQ_SIDE * REQ_SIDE]
+    req_s = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = r.render_image({"rays": req})
+        torch.cuda.synchronize()
+        req_s.append(time.perf_counter() - t0)
+    assert all(np.isfinite(v).all() for v in out.values())
+    small = rays[::len(rays) // 1024][:1024]
+    draws = chunk_draws(r.cfg.model, r.render_config(), len(small),
+                        torch.device("cpu"), seed=7)
+    a = dc.replace(r, chunk=len(small)).render_image({"rays": small},
+                                                     draws=draws)
+    b = dc.replace(r, net=copy.deepcopy(r.net).cpu(),
+                   device=torch.device("cpu"), chunk=len(small)).render_image(
+        {"rays": small}, draws=draws)
+    check = {}
+    for k in ("rgb_coarse", "depth_coarse"):
+        d = np.abs(a[k] - b[k]).reshape(len(small), -1).max(-1)
+        check[k] = (float(d.mean()), float(np.quantile(d, 0.99)))
+    print(f"  blender render, card vs CPU twin on 1,024 rays: "
+          + "; ".join(f"{k} mean {v[0]:.3e} p99 {v[1]:.3e}"
+                      for k, v in check.items()), flush=True)
+    assert check["depth_coarse"][0] < 1e-2 and check["rgb_coarse"][0] < 1e-2
+    assert check["rgb_coarse"][1] < 0.1, check
+
+    # the eval CLI: scores and panels; each panel decodes to its array
+    written = {}
+    save_png = viz.save_png
+
+    def record(path, img):
+        written[path] = np.array(img)
+        return save_png(path, img)
+    viz.save_png = record
+    reset_counts()
+    try:
+        rc, text, eval_s = run_cli("eval CLI, blender", cli_eval.main,
+                                   ["--logs_dir", run_dir, "--epoch_number",
+                                    "0"], smi)
+    finally:
+        viz.save_png = save_png
+    assert rc == 0 and counts() == none, counts()
+    assert np.isfinite(_cli_number(text, r"mean: psnr ([0-9.]+)"))
+    assert len(written) == BLENDER_SCENE["val"], sorted(written)
+    for path, img in written.items():
+        assert path.endswith("_panels.png") and np.array_equal(
+            png.read_png(path), img), path
+    print(f"  blender (NVIDIA card {smi}): ingestion {ingest_s:.3f} s "
+          f"({BLENDER_SCENE['train']} + {BLENDER_SCENE['val']} frames); "
+          f"train {train_rays_s:,.1f} rays/s; request "
+          f"{len(req) / min(req_s):,.1f} rays/s (fastest of 3, "
+          f"{len(req)} rays); train CLI {train_s:.3f} s, eval CLI "
+          f"{eval_s:.3f} s; train psnr {psnrs[0]:.2f} -> {psnrs[-1]:.2f}",
+          flush=True)
+
+    # the satellite workflow at --img_downscale 2 on a dataset that the
+    # port's generate_dataset wrote from full scenes of a synthetic AOI
+    t0 = time.perf_counter()
+    aoi = synth_aoi.build_aoi(os.path.join(root, "aoi"), size=SAT_SIZE)
+    imgs = os.path.join(root, "full_scenes")
+    synth_aoi.write_full_scenes(imgs, size=SAT_SIZE, tilts=SAT_TILTS)
+    out = os.path.join(root, "generated")
+    rc, _, gen_s = run_cli("generate_dataset CLI", cli_gen.main, [
+        "--aoi_id", aoi["aoi_id"], "--dsm_dir", aoi["gt_dir"], "--img_dir",
+        imgs, "--out_dir", out, "--utm_zone", str(synth_aoi.ZONE),
+        "--run_ba"], smi)
+    assert rc == 0
+    base = os.path.join(out, f"dataset{aoi['aoi_id']}")
+    gen_root = os.path.join(base, "root_dir", aoi["aoi_id"])
+    masks = dataset_gen.generate_footprint_masks(gen_root, "full_00.json")
+    assert len(masks) == len(SAT_TILTS)
+    host_s = time.perf_counter() - t0
+    logs = os.path.join(root, "sat_logs")
+    reset_counts()
+    rc, text, _ = run_cli("train CLI, --img_downscale 2", cli_train.main, [
+        "--model", "sat-nerf", "--root_dir", gen_root, "--img_dir",
+        os.path.join(base, aoi["aoi_id"], "RGB-crops", aoi["aoi_id"],
+                     "scled"),
+        "--img_downscale", "2", "--aoi_id", aoi["aoi_id"], "--gt_dir",
+        os.path.join(base, aoi["aoi_id"], "Truth"), "--exp_name", "ds2",
+        "--logs_dir", logs, "--ckpts_dir", os.path.join(root, "sat_ckpts"),
+        "--max_train_steps", str(SAT_STEPS)], smi)
+    assert rc == 0 and counts() == none, counts()
+    n_rays = int(_cli_number(text, r"\[data\] ([0-9]+) training rays"))
+    want = 0
+    for name in open(os.path.join(gen_root, "train.txt")).read().split():
+        with open(os.path.join(gen_root, name)) as f:
+            meta = json.load(f)
+        want += int(meta["height"] // 2) * int(meta["width"] // 2)
+    assert n_rays == want, (n_rays, want)
+    rc, text, _ = run_cli("eval CLI, --img_downscale 2", cli_eval.main, [
+        "--logs_dir", os.path.join(logs, "ds2"), "--epoch_number", "0"],
+        smi)
+    assert rc == 0 and counts() == none, counts()
+    ev = os.path.join(logs, "ds2", "eval_epoch0")
+    panels = [f for f in os.listdir(ev) if f.endswith("_panels.png")]
+    assert len(panels) == 3, panels
+    for f in panels:
+        assert png.read_png(os.path.join(ev, f)).dtype == np.uint8
+    assert np.isfinite(_cli_number(text, r"mean: psnr [0-9.]+ ssim [0-9.]+ "
+                                         r"mae ([0-9.]+)"))
+    print(f"  generated dataset ({len(SAT_TILTS)} full scenes of "
+          f"{3 * SAT_SIZE} px, AOI {SAT_SIZE} px; generate_dataset "
+          f"{gen_s:.3f} s, with the AOI, scenes and masks {host_s:.3f} s): "
+          f"{n_rays} training rays at --img_downscale 2", flush=True)
+
+
 def defaults_phase(root, argv, v_base, learned, gen, requests, serve, train,
                    check_served, step_check, draws, bounds, per_req, rows,
                    smi):
@@ -2962,8 +3228,9 @@ def main():
     # weights (tools/step_check_points.py, PERF.md).  So at each point the
     # whole batch is run and printed, its backward comparison held to its
     # bound; then every comparison is held to its bound on the rays that
-    # ill_conditioned_rays, reading the twins on the CPU, leaves (at least
-    # half of them).  A miss is reported at the end of the run, which then
+    # rpv_ill_conditioned leaves, reading the twins' render on the CPU from
+    # the same pass that gives the CPU gradients on the whole batch (at
+    # least half of them).  A miss is reported at the end of the run, which then
     # exits 1.
     bounds = {"backward kernel vs its twin": 1e-2,
               "both kernels vs their twins": 0.1,
@@ -3005,13 +3272,15 @@ def main():
         return fine_z
 
     def grads_on(net_, dev, rays, mcfg_, bias_terms=None, rcfg_=None,
-                 fine_z=None):
+                 fine_z=None, results=None):
         """The step's loss and every parameter's gradient on `rays` (with a
         fine network, on the fine samples fine_z: fixed_fine); with
         bias_terms (a list), also (network name, the L2 norm of the sigma
         head's bias gradient's per-point terms) of each of the step's
         backward calls, appended (fused_trunk_vjp._run_bwd /
-        fused_trunk_heads._run_bwd_h wrapped for the call)."""
+        fused_trunk_heads._run_bwd_h wrapped for the call); with results
+        (a list), the step's training render, detached, appended
+        (train_step.render_rays wrapped for the call)."""
         batch = {k: torch.as_tensor(v[rays], device=dev)
                  for k, v in s.items()}
         rows_ = torch.as_tensor(rays)
@@ -3037,6 +3306,15 @@ def main():
                 terms(cfg_, packed_, cot_[:, 0], cg_, zs_)
                 return run_bwd_h(cfg_, packed_, hw_, x_, cot_, cg_, zs_)
             k2._run_bwd, k4._run_bwd_h = rec_bwd, rec_bwd_h
+        render = ts.render_rays
+        if results is not None:
+            def rec_render(*a, **kw):
+                out = render(*a, **kw)
+                if not results:
+                    results.append({k: v.detach() for k, v in out.items()
+                                    if torch.is_tensor(v)})
+                return out
+            ts.render_rays = rec_render
         try:
             with fixed_fine(fine_z, rays):
                 loss, _ = ts.compute_losses(
@@ -3046,13 +3324,14 @@ def main():
             loss.backward()
         finally:
             k2._run_bwd, k4._run_bwd_h = run_bwd, run_bwd_h
+            ts.render_rays = render
         return loss.item(), {k: p.grad.detach().cpu()
                              for k, p in net_.named_parameters()
                              if p.grad is not None}
 
     def step_check(path, nets, fwd, bwd, want, mcfg_=None, bounds_=None,
                    normal_err=NORMAL_ERR, rcfg_=None,
-                   criterion=ill_conditioned_rays, timed_steps=TIMED_STEPS):
+                   criterion=rpv_ill_conditioned, timed_steps=TIMED_STEPS):
         """At mcfg_ and rcfg_ (the bfloat16_all flagship's by default) with
         bounds_ (`bounds` by default), the contract's normal error
         normal_err and the set-aside `criterion` (RPV's by default):
@@ -3067,8 +3346,11 @@ def main():
         whole_batch); misses go to step_failures.  With a fine network,
         every render at a point (the criterion's too) takes the fine
         samples of the step through the kernels on the whole batch
-        (fine_samples, fixed_fine).  timed_steps: the training run's, for
-        the printed step."""
+        (fine_samples, fixed_fine).  One pass of the twins on the CPU on
+        the whole batch gives both its gradients and the render that the
+        criterion reads (criterion(res, rgbs, mcfg, rcfg, bound,
+        normal_err)).  timed_steps: the training run's, for the printed
+        step."""
         mcfg_ = mcfg if mcfg_ is None else mcfg_
         rcfg_ = rcfg if rcfg_ is None else rcfg_
         bounds_ = bounds if bounds_ is None else bounds_
@@ -3077,11 +3359,11 @@ def main():
             step = WARM_STEPS + timed_steps - len(nets) + 1 + pt
             last = pt == len(nets) - 1
             fine_z = fine_samples(net_, mcfg_, rcfg_)
-            with fixed_fine(fine_z, np.arange(CHECK_RAYS)):
-                bad = criterion(
-                    net_cpu, mcfg_, rcfg_, {k: torch.as_tensor(v)
-                                            for k, v in s.items()},
-                    draws, gates, max(bounds_.values()), normal_err)
+            whole, res_cpu = np.arange(CHECK_RAYS), []
+            cpu_whole = grads_on(net_cpu, "cpu", whole, mcfg_, rcfg_=rcfg_,
+                                 fine_z=fine_z, results=res_cpu)
+            bad = criterion(res_cpu[0], torch.as_tensor(s["rgbs"]), mcfg_,
+                            rcfg_, max(bounds_.values()), normal_err)
             kept = np.flatnonzero(~bad.numpy())
             print(f"  weights after step {step}: {int(bad.sum())} of "
                   f"{CHECK_RAYS} rays ill-conditioned "
@@ -3090,7 +3372,7 @@ def main():
                 step_failures.append(
                     f"{path}, weights after step {step}: {len(kept)} "
                     f"well-conditioned rays < {CHECK_RAYS // 2}")
-            for rays, held in ((np.arange(CHECK_RAYS), whole_batch),
+            for rays, held in ((whole, whole_batch),
                                (kept, tuple(bounds_))):
                 reset_counts()
                 bias_terms = []
@@ -3120,8 +3402,9 @@ def main():
                                        rcfg_=rcfg_, fine_z=fine_z)
                 for m, name, fn in saved:
                     setattr(m, name, fn)
-                loss_p, g_p = grads_on(net_cpu, "cpu", rays, mcfg_,
-                                       rcfg_=rcfg_, fine_z=fine_z)
+                loss_p, g_p = (cpu_whole if rays is whole else grads_on(
+                    net_cpu, "cpu", rays, mcfg_, rcfg_=rcfg_,
+                    fine_z=fine_z))
                 print(f"   {len(rays)} rays: loss: kernels {loss_k:.6f}; "
                       f"backward's twin on the card {loss_b:.6f}; both "
                       f"twins on the card {loss_fb:.6f}; every twin on the "
@@ -3421,7 +3704,7 @@ def main():
                        stage2, mcfg_=f_m, rcfg_=f_rcfg,
                        bounds_=bounds32 if f32 else bounds,
                        normal_err=NORMAL_ERR_F32 if f32 else NORMAL_ERR,
-                       criterion=brdf_ill_conditioned_rays)
+                       criterion=brdf_ill_conditioned)
             del trained
             if family == "hapke":
                 train(f"stage-1 step, hapke shell 3, {dtype}",
@@ -3538,6 +3821,14 @@ def main():
              bare_rays_s["train step"], smi=smi, width=64)
     print(f"  the width-64 workflow took {time.perf_counter() - t_w64:.1f} s",
           flush=True)
+    # the blender dataset with vanilla NeRF, the panels, generate_dataset
+    # and --img_downscale 2: host code, no kernel
+    phase("blender, host data")
+    t_bl = time.perf_counter()
+    blender_phase(os.path.join(tmp.name, "blender"), reset_counts, counts,
+                  smi)
+    print(f"  the blender and host data phase took "
+          f"{time.perf_counter() - t_bl:.1f} s", flush=True)
 
     phase("end")
     tmp.cleanup()

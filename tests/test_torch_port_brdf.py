@@ -25,6 +25,8 @@ from brdfnerf_tpu_torch.brdf.common import clip
 from brdfnerf_tpu_torch.brdf.hapke import hapke_brdf as thapke
 from brdfnerf_tpu_torch.brdf.microfacet import microfacet_brdf as tmicro
 
+import torch_port_common  # noqa: F401  (one torch thread a process)
+
 N_RANDOM = 48
 
 

@@ -24,6 +24,8 @@ from brdfnerf_tpu_torch.cli.train import main as port_train_main
 from brdfnerf_tpu_torch.data.synth_aoi import build_aoi
 from brdfnerf_tpu_torch.utils import checkpoint as tckpt
 
+import torch_port_common  # noqa: F401  (one torch thread a process)
+
 
 def test_jax_stage1_hands_off_to_port_stage2_which_jax_evaluates(
         tmp_path, capsys, monkeypatch):
@@ -135,14 +137,41 @@ def test_train_cli_states_its_kernels(monkeypatch, dtype, heads_env, want):
 @pytest.mark.parametrize("extra,match", [
     (["--n_devices", "2"], "item 11"), (["--tp", "2"], "item 11"),
     (["--sharded_store", "1"], "item 11"),
-    (["--scale_global_batch", "1"], "item 11"),
-    (["--print_debuginfo"], "item 7"), (["--data", "blender"], "item 7")])
+    (["--scale_global_batch", "1"], "item 11")])
 def test_train_cli_refuses_what_is_not_ported(tmp_path, extra, match):
     argv = ["--root_dir", str(tmp_path), "--exp_name", "e",
             "--logs_dir", str(tmp_path / "logs")] + extra
     with pytest.raises(NotImplementedError, match=match):
         port_train_main(argv, device="cpu")
     assert not os.path.exists(tmp_path / "logs")
+
+
+@pytest.mark.parametrize("extra", [["--print_debuginfo"],
+                                   ["--data", "blender", "--model", "nerf",
+                                    "--img_wh", "24", "24"]])
+def test_train_cli_runs_what_it_once_refused(tmp_path, extra):
+    """--print_debuginfo (the NaN-guard layer on, as the JAX CLI turns it
+    on) and --data blender train and checkpoint (Queue 1 item 7)."""
+    from brdfnerf_tpu_torch.utils import guards
+    from test_torch_port_blender import make_blender_dir
+    if "blender" in extra:
+        root = make_blender_dir(str(tmp_path / "data"), n_frames=1)
+    else:
+        root = build_aoi(str(tmp_path / "aoi"))["root"]
+    argv = ["--root_dir", root, "--exp_name", "e", "--logs_dir",
+            str(tmp_path / "logs"), "--ckpts_dir", str(tmp_path / "ckpts"),
+            "--fc_feat", "64", "--fc_layers", "4", "--n_samples", "8",
+            "--batch_size", "256", "--max_train_steps", "2",
+            "--eval_every_n_epochs", "0"] + extra
+    try:
+        assert port_train_main(argv, device="cpu") == 0
+        assert guards.enabled() == ("--print_debuginfo" in extra)
+    finally:
+        guards.enable(False)
+    ck = tckpt.latest_checkpoint(os.path.join(str(tmp_path / "ckpts"), "e"))
+    assert tckpt.checkpoint_step(ck) == 2
+    assert any(f.startswith("val_") and f.endswith(".png")
+               for f in os.listdir(tmp_path / "logs" / "e"))
 
 
 def test_training_entry_points_need_the_card_or_a_device(tmp_path,

@@ -37,6 +37,8 @@ from brdfnerf_tpu_torch.geo import geodesy as tgeo
 from brdfnerf_tpu_torch.geo import rpc as trpc
 from brdfnerf_tpu_torch.utils import geotiff as ttif
 
+import torch_port_common  # noqa: F401  (one torch thread a process)
+
 STORE_KEYS = ("rays", "rgbs", "ts", "rows", "cols", "depths", "valid_depth",
               "depth_std", "normals", "valid_normal")
 
@@ -227,17 +229,26 @@ def test_mask_is_read_as_pil_reads_it(tmp_path):
 
 
 def test_what_is_not_ported_raises(tmp_path):
+    """Nothing of the data layer raises not_ported any more: the dataset
+    at img_downscale 2 builds (its parity with JAX is in
+    tests/test_torch_port_host_data.py) and the factory loads blender
+    directories (tests/test_torch_port_blender.py); a sat-nerf keypoint
+    store without tie points raises FileNotFoundError."""
     info = taoi.build_aoi(str(tmp_path / "aoi"))
     _, tc = _configs(info["root"], img_downscale=2.0)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tsat.SatelliteDataset(tc, "train")
+    assert tsat.SatelliteDataset(tc, "train").store["rays"].shape == (
+        2 * 16 * 16, 11)
     # the sat-nerf keypoint store needs the AOI's tie points (pts3d.npy;
     # build_aoi writes them with_keypoints): its parity is in
     # tests/test_torch_port_defaults_cli.py
     _, tc = _configs(info["root"], load_depth=False, sparse_depth=True)
     with pytest.raises(FileNotFoundError, match="pts3d"):
         tsat.SatelliteDataset(tc, "train")
-    with pytest.raises(NotImplementedError, match="item 7"):
+    from test_torch_port_blender import make_blender_dir
+    broot = make_blender_dir(str(tmp_path / "blender"), n_frames=1)
+    bl = tfactory.load_dataset("nerf", "blender", broot, img_wh=(24, 24))
+    assert bl.store["rays"].shape == (24 * 24, 8)
+    with pytest.raises(FileNotFoundError, match="transforms_train"):
         tfactory.load_dataset("spsbrdf-nerf", "blender", info["root"])
     ds = tfactory.load_dataset("spsbrdf-nerf", "sat", info["root"],
                                aoi_id=info["aoi_id"])

@@ -59,9 +59,8 @@ from test_torch_port_serve import close_slice
 
 SCORE_TOL = (("psnr", 0.5), ("ssim", 0.02), ("mae", 0.05))
 # the JAX Trainer that the JAX package's load_renderer builds opens its
-# scalar log in the output directory, and its eval writes the panel PNGs
-# (utils/viz, not ported yet); neither is an evaluation output of the port
-NOT_OUTPUTS = ("scalars.jsonl", "_panels.png")
+# scalar log in the output directory, which is not an evaluation output
+NOT_OUTPUTS = ("scalars.jsonl",)
 
 
 @pytest.fixture(scope="module")
@@ -132,7 +131,9 @@ def test_port_eval_scores_a_jax_checkpoint_as_jax_does(run, tmp_path,
     assert _files(str(tmp_path / "port")) == _files(str(tmp_path / "jax"))
     assert any(f.startswith("rdsm/") for f in _files(str(tmp_path / "port")))
     assert "[kernels] none: the run is on the CPU" in out
-    assert "panel PNGs are not ported yet" in out
+    assert "not ported" not in out
+    assert sum(f.endswith("_panels.png")
+               for f in _files(str(tmp_path / "port"))) == 2
     lines = out.splitlines()
     assert sum(ln.startswith("img_") and " psnr " in ln for ln in lines) == 2
     assert [ln for ln in lines if ln.startswith("mean: psnr ")] == [

@@ -167,10 +167,10 @@ def test_entry_points_never_fall_back_to_cpu(tmp_path, monkeypatch):
         params_from_flat({}, tm)
     assert resolve_device("cpu") == torch.device("cpu")
     r = tserve.load_renderer(run_dir, 1, device="cpu")
-    # by index, render_image builds the run's dataset; the blender loader
-    # is not ported yet
+    # by index, render_image builds the run's dataset: with --data blender
+    # the blender loader, which finds no transforms_val.json in an AOI
     r.args.data = "blender"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(FileNotFoundError, match="transforms_val.json"):
         r.render_image(0)
 
 
@@ -217,4 +217,4 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "brdfnerf_tpu", "optax",
-                               "flax"), (path, mod)
+                               "flax", "PIL", "cv2"), (path, mod)

@@ -15,6 +15,11 @@ from brdfnerf_tpu.utils.checkpoint import _flatten as jax_flatten
 from brdfnerf_tpu_torch import config as tcfg_mod
 from brdfnerf_tpu_torch.utils.checkpoint import params_from_flat
 
+# one intra-op thread a test process: the suite runs several processes on
+# the machine's cores (pytest-xdist), and each one's torch pool sized to
+# every core oversubscribes them, which slowed a 9 s test to 392 s
+torch.set_num_threads(1)
+
 # a small trunk with the reference architecture's shape: one skip, inside
 SMALL = dict(variant="spsbrdf-nerf", siren=True, mapping=True, layers=4,
              feat=64, skips=(2,))
