@@ -17,6 +17,7 @@ import torch
 
 from ..config import (ModelConfig, RenderConfig, TrainConfig, RunConfig,
                       derive_nr_spv_type)
+from ..models.network import grad_safe_cfg
 from ..ops.fused_mlp import cuda_kernels_cover
 from ..utils.device import resolve_device
 
@@ -180,11 +181,12 @@ def train_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--tensorboard", action="store_true")
     p.add_argument("--n_devices", type=int, default=0,
-                   help="data-parallel devices (0 = single device; "
-                        "multi-GPU is not ported yet)")
+                   help="data-parallel devices (0 = single device; N "
+                        "trains on N ranks, one process a GPU: NCCL on "
+                        "CUDA, gloo on the CPU)")
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel width (multi-GPU is not ported "
-                        "yet)")
+                   help="tensor-parallel width (tensor parallelism is not "
+                        "ported yet)")
     p.add_argument("--sharded_store", type=int, default=0, choices=[0, 1],
                    help="shard the device ray store over the mesh 'data' "
                         "axis (1/N of the rays + HBM per device, per-shard "
@@ -229,7 +231,11 @@ def eval_parser() -> argparse.ArgumentParser:
     p.add_argument("--compute_dtype", type=str, default=None,
                    choices=["float32", "bfloat16", "bfloat16_all", "int8"],
                    help="override the run's training compute_dtype for "
-                        "this evaluation ('int8' is not ported yet)")
+                        "this evaluation; 'int8' runs the (siren, mapped) "
+                        "trunk's sigma passes as int8 products "
+                        "(torch._int_mm), serving-only; the main pass's "
+                        "per-sample analytic normals run on the "
+                        "bfloat16_all twin")
     p.add_argument("--normal_at_surface", type=int, default=None,
                    help="override the run's normal_at_surface for this "
                         "evaluation (1/0)")
@@ -241,8 +247,9 @@ def eval_parser() -> argparse.ArgumentParser:
                         "reloaded opts.json defaults to; positive = "
                         "explicit count)")
     p.add_argument("--n_devices", type=int, default=0,
-                   help="multi-GPU serving over N devices (not ported "
-                        "yet); 0 = single device")
+                   help="multi-GPU serving: a replica on each of the first "
+                        "N devices, each chunk's rays split over them; 0 = "
+                        "single device")
     return p
 
 
@@ -264,10 +271,13 @@ def postprocess(args: argparse.Namespace) -> argparse.Namespace:
 def _backend_default(v, device, mcfg: ModelConfig) -> bool:
     """None -> the fused kernels are on when the run is on CUDA and the
     kernels cover the model (the analogue of the JAX package's
-    accelerator-backend default)."""
+    accelerator-backend default); an int8 model's main pass runs on its
+    bfloat16_all twin, whose cover decides (the sigma passes' int8 trunk
+    refuses K1 per call, ops/fused_mlp.kernel_supports)."""
     if v is not None:
         return bool(v)
-    return torch.device(device).type == "cuda" and cuda_kernels_cover(mcfg)
+    return (torch.device(device).type == "cuda"
+            and cuda_kernels_cover(grad_safe_cfg(mcfg)))
 
 
 def to_run_config(args: argparse.Namespace, device=None) -> RunConfig:

@@ -7,6 +7,12 @@ CLI reloads), trains with the Trainer loop on the card, writes
 epoch={n}.npz checkpoints and their .opt.npz optimizer states.  Prints one
 line saying which fused CUDA kernels the run uses, and why none where the
 kernels do not cover the model.
+
+--n_devices N (N >= 1) trains data-parallel on N ranks, one process a GPU
+(parallel/mesh.run_ranks: rank 0 in this process, the others spawned; NCCL
+on CUDA, gloo on the CPU); the visible devices are counted before the
+dataset is read.  --sharded_store and --scale_global_batch act on a mesh,
+as in the JAX package.  --tp > 1 (tensor parallelism) is not ported yet.
 """
 
 from __future__ import annotations
@@ -17,7 +23,7 @@ import sys
 import time
 
 from . import opts as opts_mod
-from ..models.network import not_ported
+from ..models.network import grad_safe_cfg, int8_trunk, not_ported
 
 
 def kernels_line(cfg, device, train: bool = True) -> str:
@@ -30,6 +36,11 @@ def kernels_line(cfg, device, train: bool = True) -> str:
     if device.type != "cuda":
         return ("[kernels] none: the run is on the CPU, where the kernels' "
                 "plain PyTorch twins run in their place")
+    # int8 serving: the sigma passes take the int8 trunk in K1's place,
+    # and the main pass runs on the bfloat16_all twin (its kernels)
+    int8 = m.compute_dtype == "int8"
+    int8_sigma = int8_trunk(m)
+    m = grad_safe_cfg(m)
     if m.variant != "spsbrdf-nerf":
         return (f"[kernels] none: the {m.variant} variant runs its trunk in "
                 "plain torch, as the JAX package runs it without a Pallas "
@@ -49,7 +60,13 @@ def kernels_line(cfg, device, train: bool = True) -> str:
                 + ", ".join(why) + "), so the run takes the unfused "
                 "torch path (ROADMAP.md Queue 2)")
     used, notes = [], []
-    if r.use_pallas:
+    if r.use_pallas and int8:
+        used.append("no K1: the sigma-only passes run the trunk as int8 "
+                    "products (torch._int_mm)" if int8_sigma else
+                    "no K1: the sigma-only passes run the raw-xyz trunk at "
+                    "bfloat16_all in plain torch (int8 needs the sine "
+                    "encoding's bounded inputs)")
+    elif r.use_pallas:
         used.append("K1 (the sigma-only passes)")
     fine = r.n_importance > 0
     analytic = m.normal in ("analystic", "analystic_learned")
@@ -96,25 +113,54 @@ def kernels_line(cfg, device, train: bool = True) -> str:
            "terms)" if split_operands(m) else "")
     act = {"poly": "the polynomial sine", "sin": "the exact sine",
            "relu": "ReLU"}[act_of(m)]
+    dtype = ("'int8' (the main pass on its bfloat16_all twin)" if int8
+             else repr(m.compute_dtype))
     return (f"[kernels] fused CUDA kernels at width {m.feat}, compute_dtype="
-            f"{m.compute_dtype!r}{how}, {act}: " + "; ".join(used + notes))
+            f"{dtype}{how}, {act}: " + "; ".join(used + notes))
 
 
 def main(argv=None, device=None):
     """Train on CUDA unless `device` names another (the tests pass
-    device='cpu')."""
+    device='cpu'); with --n_devices N, on N ranks (on the CPU, N gloo
+    ranks share it)."""
     from ..utils.device import resolve_device
     args = opts_mod.postprocess(opts_mod.train_parser().parse_args(argv))
     # fail fast, before dataset ingestion
-    if (args.n_devices > 1 or args.tp > 1 or args.sharded_store
-            or args.scale_global_batch):
-        raise not_ported("multi-GPU training (--n_devices, --tp, "
-                         "--sharded_store, --scale_global_batch)", 11)
+    if args.tp > 1:
+        raise not_ported("tensor parallelism (--tp)", 11)
+    if args.n_devices < 0:
+        raise SystemExit(f"--n_devices {args.n_devices}: need 0 (one "
+                         "device, no mesh) or N >= 1")
     device = resolve_device(device)
     run_dir = os.path.join(args.logs_dir, args.exp_name)
+    if args.n_devices:
+        from ..parallel.mesh import check_devices, run_ranks
+        check_devices(args.n_devices, device)
+        opts_mod.dump_opts(args, run_dir)
+        return run_ranks(train_rank, args.n_devices, run_dir, device,
+                         args=(args,))
     opts_mod.dump_opts(args, run_dir)
+    return _train(args, device)
+
+
+def train_rank(mesh, args) -> int:
+    """One rank of a --n_devices run, on mesh.device."""
+    return _train(args, mesh.device, mesh)
+
+
+def _train(args, device, mesh=None) -> int:
+    main_rank = mesh is None or mesh.rank == 0
+
+    def say(line):
+        if main_rank:
+            print(line, flush=True)
+
+    run_dir = os.path.join(args.logs_dir, args.exp_name)
     cfg = opts_mod.to_run_config(args, device=device)
-    print(kernels_line(cfg, device), flush=True)
+    say(kernels_line(cfg, device))
+    if mesh is not None:
+        say(f"[mesh] {mesh.size} data-parallel rank(s), {mesh.backend} on "
+            f"{device.type}")
 
     if args.print_debuginfo:
         from ..utils import guards
@@ -139,13 +185,13 @@ def main(argv=None, device=None):
         train_ds = SatelliteDataset(sat_cfg, split="train")
         val_ds = SatelliteDataset(sat_cfg, split="val")
         n_imgs = len(train_ds.train_files)
-    print(f"[data] {train_ds.store['rays'].shape[0]} training rays from "
-          f"{n_imgs} images, {len(val_ds)} validation images; ingested in "
-          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    say(f"[data] {train_ds.store['rays'].shape[0]} training rays from "
+        f"{n_imgs} images, {len(val_ds)} validation images; ingested in "
+        f"{time.perf_counter() - t0:.3f} s")
     depth_store = getattr(train_ds, "depth_store", None)
     if depth_store is not None:
-        print(f"[data] {depth_store['rays'].shape[0]} keypoint "
-              "rays (sat-nerf's keypoint depth store)", flush=True)
+        say(f"[data] {depth_store['rays'].shape[0]} keypoint "
+            "rays (sat-nerf's keypoint depth store)")
 
     ckpts_dir = os.path.join(args.ckpts_dir, args.exp_name)
     paths = TrainerPaths(logs_dir=run_dir, ckpts_dir=ckpts_dir,
@@ -160,6 +206,8 @@ def main(argv=None, device=None):
                       depth_store=depth_store, visu_scale=args.visu_scale,
                       save_first_n_visu=args.save_first_n_visu,
                       save_visu_every_n_epochs=args.save_visu_every_n_epochs,
+                      mesh=mesh, sharded_store=bool(args.sharded_store),
+                      scale_global_batch=bool(args.scale_global_batch),
                       device=device)
     trainer.eval_chunk = args.chunk
     try:

@@ -57,8 +57,8 @@ class ModelConfig:
     rgb_padding: float = 0.001           # nerf.py:171
     # matmul compute dtype.  'bfloat16': bf16 operands with float32
     # accumulation, float32 activations.  'bfloat16_all': activations are
-    # stored in bf16 too.  'int8' is a serving-only quantized trunk (not
-    # ported yet).
+    # stored in bf16 too.  'int8' is a serving-only quantized trunk
+    # (models/network._linear_int8).
     compute_dtype: str = "float32"
     # polynomial sine for siren activations (ops/fast_math.py), 1.7e-5
     # abs error; False = exact sin.

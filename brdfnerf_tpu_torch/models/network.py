@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import math
 import os
+import threading
 from typing import Dict, Optional
 
 import torch
@@ -32,6 +33,7 @@ import torch.nn as nn
 from ..config import ModelConfig
 from ..ops.compositing import l2_normalize
 from ..ops.encoding import positional_encoding
+from ..ops.fused_mlp import _round_up
 
 
 def not_ported(what: str, item: int):
@@ -57,8 +59,6 @@ class Network(nn.ModuleDict):
     ModelConfig it was built for."""
 
     def __init__(self, cfg: ModelConfig, device=None):
-        if cfg.compute_dtype == "int8":
-            raise not_ported("compute_dtype='int8'", 10)
         feat, xyz_in, dir_in = cfg.feat, cfg.xyz_in_dim, cfg.dir_in_dim
         sizes: Dict[str, list] = {}
         sizes["fc_net"] = [
@@ -197,7 +197,12 @@ def _linear(w, b, x, compute_dtype: str = "float32"):
                         (the products of bf16 values are exact in f32, so
                         upcasting the rounded operands is the same math);
       'bfloat16_all' -> bf16 operands and a bf16 output, then a bf16 bias
-                        add."""
+                        add;
+      'int8'         -> 'bfloat16_all': int8 applies to the trunk alone
+                        (_trunk_features, _linear_int8); the heads are thin
+                        matmuls over unbounded inputs."""
+    if compute_dtype == "int8":
+        compute_dtype = "bfloat16_all"
     if compute_dtype == "bfloat16_all":
         return (x.to(torch.bfloat16) @ w.to(torch.bfloat16).t()
                 + b.to(torch.bfloat16))
@@ -206,9 +211,71 @@ def _linear(w, b, x, compute_dtype: str = "float32"):
                 @ w.to(torch.bfloat16).float().t() + b.float())
     if compute_dtype == "float32":
         return x @ w.t() + b
-    if compute_dtype == "int8":
-        raise not_ported("compute_dtype='int8'", 10)
     raise ValueError(f"compute_dtype={compute_dtype!r}")
+
+
+class LaunchCount:
+    """A launch count, kept as ops/cuda_build.CudaKernel keeps its own
+    (under a lock: a multi-device server launches from threads)."""
+
+    def __init__(self):
+        self.launches = 0
+        self._lock = threading.Lock()
+
+    def add(self):
+        with self._lock:
+            self.launches += 1
+
+
+# the int8 products (torch._int_mm calls) of _linear_int8
+INT8_MM = LaunchCount()
+# torch._int_mm on CUDA takes more than 16 rows and K, N multiples of 8
+INT8_MIN_ROWS = 17
+INT8_ALIGN = 8
+
+
+def int8_mm(xq, wq):
+    """xq (M, K) @ wq (K, N), int8 x int8 -> int32, exact, through
+    torch._int_mm: K is zero-padded to a multiple of INT8_ALIGN (zero
+    columns of xq, zero rows of wq) and M to at least INT8_MIN_ROWS rows,
+    the CUDA product's limits; the padding runs on every device, so the
+    CPU covers it too.  N must be a multiple of INT8_ALIGN.  The second
+    operand goes in as the transposed view of a row-major (N, K) tensor:
+    cuBLASLt's int8 product takes a row-major first operand with a
+    column-major second one, and refuses two row-major operands."""
+    m, k = xq.shape
+    n = wq.shape[1]
+    if n % INT8_ALIGN:
+        raise ValueError(f"int8 product with {n} output columns (not a "
+                         f"multiple of {INT8_ALIGN})")
+    kp, mp = _round_up(k, INT8_ALIGN), max(m, INT8_MIN_ROWS)
+    w_nk = wq.t()
+    if kp != k or mp != m:
+        xq = torch.nn.functional.pad(xq, (0, kp - k, 0, mp - m))
+        w_nk = torch.nn.functional.pad(w_nk, (0, kp - k))
+    acc = torch._int_mm(xq.contiguous(), w_nk.contiguous().t())
+    INT8_MM.add()
+    return acc[:m]
+
+
+def _linear_int8(w, b, x):
+    """The serving-only int8 dense layer for inputs bounded in [-1, 1] (the
+    JAX package's _linear_int8, network.py:94-119): every trunk input is
+    the sine encoding or a siren activation, so x quantizes with the
+    constant scale 1/127 (round(clip(x, -1, 1) * 127)); W per output
+    channel with sw = max|W[:, j]| / 127; the product accumulates in int32
+    (int8_mm) and dequantizes as acc * (sw / 127) + b in f32, rounded to
+    bf16.  round() has no gradient: training refuses int8, and gradient
+    consumers run on the bfloat16_all twin (grad_safe_cfg)."""
+    xq = torch.round(torch.clamp(x.float(), -1.0, 1.0) * 127.0).to(
+        torch.int8)
+    wt = w.float().t()                                   # (in, out)
+    sw = torch.amax(torch.abs(wt), 0, keepdim=True) / 127.0
+    wq = torch.round(w.float() / torch.clamp(sw.t(), min=1e-20)).to(
+        torch.int8).t()
+    acc = int8_mm(xq.reshape(-1, xq.shape[-1]), wq)
+    y = acc.float() * (sw / 127.0) + b.float()
+    return y.reshape(*x.shape[:-1], y.shape[-1]).to(torch.bfloat16)
 
 
 def _act(cfg: ModelConfig, x, first: bool = False):
@@ -236,16 +303,19 @@ def _trunk_features(net: Network, cfg: ModelConfig, xyz):
     enc = (positional_encoding(xyz, cfg.mapping_sizes[0], fast=cfg.fast_sin)
            if cfg.mapping else xyz)
     e_dim = enc.shape[-1]
-    dt = cfg.compute_dtype
+    if int8_trunk(cfg):
+        lin = _linear_int8
+    else:
+        def lin(w, b, x):
+            return _linear(w, b, x, cfg.compute_dtype)
     h = enc
     for i, layer in enumerate(net["fc_net"]):
         if i in cfg.skips:
-            z = (_linear(layer.w[:, :e_dim], layer.b, enc, dt)
-                 + _linear(layer.w[:, e_dim:], torch.zeros_like(layer.b),
-                           h, dt))
+            z = (lin(layer.w[:, :e_dim], layer.b, enc)
+                 + lin(layer.w[:, e_dim:], torch.zeros_like(layer.b), h))
             h = _act(cfg, z, first=False)
         else:
-            h = _act(cfg, _linear(layer.w, layer.b, h, dt), first=(i == 0))
+            h = _act(cfg, lin(layer.w, layer.b, h), first=(i == 0))
     return h
 
 
@@ -290,11 +360,32 @@ def sigma_and_sun_v(net: Network, cfg: ModelConfig, xyz, sun_d):
     return sigma, _sun_v_head(net, cfg, xyz_features, sun_d)
 
 
+def int8_trunk(cfg: ModelConfig) -> bool:
+    """Whether the trunk's sigma passes run as int8 products (serving):
+    the sine encoding and every siren activation lie in [-1, 1], so the
+    whole trunk runs int8; a raw-xyz trunk (mapping off, or 0
+    frequencies: the encoding passes xyz through) is unbounded and stays
+    at bfloat16_all rather than clipping coordinates (network.py:226-235)."""
+    return (cfg.compute_dtype == "int8" and cfg.siren and cfg.mapping
+            and cfg.mapping_sizes[0] > 0)
+
+
+def grad_safe_cfg(cfg: ModelConfig) -> ModelConfig:
+    """The config of a path that differentiates the trunk: int8's round()
+    has no gradient, so under int8 such a path runs on the bfloat16_all
+    twin (network.py:294-300); any other dtype is returned as it is."""
+    if cfg.compute_dtype == "int8":
+        import dataclasses
+        return dataclasses.replace(cfg, compute_dtype="bfloat16_all")
+    return cfg
+
+
 def analytic_normals(net: Network, cfg: ModelConfig, xyz):
     """-normalize(grad_xyz sigma), calc_normals (spsbrdfnerf.py:648-660):
     the gradient of the summed density (sigma at a point depends on that
     point alone), with a graph for the loss's second order when grad mode
-    is on."""
+    is on; under int8 on the bfloat16_all twin (grad_safe_cfg)."""
+    cfg = grad_safe_cfg(cfg)
     create = torch.is_grad_enabled()
     with torch.enable_grad():
         x = xyz if xyz.requires_grad else xyz.detach().requires_grad_(True)
@@ -337,29 +428,35 @@ def apply_network_with_normals(net: Network, cfg: ModelConfig, xyz,
     kernel pair too (ops/fused_trunk_heads.py): on the card at every width
     K4/K5 are built for (heads_cuda_cover: the widths of K1-K3), on the
     CPU in their twins at any width.  K4/K5 take no t-embedding: with
-    t_emb the beta head runs on K2's features."""
+    t_emb the beta head runs on K2's features.
+
+    The trunk is differentiated per sample, so under int8 it runs wholly on
+    the bfloat16_all twin (grad_safe_cfg), applied before the kernel gate
+    as in the JAX package (network.py:350-357): an int8 request's main pass
+    runs K2, or K4 with the switch, at bfloat16_all."""
+    grad_cfg = grad_safe_cfg(cfg)
     if fused_trunk:
         from ..ops.fused_mlp import kernel_supports
-        fused_trunk = kernel_supports(cfg)
+        fused_trunk = kernel_supports(grad_cfg)
     if fused_trunk:
         if os.environ.get("BRDFNERF_FUSED_HEADS"):
             from ..ops.fused_trunk_heads import (fused_trunk_heads_with_grad,
                                                  heads_cuda_cover,
                                                  heads_kernel_supports)
-            if (heads_kernel_supports(cfg, net, dirs=dirs, t_emb=t_emb,
+            if (heads_kernel_supports(grad_cfg, net, dirs=dirs, t_emb=t_emb,
                                       apply_brdf=apply_brdf,
                                       apply_theta=apply_theta, nr_lr=nr_lr)
                     and (xyz.device.type != "cuda"
-                         or heads_cuda_cover(cfg))):
-                return fused_trunk_heads_with_grad(net, cfg, xyz)
+                         or heads_cuda_cover(grad_cfg))):
+                return fused_trunk_heads_with_grad(net, grad_cfg, xyz)
         from ..ops.fused_trunk_vjp import fused_trunk_with_grad
-        sigma, feats, grad_x = fused_trunk_with_grad(net, cfg, xyz)
+        sigma, feats, grad_x = fused_trunk_with_grad(net, grad_cfg, xyz)
     else:
         create = torch.is_grad_enabled()
         with torch.enable_grad():
             x = xyz if xyz.requires_grad else xyz.detach().requires_grad_(True)
-            feats = _trunk_features(net, cfg, x)
-            sigma = _head(net, cfg, "sigma_from_xyz", feats,
+            feats = _trunk_features(net, grad_cfg, x)
+            sigma = _head(net, grad_cfg, "sigma_from_xyz", feats,
                           final="softplus")[..., 0]
             (grad_x,) = torch.autograd.grad(sigma.sum(), x,
                                             create_graph=create)

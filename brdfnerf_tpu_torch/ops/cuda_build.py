@@ -40,6 +40,7 @@ WIDTHS = (64, 128, 256, 512)
 DEFAULT_WIDTH = 512
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 # name -> {"seconds": build time, "log": nvcc/ptxas output}; empty for a
 # library found already built
@@ -164,7 +165,8 @@ class CudaKernel:
         if err != 0:
             raise RuntimeError(f"{self.symbol}: CUDA error {err} "
                                f"({err_str(err).decode()})")
-        self.launches += 1
+        with _count_lock:   # a multi-device server launches from threads
+            self.launches += 1
 
 
 # ----------------------------------------------------------- host C code

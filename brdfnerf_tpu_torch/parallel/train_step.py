@@ -1,5 +1,5 @@
 """The train step and the render step (counterpart of the JAX package's
-parallel/train_step.py, single device).
+parallel/train_step.py).
 
 The JAX package compiles render, losses, schedule gates and the optimizer
 update into one program; here they run eagerly in that order, and the
@@ -17,10 +17,22 @@ Random draws: the JAX package folds the step into a base key; here each
 step draws from a torch.Generator seeded from (seed, step), or takes the
 draws it is handed (a test hands in the JAX package's; draws["kp"] are
 those of sat-nerf's keypoint render).
+
+Data parallelism (mesh: a parallel/mesh.Mesh, one process a rank): each
+rank takes its contiguous block of the global batch (its block of the
+index vector), the rows of the global batch's draws that are its rays'
+(render.batch_draws from the step's generator, or the global draws handed
+in), and the global batch's first ray, which the render reads
+(RenderInputs.ray0, broadcast from rank 0).  Its loss is its share of the
+global loss (losses.py), so the ranks' gradients, all-reduced, are the
+global gradient; Adam then steps identically on every rank.  A step over
+N ranks is the one-device step on the global batch up to the order of its
+sums.  Tensor parallelism (state_shardings) is not ported yet.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
@@ -180,18 +192,22 @@ def create_train_state(mcfg: ModelConfig, tcfg: TrainConfig,
 def compute_losses(net, mcfg: ModelConfig, rcfg: RenderConfig,
                    tcfg: TrainConfig, batch: Dict, gates: TrainGates,
                    draws: Optional[Dict] = None,
-                   generator: Optional[torch.Generator] = None):
+                   generator: Optional[torch.Generator] = None,
+                   mesh=None):
     """Full loss of one batch (training_step semantics, main.py:230-327).
     Returns (loss, (terms, aux)).  With `kp_rays` in the batch (sat-nerf's
     keypoint store, kp_depths and kp_ts beside), a second render of those
-    rays feeds the keypoint depth loss."""
+    rays feeds the keypoint depth loss.  On a mesh of several ranks the
+    batch is this rank's block, the loss and terms are its shares of the
+    global ones and aux holds the global metrics (losses.py); `ray0` and
+    `kp_ray0` in the batch stand for the global batches' first rays."""
     draws = draws or {}
     inp = RenderInputs(
         rays=batch["rays"], ts=batch.get("ts"),
         valid_depth=batch.get("valid_depth"),
         target_depths=batch.get("depths"),
         target_std=batch.get("depth_std"),
-        cos_irra_on=gates.cos_irra_on)
+        cos_irra_on=gates.cos_irra_on, ray0=batch.get("ray0"))
     results = render_rays(net, mcfg, rcfg, inp, train=True, draws=draws,
                           generator=generator)
     rgbs = batch["rgbs"]
@@ -201,11 +217,12 @@ def compute_losses(net, mcfg: ModelConfig, rcfg: RenderConfig,
     # color loss; the beta warmup takes the s-nerf (no-beta) loss
     # (main.py:237-238)
     loss_fn = L.load_loss(mcfg.variant, mcfg.beta, tcfg.sc_lambda,
-                          tcfg.lambda_rgb)
+                          tcfg.lambda_rgb, mesh=mesh)
     loss, d = loss_fn(results, rgbs)
     if (mcfg.beta and mcfg.variant in ("sat-nerf", "sps-nerf")
             and gates.beta_warmup):
-        loss, _ = L.snerf_loss(results, rgbs, lambda_sc=tcfg.sc_lambda)
+        loss, _ = L.snerf_loss(results, rgbs, lambda_sc=tcfg.sc_lambda,
+                               mesh=mesh)
     terms.update(d)
 
     # depth supervision (main.py:248-265), dropped after ds_drop
@@ -218,7 +235,7 @@ def compute_losses(net, mcfg: ModelConfig, rcfg: RenderConfig,
             target_std=batch.get("depth_std"),
             lambda_ds=tcfg.ds_lambda, gnll=tcfg.gnll,
             usealldepth=tcfg.usealldepth,
-            subset=(mcfg.variant != "sat-nerf"))
+            subset=(mcfg.variant != "sat-nerf"), mesh=mesh)
         if gates.ds_on:
             loss = loss + dloss
         terms.update(d)
@@ -229,13 +246,14 @@ def compute_losses(net, mcfg: ModelConfig, rcfg: RenderConfig,
     # keypoint weights apply in subset mode alone)
     if tcfg.ds_lambda > 0 and "kp_rays" in batch:
         kp_inp = RenderInputs(rays=batch["kp_rays"], ts=batch.get("kp_ts"),
-                              cos_irra_on=gates.cos_irra_on)
+                              cos_irra_on=gates.cos_irra_on,
+                              ray0=batch.get("kp_ray0"))
         kp_res = render_rays(net, mcfg, rcfg, kp_inp, train=False,
                              draws=draws.get("kp"), generator=generator)
         dloss, d = L.depth_loss(
             kp_res, batch["kp_depths"][:, 0], batch["kp_depths"][:, 1],
             lambda_ds=tcfg.ds_lambda, gnll=tcfg.gnll,
-            usealldepth=tcfg.usealldepth, subset=False)
+            usealldepth=tcfg.usealldepth, subset=False, mesh=mesh)
         if gates.ds_on:
             loss = loss + dloss
         terms.update({f"kp_{k}": v for k, v in d.items()})
@@ -246,7 +264,8 @@ def compute_losses(net, mcfg: ModelConfig, rcfg: RenderConfig,
         for lam, key in ((tcfg.nr_reg_an_lambda, "normal_an"),
                          (tcfg.nr_reg_lr_lambda, "normal_lr")):
             if lam > 0 and f"{key}_{typ}" in results:
-                lr, d, perc_bad_nr = L.normal_reg_loss(results, lam, key)
+                lr, d, perc_bad_nr = L.normal_reg_loss(results, lam, key,
+                                                       mesh=mesh)
                 if gates.nrrg_on:
                     loss = loss + lr
                 terms.update(d)
@@ -257,53 +276,75 @@ def compute_losses(net, mcfg: ModelConfig, rcfg: RenderConfig,
             ln = None
             if tcfg.nr_spv_type == 1 and lr_ in results and an in results:
                 ln, d = L.normal_loss(w, results[an], results[lr_],
-                                      tcfg.nr_spv_lambda, keyword="an_lr")
+                                      tcfg.nr_spv_lambda, keyword="an_lr",
+                                      mesh=mesh)
             elif (tcfg.nr_spv_type == 2 and lr_ in results
                   and "normals" in batch):
                 ln, d = L.normal_loss(w, batch["normals"], results[lr_],
-                                      tcfg.nr_spv_lambda, keyword="lr")
+                                      tcfg.nr_spv_lambda, keyword="lr",
+                                      mesh=mesh)
             elif (tcfg.nr_spv_type == 3 and an in results
                   and "normals" in batch):
                 ln, d = L.normal_loss(
                     w, batch["normals"], results[an], tcfg.nr_spv_lambda,
                     target_weight=batch.get("valid_normal"),
-                    valid_depth=batch.get("valid_depth"), keyword="an")
+                    valid_depth=batch.get("valid_depth"), keyword="an",
+                    mesh=mesh)
             if ln is not None:
                 loss = loss + ln
                 terms.update(d)
 
     # hard surface after epoch 2 (main.py:290-299)
     if tcfg.hs_lambda > 0:
-        hl, d = L.hard_surface_loss(results, tcfg.hs_lambda)
+        hl, d = L.hard_surface_loss(results, tcfg.hs_lambda, mesh=mesh)
         if gates.hs_on:
             loss = loss + hl
         terms.update(d)
 
     aux = {
-        "psnr": psnr_metric(results[f"rgb_{typ}"], rgbs),
+        "psnr": _psnr(results[f"rgb_{typ}"], rgbs, mesh),
         "perc_bad_nr": perc_bad_nr,
-        "depth_std_mean": torch.mean(torch.sqrt(torch.sum(
+        "depth_std_mean": L._global_mean(torch.sqrt(torch.sum(
             (results[f"z_vals_{typ}"]
              - results[f"depth_{typ}"][..., None]) ** 2
-            * results[f"weights_{typ}"], -1))),
+            * results[f"weights_{typ}"], -1)), mesh),
     }
     if f"irradiance_{typ}" in results:
-        aux["irradiance"] = torch.mean(results[f"irradiance_{typ}"])
+        aux["irradiance"] = L._global_mean(results[f"irradiance_{typ}"],
+                                           mesh)
     return loss, (terms, aux)
 
 
-def _update(state: TrainState, optimizer: Optimizer, loss_fn):
+def _psnr(rgb, rgbs, mesh=None):
+    """The batch's PSNR (metrics.psnr); on a mesh of several ranks, the
+    global batch's: its squared error's mean over max(gt)^2, both reduced
+    over the ranks."""
+    if L._world(mesh) == 1:
+        return psnr_metric(rgb, rgbs)
+    peak = mesh.max(torch.max(rgbs).detach())
+    mse = L._global_mean((rgb.detach() - rgbs) ** 2, mesh) / peak ** 2
+    return -10.0 * torch.log10(mse)
+
+
+def _update(state: TrainState, optimizer: Optimizer, loss_fn, mesh=None):
     """One optimizer update of state from loss_fn(net); with every
     parameter frozen (no torch optimizer) the loss is computed and nothing
-    changes but the step count."""
+    changes but the step count.  On a mesh, the ranks' gradients are
+    all-reduced (summed: each rank's loss is its share) before the update,
+    and the logged loss is the ranks' shares summed."""
     net, opt, step = state
     net.zero_grad(set_to_none=True)
     with torch.enable_grad():
         loss, (_, aux) = loss_fn(net)
         if opt is not None:
             loss.backward()
+    if mesh is not None and opt is not None:
+        mesh.reduce_grads([p for g in opt.param_groups for p in g["params"]])
     optimizer.step(opt, step)
-    metrics = {"loss": loss.detach(),
+    loss = loss.detach()
+    if mesh is not None:
+        loss = mesh.sum(loss)
+    metrics = {"loss": loss,
                **{k: torch.as_tensor(v).detach() for k, v in aux.items()}}
     return TrainState(net, opt, step + 1), metrics
 
@@ -317,23 +358,66 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
 
 
 def _refuse_multi_device(mesh, store_sharded, state_shardings):
-    if mesh is not None or store_sharded or state_shardings is not None:
-        raise not_ported("multi-GPU training (mesh, sharded store, "
-                         "tensor-parallel state)", 11)
+    if store_sharded and mesh is None:
+        raise ValueError("store_sharded requires a mesh")
+    if state_shardings is not None:
+        raise not_ported("tensor parallelism (a tensor-parallel state "
+                         "layout, state_shardings)", 11)
+
+
+def _rank_batch(mesh, mcfg: ModelConfig, rcfg: RenderConfig, batch: Dict,
+                draws: Optional[Dict], generator) -> tuple:
+    """This rank's view of a data-parallel step: (batch, draws) with the
+    global first rays (ray0, kp_ray0) broadcast from rank 0 into the batch,
+    and this rank's rows of the global batch's draws: `draws` when given
+    (those of the global batch, draws["kp"] of its keypoint batch), else
+    render.batch_draws of the global batch from `generator`."""
+    from ..render.render import batch_draws
+    batch = dict(batch)
+    n_global = batch["rays"].shape[0] * mesh.size
+    batch["ray0"] = mesh.broadcast(batch["rays"][:1].contiguous())
+    kp_global = None
+    if "kp_rays" in batch:
+        kp_global = batch["kp_rays"].shape[0] * mesh.size
+        batch["kp_ray0"] = mesh.broadcast(
+            batch["kp_rays"][:1].contiguous())
+    if draws is None:
+        dev = batch["rays"].device
+        draws = batch_draws(mcfg, rcfg, n_global, dev, generator,
+                            train=True, gt_band="valid_depth" in batch)
+        if kp_global is not None:
+            draws["kp"] = batch_draws(mcfg, rcfg, kp_global, dev, generator)
+
+    def rows(d, n):
+        if d.shape[0] != n:
+            raise ValueError(f"draws of {d.shape[0]} rows for a global "
+                             f"batch of {n}")
+        return d[mesh.block(n)]
+    local = {k: rows(v, n_global) for k, v in draws.items() if k != "kp"}
+    if "kp" in draws:
+        local["kp"] = {k: rows(v, kp_global) for k, v in draws["kp"].items()}
+    return batch, local
 
 
 def make_train_step(mcfg: ModelConfig, rcfg: RenderConfig,
                     tcfg: TrainConfig, optimizer: Optimizer, mesh=None,
                     state_shardings=None):
     """fn(state, batch, gates, draws=None, generator=None) ->
-    (state, metrics): one update on a batch already on the device."""
+    (state, metrics): one update on a batch already on the device.  On a
+    mesh, `batch` is this rank's block of the global batch, and `draws`
+    (or the generator's) are the global batch's (_rank_batch)."""
     _refuse_multi_device(mesh, False, state_shardings)
 
     def step_fn(state: TrainState, batch: Dict, gates: TrainGates,
                 draws: Optional[Dict] = None,
                 generator: Optional[torch.Generator] = None):
+        if mesh is not None:
+            batch, draws = _rank_batch(mesh, mcfg, rcfg, batch, draws,
+                                       generator)
+            generator = None
         return _update(state, optimizer, lambda net: compute_losses(
-            net, mcfg, rcfg, tcfg, batch, gates, draws, generator))
+            net, mcfg, rcfg, tcfg, batch, gates, draws, generator, mesh),
+            mesh)
     return step_fn
 
 
@@ -348,7 +432,13 @@ def make_fused_train_step(mcfg: ModelConfig, rcfg: RenderConfig,
     index tensor on the device (with has_kp, sat-nerf's keypoint sub-batch
     from kp_store by kp_idx too, both required), the gates follow from
     state.step, and the draws from step_generator(seed, state.step) unless
-    given.  Per step the host sends the index vectors and nothing else."""
+    given.  Per step the host sends the index vectors and nothing else.
+
+    On a mesh (parallel/mesh.Mesh): `idx` and `kp_idx` are this rank's
+    blocks of the global index vectors, into the replicated store, or with
+    store_sharded into this rank's shard (data/batcher.ShardedRayBatcher);
+    the draws are the global batch's (_rank_batch), so the step is the
+    one-device step on the global batch up to the order of its sums."""
     _refuse_multi_device(mesh, store_sharded, state_shardings)
 
     def step_fn(state: TrainState, store: Dict[str, torch.Tensor],
@@ -368,8 +458,11 @@ def make_fused_train_step(mcfg: ModelConfig, rcfg: RenderConfig,
         gates = gates_from_step(state.step, schedule)
         gen = (None if draws is not None
                else step_generator(seed, state.step, idx.device))
+        if mesh is not None:
+            batch, draws = _rank_batch(mesh, mcfg, rcfg, batch, draws, gen)
+            gen = None
         return _update(state, optimizer, lambda net: compute_losses(
-            net, mcfg, rcfg, tcfg, batch, gates, draws, gen))
+            net, mcfg, rcfg, tcfg, batch, gates, draws, gen, mesh), mesh)
     return step_fn
 
 
@@ -422,7 +515,7 @@ def render_blocks(net, mcfg: ModelConfig, rcfg: RenderConfig,
                   per_ray_keys: Sequence[str], panel_accum,
                   seed: int = 0, draws: Optional[Dict] = None,
                   block: Optional[int] = None,
-                  t: int = 0) -> Dict[str, np.ndarray]:
+                  t: int = 0, replicas=None) -> Dict[str, np.ndarray]:
     """Block render of a full image (the JAX package's
     make_scan_render_step with Trainer._render_image_scan): the rays go to
     the device once, padded to whole chunks by repeating the last ray; the
@@ -433,9 +526,24 @@ def render_blocks(net, mcfg: ModelConfig, rcfg: RenderConfig,
     draws: `draws` (one chunk's), else render.chunk_draws(seed), which are
     those a generator seeded with `seed` gives a chunk.  Every ray takes
     the transient embedding t (of a t table).  Returns what the chunk loop
-    (serve.render_in_chunks) returns, bit for bit."""
+    (serve.render_in_chunks) returns, bit for bit.
+
+    replicas: [(device, params)] of a multi-device server (default: the
+    one replica (device, net)).  Each chunk's rays and its draws split
+    into len(replicas) contiguous blocks, each rendered on its replica (a
+    thread a replica, at the same time), every block reading the chunk's
+    first ray as its ray 0 (the JAX package's sharded render of the
+    chunk); each replica copies its rows to the host once a block of
+    chunks."""
+    from concurrent.futures import ThreadPoolExecutor
     from ..render.render import chunk_draws
     step = make_render_step(mcfg, rcfg)
+    replicas = list(replicas or [(device, net)])
+    n_dev = len(replicas)
+    if chunk % n_dev:
+        raise ValueError(f"chunk {chunk} does not split over {n_dev} "
+                         "devices")
+    sub = chunk // n_dev
     rays = np.asarray(rays, np.float32)
     n = rays.shape[0]
     n_chunks = max(1, -(-n // chunk))
@@ -445,37 +553,62 @@ def render_blocks(net, mcfg: ModelConfig, rcfg: RenderConfig,
     total = n_chunks * chunk
     if total > n:
         rays = np.concatenate([rays, np.tile(rays[-1:], (total - n, 1))], 0)
-    rays_d = torch.from_numpy(rays).to(device)
     if draws is None:
         draws = chunk_draws(mcfg, rcfg, chunk, device, seed)
-    cos = torch.tensor(bool(cos_irra_on), device=device)
-    ts = torch.full((chunk,), int(t), dtype=torch.int64, device=device)
     panel_items = tuple(panel_accum.items())
-    # [(key, first column, columns, trailing shape)] of the block buffer
-    layout = buf = None
-    parts: List[np.ndarray] = []
-    for b0 in range(0, n_chunks, block):
-        rows = min(block, n_chunks - b0) * chunk
-        for c in range(b0, min(b0 + block, n_chunks)):
-            res = step(net, RenderInputs(
-                rays=rays_d[c * chunk:(c + 1) * chunk], ts=ts,
-                cos_irra_on=cos),
-                draws=draws)
-            out = {k: res[k] for k in per_ray_keys if k in res}
-            out.update(reduce_panels(res, panel_items))
-            if layout is None:
-                layout, width = [], 0
-                for k, v in out.items():
-                    w = int(np.prod(v.shape[1:], dtype=np.int64))
-                    layout.append((k, width, w, tuple(v.shape[1:])))
-                    width += w
-                buf = torch.empty(block * chunk, width, dtype=torch.float32,
-                                  device=device)
-            r0 = (c - b0) * chunk
-            for k, off, w, _ in layout:
-                buf[r0:r0 + chunk, off:off + w] = out[k].reshape(chunk, w)
-        parts.append(buf[:rows].to("cpu", copy=True).numpy())
-    host = np.concatenate(parts, 0)[:n]
+
+    def run(d: int):
+        dev, net_d = replicas[d]
+        dev = torch.device(dev)
+        ctx = (torch.cuda.device(dev) if dev.type == "cuda"
+               else contextlib.nullcontext())
+        with ctx:
+            rays_d = torch.from_numpy(rays).to(dev)
+            draws_d = {k: v[d * sub:(d + 1) * sub].to(dev)
+                       for k, v in draws.items()}
+            cos = torch.tensor(bool(cos_irra_on), device=dev)
+            ts = torch.full((sub,), int(t), dtype=torch.int64, device=dev)
+            # [(key, first column, columns, trailing shape)] of the buffer
+            layout = buf = None
+            parts: List[np.ndarray] = []
+            for b0 in range(0, n_chunks, block):
+                rows = min(block, n_chunks - b0) * sub
+                for c in range(b0, min(b0 + block, n_chunks)):
+                    r0 = c * chunk + d * sub
+                    # a split chunk's blocks all read the chunk's ray 0
+                    ray0 = (rays_d[c * chunk:c * chunk + 1] if n_dev > 1
+                            else None)
+                    res = step(net_d, RenderInputs(
+                        rays=rays_d[r0:r0 + sub], ts=ts, cos_irra_on=cos,
+                        ray0=ray0), draws=draws_d)
+                    out = {k: res[k] for k in per_ray_keys if k in res}
+                    out.update(reduce_panels(res, panel_items))
+                    if layout is None:
+                        layout, width = [], 0
+                        for k, v in out.items():
+                            w = int(np.prod(v.shape[1:], dtype=np.int64))
+                            layout.append((k, width, w, tuple(v.shape[1:])))
+                            width += w
+                        buf = torch.empty(block * sub, width,
+                                          dtype=torch.float32, device=dev)
+                    o = (c - b0) * sub
+                    for k, off, w, _ in layout:
+                        buf[o:o + sub, off:off + w] = out[k].reshape(sub, w)
+                parts.append(buf[:rows].to("cpu", copy=True).numpy())
+            return layout, parts
+
+    if n_dev == 1:
+        results = [run(0)]
+    else:
+        with ThreadPoolExecutor(n_dev) as pool:
+            results = list(pool.map(run, range(n_dev)))
+    layout = results[0][0]
+    width = results[0][1][0].shape[1]
+    # (chunks, replicas, sub, width): each chunk's rows in replica order
+    host = np.concatenate([
+        np.stack([r[1][i].reshape(-1, sub, width) for r in results],
+                 1).reshape(-1, width)
+        for i in range(len(results[0][1]))], 0)[:n]
     return {k: np.ascontiguousarray(host[:, off:off + w]).reshape(
         (n,) + shape) for k, off, w, shape in layout}
 

@@ -37,7 +37,15 @@ JAX package's draws) or else from `generator`, in this order:
   draws["pdf"]     (N, n_importance) the fine samples' inverse-CDF draws
                                    (perturb > 0)
   draws["noise_fine"] (N, S_fine)  density noise of the fine pass
-The noise draws are taken only with noise_std > 0.
+The noise draws are taken only with noise_std > 0.  batch_draws makes
+every draw of one render ahead, in this order, from one generator (what
+the render would take from that generator), so that a data-parallel step
+can hand each rank its rows of the global batch's draws.
+
+The guided band's near/far and the sun march's scale read the batch's
+first ray (the reference's ray 0); RenderInputs.ray0, when given, stands
+for it: a rank of a data-parallel step passes the global batch's first
+ray.
 """
 
 from __future__ import annotations
@@ -65,6 +73,7 @@ class RenderInputs(NamedTuple):
     rows: Optional[torch.Tensor] = None
     cols: Optional[torch.Tensor] = None
     cos_irra_on: Optional[torch.Tensor] = None     # bool scalar
+    ray0: Optional[torch.Tensor] = None            # (1, 8|11): ray 0
 
 
 def _noise(rcfg: RenderConfig, draws: Dict, name: str, like, generator):
@@ -103,9 +112,12 @@ def _guided(prev_result, rcfg: RenderConfig, near, far, train: bool,
             inp: RenderInputs, u=None, u_gt=None, generator=None):
     """Guided z samples around the probe's depth, detached like the
     reference's .detach() (rendering.py:212,262).  near/far are ray 0's,
-    as in the reference (render.py:155)."""
+    as in the reference (render.py:155): the batch's first ray, or
+    inp.ray0."""
     target_depth = (inp.target_depths[:, 0]
                     if inp.target_depths is not None else None)
+    if inp.ray0 is not None:
+        near, far = inp.ray0[:, 6:7], inp.ray0[:, 7:8]
     z2 = guided_samples(
         prev_result["depth"], prev_result["weights"], prev_result["z_vals"],
         rcfg.effective_guided, near[0, 0], far[0, 0], train=train,
@@ -152,9 +164,11 @@ def _render_spsbrdf(net, mcfg, rcfg, inp, rays_o, rays_d, near, far, sun_d,
                                       or rcfg.force_sun_march):
         depth1 = res1["depth"]
         pt_surf = rays_o + rays_d * depth1[:, None]
-        scale = torch.where(torch.abs(sun_d[0, 2]) > 1e-5,
-                            torch.abs(rays_d[0, 2] / sun_d[0, 2]),
-                            torch.ones_like(sun_d[0, 2]))
+        _, d0, s0 = ((rays_o, rays_d, sun_d) if inp.ray0 is None
+                     else _ray_geometry(rcfg, inp.ray0))
+        scale = torch.where(torch.abs(s0[0, 2]) > 1e-5,
+                            torch.abs(d0[0, 2] / s0[0, 2]),
+                            torch.ones_like(s0[0, 2]))
         far_sun = depth1[:, None] * scale
         n_sun = rcfg.sun_march_count(int(z_final.shape[1]))
         z_sun = stratified_z_vals(n_sun, far_sun * 0.01, far_sun,
@@ -294,23 +308,38 @@ def chunk_draws(mcfg: ModelConfig, rcfg: RenderConfig, n_rays: int,
     batches."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
+    return batch_draws(mcfg, rcfg, n_rays, device, gen)
+
+
+def batch_draws(mcfg: ModelConfig, rcfg: RenderConfig, n_rays: int, device,
+                generator: torch.Generator, train: bool = False,
+                gt_band: bool = False) -> Dict[str, torch.Tensor]:
+    """Every draw render_rays(train=train) takes from `generator` for a
+    batch of n_rays, in its order and shapes: the render handed these
+    draws renders what it renders drawing from the generator.  gt_band:
+    the batch has valid_depth (a train render then draws the GT-depth
+    band's uniforms after the guided band's)."""
     draws: Dict[str, torch.Tensor] = {}
     noisy = rcfg.noise_std > 0
+    learned_sc = train and mcfg.sun_v == "learned"
 
     def take(name: str, width: int, normal: bool = False):
         draw = torch.randn if normal else torch.rand
-        draws[name] = draw((n_rays, width), generator=gen,
+        draws[name] = draw((n_rays, width), generator=generator,
                            dtype=torch.float32, device=device)
 
     if rcfg.perturb > 0:
         take("z", rcfg.n_samples)
     n_main = rcfg.n_samples
-    if (rcfg.guided_samples > 0
-            and mcfg.variant in ("sps-nerf", "spsbrdf-nerf")):
+    guided = (rcfg.guided_samples > 0
+              and mcfg.variant in ("sps-nerf", "spsbrdf-nerf"))
+    if guided:
         if noisy:
             take("noise_probe", rcfg.n_samples, normal=True)
         if rcfg.perturb != 0.0:
             take("guided", rcfg.effective_guided)
+            if train and gt_band:
+                take("guided_gt", rcfg.effective_guided)
         n_main = (rcfg.total_samples if mcfg.variant == "spsbrdf-nerf"
                   else rcfg.n_samples + rcfg.effective_guided)
         march = (mcfg.variant == "spsbrdf-nerf" and mcfg.sun_v == "analystic"
@@ -323,6 +352,11 @@ def chunk_draws(mcfg: ModelConfig, rcfg: RenderConfig, n_rays: int,
                 take("noise_sun", n_sun, normal=True)
     if noisy:
         take("noise", n_main, normal=True)
+        # the solar-correction pass on the main samples (train, learned
+        # sun: spsbrdf's sigma + sun march, the other variants' shadow
+        # pass); vanilla NeRF has none
+        if learned_sc and mcfg.variant != "nerf":
+            take("noise_sc", n_main, normal=True)
     if rcfg.n_importance > 0:
         if rcfg.perturb != 0:
             take("pdf", rcfg.n_importance)

@@ -13,10 +13,22 @@ in fixed-size chunks (opts `--chunk`, 5120 by default) through
 `render_image_rays`, which the Trainer's validation renders through too:
 the block render (parallel/train_step.render_blocks), or with
 BRDFNERF_NO_SCAN_RENDER set, the chunk loop `render_in_chunks`.
+
+    r = load_renderer(run_dir, 40, compute_dtype="int8")   # int8 trunk
+    r = load_renderer(run_dir, 40, n_devices=2)            # two GPUs
+
+compute_dtype="int8" runs the trunk's products of the sigma passes as int8
+x int8 -> int32 (models/network._linear_int8), and the main pass's
+differentiated trunk on the bfloat16_all twin (K2, or K4 with
+BRDFNERF_FUSED_HEADS).  n_devices=N serves from one process with a replica
+on each of the first N devices: each chunk's rays and draws split into N
+contiguous blocks, rendered on their devices at the same time and gathered
+(render_blocks).
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses as dc
 import os
 from typing import Dict, List, Optional
@@ -25,7 +37,7 @@ import numpy as np
 import torch
 
 from .config import RunConfig
-from .models.network import model_params, not_ported
+from .models.network import model_params
 from .utils.device import resolve_device
 
 # per-ray result keys returned verbatim (train.py:676-677)
@@ -99,18 +111,24 @@ def render_in_chunks(net, cfg: RunConfig, rcfg, rays,
 def render_image_rays(net, cfg: RunConfig, rcfg, rays,
                       chunk: int, device: torch.device, seed: int = 0,
                       draws: Optional[Dict[str, torch.Tensor]] = None,
-                      t: int = 0) -> Dict[str, np.ndarray]:
+                      t: int = 0, replicas=None) -> Dict[str, np.ndarray]:
     """Every ray of an image, as render_in_chunks returns them: through the
     block render by default, or, with BRDFNERF_NO_SCAN_RENDER set to
     anything truthy, through the chunk loop (the JAX package's
-    Trainer.render_image switch)."""
-    if os.environ.get("BRDFNERF_NO_SCAN_RENDER", "") not in ("", "0"):
+    Trainer.render_image switch).  replicas: [(device, net)] of a
+    multi-device server (more than one: each chunk split over them; the
+    chunk loop is then the block render one chunk a block)."""
+    loop = os.environ.get("BRDFNERF_NO_SCAN_RENDER", "") not in ("", "0")
+    split = replicas is not None and len(replicas) > 1
+    if loop and not split:
         return render_in_chunks(net, cfg, rcfg, rays, chunk, device, seed,
                                 draws, t)
     from .parallel.train_step import render_blocks
     return render_blocks(net, cfg.model, rcfg, rays, chunk, device,
                          cfg.train.cos_irra_on < 1.0, PER_RAY_KEYS,
-                         PANEL_ACCUM, seed=seed, draws=draws, t=t)
+                         PANEL_ACCUM, seed=seed, draws=draws, t=t,
+                         block=1 if loop else None,
+                         replicas=replicas)
 
 
 @dc.dataclass
@@ -121,7 +139,8 @@ class Renderer:
     render_image takes a sample dict, or an index into the run's `split`
     ('val': training image 0 and the test images; 'train': every training
     image), whose dataset is built from opts.json at the first such
-    call."""
+    call.  replicas: [(device, params)] of a multi-device server, the
+    first being (device, net)."""
     args: object
     cfg: RunConfig
     net: torch.nn.Module
@@ -130,6 +149,7 @@ class Renderer:
     seed: int = 0
     test_sun_v: bool = False
     split: str = "val"
+    replicas: Optional[list] = dc.field(default=None, repr=False)
     _dataset: object = dc.field(default=None, repr=False)
 
     @property
@@ -174,7 +194,7 @@ class Renderer:
             sample = self.get_image(int(sample))
         return render_image_rays(self.net, self.cfg, self.render_config(),
                                  sample["rays"], self.chunk, self.device,
-                                 self.seed, draws, t)
+                                 self.seed, draws, t, self.replicas)
 
 
 def load_renderer(run_dir: str, epoch_number: int,
@@ -194,20 +214,24 @@ def load_renderer(run_dir: str, epoch_number: int,
     split: 'val' = train img 0 + test imgs; 'train' = every training
     image (eval.py:238-249).  output_dir: where the CLIs write (created;
     the run directory by default).  Overrides as the eval CLI:
-    compute_dtype, normal_at_surface, sun_march_samples.  n_devices > 1
-    (multi-GPU serving) is not ported yet."""
+    compute_dtype (int8: the serving-only int8 trunk), normal_at_surface,
+    sun_march_samples.  n_devices >= 1: a replica on each of the first
+    n_devices devices (refused above the visible count; on the CPU,
+    n_devices replicas share it), each chunk split over them."""
     from .cli import opts as opts_mod
+    from .parallel.mesh import serving_devices
     from .utils import checkpoint as ckpt
 
     dev = resolve_device(device)
+    # refuse a mesh wider than the visible devices before any reading
+    devs = serving_devices(n_devices, dev) if n_devices else [dev]
+    dev = devs[0]
     args = opts_mod.load_opts(run_dir)
     if compute_dtype:
         allowed = ("float32", "bfloat16", "bfloat16_all", "int8")
         if compute_dtype not in allowed:
             raise ValueError(f"compute_dtype={compute_dtype!r} not in "
                              f"{allowed}")
-        if compute_dtype == "int8":
-            raise not_ported("compute_dtype='int8'", 10)
         args.compute_dtype = compute_dtype
     cfg = opts_mod.to_run_config(args, device=dev)
     if normal_at_surface is not None:
@@ -216,8 +240,6 @@ def load_renderer(run_dir: str, epoch_number: int,
     if sun_march_samples is not None:
         cfg = dc.replace(cfg, render=dc.replace(
             cfg.render, sun_march_samples=int(sun_march_samples)))
-    if n_devices and int(n_devices) > 1:
-        raise not_ported("multi-GPU serving (n_devices > 1)", 11)
 
     ckpts_dir = checkpoints_dir or os.path.join(args.ckpts_dir,
                                                 args.exp_name)
@@ -227,8 +249,11 @@ def load_renderer(run_dir: str, epoch_number: int,
     ckpt.restore_params(net, ckpt.resolve_epoch_ckpt(ckpts_dir,
                                                      epoch_number))
     net.requires_grad_(False)
+    replicas = [(d, net if d == dev else copy.deepcopy(net).to(d))
+                for d in devs]
     os.makedirs(output_dir or run_dir, exist_ok=True)
     return Renderer(args=args, cfg=cfg, net=net, device=dev,
                     chunk=int(getattr(args, "chunk", 5120) or 5120),
                     test_sun_v=bool(getattr(args, "test_sun_v", 0)),
-                    split=split)
+                    split=split,
+                    replicas=replicas if len(replicas) > 1 else None)

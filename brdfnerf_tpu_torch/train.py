@@ -19,8 +19,17 @@ device-resident store, whose rays the step renders a second time for the
 keypoint depth loss.  Validation writes each image's panel stack
 (utils/viz) as val_{idx}_epoch{epoch}.png on the JAX package's cadence.  A
 store without a scene (the blender dataset) validates without the DSM
-chain.  Not ported yet: multi-GPU (mesh, sharded store, scaled global
-batch; ROADMAP.md Queue 1 item 11).
+chain.
+
+Data parallelism (mesh: a parallel/mesh.Mesh, one Trainer a rank): every
+rank builds the same Trainer from the same seed and store, rank 0's
+initial weights are broadcast, and each step takes the rank's block of the
+global batch (the replicated store, or with sharded_store the rank's shard
+of it, data/batcher.ShardedRayBatcher) and all-reduces the gradients
+(parallel/train_step.py).  Rank 0 alone logs, validates and writes panels
+and checkpoints.  scale_global_batch scales the batch and the learning
+rate by the mesh's width.  Tensor parallelism is not ported yet (ROADMAP.md
+Queue 1 item 11b).
 """
 
 from __future__ import annotations
@@ -37,10 +46,9 @@ import numpy as np
 import torch
 
 from .config import RenderConfig, RunConfig
-from .data.batcher import DeviceRayBatcher
+from .data.batcher import DeviceRayBatcher, ShardedRayBatcher
 from .geo import dsm as dsm_mod
 from .metrics import masked_scores
-from .models.network import not_ported
 from .parallel.train_step import (GateSchedule, TrainState,
                                   create_train_state, make_fused_train_step,
                                   make_render_step, make_scan_train_step)
@@ -93,10 +101,27 @@ class ScalarLog:
             self.tb.close()
 
 
+class NullLog:
+    """The logger of a rank other than 0: it writes nothing."""
+
+    def log(self, step: int, scalars: Dict[str, float]):
+        pass
+
+    def log_image(self, step: int, tag: str, img_hw3_uint8):
+        pass
+
+    def close(self):
+        pass
+
+
 class Trainer:
     """The JAX package's Trainer on one device (CUDA unless `device`
-    names another).  Keeps its constructor: `mesh`, `sharded_store` and
-    `scale_global_batch` raise (multi-GPU is not ported yet)."""
+    names another), or as one rank of a data-parallel mesh (on the mesh's
+    device).  sharded_store (mesh only): shard the ray store over the
+    ranks with per-shard draws (data/batcher.ShardedRayBatcher).
+    scale_global_batch (mesh only): the global batch becomes batch_size *
+    the mesh's width and the learning rate scales linearly with it
+    (the JAX package's train.py:110-131)."""
 
     def __init__(self, cfg: RunConfig, train_store: Dict[str, np.ndarray],
                  paths: TrainerPaths, val_dataset=None,
@@ -112,15 +137,30 @@ class Trainer:
                  sharded_store: bool = False,
                  scale_global_batch: bool = False,
                  device=None):
-        if mesh is not None or sharded_store or scale_global_batch:
-            raise not_ported("multi-GPU training (mesh, sharded store, "
-                             "scaled global batch)", 11)
+        self.mesh = mesh
+        # rank 0 (or the one device) logs, validates and checkpoints
+        self.is_main = mesh is None or mesh.rank == 0
         self.cfg = cfg
         self.paths = paths
         self.val_dataset = val_dataset
-        self.device = resolve_device(device)
-        self.log = ScalarLog(paths.logs_dir, use_tb)
+        self.device = resolve_device(mesh.device if mesh is not None
+                                     else device)
+        self.log = (ScalarLog(paths.logs_dir, use_tb) if self.is_main
+                    else NullLog())
         os.makedirs(paths.ckpts_dir, exist_ok=True)
+        # the batch-scaling factor is the data-parallel width
+        k = mesh.size if (scale_global_batch and mesh is not None) else 1
+        if k > 1:
+            cfg = dc.replace(cfg, train=dc.replace(
+                cfg.train, batch_size=cfg.train.batch_size * k,
+                lr=cfg.train.lr * k))
+            self.cfg = cfg
+            warm = cfg.train.lr_warmup_steps
+            self._say(f"[mesh] scaled global batch: {cfg.train.batch_size} "
+                      f"rays/step ({k} devices), lr -> {cfg.train.lr:.3e}"
+                      + (f", lr warmup "
+                         f"{'2 epochs' if warm == -1 else warm}"
+                         if warm not in (0, -2) else ""))
         tcfg = cfg.train
         # observability guard: fitting hotspot-gated BRDF parameters on
         # geometry that never samples the hotspot leaves them at their
@@ -132,9 +172,17 @@ class Trainer:
         batch_keys = [k for k in ("rays", "rgbs", "ts", "depths",
                                   "valid_depth", "depth_std", "normals",
                                   "valid_normal") if k in train_store]
-        self.batcher = DeviceRayBatcher(
-            {k: train_store[k] for k in batch_keys}, tcfg.batch_size,
-            seed=seed, device=self.device)
+        self.sharded_store = bool(sharded_store and mesh is not None)
+        if sharded_store and not self.sharded_store:
+            self._say("[mesh] sharded_store ignored: needs a mesh")
+        arrays = {k: train_store[k] for k in batch_keys}
+        if self.sharded_store:
+            self.batcher = ShardedRayBatcher(arrays, tcfg.batch_size, mesh,
+                                             seed=seed)
+        else:
+            self.batcher = DeviceRayBatcher(arrays, tcfg.batch_size,
+                                            seed=seed, device=self.device,
+                                            mesh=mesh)
         # sat-nerf's keypoint depth: a second batcher over the tie-point
         # store (the reference's second loader, main.py:177-183, at the
         # same batch size, or the store's size if smaller)
@@ -142,10 +190,23 @@ class Trainer:
         if (depth_store is not None and tcfg.ds_lambda > 0
                 and cfg.model.variant == "sat-nerf"):
             n_kp = depth_store["rays"].shape[0]
+            kp_bs = min(tcfg.batch_size, n_kp)
+            kp_store = {k: depth_store[k] for k in ("rays", "depths", "ts")}
+            if mesh is not None:
+                # the keypoint sub-batch splits over the ranks: tile a
+                # store of fewer tie points than ranks up to one a rank
+                # (the JAX package's train.py:186-200)
+                n_dev = mesh.size
+                if n_kp < n_dev:
+                    reps = -(-n_dev // n_kp)
+                    kp_store = {k: np.concatenate([v] * reps, 0)
+                                for k, v in kp_store.items()}
+                    kp_bs = n_dev
+                else:
+                    kp_bs = max(n_dev, kp_bs - kp_bs % n_dev)
             self.depth_batcher = DeviceRayBatcher(
-                {k: depth_store[k] for k in ("rays", "depths", "ts")},
-                min(tcfg.batch_size, n_kp), seed=seed + 7,
-                device=self.device)
+                kp_store, kp_bs, seed=seed + 7, device=self.device,
+                mesh=mesh)
         self.steps_per_epoch = self.batcher.steps_per_epoch
         self.max_steps = tcfg.max_train_steps
 
@@ -178,7 +239,8 @@ class Trainer:
                         f"(e.g. {missing[:3]}); a freeze-all evaluation "
                         f"needs a checkpoint from the same config")
             self.state = TrainState(net, self.opt.init(net), 0)
-            print(f"[handoff] restored {include or 'ALL'} from {in_ckpts}")
+            self._say(f"[handoff] restored {include or 'ALL'} from "
+                      f"{in_ckpts}")
         if resume_from:
             ckpt.restore_params(net, resume_from)
             step = ckpt.checkpoint_step(resume_from)
@@ -197,7 +259,10 @@ class Trainer:
                 self.batcher.next_indices()
                 if self.depth_batcher is not None:
                     self.depth_batcher.next_indices()
-            print(f"[resume] step {step} from {resume_from}")
+            self._say(f"[resume] step {step} from {resume_from}")
+        if mesh is not None:
+            # the same initial weights on every rank: rank 0's
+            mesh.broadcast_module(net)
 
         # schedule thresholds (fractions of max_steps, main.py:60-63)
         self.t_brdf = tcfg.brdf_on * self.max_steps
@@ -246,8 +311,14 @@ class Trainer:
             self._step_fns[key] = make(
                 self.cfg.model, rcfg, self.cfg.train, self.opt,
                 self._gate_schedule(),
-                has_kp=self.depth_batcher is not None)
+                has_kp=self.depth_batcher is not None, mesh=self.mesh,
+                store_sharded=self.sharded_store)
         return self._step_fns[key]
+
+    def _say(self, line: str):
+        """Print on rank 0 (or the one device) alone."""
+        if self.is_main:
+            print(line, flush=True)
 
     def _next_phase_change(self, step: int) -> int:
         """First step index > `step` at which a static phase gate flips: a
@@ -334,7 +405,8 @@ class Trainer:
             kp = self.depth_batcher
             if chunk > 1:
                 def mat(b):
-                    m = np.stack([b.next_indices() for _ in range(chunk)])
+                    m = np.stack([b.next_local_indices()
+                                  for _ in range(chunk)])
                     return torch.from_numpy(m.astype(np.int32)).to(
                         self.device, non_blocking=True)
                 idx_mat = mat(self.batcher)
@@ -359,7 +431,7 @@ class Trainer:
                 metrics["rays_per_sec"] = rays_s
                 self.log.log(end, {f"train/{k2}": v
                                    for k2, v in metrics.items()})
-                if progress:
+                if progress and self.is_main:
                     print(f"step {end:6d} epoch {epoch:3d} "
                           f"loss {metrics['loss']:.4f} "
                           f"psnr {metrics['psnr']:.2f} "
@@ -368,6 +440,9 @@ class Trainer:
             step = end + 1
         self._on_epoch_end(epoch, eval_every_n_epochs,
                            save_ckpt_every_n_epochs, final=True)
+        if self.mesh is not None:
+            # every rank leaves fit with rank 0's last checkpoint written
+            self.mesh.barrier()
         return last_metrics
 
     def checkpoint_path(self, epoch: int) -> str:
@@ -377,7 +452,10 @@ class Trainer:
                       final: bool = False):
         """Cadences: every N epochs (N >= 1; epoch 0 included, like the
         reference's Lightning check_val_every_n_epoch), 0 = never during
-        training (the final save and validation still run)."""
+        training (the final save and validation still run).  On a mesh,
+        rank 0 alone validates and saves."""
+        if not self.is_main:
+            return
         if self.val_dataset is not None and (
                 (eval_every > 0 and epoch % eval_every == 0) or final):
             try:

@@ -229,9 +229,35 @@ After phase 14:
                 train CLI at --img_downscale 2 (SAT_STEPS steps; the store's
                 size from the JAX formulas) and the eval CLI with panels;
                 ingestion seconds, train and request rays/s printed
+After phase 9 (before 12):
+ 16. serving, int8 - the flagship run's request 0 at --compute_dtype int8
+                (load_renderer(compute_dtype="int8")) with
+                BRDFNERF_FUSED_HEADS off and on, timed in turns with the
+                bfloat16_all request (bf16, int8, int8, bf16): launches K1 0
+                (the sigma passes run the int8 trunk, torch._int_mm, 18
+                products a chunk, counted by models/network.INT8_MM) and K2
+                (K4 with the switch) 1 a chunk on the bfloat16_all twin; rgb
+                and depth against phase 5's (5b's) request within the
+                ranges INT8_RGB_MEAN / INT8_DEPTH_MEAN; 256 rays against
+                the CPU twins at phase 5's bounds; a request with normal_at_surface
+                (no K2, 27 int8 products a chunk); the eval CLI at
+                --compute_dtype int8 on the workflow's stage-2 run (K1 0 /
+                K2 26), its scores within INT8_SCORES of phase 9's
+ 17. data parallel - the flagship fused step on a mesh of one NCCL rank
+                against the one-device step (2 steps, bit for bit), both
+                timed in turns (DP_STEPS steps each; K1 2 / K2 1 / K3 1 a
+                step); one float32 step on two gloo ranks sharing the card
+                (spawned processes) against the one-device step at
+                tools/dp_check's bounds; the train CLI with --n_devices 1
+                --sharded_store 1 --scale_global_batch 1 (8 steps on the
+                workflow's AOI); load_renderer(n_devices=1) against phase
+                5's request bit for bit; the same server with two replicas
+                sharing the card (the split render, a thread a replica)
+                against phase 5's request within SPLIT_TOL
 Then one JSON line of every ported kernel instantiation (each launched on
-a main path: the run fails if one was not), the card's line, and the last
-line {"ok": true, "device": {...}}.
+a main path: the run fails if one was not; launches_int8, launches_dp
+and launches_split the new phases' counts), the card's line, and the last line {"ok": true,
+"device": {...}}.
 """
 
 import contextlib
@@ -2242,6 +2268,7 @@ def eval_phase(root, run_dir, epoch, reset_counts, counts, smi, rows,
           f"{curve[:, 1:].min():.4f} to {curve[:, 1:].max():.4f}",
           flush=True)
     assert curve.shape == (33, 4) and np.isfinite(curve).all(), curve.shape
+    return ev
 
 
 DEFAULT_IMPORTANCE = 64     # the fine network's samples (--n_importance)
@@ -2685,6 +2712,331 @@ def defaults_phase(root, argv, v_base, learned, gen, requests, serve, train,
                 and traffic[True]["d2h"] == traffic[False]["d2h"]), traffic
 
 
+# int8 serving (phase 16): the flagship run's requests at compute_dtype
+# int8 against its bfloat16_all requests of phase 5, on the same weights.
+# The ranges hold the int8 quantization's effect on a request, set about
+# 2-5 times either side of its reading on an H100 at the flagship's width
+# (PERF.md sections 2 and 5): below the range the quantization did not run,
+# above it the int8 layer is off
+INT8_PER_CHUNK = 18         # int8 products a chunk: 9 in each sigma pass
+INT8_AT_SURFACE = 27        # ... with normal_at_surface: 9 in the main pass
+INT8_RGB_MEAN = (1e-3, 1e-2)    # mean per-ray largest |d rgb| (4.49e-3)
+INT8_DEPTH_MEAN = (4e-4, 5e-3)  # mean per-ray |d depth| (1.81e-3)
+# the eval's scores against bfloat16_all's (gaps 3.3e-4 dB, 2.7e-5, 1e-6 m)
+INT8_SCORES = (("psnr", 0.05), ("ssim", 1e-3), ("mae", 1e-3))
+
+
+def int8_phase(root, run_dir, wf_run, wf_epoch, wf_scores, requests, refs,
+               check_served, reset_counts, counts, smi, rows, per_req):
+    """Phase 16, serving at int8 through the port's entry points: requests
+    at int8 with BRDFNERF_FUSED_HEADS off and on against the bfloat16_all
+    requests of phases 5 / 5b (refs: request 0's outputs, same weights and
+    rays), timed in turns with a bfloat16_all request (bf16, int8, int8,
+    bf16); launches held: no K1 (the sigma passes run the int8 trunk),
+    K2 (K4 with the switch) on the bfloat16_all twin for the main pass,
+    INT8_PER_CHUNK int8 products a chunk; 256 rays against the CPU twins
+    (check_served at the bf16 bounds); a request with normal_at_surface
+    (no K2: INT8_AT_SURFACE int8 products a chunk); then the eval CLI at
+    --compute_dtype int8 on the workflow's stage-2 run, its scores against
+    the bfloat16_all eval's (wf_scores) within INT8_SCORES."""
+    from brdfnerf_tpu_torch.cli import eval as cli_eval
+    from brdfnerf_tpu_torch.models import network as tnet
+    from brdfnerf_tpu_torch.serve import load_renderer
+    zero = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0}
+    n = requests[0].shape[0]
+
+    def request(r, rays):
+        reset_counts()
+        tnet.INT8_MM.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = r.render_image({"rays": rays})
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, counts(), tnet.INT8_MM.launches
+
+    def gaps(a, b):
+        got = {}
+        for k in ("rgb_coarse", "depth_coarse", "normal_an_coarse"):
+            d = np.abs(a[k] - b[k]).reshape(len(a[k]), -1).max(-1)
+            got[k] = (float(d.mean()), float(np.quantile(d, 0.99)),
+                      float(d.max()))
+        return got
+
+    rb = load_renderer(run_dir, 1, device="cuda")
+    r8 = load_renderer(run_dir, 1, compute_dtype="int8", device="cuda")
+    assert r8.cfg.model.compute_dtype == "int8"
+    assert r8.cfg.render.use_pallas and r8.cfg.render.fused_trunk
+    for heads in (False, True):
+        label = "int8" + (", fused heads" if heads else "")
+        if heads:
+            os.environ[FUSED_HEADS] = "1"
+        try:
+            secs = {"bf16": [], "int8": []}
+            for name, r in (("bf16", rb), ("int8", r8), ("int8", r8),
+                            ("bf16", rb)):
+                out, dt, launches, n8 = request(r, requests[0])
+                secs[name].append(dt)
+                if name == "bf16":
+                    continue
+                want = dict(zero, **({"K4": per_req} if heads
+                                     else {"K2": per_req}))
+                print(f"  request, {label}: launches {launches}, int8 "
+                      f"products {n8} over {per_req} chunks", flush=True)
+                assert launches == want, launches
+                assert n8 == INT8_PER_CHUNK * per_req, n8
+                out8 = out
+            print(f"  request, {label}: bfloat16_all {n / min(secs['bf16']):.1f}"
+                  f" rays/s, int8 {n / min(secs['int8']):.1f} rays/s (faster "
+                  f"of two each, in turns; seconds {secs}) ({smi})",
+                  flush=True)
+            for k, v in out8.items():
+                assert np.isfinite(v).all(), k
+            g = gaps(out8, refs["heads" if heads else "bf16"])
+            for k, (mean, p99, mx) in g.items():
+                print(f"  {label} vs the bfloat16_all request of phase "
+                      f"{'5b' if heads else '5'}, {k}: per-ray largest |d| "
+                      f"mean {mean:.3e} p99 {p99:.3e} max {mx:.3e}",
+                      flush=True)
+            lo, hi = INT8_RGB_MEAN
+            assert lo <= g["rgb_coarse"][0] <= hi, g["rgb_coarse"]
+            lo, hi = INT8_DEPTH_MEAN
+            assert lo <= g["depth_coarse"][0] <= hi, g["depth_coarse"]
+            rows["K4" if heads else "K2"]["launches_int8"] = want[
+                "K4" if heads else "K2"]
+            rows["K1"].setdefault("launches_int8", 0)
+            if not heads:
+                # 256 rays through the card against the CPU twins (the
+                # sigma passes' int8 products on the CPU too)
+                check_served([out8], r8, n_check=256)
+        finally:
+            os.environ.pop(FUSED_HEADS, None)
+    del rb
+    r8s = load_renderer(run_dir, 1, compute_dtype="int8",
+                        normal_at_surface=True, device="cuda")
+    out, dt, launches, n8 = request(r8s, requests[0])
+    print(f"  request, int8, normal_at_surface: launches {launches}, int8 "
+          f"products {n8}; {n / dt:.1f} rays/s ({smi})", flush=True)
+    assert launches == zero and n8 == INT8_AT_SURFACE * per_req, (launches,
+                                                                  n8)
+    for k, v in out.items():
+        assert np.isfinite(v).all(), k
+    del r8, r8s
+
+    reset_counts()
+    tnet.INT8_MM.launches = 0
+    scores = {}
+    saved = cli_eval.evaluate
+
+    def evaluate(*a, **k):
+        scores["int8"] = saved(*a, **k)
+        return scores["int8"]
+
+    cli_eval.evaluate = evaluate
+    try:
+        rc, text, seconds = run_cli(
+            "eval, int8", cli_eval.main,
+            ["--logs_dir", wf_run, "--epoch_number", str(wf_epoch),
+             "--compute_dtype", "int8", "--output_dir",
+             os.path.join(root, "eval_int8")], smi)
+    finally:
+        cli_eval.evaluate = saved
+    launches, n8 = counts(), tnet.INT8_MM.launches
+    print(f"  eval, int8: launches {launches}, int8 products {n8} over "
+          f"{WF_CHUNKS} chunks; scores {scores['int8']}; bfloat16_all "
+          f"{wf_scores} ({smi})", flush=True)
+    assert rc == 0 and launches == dict(zero, K2=WF_CHUNKS), launches
+    assert n8 == INT8_PER_CHUNK * WF_CHUNKS, n8
+    line = [ln for ln in text.splitlines() if ln.startswith("[kernels]")]
+    assert len(line) == 1 and "int8 products" in line[0], line
+    for k, tol in INT8_SCORES:
+        assert np.isfinite(scores["int8"][k]), k
+        assert abs(scores["int8"][k] - wf_scores[k]) <= tol, (
+            k, scores["int8"][k], wf_scores[k])
+    rows["K2"]["launches_int8_eval"] = launches["K2"]
+
+
+# data parallelism (phase 17)
+DP_STEPS = 8                # timed steps of each run, in turns
+# a split request against the one-replica request: atol = rtol, the JAX
+# package's sharded render bound (tests/test_sharding.py:106)
+SPLIT_TOL = 1e-5
+
+
+def dp_phase(root, wf_run, requests, refs, smi, rows, reset_counts, counts,
+             per_req):
+    """Phase 17, data parallelism on the one card: the flagship fused step
+    (bfloat16_all, batch BATCH) on a mesh of one NCCL rank (the world size
+    --n_devices 1 runs) against the one-device step, two steps bit for
+    bit (loss, metrics, every gradient and parameter); the two timed in
+    turns (one device, mesh, mesh, one device; DP_STEPS steps each,
+    launches K1 2 / K2 1 / K3 1 a step on the mesh); one step on two gloo
+    ranks sharing the card (NCCL refuses two ranks on one device; spawned
+    processes) at float32 against the one-device step on the global batch
+    at tools/dp_check's bounds (the JAX package's
+    tests/test_sharding.py:100-104: loss within 1e-5 of max(1, |loss|),
+    each gradient within atol 5e-6 + rtol 5e-5 of its largest magnitude;
+    float32, whose kernels sit ~500 times closer to exact products than
+    bfloat16_all's, so that the split batch's other summation order stays
+    under the bound); the train CLI with --n_devices 1 --sharded_store 1
+    --scale_global_batch 1 for 8 steps on the workflow's AOI;
+    load_renderer(n_devices=1) against phase 5's request bit for bit; and
+    the split render of a multi-device server: two replicas sharing the
+    card, each chunk's rays and draws in two blocks rendered from two
+    threads (parallel/train_step.render_blocks), against phase 5's
+    request at SPLIT_TOL, K1 2 / K2 1 a chunk on each replica."""
+    from brdfnerf_tpu_torch.cli import opts as opts_mod
+    from brdfnerf_tpu_torch.cli import train as cli_train
+    from brdfnerf_tpu_torch.data.batcher import DeviceRayBatcher
+    from brdfnerf_tpu_torch.parallel import train_step as ts
+    from brdfnerf_tpu_torch.parallel.mesh import init_mesh, new_store_path
+    from brdfnerf_tpu_torch.serve import load_renderer
+    from brdfnerf_tpu_torch.tools import dp_check
+    zero = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0}
+    p = dp_check.flagship_payload("bfloat16_all", 512, BATCH)
+    n_store = p["store"]["rays"].shape[0]
+    p["idx"].append(np.random.RandomState(5).permutation(n_store)[
+        :BATCH].astype(np.int32))
+    one = dp_check.run_steps(None, p, device="cuda")
+    t0 = time.perf_counter()
+    mesh = init_mesh(0, 1, new_store_path(root), "cuda:0")
+    print(f"  a mesh of one rank: backend {mesh.backend}, joined in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    assert mesh.backend == "nccl"
+    try:
+        got = dp_check.run_steps(mesh, p)
+        same = (one["loss"] == got["loss"]
+                and one["metrics"] == got["metrics"]
+                and all(np.array_equal(one["grads"][k], got["grads"][k])
+                        for k in one["grads"])
+                and all(np.array_equal(one["params"][k], got["params"][k])
+                        for k in one["params"]))
+        print(f"  2 flagship steps, one NCCL rank vs one device: losses "
+              f"{got['loss']} vs {one['loss']}; bit for bit {same}",
+              flush=True)
+        assert same
+
+        mcfg, rcfg, tcfg = p["mcfg"], p["rcfg"], p["tcfg"]
+        sched = ts.GateSchedule(**p["sched"])
+        store = make_store(STORE_BATCHES * BATCH, np.random.RandomState(0))
+        per = {}
+
+        def timed(on_mesh):
+            m = mesh if on_mesh else None
+            batcher = DeviceRayBatcher(store, BATCH, seed=0, device="cuda",
+                                       mesh=m)
+            state, optimizer = ts.create_train_state(
+                mcfg, tcfg, batcher.steps_per_epoch, seed=0, device="cuda")
+            step = ts.make_fused_train_step(mcfg, rcfg, tcfg, optimizer,
+                                            sched, mesh=m)
+            for _ in range(WARM_STEPS):
+                state, _ = step(state, batcher.store,
+                                batcher.next_index_tensor(), 0)
+            torch.cuda.synchronize()
+            reset_counts()
+            ms, losses = [], []
+            for _ in range(DP_STEPS):
+                t0 = time.perf_counter()
+                state, met = step(state, batcher.store,
+                                  batcher.next_index_tensor(), 0)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                losses.append(float(met["loss"]))
+            per.setdefault(on_mesh, []).append((ms, counts(), losses))
+
+        for on_mesh in (False, True, True, False):
+            timed(on_mesh)
+        for on_mesh, runs in per.items():
+            best = min(min(r[0]) for r in runs)
+            mean = np.mean([np.mean(r[0]) for r in runs])
+            print(f"  {'mesh of one NCCL rank' if on_mesh else 'one device'}"
+                  f": ms/step fastest {best:.3f}, mean {mean:.3f}; train "
+                  f"rays/s {BATCH / best * 1e3:.1f} (fastest step), "
+                  f"{BATCH / mean * 1e3:.1f} (mean) ({smi})", flush=True)
+        assert per[True][0][2] == per[False][0][2], "mesh losses differ"
+        launches = per[True][0][1]
+        assert launches == dict(zero, K1=2 * DP_STEPS, K2=DP_STEPS,
+                                K3=DP_STEPS), launches
+        rows["K1"]["launches_dp"] = launches["K1"]
+        rows["K2zs"]["launches_dp"] = launches["K2"]
+        rows["K3"]["launches_dp"] = launches["K3"]
+    finally:
+        mesh.close()
+
+    t0 = time.perf_counter()
+    p32 = dp_check.flagship_payload("float32", 512, BATCH)
+    one32 = dp_check.run_steps(None, p32, device="cuda")
+    two = dp_check.on_ranks(p32, 2, "cuda", backend="gloo",
+                            devices=["cuda:0", "cuda:0"], store_dir=root)
+    c = dp_check.compare(one32, two)
+    top = sorted(c["grad_rel"].items(), key=lambda kv: -kv[1])[:3]
+    print(f"  one float32 step on two gloo ranks sharing the card vs one "
+          f"device: loss {c['loss'][1]:.7f} vs {c['loss'][0]:.7f} (relative "
+          f"{c['loss_rel']:.2e}); largest gradient differences over their "
+          f"scales {[(k, f'{v:.2e}') for k, v in top]}; held {c['held']}; "
+          f"{time.perf_counter() - t0:.1f} s with the ranks' start "
+          f"({smi})", flush=True)
+    assert c["held"], c["worst"]
+
+    args = opts_mod.load_opts(wf_run)
+    logs = os.path.join(root, "logs")
+    argv = ["--root_dir", args.root_dir, "--gt_dir", args.gt_dir,
+            "--aoi_id", args.aoi_id, "--logs_dir", logs, "--ckpts_dir",
+            os.path.join(root, "ckpts"), "--model", "spsbrdf-nerf",
+            "--mapping", "--fc_feat", "512", "--fc_layers", "8",
+            "--n_samples", str(N_SAMPLES), "--guided_samples",
+            str(N_SAMPLES), "--batch_size", str(BATCH), "--lr", "5e-4",
+            "--ds_lambda", "10", "--compute_dtype", "bfloat16_all",
+            "--chunk", str(CHUNK), "--normal", "analystic", "--sun_v",
+            "analystic", "--funcM", "1", "--funcF", "1", "--funcH", "1",
+            "--brdf_on", "0", "--nr_reg_an_lambda", "0.1", "--hs_lambda",
+            "0.5", "--exp_name", "dp", "--max_train_steps", "8",
+            "--eval_every_n_epochs", "0", "--n_devices", "1",
+            "--sharded_store", "1", "--scale_global_batch", "1"]
+    reset_counts()
+    rc, text, seconds = run_cli("train CLI, --n_devices 1", cli_train.main,
+                                argv, smi)
+    launches = counts()
+    assert rc == 0 and "[mesh] 1 data-parallel rank(s), nccl on cuda" in text
+    # the steps' K3 (validation renders run no backward); the final
+    # validation's chunks add K1 and K2 launches
+    assert launches["K3"] == 8 and launches["K1"] >= 16, launches
+    with open(os.path.join(logs, "dp", "scalars.jsonl")) as f:
+        loss = [json.loads(ln) for ln in f]
+    loss = [r["train/loss"] for r in loss if "train/loss" in r]
+    assert loss and all(np.isfinite(loss)), loss
+    assert os.path.exists(os.path.join(root, "ckpts", "dp", "epoch=0.npz"))
+
+    r1 = load_renderer(refs["run_dir"], 1, n_devices=1, device="cuda")
+    out = r1.render_image({"rays": requests[0]})
+    same = all(np.array_equal(out[k], refs["bf16"][k]) for k in out)
+    print(f"  load_renderer(n_devices=1) vs phase 5's request: bit for bit "
+          f"{same}", flush=True)
+    assert same and sorted(out) == sorted(refs["bf16"])
+
+    r1.replicas = [(r1.device, r1.net),
+                   (r1.device, copy.deepcopy(r1.net))]
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = r1.render_image({"rays": requests[0]})
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = counts()
+    gap = {k: float(np.max(np.abs(out[k] - refs["bf16"][k])
+                           - SPLIT_TOL * np.abs(refs["bf16"][k])))
+           for k in out}
+    worst = max(gap, key=gap.get)
+    print(f"  two replicas sharing the card vs phase 5's request: launches "
+          f"{launches}; largest |d| - {SPLIT_TOL:g} |ref| {gap[worst]:.3e} "
+          f"({worst}); {requests[0].shape[0] / dt:.1f} rays/s ({smi})",
+          flush=True)
+    assert sorted(out) == sorted(refs["bf16"])
+    assert gap[worst] <= SPLIT_TOL, (worst, gap[worst])
+    assert launches == dict(zero, K1=4 * per_req, K2=2 * per_req), launches
+    rows["K1"]["launches_split"] = launches["K1"]
+    rows["K2"]["launches_split"] = launches["K2"]
+
+
 def main():
     phase("device")
     if not torch.cuda.is_available():
@@ -3080,6 +3432,8 @@ def main():
                                        "K3": 0, "K4": 0, "K5": 0})
     rows["K1"]["launches"] = launches["K1"]
     rows["K2"]["launches"] = launches["K2"]
+    # request 0 at bfloat16_all, which phases 16 and 17 compare against
+    refs = {"run_dir": run_dir, "bf16": outs[0]}
 
     phase("check")
     check_served(outs)
@@ -3093,6 +3447,7 @@ def main():
                            {"K1": 2 * chunks, "K2": 0, "K3": 0,
                             "K4": chunks, "K5": 0})
     rows["K4"]["launches"] = launches["K4"]
+    refs["heads"] = outs[0]
     check_served(outs)
     del os.environ[FUSED_HEADS]
     del renderer, outs
@@ -3804,8 +4159,26 @@ def main():
                                        bare_rays_s["train step"])
 
     phase("eval")
-    eval_phase(os.path.join(tmp.name, "eval"), run_dir, epoch, reset_counts,
-               counts, smi, rows, run_f32)
+    wf_scores = eval_phase(os.path.join(tmp.name, "eval"), run_dir, epoch,
+                           reset_counts, counts, smi, rows, run_f32)
+
+    # int8 serving (Queue 1 item 10) on the flagship run's weights and on
+    # the workflow's stage-2 run
+    phase("serving, int8")
+    t_int8 = time.perf_counter()
+    int8_phase(os.path.join(tmp.name, "int8"), refs["run_dir"], run_dir,
+               epoch, wf_scores, requests, refs, check_served, reset_counts,
+               counts, smi, rows, per_req)
+    print(f"  the int8 phase took {time.perf_counter() - t_int8:.1f} s",
+          flush=True)
+    # data parallelism (Queue 1 item 11 without tensor parallelism)
+    phase("data parallel")
+    t_dp = time.perf_counter()
+    dp_phase(os.path.join(tmp.name, "dp"), run_dir, requests, refs, smi,
+             rows, reset_counts, counts, per_req)
+    print(f"  the data-parallel phase took {time.perf_counter() - t_dp:.1f}"
+          " s", flush=True)
+    del refs
 
     # each family's two-stage workflow on its shaded AOI through the train
     # CLI, and the eval CLI on its stage 2
@@ -3846,8 +4219,9 @@ def main():
     idle = [r["name"] for r in rows.values() if not r.get("launches")]
     assert not idle, f"never launched on a main path: {idle}"
     keys = ("name", "route", "source", "replaces", "act", "width", "dtype",
-            "points", "launches",
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "points", "launches", "launches_int8", "launches_int8_eval",
+            "launches_dp", "launches_split", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by",
             "library_ms", "launches_train", "launches_eval",
             "launches_families", "launches_defaults",
             "bound_split_ms", "rel_l2", "bf16_over_f32",

@@ -135,15 +135,41 @@ def test_train_cli_states_its_kernels(monkeypatch, dtype, heads_env, want):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--n_devices", "2"], "item 11"), (["--tp", "2"], "item 11"),
-    (["--sharded_store", "1"], "item 11"),
-    (["--scale_global_batch", "1"], "item 11")])
+    (["--tp", "2"], "item 11"), (["--tp", "2", "--n_devices", "2"],
+                                 "tensor parallelism")])
 def test_train_cli_refuses_what_is_not_ported(tmp_path, extra, match):
+    """Tensor parallelism (--tp > 1) is the one multi-GPU capability not
+    ported yet (ROADMAP.md Queue 1 item 11b): refused before anything is
+    written."""
     argv = ["--root_dir", str(tmp_path), "--exp_name", "e",
             "--logs_dir", str(tmp_path / "logs")] + extra
     with pytest.raises(NotImplementedError, match=match):
         port_train_main(argv, device="cpu")
     assert not os.path.exists(tmp_path / "logs")
+
+
+@pytest.mark.parametrize("extra,lines", [
+    (["--n_devices", "2"], ["[mesh] 2 data-parallel rank(s), gloo on cpu"]),
+    (["--sharded_store", "1"], ["[mesh] sharded_store ignored: needs a mesh"]),
+    (["--scale_global_batch", "1"], [])])
+def test_train_cli_runs_the_multi_device_flags(tmp_path, capsys, extra,
+                                               lines):
+    """The flags this test once refused run on the CPU: --n_devices 2
+    trains on two gloo ranks; --sharded_store and --scale_global_batch
+    without a mesh do nothing, as in the JAX package (the first says it is
+    ignored, the second leaves the batch and lr as they are)."""
+    aoi = build_aoi(str(tmp_path / "aoi"))
+    argv = ["--root_dir", aoi["root"], "--exp_name", "e", "--logs_dir",
+            str(tmp_path / "logs"), "--ckpts_dir", str(tmp_path / "ckpts"),
+            "--fc_feat", "64", "--fc_layers", "4", "--n_samples", "8",
+            "--batch_size", "256", "--max_train_steps", "2",
+            "--eval_every_n_epochs", "0"] + extra
+    assert port_train_main(argv, device="cpu") == 0
+    out = capsys.readouterr().out
+    assert all(ln in out for ln in lines), (lines, out)
+    assert "scaled global batch" not in out
+    ck = tckpt.latest_checkpoint(os.path.join(str(tmp_path / "ckpts"), "e"))
+    assert tckpt.checkpoint_step(ck) == 2
 
 
 @pytest.mark.parametrize("extra", [["--print_debuginfo"],
@@ -187,6 +213,9 @@ def test_training_entry_points_need_the_card_or_a_device(tmp_path,
     with pytest.raises(RuntimeError, match="CUDA"):
         ttrain.Trainer(None, {}, ttrain.TrainerPaths(
             str(tmp_path / "l"), str(tmp_path / "c")))
+    # a mesh is taken now; tensor parallelism (a tensor-parallel state
+    # layout) is what remains refused
+    from brdfnerf_tpu_torch.parallel import train_step as tts
     with pytest.raises(NotImplementedError, match="item 11"):
-        ttrain.Trainer(None, {}, ttrain.TrainerPaths("l", "c"),
-                       mesh=object(), device="cpu")
+        tts.make_fused_train_step(None, None, None, None, None,
+                                  mesh=object(), state_shardings=object())

@@ -462,15 +462,27 @@ def test_eval_parser_matches_jax():
     assert flags(topts.eval_parser()) == flags(jopts.eval_parser())
 
 
-@pytest.mark.parametrize("kw,match", [
-    (dict(compute_dtype="int8"), "item 10"),
-    (dict(n_devices=2), "item 11")])
-def test_eval_refuses_what_is_not_ported(run, tmp_path, kw, match):
+@pytest.mark.parametrize("kw", [dict(compute_dtype="int8"),
+                                dict(n_devices=2)])
+def test_eval_runs_what_it_once_refused(run, tmp_path, kw):
+    """The eval CLI's evaluate at int8 (Queue 1 item 10) and on two
+    serving replicas (item 11) scores the JAX-trained run on the CPU:
+    finite scores, the outputs written; two replicas score what one
+    device scores (each chunk's rays split over them, as the JAX
+    package's sharded render), and int8 within the cross-package bounds
+    of its bfloat16 scores."""
     out = tmp_path / "ev"
-    with pytest.raises(NotImplementedError, match=match):
-        teval.evaluate(run["run_dir"], 0, output_dir=str(out), device="cpu",
-                       **kw)
-    assert not out.exists()
+    got = teval.evaluate(run["run_dir"], 0, output_dir=str(out),
+                         device="cpu", **kw)
+    assert all(np.isfinite(got[k]) for k in ("psnr", "ssim", "mae")), got
+    assert any(f.endswith("_rgb.tif") for f in _files(out))
+    ref = teval.evaluate(run["run_dir"], 0, output_dir=str(tmp_path / "one"),
+                         device="cpu")
+    if "n_devices" in kw:
+        for k in ("psnr", "ssim", "mae"):
+            assert abs(got[k] - ref[k]) <= 1e-4 * (1 + abs(ref[k])), k
+    else:
+        _close_scores(got, ref)
 
 
 def test_find_best_t_on_a_run_with_the_t_embedding(run, tmp_path, capsys):

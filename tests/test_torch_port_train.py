@@ -368,12 +368,14 @@ def test_training_entry_points_never_fall_back(monkeypatch):
         tbatch.DeviceRayBatcher(make_store(8), 4)
     _, opt = tts.create_train_state(tm, tt, 1, device="cpu")
     sched = tts.GateSchedule(1e18, 1e18, -1.0, 1, 0)
-    for kw in (dict(mesh=object()), dict(store_sharded=True),
-               dict(state_shardings=object())):
+    # a mesh is taken (data parallelism); a sharded store needs one, and
+    # a tensor-parallel state layout is not ported yet
+    with pytest.raises(ValueError, match="requires a mesh"):
+        tts.make_fused_train_step(tm, tr, tt, opt, sched, store_sharded=True)
+    for make in (tts.make_fused_train_step, tts.make_scan_train_step):
         with pytest.raises(NotImplementedError, match="item 11"):
-            tts.make_fused_train_step(tm, tr, tt, opt, sched, **kw)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tts.make_scan_train_step(tm, tr, tt, opt, sched, mesh=object())
+            make(tm, tr, tt, opt, sched, mesh=object(),
+                 state_shardings=object())
     # density noise draws from the step's generator, or from the draws it
     # is handed; never from torch's global generator
     noisy = dc.replace(tr, noise_std=1.0)
