@@ -185,8 +185,10 @@ def train_parser() -> argparse.ArgumentParser:
                         "trains on N ranks, one process a GPU: NCCL on "
                         "CUDA, gloo on the CPU)")
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel width (tensor parallelism is not "
-                        "ported yet)")
+                   help="tensor-parallel width T: the --n_devices ranks "
+                        "form a (n_devices / T, T) (data, model) mesh and "
+                        "each model group shares the trunk's layers "
+                        "(needs --n_devices a multiple of T; K1-K5 off)")
     p.add_argument("--sharded_store", type=int, default=0, choices=[0, 1],
                    help="shard the device ray store over the mesh 'data' "
                         "axis (1/N of the rays + HBM per device, per-shard "

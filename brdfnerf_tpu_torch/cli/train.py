@@ -12,7 +12,10 @@ kernels do not cover the model.
 (parallel/mesh.run_ranks: rank 0 in this process, the others spawned; NCCL
 on CUDA, gloo on the CPU); the visible devices are counted before the
 dataset is read.  --sharded_store and --scale_global_batch act on a mesh,
-as in the JAX package.  --tp > 1 (tensor parallelism) is not ported yet.
+as in the JAX package.  --tp T (tensor parallelism, parallel/tensor.py)
+makes the N ranks a (N / T, T) (data, model) mesh: N must be a multiple
+of T, checked before the dataset is read, and the run takes K1-K5 off
+(its [kernels] line says why).
 """
 
 from __future__ import annotations
@@ -23,16 +26,22 @@ import sys
 import time
 
 from . import opts as opts_mod
-from ..models.network import grad_safe_cfg, int8_trunk, not_ported
+from ..models.network import grad_safe_cfg, int8_trunk
 
 
-def kernels_line(cfg, device, train: bool = True) -> str:
+def kernels_line(cfg, device, train: bool = True, tp: int = 1) -> str:
     """Which fused kernels the run launches, or why none: its train steps,
     or with train=False its renders (the serving instantiations, no
-    backward)."""
+    backward); tp: the model axis of a tensor-parallel run."""
     from ..ops.fused_mlp import (CUDA_DTYPES, CUDA_WIDTHS, LANE, act_of,
                                  cuda_kernels_cover, split_operands)
     m, r = cfg.model, cfg.render
+    if tp > 1:
+        return (f"[kernels] none: tensor parallelism (--tp {tp}) cuts every "
+                "trunk layer over the model axis, and K1-K5 run all the "
+                "trunk's layers in one launch, with no place for the "
+                "all-reduce each layer pair needs, so the trunk runs "
+                "Megatron's split in plain torch (parallel/tensor.py)")
     if device.type != "cuda":
         return ("[kernels] none: the run is on the CPU, where the kernels' "
                 "plain PyTorch twins run in their place")
@@ -126,8 +135,10 @@ def main(argv=None, device=None):
     from ..utils.device import resolve_device
     args = opts_mod.postprocess(opts_mod.train_parser().parse_args(argv))
     # fail fast, before dataset ingestion
-    if args.tp > 1:
-        raise not_ported("tensor parallelism (--tp)", 11)
+    if args.tp > 1 and (not args.n_devices or args.n_devices % args.tp):
+        raise SystemExit(
+            f"--tp {args.tp} needs --n_devices set to a multiple of it "
+            f"(got {args.n_devices})")
     if args.n_devices < 0:
         raise SystemExit(f"--n_devices {args.n_devices}: need 0 (one "
                          "device, no mesh) or N >= 1")
@@ -138,7 +149,7 @@ def main(argv=None, device=None):
         check_devices(args.n_devices, device)
         opts_mod.dump_opts(args, run_dir)
         return run_ranks(train_rank, args.n_devices, run_dir, device,
-                         args=(args,))
+                         args=(args,), n_model=max(1, args.tp))
     opts_mod.dump_opts(args, run_dir)
     return _train(args, device)
 
@@ -157,10 +168,11 @@ def _train(args, device, mesh=None) -> int:
 
     run_dir = os.path.join(args.logs_dir, args.exp_name)
     cfg = opts_mod.to_run_config(args, device=device)
-    say(kernels_line(cfg, device))
+    say(kernels_line(cfg, device, tp=args.tp))
     if mesh is not None:
-        say(f"[mesh] {mesh.size} data-parallel rank(s), {mesh.backend} on "
-            f"{device.type}")
+        say(f"[mesh] {mesh.n_data} data-parallel rank(s)"
+            + (f" x {mesh.n_model} model-parallel" if mesh.n_model > 1
+               else "") + f", {mesh.backend} on {device.type}")
 
     if args.print_debuginfo:
         from ..utils import guards

@@ -37,9 +37,9 @@ class RayBatcher:
     def __init__(self, arrays: Dict[str, np.ndarray], batch_size: int,
                  seed: int = 0, mesh=None):
         self.mesh = mesh
-        if mesh is not None and batch_size % mesh.size:
+        if mesh is not None and batch_size % mesh.n_data:
             raise ValueError(f"batch_size {batch_size} not divisible by "
-                             f"the {mesh.size} ranks of the mesh")
+                             f"the {mesh.n_data} data ranks of the mesh")
         self.arrays = arrays
         n = {k: v.shape[0] for k, v in arrays.items()}
         sizes = set(n.values())
@@ -125,7 +125,8 @@ class ShardedRayBatcher:
     this rank's block, which indexes its shard.  global_indices(local)
     converts a draw to indices into the padded global store, for a
     replicated run that replays the same draws.  `mesh` needs a
-    .shape[axis] shard count (and with place, .rank and .device)."""
+    .shape[axis] shard count (and with place, .data_rank and .device:
+    the ranks of a model group hold the same shard)."""
 
     def __init__(self, arrays: Dict[str, np.ndarray], batch_size: int,
                  mesh, seed: int = 0, axis: str = "data",
@@ -161,8 +162,8 @@ class ShardedRayBatcher:
         self.device = None
         if place:
             self.device = torch.device(mesh.device)
-            rows = slice(mesh.rank * self.shard_size,
-                         (mesh.rank + 1) * self.shard_size)
+            d = mesh.data_rank
+            rows = slice(d * self.shard_size, (d + 1) * self.shard_size)
             for k, v in self.padded_arrays(arrays).items():
                 self._store[k] = torch.as_tensor(
                     np.ascontiguousarray(v[rows]), device=self.device)

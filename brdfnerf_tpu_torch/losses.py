@@ -9,8 +9,10 @@ package.  The reference's quirks that the JAX package documents are kept:
 normal_reg_loss sums over the flattened rays x samples axis, and
 normal_loss's 'an_lr' term is mean(w) * mean(|diff|).
 
-On a data-parallel mesh of several ranks (parallel/mesh.Mesh, `mesh`),
-each rank holds an equal block of the global batch, and every function
+On a data-parallel mesh of several data ranks (parallel/mesh.Mesh,
+`mesh`; under tensor parallelism its data axis, the ranks of a model
+group computing the same shares), each rank holds an equal block of the
+global batch, and every function
 returns this rank's share of the global loss: the shares sum to the loss
 the JAX package computes over the global batch, and so do their gradients,
 which the step all-reduces.  A plain mean becomes the rank's sum over the
@@ -36,7 +38,7 @@ def _typs(results: Dict):
 
 
 def _world(mesh) -> int:
-    return 1 if mesh is None else int(mesh.size)
+    return 1 if mesh is None else int(mesh.n_data)
 
 
 def _mean(x, mesh=None):
@@ -45,7 +47,7 @@ def _mean(x, mesh=None):
     over the ranks is that mean."""
     if _world(mesh) == 1:
         return torch.mean(x)
-    return torch.sum(x) / (x.numel() * mesh.size)
+    return torch.sum(x) / (x.numel() * mesh.n_data)
 
 
 def _global_sum(x, mesh=None):
@@ -202,7 +204,7 @@ def normal_loss(weights, normal_gt, normal_pred,
         mw_r = _mean(weights, mesh)
         l1_g, mw_g = _global_sum(l1_r, mesh), _global_sum(mw_r, mesh)
         d[f"{typ}_nrspv_{keyword}"] = (mw_r * l1_g + mw_g * l1_r
-                                       - mw_g * l1_g / mesh.size)
+                                       - mw_g * l1_g / mesh.n_data)
     elif keyword == "an_lr":
         l1 = torch.mean(torch.abs(normal_gt - normal_pred))
         d[f"{typ}_nrspv_{keyword}"] = weights.reshape(-1) * l1

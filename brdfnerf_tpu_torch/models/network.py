@@ -36,13 +36,6 @@ from ..ops.encoding import positional_encoding
 from ..ops.fused_mlp import _round_up
 
 
-def not_ported(what: str, item: int):
-    """The error for a capability of the JAX package that a later slice of
-    the port brings; `item` is its entry in ROADMAP.md Queue 1."""
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md Queue 1 item {item})")
-
-
 # ---------------------------------------------------------------- modules
 
 class Dense(nn.Module):
@@ -102,6 +95,9 @@ class Network(nn.ModuleDict):
             name: nn.ModuleList([Dense(i, o, device) for i, o in dims])
             for name, dims in sizes.items()})
         self.cfg = cfg
+        # a tensor-parallel trunk's layout (parallel/tensor.Layout): its
+        # fc_net layers hold this rank's blocks
+        self.tp = None
 
 
 class Params(nn.Module):
@@ -299,15 +295,21 @@ def softplus(x):
 def _trunk_features(net: Network, cfg: ModelConfig, xyz):
     """Encoded xyz -> shared features (calc_features, spsbrdfnerf.py:636-646).
     The skip layer's concat([enc, h]) @ W is evaluated as
-    enc @ W_top + h @ W_bot, as in the JAX package."""
+    enc @ W_top + h @ W_bot, as in the JAX package.  A tensor-parallel
+    trunk (net.tp) runs the Megatron forward (_trunk_features_tp)."""
     enc = (positional_encoding(xyz, cfg.mapping_sizes[0], fast=cfg.fast_sin)
            if cfg.mapping else xyz)
     e_dim = enc.shape[-1]
     if int8_trunk(cfg):
+        if net.tp is not None:
+            raise ValueError("int8 serving takes whole weights, not a "
+                             "tensor-parallel trunk")
         lin = _linear_int8
     else:
         def lin(w, b, x):
             return _linear(w, b, x, cfg.compute_dtype)
+    if net.tp is not None:
+        return _trunk_features_tp(net, cfg, enc, lin)
     h = enc
     for i, layer in enumerate(net["fc_net"]):
         if i in cfg.skips:
@@ -317,6 +319,42 @@ def _trunk_features(net: Network, cfg: ModelConfig, xyz):
         else:
             h = _act(cfg, lin(layer.w, layer.b, h), first=(i == 0))
     return h
+
+
+def _trunk_features_tp(net: Network, cfg: ModelConfig, enc, lin):
+    """The trunk over a model group, Megatron's forward on this rank's
+    blocks (parallel/tensor.py): a column-parallel layer takes its
+    replicated input through `copy` and gives its block of the outputs; a
+    row-parallel layer multiplies its block of the inputs, the partial
+    products are summed over the model group (`reduce`) and the bias is
+    added once, after the sum; the activation between them runs on the
+    block.  Where a column layer follows a column layer (a skip at an odd
+    index), or ends the trunk, the blocks are joined first (`gather`).  x
+    enters layer 0 and the skip layer through `copy`, whose backward sums
+    each rank's part of the sigma gradient."""
+    from ..parallel.tensor import (COLUMN, copy_to, gather_from, reduce_from,
+                                   trunk_spec)
+    tp = net.tp
+    e_dim = enc.shape[-1]
+    h, block = enc, False
+    for i, layer in enumerate(net["fc_net"]):
+        if trunk_spec(i, "w", tp.skips) == COLUMN:
+            if block:
+                h = gather_from(h, tp)
+            x = copy_to(h, tp)
+            if i in cfg.skips:
+                z = (lin(layer.w[:, :e_dim], layer.b, copy_to(enc, tp))
+                     + lin(layer.w[:, e_dim:], torch.zeros_like(layer.b),
+                           x))
+            else:
+                z = lin(layer.w, layer.b, x)
+            block = True
+        else:
+            part = lin(layer.w, torch.zeros_like(layer.b), h)
+            z = reduce_from(part, tp) + layer.b.to(part.dtype)
+            block = False
+        h = _act(cfg, z, first=(i == 0))
+    return gather_from(h, tp) if block else h
 
 
 def _head(net: Network, cfg: ModelConfig, name, x, final=None,
@@ -380,6 +418,17 @@ def grad_safe_cfg(cfg: ModelConfig) -> ModelConfig:
     return cfg
 
 
+def refuse_kernels(net: Network) -> None:
+    """A tensor-parallel trunk holds blocks, and the fused kernels take
+    whole weights: a step or render on such a trunk is built with the
+    kernels off (parallel/tensor.kernels_off), and a kernel gate that
+    meets one raises rather than run on the blocks."""
+    if net.tp is not None:
+        raise ValueError("a tensor-parallel trunk runs no fused kernel: "
+                         "build the render config with "
+                         "parallel.tensor.kernels_off")
+
+
 def analytic_normals(net: Network, cfg: ModelConfig, xyz):
     """-normalize(grad_xyz sigma), calc_normals (spsbrdfnerf.py:648-660):
     the gradient of the summed density (sigma at a point depends on that
@@ -436,6 +485,7 @@ def apply_network_with_normals(net: Network, cfg: ModelConfig, xyz,
     runs K2, or K4 with the switch, at bfloat16_all."""
     grad_cfg = grad_safe_cfg(cfg)
     if fused_trunk:
+        refuse_kernels(net)
         from ..ops.fused_mlp import kernel_supports
         fused_trunk = kernel_supports(grad_cfg)
     if fused_trunk:

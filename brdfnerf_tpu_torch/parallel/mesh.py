@@ -19,6 +19,15 @@ the device unless the caller names one; nothing switches NCCL to gloo on
 its own.  Two ranks on one card need gloo: NCCL refuses two ranks on one
 device.
 
+Tensor parallelism (parallel/tensor.py) makes the mesh 2-D: `n_model`
+ranks a model group, rank = d * n_model + m with 'model' innermost (the
+JAX package's tp_mesh), a process group a data column and a model row.
+The batch splits over the data axis alone (`block`), so every rank of a
+model group takes the same rows and draws; the gradients, the losses'
+global counts and the metrics reduce over the data group, and the trunk's
+collectives run over the model group.  A mesh of n_model 1 is the 1-D
+data-parallel mesh, its data group the world.
+
 Serving is one process with a replica on each of the first N devices
 (`serving_devices`; parallel/train_step.render_blocks).
 """
@@ -29,6 +38,7 @@ import datetime
 import os
 import sys
 import threading
+import time
 import uuid
 from typing import Callable, List, Optional, Sequence
 
@@ -42,30 +52,49 @@ GRACE = 30.0
 
 
 class Mesh:
-    """One rank of the data-parallel process group.  `size` ranks each hold
-    an equal, contiguous block of every global batch (`block`).  With a
-    gloo group on CUDA tensors the collectives stage through the host."""
+    """One rank of a (data, model) mesh of `size` ranks, n_model of them a
+    model group (1: the 1-D data-parallel mesh).  The n_data = size /
+    n_model data ranks each hold an equal, contiguous block of every
+    global batch (`block`); sum, max and reduce_grads reduce over this
+    rank's data group (the ranks of its model rank), broadcast and
+    barrier over the world, model_all_reduce_ and model_all_gather over
+    its model group.  With a gloo group on CUDA tensors the collectives
+    stage through the host."""
 
     def __init__(self, rank: int, size: int, device: torch.device,
-                 backend: str, store_path: Optional[str] = None):
+                 backend: str, store_path: Optional[str] = None,
+                 n_model: int = 1, data_group=None, model_group=None):
         self.rank = int(rank)
         self.size = int(size)
+        self.n_model = int(n_model)
+        self.n_data = self.size // self.n_model
+        self.data_rank, self.model_rank = divmod(self.rank, self.n_model)
         self.device = torch.device(device)
         self.backend = backend
         self.store_path = store_path
+        # None: the default group (the world), which a 1-D mesh's data
+        # group is
+        self.data_group = data_group
+        self.model_group = model_group
+        # the model group's collectives so far: calls, bytes this rank
+        # sent in, seconds (host clock; with gloo on CUDA tensors, the
+        # staging copies included)
+        self.model_calls = self.model_bytes = 0
+        self.model_seconds = 0.0
 
     @property
     def shape(self):
         """The mesh's axes, as the JAX package's Mesh.shape reads."""
-        return {"data": self.size}
+        return {"data": self.n_data, "model": self.n_model}
 
     def block(self, n: int) -> slice:
-        """This rank's contiguous block of a global batch of n rows."""
-        if n % self.size:
+        """This rank's contiguous block of a global batch of n rows: its
+        data rank's (the ranks of a model group take the same block)."""
+        if n % self.n_data:
             raise ValueError(f"a global batch of {n} does not split over "
-                             f"{self.size} ranks")
-        per = n // self.size
-        return slice(self.rank * per, (self.rank + 1) * per)
+                             f"{self.n_data} data ranks")
+        per = n // self.n_data
+        return slice(self.data_rank * per, (self.data_rank + 1) * per)
 
     def _staged(self, t: torch.Tensor, fn) -> torch.Tensor:
         if self.backend == "gloo" and t.device.type != "cpu":
@@ -77,15 +106,16 @@ class Mesh:
         return t
 
     def all_reduce_(self, t: torch.Tensor, op=dist.ReduceOp.SUM):
-        """t reduced over the ranks, in place."""
-        return self._staged(t, lambda x: dist.all_reduce(x, op=op))
+        """t reduced over the data group, in place."""
+        return self._staged(t, lambda x: dist.all_reduce(
+            x, op=op, group=self.data_group))
 
     def sum(self, t: torch.Tensor) -> torch.Tensor:
-        """A copy of t summed over the ranks."""
+        """A copy of t summed over the data group."""
         return self.all_reduce_(t.detach().clone())
 
     def max(self, t: torch.Tensor) -> torch.Tensor:
-        """A copy of t's largest value over the ranks."""
+        """A copy of t's largest value over the data group."""
         return self.all_reduce_(t.detach().clone(), dist.ReduceOp.MAX)
 
     def broadcast(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
@@ -93,10 +123,37 @@ class Mesh:
         return self._staged(t.detach().clone(),
                             lambda x: dist.broadcast(x, src))
 
+    def _model_count(self, t: torch.Tensor, t0: float) -> None:
+        self.model_calls += 1
+        self.model_bytes += t.numel() * t.element_size()
+        self.model_seconds += time.perf_counter() - t0
+
+    def model_all_reduce_(self, t: torch.Tensor) -> torch.Tensor:
+        """t summed over the model group, in place."""
+        t0 = time.perf_counter()
+        self._staged(t, lambda x: dist.all_reduce(x, group=self.model_group))
+        self._model_count(t, t0)
+        return t
+
+    def model_all_gather(self, t: torch.Tensor) -> List[torch.Tensor]:
+        """Every model rank's t (of one shape), in model-rank order."""
+        t0 = time.perf_counter()
+        t = t.contiguous()
+        host = t.cpu() if (self.backend == "gloo"
+                           and t.device.type != "cpu") else t
+        parts = [torch.empty_like(host) for _ in range(self.n_model)]
+        dist.all_gather(parts, host, group=self.model_group)
+        parts = [p.to(t.device) for p in parts]
+        self._model_count(t, t0)
+        return parts
+
     def reduce_grads(self, params: Sequence[torch.Tensor]) -> None:
-        """Sum the parameters' gradients over the ranks, in one flat
+        """Sum the parameters' gradients over the data group, in one flat
         buffer; a parameter without a gradient takes zeros (as the
-        optimizer's step gives it)."""
+        optimizer's step gives it).  Under tensor parallelism a trunk
+        block's gradient is its model rank's alone, and a replicated
+        parameter's is the same on every rank of a model group, so the
+        data group is the whole sum."""
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
@@ -111,13 +168,15 @@ class Mesh:
             off += g.numel()
 
     def broadcast_module(self, module: torch.nn.Module, src: int = 0):
-        """Every parameter of `module` set to rank src's values."""
+        """Every parameter of `module` set to rank src's values (whole
+        parameters: under tensor parallelism, before the blocks are
+        cut)."""
         with torch.no_grad():
             for p in module.parameters():
                 p.copy_(self.broadcast(p, src))
 
     def barrier(self):
-        self.sum(torch.zeros(1, device=self.device))
+        self._staged(torch.zeros(1, device=self.device), dist.all_reduce)
 
     def close(self):
         if dist.is_initialized():
@@ -160,27 +219,45 @@ def new_store_path(directory: str) -> str:
 
 
 def init_mesh(rank: int, size: int, store_path: str, device,
-              backend: Optional[str] = None) -> Mesh:
+              backend: Optional[str] = None, n_model: int = 1) -> Mesh:
     """Join the process group of `size` ranks as `rank` through the
     FileStore at store_path.  device: the rank's device (cuda:<k> or the
-    CPU); backend: NCCL on CUDA, gloo on the CPU unless named."""
+    CPU); backend: NCCL on CUDA, gloo on the CPU unless named.  n_model > 1
+    makes the mesh (size / n_model, n_model): every rank creates every
+    data and model group, in the same order."""
     device = torch.device(device)
     backend = backend or default_backend(device)
     if device.type == "cuda":
         torch.cuda.set_device(device)
+    if n_model < 1 or size % n_model:
+        raise ValueError(f"a model axis of {n_model} does not split "
+                         f"{size} ranks")
     store = dist.FileStore(store_path, size)
     dist.init_process_group(backend, store=store, rank=rank,
                             world_size=size, timeout=TIMEOUT)
-    return Mesh(rank, size, device, backend, store_path)
+    groups = {}
+    if n_model > 1:
+        n_data = size // n_model
+        d, m = divmod(rank, n_model)
+        for col in range(n_model):
+            g = dist.new_group([r * n_model + col for r in range(n_data)])
+            if col == m:
+                groups["data_group"] = g
+        for row in range(n_data):
+            g = dist.new_group([row * n_model + c for c in range(n_model)])
+            if row == d:
+                groups["model_group"] = g
+    return Mesh(rank, size, device, backend, store_path, n_model, **groups)
 
 
 def _rank_entry(index: int, fn: Callable, size: int, store_path: str,
                 devices: List[str], backend: Optional[str], threads: int,
-                args: tuple):
+                args: tuple, n_model: int = 1):
     """The body of a spawned rank (rank index + 1)."""
     torch.set_num_threads(threads)
     rank = index + 1
-    mesh = init_mesh(rank, size, store_path, devices[rank], backend)
+    mesh = init_mesh(rank, size, store_path, devices[rank], backend,
+                     n_model)
     try:
         fn(mesh, *args)
     finally:
@@ -212,8 +289,9 @@ def _watch(ctx, done, failed: list):
 
 def run_ranks(fn: Callable, size: int, store_dir: str, device,
               backend: Optional[str] = None, args: tuple = (),
-              devices: Optional[Sequence] = None):
-    """fn(mesh, *args) on `size` ranks: ranks 1..size-1 in spawned
+              devices: Optional[Sequence] = None, n_model: int = 1):
+    """fn(mesh, *args) on `size` ranks (a (size / n_model, n_model) mesh
+    with n_model > 1): ranks 1..size-1 in spawned
     processes, rank 0 in this one; returns rank 0's result.  Rank k runs
     on devices[k] (default rank_device(device, k): cuda:<k>, or the CPU);
     two ranks that share a card need backend='gloo'.  A failure of
@@ -233,7 +311,7 @@ def run_ranks(fn: Callable, size: int, store_dir: str, device,
     if size > 1:
         ctx = mp.start_processes(
             _rank_entry, args=(fn, size, store_path, devices, backend,
-                               torch.get_num_threads(), args),
+                               torch.get_num_threads(), args, n_model),
             nprocs=size - 1, join=False, start_method="spawn")
         watcher = threading.Thread(target=_watch, args=(ctx, done, failed),
                                    daemon=True)
@@ -245,7 +323,7 @@ def run_ranks(fn: Callable, size: int, store_dir: str, device,
             watcher.join()
 
     try:
-        mesh = init_mesh(0, size, store_path, devices[0], backend)
+        mesh = init_mesh(0, size, store_path, devices[0], backend, n_model)
         try:
             out = fn(mesh, *args)
         finally:

@@ -27,7 +27,17 @@ in), and the global batch's first ray, which the render reads
 global loss (losses.py), so the ranks' gradients, all-reduced, are the
 global gradient; Adam then steps identically on every rank.  A step over
 N ranks is the one-device step on the global batch up to the order of its
-sums.  Tensor parallelism (state_shardings) is not ported yet.
+sums.
+
+Tensor parallelism (mesh: a (data, model) mesh, parallel/tensor.py): the
+batch splits over the data axis alone, so every rank of a model group
+takes the same block and draws; the state holds this rank's blocks of the
+trunk (create_train_state's layout, tensor.shard_state) and its Adam
+moments for them; the trunk's forward and backward run the Megatron
+collectives over the model group (models/network._trunk_features_tp); the
+gradients all-reduce over the data group.  The step runs with K1-K5 off
+(tensor.kernels_off).  A step over a (D, T) mesh is the one-device step
+on the global batch up to the order of its sums.
 """
 
 from __future__ import annotations
@@ -41,7 +51,7 @@ import numpy as np
 import torch
 
 from ..config import ModelConfig, RenderConfig, TrainConfig
-from ..models.network import Params, init_params, model_params, not_ported
+from ..models.network import Params, as_params, init_params, model_params
 from ..render.render import RenderInputs, render_rays
 from .. import losses as L
 from ..metrics import psnr as psnr_metric
@@ -167,7 +177,8 @@ def create_train_state(mcfg: ModelConfig, tcfg: TrainConfig,
                        steps_per_epoch: int, seed: int = 0,
                        flat: Optional[Dict[str, np.ndarray]] = None,
                        n_importance: int = 0, device=None,
-                       frozen: Optional[Sequence[str]] = None):
+                       frozen: Optional[Sequence[str]] = None,
+                       layout=None):
     """A fresh TrainState and its Optimizer.  The parameters are the coarse
     network, with the fine one where n_importance > 0 and the t table where
     mcfg.beta (models.network.model_params), drawn from a torch.Generator
@@ -175,7 +186,9 @@ def create_train_state(mcfg: ModelConfig, tcfg: TrainConfig,
     layout, e.g. the JAX package's params through
     utils.checkpoint._flatten), which must hold exactly those.  On CUDA
     unless `device` names another.  `frozen`: key prefixes the optimizer
-    leaves out (Optimizer)."""
+    leaves out (Optimizer).  layout (parallel/tensor.Layout): the whole
+    parameters are cut to this rank's blocks before the optimizer is made
+    over them (every rank starts from the same whole weights)."""
     from ..utils.checkpoint import load_params
     from ..utils.device import resolve_device
     device = resolve_device(device)
@@ -185,6 +198,9 @@ def create_train_state(mcfg: ModelConfig, tcfg: TrainConfig,
     else:
         gen = torch.Generator(device=device).manual_seed(seed)
         net = init_params(mcfg, gen, n_importance, device=device)
+    if layout is not None:
+        from .tensor import shard_params
+        shard_params(net, layout)
     opt, _ = make_optimizer(tcfg, steps_per_epoch, frozen)
     return TrainState(net, opt.init(net), 0), opt
 
@@ -357,12 +373,33 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
         (int(hi) << 31) ^ int(lo))
 
 
-def _refuse_multi_device(mesh, store_sharded, state_shardings):
+def _step_layout(mesh, mcfg: ModelConfig, rcfg: RenderConfig,
+                 store_sharded: bool, state_shardings):
+    """(rcfg, layout) of a step on `mesh`: the tensor-parallel layout
+    (state_shardings, or the mesh's own where its model axis is larger
+    than 1, parallel/tensor.state_shardings) and the render config with
+    K1-K5 off under it; (rcfg, None) without one."""
+    from . import tensor
     if store_sharded and mesh is None:
         raise ValueError("store_sharded requires a mesh")
-    if state_shardings is not None:
-        raise not_ported("tensor parallelism (a tensor-parallel state "
-                         "layout, state_shardings)", 11)
+    layout = state_shardings
+    if layout is None and mesh is not None:
+        layout = tensor.state_shardings(mesh, mcfg.skips)
+    if layout is None:
+        return rcfg, None
+    if mesh is None or getattr(layout, "mesh", None) is not mesh:
+        raise ValueError("state_shardings are a layout of the step's mesh "
+                         "(parallel/tensor.state_shardings(mesh, skips))")
+    return tensor.kernels_off(rcfg), layout
+
+
+def _check_sharded(state: TrainState, layout) -> None:
+    """A tensor-parallel step takes a state of blocks (create_train_state
+    with the layout, or tensor.shard_state)."""
+    if layout is not None and as_params(state.params).coarse.tp is None:
+        raise ValueError("a tensor-parallel step takes a sharded state "
+                         "(create_train_state(..., layout=) or "
+                         "parallel.tensor.shard_state)")
 
 
 def _rank_batch(mesh, mcfg: ModelConfig, rcfg: RenderConfig, batch: Dict,
@@ -374,11 +411,11 @@ def _rank_batch(mesh, mcfg: ModelConfig, rcfg: RenderConfig, batch: Dict,
     render.batch_draws of the global batch from `generator`."""
     from ..render.render import batch_draws
     batch = dict(batch)
-    n_global = batch["rays"].shape[0] * mesh.size
+    n_global = batch["rays"].shape[0] * mesh.n_data
     batch["ray0"] = mesh.broadcast(batch["rays"][:1].contiguous())
     kp_global = None
     if "kp_rays" in batch:
-        kp_global = batch["kp_rays"].shape[0] * mesh.size
+        kp_global = batch["kp_rays"].shape[0] * mesh.n_data
         batch["kp_ray0"] = mesh.broadcast(
             batch["kp_rays"][:1].contiguous())
     if draws is None:
@@ -405,12 +442,15 @@ def make_train_step(mcfg: ModelConfig, rcfg: RenderConfig,
     """fn(state, batch, gates, draws=None, generator=None) ->
     (state, metrics): one update on a batch already on the device.  On a
     mesh, `batch` is this rank's block of the global batch, and `draws`
-    (or the generator's) are the global batch's (_rank_batch)."""
-    _refuse_multi_device(mesh, False, state_shardings)
+    (or the generator's) are the global batch's (_rank_batch).  On a
+    (data, model) mesh the state is this rank's blocks (state_shardings,
+    by default the mesh's layout) and the step runs without K1-K5."""
+    rcfg, layout = _step_layout(mesh, mcfg, rcfg, False, state_shardings)
 
     def step_fn(state: TrainState, batch: Dict, gates: TrainGates,
                 draws: Optional[Dict] = None,
                 generator: Optional[torch.Generator] = None):
+        _check_sharded(state, layout)
         if mesh is not None:
             batch, draws = _rank_batch(mesh, mcfg, rcfg, batch, draws,
                                        generator)
@@ -438,8 +478,12 @@ def make_fused_train_step(mcfg: ModelConfig, rcfg: RenderConfig,
     blocks of the global index vectors, into the replicated store, or with
     store_sharded into this rank's shard (data/batcher.ShardedRayBatcher);
     the draws are the global batch's (_rank_batch), so the step is the
-    one-device step on the global batch up to the order of its sums."""
-    _refuse_multi_device(mesh, store_sharded, state_shardings)
+    one-device step on the global batch up to the order of its sums.  On
+    a (data, model) mesh the blocks are the data axis's, the state is
+    this rank's blocks (state_shardings, by default the mesh's layout)
+    and the step runs without K1-K5."""
+    rcfg, layout = _step_layout(mesh, mcfg, rcfg, store_sharded,
+                                state_shardings)
 
     def step_fn(state: TrainState, store: Dict[str, torch.Tensor],
                 idx: torch.Tensor, seed: int, *,
@@ -449,6 +493,7 @@ def make_fused_train_step(mcfg: ModelConfig, rcfg: RenderConfig,
         if has_kp != (kp_store is not None and kp_idx is not None):
             raise ValueError(f"a step built with has_kp={has_kp} takes "
                              f"kp_store and kp_idx {'' if has_kp else 'not'}")
+        _check_sharded(state, layout)
         batch = {k: torch.index_select(v, 0, idx) for k, v in store.items()}
         if has_kp:
             kb = {k: torch.index_select(v, 0, kp_idx)
@@ -498,9 +543,15 @@ def make_scan_train_step(mcfg: ModelConfig, rcfg: RenderConfig,
 
 
 def make_render_step(mcfg: ModelConfig, rcfg: RenderConfig,
-                     train: bool = False):
+                     train: bool = False, mesh=None):
     """fn(net, inp, draws=None, generator=None) -> render_rays result, with
-    no autograd graph unless `train`."""
+    no autograd graph unless `train`.  On a (data, model) mesh (the JAX
+    package's make_render_step(mesh=tp_mesh(...))), net holds this rank's
+    blocks, every rank of a model group renders the same rays and draws
+    with the sharded trunk, and K1-K5 are off."""
+    from .tensor import kernels_off, model_axis_size
+    if model_axis_size(mesh) > 1:
+        rcfg = kernels_off(rcfg)
 
     def fn(net, inp: RenderInputs, draws: Optional[Dict] = None,
            generator: Optional[torch.Generator] = None):

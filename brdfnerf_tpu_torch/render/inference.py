@@ -101,7 +101,9 @@ def sigma_pass(net, mcfg: ModelConfig, rcfg: RenderConfig, rays_o, rays_d,
     xyz = _flat_points(rays_o, rays_d, z_vals).reshape(-1, 3)
     from ..ops.fused_mlp import kernel_supports
     if rcfg.use_pallas and kernel_supports(mcfg):
+        from ..models.network import refuse_kernels
         from ..ops.fused_mlp import fused_sigma_fn
+        refuse_kernels(net)
         with torch.no_grad():
             sigmas = fused_sigma_fn(net, mcfg, xyz.detach())
         sigmas = sigmas.reshape(n_rays, n_samples)

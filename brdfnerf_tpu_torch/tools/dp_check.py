@@ -39,9 +39,11 @@ GRAD_ATOL = 5e-6
 GRAD_RTOL = 5e-5
 
 
-def set_state(state, start: Dict) -> None:
+def set_state(state, start: Dict, layout=None) -> None:
     """Set state's parameters and Adam moments to start's numpy flats
-    ("p", and "mu", "nu" with "count" > 0; npz keys, (in, out) weights)."""
+    ("p", and "mu", "nu" with "count" > 0; npz keys, (in, out) weights,
+    whole: under a tensor-parallel layout each rank takes its blocks)."""
+    from ..parallel.tensor import cut
     from ..utils.checkpoint import named_flat
     count = int(start.get("count", 0))
     with torch.no_grad():
@@ -49,7 +51,10 @@ def set_state(state, start: Dict) -> None:
             def get(tree):
                 v = torch.as_tensor(np.asarray(start[tree][key]),
                                     device=p.device)
-                return v.t().contiguous() if key.endswith("/w") else v
+                v = v.t() if key.endswith("/w") else v
+                if layout is not None:
+                    v = cut(key, v, layout.n_model, layout.m, layout.skips)
+                return v.contiguous()
             p.copy_(get("p"))
             if count and state.opt_state is not None:
                 state.opt_state.state[p] = {
@@ -65,15 +70,25 @@ def run_steps(mesh, payload: Dict, device=None) -> Dict:
     every shard's local indices (its D blocks).  Returns the losses and
     metrics of every step, the last step's gradients and the final
     parameters (numpy, npz keys), and with payload["record"] the
-    parameters after every step ("params_each")."""
+    parameters after every step ("params_each").  On a (data, model)
+    mesh (parallel/tensor.py) each rank trains its blocks of the trunk,
+    and the gradients and parameters come back gathered whole, with the
+    bytes of the trunk's parameters this rank held ("trunk_bytes")."""
     from ..data.batcher import ShardedRayBatcher
+    from ..parallel import tensor
     from ..parallel import train_step as ts
     from ..utils.checkpoint import params_to_flat
     dev = torch.device(mesh.device if mesh is not None else device)
     mcfg, rcfg, tcfg = payload["mcfg"], payload["rcfg"], payload["tcfg"]
+    layout = tensor.state_shardings(mesh, mcfg.skips)
     state, opt = ts.create_train_state(
         mcfg, tcfg, payload.get("steps_per_epoch", 3), flat=payload["flat"],
-        n_importance=rcfg.n_importance, device=dev)
+        n_importance=rcfg.n_importance, device=dev, layout=layout)
+
+    def whole_flat(params):
+        if layout is not None:
+            params = tensor.whole_params(params, layout)
+        return _copied(params_to_flat(params))
     sharded = bool(payload.get("sharded"))
     step = ts.make_fused_train_step(mcfg, rcfg, tcfg, opt,
                                     ts.GateSchedule(**payload["sched"]),
@@ -88,7 +103,7 @@ def run_steps(mesh, payload: Dict, device=None) -> Dict:
     for i, idx in enumerate(payload["idx"]):
         start = (payload.get("states") or [None] * (i + 1))[i]
         if start is not None:
-            set_state(state, start)
+            set_state(state, start, layout)
             state = ts.TrainState(state.params, state.opt_state, i)
         if mesh is not None:
             idx = idx[mesh.block(len(idx))]
@@ -103,11 +118,22 @@ def run_steps(mesh, payload: Dict, device=None) -> Dict:
         out["loss"].append(float(m["loss"]))
         out["metrics"].append({k: float(v) for k, v in m.items()})
         if payload.get("record"):
-            out["params_each"].append(_copied(params_to_flat(state.params)))
-    out["grads"] = {k: p.grad.detach().float().cpu().numpy()
-                    for k, p in state.params.named_parameters()
-                    if p.grad is not None}
-    out["params"] = _copied(params_to_flat(state.params))
+            out["params_each"].append(whole_flat(state.params))
+    out["grads"] = {}
+    for k, p in state.params.named_parameters():
+        if p.grad is not None:
+            g = p.grad.detach()
+            if layout is not None:
+                g = tensor.gather_tensor(k.replace(".", "/"), g, layout)
+            out["grads"][k] = g.float().cpu().numpy()
+    out["params"] = whole_flat(state.params)
+    out["trunk_bytes"] = tensor.trunk_bytes(state.params)
+    # {parameter: (its shape, its Adam moments' shapes)} on this rank
+    out["shapes"] = {
+        k: (tuple(p.shape), tuple(
+            tuple(st[m].shape) for st in [state.opt_state.state.get(p, {})]
+            for m in ("exp_avg", "exp_avg_sq") if m in st))
+        for k, p in state.params.named_parameters()}
     return out
 
 
@@ -125,13 +151,14 @@ def _rank_steps(mesh, payload):
 
 def on_ranks(payload, ranks: int, device, backend: Optional[str] = None,
              devices: Optional[List] = None,
-             store_dir: Optional[str] = None):
-    """run_steps on `ranks` ranks (parallel/mesh.run_ranks); rank 0's
-    result (one a payload, for a list of payloads)."""
+             store_dir: Optional[str] = None, n_model: int = 1):
+    """run_steps on `ranks` ranks (parallel/mesh.run_ranks; a (ranks /
+    n_model, n_model) mesh with n_model > 1); rank 0's result (one a
+    payload, for a list of payloads)."""
     from ..parallel.mesh import run_ranks
     with tempfile.TemporaryDirectory(dir=store_dir) as td:
         return run_ranks(_rank_steps, ranks, td, device, backend=backend,
-                         args=(payload,), devices=devices)
+                         args=(payload,), devices=devices, n_model=n_model)
 
 
 def compare(one: Dict, many: Dict) -> Dict:
@@ -156,19 +183,22 @@ def compare(one: Dict, many: Dict) -> Dict:
 
 
 def flagship_payload(dtype: str = "float32", feat: int = 512,
-                     batch: int = 1024, seed: int = 0) -> Dict:
-    """The flagship stage-2 step (8 layers, RPV(111), analytic normals and
-    sun march, 64 + 64 samples) at width `feat` and compute dtype `dtype`
-    on a seeded synthetic store of 4 batches, one global index vector."""
+                     batch: int = 1024, seed: int = 0, layers: int = 8,
+                     kernels: bool = True) -> Dict:
+    """The flagship stage-2 step (RPV(111), analytic normals and sun
+    march, 64 + 64 samples; 8 layers, skip 4) at width `feat` and compute
+    dtype `dtype` on a seeded synthetic store of 4 batches, one global
+    index vector; kernels False: the render config without K1-K5."""
     from ..config import ModelConfig, RenderConfig, TrainConfig
     from ..parallel import train_step as ts
     from ..utils.checkpoint import params_to_flat
     mcfg = ModelConfig(variant="spsbrdf-nerf", siren=True, mapping=True,
-                       layers=8, feat=feat, skips=(4,), normal="analystic",
-                       sun_v="analystic", func_m=True, func_f=True,
-                       func_h=1, dim_rpv=1, compute_dtype=dtype)
-    rcfg = RenderConfig(n_samples=64, guided_samples=64, use_pallas=True,
-                        fused_trunk=True, apply_brdf=True)
+                       layers=layers, feat=feat, skips=(4,),
+                       normal="analystic", sun_v="analystic", func_m=True,
+                       func_f=True, func_h=1, dim_rpv=1,
+                       compute_dtype=dtype)
+    rcfg = RenderConfig(n_samples=64, guided_samples=64, use_pallas=kernels,
+                        fused_trunk=kernels, apply_brdf=True)
     tcfg = TrainConfig(lr=5e-4, batch_size=batch, ds_lambda=10.0,
                        nr_reg_an_lambda=0.1, hs_lambda=0.5)
     state, _ = ts.create_train_state(mcfg, tcfg, 4, seed=seed,

@@ -28,8 +28,16 @@ global batch (the replicated store, or with sharded_store the rank's shard
 of it, data/batcher.ShardedRayBatcher) and all-reduces the gradients
 (parallel/train_step.py).  Rank 0 alone logs, validates and writes panels
 and checkpoints.  scale_global_batch scales the batch and the learning
-rate by the mesh's width.  Tensor parallelism is not ported yet (ROADMAP.md
-Queue 1 item 11b).
+rate by the mesh's data width.
+
+Tensor parallelism (a mesh whose model axis is larger than 1,
+parallel/tensor.py): every rank builds (or resumes) the whole state, rank
+0's whole weights are broadcast, and each rank keeps its blocks of the
+trunk and of Adam's moments (tensor.shard_state); the render config takes
+K1-K5 off.  At an epoch's end that validates or saves, the ranks of rank
+0's model group gather the whole state (tensor.gather_state), and rank 0
+validates and writes whole weights and moments in the npz layouts, so a
+one-device run of either package reads them.
 """
 
 from __future__ import annotations
@@ -148,8 +156,9 @@ class Trainer:
         self.log = (ScalarLog(paths.logs_dir, use_tb) if self.is_main
                     else NullLog())
         os.makedirs(paths.ckpts_dir, exist_ok=True)
-        # the batch-scaling factor is the data-parallel width
-        k = mesh.size if (scale_global_batch and mesh is not None) else 1
+        # the batch-scaling factor is the data axis's width: the model
+        # axis shares one batch
+        k = mesh.n_data if (scale_global_batch and mesh is not None) else 1
         if k > 1:
             cfg = dc.replace(cfg, train=dc.replace(
                 cfg.train, batch_size=cfg.train.batch_size * k,
@@ -196,7 +205,7 @@ class Trainer:
                 # the keypoint sub-batch splits over the ranks: tile a
                 # store of fewer tie points than ranks up to one a rank
                 # (the JAX package's train.py:186-200)
-                n_dev = mesh.size
+                n_dev = mesh.n_data
                 if n_kp < n_dev:
                     reps = -(-n_dev // n_kp)
                     kp_store = {k: np.concatenate([v] * reps, 0)
@@ -209,6 +218,14 @@ class Trainer:
                 mesh=mesh)
         self.steps_per_epoch = self.batcher.steps_per_epoch
         self.max_steps = tcfg.max_train_steps
+        # the tensor-parallel layout (None on one device or a 1-D mesh);
+        # its steps and renders run without K1-K5
+        from .parallel.tensor import kernels_off, state_shardings
+        self.layout = state_shardings(mesh, cfg.model.skips)
+        if self.layout is not None:
+            cfg = dc.replace(cfg, render=kernels_off(cfg.render))
+            self.cfg = cfg
+        self._whole = None          # (step, the gathered whole state)
 
         self.state, self.opt = create_train_state(
             cfg.model, tcfg, self.steps_per_epoch, seed=seed,
@@ -263,6 +280,15 @@ class Trainer:
         if mesh is not None:
             # the same initial weights on every rank: rank 0's
             mesh.broadcast_module(net)
+        if self.layout is not None:
+            from .parallel.tensor import shard_state, trunk_bytes
+            whole = trunk_bytes(net)
+            self.state = shard_state(self.state, self.opt, self.layout)
+            self._say(f"[mesh] tensor parallelism: trunk sharded over "
+                      f"{mesh.n_model} 'model' devices x {mesh.n_data} "
+                      f"'data' ({trunk_bytes(self.state.params):,} of the "
+                      f"trunk's {whole:,} parameter bytes a rank, and as "
+                      "many again for its gradient and each Adam moment)")
 
         # schedule thresholds (fractions of max_steps, main.py:60-63)
         self.t_brdf = tcfg.brdf_on * self.max_steps
@@ -453,24 +479,46 @@ class Trainer:
         """Cadences: every N epochs (N >= 1; epoch 0 included, like the
         reference's Lightning check_val_every_n_epoch), 0 = never during
         training (the final save and validation still run).  On a mesh,
-        rank 0 alone validates and saves."""
+        rank 0 alone validates and saves; under tensor parallelism the
+        ranks of its model group gather the whole state for it first."""
+        validate = self.val_dataset is not None and (
+            (eval_every > 0 and epoch % eval_every == 0) or final)
+        save = (save_every > 0 and epoch % save_every == 0) or final
+        if (self.layout is not None and (validate or save)
+                and self.mesh.data_rank == 0):
+            from .parallel.tensor import gather_state
+            whole = gather_state(self.state, self.layout)
+            # rank 0 keeps it for validation, the checkpoint and
+            # render_image; the other ranks only took part
+            self._whole = (self.state.step, whole) if self.is_main else None
         if not self.is_main:
             return
-        if self.val_dataset is not None and (
-                (eval_every > 0 and epoch % eval_every == 0) or final):
+        if validate:
             try:
                 self.validate(epoch)
             except Exception as e:   # validation must never kill training
                 traceback.print_exc()
                 print(f"[val] failed at epoch {epoch}: {e}", flush=True)
-        if (save_every > 0 and epoch % save_every == 0) or final:
+        if save:
             path = self.checkpoint_path(epoch)
-            net, opt, step = self.state
+            net, opt, step = self.whole_state()
             ckpt.save_checkpoint(path, net, step=step)
             ckpt.save_opt_state(path.replace(".npz", ".opt.npz"), net, opt,
                                 count=step)
 
     # -------------------------------------------------------------- eval
+
+    def whole_state(self) -> TrainState:
+        """The state with whole weights: self.state, or under tensor
+        parallelism the one gathered at the last epoch end that validated
+        or saved (fit's last one always does), on rank 0's model group."""
+        if self.layout is None:
+            return self.state
+        if self._whole is None or self._whole[0] != self.state.step:
+            raise ValueError("no whole state gathered at this step: the "
+                             "ranks of rank 0's model group gather it at "
+                             "an epoch end that validates or saves")
+        return self._whole[1]
 
     def render_image(self, sample: Dict, chunk: Optional[int] = None,
                      rcfg: Optional[RenderConfig] = None,
@@ -482,7 +530,7 @@ class Trainer:
         it (eval.py:184-199)."""
         if rcfg is None:
             rcfg = final_render_config(self.cfg, self.test_sun_v)
-        return render_image_rays(self.state.params, self.cfg, rcfg,
+        return render_image_rays(self.whole_state().params, self.cfg, rcfg,
                                  sample["rays"], chunk or self.eval_chunk,
                                  self.device, t=t)
 
@@ -500,7 +548,7 @@ class Trainer:
                            device=self.device),
             cos_irra_on=torch.tensor(False, device=self.device))
         gen = torch.Generator(device=self.device).manual_seed(0)
-        res = fn(self.state.params, inp, generator=gen)
+        res = fn(self.whole_state().params, inp, generator=gen)
         z = res["z_vals_coarse"].float().cpu().numpy()
         sig = res["sigmas_coarse"][..., 0].float().cpu().numpy()
         alpha = res["alphas_coarse"].float().cpu().numpy()

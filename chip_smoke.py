@@ -254,10 +254,20 @@ After phase 9 (before 12):
                 5's request bit for bit; the same server with two replicas
                 sharing the card (the split render, a thread a replica)
                 against phase 5's request within SPLIT_TOL
+ 18. tensor parallel - one float32 step of the 12 x 2048 trunk tensor
+                parallelism exists for (the flagship heads and losses,
+                TP_BATCH rays) on a (1, 2) mesh of two gloo ranks sharing
+                the card against the one-device unfused step
+                (tools/tp_check at the JAX package's TP bounds), each rank
+                holding its share of the trunk; K1-K5 launched 0 times (this
+                process and the ranks); the model group's collectives
+                (calls, bytes, host seconds) printed; the flagship 8 x 512
+                train CLI's [kernels] line with --n_devices 2 --tp 2 names
+                tensor parallelism
 Then one JSON line of every ported kernel instantiation (each launched on
-a main path: the run fails if one was not; launches_int8, launches_dp
-and launches_split the new phases' counts), the card's line, and the last line {"ok": true,
-"device": {...}}.
+a main path: the run fails if one was not; launches_int8, launches_dp,
+launches_split and launches_tp the new phases' counts), the card's line,
+and the last line {"ok": true, "device": {...}}.
 """
 
 import contextlib
@@ -3037,6 +3047,80 @@ def dp_phase(root, wf_run, requests, refs, smi, rows, reset_counts, counts,
     rows["K2"]["launches_split"] = launches["K2"]
 
 
+# tensor parallelism (phase 18): rays of the 12 x 2048 step, few enough
+# that its host-staged all-reduces take seconds
+TP_BATCH = 64
+
+
+def tp_phase(root, smi, rows, reset_counts, counts):
+    """Phase 18, tensor parallelism on the one card: one float32 step of
+    the 12 x 2048 trunk, skip 4 (tools/tp_check.run: RPV(111), analytic
+    normals with their regularization, hard surface and depth losses, the
+    sun march, 64 + 64 samples, TP_BATCH rays) on a (1, 2) mesh of two
+    gloo ranks sharing the card (NCCL refuses two ranks on one device; the
+    second rank a spawned process) against the one-device unfused step on
+    the same whole weights, global batch and draws, at the JAX package's
+    TP bounds (tests/test_tensor_parallel.py: loss rtol 2e-4; parameters
+    rtol 2e-4 / atol 2e-6 but for tp_check.FLIP_SHARE of a tensor's
+    elements, within 2 * lr; every gradient within 2e-4 of its largest
+    magnitude); each rank holds its share of the trunk's bytes (half of
+    every weight); K1-K5 launched 0 times by the one-device step, by this
+    process and by the ranks (row key launches_tp); the model group's
+    collectives printed (calls, bytes, seconds on the host's clock, gloo
+    staging through the host: they measure the host, not NCCL); and the
+    [kernels] line of the flagship 8 x 512 train CLI with --n_devices 2
+    --tp 2 names tensor parallelism."""
+    from brdfnerf_tpu_torch.cli import opts as opts_mod
+    from brdfnerf_tpu_torch.cli import train as cli_train
+    from brdfnerf_tpu_torch.tools import tp_check
+    os.makedirs(root, exist_ok=True)
+    reset_counts()
+    t0 = time.perf_counter()
+    c = tp_check.run(1, 2, "float32", 2048, 12, TP_BATCH, "cuda",
+                     backend="gloo", devices=["cuda:0", "cuda:0"],
+                     store_dir=root)
+    seconds = time.perf_counter() - t0
+    here = counts()
+    launches = {k: here[k] + c["launches_mesh"][k] for k in here}
+    col = c["collectives"]
+    print(f"  one float32 step of the 12 x 2048 trunk ({TP_BATCH} rays) on a "
+          f"(1, 2) mesh of gloo ranks sharing the card vs one device: loss "
+          f"{c['loss'][1]:.7f} vs {c['loss'][0]:.7f} (relative "
+          f"{c['loss_rel']:.2e}); worst gradient {c['worst_grad'][0]} at "
+          f"{c['worst_grad'][1]:.2e} of its scale; worst parameter "
+          f"{c['worst_param'][0]}: {c['worst_param'][1][0]:.2e} of its "
+          f"elements past the bound, largest |d| "
+          f"{c['worst_param'][1][1]:.2e}; held {c['held']}", flush=True)
+    print(f"  trunk bytes: {c['trunk_bytes_rank']:,} a rank (its share "
+          f"{c['trunk_bytes_share']:,}) of one device's "
+          f"{c['trunk_bytes_one']:,}; launches {launches} (one device "
+          f"{c['launches_one']}, the ranks {c['launches_mesh']}); the model "
+          f"group's collectives on rank 0: {col['calls']} calls, "
+          f"{col['bytes']:,} bytes in, {col['seconds']:.3f} s; one-device "
+          f"step {c['seconds_one']:.3f} s, the mesh's "
+          f"{c['seconds_mesh']:.3f} s with the ranks' start; the check "
+          f"{seconds:.1f} s ({smi})", flush=True)
+    assert c["bytes_held"] and 2 * c["trunk_bytes_rank"] < (
+        c["trunk_bytes_one"] * 1.001), c["trunk_bytes_rank"]
+    assert not any(launches.values()), launches
+    assert c["held"], (c["loss_rel"], c["worst_grad"], c["worst_param"])
+    for key, r in rows.items():
+        r["launches_tp"] = launches[key[:2]]
+
+    args = opts_mod.postprocess(opts_mod.train_parser().parse_args(
+        ["--root_dir", root, "--exp_name", "tp", "--model", "spsbrdf-nerf",
+         "--mapping", "--fc_feat", "512", "--fc_layers", "8", "--normal",
+         "analystic", "--sun_v", "analystic", "--funcM", "1", "--funcF",
+         "1", "--funcH", "1", "--compute_dtype", "bfloat16_all",
+         "--n_devices", "2", "--tp", "2"]))
+    cuda = torch.device("cuda")
+    line = cli_train.kernels_line(opts_mod.to_run_config(args, device=cuda),
+                                  cuda, tp=args.tp)
+    print(f"  the flagship's train CLI with --n_devices 2 --tp 2: {line}",
+          flush=True)
+    assert line.startswith("[kernels] none: tensor parallelism (--tp 2)")
+
+
 def main():
     phase("device")
     if not torch.cuda.is_available():
@@ -4179,6 +4263,13 @@ def main():
     print(f"  the data-parallel phase took {time.perf_counter() - t_dp:.1f}"
           " s", flush=True)
     del refs
+    # tensor parallelism (Queue 1 item 11b): the 12 x 2048 trunk on two
+    # ranks sharing the card
+    phase("tensor parallel")
+    t_tp = time.perf_counter()
+    tp_phase(os.path.join(tmp.name, "tp"), smi, rows, reset_counts, counts)
+    print(f"  the tensor-parallel phase took "
+          f"{time.perf_counter() - t_tp:.1f} s", flush=True)
 
     # each family's two-stage workflow on its shaded AOI through the train
     # CLI, and the eval CLI on its stage 2
@@ -4220,7 +4311,8 @@ def main():
     assert not idle, f"never launched on a main path: {idle}"
     keys = ("name", "route", "source", "replaces", "act", "width", "dtype",
             "points", "launches", "launches_int8", "launches_int8_eval",
-            "launches_dp", "launches_split", "max_abs_err", "ms", "plain_ms",
+            "launches_dp", "launches_split", "launches_tp", "max_abs_err",
+            "ms", "plain_ms",
             "bound_ms", "bound_by",
             "library_ms", "launches_train", "launches_eval",
             "launches_families", "launches_defaults",

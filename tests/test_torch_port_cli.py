@@ -135,15 +135,17 @@ def test_train_cli_states_its_kernels(monkeypatch, dtype, heads_env, want):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--tp", "2"], "item 11"), (["--tp", "2", "--n_devices", "2"],
-                                 "tensor parallelism")])
+    (["--tp", "2"], "got 0"), (["--tp", "2", "--n_devices", "3"],
+                               "got 3")])
 def test_train_cli_refuses_what_is_not_ported(tmp_path, extra, match):
-    """Tensor parallelism (--tp > 1) is the one multi-GPU capability not
-    ported yet (ROADMAP.md Queue 1 item 11b): refused before anything is
-    written."""
+    """Tensor parallelism (--tp T) runs on --n_devices N ranks only where
+    N is a multiple of T (the JAX package's check and message): --tp
+    without --n_devices, or with N that T does not divide, is refused
+    before anything is written (tests/test_torch_port_tp.py runs the
+    path itself)."""
     argv = ["--root_dir", str(tmp_path), "--exp_name", "e",
             "--logs_dir", str(tmp_path / "logs")] + extra
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(SystemExit, match=f"multiple of it \\({match}\\)"):
         port_train_main(argv, device="cpu")
     assert not os.path.exists(tmp_path / "logs")
 
@@ -213,9 +215,9 @@ def test_training_entry_points_need_the_card_or_a_device(tmp_path,
     with pytest.raises(RuntimeError, match="CUDA"):
         ttrain.Trainer(None, {}, ttrain.TrainerPaths(
             str(tmp_path / "l"), str(tmp_path / "c")))
-    # a mesh is taken now; tensor parallelism (a tensor-parallel state
-    # layout) is what remains refused
+    # a mesh is taken now, and a tensor-parallel state layout of that
+    # mesh; a layout of another is refused
     from brdfnerf_tpu_torch.parallel import train_step as tts
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="layout of the step's mesh"):
         tts.make_fused_train_step(None, None, None, None, None,
                                   mesh=object(), state_shardings=object())

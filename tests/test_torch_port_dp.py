@@ -372,9 +372,9 @@ def test_load_renderer_on_two_devices(tmp_path):
 
 def test_more_devices_than_visible_are_refused(tmp_path, monkeypatch):
     """--n_devices above the visible CUDA devices is refused before the
-    dataset is read (the JAX package checks only divisibility), and so is
-    load_renderer's n_devices (serve.py:127-131); --tp still raises
-    not_ported, naming tensor parallelism."""
+    dataset is read (the JAX package checks only divisibility), with --tp
+    too, and so is load_renderer's n_devices (serve.py:127-131); a
+    tensor-parallel layout is refused by a step without its mesh."""
     from brdfnerf_tpu_torch import serve as tserve
     from brdfnerf_tpu_torch.cli.train import main as port_train_main
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
@@ -386,9 +386,10 @@ def test_more_devices_than_visible_are_refused(tmp_path, monkeypatch):
     with pytest.raises(ValueError, match="only 1 CUDA device"):
         tserve.load_renderer(str(tmp_path / "run"), 1, n_devices=2,
                              device="cuda")
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        port_train_main(argv + ["--tp", "2"], device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="only 1 CUDA device"):
+        port_train_main(argv + ["--tp", "2"], device="cuda")
+    assert not os.path.exists(tmp_path / "logs")
+    with pytest.raises(ValueError, match="layout of the step's mesh"):
         tts.make_fused_train_step(None, None, None, None, None,
                                   state_shardings=object())
 

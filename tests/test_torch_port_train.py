@@ -368,12 +368,12 @@ def test_training_entry_points_never_fall_back(monkeypatch):
         tbatch.DeviceRayBatcher(make_store(8), 4)
     _, opt = tts.create_train_state(tm, tt, 1, device="cpu")
     sched = tts.GateSchedule(1e18, 1e18, -1.0, 1, 0)
-    # a mesh is taken (data parallelism); a sharded store needs one, and
-    # a tensor-parallel state layout is not ported yet
+    # a mesh is taken (data and tensor parallelism); a sharded store
+    # needs one, and a tensor-parallel state layout must be its mesh's
     with pytest.raises(ValueError, match="requires a mesh"):
         tts.make_fused_train_step(tm, tr, tt, opt, sched, store_sharded=True)
     for make in (tts.make_fused_train_step, tts.make_scan_train_step):
-        with pytest.raises(NotImplementedError, match="item 11"):
+        with pytest.raises(ValueError, match="layout of the step's mesh"):
             make(tm, tr, tt, opt, sched, mesh=object(),
                  state_shardings=object())
     # density noise draws from the step's generator, or from the draws it
