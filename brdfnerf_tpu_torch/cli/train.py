@@ -33,8 +33,9 @@ def kernels_line(cfg, device, train: bool = True, tp: int = 1) -> str:
     """Which fused kernels the run launches, or why none: its train steps,
     or with train=False its renders (the serving instantiations, no
     backward); tp: the model axis of a tensor-parallel run."""
-    from ..ops.fused_mlp import (CUDA_DTYPES, CUDA_WIDTHS, LANE, act_of,
-                                 cuda_kernels_cover, split_operands)
+    from ..ops.fused_mlp import (CUDA_DTYPES, act_of, cuda_kernels_cover,
+                                 kernel_cfg, layer_major, split_operands)
+    from ..ops.fused_trunk_heads import heads_cuda_cover
     m, r = cfg.model, cfg.render
     if tp > 1:
         return (f"[kernels] none: tensor parallelism (--tp {tp}) cuts every "
@@ -58,11 +59,6 @@ def kernels_line(cfg, device, train: bool = True, tp: int = 1) -> str:
         why = [w for w, bad in (
             (f"compute_dtype={m.compute_dtype!r}",
              m.compute_dtype not in CUDA_DTYPES),
-            (f"width {m.feat} (not one of "
-             + ", ".join(map(str, CUDA_WIDTHS)) + ")",
-             m.feat not in CUDA_WIDTHS),
-            (f"an encoding of {m.xyz_in_dim} lanes (over {LANE})",
-             m.xyz_in_dim > LANE),
             (f"skips {m.skips} with {m.layers} layers", len(m.skips) != 1
              or not 0 < m.skips[0] < m.layers or m.layers < 3)) if bad]
         return ("[kernels] none: the CUDA kernels do not cover this model ("
@@ -99,6 +95,11 @@ def kernels_line(cfg, device, train: bool = True, tp: int = 1) -> str:
                 used.append("BRDFNERF_FUSED_HEADS is set, but K4/K5 "
                             "refuse a t-embedding (--beta), so the heads "
                             f"stay on {k23}")
+            elif not heads_cuda_cover(m):
+                used.append("BRDFNERF_FUSED_HEADS is set, but K4/K5 take "
+                            "the widths 64, 128, 256 and 512 with an "
+                            "encoding of at most 128 lanes (ROADMAP.md "
+                            f"Queue 2), so the heads stay on {k23}")
             elif m.roughness or m.uses_hapke:
                 family = "Microfacet" if m.roughness else "Hapke"
                 used.append(f"BRDFNERF_FUSED_HEADS is set, but K4/K5 take "
@@ -124,7 +125,17 @@ def kernels_line(cfg, device, train: bool = True, tp: int = 1) -> str:
            "relu": "ReLU"}[act_of(m)]
     dtype = ("'int8' (the main pass on its bfloat16_all twin)" if int8
              else repr(m.compute_dtype))
-    return (f"[kernels] fused CUDA kernels at width {m.feat}, compute_dtype="
+    kc = kernel_cfg(m)
+    family = "layer-major" if layer_major(kc) else "fused"
+    width = f"width {m.feat}"
+    if kc.feat != m.feat:
+        width += f" (K1-K3 run at {kc.feat}, zero-padded)"
+    if layer_major(kc):
+        width += (" (K1-K3 launch one layer's product over a block of "
+                  "points a kernel, ops/trunk_layers.py"
+                  + (f"; an encoding of {m.xyz_in_dim} lanes"
+                     if m.xyz_in_dim > 128 else "") + ")")
+    return (f"[kernels] {family} CUDA kernels at {width}, compute_dtype="
             f"{dtype}{how}, {act}: " + "; ".join(used + notes))
 
 

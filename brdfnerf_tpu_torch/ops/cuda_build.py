@@ -11,7 +11,9 @@ library key is the source's name for the polynomial sine at width 512,
 built exactly as before, with ":sin" or ":relu" for the same source built
 with its -DTRUNK_ACT flag (ACTS) and ":f64", ":f128" or ":f256" with its
 -DTRUNK_F flag (WIDTHS), so that a run builds the variants it uses and no
-others (library_key).
+others (library_key).  The layer-major kernels (csrc/trunk_layers.cu)
+take the width at run time: their keys carry the activation alone
+("trunk_layers", "trunk_layers:sin", "trunk_layers:relu").
 """
 
 from __future__ import annotations

@@ -17,7 +17,13 @@ At compute_dtype float32 the weights are f32 too: the packed weights then
 carry hi and lo bf16 planes for the CUDA kernels (`split_planes`), and each
 product runs as three (`split3_mm`: A_hi B_hi + A_lo B_hi + A_hi B_lo).
 The activation and the trunk width are built into each kernel library
-(`act_of`, ops/cuda_build.ACTS; `cfg.feat`, one of CUDA_WIDTHS).
+(`act_of`, ops/cuda_build.ACTS; `cfg.feat`, one of CUDA_WIDTHS).  Every
+other width, and any encoding over LANE lanes, takes the layer-major
+family (ops/trunk_layers.py, csrc/trunk_layers.cu), whose width is a
+runtime argument.  The entry points pack the weights at `kernel_cfg`'s
+width, zero-padded: a width of at most 512 outside CUDA_WIDTHS at the next
+one (the fused family), any other at the next multiple of LAYER_TILE, and
+slice the results back to the model's width.
 
 The skip layer's concat([enc, h]) @ W is split as enc @ W_top + h @ W_bot;
 the packed `w_skip` holds [W_top (lane-padded) | W_bot] in (out, in) layout,
@@ -27,6 +33,7 @@ so the kernel runs it as one product over [enc | h].
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -35,8 +42,12 @@ from ..config import ModelConfig
 from .cuda_build import WIDTHS, CudaKernel
 
 TILE_N = 64        # points per CUDA block
-LANE = 128         # encoding width the kernels take
+LANE = 128         # encoding width the kernels take (the lanes are padded to
+                   # a multiple of it)
 FEAT = 512         # the flagship's trunk width
+# the layer-major kernels' tile: their width, lanes and points are
+# multiples of it (ops/trunk_layers.ROWS)
+LAYER_TILE = 128
 # the trunk widths K1-K3 are built for (ops/cuda_build.library_key)
 CUDA_WIDTHS = WIDTHS
 
@@ -66,11 +77,54 @@ def kernel_supports(cfg: ModelConfig) -> bool:
 
 def cuda_kernels_cover(cfg: ModelConfig) -> bool:
     """True where the CUDA kernels K1-K3 take this model: the architecture
-    of kernel_supports (any of the three activations, act_of), a compute
-    dtype of CUDA_DTYPES, a width of CUDA_WIDTHS and an encoding of at
-    most LANE lanes."""
-    return (kernel_supports(cfg) and cfg.compute_dtype in CUDA_DTYPES
-            and cfg.feat in CUDA_WIDTHS and cfg.xyz_in_dim <= LANE)
+    of kernel_supports (any of the three activations, act_of) and a compute
+    dtype of CUDA_DTYPES, at any width and encoding (kernel_cfg picks the
+    family and the padded width)."""
+    return kernel_supports(cfg) and cfg.compute_dtype in CUDA_DTYPES
+
+
+def kernel_width(cfg: ModelConfig) -> int:
+    """The width K1-K3 run the model at: with an encoding of at most LANE
+    lanes and a width of at most FEAT, the least of CUDA_WIDTHS that holds
+    it (the fused family); otherwise the width rounded up to LAYER_TILE
+    (the layer-major family)."""
+    if cfg.feat <= FEAT and cfg.xyz_in_dim <= LANE:
+        return min(w for w in CUDA_WIDTHS if w >= cfg.feat)
+    return _round_up(cfg.feat, LAYER_TILE)
+
+
+def kernel_cfg(cfg: ModelConfig) -> ModelConfig:
+    """cfg at kernel_width: the configuration the packed weights, the twins
+    and the kernels take (zero-padded columns change no logical value)."""
+    w = kernel_width(cfg)
+    return cfg if w == cfg.feat else dataclasses.replace(cfg, feat=w)
+
+
+def pack_at_kernel_width(net, cfg: ModelConfig
+                         ) -> Tuple[ModelConfig, Dict[str, torch.Tensor]]:
+    """(kernel_cfg(cfg), the trunk packed at its width in cfg's weight
+    dtype): where the kernels run a model at a wider width than its own,
+    the entry points pack here and take unpad_feats of what they return."""
+    kcfg = kernel_cfg(cfg)
+    return kcfg, pack_trunk_weights(net, kcfg, weight_dtype(cfg))
+
+
+def unpad_feats(cfg: ModelConfig, feats: torch.Tensor) -> torch.Tensor:
+    """feats (n, F) at a kernel configuration's width, sliced back to
+    cfg's own (the padded columns are exact zeros)."""
+    return feats[:, :cfg.feat]
+
+
+def layer_major(cfg: ModelConfig) -> bool:
+    """True where a kernel configuration (kernel_cfg) runs the layer-major
+    family (ops/trunk_layers.py): a width outside CUDA_WIDTHS or an
+    encoding over LANE lanes."""
+    return cfg.feat not in CUDA_WIDTHS or cfg.xyz_in_dim > LANE
+
+
+def row_tile(cfg: ModelConfig) -> int:
+    """The multiple a kernel configuration pads the points to."""
+    return LAYER_TILE if layer_major(cfg) else TILE_N
 
 
 def act_of(cfg: ModelConfig) -> str:
@@ -103,7 +157,9 @@ def pack_trunk_weights(net, cfg: ModelConfig,
                        dtype: torch.dtype = torch.float32,
                        planes: Optional[bool] = None
                        ) -> Dict[str, torch.Tensor]:
-    """Trunk + sigma head as dense matrices in (out, in) layout:
+    """Trunk + sigma head as dense matrices in (out, in) layout, at the
+    width F = cfg.feat (kernel_cfg's; the network's own width is its
+    weights', and wider rows and columns are zeros):
 
       w0 (F, Ein_p) dtype, b0 (F,) f32
       w_mid (L-2, F, F) dtype, b_mid (L-2, F) f32  -- non-skip layers 1..L-1
@@ -122,29 +178,35 @@ def pack_trunk_weights(net, cfg: ModelConfig,
     ein_p = _round_up(ein, LANE)
     dev = trunk[0].w.device
 
-    def pad_cols(w, cols):
-        out = torch.zeros(w.shape[0], cols, dtype=dtype, device=dev)
-        out[:, :w.shape[1]] = w.detach().to(dtype)
+    def pad(w, rows, cols, dt=dtype):
+        out = torch.zeros(rows, cols, dtype=dt, device=dev)
+        out[:w.shape[0], :w.shape[1]] = w.detach().to(dt)
         return out
 
+    def pad_b(b):
+        # at the model's own width the f32 bias as it is (its storage: a
+        # kernel call's packed b0 names its network, chip_smoke.pack_owners)
+        if b.shape[0] == feat:
+            return b.detach().float()
+        return pad(b[None], 1, feat, torch.float32)[0]
+
     packed: Dict[str, torch.Tensor] = {
-        "w0": pad_cols(trunk[0].w, ein_p),
-        "b0": trunk[0].b.detach().float()}
+        "w0": pad(trunk[0].w, feat, ein_p), "b0": pad_b(trunk[0].b)}
     mids_w, mids_b = [], []
     for i in range(1, cfg.layers):
         layer = trunk[i]
         if i == skip:
             packed["w_skip"] = torch.cat(
-                [pad_cols(layer.w[:, :ein], ein_p),
-                 layer.w[:, ein:].detach().to(dtype)], 1).contiguous()
-            packed["b_skip"] = layer.b.detach().float()
+                [pad(layer.w[:, :ein], feat, ein_p),
+                 pad(layer.w[:, ein:], feat, feat)], 1).contiguous()
+            packed["b_skip"] = pad_b(layer.b)
         else:
-            mids_w.append(layer.w.detach().to(dtype))
-            mids_b.append(layer.b.detach().float())
+            mids_w.append(pad(layer.w, feat, feat))
+            mids_b.append(pad_b(layer.b))
     packed["w_mid"] = torch.stack(mids_w).contiguous()
     packed["b_mid"] = torch.stack(mids_b).contiguous()
     sig = net["sigma_from_xyz"][0]
-    packed["w_sigma"] = sig.w.detach()[0].to(dtype).float().contiguous()
+    packed["w_sigma"] = pad_b(sig.w.detach()[0].to(dtype).float())
     packed["b_sigma"] = sig.b.detach().float().reshape(1).contiguous()
     if planes is None:
         planes = dtype == torch.float32 and dev.type == "cuda"
@@ -244,26 +306,36 @@ def _trunk_sigma_split(packed: Dict, cfg: ModelConfig, x: torch.Tensor,
 
 
 def check_kernel_inputs(cfg: ModelConfig, packed: Dict, x: torch.Tensor):
-    """What the CUDA trunk kernels take; anything else raises.  The packed
-    trunk weights are bf16 at a bf16 compute dtype; at float32 they are
-    f32 with their split_planes beside them."""
+    """What the CUDA trunk kernels take; anything else raises.  cfg is a
+    kernel configuration (kernel_cfg): the fused family takes a width of
+    CUDA_WIDTHS and LANE lanes, the layer-major family (layer_major) a
+    width and lanes that are multiples of LAYER_TILE.  The packed trunk
+    weights are bf16 at a bf16 compute dtype; at float32 they are f32 with
+    their split_planes beside them."""
     if not cuda_kernels_cover(cfg):
         raise ValueError(
-            f"the CUDA trunk kernels take a trunk of width {CUDA_WIDTHS} "
-            f"with one skip layer inside it (siren with the polynomial or "
-            f"the exact sine, or ReLU), a compute_dtype of {CUDA_DTYPES} and "
-            f"an encoding of at most {LANE} lanes (got feat={cfg.feat}, "
-            f"layers={cfg.layers}, skips={tuple(cfg.skips)}, "
-            f"compute_dtype={cfg.compute_dtype!r}, encoding "
-            f"{cfg.xyz_in_dim}); this model runs with the fused kernels off")
-    if packed["w0"].shape != (cfg.feat, LANE):
-        raise ValueError(f"packed w0 must be ({cfg.feat}, {LANE}), got "
+            f"the CUDA trunk kernels take a trunk with one skip layer inside "
+            f"it (siren with the polynomial or the exact sine, or ReLU) and "
+            f"a compute_dtype of {CUDA_DTYPES} (got layers={cfg.layers}, "
+            f"skips={tuple(cfg.skips)}, compute_dtype="
+            f"{cfg.compute_dtype!r}); this model runs with the fused "
+            f"kernels off")
+    wide = layer_major(cfg)
+    if wide and cfg.feat % LAYER_TILE:
+        raise ValueError(
+            f"the layer-major kernels take a trunk width that is a multiple "
+            f"of {LAYER_TILE} (got width {cfg.feat}); the fused family takes "
+            f"the widths {CUDA_WIDTHS}; fused_mlp.kernel_cfg pads to either")
+    lanes = _round_up(cfg.xyz_in_dim, LANE) if wide else LANE
+    rows = row_tile(cfg)
+    if packed["w0"].shape != (cfg.feat, lanes):
+        raise ValueError(f"packed w0 must be ({cfg.feat}, {lanes}), got "
                          f"{tuple(packed['w0'].shape)}")
     if not (x.is_cuda and x.dtype == torch.float32 and x.is_contiguous()
-            and x.dim() == 2 and x.shape[1] == LANE
-            and x.shape[0] % TILE_N == 0):
-        raise ValueError(f"x must be a contiguous f32 CUDA tensor (n, {LANE})"
-                         f" with n % {TILE_N} == 0, got {x.dtype} "
+            and x.dim() == 2 and x.shape[1] == lanes
+            and x.shape[0] % rows == 0 and x.shape[0] > 0):
+        raise ValueError(f"x must be a contiguous f32 CUDA tensor (n, "
+                         f"{lanes}) with n % {rows} == 0, got {x.dtype} "
                          f"{tuple(x.shape)} on {x.device}")
     split = split_operands(cfg)
     for k, kp in PLANE_KEYS.items():
@@ -292,6 +364,9 @@ def trunk_weight_ptrs(cfg: ModelConfig, packed: Dict):
 
 def _trunk_sigma_cuda(packed: Dict, cfg: ModelConfig, x: torch.Tensor,
                       want_feats: bool):
+    if layer_major(cfg):
+        from .trunk_layers import layers_sigma
+        return layers_sigma(packed, cfg, x, want_feats)
     check_kernel_inputs(cfg, packed, x)
     n = x.shape[0]
     sigma = torch.empty(n, dtype=torch.float32, device=x.device)
@@ -322,18 +397,19 @@ def fused_trunk_sigma(net, cfg: ModelConfig, x_enc: torch.Tensor,
                       want_feats: bool = True
                       ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Trunk + sigma of encoded points x_enc (N, Ein).  Returns (sigma (N,),
-    feats (N, F) f32) or (sigma, None) with want_feats=False.  Rows are
-    padded to a multiple of TILE_N and lanes to LANE internally.  A CPU
-    tensor runs the plain twin; a CUDA tensor launches K1 or raises."""
-    packed = pack_trunk_weights(net, cfg, weight_dtype(cfg))
-    n = x_enc.shape[0]
-    x = pad_rows_lanes(x_enc, _round_up(max(n, TILE_N), TILE_N),
+    feats (N, F) f32) or (sigma, None) with want_feats=False.  The weights
+    are packed at kernel_cfg's width, rows padded to its row_tile and lanes
+    to LANE internally.  A CPU tensor runs the plain twin; a CUDA tensor
+    launches K1 (the fused or the layer-major family) or raises."""
+    kcfg, packed = pack_at_kernel_width(net, cfg)
+    n, rows = x_enc.shape[0], row_tile(kcfg)
+    x = pad_rows_lanes(x_enc, _round_up(max(n, rows), rows),
                        packed["w0"].shape[1])
     if x.device.type == "cpu":
-        sigma, feats = _trunk_sigma_plain(packed, cfg, x, want_feats)
+        sigma, feats = _trunk_sigma_plain(packed, kcfg, x, want_feats)
     else:
-        sigma, feats = _trunk_sigma_cuda(packed, cfg, x, want_feats)
-    return sigma[:n], (feats[:n] if want_feats else None)
+        sigma, feats = _trunk_sigma_cuda(packed, kcfg, x, want_feats)
+    return sigma[:n], (unpad_feats(cfg, feats[:n]) if want_feats else None)
 
 
 def fused_sigma_fn(net, cfg: ModelConfig, xyz: torch.Tensor) -> torch.Tensor:

@@ -107,11 +107,13 @@ def heads_kernel_supports(cfg: ModelConfig, net, dirs=None, t_emb=None,
 
 
 def heads_cuda_cover(cfg: ModelConfig) -> bool:
-    """True where K4/K5 are built for the model's trunk width: every
-    width of fused_mlp.CUDA_WIDTHS, as K1-K3 (csrc/trunk_heads_*.cu, one
-    library a width).  At any other width no trunk kernel runs on the card;
-    on the CPU the heads' twins take every width."""
-    return cfg.feat in CUDA_WIDTHS
+    """True where K4/K5 are built for the model's trunk width and
+    encoding: every width of fused_mlp.CUDA_WIDTHS (csrc/trunk_heads_*.cu,
+    one library a width) with at most LANE lanes.  At any other width or
+    encoding the heads run in torch beside K2/K3 (the layer-major or the
+    zero-padded fused family); on the CPU the heads' twins take every
+    width."""
+    return cfg.feat in CUDA_WIDTHS and cfg.xyz_in_dim <= LANE
 
 
 def head_part(feat: int) -> int:

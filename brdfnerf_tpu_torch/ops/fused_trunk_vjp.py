@@ -33,7 +33,10 @@ the bf16 terms of its f32 operands (fused_mlp.split3_mm);
 `_trunk_fwd_grad_split` and `_trunk_bwd_split` are that arithmetic in plain
 PyTorch, for the tests.  The activation (the polynomial or the exact sine,
 or ReLU) is the configuration's in the twins (`_act_all`) and built into
-the kernel library the wrappers launch (fused_mlp.act_of).
+the kernel library the wrappers launch (fused_mlp.act_of).  At a width
+or an encoding the fused kernels do not take, K2 and K3 are the layer-major
+family's (ops/trunk_layers.py); the entry points pack the weights at
+fused_mlp.kernel_cfg's zero-padded width and slice the results back.
 """
 
 from __future__ import annotations
@@ -50,9 +53,10 @@ from .cuda_build import CudaKernel
 from .fast_math import (_C1, _C3, _C5, _C7, _C9, horner, needs_graph,
                         reduce_range)
 from .fused_mlp import (FEAT, LANE, TILE_N, _round_up, act_of,
-                        check_kernel_inputs, pack_trunk_weights,
-                        pad_rows_lanes, split3_mm, split_operands,
-                        trunk_weight_ptrs, weight_dtype)
+                        check_kernel_inputs, layer_major,
+                        pack_at_kernel_width, pad_rows_lanes, row_tile,
+                        pack_trunk_weights, split3_mm, split_operands,
+                        trunk_weight_ptrs, unpad_feats, weight_dtype)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -405,6 +409,9 @@ def _reverse_sweep(packed: Dict, cfg: ModelConfig, x, cg, hs, d1s, d2s, tzs,
 
 def _trunk_fwd_grad_cuda(packed: Dict, cfg: ModelConfig, x: torch.Tensor,
                          want_zs: bool = False):
+    if layer_major(cfg):
+        from .trunk_layers import layers_fwd_grad
+        return layers_fwd_grad(packed, cfg, x, want_zs)
     check_kernel_inputs(cfg, packed, x)
     n = x.shape[0]
     dev = x.device
@@ -464,7 +471,7 @@ def check_bwd_inputs(cfg: ModelConfig, packed: Dict, x, cs, cf, cg, zs, us):
     zshape, zdt = saved_spec(cfg, n)
     want = {"cs": (cs, (n,), (torch.float32,)),
             "cf": (cf, (n, cfg.feat), (torch.bfloat16, torch.float32)),
-            "cg": (cg, (n, LANE), (torch.float32,)),
+            "cg": (cg, (n, x.shape[1]), (torch.float32,)),
             "zs": (zs, zshape, (zdt,)),
             "us": (us, zshape, (zdt,))}
     for k, (v, shape, dts) in want.items():
@@ -491,7 +498,13 @@ def wgrad_scratch(n: int, layers: int, heads: bool, dev, split=False,
 def _trunk_bwd_cuda(packed: Dict, cfg: ModelConfig, x, cs, cf, cg, zs, us,
                     scratch_out=None):
     """K3: the outputs of _trunk_bwd_plain.  A dict passed as scratch_out
-    receives the kernel's scratch (for checks of its intermediates)."""
+    receives the fused kernel's scratch (for checks of its intermediates;
+    the layer-major K3 keeps none)."""
+    if layer_major(cfg):
+        if scratch_out is not None:
+            raise ValueError("the layer-major K3 keeps no scratch to show")
+        from .trunk_layers import layers_bwd
+        return layers_bwd(packed, cfg, x, cs, cf, cg, zs, us)
     check_bwd_inputs(cfg, packed, x, cs, cf, cg, zs, us)
     n, dev = x.shape[0], x.device
     layers, F = cfg.layers, cfg.feat
@@ -542,9 +555,10 @@ def _run_fwd(cfg: ModelConfig, packed: Dict, x_enc: torch.Tensor,
     """(sigma (n,), feats (n, F), gx (n, Ein_p)) of encoded points; gx keeps
     the padded lane width, whose extra lanes are exactly 0.  With want_zs
     also zs and us, padded to the kernel's row count like the JAX
-    package's."""
-    n = x_enc.shape[0]
-    x = pad_rows_lanes(x_enc, _round_up(max(n, TILE_N), TILE_N),
+    package's.  cfg is a kernel configuration (fused_mlp.kernel_cfg): F is
+    its width and rows are padded to its row_tile."""
+    n, rows = x_enc.shape[0], row_tile(cfg)
+    x = pad_rows_lanes(x_enc, _round_up(max(n, rows), rows),
                        packed["w0"].shape[1])
     if x.device.type == "cpu":
         out = _trunk_fwd_grad_plain(packed, cfg, x, want_zs)
@@ -565,9 +579,8 @@ def _run_bwd(cfg: ModelConfig, packed: Dict, x_enc, c_sigma, c_feats, c_g,
     n = c_sigma.shape[0]
     cs = torch.zeros(n_p, dtype=torch.float32, device=x.device)
     cs[:n] = c_sigma
-    cf = torch.zeros(n_p, c_feats.shape[1], dtype=c_feats.dtype,
-                     device=x.device)
-    cf[:n] = c_feats
+    cf = torch.zeros(n_p, cfg.feat, dtype=c_feats.dtype, device=x.device)
+    cf[:n, :c_feats.shape[1]] = c_feats
     if x.device.type == "cpu":
         return _trunk_bwd_plain(packed, cfg, x, cs, cf, cg, zs, us)
     return _trunk_bwd_cuda(packed, cfg, x, cs, cf, cg, zs, us)
@@ -576,19 +589,22 @@ def _run_bwd(cfg: ModelConfig, packed: Dict, x_enc, c_sigma, c_feats, c_g,
 def _unpack_grads(cfg: ModelConfig, ein: int, outs) -> List[torch.Tensor]:
     """Packed (in, out) grads -> the grads of trunk_params(net), in the
     port's (out, in) Dense layout: [w, b] of every fc_net layer, then the
-    sigma head's w (1, F) and b (1,)."""
+    sigma head's w (1, F) and b (1,), at cfg's width F (the grads of a
+    zero-padded packing are sliced to it)."""
     (dw0, db0, dwm, dbm, dwst, dwsb, dbs, dwsig, dbsig) = outs
+    f = cfg.feat
     grads: List[torch.Tensor] = []
     mid = 0
     for i in range(cfg.layers):
         if i == 0:
-            grads += [dw0[:ein].t(), db0]
+            grads += [dw0[:ein, :f].t(), db0[:f]]
         elif i == cfg.skips[0]:
-            grads += [torch.cat([dwst[:ein], dwsb], 0).t(), dbs]
+            grads += [torch.cat([dwst[:ein, :f], dwsb[:f, :f]], 0).t(),
+                      dbs[:f]]
         else:
-            grads += [dwm[mid].t(), dbm[mid]]
+            grads += [dwm[mid, :f, :f].t(), dbm[mid, :f]]
             mid += 1
-    return grads + [dwsig[None, :], dbsig]
+    return grads + [dwsig[None, :f], dbsig]
 
 
 def trunk_params(net) -> List[torch.Tensor]:
@@ -600,29 +616,37 @@ def trunk_params(net) -> List[torch.Tensor]:
     return out
 
 
-def _pack_params(cfg: ModelConfig, params) -> Dict[str, torch.Tensor]:
-    """pack_trunk_weights from the flat trunk_params list."""
+def _params_view(params):
+    """The network view pack_trunk_weights reads, of the flat trunk_params
+    list."""
     layers = [SimpleNamespace(w=params[2 * i], b=params[2 * i + 1])
               for i in range(len(params) // 2)]
-    view = {"fc_net": layers[:-1], "sigma_from_xyz": layers[-1:]}
-    return pack_trunk_weights(view, cfg, weight_dtype(cfg))
+    return {"fc_net": layers[:-1], "sigma_from_xyz": layers[-1:]}
+
+
+def _pack_params(cfg: ModelConfig, params) -> Dict[str, torch.Tensor]:
+    """pack_trunk_weights from the flat trunk_params list."""
+    return pack_trunk_weights(_params_view(params), cfg, weight_dtype(cfg))
 
 
 class TrunkCore(torch.autograd.Function):
     """(sigma, feats, d sigma / d x_enc) with the hand-derived second-order
-    VJP: the forward runs K2 saving zs/us, the backward runs K3.  x_enc
-    carries no gradient (ray points are constants); like the JAX package's
-    _trunk_core_bwd, its grad is zeros."""
+    VJP: the forward runs K2 saving zs/us, the backward runs K3, both at
+    fused_mlp.kernel_cfg's width (feats and the grads sliced back to
+    cfg's).  x_enc carries no gradient (ray points are constants); like
+    the JAX package's _trunk_core_bwd, its grad is zeros."""
 
     @staticmethod
     def forward(ctx, cfg: ModelConfig, x_enc: torch.Tensor, *params):
-        packed = _pack_params(cfg, params)
-        sigma, feats, gx, zs, us = _run_fwd(cfg, packed, x_enc, want_zs=True)
-        ctx.cfg, ctx.packed, ctx.zs, ctx.us = cfg, packed, zs, us
+        kcfg, packed = pack_at_kernel_width(_params_view(params), cfg)
+        sigma, feats, gx, zs, us = _run_fwd(kcfg, packed, x_enc,
+                                            want_zs=True)
+        ctx.cfg, ctx.kcfg, ctx.packed, ctx.zs, ctx.us = (cfg, kcfg, packed,
+                                                         zs, us)
         ctx.save_for_backward(x_enc)
         ctx.ein = params[0].shape[1]
         ctx.set_materialize_grads(False)
-        return sigma, feats, gx
+        return sigma, unpad_feats(cfg, feats), gx
 
     @staticmethod
     def backward(ctx, c_sigma, c_feats, c_g):
@@ -636,7 +660,7 @@ class TrunkCore(torch.autograd.Function):
         if c_g is None:
             c_g = torch.zeros(n, ctx.packed["w0"].shape[1],
                               dtype=torch.float32, device=dev)
-        outs = _run_bwd(ctx.cfg, ctx.packed, x, c_sigma.float(),
+        outs = _run_bwd(ctx.kcfg, ctx.packed, x, c_sigma.float(),
                         c_feats.contiguous(), c_g.float(), ctx.zs, ctx.us)
         grads = _unpack_grads(ctx.cfg, ctx.ein, outs)
         dx = torch.zeros_like(x) if ctx.needs_input_grad[1] else None
@@ -651,8 +675,9 @@ def trunk_core(net, cfg: ModelConfig, x_enc: torch.Tensor):
     params = trunk_params(net)
     if torch.is_grad_enabled() and any(p.requires_grad for p in params):
         return TrunkCore.apply(cfg, x_enc.detach(), *params)
-    packed = pack_trunk_weights(net, cfg, weight_dtype(cfg))
-    return _run_fwd(cfg, packed, x_enc.detach())
+    kcfg, packed = pack_at_kernel_width(net, cfg)
+    sigma, feats, gx = _run_fwd(kcfg, packed, x_enc.detach())
+    return sigma, unpad_feats(cfg, feats), gx
 
 
 def fused_trunk_with_grad(net, cfg: ModelConfig, xyz: torch.Tensor):

@@ -110,16 +110,20 @@ def normals(mesh, payload: Dict, device=None) -> Dict:
     return {"normals": n.detach().cpu().numpy(), "grads": grads}
 
 
-# the fused kernels' launch counters (ops/cuda_build.CudaKernel)
+# every trunk kernel's launch counter (ops/cuda_build.CudaKernel): the
+# fused family's K1-K5 and the layer-major family's K1-K3
 KERNELS = {"K1": ("fused_mlp", "TRUNK_SIGMA"),
            "K2": ("fused_trunk_vjp", "TRUNK_FWD_GRAD"),
            "K3": ("fused_trunk_vjp", "TRUNK_BWD"),
            "K4": ("fused_trunk_heads", "TRUNK_HEADS_FWD"),
-           "K5": ("fused_trunk_heads", "TRUNK_HEADS_BWD")}
+           "K5": ("fused_trunk_heads", "TRUNK_HEADS_BWD"),
+           "K1 layer-major": ("trunk_layers", "TRUNK_SIGMA_WIDE"),
+           "K2 layer-major": ("trunk_layers", "TRUNK_FWD_GRAD_WIDE"),
+           "K3 layer-major": ("trunk_layers", "TRUNK_BWD_WIDE")}
 
 
 def kernel_launches() -> Dict[str, int]:
-    """K1-K5's launch counts in this process."""
+    """Every trunk kernel's launch count in this process (KERNELS)."""
     import importlib
     return {k: getattr(importlib.import_module(
         f"brdfnerf_tpu_torch.ops.{mod}"), name).launches

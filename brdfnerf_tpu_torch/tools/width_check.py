@@ -1,8 +1,11 @@
 """K1-K5 at the trunk widths 64, 128 and 256 (--fc_feat) on the card, held
-against their plain twins, and timed at the main paths' shapes.
+against their plain twins, and timed at the main paths' shapes; and K1-K3
+at the shapes the fused kernels do not take (the layer-major family and
+the zero-padded widths).
 
     python3 -m brdfnerf_tpu_torch.tools.width_check [points ...]
     python3 -m brdfnerf_tpu_torch.tools.width_check --times [F ...]
+    python3 -m brdfnerf_tpu_torch.tools.width_check --layers [points ...]
 
 For each configuration of CONFIGS (widths 64, 128 and 256 at 8 layers
 with the skip at 4, and width 64 at 4 layers with the skip at 2, the
@@ -34,6 +37,15 @@ persistent block runs several tiles), at the widths given (default 64,
 the same products, with its bound (trunk_work, bound_ms).  This is the
 one command line for the widths' checks and times; chip_smoke.py's
 `widths` phase runs both (check_all, kernel_rows, heads_rows).
+--layers runs check_width for every configuration of LAYER_CONFIGS (the
+12 x 2048 trunk; 4 x 768 at the exact sine and ReLU; a 144-lane encoding
+at 4 x 128 and 8 x 128; width 96, which the fused kernels run at 128) at
+each size
+(default 384 and 4,096 points): K1-K3 at fused_mlp.kernel_cfg's width,
+at the bounds above times sum_length_scale (past width 512 every
+product sums more terms); --times F with F past 512 makes the
+layer-major rows (layer_rows: 12 layers, skip 4).  chip_smoke.py's
+`widths, layer-major` phase runs both (check_layers, layer_rows).
 Prints the card's name and power limit first and a JSON summary last;
 exits 1 where a check missed its bound.
 """
@@ -204,56 +216,110 @@ def matmul_chains(packed, mcfg, lane):
 
 def width_model(feat: int, layers: int = 8, skip: int = 4,
                 compute_dtype: str = "bfloat16_all", act: str = "poly",
-                seed: int = 0):
+                seed: int = 0, freqs: int = 0):
     """(ModelConfig, network) of spsbrdf-nerf with the flagship's heads at
     trunk width `feat`, `layers` layers with the skip at `skip`, the
-    activation `act` (poly, sin, relu), its weights from `seed`, on the
-    card."""
+    activation `act` (poly, sin, relu), `freqs` encoding frequencies (0:
+    the default 10, 60 lanes), its weights from `seed`, on the card."""
     from ..config import ModelConfig
     from ..models.network import init_network
+    enc = {"mapping_sizes": (freqs, 4)} if freqs else {}
     cfg = ModelConfig(variant="spsbrdf-nerf", mapping=True,
                       compute_dtype=compute_dtype, normal="analystic",
                       sun_v="analystic", func_m=True, func_f=True, func_h=1,
                       dim_rpv=1, layers=layers, feat=feat, skips=(skip,),
-                      **ACTS[act])
+                      **ACTS[act], **enc)
     g = torch.Generator(device="cuda").manual_seed(seed)
     return cfg, init_network(cfg, g, device="cuda")
 
 
+def sum_length_scale(feat: int) -> float:
+    """The factor on the width-512 rows' bounds at trunk width `feat`: 1 up
+    to 512; past it every trunk product sums K = feat terms, whose
+    rounding error grows like sqrt(K) ulp, so sqrt(feat / 512) (2 at the
+    12 x 2048 trunk, whose K2 at bfloat16_all measured gx 1.18e-2 from its
+    twin on an H100 at 700 W, 4,096 and 16,384 points, against the 512
+    rows' 1e-2; at float32, with the accumulator flushed every 512
+    products, 4.7e-5 against 1e-4)."""
+    return max(1.0, (feat / 512) ** 0.5)
+
+
 def held(kern, label, names, got, again, ref, dtype, act, report, b16=None,
-         sum_scale=None, split=None):
+         sum_scale=None, split=None, feat: int = 512):
     """Two launches' outputs `got` and `again` bit-identical, and held to
     the twin's `ref` at the module docstring's bounds for `dtype` (b16:
     the bfloat16_all kernel's outputs on the same inputs, for float32;
-    split: K4's or K5's split twin's outputs)."""
+    split: K4's or K5's split twin's outputs), times sum_length_scale(feat)
+    at the trunk width the kernel runs at."""
     same_twice(f"{kern} {label}", got, again)
     heads = kern[:2] in ("K4", "K5")
+    s = sum_length_scale(feat)
     if dtype == "float32" and not (heads and act != "poly"):
-        hold_f32(f"{kern} {label}", names, got, b16, ref, report,
-                 HEADS_CLOSER if heads else CLOSER, split, sum_scale)
+        # past width 512 (the layer-major family), ReLU's kinked outputs
+        # (act_check.bound_of: what an act' flip at z ~ 0 reaches) at
+        # act_check's bound: on an H100 at 700 W the 4 x 768 ReLU trunk's
+        # float32 gx sat 1.384e-3 from its exact twin; every other output,
+        # and every output at width 512 and under, at F32_BOUND and the
+        # ratio
+        kinked = [i for i, nm in enumerate(names)
+                  if feat > k1.FEAT
+                  and bound_of(act, kern[:2], nm, F32_BOUND) > F32_BOUND]
+        if kinked:
+            _hold(f"{kern} {label} (ReLU's kinked outputs)",
+                  [names[i] for i in kinked], [got[i] for i in kinked],
+                  [ref[i] for i in kinked],
+                  {names[i]: s * bound_of(act, kern[:2], names[i], F32_BOUND)
+                   for i in kinked}, report)
+        keep = [i for i in range(len(names)) if i not in kinked]
+        hold_f32(f"{kern} {label}", [names[i] for i in keep],
+                 [got[i] for i in keep], [b16[i] for i in keep],
+                 [ref[i] for i in keep], report,
+                 HEADS_CLOSER if heads else CLOSER,
+                 None if split is None else [split[i] for i in keep],
+                 sum_scale, s * F32_BOUND)
     else:
         b = (F32_BOUND if dtype == "float32" else
              K1_BOUND if kern.startswith("K1") else BF16_BOUND)
         _hold(f"{kern} {label}", names, got, ref,
-              {nm: bound_of(act, kern[:2], nm, b) for nm in names}, report,
-              sum_scale)
+              {nm: s * bound_of(act, kern[:2], nm, b) for nm in names},
+              report, sum_scale)
+
+
+def family_tag(cfg) -> str:
+    """How K1-K3 run a model: "width F" where the fused kernels are built
+    for it, else with the width and family they run it at
+    (fused_mlp.kernel_cfg)."""
+    kc = k1.kernel_cfg(cfg)
+    fam = "layer-major" if k1.layer_major(kc) else "fused"
+    tag = f"width {cfg.feat}"
+    if kc.feat != cfg.feat or fam != "fused":
+        tag += f" ({fam} at width {kc.feat})"
+    if cfg.xyz_in_dim > k1.LANE:
+        tag += f", {cfg.xyz_in_dim} lanes"
+    return tag
 
 
 def check_width(feat: int, layers: int, skip: int, act: str, n: int,
-                seed: int = 0, report=None):
-    """K1 (with and without feats), K2 (serving, saving zs/us), K3, K4
-    (serving, saving zs) and K5 of the configuration at `act` and every
-    dtype of DTYPES on n points, as the module docstring says; returns the
-    report dict."""
+                seed: int = 0, report=None, freqs: int = 0):
+    """K1 (with and without feats), K2 (serving, saving zs/us), K3, and
+    where the fused heads take the width K4 (serving, saving zs) and K5,
+    of the configuration at `act` (`freqs` as width_model) and every dtype
+    of DTYPES on n points, as the module docstring says; each at
+    fused_mlp.kernel_cfg's width (zero-padded where it is not the
+    model's), the fused or the layer-major family; returns the report
+    dict."""
     report = {} if report is None else report
-    cfg16, net = width_model(feat, layers, skip, "bfloat16_all", act, seed)
+    cfg16, net = width_model(feat, layers, skip, "bfloat16_all", act, seed,
+                             freqs)
     assert k1.cuda_kernels_cover(cfg16) and k1.act_of(cfg16) == act
-    assert k4.heads_cuda_cover(cfg16)
+    heads = k4.heads_cuda_cover(cfg16)
+    cfg16, logical = k1.kernel_cfg(cfg16), cfg16
     p16 = k1.pack_trunk_weights(net, cfg16, torch.bfloat16)
-    hw16 = k4.pack_head_weights(net, cfg16, torch.bfloat16)
+    hw16 = k4.pack_head_weights(net, cfg16, torch.bfloat16) if heads else None
     gen = torch.Generator(device="cuda").manual_seed(seed + 5)
     enc = points(cfg16, n, gen)
-    tag = f"width {feat}, {layers} layers, skip {skip}, {act}, {n} points"
+    tag = (f"{family_tag(logical)}, {layers} layers, skip {skip}, {act}, "
+           f"{n} points")
     for dtype in DTYPES:
         cfg = dc.replace(cfg16, compute_dtype=dtype)
         packed = k1.pack_trunk_weights(net, cfg, k1.weight_dtype(cfg))
@@ -267,7 +333,8 @@ def check_width(feat: int, layers: int, skip: int, act: str, n: int,
                  k1._trunk_sigma_cuda(packed, cfg, enc, feats)[:k],
                  k1._trunk_sigma_plain(packed, cfg, enc, feats)[:k], dtype,
                  act, report,
-                 k1._trunk_sigma_cuda(p16, cfg16, enc, feats)[:k])
+                 k1._trunk_sigma_cuda(p16, cfg16, enc, feats)[:k],
+                 feat=cfg.feat)
         for want_zs in (False, True):
             names = ("sigma", "feats", "gx", "zs", "us")[:3 + 2 * want_zs]
             got = k2._trunk_fwd_grad_cuda(packed, cfg, enc, want_zs)
@@ -276,11 +343,13 @@ def check_width(feat: int, layers: int, skip: int, act: str, n: int,
                  k2._trunk_fwd_grad_cuda(packed, cfg, enc, want_zs),
                  k2._trunk_fwd_grad_plain(packed, cfg, enc, want_zs), dtype,
                  act, report,
-                 k2._trunk_fwd_grad_cuda(p16, cfg16, enc, want_zs))
+                 k2._trunk_fwd_grad_cuda(p16, cfg16, enc, want_zs),
+                 feat=cfg.feat)
             if not want_zs:
                 k2_serving = got
         zs, us = got[3], got[4]
-        assert zs.dtype == us.dtype == sd and zs.shape == (n, layers * feat)
+        assert zs.dtype == us.dtype == sd
+        assert zs.shape == (n, layers * cfg.feat)
         cs, cf, cg = cotangents(cfg, n, gen, sd)
         bf = torch.bfloat16
         held("K3", label, K3_NAMES,
@@ -290,9 +359,10 @@ def check_width(feat: int, layers: int, skip: int, act: str, n: int,
              dtype, act, report,
              k2._trunk_bwd_cuda(p16, cfg16, enc, cs, cf.to(bf), cg,
                                 zs.to(bf), us.to(bf)) if f32 else None,
-             dbsig_scale(packed, cfg, cs, cg, zs))
-        check_heads(label, net, cfg, packed, p16, hw16, cfg16, enc, cg,
-                    k2_serving, gen, act, report)
+             dbsig_scale(packed, cfg, cs, cg, zs), feat=cfg.feat)
+        if heads:
+            check_heads(label, net, cfg, packed, p16, hw16, cfg16, enc, cg,
+                        k2_serving, gen, act, report)
     return report
 
 
@@ -354,6 +424,33 @@ def check_heads(label, net, cfg, packed, p16, hw16, cfg16, enc, cg,
          if f32 else None)
 
 
+# the layer-major family (ops/trunk_layers.py) and the padded widths:
+# (width, layers, skip, activation, encoding frequencies; 0 the default
+# 10): the 12 x 2048 trunk that tensor parallelism exists for; 4 x 768
+# (skip 2) at the exact sine and at ReLU; a 144-lane encoding (24
+# frequencies) at 4 x 128 and at 8 x 128 (skip 4, the flagship's depth:
+# chip_smoke.py's 144-lane request and steps); and width 96, which the
+# fused family runs at 128
+LAYER_CONFIGS = ((2048, 12, 4, "poly", 0), (768, 4, 2, "sin", 0),
+                 (768, 4, 2, "relu", 0), (128, 4, 2, "poly", 24),
+                 (128, 8, 4, "poly", 24), (96, 8, 4, "poly", 0))
+# their point counts: multiples of the layer-major tile (128), one block
+# of the padded fused family's 64-point tiles and a few thousand
+LAYER_SIZES = (384, 4096)
+
+
+def check_layers(sizes=LAYER_SIZES, report=None, configs=LAYER_CONFIGS):
+    """check_width for every configuration of LAYER_CONFIGS at every size:
+    the layer-major K1-K3 (and at width 96 the fused ones at 128) held to
+    their twins at the bounds of the width-512 rows, twice bit-identical."""
+    report = {} if report is None else report
+    for n in sizes:
+        for feat, layers, skip, act, freqs in configs:
+            check_width(feat, layers, skip, act, n, report=report,
+                        freqs=freqs)
+    return report
+
+
 def check_all(sizes=SIZES, report=None):
     """check_width for every configuration and size at the polynomial sine,
     and at width 64 (8 layers) at the exact sine and ReLU."""
@@ -392,30 +489,53 @@ ROW_KINDS = {
 
 
 def timed_row(rows, kern, cfg, n, work, peaks, fn, twin, library, report,
-              b16=None, sum_scale=None):
+              b16=None, sum_scale=None, kinds=None, reps=(10, 1, 5),
+              held_rows=None, twin_time=None):
     """Row "<kern> <dtype> f<feat>" of the kernels JSON line: fn (the
     kernel) launched twice bit-identical and held to `twin` at
     check_width's bounds (`held`; b16, sum_scale as there), timed beside
-    its twin and `library` (the torch.matmul chain of the same products),
-    with the bound of `work` = (FLOPs, bytes) at `peaks` (at float32 also
-    the bound of three products for each) and the largest difference
-    from the twin."""
+    its twin and `library` (the torch.matmul chain of the same products;
+    `reps` calls of each after one), with the bound of `work` = (FLOPs,
+    bytes) at `peaks` (at float32 also the bound of three products for
+    each) and the largest difference from the twin.  kinds: the row
+    kinds' names and sources (ROW_KINDS; LAYER_ROW_KINDS for the
+    layer-major family).  held_rows: hold only the first held_rows points
+    of a kernel whose outputs are per point (`twin` computes those, and
+    `twin_time` the twin on every point, timed in its place)."""
     dtype, feat = cfg.compute_dtype, cfg.feat
-    name, source, replaces, outs = ROW_KINDS[kern]
+    name, source, replaces, outs = (kinds or ROW_KINDS)[kern]
     key = f"{kern} {dtype} f{feat}"
-    got, again, ref = fn(), fn(), twin()
-    held(kern, f"width {feat}, {dtype}, {n} points (main shape)", outs, got,
-         again, ref, dtype, "poly", report, None if b16 is None else b16(),
-         sum_scale)
+    label = f"width {feat}, {dtype}, {n} points (main shape)"
+    # one launch's outputs at a time beside `got` (the 12 x 2048 rows' f32
+    # zs/us are 12.9 GB each): the second launch compared and dropped
+    # before the bfloat16_all kernel's and the twin's outputs are made
+    got, again = fn(), fn()
+    same_twice(f"{kern} {label}", got, again)
+    del again
+
+    def rows_of(out):
+        if held_rows is None:
+            return out
+        return tuple(None if v is None else v[:held_rows].clone()
+                     for v in out)
+    got = rows_of(got)
+    if held_rows is not None:
+        label += f", the first {held_rows} held"
+    b = None if b16 is None else rows_of(b16())
+    ref = twin()
+    held(kern, label, outs, got, got, ref, dtype, "poly", report, b,
+         sum_scale, feat=feat)
     err = max((g_.float() - r_.float()).abs().max().item()
               for g_, r_ in zip(got, ref) if g_ is not None)
-    del got, again, ref
+    del got, ref, b
     r = {"name": f"{name} [width {feat}, {dtype}]", "route": "cuda",
          "source": "brdfnerf_tpu_torch/csrc/" + source,
          "replaces": "brdfnerf_tpu/ops/" + replaces, "width": feat,
          "dtype": dtype, "points": n, "max_abs_err": err,
-         "ms": timed(fn, 10), "plain_ms": timed(twin, 1),
-         "library_ms": timed(library, 5)}
+         "ms": timed(fn, reps[0]),
+         "plain_ms": timed(twin if twin_time is None else twin_time,
+                           reps[1]),
+         "library_ms": timed(library, reps[2])}
     r["bound_ms"], r["bound_by"] = bound_ms(*work, peaks)
     if dtype == "float32":
         r["bound_split_ms"], _ = bound_ms(3 * work[0], work[1], peaks)
@@ -513,6 +633,154 @@ def kernel_rows(rows: dict, feat: int, peaks, seed: int = 0, report=None):
             dbsig_scale(packed, cfg, cs, cg, zs))
         del enc, encb, zs, us, cs, cf, cg, hth, azb, xtb, cgb
     return rows
+
+
+# the layer-major rows' names and sources (layer_rows), as ROW_KINDS
+LAYER_ROW_KINDS = {
+    k: (f"trunk_layers {k}" + (" (saving zs/us)" if k == "K2zs" else ""),
+        "trunk_layers.cu", v[2], v[3])
+    for k, v in ROW_KINDS.items() if k in ("K1", "K2", "K2zs", "K3")}
+# the twins' point chunk at the layer-major rows' shapes (the 12 x 2048
+# twin of K2 holds ~0.4 MB a point, of K3 ~0.6 MB: a few GB a chunk), and
+# the points at which a per-point row is held to its twin (the kernel runs
+# at the main shape: its float32 zs and us are 12.9 GB each)
+TWIN_CHUNK = 8192
+TWIN_ROWS = 16384
+
+
+def chunked_twin(fn, n: int, *rows, chunk: int = TWIN_CHUNK, summed=False,
+                 keep=True):
+    """fn over `rows` (tensors of n rows) in chunks of `chunk` points: with
+    `summed` (a weight gradient, a sum over the points) the outputs added
+    in order; without, (with `keep`) concatenated, or (keep=False) dropped,
+    for the twin's time at a shape whose outputs are not kept whole.  The
+    twin of a kernel whose main shape does not fit the twin's
+    intermediates whole."""
+    out = []
+    for i in range(0, n, chunk):
+        part = fn(*(r[i:i + chunk] for r in rows))
+        if summed:
+            out = list(part) if not out else [o + p_ for o, p_ in
+                                               zip(out, part)]
+        elif keep:
+            out.append(part)
+        del part
+    if summed or not keep:
+        return tuple(out)
+    return tuple(None if v[0] is None else torch.cat(v)
+                 for v in zip(*out))
+
+
+def layer_rows(rows: dict, peaks, feat: int = 2048, layers: int = 12,
+               skip: int = 4, dtypes=DTYPES, seed: int = 0, report=None,
+               reps=(3, 1, 3), kinds=("K1", "K2", "K2zs", "K3")):
+    """Rows of the kernels JSON line for the layer-major K1-K3 at
+    `layers` x `feat` (skip `skip`; default the 12 x 2048 trunk), keyed
+    "<K1|K2|K2zs|K3> <dtype> f<feat>", as kernel_rows makes the fused
+    family's: each at its main shape (K1 at N_SERVE_PASS points, K2 at
+    N_SERVE_MAIN, K2 saving zs/us and K3 at N_TRAIN_MAIN; at bfloat16 the
+    last two), launched twice bit-identical, held to its twin at
+    check_width's bounds (K1 and K2, whose outputs are per point, on the
+    first TWIN_ROWS points; K3, a sum over the points, whole, its twin run
+    in chunks: chunked_twin), and timed beside the twin on every point
+    (in chunks), the torch.matmul chain of the same products and its
+    bound (trunk_work).  kinds: the rows to make (each of the four by
+    default); reps: timed_row's."""
+    from ..ops.fused_mlp import LANE
+    report = {} if report is None else report
+    gen = torch.Generator(device="cuda").manual_seed(seed + 6)
+    cfg16, net = width_model(feat, layers, skip, seed=seed)
+    assert k1.layer_major(k1.kernel_cfg(cfg16)), "not a layer-major width"
+    p16 = k1.pack_trunk_weights(net, cfg16, torch.bfloat16)
+    bf = torch.bfloat16
+    for dtype in dtypes:
+        cfg = dc.replace(cfg16, compute_dtype=dtype)
+        packed = k1.pack_trunk_weights(net, cfg, k1.weight_dtype(cfg))
+        wbytes = weight_bytes(packed, k1.PLANE_KEYS.values())
+        chain_fwd, chain_k2, chain_k3 = matmul_chains(packed, cfg, LANE)
+
+        def row(kern, fn, twin, library, n, b16=None, sum_scale=None,
+                twin_time=None):
+            if kern in kinds:
+                timed_row(rows, kern, cfg, n,
+                          trunk_work(kern, cfg, n, wbytes), peaks, fn, twin,
+                          library, report, b16, sum_scale, LAYER_ROW_KINDS,
+                          reps, None if twin_time is None else TWIN_ROWS,
+                          twin_time)
+        m = TWIN_ROWS
+
+        ob = torch.float32 if dtype == "float32" else torch.bfloat16
+        f32 = dtype == "float32"
+        if dtype != "bfloat16" and {"K1", "K2"} & set(kinds):
+            n = N_SERVE_PASS
+            enc = points(cfg, n, gen)
+            if f32:
+                chain1 = lambda: chain_fwd(enc)                # noqa: E731
+            else:
+                hi, lo = k1.split_bf16(enc)
+                chain1 = (lambda: chain_fwd(hi)[0]             # noqa: E731
+                          + chain_fwd(lo)[0])
+            row("K1",
+                lambda: k1._trunk_sigma_cuda(packed, cfg, enc, False)[:1],
+                lambda: k1._trunk_sigma_plain(packed, cfg, enc[:m],
+                                              False)[:1],
+                chain1, n,
+                (lambda: k1._trunk_sigma_cuda(p16, cfg16, enc, False)[:1])
+                if f32 else None,
+                twin_time=lambda: chunked_twin(
+                    lambda x: k1._trunk_sigma_plain(packed, cfg, x, False),
+                    n, enc, keep=False))
+            del enc, chain1
+            n = N_SERVE_MAIN
+            enc = points(cfg, n, gen)
+            encb = enc.to(ob)
+            row("K2", lambda: k2._trunk_fwd_grad_cuda(packed, cfg, enc),
+                lambda: k2._trunk_fwd_grad_plain(packed, cfg, enc[:m]),
+                lambda: chain_k2(encb), n,
+                (lambda: k2._trunk_fwd_grad_cuda(p16, cfg16, enc))
+                if f32 else None,
+                twin_time=lambda: chunked_twin(
+                    lambda x: k2._trunk_fwd_grad_plain(packed, cfg, x), n,
+                    enc, keep=False))
+            del enc, encb
+        n = N_TRAIN_MAIN
+        enc = points(cfg, n, gen)
+        encb = enc.to(ob)
+        row("K2zs", lambda: k2._trunk_fwd_grad_cuda(packed, cfg, enc, True),
+            lambda: k2._trunk_fwd_grad_plain(packed, cfg, enc[:m], True),
+            lambda: chain_k2(encb), n,
+            (lambda: k2._trunk_fwd_grad_cuda(p16, cfg16, enc, True))
+            if f32 else None,
+            twin_time=lambda: chunked_twin(
+                lambda x: k2._trunk_fwd_grad_plain(packed, cfg, x, True), n,
+                enc, keep=False))
+        zs, us = k2._trunk_fwd_grad_cuda(packed, cfg, enc, True)[3:]
+        cs, cf, cg = cotangents(cfg, n, gen, k2._saved_dtype(cfg))
+        hth = torch.randn(2 * n, feat, device="cuda", generator=gen).to(ob)
+        azb = torch.randn(2 * n, feat, device="cuda", generator=gen).to(ob)
+        xtb = torch.cat([enc, cg], 0).to(ob)
+        cgb = cg.to(ob)
+        row("K3", lambda: k2._trunk_bwd_cuda(packed, cfg, enc, cs, cf, cg,
+                                             zs, us),
+            lambda: chunked_twin(lambda *r_: k2._trunk_bwd_plain(
+                packed, cfg, *r_), n, enc, cs, cf, cg, zs, us, summed=True),
+            lambda: chain_k3(cgb, azb, hth, xtb), n,
+            (lambda: k2._trunk_bwd_cuda(p16, cfg16, enc, cs, cf.to(bf), cg,
+                                        zs.to(bf), us.to(bf)))
+            if f32 else None,
+            dbsig_scale_chunked(packed, cfg, cs, cg, zs))
+        del enc, encb, zs, us, cs, cf, cg, hth, azb, xtb, cgb
+    return rows
+
+
+def dbsig_scale_chunked(packed, cfg, cs, cg, zs, chunk: int = TWIN_CHUNK):
+    """f32_check.dbsig_scale over the points in chunks: the L2 norm of
+    the sigma head's bias gradient's per-point terms."""
+    total = 0.0
+    for i in range(0, cs.shape[0], chunk):
+        total += dbsig_scale(packed, cfg, cs[i:i + chunk], cg[i:i + chunk],
+                             zs[i:i + chunk]) ** 2
+    return total ** 0.5
 
 
 def heads_chains(packed, hw, mcfg, lane):
@@ -637,6 +905,7 @@ def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     nums = tuple(int(a) for a in argv if a.isdigit())
     times = "--times" in argv
+    layers = "--layers" in argv
     if not torch.cuda.is_available():
         print("CUDA is not available", file=sys.stderr)
         return 2
@@ -647,10 +916,17 @@ def main(argv=None) -> int:
     cuda_build.build(libraries())
     for name, rec in cuda_build.build_log.items():
         print(f"  built {name} in {rec['seconds']:.1f} s", flush=True)
+        if name.startswith("trunk_layers"):
+            print(rec["log"], flush=True)
     report, rows = {}, {}
-    if times:
+    if layers:
+        check_layers(nums or LAYER_SIZES, report)
+    elif times:
         peaks = peaks_of(torch.cuda.get_device_name(0))
         for feat in nums or WIDTHS:
+            if feat > k1.FEAT:
+                layer_rows(rows, peaks, feat, report=report)
+                continue
             kernel_rows(rows, feat, peaks, report=report)
             heads_rows(rows, feat, peaks, report=report)
     else:
@@ -663,14 +939,16 @@ def main(argv=None) -> int:
 def libraries():
     """The library keys of K1-K5 at every width of WIDTHS: the polynomial
     sine at each, and at width 64 the exact sine and ReLU too
-    (ops/cuda_build.library_key)."""
+    (ops/cuda_build.library_key); then the layer-major family's
+    (csrc/trunk_layers.cu) at each activation."""
     from ..ops import cuda_build
     return [cuda_build.library_key(lib, act, feat)
             for feat in WIDTHS
             for act in (("poly",) + tuple(ACT_CONFIGS) if feat == 64
                         else ("poly",))
             for lib in ("trunk_sigma", "trunk_fwd_grad", "trunk_bwd",
-                        "trunk_heads_fwd", "trunk_heads_bwd")]
+                        "trunk_heads_fwd", "trunk_heads_bwd")] + [
+        cuda_build.library_key("trunk_layers", act) for act in ACTS]
 
 
 if __name__ == "__main__":

@@ -204,6 +204,31 @@ The trunk widths (before phase 6):
                 / K5 1; WIDTH_STEPS timed, a falling loss; bfloat16
                 WIDTH_SHORT), and at bfloat16_all a step-check point of
                 each
+ 13b. widths, layer-major - K1-K3 where the fused kernels do not take
+                the shape (ops/trunk_layers.py, csrc/trunk_layers.cu: a
+                width past 512 or an encoding over 128 lanes) and the
+                fused family at a zero-padded width: the libraries' nvcc
+                seconds; every instantiation at every dtype against its
+                twin, twice bit-identical (width_check.check_layers: 12 x
+                2048 on LAYER_POINTS points, 4 x 768 at the exact sine and
+                ReLU, a 144-lane encoding at 4 x 128 and 8 x 128 and
+                width 96, at the
+                512 rows' bounds times sum_length_scale); the 12 x 2048
+                rows at their main shapes (bfloat16_all; the float32
+                step's K2 saving zs/us and K3), timed; then the 12 x 2048
+                flagship trunk on the card: a 16,384-ray request (K1L 2 /
+                K2L 1 a chunk) against the CPU twins, the stage-2 step at
+                bfloat16_all (K1L 2 / K2L 1 / K3L 1, LAYER_STEPS timed, a
+                falling loss) and a step-check point on its weights,
+                LAYER_CHECK_RAYS rays, against the twins on the card (the
+                bf16 bounds times sum_length_scale);
+                LAYER_SHORT float32 steps and a step-check point on
+                their weights at the float32 bounds (also against the
+                unfused step on the card); a request and steps at width
+                96 (the fused kernels at 128; the request against the CPU
+                twins) and at a 144-lane encoding (every K1 and K2 call
+                of the request held to its twins on its own inputs:
+                held_on_inputs); the phase's seconds
 After phase 12:
  14. workflow, width 64 - stage 1 and stage 2 through the train CLI at
                 --fc_feat 64 (the [kernels] line names the width), the eval
@@ -266,8 +291,9 @@ After phase 9 (before 12):
                 tensor parallelism
 Then one JSON line of every ported kernel instantiation (each launched on
 a main path: the run fails if one was not; launches_int8, launches_dp,
-launches_split and launches_tp the new phases' counts), the card's line,
-and the last line {"ok": true, "device": {...}}.
+launches_split and launches_tp the new phases' counts; the layer-major
+rows keyed "<K1|K2|K2zs|K3> <dtype> f2048"), the card's line, and the
+last line {"ok": true, "device": {...}}.
 """
 
 import contextlib
@@ -428,7 +454,59 @@ def fixed_fine(fine_z, rays):
         render_mod.sample_pdf = real
 
 
-GROUPS = (("K1 trunk_sigma", ("trunk_sigma_kernel",)),
+def held_on_inputs(r, rays, label):
+    """Render `rays` through renderer r with every K1 and K2 call held to
+    its plain twin on the inputs the render gives it: the request's own
+    encoded points at the path's shapes, each call launched twice
+    (bit-identical) and within tools/width_check.held's bounds at r's
+    dtype and activation, as check_layers holds them.  It holds a render
+    that no comparison with another render determines: with an encoding of
+    24 octaves (xyz scaled by 2^23) a moved depth moves the guided
+    samples' encodings by O(1), so two renders, on the card and on the
+    CPU, run on different points.  Returns the number of calls held."""
+    from brdfnerf_tpu_torch.ops import fused_mlp as k1
+    from brdfnerf_tpu_torch.ops import fused_trunk_vjp as k2
+    from brdfnerf_tpu_torch.tools import act_check, width_check
+    mcfg = r.cfg.model
+    act, dtype = k1.act_of(mcfg), mcfg.compute_dtype
+    assert dtype != "float32", "float32's ratio needs a bfloat16_all run"
+    saved = (k1._trunk_sigma_cuda, k2._trunk_fwd_grad_cuda)
+    calls = []
+
+    def holding(kern, fn, twin):
+        def run(packed, cfg, x, want):
+            out = fn(packed, cfg, x, want)
+            got = [v for v in out if v is not None]
+            names = (("sigma", "feats") if kern == "K1" else
+                     ("sigma", "feats", "gx", "zs", "us"))[:len(got)]
+            width_check.held(
+                kern, f"{label}, call {len(calls)}, {x.shape[0]} points",
+                names, got,
+                [v for v in fn(packed, cfg, x, want) if v is not None],
+                [v for v in twin(packed, cfg, x, want) if v is not None],
+                dtype, act, {}, feat=cfg.feat)
+            calls.append(kern)
+            return out
+        return run
+
+    k1._trunk_sigma_cuda = holding("K1", saved[0], k1._trunk_sigma_plain)
+    k2._trunk_fwd_grad_cuda = holding("K2", saved[1],
+                                      k2._trunk_fwd_grad_plain)
+    try:
+        r.render_image({"rays": rays})
+    finally:
+        k1._trunk_sigma_cuda, k2._trunk_fwd_grad_cuda = saved
+    assert not act_check.MISSES, act_check.MISSES
+    return len(calls)
+
+
+GROUPS = (("K1-K3 layer-major products", ("layers_product_kernel",)),
+          ("K1-K3 layer-major epilogues", ("layers_split_kernel",
+                                           "layers_colsum_kernel",
+                                           "layers_sigma_finish",
+                                           "layers_k2_seed",
+                                           "layers_k3_head")),
+          ("K1 trunk_sigma", ("trunk_sigma_kernel",)),
           ("K4 trunk_heads_fwd", ("trunk_fwd_grad_kernel<true, true,",
                                   "trunk_fwd_grad_kernel<false, true,",
                                   "trunk_fwd_grad_kernelilb1elb1e",
@@ -1392,6 +1470,197 @@ def widths_phase(rows, argv, tmp, gen, peaks, serve, train, check_served,
     print(f"  widths phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+# the layer-major phase: the 12 x 2048 trunk's timed steps at bfloat16_all
+# (10: the falling-loss check's least), its float32 steps and those of the
+# padded width and the wide encoding (on a one-batch store, where the loss
+# must fall from the first timed step to the last), the rays of its
+# request held against the CPU twins and of its step-check point (the
+# twins' step on the CPU at 12 x 2048 takes ~1 s a ray), and the points of
+# its kernels' checks at 12 x 2048 (and at the other LAYER_CONFIGS)
+LAYER_STEPS = 10
+LAYER_SHORT = 2
+LAYER_SERVE_CHECK = 64
+LAYER_CHECK_RAYS = 32
+LAYER_POINTS = 4096
+LAYER_POINTS_SMALL = 384
+
+
+def layers_phase(rows, argv, tmp, gen, peaks, serve, train, check_served,
+                 step_check, per_req, bounds, request):
+    """Phase `widths, layer-major`: K1-K3 at the shapes the fused family
+    does not take (ops/trunk_layers.py, csrc/trunk_layers.cu), and the
+    fused family at a padded width.  The libraries' nvcc seconds; each
+    layer-major instantiation at every dtype against its twin, twice
+    bit-identical (tools/width_check.check_layers: 12 x 2048 on
+    LAYER_POINTS points; 4 x 768 at the exact sine and ReLU, 4 x 128 and
+    8 x 128 with a 144-lane encoding and width 96, which the fused family
+    runs at 128,
+    on LAYER_POINTS_SMALL); the 12 x 2048 rows of the kernels line at
+    their main shapes (width_check.layer_rows: bfloat16_all, and the
+    float32 step's K2 saving zs/us and K3); then the 12 x 2048 flagship
+    (the heads, sampling and losses of the flagship, the trunk tensor
+    parallelism exists for, on one card): one 16,384-ray request at
+    bfloat16_all (K1L 2 / K2L 1 a chunk) against the CPU twins on
+    LAYER_SERVE_CHECK rays, the stage-2 step at bfloat16_all (K1L 2 / K2L
+    1 / K3L 1 a step, LAYER_STEPS timed, a falling loss, peak memory, one
+    step profiled) and a step-check point on its weights, LAYER_CHECK_RAYS
+    rays, at the bf16 bounds (`bounds`) times width_check.sum_length_scale
+    against the twins on the card
+    (the twins on the CPU printed beside: between the card and the CPU
+    the twins alone moved the 12 x 2048 loss by 2.3e-3 on an H100, no
+    kernel in either); LAYER_SHORT float32 steps and a step-check point on
+    their weights at the float32 bounds (`bounds` over ten; also against
+    the unfused step on the card); at width 96 (K1-K3 of the fused family
+    at 128) and with a 144-lane encoding (24 frequencies; the layer-major
+    family at 128) a request and LAYER_SHORT steps each: at width 96 the
+    request against the CPU twins, at 144 lanes every K1 and K2 call of
+    the request `request` held to its twins on its own inputs
+    (held_on_inputs: no render there determines another's sample points);
+    its seconds."""
+    from brdfnerf_tpu_torch.cli import opts
+    from brdfnerf_tpu_torch.models.network import init_network, init_params
+    from brdfnerf_tpu_torch.ops import cuda_build
+    from brdfnerf_tpu_torch.ops import fused_trunk_vjp as k2
+    from brdfnerf_tpu_torch.serve import load_renderer
+    from brdfnerf_tpu_torch.tools import act_check, width_check
+    from brdfnerf_tpu_torch.utils.checkpoint import save_checkpoint
+    t_phase = time.perf_counter()
+    phase("widths, layer-major")
+    for key, rec in cuda_build.build_log.items():
+        if key.startswith("trunk_layers"):
+            print(f"  {key}: nvcc {rec['seconds']:.1f} s", flush=True)
+    configs = width_check.LAYER_CONFIGS
+    width_check.check_layers((LAYER_POINTS,), configs=configs[:1])
+    width_check.check_layers((LAYER_POINTS_SMALL,), configs=configs[1:])
+    assert not act_check.MISSES, act_check.MISSES
+    t0 = time.perf_counter()
+    print(f"  checks {t0 - t_phase:.1f} s", flush=True)
+    width_check.layer_rows(rows, peaks, dtypes=("bfloat16_all",))
+    width_check.layer_rows(rows, peaks, dtypes=("float32",),
+                           kinds=("K2zs", "K3"))
+    assert not act_check.MISSES, act_check.MISSES
+    print(f"  12 x 2048 main-shape rows {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    zero = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0}
+    wide_serve = dict(zero, K1L=2 * per_req, K2L=per_req)
+    wide_step = dict(zero, K1L=2, K2L=1, K3L=1)
+
+    def run_dir(exp, extra):
+        w_args = opts.postprocess(opts.train_parser().parse_args(
+            argv + extra + ["--exp_name", exp]))
+        w_dir = os.path.join(tmp, f"run_{exp}")
+        opts.dump_opts(w_args, w_dir)
+        w_cfg = opts.to_run_config(w_args, device="cuda")
+        assert w_cfg.render.use_pallas and w_cfg.render.fused_trunk
+        save_checkpoint(os.path.join(tmp, "ckpts", exp, "epoch=1.npz"),
+                        {"coarse": init_network(w_cfg.model, gen,
+                                                device="cuda")}, step=0)
+        return w_dir, w_cfg
+
+    # the 12 x 2048 trunk
+    t0 = time.perf_counter()
+    w_dir, w_cfg = run_dir("smoke_12x2048", ["--fc_feat", "2048",
+                                             "--fc_layers", "12"])
+    m_, off = w_cfg.model, dc.replace(w_cfg.render, use_pallas=False,
+                                      fused_trunk=False)
+    assert (m_.feat, m_.layers, m_.skips) == (2048, 12, (4,))
+    r_ = load_renderer(w_dir, 1, device="cuda")
+    outs, launches = serve("request, 12 x 2048, bfloat16_all", wide_serve,
+                           r_, n_req=1)
+    rows["K1 bfloat16_all f2048"]["launches"] = launches["K1L"]
+    rows["K2 bfloat16_all f2048"]["launches"] = launches["K2L"]
+    check_served(outs, r_, n_check=LAYER_SERVE_CHECK)
+    del outs, r_
+    print(f"  12 x 2048 request {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    t0 = time.perf_counter()
+    trained, launches = train("train step, 12 x 2048, bfloat16_all",
+                              wide_step, mcfg_=m_, rcfg_=w_cfg.render,
+                              tcfg_=w_cfg.train, timed_steps=LAYER_STEPS)
+    rows["K2zs bfloat16_all f2048"]["launches"] = launches["K2L"]
+    rows["K3 bfloat16_all f2048"]["launches"] = launches["K3L"]
+    print(f"  12 x 2048 steps {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    # the bf16 bounds times sum_length_scale (2 at width 2048), as
+    # width_check holds these kernels: on an H100 at 700 W the twins on
+    # the card sat 0.166 from the twins on the CPU on the well-conditioned
+    # rays (two summation orders, no kernel), past the 512 check's 0.1, and
+    # the kernels 9.90e-2 from the twins on the card
+    scale = width_check.sum_length_scale(m_.feat)
+    step_check("12 x 2048, layer-major, bfloat16_all", trained[-1:],
+               (k2, "_trunk_fwd_grad_cuda", k2._trunk_fwd_grad_plain),
+               (k2, "_trunk_bwd_cuda", k2._trunk_bwd_plain), wide_step,
+               mcfg_=m_, rcfg_=w_cfg.render,
+               bounds_={k: v * scale for k, v in bounds.items()},
+               timed_steps=LAYER_STEPS, n_rays=LAYER_CHECK_RAYS,
+               cpu_held=False)
+    del trained
+    print(f"  12 x 2048 bfloat16_all step check "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    m32 = dc.replace(m_, compute_dtype="float32")
+    trained, launches = train("train step, 12 x 2048, float32", wide_step,
+                              mcfg_=m32, rcfg_=w_cfg.render,
+                              tcfg_=w_cfg.train, timed_steps=LAYER_SHORT,
+                              profiled=False, store_batches=1)
+    rows["K2zs float32 f2048"]["launches"] = launches["K2L"]
+    rows["K3 float32 f2048"]["launches"] = launches["K3L"]
+    print(f"  12 x 2048 float32 steps {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    t0 = time.perf_counter()
+    step_check("12 x 2048, layer-major, float32", trained[-1:],
+               (k2, "_trunk_fwd_grad_cuda", k2._trunk_fwd_grad_plain),
+               (k2, "_trunk_bwd_cuda", k2._trunk_bwd_plain), wide_step,
+               mcfg_=m32, rcfg_=w_cfg.render,
+               bounds_={k: v / 10 for k, v in bounds.items()},
+               normal_err=NORMAL_ERR_F32, timed_steps=LAYER_SHORT,
+               n_rays=LAYER_CHECK_RAYS, unfused=off)
+    del trained
+    print(f"  12 x 2048 step check {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    # a padded width (the fused family at 128) and a 144-lane encoding
+    # (the layer-major family at width 128)
+    t0 = time.perf_counter()
+    fused = dict(zero, K1=2 * per_req, K2=per_req)
+    fused_step = dict(zero, K1=2, K2=1, K3=1)
+    for label, feat, freqs, want, want_step in (
+            ("width 96", 96, 0, fused, fused_step),
+            ("a 144-lane encoding", 128, 24, wide_serve, wide_step)):
+        w_dir, w_cfg = run_dir(f"smoke_f{feat}_m{freqs}",
+                               ["--fc_feat", str(feat)])
+        r_ = load_renderer(w_dir, 1, device="cuda")
+        m_ = w_cfg.model
+        if freqs:
+            # mapping_sizes is the Python API's (the CLIs keep 10)
+            m_ = dc.replace(m_, mapping_sizes=(freqs, 4))
+            assert m_.xyz_in_dim == 144
+            r_ = dc.replace(r_, cfg=dc.replace(r_.cfg, model=m_),
+                            net=init_params(m_, gen, device="cuda"))
+        outs, _ = serve(f"request, {label}, bfloat16_all", want, r_,
+                        n_req=1, profiled=False)
+        if freqs:
+            # 24 octaves: a render is chaotic (held_on_inputs); on an H100
+            # the twins on the card sat 9.37e-3 mean in rgb from the
+            # twins on the CPU, no kernel in either
+            check_served(outs, r_, n_check=0)
+            n_held = held_on_inputs(r_, request, f"request, {label}")
+            assert n_held == 3 * per_req, n_held
+            print(f"  K1 and K2 held on the request's own inputs: {n_held} "
+                  "calls", flush=True)
+        else:
+            check_served(outs, r_, n_check=256)
+        del outs, r_
+        train(f"train step, {label}, bfloat16_all", want_step, mcfg_=m_,
+              rcfg_=w_cfg.render, tcfg_=w_cfg.train,
+              timed_steps=LAYER_SHORT, profiled=False, store_batches=1)
+    print(f"  width 96 and 144 lanes {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    print(f"  widths, layer-major phase: {time.perf_counter() - t_phase:.1f}"
+          " s", flush=True)
+
+
 def make_store(n_rays: int, rng: np.random.RandomState):
     """Synthetic satellite-style rays [o(3) d(3) near far sun(3)] with their
     targets, in the layout of the JAX package's __graft_entry__._make_batch,
@@ -1673,7 +1942,7 @@ def workflow(root, reset_counts, counts, bare_rays_s, family=None,
         torch.cuda.synchronize()
         rec["val_s"].append(time.perf_counter() - t0)
         for k, v in counts().items():
-            rec["val"][k] = rec["val"].get(k, 0) + v - before[k]
+            rec["val"][k] = rec["val"].get(k, 0) + v - before.get(k, 0)
         return out
 
     def fit(self, *a, **k):
@@ -3144,6 +3413,7 @@ def main():
     from brdfnerf_tpu_torch.ops import fused_mlp as k1
     from brdfnerf_tpu_torch.ops import fused_trunk_heads as k4
     from brdfnerf_tpu_torch.ops import fused_trunk_vjp as k2
+    from brdfnerf_tpu_torch.ops import trunk_layers as kl
     from brdfnerf_tpu_torch.ops.encoding import positional_encoding
     from brdfnerf_tpu_torch.parallel import train_step as ts
     from brdfnerf_tpu_torch.render import render as render_mod
@@ -3423,16 +3693,22 @@ def main():
     kernels = {"K1": k1.TRUNK_SIGMA, "K2": k2.TRUNK_FWD_GRAD,
                "K3": k2.TRUNK_BWD, "K4": k4.TRUNK_HEADS_FWD,
                "K5": k4.TRUNK_HEADS_BWD}
+    # the layer-major family's K1-K3 (ops/trunk_layers.py): counted as
+    # K1L, K2L and K3L where they launched, so that every other phase's
+    # expected counts (K1-K5) also say that none of them did
+    wide = {"K1L": kl.TRUNK_SIGMA_WIDE, "K2L": kl.TRUNK_FWD_GRAD_WIDE,
+            "K3L": kl.TRUNK_BWD_WIDE}
     chunks = N_REQUESTS * -(-REQ_SIDE * REQ_SIDE // CHUNK)
     renderer = load_renderer(run_dir, 1, device="cuda")
     assert renderer.chunk == CHUNK
 
     def reset_counts():
-        for k in kernels.values():
+        for k in list(kernels.values()) + list(wide.values()):
             k.launches = 0
 
     def counts():
-        return {k: v.launches for k, v in kernels.items()}
+        return dict({k: v.launches for k, v in kernels.items()},
+                    **{k: v.launches for k, v in wide.items() if v.launches})
 
     def serve(label, want, r=None, n_req=N_REQUESTS, profiled=True):
         """The first n_req requests through renderer r (the bfloat16_all one
@@ -3468,8 +3744,9 @@ def main():
                      compared=("rgb_coarse", "depth_coarse",
                                "normal_an_coarse")):
         """Outputs finite and of their shapes (keys3: (n, 3) maps, keys1:
-        (n, 1) maps), and n_check rays against the CPU twins (the
-        `compared` keys), at the bf16 contract's bounds times `scale`."""
+        (n, 1) maps), and n_check rays (none at 0) against the CPU twins
+        (the `compared` keys), at the bf16 contract's bounds times
+        `scale`."""
         r = renderer if r is None else r
         n = REQ_SIDE * REQ_SIDE
         for out in outs:
@@ -3481,6 +3758,8 @@ def main():
                 assert out[k].shape == (n, 1), k
             for k, v in out.items():
                 assert np.isfinite(v).all(), k
+        if not n_check:
+            return
         # n_check rays through the kernels on the card and through the
         # plain twins (the Pallas kernels' arithmetic) on the CPU, same
         # weights and draws
@@ -3770,7 +4049,8 @@ def main():
 
     def step_check(path, nets, fwd, bwd, want, mcfg_=None, bounds_=None,
                    normal_err=NORMAL_ERR, rcfg_=None,
-                   criterion=rpv_ill_conditioned, timed_steps=TIMED_STEPS):
+                   criterion=rpv_ill_conditioned, timed_steps=TIMED_STEPS,
+                   n_rays=CHECK_RAYS, unfused=None, cpu_held=True):
         """At mcfg_ and rcfg_ (the bfloat16_all flagship's by default) with
         bounds_ (`bounds` by default), the contract's normal error
         normal_err and the set-aside `criterion` (RPV's by default):
@@ -3789,7 +4069,15 @@ def main():
         the whole batch gives both its gradients and the render that the
         criterion reads (criterion(res, rgbs, mcfg, rcfg, bound,
         normal_err)).  timed_steps: the training run's, for the printed
-        step."""
+        step.  n_rays: the batch, the first n_rays of the CHECK_RAYS
+        (where the twins' step on the CPU would not fit more).  unfused: a
+        render config with the kernels off; where given, the kernels' step
+        is also held to the unfused step on the card (autograd's double
+        backward through plain torch) on the well-conditioned rays, at the
+        bound of the comparison with the twins on the CPU.  cpu_held False:
+        the comparisons with the twins on the CPU are printed and not
+        held; instead every kernel is held to every twin on the card (the
+        gradients at the CPU comparison's bound, the loss at its 1e-3)."""
         mcfg_ = mcfg if mcfg_ is None else mcfg_
         rcfg_ = rcfg if rcfg_ is None else rcfg_
         bounds_ = bounds if bounds_ is None else bounds_
@@ -3798,19 +4086,19 @@ def main():
             step = WARM_STEPS + timed_steps - len(nets) + 1 + pt
             last = pt == len(nets) - 1
             fine_z = fine_samples(net_, mcfg_, rcfg_)
-            whole, res_cpu = np.arange(CHECK_RAYS), []
+            whole, res_cpu = np.arange(n_rays), []
             cpu_whole = grads_on(net_cpu, "cpu", whole, mcfg_, rcfg_=rcfg_,
                                  fine_z=fine_z, results=res_cpu)
-            bad = criterion(res_cpu[0], torch.as_tensor(s["rgbs"]), mcfg_,
-                            rcfg_, max(bounds_.values()), normal_err)
+            bad = criterion(res_cpu[0], torch.as_tensor(s["rgbs"][whole]),
+                            mcfg_, rcfg_, max(bounds_.values()), normal_err)
             kept = np.flatnonzero(~bad.numpy())
             print(f"  weights after step {step}: {int(bad.sum())} of "
-                  f"{CHECK_RAYS} rays ill-conditioned "
+                  f"{n_rays} rays ill-conditioned "
                   f"{np.flatnonzero(bad.numpy()).tolist()}", flush=True)
-            if not len(kept) >= CHECK_RAYS // 2:
+            if not len(kept) >= n_rays // 2:
                 step_failures.append(
                     f"{path}, weights after step {step}: {len(kept)} "
-                    f"well-conditioned rays < {CHECK_RAYS // 2}")
+                    f"well-conditioned rays < {n_rays // 2}")
             for rays, held in ((whole, whole_batch),
                                (kept, tuple(bounds_))):
                 reset_counts()
@@ -3844,6 +4132,29 @@ def main():
                 loss_p, g_p = (cpu_whole if rays is whole else grads_on(
                     net_cpu, "cpu", rays, mcfg_, rcfg_=rcfg_,
                     fine_z=fine_z))
+                comparisons = list(zip(bounds_, (g_k, g_k, g_k, g_t),
+                                       (g_b, g_fb, g_p, g_p)))
+                held_here = held
+                if not cpu_held:
+                    label_c = "all kernels vs twins on the card"
+                    comparisons.append((label_c, g_k, g_t))
+                    held_here = tuple(k for k in held if "CPU" not in k)
+                    if rays is not whole:
+                        held_here += (label_c,)
+                    bounds_ = dict(bounds_, **{
+                        label_c: bounds_["all kernels vs twins on the CPU"]})
+                if unfused is not None and rays is not whole:
+                    reset_counts()
+                    loss_u, g_u = grads_on(net_, "cuda", rays, mcfg_,
+                                           rcfg_=unfused, fine_z=fine_z)
+                    assert not any(counts().values()), counts()
+                    label_u = "kernels vs the unfused step on the card"
+                    comparisons.append((label_u, g_k, g_u))
+                    held_here += (label_u,)
+                    bounds_ = dict(bounds_, **{
+                        label_u: bounds_["all kernels vs twins on the CPU"]})
+                    print(f"    the unfused step on the card: loss "
+                          f"{loss_u:.6f}", flush=True)
                 print(f"   {len(rays)} rays: loss: kernels {loss_k:.6f}; "
                       f"backward's twin on the card {loss_b:.6f}; both "
                       f"twins on the card {loss_fb:.6f}; every twin on the "
@@ -3853,8 +4164,7 @@ def main():
                     print("    gradient norms: " + ", ".join(
                         f"{k} {v.norm().item():.3e}"
                         for k, v in g_k.items()), flush=True)
-                for label, got, ref in zip(bounds_, (g_k, g_k, g_k, g_t),
-                                           (g_b, g_fb, g_p, g_p)):
+                for label, got, ref in comparisons:
                     rels = {k: rel_l2(got[k], ref[k]) for k in ref}
                     bias_rel = {k: rels[k] for k in bias_scales}
                     for k, scale_ in bias_scales.items():
@@ -3863,7 +4173,7 @@ def main():
                     worst_k, worst = top[0]
                     print(f"    gradient relative L2, {label}: largest "
                           f"{worst:.2e} (bound {bounds_[label]:g}"
-                          f"{'' if label in held else ', not held'}); "
+                          f"{'' if label in held_here else ', not held'}); "
                           + ", ".join(f"{k} {v:.2e}" for k, v in (
                               rels.items() if last and len(held) > 1
                               else top[:2]))
@@ -3871,7 +4181,7 @@ def main():
                               f"; {k} of its terms' norm {rels[k]:.2e} "
                               f"(relative to the sum {bias_rel[k]:.2e})"
                               for k in bias_scales), flush=True)
-                    if label in held and not worst <= bounds_[label]:
+                    if label in held_here and not worst <= bounds_[label]:
                         step_failures.append(
                             f"{path}, weights after step {step}, "
                             f"{len(rays)} rays: {label} {worst:.3e} > "
@@ -3880,12 +4190,15 @@ def main():
                 # the backward kernel moves no forward value
                 assert abs(loss_b - loss_k) <= 1e-6 * abs(loss_k), (loss_b,
                                                                     loss_k)
-                assert abs(loss_k - loss_p) <= 1e-3 * abs(loss_p), (loss_k,
-                                                                    loss_p)
+                loss_r = loss_p if cpu_held else loss_t
+                assert abs(loss_k - loss_r) <= 1e-3 * abs(loss_r), (loss_k,
+                                                                    loss_r)
 
     per_req = chunks // N_REQUESTS
     widths_phase(rows, argv, tmp.name, gen, peaks, serve, train,
                  check_served, step_check, per_req)
+    layers_phase(rows, argv, tmp.name, gen, peaks, serve, train,
+                 check_served, step_check, per_req, bounds, requests[0])
 
     phase("training")
     # per step: the probe and the sun march (K1), the main pass with zs/us

@@ -242,8 +242,9 @@ def test_one_fused_stage2_step_matches_jax(act):
 def test_gates_admit_every_activation(act, dtype):
     """cuda_kernels_cover and heads_kernel_supports hold for the flagship
     width at every activation and kernel dtype; act_of names the library;
-    width 64 is covered too, and a width the kernels are not built for
-    stays refused."""
+    width 64 is covered too, and a width the fused kernels are not built
+    for is covered at the next built width (kernel_cfg: 96 at 128,
+    zero-padded), or past 512 by the layer-major family."""
     from brdfnerf_tpu_torch.config import ModelConfig
     from brdfnerf_tpu_torch.models.network import init_network
     kw = {"poly": dict(siren=True, fast_sin=True)}.get(act) or ACTS[act]
@@ -255,7 +256,10 @@ def test_gates_admit_every_activation(act, dtype):
     assert th.heads_kernel_supports(cfg, net, apply_brdf=True)
     import dataclasses as dc
     assert tk1.cuda_kernels_cover(dc.replace(cfg, feat=64))
-    assert not tk1.cuda_kernels_cover(dc.replace(cfg, feat=96))
+    c96 = dc.replace(cfg, feat=96)
+    assert tk1.cuda_kernels_cover(c96) and tk1.kernel_cfg(c96).feat == 128
+    assert not tk1.layer_major(tk1.kernel_cfg(c96))
+    assert tk1.layer_major(tk1.kernel_cfg(dc.replace(cfg, feat=768)))
 
 
 @pytest.mark.parametrize("act,flag", [("poly", None), ("sin", "1"),
@@ -285,14 +289,15 @@ def test_library_keys_build_each_activation_apart(act, flag):
     (["--siren", "0", "--compute_dtype", "bfloat16_all"],
      ["K2 + K3", "ReLU", "compute_dtype='bfloat16_all'"]),
     ([], ["K2 + K3", "the polynomial sine"]),
-    (["--fc_feat", "96"], ["none", "width 96", "ROADMAP.md Queue 2"]),
+    (["--fc_feat", "96"], ["K1 (the sigma-only passes)", "K2 + K3",
+                           "width 96 (K1-K3 run at 128, zero-padded)"]),
     (["--fc_feat", "64"], ["K1 (the sigma-only passes)", "K2 + K3",
                            "width 64"])])
 def test_train_cli_kernels_line_per_activation(monkeypatch, argv, want):
     """The train CLI's [kernels] line on the card: K1-K3 at the exact sine
     and at ReLU, named with the activation, and at width 64; a width the
-    kernels are not built for still takes the unfused path, and says
-    why."""
+    kernels are not built for runs them at the next built width, and the
+    line says so."""
     from brdfnerf_tpu_torch.cli import opts
     from brdfnerf_tpu_torch.cli.train import kernels_line
     monkeypatch.delenv("BRDFNERF_FUSED_HEADS", raising=False)

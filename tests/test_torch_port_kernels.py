@@ -631,8 +631,10 @@ def test_profile_groups_find_the_kernels():
     """The source scan above sees every kernel of the port: K1's <SPLIT>,
     the forward template's <ZS, HEADS, ZF32, SPLIT>, the backward's sweep
     <HEADS, ZF32, SPLIT> and its weight-gradient and reduce kernels
-    <HEADS>, K5's b_th chain <ZF32, SPLIT>, and the layout check's (every
-    combination of the bools, the ones no launch takes included)."""
+    <HEADS>, K5's b_th chain <ZF32, SPLIT>, the layout check's (every
+    combination of the bools, the ones no launch takes included), and the
+    layer-major family's product <AK, BKM, FLUSH> (its int EPI not
+    enumerated) and its five epilogue kernels."""
     names = {k[0].split("(")[0] for k in _KERNELS}
     assert {"void trunk::trunk_sigma_kernel<true>",
             "void trunk::trunk_fwd_grad_kernel<false, false, false, false>",
@@ -645,5 +647,11 @@ def test_profile_groups_find_the_kernels():
             "void trunk::trunk_bwd_wgrad_kernel<false>",
             "void trunk::trunk_bwd_reduce_kernel<true>",
             "void trunk::trunk_heads_uchain_kernel<true, true>",
-            "void trunk::sm90_check_kernel"} <= names, names
-    assert len(names) == 2 + 16 + 8 + 2 + 2 + 4 + 1
+            "void trunk::sm90_check_kernel",
+            "void trunk::layers_product_kernel<true, false, true>",
+            "void trunk::layers_split_kernel",
+            "void trunk::layers_colsum_kernel",
+            "void trunk::layers_sigma_finish",
+            "void trunk::layers_k2_seed",
+            "void trunk::layers_k3_head"} <= names, names
+    assert len(names) == 2 + 16 + 8 + 2 + 2 + 4 + 1 + 8 + 5

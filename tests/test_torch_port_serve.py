@@ -178,15 +178,17 @@ def test_entry_points_never_fall_back_to_cpu(tmp_path, monkeypatch):
     ("bfloat16_all", "1", True), ("float32", "1", True),
     ("bfloat16", "1", True), ("float32", "0", True),
     ("bfloat16_all", "0 --siren 0", True),
-    ("float32", "1 --fc_feat 96", False),
-    ("float32", "1 --fc_feat 64", True)])
+    ("float32", "1 --fc_feat 96", True),
+    ("float32", "1 --fc_feat 64", True),
+    ("bfloat16_all", "1 --fc_feat 2048 --fc_layers 12", True)])
 def test_kernels_default_on_for_cuda_where_they_cover_the_model(
         dtype, fast_sin, on_cuda):
     """Every compute dtype the kernels take (float32 as split products),
     every activation (the polynomial and the exact sine, ReLU) and every
-    width they are built for (64 among them) turns them on by default on
-    CUDA; a width they do not take (96) leaves them off; the CPU never
-    turns them on."""
+    width turns them on by default on CUDA: the widths the fused kernels
+    are built for (64 among them), a width under 512 they run zero-padded
+    (96) and the layer-major family's (12 x 2048); the CPU never turns
+    them on."""
     from brdfnerf_tpu_torch.cli import opts
     argv = ["--root_dir", "r", "--exp_name", "e", "--mapping",
             "--normal", "analystic", "--compute_dtype", dtype,

@@ -505,8 +505,9 @@ def test_train_cli_refuses_a_model_axis_that_does_not_split(tmp_path):
 @pytest.mark.parametrize("width,layers", [(512, 8), (2048, 12)])
 def test_kernels_line_names_tensor_parallelism(width, layers):
     """Under --tp 2 the [kernels] line says K1-K5 are off and why, on the
-    card as on the CPU, at the flagship's 8 x 512 (which the kernels
-    cover on one device) and at 12 x 2048; a tensor-parallel step's and
+    card as on the CPU, at the flagship's 8 x 512 and at 12 x 2048 (which
+    the fused and the layer-major kernels cover on one device); a
+    tensor-parallel step's and
     render's configs take them off, and a kernel gate that meets a
     sharded trunk raises."""
     from brdfnerf_tpu_torch.cli import opts
@@ -525,7 +526,8 @@ def test_kernels_line_names_tensor_parallelism(width, layers):
         assert line.startswith("[kernels] none: tensor parallelism "
                                "(--tp 2)") and "K1-K5" in line, line
     one = kernels_line(cfg, cuda)
-    assert ("K2 + K3" in one) == (width == 512), one
+    assert "K2 + K3" in one, one       # one device: the fused kernels'
+    assert ("layer-major" in one) == (width == 2048), one
     off = ttensor.kernels_off(cfg.render)
     assert not off.use_pallas and not off.fused_trunk
     _, tm = model_configs(**SMALL, normal="analystic")

@@ -213,11 +213,17 @@ def test_stage2_step_matches_jax_at_8x64(tmp_path):
 @pytest.mark.parametrize("feat", [32, 64, 96, 128, 192, 256, 512, 640,
                                   1024])
 def test_cuda_kernels_cover_the_built_widths(feat):
-    """K1-K5 take the widths they are built for (CUDA_WIDTHS) and no
-    other; kernel_supports (the twins) any width."""
+    """K1-K3 take every width kernel_supports (the twins) takes: the fused
+    family the widths it is built for (CUDA_WIDTHS) and, zero-padded, the
+    widths under 512 at the next of them; the layer-major family the rest
+    (ops/trunk_layers.py); K4/K5 take the built widths and no other."""
     _, cfg = _configs(feat, 8, 4, "bfloat16_all")
     assert tk1.kernel_supports(cfg)
-    assert tk1.cuda_kernels_cover(cfg) == (feat in (64, 128, 256, 512))
+    assert tk1.cuda_kernels_cover(cfg)
+    kc = tk1.kernel_cfg(cfg)
+    assert tk1.layer_major(kc) == (feat > 512)
+    assert kc.feat == (min(w for w in (64, 128, 256, 512) if w >= feat)
+                       if feat <= 512 else -(-feat // 128) * 128)
     assert th.heads_cuda_cover(cfg) == (feat in (64, 128, 256, 512))
 
 
@@ -384,22 +390,20 @@ def _kernels_line(argv, monkeypatch, heads=False):
 
 @pytest.mark.parametrize("feat", [64, 128, 256, 96, 1024])
 def test_kernels_line_at_each_width(feat, monkeypatch):
-    """On the card the train CLI turns K1-K3 on at every width they are
-    built for and names it; at another width it takes the unfused path and
-    says which widths the kernels take (ROADMAP.md Queue 2)."""
+    """On the card the train CLI turns K1-K3 on at every width and names
+    it with the family that runs it: the fused kernels at the widths they
+    are built for, and zero-padded at the next one below 512 (96 at 128);
+    the layer-major kernels past 512 (1024)."""
     cfg, line, serve_line = _kernels_line(["--fc_feat", str(feat)],
                                           monkeypatch)
-    covered = feat in tk1.CUDA_WIDTHS
-    assert (cfg.render.use_pallas, cfg.render.fused_trunk) == (covered,
-                                                               covered)
-    if covered:
-        for w in ("K1 (the sigma-only passes)", "K2 + K3", f"width {feat}"):
-            assert w in line, (w, line)
-        assert "K2 (the trunk with its sigma gradient)" in serve_line
-    else:
-        for w in ("none", f"width {feat} (not one of 64, 128, 256, 512)",
-                  "ROADMAP.md Queue 2"):
-            assert w in line, (w, line)
+    assert cfg.render.use_pallas and cfg.render.fused_trunk
+    for w in ("K1 (the sigma-only passes)", "K2 + K3", f"width {feat}"):
+        assert w in line, (w, line)
+    assert "K2 (the trunk with its sigma gradient)" in serve_line
+    family = "layer-major" if feat > 512 else "fused"
+    assert line.startswith(f"[kernels] {family} CUDA kernels"), line
+    assert ("zero-padded" in line) == (feat == 96), line
+    assert "none" not in line and "not one of" not in line
 
 
 def test_fused_heads_gate_at_width_64(monkeypatch):
