@@ -35,7 +35,6 @@ def kernels_line(cfg, device, train: bool = True, tp: int = 1) -> str:
     backward); tp: the model axis of a tensor-parallel run."""
     from ..ops.fused_mlp import (CUDA_DTYPES, act_of, cuda_kernels_cover,
                                  kernel_cfg, layer_major, split_operands)
-    from ..ops.fused_trunk_heads import heads_cuda_cover
     m, r = cfg.model, cfg.render
     if tp > 1:
         return (f"[kernels] none: tensor parallelism (--tp {tp}) cuts every "
@@ -95,11 +94,6 @@ def kernels_line(cfg, device, train: bool = True, tp: int = 1) -> str:
                 used.append("BRDFNERF_FUSED_HEADS is set, but K4/K5 "
                             "refuse a t-embedding (--beta), so the heads "
                             f"stay on {k23}")
-            elif not heads_cuda_cover(m):
-                used.append("BRDFNERF_FUSED_HEADS is set, but K4/K5 take "
-                            "the widths 64, 128, 256 and 512 with an "
-                            "encoding of at most 128 lanes (ROADMAP.md "
-                            f"Queue 2), so the heads stay on {k23}")
             elif m.roughness or m.uses_hapke:
                 family = "Microfacet" if m.roughness else "Hapke"
                 used.append(f"BRDFNERF_FUSED_HEADS is set, but K4/K5 take "
@@ -114,7 +108,8 @@ def kernels_line(cfg, device, train: bool = True, tp: int = 1) -> str:
             else:
                 used.append(("K4 + K5 in their place" if train
                              else "K4 in its place") + " where the flagship "
-                            "head set runs (BRDFNERF_FUSED_HEADS)")
+                            "head set runs (BRDFNERF_FUSED_HEADS; "
+                            f"{heads_at(m, train)})")
     if not used:
         return "[kernels] none: " + ("; ".join(notes) or (
             "--use_pallas 0 and no fused trunk (--fused_trunk 0, or no "
@@ -137,6 +132,19 @@ def kernels_line(cfg, device, train: bool = True, tp: int = 1) -> str:
                      if m.xyz_in_dim > 128 else "") + ")")
     return (f"[kernels] {family} CUDA kernels at {width}, compute_dtype="
             f"{dtype}{how}, {act}: " + "; ".join(used + notes))
+
+
+def heads_at(m, train: bool = True) -> str:
+    """Which family and width K4/K5 (K4 when serving) run a model at
+    (fused_mlp.kernel_cfg, as K1-K3): "K4/K5 layer-major at 2048", "K4/K5
+    at 128, zero-padded", "K4/K5 fused at 512"."""
+    from ..ops.fused_mlp import kernel_cfg, layer_major
+    kc, k = kernel_cfg(m), "K4/K5" if train else "K4"
+    if layer_major(kc):
+        return f"{k} layer-major at {kc.feat}"
+    if kc.feat != m.feat:
+        return f"{k} at {kc.feat}, zero-padded"
+    return f"{k} fused at {kc.feat}"
 
 
 def main(argv=None, device=None):

@@ -474,10 +474,10 @@ def apply_network_with_normals(net: Network, cfg: ModelConfig, xyz,
     architecture fits it (kernel_supports); otherwise from autograd.  With
     BRDFNERF_FUSED_HEADS set (read per call, as the JAX package does) and
     the flagship head set (heads_kernel_supports), the heads run inside the
-    kernel pair too (ops/fused_trunk_heads.py): on the card at every width
-    K4/K5 are built for (heads_cuda_cover: the widths of K1-K3), on the
-    CPU in their twins at any width.  K4/K5 take no t-embedding: with
-    t_emb the beta head runs on K2's features.
+    kernel pair too (ops/fused_trunk_heads.py): on the card K4/K5 at every
+    width and encoding K1-K3 take (the fused or the layer-major pair at
+    fused_mlp.kernel_cfg's width), on the CPU their twins.  K4/K5 take no
+    t-embedding: with t_emb the beta head runs on K2's features.
 
     The trunk is differentiated per sample, so under int8 it runs wholly on
     the bfloat16_all twin (grad_safe_cfg), applied before the kernel gate
@@ -491,13 +491,10 @@ def apply_network_with_normals(net: Network, cfg: ModelConfig, xyz,
     if fused_trunk:
         if os.environ.get("BRDFNERF_FUSED_HEADS"):
             from ..ops.fused_trunk_heads import (fused_trunk_heads_with_grad,
-                                                 heads_cuda_cover,
                                                  heads_kernel_supports)
-            if (heads_kernel_supports(grad_cfg, net, dirs=dirs, t_emb=t_emb,
-                                      apply_brdf=apply_brdf,
-                                      apply_theta=apply_theta, nr_lr=nr_lr)
-                    and (xyz.device.type != "cuda"
-                         or heads_cuda_cover(grad_cfg))):
+            if heads_kernel_supports(grad_cfg, net, dirs=dirs, t_emb=t_emb,
+                                     apply_brdf=apply_brdf,
+                                     apply_theta=apply_theta, nr_lr=nr_lr):
                 return fused_trunk_heads_with_grad(net, grad_cfg, xyz)
         from ..ops.fused_trunk_vjp import fused_trunk_with_grad
         sigma, feats, grad_x = fused_trunk_with_grad(net, grad_cfg, xyz)

@@ -76,10 +76,11 @@ def kernel_supports(cfg: ModelConfig) -> bool:
 
 
 def cuda_kernels_cover(cfg: ModelConfig) -> bool:
-    """True where the CUDA kernels K1-K3 take this model: the architecture
+    """True where the CUDA kernels K1-K5 take this model: the architecture
     of kernel_supports (any of the three activations, act_of) and a compute
     dtype of CUDA_DTYPES, at any width and encoding (kernel_cfg picks the
-    family and the padded width)."""
+    family and the padded width; K4/K5 also need the flagship head set,
+    fused_trunk_heads.heads_kernel_supports)."""
     return kernel_supports(cfg) and cfg.compute_dtype in CUDA_DTYPES
 
 

@@ -20,19 +20,30 @@ recomputes the head block from the saved zs, runs its first-order backward
 (the head weights' grads and a_h += a_xf W_f, the seed of the trunk's
 sweep), then K3's second-order sweep.
 
-On a CUDA tensor `_run_fwd_h` launches K4 (csrc/trunk_heads_fwd.cu) and
-`_run_bwd_h` K5 (csrc/trunk_heads_bwd.cu); on a CPU tensor they run
-`_trunk_heads_fwd_plain` and `_trunk_heads_bwd_plain`, the Pallas kernels'
-arithmetic.  Like the Pallas pair, the forward saves zs only and the
-backward rebuilds the u chain (b_th) from zs in f32 (`uchain_plain`; K5 in
-a kernel of its own before K3's sweep, `uchain_from_kernel` reads its
-layout).  At compute_dtype float32 the kernels run every product of f32
-operands as three on their bf16 hi and lo terms, the head weights W_f,
-W_1r and W_1p packed as hi and lo planes (`HEAD_PLANE_KEYS`) and the 3-row
-second layers read in f32; `_trunk_heads_fwd_split` and
-`_trunk_heads_bwd_split` are that arithmetic in plain PyTorch, for the
-tests.  The activation is the configuration's, as in the trunk
-(fused_mlp.act_of).
+On a CUDA tensor `_run_fwd_h` launches K4 and `_run_bwd_h` K5: at the
+widths 64..512 with at most 128 encoding lanes the fused pair
+(csrc/trunk_heads_fwd.cu, csrc/trunk_heads_bwd.cu), at every other width
+and encoding the layer-major pair (ops/trunk_layers.py: K4 and K5 in
+csrc/trunk_layers.cu), as fused_mlp.kernel_cfg picks the trunk's family;
+on a CPU tensor they run `_trunk_heads_fwd_plain` and
+`_trunk_heads_bwd_plain`, the Pallas kernels' arithmetic.  The entry points
+pack the trunk and the heads at kernel_cfg's width, zero-padded (a width
+under 512 at the next built one, any other at the next multiple of 128):
+each head's HID = F / 2 hidden units sit at the start of its own HID_p =
+F_p / 2 block, so that a padded hidden unit has z = 0, act(0) = 0 and
+gives nothing, and every padded gradient entry is 0
+(`_unpack_head_grads` slices them away).  Like the Pallas pair, the
+forward saves zs only and the backward rebuilds the u chain (b_th) from zs
+in f32 (`uchain_plain`; the fused K5 in a kernel of its own before K3's
+sweep, `uchain_from_kernel` reads its layout; the layer-major K5 with
+K2's chain products over each point block).  At compute_dtype float32 the
+kernels run every product of f32 operands as three on their bf16 hi and
+lo terms, the head weights W_f, W_1r and W_1p packed as hi and lo planes
+(`HEAD_PLANE_KEYS`; the layer-major pair reads W_f and the merged W_1 =
+[W_1r | W_1p], `LAYER_HEAD_PLANE_KEYS`) and the 3-row second layers read
+in f32; `_trunk_heads_fwd_split` and `_trunk_heads_bwd_split` are that
+arithmetic in plain PyTorch, for the tests.  The activation is the
+configuration's, as in the trunk (fused_mlp.act_of).
 
 The path is opt-in, as in the JAX package: models.network reads
 BRDFNERF_FUSED_HEADS.
@@ -48,13 +59,15 @@ import torch
 
 from ..config import ModelConfig
 from .cuda_build import CudaKernel
-from .fused_mlp import (CUDA_WIDTHS, FEAT, LANE, TILE_N, _round_up, act_of,
-                        check_kernel_inputs, kernel_supports,
-                        pack_trunk_weights, pad_rows_lanes, split_operands,
-                        split_planes, trunk_weight_ptrs, weight_dtype)
+from .fused_mlp import (FEAT, LANE, TILE_N, _round_up, act_of,
+                        check_kernel_inputs, kernel_cfg, kernel_supports,
+                        layer_major, pack_at_kernel_width,
+                        pad_rows_lanes, row_tile,
+                        split_operands, split_planes, trunk_weight_ptrs,
+                        weight_dtype)
 from .fused_trunk_vjp import (SPLIT3, _act_all, _bwd_primal_tangent,
                               _forward_chain, _grad_chain, _mm, _mm_t,
-                              _outer, _pack_params, _reverse_sweep,
+                              _outer, _params_view, _reverse_sweep,
                               _saved_dtype, _split_skip, _unpack_grads,
                               _vec_od, encode_with_jacobian, fwd_scratch,
                               saved_spec, trunk_params, wgrad_scratch)
@@ -66,6 +79,10 @@ HEAD_NAMES = ("feats_from_xyz", "rgb_from_xyzdir") + RPV_NAMES
 # their hi/lo planes (at float32, as fused_mlp.PLANE_KEYS for the trunk)
 HEAD_PLANE_KEYS = {"wf": "wf_planes", "w1r": "w1r_planes",
                    "w1p": "w1p_planes"}
+# ... and those of the layer-major pair, which reads the merged first layers
+LAYER_HEAD_PLANE_KEYS = {"wf": "wf_planes", "w1": "w1_planes"}
+# the logits after sigma: rgb x3, k, theta, rhoc
+LOGITS = 6
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -106,14 +123,12 @@ def heads_kernel_supports(cfg: ModelConfig, net, dirs=None, t_emb=None,
         return False
 
 
-def heads_cuda_cover(cfg: ModelConfig) -> bool:
-    """True where K4/K5 are built for the model's trunk width and
-    encoding: every width of fused_mlp.CUDA_WIDTHS (csrc/trunk_heads_*.cu,
-    one library a width) with at most LANE lanes.  At any other width or
-    encoding the heads run in torch beside K2/K3 (the layer-major or the
-    zero-padded fused family); on the CPU the heads' twins take every
-    width."""
-    return cfg.feat in CUDA_WIDTHS and cfg.xyz_in_dim <= LANE
+def head_plane_keys(cfg: ModelConfig) -> Dict[str, str]:
+    """The head weights a kernel configuration's pair streams through
+    tensor cores, and the keys of their hi/lo planes at float32: the fused
+    pair's HEAD_PLANE_KEYS or the layer-major pair's
+    LAYER_HEAD_PLANE_KEYS."""
+    return LAYER_HEAD_PLANE_KEYS if layer_major(cfg) else HEAD_PLANE_KEYS
 
 
 def head_part(feat: int) -> int:
@@ -150,44 +165,63 @@ def head_part_grads(part: torch.Tensor, layers: int, feat: int):
 def pack_head_weights(net, cfg: ModelConfig, dtype: torch.dtype,
                       planes: Optional[bool] = None
                       ) -> Dict[str, torch.Tensor]:
-    """The flagship head set as padded matrices in (out, in) layout
-    (pallas_trunk_heads.py:105-137, transposed): wf (F, F), w1r (H, F), w2r
-    (LANE, H) with rows 0..2 real, w1p (3H, F) = [k | theta | rhoc], w2p
-    (LANE, 3H) block-diagonal (row i holds head i's second layer in columns
-    [iH, (i+1)H)); weights in `dtype`, biases f32 padded alike.  With
-    `planes` (by default: f32 weights on a CUDA device, as
-    fused_mlp.pack_trunk_weights) also the split_planes of wf, w1r and w1p
-    under HEAD_PLANE_KEYS."""
-    hid = cfg.feat // 2
+    """The flagship head set as padded matrices in (out, in) layout at the
+    width F = cfg.feat (kernel_cfg's; the heads' own width, and their HID =
+    F / 2, are their weights'), H = F / 2 (pallas_trunk_heads.py:105-137,
+    transposed): wf (F, F), w1r (H, F), w2r (LANE, H) with rows 0..2 real,
+    w1p (3H, F) = [k | theta | rhoc], w2p (LANE, 3H) block-diagonal (row i
+    holds head i's second layer in columns [iH, (i+1)H)); each head's
+    hidden units at the start of its H-wide block, the rest of every row
+    and column zeros; weights in `dtype`, biases f32 padded alike.  w1r
+    and w1p are the two row blocks of w1 = [w1r; w1p] (4H, F) (b1 alike),
+    which the layer-major pair multiplies as one product; at a layer-major
+    width also w2 (6, 4H) f32, the six second-layer rows over the merged
+    hidden units (the rgb logits over the rgb block, the RPV logits over
+    theirs), and b2 (6,).  With `planes` (by default: f32 weights on a
+    CUDA device, as fused_mlp.pack_trunk_weights) also the split_planes of
+    the weights head_plane_keys(cfg) names."""
     f32 = torch.float32
     wf = net["feats_from_xyz"][0]
     r1, r2 = net["rgb_from_xyzdir"]
     p1s = [net[n][0] for n in RPV_NAMES]
     p2s = [net[n][1] for n in RPV_NAMES]
+    feat, hid = wf.w.shape[1], r1.w.shape[0]
+    fp, hp = cfg.feat, cfg.feat // 2
+    if fp < feat or hp < hid:
+        raise ValueError(f"heads of width {feat} packed at {fp}")
     dev = wf.w.device
-    w2r = torch.zeros(LANE, hid, dtype=dtype, device=dev)
-    w2r[:3] = r2.w.detach().to(dtype)
-    b2r = torch.zeros(LANE, dtype=f32, device=dev)
+
+    def z(*shape, dt=dtype):
+        return torch.zeros(*shape, dtype=dt, device=dev)
+    w1, b1 = z(4 * hp, fp), z(4 * hp, dt=f32)
+    w1[:hid, :feat] = r1.w.detach().to(dtype)
+    b1[:hid] = r1.b.detach().float()
+    w2r, b2r = z(LANE, hp), z(LANE, dt=f32)
+    w2r[:3, :hid] = r2.w.detach().to(dtype)
     b2r[:3] = r2.b.detach().float()
-    w2p = torch.zeros(LANE, 3 * hid, dtype=dtype, device=dev)
-    b2p = torch.zeros(LANE, dtype=f32, device=dev)
-    for i, p in enumerate(p2s):
-        w2p[i, i * hid:(i + 1) * hid] = p.w.detach()[0].to(dtype)
-        b2p[i] = p.b.detach()[0].float()
-    hw = {
-        "wf": wf.w.detach().to(dtype).contiguous(),
-        "bf": wf.b.detach().float().contiguous(),
-        "w1r": r1.w.detach().to(dtype).contiguous(),
-        "b1r": r1.b.detach().float().contiguous(),
-        "w2r": w2r, "b2r": b2r,
-        "w1p": torch.cat([p.w.detach().to(dtype) for p in p1s]).contiguous(),
-        "b1p": torch.cat([p.b.detach().float() for p in p1s]).contiguous(),
-        "w2p": w2p, "b2p": b2p,
-    }
+    w2p, b2p = z(LANE, 3 * hp), z(LANE, dt=f32)
+    for i, (p1, p2) in enumerate(zip(p1s, p2s)):
+        k = (i + 1) * hp
+        w1[k:k + hid, :feat] = p1.w.detach().to(dtype)
+        b1[k:k + hid] = p1.b.detach().float()
+        w2p[i, i * hp:i * hp + hid] = p2.w.detach()[0].to(dtype)
+        b2p[i] = p2.b.detach()[0].float()
+    wfp, bfp = z(fp, fp), z(fp, dt=f32)
+    wfp[:feat, :feat] = wf.w.detach().to(dtype)
+    bfp[:feat] = wf.b.detach().float()
+    hw = {"wf": wfp, "bf": bfp, "w1": w1, "b1": b1,
+          "w1r": w1[:hp], "b1r": b1[:hp], "w2r": w2r, "b2r": b2r,
+          "w1p": w1[hp:], "b1p": b1[hp:], "w2p": w2p, "b2p": b2p}
+    if layer_major(cfg):
+        w2 = z(LOGITS, 4 * hp, dt=f32)
+        w2[:3, :hp] = w2r[:3].float()
+        w2[3:, hp:] = w2p[:3].float()
+        hw["w2"] = w2
+        hw["b2"] = torch.cat([b2r[:3], b2p[:3]])
     if planes is None:
         planes = dtype == torch.float32 and dev.type == "cuda"
     if planes:
-        for k, kp in HEAD_PLANE_KEYS.items():
+        for k, kp in head_plane_keys(cfg).items():
             hw[kp] = split_planes(hw[k])
     return hw
 
@@ -340,31 +374,39 @@ def _trunk_heads_bwd_split(packed: Dict, hw: Dict, cfg: ModelConfig, x, cot,
 def check_head_weights(cfg: ModelConfig, hw: Dict, x: torch.Tensor):
     """What K4 and K5 take of the packed heads, the operands of the
     configuration's dtype: bf16 weights at a bf16 compute dtype; at float32
-    f32 weights with the split_planes of wf, w1r and w1p beside them
-    (HEAD_PLANE_KEYS), in the shapes of the trunk width cfg.feat, one of
-    the widths they are built for (heads_cuda_cover).  Anything else
-    raises."""
-    if not heads_cuda_cover(cfg):
-        raise ValueError(f"K4/K5 take the trunk widths {CUDA_WIDTHS} (got "
-                         f"feat={cfg.feat}); this model runs with the fused "
-                         "kernels off")
+    f32 weights with the split_planes of those head_plane_keys(cfg) names
+    beside them, in the shapes of the width cfg.feat, a kernel
+    configuration's (fused_mlp.kernel_cfg: the heads packed at the width
+    K1-K5 run the model at); at a layer-major width also the merged first
+    layers and the second layers laid over them (pack_head_weights).
+    Anything else raises."""
+    if kernel_cfg(cfg).feat != cfg.feat:
+        raise ValueError(f"K4/K5 take the heads packed at the width the "
+                         f"kernels run the model at (fused_mlp.kernel_cfg: "
+                         f"{kernel_cfg(cfg).feat}, got feat={cfg.feat})")
     f, h = cfg.feat, cfg.feat // 2
     shapes = {"wf": (f, f), "bf": (f,), "w1r": (h, f), "b1r": (h,),
               "w2r": (LANE, h), "b2r": (LANE,), "w1p": (3 * h, f),
               "b1p": (3 * h,), "w2p": (LANE, 3 * h), "b2p": (LANE,)}
+    if layer_major(cfg):
+        shapes.update(w1=(4 * h, f), b1=(4 * h,), w2=(LOGITS, 4 * h),
+                      b2=(LOGITS,))
     split = split_operands(cfg)
     wdt = torch.float32 if split else torch.bfloat16
+    planes = head_plane_keys(cfg)
     if split:
-        for k, kp in HEAD_PLANE_KEYS.items():
+        for k, kp in planes.items():
             shapes[kp] = (2,) + shapes[k]
     for k, shape in shapes.items():
         v = hw.get(k)
-        want = (torch.float32 if k.startswith("b") else
-                torch.bfloat16 if k in HEAD_PLANE_KEYS.values() else wdt)
+        want = (torch.float32 if k.startswith("b") or k == "w2" else
+                torch.bfloat16 if k in planes.values() else wdt)
         if v is None:
             raise ValueError(f"packed head {k} is missing: at compute_dtype "
                              f"float32 the heads hold the hi and lo planes "
-                             f"of wf, w1r and w1p (split_planes)")
+                             f"of {', '.join(planes)} (split_planes), and at "
+                             f"a layer-major width the merged w1, b1, w2 "
+                             f"and b2 (pack_head_weights)")
         if not (v.device == x.device and v.is_contiguous()
                 and tuple(v.shape) == shape and v.dtype == want):
             raise ValueError(f"packed head {k} must be a contiguous {want} "
@@ -384,9 +426,13 @@ def head_weight_ptrs(cfg: ModelConfig, hw: Dict) -> Dict[str, int]:
 
 def _trunk_heads_fwd_cuda(packed: Dict, hw: Dict, cfg: ModelConfig, x,
                           want_zs: bool = False):
-    """K4: (out (n, 8), gx (n, LANE), zs): with want_zs, zs as saved_spec
+    """K4: (out (n, 8), gx (n, lanes), zs): with want_zs, zs as saved_spec
     (bf16 under bfloat16_all, f32 under bfloat16 and float32), the residual
-    K5 reads, else None."""
+    K5 reads, else None.  A layer-major kernel configuration
+    (fused_mlp.layer_major) launches the layer-major K4."""
+    if layer_major(cfg):
+        from .trunk_layers import layers_fwd_grad_heads
+        return layers_fwd_grad_heads(packed, hw, cfg, x, want_zs)
     check_kernel_inputs(cfg, packed, x)
     check_head_weights(cfg, hw, x)
     n, dev = x.shape[0], x.device
@@ -420,7 +466,7 @@ def check_bwd_h_inputs(cfg: ModelConfig, packed: Dict, hw: Dict, x, cot, cg,
     check_head_weights(cfg, hw, x)
     n = x.shape[0]
     want = {"cot": (cot, (n, HEAD_COLS), torch.float32),
-            "cg": (cg, (n, LANE), torch.float32),
+            "cg": (cg, (n, x.shape[1]), torch.float32),
             "zs": (zs,) + saved_spec(cfg, n)}
     for k, (v, shape, dt) in want.items():
         if v is None or not (v.device == x.device and v.is_contiguous()
@@ -437,7 +483,11 @@ def _trunk_heads_bwd_cuda(packed: Dict, hw: Dict, cfg: ModelConfig, x, cot,
     three logit columns and zeros elsewhere.  A dict passed as scratch_out
     receives the kernel's scratch (for checks of its intermediates; "uc",
     the rebuilt b_th chain, reads as uchain_plain through
-    uchain_from_kernel)."""
+    uchain_from_kernel).  A layer-major kernel configuration launches the
+    layer-major K5 (its scratch_out: trunk_layers.layers_bwd_heads')."""
+    if layer_major(cfg):
+        from .trunk_layers import layers_bwd_heads
+        return layers_bwd_heads(packed, hw, cfg, x, cot, cg, zs, scratch_out)
     check_bwd_h_inputs(cfg, packed, hw, x, cot, cg, zs)
     n, dev = x.shape[0], x.device
     layers, F, H = cfg.layers, cfg.feat, cfg.feat // 2
@@ -499,9 +549,11 @@ def _run_fwd_h(cfg: ModelConfig, packed: Dict, hw: Dict, x_enc,
                want_zs: bool = False):
     """(packed logits (n, 8), gx (n, Ein_p)) of encoded points; with
     want_zs also zs, padded to the kernel's row count (the backward
-    rebuilds the u chain from it, as the Pallas pair does)."""
-    n = x_enc.shape[0]
-    x = pad_rows_lanes(x_enc, _round_up(max(n, TILE_N), TILE_N),
+    rebuilds the u chain from it, as the Pallas pair does).  cfg is a
+    kernel configuration (fused_mlp.kernel_cfg): F is its width and rows
+    are padded to its row_tile."""
+    n, rows = x_enc.shape[0], row_tile(cfg)
+    x = pad_rows_lanes(x_enc, _round_up(max(n, rows), rows),
                        packed["w0"].shape[1])
     if x.device.type == "cpu":
         out, gx, zs = _trunk_heads_fwd_plain(packed, hw, cfg, x, want_zs)
@@ -529,15 +581,18 @@ def _run_bwd_h(cfg: ModelConfig, packed: Dict, hw: Dict, x_enc, c_out, c_g,
 
 def _unpack_head_grads(cfg: ModelConfig, outs) -> List[torch.Tensor]:
     """Packed (in, out) head grads -> the grads of head_params(net) in the
-    port's (out, in) layout; the padded columns and blocks of w2r / w2p
-    address no parameter and are sliced away (pallas_trunk_heads.py:
-    448-462)."""
+    port's (out, in) layout, at cfg's width F and HID = F / 2: the padded
+    columns and blocks of w2r / w2p address no parameter and are sliced
+    away (pallas_trunk_heads.py:448-462), as are the rows and columns a
+    zero-padded packing (kernel_cfg's width, HID_p = dw1r's columns) adds,
+    each head's hidden units at the start of its HID_p block."""
     (dwf, dbf, dw1r, db1r, dw2r, db2r, dw1p, db1p, dw2p, db2p) = outs
-    hid = cfg.feat // 2
-    grads = [dwf.t(), dbf, dw1r.t(), db1r, dw2r[:, :3].t(), db2r[:3]]
+    f, hid, hp = cfg.feat, cfg.feat // 2, dw1r.shape[1]
+    grads = [dwf[:f, :f].t(), dbf[:f], dw1r[:f, :hid].t(), db1r[:hid],
+             dw2r[:hid, :3].t(), db2r[:3]]
     for i in range(len(RPV_NAMES)):
-        s = slice(i * hid, (i + 1) * hid)
-        grads += [dw1p[:, s].t(), db1p[s], dw2p[s, i:i + 1].t(),
+        s = slice(i * hp, i * hp + hid)
+        grads += [dw1p[:f, s].t(), db1p[s], dw2p[s, i:i + 1].t(),
                   db2p[i:i + 1]]
     return grads
 
@@ -564,18 +619,21 @@ def _head_view(params) -> Dict[str, list]:
 
 class TrunkHeadsCore(torch.autograd.Function):
     """(packed logits, d sigma / d x_enc) with the hand-derived VJP: the
-    forward runs K4 saving zs, the backward K5.  x_enc
+    forward runs K4 saving zs, the backward K5, both at
+    fused_mlp.kernel_cfg's width (the grads sliced back to cfg's).  x_enc
     carries no gradient; like the JAX package's _trunk_heads_bwd, its grad
     is zeros."""
 
     @staticmethod
     def forward(ctx, cfg: ModelConfig, x_enc: torch.Tensor, *params):
         n_trunk = 2 * (cfg.layers + 1)
-        packed = _pack_params(cfg, params[:n_trunk])
-        hw = pack_head_weights(_head_view(params[n_trunk:]), cfg,
+        kcfg, packed = pack_at_kernel_width(_params_view(params[:n_trunk]),
+                                            cfg)
+        hw = pack_head_weights(_head_view(params[n_trunk:]), kcfg,
                                weight_dtype(cfg))
-        out, gx, zs = _run_fwd_h(cfg, packed, hw, x_enc, want_zs=True)
-        ctx.cfg, ctx.packed, ctx.hw, ctx.zs = cfg, packed, hw, zs
+        out, gx, zs = _run_fwd_h(kcfg, packed, hw, x_enc, want_zs=True)
+        ctx.cfg, ctx.kcfg, ctx.packed, ctx.hw, ctx.zs = (cfg, kcfg, packed,
+                                                         hw, zs)
         ctx.save_for_backward(x_enc)
         ctx.ein = params[0].shape[1]
         ctx.set_materialize_grads(False)
@@ -591,7 +649,7 @@ class TrunkHeadsCore(torch.autograd.Function):
         if c_g is None:
             c_g = torch.zeros(n, ctx.packed["w0"].shape[1],
                               dtype=torch.float32, device=dev)
-        outs = _run_bwd_h(ctx.cfg, ctx.packed, ctx.hw, x, c_out.float(),
+        outs = _run_bwd_h(ctx.kcfg, ctx.packed, ctx.hw, x, c_out.float(),
                           c_g.float(), ctx.zs)
         grads = (_unpack_grads(ctx.cfg, ctx.ein, outs[:9])
                  + _unpack_head_grads(ctx.cfg, outs[9:]))
@@ -608,9 +666,10 @@ def trunk_heads_core(net, cfg: ModelConfig, x_enc: torch.Tensor):
     params = trunk_params(net) + head_params(net)
     if torch.is_grad_enabled() and any(p.requires_grad for p in params):
         return TrunkHeadsCore.apply(cfg, x_enc.detach(), *params)
-    od = weight_dtype(cfg)
-    return _run_fwd_h(cfg, pack_trunk_weights(net, cfg, od),
-                      pack_head_weights(net, cfg, od), x_enc.detach())
+    kcfg, packed = pack_at_kernel_width(net, cfg)
+    return _run_fwd_h(kcfg, packed,
+                      pack_head_weights(net, kcfg, weight_dtype(cfg)),
+                      x_enc.detach())
 
 
 def fused_trunk_heads_with_grad(net, cfg: ModelConfig,

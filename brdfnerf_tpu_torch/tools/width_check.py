@@ -1,5 +1,5 @@
 """K1-K5 at the trunk widths 64, 128 and 256 (--fc_feat) on the card, held
-against their plain twins, and timed at the main paths' shapes; and K1-K3
+against their plain twins, and timed at the main paths' shapes; and K1-K5
 at the shapes the fused kernels do not take (the layer-major family and
 the zero-padded widths).
 
@@ -41,11 +41,15 @@ one command line for the widths' checks and times; chip_smoke.py's
 12 x 2048 trunk; 4 x 768 at the exact sine and ReLU; a 144-lane encoding
 at 4 x 128 and 8 x 128; width 96, which the fused kernels run at 128) at
 each size
-(default 384 and 4,096 points): K1-K3 at fused_mlp.kernel_cfg's width,
-at the bounds above times sum_length_scale (past width 512 every
-product sums more terms); --times F with F past 512 makes the
-layer-major rows (layer_rows: 12 layers, skip 4).  chip_smoke.py's
-`widths, layer-major` phase runs both (check_layers, layer_rows).
+(default 384 and 4,096 points): K1-K5 at fused_mlp.kernel_cfg's width
+(the layer-major K4 and K5 past 512 and over 128 lanes, the fused pair
+on heads packed zero-padded at 128 for width 96), at the bounds above
+times sum_length_scale (past width 512 every product sums more terms);
+the layer-major K5's rebuilt chain is its last point block's rows
+against uchain_plain, and its reduced [db_1; dW_2] against the sum of
+its column partials.  --times F with F past 512 makes the layer-major
+rows (layer_rows: 12 layers, skip 4; K1-K5).  chip_smoke.py's `widths,
+layer-major` phase runs both (check_layers, layer_rows).
 Prints the card's name and power limit first and a JSON summary last;
 exits 1 where a check missed its bound.
 """
@@ -80,6 +84,18 @@ SIZES = (192, 8448)
 UCHAIN_BOUND = 1e-2
 # K5's reduced head grads against the sum of its per-tile partials
 PART_BOUND = 1e-5
+# the layer-major K5 walked in 128-point blocks against one block (times
+# sum_length_scale): its weight gradients are the same products summed in
+# another order, and one block sums them in the tensor cores' f32
+# accumulator, whose error grows with its K (the points).  Sound, at
+# 12 x 2048 on 4,096 points, 32 blocks sat 1.19e-5 from one block on an
+# H100 80GB HBM3 at 700 W.  A walk that drops one block's sum (the
+# mildest fault of the walk; a block that overwrites the sum gives ~1)
+# sits ~0.19 from it: sqrt(1/32) of gradients whose points' terms are
+# uncorrelated (the twins on the CPU at 4 x 768 and 6 x 640, 4,096
+# points: 0.193 and 0.189).  point_blocks reads that fault on the card
+# every run and holds it over the bound.
+BLOCK_BOUND = 1e-4
 # the H100's dense peaks: (bf16 tensor-core FLOP/s, HBM bytes/s)
 PEAKS = {"sxm": (989e12, 3.35e12), "pcie": (756e12, 2.0e12)}
 
@@ -286,7 +302,7 @@ def held(kern, label, names, got, again, ref, dtype, act, report, b16=None,
 
 
 def family_tag(cfg) -> str:
-    """How K1-K3 run a model: "width F" where the fused kernels are built
+    """How K1-K5 run a model: "width F" where the fused kernels are built
     for it, else with the width and family they run it at
     (fused_mlp.kernel_cfg)."""
     kc = k1.kernel_cfg(cfg)
@@ -301,21 +317,19 @@ def family_tag(cfg) -> str:
 
 def check_width(feat: int, layers: int, skip: int, act: str, n: int,
                 seed: int = 0, report=None, freqs: int = 0):
-    """K1 (with and without feats), K2 (serving, saving zs/us), K3, and
-    where the fused heads take the width K4 (serving, saving zs) and K5,
-    of the configuration at `act` (`freqs` as width_model) and every dtype
-    of DTYPES on n points, as the module docstring says; each at
-    fused_mlp.kernel_cfg's width (zero-padded where it is not the
-    model's), the fused or the layer-major family; returns the report
-    dict."""
+    """K1 (with and without feats), K2 (serving, saving zs/us), K3, K4
+    (serving, saving zs) and K5 of the configuration at `act` (`freqs` as
+    width_model) and every dtype of DTYPES on n points, as the module
+    docstring says; each at fused_mlp.kernel_cfg's width (zero-padded
+    where it is not the model's), the fused or the layer-major family;
+    returns the report dict."""
     report = {} if report is None else report
     cfg16, net = width_model(feat, layers, skip, "bfloat16_all", act, seed,
                              freqs)
     assert k1.cuda_kernels_cover(cfg16) and k1.act_of(cfg16) == act
-    heads = k4.heads_cuda_cover(cfg16)
     cfg16, logical = k1.kernel_cfg(cfg16), cfg16
     p16 = k1.pack_trunk_weights(net, cfg16, torch.bfloat16)
-    hw16 = k4.pack_head_weights(net, cfg16, torch.bfloat16) if heads else None
+    hw16 = k4.pack_head_weights(net, cfg16, torch.bfloat16)
     gen = torch.Generator(device="cuda").manual_seed(seed + 5)
     enc = points(cfg16, n, gen)
     tag = (f"{family_tag(logical)}, {layers} layers, skip {skip}, {act}, "
@@ -360,9 +374,8 @@ def check_width(feat: int, layers: int, skip: int, act: str, n: int,
              k2._trunk_bwd_cuda(p16, cfg16, enc, cs, cf.to(bf), cg,
                                 zs.to(bf), us.to(bf)) if f32 else None,
              dbsig_scale(packed, cfg, cs, cg, zs), feat=cfg.feat)
-        if heads:
-            check_heads(label, net, cfg, packed, p16, hw16, cfg16, enc, cg,
-                        k2_serving, gen, act, report)
+        check_heads(label, net, cfg, packed, p16, hw16, cfg16, enc, cg,
+                    k2_serving, gen, act, report)
     return report
 
 
@@ -373,6 +386,7 @@ def check_heads(label, net, cfg, packed, p16, hw16, cfg16, enc, cg,
     K2's serving outputs on them; p16, hw16, cfg16: the bfloat16_all
     weights and configuration, for float32's ratio)."""
     n, f32 = enc.shape[0], cfg.compute_dtype == "float32"
+    wide = k1.layer_major(cfg)
     hw = k4.pack_head_weights(net, cfg, k1.weight_dtype(cfg))
     for want_zs in (False, True):
         k = 2 + want_zs
@@ -386,29 +400,46 @@ def check_heads(label, net, cfg, packed, p16, hw16, cfg16, enc, cg,
              cfg.compute_dtype, act, report,
              fwd(p16, hw16, cfg16) if f32 else None,
              split=k4._trunk_heads_fwd_split(packed, hw, cfg, enc,
-                                             want_zs)[:k] if f32 else None)
+                                             want_zs)[:k] if f32 else None,
+             feat=cfg.feat)
         # K4 runs K2's trunk and chain with the same arithmetic
         assert torch.equal(got[0][:, 0], k2_serving[0]), (label, "K4 sigma")
         assert torch.equal(got[1], k2_serving[2]), (label, "K4 gx")
         assert got[0][:, 7].abs().max().item() == 0.0, (label, "K4 pad")
         assert got[1][:, cfg.xyz_in_dim:].abs().max().item() == 0.0
-    zs = got[2]
+    fwd, zs = got, got[2]
     cot = torch.randn(n, k4.HEAD_COLS, device="cuda", generator=gen)
     cot[:, 7] = 0.0
     scratch = {}
     got = k4._trunk_heads_bwd_cuda(packed, hw, cfg, enc, cot, cg, zs,
                                    scratch_out=scratch)
-    e = rel_l2(k4.uchain_from_kernel(scratch["uc"], n, cfg.layers, cfg.feat),
-               k4.uchain_plain(packed, cfg, zs))
+    if wide:
+        # the layer-major K5 keeps its last point block's chain, (block, L
+        # F) f32 rows (n points: one block)
+        assert scratch["block"] == n, scratch["block"]
+        uc = scratch["uc"]
+    else:
+        uc = k4.uchain_from_kernel(scratch["uc"], n, cfg.layers, cfg.feat)
+    e = rel_l2(uc, k4.uchain_plain(packed, cfg, zs))
     print(f"  K5 {label}: rebuilt b_th chain {e:.3e} relative L2 against "
           f"uchain_plain", flush=True)
-    if not e <= UCHAIN_BOUND:
-        MISSES.append(f"K5 {label} b_th chain: {e:.3e} > {UCHAIN_BOUND:g}")
-    # the reduce kernel's head columns read the sweep's per-tile partials
-    # in their layout (head_part): the same f32 sums in another order
-    want = k4.head_part_grads(scratch["part"], cfg.layers, cfg.feat)
-    have = (got[10], torch.cat([got[12], got[16]]), got[13], got[14],
-            got[17], got[18])
+    if not e <= sum_length_scale(cfg.feat) * UCHAIN_BOUND:
+        MISSES.append(f"K5 {label} b_th chain: {e:.3e} > "
+                      f"{sum_length_scale(cfg.feat) * UCHAIN_BOUND:g}")
+    if wide:
+        # [db_1; dW_2] against the sum of the column partials over the row
+        # tiles ([tile][4][2 F]), the same f32 sums in another order
+        s_ = scratch["hcp"].sum(0)
+        have = (torch.cat([got[12], got[16]]),
+                torch.cat([got[13][:, :3], got[17][:, :3]]).t())
+        want = (s_[0], s_[1:])
+    else:
+        # the reduce kernel's head columns read the sweep's per-tile
+        # partials in their layout (head_part): the same f32 sums in
+        # another order
+        want = k4.head_part_grads(scratch["part"], cfg.layers, cfg.feat)
+        have = (got[10], torch.cat([got[12], got[16]]), got[13], got[14],
+                got[17], got[18])
     e = max(rel_l2(h_, w_) for h_, w_ in zip(have, want))
     if not e <= PART_BOUND:
         MISSES.append(f"K5 {label} head partials: {e:.3e} > {PART_BOUND:g}")
@@ -421,7 +452,56 @@ def check_heads(label, net, cfg, packed, p16, hw16, cfg16, enc, cg,
                                   zs.to(torch.bfloat16)) if f32 else None,
          dbsig_scale(packed, cfg, cot[:, 0], cg, zs),
          k4._trunk_heads_bwd_split(packed, hw, cfg, enc, cot, cg, zs)
-         if f32 else None)
+         if f32 else None, feat=cfg.feat)
+    if wide:
+        point_blocks(label, packed, hw, cfg, enc, cot, cg, fwd, got)
+
+
+def point_blocks(label, packed, hw, cfg, enc, cot, cg, fwd, bwd):
+    """The layer-major K4 and K5 walked over the points in blocks of
+    trunk_layers.ROWS (a scratch budget that fits one block): K4's
+    per-point outputs bit for bit those of the launch `fwd` (one block
+    here), K5's gradients, sums over the blocks in order, within
+    BLOCK_BOUND times sum_length_scale of `bwd`'s (the sigma head's bias
+    gradient of its terms' L2 norm).  The check's fault side: K5 walked
+    over all points but the last block (what a walk that drops that
+    block's sum gives) must sit over the bound."""
+    from ..ops import trunk_layers as tl
+    budget, e = tl.BUDGET, enc.shape[1]
+    drop = slice(0, enc.shape[0] - tl.ROWS)
+    try:
+        tl.BUDGET = tl.scratch_bytes("K4", cfg, e, tl.ROWS)
+        got = k4._trunk_heads_fwd_cuda(packed, hw, cfg, enc, True)
+        tl.BUDGET = tl.scratch_bytes("K5", cfg, e, tl.ROWS)
+        grads = k4._trunk_heads_bwd_cuda(packed, hw, cfg, enc, cot, cg,
+                                         fwd[2])
+        dropped = k4._trunk_heads_bwd_cuda(packed, hw, cfg, enc[drop],
+                                           cot[drop], cg[drop], fwd[2][drop])
+    finally:
+        tl.BUDGET = budget
+    same = all(torch.equal(a, b) for a, b in zip(got, fwd))
+    # the sigma head's bias gradient, one sum of terms of either sign, on
+    # its terms' L2 norm (as `held` holds it)
+    i = K5_NAMES.index("dbsig")
+    scale = dbsig_scale(packed, cfg, cot[:, 0], cg, fwd[2])
+
+    def gap(have):
+        return max([rel_l2(a, b) for j, (a, b) in enumerate(zip(have, bwd))
+                    if j != i]
+                   + [(have[i] - bwd[i]).abs().max().item() / scale])
+    err, fault = gap(grads), gap(dropped)
+    bound = BLOCK_BOUND * sum_length_scale(cfg.feat)
+    print(f"  K4/K5 {label}, {enc.shape[0] // tl.ROWS} point blocks: K4 "
+          f"{'bit for bit' if same else 'DIFFERS'}, K5 {err:.3e} relative "
+          f"L2 from one block (bound {bound:g}; the last block dropped "
+          f"{fault:.3e})", flush=True)
+    if not same:
+        MISSES.append(f"K4 {label}: point blocks change its outputs")
+    if not err <= bound:
+        MISSES.append(f"K5 {label} point blocks: {err:.3e} > {bound:g}")
+    if not fault > bound:
+        MISSES.append(f"K5 {label} point blocks: a dropped block "
+                      f"{fault:.3e} within the bound {bound:g}")
 
 
 # the layer-major family (ops/trunk_layers.py) and the padded widths:
@@ -441,7 +521,7 @@ LAYER_SIZES = (384, 4096)
 
 def check_layers(sizes=LAYER_SIZES, report=None, configs=LAYER_CONFIGS):
     """check_width for every configuration of LAYER_CONFIGS at every size:
-    the layer-major K1-K3 (and at width 96 the fused ones at 128) held to
+    the layer-major K1-K5 (and at width 96 the fused ones at 128) held to
     their twins at the bounds of the width-512 rows, twice bit-identical."""
     report = {} if report is None else report
     for n in sizes:
@@ -495,7 +575,10 @@ def timed_row(rows, kern, cfg, n, work, peaks, fn, twin, library, report,
     kernel) launched twice bit-identical and held to `twin` at
     check_width's bounds (`held`; b16, sum_scale as there), timed beside
     its twin and `library` (the torch.matmul chain of the same products;
-    `reps` calls of each after one), with the bound of `work` = (FLOPs,
+    `reps` calls of each after one; reps[1] 0: the twin, which takes
+    seconds at the layer-major rows' shapes, timed on one call, the one
+    held against the kernel where it runs on every point), with the bound
+    of `work` = (FLOPs,
     bytes) at `peaks` (at float32 also the bound of three products for
     each) and the largest difference from the twin.  kinds: the row
     kinds' names and sources (ROW_KINDS; LAYER_ROW_KINDS for the
@@ -522,7 +605,22 @@ def timed_row(rows, kern, cfg, n, work, peaks, fn, twin, library, report,
     if held_rows is not None:
         label += f", the first {held_rows} held"
     b = None if b16 is None else rows_of(b16())
+    torch.cuda.synchronize()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
     ref = twin()
+    e1.record()
+    torch.cuda.synchronize()
+    if reps[1]:
+        plain_ms = timed(twin if twin_time is None else twin_time, reps[1])
+    elif twin_time is None:
+        plain_ms = e0.elapsed_time(e1)
+    else:
+        e0.record()
+        twin_time()
+        e1.record()
+        torch.cuda.synchronize()
+        plain_ms = e0.elapsed_time(e1)
     held(kern, label, outs, got, got, ref, dtype, "poly", report, b,
          sum_scale, feat=feat)
     err = max((g_.float() - r_.float()).abs().max().item()
@@ -532,9 +630,7 @@ def timed_row(rows, kern, cfg, n, work, peaks, fn, twin, library, report,
          "source": "brdfnerf_tpu_torch/csrc/" + source,
          "replaces": "brdfnerf_tpu/ops/" + replaces, "width": feat,
          "dtype": dtype, "points": n, "max_abs_err": err,
-         "ms": timed(fn, reps[0]),
-         "plain_ms": timed(twin if twin_time is None else twin_time,
-                           reps[1]),
+         "ms": timed(fn, reps[0]), "plain_ms": plain_ms,
          "library_ms": timed(library, reps[2])}
     r["bound_ms"], r["bound_by"] = bound_ms(*work, peaks)
     if dtype == "float32":
@@ -637,9 +733,14 @@ def kernel_rows(rows: dict, feat: int, peaks, seed: int = 0, report=None):
 
 # the layer-major rows' names and sources (layer_rows), as ROW_KINDS
 LAYER_ROW_KINDS = {
-    k: (f"trunk_layers {k}" + (" (saving zs/us)" if k == "K2zs" else ""),
+    k: (f"trunk_layers {k[:2]}" + {"K2zs": " (saving zs/us)",
+                                   "K4zs": " (saving zs)"}.get(k, ""),
         "trunk_layers.cu", v[2], v[3])
-    for k, v in ROW_KINDS.items() if k in ("K1", "K2", "K2zs", "K3")}
+    for k, v in ROW_KINDS.items()}
+# the head weights the layer-major K4 and K5 read (pack_head_weights at a
+# layer-major width: W_f, the merged first layers, the second layers over
+# them, and their biases)
+LAYER_HEAD_KEYS = ("wf", "bf", "w1", "b1", "w2", "b2")
 # the twins' point chunk at the layer-major rows' shapes (the 12 x 2048
 # twin of K2 holds ~0.4 MB a point, of K3 ~0.6 MB: a few GB a chunk), and
 # the points at which a per-point row is held to its twin (the kernel runs
@@ -673,18 +774,23 @@ def chunked_twin(fn, n: int, *rows, chunk: int = TWIN_CHUNK, summed=False,
 
 def layer_rows(rows: dict, peaks, feat: int = 2048, layers: int = 12,
                skip: int = 4, dtypes=DTYPES, seed: int = 0, report=None,
-               reps=(3, 1, 3), kinds=("K1", "K2", "K2zs", "K3")):
-    """Rows of the kernels JSON line for the layer-major K1-K3 at
+               reps=(2, 0, 3),
+               kinds=("K1", "K2", "K2zs", "K3", "K4", "K4zs", "K5")):
+    """Rows of the kernels JSON line for the layer-major K1-K5 at
     `layers` x `feat` (skip `skip`; default the 12 x 2048 trunk), keyed
     "<K1|K2|K2zs|K3> <dtype> f<feat>", as kernel_rows makes the fused
     family's: each at its main shape (K1 at N_SERVE_PASS points, K2 at
     N_SERVE_MAIN, K2 saving zs/us and K3 at N_TRAIN_MAIN; at bfloat16 the
-    last two), launched twice bit-identical, held to its twin at
-    check_width's bounds (K1 and K2, whose outputs are per point, on the
-    first TWIN_ROWS points; K3, a sum over the points, whole, its twin run
-    in chunks: chunked_twin), and timed beside the twin on every point
-    (in chunks), the torch.matmul chain of the same products and its
-    bound (trunk_work).  kinds: the rows to make (each of the four by
+    last two), and the layer-major K4 and K5 keyed "<K4|K4zs|K5> <dtype>
+    f<feat>" as heads_rows makes the fused pair's (K4 at N_SERVE_MAIN, K4
+    saving zs and K5 on its zs at N_TRAIN_MAIN; at bfloat16 the last two),
+    launched twice bit-identical, held to its twin at check_width's bounds
+    (K1, K2 and K4, whose outputs are per point, on the first TWIN_ROWS
+    points; K3 and K5, sums over the points, whole, their twins run in
+    chunks: chunked_twin), and timed beside the twin on every point (in
+    chunks), the torch.matmul chain of the same products (matmul_chains,
+    heads_chains) and its bound (trunk_work, with the heads' weight bytes
+    for K4 and K5).  kinds: the rows to make (each of the seven by
     default); reps: timed_row's."""
     from ..ops.fused_mlp import LANE
     report = {} if report is None else report
@@ -692,18 +798,27 @@ def layer_rows(rows: dict, peaks, feat: int = 2048, layers: int = 12,
     cfg16, net = width_model(feat, layers, skip, seed=seed)
     assert k1.layer_major(k1.kernel_cfg(cfg16)), "not a layer-major width"
     p16 = k1.pack_trunk_weights(net, cfg16, torch.bfloat16)
+    hw16 = k4.pack_head_weights(net, cfg16, torch.bfloat16)
     bf = torch.bfloat16
     for dtype in dtypes:
         cfg = dc.replace(cfg16, compute_dtype=dtype)
-        packed = k1.pack_trunk_weights(net, cfg, k1.weight_dtype(cfg))
+        wd = k1.weight_dtype(cfg)
+        packed = k1.pack_trunk_weights(net, cfg, wd)
+        hw = k4.pack_head_weights(net, cfg, wd)
         wbytes = weight_bytes(packed, k1.PLANE_KEYS.values())
+        hbytes = sum(hw[k].numel() * hw[k].element_size()
+                     for k in LAYER_HEAD_KEYS)
         chain_fwd, chain_k2, chain_k3 = matmul_chains(packed, cfg, LANE)
+        chain_heads, chain_k5_heads = heads_chains(packed, hw, cfg, LANE)
 
         def row(kern, fn, twin, library, n, b16=None, sum_scale=None,
                 twin_time=None):
             if kern in kinds:
                 timed_row(rows, kern, cfg, n,
-                          trunk_work(kern, cfg, n, wbytes), peaks, fn, twin,
+                          trunk_work(kern, cfg, n, wbytes,
+                                     hbytes if kern[:2] in ("K4", "K5")
+                                     else 0),
+                          peaks, fn, twin,
                           library, report, b16, sum_scale, LAYER_ROW_KINDS,
                           reps, None if twin_time is None else TWIN_ROWS,
                           twin_time)
@@ -754,22 +869,80 @@ def layer_rows(rows: dict, peaks, feat: int = 2048, layers: int = 12,
             twin_time=lambda: chunked_twin(
                 lambda x: k2._trunk_fwd_grad_plain(packed, cfg, x, True), n,
                 enc, keep=False))
-        zs, us = k2._trunk_fwd_grad_cuda(packed, cfg, enc, True)[3:]
         cs, cf, cg = cotangents(cfg, n, gen, k2._saved_dtype(cfg))
         hth = torch.randn(2 * n, feat, device="cuda", generator=gen).to(ob)
         azb = torch.randn(2 * n, feat, device="cuda", generator=gen).to(ob)
         xtb = torch.cat([enc, cg], 0).to(ob)
         cgb = cg.to(ob)
-        row("K3", lambda: k2._trunk_bwd_cuda(packed, cfg, enc, cs, cf, cg,
-                                             zs, us),
-            lambda: chunked_twin(lambda *r_: k2._trunk_bwd_plain(
-                packed, cfg, *r_), n, enc, cs, cf, cg, zs, us, summed=True),
-            lambda: chain_k3(cgb, azb, hth, xtb), n,
-            (lambda: k2._trunk_bwd_cuda(p16, cfg16, enc, cs, cf.to(bf), cg,
-                                        zs.to(bf), us.to(bf)))
+        if "K3" in kinds:
+            zs, us = k2._trunk_fwd_grad_cuda(packed, cfg, enc, True)[3:]
+            row("K3", lambda: k2._trunk_bwd_cuda(packed, cfg, enc, cs, cf,
+                                                 cg, zs, us),
+                lambda: chunked_twin(lambda *r_: k2._trunk_bwd_plain(
+                    packed, cfg, *r_), n, enc, cs, cf, cg, zs, us,
+                    summed=True),
+                lambda: chain_k3(cgb, azb, hth, xtb), n,
+                (lambda: k2._trunk_bwd_cuda(p16, cfg16, enc, cs, cf.to(bf),
+                                            cg, zs.to(bf), us.to(bf)))
+                if f32 else None,
+                dbsig_scale_chunked(packed, cfg, cs, cg, zs))
+            del zs, us
+        del cs, cf
+        if not {"K4", "K4zs", "K5"} & set(kinds):
+            continue
+        # the heads: K4 serving, K4 saving zs, K5 on its zs
+        hid = feat // 2
+        if dtype != "bfloat16" and "K4" in kinds:
+            ns = N_SERVE_MAIN
+            enc_s = points(cfg, ns, gen)
+            encb_s = enc_s.to(ob)
+            hb_s = torch.randn(ns, feat, device="cuda", generator=gen).to(ob)
+            row("K4", lambda: k4._trunk_heads_fwd_cuda(packed, hw, cfg,
+                                                       enc_s)[:2],
+                lambda: k4._trunk_heads_fwd_plain(packed, hw, cfg,
+                                                  enc_s[:m])[:2],
+                lambda: (chain_k2(encb_s), chain_heads(hb_s)), ns,
+                (lambda: k4._trunk_heads_fwd_cuda(p16, hw16, cfg16,
+                                                  enc_s)[:2])
+                if f32 else None,
+                twin_time=lambda: chunked_twin(
+                    lambda x: k4._trunk_heads_fwd_plain(packed, hw, cfg, x),
+                    ns, enc_s, keep=False))
+            del enc_s, encb_s, hb_s
+        hb = torch.randn(n, feat, device="cuda", generator=gen).to(ob)
+        row("K4zs", lambda: k4._trunk_heads_fwd_cuda(packed, hw, cfg, enc,
+                                                     True),
+            lambda: k4._trunk_heads_fwd_plain(packed, hw, cfg, enc[:m],
+                                              True),
+            lambda: (chain_k2(encb), chain_heads(hb)), n,
+            (lambda: k4._trunk_heads_fwd_cuda(p16, hw16, cfg16, enc, True))
             if f32 else None,
-            dbsig_scale_chunked(packed, cfg, cs, cg, zs))
-        del enc, encb, zs, us, cs, cf, cg, hth, azb, xtb, cgb
+            twin_time=lambda: chunked_twin(
+                lambda x: k4._trunk_heads_fwd_plain(packed, hw, cfg, x,
+                                                    True), n, enc,
+                keep=False))
+        if "K5" in kinds:
+            zs = k4._trunk_heads_fwd_cuda(packed, hw, cfg, enc, True)[2]
+            cot = torch.randn(n, k4.HEAD_COLS, device="cuda", generator=gen)
+            cot[:, 7] = 0.0
+            czb = torch.randn(n, 4 * hid, device="cuda",
+                              generator=gen).to(ob)
+            ubt = torch.randn(n, feat, device="cuda", generator=gen).to(ob)
+
+            def chain_k5():
+                chain_k3(cgb, azb, hth, xtb)
+                chain_k5_heads(hb, czb, ubt)
+            row("K5", lambda: k4._trunk_heads_bwd_cuda(packed, hw, cfg, enc,
+                                                       cot, cg, zs),
+                lambda: chunked_twin(lambda *r_: k4._trunk_heads_bwd_plain(
+                    packed, hw, cfg, *r_), n, enc, cot, cg, zs, summed=True),
+                chain_k5, n,
+                (lambda: k4._trunk_heads_bwd_cuda(p16, hw16, cfg16, enc, cot,
+                                                  cg, zs.to(bf)))
+                if f32 else None,
+                dbsig_scale_chunked(packed, cfg, cot[:, 0], cg, zs))
+            del zs, cot, czb, ubt
+        del enc, encb, hb, cg, hth, azb, xtb, cgb
     return rows
 
 

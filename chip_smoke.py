@@ -218,7 +218,7 @@ The trunk widths (before phase 6):
                 step's K2 saving zs/us and K3), timed; then the 12 x 2048
                 flagship trunk on the card: a 16,384-ray request (K1L 2 /
                 K2L 1 a chunk) against the CPU twins, the stage-2 step at
-                bfloat16_all (K1L 2 / K2L 1 / K3L 1, LAYER_STEPS timed, a
+                bfloat16_all (K1L 2 / K2L 1 / K3L 1, LAYER_SHORT timed, a
                 falling loss) and a step-check point on its weights,
                 LAYER_CHECK_RAYS rays, against the twins on the card (the
                 bf16 bounds times sum_length_scale);
@@ -228,7 +228,16 @@ The trunk widths (before phase 6):
                 96 (the fused kernels at 128; the request against the CPU
                 twins) and at a 144-lane encoding (every K1 and K2 call
                 of the request held to its twins on its own inputs:
-                held_on_inputs); the phase's seconds
+                held_on_inputs); then with BRDFNERF_FUSED_HEADS set the
+                layer-major K4/K5: the 12 x 2048 rows of K4, K4
+                saving zs and K5 (bfloat16_all and float32), a request
+                (K1L 2 / K4L 1 a chunk) against the CPU twins, LAYER_SHORT
+                bfloat16_all steps (K1L 2 / K4L 1 / K5L 1, a falling loss,
+                peak memory, one profiled) and a step-check point against
+                the twins on the card, LAYER_SHORT float32 steps and their
+                step-check point; at width 96 (the fused pair at 128) and
+                at 144 lanes (every K1 and K4 call held on its own inputs)
+                a request and LAYER_SHORT steps each; the phase's seconds
 After phase 12:
  14. workflow, width 64 - stage 1 and stage 2 through the train CLI at
                 --fc_feat 64 (the [kernels] line names the width), the eval
@@ -455,8 +464,9 @@ def fixed_fine(fine_z, rays):
 
 
 def held_on_inputs(r, rays, label):
-    """Render `rays` through renderer r with every K1 and K2 call held to
-    its plain twin on the inputs the render gives it: the request's own
+    """Render `rays` through renderer r with every K1 and K2 call (K4's
+    with BRDFNERF_FUSED_HEADS set) held to its plain twin on the inputs
+    the render gives it: the request's own
     encoded points at the path's shapes, each call launched twice
     (bit-identical) and within tools/width_check.held's bounds at r's
     dtype and activation, as check_layers holds them.  It holds a render
@@ -465,12 +475,14 @@ def held_on_inputs(r, rays, label):
     samples' encodings by O(1), so two renders, on the card and on the
     CPU, run on different points.  Returns the number of calls held."""
     from brdfnerf_tpu_torch.ops import fused_mlp as k1
+    from brdfnerf_tpu_torch.ops import fused_trunk_heads as k4
     from brdfnerf_tpu_torch.ops import fused_trunk_vjp as k2
     from brdfnerf_tpu_torch.tools import act_check, width_check
     mcfg = r.cfg.model
     act, dtype = k1.act_of(mcfg), mcfg.compute_dtype
     assert dtype != "float32", "float32's ratio needs a bfloat16_all run"
-    saved = (k1._trunk_sigma_cuda, k2._trunk_fwd_grad_cuda)
+    saved = (k1._trunk_sigma_cuda, k2._trunk_fwd_grad_cuda,
+             k4._trunk_heads_fwd_cuda)
     calls = []
 
     def holding(kern, fn, twin):
@@ -489,23 +501,42 @@ def held_on_inputs(r, rays, label):
             return out
         return run
 
+    def holding_heads(fn, twin):
+        def run(packed, hw, cfg, x, want=False):
+            out = fn(packed, hw, cfg, x, want)
+            got = [v for v in out if v is not None]
+            width_check.held(
+                "K4", f"{label}, call {len(calls)}, {x.shape[0]} points",
+                ("out", "gx", "zs")[:len(got)], got,
+                [v for v in fn(packed, hw, cfg, x, want) if v is not None],
+                [v for v in twin(packed, hw, cfg, x, want) if v is not None],
+                dtype, act, {}, feat=cfg.feat)
+            calls.append("K4")
+            return out
+        return run
+
     k1._trunk_sigma_cuda = holding("K1", saved[0], k1._trunk_sigma_plain)
     k2._trunk_fwd_grad_cuda = holding("K2", saved[1],
                                       k2._trunk_fwd_grad_plain)
+    k4._trunk_heads_fwd_cuda = holding_heads(saved[2],
+                                             k4._trunk_heads_fwd_plain)
     try:
         r.render_image({"rays": rays})
     finally:
-        k1._trunk_sigma_cuda, k2._trunk_fwd_grad_cuda = saved
+        (k1._trunk_sigma_cuda, k2._trunk_fwd_grad_cuda,
+         k4._trunk_heads_fwd_cuda) = saved
     assert not act_check.MISSES, act_check.MISSES
     return len(calls)
 
 
-GROUPS = (("K1-K3 layer-major products", ("layers_product_kernel",)),
-          ("K1-K3 layer-major epilogues", ("layers_split_kernel",
+GROUPS = (("K1-K5 layer-major products", ("layers_product_kernel",)),
+          ("K1-K5 layer-major epilogues", ("layers_split_kernel",
                                            "layers_colsum_kernel",
                                            "layers_sigma_finish",
                                            "layers_k2_seed",
-                                           "layers_k3_head")),
+                                           "layers_k3_head",
+                                           "layers_heads_finish",
+                                           "layers_tile_rows")),
           ("K1 trunk_sigma", ("trunk_sigma_kernel",)),
           ("K4 trunk_heads_fwd", ("trunk_fwd_grad_kernel<true, true,",
                                   "trunk_fwd_grad_kernel<false, true,",
@@ -1470,14 +1501,15 @@ def widths_phase(rows, argv, tmp, gen, peaks, serve, train, check_served,
     print(f"  widths phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
-# the layer-major phase: the 12 x 2048 trunk's timed steps at bfloat16_all
-# (10: the falling-loss check's least), its float32 steps and those of the
-# padded width and the wide encoding (on a one-batch store, where the loss
-# must fall from the first timed step to the last), the rays of its
-# request held against the CPU twins and of its step-check point (the
-# twins' step on the CPU at 12 x 2048 takes ~1 s a ray), and the points of
-# its kernels' checks at 12 x 2048 (and at the other LAYER_CONFIGS)
-LAYER_STEPS = 10
+# the layer-major phase: the timed steps of each of its runs, 12 x 2048
+# at bfloat16_all and float32, with the switch off and on, the padded
+# width and the wide encoding (on a one-batch store, where the loss must
+# fall from the first timed step to the last; the 12 x 2048 bfloat16_all
+# run took 10 on the 16-batch store until the K4/K5 runs came), the rays
+# of its requests held against the CPU twins and of its step-check point
+# (the twins' step on the CPU at 12 x 2048 takes ~1 s a ray), and the
+# points of its kernels' checks at 12 x 2048 (and at the other
+# LAYER_CONFIGS)
 LAYER_SHORT = 2
 LAYER_SERVE_CHECK = 64
 LAYER_CHECK_RAYS = 32
@@ -1502,8 +1534,9 @@ def layers_phase(rows, argv, tmp, gen, peaks, serve, train, check_served,
     parallelism exists for, on one card): one 16,384-ray request at
     bfloat16_all (K1L 2 / K2L 1 a chunk) against the CPU twins on
     LAYER_SERVE_CHECK rays, the stage-2 step at bfloat16_all (K1L 2 / K2L
-    1 / K3L 1 a step, LAYER_STEPS timed, a falling loss, peak memory, one
-    step profiled) and a step-check point on its weights, LAYER_CHECK_RAYS
+    1 / K3L 1 a step, LAYER_SHORT timed on a one-batch store, a falling
+    loss, peak memory, one step profiled) and a step-check point on its
+    weights, LAYER_CHECK_RAYS
     rays, at the bf16 bounds (`bounds`) times width_check.sum_length_scale
     against the twins on the card
     (the twins on the CPU printed beside: between the card and the CPU
@@ -1515,16 +1548,30 @@ def layers_phase(rows, argv, tmp, gen, peaks, serve, train, check_served,
     family at 128) a request and LAYER_SHORT steps each: at width 96 the
     request against the CPU twins, at 144 lanes every K1 and K2 call of
     the request `request` held to its twins on its own inputs
-    (held_on_inputs: no render there determines another's sample points);
-    its seconds."""
+    (held_on_inputs: no render there determines another's sample points).
+    Then K4/K5 with BRDFNERF_FUSED_HEADS set: check_layers held
+    them above beside K1-K3; the 12 x 2048 rows of the layer-major K4, K4
+    saving zs and K5 at bfloat16_all, and K4 saving zs and K5 at float32
+    (layer_rows); at 12 x 2048 a request (K1L 2 / K4L 1 a chunk) against
+    the CPU twins on LAYER_SERVE_CHECK rays, LAYER_SHORT bfloat16_all steps
+    (K1L 2 / K4L 1 / K5L 1; a one-batch store, the loss falling from the
+    first timed step to the last; peak memory; one step profiled) and a
+    step-check point as the switch-off one, LAYER_SHORT float32 steps and
+    a step-check point at the float32 bounds; at width 96 (the fused pair
+    at 128, zero-padded) and with the 144-lane encoding (the layer-major
+    pair) a request and LAYER_SHORT steps each, the 144-lane request's K1
+    and K4 calls held on their own inputs.  Its seconds, and those of the
+    K4/K5 work."""
     from brdfnerf_tpu_torch.cli import opts
     from brdfnerf_tpu_torch.models.network import init_network, init_params
     from brdfnerf_tpu_torch.ops import cuda_build
+    from brdfnerf_tpu_torch.ops import fused_trunk_heads as k4
     from brdfnerf_tpu_torch.ops import fused_trunk_vjp as k2
     from brdfnerf_tpu_torch.serve import load_renderer
     from brdfnerf_tpu_torch.tools import act_check, width_check
     from brdfnerf_tpu_torch.utils.checkpoint import save_checkpoint
     t_phase = time.perf_counter()
+    heads_s = 0.0     # the seconds of the K4/K5 work
     phase("widths, layer-major")
     for key, rec in cuda_build.build_log.items():
         if key.startswith("trunk_layers"):
@@ -1535,16 +1582,29 @@ def layers_phase(rows, argv, tmp, gen, peaks, serve, train, check_served,
     assert not act_check.MISSES, act_check.MISSES
     t0 = time.perf_counter()
     print(f"  checks {t0 - t_phase:.1f} s", flush=True)
-    width_check.layer_rows(rows, peaks, dtypes=("bfloat16_all",))
+    width_check.layer_rows(rows, peaks, dtypes=("bfloat16_all",),
+                           kinds=("K1", "K2", "K2zs", "K3"))
     width_check.layer_rows(rows, peaks, dtypes=("float32",),
                            kinds=("K2zs", "K3"))
     assert not act_check.MISSES, act_check.MISSES
-    print(f"  12 x 2048 main-shape rows {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    t1 = time.perf_counter()
+    print(f"  12 x 2048 main-shape rows {t1 - t0:.1f} s", flush=True)
+    width_check.layer_rows(rows, peaks, dtypes=("bfloat16_all",),
+                           kinds=("K4", "K4zs", "K5"))
+    width_check.layer_rows(rows, peaks, dtypes=("float32",),
+                           kinds=("K4zs", "K5"))
+    assert not act_check.MISSES, act_check.MISSES
+    heads_s += time.perf_counter() - t1
+    print(f"  12 x 2048 main-shape rows of K4/K5 "
+          f"{time.perf_counter() - t1:.1f} s", flush=True)
 
     zero = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0}
     wide_serve = dict(zero, K1L=2 * per_req, K2L=per_req)
     wide_step = dict(zero, K1L=2, K2L=1, K3L=1)
+    heads_serve = dict(zero, K1L=2 * per_req, K4L=per_req)
+    heads_step = dict(zero, K1L=2, K4L=1, K5L=1)
+    k4_pair = ((k4, "_trunk_heads_fwd_cuda", k4._trunk_heads_fwd_plain),
+               (k4, "_trunk_heads_bwd_cuda", k4._trunk_heads_bwd_plain))
 
     def run_dir(exp, extra):
         w_args = opts.postprocess(opts.train_parser().parse_args(
@@ -1567,7 +1627,7 @@ def layers_phase(rows, argv, tmp, gen, peaks, serve, train, check_served,
     assert (m_.feat, m_.layers, m_.skips) == (2048, 12, (4,))
     r_ = load_renderer(w_dir, 1, device="cuda")
     outs, launches = serve("request, 12 x 2048, bfloat16_all", wide_serve,
-                           r_, n_req=1)
+                           r_, n_req=1, profiled=False)
     rows["K1 bfloat16_all f2048"]["launches"] = launches["K1L"]
     rows["K2 bfloat16_all f2048"]["launches"] = launches["K2L"]
     check_served(outs, r_, n_check=LAYER_SERVE_CHECK)
@@ -1577,7 +1637,8 @@ def layers_phase(rows, argv, tmp, gen, peaks, serve, train, check_served,
     t0 = time.perf_counter()
     trained, launches = train("train step, 12 x 2048, bfloat16_all",
                               wide_step, mcfg_=m_, rcfg_=w_cfg.render,
-                              tcfg_=w_cfg.train, timed_steps=LAYER_STEPS)
+                              tcfg_=w_cfg.train, timed_steps=LAYER_SHORT,
+                              store_batches=1)
     rows["K2zs bfloat16_all f2048"]["launches"] = launches["K2L"]
     rows["K3 bfloat16_all f2048"]["launches"] = launches["K3L"]
     print(f"  12 x 2048 steps {time.perf_counter() - t0:.1f} s", flush=True)
@@ -1593,7 +1654,7 @@ def layers_phase(rows, argv, tmp, gen, peaks, serve, train, check_served,
                (k2, "_trunk_bwd_cuda", k2._trunk_bwd_plain), wide_step,
                mcfg_=m_, rcfg_=w_cfg.render,
                bounds_={k: v * scale for k, v in bounds.items()},
-               timed_steps=LAYER_STEPS, n_rays=LAYER_CHECK_RAYS,
+               timed_steps=LAYER_SHORT, n_rays=LAYER_CHECK_RAYS,
                cpu_held=False)
     del trained
     print(f"  12 x 2048 bfloat16_all step check "
@@ -1620,14 +1681,72 @@ def layers_phase(rows, argv, tmp, gen, peaks, serve, train, check_served,
     print(f"  12 x 2048 step check {time.perf_counter() - t0:.1f} s",
           flush=True)
 
+    # the 12 x 2048 trunk with the switch: the layer-major K4 and K5 in
+    # K2's and K3's place, the flagship heads in no torch op
+    t0 = time.perf_counter()
+    os.environ[FUSED_HEADS] = "1"
+    try:
+        r_ = load_renderer(w_dir, 1, device="cuda")
+        outs, launches = serve("request, 12 x 2048, bfloat16_all, fused "
+                               "heads", heads_serve, r_, n_req=1,
+                               profiled=False)
+        rows["K4 bfloat16_all f2048"]["launches"] = launches["K4L"]
+        check_served(outs, r_, n_check=LAYER_SERVE_CHECK)
+        del outs, r_
+        print(f"  12 x 2048 request, fused heads "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        t1 = time.perf_counter()
+        trained, launches = train(
+            "train step, 12 x 2048, bfloat16_all, fused heads", heads_step,
+            mcfg_=m_, rcfg_=w_cfg.render, tcfg_=w_cfg.train,
+            timed_steps=LAYER_SHORT, store_batches=1)
+        rows["K4zs bfloat16_all f2048"]["launches"] = launches["K4L"]
+        rows["K5 bfloat16_all f2048"]["launches"] = launches["K5L"]
+        step_check("12 x 2048, layer-major, fused heads, bfloat16_all",
+                   trained[-1:], *k4_pair, heads_step, mcfg_=m_,
+                   rcfg_=w_cfg.render,
+                   bounds_={k: v * scale for k, v in bounds.items()},
+                   timed_steps=LAYER_SHORT, n_rays=LAYER_CHECK_RAYS,
+                   cpu_held=False)
+        del trained
+        print(f"  12 x 2048 bfloat16_all steps and step check, fused heads "
+              f"{time.perf_counter() - t1:.1f} s", flush=True)
+        t1 = time.perf_counter()
+        trained, launches = train(
+            "train step, 12 x 2048, float32, fused heads", heads_step,
+            mcfg_=m32, rcfg_=w_cfg.render, tcfg_=w_cfg.train,
+            timed_steps=LAYER_SHORT, profiled=False, store_batches=1)
+        rows["K4zs float32 f2048"]["launches"] = launches["K4L"]
+        rows["K5 float32 f2048"]["launches"] = launches["K5L"]
+        # held to the twins on the card, as the bfloat16_all point (the
+        # switch-off float32 point above holds the trunk's kernels to the
+        # twins on the CPU and to the unfused step)
+        step_check("12 x 2048, layer-major, fused heads, float32",
+                   trained[-1:], *k4_pair, heads_step, mcfg_=m32,
+                   rcfg_=w_cfg.render,
+                   bounds_={k: v / 10 for k, v in bounds.items()},
+                   normal_err=NORMAL_ERR_F32, timed_steps=LAYER_SHORT,
+                   n_rays=LAYER_CHECK_RAYS, cpu_held=False)
+        del trained
+        print(f"  12 x 2048 float32 steps and step check, fused heads "
+              f"{time.perf_counter() - t1:.1f} s", flush=True)
+    finally:
+        del os.environ[FUSED_HEADS]
+    heads_s += time.perf_counter() - t0
+
     # a padded width (the fused family at 128) and a 144-lane encoding
-    # (the layer-major family at width 128)
+    # (the layer-major family at width 128), each with the switch off and
+    # on
     t0 = time.perf_counter()
     fused = dict(zero, K1=2 * per_req, K2=per_req)
     fused_step = dict(zero, K1=2, K2=1, K3=1)
-    for label, feat, freqs, want, want_step in (
-            ("width 96", 96, 0, fused, fused_step),
-            ("a 144-lane encoding", 128, 24, wide_serve, wide_step)):
+    fused_heads = dict(zero, K1=2 * per_req, K4=per_req)
+    fused_heads_step = dict(zero, K1=2, K4=1, K5=1)
+    for label, feat, freqs, want, want_step, want_h, want_h_step in (
+            ("width 96", 96, 0, fused, fused_step, fused_heads,
+             fused_heads_step),
+            ("a 144-lane encoding", 128, 24, wide_serve, wide_step,
+             heads_serve, heads_step)):
         w_dir, w_cfg = run_dir(f"smoke_f{feat}_m{freqs}",
                                ["--fc_feat", str(feat)])
         r_ = load_renderer(w_dir, 1, device="cuda")
@@ -1651,11 +1770,37 @@ def layers_phase(rows, argv, tmp, gen, peaks, serve, train, check_served,
                   "calls", flush=True)
         else:
             check_served(outs, r_, n_check=256)
-        del outs, r_
+        del outs
         train(f"train step, {label}, bfloat16_all", want_step, mcfg_=m_,
               rcfg_=w_cfg.render, tcfg_=w_cfg.train,
               timed_steps=LAYER_SHORT, profiled=False, store_batches=1)
+        # with the switch: K4 in K2's place, K4 and K5 in K2's and K3's
+        t1 = time.perf_counter()
+        os.environ[FUSED_HEADS] = "1"
+        try:
+            outs, _ = serve(f"request, {label}, bfloat16_all, fused heads",
+                            want_h, r_, n_req=1, profiled=False)
+            if freqs:
+                check_served(outs, r_, n_check=0)
+                n_held = held_on_inputs(r_, request,
+                                        f"request, {label}, fused heads")
+                assert n_held == 3 * per_req, n_held
+                print(f"  K1 and K4 held on the request's own inputs: "
+                      f"{n_held} calls", flush=True)
+            else:
+                check_served(outs, r_, n_check=256)
+            del outs
+            train(f"train step, {label}, bfloat16_all, fused heads",
+                  want_h_step, mcfg_=m_, rcfg_=w_cfg.render,
+                  tcfg_=w_cfg.train, timed_steps=LAYER_SHORT,
+                  profiled=False, store_batches=1)
+        finally:
+            del os.environ[FUSED_HEADS]
+        del r_
+        heads_s += time.perf_counter() - t1
     print(f"  width 96 and 144 lanes {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    print(f"  K4/K5 (fused heads) work in the phase {heads_s:.1f} s",
           flush=True)
     print(f"  widths, layer-major phase: {time.perf_counter() - t_phase:.1f}"
           " s", flush=True)
@@ -3141,6 +3286,20 @@ DP_STEPS = 8                # timed steps of each run, in turns
 SPLIT_TOL = 1e-5
 
 
+def free_cache():
+    """Hand this process's cached, unused device memory back to CUDA
+    before NCCL or another process on the card allocates outside it:
+    after the 12 x 2048 runs torch's cache held 78.23 of the H100's 79.18
+    GiB, and the data-parallel phase's first NCCL collective, and on
+    another run a spawned tensor-parallel rank, failed with CUDA out of
+    memory."""
+    print(f"  device memory: allocated "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, reserved "
+          f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB; the cache freed",
+          flush=True)
+    torch.cuda.empty_cache()
+
+
 def dp_phase(root, wf_run, requests, refs, smi, rows, reset_counts, counts,
              per_req):
     """Phase 17, data parallelism on the one card: the flagship fused step
@@ -3176,6 +3335,7 @@ def dp_phase(root, wf_run, requests, refs, smi, rows, reset_counts, counts,
     p["idx"].append(np.random.RandomState(5).permutation(n_store)[
         :BATCH].astype(np.int32))
     one = dp_check.run_steps(None, p, device="cuda")
+    free_cache()
     t0 = time.perf_counter()
     mesh = init_mesh(0, 1, new_store_path(root), "cuda:0")
     print(f"  a mesh of one rank: backend {mesh.backend}, joined in "
@@ -3344,6 +3504,7 @@ def tp_phase(root, smi, rows, reset_counts, counts):
     from brdfnerf_tpu_torch.tools import tp_check
     os.makedirs(root, exist_ok=True)
     reset_counts()
+    free_cache()
     t0 = time.perf_counter()
     c = tp_check.run(1, 2, "float32", 2048, 12, TP_BATCH, "cuda",
                      backend="gloo", devices=["cuda:0", "cuda:0"],
@@ -3693,11 +3854,12 @@ def main():
     kernels = {"K1": k1.TRUNK_SIGMA, "K2": k2.TRUNK_FWD_GRAD,
                "K3": k2.TRUNK_BWD, "K4": k4.TRUNK_HEADS_FWD,
                "K5": k4.TRUNK_HEADS_BWD}
-    # the layer-major family's K1-K3 (ops/trunk_layers.py): counted as
-    # K1L, K2L and K3L where they launched, so that every other phase's
-    # expected counts (K1-K5) also say that none of them did
+    # the layer-major family's K1-K5 (ops/trunk_layers.py): counted as
+    # K1L..K5L where they launched, so that every other phase's expected
+    # counts (K1-K5) also say that none of them did
     wide = {"K1L": kl.TRUNK_SIGMA_WIDE, "K2L": kl.TRUNK_FWD_GRAD_WIDE,
-            "K3L": kl.TRUNK_BWD_WIDE}
+            "K3L": kl.TRUNK_BWD_WIDE, "K4L": kl.TRUNK_HEADS_FWD_WIDE,
+            "K5L": kl.TRUNK_HEADS_BWD_WIDE}
     chunks = N_REQUESTS * -(-REQ_SIDE * REQ_SIDE // CHUNK)
     renderer = load_renderer(run_dir, 1, device="cuda")
     assert renderer.chunk == CHUNK
@@ -4077,7 +4239,8 @@ def main():
         bound of the comparison with the twins on the CPU.  cpu_held False:
         the comparisons with the twins on the CPU are printed and not
         held; instead every kernel is held to every twin on the card (the
-        gradients at the CPU comparison's bound, the loss at its 1e-3)."""
+        gradients at the CPU comparison's bound, the loss at its 1e-3), and
+        the twins on the CPU run on the whole batch alone."""
         mcfg_ = mcfg if mcfg_ is None else mcfg_
         rcfg_ = rcfg if rcfg_ is None else rcfg_
         bounds_ = bounds if bounds_ is None else bounds_
@@ -4129,11 +4292,14 @@ def main():
                                        rcfg_=rcfg_, fine_z=fine_z)
                 for m, name, fn in saved:
                     setattr(m, name, fn)
+                # the twins on the CPU: the whole batch's pass above, and
+                # on the kept rays where they are held
                 loss_p, g_p = (cpu_whole if rays is whole else grads_on(
                     net_cpu, "cpu", rays, mcfg_, rcfg_=rcfg_,
-                    fine_z=fine_z))
-                comparisons = list(zip(bounds_, (g_k, g_k, g_k, g_t),
-                                       (g_b, g_fb, g_p, g_p)))
+                    fine_z=fine_z) if cpu_held else (None, None))
+                comparisons = [c for c in zip(bounds_, (g_k, g_k, g_k, g_t),
+                                              (g_b, g_fb, g_p, g_p))
+                               if c[2] is not None]
                 held_here = held
                 if not cpu_held:
                     label_c = "all kernels vs twins on the card"
@@ -4158,7 +4324,8 @@ def main():
                 print(f"   {len(rays)} rays: loss: kernels {loss_k:.6f}; "
                       f"backward's twin on the card {loss_b:.6f}; both "
                       f"twins on the card {loss_fb:.6f}; every twin on the "
-                      f"card {loss_t:.6f}; twins on the CPU {loss_p:.6f}",
+                      f"card {loss_t:.6f}; twins on the CPU "
+                      + ("not run" if loss_p is None else f"{loss_p:.6f}"),
                       flush=True)
                 if last and len(held) > 1:
                     print("    gradient norms: " + ", ".join(

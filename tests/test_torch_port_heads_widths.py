@@ -155,42 +155,83 @@ def test_uchain_from_kernel_reads_the_layout_at_width(feat):
 
 @pytest.mark.parametrize("feat", [64, 128, 256, 512, 96, 1024])
 def test_head_weights_checked_at_each_width(feat):
-    """heads_cuda_cover takes every width of CUDA_WIDTHS and no other;
-    check_head_weights takes the heads packed at the configuration's
-    width, refuses another width's, and refuses a width the kernels are
-    not built for, whatever the heads."""
+    """K4/K5 take every width K1-K3 take (cuda_kernels_cover, the one gate
+    of K1-K5: 96 and 1024 too); check_head_weights takes the heads packed at the
+    width the kernels run the model at (kernel_cfg: 96 at 128, zero-padded;
+    1024 layer-major, with the merged first layers and the second layers
+    over them), refuses another width's, and refuses a configuration that
+    is not a kernel configuration (width 96 itself), whatever the
+    heads."""
     _, cfg = _configs(feat, "bfloat16_all")
-    built = feat in tk1.CUDA_WIDTHS
-    assert th.heads_cuda_cover(cfg) == built
+    assert tk1.cuda_kernels_cover(cfg)
+    kcfg = tk1.kernel_cfg(cfg)
+    assert kcfg.feat == (128 if feat == 96 else feat)
     g = torch.Generator().manual_seed(0)
     from brdfnerf_tpu_torch.models.network import init_network
-    hw = th.pack_head_weights(init_network(cfg, g, device="cpu"), cfg,
+    hw = th.pack_head_weights(init_network(cfg, g, device="cpu"), kcfg,
                               torch.bfloat16)
-    x = torch.zeros(64, 128)
-    if built:
-        th.check_head_weights(cfg, hw, x)
-        other = 128 if feat != 128 else 64
-        with pytest.raises(ValueError, match="packed head wf"):
-            th.check_head_weights(dc.replace(cfg, feat=other), hw, x)
-    else:
-        with pytest.raises(ValueError, match="K4/K5 take the trunk widths"):
+    assert ("w2" in hw) == (feat > 512)
+    x = torch.zeros(128, 128)
+    th.check_head_weights(kcfg, hw, x)
+    other = 128 if kcfg.feat != 128 else 64
+    with pytest.raises(ValueError, match="packed head wf"):
+        th.check_head_weights(dc.replace(kcfg, feat=other), hw, x)
+    if kcfg.feat != feat:
+        with pytest.raises(ValueError, match="packed at the width the "
+                                             "kernels run"):
             th.check_head_weights(cfg, hw, x)
 
 
-@pytest.mark.parametrize("brdf_on,runs", [("0", False), ("0.5", True)])
-def test_kernels_line_with_the_switch_at_width(brdf_on, runs, monkeypatch):
-    """With BRDFNERF_FUSED_HEADS set at width 128 the train CLI's
-    [kernels] line names K4 + K5 (K4 when serving) where the RPV heads run
+def _line_at(argv, monkeypatch, freqs):
+    """The train CLI's and the serving [kernels] lines with the switch set
+    (tests/test_torch_port_widths._kernels_line), with `freqs` encoding
+    frequencies (the Python API's; the CLIs keep 10) where given."""
+    from test_torch_port_widths import _kernels_line
+    cfg, line, serve_line = _kernels_line(argv, monkeypatch, heads=True)
+    if freqs:
+        from brdfnerf_tpu_torch.cli.train import kernels_line
+        cfg = dc.replace(cfg, model=dc.replace(cfg.model,
+                                               mapping_sizes=(freqs, 4)))
+        cuda = torch.device("cuda")
+        line = kernels_line(cfg, cuda)
+        serve_line = kernels_line(cfg, cuda, train=False)
+    return line, serve_line
+
+
+@pytest.mark.parametrize("argv,freqs,brdf_on,runs,heads", [
+    pytest.param(["--fc_feat", "128"], 0, "0", False, None, id="0-False"),
+    pytest.param(["--fc_feat", "128"], 0, "0.5", True, "K4/K5 fused at 128",
+                 id="0.5-True"),
+    pytest.param(["--fc_feat", "96"], 0, "0.5", True,
+                 "K4/K5 at 128, zero-padded", id="96-0.5-True"),
+    pytest.param(["--fc_feat", "2048", "--fc_layers", "12"], 0, "0.5", True,
+                 "K4/K5 layer-major at 2048", id="2048-0.5-True"),
+    pytest.param(["--fc_feat", "128"], 24, "0.5", True,
+                 "K4/K5 layer-major at 128", id="144lanes-0.5-True"),
+])
+def test_kernels_line_with_the_switch_at_width(argv, freqs, brdf_on, runs,
+                                               heads, monkeypatch):
+    """With BRDFNERF_FUSED_HEADS set the train CLI's [kernels] line names
+    K4 + K5 (K4 when serving) and the family and width they run at (the
+    fused pair at 128; width 96 at 128, zero-padded; the layer-major pair
+    at 12 x 2048 and with a 144-lane encoding) where the RPV heads run
     without theta (--brdf_on 0.5), and says why the heads stay on K2 + K3
     where theta runs (--brdf_on 0, heads_kernel_supports' apply_theta)."""
-    from test_torch_port_widths import _kernels_line
-    _, line, serve_line = _kernels_line(
-        ["--fc_feat", "128", "--funcM", "1", "--funcF", "1", "--funcH",
-         "1", "--brdf_on", brdf_on], monkeypatch, heads=True)
-    assert "width 128" in line
+    line, serve_line = _line_at(
+        argv + ["--funcM", "1", "--funcF", "1", "--funcH", "1",
+                "--brdf_on", brdf_on], monkeypatch, freqs)
+    assert f"width {argv[1]}" in line
     assert ("K4 + K5 in their place" in line) == runs
     assert ("K4 in its place" in serve_line) == runs
-    if not runs:
+    if runs:
+        assert ("K4 + K5 in their place where the flagship head set runs "
+                f"(BRDFNERF_FUSED_HEADS; {heads})") in line, line
+        assert ("K4 in its place where the flagship head set runs "
+                f"(BRDFNERF_FUSED_HEADS; {heads.replace('K4/K5', 'K4')})"
+                ) in serve_line, serve_line
+        assert "stay on" not in line + serve_line
+        assert "K5" not in serve_line
+    else:
         for ln, pair in ((line, "K2 + K3"), (serve_line, "K2")):
             assert ("K4/K5 take RPV without theta (--brdf_on 0.5 or more), "
                     f"so the heads stay on {pair}") in ln, ln

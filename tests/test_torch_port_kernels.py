@@ -634,7 +634,8 @@ def test_profile_groups_find_the_kernels():
     <HEADS>, K5's b_th chain <ZF32, SPLIT>, the layout check's (every
     combination of the bools, the ones no launch takes included), and the
     layer-major family's product <AK, BKM, FLUSH> (its int EPI not
-    enumerated) and its five epilogue kernels."""
+    enumerated) and its seven epilogue kernels (K4's logits and K5's
+    cotangent sums among them)."""
     names = {k[0].split("(")[0] for k in _KERNELS}
     assert {"void trunk::trunk_sigma_kernel<true>",
             "void trunk::trunk_fwd_grad_kernel<false, false, false, false>",
@@ -653,5 +654,7 @@ def test_profile_groups_find_the_kernels():
             "void trunk::layers_colsum_kernel",
             "void trunk::layers_sigma_finish",
             "void trunk::layers_k2_seed",
-            "void trunk::layers_k3_head"} <= names, names
-    assert len(names) == 2 + 16 + 8 + 2 + 2 + 4 + 1 + 8 + 5
+            "void trunk::layers_k3_head",
+            "void trunk::layers_heads_finish",
+            "void trunk::layers_tile_rows"} <= names, names
+    assert len(names) == 2 + 16 + 8 + 2 + 2 + 4 + 1 + 8 + 7

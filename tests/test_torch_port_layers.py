@@ -320,8 +320,6 @@ def test_every_width_and_encoding_is_covered(feat, freqs):
             else:
                 assert kc.feat == -(-feat // 128) * 128
                 assert tk1.row_tile(kc) == tl.ROWS
-            assert th.heads_cuda_cover(cfg) == (
-                feat in tk1.CUDA_WIDTHS and lanes <= 128)
 
 
 def _line(argv, monkeypatch, heads=False, freqs=None):
@@ -358,17 +356,25 @@ def test_kernels_line_names_the_family(argv, freqs, family, extra,
     """The [kernels] line names the family that runs K1-K3 at the width
     (and the width it runs at where the packing is padded, or the
     encoding's lanes), with K1 and K2 + K3 (K2 when serving); with
-    BRDFNERF_FUSED_HEADS set where K4/K5 do not take the width or the
-    encoding, that the heads stay on K2 + K3."""
+    BRDFNERF_FUSED_HEADS set, K4 + K5 in K2 + K3's place (K4 when serving)
+    in the same family and at the same width."""
     line, serve_line = _line(argv, monkeypatch, freqs=freqs)
     assert line.startswith(f"[kernels] {family} CUDA kernels at width"), line
     for w in ("K1 (the sigma-only passes)", "K2 + K3") + extra:
         assert w in line, (w, line)
     assert "K2 (the trunk with its sigma gradient)" in serve_line
     line, serve_line = _line(argv, monkeypatch, heads=True, freqs=freqs)
-    assert "K4" not in line.split("BRDFNERF_FUSED_HEADS is set")[0]
-    assert "so the heads stay on K2 + K3" in line, line
-    assert "so the heads stay on K2" in serve_line, serve_line
+    feat = int(argv[1])
+    heads = (f"K4/K5 layer-major at {-(-feat // 128) * 128}"
+             if family == "layer-major" else
+             f"K4/K5 at {min(w for w in tk1.CUDA_WIDTHS if w >= feat)}, "
+             "zero-padded")
+    assert f"K4 + K5 in their place where the flagship head set runs " \
+        f"(BRDFNERF_FUSED_HEADS; {heads})" in line, line
+    assert f"K4 in its place where the flagship head set runs " \
+        f"(BRDFNERF_FUSED_HEADS; {heads.replace('K4/K5', 'K4')})" \
+        in serve_line, serve_line
+    assert "stay on" not in line + serve_line
 
 
 def test_point_blocks_fit_the_budget():

@@ -216,7 +216,8 @@ def test_cuda_kernels_cover_the_built_widths(feat):
     """K1-K3 take every width kernel_supports (the twins) takes: the fused
     family the widths it is built for (CUDA_WIDTHS) and, zero-padded, the
     widths under 512 at the next of them; the layer-major family the rest
-    (ops/trunk_layers.py); K4/K5 take the built widths and no other."""
+    (ops/trunk_layers.py); K4/K5 take every width K1-K3 take, in the same
+    family (cuda_kernels_cover is the one gate of K1-K5)."""
     _, cfg = _configs(feat, 8, 4, "bfloat16_all")
     assert tk1.kernel_supports(cfg)
     assert tk1.cuda_kernels_cover(cfg)
@@ -224,7 +225,6 @@ def test_cuda_kernels_cover_the_built_widths(feat):
     assert tk1.layer_major(kc) == (feat > 512)
     assert kc.feat == (min(w for w in (64, 128, 256, 512) if w >= feat)
                        if feat <= 512 else -(-feat // 128) * 128)
-    assert th.heads_cuda_cover(cfg) == (feat in (64, 128, 256, 512))
 
 
 @pytest.mark.parametrize("feat", [64, 128, 256])
@@ -408,10 +408,11 @@ def test_kernels_line_at_each_width(feat, monkeypatch):
 
 def test_fused_heads_gate_at_width_64(monkeypatch):
     """With BRDFNERF_FUSED_HEADS set at width 64, K4/K5 (built for every
-    width of CUDA_WIDTHS) are taken on the card: the [kernels] line names
+    width K1-K3 take) are taken on the card: the [kernels] line names
     K4 + K5 (K4 when serving), and K4's and K5's weight checks take the
-    width's heads and refuse another width's; on the CPU the heads' twins
-    take it too."""
+    width's heads and refuse another width's and a width the kernels do
+    not run a model at (96: the kernels run it at 128); on the CPU the
+    heads' twins take it too."""
     cfg, line, serve_line = _kernels_line(
         ["--fc_feat", "64", "--funcM", "1", "--funcF", "1", "--funcH", "1",
          "--dim_RPV", "1"], monkeypatch, heads=True)
@@ -423,13 +424,14 @@ def test_fused_heads_gate_at_width_64(monkeypatch):
     from brdfnerf_tpu_torch.models.network import init_network
     net = init_network(m, torch.Generator().manual_seed(0), device="cpu")
     assert th.heads_kernel_supports(m, net, apply_brdf=True)
-    assert th.heads_cuda_cover(m)
+    assert tk1.cuda_kernels_cover(m)
     hw = th.pack_head_weights(net, m, torch.bfloat16)
     th.check_head_weights(m, hw, torch.zeros(64, 128))
     with pytest.raises(ValueError, match="packed head wf"):
         th.check_head_weights(dc.replace(m, feat=128), hw,
                               torch.zeros(64, 128))
-    with pytest.raises(ValueError, match="K4/K5 take the trunk widths"):
+    with pytest.raises(ValueError, match="packed at the width the kernels "
+                                         "run"):
         th.check_head_weights(dc.replace(m, feat=96), hw,
                               torch.zeros(64, 128))
     # the CPU twins of the head block take width 64
