@@ -31,9 +31,14 @@
 // (every layer's tz, h and th; K5 also the rebuilt b_th chain) fits its
 // scratch budget, and allocates all scratch.
 //
-// The products: layers_product_kernel, a tiled mma.sync GEMM (bf16
-// operands, f32 accumulators, 128 x 128 x 32 tiles, a 3-stage cp.async
-// ring, 8 warps of 64 x 32), over a list of K segments so that the skip
+// The products: layers_product_kernel, a warp-specialised wgmma GEMM
+// (bf16 operands, f32 accumulators, 128 x 128 output tiles, k-steps of
+// 64): a producer thread loads A's and B's tiles by TMA into a 4-stage
+// ring, one warpgroup runs wgmma m64n128k16 on them and hands its
+// accumulators over through shared memory to two epilogue warpgroups, so
+// that a tile's epilogue runs beside the next tile's products; the blocks
+// are persistent (one an SM) and walk the output tiles.  A product
+// is a list of K segments, each with its own tensor maps, so that the skip
 // layer's [x | h] and the float32 instantiations' three products (A_hi
 // B_hi + A_lo B_hi + A_hi B_lo on the bf16 hi and lo terms,
 // ops/fused_mlp.split3_mm) run into one accumulator.  Its epilogues are
@@ -85,39 +90,59 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sm90_common.cuh"
 #include "trunk_act.cuh"
 
 namespace trunk {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int BM = 128, BN = 128, BK = 32;  // a block's output tile and k step
-constexpr int STAGES = 3;                   // cp.async ring depth
-constexpr int NT = 256;                     // 8 warps: 2 (rows) x 4 (columns)
-constexpr int PAD = 8;                      // bf16 of padding a smem row
-// one operand's stage: [BM][BK + PAD] (K-major) or [BK][BM + PAD]
-constexpr int TILE = BM * (BK + PAD);
-static_assert(BK * (BM + PAD) <= TILE, "an MN-major tile fits a stage");
-constexpr int SMEM = STAGES * 2 * TILE * (int)sizeof(bf16);  // 61,440 B
+constexpr int BM = 128, BN = 128, BK = 64;  // a block's output tile and k step
+// A k-step of 64 bf16 is one 128-byte row of the swizzled layout (SW128,
+// sm90_common.cuh).  A ring stage holds A's tile, then B's (128 x 64 each,
+// 16 KB), each as two 8 KB halves: the 64 rows of one m64 product
+// (K-major) or one TMA box of 64 k x 64 m or n (MN-major).
+constexpr int HALF = 64 * BK * 2;
+constexpr int STAGE = 4 * HALF;             // 32 KB
+constexpr int STAGES = 4;                   // the TMA ring
+// A block: warpgroup 0 runs the products, warpgroup 1 loads the ring (one
+// thread), warpgroups 2 and 3 run the epilogue.
+constexpr int NT = 512;
+// The accumulators go from the products' warpgroup to the epilogue's
+// through a staging tile of BM rows of f32, SLD floats apart (8 of
+// padding: the fragments' float2 stores take two wavefronts a warp).
+constexpr int SLD = BN + 8;
+constexpr int STG = BM * SLD * 4;
+// the column partials' 4 quantities x 8 epilogue warps x BN floats
+constexpr int RED = 4 * 8 * BN * 4;
+// the ring, the staging tile, the partials, the ring's and the staging
+// tile's barriers, and 1 KB to align the ring to the swizzle's 1,024 bytes
+constexpr int SMEM = 1024 + STAGES * STAGE + STG + RED + (2 * STAGES + 2) * 8;
+static_assert(SMEM <= 232448, "a block's shared memory");
+constexpr int NT_HEAD = 256;                // layers_k3_head's threads
 constexpr int MAXSEG = 6;
 // points whose products one accumulator of the weight gradients sums: the
 // f32 accumulation's error grows with K (ops/fused_trunk_vjp
 // WGRAD_F32_CHUNKS: 128 chunks of 64 points)
 constexpr int WG_SLICE = 8192;
 constexpr int SLICE_CHUNKS = WG_SLICE / BK;
+static_assert(WG_SLICE % BK == 0, "a slice is whole k-steps");
 // the float32 instantiations (FLUSH) add the tensor cores' accumulator
-// into a second f32 sum on the CUDA cores, rounded to nearest, every
-// FLUSH_CHUNKS k-chunks (512 products, the fused family's K at width
-// 512): the tensor cores' f32 accumulation errs with the length of its K
-// and not at random (csrc/trunk_bwd.cuh's weight gradients cap their K
-// for it), so a 12 x 2048 float32 product of K = 3 x 2,048 in one
-// accumulator sat ~4x further from the exact twin than the 512 rows (gx
-// 1.26e-4, measured on an H100)
-constexpr int FLUSH_CHUNKS = 16;
+// into a second f32 sum, rounded to nearest, every FLUSH_CHUNKS k-steps
+// (512 products, the fused family's K at width 512): the tensor cores'
+// f32 accumulation errs with the length of its K and not at random
+// (csrc/trunk_bwd.cuh's weight gradients cap their K for it), so a 12 x
+// 2048 float32 product of K = 3 x 2,048 in one accumulator sat ~4x
+// further from the exact twin than the 512 rows (gx 1.26e-4, measured on
+// an H100).  The second sum is the staging tile itself.
+constexpr int FLUSH_CHUNKS = 8;
+static_assert(FLUSH_CHUNKS * BK == 512, "the flush every 512 products");
 
 enum {
   EPI_FWD, EPI_CHAIN, EPI_TAN, EPI_ADJ, EPI_WGRAD, EPI_PLAIN, EPI_LOGITS,
-  EPI_HEADS
+  EPI_HEADS,
+  EPI_NONE   // writes nothing: the measurement build's (LAYERS_PROBE) bare
+             // mainloop
 };
 // the heads' logits: rgb x3, k, theta, rho_c (the packed columns 1..6)
 constexpr int LOGITS = 6;
@@ -194,42 +219,17 @@ struct Gemm {
   Epi e;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void cp16(void* s, const void* g) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_u32(s)),
-               "l"(g));
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-__device__ __forceinline__ void ldsm4(uint32_t* r, const void* s) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(s)));
-}
-__device__ __forceinline__ void ldsm4t(uint32_t* r, const void* s) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(s)));
-}
-__device__ __forceinline__ void mma(float* c, const uint32_t* a,
-                                    const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+// A launch's products as the kernel takes them: a TMA tensor map of each
+// segment's A and B (boxes of 128 rows x 64 k K-major, of 64 k x 64 m or
+// n MN-major), each segment's k-steps, the output tiles (row tiles x
+// column tiles x split-K slices) and the epilogue's arguments.
+struct Prod {
+  CUtensorMap ma[MAXSEG], mb[MAXSEG];
+  int chunks[MAXSEG];
+  int nseg, M, N, tiles_m, tiles_n, tiles;
+  int slice_chunks;          // k-steps of a split-K slice (or the whole K)
+  Epi e;
+};
 
 __device__ __forceinline__ float rnd(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
@@ -245,6 +245,24 @@ __device__ __forceinline__ void put2(const Planes& o, size_t i, float x0,
         __halves2bfloat162(__float2bfloat16_rn(x0 - __bfloat162float(h0)),
                            __float2bfloat16_rn(x1 - __bfloat162float(h1)));
 }
+// Four adjacent columns (i a multiple of 4) into operand planes.
+__device__ __forceinline__ void put4(const Planes& o, size_t i,
+                                     const float (&x)[4]) {
+  __nv_bfloat162 h[2], l[2];
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    h[k] = __floats2bfloat162_rn(x[2 * k], x[2 * k + 1]);
+    l[k] = __floats2bfloat162_rn(x[2 * k] - __low2float(h[k]),
+                                 x[2 * k + 1] - __high2float(h[k]));
+  }
+  *reinterpret_cast<uint2*>(o.p + i) =
+      make_uint2(*reinterpret_cast<uint32_t*>(&h[0]),
+                 *reinterpret_cast<uint32_t*>(&h[1]));
+  if (o.n == 2)
+    *reinterpret_cast<uint2*>(o.p + o.plane + i) =
+        make_uint2(*reinterpret_cast<uint32_t*>(&l[0]),
+                   *reinterpret_cast<uint32_t*>(&l[1]));
+}
 __device__ __forceinline__ void put1(const Planes& o, size_t i, float x) {
   const bf16 h = __float2bfloat16_rn(x);
   o.p[i] = h;
@@ -259,11 +277,56 @@ __device__ __forceinline__ void store2(const Saved& s, size_t i, float a,
     *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(s.p) + i) =
         __floats2bfloat162_rn(a, b);
 }
+__device__ __forceinline__ void store4(const Saved& s, size_t i,
+                                       const float (&x)[4]) {
+  if (s.f32) {
+    *reinterpret_cast<float4*>(static_cast<float*>(s.p) + i) =
+        make_float4(x[0], x[1], x[2], x[3]);
+  } else {
+    __nv_bfloat162 a = __floats2bfloat162_rn(x[0], x[1]);
+    __nv_bfloat162 b = __floats2bfloat162_rn(x[2], x[3]);
+    *reinterpret_cast<uint2*>(static_cast<bf16*>(s.p) + i) =
+        make_uint2(*reinterpret_cast<uint32_t*>(&a),
+                   *reinterpret_cast<uint32_t*>(&b));
+  }
+}
 __device__ __forceinline__ float2 load2(const Saved& s, size_t i) {
   if (s.f32) return *reinterpret_cast<const float2*>(
       static_cast<const float*>(s.p) + i);
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
       static_cast<const bf16*>(s.p) + i));
+}
+__device__ __forceinline__ void load4(const Saved& s, size_t i,
+                                      float (&x)[4]) {
+  if (s.f32) {
+    const float4 v =
+        *reinterpret_cast<const float4*>(static_cast<const float*>(s.p) + i);
+    x[0] = v.x;
+    x[1] = v.y;
+    x[2] = v.z;
+    x[3] = v.w;
+  } else {
+    const uint2 v =
+        *reinterpret_cast<const uint2*>(static_cast<const bf16*>(s.p) + i);
+    const float2 a = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&v.x));
+    const float2 b = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&v.y));
+    x[0] = a.x;
+    x[1] = a.y;
+    x[2] = b.x;
+    x[3] = b.y;
+  }
+}
+__device__ __forceinline__ void ld4(const float* p, float (&x)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  x[0] = v.x;
+  x[1] = v.y;
+  x[2] = v.z;
+  x[3] = v.w;
+}
+__device__ __forceinline__ void st4(float* p, const float (&x)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
 }
 __device__ __forceinline__ float load1(const Saved& s, size_t i) {
   if (s.f32) return static_cast<const float*>(s.p)[i];
@@ -272,369 +335,455 @@ __device__ __forceinline__ float load1(const Saved& s, size_t i) {
 __device__ __forceinline__ float sigmoid(float z) {
   return 1.f / (1.f + expf(-z));
 }
+// Ask for the line holding p in L2 (the epilogue's inputs, while the
+// products of their tile still run).
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
+}
+// the sum over a warp's lanes, in a fixed order (every lane gets it)
+__device__ __forceinline__ float warp_sum(float s) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  return s;
+}
 
 // C (M x N) = sum over the segments of A B, then the epilogue EPI.  AK: A
 // is stored [M][K] (else [K][M]); BKM: B is stored [N][K] (else [K][N]);
 // FLUSH: the sum taken in FLUSH_CHUNKS pieces (the float32 instantiations).
-// Block (x, y, z) computes the output tile (rows y BM.., columns x BN..)
-// over the whole K, or for EPI_WGRAD over slice z of SLICE_CHUNKS chunks.
-// M and N are multiples of 128, every segment's k of 32.
+// M and N are multiples of 128, every segment's k of 64.
+//
+// Each block walks the output tiles blockIdx.x, + gridDim.x, ..., tile t
+// being slice t / (tiles_m tiles_n) of the split-K weight gradients (else
+// 0), then row tile, then column tile: the blocks in flight cover the
+// column tiles of a few row tiles, so one layer's weights stay in L2 while
+// the row tiles pass.  Three roles, each walking the same tiles:
+//   * warpgroup 1, the producer: one thread walks the tiles' k-steps
+//     through the segments and loads A's and B's tiles by TMA into a ring
+//     of STAGES stages (full / empty mbarriers);
+//   * warpgroup 0, the products: per k-step, for each 64-row half of the
+//     tile, four wgmma m64n128k16 (acc[2][64]: thread t holds rows 16 (t /
+//     32) + (t % 32) / 4 + 8 h of each half, columns 8 j + 2 (t % 4) +
+//     {0, 1}, j < 16), then the accumulators into the staging tile (with
+//     FLUSH, added into it every FLUSH_CHUNKS k-steps) and on to the next
+//     tile;
+//   * warpgroups 2 and 3, the epilogue: warp W takes the staging tile's
+//     rows 16 W.. and lane l their columns 4 l..4 l + 3, so that each
+//     warp's loads and stores run along rows of the outputs; row partials
+//     are warp sums, column partials this lane's 16 rows, then the 8
+//     warps in order.
+// The staging tile is handed over by two mbarriers (sfull: written,
+// sempty: read), so one tile's epilogue runs beside the next tile's
+// products.
 template <int EPI, bool AK, bool BKM, bool FLUSH>
-__global__ void __launch_bounds__(NT)
-    layers_product_kernel(const __grid_constant__ Gemm p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sm = reinterpret_cast<bf16*>(smem);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp & 1, wn = warp >> 1;
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-  int total = 0;
-  for (int s = 0; s < p.nseg; ++s) total += p.seg[s].k / BK;
-  int c0 = 0, c1 = total;
-  if (EPI == EPI_WGRAD) {
-    c0 = blockIdx.z * SLICE_CHUNKS;
-    c1 = min(total, c0 + SLICE_CHUNKS);
-  }
-  const int nch = c1 - c0;
-
-  float acc[4][4][4], tot[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int k = 0; k < 4; ++k) acc[i][j][k] = tot[i][j][k] = 0.f;
-  // tot += acc, acc = 0 (FLUSH)
-  auto flush = [&]() {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          tot[i][j][k] += acc[i][j][k];
-          acc[i][j][k] = 0.f;
-        }
-  };
-
-  auto load = [&](int stage, int c) {
-    int s = 0;
-    while (c >= p.seg[s].k / BK) {
-      c -= p.seg[s].k / BK;
-      ++s;
+__global__ void __launch_bounds__(NT, 1)
+    layers_product_kernel(const __grid_constant__ Prod p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (sm90::smem_addr(smem_raw) & 1023)) & 1023);
+  float* stg = reinterpret_cast<float*>(smem + STAGES * STAGE);
+  float* red = reinterpret_cast<float*>(smem + STAGES * STAGE + STG);
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(smem + STAGES * STAGE + STG + RED);
+  uint64_t* empty = full + STAGES;
+  uint64_t* sfull = empty + STAGES;
+  uint64_t* sempty = sfull + 1;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 1);
     }
-    const Seg& g = p.seg[s];
-    const int k = c * BK;
-    bf16* sa = sm + stage * 2 * TILE;
-    bf16* sb = sa + TILE;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int q = tid + i * NT;
-      if constexpr (AK) {
-        const int r = q >> 2, kc = (q & 3) * 8;
-        cp16(sa + r * (BK + PAD) + kc,
-             g.a + (size_t)(m0 + r) * g.lda + k + kc);
-      } else {
-        const int r = q >> 4, mc = (q & 15) * 8;
-        cp16(sa + r * (BM + PAD) + mc,
-             g.a + (size_t)(k + r) * g.lda + m0 + mc);
-      }
-      if constexpr (BKM) {
-        const int r = q >> 2, kc = (q & 3) * 8;
-        cp16(sb + r * (BK + PAD) + kc,
-             g.b + (size_t)(n0 + r) * g.ldb + k + kc);
-      } else {
-        const int r = q >> 4, nc = (q & 15) * 8;
-        cp16(sb + r * (BN + PAD) + nc,
-             g.b + (size_t)(k + r) * g.ldb + n0 + nc);
-      }
-    }
-  };
-
-  auto compute = [&](int stage) {
-    const bf16* sa = sm + stage * 2 * TILE;
-    const bf16* sb = sa + TILE;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t af[4][4], bfg[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        const int mb = wm * 64 + mi * 16;
-        if constexpr (AK) {
-          ldsm4(af[mi], sa + (mb + (lane & 15)) * (BK + PAD) + kk +
-                            (lane >> 4) * 8);
-        } else {
-          const int j = lane >> 3;
-          ldsm4t(af[mi], sa + (kk + (j >> 1) * 8 + (lane & 7)) * (BM + PAD) +
-                             mb + (j & 1) * 8);
-        }
-      }
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        const int nb = wn * 32 + np * 16;
-        uint32_t r[4];
-        if constexpr (BKM) {
-          ldsm4(r, sb + (nb + (lane >> 4) * 8 + (lane & 7)) * (BK + PAD) + kk +
-                       ((lane >> 3) & 1) * 8);
-        } else {
-          ldsm4t(r, sb +
-                        (kk + ((lane >> 3) & 1) * 8 + (lane & 7)) * (BN + PAD) +
-                        nb + (lane >> 4) * 8);
-        }
-        bfg[2 * np][0] = r[0];
-        bfg[2 * np][1] = r[1];
-        bfg[2 * np + 1][0] = r[2];
-        bfg[2 * np + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma(acc[mi][ni], af[mi], bfg[ni]);
-    }
-  };
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nch) load(s, c0 + s);
-    cp_commit();
+    sm90::mbar_init(sfull, 128);
+    sm90::mbar_init(sempty, 256);
+    sm90::fence_barrier_init();
   }
-  for (int i = 0; i < nch; ++i) {
-    cp_wait<STAGES - 2>();
-    __syncthreads();
-    const int nx = i + STAGES - 1;
-    if (nx < nch) load(nx % STAGES, c0 + nx);
-    cp_commit();
-    compute(i % STAGES);
-    if constexpr (FLUSH) {
-      if ((i + 1) % FLUSH_CHUNKS == 0) flush();
-    }
-  }
-  if constexpr (FLUSH) {
-    flush();
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int k = 0; k < 4; ++k) acc[i][j][k] = tot[i][j][k];
-  }
-  cp_wait<0>();
   __syncthreads();
+  int total = 0;
+  for (int s = 0; s < p.nseg; ++s) total += p.chunks[s];
+  const int tiles_mn = p.tiles_m * p.tiles_n;
+  const int wg = tid >> 7;
 
-  // ---------------------------------------------------------- epilogue
-  const Epi& e = p.e;
-  const int rq = lane >> 2, cq = (lane & 3) * 2;
-  float rs1[8], rs2[8], cs[8], rl[LOGITS][8], cw[3][8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    rs1[j] = rs2[j] = cs[j] = 0.f;
-#pragma unroll
-    for (int k = 0; k < LOGITS; ++k) rl[k][j] = 0.f;
-#pragma unroll
-    for (int k = 0; k < 3; ++k) cw[k][j] = 0.f;
+  if (wg == 1) {
+    // ------------------------------------------------------------ producer
+    sm90::setmaxnreg_dec<40>();
+    if (tid != 128) return;
+    uint32_t stage = 0, phase = 0;
+    for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
+      const int rem = t % tiles_mn;
+      const int m0 = (rem / p.tiles_n) * BM, n0 = (rem % p.tiles_n) * BN;
+      const int c0 = (t / tiles_mn) * p.slice_chunks;
+      const int c1 = min(total, c0 + p.slice_chunks);
+      int s = 0, base = 0;   // the segment of k-step c, its first k-step
+      for (int c = c0; c < c1; ++c) {
+        while (c >= base + p.chunks[s]) base += p.chunks[s++];
+        const int k = (c - base) * BK;
+        sm90::mbar_wait(&empty[stage], phase ^ 1);
+        unsigned char* st = smem + stage * STAGE;
+        uint64_t* f = &full[stage];
+        sm90::mbar_expect_tx(f, STAGE);
+        if constexpr (AK) {
+          sm90::tma_load_2d(st, &p.ma[s], f, k, m0);
+        } else {
+          sm90::tma_load_2d(st, &p.ma[s], f, m0, k);
+          sm90::tma_load_2d(st + HALF, &p.ma[s], f, m0 + 64, k);
+        }
+        if constexpr (BKM) {
+          sm90::tma_load_2d(st + 2 * HALF, &p.mb[s], f, k, n0);
+        } else {
+          sm90::tma_load_2d(st + 2 * HALF, &p.mb[s], f, n0, k);
+          sm90::tma_load_2d(st + 3 * HALF, &p.mb[s], f, n0 + 64, k);
+        }
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
   }
+
+  if (wg == 0) {
+    // ------------------------------------------------------------ products
+    sm90::setmaxnreg_inc<184>();
+    const int lane = tid & 31, w = tid >> 5;
+    const int rq = lane >> 2, cq = (lane & 3) * 2;
+    uint32_t stage = 0, phase = 0, sphase = 0;
+    float acc[2][64];
 #pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
+    for (int i = 0; i < 64; ++i) acc[0][i] = acc[1][i] = 0.f;
+    // acc into (add: added to) the staging tile
+    auto to_stage = [&](bool add) {
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
+      for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = m0 + wm * 64 + mi * 16 + rq + h * 8;
-        const int c = n0 + wn * 32 + ni * 8 + cq;
-        const float v0 = acc[mi][ni][2 * h], v1 = acc[mi][ni][2 * h + 1];
+        for (int j = 0; j < 16; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float2* d = reinterpret_cast<float2*>(
+                stg + (mi * 64 + 16 * w + rq + 8 * h) * SLD + 8 * j + cq);
+            float2 v = make_float2(acc[mi][4 * j + 2 * h],
+                                   acc[mi][4 * j + 2 * h + 1]);
+            if (add) {
+              const float2 o = *d;
+              v.x += o.x;
+              v.y += o.y;
+            }
+            *d = v;
+          }
+    };
+    for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
+      const int c0 = (t / tiles_mn) * p.slice_chunks;
+      const int nch = min(total, c0 + p.slice_chunks) - c0;
+      // fresh: the next product overwrites acc (a tile's first, and with
+      // FLUSH the first after each fold into the staging tile)
+      bool fresh = true, folded = false;
+      uint32_t prev = 0;
+      for (int i = 0; i < nch; ++i) {
+        sm90::mbar_wait(&full[stage], phase);
+        const unsigned char* st = smem + stage * STAGE;
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < BK / 16; ++ks) {
+          // K-major: 16 k a step is 32 bytes inside the 128-byte rows, 8
+          // rows 1,024 bytes apart; MN-major: 16 k-rows of 128 bytes a
+          // step, the 64-wide halves one box (HALF) apart
+          const uint64_t db =
+              BKM ? sm90::make_desc(st + 2 * HALF + ks * 32, 16, 1024, 1)
+                  : sm90::make_desc(st + 2 * HALF + ks * 2048, HALF, 1024,
+                                    1);
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi) {
+            const uint64_t da =
+                AK ? sm90::make_desc(st + mi * HALF + ks * 32, 16, 1024, 1)
+                   : sm90::make_desc(st + mi * HALF + ks * 2048, HALF, 1024,
+                                     1);
+            sm90::wgmma_n128<AK ? 0 : 1, BKM ? 0 : 1>(
+                acc[mi], da, db, (fresh && ks == 0) ? 0 : 1);
+          }
+        }
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<1>();
+        if (i > 0 && tid == 0) sm90::mbar_arrive(&empty[prev]);
+        prev = stage;
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+        fresh = false;
+        if constexpr (FLUSH) {
+          if ((i + 1) % FLUSH_CHUNKS == 0 || i + 1 == nch) {
+            // the staging tile += acc (= acc at the tile's first fold,
+            // once the epilogue has read the last tile), then restart
+            sm90::wgmma_wait<0>();
+            sm90::fence_acc(acc[0]);
+            sm90::fence_acc(acc[1]);
+            if (!folded) {
+              sm90::mbar_wait(sempty, sphase ^ 1);
+              sphase ^= 1;
+            }
+            to_stage(folded);
+            folded = true;
+            fresh = true;
+          }
+        }
+      }
+      sm90::wgmma_wait<0>();
+      sm90::fence_acc(acc[0]);
+      sm90::fence_acc(acc[1]);
+      if (tid == 0) sm90::mbar_arrive(&empty[prev]);
+      if constexpr (!FLUSH) {
+        sm90::mbar_wait(sempty, sphase ^ 1);
+        sphase ^= 1;
+        to_stage(false);
+      }
+      sm90::mbar_arrive(sfull);
+    }
+    return;
+  }
+
+  // -------------------------------------------------------------- epilogue
+  // 128 registers a thread at launch; the producer's 88 spare go to the
+  // products' warpgroup (56) and here (16)
+  sm90::setmaxnreg_inc<144>();
+  const int et = tid - 256, W = et >> 5, lane = et & 31, cl = 4 * lane;
+  const Epi& e = p.e;
+  uint32_t sphase = 0;
+  for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
+    const int z = t / tiles_mn, rem = t % tiles_mn;
+    const int ty = rem / p.tiles_n, tx = rem % p.tiles_n;
+    const int m0 = ty * BM, n0 = tx * BN, c = n0 + cl;
+    // this lane's columns' constants
+    float bias[4] = {0.f, 0.f, 0.f, 0.f}, ws[4] = {0.f, 0.f, 0.f, 0.f};
+    if constexpr (EPI == EPI_FWD || EPI == EPI_PLAIN || EPI == EPI_LOGITS ||
+                  EPI == EPI_HEADS) {
+      if (e.bias) ld4(e.bias + c, bias);
+    }
+    if constexpr (EPI == EPI_FWD || EPI == EPI_TAN) {
+      if (e.sig1) ld4(e.wsig + c, ws);
+    }
+    // column partials: this lane's 4 columns over its warp's 16 rows
+    float cs[4][4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) cs[q][k] = 0.f;
+    // the inputs of this tile's epilogue into L2 while its products run
+    // (K3's adjoint, which reads three, measured slower with it:
+    // tools/product_share.py)
+    if constexpr (EPI == EPI_TAN || EPI == EPI_CHAIN) {
+      const int cc = EPI == EPI_CHAIN ? c - e.gx_cols : c;
+      if (cc >= 0) {
+        for (int i = 0; i < 16; ++i) {
+          const size_t r = m0 + 16 * W + i;
+          if (e.z_in.p)
+            prefetch_l2(static_cast<const char*>(e.z_in.p) +
+                        (r * e.z_in.ld + cc) * (e.z_in.f32 ? 4 : 2));
+          if (EPI == EPI_CHAIN && e.f_in)
+            prefetch_l2(e.f_in + r * e.f_in_ld + cc);
+        }
+      }
+    }
+    sm90::mbar_wait(sfull, sphase);
+    sphase ^= 1;
+    if constexpr (EPI == EPI_ADJ) {
+      // K3's adjoint reads three inputs a row: four rows' loads go out
+      // before their first store, which the compiler may not move loads
+      // across (the outputs could alias them); 6% faster a product than a
+      // row at a time (tools/product_share.py)
+#pragma unroll 1
+      for (int i0 = 0; i0 < 16; i0 += 4) {
+        float v[4][4], zz[4][4], bth[4][4], tz[4][4];
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          const size_t r = m0 + 16 * W + i0 + b;
+          ld4(stg + (16 * W + i0 + b) * SLD + cl, v[b]);
+          load4(e.z_in, r * e.z_in.ld + c, zz[b]);
+          load4(e.u_in, r * e.u_in.ld + c, bth[b]);
+          ld4(e.f_in + r * e.f_in_ld + c, tz[b]);
+        }
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          const size_t r = m0 + 16 * W + i0 + b;
+          float a[4], bt[4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            float h, d1, d2;
+            act_eval2(zz[b][k], e.w0, h, d1, d2);
+            a[k] = d1 * v[b][k] + d2 * tz[b][k] * bth[b][k];
+            bt[k] = d1 * bth[b][k];
+            cs[0][k] += a[k];
+          }
+          put4(e.o1, r * e.o1.ld + c, a);
+          put4(e.o2, r * e.o2.ld + c, bt);
+        }
+      }
+    } else {
+#pragma unroll 8
+      for (int i = 0; i < 16; ++i) {
+        const int r = m0 + 16 * W + i;
+        float v[4];
+        ld4(stg + (16 * W + i) * SLD + cl, v);
         if constexpr (EPI == EPI_FWD) {
-          const float z0 = v0 + e.bias[c], z1 = v1 + e.bias[c + 1];
-          float h0, d0, h1, d1;
-          act_eval(z0, e.w0, h0, d0);
-          act_eval(z1, e.w0, h1, d1);
-          if (e.o1.n) put2(e.o1, (size_t)r * e.o1.ld + c, h0, h1);
-          if (e.f_out)
-            *reinterpret_cast<float2*>(e.f_out + (size_t)r * e.f_ld + c) =
-                make_float2(d0, d1);
-          if (e.s1.p) store2(e.s1, (size_t)r * e.s1.ld + c, z0, z1);
-          if (e.s2.p) store2(e.s2, (size_t)r * e.s2.ld + c, h0, h1);
+          float zv[4], h[4], d[4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            zv[k] = v[k] + bias[k];
+            act_eval(zv[k], e.w0, h[k], d[k]);
+          }
+          if (e.o1.n) put4(e.o1, (size_t)r * e.o1.ld + c, h);
+          if (e.f_out) st4(e.f_out + (size_t)r * e.f_ld + c, d);
+          if (e.s1.p) store4(e.s1, (size_t)r * e.s1.ld + c, zv);
+          if (e.s2.p) store4(e.s2, (size_t)r * e.s2.ld + c, h);
           if (e.sig1) {
-            const float a0 = e.sig_round ? rnd(h0) : h0;
-            const float a1 = e.sig_round ? rnd(h1) : h1;
-            rs1[mi * 2 + h] += a0 * e.wsig[c] + a1 * e.wsig[c + 1];
+            float s = 0.f;
+#pragma unroll
+            for (int k = 0; k < 4; ++k)
+              s += (e.sig_round ? rnd(h[k]) : h[k]) * ws[k];
+            s = warp_sum(s);
+            if (lane == 0) e.sig1[(size_t)tx * p.M + r] = s;
           }
         } else if constexpr (EPI == EPI_CHAIN) {
           if (c < e.gx_cols) {
-            float2* g = reinterpret_cast<float2*>(e.gx + (size_t)r * e.gx_ld +
-                                                  c);
+            float* g = e.gx + (size_t)r * e.gx_ld + c;
             if (e.gx_add) {
-              float2 o = *g;
-              o.x += v0;
-              o.y += v1;
-              *g = o;
-            } else {
-              *g = make_float2(v0, v1);
+              float o[4];
+              ld4(g, o);
+#pragma unroll
+              for (int k = 0; k < 4; ++k) v[k] += o[k];
             }
+            st4(g, v);
           } else {
             const int cc = c - e.gx_cols;
-            if (e.s1.p) store2(e.s1, (size_t)r * e.s1.ld + cc, v0, v1);
+            if (e.s1.p) store4(e.s1, (size_t)r * e.s1.ld + cc, v);
             if (e.o1.n) {
-              float2 d;
+              float d[4];
               if (e.z_in.p) {
                 // act' of the layer below from its saved z (K5's chain)
-                const float2 z = load2(e.z_in, (size_t)r * e.z_in.ld + cc);
-                float hz;
-                act_eval(z.x, e.w0, hz, d.x);
-                act_eval(z.y, e.w0, hz, d.y);
+                float zz[4], hz;
+                load4(e.z_in, (size_t)r * e.z_in.ld + cc, zz);
+#pragma unroll
+                for (int k = 0; k < 4; ++k) act_eval(zz[k], e.w0, hz, d[k]);
               } else {
-                d = *reinterpret_cast<const float2*>(
-                    e.f_in + (size_t)r * e.f_in_ld + cc);
+                ld4(e.f_in + (size_t)r * e.f_in_ld + cc, d);
               }
-              put2(e.o1, (size_t)r * e.o1.ld + cc, d.x * v0, d.y * v1);
+#pragma unroll
+              for (int k = 0; k < 4; ++k) d[k] *= v[k];
+              put4(e.o1, (size_t)r * e.o1.ld + cc, d);
             }
           }
         } else if constexpr (EPI == EPI_TAN) {
-          const float2 z = load2(e.z_in, (size_t)r * e.z_in.ld + c);
-          float h0, d0, h1, d1;
-          act_eval(z.x, e.w0, h0, d0);
-          act_eval(z.y, e.w0, h1, d1);
-          const float t0 = d0 * v0, t1 = d1 * v1;
-          if (e.o1.n) put2(e.o1, (size_t)r * e.o1.ld + c, t0, t1);
-          if (e.o2.n) put2(e.o2, (size_t)r * e.o2.ld + c, h0, h1);
-          *reinterpret_cast<float2*>(e.f_out + (size_t)r * e.f_ld + c) =
-              make_float2(v0, v1);
+          float zz[4], h[4], d[4], th[4];
+          load4(e.z_in, (size_t)r * e.z_in.ld + c, zz);
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            act_eval(zz[k], e.w0, h[k], d[k]);
+            th[k] = d[k] * v[k];
+          }
+          if (e.o1.n) put4(e.o1, (size_t)r * e.o1.ld + c, th);
+          if (e.o2.n) put4(e.o2, (size_t)r * e.o2.ld + c, h);
+          st4(e.f_out + (size_t)r * e.f_ld + c, v);
           if (e.sig1) {
-            const float w0 = e.wsig[c], w1 = e.wsig[c + 1];
-            rs1[mi * 2 + h] += (e.sig_round ? rnd(h0) : h0) * w0 +
-                               (e.sig_round ? rnd(h1) : h1) * w1;
-            rs2[mi * 2 + h] += (e.sig_round ? rnd(t0) : t0) * w0 +
-                               (e.sig_round ? rnd(t1) : t1) * w1;
+            float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+              s1 += (e.sig_round ? rnd(h[k]) : h[k]) * ws[k];
+              s2 += (e.sig_round ? rnd(th[k]) : th[k]) * ws[k];
+            }
+            s1 = warp_sum(s1);
+            s2 = warp_sum(s2);
+            if (lane == 0) {
+              e.sig1[(size_t)tx * p.M + r] = s1;
+              e.sig2[(size_t)tx * p.M + r] = s2;
+            }
           }
-        } else if constexpr (EPI == EPI_ADJ) {
-          const float2 z = load2(e.z_in, (size_t)r * e.z_in.ld + c);
-          const float2 bth = load2(e.u_in, (size_t)r * e.u_in.ld + c);
-          const float2 tz = *reinterpret_cast<const float2*>(
-              e.f_in + (size_t)r * e.f_in_ld + c);
-          float h0, d10, d20, h1, d11, d21;
-          act_eval2(z.x, e.w0, h0, d10, d20);
-          act_eval2(z.y, e.w0, h1, d11, d21);
-          const float a0 = d10 * v0 + d20 * tz.x * bth.x;
-          const float a1 = d11 * v1 + d21 * tz.y * bth.y;
-          put2(e.o1, (size_t)r * e.o1.ld + c, a0, a1);
-          put2(e.o2, (size_t)r * e.o2.ld + c, d10 * bth.x, d11 * bth.y);
-          cs[ni * 2] += a0;
-          cs[ni * 2 + 1] += a1;
         } else if constexpr (EPI == EPI_WGRAD) {
-          *reinterpret_cast<float2*>(
-              e.part + ((size_t)blockIdx.z * p.M + r) * p.N + c) =
-              make_float2(v0, v1);
+          st4(e.part + ((size_t)z * p.M + r) * p.N + c, v);
         } else if constexpr (EPI == EPI_PLAIN) {
-          float z0 = v0, z1 = v1;
-          if (e.bias) {
-            z0 += e.bias[c];
-            z1 += e.bias[c + 1];
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            v[k] += bias[k];
+            cs[0][k] += v[k];
           }
-          if (e.o1.n) put2(e.o1, (size_t)r * e.o1.ld + c, z0, z1);
-          if (e.f_out)
-            *reinterpret_cast<float2*>(e.f_out + (size_t)r * e.f_ld + c) =
-                make_float2(z0, z1);
-          cs[ni * 2] += z0;
-          cs[ni * 2 + 1] += z1;
+          if (e.o1.n) put4(e.o1, (size_t)r * e.o1.ld + c, v);
+          if (e.f_out) st4(e.f_out + (size_t)r * e.f_ld + c, v);
         } else if constexpr (EPI == EPI_LOGITS) {
-          float a0, d0, a1, d1;
-          act_eval(v0 + e.bias[c], e.w0, a0, d0);
-          act_eval(v1 + e.bias[c + 1], e.w0, a1, d1);
-          if (e.sig_round) {
-            a0 = rnd(a0);
-            a1 = rnd(a1);
+          float a[4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            float d;
+            act_eval(v[k] + bias[k], e.w0, a[k], d);
+            if (e.sig_round) a[k] = rnd(a[k]);
           }
 #pragma unroll
-          for (int j = 0; j < LOGITS; ++j)
-            rl[j][mi * 2 + h] += a0 * e.w2[(size_t)j * p.N + c] +
-                                 a1 * e.w2[(size_t)j * p.N + c + 1];
-        } else {  // EPI_HEADS
-          float a0, d0, a1, d1;
-          act_eval(v0 + e.bias[c], e.w0, a0, d0);
-          act_eval(v1 + e.bias[c + 1], e.w0, a1, d1);
+          for (int q = 0; q < LOGITS; ++q) {
+            float w2[4];
+            ld4(e.w2 + (size_t)q * p.N + c, w2);
+            float s = 0.f;
+#pragma unroll
+            for (int k = 0; k < 4; ++k) s += a[k] * w2[k];
+            s = warp_sum(s);
+            if (lane == 0)
+              e.sig1[((size_t)q * (p.N / BN) + tx) * p.M + r] = s;
+          }
+        } else if constexpr (EPI == EPI_HEADS) {
           // c_z2 of the row (the cotangents of the six logits, rounded to
-          // the products' operand dtype), c_z2 W_2 at both columns
+          // the products' operand dtype), c_z2 W_2 at this lane's columns
           const float* cr = e.cot + (size_t)r * HEAD_COLS;
-          float q[LOGITS], s0 = 0.f, s1 = 0.f;
+          float qv[LOGITS], a[4], d[4], s[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-          for (int j = 0; j < LOGITS; ++j) {
-            q[j] = e.sig_round ? rnd(cr[1 + j]) : cr[1 + j];
-            s0 += q[j] * e.w2[(size_t)j * p.N + c];
-            s1 += q[j] * e.w2[(size_t)j * p.N + c + 1];
+          for (int q = 0; q < LOGITS; ++q)
+            qv[q] = e.sig_round ? rnd(cr[1 + q]) : cr[1 + q];
+#pragma unroll
+          for (int q = 0; q < LOGITS; ++q) {
+            float w2[4];
+            ld4(e.w2 + (size_t)q * p.N + c, w2);
+#pragma unroll
+            for (int k = 0; k < 4; ++k) s[k] += qv[q] * w2[k];
           }
-          const float g0 = d0 * s0, g1 = d1 * s1;
-          put2(e.o1, (size_t)r * e.o1.ld + c, g0, g1);
-          cs[ni * 2] += g0;
-          cs[ni * 2 + 1] += g1;
-          if (e.sig_round) {
-            a0 = rnd(a0);
-            a1 = rnd(a1);
+          float g[4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            act_eval(v[k] + bias[k], e.w0, a[k], d[k]);
+            g[k] = d[k] * s[k];
+            cs[0][k] += g[k];
+            if (e.sig_round) a[k] = rnd(a[k]);
           }
+          put4(e.o1, (size_t)r * e.o1.ld + c, g);
           // dW_2: the rgb block against the rgb logits, the RPV blocks
-          // against the RPV logits (c and c + 1 lie in one block)
+          // against the RPV logits (the 4 columns lie in one block)
           const int base = c < e.hid ? 0 : 3;
 #pragma unroll
-          for (int j = 0; j < 3; ++j) {
-            cw[j][ni * 2] += a0 * q[base + j];
-            cw[j][ni * 2 + 1] += a1 * q[base + j];
-          }
+          for (int q = 0; q < 3; ++q)
+#pragma unroll
+            for (int k = 0; k < 4; ++k) cs[1 + q][k] += a[k] * qv[base + q];
         }
       }
-
-  float* red = reinterpret_cast<float*>(smem);
-  // row partials: the quad's 4 lanes, then the 4 column warps in order
-  auto reduce_rows = [&](float(&rs)[8], float* out) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      rs[j] += __shfl_xor_sync(0xffffffffu, rs[j], 1);
-      rs[j] += __shfl_xor_sync(0xffffffffu, rs[j], 2);
     }
-    if ((lane & 3) == 0) {
+    // the staging tile is read: the products may fill it again
+    sm90::mbar_arrive(sempty);
+    // column partials out[row tile * stride + q N + column]: the 8 warps'
+    // sums in order
+    constexpr int NQ = EPI == EPI_HEADS ? 4
+                       : (EPI == EPI_ADJ || EPI == EPI_PLAIN) ? 1 : 0;
+    if constexpr (NQ > 0) {
+      if (e.col_part) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
-        red[wn * BM + wm * 64 + (j >> 1) * 16 + rq + (j & 1) * 8] = rs[j];
+        for (int q = 0; q < NQ; ++q) st4(red + (q * 8 + W) * BN + cl, cs[q]);
+        sm90::named_sync(1, 256);
+        if (et < BN) {
+          const size_t stride = EPI == EPI_HEADS ? 4 * (size_t)p.N : p.N;
+#pragma unroll
+          for (int q = 0; q < NQ; ++q) {
+            const float* rd = red + q * 8 * BN + et;
+            float s = rd[0];
+#pragma unroll
+            for (int x = 1; x < 8; ++x) s += rd[x * BN];
+            e.col_part[ty * stride + (size_t)q * p.N + n0 + et] = s;
+          }
+        }
+        sm90::named_sync(1, 256);
+      }
     }
-    __syncthreads();
-    if (tid < BM)
-      out[(size_t)blockIdx.x * p.M + m0 + tid] =
-          ((red[tid] + red[BM + tid]) + red[2 * BM + tid]) + red[3 * BM + tid];
-    __syncthreads();
-  };
-  // column partials: the 8 row lanes of each column, then the 2 row warps;
-  // out[row tile * stride + column]
-  auto reduce_cols = [&](float(&cv)[8], float* out, size_t stride) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      cv[j] += __shfl_xor_sync(0xffffffffu, cv[j], 4);
-      cv[j] += __shfl_xor_sync(0xffffffffu, cv[j], 8);
-      cv[j] += __shfl_xor_sync(0xffffffffu, cv[j], 16);
-    }
-    if (rq == 0) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        red[wm * BN + wn * 32 + (j >> 1) * 8 + cq + (j & 1)] = cv[j];
-    }
-    __syncthreads();
-    if (tid < BN)
-      out[(size_t)blockIdx.y * stride + n0 + tid] = red[tid] + red[BN + tid];
-    __syncthreads();
-  };
-  if ((EPI == EPI_FWD || EPI == EPI_TAN) && e.sig1) {
-    reduce_rows(rs1, e.sig1);
-    if (EPI == EPI_TAN) reduce_rows(rs2, e.sig2);
-  }
-  if constexpr (EPI == EPI_LOGITS) {
-    // logit j's partials at sig1 + j (N / BN) M
-#pragma unroll
-    for (int j = 0; j < LOGITS; ++j)
-      reduce_rows(rl[j], e.sig1 + (size_t)j * (p.N / BN) * p.M);
-  }
-  if (EPI == EPI_ADJ || (EPI == EPI_PLAIN && e.col_part))
-    reduce_cols(cs, e.col_part, p.N);
-  if constexpr (EPI == EPI_HEADS) {
-    reduce_cols(cs, e.col_part, 4 * (size_t)p.N);
-#pragma unroll
-    for (int j = 0; j < 3; ++j)
-      reduce_cols(cw[j], e.col_part + (size_t)(j + 1) * p.N,
-                  4 * (size_t)p.N);
   }
 }
 
@@ -765,7 +914,7 @@ struct Head {
   float* bs_part;            // [m / BM]
 };
 
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT_HEAD)
     layers_k3_head(const __grid_constant__ Head p) {
   __shared__ float s_az[BM], s_sp[BM];
   __shared__ float red[3][2][BN];
@@ -876,15 +1025,61 @@ void add(Gemm& g, const bf16* a, long long ap, long long lda, const bf16* bh,
   if (mode == 3) g.seg[g.nseg++] = Seg{a, bl, lda, ldb, k};
 }
 
-template <int EPI, bool AK, bool BKM>
-int run(const Gemm& g, int slices, bool flush, cudaStream_t st) {
-  auto k = flush ? layers_product_kernel<EPI, AK, BKM, true>
-                 : layers_product_kernel<EPI, AK, BKM, false>;
+// Launch one product: the segments' tensor maps (an error where
+// cuTensorMapEncodeTiled refuses one) and a grid of one block an SM,
+// each walking its tiles; plain (the measurement build's comparison,
+// tools/product_share.py) launches a block a tile instead.
+template <int EPI, bool AK, bool BKM, bool FLUSH>
+int launch(const Gemm& g, int slices, bool plain, cudaStream_t st) {
+  using sm90host::map_2d;
+  static_assert(sizeof(Prod) <= 4096, "a launch's parameters");
+  if (g.nseg < 1 || g.nseg > MAXSEG || g.M % BM || g.N % BN || slices < 1)
+    return cudaErrorInvalidValue;
+  Prod p = {};
+  int total = 0;
+  for (int s = 0; s < g.nseg; ++s) {
+    const Seg& sg = g.seg[s];
+    if (sg.k <= 0 || sg.k % BK) return cudaErrorInvalidValue;
+    p.chunks[s] = sg.k / BK;
+    total += p.chunks[s];
+    const bool ok =
+        (AK ? map_2d(&p.ma[s], sg.a, g.M, sg.k, sg.lda, BM, BK, 128)
+            : map_2d(&p.ma[s], sg.a, sg.k, g.M, sg.lda, BK, 64, 128)) &&
+        (BKM ? map_2d(&p.mb[s], sg.b, g.N, sg.k, sg.ldb, BN, BK, 128)
+             : map_2d(&p.mb[s], sg.b, sg.k, g.N, sg.ldb, BK, 64, 128));
+    if (!ok) return cudaErrorInvalidValue;
+  }
+  p.slice_chunks = slices > 1 ? SLICE_CHUNKS : total;
+  if ((slices - 1) * p.slice_chunks >= total) return cudaErrorInvalidValue;
+  p.nseg = g.nseg;
+  p.M = g.M;
+  p.N = g.N;
+  p.tiles_m = g.M / BM;
+  p.tiles_n = g.N / BN;
+  p.tiles = p.tiles_m * p.tiles_n * slices;
+  p.e = g.e;
+  auto k = layers_product_kernel<EPI, AK, BKM, FLUSH>;
   cudaError_t e = cudaFuncSetAttribute(
       k, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (e != cudaSuccess) return e;
-  k<<<dim3(g.N / BN, g.M / BM, slices), NT, SMEM, st>>>(g);
+  int grid = p.tiles;
+  if (!plain) {
+    int dev = 0, sms = 0;
+    if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+    if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+      return e;
+    if (grid > sms) grid = sms;
+  }
+  k<<<grid, NT, SMEM, st>>>(p);
   return cudaGetLastError();
+}
+
+template <int EPI, bool AK, bool BKM>
+int run(const Gemm& g, int slices, bool flush, cudaStream_t st,
+        bool plain = false) {
+  return flush ? launch<EPI, AK, BKM, true>(g, slices, plain, st)
+               : launch<EPI, AK, BKM, false>(g, slices, plain, st);
 }
 
 int blocks_for(long long n) {
@@ -1311,7 +1506,7 @@ int bwd(const long long* P, const int* D, void* stream, bool heads) {
       h.db_part = cpart;
       h.dws_part = dwsp;
       h.bs_part = bsp;
-      layers_k3_head<<<dim3(t.F / BN, m / BM), NT, 0, st>>>(h);
+      layers_k3_head<<<dim3(t.F / BN, m / BM), NT_HEAD, 0, st>>>(h);
       CK(cudaGetLastError());
       CK(colsum(cpart, m / BM, t.F, db_of(t.L - 1), acc, st));
       CK(colsum(dwsp, m / BM, t.F, dwsig, acc, st));
@@ -1349,6 +1544,100 @@ int bwd(const long long* P, const int* D, void* stream, bool heads) {
   }
   return 0;
 }
+
+#ifdef LAYERS_PROBE
+// Measurement only (tools/product_share.py builds the library with
+// -DLAYERS_PROBE): one product of layer 2 over the first point block of a
+// K3 call's arguments under epilogue epi (EPI_FWD, EPI_CHAIN, EPI_TAN,
+// EPI_ADJ or EPI_WGRAD) with the operands and outputs the main path gives
+// it, or with none set the same product under EPI_NONE, which writes
+// nothing; with plain set on a grid of one block a tile instead of the
+// SMs' worth of blocks walking the tiles.  The scratch's values are the
+// caller's.
+int product_probe(const long long* P, const int* D, int epi, int none,
+                  int plain, cudaStream_t st) {
+  const Trunk t(P, D);
+  const int i = 2;
+  if (!t.ok() || t.skip == i || t.skip == i - 1 || t.L < 4)
+    return cudaErrorInvalidValue;
+  const int pl = t.split ? 2 : 1, mode = t.split ? 3 : 1, m = t.B;
+  const long long hp = (long long)t.B * t.F, LF = (long long)t.L * t.F;
+  const int saved_f32 = D[D_SAVED_F32], es = saved_f32 ? 4 : 2;
+  bf16* hs = ptr<bf16>(P, S_HS);
+  bf16* ths = ptr<bf16>(P, S_THS);
+  float* tz = ptr<float>(P, S_TZ);
+  bf16* az[2] = {ptr<bf16>(P, S_AZ0), ptr<bf16>(P, S_AZ1)};
+  bf16* btz[2] = {ptr<bf16>(P, S_BTZ0), ptr<bf16>(P, S_BTZ1)};
+  auto slot = [&](bf16* base, int j) { return base + (size_t)j * pl * hp; };
+  auto saved = [&](int slot_p, int j) {
+    return Saved{ptr<char>(P, slot_p) + (size_t)j * t.F * es, (int)LF,
+                 saved_f32};
+  };
+  Gemm g = {};
+  g.M = m;
+  g.N = t.F;
+  Epi& e = g.e;
+  e.w0 = 1.f;
+  int slices = 1;
+  if (epi == EPI_FWD || epi == EPI_TAN) {
+    add(g, epi == EPI_FWD ? slot(hs, i - 1) : slot(ths, i - 1), hp, t.F,
+        t.w(i, 0), t.w(i, 1), t.ldw(i), t.F, mode);
+    e.f_out = tz + (size_t)i * hp;
+    e.f_ld = t.F;
+    if (epi == EPI_FWD) {
+      e.bias = t.bias(i);
+      e.o1 = Planes{slot(hs, i), hp, t.F, pl};
+      e.s1 = saved(P_ZS, i);
+    } else {
+      e.z_in = saved(P_ZS, i);
+      e.o1 = Planes{slot(ths, i), hp, t.F, pl};
+      e.o2 = Planes{slot(hs, i), hp, t.F, pl};
+    }
+  } else if (epi == EPI_CHAIN || epi == EPI_ADJ) {
+    add(g, az[0], hp, t.F, t.w(i, 0), t.w(i, 1), t.ldw(i), t.F, mode);
+    e.f_in = tz + (size_t)(i - 1) * hp;
+    e.f_in_ld = t.F;
+    e.o1 = Planes{az[1], hp, t.F, pl};
+    if (epi == EPI_CHAIN) {
+      e.s1 = saved(P_US, i - 1);
+    } else {
+      e.z_in = saved(P_ZS, i - 1);
+      e.u_in = saved(P_US, i - 1);
+      e.o2 = Planes{btz[1], hp, t.F, pl};
+      e.col_part = ptr<float>(P, S_CPART);
+    }
+  } else if (epi == EPI_WGRAD) {
+    g.M = t.F;
+    add(g, slot(hs, i - 1), hp, t.F, az[0], az[0] + hp, t.F, m, mode);
+    add(g, slot(ths, i - 1), hp, t.F, btz[0], btz[0] + hp, t.F, m, mode);
+    const int chunks = g.nseg * (m / BK);
+    slices = (chunks + SLICE_CHUNKS - 1) / SLICE_CHUNKS;
+    if (slices > D[D_WSLICES]) return cudaErrorInvalidValue;
+    e.part = ptr<float>(P, S_WPART);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  const bool ak = epi != EPI_WGRAD, bkm = epi == EPI_FWD || epi == EPI_TAN;
+  if (none) {
+    if (ak && bkm)
+      return run<EPI_NONE, true, true>(g, slices, t.split, st, plain);
+    if (ak) return run<EPI_NONE, true, false>(g, slices, t.split, st, plain);
+    return run<EPI_NONE, false, false>(g, slices, t.split, st, plain);
+  }
+  switch (epi) {
+    case EPI_FWD:
+      return run<EPI_FWD, true, true>(g, slices, t.split, st, plain);
+    case EPI_TAN:
+      return run<EPI_TAN, true, true>(g, slices, t.split, st, plain);
+    case EPI_CHAIN:
+      return run<EPI_CHAIN, true, false>(g, slices, t.split, st, plain);
+    case EPI_ADJ:
+      return run<EPI_ADJ, true, false>(g, slices, t.split, st, plain);
+    default:
+      return run<EPI_WGRAD, false, false>(g, slices, t.split, st, plain);
+  }
+}
+#endif
 
 }  // namespace trunk
 
@@ -1417,5 +1706,13 @@ int tl_bwd(const long long* P, const int* D, void* stream) {
 int tl_bwd_heads(const long long* P, const int* D, void* stream) {
   return bwd(P, D, stream, true);
 }
+
+#ifdef LAYERS_PROBE
+int tl_product_probe(const long long* P, const int* D, int epi, int none,
+                     int plain, void* stream) {
+  return product_probe(P, D, epi, none, plain,
+                       static_cast<cudaStream_t>(stream));
+}
+#endif
 
 }  // extern "C"

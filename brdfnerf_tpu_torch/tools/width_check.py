@@ -40,10 +40,11 @@ one command line for the widths' checks and times; chip_smoke.py's
 --layers runs check_width for every configuration of LAYER_CONFIGS (the
 12 x 2048 trunk; 4 x 768 at the exact sine and ReLU; a 144-lane encoding
 at 4 x 128 and 8 x 128; width 96, which the fused kernels run at 128) at
-each size
-(default 384 and 4,096 points): K1-K5 at fused_mlp.kernel_cfg's width
-(the layer-major K4 and K5 past 512 and over 128 lanes, the fused pair
-on heads packed zero-padded at 128 for width 96), at the bounds above
+each size (default LAYER_SIZES: 128, 384, 4,096 and 5,120 points, which
+reach the layer-major product's edge cases): K1-K5 at
+fused_mlp.kernel_cfg's width (the layer-major K4 and K5 past 512 and
+over 128 lanes, the fused pair on heads packed zero-padded at 128 for
+width 96), at the bounds above
 times sum_length_scale (past width 512 every product sums more terms);
 the layer-major K5's rebuilt chain is its last point block's rows
 against uchain_plain, and its reduced [db_1; dW_2] against the sum of
@@ -467,6 +468,11 @@ def point_blocks(label, packed, hw, cfg, enc, cot, cg, fwd, bwd):
     over all points but the last block (what a walk that drops that
     block's sum gives) must sit over the bound."""
     from ..ops import trunk_layers as tl
+    if enc.shape[0] <= tl.ROWS:
+        # one row tile is one point block whatever the budget: no walk
+        print(f"  K4/K5 {label}: one point block, no walk to hold",
+              flush=True)
+        return
     budget, e = tl.BUDGET, enc.shape[1]
     drop = slice(0, enc.shape[0] - tl.ROWS)
     try:
@@ -515,8 +521,14 @@ LAYER_CONFIGS = ((2048, 12, 4, "poly", 0), (768, 4, 2, "sin", 0),
                  (768, 4, 2, "relu", 0), (128, 4, 2, "poly", 24),
                  (128, 8, 4, "poly", 24), (96, 8, 4, "poly", 0))
 # their point counts: multiples of the layer-major tile (128), one block
-# of the padded fused family's 64-point tiles and a few thousand
-LAYER_SIZES = (384, 4096)
+# of the padded fused family's 64-point tiles and a few thousand; with the
+# product's edge cases: 128 points (a block of one row tile) and 5,120 (a
+# weight gradient of K = 10,240 at bfloat16_all, split-K slices of 8,192
+# and a ragged 2,048; at float32 30,720, three of 8,192 and 6,144).
+# Every size holds the products of fewer k-steps than ring stages (layer 0
+# at 128 lanes: two of 64) and the skip layer's two segments (float32's
+# six).
+LAYER_SIZES = (128, 384, 4096, 5120)
 
 
 def check_layers(sizes=LAYER_SIZES, report=None, configs=LAYER_CONFIGS):

@@ -1515,6 +1515,11 @@ LAYER_SERVE_CHECK = 64
 LAYER_CHECK_RAYS = 32
 LAYER_POINTS = 4096
 LAYER_POINTS_SMALL = 384
+# the layer-major product's edge cases (width_check.LAYER_SIZES): a block
+# of one row tile, and at 12 x 2048 a weight gradient of more than one
+# split-K slice with a ragged last one
+LAYER_POINTS_TILE = 128
+LAYER_POINTS_SLICES = 5120
 
 
 def layers_phase(rows, argv, tmp, gen, peaks, serve, train, check_served,
@@ -1524,15 +1529,17 @@ def layers_phase(rows, argv, tmp, gen, peaks, serve, train, check_served,
     fused family at a padded width.  The libraries' nvcc seconds; each
     layer-major instantiation at every dtype against its twin, twice
     bit-identical (tools/width_check.check_layers: 12 x 2048 on
-    LAYER_POINTS points; 4 x 768 at the exact sine and ReLU, 4 x 128 and
-    8 x 128 with a 144-lane encoding and width 96, which the fused family
-    runs at 128,
-    on LAYER_POINTS_SMALL); the 12 x 2048 rows of the kernels line at
-    their main shapes (width_check.layer_rows: bfloat16_all, and the
+    LAYER_POINTS_TILE, LAYER_POINTS and LAYER_POINTS_SLICES points; 4 x
+    768 at the exact sine and ReLU, 4 x 128 and 8 x 128 with a 144-lane
+    encoding and width 96, which the fused family runs at 128, on
+    LAYER_POINTS_TILE and LAYER_POINTS_SMALL); the 12 x 2048 rows of the
+    kernels line at their main shapes (width_check.layer_rows:
+    bfloat16_all, and the
     float32 step's K2 saving zs/us and K3); then the 12 x 2048 flagship
     (the heads, sampling and losses of the flagship, the trunk tensor
     parallelism exists for, on one card): one 16,384-ray request at
-    bfloat16_all (K1L 2 / K2L 1 a chunk) against the CPU twins on
+    bfloat16_all (K1L 2 / K2L 1 a chunk; a second one profiled) against
+    the CPU twins on
     LAYER_SERVE_CHECK rays, the stage-2 step at bfloat16_all (K1L 2 / K2L
     1 / K3L 1 a step, LAYER_SHORT timed on a one-batch store, a falling
     loss, peak memory, one step profiled) and a step-check point on its
@@ -1577,8 +1584,10 @@ def layers_phase(rows, argv, tmp, gen, peaks, serve, train, check_served,
         if key.startswith("trunk_layers"):
             print(f"  {key}: nvcc {rec['seconds']:.1f} s", flush=True)
     configs = width_check.LAYER_CONFIGS
-    width_check.check_layers((LAYER_POINTS,), configs=configs[:1])
-    width_check.check_layers((LAYER_POINTS_SMALL,), configs=configs[1:])
+    width_check.check_layers((LAYER_POINTS_TILE, LAYER_POINTS,
+                              LAYER_POINTS_SLICES), configs=configs[:1])
+    width_check.check_layers((LAYER_POINTS_TILE, LAYER_POINTS_SMALL),
+                             configs=configs[1:])
     assert not act_check.MISSES, act_check.MISSES
     t0 = time.perf_counter()
     print(f"  checks {t0 - t_phase:.1f} s", flush=True)
@@ -1627,7 +1636,7 @@ def layers_phase(rows, argv, tmp, gen, peaks, serve, train, check_served,
     assert (m_.feat, m_.layers, m_.skips) == (2048, 12, (4,))
     r_ = load_renderer(w_dir, 1, device="cuda")
     outs, launches = serve("request, 12 x 2048, bfloat16_all", wide_serve,
-                           r_, n_req=1, profiled=False)
+                           r_, n_req=1)
     rows["K1 bfloat16_all f2048"]["launches"] = launches["K1L"]
     rows["K2 bfloat16_all f2048"]["launches"] = launches["K2L"]
     check_served(outs, r_, n_check=LAYER_SERVE_CHECK)

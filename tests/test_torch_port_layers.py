@@ -425,6 +425,34 @@ def test_argument_slots_match_the_source():
     assert re.search(r"WG_SLICE = 8192;", src) and tl.WG_SLICE == 8192
 
 
+def test_product_mainloop_is_wgmma_fed_by_tma():
+    """The layer-major product of csrc/trunk_layers.cu runs wgmma on tiles
+    a TMA ring brings (sm90_common.cuh), with no mma.sync mainloop left:
+    its float32 instantiations still fold the tensor cores' sum into the
+    second f32 sum every 512 products, and the weight gradients' split-K
+    slices are whole k-steps."""
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "brdfnerf_tpu_torch", "csrc",
+        "trunk_layers.cu")
+    with open(path) as fh:
+        src = fh.read()
+    code = re.sub(r"//[^\n]*", "", src)
+
+    def const(name):
+        m = re.search(rf"\b{name} = (\d+)[;,]", code)
+        assert m, name
+        return int(m.group(1))
+
+    bk = const("BK")
+    assert const("FLUSH_CHUNKS") * bk == 512
+    assert const("WG_SLICE") % bk == 0
+    assert re.search(r'#include "sm90_common.cuh"', code)
+    assert "mma.sync" not in code and "ldmatrix" not in code
+    assert "cp.async.cg" not in code
+    assert "wgmma_n128" in code and "tma_load_2d" in code
+    assert "map_2d" in code
+
+
 def test_layer_major_wrappers_refuse_what_they_cannot_run():
     """A CPU tensor, rows off the tile, or a width off the tile raise
     ValueError in the layer-major wrappers (never a fallback to a twin);
@@ -452,11 +480,15 @@ def test_layer_major_wrappers_refuse_what_they_cannot_run():
 
 @pytest.mark.cuda
 def test_layer_kernels_match_twins_on_the_card():
-    """Every layer-major instantiation (12 x 2048 on 384 points; 4 x 768 at
-    the exact sine and ReLU; 4 x 128 and 8 x 128 with 144 lanes) and the
-    fused family at width 96 (at 128) against their twins on the card at
-    every dtype, twice bit-identical (tools/width_check.check_layers, the
-    bounds of the width-512 rows times sum_length_scale); chip_smoke.py's
+    """Every layer-major instantiation (12 x 2048 on 128, 384 and 5,120
+    points; 4 x 768 at the exact sine and ReLU; 4 x 128 and 8 x 128 with
+    144 lanes, on 128 and 384) and the fused family at width 96 (at 128)
+    against their twins on the card at every dtype, twice bit-identical
+    (tools/width_check.check_layers, the bounds of the width-512 rows times
+    sum_length_scale), the product's edge cases among them: a block of one
+    row tile, fewer k-steps than ring stages (layer 0 at 128 lanes), the
+    skip layer's segments, a weight gradient of several split-K slices
+    with a ragged last one (12 x 2048 at 5,120 points); chip_smoke.py's
     `widths, layer-major` phase makes the same checks and drives the main
     paths."""
     if not torch.cuda.is_available():
@@ -464,5 +496,7 @@ def test_layer_kernels_match_twins_on_the_card():
     from brdfnerf_tpu_torch.tools import act_check, width_check
     torch.backends.cuda.matmul.allow_tf32 = False
     del act_check.MISSES[:]
-    width_check.check_layers((384,))
+    width_check.check_layers((128, 384))
+    width_check.check_layers((5120,),
+                             configs=width_check.LAYER_CONFIGS[:1])
     assert not act_check.MISSES, act_check.MISSES
