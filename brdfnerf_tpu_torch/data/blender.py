@@ -1,9 +1,10 @@
 """Blender-synthetic (NeRF lego) dataset, --data blender: the port's copy of
 the JAX package's data/blender.py (reference datasets/blender.py), which
 reads and resizes its frames through PIL.  Here the frames are decoded by
-utils/png and resized by utils/resample.resize_lanczos (Pillow's LANCZOS on
-premultiplied RGBA, bit for bit), and the perturbations draw their
-rectangles with NumPy.
+utils/png (every PNG colour type, depth and Adam7, to PIL's array) and
+resized by utils/resample (Pillow's LANCZOS on premultiplied RGBA, its
+16-bit LANCZOS, or its NEAREST for "1" and "P" frames), and the
+perturbations draw their rectangles with NumPy.
 
 Conventions as the JAX package keeps them: focal from camera_angle_x
 scaled from 800 px (focal *= w / 800, blender.py:126-128), pinhole
@@ -24,8 +25,9 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from ..utils.png import read_png
-from ..utils.resample import resize_lanczos
+from ..utils.png import decode_image
+from ..utils.resample import (resize_lanczos, resize_lanczos16,
+                              resize_nearest_pil)
 
 
 def get_ray_directions(h: int, w: int, k: np.ndarray) -> np.ndarray:
@@ -74,11 +76,22 @@ def add_perturbation(img: np.ndarray, perturbation, seed: int) -> np.ndarray:
 
 
 def _load_image(path: str, wh, perturbation=(), seed: int = 0):
-    img = read_png(path)
+    """The JAX package's _load_image on PIL's array for the frame
+    (utils/png.decode_image), whatever its mode: a resize takes NEAREST
+    for "1" and "P" frames, as Image.resize does, and Pillow's 16-bit
+    LANCZOS for "I;16" ones; a palette frame's indices and a 16-bit
+    frame's values are divided by 255 as the JAX package divides them."""
+    with open(path, "rb") as f:
+        img, mode = decode_image(f.read(), path)
     if perturbation and seed != 0:
         img = add_perturbation(img, perturbation, seed)
     if (img.shape[1], img.shape[0]) != tuple(wh):
-        img = resize_lanczos(img, *wh)
+        if mode in ("1", "P"):
+            img = resize_nearest_pil(img, *wh)
+        elif mode == "I;16":
+            img = resize_lanczos16(img, *wh)
+        else:
+            img = resize_lanczos(img, *wh)
     arr = np.asarray(img).astype(np.float32) / 255.0
     if arr.ndim == 2:
         arr = np.tile(arr[..., None], (1, 1, 3))

@@ -53,7 +53,7 @@ import numpy as np
 from ..geo import rpc as rpc_mod
 from ..geo.geodesy import (latlon_to_ecef, utm_from_latlon, sun_direction,
                            scaling_params, utm_zone_from_latlon)
-from ..utils.geotiff import read_geotiff
+from ..utils.geotiff import read_geotiff, read_pixels
 from ..utils.resample import resize_linear, resize_nearest
 
 
@@ -292,14 +292,15 @@ def pixel_value_bound(json_paths: List[str], img_dir: str,
 
 def load_mask(json_path: str, h: int, w: int) -> np.ndarray:
     """{json}_mask.tif -> flat bool (satellite_rgb_dep.py:263-285);
-    all-ones when absent.  The pixels are those PIL gives: one band as
-    (H, W), several as (H, W, bands); a mask of another size than (h, w)
-    is resized as cv2's INTER_NEAREST does (utils/resample)."""
+    all-ones when absent.  The pixels are those PIL gives
+    (utils/geotiff.read_pixels: bool for a 1-bit mask under any
+    compression, one band as (H, W), several as (H, W, bands)); a mask of
+    another size than (h, w) is resized as cv2's INTER_NEAREST does
+    (utils/resample)."""
     mask_p = json_path[:-5] + "_mask.tif"
     if not os.path.isfile(mask_p):
         return np.ones(h * w, bool)
-    arr, _ = read_geotiff(mask_p)
-    m = arr[0] if arr.shape[0] == 1 else arr.transpose(1, 2, 0)
+    m = read_pixels(mask_p)
     if m.shape[:2] != (h, w):
         m = resize_nearest(m.astype(np.uint8), w, h)
     return (m.reshape(-1) > 0)

@@ -1,10 +1,12 @@
-"""RPC (rational polynomial coefficient) satellite camera model, host half
-(the port's copy of the float64 NumPy paths of the JAX package's
-geo/rpc.py; its jnp device twins are not needed by the port).
+"""RPC (rational polynomial coefficient) satellite camera model: the
+port's copy of the JAX package's geo/rpc.py.
 
   * projection_np   : (lon, lat, alt) -> (col, row), direct rational polys
   * localization_np : (col, row, alt) -> (lon, lat), Newton inversion with
     the analytic 2x2 Jacobian
+  * projection, localization_normalized, localization: the same on torch
+    tensors, on their device and in their dtype (the JAX package's
+    batched device functions), 12 Newton iterations by default
 
 Polynomial term ordering and normalization follow the standard RPC00B
 convention used by rpcm's `apply_poly` (x=nlat, y=nlon, z=nalt), so RPC
@@ -20,6 +22,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
 
 class RPCModel(NamedTuple):
@@ -187,9 +190,10 @@ def rescale_rpc(rpc: RPCModel, alpha: float) -> RPCModel:
         row_offset=rpc.row_offset * alpha, col_offset=rpc.col_offset * alpha)
 
 
-def _poly20_np(c, x, y, z):
-    """Float64 NumPy twin of _poly20 for host-side ingestion."""
-    c = np.asarray(c, dtype=np.float64)
+def _poly20(c, x, y, z):
+    """The RPC00B cubic polynomial; x=nlat, y=nlon, z=nalt.  Only + and *,
+    so one body serves NumPy arrays and tensors alike (c indexable: a
+    float64 array, or a tensor in the points' dtype and device)."""
     return (c[0]
             + c[1] * y + c[2] * x + c[3] * z
             + c[4] * y * x + c[5] * y * z + c[6] * x * z
@@ -200,6 +204,18 @@ def _poly20_np(c, x, y, z):
             + c[15] * x * x * x
             + c[16] * x * z * z + c[17] * y * y * z + c[18] * x * x * z
             + c[19] * z * z * z)
+
+
+def _poly20_grad(c, x, y, z):
+    """(d/dx, d/dy) of _poly20 (x = nlat, y = nlon), on arrays or
+    tensors as _poly20."""
+    dx = (c[2] + c[4] * y + c[6] * z + 2.0 * c[8] * x + c[10] * y * z
+          + 2.0 * c[12] * y * x + c[14] * y * y + 3.0 * c[15] * x * x
+          + c[16] * z * z + 2.0 * c[18] * x * z)
+    dy = (c[1] + c[4] * x + c[5] * z + 2.0 * c[7] * y + c[10] * x * z
+          + 3.0 * c[11] * y * y + c[12] * x * x + c[13] * z * z
+          + 2.0 * c[14] * y * x + c[17] * 2.0 * y * z)
+    return dx, dy
 
 
 def _monomials20_np(x, y, z):
@@ -245,29 +261,13 @@ def _deriv_coeff_np(c):
     cubic over the quadratic monomial basis — the FIRST TEN columns of
     `_monomials20_np` ([1, y, x, z, xy, yz, xz, y², x², z²]).  The same
     design-matrix prefix therefore evaluates every Jacobian entry of the
-    Newton solve by GEMM (matches `_poly20_np_dx` / `_poly20_np_dy`)."""
+    Newton solve by GEMM (matches `_poly20_grad`)."""
     c = np.asarray(c, np.float64)
     dx = np.array([c[2], c[4], 2 * c[8], c[6], 2 * c[12], c[10],
                    2 * c[18], c[14], 3 * c[15], c[16]], np.float64)
     dy = np.array([c[1], 2 * c[7], c[4], c[5], 2 * c[14], 2 * c[17],
                    c[10], 3 * c[11], c[12], c[13]], np.float64)
     return np.stack([dx, dy], axis=-1)
-
-
-def _poly20_np_dx(c, x, y, z):
-    """d/dx (x = nlat) of the RPC00B cubic."""
-    c = np.asarray(c, dtype=np.float64)
-    return (c[2] + c[4] * y + c[6] * z + 2.0 * c[8] * x + c[10] * y * z
-            + 2.0 * c[12] * y * x + c[14] * y * y + 3.0 * c[15] * x * x
-            + c[16] * z * z + 2.0 * c[18] * x * z)
-
-
-def _poly20_np_dy(c, x, y, z):
-    """d/dy (y = nlon) of the RPC00B cubic."""
-    c = np.asarray(c, dtype=np.float64)
-    return (c[1] + c[4] * x + c[5] * z + 2.0 * c[7] * y + c[10] * x * z
-            + 3.0 * c[11] * y * y + c[12] * x * x + c[13] * z * z
-            + 2.0 * c[14] * y * x + c[17] * 2.0 * y * z)
 
 
 def projection_np(rpc: RPCModel, lon, lat, alt):
@@ -363,3 +363,81 @@ def localization_np(rpc: RPCModel, col, row, alt, iters: int = 20,
     lon = y * float(rpc.lon_scale) + float(rpc.lon_offset)
     lat = x * float(rpc.lat_scale) + float(rpc.lat_offset)
     return lon, lat
+
+
+# ------------------------------------------------------- torch, batched
+
+def _coeffs(c, like: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(c, np.float64), dtype=like.dtype,
+                           device=like.device)
+
+
+def _tensors(*xs):
+    """The arguments as tensors of one floating dtype on one device,
+    broadcast together: as torch promotes, tensors with dimensions decide
+    over scalars and 0-d tensors."""
+    ts = [torch.as_tensor(x) for x in xs]
+    lead = [t for t in ts if t.dim()] or ts
+    dtype = lead[0].dtype
+    for t in lead[1:]:
+        dtype = torch.promote_types(dtype, t.dtype)
+    if not dtype.is_floating_point:
+        dtype = torch.get_default_dtype()
+    device = lead[0].device
+    return torch.broadcast_tensors(*[t.to(device=device, dtype=dtype)
+                                     for t in ts])
+
+
+def projection(rpc: RPCModel, lon, lat, alt):
+    """Ground (deg, deg, m) -> image (col, row) on tensors, broadcast
+    together; the coefficients in the tensors' dtype, on their device."""
+    lon, lat, alt = _tensors(lon, lat, alt)
+    nlon = (lon - float(rpc.lon_offset)) / float(rpc.lon_scale)
+    nlat = (lat - float(rpc.lat_offset)) / float(rpc.lat_scale)
+    nalt = (alt - float(rpc.alt_offset)) / float(rpc.alt_scale)
+    c = [_coeffs(k, lon) for k in (rpc.col_num, rpc.col_den, rpc.row_num,
+                                   rpc.row_den)]
+    ncol = _poly20(c[0], nlat, nlon, nalt) / _poly20(c[1], nlat, nlon, nalt)
+    nrow = _poly20(c[2], nlat, nlon, nalt) / _poly20(c[3], nlat, nlon, nalt)
+    return (ncol * float(rpc.col_scale) + float(rpc.col_offset),
+            nrow * float(rpc.row_scale) + float(rpc.row_offset))
+
+
+def localization_normalized(rpc: RPCModel, col, row, alt, iters: int = 12):
+    """Image (col, row) at altitude alt (m) -> NORMALIZED ground (nlon,
+    nlat) on tensors: Newton from (0, 0), iters steps, the 2x2 Jacobian
+    from the polynomials' analytic derivatives.  In float32 this is the
+    accurate interface (absolute float32 degrees quantize to ~0.5 px at a
+    full Pleiades scene's scale, as the JAX package's docstring says)."""
+    col, row, alt = _tensors(col, row, alt)
+    tc = (col - float(rpc.col_offset)) / float(rpc.col_scale)
+    tr = (row - float(rpc.row_offset)) / float(rpc.row_scale)
+    z = (alt - float(rpc.alt_offset)) / float(rpc.alt_scale)
+    cn, cd, rn, rd = (_coeffs(k, col) for k in (
+        rpc.col_num, rpc.col_den, rpc.row_num, rpc.row_den))
+    y = torch.zeros_like(tc)                       # nlon
+    x = torch.zeros_like(tc)                       # nlat
+    for _ in range(iters):
+        vals = [_poly20(k, x, y, z) for k in (cn, cd, rn, rd)]
+        grads = [_poly20_grad(k, x, y, z) for k in (cn, cd, rn, rd)]
+        (a, b), (da, db) = vals[:2], grads[:2]
+        cx = (da[0] * b - a * db[0]) / (b * b)     # d col / d nlat
+        cy = (da[1] * b - a * db[1]) / (b * b)     # d col / d nlon
+        (a, b), (da, db) = vals[2:], grads[2:]
+        rx = (da[0] * b - a * db[0]) / (b * b)
+        ry = (da[1] * b - a * db[1]) / (b * b)
+        fc = vals[0] / vals[1] - tc
+        fr = vals[2] / vals[3] - tr
+        det = cy * rx - cx * ry
+        y = y - (rx * fc - cx * fr) / det
+        x = x - (-ry * fc + cy * fr) / det
+    return y, x
+
+
+def localization(rpc: RPCModel, col, row, alt, iters: int = 12):
+    """Image (col, row) at altitude alt (m) -> ground (lon, lat) degrees:
+    localization_normalized denormalized (in float32 the output's own
+    quantization dominates; prefer the normalized interface there)."""
+    nlon, nlat = localization_normalized(rpc, col, row, alt, iters=iters)
+    return (nlon * float(rpc.lon_scale) + float(rpc.lon_offset),
+            nlat * float(rpc.lat_scale) + float(rpc.lat_offset))

@@ -155,6 +155,26 @@ def init_t_embedding(vocab: int, dim: int, generator: torch.Generator,
     return draw.to(resolve_device(device))
 
 
+def model_config_for_variant(variant: str, **overrides) -> ModelConfig:
+    """The defaults of each model variant (reference models/__init__.py
+    load_model), as the JAX package's model_config_for_variant gives them;
+    overrides replace any field.  ValueError for an unknown variant."""
+    base: Dict = dict(variant=variant)
+    if variant == "nerf":
+        base.update(mapping=True, siren=False)           # NeRF class defaults
+    elif variant == "s-nerf":
+        base.update(siren=True, sun_v="learned", indirect_light=True)
+    elif variant in ("sat-nerf", "sps-nerf"):
+        base.update(siren=True, sun_v="learned", indirect_light=True,
+                    beta=True)
+    elif variant == "spsbrdf-nerf":
+        base.update(siren=True)
+    else:
+        raise ValueError(f"model {variant} is not valid")
+    base.update(overrides)
+    return ModelConfig(**base)
+
+
 def init_network(cfg: ModelConfig, generator: torch.Generator,
                  device=None) -> Network:
     """torch-style init: Linear U(+-1/sqrt(fan_in)) for weights and

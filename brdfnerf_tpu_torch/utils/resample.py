@@ -178,3 +178,86 @@ def resize_lanczos(img: np.ndarray, w: int, h: int) -> np.ndarray:
     if alpha:
         x = _unpremultiply(x)
     return x if img.ndim == 3 else x[..., 0]
+
+
+# ------------------------------------------- Pillow NEAREST and 16-bit
+
+def resize_nearest_pil(img: np.ndarray, w: int, h: int) -> np.ndarray:
+    """Pillow's Image.resize(..., NEAREST), which it takes for every "1"
+    and "P" image (ImagingScaleAffine): destination pixel k reads source
+    pixel int(sx / 2 + k * sx), the position accumulated step by step in
+    double precision as Pillow accumulates it."""
+    img = np.asarray(img)
+    if img.shape[:2] == (h, w):
+        return img.copy()
+
+    def index(src, dst):
+        a = src / dst
+        pos = np.cumsum(np.concatenate([[a * 0.5], np.full(dst - 1, a)]))
+        return np.minimum(pos.astype(np.int64), src - 1)
+    return img[index(img.shape[0], h)][:, index(img.shape[1], w)]
+
+
+def _pillow_coeffs(src: int, dst: int):
+    """Pillow's precompute_coeffs for LANCZOS in double precision, summed
+    in its order: per destination pixel (first source pixel, weights)."""
+    import math
+
+    def sinc(x):
+        if x == 0.0:
+            return 1.0
+        x = x * math.pi
+        return math.sin(x) / x
+
+    scale = src / dst
+    filterscale = max(scale, 1.0)
+    support = LANCZOS_SUPPORT * filterscale
+    out = []
+    for xx in range(dst):
+        center = (xx + 0.5) * scale
+        ss = 1.0 / filterscale
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), src) - xmin
+        k, ww = [], 0.0
+        for x in range(xmax):
+            v = (x + xmin - center + 0.5) * ss
+            f = sinc(v) * sinc(v / 3) if -3.0 <= v < 3.0 else 0.0
+            k.append(f)
+            ww += f
+        out.append((xmin, [f / ww if ww != 0.0 else f for f in k]))
+    return out
+
+
+def _resample16(x: np.ndarray, dst: int) -> np.ndarray:
+    """One 16bpc pass along axis 1 of (rows, src) uint16: the sum in
+    double, ROUND_UP, and each byte of the result clipped on its own
+    (ImagingResampleHorizontal_16bpc)."""
+    out = np.empty((x.shape[0], dst), np.uint16)
+    xf = x.astype(np.float64)
+    for xx, (xmin, k) in enumerate(_pillow_coeffs(x.shape[1], dst)):
+        ss = np.zeros(x.shape[0])
+        for i, f in enumerate(k):
+            ss = ss + xf[:, xmin + i] * f
+        r = np.where(ss >= 0.0, np.floor(ss + 0.5),
+                     -np.floor(np.abs(ss) + 0.5)).astype(np.int64)
+        lo = np.clip(np.fmod(r, 256), 0, 255)
+        hi = np.clip(r >> 8, 0, 255)
+        out[:, xx] = lo + (hi << 8)
+    return out
+
+
+def resize_lanczos16(img: np.ndarray, w: int, h: int) -> np.ndarray:
+    """Pillow's Image.resize(..., LANCZOS) of an "I;16" image (uint16
+    (H, W)): a horizontal then a vertical pass, each with double weights
+    and rounded to 16 bits."""
+    img = np.asarray(img)
+    if img.dtype != np.uint16 or img.ndim != 2:
+        raise ValueError("resize_lanczos16 takes uint16 (H, W) images")
+    if img.shape == (h, w):
+        return img.copy()
+    x = img
+    if x.shape[1] != w:
+        x = _resample16(x, w)
+    if x.shape[0] != h:
+        x = _resample16(x.T, h).T
+    return np.ascontiguousarray(x)

@@ -2771,6 +2771,83 @@ def blender_train(root, scene, reset_counts, counts, smi):
     return run_dir, psnrs, ingest_s, train_rays_s, train_s
 
 
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "data_torch_port")
+
+
+def digest(arr) -> str:
+    """SHA-256 of an array's bytes, a bool array's as 0 / 1, as
+    tests/make_image_fixtures.py hashes Pillow's arrays."""
+    import hashlib
+    a = np.ascontiguousarray(arr)
+    if a.dtype == bool:
+        a = a.astype(np.uint8)
+    return hashlib.sha256(a.tobytes()).hexdigest()
+
+
+@contextlib.contextmanager
+def host_twins():
+    """The host C decoders' entry points swapped for their NumPy twins, to
+    hold one against the other on the same files."""
+    from brdfnerf_tpu_torch.utils import ccitt, jpeg, png
+    saved = (jpeg.decode, jpeg.raw_planes, ccitt.decode, png._unfilter_c)
+    jpeg.decode, jpeg.raw_planes = jpeg.decode_plain, jpeg.raw_planes_plain
+    ccitt.decode = ccitt.decode_plain
+    png._unfilter_c = (lambda raw, h, w, c, path:
+                       png.unfilter_plain(raw, h, w, c))
+    try:
+        yield
+    finally:
+        jpeg.decode, jpeg.raw_planes, ccitt.decode, png._unfilter_c = saved
+
+
+def image_fixtures(smi):
+    """The committed image fixtures (tests/data_torch_port, written by
+    Pillow: JPEG-in-TIFF YCbCr 4:2:0 tiled and greyscale, Group 4 and
+    Group 3 2-D masks, an Adam7 16-bit RGBA and a palette PNG) decoded by
+    the host C libraries (utils/jpeg, utils/ccitt, png's unfilter), each
+    equal to its NumPy twin's decode and of the SHA-256 of Pillow's array
+    in manifest.json.  Returns the seconds the check took."""
+    from brdfnerf_tpu_torch.ops.cuda_build import build_log
+    from brdfnerf_tpu_torch.utils import geotiff, png
+    t_all = time.perf_counter()
+    with open(os.path.join(FIXTURES, "manifest.json")) as f:
+        manifest = json.load(f)
+
+    def read(path):
+        if path.endswith(".png"):
+            return png.read_png(path)
+        return geotiff.read_pixels(path)
+
+    names = sorted(n for n in manifest if not n.startswith("_"))
+    for name in names:
+        want, path = manifest[name], os.path.join(FIXTURES, name)
+        got = read(path)                 # the first call builds the library
+        ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            read(path)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        with host_twins():
+            twin = read(path)
+        twin_ms = (time.perf_counter() - t0) * 1e3
+        assert got.dtype == twin.dtype and np.array_equal(got, twin), name
+        assert (str(got.dtype), list(got.shape)) == (want["dtype"],
+                                                     want["shape"]), name
+        assert digest(got) == want["sha256"], (name, "not Pillow's array")
+        print(f"  {name} ({want['pil_mode']}, {got.shape} {got.dtype}, "
+              f"{want['bytes']:,} B): host C decode {min(ms):.3f} ms (best "
+              f"of 3), NumPy twin {twin_ms:.1f} ms, equal; SHA-256 equal to "
+              f"Pillow's; {smi}", flush=True)
+    built = {k: round(v["seconds"], 3) for k, v in build_log.items()
+             if k.startswith("host:")}
+    took = time.perf_counter() - t_all
+    print(f"  image fixtures: {len(names)} files in {took:.3f} s (host "
+          f"library builds in it, s: {built}); {smi}", flush=True)
+    return took
+
+
 def blender_phase(root, reset_counts, counts, smi):
     """The reference's data and output paths without PIL or cv2: the
     blender dataset with vanilla NeRF through the train and eval CLIs, and
@@ -2792,6 +2869,10 @@ def blender_phase(root, reset_counts, counts, smi):
     from brdfnerf_tpu_torch.utils import png, viz
     none = {k: 0 for k in counts()}
 
+    # the image formats the JAX package reads through PIL, from the
+    # committed fixtures
+    image_fixtures(smi)
+
     # the scene, and the host C unfilter against its NumPy twin on every
     # frame (the twin in TWIN_PROCS processes beside the train CLI: it
     # walks 1,599 diagonals a frame)
@@ -2805,9 +2886,11 @@ def blender_phase(root, reset_counts, counts, smi):
         with open(p, "rb") as fh:
             bufs.append(fh.read())
     t0 = time.perf_counter()
-    decoded = [png.decode_png(b, p) for b, p in zip(bufs, frames)]
+    decoded = [png.decode_image(b, p)[0] for b, p in zip(bufs, frames)]
     decode_s = time.perf_counter() - t0
-    inflated = [png.inflate(b, p) for b, p in zip(bufs, frames)]
+    inflated = [(q.rows, q.stride // q.bpp, q.bpp, q.raw)
+                for b, p in zip(bufs, frames)
+                for q in png.scanlines(b, p)[1]]
     kinds = {int(k) for _, w_, c_, raw in inflated
              for k in np.frombuffer(raw, np.uint8)[::w_ * c_ + 1]}
     assert kinds == set(range(5)), kinds

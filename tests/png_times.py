@@ -34,11 +34,11 @@ def decode_times(reps: int = 7):
     from brdfnerf_tpu_torch.utils import png
     img = paeth_frame()
     buf = png.encode_png(img, png.PAETH)
-    assert np.array_equal(png.decode_png(buf), img)
+    assert np.array_equal(png.decode_image(buf)[0], img)
     port, pil = [], []
     for _ in range(reps):
         t0 = time.perf_counter()
-        png.decode_png(buf)
+        png.decode_image(buf)
         port.append(time.perf_counter() - t0)
         t0 = time.perf_counter()
         np.asarray(Image.open(io.BytesIO(buf)))

@@ -3,7 +3,8 @@ package functions it stands in for, on the CPU:
 
   * utils/png: decode equal to PIL on PIL-written frames and on frames
     written with each filter type, in several IDAT chunks; the C unfilter
-    equal to its NumPy twin; refusals; the all-Paeth 800 x 800 RGBA decode
+    equal to its NumPy twin; palettes, 16 bits and Adam7 decoded, a bad
+    filter type and CRC refused; the all-Paeth 800 x 800 RGBA decode
     within 3x PIL's time (tests/png_times.py);
   * utils/resample: Pillow's LANCZOS within 1 uint8 level (RGBA 800 ->
     400, odd sizes, every mode), cv2's INTER_NEAREST bit-equal and
@@ -43,6 +44,7 @@ from brdfnerf_tpu_torch.utils import guards, png, resample, viz
 from brdfnerf_tpu_torch.utils.geotiff import read_geotiff
 
 import torch_port_common  # noqa: F401  (one torch thread a process)
+from image_builders import encode_png_any
 from png_times import decode_times
 
 MODES = {1: "L", 2: "LA", 3: "RGB", 4: "RGBA"}
@@ -100,34 +102,40 @@ def test_png_each_filter_type(kind):
         filters = (np.arange(23) % 5) if kind == "per row" else kind
         buf = png.encode_png(img, filters, idat_size=97)
         assert buf.count(b"IDAT") > 2
-        h, w, cc, raw = png.inflate(buf)
+        (p,) = png.scanlines(buf)[1]
+        h, w, cc, raw = p.rows, p.stride // p.bpp, p.bpp, p.raw
         rows = np.frombuffer(raw, np.uint8).reshape(h, -1)[:, 0]
         assert np.array_equal(rows, np.broadcast_to(filters, (h,)))
         assert np.array_equal(np.asarray(Image.open(io.BytesIO(buf))), img)
-        got = png.decode_png(buf)
+        got = png.decode_image(buf)[0]
         assert np.array_equal(got, img), (kind, c)
         assert np.array_equal(png.unfilter_plain(raw, h, w, cc),
                               got.reshape(h, -1))
 
 
 def test_png_refuses_what_it_does_not_decode(tmp_path):
+    """Palettes, 16-bit samples and Adam7, once refused, decode to PIL's
+    array (every type, depth and Adam7: tests/test_torch_port_image_
+    formats.py); a filter type past 4 and a bad CRC are still refused."""
     from PIL import Image
     pal = str(tmp_path / "p.png")
     Image.fromarray(frame(8, 8, 3)).convert("P").save(pal)
-    with pytest.raises(ValueError, match="palette"):
-        png.read_png(pal)
+    with open(pal, "rb") as f:
+        assert png.decode_image(f.read())[1] == "P"
+    assert np.array_equal(png.read_png(pal), np.asarray(Image.open(pal)))
     deep = str(tmp_path / "d.png")
     Image.fromarray(np.arange(64, dtype=np.uint16).reshape(8, 8)
                     * 1000).save(deep)
-    with pytest.raises(ValueError, match="16-bit"):
-        png.read_png(deep)
-    buf = bytearray(png.encode_png(frame(8, 8, 3)))
-    buf[28] = 1                                  # IHDR interlace byte
-    buf[29:33] = struct.pack(">I", zlib.crc32(bytes(buf[12:29])))
-    with pytest.raises(ValueError, match="interlaced"):
-        png.decode_png(bytes(buf))
+    got = png.read_png(deep)
+    assert got.dtype == np.uint16
+    assert np.array_equal(got, np.asarray(Image.open(deep)))
+    img = frame(8, 8, 3)
+    laced = encode_png_any(img.astype(np.int64), 8, 2, interlace=True)
+    assert laced[28] == 1                        # IHDR interlace byte
+    assert np.array_equal(png.decode_image(laced)[0], img)
+    assert np.array_equal(np.asarray(Image.open(io.BytesIO(laced))), img)
     buf = bytearray(png.encode_png(frame(8, 8, 3), png.SUB))
-    rows = bytearray(png.inflate(bytes(buf))[3])
+    rows = bytearray(png.scanlines(bytes(buf))[1][0].raw)
     rows[3 * 25] = 7                              # row 3's filter byte
     body = zlib.compress(bytes(rows))
     bad = (png.SIGNATURE + bytes(buf[8:33])
@@ -135,19 +143,33 @@ def test_png_refuses_what_it_does_not_decode(tmp_path):
            + struct.pack(">I", zlib.crc32(b"IDAT" + body))
            + bytes(buf[-12:]))
     with pytest.raises(ValueError, match="row 3 has filter type 7"):
-        png.decode_png(bad)
+        png.decode_image(bad)
     with pytest.raises(ValueError, match="CRC"):
-        png.decode_png(bytes(buf[:-5]) + b"\0" + bytes(buf[-4:]))
+        png.decode_image(bytes(buf[:-5]) + b"\0" + bytes(buf[-4:]))
 
 
 def test_geotiff_refuses_jpeg_compression_without_pil(tmp_path):
-    """A JPEG-in-TIFF (the JAX package reads its pixels through PIL) raises
-    UnsupportedTiffFeature naming the compression."""
+    """JPEG-in-TIFF now decodes without PIL (to PIL's pixels: tests/test_
+    torch_port_image_formats.py); what the reader still refuses, ZSTD and
+    WebP, raises UnsupportedTiffFeature naming the compression."""
     from PIL import Image
     from brdfnerf_tpu_torch.utils.geotiff import UnsupportedTiffFeature
     path = str(tmp_path / "j.tif")
     Image.fromarray(frame(16, 16, 3)).save(path, compression="jpeg")
-    with pytest.raises(UnsupportedTiffFeature, match="compression 7"):
+    assert np.array_equal(read_geotiff(path)[0].transpose(1, 2, 0),
+                          np.asarray(Image.open(path)))
+    Image.fromarray(frame(16, 16, 3)).save(path, compression="zstd")
+    with pytest.raises(UnsupportedTiffFeature,
+                       match="compression 50000 .ZSTD"):
+        read_geotiff(path)
+    with open(path, "rb") as f:           # the same file marked WebP
+        buf = bytearray(f.read())
+    i = buf.index(struct.pack("<HHIH", 259, 3, 1, 50000))
+    buf[i + 8:i + 10] = struct.pack("<H", 50001)
+    with open(path, "wb") as f:
+        f.write(bytes(buf))
+    with pytest.raises(UnsupportedTiffFeature,
+                       match="compression 50001 .WebP"):
         read_geotiff(path)
 
 
